@@ -8,20 +8,29 @@ fatal on failure:
 
   1. build   every CUDA kernel of `ogmm_tpu_torch/csrc` (parallel `nvcc`)
   2. kernels each kernel's wrapper against its plain PyTorch version on the
-             card, at the shapes the serving forward gives it (2B=48 clouds of
-             717 points, emb 512, K=128), with the limits stated below, and
-             timed beside its plain version and its bound
+             card, at the shapes the main paths give it (serving: 2B=48
+             clouds of 717 points, emb 512, K=128; training: B=24 clouds of
+             717 points, 1-NN queries of 512, 128 and 717 points), with the
+             limits stated below, and timed beside its plain version and its
+             bound
   3. serve   `Registrar` at B=24, N=717, emb 512, K=128, bf16 body, seeded
              random weights: a few requests with and without ICP; the launch
              counts of the kernels over one request; the same requests with
              the kernels swapped for their plain versions, compared on the
              overlap scores and the refined rotation
-  4. check   ICP on a small input recovers a known pose
+  4. train   `make_train_step` at the same shape and body: a warm-up step,
+             one step with the launch counts, ten timed steps; finite loss
+             and gradients, every parameter and running statistic moved;
+             one step from the same state through the kernels and through
+             their plain versions, compared on the loss and the gradients;
+             one `make_eval_step` with ICP
+  5. check   ICP on a small input recovers a known pose
 
-Prints the request times, one JSON object {"kernels": [...]} on a line of its
-own, the `nvidia-smi` name and power limit, and as the last line
+Prints the request and step times, one JSON object {"kernels": [...]} on a
+line of its own, the `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -38,14 +47,20 @@ try:
     from ogmm_tpu_torch.api import Registrar
     from ogmm_tpu_torch.core import se3
     from ogmm_tpu_torch.nn import dgcnn as nn_dgcnn
-    from ogmm_tpu_torch.ops import dispatch
+    from ogmm_tpu_torch.ops import cuda_knn, dispatch
+    from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
     from ogmm_tpu_torch.ops import gmm as ops_gmm
     from ogmm_tpu_torch.ops.common import index_points
     from ogmm_tpu_torch.ops.cuda_dgcnn import (STAGES, dgcnn_eval,
                                                dgcnn_eval_reference)
+    from ogmm_tpu_torch.ops.cuda_dgcnn_train import (graph_stage1,
+                                                     graph_stage1_reference)
     from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
+    from ogmm_tpu_torch.ops.cuda_knn import nn1, nn1_reference
     from ogmm_tpu_torch.ops.fps import farthest_point_sample
     from ogmm_tpu_torch.ops.icp import icp_point_to_point
+    from ogmm_tpu_torch.train import (create_train_state, make_eval_step,
+                                      make_train_step, train_loss)
 except ImportError as e:
     sys.exit(f"chip_smoke: the package ogmm_tpu_torch is missing: {e}")
 
@@ -63,9 +78,17 @@ LIM_ALPHA = 1e-5         # cosines from float32 coordinates
 LIM_EM_1 = 1e-4          # one EM trip: exp of arguments scaled by 1/eps = 100
 LIM_EM_10_NODES = 1e-2   # ten trips drift apart chaotically: consumed
 LIM_EM_10_PI = 1e-3      # outputs only, cloud extent ~1
+LIM_Z1_F32 = 1e-5        # six float32 products, other summation order
+LIM_Z1_BF16 = 0.0313     # one bf16 rounding of values up to ~4: one ulp
+LIM_NN1_D = 0.0          # same float32 arithmetic in the same order
 # limits, serving forward with kernels against the same with plain versions
 LIM_OVERLAP = 0.05       # sigmoid scores after a bf16 body
 LIM_ROT_DEG = 1.0        # median angle between the two refined rotations
+# limits, one train step with kernels against the same with plain versions:
+# the ten EM trips drift apart chaotically (as above), which moves the
+# cluster features and the pose, so loss and gradients agree to a share
+LIM_STEP_LOSS = 0.02     # relative difference of the loss
+LIM_STEP_GRAD = 0.2      # |g_kernel - g_plain| / |g_plain| over all params
 
 
 def cuda_ms(fn, reps):
@@ -193,26 +216,106 @@ def check_em(rs):
     }
 
 
+def check_graph_stage1(rs):
+    x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=DEV)
+    w1 = torch.tensor(rs.randn(6, 64).astype(np.float32) / np.sqrt(6), device=DEV)
+    errs = {}
+    for dt, lim in ((torch.float32, LIM_Z1_F32), (torch.bfloat16, LIM_Z1_BF16)):
+        z1, e, idx, alpha = graph_stage1(x, w1, KNN, dt, POS_K)
+        torch.cuda.synchronize()
+        rz1, re, ridx, ralpha = graph_stage1_reference(x, w1, KNN, dt, POS_K)
+        assert z1.shape == (B, KNN, N, 64) and z1.dtype == dt
+        same_idx = torch.equal(idx, ridx)
+        same_e = torch.equal(e, re)
+        err = (z1.float() - rz1.float()).abs().max().item()
+        aerr = (alpha - ralpha).abs().max().item()
+        print(f"graph_stage1 {dt}: idx identical {same_idx}, e identical "
+              f"{same_e}, max|z1 kernel - plain| = {err:.3g} (limit {lim}), "
+              f"alpha {aerr:.3g} (limit {LIM_ALPHA}), max|z1| = "
+              f"{rz1.float().abs().max().item():.3g}")
+        assert same_idx and same_e and err <= lim and aerr <= LIM_ALPHA
+        assert torch.isfinite(z1.float()).all()
+        errs[dt] = max(err, aerr)
+    bf = torch.bfloat16
+    ms = cuda_ms(lambda: graph_stage1(x, w1, KNN, bf, POS_K), 20)
+    ms32 = cuda_ms(lambda: graph_stage1(x, w1, KNN, torch.float32, POS_K), 10)
+    plain = cuda_ms(lambda: graph_stage1_reference(x, w1, KNN, bf, POS_K), 2)
+    rows = B * N
+    flops_f32 = rows * N * (8.0 + KNN)       # distances, selection passes
+    flops_bf16 = 2.0 * rows * KNN * 6 * 64   # stage-1 products
+    nbytes = (x.numel() * 4 + w1.numel() * 4
+              + rows * KNN * (64 + 6) * 2 + rows * KNN * 4 + rows * POS_K * 4)
+    t_ops = flops_bf16 / PEAK_FLOPS["bf16"] + flops_f32 / PEAK_FLOPS["f32"]
+    t_bytes = nbytes / PEAK_BYTES
+    return {
+        "name": "graph_stage1", "route": "cuda",
+        "source": "ogmm_tpu_torch/csrc/graph_stage1.cu",
+        "replaces": "ogmm_tpu/ops/pallas_dgcnn_train.py:484",
+        "max_abs_err": errs[bf], "max_abs_err_f32": errs[torch.float32],
+        "ms": ms, "ms_f32": ms32, "plain_ms": plain,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
+def check_nn1(rs):
+    tgt = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=DEV)
+    worst = 0.0
+    for nq in (512, 128, N):                 # Welsch, clustering, metrics
+        src = torch.tensor(rs.randn(B, nq, 3).astype(np.float32) * 0.3, device=DEV)
+        src[:, 0] = tgt[:, 3]                # an exact hit: the clamp
+        d, i = nn1(src, tgt)
+        torch.cuda.synchronize()
+        rd, ri = nn1_reference(src, tgt)
+        err = (d - rd).abs().max().item()
+        same = torch.equal(i, ri)
+        print(f"nn1 ({nq} x {N}): indices identical {same}, max|d kernel - "
+              f"plain| = {err:.3g} (limit {LIM_NN1_D})")
+        assert same and err <= LIM_NN1_D and torch.isfinite(d).all()
+        worst = max(worst, err)
+    ms = cuda_ms(lambda: nn1(src, tgt), 50)
+    plain = cuda_ms(lambda: nn1_reference(src, tgt), 10)
+    flops = B * N * N * (8.0 + 1)            # distance and compare a pair
+    nbytes = B * (N * 12 + N * 12 + N * (4 + 8))
+    t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
+    return {
+        "name": "nn1", "route": "cuda",
+        "source": "ogmm_tpu_torch/csrc/nn1.cu",
+        "replaces": "ogmm_tpu/ops/pallas_knn.py:187",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
 # -------------------------------------------------------------------- serve
 
 class plain_versions:
     """Swap the kernels' wrappers for their plain versions where the model
     looks them up, for the comparison run only."""
 
+    SWAPS = ((nn_dgcnn, "dgcnn_eval", dgcnn_eval_reference),
+             (ops_gmm, "sinkhorn_em", sinkhorn_em_reference),
+             (ops_dgcnn_train, "graph_stage1", graph_stage1_reference),
+             (cuda_knn, "nn1", nn1_reference))
+
     def __enter__(self):
-        self.saved = (nn_dgcnn.dgcnn_eval, ops_gmm.sinkhorn_em)
-        nn_dgcnn.dgcnn_eval = dgcnn_eval_reference
-        ops_gmm.sinkhorn_em = sinkhorn_em_reference
+        self.saved = [getattr(m, name) for m, name, _ in self.SWAPS]
+        for m, name, plain in self.SWAPS:
+            setattr(m, name, plain)
 
     def __exit__(self, *exc):
-        nn_dgcnn.dgcnn_eval, ops_gmm.sinkhorn_em = self.saved
+        for (m, name, _), fn in zip(self.SWAPS, self.saved):
+            setattr(m, name, fn)
 
 
 def serve(rs):
     cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
     assert (cfg.model.emb_dims, cfg.model.n_clusters, cfg.model.gnn_k,
             cfg.model.num_heads) == (EMB, K, KNN, 4)
-    reg = Registrar(cfg, seed=0)
+    reg = Registrar(cfg, seed=0, device=DEV)
     requests = [make_pairs(rs, B, N) for _ in range(3)]
     reg(requests[0][0], requests[0][1], refine=True)      # warm up
     torch.cuda.synchronize()
@@ -223,7 +326,8 @@ def serve(rs):
     torch.cuda.synchronize()
     launches = dict(dispatch.launch_counts)
     print("kernel launches in one request:", launches)
-    assert all(v > 0 for v in launches.values()), launches
+    for name in ("dgcnn_eval", "sinkhorn_em", "nn1"):
+        assert launches[name] > 0, launches
     assert rot.shape == (B, 3, 3) and trans.shape == (B, 3)
     assert so.shape == (B, N) and to.shape == (B, N)
 
@@ -260,6 +364,101 @@ def serve(rs):
     return launches, times
 
 
+# -------------------------------------------------------------------- train
+
+def make_batch(rs):
+    """A training batch in the loader's format; the overlap labels are made
+    in the step (device_overlap) from the ground truth."""
+    src, tgt, rot, trans = make_pairs(rs, B, N)
+    # a third of each target replaced by points off the source: partial
+    # overlap, so that the labels are not all 1
+    tgt[:, : N // 3] = (rs.randn(B, N // 3, 3) * 0.3 + 1.0).astype(np.float32)
+    gt = np.concatenate([rot, trans[:, :, None]], axis=-1)
+    ones = np.ones((B, N), np.float32)
+    return {"src_xyz": src, "tgt_xyz": tgt, "src_overlap": ones,
+            "tgt_overlap": ones, "transform_gt": gt}
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _step_grads(state, cfg, batch):
+    """Loss and gradients of one step from `state` (anchors from index 0),
+    on a copy of the model: the running statistics of `state` stay."""
+    import copy
+    probe = copy.copy(state)
+    probe.model = copy.deepcopy(state.model)
+    probe.generator = None
+    for p in probe.model.parameters():
+        p.grad = None
+    loss, _ = train_loss(probe, cfg, batch)
+    loss.backward()
+    return loss.item(), _grads(probe.model)
+
+
+def train(rs):
+    cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_overlap=True),
+                      data=dataclasses.replace(cfg.data, fix_tgt_overlap=True))
+    state = create_train_state(cfg, steps_per_epoch=100, seed=0, device=DEV)
+    step = make_train_step(cfg)
+    batches = [make_batch(rs) for _ in range(4)]
+    before = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+
+    step(state, batches[0])                               # warm up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    metrics = step(state, batches[1])
+    torch.cuda.synchronize()
+    launches = dict(dispatch.launch_counts)
+    print("kernel launches in one train step:", launches)
+    for name in ("graph_stage1", "nn1", "sinkhorn_em"):
+        assert launches[name] > 0, launches
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(10):
+        metrics = step(state, batches[i % len(batches)])
+        losses.append(metrics["loss"][0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    losses = [v.item() for v in losses]
+    print(f"train step of {B} pairs: {step_ms:.2f} ms (host clock, "
+          f"synchronised); losses {[round(v, 4) for v in losses]}")
+    assert all(np.isfinite(losses))
+    for n, p in state.model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), n
+    after = state.model.state_dict()
+    unchanged = [n for n in before if torch.equal(before[n], after[n])]
+    assert not unchanged, f"not moved by training: {unchanged}"
+    print(f"all {len(before)} parameters and running statistics moved")
+
+    # the same step from the same state through the plain versions
+    batch = batches[2]
+    k_loss, k_grads = _step_grads(state, cfg, batch)
+    with plain_versions():
+        counts = dict(dispatch.launch_counts)
+        p_loss, p_grads = _step_grads(state, cfg, batch)
+        assert dict(dispatch.launch_counts) == counts
+    d_loss = abs(k_loss - p_loss) / abs(p_loss)
+    num = sum(((k_grads[n] - p_grads[n]).float() ** 2).sum() for n in p_grads)
+    den = sum((p_grads[n].float() ** 2).sum() for n in p_grads)
+    d_grad = (num / den).sqrt().item()
+    print(f"train step, kernels against plain versions: loss {k_loss:.5f} / "
+          f"{p_loss:.5f}, relative {d_loss:.3g} (limit {LIM_STEP_LOSS}); "
+          f"gradients relative {d_grad:.3g} (limit {LIM_STEP_GRAD})")
+    assert d_loss <= LIM_STEP_LOSS and d_grad <= LIM_STEP_GRAD
+
+    ev = make_eval_step(cfg)(state, batches[3])
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).all() for v in ev.values()), ev
+    print("eval step with ICP: " + ", ".join(
+        f"{k} {v.mean().item():.4g}" for k, v in ev.items()))
+    return launches, step_ms, losses
+
+
 def check_icp(rs):
     """ICP from a pose 3 degrees off recovers the known pose."""
     src, tgt, rot, trans = make_pairs(rs, 8, 256)
@@ -282,13 +481,20 @@ def main():
     t0 = time.perf_counter()
     dispatch.build_kernels()
     print(f"built {', '.join(dispatch.SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    kernels = [check_dgcnn(rs), check_em(rs)]
+    kernels = [check_dgcnn(rs), check_em(rs), check_graph_stage1(rs),
+               check_nn1(rs)]
     launches, times = serve(rs)
+    train_launches, step_ms, losses = train(rs)
     check_icp(rs)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        # each kernel's launches on the path it was ported for
+        path = launches if k["name"] in ("dgcnn_eval", "sinkhorn_em") \
+            else train_launches
+        k["launches"] = path[k["name"]]
+        k["launches_train_step"] = train_launches[k["name"]]
     print(json.dumps({"request_ms": {"forward": times[False],
                                      "forward_icp": times[True]},
+                      "train_step_ms": step_ms, "train_losses": losses,
                       "shape": {"B": B, "N": N, "emb": EMB, "K": K}}))
     print(json.dumps({"kernels": kernels}))
     print(subprocess.run(

@@ -81,8 +81,9 @@ class Registrar:
         """Register src onto tgt: (B, N, 3) arrays or tensors ->
         (rot (B,3,3), trans (B,3), src_overlap (B,N), tgt_overlap (B,N))
         on this Registrar's device. `refine=True` appends the batched ICP."""
-        return self.model(self._as_input(src), self._as_input(tgt),
-                          refine=refine)
+        rot, trans, src_o, tgt_o, _ = self.model(
+            self._as_input(src), self._as_input(tgt), refine=refine)
+        return rot, trans, src_o, tgt_o
 
     def transform(self, rot, trans, points):
         """Apply the predicted rigid transform to (B, N, 3) points."""

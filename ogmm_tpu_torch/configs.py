@@ -2,12 +2,14 @@
 
 The field names and defaults are those of the JAX package's config for the
 options this package implements, so a config saved beside exported weights
-translates one to one. An option that is not implemented here is rejected
-when a config is built from a saved dictionary, not silently dropped.
+translates one to one, both ways (`config_from_dict`, `config_to_dict`). A
+model option that is not implemented here is rejected when a config is built
+from a saved dictionary, not silently dropped.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +32,40 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The dataset options the training step reads."""
+    # device_overlap only: the true target overlap labels instead of the
+    # original's tgt_overlap = src_overlap
+    fix_tgt_overlap: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule, loss weights and loop."""
+    epochs: int = 450
+    lr: float = 1e-4
+    weight_decay: float = 1e-4  # L2, added to the gradient before Adam
+    lr_milestones: Tuple[int, ...] = (75, 150, 200)   # epochs
+    lr_gamma: float = 0.1
+    seed: int = 1234            # weights and the anchor FPS generator
+    w_dcp: float = 10.0         # composite loss weights
+    w_clu: float = 1.0
+    w_overlap: float = 1.0
+    w_welsch: float = 0.01
+    mu: float = 10.0            # Welsch alpha
+    n_keypoints: int = 512      # Welsch top-k
+    save_every: int = 50        # periodic checkpoint, epochs
+    metrics_every: int = 1      # full metric suite every k-th train step
+    eval_every: int = 1         # test-split eval every k-th epoch
+    device_overlap: bool = False  # ground-truth overlap labels in the step
+    overlap_thresh: float = 0.05  # their radius
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     model_name: str = "GMMReg"
 
     def replace(self, **kw) -> "Config":
@@ -44,7 +78,7 @@ _FIXED_MODEL_OPTIONS = {
     "recompute_anchors": (False,),
     "stack_eval": (True,),
     "stack_train": (False,),
-    "dgcnn_fused_train": (None,),
+    "dgcnn_fused_train": (None, True),   # training takes the custom VJP
     "dgcnn_fused_edges": (None, False),
     "dgcnn_vspace": (None,),
     "overlap_stream": (None, False),
@@ -52,10 +86,19 @@ _FIXED_MODEL_OPTIONS = {
 }
 
 
+def _known(cls, section: dict) -> dict:
+    """The entries of a saved section that are fields of `cls`, lists back
+    to tuples (JSON keeps no tuples)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in section.items() if k in names}
+
+
 def config_from_dict(d: dict) -> Config:
     """Build a Config from the dictionary the JAX package saves beside its
-    weights. Training and dataset sections are ignored (this package
-    serves); a model option that is not implemented here raises."""
+    weights. A model option that is not implemented here raises; options of
+    the training and dataset sections that this package does not read (the
+    TPU mesh, the data pipeline) are left out."""
     if d.get("model_name", "GMMReg") != "GMMReg":
         raise NotImplementedError(
             f"model {d['model_name']!r} is not ported; only GMMReg is")
@@ -70,7 +113,16 @@ def config_from_dict(d: dict) -> Config:
                     f"model option {key}={value!r} is not ported")
         else:
             raise ValueError(f"unknown model option {key!r}")
-    return Config(model=ModelConfig(**model))
+    return Config(model=ModelConfig(**model),
+                  data=DataConfig(**_known(DataConfig, d.get("data", {}))),
+                  train=TrainConfig(**_known(TrainConfig, d.get("train", {}))))
+
+
+def config_to_dict(cfg: Config) -> dict:
+    """The JSON-ready dictionary of a Config, in the layout the JAX
+    package's `config_from_dict` reads (fields it has and this package
+    lacks take its defaults there)."""
+    return dataclasses.asdict(cfg)
 
 
 def mnet(**overrides) -> Config:

@@ -1,0 +1,73 @@
+"""Registration metrics of a batch, on the device, the definitions of the JAX
+package's `ogmm_tpu/core/metrics.py`.
+
+Recall counts a pair as correct when its mean absolute Euler error is below
+1 degree and its mean absolute translation error below 0.1.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ogmm_tpu_torch.core import se3
+from ogmm_tpu_torch.ops.common import nn1, nn1_both
+
+
+@torch.no_grad()
+def dcp_metrics(src, tgt, rot_gt, trans_gt, rot_pred, trans_pred,
+                r_th: float = 1.0, t_th: float = 0.1) -> Dict[str, torch.Tensor]:
+    """Per-pair metric suite: src/tgt (B, N, 3) -> dict of (B,) tensors."""
+    trans_pred = trans_pred.reshape(-1, 3)
+    trans_gt = trans_gt.reshape(-1, 3)
+
+    r_pred_euler = se3.mat2euler_zyx_deg(rot_pred)
+    r_gt_euler = se3.mat2euler_zyx_deg(rot_gt)
+    r_mse = ((r_gt_euler - r_pred_euler) ** 2).mean(dim=1)
+    r_mae = (r_gt_euler - r_pred_euler).abs().mean(dim=1)
+    t_mse = ((trans_gt - trans_pred) ** 2).mean(dim=1)
+    t_mae = (trans_gt - trans_pred).abs().mean(dim=1)
+
+    # isotropic residual of gt^-1 o pred
+    gt_pose = torch.cat([rot_gt, trans_gt.unsqueeze(-1)], dim=-1)
+    pred_pose = torch.cat([rot_pred, trans_pred.unsqueeze(-1)], dim=-1)
+    residual = se3.concatenate(se3.inverse(gt_pose), pred_pose)
+    rot_trace = residual[:, 0, 0] + residual[:, 1, 1] + residual[:, 2, 2]
+    err_r_deg = torch.arccos((0.5 * (rot_trace - 1.0)).clamp(-1.0, 1.0)) \
+        * (180.0 / math.pi)
+    err_t = torch.linalg.norm(residual[:, :, 3], dim=-1)
+
+    # Chamfer distances through the 1-NN dispatch point
+    src_pred = se3.transform(pred_pose, src)
+    src_gt = se3.transform(gt_pose, src)
+    dist_src, dist_ref = nn1_both(src_pred, tgt)
+    pcab = nn1(src_pred, src_gt)[0].mean(dim=1)
+    chamfer = dist_src.mean(dim=1) + dist_ref.mean(dim=1)
+    clip = 0.1
+    clip_chamfer = (dist_src.sqrt().clamp_max(clip).mean(dim=1)
+                    + dist_ref.sqrt().clamp_max(clip).mean(dim=1))
+    n_correct = ((r_mae < r_th) & (t_mae < t_th)).float()
+    return {
+        "r_mse": r_mse, "r_mae": r_mae, "t_mse": t_mse, "t_mae": t_mae,
+        "err_r_deg": err_r_deg, "err_t": err_t,
+        "chamfer_dist": chamfer, "pcab_dist": pcab,
+        "clip_chamfer_dist": clip_chamfer, "n_correct": n_correct,
+    }
+
+
+def summarize_metrics(metrics: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """Epoch reductions: *mse keys become *rmse (square root of the mean),
+    err* keys get _mean and _rmse, the rest are means."""
+    out = {}
+    for k, v in metrics.items():
+        v = np.asarray(v)
+        if k.endswith("mse"):
+            out[k[:-3] + "rmse"] = float(np.sqrt(np.mean(v)))
+        elif k.startswith("err"):
+            out[k + "_mean"] = float(np.mean(v))
+            out[k + "_rmse"] = float(np.sqrt(np.mean(v ** 2)))
+        else:
+            out[k] = float(np.mean(v))
+    return out

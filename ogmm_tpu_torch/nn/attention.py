@@ -1,5 +1,6 @@
 """Geometric position encoding and anchor-conditioned transformer blocks,
-channel-last, eval mode. Heads split contiguously: (B, N, H, d_head)."""
+channel-last. Heads split contiguously: (B, N, H, d_head). The BatchNorms of
+the position encoding take batch statistics in training (`layers.BN`)."""
 from __future__ import annotations
 
 import torch

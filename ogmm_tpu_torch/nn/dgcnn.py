@@ -1,18 +1,23 @@
-"""DGCNN edge-conv encoder, channel-last, eval mode.
+"""DGCNN edge-conv encoder, channel-last.
 
 Five stages over edge features from one kNN graph on the raw xyz input:
 Dense -> BN -> ReLU with a max over the k neighbours after each of the first
 four; the four taps concatenate (64+64+128+256 = 512) into a final
-Dense(emb_dims) -> BN -> ReLU. In eval mode BatchNorm folds into per-channel
-(scale, bias) from the running statistics, and the whole encoder is one call
-of `ops.cuda_dgcnn.dgcnn_eval`: the fused CUDA kernel on the card, its plain
-version on the CPU.
+Dense(emb_dims) -> BN -> ReLU.
+
+In eval mode BatchNorm folds into per-channel (scale, bias) from the running
+statistics, and the whole encoder is one call of `ops.cuda_dgcnn.dgcnn_eval`:
+the fused CUDA kernel on the card, its plain version on the CPU. In training
+it is `ops.dgcnn_train.dgcnn_train` (the graph_stage1 kernel, batch
+statistics, a hand-written backward), and the five running-statistic pairs
+update from the batch moments it returns.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ogmm_tpu_torch.ops import dgcnn_train as _train
 from ogmm_tpu_torch.ops.cuda_dgcnn import STAGES, dgcnn_eval
 
 
@@ -43,15 +48,27 @@ class DGCNN(nn.Module):
         """x (B, N, 3) -> (B, N, emb_dims) in the compute type; with
         `with_posenc_alpha` = k2 > 0 also the position-encoding angle
         features (B, N, k2) float32 of the k2 nearest neighbours."""
-        if self.training:
-            raise NotImplementedError(
-                "the DGCNN training path is not ported; call .eval()")
         if posenc_centroid is not None:
             raise ValueError(
                 "posenc_centroid is not supported: the fused encoder takes "
                 "the centroid of the cloud it is given")
         weights = [getattr(self, f"w{i}") for i in range(1, 6)]
+        if self.training:
+            return self._forward_train(x, weights, with_posenc_alpha)
         affines = [self._folded_affine(i) for i in range(1, 6)]
         return dgcnn_eval(x, weights, affines, k=self.k,
                           dtype=self.compute_dtype,
                           posenc_k=with_posenc_alpha)
+
+    def _forward_train(self, x, weights, posenc_k):
+        out, moments, alpha = _train.dgcnn_train(
+            x, weights, [getattr(self, f"bn{i}_scale") for i in range(1, 6)],
+            [getattr(self, f"bn{i}_bias") for i in range(1, 6)], k=self.k,
+            dtype=self.compute_dtype, posenc_k=posenc_k)
+        with torch.no_grad():
+            for i, (mean, var) in enumerate(moments, start=1):
+                ra_mean = getattr(self, f"bn{i}_mean")
+                ra_var = getattr(self, f"bn{i}_var")
+                ra_mean.copy_(0.9 * ra_mean + 0.1 * mean)
+                ra_var.copy_(0.9 * ra_var + 0.1 * var)
+        return (out, alpha) if posenc_k else out

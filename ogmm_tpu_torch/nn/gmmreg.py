@@ -1,12 +1,16 @@
-"""GMMReg: the OGMM registration network, serving forward.
+"""GMMReg: the OGMM registration network.
 
 DGCNN features -> geometric position encoding -> anchor-conditioned
 self-attention -> cross-attention -> overlap head -> second self-attention
 -> overlap-weighted Sinkhorn-EM clustering -> soft GMM matching -> weighted
-Procrustes [-> batched ICP]. Eval mode only: every per-cloud stage is a
-per-sample map, so src and tgt run stacked as one (2B, N, .) batch. The
-network body computes in cfg.dtype; geometry (kNN, FPS, clustering,
-Procrustes, ICP) is always float32.
+Procrustes [-> batched ICP], plus the clustering contrastive loss `clu`.
+
+In eval mode every per-cloud stage is a per-sample map, so src and tgt run
+stacked as one (2B, N, .) batch. In training they run per cloud, src then
+tgt, so that every BatchNorm takes the statistics of one cloud and updates
+its running statistics twice a step, as the JAX package (and the original)
+does. The network body computes in cfg.dtype; geometry (kNN, FPS,
+clustering, Procrustes, ICP) is always float32.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from torch import nn
 
 from ogmm_tpu_torch.configs import ModelConfig, torch_dtype
 from ogmm_tpu_torch.core.procrustes import rigid_transform
+from ogmm_tpu_torch.losses import clu_loss
 from ogmm_tpu_torch.nn.attention import PositionEncoding, TransformerBlock
 from ogmm_tpu_torch.nn.dgcnn import DGCNN
 from ogmm_tpu_torch.nn.layers import ConvHead
@@ -50,9 +55,10 @@ def _norm32(x: torch.Tensor) -> torch.Tensor:
 
 
 class GMMReg(nn.Module):
-    """Call: (src, tgt) -> (rot, trans, src_overlap, tgt_overlap), with
+    """Call: (src, tgt) -> (rot, trans, src_overlap, tgt_overlap, clu), with
     src/tgt (B, N, 3) float32 clouds of equal point count. `refine=True`
-    appends the batched point-to-point ICP."""
+    appends the batched point-to-point ICP. FPS anchors start at a random
+    point drawn from `generator`, at index 0 without one."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
@@ -77,23 +83,64 @@ class GMMReg(nn.Module):
                 refine: bool = False,
                 generator: torch.Generator | None = None):
         cfg = self.cfg
-        if self.training:
-            raise NotImplementedError(
-                "the training forward is not ported; call .eval()")
         B, N, _ = src.shape
         if tgt.shape[1] != N:
             raise ValueError("the overlap head mixes src/tgt point axes and "
                              "requires equal point counts")
-        km = cfg.km_clusters
         both = torch.cat([src, tgt], dim=0).float()          # (2B, N, 3)
-
-        # FPS anchors; without a generator the traversal starts at index 0
-        center_ids = None
-        if km == cfg.n_clusters:
-            # anchors and clustering init share one FPS loop
-            anchor_ids, center_ids = fps_combined(both, km, generator)
+        anchor_ids, center_ids = self._fps(both, generator)
+        if self.training:
+            out = self._forward_per_cloud(both, anchor_ids, center_ids)
         else:
-            anchor_ids = farthest_point_sample(both, km, generator=generator)
+            out = self._forward_stacked(both, anchor_ids, center_ids)
+        rot, trans, o_all, clu = out
+        if refine:
+            init = torch.cat([rot, trans.unsqueeze(-1)], dim=-1)
+            rot, trans = icp_point_to_point(
+                both[:B], both[B:], init, threshold=2.0 * cfg.overlap_radius,
+                max_iter=cfg.icp_iters)
+        return rot, trans, o_all[:B], o_all[B:], clu
+
+    def _fps(self, both, generator):
+        """Anchor ids (random start) and clustering-init ids (centre start,
+        None where the clustering runs its own FPS) of the 2B clouds; every
+        row is independent, so one loop serves src and tgt."""
+        km = self.cfg.km_clusters
+        if km == self.cfg.n_clusters:
+            # anchors and clustering init share one FPS loop
+            return fps_combined(both, km, generator)
+        return farthest_point_sample(both, km, generator=generator), None
+
+    def _overlap_scores(self, src_f, tgt_f, src_o, tgt_o):
+        """The overlap head's similarity-weighted projections of both
+        directions; direction 2 weights the SOURCE-axis-indexed scores by
+        the column softmax, a quirk of the original kept on purpose."""
+        sim = matmul32(_norm32(src_f).float(),
+                       _norm32(tgt_f).float().transpose(1, 2))   # (B, N, N)
+        src_wo = torch.matmul(torch.softmax(sim, dim=-1), src_o.float())
+        tgt_wo = torch.matmul(torch.softmax(sim, dim=1).transpose(1, 2),
+                              tgt_o.float())
+        return src_wo.to(src_f.dtype), tgt_wo.to(tgt_f.dtype)
+
+    def _solve(self, both, f_all, o_all, center_ids):
+        """Clustering, GMM matching and the clustering loss of the 2B clouds
+        (src rows first); each cloud is clustered on its own."""
+        cfg = self.cfg
+        B = both.shape[0] // 2
+        g_all, pi_all, n_all, nf_all = wkeans_plus(
+            both, f_all, o_all, cfg.n_clusters, iters=cfg.em_iters,
+            tau=cfg.tau, init_ids=center_ids)
+        rot, trans, _, _ = gmm_svd(n_all[:B], n_all[B:], nf_all[:B], nf_all[B:],
+                                   pi_all[:B], pi_all[B:], is_sk=cfg.is_sk,
+                                   softmax_temp=cfg.softmax_temp)
+        # the mean over 2B clouds is the mean of the src and tgt losses
+        clu = clu_loss(both, n_all, f_all, g_all, tau=0.1)
+        return rot, trans, o_all, clu
+
+    def _forward_stacked(self, both, anchor_ids, center_ids):
+        cfg = self.cfg
+        B, N, _ = both.shape
+        B //= 2
 
         feats, alpha = self.dgcnn(both, with_posenc_alpha=cfg.pos_k)
         anchor0 = index_points(feats, anchor_ids)
@@ -104,31 +151,37 @@ class GMMReg(nn.Module):
         swapped = torch.cat([anchor1[B:], anchor1[:B]], dim=0)
         f_all = self.cattn(t_all, swapped) + t_all
 
-        # overlap head; direction 2 weights the SOURCE-axis-indexed scores by
-        # the column softmax, a quirk of the original kept on purpose
         o_all = self.proj(f_all)                             # (2B, N, 1)
-        fn = _norm32(f_all).float()
-        sim = matmul32(fn[:B], fn[B:].transpose(1, 2))       # (B, N, N) f32
-        src_wo = torch.matmul(torch.softmax(sim, dim=-1), o_all[:B].float())
-        tgt_wo = torch.matmul(torch.softmax(sim, dim=1).transpose(1, 2),
-                              o_all[B:].float())
-        wo_all = torch.cat([src_wo, tgt_wo], dim=0).to(f_all.dtype)
+        wo_all = torch.cat(self._overlap_scores(f_all[:B], f_all[B:],
+                                                o_all[:B], o_all[B:]), dim=0)
         fo_all = self.conv2(torch.cat([f_all, wo_all, o_all], dim=-1))
         o_all = torch.sigmoid(self.overlap(fo_all).float()).reshape(2 * B, N)
 
         anchor2 = index_points(f_all, anchor_ids)
         f_all = (self.sattn2(f_all, anchor2) + f_all).float()
+        return self._solve(both, f_all, o_all, center_ids)
 
-        _, pi_all, n_all, nf_all = wkeans_plus(
-            both, f_all, o_all, cfg.n_clusters, iters=cfg.em_iters,
-            tau=cfg.tau, init_ids=center_ids)
-
-        rot, trans, _, _ = gmm_svd(n_all[:B], n_all[B:], nf_all[:B], nf_all[B:],
-                                   pi_all[:B], pi_all[B:], is_sk=cfg.is_sk,
-                                   softmax_temp=cfg.softmax_temp)
-        if refine:
-            init = torch.cat([rot, trans.unsqueeze(-1)], dim=-1)
-            rot, trans = icp_point_to_point(
-                both[:B], both[B:], init, threshold=2.0 * cfg.overlap_radius,
-                max_iter=cfg.icp_iters)
-        return rot, trans, o_all[:B], o_all[B:]
+    def _forward_per_cloud(self, both, anchor_ids, center_ids):
+        """The training forward: every module runs on src, then on tgt."""
+        cfg = self.cfg
+        B, N, _ = both.shape
+        B //= 2
+        pk = cfg.pos_k
+        clouds = (both[:B], both[B:])
+        ids = (anchor_ids[:B], anchor_ids[B:])
+        enc = [self.dgcnn(c, with_posenc_alpha=pk) for c in clouds]
+        t = [f + self.pos_enc(c, pk, alpha=a) for c, (f, a) in zip(clouds, enc)]
+        t = [self.conv1(self.sattn1(ti, index_points(f, i)) + ti)
+             for ti, (f, _), i in zip(t, enc, ids)]
+        anchor1 = [index_points(ti, i) for ti, i in zip(t, ids)]
+        f = [self.cattn(t[0], anchor1[1]) + t[0],
+             self.cattn(t[1], anchor1[0]) + t[1]]
+        o = [self.proj(fi) for fi in f]
+        wo = self._overlap_scores(f[0], f[1], o[0], o[1])
+        fo = [self.conv2(torch.cat([fi, woi, oi], dim=-1))
+              for fi, woi, oi in zip(f, wo, o)]
+        o_all = torch.cat([torch.sigmoid(self.overlap(x).float()).reshape(B, N)
+                           for x in fo], dim=0)
+        f_all = torch.cat([(self.sattn2(fi, index_points(fi, i)) + fi).float()
+                           for fi, i in zip(f, ids)], dim=0)
+        return self._solve(both, f_all, o_all, center_ids)

@@ -1,4 +1,4 @@
-"""Shared point-wise layers, channel-last (B, N, C), eval mode.
+"""Shared point-wise layers, channel-last (B, N, C).
 
 A 1x1 conv over (B, C, N) is a Linear over (B, N, C). Parameters and
 running statistics stay float32; a layer computes in the `dtype` it was
@@ -28,9 +28,13 @@ class Dense(nn.Linear):
 
 
 class BN(nn.Module):
-    """BatchNorm over the trailing feature axis from running statistics
-    (eps 1e-5). The affine is applied in float32 and the result cast to the
-    compute type. Training statistics belong to the training slice."""
+    """BatchNorm over the trailing feature axis, eps 1e-5, the semantics of
+    flax `nn.BatchNorm(momentum=0.9)`: in training it normalises with the
+    batch statistics (float32, biased variance E[x^2] - E[x]^2 clipped at
+    0) and updates running = 0.9 running + 0.1 batch with that same biased
+    variance (`F.batch_norm` would store the unbiased one); in eval it uses
+    the running statistics. The affine is applied in float32 and the result
+    cast to the compute type."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -41,11 +45,18 @@ class BN(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
         if self.training:
-            raise NotImplementedError(
-                "BN batch statistics are not ported; call .eval()")
-        mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+            axes = tuple(range(x.dim() - 1))
+            mean = x32.mean(axes)
+            var = ((x32 * x32).mean(axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + 1e-5) * self.weight
+        y = (x32 - mean) * mul + self.bias
         return y.to(self.compute_dtype)
 
 

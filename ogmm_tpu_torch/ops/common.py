@@ -73,11 +73,28 @@ def knn(src: torch.Tensor, tgt: torch.Tensor, k: int,
     return select_smallest(square_distance(src, tgt, normalize), k)
 
 
-def nn1(src: torch.Tensor, tgt: torch.Tensor):
+def nn1_dense(src: torch.Tensor, tgt: torch.Tensor):
     """Nearest neighbour, dense route: (B, N, C) x (B, M, C) ->
-    (min squared distance (B, N), index (B, N))."""
+    (min squared distance (B, N), index (B, N)). ICP takes this route at
+    M <= 1024, as the JAX package does (`nn1(prefer_dense=True)` there)."""
     d = square_distance(src, tgt)
     return d.min(dim=-1)
+
+
+def nn1(src: torch.Tensor, tgt: torch.Tensor):
+    """Nearest neighbour of 3-D points, the one dispatch point of the losses,
+    the metrics and the overlap labels: (B, N, 3) x (B, M, 3) ->
+    (min squared distance (B, N), index (B, N) int64), first index among
+    equal minima. The CUDA kernel on a CUDA tensor, its plain version
+    (fixed-order distances, `square_distance3`) on a CPU tensor."""
+    from ogmm_tpu_torch.ops import cuda_knn      # imports this module
+    return cuda_knn.nn1(src, tgt)
+
+
+def nn1_both(src: torch.Tensor, tgt: torch.Tensor):
+    """Squared distance of every point to the nearest point of the OTHER
+    cloud: (B, N, 3) x (B, M, 3) -> (d_src (B, N), d_tgt (B, M))."""
+    return nn1(src, tgt)[0], nn1(tgt, src)[0]
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -91,6 +108,17 @@ def gather_neighbors(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     B, N, k = idx.shape
     return index_points(points, idx.reshape(B, N * k)).reshape(
         B, N, k, points.shape[-1])
+
+
+def graph_feature(x: torch.Tensor, k: int,
+                  idx: torch.Tensor | None = None) -> torch.Tensor:
+    """EdgeConv features [nbr - x, x]: (B, N, C) -> (B, N, k, 2C), over the
+    given graph or the dense kNN graph of x."""
+    if idx is None:
+        idx = knn(x, x, k)
+    nbr = gather_neighbors(x, idx)
+    center = x.unsqueeze(2).expand_as(nbr)
+    return torch.cat([nbr - center, center], dim=-1)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

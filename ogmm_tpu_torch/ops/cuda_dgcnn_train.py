@@ -1,0 +1,87 @@
+"""kNN graph + edge features + stage-1 product of the DGCNN training forward:
+the CUDA kernel's wrapper and its plain version.
+
+`graph_stage1(x, w1)` computes, for every point of (B, N, 3) clouds: its k
+nearest neighbours (ascending, ties to the lowest index, by argmin-and-mask
+over fixed-order float32 distances), the edge rows e = [nbr - q, q] with the
+offset formed in float32 and then cast to the compute dtype, and the
+pre-BatchNorm stage-1 activations z1 = e . w1 (float32 accumulation, one
+rounding to the compute dtype); with `posenc_k` also the position-encoding
+angles cos(angle(p -> nbr_j, p -> centroid)) of the first `posenc_k`
+neighbours from float32 coordinates. Outputs:
+
+  z1    (B, k, N, C1) compute dtype     e      (B, k, N, 6) compute dtype
+  idx   (B, N, k) int32                 alpha  (B, N, posenc_k) float32 or None
+
+On a CUDA tensor the wrapper launches `csrc/graph_stage1.cu`; on a CPU tensor
+it runs `graph_stage1_reference`, the port of the JAX package's jnp
+composition (`ogmm_tpu/ops/dgcnn_train.py:_graph_stage1`).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ogmm_tpu_torch.ops import dispatch
+from ogmm_tpu_torch.ops.common import (gather_neighbors, graph_feature,
+                                       posenc_alpha, select_smallest,
+                                       square_distance3)
+from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_K, KERNEL_MAX_N
+
+KERNEL_C1 = 64           # stage-1 width the kernel is compiled for
+
+
+def graph_stage1_reference(x: torch.Tensor, w1: torch.Tensor, k: int = 20,
+                           dtype: torch.dtype = torch.bfloat16,
+                           posenc_k: int = 0):
+    """Plain PyTorch version of the kernel; see the module docstring."""
+    if posenc_k > k:
+        raise ValueError(f"posenc_k={posenc_k} must be <= k={k}")
+    x = x.float()
+    idx = select_smallest(square_distance3(x, x), k)      # (B, N, k)
+    e = graph_feature(x, k, idx).to(dtype).transpose(1, 2).contiguous()
+    z1 = torch.matmul(e.float(), w1.to(dtype).float()).to(dtype)
+    alpha = (posenc_alpha(x, gather_neighbors(x, idx[..., :posenc_k]))
+             if posenc_k else None)
+    return z1, e, idx.int(), alpha
+
+
+def _graph_stage1_cuda(x, w1, k, dtype, posenc_k):
+    B, N, _ = x.shape
+    if k != KERNEL_K or not k <= N <= KERNEL_MAX_N:
+        raise ValueError(f"graph_stage1 kernel takes k={KERNEL_K} and "
+                         f"{KERNEL_K} <= N <= {KERNEL_MAX_N}; got k={k}, N={N}")
+    if tuple(w1.shape) != (6, KERNEL_C1) or posenc_k > k:
+        raise ValueError(f"graph_stage1 kernel takes w1 of shape "
+                         f"(6, {KERNEL_C1}) and posenc_k <= k; got "
+                         f"{tuple(w1.shape)}, posenc_k={posenc_k}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"graph_stage1 kernel: dtype {dtype} not supported")
+    dev = x.device
+    x = x.float().contiguous()
+    w = w1.to(dtype).contiguous()
+    z1 = torch.empty(B, k, N, KERNEL_C1, dtype=dtype, device=dev)
+    e = torch.empty(B, k, N, 6, dtype=dtype, device=dev)
+    idx = torch.empty(B, N, k, dtype=torch.int32, device=dev)
+    alpha = torch.empty(B, N, max(posenc_k, 1), dtype=torch.float32, device=dev)
+    fn = dispatch.load_kernel("graph_stage1").graph_stage1_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    code = fn(*[ctypes.c_void_p(a.data_ptr()) for a in (x, w, idx, alpha, z1, e)],
+              B, N, posenc_k, int(dtype == torch.bfloat16),
+              ctypes.c_void_p(dispatch.current_stream(x)))
+    dispatch.check_launch(code, "graph_stage1")
+    dispatch.launch_counts["graph_stage1"] += 1
+    return z1, e, idx, (alpha if posenc_k else None)
+
+
+def graph_stage1(x: torch.Tensor, w1: torch.Tensor, k: int = 20,
+                 dtype: torch.dtype = torch.bfloat16, posenc_k: int = 0):
+    """Fused kNN graph + edge features + stage-1 product: x (B, N, 3)
+    float32, w1 (6, C1) float32 -> (z1, e, idx, alpha). Launches the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor. Carries no
+    gradient (the custom VJP of ops/dgcnn_train.py owns the backward)."""
+    if x.is_cuda:
+        return _graph_stage1_cuda(x, w1, k, dtype, posenc_k)
+    return graph_stage1_reference(x, w1, k, dtype, posenc_k)

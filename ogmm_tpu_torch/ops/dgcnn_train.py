@@ -1,0 +1,178 @@
+"""Differentiable DGCNN training forward with a hand-written backward.
+
+The port of `ogmm_tpu/ops/dgcnn_train.py` (the custom VJP the JAX package
+runs by default on the accelerator) as a `torch.autograd.Function`:
+
+  forward   `graph_stage1` (the CUDA kernel on the card: kNN graph, edge rows
+            [nbr - q, q], pre-BN z1 in (B, k, N, C) layout), then stages 2-4
+            as products in the compute dtype with float32 accumulation; each
+            stage is BatchNorm with batch moments (float32, biased variance,
+            eps 1e-5, normalised in the compute dtype), ReLU and a max over
+            k; the four maxima concatenate to 512 channels for stage 5
+            (Dense(emb) + BN + ReLU).
+  backward  plain PyTorch, the mirror of `_bwd_vjp`: per stage the
+            BN batch-statistic gradient dz = s (dy - E[dy] - zhat E[dy zhat])
+            with float32 reductions, weight gradients from the saved pre-BN
+            activations (h recomputed), and the edge scatter into dx
+            (`index_add_`).
+
+Kept from the JAX function: the ReLU cotangent at exactly 0 is half the
+incoming one (`jnp.maximum` semantics); the max over k sends a tie's
+cotangent to the FIRST maximal element through an integer argmax one-hot,
+never through a float-equality mask on recomputed values.
+
+Returns (features (B, N, emb) in the compute dtype, five (mean, var) float32
+batch moments for the caller's running-statistic update, alpha or None).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_stage1
+
+EPS = 1e-5
+
+
+def _bn_apply(z, mean, var, gamma, beta):
+    """Normalise in the compute dtype from float32 statistics."""
+    dt = z.dtype
+    inv = torch.rsqrt(var + EPS)
+    return (z - mean.to(dt)) * (inv * gamma).to(dt) + beta.to(dt)
+
+
+def _moments(z):
+    """Batch mean and biased variance over every axis but the last, in
+    float32."""
+    var, mean = torch.var_mean(z.float(), dim=tuple(range(z.dim() - 1)),
+                               unbiased=False)
+    return mean, var
+
+
+def _relu_vjp(g, y):
+    """Cotangent of max(y, 0): g where y > 0, g / 2 where y == 0."""
+    return torch.where(y > 0, g, torch.where(y == 0, 0.5 * g,
+                                             torch.zeros_like(g)))
+
+
+def _stage_bwd(dy, z, mean, var, gamma):
+    """BatchNorm (batch statistics) backward: dy, already through the ReLU
+    -> (dz in the compute dtype, dgamma, dbeta), reductions in float32."""
+    axes = tuple(range(z.dim() - 1))
+    m = z[..., 0].numel()
+    inv = torch.rsqrt(var + EPS)
+    zhat = (z.float() - mean) * inv
+    dy32 = dy.float()
+    s1 = dy32.sum(axes)                                  # dbeta
+    s2 = (dy32 * zhat).sum(axes)                         # dgamma
+    dz = (inv * gamma) * (dy32 - s1 / m - zhat * (s2 / m))
+    return dz.to(dy.dtype), s2, s1
+
+
+def _max_vjp(dtap, h):
+    """Cotangent of h.amax(dim=1) through the first maximum (integer argmax
+    one-hot): (B, N, C) cotangent onto (B, k, N, C)."""
+    am = h.argmax(dim=1, keepdim=True)
+    return torch.zeros_like(h).scatter_(1, am, dtap.unsqueeze(1))
+
+
+def _mm32(a, b):
+    """Product of compute-dtype operands with a float32 result."""
+    return torch.matmul(a.float(), b.float())
+
+
+class DGCNNTrain(torch.autograd.Function):
+    """apply(x, k, dtype, posenc_k, w1..w5, g1..g5, b1..b5)."""
+
+    @staticmethod
+    def forward(ctx, x, k, dtype, posenc_k, *params):
+        ws, gammas, betas = params[:5], params[5:10], params[10:]
+        z, e, idx, alpha = graph_stage1(x, ws[0], k, dtype, posenc_k)
+        zs, taps, moments = [], [], []
+        h = e
+        for i in range(4):
+            if i > 0:
+                z = torch.matmul(h, ws[i].to(dtype))
+            mean, var = _moments(z)
+            h = torch.relu(_bn_apply(z, mean, var, gammas[i], betas[i]))
+            zs.append(z)
+            moments.append((mean, var))
+            taps.append(h.amax(dim=1))                   # (B, N, C_i)
+        cat = torch.cat(taps, dim=-1)                    # (B, N, 512)
+        z5 = torch.matmul(cat, ws[4].to(dtype))
+        mean5, var5 = _moments(z5)
+        out = torch.relu(_bn_apply(z5, mean5, var5, gammas[4], betas[4]))
+        moments.append((mean5, var5))
+        flat = [m for mv in moments for m in mv]
+        ctx.save_for_backward(x, idx, e, *zs, z5, *taps, *params, *flat)
+        ctx.mark_non_differentiable(*flat)
+        if alpha is not None:
+            ctx.mark_non_differentiable(alpha)
+        return (out, *flat, alpha)
+
+    @staticmethod
+    def backward(ctx, dout, *_):
+        saved = ctx.saved_tensors
+        x, idx, e = saved[:3]
+        zs, z5, taps = saved[3:7], saved[7], saved[8:12]
+        ws, gammas, betas = saved[12:17], saved[17:22], saved[22:27]
+        mv = saved[27:]
+        moments = [(mv[2 * i], mv[2 * i + 1]) for i in range(5)]
+        dt = z5.dtype
+        dout = dout.to(dt)
+
+        # stage 5, (B, N, 512) -> (B, N, emb)
+        mean5, var5 = moments[4]
+        dy5 = _relu_vjp(dout, _bn_apply(z5, mean5, var5, gammas[4], betas[4]))
+        dz5, dg5, db5 = _stage_bwd(dy5, z5, mean5, var5, gammas[4])
+        cat = torch.cat(taps, dim=-1)
+        dws, dgs, dbs = [None] * 5, [None] * 5, [None] * 5
+        dws[4] = _mm32(cat.flatten(0, 1).t(), dz5.flatten(0, 1))
+        dgs[4], dbs[4] = dg5, db5
+        dcat = torch.matmul(dz5, ws[4].to(dt).t())
+        dtaps = torch.split(dcat, [t.shape[-1] for t in taps], dim=-1)
+
+        # stages 4..1, (B, k, N, C)
+        hs = [e] + [torch.relu(_bn_apply(zs[i], *moments[i], gammas[i],
+                                          betas[i])) for i in range(4)]
+        dz_next = None
+        for i in range(3, -1, -1):
+            mean, var = moments[i]
+            dh = _max_vjp(dtaps[i], hs[i + 1])
+            if dz_next is not None:
+                dh = dh + torch.matmul(dz_next, ws[i + 1].to(dt).t())
+            dy = _relu_vjp(dh, _bn_apply(zs[i], mean, var, gammas[i], betas[i]))
+            dz, dgs[i], dbs[i] = _stage_bwd(dy, zs[i], mean, var, gammas[i])
+            dws[i] = _mm32(hs[i].flatten(0, 2).t(), dz.flatten(0, 2))
+            dz_next = dz
+
+        # edge rows -> dx: the neighbour half scatters, the centre half sums
+        dx = None
+        if ctx.needs_input_grad[0]:
+            de = _mm32(dz_next, ws[0].to(dt).t())         # (B, k, N, 6) f32
+            dneigh = de[..., :3]
+            dcenter = de[..., 3:] - de[..., :3]
+            B, N, _ = x.shape
+            rows = (idx.long().transpose(1, 2)
+                    + N * torch.arange(B, device=x.device).view(B, 1, 1))
+            dx = torch.zeros(B * N, 3, dtype=torch.float32, device=x.device)
+            dx.index_add_(0, rows.reshape(-1), dneigh.reshape(-1, 3))
+            dx = (dx.view(B, N, 3) + dcenter.sum(dim=1)).to(x.dtype)
+        return (dx, None, None, None, *dws, *dgs, *dbs)
+
+
+def dgcnn_train(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                gammas: Sequence[torch.Tensor], betas: Sequence[torch.Tensor],
+                k: int = 20, dtype: torch.dtype = torch.bfloat16,
+                posenc_k: int = 0):
+    """Differentiable DGCNN training forward.
+
+    x (B, N, 3) float32; ws: five float32 kernels [(6,64), (64,64), (64,128),
+    (128,256), (512,emb)]; gammas/betas: five BatchNorm scale/bias vectors.
+    Returns (features (B, N, emb) in `dtype`, five (batch mean, batch var)
+    float32 pairs, alpha (B, N, posenc_k) float32 or None)."""
+    out, *flat, alpha = DGCNNTrain.apply(x, k, dtype, posenc_k, *ws,
+                                         *gammas, *betas)
+    moments = [(flat[2 * i], flat[2 * i + 1]) for i in range(5)]
+    return out, moments, alpha

@@ -5,11 +5,11 @@ tensor it was given lies on a CUDA device, and uses the kernel's plain
 PyTorch version only when the tensor lies on the CPU. Nothing falls back: a
 build or launch failure raises.
 
-The kernels live in `ogmm_tpu_torch/csrc/*.cu`. Each source has a plain C
-interface and is compiled on first use with `nvcc` for `sm_90a` into a shared
-library under `ogmm_tpu_torch/_build/` (one `nvcc` per source, all started
-together) and bound with `ctypes`. Nothing is built when a module is
-imported.
+The kernels live in `ogmm_tpu_torch/csrc/*.cu` (shared device code in
+`csrc/*.cuh`). Each source has a plain C interface and is compiled on first
+use with `nvcc` for `sm_90a` into a shared library under
+`ogmm_tpu_torch/_build/` (one `nvcc` per source, all started together) and
+bound with `ctypes`. Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dgcnn_eval", "sinkhorn_em")
+SOURCES = ("dgcnn_eval", "sinkhorn_em", "graph_stage1", "nn1")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -65,9 +65,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    """The library of one source, named by the hash of the source, every
+    header under csrc/ (a changed header must not load a stale library) and
+    the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build_kernels(names=SOURCES, verbose: bool = False) -> dict[str, Path]:

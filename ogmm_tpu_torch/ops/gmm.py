@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ogmm_tpu_torch.ops.common import index_points, matmul32
+from ogmm_tpu_torch.ops.common import index_points, matmul32, nn1
 from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em
 from ogmm_tpu_torch.ops.fps import farthest_point_sample
 
@@ -38,7 +38,8 @@ def wkeans_plus(xyz: torch.Tensor, feats: torch.Tensor,
 
     E-step: Sinkhorn on cdist(xyz, nodes)/tau with the normalised overlap
     scores as row marginal; M-step: weighted means. The EM carries no
-    gradient; only the final node_feats moments do. `init_ids` overrides the
+    gradient (gamma, pi and the nodes come back detached); only the final
+    node_feats moments do, through `feats`. `init_ids` overrides the
     centre-seeded FPS initialisation (see `fps_combined`).
 
     Returns (gamma (B,N,K), pi (B,K), node_xyz (B,K,3), node_feats (B,K,C)).
@@ -51,3 +52,12 @@ def wkeans_plus(xyz: torch.Tensor, feats: torch.Tensor,
     gamma, pi, node_xyz = _em(xyz.detach(), o, node_xyz0.detach(), iters, tau)
     node_feats = gmm_params(gamma, feats)[1]
     return gamma, pi, node_xyz, node_feats
+
+
+def get_local_corrs(xyz: torch.Tensor, xyz_mu: torch.Tensor,
+                    feats: torch.Tensor) -> torch.Tensor:
+    """Features of the point nearest to each cluster mean: xyz (B, N, 3),
+    xyz_mu (B, J, 3), feats (B, N, C) -> (B, J, C). The 1-NN carries no
+    gradient; the gather does."""
+    idx = nn1(xyz_mu.detach(), xyz.detach())[1]
+    return index_points(feats, idx)

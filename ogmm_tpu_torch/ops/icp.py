@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from ogmm_tpu_torch.core.procrustes import rigid_transform
-from ogmm_tpu_torch.ops.common import index_points, matmul32, nn1
+from ogmm_tpu_torch.ops.common import index_points, matmul32, nn1_dense
 
 
 @torch.no_grad()
@@ -24,7 +24,7 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
     t = init_pose[..., :3, 3]
     for _ in range(max_iter):
         moved = matmul32(src, rot.transpose(-1, -2)) + t.unsqueeze(1)
-        nn_d, nn_i = nn1(moved, tgt)
+        nn_d, nn_i = nn1_dense(moved, tgt)
         corr = index_points(tgt, nn_i)
         w = (nn_d < thresh_sq).to(src.dtype)
         any_in = w.sum(dim=-1) > 0

@@ -6,7 +6,8 @@ the config as JSON under `__config__`). `convert_variables` maps either form
 to the names and layouts of `ogmm_tpu_torch.nn.GMMReg`: Dense kernels
 (in, out) become Linear weights (out, in); BatchNorm scale/bias/mean/var
 become weight/bias/running_mean/running_var; the DGCNN's own parameters
-keep their names and their (in, out) layout.
+keep their names and their (in, out) layout. `flat_variables` is the
+inverse: a `state_dict` back to the flat keys of the JAX package.
 """
 from __future__ import annotations
 
@@ -81,6 +82,51 @@ def convert_variables(variables: Mapping) -> dict[str, torch.Tensor]:
         state[name] = torch.from_numpy(np.ascontiguousarray(
             arr.T if transpose else arr).copy())
     return state
+
+
+_TOP_INV = {v: k for k, v in _TOP.items()}
+_INNER_INV = {v: k for k, v in _INNER.items()}
+_BN_LEAF_INV = {v: k for k, v in _BN_LEAF.items()}
+
+
+def _flat_key(name: str) -> tuple[str, bool]:
+    """`state_dict` key -> (flat JAX key, transpose?): the inverse of
+    `_convert_key`."""
+    top, *rest = name.split(".")
+    if top == "dgcnn":
+        coll = ("batch_stats" if rest[0].endswith(("_mean", "_var"))
+                else "params")
+        return f"{coll}/DGCNN_0/{rest[0]}", False
+    parts, is_bn = [_TOP_INV[top]], False
+    for p in rest[:-1]:
+        if p in _INNER_INV:
+            parts.append(_INNER_INV[p])
+        elif m := re.fullmatch(r"dense(\d+)", p):
+            parts.append(f"Dense_{m.group(1)}")
+        elif m := re.fullmatch(r"bn(\d+)", p):
+            parts += [f"BN_{m.group(1)}", "BatchNorm_0"]
+            is_bn = True
+        else:
+            raise KeyError(f"unknown module {p!r} in {name}")
+    leaf = rest[-1]
+    if is_bn:
+        leaf = _BN_LEAF_INV[leaf]
+        coll = "batch_stats" if leaf in ("mean", "var") else "params"
+        return "/".join([coll, *parts, leaf]), False
+    if leaf == "weight":
+        return "/".join(["params", *parts, "kernel"]), True
+    return "/".join(["params", *parts, leaf]), False
+
+
+def flat_variables(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """`GMMReg.state_dict()` -> {'params/...': array, 'batch_stats/...':
+    array}, the flat form of the JAX package's variables."""
+    out = {}
+    for name, value in state.items():
+        key, transpose = _flat_key(name)
+        arr = value.detach().cpu().float().numpy()
+        out[key] = np.ascontiguousarray(arr.T if transpose else arr)
+    return out
 
 
 def load_weights(path: str) -> tuple[dict[str, torch.Tensor], Config | None]:

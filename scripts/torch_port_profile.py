@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of one serving request of the PyTorch/CUDA port goes.
+"""Where the time of one serving request, or one train step, of the
+PyTorch/CUDA port goes.
 
-    python3 scripts/torch_port_profile.py [--out DIR]   (default profile_out/)
+    python3 scripts/torch_port_profile.py [--train] [--out DIR]
+                                          (default profile_out/)
 
-Needs one CUDA device. Runs `Registrar` at B=24, N=717, emb 512, K=128 with a
+Needs one CUDA device. Runs GMMReg at B=24, N=717, emb 512, K=128 with a
 bf16 body and seeded random weights, and prints, for a request without and
-with ICP: the host-clock time per request, the device-busy time and idle
-share from `torch.profiler`, the number of device kernels launched, and the
-ten device kernels with the most time. Also times the stages of the forward
-with CUDA events. One JSON line at the end carries the same numbers with the
-card's name and power limit.
+with ICP (or, with --train, for a train step with the metric suite and the
+overlap labels made on the device): the host-clock time per call, the
+device-busy time and idle share from `torch.profiler`, the number of device
+kernels launched, and the ten device kernels with the most time. Also times
+the stages of the forward (with --train: forward and loss, backward, the
+optimizer, the metrics) with CUDA events. One JSON line at the end carries
+the same numbers with the card's name and power limit.
 """
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,16 +40,16 @@ def device_time_us(evt):
         evt, "cuda_time_total", 0.0)
 
 
-def profile_request(reg, src, tgt, refine, reps=3):
-    reg(src, tgt, refine=refine)
+def profile_call(fn, reps=3):
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        reg(src, tgt, refine=refine)
+        fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        reg(src, tgt, refine=refine)
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -99,36 +104,84 @@ def stage_times(reg, src, tgt):
     return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
 
 
+def train_phase_times(state, cfg, batch, reps=3):
+    """CUDA-event time of the phases of a train step, mean of `reps`."""
+    from ogmm_tpu_torch.core.metrics import dcp_metrics
+    from ogmm_tpu_torch.train import train_loss
+    names = ("forward_and_loss", "backward", "optimizer", "metrics")
+    spans = {k: 0.0 for k in names}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        loss, (rot, trans, _, inputs) = train_loss(state, cfg, batch)
+        ev[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        state.optimizer.step()
+        state.scheduler.step()
+        ev[3].record()
+        dcp_metrics(*inputs[:4], rot.detach(), trans.detach())
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            spans[k] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return spans
+
+
+def report(key, r):
+    print(f"{key}: {r['wall_ms']:.2f} ms per call on the host clock, "
+          f"device busy {r['device_busy_ms']:.2f} ms (idle share "
+          f"{r['device_idle_share']:.2f}), {r['device_kernels']} device kernels")
+    for t in r["top"]:
+        print(f"    {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a train step instead of a request")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
-    reg = Registrar(cfg, seed=0)
     rs = np.random.RandomState(0)
     src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
     tgt = src[:, rs.permutation(N)] + 0.05
     result = {"shape": {"B": B, "N": N}}
-    for refine in (False, True):
-        r = profile_request(reg, src, tgt, refine)
-        key = "forward_icp" if refine else "forward"
-        result[key] = r
-        print(f"{key}: {r['wall_ms']:.2f} ms per request on the host clock, "
-              f"device busy {r['device_busy_ms']:.2f} ms (idle share "
-              f"{r['device_idle_share']:.2f}), {r['device_kernels']} device kernels")
-        for t in r["top"]:
-            print(f"    {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
-    result["stages_ms"] = stage_times(reg, src, tgt)
-    print("stages (CUDA events, one request with ICP):")
+    if args.train:
+        from ogmm_tpu_torch.train import create_train_state, make_train_step
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    device_overlap=True))
+        state = create_train_state(cfg, steps_per_epoch=100, seed=0)
+        gt = np.tile(np.eye(3, 4, dtype=np.float32), (B, 1, 1))
+        gt[:, :, 3] = 0.05
+        ones = np.ones((B, N), np.float32)
+        batch = {"src_xyz": src, "tgt_xyz": src + 0.05, "src_overlap": ones,
+                 "tgt_overlap": ones, "transform_gt": gt}
+        step = make_train_step(cfg)
+        result["train_step"] = r = profile_call(lambda: step(state, batch))
+        report("train_step", r)
+        result["stages_ms"] = train_phase_times(state, cfg, batch)
+        print("phases (CUDA events, mean of 3 train steps):")
+    else:
+        reg = Registrar(cfg, seed=0)
+        for refine in (False, True):
+            key = "forward_icp" if refine else "forward"
+            result[key] = r = profile_call(
+                lambda: reg(src, tgt, refine=refine))
+            report(key, r)
+        result["stages_ms"] = stage_times(reg, src, tgt)
+        print("stages (CUDA events, one request with ICP):")
     for k, v in sorted(result["stages_ms"].items(), key=lambda kv: -kv[1]):
         print(f"    {v:8.3f} ms  {k}")
     result["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "torch_port_profile.json"), "w") as f:
+    name = "torch_port_profile_train.json" if args.train else "torch_port_profile.json"
+    with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))
 

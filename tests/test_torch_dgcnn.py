@@ -97,5 +97,6 @@ def test_unsupported_modes_raise():
     x = t(clouds(5))
     with pytest.raises(ValueError, match="posenc_centroid"):
         tm(x, with_posenc_alpha=5, posenc_centroid=x.mean(1, keepdim=True))
-    with pytest.raises(NotImplementedError):
-        tm.train()(x)
+    with pytest.raises(ValueError, match="posenc_centroid"):
+        tm.train()(x, with_posenc_alpha=5,
+                   posenc_centroid=x.mean(1, keepdim=True))

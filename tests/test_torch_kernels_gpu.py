@@ -13,7 +13,12 @@ from ogmm_tpu_torch import configs
 from ogmm_tpu_torch.api import Registrar
 from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops.cuda_dgcnn import dgcnn_eval, dgcnn_eval_reference
+from ogmm_tpu_torch.ops.cuda_dgcnn_train import (graph_stage1,
+                                                 graph_stage1_reference)
 from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
+from ogmm_tpu_torch.ops.cuda_knn import nn1, nn1_reference
+from ogmm_tpu_torch.train import (create_train_state, make_train_step,
+                                  train_loss)
 
 pytestmark = pytest.mark.gpu
 
@@ -117,12 +122,88 @@ def test_em_kernel_refuses_what_it_does_not_take(card):
         sinkhorn_em(xyz, o[:, :10], torch.zeros(1, 32, 3, device=card))
 
 
+@pytest.mark.parametrize("B,N", [(2, 717), (3, 128), (1, 20), (1, 1024)])
+@pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 0.0313)])
+def test_graph_stage1_kernel_matches_plain(card, B, N, dtype, lim):
+    rs = np.random.RandomState(N)
+    x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    w1 = torch.tensor(rs.randn(6, 64).astype(np.float32) / 2.5, device=card)
+    z1, e, idx, alpha = graph_stage1(x, w1, 20, dtype, 5)
+    rz1, re, ridx, ralpha = graph_stage1_reference(x, w1, 20, dtype, 5)
+    torch.cuda.synchronize()
+    assert z1.shape == (B, 20, N, 64) and z1.dtype == e.dtype == dtype
+    assert torch.equal(idx, ridx) and torch.equal(e, re)
+    assert (z1.float() - rz1.float()).abs().max().item() <= lim
+    assert (alpha - ralpha).abs().max().item() <= 1e-5
+
+
+def test_graph_stage1_kernel_ties_and_no_angles(card):
+    rs = np.random.RandomState(7)
+    x = torch.tensor(rs.randn(2, 96, 3).astype(np.float32) * 0.3, device=card)
+    x[:, 40] = x[:, 7]                       # coincident points: exact ties
+    w1 = torch.tensor(rs.randn(6, 64).astype(np.float32), device=card)
+    got = graph_stage1(x, w1, 20, torch.float32, 0)
+    want = graph_stage1_reference(x, w1, 20, torch.float32, 0)
+    assert got[3] is None and torch.equal(got[2], want[2])
+    assert (got[0] - want[0]).abs().max().item() <= 1e-5
+
+
+def test_graph_stage1_kernel_refuses_what_it_does_not_take(card):
+    x = torch.zeros(1, 64, 3, device=card)
+    w1 = torch.zeros(6, 64, device=card)
+    with pytest.raises(ValueError, match="k=20"):
+        graph_stage1(x, w1, k=8)
+    with pytest.raises(ValueError, match="N="):
+        graph_stage1(torch.zeros(1, 1100, 3, device=card), w1)
+    with pytest.raises(ValueError, match="w1"):
+        graph_stage1(x, torch.zeros(6, 32, device=card))
+    with pytest.raises(ValueError, match="dtype"):
+        graph_stage1(x, w1, dtype=torch.float16)
+
+
+@pytest.mark.parametrize("B,Nq,M", [(2, 512, 717), (2, 128, 717),
+                                    (2, 717, 717), (1, 5, 4096), (3, 1, 1),
+                                    (1, 300, 1500)])
+def test_nn1_kernel_matches_plain(card, B, Nq, M):
+    rs = np.random.RandomState(Nq + M)
+    src = torch.tensor(rs.randn(B, Nq, 3).astype(np.float32) * 0.3, device=card)
+    tgt = torch.tensor(rs.randn(B, M, 3).astype(np.float32) * 0.3, device=card)
+    d, i = nn1(src, tgt)
+    rd, ri = nn1_reference(src, tgt)
+    torch.cuda.synchronize()
+    assert i.dtype == torch.int64 and torch.equal(i, ri)
+    assert torch.equal(d, rd)
+
+
+def test_nn1_kernel_takes_the_first_of_equal_minima(card):
+    rs = np.random.RandomState(8)
+    tgt = torch.tensor(rs.randn(1, 2000, 3).astype(np.float32), device=card)
+    tgt[0, 1500] = tgt[0, 3]                 # the same point, other tile
+    tgt[0, 1600] = tgt[0, 1100]
+    d, i = nn1(tgt[:, [3, 1100, 1500]].contiguous(), tgt)
+    assert i[0].tolist() == [3, 1100, 3]
+    assert d.max().item() <= 1e-6
+
+
+def test_nn1_kernel_refuses_what_it_does_not_take(card):
+    with pytest.raises(ValueError, match="M <= 4096"):
+        nn1(torch.zeros(1, 8, 3, device=card), torch.zeros(1, 4097, 3, device=card))
+    with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
+        nn1(torch.zeros(1, 8, 2, device=card), torch.zeros(1, 9, 2, device=card))
+
+
 def test_wrappers_count_their_launches(card):
     x, ws, aff = _dgcnn_inputs(np.random.RandomState(5), card, 1, 64, 64)
     dispatch.reset_launch_counts()
     dgcnn_eval(x, ws, aff)
     dgcnn_eval_reference(x, ws, aff)
-    assert dispatch.launch_counts == {"dgcnn_eval": 1, "sinkhorn_em": 0}
+    graph_stage1(x, ws[0], 20, torch.float32, 5)
+    graph_stage1_reference(x, ws[0], 20, torch.float32, 5)
+    nn1(x, x)
+    nn1_reference(x, x)
+    assert dispatch.launch_counts == {"dgcnn_eval": 1, "sinkhorn_em": 0,
+                                      "graph_stage1": 1, "nn1": 1}
 
 
 @pytest.mark.parametrize("dtype,lim", [("float32", 1e-3), ("bfloat16", 0.15)])
@@ -135,9 +216,46 @@ def test_registrar_runs_on_the_card_by_default(card, dtype, lim):
     dispatch.reset_launch_counts()
     rot, trans, so, to = reg(src, src[:, ::-1].copy(), refine=True)
     assert rot.is_cuda and torch.isfinite(rot).all() and so.shape == (2, 128)
-    assert dispatch.launch_counts == {"dgcnn_eval": 1, "sinkhorn_em": 1}
+    # the clustering loss of the forward takes one 1-NN of the 2B clouds
+    assert dispatch.launch_counts == {"dgcnn_eval": 1, "sinkhorn_em": 1,
+                                      "graph_stage1": 0, "nn1": 1}
     # the same weights through the plain versions on the CPU: float32 agrees
     # to round-off; bf16 rounds at other places in the two matmul libraries
     cpu = Registrar(cfg, seed=1, device="cpu")
     _, _, cso, _ = cpu(src, src[:, ::-1].copy(), refine=False)
     assert (so.cpu() - cso).abs().max().item() <= lim
+
+
+def _train_batch(rs, B, N):
+    src = rs.randn(B, N, 3).astype(np.float32) * 0.3
+    gt = np.tile(np.eye(3, 4, dtype=np.float32), (B, 1, 1))
+    gt[:, :, 3] = rs.uniform(-0.2, 0.2, (B, 3))
+    tgt = src + gt[:, None, :, 3]
+    ones = np.ones((B, N), np.float32)
+    return {"src_xyz": src, "tgt_xyz": tgt, "src_overlap": ones,
+            "tgt_overlap": ones, "transform_gt": gt}
+
+
+def test_train_step_runs_on_the_card_by_default(card):
+    cfg = configs.mnet(model=configs.ModelConfig(
+        emb_dims=64, n_clusters=32, km_clusters=32, em_iters=2))
+    state = create_train_state(cfg, steps_per_epoch=10, seed=2)
+    assert state.device.type == "cuda"
+    batch = _train_batch(np.random.RandomState(9), 2, 128)
+    cpu = create_train_state(cfg, steps_per_epoch=10, seed=2, device="cpu")
+    cpu.generator = state.generator = None
+    ref, _ = train_loss(cpu, cfg, batch)
+    dispatch.reset_launch_counts()
+    got, _ = train_loss(state, cfg, batch)
+    got.backward()
+    torch.cuda.synchronize()
+    # src and tgt each through the graph kernel; Welsch 2, clustering 1,
+    # no labels or metrics in the loss
+    assert dispatch.launch_counts == {"dgcnn_eval": 0, "sinkhorn_em": 1,
+                                      "graph_stage1": 2, "nn1": 3}
+    # float32 on the card against the CPU: round-off through two EM trips
+    assert abs(got.item() - ref.item()) <= 1e-3 * abs(ref.item())
+    for n_, p in state.model.named_parameters():
+        assert torch.isfinite(p.grad).all(), n_
+    metrics = make_train_step(cfg)(state, batch)
+    assert all(torch.isfinite(v).all() for v in metrics.values())

@@ -142,14 +142,17 @@ def test_forward_one_em_trip_matches_jax_fp32():
     """Everything compared tightly: with one EM trip no drift builds up."""
     jm, v, tm = _models(em_iters=1)
     src, tgt, _, _ = _pair_of_clouds(6)
-    jr, jt, jso, jto, _ = jm.apply(v, jnp.asarray(src), jnp.asarray(tgt), train=False)
+    jr, jt, jso, jto, jclu = jm.apply(v, jnp.asarray(src), jnp.asarray(tgt),
+                                      train=False)
     with torch.no_grad():
-        tr, tt, tso, tto = tm(t(src), t(tgt))
+        tr, tt, tso, tto, tclu = tm(t(src), t(tgt))
     np.testing.assert_allclose(n(tso), n(jso), atol=1e-4)
     np.testing.assert_allclose(n(tto), n(jto), atol=1e-4)
     # the solve sees cluster features through a softmax at temperature 0.05
     np.testing.assert_allclose(n(tr), n(jr), atol=2e-3)
     np.testing.assert_allclose(n(tt), n(jt), atol=2e-3)
+    # the clustering loss, a contrastive loss at temperature 0.1
+    np.testing.assert_allclose(n(tclu), n(jclu), rtol=1e-3)
 
 
 def test_forward_ten_em_trips_matches_jax_fp32():
@@ -160,7 +163,7 @@ def test_forward_ten_em_trips_matches_jax_fp32():
     src, tgt, _, _ = _pair_of_clouds(7)
     jr, jt, jso, jto, _ = jm.apply(v, jnp.asarray(src), jnp.asarray(tgt), train=False)
     with torch.no_grad():
-        tr, tt, tso, tto = tm(t(src), t(tgt))
+        tr, tt, tso, tto, _ = tm(t(src), t(tgt))
     np.testing.assert_allclose(n(tso), n(jso), atol=1e-4)
     np.testing.assert_allclose(n(tto), n(jto), atol=1e-4)
     assert _angle_deg(n(tr), n(jr)).max() < 2.0
@@ -174,7 +177,7 @@ def test_forward_bf16_body_matches_jax():
     src, tgt, _, _ = _pair_of_clouds(8)
     _, _, jso, jto, _ = jm.apply(v, jnp.asarray(src), jnp.asarray(tgt), train=False)
     with torch.no_grad():
-        tr, tt, tso, tto = tm(t(src), t(tgt))
+        tr, tt, tso, tto, _ = tm(t(src), t(tgt))
     assert tso.dtype == torch.float32 and tr.dtype == torch.float32
     # sigmoid outputs after ~25 bf16 layers; the two frameworks round at
     # other places
@@ -188,7 +191,7 @@ def test_forward_full_width_cloud():
     src, tgt, _, _ = _pair_of_clouds(9, B=1, N=717)
     _, _, jso, jto, _ = jm.apply(v, jnp.asarray(src), jnp.asarray(tgt), train=False)
     with torch.no_grad():
-        _, _, tso, tto = tm(t(src), t(tgt))
+        _, _, tso, tto, _ = tm(t(src), t(tgt))
     np.testing.assert_allclose(n(tso), n(jso), atol=2e-4)
     np.testing.assert_allclose(n(tto), n(jto), atol=2e-4)
 
@@ -198,7 +201,7 @@ def test_forward_separate_anchor_and_cluster_counts():
     src, tgt, _, _ = _pair_of_clouds(10)
     _, _, jso, _, _ = jm.apply(v, jnp.asarray(src), jnp.asarray(tgt), train=False)
     with torch.no_grad():
-        _, _, tso, _ = tm(t(src), t(tgt))
+        _, _, tso, _, _ = tm(t(src), t(tgt))
     np.testing.assert_allclose(n(tso), n(jso), atol=1e-4)
 
 
@@ -207,8 +210,8 @@ def test_forward_rejects_what_is_not_ported():
     x = t(clouds(11))
     with pytest.raises(ValueError, match="equal point counts"):
         tm(x, x[:, :50])
-    with pytest.raises(NotImplementedError):
-        tm.train()(x, x)
+    with pytest.raises(ValueError, match="equal point counts"):
+        tm.train()(x, x[:, :50])
     with pytest.raises(ValueError, match="pos_k"):
         TGMMReg(tconfigs.ModelConfig(pos_k=0))
 

@@ -10,8 +10,11 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "ogmm_tpu_torch"
 MODULES = sorted(p for p in PKG.rglob("*.py"))
 
 
-@pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(PKG)))
-def test_source_names_no_jax(path):
+# the scripts that drive the port on the card stand alone too
+SCRIPTS = [PKG.parent / "chip_smoke.py", PKG.parent / "scripts/torch_port_profile.py"]
+
+
+def _assert_names_no_jax(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         names = []
@@ -23,6 +26,16 @@ def test_source_names_no_jax(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "ogmm_tpu"), \
                 f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(PKG)))
+def test_source_names_no_jax(path):
+    _assert_names_no_jax(path)
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
+def test_scripts_name_no_jax(path):
+    _assert_names_no_jax(path)
 
 
 def test_importing_every_module_loads_no_jax():
