@@ -10,7 +10,9 @@ fatal on failure:
   2. kernels each kernel's wrapper against its plain PyTorch version on the
              card, at the shapes the main paths give it (serving: 2B=48
              clouds of 717 points, emb 512, K=128; training: B=24 clouds of
-             717 points, 1-NN queries of 512, 128 and 717 points), with the
+             717 points, 1-NN queries of 512, 128 and 717 points, and the
+             five DGCNN backward calls of a real backward in float32 and
+             bf16, each launched twice and compared bit for bit), with the
              limits stated below, and timed beside its plain version and its
              bound
   3. serve   `Registrar` at B=24, N=717, emb 512, K=128, bf16 body, seeded
@@ -18,13 +20,18 @@ fatal on failure:
              counts of the kernels over one request; the same requests with
              the kernels swapped for their plain versions, compared on the
              overlap scores and the refined rotation
-  4. train   `make_train_step` at the same shape and body: a warm-up step,
-             one step with the launch counts, ten timed steps; finite loss
-             and gradients, every parameter and running statistic moved;
-             one step from the same state through the kernels and through
-             their plain versions, compared on the loss and the gradients;
-             one `make_eval_step` with ICP
-  5. check   ICP on a small input recovers a known pose
+  4. train   `make_train_step` at the same shape and body with the DGCNN
+             backward kernels on (`ops.dgcnn_train.BWD_KERNELS`): a warm-up
+             step, one step with the launch counts, ten timed steps with the
+             switch on and ten with it off (and the peak device memory of
+             each); finite loss and gradients, every parameter and running
+             statistic moved; one step from the same state with the switch
+             on and off (loss bit-equal, gradients close), and through the
+             kernels and their plain versions; one `make_eval_step` with ICP
+  5. cli     `python -m ogmm_tpu_torch.train` (cli.main) on synthetic
+             ModelNet at the same shape with the switch on: three steps, an
+             eval batch, a checkpoint, every kernel launched
+  6. check   ICP on a small input recovers a known pose
 
 Prints the request and step times, one JSON object {"kernels": [...]} on a
 line of its own, the `nvidia-smi` name and power limit, and as the last line
@@ -32,8 +39,10 @@ line of its own, the `nvidia-smi` name and power limit, and as the last line
 """
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,6 +62,11 @@ try:
     from ogmm_tpu_torch.ops.common import index_points
     from ogmm_tpu_torch.ops.cuda_dgcnn import (STAGES, dgcnn_eval,
                                                dgcnn_eval_reference)
+    from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (bwd_edge, bwd_edge_reference,
+                                                  bwd_reduce,
+                                                  bwd_reduce_reference,
+                                                  bwd_stage,
+                                                  bwd_stage_reference)
     from ogmm_tpu_torch.ops.cuda_dgcnn_train import (graph_stage1,
                                                      graph_stage1_reference)
     from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
@@ -61,6 +75,7 @@ try:
     from ogmm_tpu_torch.ops.icp import icp_point_to_point
     from ogmm_tpu_torch.train import (create_train_state, make_eval_step,
                                       make_train_step, train_loss)
+    from ogmm_tpu_torch.train import cli
 except ImportError as e:
     sys.exit(f"chip_smoke: the package ogmm_tpu_torch is missing: {e}")
 
@@ -81,6 +96,12 @@ LIM_EM_10_PI = 1e-3      # outputs only, cloud extent ~1
 LIM_Z1_F32 = 1e-5        # six float32 products, other summation order
 LIM_Z1_BF16 = 0.0313     # one bf16 rounding of values up to ~4: one ulp
 LIM_NN1_D = 0.0          # same float32 arithmetic in the same order
+# DGCNN backward kernels, as a share of max|plain| of each output
+LIM_BWD_F32 = 1e-4       # same float32 arithmetic, other summation order
+LIM_BWD_DZ_BF16 = 2.0 ** -6  # two bf16 ulps at the largest dz: a rounded
+#                          cotangent (dz W^T) may land one ulp off
+LIM_BWD_SUM_BF16 = 2e-2  # dW, S, dq, dscat: float32 sums of bf16 products
+#                          over 344,160 rows in another order
 # limits, serving forward with kernels against the same with plain versions
 LIM_OVERLAP = 0.05       # sigmoid scores after a bf16 body
 LIM_ROT_DEG = 1.0        # median angle between the two refined rotations
@@ -89,6 +110,9 @@ LIM_ROT_DEG = 1.0        # median angle between the two refined rotations
 # cluster features and the pose, so loss and gradients agree to a share
 LIM_STEP_LOSS = 0.02     # relative difference of the loss
 LIM_STEP_GRAD = 0.2      # |g_kernel - g_plain| / |g_plain| over all params
+# one train step with the backward kernels on against off, from one state:
+# the forward is the same, the backward rounds in other places
+LIM_BWD_STEP_GRAD = 0.05
 
 
 def cuda_ms(fn, reps):
@@ -290,6 +314,136 @@ def check_nn1(rs):
     }
 
 
+BWD = {"bwd_reduce": (bwd_reduce, bwd_reduce_reference, 327),
+       "bwd_stage": (bwd_stage, bwd_stage_reference, 378),
+       "bwd_edge": (bwd_edge, bwd_edge_reference, 413)}
+
+
+def bwd_calls(rs, dtype):
+    """The five backward calls (reduce, stage 4, 3, 2, edge) of one DGCNN
+    training forward and backward of B clouds at full width, recorded with
+    their arguments while the plain versions run them."""
+    calls = []
+
+    def record(name):
+        def fn(*a, **kw):
+            calls.append((name, a, kw))
+            return BWD[name][1](*a, **kw)
+        return fn
+
+    x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=DEV)
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, EMB)]
+    ws = [torch.tensor(rs.randn(*d).astype(np.float32) / np.sqrt(d[0]),
+                       device=DEV, requires_grad=True) for d in dims]
+    gs = [torch.tensor(rs.uniform(0.5, 1.5, d[1]).astype(np.float32), device=DEV)
+          for d in dims]
+    bs = [torch.tensor(rs.randn(d[1]).astype(np.float32) * 0.1, device=DEV)
+          for d in dims]
+    saved = {name: getattr(ops_dgcnn_train, name) for name in BWD}
+    switch = ops_dgcnn_train.BWD_KERNELS
+    try:
+        for name in BWD:
+            setattr(ops_dgcnn_train, name, record(name))
+        ops_dgcnn_train.BWD_KERNELS = True
+        out, _, _ = ops_dgcnn_train.dgcnn_train(x, ws, gs, bs, KNN, dtype)
+        wvec = torch.tensor(rs.randn(B, N, EMB).astype(np.float32), device=DEV)
+        (out.float() * wvec).sum().backward()
+    finally:
+        for name, fn in saved.items():
+            setattr(ops_dgcnn_train, name, fn)
+        ops_dgcnn_train.BWD_KERNELS = switch
+    torch.cuda.synchronize()
+    assert [c[0] for c in calls] == ["bwd_reduce"] + ["bwd_stage"] * 3 + ["bwd_edge"]
+    return calls
+
+
+def _outs(name, out):
+    return [out] if name == "bwd_reduce" else list(out)
+
+
+def bwd_work(name, a, kw):
+    """(bytes, product flops, elementwise flops) one call needs: each input
+    read once, each output written once."""
+    z = a[0]
+    s = z.element_size()
+    m, C = z[..., 0].numel(), z.shape[-1]
+    rows = z.shape[0] * z.shape[2]
+    if name == "bwd_reduce":
+        return (m * C * s + rows * C * s + 6 * C * 4 + 2 * C * 4, 0.0,
+                14.0 * m * C)
+    if name == "bwd_stage":
+        cin = a[8].shape[-1]
+        cn = 0 if kw["dznext"] is None else kw["dznext"].shape[-1]
+        nbytes = (m * (2 * C + cin + cn) * s + rows * (C + cin) * s
+                  + 4 * (C * cin + C * cn + 2 * C + 8 * C + 8 * cin + cin * C + 2 * cin))
+        return nbytes, 2.0 * m * (C * cn + 2 * C * cin), m * (16.0 * C + 14.0 * cin)
+    # edge: z1, dz2, e, idx, dtap in; dW1, dq, dscat out
+    nbytes = (m * (2 * C + 6) * s + m * 4 + rows * C * s
+              + 4 * (2 * C * C + 12 * C + 6 * C + 2 * rows * 3))
+    return nbytes, 2.0 * m * (C * C + 2 * 6 * C), m * (16.0 * C + 12.0)
+
+
+def check_dgcnn_bwd(rs):
+    """The three backward kernels against their plain versions on the
+    arguments of a real backward at B=24, N=717, float32 and bf16; two
+    launches bit for bit; times of one backward (one cloud) beside the
+    plain versions and the bound."""
+    errs = {name: {} for name in BWD}
+    timed = {}
+    for dt in (torch.float32, torch.bfloat16):
+        calls = bwd_calls(rs, dt)
+        for name, a, kw in calls:
+            kern, plain, _ = BWD[name]
+            got, again = _outs(name, kern(*a, **kw)), _outs(name, kern(*a, **kw))
+            torch.cuda.synchronize()
+            ref = _outs(name, plain(*a, **kw))
+            for i, (g, g2, r) in enumerate(zip(got, again, ref)):
+                assert torch.equal(g, g2), f"{name}: two launches differ"
+                assert g.shape == r.shape and g.dtype == r.dtype, name
+                assert torch.isfinite(g.float()).all(), name
+                scale = r.float().abs().max().item()
+                err = (g.float() - r.float()).abs().max().item()
+                lim = (LIM_BWD_F32 if dt == torch.float32 else
+                       LIM_BWD_DZ_BF16 if (name == "bwd_stage" and i == 0)
+                       else LIM_BWD_SUM_BF16) * scale
+                print(f"{name} {dt} output {i}: max|kernel - plain| = {err:.3g} "
+                      f"(limit {lim:.3g}), max|plain| = {scale:.3g}")
+                assert err <= lim, (name, dt, i)
+                errs[name][dt] = max(errs[name].get(dt, 0.0), err)
+        timed[dt] = calls
+    entries = []
+    for name, (kern, plain, line) in BWD.items():
+        def run(fn, dt, name=name):
+            for n_, a, kw in timed[dt]:
+                if n_ == name:
+                    fn(*a, **kw)
+        bf = torch.bfloat16
+        ms = cuda_ms(lambda: run(kern, bf), 10)
+        ms32 = cuda_ms(lambda: run(kern, torch.float32), 5)
+        plain_ms = cuda_ms(lambda: run(plain, bf), 3)
+        work = [bwd_work(name, a, kw) for n_, a, kw in timed[bf] if n_ == name]
+        nbytes = sum(w[0] for w in work)
+        t_ops = (sum(w[1] for w in work) / PEAK_FLOPS["bf16"]
+                 + sum(w[2] for w in work) / PEAK_FLOPS["f32"])
+        t_bytes = nbytes / PEAK_BYTES
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "ogmm_tpu_torch/csrc/dgcnn_bwd.cu",
+            "replaces": f"ogmm_tpu/ops/pallas_dgcnn_train.py:{line}",
+            "calls_per_backward": len(work),
+            "max_abs_err": errs[name][bf],
+            "max_abs_err_f32": errs[name][torch.float32],
+            "ms": ms, "ms_f32": ms32, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        })
+        print(f"{name}: {ms:.3f} ms bf16, {ms32:.3f} ms fp32, plain {plain_ms:.3f} ms, "
+              f"bound {entries[-1]['bound_ms']:.4f} ms ({entries[-1]['bound_by']}), "
+              f"{len(work)} call(s) of one backward")
+    return entries
+
+
 # -------------------------------------------------------------------- serve
 
 class plain_versions:
@@ -299,7 +453,10 @@ class plain_versions:
     SWAPS = ((nn_dgcnn, "dgcnn_eval", dgcnn_eval_reference),
              (ops_gmm, "sinkhorn_em", sinkhorn_em_reference),
              (ops_dgcnn_train, "graph_stage1", graph_stage1_reference),
-             (cuda_knn, "nn1", nn1_reference))
+             (cuda_knn, "nn1", nn1_reference),
+             (ops_dgcnn_train, "bwd_reduce", bwd_reduce_reference),
+             (ops_dgcnn_train, "bwd_stage", bwd_stage_reference),
+             (ops_dgcnn_train, "bwd_edge", bwd_edge_reference))
 
     def __enter__(self):
         self.saved = [getattr(m, name) for m, name, _ in self.SWAPS]
@@ -397,6 +554,12 @@ def _step_grads(state, cfg, batch):
     return loss.item(), _grads(probe.model)
 
 
+def _rel(a, b):
+    num = sum(((a[n] - b[n]).float() ** 2).sum() for n in b)
+    den = sum((b[n].float() ** 2).sum() for n in b)
+    return (num / den).sqrt().item()
+
+
 def train(rs):
     cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_overlap=True),
@@ -406,6 +569,7 @@ def train(rs):
     batches = [make_batch(rs) for _ in range(4)]
     before = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
 
+    ops_dgcnn_train.BWD_KERNELS = True
     step(state, batches[0])                               # warm up
     torch.cuda.synchronize()
     dispatch.reset_launch_counts()
@@ -415,18 +579,32 @@ def train(rs):
     print("kernel launches in one train step:", launches)
     for name in ("graph_stage1", "nn1", "sinkhorn_em"):
         assert launches[name] > 0, launches
+    # the training forward runs per cloud: one backward for src, one for tgt
+    assert (launches["bwd_reduce"], launches["bwd_stage"],
+            launches["bwd_edge"]) == (2, 6, 2), launches
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
 
-    losses = []
-    t0 = time.perf_counter()
-    for i in range(10):
-        metrics = step(state, batches[i % len(batches)])
-        losses.append(metrics["loss"][0])
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    # ten timed steps with the backward kernels, ten with the plain backward
+    step_ms, peak_mib, losses = {}, {}, []
+    for on in (True, False):
+        ops_dgcnn_train.BWD_KERNELS = on
+        step(state, batches[2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(10):
+            metrics = step(state, batches[i % len(batches)])
+            losses.append(metrics["loss"][0])
+        torch.cuda.synchronize()
+        step_ms[on] = (time.perf_counter() - t0) / 10 * 1e3
+        peak_mib[on] = torch.cuda.max_memory_allocated() / 2 ** 20
+    ops_dgcnn_train.BWD_KERNELS = True
     losses = [v.item() for v in losses]
-    print(f"train step of {B} pairs: {step_ms:.2f} ms (host clock, "
-          f"synchronised); losses {[round(v, 4) for v in losses]}")
+    print(f"train step of {B} pairs: {step_ms[True]:.2f} ms with the backward "
+          f"kernels, {step_ms[False]:.2f} ms with the plain backward (host "
+          f"clock, synchronised, ten steps each); peak device memory "
+          f"{peak_mib[True]:.0f} / {peak_mib[False]:.0f} MiB; losses "
+          f"{[round(v, 4) for v in losses]}")
     assert all(np.isfinite(losses))
     for n, p in state.model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), n
@@ -435,17 +613,24 @@ def train(rs):
     assert not unchanged, f"not moved by training: {unchanged}"
     print(f"all {len(before)} parameters and running statistics moved")
 
-    # the same step from the same state through the plain versions
+    # one step from the same state with the backward kernels on and off
     batch = batches[2]
     k_loss, k_grads = _step_grads(state, cfg, batch)
+    ops_dgcnn_train.BWD_KERNELS = False
+    o_loss, o_grads = _step_grads(state, cfg, batch)
+    ops_dgcnn_train.BWD_KERNELS = True
+    d_bwd = _rel(k_grads, o_grads)
+    print(f"train step, backward kernels on against off: loss {k_loss!r} / "
+          f"{o_loss!r}; gradients relative {d_bwd:.3g} (limit {LIM_BWD_STEP_GRAD})")
+    assert k_loss == o_loss and d_bwd <= LIM_BWD_STEP_GRAD
+
+    # the same step from the same state through the plain versions
     with plain_versions():
         counts = dict(dispatch.launch_counts)
         p_loss, p_grads = _step_grads(state, cfg, batch)
         assert dict(dispatch.launch_counts) == counts
     d_loss = abs(k_loss - p_loss) / abs(p_loss)
-    num = sum(((k_grads[n] - p_grads[n]).float() ** 2).sum() for n in p_grads)
-    den = sum((p_grads[n].float() ** 2).sum() for n in p_grads)
-    d_grad = (num / den).sqrt().item()
+    d_grad = _rel(k_grads, p_grads)
     print(f"train step, kernels against plain versions: loss {k_loss:.5f} / "
           f"{p_loss:.5f}, relative {d_loss:.3g} (limit {LIM_STEP_LOSS}); "
           f"gradients relative {d_grad:.3g} (limit {LIM_STEP_GRAD})")
@@ -456,7 +641,46 @@ def train(rs):
     assert all(torch.isfinite(v).all() for v in ev.values()), ev
     print("eval step with ICP: " + ", ".join(
         f"{k} {v.mean().item():.4g}" for k, v in ev.items()))
-    return launches, step_ms, losses
+    return launches, {"step_ms_bwd_kernels": step_ms[True],
+                      "step_ms_plain_bwd": step_ms[False],
+                      "peak_mib_bwd_kernels": peak_mib[True],
+                      "peak_mib_plain_bwd": peak_mib[False],
+                      "grad_rel_on_off": d_bwd, "losses": losses}
+
+
+# ---------------------------------------------------------------------- cli
+
+def run_cli():
+    """`python -m ogmm_tpu_torch.train` on the card at full width with the
+    backward kernels on: synthetic ModelNet (crop, 717 points), B=24,
+    emb 512, K=128, bf16, one epoch of three steps and one eval batch."""
+    ops_dgcnn_train.BWD_KERNELS = True
+    with tempfile.TemporaryDirectory() as tmp:
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["--dataset", "synthetic", "--root", "synthetic:200",
+                            "--dtype", "bfloat16", "--batch_size", str(B),
+                            "--test_batch_size", str(B), "--epochs", "1",
+                            "--steps_per_epoch", "3", "--model_path", tmp])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(dispatch.launch_counts)
+        saved = os.path.exists(os.path.join(tmp, "checkpoints", "GMMReg",
+                                            "models", "optim_model.pt"))
+    rec = trainer.history[-1]
+    print(f"CLI: {trainer.state.step} steps and an eval batch in {secs:.1f} s "
+          f"(data pipeline included), train loss {rec['train']['loss']:.4f}, "
+          f"eval loss {rec['val']['loss']:.4f}, checkpoint written {saved}; "
+          f"launches {launches}")
+    assert trainer.state.step == 3 and saved
+    assert np.isfinite(rec["train"]["loss"]) and np.isfinite(rec["val"]["loss"])
+    assert trainer.state.device.type == "cuda"
+    for name in dispatch.KERNELS:
+        assert launches[name] > 0, launches
+    assert (launches["bwd_reduce"], launches["bwd_stage"],
+            launches["bwd_edge"]) == (6, 18, 6), launches
+    return launches, {"seconds": secs, "train_loss": rec["train"]["loss"],
+                      "eval_loss": rec["val"]["loss"]}
 
 
 def check_icp(rs):
@@ -482,9 +706,10 @@ def main():
     dispatch.build_kernels()
     print(f"built {', '.join(dispatch.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     kernels = [check_dgcnn(rs), check_em(rs), check_graph_stage1(rs),
-               check_nn1(rs)]
+               check_nn1(rs), *check_dgcnn_bwd(rs)]
     launches, times = serve(rs)
-    train_launches, step_ms, losses = train(rs)
+    train_launches, train_out = train(rs)
+    cli_launches, cli_out = run_cli()
     check_icp(rs)
     for k in kernels:
         # each kernel's launches on the path it was ported for
@@ -492,9 +717,10 @@ def main():
             else train_launches
         k["launches"] = path[k["name"]]
         k["launches_train_step"] = train_launches[k["name"]]
+        k["launches_cli"] = cli_launches[k["name"]]
     print(json.dumps({"request_ms": {"forward": times[False],
                                      "forward_icp": times[True]},
-                      "train_step_ms": step_ms, "train_losses": losses,
+                      "train": train_out, "cli": cli_out,
                       "shape": {"B": B, "N": N, "emb": EMB, "K": K}}))
     print(json.dumps({"kernels": kernels}))
     print(subprocess.run(

@@ -33,7 +33,16 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The dataset options the training step reads."""
+    """The dataset and augmentation options of the ModelNet pipeline."""
+    root: str = "/data"         # ModelNet40 h5 files, or 'synthetic[:S]'
+    dataset: str = "modelnet"   # modelnet | synthetic
+    n_points: int = 717
+    trans_mag: float = 0.5
+    rot_mag: float = 45.0       # degrees
+    unseen: bool = True         # test on the categories >= 20
+    partial: Tuple[float, float] = (0.70, 0.70)   # crop keep proportions
+    noise_type: str = "crop"    # clean | jitter | crop
+    num_workers: int = 6        # loader threads
     # device_overlap only: the true target overlap labels instead of the
     # original's tgt_overlap = src_overlap
     fix_tgt_overlap: bool = False
@@ -42,6 +51,8 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer, schedule, loss weights and loop."""
+    batch_size: int = 24
+    test_batch_size: int = 24
     epochs: int = 450
     lr: float = 1e-4
     weight_decay: float = 1e-4  # L2, added to the gradient before Adam
@@ -59,6 +70,7 @@ class TrainConfig:
     eval_every: int = 1         # test-split eval every k-th epoch
     device_overlap: bool = False  # ground-truth overlap labels in the step
     overlap_thresh: float = 0.05  # their radius
+    model_path: str = "checkpoints"  # root of the run's checkpoints
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +110,7 @@ def config_from_dict(d: dict) -> Config:
     """Build a Config from the dictionary the JAX package saves beside its
     weights. A model option that is not implemented here raises; options of
     the training and dataset sections that this package does not read (the
-    TPU mesh, the data pipeline) are left out."""
+    TPU mesh, the indoor datasets' options) are left out."""
     if d.get("model_name", "GMMReg") != "GMMReg":
         raise NotImplementedError(
             f"model {d['model_name']!r} is not ported; only GMMReg is")

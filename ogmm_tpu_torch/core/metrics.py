@@ -71,3 +71,25 @@ def summarize_metrics(metrics: Dict[str, np.ndarray]) -> Dict[str, float]:
         else:
             out[k] = float(np.mean(v))
     return out
+
+
+def print_metrics(summary: Dict[str, float], title: str = "Metrics",
+                  log=None) -> None:
+    """The metric report of an eval epoch, line by line through `log`
+    (print by default)."""
+    emit = log if log is not None else print
+    emit("=" * (len(title) + 1))
+    emit(title + ":")
+    emit("DeepCP metrics: {:.4f}(rot-rmse) | {:.4f}(rot-mae) | "
+         "{:.4g}(trans-rmse) | {:.4g}(trans-mae)".format(
+             summary["r_rmse"], summary["r_mae"],
+             summary["t_rmse"], summary["t_mae"]))
+    emit("Rotation error {:.4f}(deg, mean) | {:.4f}(deg, rmse)".format(
+        summary["err_r_deg_mean"], summary["err_r_deg_rmse"]))
+    emit("Translation error {:.4g}(mean) | {:.4g}(rmse)".format(
+        summary["err_t_mean"], summary["err_t_rmse"]))
+    emit("Chamfer error: {:.7f}(mean-sq)".format(summary["chamfer_dist"]))
+    emit("Source error: {:.7f}(mean-sq)".format(summary["pcab_dist"]))
+    emit("Clip Chamfer error: {:.7f}(mean-sq)".format(
+        summary["clip_chamfer_dist"]))
+    emit("Recall: {:.7f}".format(summary["n_correct"]))

@@ -1,0 +1,804 @@
+// Backward of the DGCNN edge stages 4..1 in training, for Hopper (sm_90a),
+// plain C interface. Replaces the TPU kernels of
+// ogmm_tpu/ops/pallas_dgcnn_train.py:
+//
+//   bwd_reduce_launch  bwd_reduce_pallas (_bwd_reduce_kernel): the BatchNorm
+//                      sums S = (sum dy, sum dy zhat) of the last stage
+//   bwd_stage_launch   bwd_stage_pallas (_bwd_stage_kernel): dz_i, dW_i and
+//                      the sums of stage i-1, for stages 4, 3 and 2
+//   bwd_edge_launch    bwd_edge_pallas (_bwd_edge_kernel): stage 1, dW_1,
+//                      dq and the neighbour scatter dscat
+//
+// Layout: stage tensors are (B, KNN, N, C) in the compute type T (float32 or
+// bf16), taps (B, N, C). A "tile" is the KNN x TN rows (b, j, n0 + t) of TN
+// points: the max over k of a column needs all KNN rows of its point, which
+// is why the TPU kernel takes every k of a tile too. Its row tail is a bounds
+// check on n; rows past N enter no output and no sum.
+//
+// Each launch runs a few kernels on the wrapper's stream:
+//  1. rows_kernel: a fixed grid of ROW_BLOCKS blocks walks the tiles in a
+//     fixed order. Per tile, in shared memory:
+//       - extra = dz_{i+1} . W_{i+1}^T (dz_{i+1} staged in 16-byte loads, W
+//         read through L1), rounded to T: the cotangent from the stage above;
+//       - per (t, c) column, one thread: h recomputed from z exactly as the
+//         forward formed it (bn_y: a rounding to T after the subtract, the
+//         multiply and the add, no contraction, as eager PyTorch), the first
+//         argmax of h over k, dh = extra (+ dtap at the argmax, rounded),
+//         dy = ReLU-VJP (half at 0), then either the sums (reduce) or
+//         dz = inv gamma (dy - S1/m - zhat S2/m) (stage, edge);
+//       - stage: dh_{i-1} = dz . W_i^T rounded to T, the max-VJP of the tap
+//         below with h_{i-1} recomputed from z_{i-1}, dy_{i-1} and its sums;
+//       - edge: de = dz . W_1^T in float32, dq = sum_k (de[3:] - de[:3]) and
+//         de[:3] per row to a scratch array.
+//     The sums go to one partial per block, reduced in the block in thread
+//     order; sum_parts_kernel adds the partials in block order.
+//  2. dw_kernel / dw_mma_kernel: dW = h_{i-1}^T dz (h_{i-1} recomputed from
+//     z_{i-1}; e for stage 1) as a split-K product over the m = B KNN N rows,
+//     one float32 partial per split, added in split order by sum_parts_kernel.
+//  3. edge only, scatter_kernel: dscat[b, p] = sum of de[:3] over the rows
+//     (b, j, n) with idx[b, n, j] == p, taken in (j, n) order: a block a
+//     cloud inverts idx in shared memory (counting sort, each point's list
+//     sorted) and a thread a point adds its rows. No float atomics anywhere,
+//     so two launches on the same input give the same bits.
+//
+// Every product of the TPU kernel's body is computed here. For bf16 the row
+// kernels' tile products (the cotangent from the stage above, dh of the stage
+// below) and the weight gradients of stages 4..2 run on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, float32 accumulation); de, dW_1 and
+// every float32 product run on the CUDA cores with float32 accumulation.
+//
+// Bound: at B=24, N=717 one backward (five launches) moves about 1.3 GB and
+// does about 93 GFLOP, mostly bf16 products: the bytes bound it (about 0.4
+// ms at 3.35 TB/s).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "knn_select.cuh"  // KNN, MAXN, to_f, from_f
+
+#define NT 256           // threads of a block
+#define TN 4             // points of a tile
+#define ROWS (KNN * TN)  // rows of a tile: row r = j * TN + t
+#define ROW_BLOCKS 264   // grid of the row kernels (2 a streaming multiprocessor)
+#define RC 32            // rows a step of the weight-gradient kernel
+#define DW_BLOCKS 264    // blocks of the weight-gradient kernel, about
+
+enum { REDUCE = 0, STAGE = 1, EDGE = 2 };
+
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+
+// Per-channel constants, packed (6, C) float32 by the wrapper with the same
+// PyTorch operations as the plain version: mean, inv*gamma and beta rounded
+// to T, then mean, inv = rsqrt(var + eps) and inv*gamma in float32.
+struct BnC {
+  float mean_t = 0.f, scale_t = 0.f, beta_t = 0.f, mean = 0.f, inv = 0.f, ig = 0.f;
+  __device__ BnC(const float* bn, int C, int c) {
+    if (bn) {
+      mean_t = bn[c]; scale_t = bn[C + c]; beta_t = bn[2 * C + c];
+      mean = bn[3 * C + c]; inv = bn[4 * C + c]; ig = bn[5 * C + c];
+    }
+  }
+};
+
+// y = BN(z) in T, rounded after each operation like the eager forward
+template <typename T>
+__device__ __forceinline__ float bn_y(float z, const BnC& k) {
+  const float a = rnd<T>(__fsub_rn(z, k.mean_t));
+  const float b = rnd<T>(__fmul_rn(a, k.scale_t));
+  return rnd<T>(__fadd_rn(b, k.beta_t));
+}
+
+__device__ __forceinline__ float zhat(float z, const BnC& k) {
+  return __fmul_rn(__fsub_rn(z, k.mean), k.inv);
+}
+
+// cotangent of max(y, 0): g where y > 0, g / 2 where y == 0
+template <typename T>
+__device__ __forceinline__ float relu_vjp(float g, float y) {
+  return y > 0.f ? g : (y == 0.f ? rnd<T>(__fmul_rn(0.5f, g)) : 0.f);
+}
+
+// Recompute one column's KNN values y from z and the first argmax of
+// h = max(y, 0) over them.
+template <typename T, int C>
+__device__ __forceinline__ int column_y(const T* __restrict__ z, size_t b,
+                                        int N, int n, int c, const BnC& k,
+                                        float zf[KNN], float y[KNN]) {
+  int am = 0;
+  float best = -1.f;
+#pragma unroll
+  for (int j = 0; j < KNN; ++j) {
+    zf[j] = to_f(z[((b * KNN + j) * N + n) * C + c]);
+    y[j] = bn_y<T>(zf[j], k);
+    const float h = fmaxf(y[j], 0.f);
+    if (h > best) { best = h; am = j; }
+  }
+  return am;
+}
+
+// out[r][o] = T(sum_q A[r][q] Bm[q][o]) for the ROWS rows of a tile: A in
+// shared memory (row stride lda), Bm (Q, O) float32 in global memory (L1).
+// A thread owns 4 adjacent columns of every (NT / (O / 4))-th row.
+template <typename T, int Q, int O>
+__device__ __forceinline__ void tile_gemm(const T* A, int lda,
+                                          const float* __restrict__ Bm,
+                                          T* out) {
+  constexpr int OG = O / 4, RG = NT / OG, RPT = (ROWS + RG - 1) / RG;
+  static_assert(NT % OG == 0, "O / 4 must divide the block");
+  const int og = threadIdx.x % OG, rg = threadIdx.x / OG;
+  float acc[RPT][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const float4* B4 = reinterpret_cast<const float4*>(Bm);
+#pragma unroll 4
+  for (int q = 0; q < Q; ++q) {
+    const float4 w = __ldg(B4 + q * OG + og);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = rg + RG * i;
+      const float a = r < ROWS ? to_f(A[r * lda + q]) : 0.f;
+      acc[i][0] = fmaf(a, w.x, acc[i][0]);
+      acc[i][1] = fmaf(a, w.y, acc[i][1]);
+      acc[i][2] = fmaf(a, w.z, acc[i][2]);
+      acc[i][3] = fmaf(a, w.w, acc[i][3]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = rg + RG * i;
+    if (r < ROWS) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) out[r * O + 4 * og + x] = from_f<T>(acc[i][x]);
+    }
+  }
+}
+
+// c += a b for one 16x16 (a, row-major) by 16x8 (b, column-major) bf16 tile
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The same product for bf16 on the tensor cores: out[r][o] = bf16(sum_q
+// A[r][q] W[o][q]), W (O, Q) bf16 in global memory (L1). Warp w owns the
+// 8-column tiles w, w + 8, ... and every 16-row tile. lda / 2 = 4 (mod 32)
+// words keeps the fragment loads free of bank conflicts.
+template <int Q, int O>
+__device__ __forceinline__ void tile_mma(const __nv_bfloat16* A, int lda,
+                                         const __nv_bfloat16* __restrict__ W,
+                                         __nv_bfloat16* out) {
+  constexpr int NW = NT / 32, MT = ROWS / 16, NPW = O / (8 * NW);
+  static_assert(ROWS % 16 == 0 && Q % 16 == 0 && O % (8 * NW) == 0, "tiles");
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const uint32_t* A32 = reinterpret_cast<const uint32_t*>(A);
+  const uint32_t* W32 = reinterpret_cast<const uint32_t*>(W);
+  const int la = lda / 2;
+  float acc[MT][NPW][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NPW; ++nb)
+      acc[mt][nb][0] = acc[mt][nb][1] = acc[mt][nb][2] = acc[mt][nb][3] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < Q; k0 += 16) {
+    uint32_t b[NPW][2];
+#pragma unroll
+    for (int nb = 0; nb < NPW; ++nb) {
+      const int n = (warp + nb * NW) * 8 + g;
+      b[nb][0] = __ldg(W32 + (n * Q + k0) / 2 + t);
+      b[nb][1] = __ldg(W32 + (n * Q + k0 + 8) / 2 + t);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = mt * 16 + g;
+      const uint32_t a[4] = {A32[r * la + k0 / 2 + t], A32[(r + 8) * la + k0 / 2 + t],
+                             A32[r * la + k0 / 2 + 4 + t],
+                             A32[(r + 8) * la + k0 / 2 + 4 + t]};
+#pragma unroll
+      for (int nb = 0; nb < NPW; ++nb) mma_bf16(acc[mt][nb], a, b[nb]);
+    }
+  }
+  __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(out);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NPW; ++nb) {
+      const int r = mt * 16 + g, col = (warp + nb * NW) * 8 + 2 * t;
+      out2[(r * O + col) / 2] = __floats2bfloat162_rn(acc[mt][nb][0], acc[mt][nb][1]);
+      out2[((r + 8) * O + col) / 2] = __floats2bfloat162_rn(acc[mt][nb][2], acc[mt][nb][3]);
+    }
+}
+
+// The tile product of the compute type: W is float32 (Q, O) for float32 (CUDA
+// cores), bf16 (O, Q) for bf16 (tensor cores), as the wrapper lays it out.
+template <typename T, int Q, int O>
+__device__ __forceinline__ void tile_product(const T* A, int lda, const void* W, T* out) {
+  if constexpr (sizeof(T) == 2)
+    tile_mma<Q, O>(A, lda, static_cast<const __nv_bfloat16*>(W), out);
+  else
+    tile_gemm<T, Q, O>(A, lda, static_cast<const float*>(W), out);
+}
+
+template <int CN, int C>
+__host__ __device__ constexpr int lda_of() { return (CN > C ? CN : C) + 8; }
+
+__host__ __device__ constexpr size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
+
+// columns of E: the extra cotangent (C), then the stage below's (CIN)
+template <int C, int CIN, int CN, int MODE>
+__host__ __device__ constexpr int e_cols() {
+  return (CN > 0 ? C : 0) > (MODE == STAGE ? CIN : 0) ? (CN > 0 ? C : 0)
+                                                      : (MODE == STAGE ? CIN : 0);
+}
+
+// dynamic shared memory of rows_kernel: A (dz_{i+1}, then dz), E, DE (edge:
+// de), RED (the block's sums)
+template <typename T, int C, int CIN, int CN, int MODE>
+__host__ __device__ constexpr size_t rows_smem() {
+  return (CN > 0 || MODE != REDUCE ? align16(sizeof(T) * ROWS * lda_of<CN, C>()) : 0)
+       + align16(sizeof(T) * ROWS * e_cols<C, CIN, CN, MODE>())
+       + (MODE == EDGE ? align16(sizeof(float) * ROWS * 6) : 0)
+       + sizeof(float) * 2 * NT;
+}
+
+template <typename T, int C, int CIN, int CN, int MODE>
+__global__ void __launch_bounds__(NT)
+rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
+            const float* __restrict__ bn, const float* __restrict__ s12,
+            const T* __restrict__ dzn, const void* __restrict__ wn,
+            const void* __restrict__ w, const T* __restrict__ zp,
+            const T* __restrict__ dtapp, const float* __restrict__ bnp,
+            T* __restrict__ dz_out, float* __restrict__ part,
+            float* __restrict__ dq, float* __restrict__ dneigh, int B, int N) {
+  static_assert(NT % C == 0 && (MODE != STAGE || NT % CIN == 0), "widths");
+  constexpr int LDA = lda_of<CN, C>();
+  constexpr int CS = MODE == STAGE ? CIN : C;          // channels of the sums
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* A = reinterpret_cast<T*>(smem);
+  T* E = reinterpret_cast<T*>(
+      smem + (CN > 0 || MODE != REDUCE ? align16(sizeof(T) * ROWS * LDA) : 0));
+  float* DE = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(E)
+      + align16(sizeof(T) * ROWS * e_cols<C, CIN, CN, MODE>()));
+  float* RED = MODE == EDGE ? DE + align16(sizeof(float) * ROWS * 6) / sizeof(float)
+                            : DE;
+
+  const int tid = threadIdx.x;
+  const int ntiles = (N + TN - 1) / TN;
+  const float m = (float)B * KNN * N;
+
+  // the channels this thread owns are fixed: c = tid % C, cin = tid % CIN
+  const int c = tid % C;
+  const BnC kc(bn, C, c);
+  float a1 = 0.f, a2 = 0.f;
+  if constexpr (MODE != REDUCE) {
+    a1 = __fdiv_rn(s12[c], m);
+    a2 = __fdiv_rn(s12[C + c], m);
+  }
+  const int cp = MODE == STAGE ? tid % CIN : 0;
+  const BnC kp(MODE == STAGE ? bnp : bn, MODE == STAGE ? CIN : C, MODE == STAGE ? cp : c);
+  float s1 = 0.f, s2 = 0.f;
+
+  for (int tile = blockIdx.x; tile < B * ntiles; tile += gridDim.x) {
+    const size_t b = tile / ntiles;
+    const int n0 = (tile % ntiles) * TN;
+
+    if constexpr (CN > 0) {  // extra = dz_{i+1} . W_{i+1}^T, rounded to T
+      constexpr int VEC = 16 / sizeof(T), CH = CN / VEC;   // 16-byte chunks
+      for (int e = tid; e < ROWS * CH; e += NT) {
+        const int r = e / CH, q = (e % CH) * VEC, j = r / TN, n = n0 + r % TN;
+        if (n < N)
+          *reinterpret_cast<uint4*>(A + r * LDA + q) =
+              *reinterpret_cast<const uint4*>(dzn + ((b * KNN + j) * N + n) * CN + q);
+      }
+      __syncthreads();
+      tile_product<T, CN, C>(A, LDA, wn, E);
+      __syncthreads();
+    }
+
+    for (int col = tid; col < TN * C; col += NT) {
+      const int t = col / C, n = n0 + t;
+      if (n >= N) continue;
+      float zf[KNN], y[KNN];
+      const int am = column_y<T, C>(z, b, N, n, c, kc, zf, y);
+      const float tap = to_f(dtap[(b * N + n) * C + c]);
+#pragma unroll
+      for (int j = 0; j < KNN; ++j) {
+        const int r = j * TN + t;
+        float dh = 0.f;
+        if constexpr (CN > 0) dh = to_f(E[r * C + c]);
+        if (j == am) dh = rnd<T>(__fadd_rn(tap, dh));
+        const float dy = relu_vjp<T>(dh, y[j]);
+        const float zh = zhat(zf[j], kc);
+        if constexpr (MODE == REDUCE) {
+          s1 = __fadd_rn(s1, dy);
+          s2 = __fadd_rn(s2, __fmul_rn(dy, zh));
+        } else {
+          const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1),
+                                                     __fmul_rn(zh, a2)));
+          const T dzt = from_f<T>(d);
+          dz_out[((b * KNN + j) * N + n) * C + c] = dzt;
+          A[r * LDA + c] = dzt;
+        }
+      }
+    }
+
+    if constexpr (MODE == STAGE) {  // the stage below: dh_{i-1} = dz . W_i^T
+      __syncthreads();
+      tile_product<T, C, CIN>(A, LDA, w, E);
+      __syncthreads();
+      for (int col = tid; col < TN * CIN; col += NT) {
+        const int t = col / CIN, n = n0 + t;
+        if (n >= N) continue;
+        float zf[KNN], y[KNN];
+        const int am = column_y<T, CIN>(zp, b, N, n, cp, kp, zf, y);
+        const float tap = to_f(dtapp[(b * N + n) * CIN + cp]);
+#pragma unroll
+        for (int j = 0; j < KNN; ++j) {
+          float dh = to_f(E[(j * TN + t) * CIN + cp]);
+          if (j == am) dh = rnd<T>(__fadd_rn(tap, dh));
+          const float dy = relu_vjp<T>(dh, y[j]);
+          s1 = __fadd_rn(s1, dy);
+          s2 = __fadd_rn(s2, __fmul_rn(dy, zhat(zf[j], kp)));
+        }
+      }
+    }
+
+    if constexpr (MODE == EDGE) {   // de = dz . W_1^T in float32 -> dq, de[:3]
+      const float* w1T = static_cast<const float*>(w);   // (C, 6) float32
+      __syncthreads();
+      for (int e = tid; e < ROWS * 6; e += NT) {
+        const int r = e / 6, i = e % 6;
+        float acc = 0.f;
+#pragma unroll 8
+        for (int q = 0; q < C; ++q) acc = fmaf(to_f(A[r * LDA + q]), __ldg(w1T + q * 6 + i), acc);
+        DE[e] = acc;
+      }
+      __syncthreads();
+      if (tid < TN * 3) {
+        const int t = tid / 3, d = tid % 3, n = n0 + t;
+        if (n < N) {
+          float s = 0.f;
+#pragma unroll
+          for (int j = 0; j < KNN; ++j) {
+            const float* de = DE + (j * TN + t) * 6;
+            s = __fadd_rn(s, __fsub_rn(de[3 + d], de[d]));
+          }
+          dq[(b * N + n) * 3 + d] = s;
+        }
+      }
+      for (int e = tid; e < ROWS * 3; e += NT) {
+        const int r = e / 3, d = e % 3, j = r / TN, n = n0 + r % TN;
+        if (n < N) dneigh[((b * KNN + j) * N + n) * 3 + d] = DE[r * 6 + d];
+      }
+    }
+    __syncthreads();      // the next tile overwrites A and E
+  }
+
+  if constexpr (MODE != EDGE) {   // the block's sums, in thread order
+    RED[tid] = s1;
+    RED[NT + tid] = s2;
+    __syncthreads();
+    for (int ch = tid; ch < CS; ch += NT) {
+      float u = 0.f, v = 0.f;
+      for (int k = ch; k < NT; k += CS) { u = __fadd_rn(u, RED[k]); v = __fadd_rn(v, RED[NT + k]); }
+      part[(size_t)blockIdx.x * 2 * CS + ch] = u;
+      part[(size_t)blockIdx.x * 2 * CS + CS + ch] = v;
+    }
+  }
+}
+
+// out[i] = sum over g of part[g][i], in g order
+__global__ void __launch_bounds__(NT)
+sum_parts_kernel(const float* __restrict__ part, int G, int L, float* __restrict__ out) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= L) return;
+  float s = 0.f;
+  for (int g = 0; g < G; ++g) s = __fadd_rn(s, part[(size_t)g * L + i]);
+  out[i] = s;
+}
+
+// part[split][i][j] = sum over the split's rows r of h[r][i] dz[r][j], with
+// h = ReLU(BN(zp)) recomputed (RECOMP) or taken as it is (the edge rows e).
+// A block owns a TI x TJ tile of dW and one split; a thread MI x MJ values,
+// in groups of up to 4 adjacent columns (rows) spaced by the tile / groups.
+template <typename T, int TI, int TJ, int MI, int MJ, bool RECOMP>
+__global__ void __launch_bounds__(NT)
+dw_kernel(const T* __restrict__ h, const float* __restrict__ bnp,
+          const T* __restrict__ dz, int m, int cin, int C, int rows_per_split,
+          float* __restrict__ part) {
+  constexpr int VI = MI < 4 ? MI : 4, VJ = MJ < 4 ? MJ : 4;
+  constexpr int NJ = TJ / MJ, NI = TI / MI;
+  static_assert(NI * NJ == NT, "threads");
+  __shared__ __align__(16) float sH[RC][TI];
+  __shared__ __align__(16) float sD[RC][TJ];
+  const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
+  const int tid = threadIdx.x, tj = tid % NJ, ti = tid / NJ;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(m, r_begin + rows_per_split);
+  float acc[MI][MJ];
+#pragma unroll
+  for (int x = 0; x < MI; ++x)
+#pragma unroll
+    for (int y = 0; y < MJ; ++y) acc[x][y] = 0.f;
+
+  // the column of h this thread stages is fixed (TI divides the block)
+  static_assert(NT % TI == 0, "staging");
+  const int ch = i0 + tid % TI;
+  const BnC kh(RECOMP && ch < cin ? bnp : nullptr, cin, ch);
+  for (int r0 = r_begin; r0 < r_end; r0 += RC) {
+    for (int e = tid; e < RC * TI; e += NT) {
+      const int rr = e / TI, r = r0 + rr;
+      float v = 0.f;
+      if (r < r_end && ch < cin) {
+        v = to_f(h[(size_t)r * cin + ch]);
+        if (RECOMP) v = fmaxf(bn_y<T>(v, kh), 0.f);
+      }
+      sH[rr][e % TI] = v;
+    }
+    for (int e = tid; e < RC * TJ; e += NT) {
+      const int rr = e / TJ, jj = e % TJ, r = r0 + rr, cj = j0 + jj;
+      sD[rr][jj] = (r < r_end && cj < C) ? to_f(dz[(size_t)r * C + cj]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int rr = 0; rr < RC; ++rr) {
+      float a[MI], d[MJ];
+#pragma unroll
+      for (int x = 0; x < MI; ++x)
+        a[x] = sH[rr][(x / VI) * (TI / (MI / VI)) + ti * VI + x % VI];
+#pragma unroll
+      for (int y = 0; y < MJ; ++y)
+        d[y] = sD[rr][(y / VJ) * (TJ / (MJ / VJ)) + tj * VJ + y % VJ];
+#pragma unroll
+      for (int x = 0; x < MI; ++x)
+#pragma unroll
+        for (int y = 0; y < MJ; ++y) acc[x][y] = fmaf(a[x], d[y], acc[x][y]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int x = 0; x < MI; ++x) {
+    const int ci = i0 + (x / VI) * (TI / (MI / VI)) + ti * VI + x % VI;
+    if (ci >= cin) continue;
+#pragma unroll
+    for (int y = 0; y < MJ; ++y) {
+      const int cj = j0 + (y / VJ) * (TJ / (MJ / VJ)) + tj * VJ + y % VJ;
+      if (cj < C) part[((size_t)blockIdx.z * cin + ci) * C + cj] = acc[x][y];
+    }
+  }
+}
+
+// four 8x8 bf16 matrices from shared memory, transposed (ldmatrix.trans):
+// lanes 8m..8m+7 give the rows of matrix m
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// dw_kernel for bf16 stages on the tensor cores: the same split-K partials,
+// h = ReLU(BN(zp)) recomputed (a bf16 value, exact) and dz staged row-major
+// in shared memory, fragments of h^T and dz read with ldmatrix.trans. The
+// block's TI x TJ tile is shared by 8 warps as 2 x 4.
+template <int TI, int TJ>
+__global__ void __launch_bounds__(NT)
+dw_mma_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ bnp,
+              const __nv_bfloat16* __restrict__ dz, int m, int cin, int C,
+              int rows_per_split, float* __restrict__ part) {
+  constexpr int WI = TI / 2, WJ = TJ / 4, MT = WI / 16, NTL = WJ / 8;
+  static_assert(WI % 16 == 0 && NTL % 2 == 0 && NT % TI == 0, "tiles");
+  // row strides of 16-byte multiples, 4 (mod 32) words: no bank conflicts
+  __shared__ __align__(16) __nv_bfloat16 sH[RC][TI + 8];
+  __shared__ __align__(16) __nv_bfloat16 sD[RC][TJ + 8];
+  const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wi = (warp / 4) * WI, wj = (warp % 4) * WJ;
+  const int mi = lane / 8, li = lane % 8;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(m, r_begin + rows_per_split);
+  float acc[MT][NTL][4];
+#pragma unroll
+  for (int x = 0; x < MT; ++x)
+#pragma unroll
+    for (int y = 0; y < NTL; ++y) acc[x][y][0] = acc[x][y][1] = acc[x][y][2] = acc[x][y][3] = 0.f;
+  const int ch = i0 + tid % TI;   // the column of h this thread stages
+  const BnC kh(bnp, cin, ch);
+  for (int r0 = r_begin; r0 < r_end; r0 += RC) {
+    for (int e = tid; e < RC * TI; e += NT) {
+      const int rr = e / TI, r = r0 + rr;
+      float v = 0.f;
+      if (r < r_end) v = fmaxf(bn_y<__nv_bfloat16>(to_f(h[(size_t)r * cin + ch]), kh), 0.f);
+      sH[rr][e % TI] = __float2bfloat16(v);
+    }
+    for (int e = tid; e < RC * TJ / 8; e += NT) {   // 16-byte chunks of dz
+      const int rr = e / (TJ / 8), jj = (e % (TJ / 8)) * 8, r = r0 + rr;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < r_end) v = *reinterpret_cast<const uint4*>(dz + (size_t)r * C + j0 + jj);
+      *reinterpret_cast<uint4*>(&sD[rr][jj]) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k0 = 0; k0 < RC; k0 += 16) {
+      uint32_t a[MT][4], bq[NTL][2];
+#pragma unroll
+      for (int x = 0; x < MT; ++x)   // (h^T)[i][r]: matrices (i, r), (i+8, r), (i, r+8), (i+8, r+8)
+        ldsm_x4_trans(a[x], &sH[k0 + li + (mi >> 1) * 8][wi + x * 16 + (mi & 1) * 8]);
+#pragma unroll
+      for (int y = 0; y < NTL; y += 2) {   // dz[r][j]: (r, j), (r+8, j), (r, j+8), (r+8, j+8)
+        uint32_t q[4];
+        ldsm_x4_trans(q, &sD[k0 + li + (mi & 1) * 8][wj + y * 8 + (mi >> 1) * 8]);
+        bq[y][0] = q[0]; bq[y][1] = q[1]; bq[y + 1][0] = q[2]; bq[y + 1][1] = q[3];
+      }
+#pragma unroll
+      for (int x = 0; x < MT; ++x)
+#pragma unroll
+        for (int y = 0; y < NTL; ++y) mma_bf16(acc[x][y], a[x], bq[y]);
+    }
+    __syncthreads();
+  }
+  const int g = lane / 4, t = lane % 4;
+  float* pz = part + (size_t)blockIdx.z * cin * C;
+#pragma unroll
+  for (int x = 0; x < MT; ++x)
+#pragma unroll
+    for (int y = 0; y < NTL; ++y) {
+      const int i = i0 + wi + x * 16 + g, j = j0 + wj + y * 8 + 2 * t;
+      pz[(size_t)i * C + j] = acc[x][y][0];
+      pz[(size_t)i * C + j + 1] = acc[x][y][1];
+      pz[(size_t)(i + 8) * C + j] = acc[x][y][2];
+      pz[(size_t)(i + 8) * C + j + 1] = acc[x][y][3];
+    }
+}
+
+// dscat[b][p] = sum of dneigh[b][s] over the rows s = j N + n with
+// idx[b][n][j] == p, in ascending s order. One block a cloud builds the
+// inverse of idx in shared memory: in-degree counts, their prefix sums, each
+// point's list of rows (filled through integer atomics, so in any order),
+// then one thread a point sorts its list and adds its rows in s order. The
+// sums are those of a scan of the rows in order: the same bits on every
+// launch, and the order of the CPU's index_add_.
+#define SCAT_NT 1024
+__global__ void __launch_bounds__(SCAT_NT)
+scatter_kernel(const int* __restrict__ idx, const float* __restrict__ dneigh,
+               float* __restrict__ dscat, int N) {
+  extern __shared__ int sm[];
+  int* cnt = sm;             // (N) in-degree, then the fill cursor
+  int* off = cnt + N;        // (N) start of each point's list
+  int* rows = off + N;       // (KNN N) the lists
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int* ib = idx + b * N * KNN;
+  for (int p = tid; p < N; p += SCAT_NT) cnt[p] = 0;
+  __syncthreads();
+  for (int e = tid; e < N * KNN; e += SCAT_NT) {
+    const int p = ib[e];
+    if ((unsigned)p < (unsigned)N) atomicAdd(&cnt[p], 1);
+  }
+  __syncthreads();
+  if (tid < 32) {  // exclusive prefix sum of cnt: a chunk a lane, then a warp scan
+    const int per = (N + 31) / 32, lo = min(N, tid * per), hi = min(N, lo + per);
+    int own = 0;
+    for (int p = lo; p < hi; ++p) own += cnt[p];
+    int incl = own;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (tid >= d) incl += v;
+    }
+    int run = incl - own;
+    for (int p = lo; p < hi; ++p) {
+      off[p] = run;
+      run += cnt[p];
+      cnt[p] = 0;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < N * KNN; e += SCAT_NT) {
+    const int p = ib[e], n = e / KNN, j = e % KNN;
+    if ((unsigned)p < (unsigned)N) rows[off[p] + atomicAdd(&cnt[p], 1)] = j * N + n;
+  }
+  __syncthreads();
+  const float* dn = dneigh + b * KNN * N * 3;
+  for (int p = tid; p < N; p += SCAT_NT) {
+    int* l = rows + off[p];
+    const int c = cnt[p];
+    for (int a = 1; a < c; ++a) {  // insertion sort: a list holds about KNN rows
+      const int v = l[a];
+      int q = a - 1;
+      while (q >= 0 && l[q] > v) { l[q + 1] = l[q]; --q; }
+      l[q + 1] = v;
+    }
+    float x = 0.f, y = 0.f, zz = 0.f;
+    for (int a = 0; a < c; ++a) {
+      const float* d = dn + (size_t)l[a] * 3;
+      x = __fadd_rn(x, d[0]);
+      y = __fadd_rn(y, d[1]);
+      zz = __fadd_rn(zz, d[2]);
+    }
+    float* o = dscat + (b * N + p) * 3;
+    o[0] = x; o[1] = y; o[2] = zz;
+  }
+}
+
+// ------------------------------------------------------------------ launchers
+
+static int row_blocks(int B, int N) {
+  const int tiles = B * ((N + TN - 1) / TN);
+  return tiles < ROW_BLOCKS ? tiles : ROW_BLOCKS;
+}
+
+template <int TI, int TJ>
+static void dw_geometry(int m, int cin, int C, int* splits, int* rows_per_split) {
+  const int tiles = ((cin + TI - 1) / TI) * ((C + TJ - 1) / TJ);
+  int s = DW_BLOCKS / tiles;
+  if (s < 1) s = 1;
+  const int chunks = (m + RC - 1) / RC;
+  if (s > chunks) s = chunks;
+  const int per = (chunks + s - 1) / s * RC;
+  *rows_per_split = per;
+  *splits = (m + per - 1) / per;
+}
+
+// the weight-gradient tile of each (C_in, C)
+#define DW_CASES(X)                          \
+  X(128, 256, 128, 128, 8, 8)                \
+  X(64, 128, 64, 128, 4, 8)                  \
+  X(64, 64, 64, 64, 4, 4)                    \
+  X(6, 64, 8, 64, 2, 1)
+
+static int dw_splits(int m, int cin, int C, int* rows_per_split) {
+  int s = 0, per = 0;
+#define GEO(ci, c, ti, tj, mi, mj) \
+  if (cin == ci && C == c) dw_geometry<ti, tj>(m, cin, C, &s, &per);
+  DW_CASES(GEO)
+#undef GEO
+  if (rows_per_split) *rows_per_split = per;
+  return s;
+}
+
+static cudaError_t sum_parts(const float* part, int G, int L, float* out,
+                             cudaStream_t st) {
+  sum_parts_kernel<<<(L + NT - 1) / NT, NT, 0, st>>>(part, G, L, out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_dw(const T* h, const float* bnp, const T* dz, int m,
+                             int cin, int C, float* part, float* dw,
+                             cudaStream_t st) {
+  int per = 0;
+  const int s = dw_splits(m, cin, C, &per);
+  if (s == 0) return cudaErrorInvalidValue;
+#define RUN(ci, c, ti, tj, mi, mj)                                              \
+  if (cin == ci && C == c) {                                                    \
+    const dim3 grid((ci + ti - 1) / ti, (c + tj - 1) / tj, s);                  \
+    if constexpr (sizeof(T) == 2 && ti >= 32 && tj >= 64) {                     \
+      dw_mma_kernel<ti, tj><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
+    } else if (bnp)                                                             \
+      dw_kernel<T, ti, tj, mi, mj, true><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
+    else                                                                        \
+      dw_kernel<T, ti, tj, mi, mj, false><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
+  }
+  DW_CASES(RUN)
+#undef RUN
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_parts(part, s, cin * C, dw, st);
+}
+
+template <typename T, int C, int CIN, int CN, int MODE>
+static cudaError_t launch_rows(const void* z, const void* dtap, const float* bn,
+                               const float* s12, const void* dzn,
+                               const void* wn, const void* w,
+                               const void* zp, const void* dtapp,
+                               const float* bnp, void* dz, float* part,
+                               float* dq, float* dneigh, int B, int N,
+                               cudaStream_t st) {
+  constexpr size_t bytes = rows_smem<T, C, CIN, CN, MODE>();
+  cudaError_t err = cudaFuncSetAttribute(
+      rows_kernel<T, C, CIN, CN, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  rows_kernel<T, C, CIN, CN, MODE><<<row_blocks(B, N), NT, bytes, st>>>(
+      (const T*)z, (const T*)dtap, bn, s12, (const T*)dzn, wn, w,
+      (const T*)zp, (const T*)dtapp, bnp, (T*)dz, part, dq, dneigh, B, N);
+  return cudaGetLastError();
+}
+
+extern "C" int dgcnn_bwd_row_blocks(int B, int N) { return row_blocks(B, N); }
+
+extern "C" int dgcnn_bwd_dw_splits(int m, int cin, int C) {
+  return dw_splits(m, cin, C, nullptr);
+}
+
+extern "C" int bwd_reduce_launch(const void* z, const void* dtap,
+                                 const float* bn, float* part, float* s,
+                                 int B, int N, int C, int is_bf16,
+                                 void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define R(c)                                                                         \
+  if (C == c)                                                                        \
+    err = is_bf16 ? launch_rows<__nv_bfloat16, c, c, 0, REDUCE>(                     \
+                        z, dtap, bn, nullptr, nullptr, nullptr, nullptr, nullptr,    \
+                        nullptr, nullptr, nullptr, part, nullptr, nullptr, B, N, st) \
+                  : launch_rows<float, c, c, 0, REDUCE>(                             \
+                        z, dtap, bn, nullptr, nullptr, nullptr, nullptr, nullptr,    \
+                        nullptr, nullptr, nullptr, part, nullptr, nullptr, B, N, st);
+  R(64) R(128) R(256)
+#undef R
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_parts(part, row_blocks(B, N), 2 * C, s, st);
+}
+
+extern "C" int bwd_stage_launch(const void* z, const void* dtap,
+                                const float* bn, const float* s12,
+                                const void* dzn, const void* wn,
+                                const void* w, const void* zp,
+                                const void* dtapp, const float* bnp, void* dz,
+                                float* part_s, float* sp, float* part_w,
+                                float* dw, int B, int N, int C, int cin,
+                                int cn, int is_bf16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define S(c, ci, n)                                                                \
+  if (C == c && cin == ci && cn == n)                                              \
+    err = is_bf16 ? launch_rows<__nv_bfloat16, c, ci, n, STAGE>(                   \
+                        z, dtap, bn, s12, dzn, wn, w, zp, dtapp, bnp, dz, part_s,   \
+                        nullptr, nullptr, B, N, st)                                \
+                  : launch_rows<float, c, ci, n, STAGE>(                           \
+                        z, dtap, bn, s12, dzn, wn, w, zp, dtapp, bnp, dz, part_s,   \
+                        nullptr, nullptr, B, N, st);
+  S(256, 128, 0) S(128, 64, 256) S(64, 64, 128)
+#undef S
+  if (err != cudaSuccess) return (int)err;
+  err = sum_parts(part_s, row_blocks(B, N), 2 * cin, sp, st);
+  if (err != cudaSuccess) return (int)err;
+  const int m = B * KNN * N;
+  return (int)(is_bf16 ? launch_dw<__nv_bfloat16>((const __nv_bfloat16*)zp, bnp,
+                                                  (const __nv_bfloat16*)dz, m, cin,
+                                                  C, part_w, dw, st)
+                       : launch_dw<float>((const float*)zp, bnp, (const float*)dz,
+                                          m, cin, C, part_w, dw, st));
+}
+
+extern "C" int bwd_edge_launch(const void* z1, const void* dtap1,
+                               const float* bn, const float* s12,
+                               const void* dz2, const void* w2,
+                               const void* e, const float* w1T, const int* idx,
+                               void* dz, float* dneigh, float* part_w,
+                               float* dw, float* dq, float* dscat, int B,
+                               int N, int is_bf16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      is_bf16 ? launch_rows<__nv_bfloat16, 64, 6, 64, EDGE>(
+                    z1, dtap1, bn, s12, dz2, w2, w1T, nullptr, nullptr, nullptr,
+                    dz, nullptr, dq, dneigh, B, N, st)
+              : launch_rows<float, 64, 6, 64, EDGE>(
+                    z1, dtap1, bn, s12, dz2, w2, w1T, nullptr, nullptr, nullptr,
+                    dz, nullptr, dq, dneigh, B, N, st);
+  if (err != cudaSuccess) return (int)err;
+  const int m = B * KNN * N;
+  err = is_bf16 ? launch_dw<__nv_bfloat16>((const __nv_bfloat16*)e, nullptr,
+                                           (const __nv_bfloat16*)dz, m, 6, 64,
+                                           part_w, dw, st)
+                : launch_dw<float>((const float*)e, nullptr, (const float*)dz, m, 6,
+                                   64, part_w, dw, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = sizeof(int) * (KNN + 2) * N;
+  err = cudaFuncSetAttribute(scatter_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  scatter_kernel<<<B, SCAT_NT, bytes, st>>>(idx, dneigh, dscat, N);
+  return (int)cudaGetLastError();
+}

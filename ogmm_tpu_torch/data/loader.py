@@ -1,0 +1,145 @@
+"""Batched prefetching loader and the dataset factory of the port.
+
+A thread pool maps `__getitem__` over index batches and a bounded queue
+keeps `PREFETCH` collated batches (dict of numpy arrays) ready; the train
+step moves them to the card. The test split seeds the global `np.random`
+per item (SetDeterministic), so its items are fetched one at a time under a
+lock and thread interleaving cannot change the draws; the training split
+runs in parallel. A copy of the JAX package's `ogmm_tpu/data/loader.py` for
+the `modelnet` and `synthetic` datasets.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+# datasets of the JAX package that later slices of the port bring over
+LATER = {"modelnetcp": "ROADMAP.md, queue A item 6 (ModelNet variants)",
+         "modelnetdv": "ROADMAP.md, queue A item 6 (DeepGMR and its data)",
+         "7scene": "ROADMAP.md, queue A item 5 (the indoor slice)",
+         "icl_nuim": "ROADMAP.md, queue A item 5 (the indoor slice)"}
+
+
+# collated batches a loader keeps ready
+PREFETCH = 2
+
+
+def _collate(items) -> Dict[str, np.ndarray]:
+    return {k: np.stack([it[k] for it in items], axis=0) for k in items[0]}
+
+
+class PrefetchLoader:
+    """Iterable over collated batches with background prefetch; with
+    `shuffle` the order of epoch e comes from RandomState(seed + e)."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, num_workers: int = 6,
+                 seed: Optional[int] = None, serialize_items: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.serialize_items = serialize_items
+        self._epoch = 0
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _batch_indices(self):
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = np.random.RandomState(
+                None if self.seed is None else self.seed + self._epoch)
+            rng.shuffle(order)
+        batches = [order[i:i + self.batch_size]
+                   for i in range(0, n, self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        return batches
+
+    def _fetch(self, idxs) -> Dict[str, np.ndarray]:
+        if self.serialize_items:
+            with self._lock:
+                items = [self.dataset[int(i)] for i in idxs]
+        else:
+            items = [self.dataset[int(i)] for i in idxs]
+        return _collate(items)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        batches = self._batch_indices()
+        self._epoch += 1
+        if not batches:
+            return
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        stop = threading.Event()
+        it = iter(batches)
+        it_lock = threading.Lock()
+
+        def worker():
+            while not stop.is_set():
+                with it_lock:
+                    idxs = next(it, None)
+                if idxs is None:
+                    break
+                try:
+                    q.put((self._fetch(idxs), None))
+                except Exception as e:  # handed to the consumer, raised there
+                    q.put((None, e))
+                    break
+
+        n_workers = 1 if self.serialize_items else min(
+            self.num_workers, len(batches))
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(n_workers)]
+        for t in threads:
+            t.start()
+        try:
+            for _ in range(len(batches)):
+                batch, err = q.get()
+                if err is not None:
+                    raise err
+                yield batch
+        finally:
+            stop.set()
+            while not q.empty():            # unblock the producers
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+
+
+def data_loader(cfg):
+    """(train_loader, test_loader) of cfg.data.dataset, `modelnet` (h5 files
+    under cfg.data.root) or `synthetic` (cfg.data.root 'synthetic[:S]')."""
+    from ogmm_tpu_torch.data.modelnet import ModelNetHdf, get_transforms
+
+    d, t = cfg.data, cfg.train
+    name = d.dataset
+    if name in LATER:
+        raise NotImplementedError(
+            f"dataset {name!r} is not ported yet; it comes with {LATER[name]}")
+    if name not in ("modelnet", "synthetic"):
+        raise ValueError(f"unknown dataset {name!r}")
+    root = d.root if d.root.startswith("synthetic") else (
+        "synthetic" if name == "synthetic" else d.root)
+    train_tf, test_tf = get_transforms(d.noise_type, d.rot_mag, d.trans_mag,
+                                       d.n_points, list(d.partial))
+    train_data = ModelNetHdf(root, unseen=d.unseen, transform=train_tf,
+                             partition='train')
+    test_data = ModelNetHdf(root, unseen=d.unseen, transform=test_tf,
+                            partition='test')
+    train_loader = PrefetchLoader(train_data, t.batch_size, shuffle=True,
+                                  drop_last=True, num_workers=d.num_workers,
+                                  seed=t.seed)
+    test_loader = PrefetchLoader(test_data, t.test_batch_size, shuffle=False,
+                                 drop_last=False, num_workers=d.num_workers,
+                                 serialize_items=True)
+    return train_loader, test_loader

@@ -1,0 +1,352 @@
+"""Backward of the DGCNN edge stages 4..1 in training: the CUDA kernels'
+wrappers and their plain versions.
+
+The stages are z_i = h_{i-1} . W_i (pre-BatchNorm, (B, k, N, C_i) in the
+compute dtype), y_i = BN(z_i) with batch statistics, h_i = ReLU(y_i) and the
+tap max_k h_i. Given the cotangent of each tap (`dtap`, (B, N, C_i)) the
+three functions compute, stage by stage from the last:
+
+  bwd_reduce  the BatchNorm batch-statistic sums of the last stage,
+              S = (sum dy, sum dy * zhat) (2, C) float32, where
+              dy = ReLU-VJP(max-VJP(dtap)) with h recomputed from z
+  bwd_stage   stage i in {4, 3, 2}: dh = max-VJP(dtap) + dz_{i+1} . W_{i+1}^T,
+              dz_i = inv gamma (dy - S1/m - zhat S2/m), dW_i = h_{i-1}^T dz_i
+              (h_{i-1} recomputed from z_{i-1}), and the sums S_{i-1} of the
+              stage below -> (dz_i, dW_i, S_{i-1})
+  bwd_edge    stage 1: dz_1 as above, dW_1 = e^T dz_1, de = dz_1 . W_1^T in
+              float32, dq = sum_k (de[3:] - de[:3]) and the neighbour
+              scatter dscat[idx] += de[:3] -> (dW_1, dq, dscat); dx = dq + dscat
+
+Here m = B k N. The arguments and outputs are those of the JAX package's
+kernels (`ogmm_tpu/ops/pallas_dgcnn_train.py:bwd_reduce_pallas`,
+`bwd_stage_pallas`, `bwd_edge_pallas`), less the tile and dtype arguments:
+the compute dtype is z's.
+
+Rules kept from the JAX function: h is recomputed from z in the compute
+dtype exactly as the forward formed it (`bn_apply`), the ReLU cotangent at
+exactly 0 is half the incoming one, the max over k sends a tie's cotangent
+to the FIRST maximum, sums run in float32, and products take compute-dtype
+operands with float32 accumulation, rounded to the compute dtype where the
+result is (dz W^T) and kept in float32 where it is not (dW, de).
+
+On a CUDA tensor each wrapper launches its kernel in `csrc/dgcnn_bwd.cu`
+(k = 20, N <= 1024, the stage widths of the DGCNN); on a CPU tensor it runs
+the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ogmm_tpu_torch.ops import dispatch
+
+EPS = 1e-5
+KERNEL_K = 20
+KERNEL_MAX_N = 1024
+# (C, C_in, C_next) of the stages the stage kernel is compiled for; the
+# reduce kernel takes any C of them, the edge kernel (64, 6, 64)
+KERNEL_STAGES = ((256, 128, 0), (128, 64, 256), (64, 64, 128))
+KERNEL_EDGE = (64, 6, 64)
+
+
+# ----------------------------------------------------------- shared algebra
+
+def bn_apply(z, mean, var, gamma, beta):
+    """Normalise in the compute dtype from float32 statistics, rounding
+    after the subtract, the multiply and the add."""
+    dt = z.dtype
+    inv = torch.rsqrt(var + EPS)
+    return (z - mean.to(dt)) * (inv * gamma).to(dt) + beta.to(dt)
+
+
+def relu_vjp(g, y):
+    """Cotangent of max(y, 0): g where y > 0, g / 2 where y == 0."""
+    return torch.where(y > 0, g, torch.where(y == 0, 0.5 * g,
+                                             torch.zeros_like(g)))
+
+
+def max_vjp(dtap, h):
+    """Cotangent of h.amax(dim=1) through the first maximum (integer argmax
+    one-hot): (B, N, C) cotangent onto (B, k, N, C)."""
+    am = h.argmax(dim=1, keepdim=True)
+    return torch.zeros_like(h).scatter_(1, am, dtap.unsqueeze(1))
+
+
+def mm32(a, b):
+    """Product of compute-dtype operands with a float32 result."""
+    return torch.matmul(a.float(), b.float())
+
+
+def _zhat(z, mean, var):
+    return (z.float() - mean) * torch.rsqrt(var + EPS)
+
+
+def bn_sums(dy, z, mean, var):
+    """(sum dy, sum dy * zhat) over every axis but the last: (2, C) float32,
+    the gradients of BatchNorm's bias and scale."""
+    axes = tuple(range(z.dim() - 1))
+    dy32 = dy.float()
+    return torch.stack([dy32.sum(axes), (dy32 * _zhat(z, mean, var)).sum(axes)])
+
+
+def bn_dz(dy, z, mean, var, gamma, s12):
+    """BatchNorm (batch statistics) backward from the finished sums:
+    dz = inv gamma (dy - S1/m - zhat S2/m), in the compute dtype."""
+    m = z[..., 0].numel()
+    inv = torch.rsqrt(var + EPS)
+    dz = (inv * gamma) * (dy.float() - s12[0] / m
+                          - _zhat(z, mean, var) * (s12[1] / m))
+    return dz.to(dy.dtype)
+
+
+def edge_vjp(de, idx):
+    """Cotangent of the edge rows (x[idx] - x, x) onto x, from de (B, k, N,
+    6) float32: (dq, dscat) (B, N, 3) float32, the centre half summed over k
+    and the neighbour half scattered onto its points; dx = dq + dscat."""
+    dq = (de[..., 3:] - de[..., :3]).sum(dim=1)
+    B, k, N, _ = de.shape
+    rows = (idx.long().transpose(1, 2)
+            + N * torch.arange(B, device=de.device).view(B, 1, 1))
+    dscat = torch.zeros(B * N, 3, dtype=torch.float32, device=de.device)
+    dscat.index_add_(0, rows.reshape(-1), de[..., :3].reshape(-1, 3))
+    return dq, dscat.view(B, N, 3)
+
+
+def _stage_dy(z, dtap, mean, var, gamma, beta, extra=None):
+    """dy of one stage: h recomputed from z, max-VJP of the tap cotangent,
+    plus the cotangent from the stage above, through the ReLU."""
+    y = bn_apply(z, mean, var, gamma, beta)
+    dh = max_vjp(dtap, torch.relu(y))
+    if extra is not None:
+        dh = dh + extra
+    return relu_vjp(dh, y)
+
+
+# ------------------------------------------------------------ plain versions
+
+@torch.no_grad()
+def bwd_reduce_reference(z, dtap, mean, var, gamma, beta):
+    """Plain version of the reduce kernel: (2, C) float32 sums of the last
+    stage."""
+    return bn_sums(_stage_dy(z, dtap, mean, var, gamma, beta), z, mean, var)
+
+
+@torch.no_grad()
+def bwd_stage_reference(z, dtap, mean, var, gamma, beta, s12, w_i,
+                        zp, meanp, varp, gammap, betap, dtapp,
+                        dznext=None, wnext=None):
+    """Plain version of the stage kernel: (dz_i (B, k, N, C) compute dtype,
+    dW_i (C_in, C) float32, S_{i-1} (2, C_in) float32)."""
+    dt = z.dtype
+    extra = (None if dznext is None
+             else torch.matmul(dznext, wnext.to(dt).t()))
+    dy = _stage_dy(z, dtap, mean, var, gamma, beta, extra)
+    dz = bn_dz(dy, z, mean, var, gamma, s12)
+    yp = bn_apply(zp, meanp, varp, gammap, betap)
+    hp = torch.relu(yp)
+    dw = mm32(hp.flatten(0, 2).t(), dz.flatten(0, 2))
+    dhp = max_vjp(dtapp, hp) + torch.matmul(dz, w_i.to(dt).t())
+    return dz, dw, bn_sums(relu_vjp(dhp, yp), zp, meanp, varp)
+
+
+@torch.no_grad()
+def bwd_edge_reference(z1, dtap1, mean1, var1, gamma1, beta1, s12,
+                       dz2, w2, e, w1, idx):
+    """Plain version of the edge kernel: (dW_1 (6, C1) float32, dq (B, N, 3)
+    float32, dscat (B, N, 3) float32)."""
+    dt = z1.dtype
+    extra = torch.matmul(dz2, w2.to(dt).t())
+    dy = _stage_dy(z1, dtap1, mean1, var1, gamma1, beta1, extra)
+    dz = bn_dz(dy, z1, mean1, var1, gamma1, s12)
+    dw = mm32(e.flatten(0, 2).t(), dz.flatten(0, 2))
+    de = mm32(dz, w1.to(dt).t())                          # (B, k, N, 6)
+    return (dw, *edge_vjp(de, idx))
+
+
+# ----------------------------------------------------------------- kernels
+
+def _bn_pack(mean, var, gamma, beta, dt):
+    """(6, C) float32 per-channel constants, formed by the same PyTorch
+    operations as `bn_apply` and `bn_dz` so that the kernel's recomputed h
+    is the plain version's bit for bit: mean, inv gamma and beta in the
+    compute dtype, then mean, inv and inv gamma in float32."""
+    mean, var, gamma, beta = (a.detach().float() for a in (mean, var, gamma, beta))
+    inv = torch.rsqrt(var + EPS)
+    ig = inv * gamma
+    return torch.stack([mean.to(dt).float(), ig.to(dt).float(),
+                        beta.to(dt).float(), mean, inv, ig]).contiguous()
+
+
+def _w_t(w, dt):
+    """A weight (C_in, C) as the float32 values of its compute-dtype
+    rounding, transposed to (C, C_in)."""
+    return w.detach().to(dt).float().t().contiguous()
+
+
+def _w_product(w, dt):
+    """A weight (C_in, C) as the row kernels' tile products read it for
+    x . W^T: bf16 as it is (the tensor cores take W (C_in, C) with C
+    contiguous), float32 transposed to (C, C_in) (the CUDA cores)."""
+    return w.detach().to(dt).contiguous() if dt == torch.bfloat16 else _w_t(w, dt)
+
+
+def _check(name, z, dtap, *others):
+    if z.dim() != 4 or z.shape[1] != KERNEL_K or not 1 <= z.shape[2] <= KERNEL_MAX_N:
+        raise ValueError(f"{name} kernel takes z of shape (B, {KERNEL_K}, N, C) "
+                         f"with N <= {KERNEL_MAX_N}; got {tuple(z.shape)}")
+    if z.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} kernel: dtype {z.dtype} not supported")
+    B, _, N, C = z.shape
+    if tuple(dtap.shape) != (B, N, C):
+        raise ValueError(f"{name} kernel: dtap must be {(B, N, C)}, got "
+                         f"{tuple(dtap.shape)}")
+    for t in (dtap, *others):
+        if t.device != z.device:
+            raise ValueError(f"{name} kernel: every input must be on {z.device}")
+    return B, N, C
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _fn(name, n_ptrs, n_ints):
+    fn = getattr(dispatch.load_kernel("dgcnn_bwd"), f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    return fn
+
+
+# The partial sums' counts, fixed by the shapes so that they add up in the
+# same order on every launch: blocks of the row kernels, splits of the
+# weight-gradient kernel.
+
+def _row_blocks(B, N):
+    return dispatch.load_kernel("dgcnn_bwd").dgcnn_bwd_row_blocks(B, N)
+
+
+def _dw_splits(B, N, cin, c):
+    return dispatch.load_kernel("dgcnn_bwd").dgcnn_bwd_dw_splits(
+        B * KERNEL_K * N, cin, c)
+
+
+def _bwd_reduce_cuda(z, dtap, mean, var, gamma, beta):
+    B, N, C = _check("bwd_reduce", z, dtap, mean)
+    if C not in {s[0] for s in KERNEL_STAGES}:
+        raise ValueError(f"bwd_reduce kernel takes C in 64/128/256; got {C}")
+    dt, dev = z.dtype, z.device
+    z, dtap = z.contiguous(), dtap.contiguous()
+    bn = _bn_pack(mean, var, gamma, beta, dt)
+    part = torch.empty(_row_blocks(B, N), 2, C, dtype=torch.float32, device=dev)
+    s = torch.empty(2, C, dtype=torch.float32, device=dev)
+    code = _fn("bwd_reduce", 5, 4)(
+        *map(_ptr, (z, dtap, bn, part, s)), B, N, C,
+        int(dt == torch.bfloat16), ctypes.c_void_p(dispatch.current_stream(z)))
+    dispatch.check_launch(code, "bwd_reduce")
+    dispatch.launch_counts["bwd_reduce"] += 1
+    return s
+
+
+def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
+                    varp, gammap, betap, dtapp, dznext, wnext):
+    B, N, C = _check("bwd_stage", z, dtap, zp, dtapp, s12, w_i)
+    cin = zp.shape[-1]
+    cn = 0 if dznext is None else dznext.shape[-1]
+    if (C, cin, cn) not in KERNEL_STAGES:
+        raise ValueError(f"bwd_stage kernel takes (C, C_in, C_next) in "
+                         f"{KERNEL_STAGES}; got {(C, cin, cn)}")
+    if (tuple(zp.shape) != (B, KERNEL_K, N, cin) or zp.dtype != z.dtype
+            or tuple(dtapp.shape) != (B, N, cin)
+            or tuple(w_i.shape) != (cin, C)
+            or (cn and (tuple(dznext.shape) != (B, KERNEL_K, N, cn)
+                        or dznext.dtype != z.dtype
+                        or tuple(wnext.shape) != (C, cn)))):
+        raise ValueError("bwd_stage kernel: inputs of inconsistent shapes "
+                         "or dtypes")
+    dt, dev = z.dtype, z.device
+    bn = _bn_pack(mean, var, gamma, beta, dt)
+    bnp = _bn_pack(meanp, varp, gammap, betap, dt)
+    s12 = s12.detach().float().contiguous()
+    wit = _w_product(w_i, dt)
+    wnt = _w_product(wnext, dt) if cn else None
+    dz = torch.empty_like(z, memory_format=torch.contiguous_format)
+    part_s = torch.empty(_row_blocks(B, N), 2, cin, dtype=torch.float32,
+                         device=dev)
+    sp = torch.empty(2, cin, dtype=torch.float32, device=dev)
+    part_w = torch.empty(_dw_splits(B, N, cin, C), cin, C,
+                         dtype=torch.float32, device=dev)
+    dw = torch.empty(cin, C, dtype=torch.float32, device=dev)
+    ins = (z.contiguous(), dtap.contiguous(), bn, s12,
+           None if not cn else dznext.contiguous(), wnt, wit,
+           zp.contiguous(), dtapp.contiguous(), bnp)
+    code = _fn("bwd_stage", 15, 6)(
+        *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, C, cin, cn,
+        int(dt == torch.bfloat16), ctypes.c_void_p(dispatch.current_stream(z)))
+    dispatch.check_launch(code, "bwd_stage")
+    dispatch.launch_counts["bwd_stage"] += 1
+    return dz, dw, sp
+
+
+def _bwd_edge_cuda(z1, dtap1, mean1, var1, gamma1, beta1, s12, dz2, w2, e,
+                   w1, idx):
+    B, N, C = _check("bwd_edge", z1, dtap1, dz2, e, idx, s12)
+    if ((C, w1.shape[0], dz2.shape[-1]) != KERNEL_EDGE
+            or tuple(dz2.shape) != (B, KERNEL_K, N, C) or dz2.dtype != z1.dtype
+            or tuple(e.shape) != (B, KERNEL_K, N, 6) or e.dtype != z1.dtype
+            or tuple(idx.shape) != (B, N, KERNEL_K)
+            or tuple(w1.shape) != (6, C) or tuple(w2.shape) != (C, C)):
+        raise ValueError(f"bwd_edge kernel takes (C1, 6, C2) = {KERNEL_EDGE} "
+                         "and inputs of consistent shapes and dtypes")
+    dt, dev = z1.dtype, z1.device
+    bn = _bn_pack(mean1, var1, gamma1, beta1, dt)
+    dz = torch.empty_like(z1, memory_format=torch.contiguous_format)
+    dneigh = torch.empty(B, KERNEL_K, N, 3, dtype=torch.float32, device=dev)
+    part_w = torch.empty(_dw_splits(B, N, 6, C), 6, C, dtype=torch.float32,
+                         device=dev)
+    dw = torch.empty(6, C, dtype=torch.float32, device=dev)
+    dq = torch.empty(B, N, 3, dtype=torch.float32, device=dev)
+    dscat = torch.empty(B, N, 3, dtype=torch.float32, device=dev)
+    ins = (z1.contiguous(), dtap1.contiguous(), bn,
+           s12.detach().float().contiguous(), dz2.contiguous(), _w_product(w2, dt),
+           e.contiguous(), _w_t(w1, dt), idx.to(torch.int32).contiguous())
+    code = _fn("bwd_edge", 15, 3)(
+        *map(_ptr, ins + (dz, dneigh, part_w, dw, dq, dscat)), B, N,
+        int(dt == torch.bfloat16), ctypes.c_void_p(dispatch.current_stream(z1)))
+    dispatch.check_launch(code, "bwd_edge")
+    dispatch.launch_counts["bwd_edge"] += 1
+    return dw, dq, dscat
+
+
+# ----------------------------------------------------------------- wrappers
+
+def bwd_reduce(z, dtap, mean, var, gamma, beta):
+    """(2, C) float32 BatchNorm sums of the last edge stage. Launches the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if z.is_cuda:
+        return _bwd_reduce_cuda(z, dtap, mean, var, gamma, beta)
+    return bwd_reduce_reference(z, dtap, mean, var, gamma, beta)
+
+
+def bwd_stage(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp, varp,
+              gammap, betap, dtapp, dznext=None, wnext=None):
+    """Backward of edge stage i: (dz_i, dW_i, S_{i-1}); `dznext`/`wnext`
+    are absent for the last stage. Launches the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if z.is_cuda:
+        return _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp,
+                               meanp, varp, gammap, betap, dtapp, dznext, wnext)
+    return bwd_stage_reference(z, dtap, mean, var, gamma, beta, s12, w_i, zp,
+                               meanp, varp, gammap, betap, dtapp, dznext, wnext)
+
+
+def bwd_edge(z1, dtap1, mean1, var1, gamma1, beta1, s12, dz2, w2, e, w1, idx):
+    """Backward of edge stage 1 and the edge features: (dW_1, dq, dscat),
+    dx = dq + dscat. Launches the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if z1.is_cuda:
+        return _bwd_edge_cuda(z1, dtap1, mean1, var1, gamma1, beta1, s12, dz2,
+                              w2, e, w1, idx)
+    return bwd_edge_reference(z1, dtap1, mean1, var1, gamma1, beta1, s12, dz2,
+                              w2, e, w1, idx)

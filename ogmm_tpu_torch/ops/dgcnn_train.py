@@ -10,11 +10,15 @@ runs by default on the accelerator) as a `torch.autograd.Function`:
             eps 1e-5, normalised in the compute dtype), ReLU and a max over
             k; the four maxima concatenate to 512 channels for stage 5
             (Dense(emb) + BN + ReLU).
-  backward  plain PyTorch, the mirror of `_bwd_vjp`: per stage the
-            BN batch-statistic gradient dz = s (dy - E[dy] - zhat E[dy zhat])
+  backward  stage 5 and the tap cotangents in PyTorch; stages 4..1 either
+            in plain PyTorch, the mirror of `_bwd_vjp`: per stage the BN
+            batch-statistic gradient dz = s (dy - E[dy] - zhat E[dy zhat])
             with float32 reductions, weight gradients from the saved pre-BN
             activations (h recomputed), and the edge scatter into dx
-            (`index_add_`).
+            (`index_add_`); or, with `BWD_KERNELS` on, through the three
+            backward kernels of `ops/cuda_dgcnn_bwd.py` (five launches: the
+            sums of stage 4, stages 4, 3 and 2, then stage 1 and dx), as
+            the JAX package's `_bwd_pallas`.
 
 Kept from the JAX function: the ReLU cotangent at exactly 0 is half the
 incoming one (`jnp.maximum` semantics); the max over k sends a tie's
@@ -30,16 +34,15 @@ from typing import Sequence
 
 import torch
 
+from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (EPS, bn_apply, bwd_edge,
+                                              bwd_reduce, bwd_stage, edge_vjp,
+                                              max_vjp, mm32, relu_vjp)
 from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_stage1
 
-EPS = 1e-5
-
-
-def _bn_apply(z, mean, var, gamma, beta):
-    """Normalise in the compute dtype from float32 statistics."""
-    dt = z.dtype
-    inv = torch.rsqrt(var + EPS)
-    return (z - mean.to(dt)) * (inv * gamma).to(dt) + beta.to(dt)
+# stages 4..1 of the backward through the kernels of ops/cuda_dgcnn_bwd.py
+# (the counterpart of the JAX package's _BWD_PALLAS, off by default as
+# there; on a CPU tensor the kernels' plain versions run)
+BWD_KERNELS = False
 
 
 def _moments(z):
@@ -50,15 +53,11 @@ def _moments(z):
     return mean, var
 
 
-def _relu_vjp(g, y):
-    """Cotangent of max(y, 0): g where y > 0, g / 2 where y == 0."""
-    return torch.where(y > 0, g, torch.where(y == 0, 0.5 * g,
-                                             torch.zeros_like(g)))
-
-
 def _stage_bwd(dy, z, mean, var, gamma):
     """BatchNorm (batch statistics) backward: dy, already through the ReLU
-    -> (dz in the compute dtype, dgamma, dbeta), reductions in float32."""
+    -> (dz in the compute dtype, dgamma, dbeta), reductions in float32.
+    Forms zhat and dy in float32 once; `bn_sums` then `bn_dz` of the plain
+    versions form them twice, a pass more over each (B, k, N, C) tensor."""
     axes = tuple(range(z.dim() - 1))
     m = z[..., 0].numel()
     inv = torch.rsqrt(var + EPS)
@@ -70,16 +69,22 @@ def _stage_bwd(dy, z, mean, var, gamma):
     return dz.to(dy.dtype), s2, s1
 
 
-def _max_vjp(dtap, h):
-    """Cotangent of h.amax(dim=1) through the first maximum (integer argmax
-    one-hot): (B, N, C) cotangent onto (B, k, N, C)."""
-    am = h.argmax(dim=1, keepdim=True)
-    return torch.zeros_like(h).scatter_(1, am, dtap.unsqueeze(1))
-
-
-def _mm32(a, b):
-    """Product of compute-dtype operands with a float32 result."""
-    return torch.matmul(a.float(), b.float())
+def _bwd_kernels(x, idx, e, zs, dtaps, ws, gammas, betas, moments, dws, dgs,
+                 dbs):
+    """Stages 4..1 through the three backward kernels, in the order of the
+    JAX package's `_bwd_pallas`; fills dws/dgs/dbs[0:4] and returns dx."""
+    s = {3: bwd_reduce(zs[3], dtaps[3], *moments[3], gammas[3], betas[3])}
+    dz = None
+    for i in (3, 2, 1):
+        dz, dws[i], s[i - 1] = bwd_stage(
+            zs[i], dtaps[i], *moments[i], gammas[i], betas[i], s[i], ws[i],
+            zs[i - 1], *moments[i - 1], gammas[i - 1], betas[i - 1],
+            dtaps[i - 1], dznext=dz, wnext=ws[i + 1] if i < 3 else None)
+        dgs[i], dbs[i] = s[i][1], s[i][0]
+    dws[0], dq, dscat = bwd_edge(zs[0], dtaps[0], *moments[0], gammas[0],
+                                 betas[0], s[0], dz, ws[1], e, ws[0], idx)
+    dgs[0], dbs[0] = s[0][1], s[0][0]
+    return (dq + dscat).to(x.dtype)
 
 
 class DGCNNTrain(torch.autograd.Function):
@@ -95,14 +100,14 @@ class DGCNNTrain(torch.autograd.Function):
             if i > 0:
                 z = torch.matmul(h, ws[i].to(dtype))
             mean, var = _moments(z)
-            h = torch.relu(_bn_apply(z, mean, var, gammas[i], betas[i]))
+            h = torch.relu(bn_apply(z, mean, var, gammas[i], betas[i]))
             zs.append(z)
             moments.append((mean, var))
             taps.append(h.amax(dim=1))                   # (B, N, C_i)
         cat = torch.cat(taps, dim=-1)                    # (B, N, 512)
         z5 = torch.matmul(cat, ws[4].to(dtype))
         mean5, var5 = _moments(z5)
-        out = torch.relu(_bn_apply(z5, mean5, var5, gammas[4], betas[4]))
+        out = torch.relu(bn_apply(z5, mean5, var5, gammas[4], betas[4]))
         moments.append((mean5, var5))
         flat = [m for mv in moments for m in mv]
         ctx.save_for_backward(x, idx, e, *zs, z5, *taps, *params, *flat)
@@ -124,41 +129,40 @@ class DGCNNTrain(torch.autograd.Function):
 
         # stage 5, (B, N, 512) -> (B, N, emb)
         mean5, var5 = moments[4]
-        dy5 = _relu_vjp(dout, _bn_apply(z5, mean5, var5, gammas[4], betas[4]))
+        dy5 = relu_vjp(dout, bn_apply(z5, mean5, var5, gammas[4], betas[4]))
         dz5, dg5, db5 = _stage_bwd(dy5, z5, mean5, var5, gammas[4])
         cat = torch.cat(taps, dim=-1)
         dws, dgs, dbs = [None] * 5, [None] * 5, [None] * 5
-        dws[4] = _mm32(cat.flatten(0, 1).t(), dz5.flatten(0, 1))
+        dws[4] = mm32(cat.flatten(0, 1).t(), dz5.flatten(0, 1))
         dgs[4], dbs[4] = dg5, db5
         dcat = torch.matmul(dz5, ws[4].to(dt).t())
         dtaps = torch.split(dcat, [t.shape[-1] for t in taps], dim=-1)
 
+        if BWD_KERNELS:
+            dx = _bwd_kernels(x, idx, e, zs, dtaps, ws, gammas, betas,
+                              moments, dws, dgs, dbs)
+            return (dx, None, None, None, *dws, *dgs, *dbs)
+
         # stages 4..1, (B, k, N, C)
-        hs = [e] + [torch.relu(_bn_apply(zs[i], *moments[i], gammas[i],
+        hs = [e] + [torch.relu(bn_apply(zs[i], *moments[i], gammas[i],
                                           betas[i])) for i in range(4)]
         dz_next = None
         for i in range(3, -1, -1):
             mean, var = moments[i]
-            dh = _max_vjp(dtaps[i], hs[i + 1])
+            dh = max_vjp(dtaps[i], hs[i + 1])
             if dz_next is not None:
                 dh = dh + torch.matmul(dz_next, ws[i + 1].to(dt).t())
-            dy = _relu_vjp(dh, _bn_apply(zs[i], mean, var, gammas[i], betas[i]))
+            dy = relu_vjp(dh, bn_apply(zs[i], mean, var, gammas[i], betas[i]))
             dz, dgs[i], dbs[i] = _stage_bwd(dy, zs[i], mean, var, gammas[i])
-            dws[i] = _mm32(hs[i].flatten(0, 2).t(), dz.flatten(0, 2))
+            dws[i] = mm32(hs[i].flatten(0, 2).t(), dz.flatten(0, 2))
             dz_next = dz
 
         # edge rows -> dx: the neighbour half scatters, the centre half sums
         dx = None
         if ctx.needs_input_grad[0]:
-            de = _mm32(dz_next, ws[0].to(dt).t())         # (B, k, N, 6) f32
-            dneigh = de[..., :3]
-            dcenter = de[..., 3:] - de[..., :3]
-            B, N, _ = x.shape
-            rows = (idx.long().transpose(1, 2)
-                    + N * torch.arange(B, device=x.device).view(B, 1, 1))
-            dx = torch.zeros(B * N, 3, dtype=torch.float32, device=x.device)
-            dx.index_add_(0, rows.reshape(-1), dneigh.reshape(-1, 3))
-            dx = (dx.view(B, N, 3) + dcenter.sum(dim=1)).to(x.dtype)
+            de = mm32(dz_next, ws[0].to(dt).t())         # (B, k, N, 6) f32
+            dq, dscat = edge_vjp(de, idx)
+            dx = (dq + dscat).to(x.dtype)
         return (dx, None, None, None, *dws, *dgs, *dbs)
 
 

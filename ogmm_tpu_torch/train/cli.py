@@ -1,0 +1,183 @@
+"""Training command line of the port:
+
+    python -m ogmm_tpu_torch.train --dataset synthetic --epochs 2 --batch_size 8
+    python -m ogmm_tpu_torch.train --root /data --dataset modelnet
+
+The flags are those of the JAX package's `train.py` for what this package
+implements, plus `--device` (the card by default; `--device cpu` runs the
+plain PyTorch path on the CPU). It builds the Config from the ModelNet preset
+and the flags, the ModelNet/synthetic loaders, the train state (restored
+from the run's best checkpoint when there is one), then runs `Trainer.fit`
+or, with `--eval_only`, one eval epoch, and with `--export_weights` writes
+the best weights as the JAX package's `.npz`.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+import sys
+
+from ogmm_tpu_torch import configs
+
+# options of the JAX package's CLI that later slices of the port bring over
+NOT_PORTED = {
+    "preset indoor": "ROADMAP.md, queue A item 5 (the indoor slice)",
+    "model DeepGMR": "ROADMAP.md, queue A item 6 (nn/deepgmr.py)",
+    "multihost": "ROADMAP.md, queue A item 7 (torch.distributed)",
+    "profile_dir": "ROADMAP.md, 'Next' (a torch.profiler window in the "
+                   "trainer; scripts/torch_port_profile.py profiles a step)",
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="OGMM training on an NVIDIA GPU")
+    p.add_argument("--preset", type=str, default="mnet",
+                   choices=["mnet", "indoor"])
+    p.add_argument("--root", type=str, default="synthetic")
+    p.add_argument("--dataset", type=str, default=None,
+                   help="modelnet|synthetic")
+    p.add_argument("--model", type=str, default=None,
+                   choices=["GMMReg", "DeepGMR"])
+    p.add_argument("--n_points", type=int, default=None)
+    p.add_argument("--noise_type", type=str, default=None)
+    p.add_argument("--rot_mag", type=float, default=None)
+    p.add_argument("--trans_mag", type=float, default=None)
+    p.add_argument("--emb_dims", type=int, default=None)
+    p.add_argument("--n_clusters", type=int, default=None)
+    p.add_argument("--km_clusters", type=int, default=None)
+    p.add_argument("--num_heads", type=int, default=None)
+    p.add_argument("--gnn_k", type=int, default=None)
+    p.add_argument("--dtype", type=str, default=None,
+                   choices=["float32", "bfloat16"],
+                   help="network-body compute dtype (geometry stays fp32)")
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--test_batch_size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--eval_every", type=int, default=None,
+                   help="test-split eval every k-th epoch (the last always)")
+    p.add_argument("--metrics_every", type=int, default=None,
+                   help="metric suite every k-th train step")
+    p.add_argument("--model_path", type=str, default=None)
+    p.add_argument("--steps_per_epoch", type=int, default=None,
+                   help="cap optimizer steps per epoch (smoke runs)")
+    p.add_argument("--eval_only", action="store_true")
+    p.add_argument("--export_weights", type=str, default=None,
+                   help="after fit, write the best weights as one .npz "
+                        "(params, batch statistics, config)")
+    p.add_argument("--device_overlap", action="store_true",
+                   help="ground-truth overlap labels made on the device in "
+                        "the step")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; the CUDA card by default")
+    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--multihost", action="store_true")
+    return p.parse_args(argv)
+
+
+def _refuse_not_ported(args) -> None:
+    asked = {"preset indoor": args.preset == "indoor",
+             "model DeepGMR": args.model == "DeepGMR",
+             "multihost": args.multihost,
+             "profile_dir": args.profile_dir is not None}
+    for flag, on in asked.items():
+        if on:
+            raise NotImplementedError(
+                f"--{flag} is not ported yet; it comes with {NOT_PORTED[flag]}")
+
+
+def build_config(args) -> configs.Config:
+    """The ModelNet preset with the flags' overrides."""
+    cfg = configs.mnet()
+    model_kw, data_kw, train_kw = {}, {}, {}
+    for k in ("emb_dims", "n_clusters", "km_clusters", "num_heads", "gnn_k",
+              "dtype"):
+        if getattr(args, k) is not None:
+            model_kw[k] = getattr(args, k)
+    for k in ("root", "dataset", "n_points", "noise_type", "rot_mag",
+              "trans_mag"):
+        if getattr(args, k) is not None:
+            data_kw[k] = getattr(args, k)
+    if args.root == "synthetic" and args.dataset is None:
+        data_kw["dataset"] = "synthetic"
+    for k in ("batch_size", "test_batch_size", "epochs", "lr", "seed",
+              "metrics_every", "eval_every", "model_path"):
+        if getattr(args, k) is not None:
+            train_kw[k] = getattr(args, k)
+    if args.device_overlap:
+        train_kw["device_overlap"] = True
+    return cfg.replace(model=dataclasses.replace(cfg.model, **model_kw),
+                       data=dataclasses.replace(cfg.data, **data_kw),
+                       train=dataclasses.replace(cfg.train, **train_kw))
+
+
+class CappedLoader:
+    """Wraps a loader to yield at most n batches per epoch (smoke runs)."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n = loader, n
+
+    def __iter__(self):
+        for i, b in enumerate(self.loader):
+            if i >= self.n:
+                break
+            yield b
+
+    def __len__(self):
+        return min(self.n, len(self.loader))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _refuse_not_ported(args)
+    cfg = build_config(args)
+
+    from ogmm_tpu_torch.core.metrics import print_metrics
+    from ogmm_tpu_torch.data import data_loader
+    from ogmm_tpu_torch.ops.dispatch import resolve_device
+    from ogmm_tpu_torch.train import (CheckpointManager, Trainer,
+                                      create_train_state, export_weights)
+
+    device = resolve_device(args.device)
+    log_dir = os.path.join(cfg.train.model_path, cfg.model_name)
+    os.makedirs(log_dir, exist_ok=True)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
+        handlers=[logging.FileHandler(os.path.join(log_dir, "train.log")),
+                  logging.StreamHandler(sys.stdout)],
+        force=True)
+    logger = logging.getLogger("ogmm_tpu_torch")
+    logger.info("device: %s", device)
+    logger.info("config: %s", json.dumps(configs.config_to_dict(cfg)))
+
+    train_loader, test_loader = data_loader(cfg)
+    if args.steps_per_epoch:
+        train_loader = CappedLoader(train_loader, args.steps_per_epoch)
+        test_loader = CappedLoader(test_loader, max(1, args.steps_per_epoch // 4))
+    steps_per_epoch = max(1, len(train_loader))
+
+    state = create_train_state(cfg, steps_per_epoch, device=device)
+    ckpt = CheckpointManager(cfg.train.model_path, cfg, cfg.model_name)
+    if ckpt.has_best():
+        ckpt.restore(state)
+        logger.info("restored the train state from %s", ckpt.path("optim_model"))
+
+    trainer = Trainer(cfg, state, checkpointer=ckpt)
+    if args.eval_only:
+        print_metrics(trainer.eval_epoch(0, test_loader),
+                      title=f"{cfg.model_name} eval", log=logger.info)
+    else:
+        trainer.fit(train_loader, test_loader, epochs=cfg.train.epochs)
+        if args.export_weights:
+            best = state
+            if ckpt.has_best():
+                best = create_train_state(cfg, steps_per_epoch, device=device)
+                ckpt.restore(best)
+            export_weights(best.model, args.export_weights, cfg)
+            logger.info("exported the weights to %s", args.export_weights)
+    return trainer

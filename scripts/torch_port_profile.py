@@ -2,7 +2,7 @@
 """Where the time of one serving request, or one train step, of the
 PyTorch/CUDA port goes.
 
-    python3 scripts/torch_port_profile.py [--train] [--out DIR]
+    python3 scripts/torch_port_profile.py [--train [--bwd_kernels]] [--out DIR]
                                           (default profile_out/)
 
 Needs one CUDA device. Runs GMMReg at B=24, N=717, emb 512, K=128 with a
@@ -10,15 +10,19 @@ bf16 body and seeded random weights, and prints, for a request without and
 with ICP (or, with --train, for a train step with the metric suite and the
 overlap labels made on the device): the host-clock time per call, the
 device-busy time and idle share from `torch.profiler`, the number of device
-kernels launched, and the ten device kernels with the most time. Also times
+kernels launched, the ten device kernels with the most time, and the time
+of each kernel of `ogmm_tpu_torch/csrc`. Also times
 the stages of the forward (with --train: forward and loss, backward, the
-optimizer, the metrics) with CUDA events. One JSON line at the end carries
+optimizer, the metrics) with CUDA events. `--bwd_kernels` turns on
+`ops.dgcnn_train.BWD_KERNELS`, so that the DGCNN backward runs through its
+three CUDA kernels instead of plain PyTorch. One JSON line at the end carries
 the same numbers with the card's name and power limit.
 """
 import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -27,12 +31,24 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 from ogmm_tpu_torch import configs  # noqa: E402
 from ogmm_tpu_torch.api import Registrar  # noqa: E402
 
 B, N = 24, 717
+CSRC = os.path.join(ROOT, "ogmm_tpu_torch", "csrc")
+
+
+def own_kernel_names():
+    """Names of the __global__ functions in the port's CUDA sources."""
+    pat = re.compile(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(")
+    names = set()
+    for f in os.listdir(CSRC):
+        with open(os.path.join(CSRC, f)) as fh:
+            names.update(pat.findall(fh.read()))
+    return names
 
 
 def device_time_us(evt):
@@ -58,12 +74,18 @@ def profile_call(fn, reps=3):
         ms, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + device_time_us(e) / 1e3, cnt + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    own = own_kernel_names()
+    ours = [kv for kv in ranked
+            if re.match(r"(?:void )?(\w+)", kv[0]).group(1) in own]
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_kernels": len(kernels),
-        "top": [{"name": k[:80], "ms": v[0], "count": v[1]} for k, v in top],
+        "top": [{"name": k[:80], "ms": v[0], "count": v[1]}
+                for k, v in ranked[:10]],
+        "port_kernels": [{"name": k[:80], "ms": v[0], "count": v[1]}
+                         for k, v in ours],
     }
 
 
@@ -135,6 +157,9 @@ def report(key, r):
           f"{r['device_idle_share']:.2f}), {r['device_kernels']} device kernels")
     for t in r["top"]:
         print(f"    {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
+    print("  the port's own kernels:")
+    for t in r["port_kernels"]:
+        print(f"    {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
 
 
 def main():
@@ -142,6 +167,8 @@ def main():
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a request")
+    ap.add_argument("--bwd_kernels", action="store_true",
+                    help="with --train: the DGCNN backward through its kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -149,9 +176,11 @@ def main():
     rs = np.random.RandomState(0)
     src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
     tgt = src[:, rs.permutation(N)] + 0.05
-    result = {"shape": {"B": B, "N": N}}
+    result = {"shape": {"B": B, "N": N}, "bwd_kernels": args.bwd_kernels}
     if args.train:
+        from ogmm_tpu_torch.ops import dgcnn_train
         from ogmm_tpu_torch.train import create_train_state, make_train_step
+        dgcnn_train.BWD_KERNELS = args.bwd_kernels
         cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                     device_overlap=True))
         state = create_train_state(cfg, steps_per_epoch=100, seed=0)
@@ -180,7 +209,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    name = "torch_port_profile_train.json" if args.train else "torch_port_profile.json"
+    name = ("torch_port_profile.json" if not args.train
+            else "torch_port_profile_train_bwd_kernels.json" if args.bwd_kernels
+            else "torch_port_profile_train.json")
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))

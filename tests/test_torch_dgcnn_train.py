@@ -111,7 +111,8 @@ def test_dgcnn_train_matches_jax_custom_vjp(case, variant):
 def test_relu_at_zero_passes_half_and_ties_go_to_the_first_maximum():
     """Direct check of the two backward rules on a one-stage toy: BN output
     exactly 0 on a dead channel, all k neighbours tied there."""
-    from ogmm_tpu_torch.ops.dgcnn_train import _max_vjp, _relu_vjp
+    from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import max_vjp as _max_vjp
+    from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import relu_vjp as _relu_vjp
     g = torch.ones(1, 3, 1, 2)
     y = torch.tensor([0.0, -1.0, 2.0]).view(1, 3, 1, 1).expand(1, 3, 1, 2)
     assert _relu_vjp(g, y)[0, :, 0, 0].tolist() == [0.5, 0.0, 1.0]

@@ -12,7 +12,11 @@ import torch
 from ogmm_tpu_torch import configs
 from ogmm_tpu_torch.api import Registrar
 from ogmm_tpu_torch.ops import dispatch
+from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
 from ogmm_tpu_torch.ops.cuda_dgcnn import dgcnn_eval, dgcnn_eval_reference
+from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (bwd_edge, bwd_edge_reference,
+                                              bwd_reduce, bwd_reduce_reference,
+                                              bwd_stage, bwd_stage_reference)
 from ogmm_tpu_torch.ops.cuda_dgcnn_train import (graph_stage1,
                                                  graph_stage1_reference)
 from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
@@ -21,6 +25,8 @@ from ogmm_tpu_torch.train import (create_train_state, make_train_step,
                                   train_loss)
 
 pytestmark = pytest.mark.gpu
+
+NONE = {name: 0 for name in dispatch.KERNELS}
 
 
 @pytest.fixture
@@ -202,7 +208,7 @@ def test_wrappers_count_their_launches(card):
     graph_stage1_reference(x, ws[0], 20, torch.float32, 5)
     nn1(x, x)
     nn1_reference(x, x)
-    assert dispatch.launch_counts == {"dgcnn_eval": 1, "sinkhorn_em": 0,
+    assert dispatch.launch_counts == {**NONE, "dgcnn_eval": 1,
                                       "graph_stage1": 1, "nn1": 1}
 
 
@@ -217,8 +223,8 @@ def test_registrar_runs_on_the_card_by_default(card, dtype, lim):
     rot, trans, so, to = reg(src, src[:, ::-1].copy(), refine=True)
     assert rot.is_cuda and torch.isfinite(rot).all() and so.shape == (2, 128)
     # the clustering loss of the forward takes one 1-NN of the 2B clouds
-    assert dispatch.launch_counts == {"dgcnn_eval": 1, "sinkhorn_em": 1,
-                                      "graph_stage1": 0, "nn1": 1}
+    assert dispatch.launch_counts == {**NONE, "dgcnn_eval": 1,
+                                      "sinkhorn_em": 1, "nn1": 1}
     # the same weights through the plain versions on the CPU: float32 agrees
     # to round-off; bf16 rounds at other places in the two matmul libraries
     cpu = Registrar(cfg, seed=1, device="cpu")
@@ -251,7 +257,7 @@ def test_train_step_runs_on_the_card_by_default(card):
     torch.cuda.synchronize()
     # src and tgt each through the graph kernel; Welsch 2, clustering 1,
     # no labels or metrics in the loss
-    assert dispatch.launch_counts == {"dgcnn_eval": 0, "sinkhorn_em": 1,
+    assert dispatch.launch_counts == {**NONE, "sinkhorn_em": 1,
                                       "graph_stage1": 2, "nn1": 3}
     # float32 on the card against the CPU: round-off through two EM trips
     assert abs(got.item() - ref.item()) <= 1e-3 * abs(ref.item())
@@ -259,3 +265,109 @@ def test_train_step_runs_on_the_card_by_default(card):
         assert torch.isfinite(p.grad).all(), n_
     metrics = make_train_step(cfg)(state, batch)
     assert all(torch.isfinite(v).all() for v in metrics.values())
+
+
+# ------------------------------------------------ the DGCNN backward kernels
+
+BWD = {"bwd_reduce": (bwd_reduce, bwd_reduce_reference),
+       "bwd_stage": (bwd_stage, bwd_stage_reference),
+       "bwd_edge": (bwd_edge, bwd_edge_reference)}
+
+
+def _bwd_calls(dev, B, N, dtype, seed):
+    """The arguments of the five backward calls of one DGCNN training
+    forward and backward at (B, N), recorded through the plain versions."""
+    calls = []
+
+    def record(name):
+        def fn(*a, **kw):
+            calls.append((name, a, kw))
+            return BWD[name][1](*a, **kw)
+        return fn
+
+    x, ws, aff = _dgcnn_inputs(np.random.RandomState(seed), dev, B, N, 512)
+    ws = [w.requires_grad_(True) for w in ws]
+    saved = {name: getattr(ops_dgcnn_train, name) for name in BWD}
+    saved_switch = ops_dgcnn_train.BWD_KERNELS
+    try:
+        for name in BWD:
+            setattr(ops_dgcnn_train, name, record(name))
+        ops_dgcnn_train.BWD_KERNELS = True
+        out, _, _ = ops_dgcnn_train.dgcnn_train(
+            x, ws, [a[0] for a in aff], [a[1] for a in aff], 20, dtype)
+        wvec = torch.tensor(np.random.RandomState(seed + 1).randn(
+            B, N, 512).astype(np.float32), device=dev)
+        (out.float() * wvec).sum().backward()
+    finally:
+        for name, fn in saved.items():
+            setattr(ops_dgcnn_train, name, fn)
+        ops_dgcnn_train.BWD_KERNELS = saved_switch
+    assert [c[0] for c in calls] == ["bwd_reduce"] + ["bwd_stage"] * 3 + ["bwd_edge"]
+    return calls
+
+
+def _bwd_limit(name, i, dtype, ref):
+    """float32: the same arithmetic in another order; bf16: dz two ulps at
+    its largest value (one rounding of a cotangent moves it by one ulp),
+    the float32 sums over B k N rows in another order 2e-2 of their scale."""
+    scale = ref.float().abs().max().item()
+    if dtype == torch.float32:
+        return 1e-4 * scale
+    is_dz = name == "bwd_stage" and i == 0
+    return (2.0 ** -6 if is_dz else 2e-2) * scale
+
+
+@pytest.mark.parametrize("B,N", [(3, 90), (4, 717), (1, 20)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_match_plain(card, B, N, dtype):
+    for name, a, kw in _bwd_calls(card, B, N, dtype, seed=N):
+        kern, plain = BWD[name]
+        got, ref = kern(*a, **kw), plain(*a, **kw)
+        torch.cuda.synchronize()
+        for i, (g, r) in enumerate(zip(got, ref) if name != "bwd_reduce"
+                                   else [(got, ref)]):
+            assert g.shape == r.shape and g.dtype == r.dtype, name
+            assert torch.isfinite(g.float()).all(), name
+            err = (g.float() - r.float()).abs().max().item()
+            assert err <= _bwd_limit(name, i, dtype, r), (name, i, err)
+
+
+def test_bwd_kernels_are_deterministic(card):
+    for name, a, kw in _bwd_calls(card, 4, 717, torch.bfloat16, seed=3):
+        first, second = BWD[name][0](*a, **kw), BWD[name][0](*a, **kw)
+        if name == "bwd_reduce":
+            first, second = [first], [second]
+        for u, v in zip(first, second):
+            assert torch.equal(u, v), name
+
+
+def test_bwd_kernels_refuse_what_they_do_not_take(card):
+    z = torch.zeros(1, 8, 64, 256, device=card)
+    tap = torch.zeros(1, 64, 256, device=card)
+    v = torch.ones(256, device=card)
+    with pytest.raises(ValueError, match="20"):
+        bwd_reduce(z, tap, v, v, v, v)
+    with pytest.raises(ValueError, match="N <= 1024"):
+        bwd_reduce(torch.zeros(1, 20, 1100, 256, device=card),
+                   torch.zeros(1, 1100, 256, device=card), v, v, v, v)
+    with pytest.raises(ValueError, match="dtype"):
+        bwd_reduce(torch.zeros(1, 20, 64, 256, device=card, dtype=torch.float16),
+                   tap.half(), v, v, v, v)
+    w = torch.zeros(96, 256, device=card)
+    zp = torch.zeros(1, 20, 64, 96, device=card)
+    tp = torch.zeros(1, 64, 96, device=card)
+    u = torch.ones(96, device=card)
+    z20 = torch.zeros(1, 20, 64, 256, device=card)
+    with pytest.raises(ValueError, match="C_in"):
+        bwd_stage(z20, tap, v, v, v, v, torch.zeros(2, 256, device=card), w,
+                  zp, u, u, u, u, tp)
+
+
+def test_bwd_wrappers_count_their_launches(card):
+    calls = _bwd_calls(card, 2, 64, torch.float32, seed=4)
+    dispatch.reset_launch_counts()
+    for name, a, kw in calls:
+        BWD[name][0](*a, **kw)
+        BWD[name][1](*a, **kw)
+    assert dispatch.launch_counts == {**NONE, "bwd_reduce": 1, "bwd_stage": 3,
+                                      "bwd_edge": 1}

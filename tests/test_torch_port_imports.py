@@ -1,4 +1,5 @@
-"""The port stands alone: it imports torch, never jax or the JAX package."""
+"""The port stands alone: it imports torch, never jax or the JAX package;
+importing it loads no h5py either (only the ModelNet .h5 reader needs it)."""
 import ast
 import pathlib
 import subprocess
@@ -38,6 +39,12 @@ def test_scripts_name_no_jax(path):
     _assert_names_no_jax(path)
 
 
+def test_the_data_pipeline_and_the_cli_are_covered():
+    names = {str(p.relative_to(PKG)) for p in MODULES}
+    assert {"data/datautils.py", "data/transforms.py", "data/modelnet.py",
+            "data/loader.py", "train/cli.py", "train/__main__.py"} <= names
+
+
 def test_importing_every_module_loads_no_jax():
     mods = [".".join(p.relative_to(PKG.parent).with_suffix("").parts)
             .removesuffix(".__init__") for p in MODULES]
@@ -45,7 +52,7 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'ogmm_tpu', 'triton')]\n"
+        "('jax', 'jaxlib', 'flax', 'ogmm_tpu', 'triton', 'h5py')]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=PKG.parent,
