@@ -30,8 +30,22 @@ fatal on failure:
              kernels and their plain versions; one `make_eval_step` with ICP
   5. cli     `python -m ogmm_tpu_torch.train` (cli.main) on synthetic
              ModelNet at the same shape with the switch on: three steps, an
-             eval batch, a checkpoint, every kernel launched
+             eval batch, a checkpoint, every kernel of that path launched
   6. check   ICP on a small input recovers a known pose
+  7. knn, posenc_angles   the kNN and angle kernels against their plain
+             versions (identical indices; angles within 1e-5) at the shapes
+             of the large-cloud and unfused paths, with ties and a cross kNN
+  8. serve_large   `Registrar` at B=24, N=1433 (ModelNet40's 2048 points
+             cropped to 0.70), bf16 body: the shared kNN graph, the unfused
+             DGCNN, the EM kernel, ICP's 1-NN kernel at M=1433; launch
+             counts, request times, kernels against plain versions
+  9. train_large   `make_train_step` at B=24, N=1433: launch counts, step
+             times, peak device memory, every parameter moved
+ 10. train_unfused the N=717 step with `dgcnn_fused_train=False`: the kNN and
+             angle kernels twice a step, the loss against the plain versions
+ 11. c1      the shapes the port raised on before it routed by shape:
+             `Registrar` at gnn_k=16 and at n_clusters=16 (N=2048), `nn1` at
+             M=8192; the launch counts show each route
 
 Prints the request and step times, one JSON object {"kernels": [...]} on a
 line of its own, the `nvidia-smi` name and power limit, and as the last line
@@ -70,7 +84,12 @@ try:
     from ogmm_tpu_torch.ops.cuda_dgcnn_train import (graph_stage1,
                                                      graph_stage1_reference)
     from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
-    from ogmm_tpu_torch.ops.cuda_knn import nn1, nn1_reference
+    from ogmm_tpu_torch.ops import common as ops_common
+    from ogmm_tpu_torch.ops import cuda_posenc
+    from ogmm_tpu_torch.ops.cuda_knn import (knn, knn_reference, nn1,
+                                             nn1_reference)
+    from ogmm_tpu_torch.ops.cuda_posenc import (posenc_angles,
+                                                posenc_angles_reference)
     from ogmm_tpu_torch.ops.fps import farthest_point_sample
     from ogmm_tpu_torch.ops.icp import icp_point_to_point
     from ogmm_tpu_torch.train import (create_train_state, make_eval_step,
@@ -81,6 +100,7 @@ except ImportError as e:
 
 DEV = torch.device("cuda")
 B, N, EMB, K, KNN, POS_K = 24, 717, 512, 128, 20, 5
+N_LARGE = 1433           # ModelNet40's 2048-point clouds cropped to 0.70
 
 # published peaks of one H100 SXM
 PEAK_BYTES = 3.35e12
@@ -96,6 +116,10 @@ LIM_EM_10_PI = 1e-3      # outputs only, cloud extent ~1
 LIM_Z1_F32 = 1e-5        # six float32 products, other summation order
 LIM_Z1_BF16 = 0.0313     # one bf16 rounding of values up to ~4: one ulp
 LIM_NN1_D = 0.0          # same float32 arithmetic in the same order
+LIM_POSENC = 1e-5        # cosines from float32 coordinates, centroid summed
+#                          in another order
+LIM_UNFUSED_LOSS = 1e-3  # the unfused step, kNN and angle kernels against
+#                          their plain versions (every other kernel the same)
 # DGCNN backward kernels, as a share of max|plain| of each output
 LIM_BWD_F32 = 1e-4       # same float32 arithmetic, other summation order
 LIM_BWD_DZ_BF16 = 2.0 ** -6  # two bf16 ulps at the largest dz: a rounded
@@ -454,17 +478,22 @@ class plain_versions:
              (ops_gmm, "sinkhorn_em", sinkhorn_em_reference),
              (ops_dgcnn_train, "graph_stage1", graph_stage1_reference),
              (cuda_knn, "nn1", nn1_reference),
+             (cuda_knn, "knn", knn_reference),
+             (cuda_posenc, "posenc_angles", posenc_angles_reference),
              (ops_dgcnn_train, "bwd_reduce", bwd_reduce_reference),
              (ops_dgcnn_train, "bwd_stage", bwd_stage_reference),
              (ops_dgcnn_train, "bwd_edge", bwd_edge_reference))
 
+    def __init__(self, names=None):
+        self.swaps = [sw for sw in self.SWAPS if names is None or sw[1] in names]
+
     def __enter__(self):
-        self.saved = [getattr(m, name) for m, name, _ in self.SWAPS]
-        for m, name, plain in self.SWAPS:
+        self.saved = [getattr(m, name) for m, name, _ in self.swaps]
+        for m, name, plain in self.swaps:
             setattr(m, name, plain)
 
     def __exit__(self, *exc):
-        for (m, name, _), fn in zip(self.SWAPS, self.saved):
+        for (m, name, _), fn in zip(self.swaps, self.saved):
             setattr(m, name, fn)
 
 
@@ -523,15 +552,16 @@ def serve(rs):
 
 # -------------------------------------------------------------------- train
 
-def make_batch(rs):
+def make_batch(rs, n_points=N):
     """A training batch in the loader's format; the overlap labels are made
     in the step (device_overlap) from the ground truth."""
-    src, tgt, rot, trans = make_pairs(rs, B, N)
+    src, tgt, rot, trans = make_pairs(rs, B, n_points)
     # a third of each target replaced by points off the source: partial
     # overlap, so that the labels are not all 1
-    tgt[:, : N // 3] = (rs.randn(B, N // 3, 3) * 0.3 + 1.0).astype(np.float32)
+    third = n_points // 3
+    tgt[:, :third] = (rs.randn(B, third, 3) * 0.3 + 1.0).astype(np.float32)
     gt = np.concatenate([rot, trans[:, :, None]], axis=-1)
-    ones = np.ones((B, N), np.float32)
+    ones = np.ones((B, n_points), np.float32)
     return {"src_xyz": src, "tgt_xyz": tgt, "src_overlap": ones,
             "tgt_overlap": ones, "transform_gt": gt}
 
@@ -675,8 +705,11 @@ def run_cli():
     assert trainer.state.step == 3 and saved
     assert np.isfinite(rec["train"]["loss"]) and np.isfinite(rec["val"]["loss"])
     assert trainer.state.device.type == "cuda"
-    for name in dispatch.KERNELS:
+    # every kernel of the N=717 training path; the kNN and angle kernels
+    # serve the large-cloud and unfused routes
+    for name in set(dispatch.KERNELS) - {"knn", "posenc_angles"}:
         assert launches[name] > 0, launches
+    assert launches["knn"] == launches["posenc_angles"] == 0, launches
     assert (launches["bwd_reduce"], launches["bwd_stage"],
             launches["bwd_edge"]) == (6, 18, 6), launches
     return launches, {"seconds": secs, "train_loss": rec["train"]["loss"],
@@ -700,28 +733,300 @@ def check_icp(rs):
     assert rre < 0.1 and rte < 1e-3
 
 
+# --------------------------------------------- kNN and angle kernels
+
+def _cloud(rs, b, n, dup=True):
+    x = torch.tensor(rs.randn(b, n, 3).astype(np.float32) * 0.3, device=DEV)
+    if dup:
+        x[:, n // 2] = x[:, 1]               # a duplicated point: exact ties
+    return x
+
+
+def _bound(flops_f32, nbytes):
+    t_ops, t_bytes = flops_f32 / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_knn(rs):
+    """The kNN kernel against its plain version (identical indices) at every
+    shape the driven paths give it: the large-cloud request (2B=48 clouds of
+    1433 points) and step (B=24 of 1433), the unfused N=717 step's graph
+    (k=20) and angles (k=5); and at the kernel's envelope (M=4096), a cross
+    kNN, clouds with a duplicated point and with 301 coincident points (more
+    candidates at the threshold than the kernel's list holds). Its error is
+    the largest |kernel - plain| index over them, 0 when all agree. Timed at
+    the first shape (the plain version once: a (48, 1433, 1433) float32
+    matrix and 20 passes)."""
+    shapes = [(2 * B, N_LARGE, N_LARGE, KNN), (B, N_LARGE, N_LARGE, KNN),
+              (B, N, N, KNN), (B, 4096, 4096, KNN), (B, N, N, POS_K),
+              (4, 1000, 257, 32), (2, 90, 2000, 1)]
+    worst = 0
+    for b, n, m, k in shapes + [(2, 600, 600, KNN)]:
+        tgt = _cloud(rs, b, m)
+        if (b, n) == (2, 600):
+            tgt[:, 100:400] = tgt[:, :1]     # 301 coincident points
+        src = tgt.clone() if n == m else _cloud(rs, b, n, dup=False)
+        got = knn(src, tgt, k)
+        torch.cuda.synchronize()
+        want = knn_reference(src, tgt, k)
+        same = torch.equal(got, want)
+        worst = max(worst, (got - want).abs().max().item())
+        print(f"knn ({b}, {n}, {m}, k={k}): indices identical {same}")
+        assert same and got.dtype == torch.int64
+    x = _cloud(rs, 2 * B, N_LARGE)
+    ms = cuda_ms(lambda: knn(x, x, KNN), 20)
+    plain = cuda_ms(lambda: knn_reference(x, x, KNN), 1)
+    x4096 = _cloud(rs, B, 4096)
+    ms_4096 = cuda_ms(lambda: knn(x4096, x4096, KNN), 5)
+    rows = 2 * B * N_LARGE
+    bound, by = _bound(rows * N_LARGE * (8.0 + 1.0),
+                       2 * x.numel() * 4 + rows * KNN * 8)
+    print(f"knn ({2 * B}, {N_LARGE}, {N_LARGE}, k={KNN}): {ms:.4f} ms, plain "
+          f"{plain:.3f} ms, bound {bound:.5f} ms ({by}); ({B}, 4096, 4096, "
+          f"k={KNN}) {ms_4096:.4f} ms")
+    return {"name": "knn", "route": "cuda",
+            "source": "ogmm_tpu_torch/csrc/knn.cu",
+            "replaces": "ogmm_tpu/ops/pallas_knn.py:74",
+            "max_abs_err": float(worst), "ms": ms, "ms_m4096": ms_4096,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def check_posenc_angles(rs):
+    """The angle kernel against its plain version at the unfused training
+    path's shape (B=24 clouds of 717, k=5) and at N=1024, with a duplicated
+    point; max |kernel - plain| <= 1e-5."""
+    worst = 0.0
+    for b, n in ((B, N), (4, 1024)):
+        x = _cloud(rs, b, n)
+        got = posenc_angles(x, POS_K)
+        torch.cuda.synchronize()
+        err = (got - posenc_angles_reference(x, POS_K)).abs().max().item()
+        print(f"posenc_angles ({b}, {n}, k={POS_K}): max|kernel - plain| = "
+              f"{err:.3g} (limit {LIM_POSENC})")
+        assert err <= LIM_POSENC and torch.isfinite(got).all()
+        worst = max(worst, err)
+    x = _cloud(rs, B, N)
+    ms = cuda_ms(lambda: posenc_angles(x, POS_K), 50)
+    plain = cuda_ms(lambda: posenc_angles_reference(x, POS_K), 5)
+    rows = B * N
+    # each distance once and about one compare a candidate, as for knn
+    bound, by = _bound(rows * N * (8.0 + 1.0), x.numel() * 4 + rows * POS_K * 4)
+    print(f"posenc_angles ({B}, {N}, k={POS_K}): {ms:.4f} ms, plain "
+          f"{plain:.3f} ms, bound {bound:.5f} ms ({by})")
+    return {"name": "posenc_angles", "route": "cuda",
+            "source": "ogmm_tpu_torch/csrc/posenc_angles.cu",
+            "replaces": "ogmm_tpu/ops/pallas_knn.py:144",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+# ------------------------------------------------- the large-cloud paths
+
+def serve_large(rs):
+    """`Registrar` on 24 pairs of 1433-point clouds, bf16 body: one kNN graph
+    shared by DGCNN and the position encoding, the unfused DGCNN, the EM
+    kernel, ICP's 1-NN kernel at M=1433 (30 trips)."""
+    cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
+    reg = Registrar(cfg, seed=0, device=DEV)
+    requests = [make_pairs(rs, B, N_LARGE) for _ in range(3)]
+    reg(requests[0][0], requests[0][1], refine=True)      # warm up
+    torch.cuda.synchronize()
+    launches, times, outs = {}, {}, {}
+    for refine in (False, True):
+        src, tgt, _, _ = requests[0]
+        dispatch.reset_launch_counts()
+        reg(src, tgt, refine=refine)
+        torch.cuda.synchronize()
+        launches[refine] = dict(dispatch.launch_counts)
+        t0 = time.perf_counter()
+        for src, tgt, _, _ in requests:
+            outs[refine] = reg(src, tgt, refine=refine)
+        torch.cuda.synchronize()
+        times[refine] = (time.perf_counter() - t0) / len(requests) * 1e3
+        for o in outs[refine]:
+            assert torch.isfinite(o).all()
+        r = outs[refine][0]
+        eye = torch.eye(3, device=DEV).expand(B, 3, 3)
+        assert (r @ r.transpose(1, 2) - eye).abs().max() < 1e-4
+    print(f"request of {B} pairs at N={N_LARGE}: {times[False]:.2f} ms without "
+          f"ICP, {times[True]:.2f} ms with ICP (host clock, synchronised); "
+          f"launches {launches[False]} / {launches[True]}")
+    # the shared graph once for the 2B stacked clouds, no fused DGCNN, the
+    # EM once; the clustering loss's 1-NN once and one a trip of ICP
+    expect = {"knn": 1, "sinkhorn_em": 1, "dgcnn_eval": 0, "posenc_angles": 0}
+    for refine, n_nn1 in ((False, 1), (True, 1 + cfg.model.icp_iters)):
+        got = {name: launches[refine][name] for name in expect}
+        assert got == expect and launches[refine]["nn1"] == n_nn1, launches
+    src, tgt, _, _ = requests[-1]
+    with plain_versions():
+        before = dict(dispatch.launch_counts)
+        p_rot, _, p_so, p_to = reg(src, tgt, refine=True)
+        assert dict(dispatch.launch_counts) == before
+    k_rot, _, k_so, k_to = outs[True]
+    d_o = max((k_so - p_so).abs().max().item(), (k_to - p_to).abs().max().item())
+    ang = angle_deg(k_rot, p_rot)
+    print(f"N={N_LARGE} kernel path against plain path: overlap scores {d_o:.3g} "
+          f"(limit {LIM_OVERLAP}), refined rotation median "
+          f"{ang.median().item():.3g} deg (limit {LIM_ROT_DEG})")
+    assert d_o <= LIM_OVERLAP and ang.median().item() <= LIM_ROT_DEG
+    return launches[False], {"forward": times[False], "forward_icp": times[True],
+                             "launches_icp": launches[True]}
+
+
+def _train_cfg(**model):
+    cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16", **model))
+    return cfg.replace(train=dataclasses.replace(cfg.train, device_overlap=True),
+                       data=dataclasses.replace(cfg.data, fix_tgt_overlap=True))
+
+
+def train_large(rs, steps=3):
+    """`make_train_step` at B=24, N=1433: per cloud one kNN graph of k=20
+    shared by DGCNN and the angles, the unfused DGCNN through autograd."""
+    cfg = _train_cfg()
+    state = create_train_state(cfg, steps_per_epoch=100, seed=0, device=DEV)
+    step = make_train_step(cfg)
+    batches = [make_batch(rs, N_LARGE) for _ in range(2)]
+    before = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+    step(state, batches[0])                               # warm up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = step(state, batches[1])
+    torch.cuda.synchronize()
+    launches = dict(dispatch.launch_counts)
+    t0 = time.perf_counter()
+    losses = [step(state, batches[i % 2])["loss"][0] for i in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [v.item() for v in losses]
+    print(f"train step of {B} pairs at N={N_LARGE}: {step_ms:.2f} ms (host "
+          f"clock, {steps} steps), peak device memory {peak:.0f} MiB, losses "
+          f"{[round(v, 4) for v in losses]}, launches {launches}")
+    assert launches["knn"] == 2 and launches["graph_stage1"] == 0, launches
+    assert launches["dgcnn_eval"] == launches["posenc_angles"] == 0, launches
+    assert all(np.isfinite(losses))
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    for n, p in state.model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), n
+    after = state.model.state_dict()
+    unchanged = [n for n in before if torch.equal(before[n], after[n])]
+    assert not unchanged, f"not moved by training: {unchanged}"
+    return launches, {"step_ms": step_ms, "peak_mib": peak, "losses": losses}
+
+
+def train_unfused(rs):
+    """The N=717 step with `dgcnn_fused_train=False`: DGCNN builds its graph
+    with the kNN kernel and the position encoding takes the angle kernel,
+    once a cloud; the loss of one step from the seeded state through those
+    two kernels and through their plain versions (the forward from that
+    state is deterministic; after steps whose backward adds with atomics the
+    EM amplifies the angles' 3e-7 differences by another factor each run)."""
+    cfg = _train_cfg(dgcnn_fused_train=False)
+    state = create_train_state(cfg, steps_per_epoch=100, seed=0, device=DEV)
+    step = make_train_step(cfg)
+    batch = make_batch(rs)
+    k_loss, _ = _step_grads(state, cfg, batch)
+    with plain_versions({"knn", "posenc_angles"}):
+        p_loss, _ = _step_grads(state, cfg, batch)
+    with plain_versions():
+        all_loss, _ = _step_grads(state, cfg, batch)
+    step(state, batch)                                    # warm up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(dispatch.launch_counts)
+    assert (launches["knn"], launches["posenc_angles"]) == (2, 2), launches
+    assert launches["graph_stage1"] == launches["dgcnn_eval"] == 0, launches
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    d_loss = abs(k_loss - p_loss) / abs(p_loss)
+    d_all = abs(k_loss - all_loss) / abs(all_loss)
+    print(f"unfused train step at N={N}: {step_ms:.2f} ms, launches {launches}; "
+          f"loss {k_loss:.6f} against {p_loss:.6f} through the plain kNN and "
+          f"angles (relative {d_loss:.3g}, limit {LIM_UNFUSED_LOSS}) and "
+          f"{all_loss:.6f} through every plain version (relative {d_all:.3g}, "
+          f"limit {LIM_STEP_LOSS})")
+    assert d_loss <= LIM_UNFUSED_LOSS and d_all <= LIM_STEP_LOSS
+    return launches, {"step_ms": step_ms, "loss_rel": d_loss}
+
+
+def check_c1(rs):
+    """The shapes the port raised on before it routed by shape."""
+    out = {}
+    for name, over, b, n, want in (
+            ("gnn_k=16", dict(gnn_k=16), B, N,
+             {"dgcnn_eval": 1, "knn": 0, "sinkhorn_em": 1}),
+            ("n_clusters=16", dict(n_clusters=16), 4, 2048,
+             {"dgcnn_eval": 0, "knn": 1, "sinkhorn_em": 1})):
+        reg = Registrar(configs.mnet(model=configs.ModelConfig(
+            dtype="bfloat16", **over)), seed=0, device=DEV)
+        src, tgt, _, _ = make_pairs(rs, b, n)
+        reg(src, tgt, refine=False)
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        rot, trans, so, _ = reg(src, tgt, refine=True)
+        torch.cuda.synchronize()
+        launches = dict(dispatch.launch_counts)
+        print(f"c1 Registrar {name} (B={b}, N={n}): launches {launches}")
+        assert torch.isfinite(rot).all() and torch.isfinite(so).all()
+        assert {k: launches[k] for k in want} == want, launches
+        out[name] = launches
+    src, tgt = _cloud(rs, 2, 512, dup=False), _cloud(rs, 2, 8192)
+    dispatch.reset_launch_counts()
+    d, i = ops_common.nn1(src, tgt)
+    torch.cuda.synchronize()
+    rd, ri = nn1_reference(src, tgt)
+    print(f"c1 nn1 (2, 512 x 8192): route {ops_common.nn1_route(2, 512, 8192)}, "
+          f"launches {dict(dispatch.launch_counts)}, max|d - plain| "
+          f"{(d - rd).abs().max().item():.3g}")
+    assert dispatch.launch_counts["nn1"] == 0
+    assert torch.allclose(d, rd, rtol=1e-4, atol=1e-6)
+    out["nn1_8192"] = dict(dispatch.launch_counts)
+    return out
+
+
 def main():
     rs = np.random.RandomState(0)
     t0 = time.perf_counter()
     dispatch.build_kernels()
     print(f"built {', '.join(dispatch.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     kernels = [check_dgcnn(rs), check_em(rs), check_graph_stage1(rs),
-               check_nn1(rs), *check_dgcnn_bwd(rs)]
+               check_nn1(rs), *check_dgcnn_bwd(rs), check_knn(rs),
+               check_posenc_angles(rs)]
     launches, times = serve(rs)
     train_launches, train_out = train(rs)
     cli_launches, cli_out = run_cli()
     check_icp(rs)
+    large_launches, large_times = serve_large(rs)
+    large_train_launches, large_train_out = train_large(rs)
+    unfused_launches, unfused_out = train_unfused(rs)
+    c1 = check_c1(rs)
+    # each kernel's launches on the path it was ported for: the serving
+    # forward (N=717) for kernels 1-2, the training step for 3-7, the
+    # large-cloud request for the kNN kernel, the unfused step for the
+    # angle kernel
+    main_path = {"dgcnn_eval": launches, "sinkhorn_em": launches,
+                 "knn": large_launches, "posenc_angles": unfused_launches}
     for k in kernels:
-        # each kernel's launches on the path it was ported for
-        path = launches if k["name"] in ("dgcnn_eval", "sinkhorn_em") \
-            else train_launches
-        k["launches"] = path[k["name"]]
-        k["launches_train_step"] = train_launches[k["name"]]
-        k["launches_cli"] = cli_launches[k["name"]]
+        name = k["name"]
+        k["launches"] = main_path.get(name, train_launches)[name]
+        k["launches_train_step"] = train_launches[name]
+        k["launches_cli"] = cli_launches[name]
+        k["launches_request_n1433"] = large_launches[name]
+        k["launches_train_step_n1433"] = large_train_launches[name]
+        k["launches_unfused_step"] = unfused_launches[name]
     print(json.dumps({"request_ms": {"forward": times[False],
                                      "forward_icp": times[True]},
                       "train": train_out, "cli": cli_out,
-                      "shape": {"B": B, "N": N, "emb": EMB, "K": K}}))
+                      "request_ms_n1433": large_times,
+                      "train_n1433": large_train_out,
+                      "train_unfused": unfused_out, "c1": c1,
+                      "shape": {"B": B, "N": N, "N_large": N_LARGE,
+                                "emb": EMB, "K": K}}))
     print(json.dumps({"kernels": kernels}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

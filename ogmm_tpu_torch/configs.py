@@ -29,6 +29,9 @@ class ModelConfig:
     overlap_radius: float = 0.035  # ICP gate is twice this
     icp_iters: int = 30         # fixed-trip ICP refinement
     dtype: str = "float32"      # compute type of the network body
+    # DGCNN training route: None (or True) the fused kernels where their
+    # shape rule allows, False the unfused route (nn/dgcnn.py:fused_route)
+    dgcnn_fused_train: bool | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +93,6 @@ _FIXED_MODEL_OPTIONS = {
     "recompute_anchors": (False,),
     "stack_eval": (True,),
     "stack_train": (False,),
-    "dgcnn_fused_train": (None, True),   # training takes the custom VJP
     "dgcnn_fused_edges": (None, False),
     "dgcnn_vspace": (None,),
     "overlap_stream": (None, False),

@@ -55,7 +55,9 @@
 
 #include <cstdint>
 
-#include "knn_select.cuh"  // KNN, MAXN, to_f, from_f
+#include "knn_select.cuh"  // MAXN, to_f, from_f
+
+#define KNN 20           // the graph the backward kernels are compiled for
 
 #define NT 256           // threads of a block
 #define TN 4             // points of a tile

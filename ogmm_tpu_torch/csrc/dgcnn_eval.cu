@@ -1,13 +1,14 @@
 // Fused eval DGCNN encoder for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel ogmm_tpu/ops/pallas_dgcnn.py:dgcnn_eval_pallas
-// (_dgcnn_kernel + _run_stages). Two launches, nothing but the neighbour
-// indices (B*N*20 ints) passes through device memory between them:
+// (_dgcnn_kernel + _run_stages). Compiled for the neighbour counts k of
+// DGCNN_KS (knn_select.cuh); k = 20 below. Two launches, nothing but the
+// neighbour indices (B*N*k ints) passes through device memory between them:
 //
 //  1. knn_alpha_kernel (knn_select.cuh, shared with graph_stage1.cu): one
 //     warp per query point. The cloud (N <= 1024) sits
 //     in shared memory, the query's float32 distance row sits in the warp's
-//     registers (32 values a lane), and 20 rounds of warp argmin-and-mask
+//     registers (32 values a lane), and k rounds of warp argmin-and-mask
 //     pick the neighbours in ascending order, ties to the lowest index. The
 //     first posenc_k rounds also give the position-encoding angle
 //     cos(angle(p -> nbr, p -> centroid)) from float32 coordinates.
@@ -15,23 +16,23 @@
 //     (|q|^2 + |t|^2) - 2 (q0 t0 + q1 t1 + q2 t2), so that the plain PyTorch
 //     version selects the same neighbours bit for bit.
 //  2. dgcnn_stage_kernel: one block per 8 query points, one warp per query.
-//     The 160 edge rows [nbr - q (float32, then cast), q], the stage
+//     The 8k edge rows [nbr - q (float32, then cast), q], the stage
 //     activations and the 512-wide concat stay in shared memory. Each stage
 //     is Dense (BN scale folded into the weight) + bias + ReLU in the
-//     compute type with float32 accumulation; a thread holds all 20
+//     compute type with float32 accumulation; a thread holds all k
 //     neighbour rows of its query for two output columns, so the max over k
 //     is taken in registers. The final Dense(512 -> emb) + bias + ReLU
 //     writes the only large output.
 //
 // Bound: operations. The stage products are 2*45,440 flops for each of the
-// B*N*20 edge rows plus 2*512*emb for each point, against 12 bytes in and
+// B*N*k edge rows plus 2*512*emb for each point, against 12 bytes in and
 // 2*emb bytes out for each point. This first version does the products with
 // float32 FMAs on the CUDA cores (bf16 operands are widened, which is exact);
 // moving them to the tensor cores is the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "knn_select.cuh"  // knn_alpha_kernel, KNN, MAXN, QPB, to_f, from_f
+#include "knn_select.cuh"  // knn_alpha_kernel, DGCNN_KS, MAXN, QPB, to_f, from_f
 
 #define TQ 8       // queries (= warps) per block of the stage kernel
 #define CATW 512   // 64 + 64 + 128 + 256
@@ -105,7 +106,7 @@ __device__ __forceinline__ void dense_tile(const T* __restrict__ in, int cin,
 // one edge-conv stage for this warp's query: rows [warp*KNN, +KNN) of `in`
 // (row length cin) -> the same rows of `outbuf` (row length cout, may be
 // null) and the max over the rows -> cat[warp][cat_off + col]
-template <typename T>
+template <typename T, int KNN>
 __device__ __forceinline__ void edge_stage(const T* in, int cin,
                                            const T* __restrict__ w,
                                            const T* __restrict__ bias, int cout,
@@ -130,7 +131,7 @@ __device__ __forceinline__ void edge_stage(const T* in, int cin,
   }
 }
 
-template <typename T>
+template <typename T, int KNN>
 __global__ void __launch_bounds__(TQ * 32)
 dgcnn_stage_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                    const T* w1, const T* w2, const T* w3, const T* w4, const T* w5,
@@ -161,13 +162,13 @@ dgcnn_stage_kernel(const float* __restrict__ x, const int* __restrict__ idx,
     e[7] = from_f<T>(0.f);
   }
   __syncthreads();
-  edge_stage<T>(bufA, 8, w1, b1, 64, bufB, cat, 0);
+  edge_stage<T, KNN>(bufA, 8, w1, b1, 64, bufB, cat, 0);
   __syncthreads();
-  edge_stage<T>(bufB, 64, w2, b2, 64, bufA, cat, 64);
+  edge_stage<T, KNN>(bufB, 64, w2, b2, 64, bufA, cat, 64);
   __syncthreads();
-  edge_stage<T>(bufA, 64, w3, b3, 128, bufB, cat, 128);
+  edge_stage<T, KNN>(bufA, 64, w3, b3, 128, bufB, cat, 128);
   __syncthreads();
-  edge_stage<T>(bufB, 128, w4, b4, 256, nullptr, cat, 256);
+  edge_stage<T, KNN>(bufB, 128, w4, b4, 256, nullptr, cat, 256);
   __syncthreads();
 
   // head: (TQ, 512) x (512, emb), 64 columns a warp at a time
@@ -186,39 +187,57 @@ dgcnn_stage_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
-template <typename T>
+template <typename T, int KNN>
 static cudaError_t launch_stages(const float* x, const int* idx,
                                  const void* const* w, const void* const* bs,
                                  void* out, int B, int N, int emb,
                                  cudaStream_t stream) {
   const size_t smem = sizeof(T) * (size_t)(TQ * KNN * (64 + 128) + TQ * CATW);
   cudaError_t err = cudaFuncSetAttribute(
-      dgcnn_stage_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dgcnn_stage_kernel<T, KNN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TQ - 1) / TQ, B);
-  dgcnn_stage_kernel<T><<<grid, TQ * 32, smem, stream>>>(
+  dgcnn_stage_kernel<T, KNN><<<grid, TQ * 32, smem, stream>>>(
       x, idx, (const T*)w[0], (const T*)w[1], (const T*)w[2], (const T*)w[3],
       (const T*)w[4], (const T*)bs[0], (const T*)bs[1], (const T*)bs[2],
       (const T*)bs[3], (const T*)bs[4], (T*)out, N, emb);
   return cudaGetLastError();
 }
 
+template <int KNN>
+static cudaError_t launch_k(const float* x, const void* const* w,
+                           const void* const* bs, int* idx, float* alpha,
+                           void* out, int B, int N, int emb, int pk,
+                           int is_bf16, cudaStream_t stream) {
+  if (N < KNN || pk > KNN) return cudaErrorInvalidValue;
+  const dim3 grid((N + QPB - 1) / QPB, B);
+  knn_alpha_kernel<KNN><<<grid, 256, 0, stream>>>(x, nullptr, idx, alpha, N, pk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (is_bf16)
+    return launch_stages<__nv_bfloat16, KNN>(x, idx, w, bs, out, B, N, emb, stream);
+  return launch_stages<float, KNN>(x, idx, w, bs, out, B, N, emb, stream);
+}
+
 extern "C" int dgcnn_eval_launch(
     const float* x, const void* w1, const void* w2, const void* w3,
     const void* w4, const void* w5, const void* b1, const void* b2,
     const void* b3, const void* b4, const void* b5, int* idx, float* alpha,
-    void* out, int B, int N, int emb, int pk, int is_bf16, void* stream_ptr) {
+    void* out, int B, int N, int emb, int k, int pk, int is_bf16,
+    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N > MAXN || N < KNN || pk > KNN || emb % 64 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + QPB - 1) / QPB, B);
-  knn_alpha_kernel<<<grid, 256, 0, stream>>>(x, idx, alpha, N, pk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (N > MAXN || emb % 64 != 0) return (int)cudaErrorInvalidValue;
   const void* w[5] = {w1, w2, w3, w4, w5};
   const void* bs[5] = {b1, b2, b3, b4, b5};
-  if (is_bf16)
-    err = launch_stages<__nv_bfloat16>(x, idx, w, bs, out, B, N, emb, stream);
-  else
-    err = launch_stages<float>(x, idx, w, bs, out, B, N, emb, stream);
-  return (int)err;
+  switch (k) {
+#define CASE(K)                                                              \
+  case K:                                                                    \
+    return (int)launch_k<K>(x, w, bs, idx, alpha, out, B, N, emb, pk,        \
+                            is_bf16, stream);
+    DGCNN_KS(CASE)
+#undef CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

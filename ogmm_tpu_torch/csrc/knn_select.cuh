@@ -1,6 +1,7 @@
 // Neighbour selection shared by the DGCNN kernels (dgcnn_eval.cu,
-// graph_stage1.cu), the fixed-order distance of every kernel that picks
-// neighbours (nn1.cu), and the compute-type conversions of the DGCNN kernels.
+// graph_stage1.cu) and the position-encoding angles (posenc_angles.cu), the
+// fixed-order distance of every kernel that picks neighbours (nn1.cu,
+// knn.cu), and the compute-type conversions of the DGCNN kernels.
 //
 // Distances are formed without fused multiply-adds in one fixed order,
 //   (|q|^2 + |t|^2) - 2 (q0 t0 + q1 t1 + q2 t2), clamped at 1e-12,
@@ -12,9 +13,14 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#define KNN 20     // neighbours of the DGCNN graph
 #define QPB 32     // queries per block of the selection kernel
 #define MAXN 1024  // 32 lanes x 32 registers hold one distance row
+
+// the neighbour counts the fused DGCNN kernels are compiled for: k = 20 is
+// the ModelNet graph, 16 and 8 the narrower graphs the port's checks and
+// small configurations drive; any other k takes the unfused route. X is a
+// macro of one count
+#define DGCNN_KS(X) X(8) X(16) X(20)
 
 // compute type (float32 or bf16) <-> float32
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -39,14 +45,18 @@ __device__ __forceinline__ float sq_dist3(float qx, float qy, float qz, float qq
 
 // One warp per query point. The cloud (N <= 1024) sits in shared memory, the
 // query's float32 distance row sits in the warp's registers (32 values a
-// lane), and KNN rounds of warp argmin-and-mask pick the neighbours in
-// ascending order, ties to the lowest index. The first pk rounds also give
-// the position-encoding angle cos(angle(p -> nbr, p -> centroid)) from
-// float32 coordinates, the centroid being the cloud's sum / N.
-// Writes idx_out (B, N, KNN) and alpha_out (B, N, pk).
+// lane), and KNN (<= 32, one index a lane) rounds of warp argmin-and-mask
+// pick the neighbours in ascending order, ties to the lowest index. The
+// first pk rounds also give the position-encoding angle
+// cos(angle(p -> nbr, p -> centroid)) from float32 coordinates, the centroid
+// being the given one (B, 3) or, where that is null, the cloud's sum / N.
+// Needs KNN <= N.
+// Writes idx_out (B, N, KNN) unless it is null, and alpha_out (B, N, pk).
+template <int KNN>
 __global__ void __launch_bounds__(256)
-knn_alpha_kernel(const float* __restrict__ x, int* __restrict__ idx_out,
-                 float* __restrict__ alpha_out, int N, int pk) {
+knn_alpha_kernel(const float* __restrict__ x, const float* __restrict__ centroid,
+                 int* __restrict__ idx_out, float* __restrict__ alpha_out,
+                 int N, int pk) {
   __shared__ float sx[MAXN], sy[MAXN], sz[MAXN], st[MAXN];
   __shared__ float red[3][8];
   const int b = blockIdx.y;
@@ -72,6 +82,9 @@ knn_alpha_kernel(const float* __restrict__ x, int* __restrict__ idx_out,
 #pragma unroll
   for (int w = 0; w < 8; ++w) { cx += red[0][w]; cy += red[1][w]; cz += red[2][w]; }
   cx /= (float)N; cy /= (float)N; cz /= (float)N;
+  if (centroid != nullptr) {
+    cx = centroid[3 * b]; cy = centroid[3 * b + 1]; cz = centroid[3 * b + 2];
+  }
 
   for (int qi = warp; qi < QPB; qi += 8) {
     const int n = blockIdx.x * QPB + qi;
@@ -119,7 +132,7 @@ knn_alpha_kernel(const float* __restrict__ x, int* __restrict__ idx_out,
       }
     }
     const size_t row = (size_t)b * N + n;
-    if (lane < KNN) idx_out[row * KNN + lane] = my_idx;
+    if (idx_out != nullptr && lane < KNN) idx_out[row * KNN + lane] = my_idx;
     if (lane < pk) alpha_out[row * pk + lane] = my_alpha;
   }
 }

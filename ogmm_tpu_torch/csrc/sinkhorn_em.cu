@@ -4,7 +4,10 @@
 // Replaces the TPU kernel ogmm_tpu/ops/pallas_em.py:sinkhorn_em (_em_kernel,
 // the mxu_lse schedule). One launch runs all EM trips of all clouds; the
 // (N, K) transport plan never reaches device memory until the last trip's
-// gamma is written.
+// gamma is written. K is any cluster count up to 128: a lane holds the
+// columns lane + 32 c of a row, c < KPL = ceil(K / 32), and the columns from
+// K up to 32 KPL are padding that holds no mass (cost +inf, plan 0) and is
+// never written out.
 //
 // One (717, 128) float32 plan is 367 KB, more than one SM's shared memory,
 // so a thread block cluster of 8 blocks owns one cloud: each block keeps a
@@ -28,6 +31,8 @@
 // Bound: neither bytes nor operations but latency: about 11 dependent passes
 // per trip, each ended by a cluster barrier, over a slab that a block sweeps
 // in a few microseconds. More rows in flight per block is the next step.
+// The slab of rows must fit in shared memory (launch below): N <= 3,072 at
+// K = 128, N <= 11,600 at K <= 32.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -52,7 +57,7 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // Sum Q column vectors over the block's warps and then over the cluster.
 // colacc[q][c] is this warp's partial for column lane + 32 c; on return
-// colv[q*K + k] holds the cloud-wide sum in every block.
+// colv[q*K + k] holds the cloud-wide sum in every block (K the padded count).
 template <int KPL, int Q>
 __device__ __forceinline__ void reduce_cols(cg::cluster_group& cluster,
                                             const float (&colacc)[4][KPL],
@@ -88,8 +93,9 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
 em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
           const float* __restrict__ nodes0, float* __restrict__ gamma_out,
           float* __restrict__ pi_out, float* __restrict__ nodes_out, int N,
-          int iters, int sk_iters, float tau, float eps, float q_t, float log_q) {
-  constexpr int K = KPL * 32;
+          int nk, int iters, int sk_iters, float tau, float eps, float q_t,
+          float log_q) {
+  constexpr int K = KPL * 32;            // padded columns; nk of them real
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / CL;
@@ -119,8 +125,11 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
     sp[i * 2 + 1] = logf(pv);
   }
   for (int k = tid; k < K; k += NT) {
-    const float* p = nodes0 + ((size_t)b * K + k) * 3;
-    const float x = p[0], y = p[1], z = p[2];
+    float x = 0.f, y = 0.f, z = 0.f;
+    if (k < nk) {
+      const float* p = nodes0 + ((size_t)b * nk + k) * 3;
+      x = p[0]; y = p[1]; z = p[2];
+    }
     snodes[k * 4] = x; snodes[k * 4 + 1] = y; snodes[k * 4 + 2] = z;
     snodes[k * 4 + 3] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
                                   __fmul_rn(z, z));
@@ -149,7 +158,7 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         const float d2 = fmaxf(
             __fsub_rn(__fadd_rn(xsq, snodes[k * 4 + 3]), __fmul_rn(2.0f, inner)),
             1e-12f);
-        cst[c] = sqrtf(d2) / tau;
+        cst[c] = k < nk ? sqrtf(d2) / tau : CUDART_INF_F;   // padding: no mass
         m = fmaxf(m, (-cst[c]) / eps);
       }
       m = warp_max(m);
@@ -231,12 +240,12 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         colacc[1][c] += g * x;
         colacc[2][c] += g * y;
         colacc[3][c] += g * z;
-        if (last)
-          gamma_out[((size_t)b * N + r0 + i) * K + lane + 32 * c] = g;
+        if (last && lane + 32 * c < nk)
+          gamma_out[((size_t)b * N + r0 + i) * nk + lane + 32 * c] = g;
       }
     }
     reduce_cols<KPL, 4>(cluster, colacc, warpacc, part, colv, npass++ & 1);
-    for (int k = tid; k < K; k += NT) {
+    for (int k = tid; k < nk; k += NT) {
       const float pi = colv[k] / (float)N;
       const float npi = pi * (float)N + 1e-5f;
       const float x = colv[K + k] / npi, y = colv[2 * K + k] / npi;
@@ -245,8 +254,8 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
       snodes[k * 4 + 3] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
                                     __fmul_rn(z, z));
       if (last && rank == 0) {
-        pi_out[(size_t)b * K + k] = pi;
-        float* p = nodes_out + ((size_t)b * K + k) * 3;
+        pi_out[(size_t)b * nk + k] = pi;
+        float* p = nodes_out + ((size_t)b * nk + k) * 3;
         p[0] = x; p[1] = y; p[2] = z;
       }
     }
@@ -258,8 +267,9 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
 template <int KPL>
 static cudaError_t launch(const float* xyz, const float* o, const float* nodes0,
                           float* gamma, float* pi, float* nodes, int B, int N,
-                          int iters, int sk_iters, float tau, float eps,
-                          float q_t, float log_q, cudaStream_t stream) {
+                          int nk, int iters, int sk_iters, float tau,
+                          float eps, float q_t, float log_q,
+                          cudaStream_t stream) {
   constexpr int K = KPL * 32;
   const int rows_per = (N + CL - 1) / CL;
   const size_t smem = sizeof(float) * ((size_t)rows_per * (K + 7) + K * 4 +
@@ -269,8 +279,8 @@ static cudaError_t launch(const float* xyz, const float* o, const float* nodes0,
       em_kernel<KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   em_kernel<KPL><<<B * CL, NT, smem, stream>>>(xyz, o, nodes0, gamma, pi, nodes,
-                                               N, iters, sk_iters, tau, eps,
-                                               q_t, log_q);
+                                               N, nk, iters, sk_iters, tau,
+                                               eps, q_t, log_q);
   return cudaGetLastError();
 }
 
@@ -280,17 +290,15 @@ extern "C" int sinkhorn_em_launch(const float* xyz, const float* o,
                                   int sk_iters, float tau, float eps, float q_t,
                                   float log_q, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (iters < 1 || sk_iters < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  switch (K) {
-    case 32:
-      return (int)launch<1>(xyz, o, nodes0, gamma, pi, nodes, B, N, iters,
+  if (iters < 1 || sk_iters < 1 || N < 1 || K < 1 || K > 128)
+    return (int)cudaErrorInvalidValue;
+  switch ((K + 31) / 32) {
+#define CASE(KPL)                                                            \
+  case KPL:                                                                  \
+    return (int)launch<KPL>(xyz, o, nodes0, gamma, pi, nodes, B, N, K, iters, \
                             sk_iters, tau, eps, q_t, log_q, stream);
-    case 64:
-      return (int)launch<2>(xyz, o, nodes0, gamma, pi, nodes, B, N, iters,
-                            sk_iters, tau, eps, q_t, log_q, stream);
-    case 128:
-      return (int)launch<4>(xyz, o, nodes0, gamma, pi, nodes, B, N, iters,
-                            sk_iters, tau, eps, q_t, log_q, stream);
+    CASE(1) CASE(2) CASE(3) CASE(4)
+#undef CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

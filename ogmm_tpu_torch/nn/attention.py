@@ -8,8 +8,25 @@ from torch import nn
 from torch.nn import functional as F
 
 from ogmm_tpu_torch.nn.layers import BN, Dense, PointMLP
-from ogmm_tpu_torch.ops.common import (gather_neighbors, knn, matmul32,
-                                       posenc_alpha)
+from ogmm_tpu_torch.ops import cuda_posenc
+from ogmm_tpu_torch.ops.common import (KNN_KERNEL_MAX_K, gather_neighbors, knn,
+                                       matmul32, posenc_alpha)
+
+
+def angle_route(n: int, k: int, have_alpha: bool, have_graph: bool) -> str:
+    """Where the position encoding's angle features of k neighbours over
+    clouds of n points come from, the JAX package's branches
+    (`ogmm_tpu/nn/attention.py:69-84`): 'given' (the caller supplies them),
+    'kernel' (`ops.cuda_posenc.posenc_angles`: no graph given, N <= 1024;
+    the port's kernel also needs k <= 32), else a gather of coordinates
+    through the given graph's k-prefix ('graph') or through a kNN of the
+    cloud ('knn')."""
+    if have_alpha:
+        return "given"
+    if (not have_graph and n <= cuda_posenc.KERNEL_MAX_N
+            and 1 <= k <= min(KNN_KERNEL_MAX_K, n)):
+        return "kernel"
+    return "graph" if have_graph else "knn"
 
 
 class PositionEncoding(nn.Module):
@@ -32,18 +49,26 @@ class PositionEncoding(nn.Module):
         self.bn3 = BN(dim // 2, dtype)
 
     def forward(self, points: torch.Tensor, k: int = 5,
-                alpha: torch.Tensor | None = None) -> torch.Tensor:
+                alpha: torch.Tensor | None = None,
+                nbr_idx: torch.Tensor | None = None) -> torch.Tensor:
         """points (B, N, 3) -> (B, N, dim). `alpha` (B, N, k) supplies the
-        angle features (the fused DGCNN encoder emits them from its own
-        neighbour selection); without it they come from a dense kNN."""
+        angle features (the DGCNN encoder emits them from its own neighbour
+        selection); `nbr_idx` (B, N, >= k) a graph whose k-prefix gives the
+        neighbours; without either they come as `angle_route` says."""
         centroid = points.mean(dim=1, keepdim=True)
         g_dis = ((points - centroid) ** 2).sum(dim=-1, keepdim=True)
         h = F.leaky_relu(self.bn0(self.dense0(g_dis)), 0.2)
         dis_feature = F.leaky_relu(self.bn1(self.dense1(h)), 0.2)
 
-        if alpha is None:
-            nbr = gather_neighbors(points, knn(points, points, k))
-            alpha = posenc_alpha(points, nbr, centroid)
+        route = angle_route(points.shape[1], k, alpha is not None,
+                            nbr_idx is not None)
+        if route == "kernel":
+            alpha = cuda_posenc.posenc_angles(points, k)
+        elif route != "given":
+            idx = (nbr_idx[..., :k] if route == "graph"
+                   else knn(points, points, k))
+            alpha = posenc_alpha(points, gather_neighbors(points, idx),
+                                 centroid)
         a = F.leaky_relu(self.bn2(self.dense2(alpha.unsqueeze(-1))), 0.2)
         a = a.amax(dim=2)                                    # (B, N, 64)
         ang_feature = F.leaky_relu(self.bn3(self.dense3(a)), 0.2)

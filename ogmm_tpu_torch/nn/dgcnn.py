@@ -5,12 +5,22 @@ Dense -> BN -> ReLU with a max over the k neighbours after each of the first
 four; the four taps concatenate (64+64+128+256 = 512) into a final
 Dense(emb_dims) -> BN -> ReLU.
 
-In eval mode BatchNorm folds into per-channel (scale, bias) from the running
-statistics, and the whole encoder is one call of `ops.cuda_dgcnn.dgcnn_eval`:
-the fused CUDA kernel on the card, its plain version on the CPU. In training
-it is `ops.dgcnn_train.dgcnn_train` (the graph_stage1 kernel, batch
-statistics, a hand-written backward), and the five running-statistic pairs
-update from the batch moments it returns.
+Two routes over one parameter set, chosen from shapes by `fused_route`:
+
+  fused    In eval mode BatchNorm folds into per-channel (scale, bias) from
+           the running statistics, and the whole encoder is one call of
+           `ops.cuda_dgcnn.dgcnn_eval`: the fused CUDA kernel on the card, its
+           plain version on the CPU. In training it is
+           `ops.dgcnn_train.dgcnn_train` (the graph_stage1 kernel, batch
+           statistics, a hand-written backward), and the five
+           running-statistic pairs update from the batch moments it returns.
+  unfused  The JAX package's jnp composition (`ogmm_tpu/nn/dgcnn.py:242-274`):
+           a kNN graph (`ops.common.knn`) or a given one, the edge tensor
+           [nbr - x, x] formed in float32 and cast, and per stage a product
+           in the compute dtype with float32 accumulation, BatchNorm in the
+           compute dtype from float32 statistics (the running ones in eval,
+           unfolded; the batch moments with the biased variance in
+           training, through autograd), ReLU and a max over k.
 """
 from __future__ import annotations
 
@@ -18,14 +28,34 @@ import torch
 from torch import nn
 
 from ogmm_tpu_torch.ops import dgcnn_train as _train
-from ogmm_tpu_torch.ops.cuda_dgcnn import STAGES, dgcnn_eval
+from ogmm_tpu_torch.ops.common import (gather_neighbors, knn, posenc_alpha)
+from ogmm_tpu_torch.ops.cuda_dgcnn import (KERNEL_KS, KERNEL_MAX_N, STAGES,
+                                           dgcnn_eval)
+from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import bn_apply
+
+
+def fused_route(n: int, k: int, train: bool, have_graph: bool,
+                fused_train: bool = True) -> bool:
+    """Whether a DGCNN over clouds of n points with a k-neighbour graph
+    takes the fused kernels. The JAX package's rule on its accelerator
+    (`ogmm_tpu/nn/dgcnn.py:146-152`, `:199-208`): fused at N <= 1024 unless
+    a graph is given, in training unless `fused_train` is False
+    (`dgcnn_fused_train=False`). The port's kernels are also compiled for
+    the k of KERNEL_KS only; any other k takes the unfused route. A given
+    graph always takes the unfused route (the JAX eval kernel would ignore
+    it; GMMReg gives one only above N = 1024)."""
+    if have_graph or k not in KERNEL_KS or not k <= n <= KERNEL_MAX_N:
+        return False
+    return fused_train or not train
 
 
 class DGCNN(nn.Module):
     def __init__(self, emb_dims: int = 512, k: int = 20,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_train: bool = True):
         super().__init__()
         self.emb_dims, self.k, self.compute_dtype = emb_dims, k, dtype
+        self.fused_train = fused_train
         dims = [6, *STAGES]
         outs = [*STAGES, emb_dims]
         ins = dims[:4] + [sum(STAGES)]
@@ -44,15 +74,30 @@ class DGCNN(nn.Module):
         return s, getattr(self, f"bn{i}_bias") - getattr(self, f"bn{i}_mean") * s
 
     def forward(self, x: torch.Tensor, with_posenc_alpha: int = 0,
-                posenc_centroid: torch.Tensor | None = None):
+                posenc_centroid: torch.Tensor | None = None,
+                nbr_idx: torch.Tensor | None = None,
+                nbr_xyz: torch.Tensor | None = None):
         """x (B, N, 3) -> (B, N, emb_dims) in the compute type; with
         `with_posenc_alpha` = k2 > 0 also the position-encoding angle
-        features (B, N, k2) float32 of the k2 nearest neighbours."""
+        features (B, N, k2) float32 of the k2 nearest neighbours, or None
+        where the route does not make them (the unfused route without
+        `nbr_xyz`).
+
+        `nbr_idx` (B, N, k) supplies the graph, `nbr_xyz` (B, N, k, 3) its
+        gathered float32 coordinates (it wins over `nbr_idx`); either sends
+        the call down the unfused route. `posenc_centroid` (B, 1, 3) is the
+        centroid of the angles there; the fused route takes the centroid of
+        the cloud it is given and refuses another."""
+        weights = [getattr(self, f"w{i}") for i in range(1, 6)]
+        have_graph = nbr_idx is not None or nbr_xyz is not None
+        if not fused_route(x.shape[1], self.k, self.training, have_graph,
+                           self.fused_train):
+            return self._forward_unfused(x, weights, with_posenc_alpha,
+                                         posenc_centroid, nbr_idx, nbr_xyz)
         if posenc_centroid is not None:
             raise ValueError(
-                "posenc_centroid is not supported: the fused encoder takes "
-                "the centroid of the cloud it is given")
-        weights = [getattr(self, f"w{i}") for i in range(1, 6)]
+                "posenc_centroid is not supported on the fused route: the "
+                "fused encoder takes the centroid of the cloud it is given")
         if self.training:
             return self._forward_train(x, weights, with_posenc_alpha)
         affines = [self._folded_affine(i) for i in range(1, 6)]
@@ -60,15 +105,51 @@ class DGCNN(nn.Module):
                           dtype=self.compute_dtype,
                           posenc_k=with_posenc_alpha)
 
+    def _update_stats(self, i: int, mean, var):
+        with torch.no_grad():
+            ra_mean = getattr(self, f"bn{i}_mean")
+            ra_var = getattr(self, f"bn{i}_var")
+            ra_mean.copy_(0.9 * ra_mean + 0.1 * mean)
+            ra_var.copy_(0.9 * ra_var + 0.1 * var)
+
     def _forward_train(self, x, weights, posenc_k):
         out, moments, alpha = _train.dgcnn_train(
             x, weights, [getattr(self, f"bn{i}_scale") for i in range(1, 6)],
             [getattr(self, f"bn{i}_bias") for i in range(1, 6)], k=self.k,
             dtype=self.compute_dtype, posenc_k=posenc_k)
-        with torch.no_grad():
-            for i, (mean, var) in enumerate(moments, start=1):
-                ra_mean = getattr(self, f"bn{i}_mean")
-                ra_var = getattr(self, f"bn{i}_var")
-                ra_mean.copy_(0.9 * ra_mean + 0.1 * mean)
-                ra_var.copy_(0.9 * ra_var + 0.1 * var)
+        for i, (mean, var) in enumerate(moments, start=1):
+            self._update_stats(i, mean, var)
+        return (out, alpha) if posenc_k else out
+
+    def _bn(self, i: int, z: torch.Tensor) -> torch.Tensor:
+        """BatchNorm of stage i over every axis but the last: float32 batch
+        moments (biased variance) in training, updating the running ones;
+        the running statistics in eval; normalised in z's dtype."""
+        if self.training:
+            var, mean = torch.var_mean(z.float(), dim=tuple(range(z.dim() - 1)),
+                                       unbiased=False)
+            self._update_stats(i, mean.detach(), var.detach())
+        else:
+            mean, var = getattr(self, f"bn{i}_mean"), getattr(self, f"bn{i}_var")
+        return bn_apply(z, mean, var, getattr(self, f"bn{i}_scale"),
+                        getattr(self, f"bn{i}_bias"))
+
+    def _forward_unfused(self, x, weights, posenc_k, centroid, nbr_idx,
+                         nbr_xyz):
+        x = x.float()
+        alpha = None
+        if nbr_xyz is None:
+            idx = nbr_idx if nbr_idx is not None else knn(x, x, self.k)
+            nbr_xyz = gather_neighbors(x, idx)
+        elif posenc_k:
+            alpha = posenc_alpha(x, nbr_xyz[:, :, :posenc_k], centroid)
+        center = x.unsqueeze(2).expand_as(nbr_xyz)
+        h = torch.cat([nbr_xyz - center, center], dim=-1).to(self.compute_dtype)
+        taps = []
+        for i in range(4):
+            z = torch.matmul(h, weights[i].to(h.dtype))
+            h = torch.relu(self._bn(i + 1, z))
+            taps.append(h.amax(dim=2))                     # (B, N, C_i)
+        cat = torch.cat(taps, dim=-1)                      # (B, N, 512)
+        out = torch.relu(self._bn(5, torch.matmul(cat, weights[4].to(cat.dtype))))
         return (out, alpha) if posenc_k else out

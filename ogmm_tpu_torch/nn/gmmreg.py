@@ -11,6 +11,13 @@ tgt, so that every BatchNorm takes the statistics of one cloud and updates
 its running statistics twice a step, as the JAX package (and the original)
 does. The network body computes in cfg.dtype; geometry (kNN, FPS,
 clustering, Procrustes, ICP) is always float32.
+
+Above N = 1024 (`share_graph`) one kNN graph of k = gnn_k serves DGCNN and
+the position encoding, as in the JAX package (`ogmm_tpu/nn/gmmreg.py:154`,
+`:196-219`): one coordinate gather feeds the DGCNN edges and the angles of
+its pos_k-prefix, with the centroid of the cloud in its original row order.
+The port keeps that graph in original row order at every N (the JAX
+package's route up to N = 4096 and off its accelerator).
 """
 from __future__ import annotations
 
@@ -23,8 +30,10 @@ from ogmm_tpu_torch.losses import clu_loss
 from ogmm_tpu_torch.nn.attention import PositionEncoding, TransformerBlock
 from ogmm_tpu_torch.nn.dgcnn import DGCNN
 from ogmm_tpu_torch.nn.layers import ConvHead
-from ogmm_tpu_torch.ops.common import (cos_similarity, index_points,
-                                       l2_normalize, matmul32)
+from ogmm_tpu_torch.ops.common import (cos_similarity, gather_neighbors,
+                                       index_points, knn, l2_normalize,
+                                       matmul32)
+from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_MAX_N
 from ogmm_tpu_torch.ops.fps import farthest_point_sample, fps_combined
 from ogmm_tpu_torch.ops.gmm import wkeans_plus
 from ogmm_tpu_torch.ops.icp import icp_point_to_point
@@ -49,6 +58,14 @@ def gmm_svd(src_nodes, tgt_nodes, src_desc, tgt_desc, src_pi, tgt_pi,
     return rot, trans[..., 0], src_corr, tgt_nodes
 
 
+def share_graph(n: int) -> bool:
+    """Whether clouds of n points build one kNN graph for DGCNN and the
+    position encoding: above the fused kernels' envelope of N = 1024, the
+    JAX package's rule (`ogmm_tpu/nn/gmmreg.py:154`; GMMReg already
+    requires pos_k <= gnn_k)."""
+    return n > KERNEL_MAX_N
+
+
 def _norm32(x: torch.Tensor) -> torch.Tensor:
     """l2-normalise with float32 accumulation, back in x's type."""
     return l2_normalize(x.float()).to(x.dtype)
@@ -68,7 +85,8 @@ class GMMReg(nn.Module):
         D = cfg.emb_dims
         dt = torch_dtype(cfg.dtype)
         self.compute_dtype = dt
-        self.dgcnn = DGCNN(D, cfg.gnn_k, dt)
+        # the config keeps the JAX option's None; only False changes the route
+        self.dgcnn = DGCNN(D, cfg.gnn_k, dt, cfg.dgcnn_fused_train is not False)
         self.pos_enc = PositionEncoding(D, dt)
         self.sattn1 = TransformerBlock(D, cfg.num_heads, dt)
         self.cattn = TransformerBlock(D, cfg.num_heads, dt)
@@ -111,6 +129,17 @@ class GMMReg(nn.Module):
             return fps_combined(both, km, generator)
         return farthest_point_sample(both, km, generator=generator), None
 
+    def _encode(self, clouds):
+        """DGCNN features (B, N, D) and the angle features (B, N, pos_k) of
+        (B, N, 3) clouds, or None for the angles where the route makes none
+        (the position encoding then makes them itself)."""
+        pk = self.cfg.pos_k
+        if not share_graph(clouds.shape[1]):
+            return self.dgcnn(clouds, with_posenc_alpha=pk)
+        nbr = gather_neighbors(clouds, knn(clouds, clouds, self.cfg.gnn_k))
+        return self.dgcnn(clouds, with_posenc_alpha=pk, nbr_xyz=nbr,
+                          posenc_centroid=clouds.mean(dim=1, keepdim=True))
+
     def _overlap_scores(self, src_f, tgt_f, src_o, tgt_o):
         """The overlap head's similarity-weighted projections of both
         directions; direction 2 weights the SOURCE-axis-indexed scores by
@@ -142,7 +171,7 @@ class GMMReg(nn.Module):
         B, N, _ = both.shape
         B //= 2
 
-        feats, alpha = self.dgcnn(both, with_posenc_alpha=cfg.pos_k)
+        feats, alpha = self._encode(both)
         anchor0 = index_points(feats, anchor_ids)
         t_all = feats + self.pos_enc(both, cfg.pos_k, alpha=alpha)
         t_all = self.conv1(self.sattn1(t_all, anchor0) + t_all)
@@ -169,7 +198,7 @@ class GMMReg(nn.Module):
         pk = cfg.pos_k
         clouds = (both[:B], both[B:])
         ids = (anchor_ids[:B], anchor_ids[B:])
-        enc = [self.dgcnn(c, with_posenc_alpha=pk) for c in clouds]
+        enc = [self._encode(c) for c in clouds]
         t = [f + self.pos_enc(c, pk, alpha=a) for c, (f, a) in zip(clouds, enc)]
         t = [self.conv1(self.sattn1(ti, index_points(f, i)) + ti)
              for ti, (f, _), i in zip(t, enc, ids)]

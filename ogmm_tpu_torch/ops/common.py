@@ -4,10 +4,27 @@ Points and features are (B, N, C) with channels last, as in the JAX
 package, so that the two compare like with like. Geometry runs in true
 float32: every matrix product here goes through `matmul32`, which turns TF32
 off for its call.
+
+`knn` and `nn1` choose their route from shapes, as the JAX package's
+`ops/common.py:knn/nn1` do on its accelerator, before anything runs: the
+kernel where the TPU kernel runs and the port's kernel takes the shape (on a
+CPU tensor the kernel's plain version, so that the CPU follows the card's
+route), else the JAX package's plain route, the dense (B, N, M) matrix up to
+64 Mi elements and query chunks above. Where the JAX package streams the
+target through a kernel (M > 4096) the port takes that plain route too.
 """
 from __future__ import annotations
 
 import torch
+
+# the JAX package's envelopes (ogmm_tpu/ops/common.py:_PALLAS_FULL_M,
+# _DENSE_ELEMS): whole-target kernels up to M = 4096, the dense matrix up to
+# 64 Mi elements, query chunks of 1024 rows above
+KERNEL_MAX_M = 4096
+KNN_KERNEL_MAX_K = 32      # one neighbour index a lane of a warp
+DENSE_ELEMS = 2 ** 26
+CHUNK = 1024
+ICP_DENSE_MAX_M = 1024     # `nn1(prefer_dense=True)`: ICP's dense route
 
 
 def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,30 +82,83 @@ def select_smallest(dist: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat(out, dim=-1)
 
 
+def _by_chunks(fn, src: torch.Tensor):
+    """fn over query chunks of CHUNK rows, concatenated along the rows."""
+    parts = [fn(src[:, i:i + CHUNK]) for i in range(0, src.shape[1], CHUNK)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+    return torch.cat(parts, dim=1)
+
+
+def knn_route(B: int, N: int, M: int, C: int, k: int,
+              normalize: bool = False) -> str:
+    """'kernel', 'dense' or 'chunked' for a kNN of (B, N, C) queries among
+    (B, M, C) points: the kernel for euclidean 3-D points at M <= 4096 and
+    k <= 32 (the JAX package's `knn_pallas` takes any C and k there);
+    otherwise the JAX package's plain route (`knn_chunked` above 64 Mi
+    elements, the dense matrix below)."""
+    if (not normalize and C == 3 and M <= KERNEL_MAX_M
+            and 1 <= k <= min(KNN_KERNEL_MAX_K, M)):
+        return "kernel"
+    if not normalize and B * N * M > DENSE_ELEMS:
+        return "chunked"
+    return "dense"
+
+
 def knn(src: torch.Tensor, tgt: torch.Tensor, k: int,
         normalize: bool = False) -> torch.Tensor:
     """Indices of the k nearest neighbours of each src point among tgt:
     (B, N, C) x (B, M, C) -> int64 (B, N, k), ascending distance, ties to
-    the lowest index (dense route)."""
+    the lowest index, by the route of `knn_route`."""
+    route = knn_route(src.shape[0], src.shape[1], tgt.shape[1], src.shape[2],
+                      k, normalize)
+    if route == "kernel":
+        from ogmm_tpu_torch.ops import cuda_knn      # imports this module
+        return cuda_knn.knn(src, tgt, k)
+    if route == "chunked":
+        return _by_chunks(
+            lambda q: select_smallest(square_distance(q, tgt), k), src)
     return select_smallest(square_distance(src, tgt, normalize), k)
 
 
 def nn1_dense(src: torch.Tensor, tgt: torch.Tensor):
     """Nearest neighbour, dense route: (B, N, C) x (B, M, C) ->
-    (min squared distance (B, N), index (B, N)). ICP takes this route at
-    M <= 1024, as the JAX package does (`nn1(prefer_dense=True)` there)."""
+    (min squared distance (B, N), index (B, N))."""
     d = square_distance(src, tgt)
     return d.min(dim=-1)
 
 
-def nn1(src: torch.Tensor, tgt: torch.Tensor):
-    """Nearest neighbour of 3-D points, the one dispatch point of the losses,
-    the metrics and the overlap labels: (B, N, 3) x (B, M, 3) ->
-    (min squared distance (B, N), index (B, N) int64), first index among
-    equal minima. The CUDA kernel on a CUDA tensor, its plain version
-    (fixed-order distances, `square_distance3`) on a CPU tensor."""
-    from ogmm_tpu_torch.ops import cuda_knn      # imports this module
-    return cuda_knn.nn1(src, tgt)
+def nn1_route(B: int, N: int, M: int, C: int = 3,
+              prefer_dense: bool = False) -> str:
+    """'dense', 'kernel' or 'chunked' for the 1-NN of (B, N, C) queries
+    among (B, M, C) points, the JAX package's `nn1` rule: with
+    `prefer_dense` (ICP) the dense matrix at M <= 1024, the kernel for 3-D
+    points at M <= 4096; above, where the JAX package streams (`nn1_stream`),
+    its plain route (`nn1_chunked` above 64 Mi elements, else dense)."""
+    if prefer_dense and M <= ICP_DENSE_MAX_M:
+        return "dense"
+    if C == 3 and M <= KERNEL_MAX_M:
+        return "kernel"
+    if B * N * M > DENSE_ELEMS:
+        return "chunked"
+    return "dense"
+
+
+def nn1(src: torch.Tensor, tgt: torch.Tensor, prefer_dense: bool = False):
+    """Nearest neighbour, the one dispatch point of ICP, the losses, the
+    metrics and the overlap labels: (B, N, C) x (B, M, C) -> (min squared
+    distance (B, N), index (B, N) int64), first index among equal minima, by
+    the route of `nn1_route`. The kernel route launches the CUDA kernel on a
+    CUDA tensor and runs its plain version (fixed-order distances,
+    `square_distance3`) on a CPU tensor."""
+    route = nn1_route(src.shape[0], src.shape[1], tgt.shape[1], src.shape[2],
+                      prefer_dense)
+    if route == "kernel":
+        from ogmm_tpu_torch.ops import cuda_knn      # imports this module
+        return cuda_knn.nn1(src, tgt)
+    if route == "chunked":
+        return _by_chunks(lambda q: nn1_dense(q, tgt), src)
+    return nn1_dense(src, tgt)
 
 
 def nn1_both(src: torch.Tensor, tgt: torch.Tensor):

@@ -10,9 +10,9 @@ concat and the final Dense + BN + ReLU; with `posenc_k` also the
 position-encoding angles cos(angle(p -> nbr_j, p -> centroid)) of the first
 `posenc_k` neighbours from float32 coordinates.
 
-On a CUDA tensor the wrapper launches `csrc/dgcnn_eval.cu`; on a CPU tensor
-it runs `dgcnn_eval_reference`, the plain PyTorch version of the same
-arithmetic.
+On a CUDA tensor the wrapper launches `csrc/dgcnn_eval.cu` (k in KERNEL_KS,
+k <= N <= 1024); on a CPU tensor it runs `dgcnn_eval_reference`, the plain
+PyTorch version of the same arithmetic.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from ogmm_tpu_torch.ops.common import (gather_neighbors, posenc_alpha,
                                        select_smallest, square_distance3)
 
 STAGES = (64, 64, 128, 256)
-KERNEL_K = 20            # neighbours the kernel is compiled for
+KERNEL_KS = (8, 16, 20)           # neighbour counts the kernels are
+#                                  compiled for (csrc/knn_select.cuh:DGCNN_KS)
 KERNEL_MAX_N = 1024      # one distance row lives in a warp's registers
 
 
@@ -83,9 +84,9 @@ def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k):
     want = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb)]
     if dims != want:
         raise ValueError(f"dgcnn_eval kernel: weight shapes {dims} != {want}")
-    if k != KERNEL_K or not k <= N <= KERNEL_MAX_N:
-        raise ValueError(f"dgcnn_eval kernel takes k={KERNEL_K} and "
-                         f"{KERNEL_K} <= N <= {KERNEL_MAX_N}; got k={k}, N={N}")
+    if k not in KERNEL_KS or not k <= N <= KERNEL_MAX_N:
+        raise ValueError(f"dgcnn_eval kernel takes k in {KERNEL_KS} and "
+                         f"k <= N <= {KERNEL_MAX_N}; got k={k}, N={N}")
     if emb % 64 or posenc_k > k:
         raise ValueError(f"dgcnn_eval kernel: emb={emb} must be a multiple "
                          f"of 64 and posenc_k={posenc_k} <= k")
@@ -105,10 +106,10 @@ def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k):
     lib = dispatch.load_kernel("dgcnn_eval")
     fn = lib.dgcnn_eval_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     code = fn(_ptr(x), *[_ptr(w) for w in ws], *[_ptr(b) for b in bs],
               _ptr(idx), _ptr(alpha), _ptr(out),
-              B, N, emb, posenc_k, int(dtype == torch.bfloat16),
+              B, N, emb, k, posenc_k, int(dtype == torch.bfloat16),
               ctypes.c_void_p(dispatch.current_stream(x)))
     dispatch.check_launch(code, "dgcnn_eval")
     dispatch.launch_counts["dgcnn_eval"] += 1

@@ -14,8 +14,9 @@ Two valid EM implementations drift apart after about 4 trips (near-hard
 assignments amplify the last float32 bit), so the kernel is compared with
 the plain version per trip (iters=1) and on what the model consumes.
 
-On a CUDA tensor the wrapper launches `csrc/sinkhorn_em.cu`; on a CPU tensor
-it runs `sinkhorn_em_reference`.
+On a CUDA tensor the wrapper launches `csrc/sinkhorn_em.cu` (`kernel_takes`:
+K <= 128 and a cloud's plan in the shared memory of a cluster of 8 blocks,
+N <= 3,072 at K = 128); on a CPU tensor it runs `sinkhorn_em_reference`.
 """
 from __future__ import annotations
 
@@ -27,7 +28,21 @@ import torch
 from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops.common import matmul32, square_distance3
 
-KERNEL_KS = (32, 64, 128)    # cluster counts the kernel is compiled for
+KERNEL_MAX_K = 128           # four columns a lane
+SMEM_BYTES = 227 * 1024      # shared memory a block may use
+
+
+def kernel_takes(N: int, K: int) -> bool:
+    """Whether the kernel takes clouds of N points and K clusters: a block
+    of the cluster of 8 keeps ceil(N / 8) rows of the plan, padded to a
+    multiple of 32 columns, beside its reduction buffers
+    (csrc/sinkhorn_em.cu:launch)."""
+    if not (1 <= K <= KERNEL_MAX_K and N >= 1):
+        return False
+    kp = 32 * -(-K // 32)
+    rows = -(-N // 8)
+    return 4 * (rows * (kp + 7) + kp * 4 + 8 * 4 * kp + 2 * 4 * kp
+                + 4 * kp) <= SMEM_BYTES
 
 
 def _marginal_q(K: int):
@@ -73,9 +88,10 @@ def sinkhorn_em_reference(xyz: torch.Tensor, o_norm: torch.Tensor,
 def _sinkhorn_em_cuda(xyz, o_norm, nodes0, iters, sk_iters, tau, eps):
     B, N, _ = xyz.shape
     K = nodes0.shape[1]
-    if K not in KERNEL_KS or iters < 1 or sk_iters < 1:
-        raise ValueError(f"sinkhorn_em kernel takes K in {KERNEL_KS} and "
-                         f"iters, sk_iters >= 1; got K={K}, iters={iters}, "
+    if not kernel_takes(N, K) or iters < 1 or sk_iters < 1:
+        raise ValueError(f"sinkhorn_em kernel takes K <= {KERNEL_MAX_K} with "
+                         f"the plan of a cloud in shared memory, and iters, "
+                         f"sk_iters >= 1; got N={N}, K={K}, iters={iters}, "
                          f"sk_iters={sk_iters}")
     if o_norm.shape != (B, N) or nodes0.shape != (B, K, 3):
         raise ValueError("sinkhorn_em kernel: o_norm must be (B, N) and "

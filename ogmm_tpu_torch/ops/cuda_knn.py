@@ -1,15 +1,18 @@
-"""Nearest neighbour of 3-D points: the CUDA kernel's wrapper and its plain
-version.
+"""Nearest neighbours of 3-D points: the CUDA kernels' wrappers and their
+plain versions.
 
 `nn1(src, tgt)` gives, for every point of src (B, N, 3), the squared
 distance to the nearest point of tgt (B, M, 3), clamped at 1e-12, and that
-point's index; among equal minima the first index wins. Distances take the
-fixed float32 order of `square_distance3`, in the kernel as here, so the two
-pick the same index bit for bit.
+point's index; among equal minima the first index wins. `knn(src, tgt, k)`
+gives the indices of the k nearest points of tgt, in ascending distance,
+ties to the lowest index. Distances take the fixed float32 order of
+`square_distance3`, in the kernels as here, so kernel and plain version
+pick the same indices bit for bit.
 
-On a CUDA tensor the wrapper launches `csrc/nn1.cu` (M <= 4096, the TPU
-kernel's envelope); on a CPU tensor it runs `nn1_reference`. Callers reach it
-through `ops.common.nn1`.
+On a CUDA tensor a wrapper launches its kernel (`csrc/nn1.cu`, `csrc/knn.cu`;
+M <= 4096, the TPU kernels' envelope, and k <= 32); on a CPU tensor it runs
+`nn1_reference` or `knn_reference`. Callers reach them through
+`ops.common.nn1` and `ops.common.knn`, which choose the route from shapes.
 """
 from __future__ import annotations
 
@@ -18,9 +21,8 @@ import ctypes
 import torch
 
 from ogmm_tpu_torch.ops import dispatch
-from ogmm_tpu_torch.ops.common import square_distance3
-
-KERNEL_MAX_M = 4096
+from ogmm_tpu_torch.ops.common import (KERNEL_MAX_M, KNN_KERNEL_MAX_K,
+                                       select_smallest, square_distance3)
 
 
 @torch.no_grad()
@@ -62,3 +64,42 @@ def nn1(src: torch.Tensor, tgt: torch.Tensor):
     if src.is_cuda:
         return _nn1_cuda(src, tgt)
     return nn1_reference(src, tgt)
+
+
+@torch.no_grad()
+def knn_reference(src: torch.Tensor, tgt: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch version: (B, N, 3) x (B, M, 3) -> int64 (B, N, k), k
+    passes of argmin-and-mask over fixed-order float32 distances."""
+    return select_smallest(square_distance3(src.float(), tgt.float()), k)
+
+
+def _knn_cuda(src, tgt, k):
+    B, N, C = src.shape
+    M = tgt.shape[1]
+    if C != 3 or tgt.shape != (B, M, 3):
+        raise ValueError(f"knn kernel takes (B, N, 3) and (B, M, 3) points; "
+                         f"got {tuple(src.shape)} and {tuple(tgt.shape)}")
+    if not 1 <= M <= KERNEL_MAX_M or N < 1 or not 1 <= k <= min(KNN_KERNEL_MAX_K, M):
+        raise ValueError(f"knn kernel takes 1 <= M <= {KERNEL_MAX_M} target "
+                         f"points and 1 <= k <= min({KNN_KERNEL_MAX_K}, M); "
+                         f"got N={N}, M={M}, k={k}")
+    src = src.float().contiguous()
+    tgt = tgt.float().contiguous()
+    idx = torch.empty(B, N, k, dtype=torch.int64, device=src.device)
+    fn = dispatch.load_kernel("knn").knn_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    code = fn(*[ctypes.c_void_p(a.data_ptr()) for a in (src, tgt, idx)],
+              B, N, M, k, ctypes.c_void_p(dispatch.current_stream(src)))
+    dispatch.check_launch(code, "knn")
+    dispatch.launch_counts["knn"] += 1
+    return idx
+
+
+def knn(src: torch.Tensor, tgt: torch.Tensor, k: int) -> torch.Tensor:
+    """kNN: (B, N, 3) x (B, M, 3) -> int64 (B, N, k), ascending distance,
+    ties to the lowest index. Launches the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor. Carries no gradient."""
+    if src.is_cuda:
+        return _knn_cuda(src, tgt, k)
+    return knn_reference(src, tgt, k)

@@ -15,10 +15,11 @@ runs by default on the accelerator) as a `torch.autograd.Function`:
             batch-statistic gradient dz = s (dy - E[dy] - zhat E[dy zhat])
             with float32 reductions, weight gradients from the saved pre-BN
             activations (h recomputed), and the edge scatter into dx
-            (`index_add_`); or, with `BWD_KERNELS` on, through the three
-            backward kernels of `ops/cuda_dgcnn_bwd.py` (five launches: the
-            sums of stage 4, stages 4, 3 and 2, then stage 1 and dx), as
-            the JAX package's `_bwd_pallas`.
+            (`index_add_`); or, with `BWD_KERNELS` on and a shape they
+            take (`bwd_kernels_take`: k = 20), through the three backward
+            kernels of `ops/cuda_dgcnn_bwd.py` (five launches: the sums of
+            stage 4, stages 4, 3 and 2, then stage 1 and dx), as the JAX
+            package's `_bwd_pallas`.
 
 Kept from the JAX function: the ReLU cotangent at exactly 0 is half the
 incoming one (`jnp.maximum` semantics); the max over k sends a tie's
@@ -34,6 +35,7 @@ from typing import Sequence
 
 import torch
 
+from ogmm_tpu_torch.ops import cuda_dgcnn_bwd
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (EPS, bn_apply, bwd_edge,
                                               bwd_reduce, bwd_stage, edge_vjp,
                                               max_vjp, mm32, relu_vjp)
@@ -43,6 +45,13 @@ from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_stage1
 # (the counterpart of the JAX package's _BWD_PALLAS, off by default as
 # there; on a CPU tensor the kernels' plain versions run)
 BWD_KERNELS = False
+
+
+def bwd_kernels_take(k: int, n: int) -> bool:
+    """Whether the backward kernels are compiled for a graph of k neighbours
+    over clouds of n points; other shapes take the plain backward even with
+    `BWD_KERNELS` on."""
+    return k == cuda_dgcnn_bwd.KERNEL_K and n <= cuda_dgcnn_bwd.KERNEL_MAX_N
 
 
 def _moments(z):
@@ -138,7 +147,7 @@ class DGCNNTrain(torch.autograd.Function):
         dcat = torch.matmul(dz5, ws[4].to(dt).t())
         dtaps = torch.split(dcat, [t.shape[-1] for t in taps], dim=-1)
 
-        if BWD_KERNELS:
+        if BWD_KERNELS and bwd_kernels_take(zs[0].shape[1], zs[0].shape[2]):
             dx = _bwd_kernels(x, idx, e, zs, dtaps, ws, gammas, betas,
                               moments, dws, dgs, dbs)
             return (dx, None, None, None, *dws, *dgs, *dbs)

@@ -25,10 +25,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dgcnn_eval", "sinkhorn_em", "graph_stage1", "nn1", "dgcnn_bwd")
-# the kernels' wrappers; dgcnn_bwd.cu holds the last three
+SOURCES = ("dgcnn_eval", "sinkhorn_em", "graph_stage1", "nn1", "dgcnn_bwd",
+           "knn", "posenc_angles")
+# the kernels' wrappers; dgcnn_bwd.cu holds bwd_reduce, bwd_stage, bwd_edge
 KERNELS = ("dgcnn_eval", "sinkhorn_em", "graph_stage1", "nn1", "bwd_reduce",
-           "bwd_stage", "bwd_edge")
+           "bwd_stage", "bwd_edge", "knn", "posenc_angles")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -3,9 +3,14 @@ from __future__ import annotations
 
 import torch
 
-from ogmm_tpu_torch.ops.common import index_points, matmul32, nn1
+from ogmm_tpu_torch.ops import cuda_em
+from ogmm_tpu_torch.ops.common import (index_points, matmul32, nn1,
+                                       square_distance)
 from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em
 from ogmm_tpu_torch.ops.fps import farthest_point_sample
+from ogmm_tpu_torch.ops.sinkhorn import sinkhorn
+
+EM_VMEM_BYTES = 14 * 2 ** 20   # the JAX kernel's bound (ops/gmm.py:195-197)
 
 
 def gmm_params(gamma: torch.Tensor, pts: torch.Tensor,
@@ -26,9 +31,41 @@ def gmm_params(gamma: torch.Tensor, pts: torch.Tensor,
     return pi, mu, var[..., None, None] * eye
 
 
+def em_route(N: int, K: int) -> str:
+    """'kernel' or 'plain' for the EM of clouds of N points into K clusters:
+    the JAX package's rule (`ogmm_tpu/ops/gmm.py:187-206`), its fused kernel
+    while N max(K, 128) 4 B x 5 <= 14 MiB, else its jnp composition; the
+    port's kernel also needs its own envelope (`cuda_em.kernel_takes`)."""
+    if N * max(K, 128) * 4 * 5 <= EM_VMEM_BYTES and cuda_em.kernel_takes(N, K):
+        return "kernel"
+    return "plain"
+
+
+@torch.no_grad()
+def em_plain(xyz, o, node_xyz0, iters: int, tau: float):
+    """The plain EM route, a port of the JAX package's `_em_jnp`: per trip
+    the cost cdist / tau, ten log-domain Sinkhorn trips with the overlap as
+    row marginal, NaN -> 0, rows divided by max(row sum, 1e-3), and the
+    weighted means. (B,N,3), (B,N), (B,K,3) -> (gamma, pi, nodes)."""
+    xyz, nodes = xyz.float(), node_xyz0.float()
+    B, N, _ = xyz.shape
+    K = nodes.shape[1]
+    gamma = xyz.new_ones(B, N, K)
+    pi = xyz.new_full((B, K), 1.0 / K)
+    for _ in range(iters):
+        cost = square_distance(xyz, nodes).sqrt().clamp_min(0.0) / tau
+        gamma = sinkhorn(cost, p=o, q=None, max_iter=10)[0]
+        gamma = torch.nan_to_num(gamma, nan=0.0)
+        gamma = gamma / gamma.sum(dim=-1, keepdim=True).clamp_min(1e-3)
+        pi, nodes = gmm_params(gamma, xyz)
+    return gamma, pi, nodes
+
+
 @torch.no_grad()
 def _em(xyz, o, node_xyz0, iters, tau):
-    return sinkhorn_em(xyz, o, node_xyz0, iters=iters, sk_iters=10, tau=tau)
+    if em_route(xyz.shape[1], node_xyz0.shape[1]) == "kernel":
+        return sinkhorn_em(xyz, o, node_xyz0, iters=iters, sk_iters=10, tau=tau)
+    return em_plain(xyz, o, node_xyz0, iters, tau)
 
 
 def wkeans_plus(xyz: torch.Tensor, feats: torch.Tensor,

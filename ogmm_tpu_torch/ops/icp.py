@@ -1,12 +1,14 @@
-"""Batched point-to-point ICP refinement with a fixed trip count, dense
-1-NN route: at N <= 1024 the nearest-neighbour search is one (B, N, M)
-distance matrix and an argmin."""
+"""Batched point-to-point ICP refinement with a fixed trip count. The
+nearest-neighbour search of a trip takes the route of
+`ops.common.nn1_route(prefer_dense=True)`, as the JAX package's ICP does
+(`ogmm_tpu/ops/icp.py:166-172`): one dense (B, N, M) distance matrix and an
+argmin at M <= 1024, the 1-NN kernel at M <= 4096, the plain route above."""
 from __future__ import annotations
 
 import torch
 
 from ogmm_tpu_torch.core.procrustes import rigid_transform
-from ogmm_tpu_torch.ops.common import index_points, matmul32, nn1_dense
+from ogmm_tpu_torch.ops.common import index_points, matmul32, nn1
 
 
 @torch.no_grad()
@@ -24,7 +26,7 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
     t = init_pose[..., :3, 3]
     for _ in range(max_iter):
         moved = matmul32(src, rot.transpose(-1, -2)) + t.unsqueeze(1)
-        nn_d, nn_i = nn1_dense(moved, tgt)
+        nn_d, nn_i = nn1(moved, tgt, prefer_dense=True)
         corr = index_points(tgt, nn_i)
         w = (nn_d < thresh_sq).to(src.dtype)
         any_in = w.sum(dim=-1) > 0

@@ -2,11 +2,13 @@
 """Where the time of one serving request, or one train step, of the
 PyTorch/CUDA port goes.
 
-    python3 scripts/torch_port_profile.py [--train [--bwd_kernels]] [--out DIR]
-                                          (default profile_out/)
+    python3 scripts/torch_port_profile.py [--train [--bwd_kernels]]
+                                          [--n_points N] [--out DIR]
+                                          (default N=717, profile_out/)
 
-Needs one CUDA device. Runs GMMReg at B=24, N=717, emb 512, K=128 with a
-bf16 body and seeded random weights, and prints, for a request without and
+Needs one CUDA device. Runs GMMReg at B=24, N=717 (or --n_points: 1433 is
+ModelNet40's 2048-point clouds cropped to 0.70, the shared-graph route),
+emb 512, K=128 with a bf16 body and seeded random weights, and prints, for a request without and
 with ICP (or, with --train, for a train step with the metric suite and the
 overlap labels made on the device): the host-clock time per call, the
 device-busy time and idle share from `torch.profiler`, the number of device
@@ -37,7 +39,7 @@ sys.path.insert(0, ROOT)
 from ogmm_tpu_torch import configs  # noqa: E402
 from ogmm_tpu_torch.api import Registrar  # noqa: E402
 
-B, N = 24, 717
+B = 24
 CSRC = os.path.join(ROOT, "ogmm_tpu_torch", "csrc")
 
 
@@ -106,7 +108,7 @@ def stage_times(reg, src, tgt):
 
     import ogmm_tpu_torch.nn.gmmreg as g
     saved = {k: getattr(g, k) for k in ("fps_combined", "wkeans_plus", "gmm_svd",
-                                        "icp_point_to_point")}
+                                        "icp_point_to_point", "knn")}
     for k, fn in saved.items():
         setattr(g, k, timed(k, fn))
     fwd = {}
@@ -169,7 +171,10 @@ def main():
                     help="profile a train step instead of a request")
     ap.add_argument("--bwd_kernels", action="store_true",
                     help="with --train: the DGCNN backward through its kernels")
+    ap.add_argument("--n_points", type=int, default=717,
+                    help="points a cloud (above 1024: the shared kNN graph)")
     args = ap.parse_args()
+    N = args.n_points
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
@@ -209,9 +214,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    name = ("torch_port_profile.json" if not args.train
-            else "torch_port_profile_train_bwd_kernels.json" if args.bwd_kernels
-            else "torch_port_profile_train.json")
+    name = ("torch_port_profile" if not args.train
+            else "torch_port_profile_train_bwd_kernels" if args.bwd_kernels
+            else "torch_port_profile_train")
+    name += "" if N == 717 else f"_n{N}"
+    name += ".json"
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))

@@ -15,7 +15,7 @@ from ogmm_tpu.ops.gmm import _em_jnp
 from ogmm_tpu.ops.gmm import wkeans_plus as jwkeans_plus
 from ogmm_tpu.ops.pallas_em import sinkhorn_em as jsinkhorn_em
 from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
-from ogmm_tpu_torch.ops.gmm import wkeans_plus
+from ogmm_tpu_torch.ops.gmm import em_plain, em_route, wkeans_plus
 
 from torch_port_util import clouds, n, t
 
@@ -103,3 +103,30 @@ def test_wkeans_plus_gradient_flows_through_feats_only():
     out[3].sum().backward()
     assert feats.grad is not None and xyz.grad is None and scores.grad is None
     assert not out[0].requires_grad and not out[2].requires_grad
+
+
+def test_plain_route_matches_jnp_composition():
+    """The plain EM route (above the kernel's envelope) is the port of
+    `_em_jnp`: the same log-domain schedule, compared as tightly as the
+    kernel is against its own Pallas counterpart."""
+    xyz, o, n0 = _inputs(7)
+    want = _em_jnp(jnp.asarray(xyz), jnp.asarray(o), jnp.asarray(n0), 1, 1.0)
+    got = em_plain(t(xyz), t(o), t(n0), 1, 1.0)
+    for g, w, tol in zip(got, want, (2e-5, 1e-6, 1e-5)):
+        np.testing.assert_allclose(n(g), n(w), atol=tol)
+
+
+def test_wkeans_plus_above_the_kernel_envelope_matches_jax():
+    # a (3073, 128) plan does not fit the kernel's shared memory: both
+    # packages take their plain route here (the JAX kernel would still run)
+    N, K = 3073, 128
+    assert em_route(N, K) == "plain"
+    rs = np.random.RandomState(8)
+    xyz = clouds(8, B=1, N=N)
+    feats = rs.randn(1, N, 16).astype(np.float32)
+    scores = rs.rand(1, N).astype(np.float32)
+    want = jwkeans_plus(jnp.asarray(xyz), jnp.asarray(feats), jnp.asarray(scores),
+                        K, iters=1, use_pallas=False)
+    got = wkeans_plus(t(xyz), t(feats), t(scores), K, iters=1)
+    for g, w, tol in zip(got, want, (2e-4, 1e-5, 1e-4, 1e-3)):
+        np.testing.assert_allclose(n(g), n(w), atol=tol)

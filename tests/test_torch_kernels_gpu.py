@@ -13,14 +13,17 @@ from ogmm_tpu_torch import configs
 from ogmm_tpu_torch.api import Registrar
 from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
-from ogmm_tpu_torch.ops.cuda_dgcnn import dgcnn_eval, dgcnn_eval_reference
+from ogmm_tpu_torch.ops.cuda_dgcnn import (KERNEL_KS, dgcnn_eval,
+                                           dgcnn_eval_reference)
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (bwd_edge, bwd_edge_reference,
                                               bwd_reduce, bwd_reduce_reference,
                                               bwd_stage, bwd_stage_reference)
 from ogmm_tpu_torch.ops.cuda_dgcnn_train import (graph_stage1,
                                                  graph_stage1_reference)
 from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
-from ogmm_tpu_torch.ops.cuda_knn import nn1, nn1_reference
+from ogmm_tpu_torch.ops.cuda_knn import knn, knn_reference, nn1, nn1_reference
+from ogmm_tpu_torch.ops.cuda_posenc import (posenc_angles,
+                                            posenc_angles_reference)
 from ogmm_tpu_torch.train import (create_train_state, make_train_step,
                                   train_loss)
 
@@ -69,7 +72,7 @@ def test_dgcnn_kernel_ties_and_no_angles(card):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("kwargs,match", [(dict(k=8), "k=20"),
+@pytest.mark.parametrize("kwargs,match", [(dict(k=12), "k in"),
                                           (dict(dtype=torch.float16), "dtype")])
 def test_dgcnn_kernel_refuses_what_it_does_not_take(card, kwargs, match):
     x, ws, aff = _dgcnn_inputs(np.random.RandomState(2), card, 1, 64, 64)
@@ -122,8 +125,12 @@ def test_em_kernel_zero_overlap_rows_stay_finite(card):
 def test_em_kernel_refuses_what_it_does_not_take(card):
     xyz = torch.zeros(1, 64, 3, device=card)
     o = torch.full((1, 64), 1 / 64, device=card)
-    with pytest.raises(ValueError, match="K in"):
-        sinkhorn_em(xyz, o, torch.zeros(1, 16, 3, device=card))
+    with pytest.raises(ValueError, match="K <= 128"):
+        sinkhorn_em(xyz, o, torch.zeros(1, 129, 3, device=card))
+    big = torch.zeros(1, 3073, 3, device=card)        # past shared memory
+    with pytest.raises(ValueError, match="N=3073"):
+        sinkhorn_em(big, torch.full((1, 3073), 1 / 3073, device=card),
+                    torch.zeros(1, 128, 3, device=card))
     with pytest.raises(ValueError, match="o_norm"):
         sinkhorn_em(xyz, o[:, :10], torch.zeros(1, 32, 3, device=card))
 
@@ -158,8 +165,8 @@ def test_graph_stage1_kernel_ties_and_no_angles(card):
 def test_graph_stage1_kernel_refuses_what_it_does_not_take(card):
     x = torch.zeros(1, 64, 3, device=card)
     w1 = torch.zeros(6, 64, device=card)
-    with pytest.raises(ValueError, match="k=20"):
-        graph_stage1(x, w1, k=8)
+    with pytest.raises(ValueError, match="k in"):
+        graph_stage1(x, w1, k=12)
     with pytest.raises(ValueError, match="N="):
         graph_stage1(torch.zeros(1, 1100, 3, device=card), w1)
     with pytest.raises(ValueError, match="w1"):
@@ -208,8 +215,13 @@ def test_wrappers_count_their_launches(card):
     graph_stage1_reference(x, ws[0], 20, torch.float32, 5)
     nn1(x, x)
     nn1_reference(x, x)
+    knn(x, x, 5)
+    knn_reference(x, x, 5)
+    posenc_angles(x, 5)
+    posenc_angles_reference(x, 5)
     assert dispatch.launch_counts == {**NONE, "dgcnn_eval": 1,
-                                      "graph_stage1": 1, "nn1": 1}
+                                      "graph_stage1": 1, "nn1": 1, "knn": 1,
+                                      "posenc_angles": 1}
 
 
 @pytest.mark.parametrize("dtype,lim", [("float32", 1e-3), ("bfloat16", 0.15)])
@@ -231,6 +243,115 @@ def test_registrar_runs_on_the_card_by_default(card, dtype, lim):
     _, _, cso, _ = cpu(src, src[:, ::-1].copy(), refine=False)
     assert (so.cpu() - cso).abs().max().item() <= lim
 
+
+
+# ------------------------------------------- routing by shape (fault C.1)
+
+@pytest.mark.parametrize("k", KERNEL_KS)
+@pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 0.0625)])
+def test_dgcnn_kernels_take_every_compiled_k(card, k, dtype, lim):
+    x, ws, aff = _dgcnn_inputs(np.random.RandomState(k), card, 2, 300, 64)
+    x[:, 50] = x[:, 9]                       # ties
+    out, alpha = dgcnn_eval(x, ws, aff, k, dtype, 5)
+    ref, ralpha = dgcnn_eval_reference(x, ws, aff, k, dtype, 5)
+    assert (out.float() - ref.float()).abs().max().item() <= lim
+    assert (alpha - ralpha).abs().max().item() <= 1e-5
+    got = graph_stage1(x, ws[0], k, dtype, 5)
+    want = graph_stage1_reference(x, ws[0], k, dtype, 5)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("B,N,M,k", [(48, 1433, 1433, 20), (2, 4096, 4096, 20),
+                                     (24, 717, 717, 5), (3, 1000, 257, 32),
+                                     (2, 90, 2000, 1), (1, 40, 40, 32)])
+def test_knn_kernel_matches_plain(card, B, N, M, k):
+    rs = np.random.RandomState(N + M + k)
+    tgt = torch.tensor(rs.randn(B, M, 3).astype(np.float32) * 0.3, device=card)
+    tgt[:, M // 2] = tgt[:, 1]               # a duplicated point: ties
+    src = tgt.clone() if N == M else torch.tensor(
+        rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    got = knn(src, tgt, k)
+    want = knn_reference(src, tgt, k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+def test_knn_kernel_many_coincident_points(card):
+    # more candidates at the threshold than the kernel's list of 256 holds
+    rs = np.random.RandomState(11)
+    x = torch.tensor(rs.randn(2, 600, 3).astype(np.float32), device=card)
+    x[:, 100:400] = x[:, :1]
+    for k in (1, 20, 32):
+        assert torch.equal(knn(x, x, k), knn_reference(x, x, k))
+
+
+def test_knn_kernel_refuses_what_it_does_not_take(card):
+    x = torch.zeros(1, 8, 3, device=card)
+    with pytest.raises(ValueError, match="M <= 4096"):
+        knn(x, torch.zeros(1, 4097, 3, device=card), 5)
+    with pytest.raises(ValueError, match="k <= min"):
+        knn(x, x, 9)
+    with pytest.raises(ValueError, match="k <= min"):
+        knn(torch.zeros(1, 64, 3, device=card), torch.zeros(1, 64, 3, device=card), 33)
+    with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
+        knn(torch.zeros(1, 8, 2, device=card), torch.zeros(1, 9, 2, device=card), 2)
+
+
+@pytest.mark.parametrize("B,N,k", [(24, 717, 5), (4, 1024, 5), (2, 50, 32),
+                                   (1, 20, 20)])
+def test_posenc_angles_kernel_matches_plain(card, B, N, k):
+    rs = np.random.RandomState(N + k)
+    x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    x[:, 10] = x[:, 3]                       # a duplicated point
+    got = posenc_angles(x, k)
+    want = posenc_angles_reference(x, k)
+    torch.cuda.synchronize()
+    assert got.shape == (B, N, k)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_posenc_angles_kernel_refuses_what_it_does_not_take(card):
+    with pytest.raises(ValueError, match="N <= 1024"):
+        posenc_angles(torch.zeros(1, 1025, 3, device=card), 5)
+    with pytest.raises(ValueError, match="k <= min"):
+        posenc_angles(torch.zeros(1, 64, 3, device=card), 33)
+
+
+@pytest.mark.parametrize("B,N,K", [(4, 2048, 16), (2, 500, 100), (2, 300, 1),
+                                   (3, 3072, 128)])
+def test_em_kernel_takes_any_k_up_to_128(card, B, N, K):
+    rs = np.random.RandomState(N + K)
+    xyz = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    o = torch.tensor(rs.rand(B, N).astype(np.float32), device=card)
+    o = o / o.sum(-1, keepdim=True)
+    n0 = torch.tensor(rs.randn(B, K, 3).astype(np.float32) * 0.3, device=card)
+    got = sinkhorn_em(xyz, o, n0, iters=1)
+    want = sinkhorn_em_reference(xyz, o, n0, iters=1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("over,N,launched", [
+    (dict(), 1100, {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
+    (dict(gnn_k=12), 300, {"knn": 1, "posenc_angles": 1, "sinkhorn_em": 1,
+                           "nn1": 1}),
+    (dict(gnn_k=16), 300, {"dgcnn_eval": 1, "sinkhorn_em": 1, "nn1": 1}),
+    (dict(n_clusters=16), 2048, {"knn": 1, "sinkhorn_em": 1, "nn1": 1})])
+def test_registrar_routes_by_shape_on_the_card(card, over, N, launched):
+    cfg = configs.mnet(model=configs.ModelConfig(
+        **{**dict(emb_dims=64, n_clusters=32, km_clusters=32), **over}))
+    reg = Registrar(cfg, seed=1)
+    src = np.random.RandomState(6).randn(2, N, 3).astype(np.float32) * 0.3
+    dispatch.reset_launch_counts()
+    rot, _, so, _ = reg(src, src[:, ::-1].copy(), refine=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rot).all() and so.shape == (2, N)
+    assert dispatch.launch_counts == {**NONE, **launched}
+    cpu = Registrar(cfg, seed=1, device="cpu")
+    _, _, cso, _ = cpu(src, src[:, ::-1].copy(), refine=False)
+    assert (so.cpu() - cso).abs().max().item() <= 1e-3
 
 def _train_batch(rs, B, N):
     src = rs.randn(B, N, 3).astype(np.float32) * 0.3

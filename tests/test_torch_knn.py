@@ -1,0 +1,112 @@
+"""The port's kNN and position-encoding angle kernels' plain versions
+(`ops/cuda_knn.py:knn_reference`, `ops/cuda_posenc.py:
+posenc_angles_reference`) against the JAX package's Pallas kernels in
+interpret mode and its dense `knn`, and the plain routes of `ops.common.knn`
+and `ops.common.nn1` (dense, query chunks) against each other.
+
+The port forms distances in one fixed float32 order (`square_distance3`),
+the JAX package as an einsum: the two may order neighbours differently only
+where two distances tie to float32 round-off."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ogmm_tpu.ops import common as jcommon
+from ogmm_tpu.ops.pallas_knn import knn_pallas, posenc_angles_pallas
+from ogmm_tpu_torch.ops import common as tcommon
+from ogmm_tpu_torch.ops.cuda_knn import knn, knn_reference
+from ogmm_tpu_torch.ops.cuda_posenc import (posenc_angles,
+                                            posenc_angles_reference)
+
+from torch_port_util import n, t
+
+
+def _clouds(seed, B, N, M):
+    rs = np.random.RandomState(seed)
+    src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
+    tgt = (rs.randn(B, M, 3) * 0.3).astype(np.float32)
+    tgt[:, 7] = tgt[:, 3]                   # a duplicated point: exact ties
+    if N == M:
+        src = tgt.copy()
+    return src, tgt
+
+
+def _assert_same_up_to_ties(got, want, src, tgt):
+    """Equal indices, or indices of points at the same distance within 1e-6
+    relative (float64 distances of the two choices)."""
+    got, want = np.asarray(got).astype(np.int64), np.asarray(want).astype(np.int64)
+    assert got.shape == want.shape
+    d = ((src[:, :, None, :].astype(np.float64)
+          - tgt[:, None, :, :].astype(np.float64)) ** 2).sum(-1)
+    dg = np.take_along_axis(d, got, axis=-1)
+    dw = np.take_along_axis(d, want, axis=-1)
+    differ = got != want
+    assert np.allclose(dg[differ], dw[differ], rtol=1e-6, atol=1e-12), \
+        np.abs(dg - dw).max()
+    assert differ.mean() < 0.01, differ.mean()
+
+
+@pytest.mark.parametrize("M", [300, 257])
+@pytest.mark.parametrize("k", [5, 20])
+def test_knn_plain_version_matches_jax(M, k):
+    src, tgt = _clouds(M + k, 2, 300, M)
+    got = knn_reference(t(src), t(tgt), k)
+    assert got.dtype == torch.int64 and got.shape == (2, 300, k)
+    pallas = knn_pallas(jnp.asarray(src), jnp.asarray(tgt), k, interpret=True)
+    dense = jcommon.knn(jnp.asarray(src), jnp.asarray(tgt), k, use_pallas=False)
+    _assert_same_up_to_ties(n(got), pallas, src, tgt)
+    _assert_same_up_to_ties(n(got), dense, src, tgt)
+    # ascending distance along k, the nearest point of a self kNN is itself
+    d = tcommon.square_distance3(t(src), t(tgt)).gather(-1, got)
+    assert (d[..., 1:] >= d[..., :-1]).all()
+    if M == 300:
+        assert (got[..., 0] == torch.arange(300)).float().mean() > 0.99
+
+
+def test_knn_ties_go_to_the_lowest_index():
+    x = np.zeros((1, 40, 3), np.float32)
+    x[0, :, 0] = np.arange(40) // 4         # four coincident points a site
+    got = knn_reference(t(x), t(x), 8)
+    assert got[0, 5].tolist() == [4, 5, 6, 7, 0, 1, 2, 3]
+
+
+def test_wrappers_take_the_plain_versions_on_the_cpu():
+    src, tgt = _clouds(1, 2, 64, 80)
+    assert torch.equal(knn(t(src), t(tgt), 6), knn_reference(t(src), t(tgt), 6))
+    x = t(src)
+    assert torch.equal(posenc_angles(x, 5), posenc_angles_reference(x, 5))
+    # the routed entry point takes the kernel route, so the plain version
+    assert torch.equal(tcommon.knn(t(src), t(tgt), 6),
+                       knn_reference(t(src), t(tgt), 6))
+
+
+def test_posenc_angles_plain_version_matches_jax():
+    rs = np.random.RandomState(3)
+    x = (rs.randn(2, 200, 3) * 0.3).astype(np.float32)
+    x[:, 11] = x[:, 4]                       # a duplicated point
+    got = posenc_angles_reference(t(x), 5)
+    assert got.dtype == torch.float32 and got.shape == (2, 200, 5)
+    want = posenc_angles_pallas(jnp.asarray(x), 5, interpret=True)
+    np.testing.assert_allclose(n(got), np.asarray(want), atol=1e-5)
+    # the point itself comes first and gives 0, as its duplicate does
+    assert (got[..., 0] == 0).all() and (got[:, [4, 11], 1] == 0).all()
+
+
+def test_plain_routes_by_chunks_match_the_dense_route(monkeypatch):
+    src, tgt = _clouds(4, 2, 2500, 300)
+    dense_knn = tcommon.knn(t(src), t(tgt), 6, normalize=False)
+    dense_nn1 = tcommon.nn1_dense(t(src), t(tgt))
+    monkeypatch.setattr(tcommon, "DENSE_ELEMS", 1000)
+    monkeypatch.setattr(tcommon, "KERNEL_MAX_M", 100)   # no kernel route
+    assert tcommon.knn_route(2, 2500, 300, 3, 6) == "chunked"
+    assert tcommon.nn1_route(2, 2500, 300) == "chunked"
+    # chunks of 1024 query rows: the same distances, up to the blocking of
+    # the (rows, 3) x (3, M) product
+    _assert_same_up_to_ties(n(tcommon.knn(t(src), t(tgt), 6)), n(dense_knn),
+                            src, tgt)
+    d, i = tcommon.nn1(t(src), t(tgt))
+    assert d.shape == i.shape == (2, 2500)
+    np.testing.assert_allclose(n(d), n(dense_nn1[0]), rtol=1e-6, atol=1e-7)
+    _assert_same_up_to_ties(n(i)[..., None], n(dense_nn1[1])[..., None],
+                            src, tgt)

@@ -45,6 +45,18 @@ def test_the_data_pipeline_and_the_cli_are_covered():
             "data/loader.py", "train/cli.py", "train/__main__.py"} <= names
 
 
+def test_the_kernels_of_every_slice_are_covered():
+    from ogmm_tpu_torch.ops import dispatch
+    names = {str(p.relative_to(PKG)) for p in MODULES}
+    assert {"ops/cuda_knn.py", "ops/cuda_posenc.py", "ops/cuda_em.py",
+            "ops/cuda_dgcnn.py", "ops/cuda_dgcnn_train.py",
+            "ops/cuda_dgcnn_bwd.py"} <= names
+    # every kernel source is built, and none is left out of the build
+    sources = {p.stem for p in (PKG / "csrc").glob("*.cu")}
+    assert sources == set(dispatch.SOURCES)
+    assert {"knn", "posenc_angles"} <= set(dispatch.KERNELS)
+
+
 def test_importing_every_module_loads_no_jax():
     mods = [".".join(p.relative_to(PKG.parent).with_suffix("").parts)
             .removesuffix(".__init__") for p in MODULES]

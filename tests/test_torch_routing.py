@@ -1,0 +1,224 @@
+"""Each route rule of the port against the rule of the JAX package, at the
+boundary shapes.
+
+The JAX side is observed, not restated: with its kernels switched on
+(`pallas_override(True)`, the accelerator's rule) its kernels and plain
+paths are replaced by stubs that raise `Taken(name)`, and the name that
+comes back is the route it chose. Where the JAX package runs a kernel that
+the port does not have or whose envelope is narrower (the streamed kernels
+above M = 4096, k > 32, the EM above the port's shared memory), the port
+takes the route the JAX package takes off its accelerator
+(`pallas_override(False)`)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import ogmm_tpu.nn.attention as jattention
+import ogmm_tpu.nn.dgcnn as jdgcnn
+import ogmm_tpu.ops.common as jcommon
+import ogmm_tpu.ops.dgcnn_train as jdgcnn_train
+import ogmm_tpu.ops.gmm as jgmm
+import ogmm_tpu.ops.pallas_dgcnn as jpallas_dgcnn
+import ogmm_tpu.ops.pallas_em as jpallas_em
+import ogmm_tpu.ops.pallas_knn as jpallas_knn
+import ogmm_tpu.ops.pallas_stream as jpallas_stream
+from ogmm_tpu.ops.dispatch import pallas_override
+from ogmm_tpu_torch.nn import gmmreg as tgmmreg
+from ogmm_tpu_torch.nn.attention import angle_route
+from ogmm_tpu_torch.nn.dgcnn import fused_route
+from ogmm_tpu_torch.ops import common as tcommon
+from ogmm_tpu_torch.ops import cuda_em
+from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_N
+from ogmm_tpu_torch.ops.gmm import em_route
+
+NS = [1024, 1025, 4096, 4097]
+KS = [20, 16, 33]
+
+
+class Taken(Exception):
+    pass
+
+
+def _stub(monkeypatch, module, name, label=None):
+    def fn(*a, **kw):
+        raise Taken(label or name)
+    monkeypatch.setattr(module, name, fn)
+
+
+def _taken(fn):
+    try:
+        fn()
+    except Taken as e:
+        return e.args[0]
+    return None
+
+
+# -------------------------------------------------------------- kNN, 1-NN
+
+@pytest.fixture
+def knn_stubs(monkeypatch):
+    _stub(monkeypatch, jpallas_knn, "knn_pallas", "kernel")
+    for name in ("knn_self_spatial", "knn_cross_spatial", "knn_stream"):
+        _stub(monkeypatch, jpallas_stream, name, "stream")
+    _stub(monkeypatch, jpallas_stream, "knn_chunked", "chunked")
+    _stub(monkeypatch, jcommon, "square_distance", "dense")
+    _stub(monkeypatch, jpallas_knn, "nn1_pallas", "kernel")
+    _stub(monkeypatch, jpallas_stream, "nn1_stream", "stream")
+    _stub(monkeypatch, jpallas_stream, "nn1_chunked", "chunked")
+
+
+def _jax_knn(B, N, M, k, C, on_accelerator, same=True):
+    src = jnp.zeros((B, N, C))
+    tgt = src if same and N == M else jnp.zeros((B, M, C))
+    with pallas_override(on_accelerator):
+        return _taken(lambda: jcommon.knn(src, tgt, k))
+
+
+@pytest.mark.parametrize("N", NS)
+@pytest.mark.parametrize("k", KS)
+def test_knn_route_follows_the_jax_rule(knn_stubs, N, k):
+    for B, M, C in [(2, N, 3), (1, 300, 3), (2, N, 6)]:
+        jax_route = _jax_knn(B, N, M, k, C, True)
+        port = tcommon.knn_route(B, N, M, C, k)
+        if jax_route == "kernel" and C == 3 and k <= tcommon.KNN_KERNEL_MAX_K:
+            assert port == "kernel", (B, N, M, C, k)
+        else:
+            # a JAX kernel the port lacks: its route off the accelerator
+            assert port == _jax_knn(B, N, M, k, C, False), (B, N, M, C, k)
+            assert port != "kernel"
+
+
+@pytest.mark.parametrize("B,N,M,want", [(16, 2048, 2048, "dense"),
+                                        (16, 2049, 2048, "chunked"),
+                                        (4, 4096, 4096, "dense"),
+                                        (2, 4097, 4097, "dense"),
+                                        (4, 4097, 4097, "chunked")])
+def test_plain_routes_switch_at_64_mi_elements(knn_stubs, B, N, M, want):
+    # at B N M = 2^26 the dense matrix, above it query chunks (M > 4096
+    # there, or no kernel: k = 33)
+    assert tcommon.knn_route(B, N, M, 3, 33) == _jax_knn(B, N, M, 33, 3, False,
+                                                         same=False) == want
+    if M > tcommon.KERNEL_MAX_M:
+        assert tcommon.knn_route(B, N, M, 3, 20) == want
+        with pallas_override(False):
+            assert _taken(lambda: jcommon.nn1(jnp.zeros((B, N, 3)),
+                                              jnp.zeros((B, M, 3)))) == want
+        assert tcommon.nn1_route(B, N, M) == want
+
+
+@pytest.mark.parametrize("M", [1, 717, 1024, 1025, 1433, 4096, 4097])
+@pytest.mark.parametrize("prefer_dense", [False, True])
+def test_nn1_route_follows_the_jax_rule(knn_stubs, M, prefer_dense):
+    src, tgt = jnp.zeros((2, 300, 3)), jnp.zeros((2, M, 3))
+    with pallas_override(True):
+        jax_route = _taken(lambda: jcommon.nn1(src, tgt,
+                                               prefer_dense=prefer_dense))
+    port = tcommon.nn1_route(2, 300, M, 3, prefer_dense)
+    if jax_route == "stream":
+        with pallas_override(False):
+            jax_route = _taken(lambda: jcommon.nn1(src, tgt))
+    assert port == jax_route
+
+
+# ----------------------------------------------------------------- the EM
+
+@pytest.mark.parametrize("K", [16, 128, 100, 129])
+@pytest.mark.parametrize("N", NS + [3072, 3073, 5734, 5735, 11600, 11601])
+def test_em_route_follows_the_jax_rule(monkeypatch, N, K):
+    _stub(monkeypatch, jpallas_em, "sinkhorn_em", "kernel")
+    _stub(monkeypatch, jgmm, "_em_jnp", "plain")
+    xyz = jnp.zeros((1, N, 3))
+    with pallas_override(True):
+        jax_route = _taken(lambda: jgmm.wkeans_plus(
+            xyz, jnp.zeros((1, N, 4)), jnp.ones((1, N)), K,
+            init_nodes=jnp.zeros((1, K, 3))))
+    want = "kernel" if jax_route == "kernel" and cuda_em.kernel_takes(N, K) \
+        else "plain"
+    assert em_route(N, K) == want
+    # the port's kernel covers the JAX kernel's envelope at K <= 32 and up
+    # to N = 3,072 at K <= 128 (ROADMAP: a kernel still to widen)
+    if jax_route == "kernel" and K <= 128 and (K <= 32 or N <= 3072):
+        assert want == "kernel"
+
+
+# -------------------------------------------------------------- the DGCNN
+
+@pytest.fixture(scope="module")
+def dgcnn_variables():
+    jm = jdgcnn.DGCNN(emb_dims=64, k=20)
+    with pallas_override(False):
+        return jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 40, 3)),
+                       train=False)
+
+
+@pytest.mark.parametrize("N", NS + [20, 16])
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("train,fused_train", [(False, None), (True, None),
+                                               (True, True), (True, False)])
+def test_dgcnn_route_follows_the_jax_rule(monkeypatch, dgcnn_variables, N, k,
+                                          train, fused_train):
+    _stub(monkeypatch, jpallas_dgcnn, "dgcnn_eval_pallas", "fused")
+    _stub(monkeypatch, jdgcnn_train, "dgcnn_train_fused", "fused")
+    _stub(monkeypatch, jdgcnn, "knn", "unfused")
+    jm = jdgcnn.DGCNN(emb_dims=64, k=k, fused_train=fused_train)
+    x = jnp.zeros((1, N, 3))
+    with pallas_override(True):
+        jax_route = _taken(lambda: jm.apply(dgcnn_variables, x, train=train,
+                                            mutable=["batch_stats"]))
+    port = fused_route(N, k, train, False, fused_train is not False)
+    # the port's kernels are compiled for the k of KERNEL_KS and take
+    # k <= N <= 1024 (a forced JAX fused_train=True runs its custom VJP at
+    # any N); elsewhere the JAX package's unfused route
+    assert port == (jax_route == "fused" and k in KERNEL_KS
+                    and k <= N <= KERNEL_MAX_N)
+    # a given graph always takes the unfused route in the port
+    assert not fused_route(N, k, train, True, fused_train is not False)
+
+
+def test_the_kernels_take_the_modelnet_and_the_c1_graphs():
+    assert {8, 16, 20} <= set(KERNEL_KS) and max(KERNEL_KS) <= 32
+
+
+# ------------------------------------------------- the position encoding
+
+@pytest.fixture(scope="module")
+def posenc_variables():
+    pe = jattention.PositionEncoding(32)
+    with pallas_override(False):
+        return pe.init(jax.random.PRNGKey(0), jnp.zeros((1, 40, 3)), 5, False,
+                       alpha=jnp.zeros((1, 40, 5)))
+
+
+@pytest.mark.parametrize("N", NS + [5])
+@pytest.mark.parametrize("k", [5, 20, 33])
+@pytest.mark.parametrize("have_alpha,have_graph", [(False, False),
+                                                   (False, True),
+                                                   (True, False)])
+def test_angle_route_follows_the_jax_rule(monkeypatch, posenc_variables, N, k,
+                                          have_alpha, have_graph):
+    _stub(monkeypatch, jpallas_knn, "posenc_angles_pallas", "kernel")
+    _stub(monkeypatch, jattention, "knn", "knn")
+    _stub(monkeypatch, jattention, "gather_neighbors", "graph")
+    pe = jattention.PositionEncoding(32)
+    x = jnp.zeros((1, N, 3))
+    alpha = jnp.zeros((1, N, k)) if have_alpha else None
+    graph = jnp.zeros((1, N, k), jnp.int32) if have_graph else None
+    with pallas_override(True):
+        jax_route = _taken(lambda: pe.apply(posenc_variables, x, k, False,
+                                            nbr_idx=graph, alpha=alpha)) \
+            or "given"
+    port = angle_route(N, k, have_alpha, have_graph)
+    if jax_route == "kernel" and not (k <= 32 and k <= N):
+        assert port == "knn"
+    else:
+        assert port == jax_route
+
+
+# ------------------------------------------------------ the shared graph
+
+@pytest.mark.parametrize("N", NS + [717])
+def test_the_graph_is_shared_above_the_fused_envelope(N):
+    # ogmm_tpu/nn/gmmreg.py:154: share_graph = N > 1024 and pos_k <= gnn_k
+    # (GMMReg of either package refuses pos_k > gnn_k)
+    assert tgmmreg.share_graph(N) == (N > 1024)
