@@ -46,6 +46,22 @@ fatal on failure:
  11. c1      the shapes the port raised on before it routed by shape:
              `Registrar` at gnn_k=16 and at n_clusters=16 (N=2048), `nn1` at
              M=8192; the launch counts show each route
+ 12. knn_stream, nn1_stream, wproject, dgcnn_edges   the streamed kernels
+             and the edges kernel against their plain versions at the indoor
+             shapes (2 clouds of 35,000 points, k=20; an ICP trip at
+             (1, 35000, 35000) with the cull and the gate; the clustering's
+             (2, 16, 35000); the overlap head at (1, 35000, 35000, D=512)
+             bf16) and at small awkward ones (N not a multiple of the tile,
+             M just above 4096, k=1, coincident points, float32)
+ 13. indoor  `Registrar(configs.indoor(...))` at B=1, N=35,000, K=16, bf16
+             body, on bench.py's synthetic surface with a rigid copy as
+             target: with and without ICP, and with dgcnn_fused_edges=True;
+             launches, request times, peak memory, rotation and overlap
+             scores against the same request through the plain versions
+
+`python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
+(build always runs; the names are those of PHASES below) and prints their
+results without the kernels line.
 
 Prints the request and step times, one JSON object {"kernels": [...]} on a
 line of its own, the `nvidia-smi` name and power limit, and as the last line
@@ -70,11 +86,15 @@ try:
     from ogmm_tpu_torch.api import Registrar
     from ogmm_tpu_torch.core import se3
     from ogmm_tpu_torch.nn import dgcnn as nn_dgcnn
-    from ogmm_tpu_torch.ops import cuda_knn, dispatch
+    from ogmm_tpu_torch.ops import cuda_knn, cuda_stream, dispatch, stream
+    from ogmm_tpu_torch.nn import gmmreg as nn_gmmreg
     from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
     from ogmm_tpu_torch.ops import gmm as ops_gmm
-    from ogmm_tpu_torch.ops.common import index_points
-    from ogmm_tpu_torch.ops.cuda_dgcnn import (STAGES, dgcnn_eval,
+    from ogmm_tpu_torch.ops.common import (gather_neighbors, index_points,
+                                           sq_norm3)
+    from ogmm_tpu_torch.ops.cuda_dgcnn import (STAGES, dgcnn_edges,
+                                               dgcnn_edges_reference,
+                                               dgcnn_eval,
                                                dgcnn_eval_reference)
     from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (bwd_edge, bwd_edge_reference,
                                                   bwd_reduce,
@@ -101,6 +121,7 @@ except ImportError as e:
 DEV = torch.device("cuda")
 B, N, EMB, K, KNN, POS_K = 24, 717, 512, 128, 20, 5
 N_LARGE = 1433           # ModelNet40's 2048-point clouds cropped to 0.70
+N_INDOOR = 35000         # an indoor fragment (7-Scenes, ICL-NUIM) cropped
 
 # published peaks of one H100 SXM
 PEAK_BYTES = 3.35e12
@@ -118,6 +139,8 @@ LIM_Z1_BF16 = 0.0313     # one bf16 rounding of values up to ~4: one ulp
 LIM_NN1_D = 0.0          # same float32 arithmetic in the same order
 LIM_POSENC = 1e-5        # cosines from float32 coordinates, centroid summed
 #                          in another order
+LIM_WPROJECT = 1e-4      # out (|v| < 5) and lse (~10.5): float32 sums of
+#                          35,000 terms and of 512 products in another order
 LIM_UNFUSED_LOSS = 1e-3  # the unfused step, kNN and angle kernels against
 #                          their plain versions (every other kernel the same)
 # DGCNN backward kernels, as a share of max|plain| of each output
@@ -158,8 +181,14 @@ def angle_deg(a, b):
 
 def make_pairs(rs, batch, n_points):
     """Clouds and rotated, shifted, permuted copies of them."""
+    return rigid_copies(rs, (rs.randn(batch, n_points, 3) * 0.3).astype(np.float32))
+
+
+def rigid_copies(rs, src):
+    """src and rotated (up to ~30 degrees an axis), shifted, permuted copies
+    of its clouds: (src, tgt, rot, trans)."""
     from math import cos, sin
-    src = (rs.randn(batch, n_points, 3) * 0.3).astype(np.float32)
+    batch, n_points, _ = src.shape
     rots = []
     for _ in range(batch):
         a, b, c = rs.uniform(-0.5, 0.5, 3)
@@ -478,6 +507,10 @@ class plain_versions:
              (ops_gmm, "sinkhorn_em", sinkhorn_em_reference),
              (ops_dgcnn_train, "graph_stage1", graph_stage1_reference),
              (cuda_knn, "nn1", nn1_reference),
+             (cuda_stream, "knn_stream", stream.knn_stream_plain),
+             (cuda_stream, "nn1_stream", stream.nn1_stream_plain),
+             (nn_gmmreg, "wproject_stream_lse", stream.wproject_stream_lse_plain),
+             (nn_dgcnn, "dgcnn_edges", dgcnn_edges_reference),
              (cuda_knn, "knn", knn_reference),
              (cuda_posenc, "posenc_angles", posenc_angles_reference),
              (ops_dgcnn_train, "bwd_reduce", bwd_reduce_reference),
@@ -707,9 +740,10 @@ def run_cli():
     assert trainer.state.device.type == "cuda"
     # every kernel of the N=717 training path; the kNN and angle kernels
     # serve the large-cloud and unfused routes
-    for name in set(dispatch.KERNELS) - {"knn", "posenc_angles"}:
+    other = {"knn", "posenc_angles", *INDOOR_KERNELS}
+    for name in set(dispatch.KERNELS) - other:
         assert launches[name] > 0, launches
-    assert launches["knn"] == launches["posenc_angles"] == 0, launches
+    assert all(launches[name] == 0 for name in other), launches
     assert (launches["bwd_reduce"], launches["bwd_stage"],
             launches["bwd_edge"]) == (6, 18, 6), launches
     return launches, {"seconds": secs, "train_loss": rec["train"]["loss"],
@@ -983,51 +1017,475 @@ def check_c1(rs):
     print(f"c1 nn1 (2, 512 x 8192): route {ops_common.nn1_route(2, 512, 8192)}, "
           f"launches {dict(dispatch.launch_counts)}, max|d - plain| "
           f"{(d - rd).abs().max().item():.3g}")
+    # above M = 4096 the streamed 1-NN kernel, as the JAX package's nn1_stream
     assert dispatch.launch_counts["nn1"] == 0
-    assert torch.allclose(d, rd, rtol=1e-4, atol=1e-6)
+    assert dispatch.launch_counts["nn1_stream"] == 1
+    assert torch.equal(d, rd) and torch.equal(i, ri)
     out["nn1_8192"] = dict(dispatch.launch_counts)
     return out
 
 
+# ------------------------------------------------- the indoor request's kernels
+
+INDOOR_KERNELS = ("dgcnn_edges", "knn_stream", "nn1_stream", "wproject")
+
+
+def surface(rs, batch):
+    """bench.py's synthetic indoor fragment of N_INDOOR points: a height
+    field over the unit square, 0.01 noise."""
+    u = rs.rand(batch, N_INDOOR, 2).astype(np.float32)
+    z = np.sin(3 * u[..., :1]) * np.cos(2 * u[..., 1:])
+    pts = np.concatenate([u, 0.3 * z], -1)
+    return (pts + 0.01 * rs.randn(batch, N_INDOOR, 3)).astype(np.float32)
+
+
+def _sorted(x):
+    return index_points(x, stream.morton_order(x))
+
+
+def _pair_d(q, t):
+    """Fixed-order squared distances of matched rows q, t (..., 3)."""
+    inner = q[..., 0] * t[..., 0] + q[..., 1] * t[..., 1] + q[..., 2] * t[..., 2]
+    return ((sq_norm3(q) + sq_norm3(t)) - 2.0 * inner).clamp_min(1e-12)
+
+
+def _needed_pairs(lb, worst, n, m):
+    """Distances the cull-exact search of these inputs needs: those of the
+    tile pairs whose bound is within the query tile's final worst distance
+    (the kernel's test), worst (B, N) the distance each row must reach."""
+    tn, tm = stream.TILE_N, stream.TILE_M
+    n_t = lb.shape[1]
+    w = torch.nn.functional.pad(worst, (0, n_t * tn - n), value=float("-inf"))
+    w = w.reshape(worst.shape[0], n_t, tn).amax(dim=-1)
+    need = lb <= w.unsqueeze(-1) * (1.0 + 1e-6) + 1e-6
+    rows = torch.full((n_t,), float(tn), device=lb.device)
+    rows[-1] = n - tn * (n_t - 1)
+    cols = torch.full((lb.shape[2],), float(tm), device=lb.device)
+    cols[-1] = m - tm * (lb.shape[2] - 1)
+    return (need.float() * rows[:, None] * cols[None, :]).sum().item(), \
+        need.float().mean().item()
+
+
+def check_knn_stream(rs):
+    """The streamed kNN kernel against its plain version (identical
+    indices): the indoor graph (2 clouds of 35,000, k=20) Morton-sorted
+    with the cull and the diagonal order as `knn_self_vspace` gives it, and
+    without them; unsorted clouds just above M = 4096 with N not a multiple
+    of the tile, with and without a cull; a cross query at k=1; 301
+    coincident points; N below one tile at k=32."""
+    x = _sorted(torch.tensor(surface(rs, 2), device=DEV))
+    lb = stream.tile_pair_bounds(x)
+    g = _cloud(rs, 2, 4100)
+    gs = _sorted(g)
+    c = _cloud(rs, 2, 4200)
+    c[:, 100:401] = c[:, :1]                 # 301 coincident points
+    cs = _sorted(c)
+    q = _cloud(rs, 1, 1000, dup=False)
+    cases = [("indoor, sorted, cull, diagonal", x, x, KNN,
+              dict(diag_order=True, cull_lb=lb)),
+             ("indoor, sorted, no cull", x, x, KNN, {}),
+             ("M=4100, unsorted", g, g, KNN, {}),
+             ("M=4100, unsorted, cull, diagonal", g, g, KNN,
+              dict(diag_order=True, cull_lb=stream.tile_pair_bounds(g))),
+             ("M=4100, sorted, cull, diagonal", gs, gs, 7,
+              dict(diag_order=True, cull_lb=stream.tile_pair_bounds(gs))),
+             ("cross (1, 1000, 4097), k=1", q, g[:1, :4097], 1, {}),
+             ("301 coincident, sorted, cull", cs, cs, KNN,
+              dict(diag_order=True, cull_lb=stream.tile_pair_bounds(cs))),
+             ("N=37 below a tile, k=32", g[:, :37], g, 32,
+              dict(cull_lb=stream.pair_tile_bounds(g[:, :37], g)))]
+    worst = 0
+    for name, src, tgt, k, kw in cases:
+        got = cuda_stream.knn_stream(src, tgt, k, **kw)
+        torch.cuda.synchronize()
+        want = stream.knn_stream_plain(src, tgt, k)
+        same = torch.equal(got, want)
+        worst = max(worst, (got - want).abs().max().item())
+        print(f"knn_stream {name} {tuple(src.shape[:2])} x {tgt.shape[1]}, "
+              f"k={k}: indices identical {same}")
+        assert same and got.dtype == torch.int64
+    run = lambda: cuda_stream.knn_stream(x, x, KNN, diag_order=True, cull_lb=lb)
+    ms = cuda_ms(run, 10)
+    ms_nocull = cuda_ms(lambda: cuda_stream.knn_stream(x, x, KNN), 2)
+    ms_graph = cuda_ms(lambda: ops_common.knn_self_vspace(x, KNN), 5)
+    plain = cuda_ms(lambda: stream.knn_stream_plain(x, x, KNN), 1)
+    idx = run()
+    dk = _pair_d(x, index_points(x, idx[..., -1]))
+    pairs, share = _needed_pairs(lb, dk, N_INDOOR, N_INDOOR)
+    bound, by = _bound(9.0 * pairs, 2 * x.numel() * 4 + idx.numel() * 8)
+    full, _ = _bound(9.0 * 2 * N_INDOOR * N_INDOOR, 0)
+    print(f"knn_stream (2, {N_INDOOR}, {N_INDOOR}, k={KNN}): {ms:.4f} ms with "
+          f"the cull ({ms_nocull:.3f} without; the whole v-space graph with "
+          f"the sort and the table {ms_graph:.3f} ms), plain {plain:.2f} ms, "
+          f"bound {bound:.5f} ms ({by}; the {share:.4f} of the tile pairs "
+          f"the search needs; {full:.4f} ms for every pair)")
+    return {"name": "knn_stream", "route": "cuda",
+            "source": "ogmm_tpu_torch/csrc/knn_stream.cu",
+            "replaces": "ogmm_tpu/ops/pallas_stream.py:529",
+            "max_abs_err": float(worst), "ms": ms, "ms_no_cull": ms_nocull,
+            "ms_vspace_graph": ms_graph, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "bound_ms_every_pair": full,
+            "tile_pairs_needed": share, "library_ms": None}
+
+
+def check_nn1_stream(rs):
+    """The streamed 1-NN kernel against its plain version: an ICP trip at
+    the indoor shape (Morton-sorted clouds, the moved source 0.6 degrees
+    and 0.01 off the target, the cull and the 0.075 gate: identical (d, i)
+    on the rows within the gate); the clustering's (2, 16, 35000) and
+    awkward shapes without a gate (identical on every row)."""
+    src, tgt, rot, trans = rigid_copies(rs, surface(rs, 1))
+    src, tgt = _sorted(torch.tensor(src, device=DEV)), _sorted(torch.tensor(tgt, device=DEV))
+    a = 0.01
+    off = torch.tensor([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                        [0, 0, 1]], dtype=torch.float32, device=DEV)
+    r = torch.tensor(rot, device=DEV) @ off
+    moved = src @ r.transpose(1, 2) + torch.tensor(trans, device=DEV)[:, None] + 0.01
+    gate = (2.0 * configs.indoor().model.overlap_radius) ** 2
+    lb = stream.pair_tile_bounds(moved, tgt)
+    d, i = cuda_stream.nn1_stream(moved, tgt, cull_lb=lb, max_dist_sq=gate,
+                                  diag_order=True)
+    torch.cuda.synchronize()
+    rd, ri = stream.nn1_stream_plain(moved, tgt)
+    inside = rd < gate
+    same = torch.equal(d[inside], rd[inside]) and torch.equal(i[inside], ri[inside])
+    print(f"nn1_stream ICP trip (1, {N_INDOOR}, {N_INDOOR}), gate {gate:.5f}: "
+          f"(d, i) identical on the {inside.float().mean().item():.4f} of the "
+          f"rows within the gate {same}; the rest report d >= gate "
+          f"{bool((d[~inside] >= gate).all())}")
+    assert same and bool((d[~inside] >= gate).all())
+    big = torch.tensor(surface(rs, 2), device=DEV)
+    nodes = index_points(big, torch.randint(0, N_INDOOR, (2, 16), device=DEV)) + 0.003
+    g = _cloud(rs, 2, 4097)
+    c = _cloud(rs, 1, 4200)
+    c[:, 100:401] = c[:, :1]
+    cs = _sorted(c)
+    for name, q, t, kw in (
+            (f"clustering (2, 16, {N_INDOOR})", nodes, big, {}),
+            ("(2, 4100, 4097) unsorted", _cloud(rs, 2, 4100, dup=False), g, {}),
+            ("301 coincident, sorted, cull", cs, cs,
+             dict(cull_lb=stream.tile_pair_bounds(cs), diag_order=True))):
+        d2, i2 = cuda_stream.nn1_stream(q, t, **kw)
+        torch.cuda.synchronize()
+        rd2, ri2 = stream.nn1_stream_plain(q, t)
+        same = torch.equal(d2, rd2) and torch.equal(i2, ri2)
+        print(f"nn1_stream {name}: (d, i) identical {same}")
+        assert same
+    run = lambda: cuda_stream.nn1_stream(moved, tgt, cull_lb=lb,
+                                         max_dist_sq=gate, diag_order=True)
+    ms = cuda_ms(run, 20)
+    ms_trip = cuda_ms(lambda: cuda_stream.nn1_stream(
+        moved, tgt, cull_lb=stream.pair_tile_bounds(moved, tgt),
+        max_dist_sq=gate, diag_order=True), 10)
+    ms_nodes = cuda_ms(lambda: cuda_stream.nn1_stream(nodes, big), 10)
+    plain = cuda_ms(lambda: stream.nn1_stream_plain(moved, tgt), 2)
+    pairs, share = _needed_pairs(lb, rd.clamp_max(gate), N_INDOOR, N_INDOOR)
+    bound, by = _bound(9.0 * pairs, 2 * moved.numel() * 4 + N_INDOOR * 12)
+    print(f"nn1_stream ICP trip: {ms:.4f} ms ({ms_trip:.4f} with its bound "
+          f"table), plain {plain:.2f} ms, bound {bound:.6f} ms ({by}; the "
+          f"{share:.4f} of the tile pairs the gated search needs); the "
+          f"clustering's call {ms_nodes:.4f} ms")
+    return {"name": "nn1_stream", "route": "cuda",
+            "source": "ogmm_tpu_torch/csrc/knn_stream.cu",
+            "replaces": "ogmm_tpu/ops/pallas_stream.py:165",
+            "also_replaces": "ogmm_tpu/ops/pallas_stream.py:236",
+            "max_abs_err": 0.0, "ms": ms, "ms_with_table": ms_trip,
+            "ms_clustering_call": ms_nodes, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "tile_pairs_needed": share,
+            "library_ms": None}
+
+
+def _features(rs, b, n, d, dtype):
+    """l2-normalised rows, each k row a noisy copy of a q row: cosine
+    similarities up to ~0.9, as matched features give."""
+    base = torch.tensor(rs.randn(b, n, d).astype(np.float32), device=DEV)
+    q = base + 0.3 * torch.randn_like(base)
+    k = base[:, torch.randperm(n, device=DEV)] + 0.3 * torch.randn_like(base)
+    l2 = lambda a: (a / a.norm(dim=-1, keepdim=True)).to(dtype)
+    return l2(q), l2(k)
+
+
+def _sdpa(q, k, v):
+    """One PyTorch call for the same function, its time and the backends
+    that accept these inputs (a yardstick only; the port never calls it)."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    f = torch.nn.functional.scaled_dot_product_attention
+    args = (q.unsqueeze(1), k.unsqueeze(1), v.to(q.dtype).unsqueeze(1))
+    ok = []
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # each refusal's reasons
+                f(*args, scale=1.0)
+            torch.cuda.synchronize()
+            ok.append(be.name)
+        except RuntimeError as e:
+            print(f"scaled_dot_product_attention, {be.name}: refused "
+                  f"({str(e).splitlines()[0][:100]})")
+    torch.cuda.empty_cache()
+    if not ok:
+        return None, ok, None
+    out = f(*args, scale=1.0).squeeze(1).float()
+    return cuda_ms(lambda: f(*args, scale=1.0), 3), ok, out
+
+
+def check_wproject(rs):
+    """The streamed overlap projection against its plain version: out and
+    lse within LIM_WPROJECT at the indoor call (1, 35000, 35000, D=512,
+    bf16) and at small awkward shapes (float32, M below one tile, N not a
+    multiple of the tile, M just above 4096); timed beside the plain version
+    and `scaled_dot_product_attention` with a one-column v."""
+    worst = 0.0
+    qi, ki = _features(rs, 1, N_INDOOR, EMB, torch.bfloat16)
+    vi = torch.tensor(rs.randn(1, N_INDOOR, 1).astype(np.float32), device=DEV)
+    small = []
+    for b, n, m, d, dt in ((1, 1000, 700, 64, torch.float32),
+                           (1, 70, 50, 64, torch.bfloat16),
+                           (2, 130, 4100, EMB, torch.bfloat16),
+                           (2, 130, 4100, 128, torch.float32)):
+        q, _ = _features(rs, b, n, d, dt)
+        _, k = _features(rs, b, m, d, dt)
+        v = torch.tensor(rs.randn(b, m, 1).astype(np.float32), device=DEV)
+        small.append((q, k, v))
+    for q, k, v in [(qi, ki, vi)] + small:
+        out, lse = cuda_stream.wproject_stream_lse(q, k, v)
+        torch.cuda.synchronize()
+        rout, rlse = stream.wproject_stream_lse_plain(q, k, v)
+        e_out = (out - rout).abs().max().item()
+        e_lse = (lse - rlse).abs().max().item()
+        print(f"wproject {tuple(q.shape)} x {k.shape[1]} {q.dtype}: out "
+              f"{e_out:.3g}, lse {e_lse:.3g} (limit {LIM_WPROJECT}); max|lse| "
+              f"{rlse.abs().max().item():.3g}")
+        assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+        assert e_out <= LIM_WPROJECT and e_lse <= LIM_WPROJECT
+        worst = max(worst, e_out, e_lse)
+    ms = cuda_ms(lambda: cuda_stream.wproject_stream_lse(qi, ki, vi), 5)
+    plain = cuda_ms(lambda: stream.wproject_stream_lse_plain(qi, ki, vi), 2)
+    lib, backends, lib_out = _sdpa(qi, ki, vi)
+    lib_err = None if lib_out is None else (
+        lib_out - stream.wproject_stream_lse_plain(qi, ki, vi)[0]).abs().max().item()
+    nn_ = float(N_INDOOR) * N_INDOOR
+    t_ops = 2.0 * nn_ * EMB / PEAK_FLOPS["bf16"] + 4.0 * nn_ / PEAK_FLOPS["f32"]
+    t_bytes = (2 * N_INDOOR * EMB * 2 + N_INDOOR * 4 + 2 * N_INDOOR * 4) / PEAK_BYTES
+    bound = max(t_ops, t_bytes) * 1e3
+    print(f"wproject (1, {N_INDOOR}, {N_INDOOR}, D={EMB}) bf16: {ms:.3f} ms, "
+          f"plain {plain:.2f} ms, bound {bound:.4f} ms (operations); "
+          f"scaled_dot_product_attention {lib} ms (backends that take a "
+          f"one-column v: {backends}; max|out - plain| {lib_err})")
+    return {"name": "wproject", "route": "cuda",
+            "source": "ogmm_tpu_torch/csrc/wproject.cu",
+            "replaces": "ogmm_tpu/ops/pallas_stream.py:823",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib, "library_backends": backends,
+            "library_max_abs_err": lib_err}
+
+
+def check_dgcnn_edges(rs):
+    """The edges kernel against its plain version over the indoor graph (2
+    clouds of 35,000, k=20, the kernel's own graph), float32 and bf16, with
+    the limits of the dgcnn_eval check; and at N=37 (not a multiple of the
+    kernel's 8 rows) with k=16."""
+    x = _sorted(torch.tensor(surface(rs, 2), device=DEV))
+    nbr = gather_neighbors(x, cuda_stream.knn_stream(
+        x, x, KNN, diag_order=True, cull_lb=stream.tile_pair_bounds(x)))
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, EMB)]
+    ws = [torch.tensor(rs.randn(*d).astype(np.float32) / np.sqrt(d[0]),
+                       device=DEV) for d in dims]
+    aff = [(torch.tensor(rs.uniform(0.5, 1.5, d[1]).astype(np.float32), device=DEV),
+            torch.tensor(rs.randn(d[1]).astype(np.float32) * 0.1, device=DEV))
+           for d in dims]
+    xs = x[:1, :37]
+    small_nbr = gather_neighbors(xs, ops_common.select_smallest(
+        ops_common.square_distance3(xs, xs), 16))
+    errs = {}
+    for dt, lim in ((torch.float32, LIM_DGCNN_F32), (torch.bfloat16, LIM_DGCNN_BF16)):
+        for xx, nb, k in ((x, nbr, KNN), (xs, small_nbr, 16)):
+            out = dgcnn_edges(xx, nb, ws, aff, k, dt)
+            torch.cuda.synchronize()
+            ref = dgcnn_edges_reference(xx, nb, ws, aff, k, dt)
+            assert out.dtype == dt and out.shape == ref.shape
+            err = (out.float() - ref.float()).abs().max().item()
+            print(f"dgcnn_edges {tuple(nb.shape)} {dt}: max|kernel - plain| = "
+                  f"{err:.3g} (limit {lim}), max|plain| = "
+                  f"{ref.float().abs().max().item():.3g}")
+            assert torch.isfinite(out.float()).all() and err <= lim
+            errs[dt] = max(errs.get(dt, 0.0), err)
+    bf = torch.bfloat16
+    ms = cuda_ms(lambda: dgcnn_edges(x, nbr, ws, aff, KNN, bf), 5)
+    ms32 = cuda_ms(lambda: dgcnn_edges(x, nbr, ws, aff, KNN, torch.float32), 3)
+    plain = cuda_ms(lambda: dgcnn_edges_reference(x, nbr, ws, aff, KNN, bf), 2)
+    rows = 2 * N_INDOOR
+    stage_macs = 6 * 64 + 64 * 64 + 64 * 128 + 128 * 256
+    flops = 2.0 * rows * (KNN * stage_macs + sum(STAGES) * EMB)
+    nbytes = x.numel() * 4 + nbr.numel() * 4 + rows * EMB * 2
+    t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
+    bound = max(t_ops, t_bytes) * 1e3
+    print(f"dgcnn_edges (2, {N_INDOOR}, k={KNN}): {ms:.3f} ms bf16, {ms32:.3f} "
+          f"ms float32, plain {plain:.3f} ms, bound {bound:.4f} ms")
+    return {"name": "dgcnn_edges", "route": "cuda",
+            "source": "ogmm_tpu_torch/csrc/dgcnn_eval.cu",
+            "replaces": "ogmm_tpu/ops/pallas_dgcnn.py:315",
+            "max_abs_err": errs[bf], "max_abs_err_f32": errs[torch.float32],
+            "ms": ms, "ms_f32": ms32, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def serve_indoor(rs):
+    """`Registrar(configs.indoor(...))` at B=1, N=35,000, K=16, bf16 body:
+    bench.py's synthetic fragment against a rigid copy of itself. Launches
+    of one request without and with ICP (knn_stream 1 for the 2B stacked
+    clouds, wproject 2, nn1_stream 1 for the clustering loss and one a trip
+    of ICP), three timed requests of each, the peak device memory, the
+    same request through the plain versions, and with dgcnn_fused_edges=True
+    (dgcnn_edges 1)."""
+    def registrar(**over):
+        cfg = configs.indoor()
+        return Registrar(cfg.replace(model=dataclasses.replace(
+            cfg.model, dtype="bfloat16", **over)), seed=0, device=DEV)
+
+    reg = registrar()
+    m = reg.cfg.model
+    assert (m.n_clusters, m.km_clusters, m.emb_dims, m.gnn_k) == (16, 16, EMB, KNN)
+    requests = [rigid_copies(rs, surface(rs, 1)) for _ in range(3)]
+    reg(requests[0][0], requests[0][1], refine=True)        # warm up
+    torch.cuda.synchronize()
+    launches, times, outs, peak = {}, {}, {}, {}
+    for refine in (False, True):
+        src, tgt, _, _ = requests[0]
+        dispatch.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        reg(src, tgt, refine=refine)
+        torch.cuda.synchronize()
+        launches[refine] = dict(dispatch.launch_counts)
+        peak[refine] = torch.cuda.max_memory_allocated() / 2 ** 20
+        t0 = time.perf_counter()
+        for src, tgt, _, _ in requests:
+            outs[refine] = reg(src, tgt, refine=refine)
+        torch.cuda.synchronize()
+        times[refine] = (time.perf_counter() - t0) / len(requests) * 1e3
+        for o in outs[refine]:
+            assert torch.isfinite(o).all()
+        r = outs[refine][0]
+        assert r.shape == (1, 3, 3) and outs[refine][2].shape == (1, N_INDOOR)
+        assert (r @ r.transpose(1, 2) - torch.eye(3, device=DEV)).abs().max() < 1e-4
+    print(f"indoor request (B=1, N={N_INDOOR}, K=16, bf16): {times[False]:.2f} ms "
+          f"without ICP, {times[True]:.2f} ms with ICP (host clock, three "
+          f"requests each); peak device memory {peak[False]:.0f} / "
+          f"{peak[True]:.0f} MiB; launches {launches[False]} / {launches[True]}")
+    expect = {"knn_stream": 1, "wproject": 2, "dgcnn_edges": 0, "knn": 0,
+              "nn1": 0, "dgcnn_eval": 0, "sinkhorn_em": 0, "posenc_angles": 0}
+    for refine, n_nn1 in ((False, 1), (True, 1 + m.icp_iters)):
+        got = {name: launches[refine][name] for name in expect}
+        assert got == expect and launches[refine]["nn1_stream"] == n_nn1, launches
+
+    src, tgt, rot, _ = requests[-1]
+    with plain_versions():
+        before = dict(dispatch.launch_counts)
+        p_rot, _, p_so, p_to = reg(src, tgt, refine=True)
+        assert dict(dispatch.launch_counts) == before
+    k_rot, _, k_so, k_to = outs[True]
+    d_o = max((k_so - p_so).abs().max().item(), (k_to - p_to).abs().max().item())
+    ang = angle_deg(k_rot, p_rot).max().item()
+    gt = torch.tensor(rot, device=DEV)
+    print(f"indoor kernel path against plain path: overlap scores {d_o:.3g} "
+          f"(limit {LIM_OVERLAP}), refined rotation {ang:.3g} deg (limit "
+          f"{LIM_ROT_DEG}); rotation error against the true pose "
+          f"{angle_deg(k_rot, gt).max().item():.3g} deg (random weights)")
+    assert d_o <= LIM_OVERLAP and ang <= LIM_ROT_DEG
+
+    reg_e = registrar(dgcnn_fused_edges=True)
+    src, tgt, _, _ = requests[0]
+    reg_e(src, tgt, refine=False)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    e_rot, _, e_so, e_to = reg_e(src, tgt, refine=True)
+    torch.cuda.synchronize()
+    e_ms = (time.perf_counter() - t0) * 1e3
+    e_launches = dict(dispatch.launch_counts)
+    n_rot, _, n_so, n_to = reg(src, tgt, refine=True)
+    d_e = max((e_so - n_so).abs().max().item(), (e_to - n_to).abs().max().item())
+    ang_e = angle_deg(e_rot, n_rot).max().item()
+    print(f"indoor request with dgcnn_fused_edges=True: {e_ms:.2f} ms with ICP, "
+          f"launches {e_launches}; against the unfused stage chain: overlap "
+          f"{d_e:.3g} (limit {LIM_OVERLAP}), rotation {ang_e:.3g} deg (limit "
+          f"{LIM_ROT_DEG})")
+    assert e_launches["dgcnn_edges"] == 1 and e_launches["knn_stream"] == 1
+    assert d_e <= LIM_OVERLAP and ang_e <= LIM_ROT_DEG
+    launches_all = dict(launches[True])
+    launches_all["dgcnn_edges"] = e_launches["dgcnn_edges"]
+    return launches_all, {"forward": times[False], "forward_icp": times[True],
+                          "forward_icp_fused_edges": e_ms,
+                          "peak_mib": peak[False], "peak_mib_icp": peak[True],
+                          "launches_no_icp": launches[False]}
+
+
+PHASES = ("kernels", "serve", "train", "cli", "icp", "serve_large",
+          "train_large", "train_unfused", "c1", "indoor_kernels", "indoor")
+
+
 def main():
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        only = set(sys.argv[2].split(","))
+        assert only <= set(PHASES), f"phases are {PHASES}"
+    elif len(sys.argv) != 1:
+        sys.exit(f"usage: chip_smoke.py [--only PHASE[,PHASE...]] ({PHASES})")
+    run = lambda phase: only is None or phase in only
     rs = np.random.RandomState(0)
     t0 = time.perf_counter()
     dispatch.build_kernels()
     print(f"built {', '.join(dispatch.SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    kernels = [check_dgcnn(rs), check_em(rs), check_graph_stage1(rs),
-               check_nn1(rs), *check_dgcnn_bwd(rs), check_knn(rs),
-               check_posenc_angles(rs)]
-    launches, times = serve(rs)
-    train_launches, train_out = train(rs)
-    cli_launches, cli_out = run_cli()
-    check_icp(rs)
-    large_launches, large_times = serve_large(rs)
-    large_train_launches, large_train_out = train_large(rs)
-    unfused_launches, unfused_out = train_unfused(rs)
-    c1 = check_c1(rs)
-    # each kernel's launches on the path it was ported for: the serving
-    # forward (N=717) for kernels 1-2, the training step for 3-7, the
-    # large-cloud request for the kNN kernel, the unfused step for the
-    # angle kernel
-    main_path = {"dgcnn_eval": launches, "sinkhorn_em": launches,
-                 "knn": large_launches, "posenc_angles": unfused_launches}
-    for k in kernels:
-        name = k["name"]
-        k["launches"] = main_path.get(name, train_launches)[name]
-        k["launches_train_step"] = train_launches[name]
-        k["launches_cli"] = cli_launches[name]
-        k["launches_request_n1433"] = large_launches[name]
-        k["launches_train_step_n1433"] = large_train_launches[name]
-        k["launches_unfused_step"] = unfused_launches[name]
-    print(json.dumps({"request_ms": {"forward": times[False],
-                                     "forward_icp": times[True]},
-                      "train": train_out, "cli": cli_out,
-                      "request_ms_n1433": large_times,
-                      "train_n1433": large_train_out,
-                      "train_unfused": unfused_out, "c1": c1,
-                      "shape": {"B": B, "N": N, "N_large": N_LARGE,
-                                "emb": EMB, "K": K}}))
-    print(json.dumps({"kernels": kernels}))
+    kernels, out = [], {}
+    if run("kernels"):
+        kernels += [check_dgcnn(rs), check_em(rs), check_graph_stage1(rs),
+                    check_nn1(rs), *check_dgcnn_bwd(rs), check_knn(rs),
+                    check_posenc_angles(rs)]
+    if run("indoor_kernels"):
+        # a generator of their own: the phases of the earlier slices see the
+        # data they saw before these were added
+        rs_indoor = np.random.RandomState(7)
+        kernels += [check_dgcnn_edges(rs_indoor), check_knn_stream(rs_indoor),
+                    check_nn1_stream(rs_indoor), check_wproject(rs_indoor)]
+    # each phase's launches are read right after it ran with the counts at 0;
+    # the phases of the earlier slices in their order, then the indoor one
+    paths = {}
+    for phase, fn in (("serve", serve), ("train", train),
+                      ("cli", lambda rs: run_cli()),
+                      ("icp", check_icp), ("serve_large", serve_large),
+                      ("train_large", train_large),
+                      ("train_unfused", train_unfused), ("c1", check_c1),
+                      ("indoor", lambda _: serve_indoor(np.random.RandomState(8)))):
+        if not run(phase):
+            continue
+        res = fn(rs)
+        if isinstance(res, tuple):
+            paths[phase], out[phase] = res
+        elif res is not None:
+            out[phase] = res
+    out["shape"] = {"B": B, "N": N, "N_large": N_LARGE, "N_indoor": N_INDOOR,
+                    "emb": EMB, "K": K}
+    print(json.dumps(out))
+    if only is None:
+        # each kernel's launches on the path it was ported for: the serving
+        # forward (N=717) for kernels 1-2, the training step for 3-7, the
+        # large-cloud request for the kNN kernel, the unfused step for the
+        # angle kernel, the indoor request for kernels 10-13 (dgcnn_edges
+        # with dgcnn_fused_edges=True)
+        main_path = {"dgcnn_eval": "serve", "sinkhorn_em": "serve",
+                     "knn": "serve_large", "posenc_angles": "train_unfused",
+                     **{name: "indoor" for name in INDOOR_KERNELS}}
+        for k in kernels:
+            name = k["name"]
+            k["launches"] = paths[main_path.get(name, "train")][name]
+            for phase, launches in paths.items():
+                k[f"launches_{phase}"] = launches[name]
+        print(json.dumps({"kernels": kernels}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])

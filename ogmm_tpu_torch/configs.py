@@ -1,4 +1,4 @@
-"""Typed configuration of the port: the ModelNet preset only.
+"""Typed configuration of the port: the ModelNet and indoor presets.
 
 The field names and defaults are those of the JAX package's config for the
 options this package implements, so a config saved beside exported weights
@@ -32,6 +32,18 @@ class ModelConfig:
     # DGCNN training route: None (or True) the fused kernels where their
     # shape rule allows, False the unfused route (nn/dgcnn.py:fused_route)
     dgcnn_fused_train: bool | None = None
+    # eval DGCNN over a given graph through the dgcnn_edges kernel (above
+    # N = 1024, where GMMReg shares one graph): None/False off, True on; it
+    # needs eval mode and a graph, and raises otherwise (nn/dgcnn.py:edges_route)
+    dgcnn_fused_edges: bool | None = None
+    # above N = 4096 the shared graph lives in Morton-sorted row space
+    # (ops/stream.py:knn_self_vspace): None/True on, False the original-order
+    # control
+    dgcnn_vspace: bool | None = None
+    # overlap head: stream the (N, M) similarity softmax through the wproject
+    # kernel. None streams above B N M = 64 Mi elements, True always, False
+    # never (nn/gmmreg.py:overlap_route); eval only for now
+    overlap_stream: bool | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +105,6 @@ _FIXED_MODEL_OPTIONS = {
     "recompute_anchors": (False,),
     "stack_eval": (True,),
     "stack_train": (False,),
-    "dgcnn_fused_edges": (None, False),
-    "dgcnn_vspace": (None,),
-    "overlap_stream": (None, False),
     "remat": (False,),
 }
 
@@ -146,8 +155,17 @@ def mnet(**overrides) -> Config:
 
 
 def indoor(**overrides) -> Config:
-    raise NotImplementedError(
-        "the indoor preset (N~35k, streamed kernels) is not ported yet")
+    """7-Scenes / ICL-NUIM preset, the JAX package's `indoor`: K = 16
+    clusters and anchors, a 0.0375 ICP voxel; clouds of 50,000 points
+    cropped to about 35,000 a fragment, one pair a request. Its datasets and
+    its training come with a later slice (ROADMAP.md, queue A item 5)."""
+    cfg = Config(
+        model=ModelConfig(n_clusters=16, km_clusters=16, overlap_radius=0.0375),
+        data=DataConfig(dataset="7scene", n_points=50000, unseen=False),
+        train=TrainConfig(batch_size=8, test_batch_size=1, epochs=250, lr=1e-3,
+                          n_keypoints=256),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
 
 
 def torch_dtype(name: str | None):

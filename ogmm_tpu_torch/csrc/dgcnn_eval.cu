@@ -24,6 +24,12 @@
 //     is taken in registers. The final Dense(512 -> emb) + bias + ReLU
 //     writes the only large output.
 //
+// A second entry point, dgcnn_edges_launch, replaces
+// ogmm_tpu/ops/pallas_dgcnn.py:dgcnn_edges_pallas (_dgcnn_edges_kernel): the
+// same stage kernel over pre-gathered float32 neighbour coordinates
+// (B, N, k, 3) instead of indices, at any N (the indoor clouds, N = 35,000,
+// whose graph comes from knn_stream.cu). Eval only, BN folded, as kernel 1.
+//
 // Bound: operations. The stage products are 2*45,440 flops for each of the
 // B*N*k edge rows plus 2*512*emb for each point, against 12 bytes in and
 // 2*emb bytes out for each point. This first version does the products with
@@ -134,6 +140,7 @@ __device__ __forceinline__ void edge_stage(const T* in, int cin,
 template <typename T, int KNN>
 __global__ void __launch_bounds__(TQ * 32)
 dgcnn_stage_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                   const float* __restrict__ nbr,
                    const T* w1, const T* w2, const T* w3, const T* w4, const T* w5,
                    const T* b1, const T* b2, const T* b3, const T* b4, const T* b5,
                    T* __restrict__ out, int N, int emb) {
@@ -145,13 +152,16 @@ dgcnn_stage_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   const int b = blockIdx.y, n0 = blockIdx.x * TQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // edge rows, 8 wide: [nbr - q, q, 0, 0]; the offset in float32, then cast
+  // edge rows, 8 wide: [nbr - q, q, 0, 0]; the offset in float32, then cast.
+  // The neighbour's coordinates come from nbr (B, N, KNN, 3) where it is
+  // given, else from x through idx
   for (int r = tid; r < R; r += TQ * 32) {
     const int n = min(n0 + r / KNN, N - 1);
     const size_t row = (size_t)b * N + n;
-    const int nb = idx[row * KNN + r % KNN];
     const float* pq = x + row * 3;
-    const float* pn = x + ((size_t)b * N + nb) * 3;
+    const float* pn = nbr != nullptr
+                          ? nbr + (row * KNN + r % KNN) * 3
+                          : x + ((size_t)b * N + idx[row * KNN + r % KNN]) * 3;
     T* e = bufA + r * 8;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -189,8 +199,8 @@ dgcnn_stage_kernel(const float* __restrict__ x, const int* __restrict__ idx,
 
 template <typename T, int KNN>
 static cudaError_t launch_stages(const float* x, const int* idx,
-                                 const void* const* w, const void* const* bs,
-                                 void* out, int B, int N, int emb,
+                                 const float* nbr, const void* const* w,
+                                 const void* const* bs, void* out, int B, int N, int emb,
                                  cudaStream_t stream) {
   const size_t smem = sizeof(T) * (size_t)(TQ * KNN * (64 + 128) + TQ * CATW);
   cudaError_t err = cudaFuncSetAttribute(
@@ -199,8 +209,8 @@ static cudaError_t launch_stages(const float* x, const int* idx,
   if (err != cudaSuccess) return err;
   const dim3 grid((N + TQ - 1) / TQ, B);
   dgcnn_stage_kernel<T, KNN><<<grid, TQ * 32, smem, stream>>>(
-      x, idx, (const T*)w[0], (const T*)w[1], (const T*)w[2], (const T*)w[3],
-      (const T*)w[4], (const T*)bs[0], (const T*)bs[1], (const T*)bs[2],
+      x, idx, nbr, (const T*)w[0], (const T*)w[1], (const T*)w[2],
+      (const T*)w[3], (const T*)w[4], (const T*)bs[0], (const T*)bs[1], (const T*)bs[2],
       (const T*)bs[3], (const T*)bs[4], (T*)out, N, emb);
   return cudaGetLastError();
 }
@@ -216,8 +226,9 @@ static cudaError_t launch_k(const float* x, const void* const* w,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (is_bf16)
-    return launch_stages<__nv_bfloat16, KNN>(x, idx, w, bs, out, B, N, emb, stream);
-  return launch_stages<float, KNN>(x, idx, w, bs, out, B, N, emb, stream);
+    return launch_stages<__nv_bfloat16, KNN>(x, idx, nullptr, w, bs, out, B, N,
+                                             emb, stream);
+  return launch_stages<float, KNN>(x, idx, nullptr, w, bs, out, B, N, emb, stream);
 }
 
 extern "C" int dgcnn_eval_launch(
@@ -235,6 +246,32 @@ extern "C" int dgcnn_eval_launch(
   case K:                                                                    \
     return (int)launch_k<K>(x, w, bs, idx, alpha, out, B, N, emb, pk,        \
                             is_bf16, stream);
+    DGCNN_KS(CASE)
+#undef CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// x (B, N, 3) and nbr (B, N, k, 3) float32 -> out (B, N, emb): the stage
+// chain alone, over the given neighbours, at any N >= 1
+extern "C" int dgcnn_edges_launch(
+    const float* x, const float* nbr, const void* w1, const void* w2,
+    const void* w3, const void* w4, const void* w5, const void* b1,
+    const void* b2, const void* b3, const void* b4, const void* b5, void* out,
+    int B, int N, int emb, int k, int is_bf16, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (N < 1 || emb % 64 != 0) return (int)cudaErrorInvalidValue;
+  const void* w[5] = {w1, w2, w3, w4, w5};
+  const void* bs[5] = {b1, b2, b3, b4, b5};
+  switch (k) {
+#define CASE(K)                                                               \
+  case K:                                                                     \
+    return is_bf16 ? (int)launch_stages<__nv_bfloat16, K>(x, nullptr, nbr, w, \
+                                                          bs, out, B, N, emb, \
+                                                          stream)             \
+                   : (int)launch_stages<float, K>(x, nullptr, nbr, w, bs, out, \
+                                                  B, N, emb, stream);
     DGCNN_KS(CASE)
 #undef CASE
     default:

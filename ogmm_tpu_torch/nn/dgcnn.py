@@ -14,6 +14,12 @@ Two routes over one parameter set, chosen from shapes by `fused_route`:
            `ops.dgcnn_train.dgcnn_train` (the graph_stage1 kernel, batch
            statistics, a hand-written backward), and the five
            running-statistic pairs update from the batch moments it returns.
+  edges    With `fused_edges` (the config's `dgcnn_fused_edges=True`), an
+           eval forward over a given graph above N = 1024 runs the stage
+           chain through `ops.cuda_dgcnn.dgcnn_edges`, BN folded, as the
+           JAX package's `dgcnn_edges_pallas` (`ogmm_tpu/nn/dgcnn.py:163-197`);
+           the angles come from the same float32 neighbours. It raises in
+           training and without a graph (`edges_route`).
   unfused  The JAX package's jnp composition (`ogmm_tpu/nn/dgcnn.py:242-274`):
            a kNN graph (`ops.common.knn`) or a given one, the edge tensor
            [nbr - x, x] formed in float32 and cast, and per stage a product
@@ -30,7 +36,7 @@ from torch import nn
 from ogmm_tpu_torch.ops import dgcnn_train as _train
 from ogmm_tpu_torch.ops.common import (gather_neighbors, knn, posenc_alpha)
 from ogmm_tpu_torch.ops.cuda_dgcnn import (KERNEL_KS, KERNEL_MAX_N, STAGES,
-                                           dgcnn_eval)
+                                           dgcnn_edges, dgcnn_eval)
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import bn_apply
 
 
@@ -49,13 +55,31 @@ def fused_route(n: int, k: int, train: bool, have_graph: bool,
     return fused_train or not train
 
 
+def edges_route(n: int, train: bool, have_graph: bool,
+                fused_edges: bool) -> bool:
+    """Whether a DGCNN that does not take the fused route runs its stage
+    chain through the edges kernel, the JAX package's rule
+    (`ogmm_tpu/nn/dgcnn.py:163-177`): only with `fused_edges`; never where
+    the JAX package's whole-cloud eval kernel comes first (eval, N <= 1024);
+    and an explicit `fused_edges` in training or without a graph raises
+    rather than run another route."""
+    if not fused_edges or (not train and n <= KERNEL_MAX_N):
+        return False
+    if train or not have_graph:
+        raise ValueError(
+            "fused_edges=True needs eval mode and a supplied graph (nbr_idx "
+            "or nbr_xyz): the kernel folds BN running statistics and has no "
+            "backward")
+    return True
+
+
 class DGCNN(nn.Module):
     def __init__(self, emb_dims: int = 512, k: int = 20,
                  dtype: torch.dtype = torch.float32,
-                 fused_train: bool = True):
+                 fused_train: bool = True, fused_edges: bool = False):
         super().__init__()
         self.emb_dims, self.k, self.compute_dtype = emb_dims, k, dtype
-        self.fused_train = fused_train
+        self.fused_train, self.fused_edges = fused_train, fused_edges
         dims = [6, *STAGES]
         outs = [*STAGES, emb_dims]
         ins = dims[:4] + [sum(STAGES)]
@@ -85,13 +109,21 @@ class DGCNN(nn.Module):
 
         `nbr_idx` (B, N, k) supplies the graph, `nbr_xyz` (B, N, k, 3) its
         gathered float32 coordinates (it wins over `nbr_idx`); either sends
-        the call down the unfused route. `posenc_centroid` (B, 1, 3) is the
-        centroid of the angles there; the fused route takes the centroid of
-        the cloud it is given and refuses another."""
+        the call down the unfused route, or the edges route (`edges_route`).
+        `posenc_centroid` (B, 1, 3) is the centroid of the angles there; the
+        fused route takes the centroid of the cloud it is given and refuses
+        another."""
         weights = [getattr(self, f"w{i}") for i in range(1, 6)]
         have_graph = nbr_idx is not None or nbr_xyz is not None
-        if not fused_route(x.shape[1], self.k, self.training, have_graph,
-                           self.fused_train):
+        fused = fused_route(x.shape[1], self.k, self.training, have_graph,
+                            self.fused_train)
+        # the eval kernel comes first; an explicit fused_edges raises in
+        # training whatever the route, as in the JAX package
+        if (self.training or not fused) and edges_route(
+                x.shape[1], self.training, have_graph, self.fused_edges):
+            return self._forward_edges(x, weights, with_posenc_alpha,
+                                       posenc_centroid, nbr_idx, nbr_xyz)
+        if not fused:
             return self._forward_unfused(x, weights, with_posenc_alpha,
                                          posenc_centroid, nbr_idx, nbr_xyz)
         if posenc_centroid is not None:
@@ -104,6 +136,18 @@ class DGCNN(nn.Module):
         return dgcnn_eval(x, weights, affines, k=self.k,
                           dtype=self.compute_dtype,
                           posenc_k=with_posenc_alpha)
+
+    def _forward_edges(self, x, weights, posenc_k, centroid, nbr_idx,
+                       nbr_xyz):
+        x = x.float()
+        if nbr_xyz is None:
+            nbr_xyz = gather_neighbors(x, nbr_idx)
+        affines = [self._folded_affine(i) for i in range(1, 6)]
+        out = dgcnn_edges(x, nbr_xyz, weights, affines, k=self.k,
+                          dtype=self.compute_dtype)
+        if posenc_k:
+            return out, posenc_alpha(x, nbr_xyz[:, :, :posenc_k], centroid)
+        return out
 
     def _update_stats(self, i: int, mean, var):
         with torch.no_grad():

@@ -16,8 +16,15 @@ Above N = 1024 (`share_graph`) one kNN graph of k = gnn_k serves DGCNN and
 the position encoding, as in the JAX package (`ogmm_tpu/nn/gmmreg.py:154`,
 `:196-219`): one coordinate gather feeds the DGCNN edges and the angles of
 its pos_k-prefix, with the centroid of the cloud in its original row order.
-The port keeps that graph in original row order at every N (the JAX
-package's route up to N = 4096 and off its accelerator).
+Above N = 4096 that graph is built and used in Morton-sorted row space
+(`ops.common.knn_self_vspace`) and only the features and angles are
+un-sorted; `dgcnn_vspace=False` keeps original order (the JAX package's
+control).
+
+The overlap head builds the dense (B, N, N) similarity, or streams its
+softmax through the `wproject` kernel above B N N = 64 Mi elements or with
+`overlap_stream=True` (`overlap_route`): the indoor request's dense matrix
+would take 4.9 GB a pair. The training forward keeps the dense head.
 """
 from __future__ import annotations
 
@@ -30,14 +37,16 @@ from ogmm_tpu_torch.losses import clu_loss
 from ogmm_tpu_torch.nn.attention import PositionEncoding, TransformerBlock
 from ogmm_tpu_torch.nn.dgcnn import DGCNN
 from ogmm_tpu_torch.nn.layers import ConvHead
-from ogmm_tpu_torch.ops.common import (cos_similarity, gather_neighbors,
-                                       index_points, knn, l2_normalize,
-                                       matmul32)
+from ogmm_tpu_torch.ops.common import (DENSE_ELEMS, cos_similarity,
+                                       gather_neighbors, index_points, knn,
+                                       knn_self_vspace, l2_normalize, matmul32)
 from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_MAX_N
+from ogmm_tpu_torch.ops.cuda_stream import wproject_stream_lse, wproject_takes
 from ogmm_tpu_torch.ops.fps import farthest_point_sample, fps_combined
 from ogmm_tpu_torch.ops.gmm import wkeans_plus
 from ogmm_tpu_torch.ops.icp import icp_point_to_point
 from ogmm_tpu_torch.ops.sinkhorn import sinkhorn
+from ogmm_tpu_torch.ops.stream import wproject_stream_lse_plain
 
 
 def gmm_svd(src_nodes, tgt_nodes, src_desc, tgt_desc, src_pi, tgt_pi,
@@ -66,6 +75,20 @@ def share_graph(n: int) -> bool:
     return n > KERNEL_MAX_N
 
 
+def overlap_route(B: int, N: int, M: int, D: int, dtype: torch.dtype,
+                  overlap_stream: bool | None) -> str:
+    """'dense', 'stream' or 'chunked' for the overlap head of B pairs of N
+    and M points with D features. It streams its softmax with
+    `overlap_stream`, or with None above B N M = 64 Mi elements, the JAX
+    package's rule (`ogmm_tpu/nn/gmmreg.py:141-144`): through the wproject
+    kernel where it takes D and the type, else through its plain version
+    (query chunks, the JAX package's `wproject_chunked`)."""
+    stream = B * N * M > DENSE_ELEMS if overlap_stream is None else overlap_stream
+    if not stream:
+        return "dense"
+    return "stream" if wproject_takes(D, dtype) else "chunked"
+
+
 def _norm32(x: torch.Tensor) -> torch.Tensor:
     """l2-normalise with float32 accumulation, back in x's type."""
     return l2_normalize(x.float()).to(x.dtype)
@@ -86,7 +109,8 @@ class GMMReg(nn.Module):
         dt = torch_dtype(cfg.dtype)
         self.compute_dtype = dt
         # the config keeps the JAX option's None; only False changes the route
-        self.dgcnn = DGCNN(D, cfg.gnn_k, dt, cfg.dgcnn_fused_train is not False)
+        self.dgcnn = DGCNN(D, cfg.gnn_k, dt, cfg.dgcnn_fused_train is not False,
+                           cfg.dgcnn_fused_edges is True)
         self.pos_enc = PositionEncoding(D, dt)
         self.sattn1 = TransformerBlock(D, cfg.num_heads, dt)
         self.cattn = TransformerBlock(D, cfg.num_heads, dt)
@@ -105,6 +129,11 @@ class GMMReg(nn.Module):
         if tgt.shape[1] != N:
             raise ValueError("the overlap head mixes src/tgt point axes and "
                              "requires equal point counts")
+        if self.training and cfg.overlap_stream:
+            raise NotImplementedError(
+                "overlap_stream=True in training is not ported yet: the "
+                "streamed head's backward comes with the indoor training "
+                "slice (ROADMAP.md, queue A item 5)")
         both = torch.cat([src, tgt], dim=0).float()          # (2B, N, 3)
         anchor_ids, center_ids = self._fps(both, generator)
         if self.training:
@@ -133,17 +162,41 @@ class GMMReg(nn.Module):
         """DGCNN features (B, N, D) and the angle features (B, N, pos_k) of
         (B, N, 3) clouds, or None for the angles where the route makes none
         (the position encoding then makes them itself)."""
-        pk = self.cfg.pos_k
+        cfg = self.cfg
+        pk = cfg.pos_k
         if not share_graph(clouds.shape[1]):
             return self.dgcnn(clouds, with_posenc_alpha=pk)
-        nbr = gather_neighbors(clouds, knn(clouds, clouds, self.cfg.gnn_k))
-        return self.dgcnn(clouds, with_posenc_alpha=pk, nbr_xyz=nbr,
-                          posenc_centroid=clouds.mean(dim=1, keepdim=True))
+        # the angles' centroid sums the rows in original order in either
+        # row space (the JAX package measured 0.1 deg of drift from the
+        # sorted-order sum)
+        cen = clouds.mean(dim=1, keepdim=True)
+        if cfg.dgcnn_vspace is False:
+            nbr = gather_neighbors(clouds, knn(clouds, clouds, cfg.gnn_k))
+            return self.dgcnn(clouds, with_posenc_alpha=pk, nbr_xyz=nbr,
+                              posenc_centroid=cen)
+        xs, idx, inv = knn_self_vspace(clouds, cfg.gnn_k)
+        f, a = self.dgcnn(xs, with_posenc_alpha=pk,
+                          nbr_xyz=gather_neighbors(xs, idx), posenc_centroid=cen)
+        if inv is not None:
+            f, a = index_points(f, inv), index_points(a, inv)
+        return f, a
 
     def _overlap_scores(self, src_f, tgt_f, src_o, tgt_o):
         """The overlap head's similarity-weighted projections of both
         directions; direction 2 weights the SOURCE-axis-indexed scores by
-        the column softmax, a quirk of the original kept on purpose."""
+        the column softmax, a quirk of the original kept on purpose. The
+        streamed route computes the same as two `wproject` calls, the
+        second with the roles of the clouds swapped."""
+        B, N, D = src_f.shape
+        route = "dense" if self.training else overlap_route(
+            B, N, tgt_f.shape[1], D, src_f.dtype, self.cfg.overlap_stream)
+        if route != "dense":
+            proj = (wproject_stream_lse if route == "stream"
+                    else wproject_stream_lse_plain)
+            src_n, tgt_n = _norm32(src_f), _norm32(tgt_f)
+            src_wo = proj(src_n, tgt_n, src_o)[0]
+            tgt_wo = proj(tgt_n, src_n, tgt_o)[0]
+            return src_wo.to(src_f.dtype), tgt_wo.to(tgt_f.dtype)
         sim = matmul32(_norm32(src_f).float(),
                        _norm32(tgt_f).float().transpose(1, 2))   # (B, N, N)
         src_wo = torch.matmul(torch.softmax(sim, dim=-1), src_o.float())

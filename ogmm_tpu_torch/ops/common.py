@@ -7,11 +7,11 @@ off for its call.
 
 `knn` and `nn1` choose their route from shapes, as the JAX package's
 `ops/common.py:knn/nn1` do on its accelerator, before anything runs: the
-kernel where the TPU kernel runs and the port's kernel takes the shape (on a
-CPU tensor the kernel's plain version, so that the CPU follows the card's
-route), else the JAX package's plain route, the dense (B, N, M) matrix up to
-64 Mi elements and query chunks above. Where the JAX package streams the
-target through a kernel (M > 4096) the port takes that plain route too.
+whole-target kernel at M <= 4096, the streamed kernels of `ops/stream.py`
+above (3-D points), where the port's kernel takes the shape (on a CPU
+tensor the kernel's plain version, so that the CPU follows the card's
+route); else the JAX package's plain route, the dense (B, N, M) matrix up to
+64 Mi elements and query chunks above.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 # 64 Mi elements, query chunks of 1024 rows above
 KERNEL_MAX_M = 4096
 KNN_KERNEL_MAX_K = 32      # one neighbour index a lane of a warp
+STREAM_MAX_K = 32          # knn_stream.cu keeps a sorted list of k in registers
 DENSE_ELEMS = 2 ** 26
 CHUNK = 1024
 ICP_DENSE_MAX_M = 1024     # `nn1(prefer_dense=True)`: ICP's dense route
@@ -82,7 +83,7 @@ def select_smallest(dist: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat(out, dim=-1)
 
 
-def _by_chunks(fn, src: torch.Tensor):
+def by_chunks(fn, src: torch.Tensor):
     """fn over query chunks of CHUNK rows, concatenated along the rows."""
     parts = [fn(src[:, i:i + CHUNK]) for i in range(0, src.shape[1], CHUNK)]
     if isinstance(parts[0], tuple):
@@ -92,14 +93,17 @@ def _by_chunks(fn, src: torch.Tensor):
 
 def knn_route(B: int, N: int, M: int, C: int, k: int,
               normalize: bool = False) -> str:
-    """'kernel', 'dense' or 'chunked' for a kNN of (B, N, C) queries among
-    (B, M, C) points: the kernel for euclidean 3-D points at M <= 4096 and
-    k <= 32 (the JAX package's `knn_pallas` takes any C and k there);
-    otherwise the JAX package's plain route (`knn_chunked` above 64 Mi
-    elements, the dense matrix below)."""
-    if (not normalize and C == 3 and M <= KERNEL_MAX_M
-            and 1 <= k <= min(KNN_KERNEL_MAX_K, M)):
-        return "kernel"
+    """'kernel', 'stream', 'dense' or 'chunked' for a kNN of (B, N, C)
+    queries among (B, M, C) points: for euclidean 3-D points and k <= 32 the
+    kernel at M <= 4096 and the streamed kernel above (the JAX package's
+    `knn_pallas` and `knn_stream` take any C and k); otherwise the JAX
+    package's plain route (`knn_chunked` above 64 Mi elements, the dense
+    matrix below)."""
+    if not normalize and C == 3:
+        if M <= KERNEL_MAX_M and 1 <= k <= min(KNN_KERNEL_MAX_K, M):
+            return "kernel"
+        if M > KERNEL_MAX_M and 1 <= k <= STREAM_MAX_K:
+            return "stream"
     if not normalize and B * N * M > DENSE_ELEMS:
         return "chunked"
     return "dense"
@@ -109,16 +113,45 @@ def knn(src: torch.Tensor, tgt: torch.Tensor, k: int,
         normalize: bool = False) -> torch.Tensor:
     """Indices of the k nearest neighbours of each src point among tgt:
     (B, N, C) x (B, M, C) -> int64 (B, N, k), ascending distance, ties to
-    the lowest index, by the route of `knn_route`."""
+    the lowest index, by the route of `knn_route`. The stream route sorts
+    the clouds along a Morton curve (`ops.stream.knn_self_spatial` when tgt
+    is src, else `knn_cross_spatial`): ties then go to the lowest sorted
+    position, the JAX package's contract there."""
     route = knn_route(src.shape[0], src.shape[1], tgt.shape[1], src.shape[2],
                       k, normalize)
     if route == "kernel":
         from ogmm_tpu_torch.ops import cuda_knn      # imports this module
         return cuda_knn.knn(src, tgt, k)
+    if route == "stream":
+        from ogmm_tpu_torch.ops import stream        # imports this module
+        if src is tgt:
+            return stream.knn_self_spatial(src, k)
+        return stream.knn_cross_spatial(src, tgt, k)
     if route == "chunked":
-        return _by_chunks(
+        return by_chunks(
             lambda q: select_smallest(square_distance(q, tgt), k), src)
     return select_smallest(square_distance(src, tgt, normalize), k)
+
+
+def vspace_route(N: int, C: int, k: int) -> bool:
+    """Whether a self-kNN graph of N points is built in Morton-sorted row
+    space: where the streamed kernel takes it (3-D points, N > 4096,
+    k <= 32), the JAX package's `ops/common.py:knn_self_vspace` rule on its
+    accelerator (which takes any k)."""
+    return C == 3 and N > KERNEL_MAX_M and 1 <= k <= STREAM_MAX_K
+
+
+def knn_self_vspace(x: torch.Tensor, k: int):
+    """The self-kNN graph in the cheapest row space: (B, N, 3) -> (xs, idx,
+    inv). Where `vspace_route` says so, the graph of the Morton-sorted cloud
+    xs in sorted rows (`ops.stream.knn_self_vspace`), per-point outputs
+    un-sorted with `inv`; elsewhere (x, knn(x, x, k), None), the graph in
+    original order."""
+    B, N, C = x.shape
+    if vspace_route(N, C, k):
+        from ogmm_tpu_torch.ops import stream        # imports this module
+        return stream.knn_self_vspace(x, k)
+    return x, knn(x, x, k), None
 
 
 def nn1_dense(src: torch.Tensor, tgt: torch.Tensor):
@@ -130,15 +163,16 @@ def nn1_dense(src: torch.Tensor, tgt: torch.Tensor):
 
 def nn1_route(B: int, N: int, M: int, C: int = 3,
               prefer_dense: bool = False) -> str:
-    """'dense', 'kernel' or 'chunked' for the 1-NN of (B, N, C) queries
-    among (B, M, C) points, the JAX package's `nn1` rule: with
-    `prefer_dense` (ICP) the dense matrix at M <= 1024, the kernel for 3-D
-    points at M <= 4096; above, where the JAX package streams (`nn1_stream`),
-    its plain route (`nn1_chunked` above 64 Mi elements, else dense)."""
+    """'dense', 'kernel', 'stream' or 'chunked' for the 1-NN of (B, N, C)
+    queries among (B, M, C) points, the JAX package's `nn1` rule: with
+    `prefer_dense` (ICP) the dense matrix at M <= 1024; for 3-D points the
+    kernel at M <= 4096 and the streamed kernel above (`nn1_stream`, which
+    the JAX package runs at any C); otherwise its plain route (`nn1_chunked`
+    above 64 Mi elements, else dense)."""
     if prefer_dense and M <= ICP_DENSE_MAX_M:
         return "dense"
-    if C == 3 and M <= KERNEL_MAX_M:
-        return "kernel"
+    if C == 3:
+        return "kernel" if M <= KERNEL_MAX_M else "stream"
     if B * N * M > DENSE_ELEMS:
         return "chunked"
     return "dense"
@@ -148,16 +182,19 @@ def nn1(src: torch.Tensor, tgt: torch.Tensor, prefer_dense: bool = False):
     """Nearest neighbour, the one dispatch point of ICP, the losses, the
     metrics and the overlap labels: (B, N, C) x (B, M, C) -> (min squared
     distance (B, N), index (B, N) int64), first index among equal minima, by
-    the route of `nn1_route`. The kernel route launches the CUDA kernel on a
-    CUDA tensor and runs its plain version (fixed-order distances,
-    `square_distance3`) on a CPU tensor."""
+    the route of `nn1_route`. The kernel and stream routes launch their CUDA
+    kernel on a CUDA tensor and run its plain version (fixed-order
+    distances, `square_distance3`) on a CPU tensor."""
     route = nn1_route(src.shape[0], src.shape[1], tgt.shape[1], src.shape[2],
                       prefer_dense)
     if route == "kernel":
         from ogmm_tpu_torch.ops import cuda_knn      # imports this module
         return cuda_knn.nn1(src, tgt)
+    if route == "stream":
+        from ogmm_tpu_torch.ops import cuda_stream   # imports this module
+        return cuda_stream.nn1_stream(src, tgt)
     if route == "chunked":
-        return _by_chunks(lambda q: nn1_dense(q, tgt), src)
+        return by_chunks(lambda q: nn1_dense(q, tgt), src)
     return nn1_dense(src, tgt)
 
 

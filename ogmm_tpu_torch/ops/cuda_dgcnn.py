@@ -13,6 +13,11 @@ position-encoding angles cos(angle(p -> nbr_j, p -> centroid)) of the first
 On a CUDA tensor the wrapper launches `csrc/dgcnn_eval.cu` (k in KERNEL_KS,
 k <= N <= 1024); on a CPU tensor it runs `dgcnn_eval_reference`, the plain
 PyTorch version of the same arithmetic.
+
+`dgcnn_edges(x, nbr, weights, affines)` is the stage chain alone over given
+float32 neighbour coordinates nbr (B, N, k, 3), at any N: the port of
+`dgcnn_edges_pallas`, the second entry point of the same source (k in
+KERNEL_KS), with `dgcnn_edges_reference` beside it.
 """
 from __future__ import annotations
 
@@ -73,32 +78,52 @@ def dgcnn_eval_reference(x: torch.Tensor, weights, affines, k: int = 20,
     return out
 
 
+def dgcnn_edges_reference(x: torch.Tensor, nbr: torch.Tensor, weights,
+                          affines, k: int = 20,
+                          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the edges kernel. x (B, N, 3), nbr (B, N, k,
+    3) float32 -> (B, N, emb) in `dtype`."""
+    x = x.float()
+    if nbr.shape[:3] != (*x.shape[:2], k):
+        raise ValueError(f"nbr {tuple(nbr.shape)} is not (B, N, k={k}, 3)")
+    center = x.unsqueeze(2).expand_as(nbr)
+    e = torch.cat([nbr.float() - center, center], dim=-1).to(dtype)
+    ws, bs = fold_weights(weights, affines, dtype)
+    return run_stages(e, ws, bs)
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _kernel_operands(what, x, weights, affines, k, dtype):
+    """The checks both entry points share, and their weights: BN folded,
+    stage 1 padded to rows of 8 (6 edge values + 2 zeros)."""
+    emb = weights[4].shape[1]
+    dims = [tuple(w.shape) for w in weights]
+    want = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb)]
+    if dims != want:
+        raise ValueError(f"{what} kernel: weight shapes {dims} != {want}")
+    if k not in KERNEL_KS or emb % 64:
+        raise ValueError(f"{what} kernel takes k in {KERNEL_KS} and emb a "
+                         f"multiple of 64; got k={k}, emb={emb}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what} kernel: dtype {dtype} not supported")
+    ws, bs = fold_weights(weights, affines, dtype)
+    w1 = torch.zeros(8, 64, dtype=dtype, device=x.device)
+    w1[:6] = ws[0]
+    return [w1] + [w.contiguous() for w in ws[1:]], [b.contiguous() for b in bs]
 
 
 def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k):
     B, N, _ = x.shape
     emb = weights[4].shape[1]
-    dims = [tuple(w.shape) for w in weights]
-    want = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb)]
-    if dims != want:
-        raise ValueError(f"dgcnn_eval kernel: weight shapes {dims} != {want}")
-    if k not in KERNEL_KS or not k <= N <= KERNEL_MAX_N:
-        raise ValueError(f"dgcnn_eval kernel takes k in {KERNEL_KS} and "
-                         f"k <= N <= {KERNEL_MAX_N}; got k={k}, N={N}")
-    if emb % 64 or posenc_k > k:
-        raise ValueError(f"dgcnn_eval kernel: emb={emb} must be a multiple "
-                         f"of 64 and posenc_k={posenc_k} <= k")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"dgcnn_eval kernel: dtype {dtype} not supported")
+    if not k <= N <= KERNEL_MAX_N or posenc_k > k:
+        raise ValueError(f"dgcnn_eval kernel takes k <= N <= {KERNEL_MAX_N} "
+                         f"and posenc_k <= k; got k={k}, N={N}, "
+                         f"posenc_k={posenc_k}")
     x = x.float().contiguous()
-    ws, bs = fold_weights(weights, affines, dtype)
-    # stage 1 reads rows of 8 (6 edge values + 2 zeros): pad its weight
-    w1 = torch.zeros(8, 64, dtype=dtype, device=x.device)
-    w1[:6] = ws[0]
-    ws = [w1] + [w.contiguous() for w in ws[1:]]
-    bs = [b.contiguous() for b in bs]
+    ws, bs = _kernel_operands("dgcnn_eval", x, weights, affines, k, dtype)
     idx = torch.empty(B, N, k, dtype=torch.int32, device=x.device)
     alpha = torch.empty(B, N, max(posenc_k, 1), dtype=torch.float32,
                         device=x.device)
@@ -127,3 +152,36 @@ def dgcnn_eval(x: torch.Tensor, weights, affines, k: int = 20,
     if x.is_cuda:
         return _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k)
     return dgcnn_eval_reference(x, weights, affines, k, dtype, posenc_k)
+
+
+def _dgcnn_edges_cuda(x, nbr, weights, affines, k, dtype):
+    B, N, _ = x.shape
+    emb = weights[4].shape[1]
+    if tuple(nbr.shape) != (B, N, k, 3) or N < 1 or nbr.device != x.device:
+        raise ValueError(f"dgcnn_edges kernel takes x (B, N, 3) and nbr "
+                         f"(B, N, k={k}, 3) on one device; got "
+                         f"{tuple(x.shape)}, {tuple(nbr.shape)}")
+    x = x.float().contiguous()
+    nbr = nbr.float().contiguous()
+    ws, bs = _kernel_operands("dgcnn_edges", x, weights, affines, k, dtype)
+    out = torch.empty(B, N, emb, dtype=dtype, device=x.device)
+    fn = dispatch.load_kernel("dgcnn_eval").dgcnn_edges_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    code = fn(_ptr(x), _ptr(nbr), *[_ptr(w) for w in ws], *[_ptr(b) for b in bs],
+              _ptr(out), B, N, emb, k, int(dtype == torch.bfloat16),
+              ctypes.c_void_p(dispatch.current_stream(x)))
+    dispatch.check_launch(code, "dgcnn_edges")
+    dispatch.launch_counts["dgcnn_edges"] += 1
+    return out
+
+
+def dgcnn_edges(x: torch.Tensor, nbr: torch.Tensor, weights, affines,
+                k: int = 20, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Eval DGCNN stage chain over given neighbours: x (B, N, 3) and nbr
+    (B, N, k, 3) float32 -> (B, N, emb) in `dtype`; weights and affines as
+    `dgcnn_eval`. Launches the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if x.is_cuda:
+        return _dgcnn_edges_cuda(x, nbr, weights, affines, k, dtype)
+    return dgcnn_edges_reference(x, nbr, weights, affines, k, dtype)

@@ -1,14 +1,20 @@
 """Batched point-to-point ICP refinement with a fixed trip count. The
 nearest-neighbour search of a trip takes the route of
 `ops.common.nn1_route(prefer_dense=True)`, as the JAX package's ICP does
-(`ogmm_tpu/ops/icp.py:166-172`): one dense (B, N, M) distance matrix and an
-argmin at M <= 1024, the 1-NN kernel at M <= 4096, the plain route above."""
+(`ogmm_tpu/ops/icp.py:133-172`): one dense (B, N, M) distance matrix and an
+argmin at M <= 1024, the 1-NN kernel at M <= 4096, and above (3-D points)
+the spatial route: both clouds Morton-sorted once, and each trip the
+streamed 1-NN over the sorted clouds with the tile-pair bounds of the moved
+source and the inlier gate, so that tiles farther than the gate are skipped
+(`ops.stream`). ICP is permutation-equivariant and only (R, t) leave the
+loop, so nothing is mapped back."""
 from __future__ import annotations
 
 import torch
 
 from ogmm_tpu_torch.core.procrustes import rigid_transform
-from ogmm_tpu_torch.ops.common import index_points, matmul32, nn1
+from ogmm_tpu_torch.ops import cuda_stream, stream
+from ogmm_tpu_torch.ops.common import index_points, matmul32, nn1, nn1_route
 
 
 @torch.no_grad()
@@ -24,9 +30,20 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
     thresh_sq = threshold * threshold
     rot = init_pose[..., :3, :3]
     t = init_pose[..., :3, 3]
+    B, N, C = src.shape
+    spatial = nn1_route(B, N, tgt.shape[1], C, prefer_dense=True) == "stream"
+    if spatial:
+        src = index_points(src, stream.morton_order(src))
+        tgt = index_points(tgt, stream.morton_order(tgt))
     for _ in range(max_iter):
         moved = matmul32(src, rot.transpose(-1, -2)) + t.unsqueeze(1)
-        nn_d, nn_i = nn1(moved, tgt, prefer_dense=True)
+        if spatial:
+            nn_d, nn_i = cuda_stream.nn1_stream(
+                moved, tgt, cull_lb=stream.pair_tile_bounds(moved, tgt),
+                max_dist_sq=thresh_sq, diag_order=True,
+                stretch=max(1, round(tgt.shape[1] / N)))
+        else:
+            nn_d, nn_i = nn1(moved, tgt, prefer_dense=True)
         corr = index_points(tgt, nn_i)
         w = (nn_d < thresh_sq).to(src.dtype)
         any_in = w.sum(dim=-1) > 0

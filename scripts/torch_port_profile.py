@@ -5,10 +5,13 @@ PyTorch/CUDA port goes.
     python3 scripts/torch_port_profile.py [--train [--bwd_kernels]]
                                           [--n_points N] [--out DIR]
                                           (default N=717, profile_out/)
+    python3 scripts/torch_port_profile.py --preset indoor [--n_points N]
 
 Needs one CUDA device. Runs GMMReg at B=24, N=717 (or --n_points: 1433 is
 ModelNet40's 2048-point clouds cropped to 0.70, the shared-graph route),
-emb 512, K=128 with a bf16 body and seeded random weights, and prints, for a request without and
+emb 512, K=128 with a bf16 body and seeded random weights (with --preset
+indoor: the indoor request, B=1, N=35,000, K=16, on bench.py's synthetic
+fragment against a rigid copy of it), and prints, for a request without and
 with ICP (or, with --train, for a train step with the metric suite and the
 overlap labels made on the device): the host-clock time per call, the
 device-busy time and idle share from `torch.profiler`, the number of device
@@ -91,6 +94,19 @@ def profile_call(fn, reps=3):
     }
 
 
+def indoor_pair(rs, n):
+    """bench.py's synthetic indoor fragment and a copy of it turned 20
+    degrees about z, shifted and permuted."""
+    u = rs.rand(1, n, 2).astype(np.float32)
+    z = np.sin(3 * u[..., :1]) * np.cos(2 * u[..., 1:])
+    src = (np.concatenate([u, 0.3 * z], -1) + 0.01 * rs.randn(1, n, 3)).astype(np.float32)
+    a = np.radians(20.0)
+    rot = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                    [0, 0, 1]], np.float32)
+    tgt = src @ rot.T + np.array([0.1, -0.05, 0.02], np.float32)
+    return src, tgt[:, rs.permutation(n)].astype(np.float32)
+
+
 def stage_times(reg, src, tgt):
     """CUDA-event time of the model's stages, by wrapping its submodules."""
     model = reg.model
@@ -108,7 +124,9 @@ def stage_times(reg, src, tgt):
 
     import ogmm_tpu_torch.nn.gmmreg as g
     saved = {k: getattr(g, k) for k in ("fps_combined", "wkeans_plus", "gmm_svd",
-                                        "icp_point_to_point", "knn")}
+                                        "icp_point_to_point", "knn",
+                                        "knn_self_vspace",
+                                        "wproject_stream_lse")}
     for k, fn in saved.items():
         setattr(g, k, timed(k, fn))
     fwd = {}
@@ -171,17 +189,29 @@ def main():
                     help="profile a train step instead of a request")
     ap.add_argument("--bwd_kernels", action="store_true",
                     help="with --train: the DGCNN backward through its kernels")
-    ap.add_argument("--n_points", type=int, default=717,
-                    help="points a cloud (above 1024: the shared kNN graph)")
+    ap.add_argument("--n_points", type=int, default=None,
+                    help="points a cloud (above 1024: the shared kNN graph; "
+                         "default 717, 35000 with --preset indoor)")
+    ap.add_argument("--preset", choices=["mnet", "indoor"], default="mnet")
     args = ap.parse_args()
-    N = args.n_points
+    indoor = args.preset == "indoor"
+    N = args.n_points or (35000 if indoor else 717)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
+    if indoor and args.train:
+        sys.exit("--preset indoor profiles the request only: indoor training "
+                 "is not ported yet (ROADMAP.md, queue A item 5)")
     rs = np.random.RandomState(0)
-    src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
-    tgt = src[:, rs.permutation(N)] + 0.05
-    result = {"shape": {"B": B, "N": N}, "bwd_kernels": args.bwd_kernels}
+    if indoor:
+        cfg = configs.indoor()
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype="bfloat16"))
+        src, tgt = indoor_pair(rs, N)
+    else:
+        cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
+        src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
+        tgt = src[:, rs.permutation(N)] + 0.05
+    result = {"shape": {"B": src.shape[0], "N": N}, "preset": args.preset,
+              "bwd_kernels": args.bwd_kernels}
     if args.train:
         from ogmm_tpu_torch.ops import dgcnn_train
         from ogmm_tpu_torch.train import create_train_state, make_train_step
@@ -217,7 +247,8 @@ def main():
     name = ("torch_port_profile" if not args.train
             else "torch_port_profile_train_bwd_kernels" if args.bwd_kernels
             else "torch_port_profile_train")
-    name += "" if N == 717 else f"_n{N}"
+    name += "_indoor" if indoor else ""
+    name += "" if N == (35000 if indoor else 717) else f"_n{N}"
     name += ".json"
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)

@@ -24,6 +24,9 @@ from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
 from ogmm_tpu_torch.ops.cuda_knn import knn, knn_reference, nn1, nn1_reference
 from ogmm_tpu_torch.ops.cuda_posenc import (posenc_angles,
                                             posenc_angles_reference)
+from ogmm_tpu_torch.ops import cuda_stream, stream
+from ogmm_tpu_torch.ops.common import index_points
+from ogmm_tpu_torch.ops.cuda_dgcnn import dgcnn_edges, dgcnn_edges_reference
 from ogmm_tpu_torch.train import (create_train_state, make_train_step,
                                   train_loss)
 
@@ -492,3 +495,104 @@ def test_bwd_wrappers_count_their_launches(card):
         BWD[name][1](*a, **kw)
     assert dispatch.launch_counts == {**NONE, "bwd_reduce": 1, "bwd_stage": 3,
                                       "bwd_edge": 1}
+
+
+# ------------------------------------------- the indoor request's kernels
+
+def _surface(rs, dev, B, N):
+    u = rs.rand(B, N, 2)
+    z = 0.3 * np.sin(3 * u[..., :1]) * np.cos(2 * u[..., 1:])
+    x = np.concatenate([u, z], -1) + 0.01 * rs.randn(B, N, 3)
+    return torch.tensor(x.astype(np.float32), device=dev)
+
+
+def _morton(x):
+    return index_points(x, stream.morton_order(x))
+
+
+@pytest.mark.parametrize("B,N,M,k", [(2, 5000, 5000, 20), (1, 4100, 4097, 1),
+                                     (2, 37, 6000, 32), (1, 700, 4500, 16)])
+@pytest.mark.parametrize("cull", [False, True])
+def test_knn_stream_kernel_matches_plain(card, B, N, M, k, cull):
+    rs = np.random.RandomState(N + k)
+    tgt = _morton(_surface(rs, card, B, M))
+    src = tgt if N == M else _morton(_surface(rs, card, B, N))
+    if N == M:
+        tgt[:, 100:301] = tgt[:, 50:51]       # 201 coincident points
+    kw = dict(diag_order=True, cull_lb=stream.pair_tile_bounds(src, tgt)) \
+        if cull else {}
+    got = cuda_stream.knn_stream(src, tgt, k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, stream.knn_stream_plain(src, tgt, k))
+
+
+def test_nn1_stream_kernel_matches_plain(card):
+    rs = np.random.RandomState(3)
+    tgt = _morton(_surface(rs, card, 2, 6000))
+    src = _morton(_surface(rs, card, 2, 5000)) + 0.002
+    gate = 0.075 ** 2
+    d, i = cuda_stream.nn1_stream(src, tgt, cull_lb=stream.pair_tile_bounds(
+        src, tgt), max_dist_sq=gate, diag_order=True)
+    rd, ri = stream.nn1_stream_plain(src, tgt)
+    inside = rd < gate
+    assert torch.equal(d[inside], rd[inside]) and torch.equal(i[inside], ri[inside])
+    assert (d[~inside] >= gate).all()
+    d, i = cuda_stream.nn1_stream(src, tgt)
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("B,N,M,D,dtype", [(1, 3000, 2500, 512, torch.bfloat16),
+                                           (2, 70, 50, 64, torch.bfloat16),
+                                           (1, 500, 700, 128, torch.float32)])
+def test_wproject_kernel_matches_plain(card, B, N, M, D, dtype):
+    rs = np.random.RandomState(D)
+    l2 = lambda a: (a / a.norm(dim=-1, keepdim=True)).to(dtype)
+    q = l2(torch.tensor(rs.randn(B, N, D).astype(np.float32), device=card))
+    k = l2(torch.tensor(rs.randn(B, M, D).astype(np.float32), device=card))
+    v = torch.tensor(rs.randn(B, M, 1).astype(np.float32), device=card)
+    out, lse = cuda_stream.wproject_stream_lse(q, k, v)
+    rout, rlse = stream.wproject_stream_lse_plain(q, k, v)
+    assert (out - rout).abs().max().item() <= 1e-4
+    assert (lse - rlse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 0.0625)])
+def test_dgcnn_edges_kernel_matches_plain(card, dtype, lim):
+    rs = np.random.RandomState(4)
+    x, ws, aff = _dgcnn_inputs(rs, card, 2, 3001, 512)
+    nbr = x[:, torch.tensor(rs.randint(0, 3001, (3001, 20)), device=card)]
+    out = dgcnn_edges(x, nbr, ws, aff, 20, dtype)
+    ref = dgcnn_edges_reference(x, nbr, ws, aff, 20, dtype)
+    assert (out.float() - ref.float()).abs().max().item() <= lim
+
+
+def test_indoor_kernels_refuse_what_they_do_not_take(card):
+    x = torch.zeros(1, 100, 3, device=card)
+    with pytest.raises(ValueError, match="k <="):
+        cuda_stream.knn_stream(x, x, 33)
+    with pytest.raises(ValueError, match="cull table"):
+        cuda_stream.nn1_stream(x, x, cull_lb=torch.zeros(1, 1, 2, device=card))
+    q = torch.zeros(1, 10, 48, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D in"):
+        cuda_stream.wproject_stream_lse(q, q, torch.zeros(1, 10, 1, device=card))
+    _, ws, aff = _dgcnn_inputs(np.random.RandomState(0), card, 1, 8, 64)
+    with pytest.raises(ValueError, match="k in"):
+        dgcnn_edges(x, torch.zeros(1, 100, 6, 3, device=card), ws, aff, 6)
+
+
+def test_indoor_registrar_routes_on_the_card(card):
+    cfg = configs.indoor()
+    cfg = cfg.replace(model=configs.ModelConfig(
+        **{**cfg.model.__dict__, "emb_dims": 64, "num_heads": 2,
+           "icp_iters": 3, "overlap_stream": True, "dgcnn_fused_edges": True}))
+    reg = Registrar(cfg, seed=1)
+    rs = np.random.RandomState(7)
+    src = _surface(rs, card, 1, 5000).cpu().numpy()
+    dispatch.reset_launch_counts()
+    rot, _, so, _ = reg(src, src[:, ::-1].copy(), refine=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rot).all() and so.shape == (1, 5000)
+    assert dispatch.launch_counts == {**NONE, "knn_stream": 1, "wproject": 2,
+                                      "dgcnn_edges": 1, "nn1_stream": 4,
+                                      "sinkhorn_em": 1}

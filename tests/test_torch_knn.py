@@ -98,14 +98,20 @@ def test_plain_routes_by_chunks_match_the_dense_route(monkeypatch):
     dense_knn = tcommon.knn(t(src), t(tgt), 6, normalize=False)
     dense_nn1 = tcommon.nn1_dense(t(src), t(tgt))
     monkeypatch.setattr(tcommon, "DENSE_ELEMS", 1000)
-    monkeypatch.setattr(tcommon, "KERNEL_MAX_M", 100)   # no kernel route
+    # no kernel route for the kNN; the 1-NN of 3-D points always has one
+    # (whole-target or streamed), so it is held on 4-D points with a zero
+    # fourth coordinate: the same distances
+    monkeypatch.setattr(tcommon, "KERNEL_MAX_M", 100)
+    monkeypatch.setattr(tcommon, "STREAM_MAX_K", 0)
+    src4, tgt4 = (np.concatenate([a, np.zeros_like(a[..., :1])], -1)
+                  for a in (src, tgt))
     assert tcommon.knn_route(2, 2500, 300, 3, 6) == "chunked"
-    assert tcommon.nn1_route(2, 2500, 300) == "chunked"
+    assert tcommon.nn1_route(2, 2500, 300, 4) == "chunked"
     # chunks of 1024 query rows: the same distances, up to the blocking of
     # the (rows, 3) x (3, M) product
     _assert_same_up_to_ties(n(tcommon.knn(t(src), t(tgt), 6)), n(dense_knn),
                             src, tgt)
-    d, i = tcommon.nn1(t(src), t(tgt))
+    d, i = tcommon.nn1(t(src4), t(tgt4))
     assert d.shape == i.shape == (2, 2500)
     np.testing.assert_allclose(n(d), n(dense_nn1[0]), rtol=1e-6, atol=1e-7)
     _assert_same_up_to_ties(n(i)[..., None], n(dense_nn1[1])[..., None],

@@ -289,8 +289,8 @@ def test_configs_translate_or_raise(preset):
 
 
 @pytest.mark.parametrize("option,value", [("recompute_anchors", True),
-                                          ("overlap_stream", True),
-                                          ("dgcnn_vspace", False),
+                                          ("stack_train", True),
+                                          ("remat", True),
                                           ("stack_eval", False)])
 def test_options_that_are_not_ported_raise(option, value):
     d = jconfigs.config_to_dict(jconfigs.mnet())
@@ -299,10 +299,22 @@ def test_options_that_are_not_ported_raise(option, value):
         tconfigs.config_from_dict(d)
 
 
+@pytest.mark.parametrize("option", ["dgcnn_fused_edges", "dgcnn_vspace",
+                                    "overlap_stream"])
+@pytest.mark.parametrize("value", [None, False, True])
+def test_the_indoor_options_translate(option, value):
+    d = jconfigs.config_to_dict(jconfigs.indoor())
+    d["model"][option] = value
+    assert getattr(tconfigs.config_from_dict(d).model, option) is value
+
+
 def test_presets_and_model_names():
     assert tconfigs.mnet().model == tconfigs.ModelConfig()
-    with pytest.raises(NotImplementedError):
-        tconfigs.indoor()
+    # the indoor preset's model is the JAX package's, field by field
+    jm, tm = jconfigs.indoor().model, tconfigs.indoor().model
+    for f in dataclasses.fields(tconfigs.ModelConfig):
+        assert getattr(tm, f.name) == getattr(jm, f.name), f.name
+    assert (tm.n_clusters, tm.km_clusters, tm.overlap_radius) == (16, 16, 0.0375)
     with pytest.raises(NotImplementedError):
         tconfigs.config_from_dict({"model_name": "DeepGMR"})
     with pytest.raises(ValueError, match="unknown model option"):

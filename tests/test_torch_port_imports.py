@@ -50,11 +50,13 @@ def test_the_kernels_of_every_slice_are_covered():
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"ops/cuda_knn.py", "ops/cuda_posenc.py", "ops/cuda_em.py",
             "ops/cuda_dgcnn.py", "ops/cuda_dgcnn_train.py",
-            "ops/cuda_dgcnn_bwd.py"} <= names
+            "ops/cuda_dgcnn_bwd.py", "ops/cuda_stream.py",
+            "ops/stream.py"} <= names
     # every kernel source is built, and none is left out of the build
     sources = {p.stem for p in (PKG / "csrc").glob("*.cu")}
     assert sources == set(dispatch.SOURCES)
-    assert {"knn", "posenc_angles"} <= set(dispatch.KERNELS)
+    assert {"knn", "posenc_angles", "dgcnn_edges", "knn_stream",
+            "nn1_stream", "wproject"} <= set(dispatch.KERNELS)
 
 
 def test_importing_every_module_loads_no_jax():

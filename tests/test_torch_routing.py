@@ -4,18 +4,21 @@ boundary shapes.
 The JAX side is observed, not restated: with its kernels switched on
 (`pallas_override(True)`, the accelerator's rule) its kernels and plain
 paths are replaced by stubs that raise `Taken(name)`, and the name that
-comes back is the route it chose. Where the JAX package runs a kernel that
-the port does not have or whose envelope is narrower (the streamed kernels
-above M = 4096, k > 32, the EM above the port's shared memory), the port
-takes the route the JAX package takes off its accelerator
-(`pallas_override(False)`)."""
+comes back is the route it chose. Where the JAX package runs a kernel whose
+envelope is wider than the port's (k > 32, points of C != 3, the EM above
+the port's shared memory), the port takes the route the JAX package takes
+off its accelerator (`pallas_override(False)`)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import ogmm_tpu.nn.attention as jattention
 import ogmm_tpu.nn.dgcnn as jdgcnn
+import ogmm_tpu.nn.gmmreg as jgmmreg
 import ogmm_tpu.ops.common as jcommon
 import ogmm_tpu.ops.dgcnn_train as jdgcnn_train
 import ogmm_tpu.ops.gmm as jgmm
@@ -23,10 +26,12 @@ import ogmm_tpu.ops.pallas_dgcnn as jpallas_dgcnn
 import ogmm_tpu.ops.pallas_em as jpallas_em
 import ogmm_tpu.ops.pallas_knn as jpallas_knn
 import ogmm_tpu.ops.pallas_stream as jpallas_stream
+from ogmm_tpu.configs import ModelConfig as JModelConfig
 from ogmm_tpu.ops.dispatch import pallas_override
+from ogmm_tpu.ops.icp import icp_point_to_point as jicp
 from ogmm_tpu_torch.nn import gmmreg as tgmmreg
 from ogmm_tpu_torch.nn.attention import angle_route
-from ogmm_tpu_torch.nn.dgcnn import fused_route
+from ogmm_tpu_torch.nn.dgcnn import edges_route, fused_route
 from ogmm_tpu_torch.ops import common as tcommon
 from ogmm_tpu_torch.ops import cuda_em
 from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_N
@@ -83,6 +88,8 @@ def test_knn_route_follows_the_jax_rule(knn_stubs, N, k):
         port = tcommon.knn_route(B, N, M, C, k)
         if jax_route == "kernel" and C == 3 and k <= tcommon.KNN_KERNEL_MAX_K:
             assert port == "kernel", (B, N, M, C, k)
+        elif jax_route == "stream" and C == 3 and k <= tcommon.STREAM_MAX_K:
+            assert port == "stream", (B, N, M, C, k)
         else:
             # a JAX kernel the port lacks: its route off the accelerator
             assert port == _jax_knn(B, N, M, k, C, False), (B, N, M, C, k)
@@ -95,16 +102,18 @@ def test_knn_route_follows_the_jax_rule(knn_stubs, N, k):
                                         (2, 4097, 4097, "dense"),
                                         (4, 4097, 4097, "chunked")])
 def test_plain_routes_switch_at_64_mi_elements(knn_stubs, B, N, M, want):
-    # at B N M = 2^26 the dense matrix, above it query chunks (M > 4096
-    # there, or no kernel: k = 33)
+    # at B N M = 2^26 the dense matrix, above it query chunks, where the
+    # port has no kernel (k = 33; the 1-NN of 4-D points); 3-D points
+    # above M = 4096 stream, as on the JAX package's accelerator
     assert tcommon.knn_route(B, N, M, 3, 33) == _jax_knn(B, N, M, 33, 3, False,
                                                          same=False) == want
     if M > tcommon.KERNEL_MAX_M:
-        assert tcommon.knn_route(B, N, M, 3, 20) == want
+        assert tcommon.knn_route(B, N, M, 3, 20) == "stream"
         with pallas_override(False):
-            assert _taken(lambda: jcommon.nn1(jnp.zeros((B, N, 3)),
-                                              jnp.zeros((B, M, 3)))) == want
-        assert tcommon.nn1_route(B, N, M) == want
+            assert _taken(lambda: jcommon.nn1(jnp.zeros((B, N, 4)),
+                                              jnp.zeros((B, M, 4)))) == want
+        assert tcommon.nn1_route(B, N, M, 4) == want
+        assert tcommon.nn1_route(B, N, M) == "stream"
 
 
 @pytest.mark.parametrize("M", [1, 717, 1024, 1025, 1433, 4096, 4097])
@@ -114,11 +123,13 @@ def test_nn1_route_follows_the_jax_rule(knn_stubs, M, prefer_dense):
     with pallas_override(True):
         jax_route = _taken(lambda: jcommon.nn1(src, tgt,
                                                prefer_dense=prefer_dense))
-    port = tcommon.nn1_route(2, 300, M, 3, prefer_dense)
-    if jax_route == "stream":
-        with pallas_override(False):
-            jax_route = _taken(lambda: jcommon.nn1(src, tgt))
-    assert port == jax_route
+    assert tcommon.nn1_route(2, 300, M, 3, prefer_dense) == jax_route
+    # points of another width take the JAX package's plain route
+    with pallas_override(False):
+        plain = _taken(lambda: jcommon.nn1(jnp.zeros((2, 300, 4)),
+                                           jnp.zeros((2, M, 4)),
+                                           prefer_dense=prefer_dense))
+    assert tcommon.nn1_route(2, 300, M, 4, prefer_dense) == plain
 
 
 # ----------------------------------------------------------------- the EM
@@ -222,3 +233,127 @@ def test_the_graph_is_shared_above_the_fused_envelope(N):
     # ogmm_tpu/nn/gmmreg.py:154: share_graph = N > 1024 and pos_k <= gnn_k
     # (GMMReg of either package refuses pos_k > gnn_k)
     assert tgmmreg.share_graph(N) == (N > 1024)
+
+
+# ------------------------------------------------ the large-cloud routes
+
+@pytest.mark.parametrize("N", NS)
+@pytest.mark.parametrize("k", KS)
+def test_vspace_route_follows_the_jax_rule(monkeypatch, N, k):
+    # ogmm_tpu/ops/common.py:217-243: the Morton-sorted graph above N = 4096
+    _stub(monkeypatch, jpallas_stream, "knn_self_vspace", "vspace")
+    _stub(monkeypatch, jcommon, "knn", "knn")
+    x = jnp.zeros((1, N, 3))
+    with pallas_override(True):
+        jax_route = _taken(lambda: jcommon.knn_self_vspace(x, k))
+    port = tcommon.vspace_route(N, 3, k)
+    assert port == (jax_route == "vspace" and k <= tcommon.STREAM_MAX_K)
+    assert not tcommon.vspace_route(N, 6, k)
+
+
+@pytest.mark.parametrize("M", [4096, 4097])
+def test_icp_route_follows_the_jax_rule(knn_stubs, M):
+    # ogmm_tpu/ops/icp.py:133-161: the spatial route (sorted clouds, the
+    # culled and gated nn1_stream) above M = 4096
+    src, tgt = jnp.zeros((1, 300, 3)), jnp.zeros((1, M, 3))
+    init = jnp.broadcast_to(jnp.eye(4), (1, 4, 4))
+    with pallas_override(True):
+        jax_route = _taken(lambda: jicp(src, tgt, init, 0.1, max_iter=1))
+    assert jax_route == ("stream" if M > 4096 else "kernel")
+    assert tcommon.nn1_route(1, 300, M, 3, prefer_dense=True) == jax_route
+
+
+def _overlap_cfg(overlap_stream=None):
+    return JModelConfig(emb_dims=32, n_clusters=4, km_clusters=4, num_heads=2,
+                        gnn_k=6, pos_k=4, em_iters=1, sinkhorn_iters=1,
+                        overlap_stream=overlap_stream)
+
+
+@pytest.fixture(scope="module")
+def gmmreg_variables():
+    # the parameters do not depend on the point count or the head's route
+    x = jnp.asarray(np.random.RandomState(0).randn(1, 40, 3), jnp.float32)
+    with pallas_override(False):
+        return jgmmreg.GMMReg(cfg=_overlap_cfg(False)).init(
+            {"params": jax.random.PRNGKey(0)}, x, x, train=False)
+
+
+@pytest.mark.parametrize("N,overlap_stream", [(40, None), (48, None),
+                                              (40, True), (48, False)])
+def test_overlap_route_follows_the_jax_rule(monkeypatch, gmmreg_variables, N,
+                                            overlap_stream):
+    # ogmm_tpu/nn/gmmreg.py:141-144, with the 2^26 threshold of both
+    # packages lowered to 2,000 elements so that a small forward crosses it
+    # (B N N = 1,600 and 2,304)
+    assert tcommon.DENSE_ELEMS == jcommon._DENSE_ELEMS == 2 ** 26
+    monkeypatch.setattr(jcommon, "_DENSE_ELEMS", 2000)
+    monkeypatch.setattr(tgmmreg, "DENSE_ELEMS", 2000)
+    _stub(monkeypatch, jgmmreg, "_overlap_wproject", "stream")
+    # the clustering comes right after the head: stop there
+    _stub(monkeypatch, jgmmreg, "wkeans_plus", "dense")
+    x = jnp.asarray(np.random.RandomState(1).randn(1, N, 3), jnp.float32)
+    with pallas_override(False):
+        jax_route = _taken(lambda: jgmmreg.GMMReg(
+            cfg=_overlap_cfg(overlap_stream)).apply(gmmreg_variables, x, x,
+                                                    train=False))
+    port = tgmmreg.overlap_route(1, N, N, 32, torch.float32, overlap_stream)
+    assert port == jax_route
+
+
+@pytest.mark.parametrize("D,dtype,want", [(512, torch.bfloat16, "stream"),
+                                          (32, torch.bfloat16, "chunked"),
+                                          (32, torch.float32, "stream"),
+                                          (48, torch.float32, "chunked")])
+def test_the_streamed_head_takes_the_kernel_where_it_takes_the_width(D, dtype,
+                                                                    want):
+    # the JAX package's kernel takes any D; where the port's does not, its
+    # plain version (the JAX package's wproject_chunked) streams instead
+    assert tgmmreg.overlap_route(1, 50, 50, D, dtype, True) == want
+
+
+def test_overlap_streams_above_64_mi_elements():
+    route = lambda *a: tgmmreg.overlap_route(*a, 512, torch.bfloat16, None)
+    assert route(1, 8192, 8192) == "dense"
+    assert route(1, 8193, 8192) == route(1, 35000, 35000) == "stream"
+    assert tgmmreg.overlap_route(1, 35000, 35000, 512, torch.bfloat16,
+                                 False) == "dense"
+
+
+@pytest.mark.parametrize("N", [1024, 1025])
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("have_graph", [False, True])
+def test_edges_route_follows_the_jax_rule(monkeypatch, dgcnn_variables, N,
+                                          train, have_graph):
+    # ogmm_tpu/nn/dgcnn.py:146-197 with dgcnn_fused_edges=True
+    _stub(monkeypatch, jpallas_dgcnn, "dgcnn_eval_pallas", "fused")
+    _stub(monkeypatch, jpallas_dgcnn, "dgcnn_edges_pallas", "edges")
+    _stub(monkeypatch, jdgcnn_train, "dgcnn_train_fused", "fused")
+    _stub(monkeypatch, jdgcnn, "knn", "unfused")
+    jm = jdgcnn.DGCNN(emb_dims=64, k=20, fused_edges=True)
+    x = jnp.zeros((1, N, 3))
+    graph = jnp.zeros((1, N, 20), jnp.int32) if have_graph else None
+
+    def jax_call():
+        try:
+            return _taken(lambda: jm.apply(dgcnn_variables, x, train=train,
+                                           nbr_idx=graph,
+                                           mutable=["batch_stats"]))
+        except ValueError:
+            return "raise"
+
+    with pallas_override(True):
+        jax_route = jax_call() or "unfused"
+    try:
+        fused = fused_route(N, 20, train, have_graph)
+        if (train or not fused) and edges_route(N, train, have_graph, True):
+            port = "edges"
+        else:
+            port = "fused" if fused else "unfused"
+    except ValueError:
+        port = "raise"
+    if jax_route == "fused" and not train and have_graph:
+        # the JAX eval kernel ignores a given graph; the port's fused route
+        # never takes one (GMMReg gives one only above N = 1024)
+        assert port == "unfused"
+    else:
+        assert port == jax_route

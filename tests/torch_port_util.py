@@ -57,3 +57,22 @@ def to_plain(tree):
     """flax variables -> nested dict of numpy arrays."""
     from flax.core import unfreeze
     return jax.tree_util.tree_map(np.asarray, jax.device_get(unfreeze(tree)))
+
+
+def assert_same_up_to_ties(got, want, src, tgt, max_share=0.01):
+    """kNN indices (B, N, k) equal, or of points at the same distance within
+    1e-6 relative (float64 distances of the two choices): the two packages
+    form float32 distances in other orders, so near-ties may go either way
+    (at most `max_share` of the entries)."""
+    got, want = np.asarray(got).astype(np.int64), np.asarray(want).astype(np.int64)
+    assert got.shape == want.shape
+    src, tgt = np.asarray(src, np.float64), np.asarray(tgt, np.float64)
+    B, N, k = got.shape
+    dg = ((src[:, :, None, :] - np.take_along_axis(
+        tgt[:, None], got[..., None], axis=2)) ** 2).sum(-1)
+    dw = ((src[:, :, None, :] - np.take_along_axis(
+        tgt[:, None], want[..., None], axis=2)) ** 2).sum(-1)
+    differ = got != want
+    assert np.allclose(dg[differ], dw[differ], rtol=1e-6, atol=1e-12), \
+        np.abs(dg - dw).max()
+    assert differ.mean() <= max_share, differ.mean()
