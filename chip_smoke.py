@@ -58,6 +58,20 @@ fatal on failure:
              target: with and without ICP, and with dgcnn_fused_edges=True;
              launches, request times, peak memory, rotation and overlap
              scores against the same request through the plain versions
+ 14. pointmlp, fps, icp   the fused attention MLP, the FPS chain and the
+             whole-loop ICP against their plain versions at the refined
+             request's calls (48 clouds of 717, 1024 -> 1024 -> 512 bf16;
+             96 rows of 717, 128 steps; 24 pairs of 717, 30 trips) and at
+             awkward ones (float32, N not a multiple of the tile; N = 1433
+             and 35,000 with tied distances; N != M, a cloud without
+             inliers, M = 4096): FPS ids and ICP's first-trip
+             correspondences identical, poses and outputs within limits
+ 15. serve_loops   the refined N=717 request of phase 3 through a
+             Registrar with `loop_kernels=True` (FPS, ICP and the three
+             attention MLPs through their kernels) beside one without, on
+             the same weights: launches (fps 1, pointmlp 3, icp 1), request
+             times of both, peak memory, rotation and overlap scores against
+             the one without and against the plain versions
 
 `python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
 (build always runs; the names are those of PHASES below) and prints their
@@ -87,6 +101,8 @@ try:
     from ogmm_tpu_torch.core import se3
     from ogmm_tpu_torch.nn import dgcnn as nn_dgcnn
     from ogmm_tpu_torch.ops import cuda_knn, cuda_stream, dispatch, stream
+    from ogmm_tpu_torch.ops import cuda_fps, cuda_icp, cuda_mlp
+    from ogmm_tpu_torch.ops import fps as ops_fps
     from ogmm_tpu_torch.nn import gmmreg as nn_gmmreg
     from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
     from ogmm_tpu_torch.ops import gmm as ops_gmm
@@ -149,6 +165,12 @@ LIM_BWD_DZ_BF16 = 2.0 ** -6  # two bf16 ulps at the largest dz: a rounded
 #                          cotangent (dz W^T) may land one ulp off
 LIM_BWD_SUM_BF16 = 2e-2  # dW, S, dq, dscat: float32 sums of bf16 products
 #                          over 344,160 rows in another order
+LIM_MLP_F32 = 1e-4       # the fused PointMLP: float32 sums of 1024 products
+#                          and moments over 717 rows in another order
+LIM_MLP_BF16 = 0.0625    # outputs up to ~4: a z or h rounded one bf16 ulp
+#                          apart moves out by a few ulps
+LIM_ICP_POSE = 1e-4      # 30 ICP trips: the moments summed in another order
+#                          (the first trip's correspondences are identical)
 # limits, serving forward with kernels against the same with plain versions
 LIM_OVERLAP = 0.05       # sigmoid scores after a bf16 body
 LIM_ROT_DEG = 1.0        # median angle between the two refined rotations
@@ -515,7 +537,10 @@ class plain_versions:
              (cuda_posenc, "posenc_angles", posenc_angles_reference),
              (ops_dgcnn_train, "bwd_reduce", bwd_reduce_reference),
              (ops_dgcnn_train, "bwd_stage", bwd_stage_reference),
-             (ops_dgcnn_train, "bwd_edge", bwd_edge_reference))
+             (ops_dgcnn_train, "bwd_edge", bwd_edge_reference),
+             (cuda_fps, "fps", cuda_fps.fps_reference),
+             (cuda_icp, "icp_fused", cuda_icp.icp_fused_reference),
+             (cuda_mlp, "pointmlp_eval", cuda_mlp.pointmlp_eval_reference))
 
     def __init__(self, names=None):
         self.swaps = [sw for sw in self.SWAPS if names is None or sw[1] in names]
@@ -740,7 +765,7 @@ def run_cli():
     assert trainer.state.device.type == "cuda"
     # every kernel of the N=717 training path; the kNN and angle kernels
     # serve the large-cloud and unfused routes
-    other = {"knn", "posenc_angles", *INDOOR_KERNELS}
+    other = {"knn", "posenc_angles", *INDOOR_KERNELS, *LOOP_KERNELS}
     for name in set(dispatch.KERNELS) - other:
         assert launches[name] > 0, launches
     assert all(launches[name] == 0 for name in other), launches
@@ -1425,8 +1450,229 @@ def serve_indoor(rs):
                           "launches_no_icp": launches[False]}
 
 
+
+# ------------------------------------- the whole-loop and fused kernels
+
+LOOP_KERNELS = ("fps", "icp", "pointmlp")
+
+
+def check_pointmlp(rs):
+    """The fused PointMLP against its plain version at the attention blocks'
+    call (2B=48 clouds of 717 points, 1024 -> 1024 -> 512, bf16), in float32
+    too, and at (3, 90, 128 -> 128 -> 64), N not a multiple of the kernel's
+    row tile; timed at the path's call."""
+    def inputs(b, n, cin, h, cout):
+        w = lambda *sh: torch.tensor(
+            rs.randn(*sh).astype(np.float32) / np.sqrt(sh[-1]), device=DEV)
+        x = torch.tensor(rs.randn(b, n, cin).astype(np.float32), device=DEV)
+        return x, w(h, cin), w(h) * 0.3, w(cout, h), w(cout) * 0.3
+
+    path = inputs(2 * B, N, 2 * EMB, 2 * EMB, EMB)
+    errs = {}
+    for args in (path, inputs(3, 90, 128, 128, 64)):
+        for dt, lim in ((torch.float32, LIM_MLP_F32), (torch.bfloat16, LIM_MLP_BF16)):
+            x = args[0].to(dt)
+            out = cuda_mlp.pointmlp_eval(x, *args[1:], dt)
+            torch.cuda.synchronize()
+            ref = cuda_mlp.pointmlp_eval_reference(x, *args[1:], dt)
+            assert out.dtype == dt and out.shape == ref.shape
+            err = (out.float() - ref.float()).abs().max().item()
+            print(f"pointmlp {tuple(x.shape)} -> {out.shape[-1]} {dt}: max|kernel - "
+                  f"plain| = {err:.3g} (limit {lim}), max|plain| = "
+                  f"{ref.float().abs().max().item():.3g}")
+            assert torch.isfinite(out.float()).all() and err <= lim
+            errs[dt] = max(errs.get(dt, 0.0), err)
+    bf = torch.bfloat16
+    xb, x32 = path[0].to(bf), path[0]
+    ms = cuda_ms(lambda: cuda_mlp.pointmlp_eval(xb, *path[1:], bf), 10)
+    ms32 = cuda_ms(lambda: cuda_mlp.pointmlp_eval(x32, *path[1:], torch.float32), 3)
+    plain = cuda_ms(lambda: cuda_mlp.pointmlp_eval_reference(xb, *path[1:], bf), 3)
+    rows, cin, h, cout = 2 * B * N, 2 * EMB, 2 * EMB, EMB
+    flops_bf16 = 2.0 * rows * (cin * h + h * cout)
+    flops_f32 = 10.0 * rows * h                      # moments, normalise, ReLU
+    nbytes = 2 * (rows * cin + h * cin + h + cout * h + cout + rows * cout)
+    t_ops = flops_bf16 / PEAK_FLOPS["bf16"] + flops_f32 / PEAK_FLOPS["f32"]
+    t_bytes = nbytes / PEAK_BYTES
+    bound = max(t_ops, t_bytes) * 1e3
+    print(f"pointmlp ({rows // N}, {N}, {cin} -> {h} -> {cout}): {ms:.3f} ms bf16, "
+          f"{ms32:.3f} ms float32, plain {plain:.3f} ms, bound {bound:.4f} ms")
+    return {"name": "pointmlp", "route": "cuda",
+            "source": "ogmm_tpu_torch/csrc/pointmlp.cu",
+            "replaces": "ogmm_tpu/ops/pallas_mlp.py:84",
+            "max_abs_err": errs[bf], "max_abs_err_f32": errs[torch.float32],
+            "ms": ms, "ms_f32": ms32, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def _fps_state(rs, x):
+    """fps_combined's 2R rows of R clouds: random starts at distance 1e10,
+    centre starts with the distances to the centroid."""
+    R, n, _ = x.shape
+    d_c, s_c = ops_fps._center_state(x)
+    start = torch.tensor(rs.randint(0, n, R), device=DEV)
+    return (torch.cat([x, x]), torch.cat([torch.full_like(d_c, 1e10), d_c]),
+            torch.cat([start, s_c]))
+
+
+def check_fps(rs):
+    """The FPS kernel against its plain loop, identical ids: fps_combined's
+    96 rows of 717 points (the path's call), 2B clouds of 1433, the indoor
+    request's 4 rows of 35,000 (distances in L2), each with a duplicated
+    point; timed at the path's call and at 35,000."""
+    shapes = [(2 * B, N), (2 * B, N_LARGE), (2, N_INDOOR)]
+    worst, timed = 0, {}
+    for b, n in shapes:
+        xs, dist, start = _fps_state(rs, _cloud(rs, b, n))
+        got = cuda_fps.fps(xs, K, dist, start)
+        torch.cuda.synchronize()
+        want = cuda_fps.fps_reference(xs, K, dist, start)
+        same = torch.equal(got, want)
+        worst = max(worst, (got - want).abs().max().item())
+        print(f"fps ({2 * b} rows of {n}, {K} steps): ids identical {same}")
+        assert same and got.dtype == torch.int64
+        timed[n] = (xs, dist, start)
+    xs, dist, start = timed[N]
+    ms = cuda_ms(lambda: cuda_fps.fps(xs, K, dist, start), 20)
+    plain = cuda_ms(lambda: cuda_fps.fps_reference(xs, K, dist, start), 3)
+    xi, di, si = timed[N_INDOOR]
+    ms_indoor = cuda_ms(lambda: cuda_fps.fps(xi, K, di, si), 3)
+    rows = 4 * B
+    # a step: three differences, three squares, two sums, a minimum and a
+    # compare a point
+    bound, by = _bound(rows * N * K * 10.0, rows * N * 16 + rows * 8 + rows * K * 8)
+    print(f"fps ({rows} rows of {N}, {K} steps): {ms:.4f} ms, plain {plain:.3f} ms, "
+          f"bound {bound:.5f} ms ({by}); (4 rows of {N_INDOOR}) {ms_indoor:.4f} ms")
+    return {"name": "fps", "route": "cuda", "source": "ogmm_tpu_torch/csrc/fps.cu",
+            "replaces": "ogmm_tpu/ops/pallas_fps.py:74",
+            "max_abs_err": float(worst), "ms": ms, "ms_indoor_rows": ms_indoor,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def _icp_inputs(rs, b, n, m, far=()):
+    """Rigid pairs (src of n points, tgt a moved copy cut or padded to m
+    points), an init pose about 3 degrees off; the clouds in `far` get a
+    target 100 away (no inlier in any trip)."""
+    src, tgt, rot, trans = make_pairs(rs, b, n)
+    if m > n:
+        tgt = np.concatenate([tgt, (rs.randn(b, m - n, 3) * 0.3 + 1).astype(np.float32)], 1)
+    src, tgt, rot, trans = (torch.tensor(a, device=DEV) for a in (src, tgt[:, :m], rot, trans))
+    for i in far:
+        tgt[i] += 100.0
+    d = torch.tensor(rs.uniform(-0.03, 0.03, (b, 3)).astype(np.float32), device=DEV)
+    skew = torch.zeros(b, 3, 3, device=DEV)
+    skew[:, 0, 1], skew[:, 0, 2], skew[:, 1, 2] = -d[:, 2], d[:, 1], -d[:, 0]
+    skew = skew - skew.transpose(1, 2)
+    return src, tgt, se3.integrate(torch.linalg.matrix_exp(skew) @ rot, trans)
+
+
+def check_icp_kernel(rs):
+    """The whole-loop ICP against its plain version, 30 trips at the
+    refined request's gate (0.07): the first trip's correspondences
+    identical, the final poses within LIM_ICP_POSE; at the path's call (24,
+    717, 717), at N=1433, at N != M, with a cloud without inliers (its pose
+    kept exactly) and at the envelope M = 4096; timed at the path's call and
+    at N=1433."""
+    thr2 = (2.0 * configs.ModelConfig().overlap_radius) ** 2
+    cases = [(B, N, N, ()), (B, N_LARGE, N_LARGE, ()), (8, N, 600, (3,)),
+             (8, 500, 900, ()), (4, 4096, 4096, (0,))]
+    worst, timed = 0.0, {}
+    for b, n, m, far in cases:
+        src, tgt, init = _icp_inputs(rs, b, n, m, far)
+        r, t, first = cuda_icp.icp_fused(src, tgt, init, thr2, return_first=True)
+        torch.cuda.synchronize()
+        rr, rt, rfirst = cuda_icp.icp_fused_reference(src, tgt, init, thr2,
+                                                      return_first=True)
+        same = torch.equal(first, rfirst)
+        err = max((r - rr).abs().max().item(), (t - rt).abs().max().item())
+        kept = all(torch.equal(r[i], init[i, :3, :3]) and torch.equal(t[i], init[i, :3, 3])
+                   for i in far)
+        print(f"icp ({b}, {n}, {m}), 30 trips: first trip's 1-NN identical {same}, "
+              f"max|pose kernel - plain| = {err:.3g} (limit {LIM_ICP_POSE}); "
+              f"clouds without inliers {list(far)} keep their pose {kept}")
+        assert same and kept and err <= LIM_ICP_POSE
+        assert torch.isfinite(r).all() and torch.isfinite(t).all()
+        worst = max(worst, err)
+        timed[(n, m)] = (src, tgt, init)
+    ms = cuda_ms(lambda: cuda_icp.icp_fused(*timed[(N, N)], thr2), 10)
+    ms_large = cuda_ms(lambda: cuda_icp.icp_fused(*timed[(N_LARGE, N_LARGE)], thr2), 5)
+    plain = cuda_ms(lambda: cuda_icp.icp_fused_reference(*timed[(N, N)], thr2), 2)
+    # a trip: 8 operations a distance and a compare a pair; moving a point,
+    # its moments and covariance about 60
+    bound, by = _bound(30 * B * (N * N * 9.0 + N * 60.0), B * (2 * N * 12 + 2 * 48))
+    print(f"icp ({B}, {N}, {N}), 30 trips: {ms:.4f} ms, plain {plain:.3f} ms, "
+          f"bound {bound:.5f} ms ({by}); ({B}, {N_LARGE}, {N_LARGE}) {ms_large:.4f} ms")
+    return {"name": "icp", "route": "cuda", "source": "ogmm_tpu_torch/csrc/icp.cu",
+            "replaces": "ogmm_tpu/ops/pallas_icp.py:152",
+            "max_abs_err": worst, "ms": ms, "ms_n1433": ms_large,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def serve_loops(rs):
+    """The refined request of `serve` (B=24, N=717, bf16) through a
+    Registrar with `loop_kernels=True` and one without, on the same weights:
+    launches of one request (fps 1, pointmlp 3, icp 1), the request time of
+    each on the same requests (on, off, off, on), the peak device memory of
+    each, and the refined rotation and overlap scores against the one
+    without and against the plain versions."""
+    cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
+    regs = {on: Registrar(cfg, seed=0, device=DEV, loop_kernels=on)
+            for on in (True, False)}
+    requests = [make_pairs(rs, B, N) for _ in range(3)]
+    for reg in regs.values():
+        reg(requests[0][0], requests[0][1], refine=True)   # warm up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    regs[True](requests[0][0], requests[0][1], refine=True)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.launch_counts)
+    print("kernel launches in one refined request with loop_kernels:", launches)
+    want = {"fps": 1, "pointmlp": 3, "icp": 1, "dgcnn_eval": 1, "sinkhorn_em": 1}
+    assert {k: launches[k] for k in want} == want, launches
+    times, peak, outs = {True: [], False: []}, {}, {}
+    for on in (True, False, False, True):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for src, tgt, _, _ in requests:
+            outs[on] = regs[on](src, tgt, refine=True)
+        torch.cuda.synchronize()
+        times[on].append((time.perf_counter() - t0) / len(requests) * 1e3)
+        peak[on] = torch.cuda.max_memory_allocated() / 2 ** 20
+        for o in outs[on]:
+            assert torch.isfinite(o).all()
+        r = outs[on][0]
+        eye = torch.eye(3, device=DEV).expand(B, 3, 3)
+        assert (r @ r.transpose(1, 2) - eye).abs().max() < 1e-4
+    print(f"refined request of {B} pairs: {times[True]} ms with loop_kernels, "
+          f"{times[False]} ms without (host clock, three requests a round); "
+          f"peak device memory {peak[True]:.0f} / {peak[False]:.0f} MiB")
+    src, tgt, _, _ = requests[-1]
+    with plain_versions():
+        before = dict(dispatch.launch_counts)
+        p_rot, _, p_so, p_to = regs[True](src, tgt, refine=True)
+        assert dict(dispatch.launch_counts) == before
+    k_rot, _, k_so, k_to = outs[True]
+    res = {}
+    for name, (rot, so, to) in (("loop_kernels off", outs[False][:1] + outs[False][2:]),
+                                ("plain versions", (p_rot, p_so, p_to))):
+        d_o = max((k_so - so).abs().max().item(), (k_to - to).abs().max().item())
+        ang = angle_deg(k_rot, rot)
+        print(f"loop_kernels on against {name}: overlap scores {d_o:.3g} (limit "
+              f"{LIM_OVERLAP}), refined rotation median {ang.median().item():.3g} "
+              f"deg (limit {LIM_ROT_DEG}), max {ang.max().item():.3g} deg")
+        assert d_o <= LIM_OVERLAP and ang.median().item() <= LIM_ROT_DEG
+        res[name] = {"overlap": d_o, "rot_median_deg": ang.median().item(),
+                     "rot_max_deg": ang.max().item()}
+    return launches, {"forward_icp_on": times[True], "forward_icp_off": times[False],
+                      "peak_mib_on": peak[True], "peak_mib_off": peak[False],
+                      "against": res}
+
+
 PHASES = ("kernels", "serve", "train", "cli", "icp", "serve_large",
-          "train_large", "train_unfused", "c1", "indoor_kernels", "indoor")
+          "train_large", "train_unfused", "c1", "indoor_kernels", "indoor",
+          "loop_kernels", "serve_loops")
 
 
 def main():
@@ -1452,6 +1698,10 @@ def main():
         rs_indoor = np.random.RandomState(7)
         kernels += [check_dgcnn_edges(rs_indoor), check_knn_stream(rs_indoor),
                     check_nn1_stream(rs_indoor), check_wproject(rs_indoor)]
+    if run("loop_kernels"):
+        rs_loops = np.random.RandomState(9)
+        kernels += [check_pointmlp(rs_loops), check_fps(rs_loops),
+                    check_icp_kernel(rs_loops)]
     # each phase's launches are read right after it ran with the counts at 0;
     # the phases of the earlier slices in their order, then the indoor one
     paths = {}
@@ -1460,7 +1710,8 @@ def main():
                       ("icp", check_icp), ("serve_large", serve_large),
                       ("train_large", train_large),
                       ("train_unfused", train_unfused), ("c1", check_c1),
-                      ("indoor", lambda _: serve_indoor(np.random.RandomState(8)))):
+                      ("indoor", lambda _: serve_indoor(np.random.RandomState(8))),
+                      ("serve_loops", lambda _: serve_loops(np.random.RandomState(10)))):
         if not run(phase):
             continue
         res = fn(rs)
@@ -1476,10 +1727,12 @@ def main():
         # forward (N=717) for kernels 1-2, the training step for 3-7, the
         # large-cloud request for the kNN kernel, the unfused step for the
         # angle kernel, the indoor request for kernels 10-13 (dgcnn_edges
-        # with dgcnn_fused_edges=True)
+        # with dgcnn_fused_edges=True), the refined request with
+        # loop_kernels=True for kernels 14-16
         main_path = {"dgcnn_eval": "serve", "sinkhorn_em": "serve",
                      "knn": "serve_large", "posenc_angles": "train_unfused",
-                     **{name: "indoor" for name in INDOOR_KERNELS}}
+                     **{name: "indoor" for name in INDOOR_KERNELS},
+                     **{name: "serve_loops" for name in LOOP_KERNELS}}
         for k in kernels:
             name = k["name"]
             k["launches"] = paths[main_path.get(name, "train")][name]

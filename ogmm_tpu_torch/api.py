@@ -6,7 +6,9 @@
     R, t, src_overlap, tgt_overlap = reg(src, tgt)
 
 Runs on the CUDA device unless `device="cpu"` is passed; without a CUDA
-device and without that request it raises.
+device and without that request it raises. `loop_kernels=True` runs FPS,
+the ICP and the attention MLPs through their whole-loop and fused kernels
+(`nn.gmmreg.GMMReg`).
 """
 from __future__ import annotations
 
@@ -45,12 +47,13 @@ class Registrar:
 
     def __init__(self, cfg: Optional[Config] = None,
                  state_dict: Optional[dict] = None, seed: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 loop_kernels: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else mnet()
         if self.cfg.model_name != "GMMReg":
             raise NotImplementedError("only GMMReg is ported")
-        self.model = GMMReg(self.cfg.model)
+        self.model = GMMReg(self.cfg.model, loop_kernels)
         if state_dict is None:
             init_weights(self.model, torch.Generator().manual_seed(seed))
         else:
@@ -59,7 +62,8 @@ class Registrar:
 
     @classmethod
     def from_weights(cls, path: str, cfg: Optional[Config] = None,
-                     device: str | torch.device | None = None) -> "Registrar":
+                     device: str | torch.device | None = None,
+                     loop_kernels: bool = False) -> "Registrar":
         """Restore from a weights-only .npz exported by the JAX package
         (params + batch_stats + embedded config)."""
         from ogmm_tpu_torch.weights import load_weights
@@ -69,7 +73,8 @@ class Registrar:
                 raise ValueError(
                     f"{path!r} embeds no config; pass cfg= explicitly")
             cfg = saved
-        return cls(cfg, state_dict=state, device=device)
+        return cls(cfg, state_dict=state, device=device,
+                   loop_kernels=loop_kernels)
 
     def _as_input(self, a) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):

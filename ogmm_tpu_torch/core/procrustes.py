@@ -104,3 +104,18 @@ def rigid_transform(src: torch.Tensor, src_corr: torch.Tensor,
     rot = torch.where(finite, rot, eye.expand_as(rot))
     trans = corr_mean.transpose(-1, -2) - _mm(rot, src_mean.transpose(-1, -2))
     return rot, trans
+
+
+def gated_update(src: torch.Tensor, corr: torch.Tensor, nn_d: torch.Tensor,
+                 thresh_sq: float, rot: torch.Tensor, trans: torch.Tensor,
+                 method: str = "horn_pi"):
+    """One ICP trip's solve: the correspondences with squared distance
+    nn_d (B, N) < thresh_sq weigh the Procrustes problem of src onto corr
+    (all points, where a cloud has none); a cloud without inliers keeps
+    (rot (B, 3, 3), trans (B, 3)). Returns the new (rot, trans)."""
+    w = (nn_d < thresh_sq).to(src.dtype)
+    any_in = w.sum(dim=-1) > 0
+    w = torch.where(any_in[:, None], w, torch.ones_like(w))
+    rot_new, t_new = rigid_transform(src, corr, w, method=method)
+    rot = torch.where(any_in[:, None, None], rot_new, rot)
+    return rot, torch.where(any_in[:, None], t_new[..., 0], trans)

@@ -107,14 +107,15 @@ class MultiHeadAttention(nn.Module):
 
 class TransformerBlock(nn.Module):
     """message = MHA(src, tgt, tgt); out = MLP([2d -> 2d -> d]) of
-    concat[src, message]. The caller adds the residual."""
+    concat[src, message]. The caller adds the residual. `fuse_eval` goes
+    to the MLP."""
 
     def __init__(self, feature_dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fuse_eval: bool = False):
         super().__init__()
         self.mha = MultiHeadAttention(num_heads, feature_dim, dtype)
         self.mlp = PointMLP(2 * feature_dim, (2 * feature_dim, feature_dim),
-                            dtype)
+                            dtype, fuse_eval)
 
     def forward(self, src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
         message = self.mha(src, tgt, tgt)

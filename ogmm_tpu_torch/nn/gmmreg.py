@@ -98,13 +98,20 @@ class GMMReg(nn.Module):
     """Call: (src, tgt) -> (rot, trans, src_overlap, tgt_overlap, clu), with
     src/tgt (B, N, 3) float32 clouds of equal point count. `refine=True`
     appends the batched point-to-point ICP. FPS anchors start at a random
-    point drawn from `generator`, at index 0 without one."""
+    point drawn from `generator`, at index 0 without one.
 
-    def __init__(self, cfg: ModelConfig = ModelConfig()):
+    `loop_kernels` (off by default; ROADMAP.md A.9 decides) runs FPS and
+    the ICP each as one kernel launch and the attention blocks' MLPs in eval
+    through the fused kernel (`PointMLP.fuse_eval`), on a CUDA device and
+    within each kernel's envelope; the weights are the same either way."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(),
+                 loop_kernels: bool = False):
         super().__init__()
         if cfg.pos_k <= 0 or cfg.pos_k > cfg.gnn_k:
             raise ValueError(f"cfg.pos_k must be in 1..gnn_k, got {cfg.pos_k}")
         self.cfg = cfg
+        self.loop_kernels = loop_kernels
         D = cfg.emb_dims
         dt = torch_dtype(cfg.dtype)
         self.compute_dtype = dt
@@ -112,9 +119,9 @@ class GMMReg(nn.Module):
         self.dgcnn = DGCNN(D, cfg.gnn_k, dt, cfg.dgcnn_fused_train is not False,
                            cfg.dgcnn_fused_edges is True)
         self.pos_enc = PositionEncoding(D, dt)
-        self.sattn1 = TransformerBlock(D, cfg.num_heads, dt)
-        self.cattn = TransformerBlock(D, cfg.num_heads, dt)
-        self.sattn2 = TransformerBlock(D, cfg.num_heads, dt)
+        self.sattn1 = TransformerBlock(D, cfg.num_heads, dt, loop_kernels)
+        self.cattn = TransformerBlock(D, cfg.num_heads, dt, loop_kernels)
+        self.sattn2 = TransformerBlock(D, cfg.num_heads, dt, loop_kernels)
         self.conv1 = ConvHead(D, D, 2 * D, deep=True, dtype=dt)
         self.conv2 = ConvHead(D + 2, D, 2 * D, deep=True, dtype=dt)
         self.proj = ConvHead(D, 1, D // 2, deep=False, dtype=dt)
@@ -145,7 +152,7 @@ class GMMReg(nn.Module):
             init = torch.cat([rot, trans.unsqueeze(-1)], dim=-1)
             rot, trans = icp_point_to_point(
                 both[:B], both[B:], init, threshold=2.0 * cfg.overlap_radius,
-                max_iter=cfg.icp_iters)
+                max_iter=cfg.icp_iters, use_kernel=self.loop_kernels)
         return rot, trans, o_all[:B], o_all[B:], clu
 
     def _fps(self, both, generator):
@@ -155,8 +162,9 @@ class GMMReg(nn.Module):
         km = self.cfg.km_clusters
         if km == self.cfg.n_clusters:
             # anchors and clustering init share one FPS loop
-            return fps_combined(both, km, generator)
-        return farthest_point_sample(both, km, generator=generator), None
+            return fps_combined(both, km, generator, self.loop_kernels)
+        return farthest_point_sample(both, km, generator=generator,
+                                     use_kernel=self.loop_kernels), None
 
     def _encode(self, clouds):
         """DGCNN features (B, N, D) and the angle features (B, N, pos_k) of

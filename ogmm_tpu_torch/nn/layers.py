@@ -12,6 +12,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ogmm_tpu_torch.ops import cuda_mlp
+
 
 class Dense(nn.Linear):
     """Linear layer that computes in `dtype`."""
@@ -92,17 +94,28 @@ class ConvHead(nn.Module):
 
 
 class PointMLP(nn.Module):
-    """Dense + InstanceNorm + ReLU stack; no norm or ReLU after the last."""
+    """Dense + InstanceNorm + ReLU stack; no norm or ReLU after the last.
+    `fuse_eval` (the JAX attribute, off by default) runs the two-layer eval
+    chain as one `pointmlp` kernel call where `ops.cuda_mlp.mlp_route` says
+    so, reading the same parameters."""
 
     def __init__(self, in_size: int, channels: Sequence[int],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fuse_eval: bool = False):
         super().__init__()
         sizes = [in_size] + list(channels)
         self.n_layers = len(channels)
+        self.channels = tuple(channels)
+        self.compute_dtype = dtype
+        self.fuse_eval = fuse_eval
         for i in range(self.n_layers):
             setattr(self, f"dense{i}", Dense(sizes[i], sizes[i + 1], dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if cuda_mlp.mlp_route(self.fuse_eval, self.training, x.shape,
+                              self.channels, self.compute_dtype):
+            return cuda_mlp.pointmlp_eval(
+                x, self.dense0.weight, self.dense0.bias, self.dense1.weight,
+                self.dense1.bias, self.compute_dtype)
         for i in range(self.n_layers):
             x = getattr(self, f"dense{i}")(x)
             if i < self.n_layers - 1:

@@ -1,0 +1,113 @@
+"""The eval PointMLP of the attention blocks (Dense -> InstanceNorm -> ReLU
+-> Dense) as one CUDA kernel call, and its plain version.
+
+`pointmlp_eval(x, w1, b1, w2, b2, dtype)` maps (B, N, Cin) to (B, N, Cout)
+with the weights in the nn.Linear layout (w1 (H, Cin), w2 (Cout, H)) cast to
+the compute type `dtype`, rounding where the TPU kernel
+(`ogmm_tpu/ops/pallas_mlp.py:_mlp_kernel`) and the eager chain round: the
+first product is summed in float32 and rounded to `dtype` before its bias is
+added in `dtype`; the InstanceNorm moments are float32, two passes, biased,
+eps 1e-5, over those rounded values; the normalised value is rounded to
+`dtype` before the ReLU; the second product is rounded before its bias.
+
+On a CUDA tensor the wrapper launches `csrc/pointmlp.cu` (bf16 or float32,
+N <= 1024, Cin, H and Cout multiples of 64); on a CPU tensor it runs
+`pointmlp_eval_reference`. `nn.layers.PointMLP(fuse_eval=True)` reaches it
+where `mlp_route` says so, on either device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ogmm_tpu_torch.ops import dispatch
+from ogmm_tpu_torch.ops.common import matmul32
+
+KERNEL_MAX_N = 1024   # the JAX rule (nn/layers.py:124-129): a cloud's rows
+#                       of a column tile sit in shared memory
+KERNEL_WIDTH = 64     # Cin, H and Cout are multiples of the kernel's tiles
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def kernel_takes(cin: int, h: int, cout: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes these widths and compute type."""
+    return dtype in DTYPES and all(w >= KERNEL_WIDTH and w % KERNEL_WIDTH == 0
+                                   for w in (cin, h, cout))
+
+
+def mlp_route(fuse_eval: bool, training: bool, shape, channels,
+              dtype: torch.dtype) -> bool:
+    """Whether a PointMLP of `channels` on input of `shape` runs the fused
+    kernel: asked for with `fuse_eval`, in eval, two layers, (B, N, C) input
+    with N <= 1024, the JAX package's rule (`ogmm_tpu/nn/layers.py:124-129`)
+    without its point-sharding axis, which the port does not have; and
+    widths the port's kernel takes (the JAX kernel takes any)."""
+    return (fuse_eval and not training and len(channels) == 2
+            and len(shape) == 3 and shape[1] <= KERNEL_MAX_N
+            and kernel_takes(shape[-1], *channels, dtype))
+
+
+@torch.no_grad()
+def pointmlp_eval_reference(x: torch.Tensor, w1: torch.Tensor,
+                            b1: torch.Tensor, w2: torch.Tensor,
+                            b2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version: (B, N, Cin) -> (B, N, Cout) in `dtype`."""
+    dt = dtype
+    z = matmul32(x.to(dt).float(), w1.to(dt).float().transpose(0, 1))
+    z = (z.to(dt) + b1.to(dt)).float()
+    mean = z.mean(dim=-2, keepdim=True)
+    cz = z - mean
+    var = (cz * cz).mean(dim=-2, keepdim=True)
+    h = torch.relu((cz * torch.rsqrt(var + 1e-5)).to(dt))
+    out = matmul32(h.float(), w2.to(dt).float().transpose(0, 1))
+    return out.to(dt) + b2.to(dt)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with 16-byte aligned rows (the kernel's 16-byte loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _pointmlp_cuda(x, w1, b1, w2, b2, dtype):
+    if dtype not in DTYPES:
+        raise ValueError(f"pointmlp kernel takes dtype bf16 or float32; got {dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"pointmlp kernel takes (B, N, Cin); got {tuple(x.shape)}")
+    B, N, Cin = x.shape
+    H, Cout = w1.shape[0], w2.shape[0]
+    if (w1.shape != (H, Cin) or b1.shape != (H,) or w2.shape != (Cout, H)
+            or b2.shape != (Cout,)):
+        raise ValueError(f"pointmlp kernel takes w1 (H, Cin), b1 (H,), w2 "
+                         f"(Cout, H), b2 (Cout,); got {tuple(w1.shape)}, "
+                         f"{tuple(b1.shape)}, {tuple(w2.shape)}, {tuple(b2.shape)}")
+    if not 1 <= N <= KERNEL_MAX_N or not kernel_takes(Cin, H, Cout, dtype):
+        raise ValueError(f"pointmlp kernel takes 1 <= N <= {KERNEL_MAX_N} and "
+                         f"Cin, H, Cout multiples of {KERNEL_WIDTH}; got N={N}, "
+                         f"Cin={Cin}, H={H}, Cout={Cout}")
+    x, w1, b1, w2, b2 = (_aligned(a.to(dtype)) for a in (x, w1, b1, w2, b2))
+    h = torch.empty(B, N, H, dtype=dtype, device=x.device)
+    out = torch.empty(B, N, Cout, dtype=dtype, device=x.device)
+    fn = dispatch.load_kernel("pointmlp").pointmlp_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    code = fn(*[ctypes.c_void_p(a.data_ptr()) for a in (x, w1, b1, w2, b2, h, out)],
+              B, N, Cin, H, Cout, int(dtype == torch.bfloat16),
+              ctypes.c_void_p(dispatch.current_stream(x)))
+    dispatch.check_launch(code, "pointmlp")
+    dispatch.launch_counts["pointmlp"] += 1
+    return out
+
+
+def pointmlp_eval(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w2: torch.Tensor, b2: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Dense(w1, b1) -> InstanceNorm over N -> ReLU -> Dense(w2, b2):
+    (B, N, Cin) -> (B, N, Cout) in `dtype`. Launches the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor. Eval only: carries no
+    gradient."""
+    if x.is_cuda:
+        with torch.no_grad():
+            return _pointmlp_cuda(x, w1, b1, w2, b2, dtype)
+    return pointmlp_eval_reference(x, w1, b1, w2, b2, dtype)

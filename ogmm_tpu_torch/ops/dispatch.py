@@ -26,12 +26,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("dgcnn_eval", "sinkhorn_em", "graph_stage1", "nn1", "dgcnn_bwd",
-           "knn", "posenc_angles", "knn_stream", "wproject")
+           "knn", "posenc_angles", "knn_stream", "wproject", "fps", "icp",
+           "pointmlp")
 # the kernels' wrappers; dgcnn_bwd.cu holds bwd_reduce, bwd_stage, bwd_edge,
 # knn_stream.cu knn_stream and nn1_stream, dgcnn_eval.cu also dgcnn_edges
 KERNELS = ("dgcnn_eval", "sinkhorn_em", "graph_stage1", "nn1", "bwd_reduce",
            "bwd_stage", "bwd_edge", "knn", "posenc_angles", "dgcnn_edges",
-           "knn_stream", "nn1_stream", "wproject")
+           "knn_stream", "nn1_stream", "wproject", "fps", "icp", "pointmlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

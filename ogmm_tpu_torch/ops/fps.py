@@ -1,12 +1,19 @@
-"""Farthest-point sampling as a batched loop of tensor operations.
+"""Farthest-point sampling.
 
 The 128-step chain is inherent to FPS; each step is one (B, N) distance
-update and an argmax (ties to the lowest index). The random start of the
-non-centre variant comes from an explicit `torch.Generator`.
+update and an argmax (ties to the lowest index). By default it runs as a
+loop of tensor operations (`ops.cuda_fps.fps_reference`); with
+`use_kernel=True` as one `fps` kernel launch for all rows
+(`ops.cuda_fps.fps`), the counterpart of the JAX package's
+`use_pallas=True` (`ogmm_tpu/ops/fps.py:44-52`). `nn.gmmreg.GMMReg` passes
+its `loop_kernels` flag. The random start of the non-centre variant comes
+from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
 import torch
+
+from ogmm_tpu_torch.ops import cuda_fps
 
 
 def _random_start(B: int, N: int, generator: torch.Generator | None,
@@ -24,45 +31,42 @@ def _center_state(xyz: torch.Tensor):
 
 
 def _fps_loop(xyz: torch.Tensor, npoint: int, distance: torch.Tensor,
-              farthest: torch.Tensor) -> torch.Tensor:
+              farthest: torch.Tensor, use_kernel: bool) -> torch.Tensor:
     """The FPS recurrence from an explicit (distance, start) state."""
-    B = xyz.shape[0]
-    ids = torch.empty(B, npoint, dtype=torch.long, device=xyz.device)
-    rows = torch.arange(B, device=xyz.device)
-    for i in range(npoint):
-        ids[:, i] = farthest
-        centroid = xyz[rows, farthest].unsqueeze(1)          # (B, 1, 3)
-        dist = ((xyz - centroid) ** 2).sum(-1)
-        distance = torch.minimum(distance, dist)
-        farthest = distance.argmax(dim=-1)
-    return ids
+    if use_kernel:
+        return cuda_fps.fps(xyz, npoint, distance, farthest)
+    return cuda_fps.fps_reference(xyz, npoint, distance, farthest)
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           is_center: bool = False,
-                          generator: torch.Generator | None = None
-                          ) -> torch.Tensor:
+                          generator: torch.Generator | None = None,
+                          use_kernel: bool = False) -> torch.Tensor:
     """Sample `npoint` indices per cloud: xyz (B, N, 3) -> int64 (B, npoint).
     `is_center` starts from the point farthest from the centroid; otherwise
-    from a random index drawn from `generator` (index 0 without one)."""
+    from a random index drawn from `generator` (index 0 without one).
+    `use_kernel` runs the chain as one kernel launch."""
     B, N, _ = xyz.shape
     if is_center:
         distance, farthest = _center_state(xyz)
     else:
         distance = xyz.new_full((B, N), 1e10)
         farthest = _random_start(B, N, generator, xyz.device)
-    return _fps_loop(xyz, npoint, distance, farthest)
+    return _fps_loop(xyz, npoint, distance, farthest, use_kernel)
 
 
 def fps_combined(xyz: torch.Tensor, npoint: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 use_kernel: bool = False):
     """Anchor FPS and centre-seeded FPS over the same clouds in one 2B-row
-    loop: the chain's cost is per step, not per row.
+    loop (one kernel launch with `use_kernel`): the chain's cost is per
+    step, not per row.
     Returns (anchor_ids (B, npoint), center_ids (B, npoint))."""
     B, N, _ = xyz.shape
     dist_center, start_center = _center_state(xyz)
     ids = _fps_loop(
         torch.cat([xyz, xyz], dim=0), npoint,
         torch.cat([xyz.new_full((B, N), 1e10), dist_center], dim=0),
-        torch.cat([_random_start(B, N, generator, xyz.device), start_center]))
+        torch.cat([_random_start(B, N, generator, xyz.device), start_center]),
+        use_kernel)
     return ids[:B], ids[B:]

@@ -7,30 +7,41 @@ the spatial route: both clouds Morton-sorted once, and each trip the
 streamed 1-NN over the sorted clouds with the tile-pair bounds of the moved
 source and the inlier gate, so that tiles farther than the gate are skipped
 (`ops.stream`). ICP is permutation-equivariant and only (R, t) leave the
-loop, so nothing is mapped back."""
+loop, so nothing is mapped back.
+
+With `use_kernel=True` the whole loop runs as one `icp` kernel launch
+where `ops.cuda_icp.kernel_takes` says so (method 'horn_pi', M <= 4096),
+the counterpart of the JAX package's `icp_pallas`; it forms its distances
+in the fixed order of `square_distance3`. `nn.gmmreg.GMMReg` passes its
+`loop_kernels` flag. Both loops end a trip in
+`core.procrustes.gated_update`."""
 from __future__ import annotations
 
 import torch
 
-from ogmm_tpu_torch.core.procrustes import rigid_transform
-from ogmm_tpu_torch.ops import cuda_stream, stream
+from ogmm_tpu_torch.core.procrustes import gated_update
+from ogmm_tpu_torch.ops import cuda_icp, cuda_stream, stream
 from ogmm_tpu_torch.ops.common import index_points, matmul32, nn1, nn1_route
 
 
 @torch.no_grad()
 def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
                        init_pose: torch.Tensor, threshold: float,
-                       max_iter: int = 30, method: str = "horn_pi"):
+                       max_iter: int = 30, method: str = "horn_pi",
+                       use_kernel: bool = False):
     """Refine an initial rigid transform.
 
     src (B, N, 3), tgt (B, M, 3), init_pose (B, 3/4, 4) mapping src -> tgt;
     `threshold` gates correspondences by distance. A cloud without inliers
-    in a trip keeps its previous transform.
+    in a trip keeps its previous transform. `use_kernel` runs the loop as
+    one kernel launch within the kernel's envelope.
     Returns (rot (B, 3, 3), trans (B, 3))."""
     thresh_sq = threshold * threshold
+    B, N, C = src.shape
+    if use_kernel and cuda_icp.kernel_takes(tgt.shape[1], C, method):
+        return cuda_icp.icp_fused(src, tgt, init_pose, thresh_sq, iters=max_iter)
     rot = init_pose[..., :3, :3]
     t = init_pose[..., :3, 3]
-    B, N, C = src.shape
     spatial = nn1_route(B, N, tgt.shape[1], C, prefer_dense=True) == "stream"
     if spatial:
         src = index_points(src, stream.morton_order(src))
@@ -44,11 +55,6 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
                 stretch=max(1, round(tgt.shape[1] / N)))
         else:
             nn_d, nn_i = nn1(moved, tgt, prefer_dense=True)
-        corr = index_points(tgt, nn_i)
-        w = (nn_d < thresh_sq).to(src.dtype)
-        any_in = w.sum(dim=-1) > 0
-        w = torch.where(any_in[:, None], w, torch.ones_like(w))
-        rot_new, t_new = rigid_transform(src, corr, w, method=method)
-        rot = torch.where(any_in[:, None, None], rot_new, rot)
-        t = torch.where(any_in[:, None], t_new[..., 0], t)
+        rot, t = gated_update(src, index_points(tgt, nn_i), nn_d, thresh_sq,
+                              rot, t, method)
     return rot, t

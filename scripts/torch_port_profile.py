@@ -3,6 +3,7 @@
 PyTorch/CUDA port goes.
 
     python3 scripts/torch_port_profile.py [--train [--bwd_kernels]]
+                                          [--loop_kernels]
                                           [--n_points N] [--out DIR]
                                           (default N=717, profile_out/)
     python3 scripts/torch_port_profile.py --preset indoor [--n_points N]
@@ -20,8 +21,10 @@ of each kernel of `ogmm_tpu_torch/csrc`. Also times
 the stages of the forward (with --train: forward and loss, backward, the
 optimizer, the metrics) with CUDA events. `--bwd_kernels` turns on
 `ops.dgcnn_train.BWD_KERNELS`, so that the DGCNN backward runs through its
-three CUDA kernels instead of plain PyTorch. One JSON line at the end carries
-the same numbers with the card's name and power limit.
+three CUDA kernels instead of plain PyTorch. `--loop_kernels` builds the
+Registrar with `loop_kernels=True`, so that FPS, ICP and the attention MLPs
+run as one kernel launch each. One JSON line at the end
+carries the same numbers with the card's name and power limit.
 """
 import argparse
 import dataclasses
@@ -193,11 +196,16 @@ def main():
                     help="points a cloud (above 1024: the shared kNN graph; "
                          "default 717, 35000 with --preset indoor)")
     ap.add_argument("--preset", choices=["mnet", "indoor"], default="mnet")
+    ap.add_argument("--loop_kernels", action="store_true",
+                    help="FPS, ICP and the attention MLPs through their kernels")
     args = ap.parse_args()
     indoor = args.preset == "indoor"
     N = args.n_points or (35000 if indoor else 717)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
+    if args.loop_kernels and args.train:
+        sys.exit("--loop_kernels switches the serving path; profile it without "
+                 "--train")
     if indoor and args.train:
         sys.exit("--preset indoor profiles the request only: indoor training "
                  "is not ported yet (ROADMAP.md, queue A item 5)")
@@ -211,7 +219,7 @@ def main():
         src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
         tgt = src[:, rs.permutation(N)] + 0.05
     result = {"shape": {"B": src.shape[0], "N": N}, "preset": args.preset,
-              "bwd_kernels": args.bwd_kernels}
+              "bwd_kernels": args.bwd_kernels, "loop_kernels": args.loop_kernels}
     if args.train:
         from ogmm_tpu_torch.ops import dgcnn_train
         from ogmm_tpu_torch.train import create_train_state, make_train_step
@@ -230,7 +238,7 @@ def main():
         result["stages_ms"] = train_phase_times(state, cfg, batch)
         print("phases (CUDA events, mean of 3 train steps):")
     else:
-        reg = Registrar(cfg, seed=0)
+        reg = Registrar(cfg, seed=0, loop_kernels=args.loop_kernels)
         for refine in (False, True):
             key = "forward_icp" if refine else "forward"
             result[key] = r = profile_call(
@@ -248,6 +256,7 @@ def main():
             else "torch_port_profile_train_bwd_kernels" if args.bwd_kernels
             else "torch_port_profile_train")
     name += "_indoor" if indoor else ""
+    name += "_loop_kernels" if args.loop_kernels else ""
     name += "" if N == (35000 if indoor else 717) else f"_n{N}"
     name += ".json"
     with open(os.path.join(args.out, name), "w") as f:

@@ -24,7 +24,7 @@ from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
 from ogmm_tpu_torch.ops.cuda_knn import knn, knn_reference, nn1, nn1_reference
 from ogmm_tpu_torch.ops.cuda_posenc import (posenc_angles,
                                             posenc_angles_reference)
-from ogmm_tpu_torch.ops import cuda_stream, stream
+from ogmm_tpu_torch.ops import cuda_fps, cuda_icp, cuda_mlp, cuda_stream, stream
 from ogmm_tpu_torch.ops.common import index_points
 from ogmm_tpu_torch.ops.cuda_dgcnn import dgcnn_edges, dgcnn_edges_reference
 from ogmm_tpu_torch.train import (create_train_state, make_train_step,
@@ -596,3 +596,89 @@ def test_indoor_registrar_routes_on_the_card(card):
     assert dispatch.launch_counts == {**NONE, "knn_stream": 1, "wproject": 2,
                                       "dgcnn_edges": 1, "nn1_stream": 4,
                                       "sinkhorn_em": 1}
+
+
+# ------------------------------------------- the whole-loop and fused kernels
+
+@pytest.mark.parametrize("B,N,cin,h,cout", [(3, 90, 128, 128, 64),
+                                            (2, 717, 1024, 1024, 512),
+                                            (1, 1024, 64, 128, 64)])
+@pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 0.0625)])
+def test_pointmlp_kernel_matches_plain(card, B, N, cin, h, cout, dtype, lim):
+    rs = np.random.RandomState(N)
+    w = lambda *s: torch.tensor(rs.randn(*s).astype(np.float32) / np.sqrt(s[-1]),
+                                device=card)
+    x = torch.tensor(rs.randn(B, N, cin).astype(np.float32), device=card).to(dtype)
+    args = (x, w(h, cin), w(h) * 0.3, w(cout, h), w(cout) * 0.3, dtype)
+    out = cuda_mlp.pointmlp_eval(*args)
+    ref = cuda_mlp.pointmlp_eval_reference(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (B, N, cout)
+    assert (out.float() - ref.float()).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("R,N,npoint", [(96, 717, 128), (4, 1433, 128),
+                                        (4, 35000, 128), (3, 50, 60)])
+def test_fps_kernel_matches_plain(card, R, N, npoint):
+    rs = np.random.RandomState(N)
+    x = torch.tensor(rs.randn(R, N, 3).astype(np.float32), device=card)
+    x[:, N // 2] = x[:, 1]                   # a duplicated point: tied distances
+    dist = torch.full((R, N), 1e10, device=card)
+    dist[R // 2:] = ((x[R // 2:] - x[R // 2:].mean(1, keepdim=True)) ** 2).sum(-1)
+    start = torch.tensor(rs.randint(0, N, R), device=card)
+    start[R // 2:] = dist[R // 2:].argmax(-1)
+    got = cuda_fps.fps(x, npoint, dist, start)
+    want = cuda_fps.fps_reference(x, npoint, dist, start)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,N,M", [(24, 717, 717), (3, 300, 4096), (2, 500, 130),
+                                   (4, 1433, 1433)])
+def test_icp_kernel_matches_plain(card, B, N, M):
+    rs = np.random.RandomState(M)
+    src = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    tgt = torch.tensor(rs.randn(B, M, 3).astype(np.float32) * 0.3, device=card)
+    k = min(N, M)
+    tgt[:, :k] = src[:, :k] + 0.01           # near copies: inliers
+    tgt[-1] += 100.0                         # a cloud without inliers
+    init = torch.eye(4, device=card).expand(B, 4, 4).contiguous()
+    r, t, first = cuda_icp.icp_fused(src, tgt, init, 0.05 ** 2, return_first=True)
+    rr, rt, rfirst = cuda_icp.icp_fused_reference(src, tgt, init, 0.05 ** 2,
+                                                  return_first=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, rfirst)
+    assert (r - rr).abs().max().item() <= 1e-4
+    assert (t - rt).abs().max().item() <= 1e-4
+    assert torch.equal(r[-1], init[-1, :3, :3]) and torch.equal(t[-1], init[-1, :3, 3])
+
+
+def test_loop_kernels_refuse_what_they_do_not_take(card):
+    x = torch.zeros(2, 100, 48, device=card)
+    w = lambda *s: torch.zeros(*s, device=card)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cuda_mlp.pointmlp_eval(x, w(64, 48), w(64), w(64, 64), w(64), torch.float32)
+    with pytest.raises(ValueError, match="N <= 1024"):
+        cuda_mlp.pointmlp_eval(w(1, 1025, 64), w(64, 64), w(64), w(64, 64),
+                               w(64), torch.float32)
+    with pytest.raises(ValueError, match="M <= 4096"):
+        cuda_icp.icp_fused(w(1, 10, 3), w(1, 4097, 3),
+                           torch.eye(4, device=card)[None], 0.01)
+    with pytest.raises(ValueError, match="start"):
+        cuda_fps.fps(w(2, 10, 3), 4, w(2, 10), w(3).long())
+
+
+def test_loop_switches_launch_each_kernel(card):
+    cfg = configs.mnet(model=configs.ModelConfig(emb_dims=64, n_clusters=16,
+                                                 km_clusters=16, num_heads=2))
+    src = np.random.RandomState(3).randn(2, 300, 3).astype(np.float32) * 0.3
+    outs = {}
+    for on in (True, False):
+        reg = Registrar(cfg, seed=2, loop_kernels=on)     # the same weights
+        dispatch.reset_launch_counts()
+        outs[on] = reg(src, src[:, ::-1].copy(), refine=True)
+        torch.cuda.synchronize()
+        got = {k: dispatch.launch_counts[k] for k in ("fps", "icp", "pointmlp")}
+        assert got == ({"fps": 1, "icp": 1, "pointmlp": 3} if on else
+                       {"fps": 0, "icp": 0, "pointmlp": 0})
+    assert (outs[True][2] - outs[False][2]).abs().max().item() <= 0.05

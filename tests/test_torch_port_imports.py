@@ -51,12 +51,16 @@ def test_the_kernels_of_every_slice_are_covered():
     assert {"ops/cuda_knn.py", "ops/cuda_posenc.py", "ops/cuda_em.py",
             "ops/cuda_dgcnn.py", "ops/cuda_dgcnn_train.py",
             "ops/cuda_dgcnn_bwd.py", "ops/cuda_stream.py",
-            "ops/stream.py"} <= names
+            "ops/stream.py", "ops/cuda_fps.py", "ops/cuda_icp.py",
+            "ops/cuda_mlp.py"} <= names
     # every kernel source is built, and none is left out of the build
     sources = {p.stem for p in (PKG / "csrc").glob("*.cu")}
     assert sources == set(dispatch.SOURCES)
     assert {"knn", "posenc_angles", "dgcnn_edges", "knn_stream",
-            "nn1_stream", "wproject"} <= set(dispatch.KERNELS)
+            "nn1_stream", "wproject", "fps", "icp",
+            "pointmlp"} <= set(dispatch.KERNELS)
+    # every TPU kernel of the JAX package has its counterpart
+    assert len(dispatch.KERNELS) == 16
 
 
 def test_importing_every_module_loads_no_jax():

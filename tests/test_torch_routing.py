@@ -25,15 +25,18 @@ import ogmm_tpu.ops.gmm as jgmm
 import ogmm_tpu.ops.pallas_dgcnn as jpallas_dgcnn
 import ogmm_tpu.ops.pallas_em as jpallas_em
 import ogmm_tpu.ops.pallas_knn as jpallas_knn
+import ogmm_tpu.ops.pallas_mlp as jpallas_mlp
 import ogmm_tpu.ops.pallas_stream as jpallas_stream
 from ogmm_tpu.configs import ModelConfig as JModelConfig
+from ogmm_tpu.nn.layers import PointMLP as JPointMLP
 from ogmm_tpu.ops.dispatch import pallas_override
 from ogmm_tpu.ops.icp import icp_point_to_point as jicp
 from ogmm_tpu_torch.nn import gmmreg as tgmmreg
 from ogmm_tpu_torch.nn.attention import angle_route
 from ogmm_tpu_torch.nn.dgcnn import edges_route, fused_route
 from ogmm_tpu_torch.ops import common as tcommon
-from ogmm_tpu_torch.ops import cuda_em
+from ogmm_tpu_torch.ops import cuda_em, cuda_icp, cuda_mlp
+from ogmm_tpu_torch.ops import icp as ticp
 from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_N
 from ogmm_tpu_torch.ops.gmm import em_route
 
@@ -261,6 +264,57 @@ def test_icp_route_follows_the_jax_rule(knn_stubs, M):
         jax_route = _taken(lambda: jicp(src, tgt, init, 0.1, max_iter=1))
     assert jax_route == ("stream" if M > 4096 else "kernel")
     assert tcommon.nn1_route(1, 300, M, 3, prefer_dense=True) == jax_route
+
+
+@pytest.mark.parametrize("M,method,switch,want", [
+    (4096, "horn_pi", True, "kernel"), (1, "horn_pi", True, "kernel"),
+    (4097, "horn_pi", True, "stream"), (4096, "horn", True, "nn1"),
+    (4096, "horn_pi", False, "nn1"), (717, "horn_pi", True, "kernel"),
+    (717, "horn_pi", False, "nn1")])
+def test_icp_kernel_takes_m_up_to_4096(monkeypatch, M, method, switch, want):
+    # with use_kernel the whole-loop kernel takes the 'horn_pi' refinement
+    # up to M = 4096 (the target in shared memory); the JAX package's
+    # icp_pallas has no route rule of its own (ogmm_tpu/ops/icp.py:144-148)
+    _stub(monkeypatch, cuda_icp, "icp_fused", "kernel")
+    _stub(monkeypatch, ticp.cuda_stream, "nn1_stream", "stream")
+    _stub(monkeypatch, ticp, "nn1", "nn1")      # the dense or kernel 1-NN
+    src, tgt = torch.zeros(1, 8, 3), torch.zeros(1, M, 3)
+    init = torch.eye(4).expand(1, 4, 4)
+    got = _taken(lambda: ticp.icp_point_to_point(src, tgt, init, 0.1,
+                                                 max_iter=1, method=method,
+                                                 use_kernel=switch))
+    assert got == want
+    assert cuda_icp.kernel_takes(M, 3, method) == (M <= 4096 and method == "horn_pi")
+    assert not cuda_icp.kernel_takes(M, 6, method)
+
+
+@pytest.mark.parametrize("N", [717, 1024, 1025])
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("channels", [(128, 64), (128, 128, 64)])
+@pytest.mark.parametrize("ndim", [3, 4])
+def test_pointmlp_fused_route_follows_the_jax_rule(monkeypatch, N, train,
+                                                   channels, ndim):
+    # ogmm_tpu/nn/layers.py:124-131 with fuse_eval=True on its accelerator
+    _stub(monkeypatch, jpallas_mlp, "pointmlp_eval_pallas", "kernel")
+    shape = (1, N, 64) if ndim == 3 else (1, 2, N, 64)
+    x = jnp.zeros(shape)
+    jm = JPointMLP(channels, fuse_eval=True)
+    v = jm.init(jax.random.PRNGKey(0), x[..., :4, :])
+    with pallas_override(True):
+        jax_route = _taken(lambda: jm.apply(v, x, train=train)) or "layers"
+    port = cuda_mlp.mlp_route(True, train, shape, channels, torch.bfloat16)
+    assert port == (jax_route == "kernel")
+    assert not cuda_mlp.mlp_route(False, train, shape, channels, torch.bfloat16)
+
+
+@pytest.mark.parametrize("channels,dtype,want", [
+    ((128, 64), torch.float32, True), ((64, 32), torch.bfloat16, False),
+    ((96, 64), torch.bfloat16, False), ((128, 64), torch.float16, False)])
+def test_the_fused_mlp_takes_the_kernel_where_it_takes_the_widths(channels,
+                                                                  dtype, want):
+    # the JAX kernel takes any width; where the port's does not (Cin, H and
+    # Cout multiples of 64, bf16 or float32), the layer chain runs instead
+    assert cuda_mlp.mlp_route(True, False, (2, 90, 64), channels, dtype) == want
 
 
 def _overlap_cfg(overlap_stream=None):
