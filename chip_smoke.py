@@ -14,7 +14,9 @@ fatal on failure:
              five DGCNN backward calls of a real backward in float32 and
              bf16, each launched twice and compared bit for bit), with the
              limits stated below, and timed beside its plain version and its
-             bound
+             bound; dgcnn_eval's selection launch and its stage chain
+             with the head timed apart (torch.profiler), sinkhorn_em's time
+             a pass and the clouds the card runs at once
   3. serve   `Registrar` at B=24, N=717, emb 512, K=128, bf16 body, seeded
              random weights: a few requests with and without ICP; the launch
              counts of the kernels over one request; the same requests with
@@ -101,7 +103,7 @@ try:
     from ogmm_tpu_torch.core import se3
     from ogmm_tpu_torch.nn import dgcnn as nn_dgcnn
     from ogmm_tpu_torch.ops import cuda_knn, cuda_stream, dispatch, stream
-    from ogmm_tpu_torch.ops import cuda_fps, cuda_icp, cuda_mlp
+    from ogmm_tpu_torch.ops import cuda_em, cuda_fps, cuda_icp, cuda_mlp
     from ogmm_tpu_torch.ops import fps as ops_fps
     from ogmm_tpu_torch.nn import gmmreg as nn_gmmreg
     from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
@@ -196,6 +198,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def launch_ms(fn, reps, groups):
+    """Device ms a call of each group of the kernels that fn launches, from
+    torch.profiler: {label: ms}; a group is a tuple of kernel-name parts."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {label: 0.0 for label in groups}
+    for evt in prof.key_averages():
+        for label, names in groups.items():
+            if any(name in evt.key for name in names):
+                out[label] += evt.device_time_total / 1e3 / reps
+    return out
+
+
 def angle_deg(a, b):
     c = (torch.einsum("bij,bij->b", a, b) - 1) / 2
     return torch.rad2deg(torch.acos(c.clamp(-1, 1)))
@@ -247,11 +267,20 @@ def check_dgcnn(rs):
               f"alpha {aerr:.3g} (limit {LIM_ALPHA}), max|plain| = "
               f"{ref.float().abs().max().item():.3g}")
         assert torch.isfinite(out.float()).all() and err <= lim and aerr <= LIM_ALPHA
+        again, _ = dgcnn_eval(x, ws, aff, KNN, dt, POS_K)
+        assert torch.equal(out, again), "dgcnn_eval: two launches differ"
         errs[dt] = max(err, aerr)
     bf = torch.bfloat16
     ms = cuda_ms(lambda: dgcnn_eval(x, ws, aff, KNN, bf, POS_K), 10)
     ms32 = cuda_ms(lambda: dgcnn_eval(x, ws, aff, KNN, torch.float32, POS_K), 5)
     plain = cuda_ms(lambda: dgcnn_eval_reference(x, ws, aff, KNN, bf, POS_K), 2)
+    # the selection launch and the stage chain with its head, apart
+    split = launch_ms(lambda: dgcnn_eval(x, ws, aff, KNN, bf, POS_K), 10, {
+        "knn_alpha_ms": ("knn_alpha_kernel",),
+        "stage_chain_ms": ("dgcnn_stage_mma_kernel", "dgcnn_head_kernel")})
+    print(f"dgcnn_eval bf16 (2B={2 * B}, N={N}, k={KNN}, emb {EMB}): {ms:.4f} ms; "
+          f"knn_alpha_kernel {split['knn_alpha_ms']:.4f} ms, stage chain and "
+          f"head {split['stage_chain_ms']:.4f} ms (device, torch.profiler)")
     rows = 2 * B * N
     stage_macs = 6 * 64 + 64 * 64 + 64 * 128 + 128 * 256
     flops_bf16 = 2.0 * rows * (KNN * stage_macs + sum(STAGES) * EMB)
@@ -267,7 +296,7 @@ def check_dgcnn(rs):
         "source": "ogmm_tpu_torch/csrc/dgcnn_eval.cu",
         "replaces": "ogmm_tpu/ops/pallas_dgcnn.py:229",
         "max_abs_err": errs[bf], "max_abs_err_f32": errs[torch.float32],
-        "ms": ms, "ms_f32": ms32, "plain_ms": plain,
+        "ms": ms, "ms_f32": ms32, "plain_ms": plain, **split,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
@@ -295,8 +324,21 @@ def check_em(rs):
           f"pi {e_pi:.3g} (limit {LIM_EM_10_PI}), mean|gamma diff| "
           f"{(g1 - g2).abs().mean().item():.3g}")
     assert torch.isfinite(g1).all() and e_nodes <= LIM_EM_10_NODES and e_pi <= LIM_EM_10_PI
+    again = sinkhorn_em(xyz, o, n0, iters=10)
+    assert all(torch.equal(a, b) for a, b in zip((g1, p1, m1), again)), \
+        "sinkhorn_em: two launches differ"
     ms = cuda_ms(lambda: sinkhorn_em(xyz, o, n0, iters=10), 10)
     plain = cuda_ms(lambda: sinkhorn_em_reference(xyz, o, n0, iters=10), 2)
+    # 10 EM trips of a log-domain, 9 direct and a gamma pass each
+    per_pass = ms / (10 * (10 + 1))
+    # the same call on half the clouds and on one: a launch of more clouds
+    # than the card holds at once (one cluster of blocks each) runs in waves
+    by_clouds = {c: cuda_ms(lambda c=c: sinkhorn_em(xyz[:c], o[:c], n0[:c], iters=10), 10)
+                 for c in (B, 1)}
+    print(f"sinkhorn_em (2B={2 * B}, N={N}, K={K}, 10 x 10 trips): {ms:.4f} ms, "
+          f"{per_pass * 1e3:.2f} us a pass; {B} clouds {by_clouds[B]:.4f} ms, one "
+          f"{by_clouds[1]:.4f} ms ({ms / by_clouds[1]:.2f}x); the occupancy "
+          f"calculator's clusters at once: {cuda_em.max_clusters(N, K)}")
     # operations for each entry of the (N, K) plan and EM trip: 12 for the
     # cost, 14 for the log-domain trip, 4 for each of the 9 direct trips,
     # 12 for gamma and the M-step sums
@@ -308,7 +350,8 @@ def check_em(rs):
         "source": "ogmm_tpu_torch/csrc/sinkhorn_em.cu",
         "replaces": "ogmm_tpu/ops/pallas_em.py:331",
         "max_abs_err": err1, "max_abs_err_nodes_10_trips": e_nodes,
-        "ms": ms, "plain_ms": plain,
+        "ms": ms, "ms_per_pass": per_pass, f"ms_{B}_clouds": by_clouds[B],
+        "ms_1_cloud": by_clouds[1], "plain_ms": plain,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,

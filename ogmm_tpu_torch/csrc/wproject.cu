@@ -39,35 +39,13 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"  // mma_bf16, ldsm_x4, cp_async16
+
 // ---------------------------------------------------------------- bf16
 
 #define BQ 128    // query rows a block (8 warps x 16)
 #define BK 32     // keys a tile
 #define BNT 256   // threads a block
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the rows of
-// matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 16 bytes global -> shared without registers; zeros where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(a), "l"(src), "r"(valid ? 16 : 0));
-}
 
 // key rows [m0, m0 + BK) of k (B's rows: (M, D)) into a (BK, D + 8) buffer
 template <int D>

@@ -96,9 +96,12 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _kernel_operands(what, x, weights, affines, k, dtype):
-    """The checks both entry points share, and their weights: BN folded,
-    stage 1 padded to rows of 8 (6 edge values + 2 zeros)."""
+def _kernel_operands(what, weights, affines, k, dtype):
+    """The checks both entry points share, and their operands, one convention
+    for both compute types (csrc/dgcnn_eval.cu:dgcnn_eval_launch): stages
+    1-4's weights (C_in, C_out), BN scales and biases as given, in float32
+    (the kernels fold the scales in), and the head's w5 (512, emb) folded
+    in the compute type, with b5 in float32."""
     emb = weights[4].shape[1]
     dims = [tuple(w.shape) for w in weights]
     want = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb)]
@@ -109,10 +112,18 @@ def _kernel_operands(what, x, weights, affines, k, dtype):
                          f"multiple of 64; got k={k}, emb={emb}")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what} kernel: dtype {dtype} not supported")
-    ws, bs = fold_weights(weights, affines, dtype)
-    w1 = torch.zeros(8, 64, dtype=dtype, device=x.device)
-    w1[:6] = ws[0]
-    return [w1] + [w.contiguous() for w in ws[1:]], [b.contiguous() for b in bs]
+    s5 = affines[4][0]
+    w5 = (weights[4].float() * s5.float()[None, :]).to(dtype).contiguous()
+    return ([w.float().contiguous() for w in weights[:4]] + [w5],
+            [s.float().contiguous() for s, _ in affines[:4]],
+            [b.float().contiguous() for _, b in affines])
+
+
+def _concat_scratch(x, dtype):
+    """The (B*N, 512) concat the bf16 stage launch writes and its head
+    launch reads; the float32 route keeps it on chip."""
+    rows = x.shape[0] * x.shape[1] if dtype == torch.bfloat16 else 0
+    return torch.empty(rows, sum(STAGES), dtype=dtype, device=x.device)
 
 
 def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k):
@@ -123,17 +134,18 @@ def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k):
                          f"and posenc_k <= k; got k={k}, N={N}, "
                          f"posenc_k={posenc_k}")
     x = x.float().contiguous()
-    ws, bs = _kernel_operands("dgcnn_eval", x, weights, affines, k, dtype)
+    ws, ss, bs = _kernel_operands("dgcnn_eval", weights, affines, k, dtype)
     idx = torch.empty(B, N, k, dtype=torch.int32, device=x.device)
     alpha = torch.empty(B, N, max(posenc_k, 1), dtype=torch.float32,
                         device=x.device)
+    cat = _concat_scratch(x, dtype)
     out = torch.empty(B, N, emb, dtype=dtype, device=x.device)
     lib = dispatch.load_kernel("dgcnn_eval")
     fn = lib.dgcnn_eval_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    code = fn(_ptr(x), *[_ptr(w) for w in ws], *[_ptr(b) for b in bs],
-              _ptr(idx), _ptr(alpha), _ptr(out),
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    code = fn(_ptr(x), *[_ptr(w) for w in ws], *[_ptr(s) for s in ss],
+              *[_ptr(b) for b in bs], _ptr(idx), _ptr(alpha), _ptr(cat), _ptr(out),
               B, N, emb, k, posenc_k, int(dtype == torch.bfloat16),
               ctypes.c_void_p(dispatch.current_stream(x)))
     dispatch.check_launch(code, "dgcnn_eval")
@@ -163,13 +175,15 @@ def _dgcnn_edges_cuda(x, nbr, weights, affines, k, dtype):
                          f"{tuple(x.shape)}, {tuple(nbr.shape)}")
     x = x.float().contiguous()
     nbr = nbr.float().contiguous()
-    ws, bs = _kernel_operands("dgcnn_edges", x, weights, affines, k, dtype)
+    ws, ss, bs = _kernel_operands("dgcnn_edges", weights, affines, k, dtype)
+    cat = _concat_scratch(x, dtype)
     out = torch.empty(B, N, emb, dtype=dtype, device=x.device)
     fn = dispatch.load_kernel("dgcnn_eval").dgcnn_edges_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    code = fn(_ptr(x), _ptr(nbr), *[_ptr(w) for w in ws], *[_ptr(b) for b in bs],
-              _ptr(out), B, N, emb, k, int(dtype == torch.bfloat16),
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    code = fn(_ptr(x), _ptr(nbr), *[_ptr(w) for w in ws], *[_ptr(s) for s in ss],
+              *[_ptr(b) for b in bs], _ptr(cat), _ptr(out), B, N, emb, k,
+              int(dtype == torch.bfloat16),
               ctypes.c_void_p(dispatch.current_stream(x)))
     dispatch.check_launch(code, "dgcnn_edges")
     dispatch.launch_counts["dgcnn_edges"] += 1

@@ -16,7 +16,7 @@ the plain version per trip (iters=1) and on what the model consumes.
 
 On a CUDA tensor the wrapper launches `csrc/sinkhorn_em.cu` (`kernel_takes`:
 K <= 128 and a cloud's plan in the shared memory of a cluster of 8 blocks,
-N <= 3,072 at K = 128); on a CPU tensor it runs `sinkhorn_em_reference`.
+N <= 3,352 at K = 128); on a CPU tensor it runs `sinkhorn_em_reference`.
 """
 from __future__ import annotations
 
@@ -28,21 +28,26 @@ import torch
 from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops.common import matmul32, square_distance3
 
-KERNEL_MAX_K = 128           # four columns a lane
+KERNEL_MAX_K = 128           # padded to 32 KPL columns, KPL <= 4
 SMEM_BYTES = 227 * 1024      # shared memory a block may use
+CLUSTER = 8                  # blocks a cloud (csrc/sinkhorn_em.cu:CL)
+
+
+def smem_bytes(N: int, K: int) -> int:
+    """Shared memory of one block (csrc/sinkhorn_em.cu:em_smem_floats): the
+    slab of ceil(N / 8) plan rows padded to a multiple of 32 columns, six
+    floats a row (rounded up to a multiple of 4), and 15 column vectors:
+    the nodes (4), the 4 warps' and two alternating block column sums, the
+    M-step sums (4) and the column factors."""
+    kp = 32 * -(-K // 32)
+    rows = -(-N // CLUSTER)
+    return 4 * (rows * kp + -(-6 * rows // 4) * 4 + 15 * kp)
 
 
 def kernel_takes(N: int, K: int) -> bool:
-    """Whether the kernel takes clouds of N points and K clusters: a block
-    of the cluster of 8 keeps ceil(N / 8) rows of the plan, padded to a
-    multiple of 32 columns, beside its reduction buffers
-    (csrc/sinkhorn_em.cu:launch)."""
-    if not (1 <= K <= KERNEL_MAX_K and N >= 1):
-        return False
-    kp = 32 * -(-K // 32)
-    rows = -(-N // 8)
-    return 4 * (rows * (kp + 7) + kp * 4 + 8 * 4 * kp + 2 * 4 * kp
-                + 4 * kp) <= SMEM_BYTES
+    """Whether the kernel takes clouds of N points and K clusters: K <= 128
+    and a block's slab of the plan beside its buffers in shared memory."""
+    return 1 <= K <= KERNEL_MAX_K and N >= 1 and smem_bytes(N, K) <= SMEM_BYTES
 
 
 def _marginal_q(K: int):
@@ -115,6 +120,18 @@ def _sinkhorn_em_cuda(xyz, o_norm, nodes0, iters, sk_iters, tau, eps):
     dispatch.check_launch(code, "sinkhorn_em")
     dispatch.launch_counts["sinkhorn_em"] += 1
     return gamma, pi, nodes
+
+
+def max_clusters(N: int, K: int) -> int:
+    """How many clouds of (N, K) the card can run at once (one cluster of 8
+    blocks each), by the occupancy calculator (cudaOccupancyMaxActiveClusters),
+    not measured; a launch of more clouds runs in more than one wave."""
+    out = ctypes.c_int(0)
+    fn = dispatch.load_kernel("sinkhorn_em").sinkhorn_em_max_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    dispatch.check_launch(fn(N, K, ctypes.byref(out)), "sinkhorn_em_max_clusters")
+    return out.value
 
 
 def sinkhorn_em(xyz: torch.Tensor, o_norm: torch.Tensor, nodes0: torch.Tensor,

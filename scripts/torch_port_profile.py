@@ -6,7 +6,8 @@ PyTorch/CUDA port goes.
                                           [--loop_kernels]
                                           [--n_points N] [--out DIR]
                                           (default N=717, profile_out/)
-    python3 scripts/torch_port_profile.py --preset indoor [--n_points N]
+    python3 scripts/torch_port_profile.py --preset indoor [--fused_edges]
+                                          [--n_points N]
 
 Needs one CUDA device. Runs GMMReg at B=24, N=717 (or --n_points: 1433 is
 ModelNet40's 2048-point clouds cropped to 0.70, the shared-graph route),
@@ -23,7 +24,9 @@ optimizer, the metrics) with CUDA events. `--bwd_kernels` turns on
 `ops.dgcnn_train.BWD_KERNELS`, so that the DGCNN backward runs through its
 three CUDA kernels instead of plain PyTorch. `--loop_kernels` builds the
 Registrar with `loop_kernels=True`, so that FPS, ICP and the attention MLPs
-run as one kernel launch each. One JSON line at the end
+run as one kernel launch each. `--fused_edges` sets dgcnn_fused_edges=True
+(with --preset indoor: the stage chain through the edges kernel). One JSON
+line at the end
 carries the same numbers with the card's name and power limit.
 """
 import argparse
@@ -198,6 +201,9 @@ def main():
     ap.add_argument("--preset", choices=["mnet", "indoor"], default="mnet")
     ap.add_argument("--loop_kernels", action="store_true",
                     help="FPS, ICP and the attention MLPs through their kernels")
+    ap.add_argument("--fused_edges", action="store_true",
+                    help="dgcnn_fused_edges=True: the DGCNN stage chain of the "
+                         "indoor request through the edges kernel")
     args = ap.parse_args()
     indoor = args.preset == "indoor"
     N = args.n_points or (35000 if indoor else 717)
@@ -218,8 +224,12 @@ def main():
         cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
         src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
         tgt = src[:, rs.permutation(N)] + 0.05
+    if args.fused_edges:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    dgcnn_fused_edges=True))
     result = {"shape": {"B": src.shape[0], "N": N}, "preset": args.preset,
-              "bwd_kernels": args.bwd_kernels, "loop_kernels": args.loop_kernels}
+              "bwd_kernels": args.bwd_kernels, "loop_kernels": args.loop_kernels,
+              "fused_edges": args.fused_edges}
     if args.train:
         from ogmm_tpu_torch.ops import dgcnn_train
         from ogmm_tpu_torch.train import create_train_state, make_train_step
@@ -257,6 +267,7 @@ def main():
             else "torch_port_profile_train")
     name += "_indoor" if indoor else ""
     name += "_loop_kernels" if args.loop_kernels else ""
+    name += "_fused_edges" if args.fused_edges else ""
     name += "" if N == (35000 if indoor else 717) else f"_n{N}"
     name += ".json"
     with open(os.path.join(args.out, name), "w") as f:

@@ -117,9 +117,9 @@ def test_plain_route_matches_jnp_composition():
 
 
 def test_wkeans_plus_above_the_kernel_envelope_matches_jax():
-    # a (3073, 128) plan does not fit the kernel's shared memory: both
+    # a (3353, 128) plan does not fit the kernel's shared memory: both
     # packages take their plain route here (the JAX kernel would still run)
-    N, K = 3073, 128
+    N, K = 3353, 128
     assert em_route(N, K) == "plain"
     rs = np.random.RandomState(8)
     xyz = clouds(8, B=1, N=N)

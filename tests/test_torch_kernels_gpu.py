@@ -130,9 +130,9 @@ def test_em_kernel_refuses_what_it_does_not_take(card):
     o = torch.full((1, 64), 1 / 64, device=card)
     with pytest.raises(ValueError, match="K <= 128"):
         sinkhorn_em(xyz, o, torch.zeros(1, 129, 3, device=card))
-    big = torch.zeros(1, 3073, 3, device=card)        # past shared memory
-    with pytest.raises(ValueError, match="N=3073"):
-        sinkhorn_em(big, torch.full((1, 3073), 1 / 3073, device=card),
+    big = torch.zeros(1, 3353, 3, device=card)        # past shared memory
+    with pytest.raises(ValueError, match="N=3353"):
+        sinkhorn_em(big, torch.full((1, 3353), 1 / 3353, device=card),
                     torch.zeros(1, 128, 3, device=card))
     with pytest.raises(ValueError, match="o_norm"):
         sinkhorn_em(xyz, o[:, :10], torch.zeros(1, 32, 3, device=card))
@@ -682,3 +682,65 @@ def test_loop_switches_launch_each_kernel(card):
         assert got == ({"fps": 1, "icp": 1, "pointmlp": 3} if on else
                        {"fps": 0, "icp": 0, "pointmlp": 0})
     assert (outs[True][2] - outs[False][2]).abs().max().item() <= 0.05
+
+
+# ------------------ the tensor-core stage chain and the one-wave EM kernel
+
+@pytest.mark.parametrize("N", [20, 717, 1023, 1024])
+@pytest.mark.parametrize("k", KERNEL_KS)
+@pytest.mark.parametrize("emb", [64, 512])
+@pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 0.0625)])
+def test_dgcnn_kernel_ragged_point_tiles(card, N, k, emb, dtype, lim):
+    # N not a multiple of the 8 points a block of the stage kernel takes
+    x, ws, aff = _dgcnn_inputs(np.random.RandomState(N + k), card, 2, N, emb)
+    out, alpha = dgcnn_eval(x, ws, aff, k, dtype, 5)
+    again, _ = dgcnn_eval(x, ws, aff, k, dtype, 5)
+    ref, ralpha = dgcnn_eval_reference(x, ws, aff, k, dtype, 5)
+    torch.cuda.synchronize()
+    assert out.shape == (2, N, emb) and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= lim
+    assert (alpha - ralpha).abs().max().item() <= 1e-5
+    assert torch.equal(out, again)           # the same bits every launch
+
+
+@pytest.mark.parametrize("N", [37, 35000])
+@pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 0.0625)])
+def test_dgcnn_edges_kernel_any_n(card, N, dtype, lim):
+    rs = np.random.RandomState(N)
+    x, ws, aff = _dgcnn_inputs(rs, card, 2, N, 512)
+    nbr = x[:, torch.tensor(rs.randint(0, N, (N, 20)), device=card)]
+    out = dgcnn_edges(x, nbr, ws, aff, 20, dtype)
+    again = dgcnn_edges(x, nbr, ws, aff, 20, dtype)
+    ref = dgcnn_edges_reference(x, nbr, ws, aff, 20, dtype)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= lim
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("B,N,K", [(2, 3072, 128), (2, 3352, 128), (2, 700, 1),
+                                   (2, 700, 32), (2, 700, 100), (48, 717, 128),
+                                   (2, 12128, 32)])
+def test_em_kernel_one_wave_design_matches_plain(card, B, N, K):
+    # (2, 3352, 128) and (2, 12128, 32) fill a block's shared memory
+    rs = np.random.RandomState(N + K)
+    xyz = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    o = torch.tensor(rs.rand(B, N).astype(np.float32), device=card)
+    o = o / o.sum(-1, keepdim=True)
+    n0 = torch.tensor(rs.randn(B, K, 3).astype(np.float32) * 0.3, device=card)
+    got = sinkhorn_em(xyz, o, n0, iters=1)
+    again = sinkhorn_em(xyz, o, n0, iters=1)
+    want = sinkhorn_em_reference(xyz, o, n0, iters=1)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4
+        assert torch.equal(g, a)             # the same bits every launch
+
+
+def test_em_kernel_runs_the_request_in_one_wave(card):
+    # 48 clouds of (717, 128): the occupancy calculator's count of clusters
+    # of 8 blocks the card holds at once
+    from ogmm_tpu_torch.ops import cuda_em
+    assert cuda_em.max_clusters(717, 128) >= 48
