@@ -1201,7 +1201,11 @@ def check_nn1_stream(rs):
     the indoor shape (Morton-sorted clouds, the moved source 0.6 degrees
     and 0.01 off the target, the cull and the 0.075 gate: identical (d, i)
     on the rows within the gate); the clustering's (2, 16, 35000) and
-    awkward shapes without a gate (identical on every row)."""
+    awkward shapes without a gate (identical on every row): N = 1, 16, 63,
+    65 and 4100 against M = 4097 and 35,000, with and without the cull and
+    a gate, and 301 coincident points; a relaunch gives the same bits. The
+    tile pairs the kernel searched beside those the search needs, and each
+    call's launch shape."""
     src, tgt, rot, trans = rigid_copies(rs, surface(rs, 1))
     src, tgt = _sorted(torch.tensor(src, device=DEV)), _sorted(torch.tensor(tgt, device=DEV))
     a = 0.01
@@ -1222,45 +1226,76 @@ def check_nn1_stream(rs):
           f"rows within the gate {same}; the rest report d >= gate "
           f"{bool((d[~inside] >= gate).all())}")
     assert same and bool((d[~inside] >= gate).all())
+    d2, i2 = cuda_stream.nn1_stream(moved, tgt, cull_lb=lb, max_dist_sq=gate,
+                                    diag_order=True)
+    assert torch.equal(d, d2) and torch.equal(i, i2), "a relaunch moved bits"
     big = torch.tensor(surface(rs, 2), device=DEV)
     nodes = index_points(big, torch.randint(0, N_INDOOR, (2, 16), device=DEV)) + 0.003
     g = _cloud(rs, 2, 4097)
     c = _cloud(rs, 1, 4200)
     c[:, 100:401] = c[:, :1]
     cs = _sorted(c)
-    for name, q, t, kw in (
-            (f"clustering (2, 16, {N_INDOOR})", nodes, big, {}),
-            ("(2, 4100, 4097) unsorted", _cloud(rs, 2, 4100, dup=False), g, {}),
-            ("301 coincident, sorted, cull", cs, cs,
-             dict(cull_lb=stream.tile_pair_bounds(cs), diag_order=True))):
+    bs = _sorted(big)
+    cases = [(f"clustering (2, 16, {N_INDOOR})", nodes, big, {}),
+             ("(2, 4100, 4097) unsorted", _cloud(rs, 2, 4100, dup=False), g, {}),
+             ("301 coincident, sorted, cull", cs, cs,
+              dict(cull_lb=stream.tile_pair_bounds(cs), diag_order=True))]
+    for n_q in (1, 16, 63, 65, 4100):
+        for t_name, t in (("4097", g), (str(N_INDOOR), bs)):
+            q = _sorted(t[:, :n_q] + 0.002)
+            cases.append((f"({t.shape[0]}, {n_q}, {t_name})", q, t, {}))
+            cases.append((f"({t.shape[0]}, {n_q}, {t_name}), cull, gate", q, t,
+                          dict(cull_lb=stream.pair_tile_bounds(q, t),
+                               max_dist_sq=0.02 ** 2, diag_order=True)))
+    for name, q, t, kw in cases:
         d2, i2 = cuda_stream.nn1_stream(q, t, **kw)
         torch.cuda.synchronize()
         rd2, ri2 = stream.nn1_stream_plain(q, t)
-        same = torch.equal(d2, rd2) and torch.equal(i2, ri2)
-        print(f"nn1_stream {name}: (d, i) identical {same}")
-        assert same
-    run = lambda: cuda_stream.nn1_stream(moved, tgt, cull_lb=lb,
-                                         max_dist_sq=gate, diag_order=True)
+        gate2 = kw.get("max_dist_sq")
+        keep = rd2 < gate2 if gate2 is not None else torch.ones_like(rd2, dtype=torch.bool)
+        same = torch.equal(d2[keep], rd2[keep]) and torch.equal(i2[keep], ri2[keep])
+        chunks, per = cuda_stream.nn1_stream_plan(q.shape[0], q.shape[1], t.shape[1],
+                                                  cuda_stream._sm_count(0))
+        print(f"nn1_stream {name}: (d, i) identical"
+              f"{' within the gate' if gate2 is not None else ''} {same}; "
+              f"grid ({-(-q.shape[1] // stream.TILE_N)}, {chunks}, {q.shape[0]}) "
+              f"blocks of {4 * stream.TILE_N} threads, {per} target tiles a chunk")
+        assert same and (gate2 is None or bool((d2[~keep] >= gate2).all()))
+    run = lambda **kw: cuda_stream.nn1_stream(moved, tgt, cull_lb=lb,
+                                              max_dist_sq=gate, diag_order=True, **kw)
     ms = cuda_ms(run, 20)
     ms_trip = cuda_ms(lambda: cuda_stream.nn1_stream(
         moved, tgt, cull_lb=stream.pair_tile_bounds(moved, tgt),
         max_dist_sq=gate, diag_order=True), 10)
     ms_nodes = cuda_ms(lambda: cuda_stream.nn1_stream(nodes, big), 10)
+    # device time of the kernels alone: the clustering's call is short
+    # enough that back-to-back calls time the wrapper's host work
+    groups = {"nn1": ("nn1_kernel", "nn1_merge_kernel")}
+    dev = launch_ms(run, 20, groups)["nn1"]
+    dev_nodes = launch_ms(lambda: cuda_stream.nn1_stream(nodes, big), 20, groups)["nn1"]
     plain = cuda_ms(lambda: stream.nn1_stream_plain(moved, tgt), 2)
     pairs, share = _needed_pairs(lb, rd.clamp_max(gate), N_INDOOR, N_INDOOR)
+    visits = torch.zeros(1, dtype=torch.int32, device=DEV)
+    run(visits=visits)                  # the tile pairs the kernel searched
+    searched = visits.item() / lb.numel()
+    nodes_chunks = cuda_stream.nn1_stream_plan(2, 16, N_INDOOR, cuda_stream._sm_count(0))
     bound, by = _bound(9.0 * pairs, 2 * moved.numel() * 4 + N_INDOOR * 12)
-    print(f"nn1_stream ICP trip: {ms:.4f} ms ({ms_trip:.4f} with its bound "
-          f"table), plain {plain:.2f} ms, bound {bound:.6f} ms ({by}; the "
-          f"{share:.4f} of the tile pairs the gated search needs); the "
-          f"clustering's call {ms_nodes:.4f} ms")
+    print(f"nn1_stream ICP trip: {ms:.4f} ms ({dev:.4f} ms on the device; "
+          f"{ms_trip:.4f} with its bound table), plain {plain:.2f} ms, bound "
+          f"{bound:.6f} ms ({by}; the {share:.4f} of the tile pairs the gated "
+          f"search needs, the kernel searched {searched:.4f}; grid "
+          f"({lb.shape[1]}, 1, 1) blocks of {4 * stream.TILE_N} threads); the "
+          f"clustering's call {ms_nodes:.4f} ms ({dev_nodes:.4f} on the device; "
+          f"grid (1, {nodes_chunks[0]}, 2) and a merge launch)")
     return {"name": "nn1_stream", "route": "cuda",
             "source": "ogmm_tpu_torch/csrc/knn_stream.cu",
             "replaces": "ogmm_tpu/ops/pallas_stream.py:165",
             "also_replaces": "ogmm_tpu/ops/pallas_stream.py:236",
-            "max_abs_err": 0.0, "ms": ms, "ms_with_table": ms_trip,
-            "ms_clustering_call": ms_nodes, "plain_ms": plain,
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev,
+            "ms_with_table": ms_trip, "ms_clustering_call": ms_nodes,
+            "device_ms_clustering_call": dev_nodes, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "tile_pairs_needed": share,
-            "library_ms": None}
+            "tile_pairs_searched": searched, "library_ms": None}
 
 
 def _features(rs, b, n, d, dtype):
@@ -1303,8 +1338,10 @@ def check_wproject(rs):
     """The streamed overlap projection against its plain version: out and
     lse within LIM_WPROJECT at the indoor call (1, 35000, 35000, D=512,
     bf16) and at small awkward shapes (float32, M below one tile, N not a
-    multiple of the tile, M just above 4096); timed beside the plain version
-    and `scaled_dot_product_attention` with a one-column v."""
+    multiple of the tile, M just above 4096, M = 1, more units than blocks
+    and fewer), a relaunch the same bits; timed beside the plain version
+    and `scaled_dot_product_attention` with a one-column v; the launch
+    shape of each bf16 call."""
     worst = 0.0
     qi, ki = _features(rs, 1, N_INDOOR, EMB, torch.bfloat16)
     vi = torch.tensor(rs.randn(1, N_INDOOR, 1).astype(np.float32), device=DEV)
@@ -1312,7 +1349,10 @@ def check_wproject(rs):
     for b, n, m, d, dt in ((1, 1000, 700, 64, torch.float32),
                            (1, 70, 50, 64, torch.bfloat16),
                            (2, 130, 4100, EMB, torch.bfloat16),
-                           (2, 130, 4100, 128, torch.float32)):
+                           (2, 130, 4100, 128, torch.float32),
+                           (2, 300, 1, EMB, torch.bfloat16),
+                           (1, 129, 65, 256, torch.bfloat16),
+                           (3, 1000, 2000, 128, torch.bfloat16)):
         q, _ = _features(rs, b, n, d, dt)
         _, k = _features(rs, b, m, d, dt)
         v = torch.tensor(rs.randn(b, m, 1).astype(np.float32), device=DEV)
@@ -1323,11 +1363,21 @@ def check_wproject(rs):
         rout, rlse = stream.wproject_stream_lse_plain(q, k, v)
         e_out = (out - rout).abs().max().item()
         e_lse = (lse - rlse).abs().max().item()
+        again = cuda_stream.wproject_stream_lse(q, k, v)
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        shape = ""
+        if q.dtype == torch.bfloat16:
+            blocks, slots = cuda_stream.wproject_plan(
+                q.shape[0], q.shape[1], k.shape[1], cuda_stream._sm_count(0))
+            units = cuda_stream.wproject_units(q.shape[0], q.shape[1], k.shape[1], blocks)
+            shape = (f"; {len(units)} units on {blocks} blocks of 384 threads, "
+                     f"{cuda_stream.wproject_smem_bytes(q.shape[2])} B of shared "
+                     f"memory, a merge launch")
         print(f"wproject {tuple(q.shape)} x {k.shape[1]} {q.dtype}: out "
               f"{e_out:.3g}, lse {e_lse:.3g} (limit {LIM_WPROJECT}); max|lse| "
-              f"{rlse.abs().max().item():.3g}")
+              f"{rlse.abs().max().item():.3g}; a relaunch the same bits {same}{shape}")
         assert torch.isfinite(out).all() and torch.isfinite(lse).all()
-        assert e_out <= LIM_WPROJECT and e_lse <= LIM_WPROJECT
+        assert e_out <= LIM_WPROJECT and e_lse <= LIM_WPROJECT and same
         worst = max(worst, e_out, e_lse)
     ms = cuda_ms(lambda: cuda_stream.wproject_stream_lse(qi, ki, vi), 5)
     plain = cuda_ms(lambda: stream.wproject_stream_lse_plain(qi, ki, vi), 2)

@@ -1,5 +1,5 @@
 // bf16 tensor-core helpers shared by the kernels that multiply on the
-// tensor cores with mma.sync (dgcnn_eval.cu, pointmlp.cu, wproject.cu).
+// tensor cores with mma.sync (dgcnn_eval.cu, pointmlp.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -7,189 +7,419 @@
 // log sum_m exp(q_n . k_m), both float32. The (N, M) similarity never exists
 // in device memory (at the indoor request it would be 4.9 GB a pair).
 //
-// A block owns a tile of query rows and walks the keys in tiles, in order,
-// with a flash-style online softmax: each row keeps its running max m, sum l
-// and accumulator acc in float32, rescaled by exp(m_old - m_new) when the max
-// grows; at the end out = acc / l and lse = m + log l. Keys past M are never
-// read: their logits are replaced by -inf and their p by 0 (a select, not a
-// product), so no padding value can reach a sum.
+// Every route runs a flash-style online softmax: each row keeps its running
+// max m, sum l and accumulator acc in float32, rescaled by exp(m_old - m_new)
+// when the max grows; out = acc / l and lse = m + log l. Keys past M never
+// reach a sum: their logits are replaced by -inf (a select, not a product),
+// so no padding value can.
 //
-//  - bf16 (wproject_bf16_kernel, D in {64, 128, 256, 512}): 8 warps, 128
-//    query rows, 16 a warp. A warp keeps its rows of q as mma.sync A
-//    fragments in registers for the whole call (D / 16 fragments: 128
-//    registers at D = 512), staged once through shared memory. Key tiles of
-//    32 rows stream through a double buffer in shared memory with cp.async,
-//    the next tile in flight while this one is multiplied. The (16, 32)
-//    logits of a warp come from mma.sync m16n8k16 (bf16 products, exact,
-//    summed in float32) with B fragments from ldmatrix, and the online
-//    softmax runs on the accumulator fragments in registers; the four lanes
-//    of a row combine their maxima with shuffles and their sums at the end.
+//  - bf16 (wproject_wgmma_kernel + wproject_merge_kernel, D in {64, 128,
+//    256, 512}). Bound: operations, 2 D flops a (query, key) pair at the
+//    tensor cores' rate; at the indoor call (N = M = 35,000, D = 512) 1.25
+//    TFLOP, 1.27 ms at 989 TFLOP/s, against 72 MB to read. A block has one
+//    producer warpgroup and two consumer warpgroups of 64 query rows each
+//    (a work unit is 128 rows). One producer thread keeps a ring of key
+//    tiles (64 keys x D) in flight with TMA (cp.async.bulk.tensor, 128-byte
+//    swizzle, one box of 64 features at a time, mbarrier-guarded stages;
+//    rows past M arrive as zeros and are masked by column index). The
+//    consumers hold their q rows as wgmma A fragments in registers (D / 4
+//    of them, 128 at D = 512: setmaxnreg moves registers from the producer
+//    to the consumers) and take S = q k^T for a tile with D / 16
+//    wgmma.mma_async m64n64k16 (bf16 products, exact, summed in float32,
+//    B from shared memory, K-major). The online softmax runs on the
+//    accumulator fragments (a lane holds rows g and g + 8, columns 2t,
+//    2t + 1 of every 8), in base 2; p . v stays on the CUDA cores (v has
+//    one column). The two warpgroups take turns to issue their products
+//    (named barriers, as FlashAttention-3 does), so that one runs its
+//    softmax (8,192 exponentials a tile for the block, at 16 a clock on an
+//    SM's special function units) while the tensor cores take the other's
+//    products.
+//    Wave tail: a persistent grid of one block an SM walks the flattened
+//    (query tile, key tile) pairs, each block an equal contiguous share, so
+//    every SM has work to the end; a block's share splits at query-tile
+//    boundaries into units (a tile and a key range), each writing its rows'
+//    partial (m, l, acc). A second small launch merges the partials of a
+//    row in ascending key order (no float atomics: the same bits every
+//    launch). ops/cuda_stream.py:wproject_units mirrors the split.
+//    Every block reads all of k: (N / 128) M D 2 bytes from L2, 9.8 GB at
+//    the indoor call. Clusters of two blocks sharing each tile by TMA
+//    multicast halve that, but measured slower: the L2 does not bound the
+//    kernel, and two blocks' rings in lockstep stall each other. Without
+//    its softmax the kernel measured most of its time: the m64n64k16
+//    products from register fragments, which the 128 registers of q keep
+//    from a wider N, stand between it and the bound.
 //  - float32 (wproject_f32_kernel, D a multiple of 32): 64 query rows and
 //    keys in tiles of 64, the logit tile on the CUDA cores (each thread 4
 //    rows by 8 keys over 32-feature chunks staged in shared memory), then
 //    through shared memory to the softmax step, two threads a row.
 //
-// Bound: operations. 2 D flops a (query, key) pair at the tensor cores' rate,
-// against (N + M) D elements read and 8 bytes written a row. The bf16 kernel
-// reads each fragment of k from shared memory with ldmatrix once per warp:
-// shared-memory bandwidth, not the tensor cores, limits it; wgmma with k
-// tiles fed by TMA is the way to the bound.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): the indoor
+// call (1, 35000, 35000, D = 512) bf16 takes 2.05-2.10 ms (about 600
+// TFLOP/s, 64% of the bound's rate; k at 4.7 TB/s from L2); 2.15 ms
+// without the turns (another call).
+#include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"  // mma_bf16, ldsm_x4, cp_async16
-
 // ---------------------------------------------------------------- bf16
 
-#define BQ 128    // query rows a block (8 warps x 16)
-#define BK 32     // keys a tile
-#define BNT 256   // threads a block
+#define WQ 128         // query rows a work unit: two consumer warpgroups of 64
+#define WK 64          // keys a tile: the wgmma's N
+#define WTHREADS 384   // one producer and two consumer warpgroups
+#define SPIN_LIMIT (1u << 28)  // an mbarrier wait that never ends traps
 
-// key rows [m0, m0 + BK) of k (B's rows: (M, D)) into a (BK, D + 8) buffer
 template <int D>
-__device__ __forceinline__ void load_keys(__nv_bfloat16* buf,
-                                          const __nv_bfloat16* __restrict__ kb,
-                                          int m0, int M) {
-  constexpr int PER_ROW = D / 8;                 // 16-byte pieces a row
-  for (int e = threadIdx.x; e < BK * PER_ROW; e += BNT) {
-    const int r = e / PER_ROW, c = (e % PER_ROW) * 8;
-    const bool valid = m0 + r < M;
-    cp_async16(buf + r * (D + 8) + c,
-               kb + (valid ? (size_t)(m0 + r) * D + c : 0), valid);
+struct WPlan {
+  static constexpr int STAGES = D >= 512 ? 3 : D >= 256 ? 6 : 8;
+  static constexpr int STAGE_BYTES = WK * D * 2;
+  // + 1024: the ring starts at the first 1024-byte boundary (the swizzle's)
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (spin == SPIN_LIMIT) __trap();
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// one box of the 3-D tensor map (D, M, B) -> shared memory, completion on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major operand in the 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d (64 x 64, f32) = a (64 x 16, bf16 registers) b (16 x 64, bf16 in shared
+// memory) + (scale_d ? d : 0), asynchronous
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// keep the compiler from moving register reads or writes across a wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// named barriers 1 and 2 over the 256 consumer threads: a warpgroup waits
+// for its turn to issue products, then hands the turn to the other
+__device__ __forceinline__ void turn_wait(int cw) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + cw) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int cw) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - cw) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the integer split of a persistent grid of G blocks over T (query tile, key
+// tile) pairs: block i takes pairs [i T / G, (i + 1) T / G); block_of(p) is
+// the block holding pair p
+__device__ __forceinline__ long long share_start(long long i, long long T, long long G) {
+  return i * T / G;
+}
+__device__ __forceinline__ long long block_of(long long p, long long T, long long G) {
+  return ((p + 1) * G - 1) / T;
 }
 
 template <int D>
-__global__ void __launch_bounds__(BNT, 1)
-wproject_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, int N, int M) {
-  constexpr int KS = D / 16;                 // k-steps of one logit
-  constexpr int QC = D < 128 ? D : 128;      // q columns a staging round
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int b = blockIdx.y, n0 = blockIdx.x * BQ, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const __nv_bfloat16* qb = q + (size_t)b * N * D;
-  const __nv_bfloat16* kb = k + (size_t)b * M * D;
-  const float* vb = v + (size_t)b * M;
-
-  // this warp's 16 rows of q as A fragments, staged through shared memory
-  uint32_t qa[KS][4];
+__global__ void __launch_bounds__(WTHREADS, 1)
+wproject_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                      const __nv_bfloat16* __restrict__ q,
+                      const float* __restrict__ v, float* __restrict__ part,
+                      int B, int N, int M, int slots) {
+  constexpr int KS = D / 16, ST = WPlan<D>::STAGES, SB = WPlan<D>::STAGE_BYTES;
+  constexpr float L2E = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[ST], empty[ST];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n_qt = (N + WQ - 1) / WQ, n_kt = (M + WK - 1) / WK;
+  const long long T = (long long)B * n_qt * n_kt, G = gridDim.x;
+  const long long p0 = share_start(blockIdx.x, T, G);
+  const long long p1 = share_start(blockIdx.x + 1, T, G);
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int d0 = 0; d0 < D; d0 += QC) {
-    for (int e = tid; e < BQ * QC / 8; e += BNT) {
-      const int r = e / (QC / 8), c = (e % (QC / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < N)
-        val = *reinterpret_cast<const uint4*>(qb + (size_t)(n0 + r) * D + d0 + c);
-      *reinterpret_cast<uint4*>(sm + r * (QC + 8) + c) = val;
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival from each consumer warp
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long long p = p0; p < p1; ++p) {
+        const int tile = (int)(p / n_kt), kt = (int)(p % n_kt);
+        mbar_wait(&empty[stage], phase ^ 1u);   // the first lap passes
+        mbar_expect_tx(&full[stage], SB);
 #pragma unroll
-    for (int s = 0; s < QC / 16; ++s)
-      ldsm_x4(qa[d0 / 16 + s], sm + (warp * 16 + (lane % 8) + ((lane >> 3) & 1) * 8) * (QC + 8)
-                                   + s * 16 + (lane >> 4) * 8);
-    __syncthreads();
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_3d(ring + stage * SB + c * (WK * 128), &kmap, &full[stage],
+                      c * 64, kt * WK, tile / n_qt);
+        if (++stage == ST) { stage = 0; phase ^= 1u; }
+      }
+    }
+    return;
   }
 
-  __nv_bfloat16* kbuf[2] = {sm, sm + BK * (D + 8)};
-  const int n_tiles = (M + BK - 1) / BK;
-  load_keys<D>(kbuf[0], kb, 0, M);
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};  // rows g and g + 8
-  float l_run[2] = {0.f, 0.f}, a_run[2] = {0.f, 0.f};
-  for (int j = 0; j < n_tiles; ++j) {
-    const int m0 = j * BK;
-    if (j + 1 < n_tiles) {
-      load_keys<D>(kbuf[(j + 1) & 1], kb, m0 + BK, M);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const __nv_bfloat16* kt = kbuf[j & 1];
-    float s[BK / 8][4];
+  // --------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int tile0 = (int)(p0 / n_kt);
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[32];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  if (cw == 1) turn_pass(cw);   // warpgroup 0 issues first
+  for (long long p = p0; p < p1;) {
+    // a unit: query tile `tile`, key tiles [k0, k1)
+    const int tile = (int)(p / n_kt), k0 = (int)(p % n_kt);
+    const int k1 = (int)(k0 + p1 - p < n_kt ? k0 + p1 - p : n_kt);
+    const int b = tile / n_qt, rr = (tile % n_qt) * WQ + cw * 64 + warp * 16 + g;
+    const __nv_bfloat16* qb = q + (size_t)b * N * D;
+    const float* vb = v + (size_t)b * M;
+    // rows rr and rr + 8 of q as A fragments: (g, 2t), (g + 8, 2t),
+    // (g, 2t + 8), (g + 8, 2t + 8) of each 16-feature step
+    uint32_t qa[KS][4];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t bf[4];  // n-tiles 2 np and 2 np + 1, feature halves 0 and 1
-        ldsm_x4(bf, kt + (np * 16 + (lane % 8) + (lane >> 4) * 8) * (D + 8)
-                        + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qa[ks], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qa[ks], bf[2], bf[3]);
+      for (int i = 0; i < 4; ++i) {
+        const int r = rr + 8 * (i & 1), c = ks * 16 + 2 * t + 8 * (i >> 1);
+        qa[ks][i] = r < N ? __ldg(reinterpret_cast<const unsigned int*>(qb + (size_t)r * D + c)) : 0u;
       }
-    }
-    // online softmax over this tile's 32 keys; lane holds keys 2t, 2t + 1
-    // of each 8-key n-tile, for rows g (s[.][0..1]) and g + 8 (s[.][2..3])
-    float vv[BK / 8][2], mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};   // base-2 logits
+    float l_run[2] = {0.f, 0.f}, a_run[2] = {0.f, 0.f};
+    for (int kt = k0; kt < k1; ++kt) {
+      const int m0 = kt * WK;
+      const bool whole = m0 + WK <= M;
+      float vv[8][2];   // v of this lane's columns 8 j + 2 t + e
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = m0 + nt * 8 + 2 * t + e;
-        const bool valid = col < M;
-        vv[nt][e] = valid ? vb[col] : 0.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (!valid) s[nt][2 * h + e] = -CUDART_INF_F;
-          mx[h] = fmaxf(mx[h], s[nt][2 * h + e]);
-        }
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_run[h], mx[h]);  // finite: a tile has a key
-      const float alpha = expf(m_run[h] - m_new);  // 0 on the first tile
-      float ps = 0.f, pv = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float sv = s[nt][2 * h + e];
-          const float p = sv == -CUDART_INF_F ? 0.f : expf(sv - m_new);
-          ps += p;
-          pv = fmaf(p, vv[nt][e], pv);
+          const int col = m0 + 8 * j + 2 * t + e;
+          vv[j][e] = whole || col < M ? __ldg(vb + col) : 0.f;
         }
-      l_run[h] = fmaf(l_run[h], alpha, ps);
-      a_run[h] = fmaf(a_run[h], alpha, pv);
-      m_run[h] = m_new;
-    }
-    __syncthreads();   // the buffer of this tile is refilled next trip
-  }
+      mbar_wait(&full[stage], phase);
+      // the two warpgroups issue their products in turn, so that one's
+      // softmax runs while the tensor cores take the other's products
+      turn_wait(cw);
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint32_t kbase = ring + stage * SB;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
-    a_run[h] += __shfl_xor_sync(0xffffffffu, a_run[h], 1);
-    a_run[h] += __shfl_xor_sync(0xffffffffu, a_run[h], 2);
-    const int n = n0 + warp * 16 + g + 8 * h;
-    if (t == 0 && n < N) {
-      out[(size_t)b * N + n] = a_run[h] / l_run[h];
-      lse[(size_t)b * N + n] = m_run[h] + logf(l_run[h]);
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_m64n64k16(acc, qa[ks],
+                        sw128_desc(kbase + (ks / 4) * (WK * 128) + (ks % 4) * 32),
+                        ks > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      turn_pass(cw);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with it
+      if (++stage == ST) { stage = 0; phase ^= 1u; }
+      // online softmax over the tile's 64 keys: acc[4 j + e] is row g,
+      // acc[4 j + 2 + e] row g + 8, column 8 j + 2 t + e
+      if (!whole) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (m0 + 8 * j + 2 * t + e >= M) acc[4 * j + e] = acc[4 * j + 2 + e] = -CUDART_INF_F;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[h], mx * L2E);  // finite: a tile has a key
+        const float alpha = ex2(m_run[h] - m_new);      // 0 on a unit's first tile
+        float ps = 0.f, pv = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pe = ex2(fmaf(acc[4 * j + 2 * h + e], L2E, -m_new));  // -inf -> 0
+            ps += pe;
+            pv = fmaf(pe, vv[j][e], pv);
+          }
+        l_run[h] = fmaf(l_run[h], alpha, ps);
+        a_run[h] = fmaf(a_run[h], alpha, pv);
+        m_run[h] = m_new;
+      }
     }
+    // the unit's partial (m, l, acc) of each row, lanes of a row summed
+    float* dst = part + (size_t)((long long)blockIdx.x * slots + (tile - tile0)) * 3 * WQ;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_run[h], a = a_run[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      if (t == 0) {
+        const int row = cw * 64 + warp * 16 + g + 8 * h;
+        dst[row] = m_run[h];
+        dst[WQ + row] = l;
+        dst[2 * WQ + row] = a;
+      }
+    }
+    p += k1 - k0;
   }
+}
+
+// one thread a row: the partials of its query tile's units, in ascending key
+// order -> out, lse
+__global__ void __launch_bounds__(256)
+wproject_merge_kernel(const float* __restrict__ part, float* __restrict__ out,
+                      float* __restrict__ lse, int B, int N, int M, int slots,
+                      int G) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * N) return;
+  const int b = idx / N, n = idx % N;
+  const int n_qt = (N + WQ - 1) / WQ, n_kt = (M + WK - 1) / WK;
+  const long long T = (long long)B * n_qt * n_kt;
+  const int tile = b * n_qt + n / WQ, row = n % WQ;
+  const long long pa = (long long)tile * n_kt;
+  const int g0 = (int)block_of(pa, T, G), g1 = (int)block_of(pa + n_kt - 1, T, G);
+  float mx = -CUDART_INF_F;
+  for (int i = g0; i <= g1; ++i) {
+    const int s = tile - (int)(share_start(i, T, G) / n_kt);
+    mx = fmaxf(mx, part[((size_t)i * slots + s) * 3 * WQ + row]);
+  }
+  float l = 0.f, a = 0.f;
+  for (int i = g0; i <= g1; ++i) {
+    const int s = tile - (int)(share_start(i, T, G) / n_kt);
+    const float* src = part + ((size_t)i * slots + s) * 3 * WQ;
+    const float w = exp2f(src[row] - mx);
+    l = fmaf(src[WQ + row], w, l);
+    a = fmaf(src[2 * WQ + row], w, a);
+  }
+  out[idx] = a / l;
+  lse[idx] = (mx + log2f(l)) * 0.6931471805599453f;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess)
+      return nullptr;
+#endif
+    if (found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 template <int D>
 static cudaError_t launch_bf16(const void* q, const void* k, const float* v,
-                               float* out, float* lse, int B, int N, int M,
-                               cudaStream_t stream) {
-  constexpr int QC = D < 128 ? D : 128;
-  const int kbytes = 2 * BK * (D + 8) * 2, qbytes = BQ * (QC + 8) * 2;
-  const int smem = kbytes > qbytes ? kbytes : qbytes;
+                               float* out, float* lse, float* part, int B, int N,
+                               int M, int blocks, int slots, cudaStream_t stream) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(k) % 16 != 0) return cudaErrorMisalignedAddress;
+  CUtensorMap kmap;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)M, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)M * D * 2};
+  const cuuint32_t box[3] = {64, WK, 1}, elem[3] = {1, 1, 1};
+  if (encode(&kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(k),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      wproject_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      wproject_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      WPlan<D>::SMEM);
   if (err != cudaSuccess) return err;
-  wproject_bf16_kernel<D><<<dim3((N + BQ - 1) / BQ, B), BNT, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, v, out, lse, N, M);
+  wproject_wgmma_kernel<D><<<blocks, WTHREADS, WPlan<D>::SMEM, stream>>>(
+      kmap, (const __nv_bfloat16*)q, v, part, B, N, M, slots);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wproject_merge_kernel<<<(B * N + 255) / 256, 256, 0, stream>>>(
+      part, out, lse, B, N, M, slots, blocks);
   return cudaGetLastError();
 }
 
@@ -292,16 +522,21 @@ wproject_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 extern "C" int wproject_launch(const void* q, const void* k, const float* v,
-                               float* out, float* lse, int B, int N, int M,
-                               int D, int is_bf16, void* stream_ptr) {
+                               float* out, float* lse, float* part, int B, int N,
+                               int M, int D, int is_bf16, int blocks, int slots,
+                               void* stream_ptr) {
   if (B < 1 || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (is_bf16) {
+    // blocks and slots: ops/cuda_stream.py:wproject_plan
+    const long long T = (long long)B * ((N + WQ - 1) / WQ) * ((M + WK - 1) / WK);
+    if (blocks < 1 || blocks > T || slots < 1 || part == nullptr)
+      return (int)cudaErrorInvalidValue;
     switch (D) {
-      case 64: return (int)launch_bf16<64>(q, k, v, out, lse, B, N, M, stream);
-      case 128: return (int)launch_bf16<128>(q, k, v, out, lse, B, N, M, stream);
-      case 256: return (int)launch_bf16<256>(q, k, v, out, lse, B, N, M, stream);
-      case 512: return (int)launch_bf16<512>(q, k, v, out, lse, B, N, M, stream);
+      case 64: return (int)launch_bf16<64>(q, k, v, out, lse, part, B, N, M, blocks, slots, stream);
+      case 128: return (int)launch_bf16<128>(q, k, v, out, lse, part, B, N, M, blocks, slots, stream);
+      case 256: return (int)launch_bf16<256>(q, k, v, out, lse, part, B, N, M, blocks, slots, stream);
+      case 512: return (int)launch_bf16<512>(q, k, v, out, lse, part, B, N, M, blocks, slots, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }

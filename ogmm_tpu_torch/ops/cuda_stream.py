@@ -14,10 +14,15 @@ once, in a `*_takes` function of shapes, which the routes of
   wproject     q (B, N, D), k (B, M, D) of one type: bf16 with D in
                {64, 128, 256, 512} (q rows held in registers) or float32
                with D a multiple of 32; v (B, M, 1)
+
+The launch plans of the 1-NN and bf16 projection kernels are pure functions
+of shapes here (`nn1_stream_plan`, `wproject_plan`, `wproject_units`,
+`wproject_smem_bytes`), so that the CPU tests can hold them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -30,6 +35,71 @@ from ogmm_tpu_torch.ops.stream import (TILE_M, TILE_N, knn_stream_plain,
 
 WPROJECT_BF16_D = (64, 128, 256, 512)   # csrc/wproject.cu: instantiated widths
 WPROJECT_F32_DC = 32                     # and the float32 kernel's chunk
+WPROJECT_ROWS = 128      # the bf16 kernel's query rows a unit (WQ)
+WPROJECT_KEYS = 64       # and keys a tile (WK)
+NN1_SPLIT_BLOCKS = 2     # blocks an SM the 1-NN split aims at
+
+
+def nn1_stream_plan(B: int, N: int, M: int, n_sm: int):
+    """(chunks, tiles a chunk) of the 1-NN kernel: the grid is (query tiles
+    of TILE_N, chunks, B), and chunk c searches the target tiles of TILE_M
+    [c * per, min((c + 1) * per, n_m)). Where the query tiles alone fill
+    the n_sm SMs the target stays whole (one chunk); otherwise it splits
+    into chunks of whole tiles until about NN1_SPLIT_BLOCKS blocks an SM
+    have work (the clustering's (2, 16, 35000): 69 chunks of one tile)."""
+    n_qt, n_m = -(-N // TILE_N), -(-M // TILE_M)
+    if B * n_qt >= n_sm:
+        return 1, n_m
+    want = min(n_m, -(-NN1_SPLIT_BLOCKS * n_sm // (B * n_qt)))
+    per = -(-n_m // want)
+    return -(-n_m // per), per
+
+
+def wproject_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of a bf16 block (csrc/wproject.cu: WPlan): a
+    ring of key tiles of WPROJECT_KEYS x D, 3 stages at D = 512, 6 at 256,
+    8 below, and 1024 bytes to align the ring to the swizzle."""
+    stages = 3 if D >= 512 else 6 if D >= 256 else 8
+    return stages * WPROJECT_KEYS * D * 2 + 1024
+
+
+def _wproject_pairs(B, N, M):
+    n_qt, n_kt = -(-N // WPROJECT_ROWS), -(-M // WPROJECT_KEYS)
+    return n_qt, n_kt, B * n_qt * n_kt
+
+
+def wproject_units(B: int, N: int, M: int, blocks: int):
+    """The work units of the bf16 kernel's persistent grid, in launch order:
+    block i takes the flattened (query tile, key tile) pairs [i T / blocks,
+    (i + 1) T / blocks), split at query-tile boundaries. Each unit is
+    (block, slot, tile, k0, k1): query tile `tile` (over B * n_qt, batch
+    major) against key tiles [k0, k1) of WPROJECT_KEYS, its partials in
+    slot `slot` of the block. The kernel's integer arithmetic, mirrored."""
+    n_qt, n_kt, T = _wproject_pairs(B, N, M)
+    units = []
+    for i in range(blocks):
+        p, p1 = i * T // blocks, (i + 1) * T // blocks
+        tile0 = p // n_kt
+        while p < p1:
+            tile, k0 = divmod(p, n_kt)
+            k1 = min(n_kt, k0 + p1 - p)
+            units.append((i, tile - tile0, tile, k0, k1))
+            p += k1 - k0
+    return units
+
+
+@functools.lru_cache(maxsize=64)
+def wproject_plan(B: int, N: int, M: int, n_sm: int):
+    """(blocks, slots) of the bf16 kernel: one block an SM (or one a pair
+    where there are fewer pairs), and the most units a block holds."""
+    blocks = min(n_sm, _wproject_pairs(B, N, M)[2])
+    slots = max(u[1] for u in wproject_units(B, N, M, blocks)) + 1
+    return blocks, slots
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def knn_stream_takes(C: int, M: int, k: int) -> bool:
@@ -99,19 +169,29 @@ def knn_stream(src: torch.Tensor, tgt: torch.Tensor, k: int,
     return knn_stream_plain(src, tgt, k, cull_lb=cull_lb)
 
 
-def _nn1_stream_cuda(src, tgt, cull_lb, max_dist_sq, diag_order, stretch):
+def _nn1_stream_cuda(src, tgt, cull_lb, max_dist_sq, diag_order, stretch,
+                     visits):
     B, N, M, src, tgt = _points(src, tgt, "nn1_stream")
     lb = _cull(cull_lb, B, N, M, src.device)
+    if visits is not None and (visits.dtype != torch.int32 or visits.numel() != 1
+                               or visits.device != src.device):
+        raise ValueError("visits is one int32 counter on the points' device")
+    chunks, per = nn1_stream_plan(B, N, M, _sm_count(src.device.index or 0))
     d = torch.empty(B, N, dtype=torch.float32, device=src.device)
     idx = torch.empty(B, N, dtype=torch.int64, device=src.device)
+    pd = pi = None
+    if chunks > 1:
+        pd = torch.empty(B, chunks, N, dtype=torch.float32, device=src.device)
+        pi = torch.empty(B, chunks, N, dtype=torch.int32, device=src.device)
     fn = dispatch.load_kernel("knn_stream").nn1_stream_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     # the gate only clamps the cull: without a table it has nothing to do
     gate = float("inf") if max_dist_sq is None or lb is None else float(max_dist_sq)
-    code = fn(_ptr(src), _ptr(tgt), _ptr(lb), _ptr(d), _ptr(idx), B, N, M,
-              gate, int(diag_order), int(stretch),
+    code = fn(_ptr(src), _ptr(tgt), _ptr(lb), _ptr(d), _ptr(idx), _ptr(pd),
+              _ptr(pi), _ptr(visits), B, N, M, gate, int(diag_order),
+              int(stretch), chunks, per,
               ctypes.c_void_p(dispatch.current_stream(src)))
     dispatch.check_launch(code, "nn1_stream")
     dispatch.launch_counts["nn1_stream"] += 1
@@ -121,16 +201,22 @@ def _nn1_stream_cuda(src, tgt, cull_lb, max_dist_sq, diag_order, stretch):
 def nn1_stream(src: torch.Tensor, tgt: torch.Tensor,
                cull_lb: torch.Tensor | None = None,
                max_dist_sq: float | None = None, diag_order: bool = False,
-               stretch: int = 1):
+               stretch: int = 1, visits: torch.Tensor | None = None):
     """1-NN with the target streamed: (B, N, 3) x (B, M, 3) -> (min squared
     distance (B, N), index (B, N) int64), first index among equal minima.
     With `cull_lb` and `max_dist_sq` (the ICP inlier gate), a row whose
     nearest point lies at or beyond the gate may return any index and a
     distance >= the gate; every other row is exact. Launches the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    kernel for a CUDA tensor (a split target adds a merge launch; one
+    launch is counted), the plain version for a CPU tensor. `visits`, one
+    int32 on the card, gets the number of (query tile, target tile) pairs
+    the kernel searched added to it; the plain version takes none."""
     if src.is_cuda:
         return _nn1_stream_cuda(src, tgt, cull_lb, max_dist_sq, diag_order,
-                                stretch)
+                                stretch, visits)
+    if visits is not None:
+        raise ValueError("visits counts the CUDA kernel's tiles; the plain "
+                         "version on the CPU has none")
     return nn1_stream_plain(src, tgt, cull_lb, max_dist_sq)
 
 
@@ -151,11 +237,18 @@ def _wproject_cuda(q, k, v):
     v = v.float().contiguous()
     out = torch.empty(B, N, 1, dtype=torch.float32, device=q.device)
     lse = torch.empty(B, N, 1, dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    blocks = slots = 0
+    part = None
+    if bf16:   # the persistent grid's units write partials, merged after
+        blocks, slots = wproject_plan(B, N, M, _sm_count(q.device.index or 0))
+        part = torch.empty(blocks * slots * 3 * WPROJECT_ROWS,
+                           dtype=torch.float32, device=q.device)
     fn = dispatch.load_kernel("wproject").wproject_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    code = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), B, N, M, D,
-              int(q.dtype == torch.bfloat16),
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    code = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), _ptr(part),
+              B, N, M, D, int(bf16), blocks, slots,
               ctypes.c_void_p(dispatch.current_stream(q)))
     dispatch.check_launch(code, "wproject")
     dispatch.launch_counts["wproject"] += 1
@@ -165,8 +258,9 @@ def _wproject_cuda(q, k, v):
 def wproject_stream_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """softmax(q k^T) v without the (N, M) matrix, and the row logsumexp:
     q (B, N, D), k (B, M, D), v (B, M, 1) -> out (B, N, 1), lse (B, N, 1),
-    float32. Launches the CUDA kernel for a CUDA tensor (no gradient), the
-    plain version for a CPU tensor."""
+    float32. Launches the CUDA kernel for a CUDA tensor (no gradient; bf16
+    adds a merge launch, one launch is counted), the plain version for a
+    CPU tensor."""
     if q.is_cuda:
         with torch.no_grad():
             return _wproject_cuda(q, k, v)

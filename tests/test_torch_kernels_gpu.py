@@ -556,6 +556,77 @@ def test_wproject_kernel_matches_plain(card, B, N, M, D, dtype):
     assert (lse - rlse).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("N", [1, 16, 63, 65, 4100])
+@pytest.mark.parametrize("M", [4097, 35000])
+@pytest.mark.parametrize("gated", [False, True])
+def test_nn1_stream_any_shape_matches_plain(card, N, M, gated):
+    # the 1-NN design of four lanes a query: N below, at and above a query
+    # tile, few query tiles (the target split into chunks) and many; with
+    # the cull and the ICP gate the rows within the gate are exact
+    rs = np.random.RandomState(N + M)
+    tgt = _morton(_surface(rs, card, 2, M))
+    src = _morton(_surface(rs, card, 2, N)) + 0.002
+    kw = dict(diag_order=True, cull_lb=stream.pair_tile_bounds(src, tgt),
+              max_dist_sq=0.02 ** 2) if gated else {}
+    d, i = cuda_stream.nn1_stream(src, tgt, **kw)
+    rd, ri = stream.nn1_stream_plain(src, tgt)
+    inside = rd < 0.02 ** 2 if gated else torch.ones_like(rd, dtype=torch.bool)
+    assert torch.equal(d[inside], rd[inside]) and torch.equal(i[inside], ri[inside])
+    assert (d[~inside] >= 0.02 ** 2).all()
+    d2, i2 = cuda_stream.nn1_stream(src, tgt, **kw)
+    assert torch.equal(d, d2) and torch.equal(i, i2)   # the same bits again
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_nn1_stream_coincident_points_take_the_first(card, cull):
+    # 301 copies of one point: every query at one of them ties 301 ways
+    rs = np.random.RandomState(11)
+    x = _surface(rs, card, 1, 4200)
+    x[:, 100:401] = x[:, :1]
+    x = _morton(x)
+    kw = dict(diag_order=True, cull_lb=stream.tile_pair_bounds(x)) if cull else {}
+    d, i = cuda_stream.nn1_stream(x, x, **kw)
+    rd, ri = stream.nn1_stream_plain(x, x)
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+
+
+def test_nn1_stream_counts_the_tiles_it_searches(card):
+    rs = np.random.RandomState(12)
+    x = _morton(_surface(rs, card, 1, 9000))
+    lb = stream.tile_pair_bounds(x)
+    every, culled = (torch.zeros(1, dtype=torch.int32, device=card) for _ in range(2))
+    cuda_stream.nn1_stream(x, x, visits=every)
+    cuda_stream.nn1_stream(x, x, cull_lb=lb, diag_order=True, visits=culled)
+    assert every.item() == lb.shape[1] * lb.shape[2]
+    assert 0 < culled.item() < every.item()
+
+
+@pytest.mark.parametrize("B,N,M,D", [(2, 130, 4100, 512), (1, 70, 50, 64),
+                                     (2, 300, 1, 128), (1, 129, 65, 256),
+                                     (3, 1000, 2000, 512)])
+def test_wproject_wgmma_any_shape_matches_plain(card, B, N, M, D):
+    # N and M not multiples of the unit's 128 rows or the tile's 64 keys;
+    # M = 1; more units than blocks and fewer
+    rs = np.random.RandomState(N + M + D)
+    l2 = lambda a: (a / a.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    base = torch.tensor(rs.randn(B, max(N, M), D).astype(np.float32), device=card)
+    q = l2(base[:, :N] + 0.3 * torch.randn_like(base[:, :N]))
+    k = l2(base[:, :M] + 0.3 * torch.randn_like(base[:, :M]))
+    v = torch.tensor(rs.randn(B, M, 1).astype(np.float32), device=card)
+    out, lse = cuda_stream.wproject_stream_lse(q, k, v)
+    rout, rlse = stream.wproject_stream_lse_plain(q, k, v)
+    assert (out - rout).abs().max().item() <= 1e-4
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    out2, lse2 = cuda_stream.wproject_stream_lse(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+def test_wproject_grid_fills_the_card_at_the_indoor_shape(card):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    blocks, slots = cuda_stream.wproject_plan(1, 35000, 35000, sms)
+    assert blocks == sms and slots >= 1
+
+
 @pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 0.0625)])
 def test_dgcnn_edges_kernel_matches_plain(card, dtype, lim):

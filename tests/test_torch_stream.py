@@ -198,6 +198,60 @@ def test_wproject_matches_jax_kernel(dtype):
         jq, jk, jnp.asarray(v), chunk=32)), atol=1e-5)
 
 
+def _units_merged(q, k, v, blocks):
+    """The bf16 kernel's arithmetic in plain float64 PyTorch: each unit of
+    `wproject_units` makes its rows' partial (m, l, acc) in base 2 over its
+    key range, and a tile's partials merge in ascending block order."""
+    B, N, _ = q.shape
+    M = k.shape[1]
+    rows, keys = cuda_stream.WPROJECT_ROWS, cuda_stream.WPROJECT_KEYS
+    n_qt = -(-N // rows)
+    l2e = 1.0 / np.log(2.0)
+    parts = {}
+    for i, _, tile, k0, k1 in cuda_stream.wproject_units(B, N, M, blocks):
+        b, r0 = tile // n_qt, (tile % n_qt) * rows
+        s = q[b, r0:r0 + rows] @ k[b, k0 * keys:k1 * keys].T * l2e
+        m = s.amax(-1)
+        p = torch.exp2(s - m[:, None])
+        parts.setdefault(tile, []).append(
+            (i, m, p.sum(-1), p @ v[b, k0 * keys:k1 * keys, 0]))
+    out, lse = torch.empty(B, N, 1, dtype=q.dtype), torch.empty(B, N, 1, dtype=q.dtype)
+    for tile, ps in parts.items():
+        assert [p[0] for p in ps] == sorted(p[0] for p in ps)
+        mx = torch.stack([p[1] for p in ps]).amax(0)
+        l = sum(p[2] * torch.exp2(p[1] - mx) for p in ps)
+        a = sum(p[3] * torch.exp2(p[1] - mx) for p in ps)
+        b, r0 = tile // n_qt, (tile % n_qt) * rows
+        out[b, r0:r0 + rows, 0] = a / l
+        lse[b, r0:r0 + rows, 0] = (mx + torch.log2(l)) / l2e
+    return out, lse
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 7, 16])
+def test_wproject_units_merged_in_kernel_order_match_plain_and_jax(blocks):
+    # B=2, N=150, M=200: 2 query tiles of 128 rows x 4 key tiles of 64, so
+    # units end inside a tile and a block may hold two tiles
+    rs = np.random.RandomState(11)
+    B, N, M, D = 2, 150, 200, 64
+    q = rs.randn(B, N, D).astype(np.float32)
+    k = rs.randn(B, M, D).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True) / 3.0
+    k /= np.linalg.norm(k, axis=-1, keepdims=True)
+    v = rs.randn(B, M, 1).astype(np.float32)
+    jq, jk = jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16)
+    tq, tk = t(n(jq), torch.bfloat16), t(n(jk), torch.bfloat16)
+    out, lse = _units_merged(tq.double(), tk.double(), t(v).double(), blocks)
+    rout, rlse = stream.wproject_stream_lse_plain(tq, tk, t(v))
+    want_out, want_lse = jps.wproject_stream_lse(jq, jk, jnp.asarray(v),
+                                                 tile_n=TN, tile_m=16,
+                                                 interpret=True)
+    # float32 sums of 64 exact products and of 200 terms on the plain and
+    # JAX sides against float64 here: 1e-5
+    for want_o, want_l in ((rout, rlse), (t(np.asarray(want_out)), t(np.asarray(want_lse)))):
+        np.testing.assert_allclose(n(out), n(want_o), atol=1e-5)
+        np.testing.assert_allclose(n(lse), n(want_l), atol=1e-5)
+
+
 def _edges_inputs(seed, dtype, N=70, k=6, emb=64):
     rs = np.random.RandomState(seed)
     x = _surface(seed, 2, N)
