@@ -16,7 +16,9 @@ fatal on failure:
              limits stated below, and timed beside its plain version and its
              bound; dgcnn_eval's selection launch and its stage chain
              with the head timed apart (torch.profiler), sinkhorn_em's time
-             a pass and the clouds the card runs at once
+             a pass and the clouds the card runs at once, nn1's own device
+             time, and the device time of each __global__ of the bf16
+             bwd_stage calls (stages 4, 3, 2 and the partial sums)
   3. serve   `Registrar` at B=24, N=717, emb 512, K=128, bf16 body, seeded
              random weights: a few requests with and without ICP; the launch
              counts of the kernels over one request; the same requests with
@@ -47,7 +49,10 @@ fatal on failure:
              angle kernels twice a step, the loss against the plain versions
  11. c1      the shapes the port raised on before it routed by shape:
              `Registrar` at gnn_k=16 and at n_clusters=16 (N=2048), `nn1` at
-             M=8192; the launch counts show each route
+             M=8192; and those it raised on before its routes read the eval
+             kernels' envelope (faults C.2, C.3): `Registrar` at emb_dims=96
+             (N=717) and with dgcnn_fused_edges=True at gnn_k=12 (N=2048);
+             the launch counts show each route
  12. knn_stream, nn1_stream, wproject, dgcnn_edges   the streamed kernels
              and the edges kernel against their plain versions at the indoor
              shapes (2 clouds of 35,000 points, k=20; an ICP trip at
@@ -60,7 +65,8 @@ fatal on failure:
              target: with and without ICP, and with dgcnn_fused_edges=True;
              launches, request times, peak memory, rotation and overlap
              scores against the same request through the plain versions
- 14. pointmlp, fps, icp   the fused attention MLP, the FPS chain and the
+ 14. pointmlp, fps, icp   the fused attention MLP (with the device time of
+             its two products and its moments launch), the FPS chain and the
              whole-loop ICP against their plain versions at the refined
              request's calls (48 clouds of 717, 1024 -> 1024 -> 512 bf16;
              96 rows of 717, 128 steps; 24 pairs of 717, 30 trips) and at
@@ -104,6 +110,7 @@ try:
     from ogmm_tpu_torch.nn import dgcnn as nn_dgcnn
     from ogmm_tpu_torch.ops import cuda_knn, cuda_stream, dispatch, stream
     from ogmm_tpu_torch.ops import cuda_em, cuda_fps, cuda_icp, cuda_mlp
+    from ogmm_tpu_torch.ops import cuda_dgcnn_bwd
     from ogmm_tpu_torch.ops import fps as ops_fps
     from ogmm_tpu_torch.nn import gmmreg as nn_gmmreg
     from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
@@ -210,8 +217,9 @@ def launch_ms(fn, reps, groups):
         torch.cuda.synchronize()
     out = {label: 0.0 for label in groups}
     for evt in prof.key_averages():
+        key = evt.key.replace(" ", "")
         for label, names in groups.items():
-            if any(name in evt.key for name in names):
+            if any(name.replace(" ", "") in key for name in names):
                 out[label] += evt.device_time_total / 1e3 / reps
     return out
 
@@ -417,7 +425,12 @@ def check_nn1(rs):
         assert same and err <= LIM_NN1_D and torch.isfinite(d).all()
         worst = max(worst, err)
     ms = cuda_ms(lambda: nn1(src, tgt), 50)
+    # the kernel's own device time: events around a call of ~20 us also
+    # hold the wrapper's host work
+    device_ms = launch_ms(lambda: nn1(src, tgt), 50, {"nn1": ("nn1_kernel",)})["nn1"]
     plain = cuda_ms(lambda: nn1_reference(src, tgt), 10)
+    print(f"nn1 ({N} x {N}): {ms:.4f} ms between calls, {device_ms:.4f} ms on the "
+          f"device (torch.profiler)")
     flops = B * N * N * (8.0 + 1)            # distance and compare a pair
     nbytes = B * (N * 12 + N * 12 + N * (4 + 8))
     t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
@@ -425,7 +438,7 @@ def check_nn1(rs):
         "name": "nn1", "route": "cuda",
         "source": "ogmm_tpu_torch/csrc/nn1.cu",
         "replaces": "ogmm_tpu/ops/pallas_knn.py:187",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "max_abs_err": worst, "ms": ms, "device_ms": device_ms, "plain_ms": plain,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
@@ -544,11 +557,21 @@ def check_dgcnn_bwd(rs):
         t_ops = (sum(w[1] for w in work) / PEAK_FLOPS["bf16"]
                  + sum(w[2] for w in work) / PEAK_FLOPS["f32"])
         t_bytes = nbytes / PEAK_BYTES
+        device = {}
+        if name == "bwd_stage":
+            # each __global__ of the bf16 calls (stages 4, 3, 2: the one-pass
+            # kernel; the partial sums), device time of one backward
+            device = launch_ms(lambda: run(kern, bf), 10, {
+                **{f"stage{4 - i}_ms": (f"stage_wgmma_kernel<{c}, {ci}, {cn}>",)
+                   for i, (c, ci, cn) in enumerate(cuda_dgcnn_bwd.KERNEL_STAGES)},
+                "sum_parts_ms": ("sum_parts_kernel",)})
+            print("bwd_stage bf16 device ms of one backward (torch.profiler):",
+                  {k: round(v, 4) for k, v in device.items()})
         entries.append({
             "name": name, "route": "cuda",
             "source": "ogmm_tpu_torch/csrc/dgcnn_bwd.cu",
             "replaces": f"ogmm_tpu/ops/pallas_dgcnn_train.py:{line}",
-            "calls_per_backward": len(work),
+            "calls_per_backward": len(work), **({"device_ms": device} if device else {}),
             "max_abs_err": errs[name][bf],
             "max_abs_err_f32": errs[name][torch.float32],
             "ms": ms, "ms_f32": ms32, "plain_ms": plain_ms,
@@ -1063,7 +1086,16 @@ def check_c1(rs):
             ("gnn_k=16", dict(gnn_k=16), B, N,
              {"dgcnn_eval": 1, "knn": 0, "sinkhorn_em": 1}),
             ("n_clusters=16", dict(n_clusters=16), 4, 2048,
-             {"dgcnn_eval": 0, "knn": 1, "sinkhorn_em": 1})):
+             {"dgcnn_eval": 0, "knn": 1, "sinkhorn_em": 1}),
+            # C.2: an emb the eval kernel does not take (the JAX package
+            # fuses it): the unfused chain, over the kNN kernel's graph
+            ("emb_dims=96", dict(emb_dims=96), B, N,
+             {"dgcnn_eval": 0, "dgcnn_edges": 0, "knn": 1, "sinkhorn_em": 1}),
+            # C.3: dgcnn_fused_edges at a k the edges kernel does not take
+            # (the JAX package runs its edges kernel): the unfused chain
+            ("gnn_k=12 dgcnn_fused_edges", dict(gnn_k=12, dgcnn_fused_edges=True),
+             4, 2048, {"dgcnn_eval": 0, "dgcnn_edges": 0, "knn": 1,
+                       "sinkhorn_em": 1})):
         reg = Registrar(configs.mnet(model=configs.ModelConfig(
             dtype="bfloat16", **over)), seed=0, device=DEV)
         src, tgt, _, _ = make_pairs(rs, b, n)
@@ -1580,6 +1612,13 @@ def check_pointmlp(rs):
     ms = cuda_ms(lambda: cuda_mlp.pointmlp_eval(xb, *path[1:], bf), 10)
     ms32 = cuda_ms(lambda: cuda_mlp.pointmlp_eval(x32, *path[1:], torch.float32), 3)
     plain = cuda_ms(lambda: cuda_mlp.pointmlp_eval_reference(xb, *path[1:], bf), 3)
+    # each __global__ of the bf16 call: the two products and the moments
+    device = launch_ms(lambda: cuda_mlp.pointmlp_eval(xb, *path[1:], bf), 10, {
+        "z_product_ms": ("mlp_gemm_kernel<256, false>",),
+        "moments_ms": ("mlp_moments_kernel",),
+        "out_product_ms": ("mlp_gemm_kernel<256, true>",)})
+    print("pointmlp bf16 device ms (torch.profiler):",
+          {k: round(v, 4) for k, v in device.items()})
     rows, cin, h, cout = 2 * B * N, 2 * EMB, 2 * EMB, EMB
     flops_bf16 = 2.0 * rows * (cin * h + h * cout)
     flops_f32 = 10.0 * rows * h                      # moments, normalise, ReLU
@@ -1593,7 +1632,8 @@ def check_pointmlp(rs):
             "source": "ogmm_tpu_torch/csrc/pointmlp.cu",
             "replaces": "ogmm_tpu/ops/pallas_mlp.py:84",
             "max_abs_err": errs[bf], "max_abs_err_f32": errs[torch.float32],
-            "ms": ms, "ms_f32": ms32, "plain_ms": plain, "bound_ms": bound,
+            "ms": ms, "ms_f32": ms32, "plain_ms": plain, "device_ms": device,
+            "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
 
@@ -1634,12 +1674,17 @@ def check_fps(rs):
     # a step: three differences, three squares, two sums, a minimum and a
     # compare a point
     bound, by = _bound(rows * N * K * 10.0, rows * N * 16 + rows * 8 + rows * K * 8)
+    # the same bound at the indoor request's 4 rows of 35,000
+    bound_in, by_in = _bound(4 * N_INDOOR * K * 10.0,
+                             4 * N_INDOOR * 16 + 4 * 8 + 4 * K * 8)
     print(f"fps ({rows} rows of {N}, {K} steps): {ms:.4f} ms, plain {plain:.3f} ms, "
-          f"bound {bound:.5f} ms ({by}); (4 rows of {N_INDOOR}) {ms_indoor:.4f} ms")
+          f"bound {bound:.5f} ms ({by}); (4 rows of {N_INDOOR}) {ms_indoor:.4f} ms, "
+          f"bound {bound_in:.5f} ms ({by_in})")
     return {"name": "fps", "route": "cuda", "source": "ogmm_tpu_torch/csrc/fps.cu",
             "replaces": "ogmm_tpu/ops/pallas_fps.py:74",
             "max_abs_err": float(worst), "ms": ms, "ms_indoor_rows": ms_indoor,
-            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "bound_ms_indoor_rows": bound_in, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by,
             "library_ms": None}
 
 

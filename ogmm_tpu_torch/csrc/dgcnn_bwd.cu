@@ -15,7 +15,9 @@
 // is why the TPU kernel takes every k of a tile too. Its row tail is a bounds
 // check on n; rows past N enter no output and no sum.
 //
-// Each launch runs a few kernels on the wrapper's stream:
+// bwd_stage for bf16 is stage_wgmma_kernel, one pass (described where it is
+// defined) and the partial sums. Every other launch runs a few kernels on the
+// wrapper's stream:
 //  1. rows_kernel: a fixed grid of ROW_BLOCKS blocks walks the tiles in a
 //     fixed order. Per tile, in shared memory:
 //       - extra = dz_{i+1} . W_{i+1}^T (dz_{i+1} staged in 16-byte loads, W
@@ -32,7 +34,7 @@
 //         de[:3] per row to a scratch array.
 //     The sums go to one partial per block, reduced in the block in thread
 //     order; sum_parts_kernel adds the partials in block order.
-//  2. dw_kernel / dw_mma_kernel: dW = h_{i-1}^T dz (h_{i-1} recomputed from
+//  2. dw_kernel: dW = h_{i-1}^T dz (h_{i-1} recomputed from
 //     z_{i-1}; e for stage 1) as a split-K product over the m = B KNN N rows,
 //     one float32 partial per split, added in split order by sum_parts_kernel.
 //  3. edge only, scatter_kernel: dscat[b, p] = sum of de[:3] over the rows
@@ -41,11 +43,10 @@
 //     sorted) and a thread a point adds its rows. No float atomics anywhere,
 //     so two launches on the same input give the same bits.
 //
-// Every product of the TPU kernel's body is computed here. For bf16 the row
-// kernels' tile products (the cotangent from the stage above, dh of the stage
-// below) and the weight gradients of stages 4..2 run on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, float32 accumulation); de, dW_1 and
-// every float32 product run on the CUDA cores with float32 accumulation.
+// Every product of the TPU kernel's body is computed here. For bf16 the
+// stage kernel's products run on wgmma, the edge kernel's extra cotangent on
+// mma.sync m16n8k16 (bf16 operands, float32 accumulation); de, dW_1 and every
+// float32 product run on the CUDA cores with float32 accumulation.
 //
 // Bound: at B=24, N=717 one backward (five launches) moves about 1.3 GB and
 // does about 93 GFLOP, mostly bf16 products: the bytes bound it (about 0.4
@@ -55,6 +56,7 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"      // mbarriers, TMA, wgmma, tensor maps
 #include "knn_select.cuh"  // MAXN, to_f, from_f
 
 #define KNN 20           // the graph the backward kernels are compiled for
@@ -83,6 +85,23 @@ struct BnC {
     }
   }
 };
+
+// The same constants formed from the float32 batch statistics by the
+// operations of ops/cuda_dgcnn_bwd.py:_bn_pack (rsqrt, then the products and
+// the bf16 roundings), for the kernels that take the statistics as they are.
+__device__ __forceinline__ BnC bn_stats(const float* __restrict__ mean,
+                                        const float* __restrict__ var,
+                                        const float* __restrict__ gamma,
+                                        const float* __restrict__ beta, int c) {
+  BnC k(nullptr, 0, 0);
+  k.mean = mean[c];
+  k.inv = rsqrtf(__fadd_rn(var[c], 1e-5f));
+  k.ig = __fmul_rn(k.inv, gamma[c]);
+  k.mean_t = rnd<__nv_bfloat16>(k.mean);
+  k.scale_t = rnd<__nv_bfloat16>(k.ig);
+  k.beta_t = rnd<__nv_bfloat16>(beta[c]);
+  return k;
+}
 
 // y = BN(z) in T, rounded after each operation like the eager forward
 template <typename T>
@@ -478,88 +497,6 @@ dw_kernel(const T* __restrict__ h, const float* __restrict__ bnp,
   }
 }
 
-// four 8x8 bf16 matrices from shared memory, transposed (ldmatrix.trans):
-// lanes 8m..8m+7 give the rows of matrix m
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// dw_kernel for bf16 stages on the tensor cores: the same split-K partials,
-// h = ReLU(BN(zp)) recomputed (a bf16 value, exact) and dz staged row-major
-// in shared memory, fragments of h^T and dz read with ldmatrix.trans. The
-// block's TI x TJ tile is shared by 8 warps as 2 x 4.
-template <int TI, int TJ>
-__global__ void __launch_bounds__(NT)
-dw_mma_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ bnp,
-              const __nv_bfloat16* __restrict__ dz, int m, int cin, int C,
-              int rows_per_split, float* __restrict__ part) {
-  constexpr int WI = TI / 2, WJ = TJ / 4, MT = WI / 16, NTL = WJ / 8;
-  static_assert(WI % 16 == 0 && NTL % 2 == 0 && NT % TI == 0, "tiles");
-  // row strides of 16-byte multiples, 4 (mod 32) words: no bank conflicts
-  __shared__ __align__(16) __nv_bfloat16 sH[RC][TI + 8];
-  __shared__ __align__(16) __nv_bfloat16 sD[RC][TJ + 8];
-  const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wi = (warp / 4) * WI, wj = (warp % 4) * WJ;
-  const int mi = lane / 8, li = lane % 8;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(m, r_begin + rows_per_split);
-  float acc[MT][NTL][4];
-#pragma unroll
-  for (int x = 0; x < MT; ++x)
-#pragma unroll
-    for (int y = 0; y < NTL; ++y) acc[x][y][0] = acc[x][y][1] = acc[x][y][2] = acc[x][y][3] = 0.f;
-  const int ch = i0 + tid % TI;   // the column of h this thread stages
-  const BnC kh(bnp, cin, ch);
-  for (int r0 = r_begin; r0 < r_end; r0 += RC) {
-    for (int e = tid; e < RC * TI; e += NT) {
-      const int rr = e / TI, r = r0 + rr;
-      float v = 0.f;
-      if (r < r_end) v = fmaxf(bn_y<__nv_bfloat16>(to_f(h[(size_t)r * cin + ch]), kh), 0.f);
-      sH[rr][e % TI] = __float2bfloat16(v);
-    }
-    for (int e = tid; e < RC * TJ / 8; e += NT) {   // 16-byte chunks of dz
-      const int rr = e / (TJ / 8), jj = (e % (TJ / 8)) * 8, r = r0 + rr;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < r_end) v = *reinterpret_cast<const uint4*>(dz + (size_t)r * C + j0 + jj);
-      *reinterpret_cast<uint4*>(&sD[rr][jj]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k0 = 0; k0 < RC; k0 += 16) {
-      uint32_t a[MT][4], bq[NTL][2];
-#pragma unroll
-      for (int x = 0; x < MT; ++x)   // (h^T)[i][r]: matrices (i, r), (i+8, r), (i, r+8), (i+8, r+8)
-        ldsm_x4_trans(a[x], &sH[k0 + li + (mi >> 1) * 8][wi + x * 16 + (mi & 1) * 8]);
-#pragma unroll
-      for (int y = 0; y < NTL; y += 2) {   // dz[r][j]: (r, j), (r+8, j), (r, j+8), (r+8, j+8)
-        uint32_t q[4];
-        ldsm_x4_trans(q, &sD[k0 + li + (mi & 1) * 8][wj + y * 8 + (mi >> 1) * 8]);
-        bq[y][0] = q[0]; bq[y][1] = q[1]; bq[y + 1][0] = q[2]; bq[y + 1][1] = q[3];
-      }
-#pragma unroll
-      for (int x = 0; x < MT; ++x)
-#pragma unroll
-        for (int y = 0; y < NTL; ++y) mma_bf16(acc[x][y], a[x], bq[y]);
-    }
-    __syncthreads();
-  }
-  const int g = lane / 4, t = lane % 4;
-  float* pz = part + (size_t)blockIdx.z * cin * C;
-#pragma unroll
-  for (int x = 0; x < MT; ++x)
-#pragma unroll
-    for (int y = 0; y < NTL; ++y) {
-      const int i = i0 + wi + x * 16 + g, j = j0 + wj + y * 8 + 2 * t;
-      pz[(size_t)i * C + j] = acc[x][y][0];
-      pz[(size_t)i * C + j + 1] = acc[x][y][1];
-      pz[(size_t)(i + 8) * C + j] = acc[x][y][2];
-      pz[(size_t)(i + 8) * C + j + 1] = acc[x][y][3];
-    }
-}
-
 // dscat[b][p] = sum of dneigh[b][s] over the rows s = j N + n with
 // idx[b][n][j] == p, in ascending s order. One block a cloud builds the
 // inverse of idx in shared memory: in-degree counts, their prefix sums, each
@@ -629,6 +566,349 @@ scatter_kernel(const int* __restrict__ idx, const float* __restrict__ dneigh,
   }
 }
 
+// ------------------------------------------- bf16 stage kernel, one pass (wgmma)
+//
+// stage_wgmma_kernel: bwd_stage for bf16 in one pass, as the TPU kernel does
+// (dW_i accumulated from the tiles the row pass already holds). A persistent
+// grid of at most WBLOCKS blocks, one an SM, each walking an equal contiguous
+// share of the tiles (WTN = 4 points, 80 rows r = j WTN + t). Per block:
+//  - W_i (C_in, C) and W_{i+1} (C, C_next), float32, are rounded to bf16 and
+//    loaded once into shared memory as K-major panels (128-byte swizzle) for
+//    the block's lifetime; the BN constants are formed from the float32 batch
+//    statistics with the operations of the plain version (bn_stats), so that
+//    the wrapper launches no PyTorch operation;
+//  - a tile's z_i, z_{i-1} and dz_{i+1} arrive by TMA, each 64-channel panel
+//    one 3-D box (64 channels, WTN points, KNN neighbours) of one cloud, rows
+//    past N as zeros; the next tile's boxes are in flight (a ring of two
+//    buffers on mbarriers) while this one is computed;
+//  - extra^T = W_{i+1} dz_{i+1}^T and dh_{i-1}^T = W_i dz_i^T are m64n40k16
+//    wgmma (the weights as A, the tile's rows as N), rounded to bf16 into a
+//    row-major scratch tile;
+//  - the element work is one lane pair a (point, channel) column, ten of its
+//    rows each, reading the swizzled panels: h recomputed with the forward's
+//    rounding, the first argmax over k (the pair's two halves combined by a
+//    shuffle), dz_i (written over z_i in place, then stored by TMA, which
+//    drops the rows past N), and for the stage below dy_{i-1}, its sums and
+//    h_{i-1} (written over z_{i-1} in place); a column's tap cotangent is
+//    loaded before its first pass, so that the load's latency runs under it;
+//  - dW_i += h_{i-1}^T dz_i: wgmma with both operands MN-major straight from
+//    those panels (K = the tile's 80 rows), the accumulators held in
+//    registers across the block's tiles: (C_in / 64) (C / min(C, 128)) jobs of
+//    m64 x min(C, 128), one a warpgroup.
+// At the end each block writes its float32 dW_i and S_{i-1} partials;
+// sum_parts_kernel adds them in block order (no float atomics).
+// Bound: bytes (one backward's three calls at B=24, N=717 move about 1.06 GB:
+// 0.32 ms at 3.35 TB/s; their products take 0.09 ms at the tensor cores'
+// rate). What holds it from the bound: the element work on the CUDA cores,
+// with 16 warps an SM (512 threads, 128 registers each, some spilled beside
+// stage 4's 64 accumulator registers a thread), and each tile's five phases
+// in turn behind block-wide barriers. Tried and dropped (probe builds,
+// timed on the card): row products of 80 rows a job (more spills), the
+// stage 3/2 weight gradient's k steps shared by the four warpgroups, the
+// weight-gradient products left running into the next tile, the taps of a
+// whole tile loaded at its start (more spills): none faster.
+
+#define WTN 4                  // points of a tile
+#define WROWS (KNN * WTN)      // 80 rows a tile
+#define WTHREADS 512           // four warpgroups
+#define WBLOCKS 132            // the persistent grid: one block an SM of an H100
+#define PANEL (WROWS * 128)    // bytes of a tile's 64-channel panel
+#define RN 40                  // tile rows a row product's job takes
+
+typedef __nv_bfloat16 bf16;
+
+// the float32 batch statistics (mean, var, gamma, beta) of stage i, then of
+// stage i-1, passed by value
+struct BatchStats {
+  const float* p[8];
+};
+
+template <int C, int CIN, int CN>
+struct StagePlan {
+  static constexpr int Z = (C / 64) * PANEL, ZP = (CIN / 64) * PANEL,
+                       DZN = (CN / 64) * PANEL;
+  static constexpr int BUF = Z + ZP + DZN;         // one tile's inputs
+  static constexpr int W = CIN * C * 2;            // W_i: C / 64 panels of CIN rows
+  static constexpr int WN = C * CN * 2;            // W_{i+1}: CN / 64 panels of C rows
+  // the scratch tile E: extra (80 x C) then dh_{i-1} (80 x CIN), bf16, rows
+  // padded; it lives in the dz_{i+1} panels (dead once extra is formed), or
+  // beside the buffers for the last stage
+  static constexpr int E_LD1 = C + 8, E_LD2 = CIN + 8;
+  static constexpr int E = CN > 0 ? 0 : (WROWS * E_LD2 * 2 + 1023) / 1024 * 1024;
+  static constexpr int SMEM = 2 * BUF + W + WN + E + 1024;
+  static_assert(CN == 0 || WROWS * (C > CIN ? E_LD1 : E_LD2) * 2 <= DZN, "E in dz_{i+1}");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// one (rows x K) float32 matrix, K contiguous, rounded to bf16 (as
+// `.to(torch.bfloat16)`) into K-major swizzled panels of `rows` rows each
+__device__ __forceinline__ void load_panels(unsigned char* dst, const float* __restrict__ src,
+                                            int rows, int K) {
+  for (int e = threadIdx.x; e < rows * K / 8; e += WTHREADS) {
+    const int r = e / (K / 8), q = e % (K / 8);
+    const float4 a = *reinterpret_cast<const float4*>(src + (size_t)r * K + q * 8);
+    const float4 b = *reinterpret_cast<const float4*>(src + (size_t)r * K + q * 8 + 4);
+    __nv_bfloat162 v[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+                           __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+    *reinterpret_cast<uint4*>(dst + (q / 8) * (rows * 128) + sw128_offset(r, (q % 8) * 8)) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// The element work: a lane pair a (point t, channel ch) column, the lane of
+// parity h holding rows j = 2 i + h (i < KNN / 2). Row r = WTN j + t of a
+// tile is then 8 i + 4 h + t, so the lane's rows lie at one byte offset plus
+// 1024 i: constant offsets once the loop over i unrolls.
+__device__ __forceinline__ uint32_t column_offset(int t, int ch, int h) {
+  return (ch / 64) * PANEL + sw128_offset(4 * h + t, ch % 64);
+}
+
+// the first maximum of a column from its lane pair's (best, j): the larger
+// value, the lower j on a tie
+__device__ __forceinline__ int pair_argmax(float best, int am) {
+  const float ob = __shfl_xor_sync(0xffffffffu, best, 1);
+  const int oa = __shfl_xor_sync(0xffffffffu, am, 1);
+  return (ob > best || (ob == best && oa < am)) ? oa : am;
+}
+
+// d (the tile's rows as N) of A (64 x K, K-major panels of `arows` rows,
+// m-tile mt) times the rows [RN nh, RN nh + RN) of a tile's K-major panels
+template <int K>
+__device__ __forceinline__ void rows_product(float (&d)[RN / 2], uint32_t a, int arows, int mt,
+                                             uint32_t b, int nh) {
+  wgmma_fence();
+  fence_acc(d);
+#pragma unroll
+  for (int kq = 0; kq < K / 16; ++kq) {
+    const uint64_t da = desc_k(a + (kq / 4) * (arows * 128) + mt * 64 * 128 + (kq % 4) * 32);
+    const uint64_t db = desc_k(b + (kq / 4) * PANEL + nh * RN * 128 + (kq % 4) * 32);
+    wgmma_ss_n40<0, 0>(d, da, db, kq > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(d);
+}
+
+// the rounded product into E[r][ch]: d[4 j + e] is channel 64 mt + 16 warp
+// + g + 8 (e / 2), row RN nh + 8 j + 2 t + e % 2
+__device__ __forceinline__ void rows_store(const float (&d)[RN / 2], bf16* E, int ld, int mt, int nh) {
+  const int warp = (threadIdx.x / 32) % 4, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < RN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      E[(nh * RN + 8 * j + 2 * t + (e & 1)) * ld + mt * 64 + warp * 16 + g + 8 * (e >> 1)] =
+          __float2bfloat16(d[4 * j + e]);
+}
+
+template <int DWN>
+__device__ __forceinline__ void dw_product(float (&d)[DWN / 2], uint64_t da, uint64_t db) {
+  if constexpr (DWN == 128) wgmma_ss_n128<1, 1>(d, da, db, 1);
+  else wgmma_ss_n64<1, 1>(d, da, db, 1);
+}
+
+template <int C, int CIN, int CN>
+__global__ void __launch_bounds__(WTHREADS, 1)
+stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
+                   const __grid_constant__ CUtensorMap zpmap,
+                   const __grid_constant__ CUtensorMap dznmap,
+                   const __grid_constant__ CUtensorMap dzmap,
+                   const bf16* __restrict__ dtap, const BatchStats st,
+                   const float* __restrict__ s12, const float* __restrict__ wn,
+                   const float* __restrict__ w, const bf16* __restrict__ dtapp,
+                   float* __restrict__ part_s, float* __restrict__ part_w, int B, int N) {
+  typedef StagePlan<C, CIN, CN> P;
+  constexpr int DWN = C < 128 ? C : 128, DW_JOBS = (CIN / 64) * (C / DWN);
+  static_assert((WTHREADS / 2) % C == 0 && (WTHREADS / 2) % CIN == 0 && DW_JOBS <= 4, "widths");
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[2];
+  unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_u32(base);
+  unsigned char* Wp = base + 2 * P::BUF;
+  unsigned char* WNp = Wp + P::W;
+  const uint32_t Ws = sbase + 2 * P::BUF, WNs = Ws + P::W;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int ntn = (N + WTN - 1) / WTN, T = B * ntn;
+  const int tile0 = (int)((long long)blockIdx.x * T / gridDim.x);
+  const int tile1 = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
+  const float m = (float)B * KNN * N;
+
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init_fence();
+  }
+  load_panels(Wp, w, CIN, C);
+  if constexpr (CN > 0) load_panels(WNp, wn, C, CN);
+  fence_proxy_async();   // the weights are wgmma operands
+  __syncthreads();
+
+  auto issue = [&](int tile, int s) {
+    const int b = tile / ntn, n0 = (tile % ntn) * WTN;
+    const uint32_t dst = sbase + s * P::BUF;
+    mbar_expect_tx(&full[s], P::BUF);
+#pragma unroll
+    for (int p = 0; p < C / 64; ++p)
+      tma_load_3d(dst + p * PANEL, &zmap, &full[s], 64 * p, n0, b * KNN);
+#pragma unroll
+    for (int p = 0; p < CIN / 64; ++p)
+      tma_load_3d(dst + P::Z + p * PANEL, &zpmap, &full[s], 64 * p, n0, b * KNN);
+#pragma unroll
+    for (int p = 0; p < CN / 64; ++p)
+      tma_load_3d(dst + P::Z + P::ZP + p * PANEL, &dznmap, &full[s], 64 * p, n0, b * KNN);
+  };
+  if (tid == 0 && tile0 < tile1) issue(tile0, 0);
+
+  // the channels of this lane's columns are fixed; h is its parity
+  const int h = tid & 1, c = (tid >> 1) % C, cp = (tid >> 1) % CIN;
+  const BnC kc = bn_stats(st.p[0], st.p[1], st.p[2], st.p[3], c);
+  const BnC kp = bn_stats(st.p[4], st.p[5], st.p[6], st.p[7], cp);
+  const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
+  float s1 = 0.f, s2 = 0.f;
+  float dw[DWN / 2];
+#pragma unroll
+  for (int i = 0; i < DWN / 2; ++i) dw[i] = 0.f;
+  const int dw_m = wg / (C / DWN), dw_n = (wg % (C / DWN)) * DWN;
+
+  int s = 0;
+  uint32_t ph = 0;
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int b = tile / ntn, n0 = (tile % ntn) * WTN;
+    unsigned char* Zp = base + s * P::BUF;
+    unsigned char* ZPp = Zp + P::Z;
+    const uint32_t Zs = sbase + s * P::BUF, ZPs = Zs + P::Z, DZNs = ZPs + P::ZP;
+    bf16* E = reinterpret_cast<bf16*>(CN > 0 ? ZPp + P::ZP : WNp + P::WN);
+    mbar_wait(&full[s], ph);
+    if (tid == 0 && tile + 1 < tile1) {
+      tma_store_wait_read();   // tile - 1's dz store has read the other buffer
+      issue(tile + 1, s ^ 1);
+    }
+
+    // 1. extra^T = W_{i+1} dz_{i+1}^T, rounded to bf16: E[r][c]
+    constexpr int NH = WROWS / RN;   // jobs of a row product: (m-tile, rows)
+    if constexpr (CN > 0) {
+      float d[RN / 2];
+      const int mt = wg / NH, nh = wg % NH;
+      if (wg < NH * (C / 64)) rows_product<CN>(d, WNs, C, mt, DZNs, nh);
+      __syncthreads();   // every warpgroup is done with dz_{i+1}: E overwrites it
+      if (wg < NH * (C / 64)) rows_store(d, E, P::E_LD1, mt, nh);
+      __syncthreads();
+    }
+
+    // 2. stage i: dz_i over z_i
+    for (int e = tid >> 1; e < WTN * C; e += WTHREADS / 2) {
+      const int t = e / C, n = n0 + t;
+      // the tap's load first: its latency runs under the first pass
+      const float tap = n < N ? __bfloat162float(dtap[((size_t)b * N + n) * C + c]) : 0.f;
+      unsigned char* colp = Zp + column_offset(t, c, h);
+      float y[KNN / 2], best = -1.f;
+      int am = 0;
+#pragma unroll
+      for (int i = 0; i < KNN / 2; ++i) {
+        y[i] = bn_y<bf16>(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kc);
+        const float hv = fmaxf(y[i], 0.f);
+        if (hv > best) { best = hv; am = 2 * i + h; }
+      }
+      am = pair_argmax(best, am);
+#pragma unroll
+      for (int i = 0; i < KNN / 2; ++i) {
+        const int j = 2 * i + h;
+        float dh = CN > 0 ? __bfloat162float(E[(j * WTN + t) * P::E_LD1 + c]) : 0.f;
+        if (j == am) dh = rnd<bf16>(__fadd_rn(tap, dh));
+        const float dy = relu_vjp<bf16>(dh, y[i]);
+        const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kc), a2)));
+        *reinterpret_cast<bf16*>(colp + i * 1024) = __float2bfloat16(n < N ? d : 0.f);
+      }
+    }
+    fence_proxy_async();   // dz_i is read by TMA and wgmma next
+    __syncthreads();
+    if (tid == 0) {
+#pragma unroll
+      for (int p = 0; p < C / 64; ++p) tma_store_3d(&dzmap, Zs + p * PANEL, 64 * p, n0, b * KNN);
+      tma_store_commit();
+    }
+
+    // 3. dh_{i-1}^T = W_i dz_i^T, rounded to bf16: E[r][cin]
+    if (wg < NH * (CIN / 64)) {
+      float d[RN / 2];
+      rows_product<C>(d, Ws, CIN, wg / NH, Zs, wg % NH);
+      rows_store(d, E, P::E_LD2, wg / NH, wg % NH);
+    }
+    __syncthreads();
+
+    // 4. stage i-1: dy_{i-1}, its sums, h_{i-1} over z_{i-1}
+    for (int e = tid >> 1; e < WTN * CIN; e += WTHREADS / 2) {
+      const int t = e / CIN, n = n0 + t;
+      const float tap = n < N ? __bfloat162float(dtapp[((size_t)b * N + n) * CIN + cp]) : 0.f;
+      unsigned char* colp = ZPp + column_offset(t, cp, h);
+      float y[KNN / 2], best = -1.f;
+      int am = 0;
+#pragma unroll
+      for (int i = 0; i < KNN / 2; ++i) {
+        y[i] = bn_y<bf16>(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kp);
+        const float hv = fmaxf(y[i], 0.f);
+        if (hv > best) { best = hv; am = 2 * i + h; }
+      }
+      am = pair_argmax(best, am);
+#pragma unroll
+      for (int i = 0; i < KNN / 2; ++i) {
+        const int j = 2 * i + h;
+        float dh = __bfloat162float(E[(j * WTN + t) * P::E_LD2 + cp]);
+        if (j == am) dh = rnd<bf16>(__fadd_rn(tap, dh));
+        const float dy = relu_vjp<bf16>(dh, y[i]);
+        if (n < N) {
+          s1 = __fadd_rn(s1, dy);
+          s2 = __fadd_rn(s2, __fmul_rn(dy, zhat(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kp)));
+        }
+        *reinterpret_cast<bf16*>(colp + i * 1024) = __float2bfloat16(n < N ? fmaxf(y[i], 0.f) : 0.f);
+      }
+    }
+    fence_proxy_async();   // h_{i-1} is read by wgmma next
+    __syncthreads();
+
+    // 5. dW_i += h_{i-1}^T dz_i over the tile's rows, MN-major operands
+    if (wg < DW_JOBS) {
+      wgmma_fence();
+      fence_acc(dw);
+#pragma unroll
+      for (int kq = 0; kq < WROWS / 16; ++kq)
+        dw_product<DWN>(dw, desc_mn(ZPs + dw_m * PANEL + kq * 2048, PANEL),
+                        desc_mn(Zs + (dw_n / 64) * PANEL + kq * 2048, PANEL));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dw);
+    }
+    __syncthreads();   // the buffers are free for the tile after next
+    s ^= 1;
+    if (s == 0) ph ^= 1u;
+  }
+
+  // the block's partials: dW_i from the accumulators, the sums in thread order
+  if (wg < DW_JOBS) {
+    const int warp = (tid / 32) % 4, g = lane / 4, t = lane % 4;
+    float* pw = part_w + (size_t)blockIdx.x * CIN * C;
+#pragma unroll
+    for (int j = 0; j < DWN / 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = dw_m * 64 + warp * 16 + g + 8 * u, col = dw_n + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(pw + (size_t)i * C + col) = make_float2(dw[4 * j + 2 * u], dw[4 * j + 2 * u + 1]);
+      }
+  }
+  float* RED = reinterpret_cast<float*>(Wp);   // the weights are no longer read
+  RED[tid] = s1;
+  RED[WTHREADS + tid] = s2;
+  __syncthreads();
+  if (tid < CIN) {   // the lanes of channel tid: 2 (tid + CIN q) + h, in order
+    float u = 0.f, v = 0.f;
+    for (int k = 2 * tid; k < WTHREADS; k += 2 * CIN)
+      for (int x = k; x < k + 2; ++x) { u = __fadd_rn(u, RED[x]); v = __fadd_rn(v, RED[WTHREADS + x]); }
+    part_s[(size_t)blockIdx.x * 2 * CIN + tid] = u;
+    part_s[(size_t)blockIdx.x * 2 * CIN + CIN + tid] = v;
+  }
+  if (tid == 0) tma_store_wait();
+}
+
 // ------------------------------------------------------------------ launchers
 
 static int row_blocks(int B, int N) {
@@ -681,9 +961,7 @@ static cudaError_t launch_dw(const T* h, const float* bnp, const T* dz, int m,
 #define RUN(ci, c, ti, tj, mi, mj)                                              \
   if (cin == ci && C == c) {                                                    \
     const dim3 grid((ci + ti - 1) / ti, (c + tj - 1) / tj, s);                  \
-    if constexpr (sizeof(T) == 2 && ti >= 32 && tj >= 64) {                     \
-      dw_mma_kernel<ti, tj><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
-    } else if (bnp)                                                             \
+    if (bnp)                                                                    \
       dw_kernel<T, ti, tj, mi, mj, true><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
     else                                                                        \
       dw_kernel<T, ti, tj, mi, mj, false><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
@@ -741,6 +1019,72 @@ extern "C" int bwd_reduce_launch(const void* z, const void* dtap,
   return (int)sum_parts(part, row_blocks(B, N), 2 * C, s, st);
 }
 
+template <int C, int CIN, int CN>
+static cudaError_t launch_stage_wgmma(const void* z, const void* dtap, const BatchStats& st,
+                                      const float* s12, const void* dzn, const float* wn,
+                                      const float* w, const void* zp, const void* dtapp,
+                                      void* dz, float* part_s, float* sp, float* part_w,
+                                      float* dw, int B, int N, int blocks, cudaStream_t stream) {
+  typedef StagePlan<C, CIN, CN> P;
+  const int tiles = B * ((N + WTN - 1) / WTN);
+  if (blocks < 1 || blocks > tiles || blocks > WBLOCKS) return cudaErrorInvalidValue;
+  // (C, N, B KNN) views of the (B, KNN, N, C) stage tensors, boxes of (64
+  // channels, WTN points, KNN neighbours)
+  CUtensorMap zmap, zpmap, dznmap, dzmap;
+  const cuuint32_t box[3] = {64, WTN, KNN};
+  auto map = [&](CUtensorMap* m, const void* p, int c) {
+    const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)N, (cuuint64_t)B * KNN};
+    const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)N * c * 2};
+    return make_map(m, p, 3, dims, strides, box);
+  };
+  cudaError_t err = map(&zmap, z, C);
+  if (err == cudaSuccess) err = map(&zpmap, zp, CIN);
+  if (err == cudaSuccess) err = CN > 0 ? map(&dznmap, dzn, CN) : map(&dznmap, z, C);
+  if (err == cudaSuccess) err = map(&dzmap, dz, C);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(stage_wgmma_kernel<C, CIN, CN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (err != cudaSuccess) return err;
+  stage_wgmma_kernel<C, CIN, CN><<<blocks, WTHREADS, P::SMEM, stream>>>(
+      zmap, zpmap, dznmap, dzmap, (const bf16*)dtap, st, s12, wn, w,
+      (const bf16*)dtapp, part_s, part_w, B, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = sum_parts(part_s, blocks, 2 * CIN, sp, stream);
+  if (err != cudaSuccess) return err;
+  return sum_parts(part_w, blocks, CIN * C, dw, stream);
+}
+
+// bwd_stage for bf16: the one-pass stage_wgmma_kernel over `blocks` blocks
+// (ops/cuda_dgcnn_bwd.py:bwd_stage_plan), part_s (blocks, 2, cin) and
+// part_w (blocks, cin, C) scratch. The batch statistics come as they are,
+// float32 (mean, var, gamma, beta of stage i, then of stage i-1); the
+// weights w (cin, C) and wn (C, cn) float32.
+extern "C" int bwd_stage_bf16_launch(const void* z, const void* dtap, const float* mean,
+                                     const float* var, const float* gamma,
+                                     const float* beta, const float* meanp,
+                                     const float* varp, const float* gammap,
+                                     const float* betap, const float* s12,
+                                     const void* dzn, const float* wn,
+                                     const float* w, const void* zp,
+                                     const void* dtapp, void* dz, float* part_s,
+                                     float* sp, float* part_w, float* dw, int B,
+                                     int N, int C, int cin, int cn, int blocks,
+                                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
+  const BatchStats st = {{mean, var, gamma, beta, meanp, varp, gammap, betap}};
+#define S(c, ci, n)                                                                   \
+  if (C == c && cin == ci && cn == n)                                               \
+    return (int)launch_stage_wgmma<c, ci, n>(z, dtap, st, s12, dzn, wn, w, zp, dtapp, \
+                                             dz, part_s, sp, part_w, dw, B, N, blocks, s);
+  S(256, 128, 0) S(128, 64, 256) S(64, 64, 128)
+#undef S
+  return (int)cudaErrorInvalidValue;
+}
+
+// bwd_stage for float32: rows_kernel, then dw_kernel, with their partials
+// (row_blocks, dw_splits)
 extern "C" int bwd_stage_launch(const void* z, const void* dtap,
                                 const float* bn, const float* s12,
                                 const void* dzn, const void* wn,
@@ -748,29 +1092,22 @@ extern "C" int bwd_stage_launch(const void* z, const void* dtap,
                                 const void* dtapp, const float* bnp, void* dz,
                                 float* part_s, float* sp, float* part_w,
                                 float* dw, int B, int N, int C, int cin,
-                                int cn, int is_bf16, void* stream) {
+                                int cn, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
 #define S(c, ci, n)                                                                \
   if (C == c && cin == ci && cn == n)                                              \
-    err = is_bf16 ? launch_rows<__nv_bfloat16, c, ci, n, STAGE>(                   \
-                        z, dtap, bn, s12, dzn, wn, w, zp, dtapp, bnp, dz, part_s,   \
-                        nullptr, nullptr, B, N, st)                                \
-                  : launch_rows<float, c, ci, n, STAGE>(                           \
-                        z, dtap, bn, s12, dzn, wn, w, zp, dtapp, bnp, dz, part_s,   \
-                        nullptr, nullptr, B, N, st);
+    err = launch_rows<float, c, ci, n, STAGE>(                                     \
+        z, dtap, bn, s12, dzn, wn, w, zp, dtapp, bnp, dz, part_s, nullptr, nullptr, \
+        B, N, st);
   S(256, 128, 0) S(128, 64, 256) S(64, 64, 128)
 #undef S
   if (err != cudaSuccess) return (int)err;
   err = sum_parts(part_s, row_blocks(B, N), 2 * cin, sp, st);
   if (err != cudaSuccess) return (int)err;
-  const int m = B * KNN * N;
-  return (int)(is_bf16 ? launch_dw<__nv_bfloat16>((const __nv_bfloat16*)zp, bnp,
-                                                  (const __nv_bfloat16*)dz, m, cin,
-                                                  C, part_w, dw, st)
-                       : launch_dw<float>((const float*)zp, bnp, (const float*)dz,
-                                          m, cin, C, part_w, dw, st));
+  return (int)launch_dw<float>((const float*)zp, bnp, (const float*)dz, B * KNN * N,
+                               cin, C, part_w, dw, st);
 }
 
 extern "C" int bwd_edge_launch(const void* z1, const void* dtap1,

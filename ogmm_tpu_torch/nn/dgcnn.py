@@ -19,7 +19,8 @@ Two routes over one parameter set, chosen from shapes by `fused_route`:
            chain through `ops.cuda_dgcnn.dgcnn_edges`, BN folded, as the
            JAX package's `dgcnn_edges_pallas` (`ogmm_tpu/nn/dgcnn.py:163-197`);
            the angles come from the same float32 neighbours. It raises in
-           training and without a graph (`edges_route`).
+           training and without a graph (`edges_route`); at a k or emb the
+           kernel does not take, the unfused chain runs instead.
   unfused  The JAX package's jnp composition (`ogmm_tpu/nn/dgcnn.py:242-274`):
            a kNN graph (`ops.common.knn`) or a given one, the edge tensor
            [nbr - x, x] formed in float32 and cast, and per stage a product
@@ -36,33 +37,38 @@ from torch import nn
 from ogmm_tpu_torch.ops import dgcnn_train as _train
 from ogmm_tpu_torch.ops.common import (gather_neighbors, knn, posenc_alpha)
 from ogmm_tpu_torch.ops.cuda_dgcnn import (KERNEL_KS, KERNEL_MAX_N, STAGES,
-                                           dgcnn_edges, dgcnn_eval)
+                                           dgcnn_edges, dgcnn_eval,
+                                           kernel_takes)
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import bn_apply
 
 
 def fused_route(n: int, k: int, train: bool, have_graph: bool,
-                fused_train: bool = True) -> bool:
-    """Whether a DGCNN over clouds of n points with a k-neighbour graph
-    takes the fused kernels. The JAX package's rule on its accelerator
-    (`ogmm_tpu/nn/dgcnn.py:146-152`, `:199-208`): fused at N <= 1024 unless
-    a graph is given, in training unless `fused_train` is False
-    (`dgcnn_fused_train=False`). The port's kernels are also compiled for
-    the k of KERNEL_KS only; any other k takes the unfused route. A given
-    graph always takes the unfused route (the JAX eval kernel would ignore
-    it; GMMReg gives one only above N = 1024)."""
+                fused_train: bool = True, emb: int = 512) -> bool:
+    """Whether a DGCNN over clouds of n points with a k-neighbour graph and
+    emb output channels takes the fused kernels. The JAX package's rule on
+    its accelerator (`ogmm_tpu/nn/dgcnn.py:146-152`, `:199-208`): fused at
+    N <= 1024 unless a graph is given, in training unless `fused_train` is
+    False (`dgcnn_fused_train=False`). The port's kernels are also compiled
+    for the k of KERNEL_KS only, and its eval kernel takes emb a multiple of
+    64 (`ops.cuda_dgcnn.kernel_takes`); elsewhere the unfused route, which
+    computes the same function. A given graph always takes the unfused route
+    (the JAX eval kernel would ignore it; GMMReg gives one only above
+    N = 1024)."""
     if have_graph or k not in KERNEL_KS or not k <= n <= KERNEL_MAX_N:
         return False
-    return fused_train or not train
+    return fused_train if train else kernel_takes(k, emb)
 
 
-def edges_route(n: int, train: bool, have_graph: bool,
-                fused_edges: bool) -> bool:
+def edges_route(n: int, train: bool, have_graph: bool, fused_edges: bool,
+                k: int = 20, emb: int = 512) -> bool:
     """Whether a DGCNN that does not take the fused route runs its stage
     chain through the edges kernel, the JAX package's rule
     (`ogmm_tpu/nn/dgcnn.py:163-177`): only with `fused_edges`; never where
     the JAX package's whole-cloud eval kernel comes first (eval, N <= 1024);
     and an explicit `fused_edges` in training or without a graph raises
-    rather than run another route."""
+    rather than run another route, as there. Where the edges kernel does not
+    take k or emb (`ops.cuda_dgcnn.kernel_takes`) the unfused chain runs the
+    same function."""
     if not fused_edges or (not train and n <= KERNEL_MAX_N):
         return False
     if train or not have_graph:
@@ -70,7 +76,7 @@ def edges_route(n: int, train: bool, have_graph: bool,
             "fused_edges=True needs eval mode and a supplied graph (nbr_idx "
             "or nbr_xyz): the kernel folds BN running statistics and has no "
             "backward")
-    return True
+    return kernel_takes(k, emb)
 
 
 class DGCNN(nn.Module):
@@ -116,11 +122,12 @@ class DGCNN(nn.Module):
         weights = [getattr(self, f"w{i}") for i in range(1, 6)]
         have_graph = nbr_idx is not None or nbr_xyz is not None
         fused = fused_route(x.shape[1], self.k, self.training, have_graph,
-                            self.fused_train)
+                            self.fused_train, self.emb_dims)
         # the eval kernel comes first; an explicit fused_edges raises in
         # training whatever the route, as in the JAX package
         if (self.training or not fused) and edges_route(
-                x.shape[1], self.training, have_graph, self.fused_edges):
+                x.shape[1], self.training, have_graph, self.fused_edges,
+                self.k, self.emb_dims):
             return self._forward_edges(x, weights, with_posenc_alpha,
                                        posenc_centroid, nbr_idx, nbr_xyz)
         if not fused:

@@ -10,8 +10,8 @@ concat and the final Dense + BN + ReLU; with `posenc_k` also the
 position-encoding angles cos(angle(p -> nbr_j, p -> centroid)) of the first
 `posenc_k` neighbours from float32 coordinates.
 
-On a CUDA tensor the wrapper launches `csrc/dgcnn_eval.cu` (k in KERNEL_KS,
-k <= N <= 1024); on a CPU tensor it runs `dgcnn_eval_reference`, the plain
+On a CUDA tensor the wrapper launches `csrc/dgcnn_eval.cu` (`kernel_takes`:
+k in KERNEL_KS and emb a multiple of 64; k <= N <= 1024); on a CPU tensor it runs `dgcnn_eval_reference`, the plain
 PyTorch version of the same arithmetic.
 
 `dgcnn_edges(x, nbr, weights, affines)` is the stage chain alone over given
@@ -33,6 +33,15 @@ STAGES = (64, 64, 128, 256)
 KERNEL_KS = (8, 16, 20)           # neighbour counts the kernels are
 #                                  compiled for (csrc/knn_select.cuh:DGCNN_KS)
 KERNEL_MAX_N = 1024      # one distance row lives in a warp's registers
+KERNEL_EMB = 64          # the head's output tiles: emb a multiple of 64
+
+
+def kernel_takes(k: int, emb: int) -> bool:
+    """The envelope both eval kernels (`dgcnn_eval`, `dgcnn_edges`) share:
+    a graph of k in KERNEL_KS neighbours and emb a multiple of KERNEL_EMB.
+    The routes (`nn.dgcnn.fused_route`, `edges_route`) and the wrappers read
+    it, so that a route never picks a kernel that refuses the call."""
+    return k in KERNEL_KS and emb >= KERNEL_EMB and emb % KERNEL_EMB == 0
 
 
 def fold_weights(weights, affines, dtype: torch.dtype):
@@ -107,9 +116,9 @@ def _kernel_operands(what, weights, affines, k, dtype):
     want = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb)]
     if dims != want:
         raise ValueError(f"{what} kernel: weight shapes {dims} != {want}")
-    if k not in KERNEL_KS or emb % 64:
+    if not kernel_takes(k, emb):
         raise ValueError(f"{what} kernel takes k in {KERNEL_KS} and emb a "
-                         f"multiple of 64; got k={k}, emb={emb}")
+                         f"multiple of {KERNEL_EMB}; got k={k}, emb={emb}")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what} kernel: dtype {dtype} not supported")
     s5 = affines[4][0]

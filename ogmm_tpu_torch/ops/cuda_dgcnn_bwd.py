@@ -31,7 +31,9 @@ result is (dz W^T) and kept in float32 where it is not (dW, de).
 
 On a CUDA tensor each wrapper launches its kernel in `csrc/dgcnn_bwd.cu`
 (k = 20, N <= 1024, the stage widths of the DGCNN); on a CPU tensor it runs
-the plain version.
+the plain version. The bf16 stage kernel is one pass on wgmma over a
+persistent grid (`bwd_stage_plan`); the float32 one a row pass and a
+weight-gradient pass on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -48,6 +50,12 @@ KERNEL_MAX_N = 1024
 # reduce kernel takes any C of them, the edge kernel (64, 6, 64)
 KERNEL_STAGES = ((256, 128, 0), (128, 64, 256), (64, 64, 128))
 KERNEL_EDGE = (64, 6, 64)
+SMEM_LIMIT = 232_448  # shared memory a block may use on an H100
+
+# the bf16 stage kernel's plan (csrc/dgcnn_bwd.cu:stage_wgmma_kernel): tiles
+# of STAGE_TN points (STAGE_TN * KERNEL_K rows), a persistent grid of at most
+# STAGE_BLOCKS blocks
+STAGE_TN, STAGE_BLOCKS = 4, 132
 
 
 # ----------------------------------------------------------- shared algebra
@@ -170,7 +178,9 @@ def _bn_pack(mean, var, gamma, beta, dt):
     """(6, C) float32 per-channel constants, formed by the same PyTorch
     operations as `bn_apply` and `bn_dz` so that the kernel's recomputed h
     is the plain version's bit for bit: mean, inv gamma and beta in the
-    compute dtype, then mean, inv and inv gamma in float32."""
+    compute dtype, then mean, inv and inv gamma in float32. (The bf16 stage
+    kernel forms the same values itself from the statistics,
+    `csrc/dgcnn_bwd.cu:bn_stats`.)"""
     mean, var, gamma, beta = (a.detach().float() for a in (mean, var, gamma, beta))
     inv = torch.rsqrt(var + EPS)
     ig = inv * gamma
@@ -232,6 +242,31 @@ def _dw_splits(B, N, cin, c):
         B * KERNEL_K * N, cin, c)
 
 
+def bwd_stage_plan(B: int, N: int, C: int, cin: int, cn: int) -> dict:
+    """The bf16 stage kernel's launch as a pure function of the shapes,
+    mirroring `csrc/dgcnn_bwd.cu:StagePlan`: its tiles (STAGE_TN points of
+    one cloud each), the blocks of its persistent grid (`stage_shares`), its
+    dynamic shared memory (two buffers of a tile's z_i, z_{i-1} and
+    dz_{i+1} panels, the resident W_i and W_{i+1}, the last stage's scratch
+    tile, 1024 bytes of alignment) and its float32 partials, one per block:
+    dW_i (G, C_in, C) and S_{i-1} (G, 2, C_in)."""
+    tiles = B * -(-N // STAGE_TN)
+    blocks = min(STAGE_BLOCKS, tiles)
+    panel = STAGE_TN * KERNEL_K * 128
+    buf = (C + cin + cn) // 64 * panel
+    e = 0 if cn else -(-(STAGE_TN * KERNEL_K * (cin + 8) * 2) // 1024) * 1024
+    smem = 2 * buf + 2 * cin * C + 2 * C * cn + e + 1024
+    return {"tiles": tiles, "blocks": blocks, "smem": smem,
+            "part_w": (blocks, cin, C), "part_s": (blocks, 2, cin)}
+
+
+def stage_shares(tiles: int, blocks: int) -> list:
+    """The tiles block i of the stage kernel walks, in order: [i T / G,
+    (i + 1) T / G)."""
+    return [(i * tiles // blocks, (i + 1) * tiles // blocks)
+            for i in range(blocks)]
+
+
 def _bwd_reduce_cuda(z, dtap, mean, var, gamma, beta):
     B, N, C = _check("bwd_reduce", z, dtap, mean)
     if C not in {s[0] for s in KERNEL_STAGES}:
@@ -266,24 +301,41 @@ def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
         raise ValueError("bwd_stage kernel: inputs of inconsistent shapes "
                          "or dtypes")
     dt, dev = z.dtype, z.device
-    bn = _bn_pack(mean, var, gamma, beta, dt)
-    bnp = _bn_pack(meanp, varp, gammap, betap, dt)
     s12 = s12.detach().float().contiguous()
-    wit = _w_product(w_i, dt)
-    wnt = _w_product(wnext, dt) if cn else None
     dz = torch.empty_like(z, memory_format=torch.contiguous_format)
-    part_s = torch.empty(_row_blocks(B, N), 2, cin, dtype=torch.float32,
-                         device=dev)
     sp = torch.empty(2, cin, dtype=torch.float32, device=dev)
-    part_w = torch.empty(_dw_splits(B, N, cin, C), cin, C,
-                         dtype=torch.float32, device=dev)
     dw = torch.empty(cin, C, dtype=torch.float32, device=dev)
-    ins = (z.contiguous(), dtap.contiguous(), bn, s12,
-           None if not cn else dznext.contiguous(), wnt, wit,
-           zp.contiguous(), dtapp.contiguous(), bnp)
-    code = _fn("bwd_stage", 15, 6)(
-        *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, C, cin, cn,
-        int(dt == torch.bfloat16), ctypes.c_void_p(dispatch.current_stream(z)))
+    stream = ctypes.c_void_p(dispatch.current_stream(z))
+    if dt == torch.bfloat16:
+        # one pass: one partial of each a block; the kernel forms the BN
+        # constants from the statistics and rounds the float32 weights itself
+        blocks = bwd_stage_plan(B, N, C, cin, cn)["blocks"]
+        part_s = torch.empty(blocks, 2, cin, dtype=torch.float32, device=dev)
+        part_w = torch.empty(blocks, cin, C, dtype=torch.float32, device=dev)
+        f32 = lambda a: None if a is None else a.detach().float().contiguous()
+        stats = [f32(a) for a in (mean, var, gamma, beta, meanp, varp, gammap,
+                                  betap)]
+        ins = (z.contiguous(), dtap.contiguous(), *stats, s12,
+               None if not cn else dznext.contiguous(), f32(wnext), f32(w_i),
+               zp.contiguous(), dtapp.contiguous())
+        code = _fn("bwd_stage_bf16", 21, 6)(
+            *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, C, cin, cn,
+            blocks, stream)
+    else:
+        # the row kernel's blocks, the weight-gradient kernel's splits
+        part_s = torch.empty(_row_blocks(B, N), 2, cin, dtype=torch.float32,
+                             device=dev)
+        part_w = torch.empty(_dw_splits(B, N, cin, C), cin, C,
+                             dtype=torch.float32, device=dev)
+        ins = (z.contiguous(), dtap.contiguous(),
+               _bn_pack(mean, var, gamma, beta, dt), s12,
+               None if not cn else dznext.contiguous(),
+               _w_product(wnext, dt) if cn else None, _w_product(w_i, dt),
+               zp.contiguous(), dtapp.contiguous(),
+               _bn_pack(meanp, varp, gammap, betap, dt))
+        code = _fn("bwd_stage", 15, 5)(
+            *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, C, cin, cn,
+            stream)
     dispatch.check_launch(code, "bwd_stage")
     dispatch.launch_counts["bwd_stage"] += 1
     return dz, dw, sp

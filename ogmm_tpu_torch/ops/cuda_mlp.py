@@ -14,6 +14,12 @@ On a CUDA tensor the wrapper launches `csrc/pointmlp.cu` (bf16 or float32,
 N <= 1024, Cin, H and Cout multiples of 64); on a CPU tensor it runs
 `pointmlp_eval_reference`. `nn.layers.PointMLP(fuse_eval=True)` reaches it
 where `mlp_route` says so, on either device.
+
+The bf16 route is three launches (`pointmlp_plan` mirrors their shapes):
+z = x w1^T + b1 on wgmma over tiles of 128 rows of one cloud, writing z in
+bf16 and each tile's column moments; the moments combined per cloud in tile
+order; out = h w2^T + b2 on wgmma, h formed from z on the way to the tensor
+cores. The float32 route is two launches on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -28,6 +34,45 @@ KERNEL_MAX_N = 1024   # the JAX rule (nn/layers.py:124-129): a cloud's rows
 #                       of a column tile sit in shared memory
 KERNEL_WIDTH = 64     # Cin, H and Cout are multiples of the kernel's tiles
 DTYPES = (torch.bfloat16, torch.float32)
+SMEM_LIMIT = 232_448  # shared memory a block may use on an H100
+
+# the bf16 products' tiles and grid (csrc/pointmlp.cu): rows of a tile,
+# depth of a stage, stages of the operand ring, blocks of the persistent grid
+GEMM_ROWS, GEMM_DEPTH, GEMM_STAGES, GEMM_BLOCKS = 128, 64, 3, 132
+
+
+def _column_tile(width: int) -> int:
+    """The widest of 256, 128, 64 that divides the width (`column_tile`)."""
+    return 256 if width % 256 == 0 else 128 if width % 128 == 0 else 64
+
+
+def pointmlp_plan(B: int, N: int, cin: int, h: int, cout: int) -> dict:
+    """The bf16 route's launches as functions of the shapes, mirroring
+    `csrc/pointmlp.cu`: for each product its column tile, its number of
+    tiles (`pointmlp_tile` orders them), the blocks of its persistent grid
+    (block i takes tiles i, i + G, ...) and its dynamic shared memory (the
+    operand ring, the epilogue's own tile, the 1024-byte alignment); and the
+    moment partials (B, row tiles, 2, H) float32, one a (cloud, row tile,
+    column)."""
+    rows = -(-N // GEMM_ROWS)
+    plan = {"row_tiles": rows, "partials": (B, rows, 2, h)}
+    for name, width in (("z", h), ("out", cout)):
+        bn = _column_tile(width)
+        stage = GEMM_ROWS * GEMM_DEPTH * 2 + bn * GEMM_DEPTH * 2
+        epilogue = -(-(GEMM_ROWS * (bn + 8) * 2) // 1024) * 1024
+        tiles = B * rows * (width // bn)
+        plan[name] = {"column_tile": bn, "tiles": tiles,
+                      "blocks": min(GEMM_BLOCKS, tiles),
+                      "smem": GEMM_STAGES * stage + epilogue + 1024,
+                      "epilogue": epilogue}
+    return plan
+
+
+def pointmlp_tile(i: int, row_tiles: int, col_tiles: int) -> tuple:
+    """Tile i of a product as the kernel decodes it: (cloud, row tile,
+    column tile), the column tiles of a row tile adjacent."""
+    return (i // (col_tiles * row_tiles), i // col_tiles % row_tiles,
+            i % col_tiles)
 
 
 def kernel_takes(cin: int, h: int, cout: int, dtype: torch.dtype) -> bool:
@@ -87,13 +132,19 @@ def _pointmlp_cuda(x, w1, b1, w2, b2, dtype):
                          f"Cin, H, Cout multiples of {KERNEL_WIDTH}; got N={N}, "
                          f"Cin={Cin}, H={H}, Cout={Cout}")
     x, w1, b1, w2, b2 = (_aligned(a.to(dtype)) for a in (x, w1, b1, w2, b2))
-    h = torch.empty(B, N, H, dtype=dtype, device=x.device)
-    out = torch.empty(B, N, Cout, dtype=dtype, device=x.device)
+    dev = x.device
+    h = torch.empty(B, N, H, dtype=dtype, device=dev)
+    out = torch.empty(B, N, Cout, dtype=dtype, device=dev)
+    bf16 = dtype == torch.bfloat16
+    part = (torch.empty(B, -(-N // GEMM_ROWS), 2, H, dtype=torch.float32,
+                        device=dev) if bf16 else None)
+    stats = torch.empty(B, 2, H, dtype=torch.float32, device=dev) if bf16 else None
     fn = dispatch.load_kernel("pointmlp").pointmlp_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    code = fn(*[ctypes.c_void_p(a.data_ptr()) for a in (x, w1, b1, w2, b2, h, out)],
-              B, N, Cin, H, Cout, int(dtype == torch.bfloat16),
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    ptr = lambda a: ctypes.c_void_p(0 if a is None else a.data_ptr())
+    code = fn(*[ptr(a) for a in (x, w1, b1, w2, b2, h, out, part, stats)],
+              B, N, Cin, H, Cout, int(bf16),
               ctypes.c_void_p(dispatch.current_stream(x)))
     dispatch.check_launch(code, "pointmlp")
     dispatch.launch_counts["pointmlp"] += 1

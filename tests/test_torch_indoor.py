@@ -21,7 +21,8 @@ two packages sums in other orders).
 Port-only checks at the same size: the v-space route against the
 original-order control (`dgcnn_vspace=False`, 2e-5, as the JAX package's
 own test), `dgcnn_fused_edges=True` against the unfused stage chain (1e-4:
-BN folded into the weights or applied after the product, float32), the
+BN folded into the weights or applied after the product, float32; at
+emb 64, gnn_k = 8, widths the edges kernel takes), the
 routes each path takes, and the refusals of the training forward."""
 import dataclasses
 
@@ -82,7 +83,7 @@ def _port_graph(src, tgt, k, *_, **__):
 
 def _port_cfg(**model):
     cfg = tconfigs.indoor()
-    return cfg.replace(model=dataclasses.replace(cfg.model, **WIDTHS, **model))
+    return cfg.replace(model=dataclasses.replace(cfg.model, **{**WIDTHS, **model}))
 
 
 @pytest.fixture(scope="module")
@@ -135,10 +136,23 @@ def test_vspace_matches_original_order_routing(jax_request):
         np.testing.assert_allclose(n(a), n(b), rtol=2e-5, atol=2e-5)
 
 
-def test_fused_edges_matches_the_unfused_chain(jax_request):
-    state, src, tgt, _ = jax_request
-    out = _forward(state, src, tgt, refine=True, dgcnn_fused_edges=True)
-    ref = _forward(state, src, tgt, refine=True)
+# widths the edges kernel takes (`ops.cuda_dgcnn.kernel_takes`): at WIDTHS'
+# gnn_k = 6 and emb 32 the port runs the unfused chain even with
+# dgcnn_fused_edges=True, where the JAX package runs its edges kernel (C.3)
+EDGE_WIDTHS = dict(emb_dims=64, gnn_k=8)
+
+
+@pytest.fixture(scope="module")
+def edges_state():
+    torch.manual_seed(0)
+    return TGMMReg(_port_cfg(**EDGE_WIDTHS).model).state_dict()
+
+
+def test_fused_edges_matches_the_unfused_chain(jax_request, edges_state):
+    _, src, tgt, _ = jax_request
+    out = _forward(edges_state, src, tgt, refine=True, dgcnn_fused_edges=True,
+                   **EDGE_WIDTHS)
+    ref = _forward(edges_state, src, tgt, refine=True, **EDGE_WIDTHS)
     for a, b in zip(out, ref):
         np.testing.assert_allclose(n(a), n(b), rtol=1e-4, atol=1e-4)
 
@@ -165,19 +179,22 @@ def calls(monkeypatch):
 
 
 @pytest.mark.parametrize("refine,edges", [(False, False), (True, True)])
-def test_the_request_takes_the_streamed_routes(jax_request, calls, refine,
-                                               edges):
+def test_the_request_takes_the_streamed_routes(jax_request, edges_state, calls,
+                                               refine, edges):
     state, src, tgt, _ = jax_request
     _forward(state, src, tgt, refine=refine, overlap_stream=None,
              dgcnn_fused_edges=edges)
     # one graph for the 2B stacked clouds; the head by size (B N N = 18.5 M
     # elements here, under 64 Mi): dense; the clustering loss's 1-NN and one
-    # a trip of ICP
-    assert calls == {"knn_stream": 1, "nn1_stream": 1 + refine * WIDTHS["icp_iters"],
-                     **({"dgcnn_edges": 1} if edges else {})}
+    # a trip of ICP; no edges kernel at gnn_k = 6, emb 32 (C.3)
+    assert calls == {"knn_stream": 1, "nn1_stream": 1 + refine * WIDTHS["icp_iters"]}
     calls.clear()
     _forward(state, src, tgt, overlap_stream=True)
     assert calls == {"knn_stream": 1, "nn1_stream": 1, "wproject": 2}
+    if edges:
+        calls.clear()
+        _forward(edges_state, src, tgt, dgcnn_fused_edges=True, **EDGE_WIDTHS)
+        assert calls == {"knn_stream": 1, "nn1_stream": 1, "dgcnn_edges": 1}
 
 
 def test_training_refuses_the_streamed_head_and_the_edges_kernel():

@@ -3,9 +3,12 @@ shapes the EM kernel takes (`cuda_em.kernel_takes`, `cuda_em.smem_bytes`),
 the operands the DGCNN wrappers hand their kernels
 (`cuda_dgcnn._kernel_operands`, `cuda_dgcnn._concat_scratch`), the bf16
 projection's shared memory and persistent grid (`cuda_stream.wproject_plan`,
-`wproject_units`, `wproject_smem_bytes`) and the 1-NN kernel's split of the
-target (`cuda_stream.nn1_stream_plan`). The kernels themselves run only on
-the card (`tests/test_torch_kernels_gpu.py`)."""
+`wproject_units`, `wproject_smem_bytes`), the 1-NN kernel's split of the
+target (`cuda_stream.nn1_stream_plan`), and the bf16 backward stage's and
+fused MLP's launches (`cuda_dgcnn_bwd.bwd_stage_plan`,
+`cuda_mlp.pointmlp_plan`): shared memory, the persistent grid's shares and
+the partials' counts. The kernels themselves run only on the card
+(`tests/test_torch_kernels_gpu.py`)."""
 import numpy as np
 import pytest
 import torch
@@ -171,3 +174,110 @@ def test_nn1_stream_splits_only_where_queries_cannot_fill_the_card(B, N, M,
     assert got == chunks
     blocks = B * -(-N // stream.TILE_N) * got
     assert blocks >= H100_SMS or got == -(-M // stream.TILE_M)
+
+
+# ------------------------------- the bf16 backward stage and MLP kernels
+
+from ogmm_tpu_torch.ops import cuda_dgcnn_bwd, cuda_mlp  # noqa: E402
+
+STAGES = cuda_dgcnn_bwd.KERNEL_STAGES
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_bwd_stage_block_fits_shared_memory(stage):
+    # two buffers of a tile's panels, W_i and W_{i+1} resident, the scratch
+    # tile and the 1024-byte alignment, within a block's 227 KB
+    C, cin, cn = stage
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(24, 717, C, cin, cn)
+    assert plan["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
+    panel = cuda_dgcnn_bwd.STAGE_TN * cuda_dgcnn_bwd.KERNEL_K * 128
+    assert plan["smem"] >= 2 * (C + cin + cn) // 64 * panel + 2 * (cin * C + C * cn)
+    # the plan does not depend on the batch
+    assert cuda_dgcnn_bwd.bwd_stage_plan(1, 1, *stage)["smem"] == plan["smem"]
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (1, 3), (2, 5), (1, 1024), (24, 717),
+                                 (3, 1000), (48, 717), (7, 129)])
+@pytest.mark.parametrize("stage", STAGES)
+def test_bwd_stage_grid_visits_every_tile_once_in_order(B, N, stage):
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, *stage)
+    tiles = B * -(-N // cuda_dgcnn_bwd.STAGE_TN)
+    assert plan["tiles"] == tiles
+    assert plan["blocks"] == min(cuda_dgcnn_bwd.STAGE_BLOCKS, tiles)
+    shares = cuda_dgcnn_bwd.stage_shares(plan["tiles"], plan["blocks"])
+    # contiguous, non-empty shares in block order that cover the tiles once
+    assert len(shares) == plan["blocks"]
+    assert shares[0][0] == 0 and shares[-1][1] == tiles
+    assert all(a < b for a, b in shares)
+    assert all(shares[i][1] == shares[i + 1][0] for i in range(len(shares) - 1))
+    visited = [t for a, b in shares for t in range(a, b)]
+    assert visited == list(range(tiles))
+    # even shares: no block holds more than one tile above another
+    sizes = [b - a for a, b in shares]
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("B,N", [(24, 717), (1, 1), (2, 5)])
+@pytest.mark.parametrize("stage", STAGES)
+def test_bwd_stage_partials_are_fixed_by_the_shape(B, N, stage):
+    # one dW_i and one S_{i-1} partial a block, summed in block order: the
+    # count depends on the shapes only, never on the card
+    C, cin, cn = stage
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, C, cin, cn)
+    G = plan["blocks"]
+    assert plan["part_w"] == (G, cin, C) and plan["part_s"] == (G, 2, cin)
+    assert cuda_dgcnn_bwd.bwd_stage_plan(B, N, C, cin, cn) == plan
+
+
+MLP_WIDTHS = list(range(64, 1025, 64))
+
+
+@pytest.mark.parametrize("width", MLP_WIDTHS)
+def test_pointmlp_blocks_fit_shared_memory_at_every_width(width):
+    # the ring of 3 stages, the epilogue's own padded tile and the
+    # alignment within 227 KB, as H and as Cout
+    plan = cuda_mlp.pointmlp_plan(48, 717, 64, width, width)
+    for name in ("z", "out"):
+        p = plan[name]
+        bn = p["column_tile"]
+        assert width % bn == 0 and bn in (64, 128, 256)
+        assert p["smem"] <= cuda_mlp.SMEM_LIMIT
+        ring = cuda_mlp.GEMM_STAGES * (cuda_mlp.GEMM_ROWS + bn) * cuda_mlp.GEMM_DEPTH * 2
+        assert p["epilogue"] >= cuda_mlp.GEMM_ROWS * (bn + 8) * 2
+        assert p["smem"] == ring + p["epilogue"] + 1024
+
+
+@pytest.mark.parametrize("width,tile", [(1024, 256), (512, 256), (768, 256),
+                                        (384, 128), (640, 128), (192, 64),
+                                        (64, 64), (320, 64)])
+def test_pointmlp_column_tile_is_the_widest_that_divides(width, tile):
+    assert cuda_mlp.pointmlp_plan(2, 90, 128, width, width)["z"]["column_tile"] == tile
+
+
+@pytest.mark.parametrize("N", [1, 90, 128, 129, 717, 1024])
+def test_pointmlp_row_tiles_stay_in_one_cloud(N):
+    # the row tiles of a cloud are their own tiles: a tile never holds two
+    # clouds' rows, and the moment partials are one a (cloud, row tile,
+    # column)
+    plan = cuda_mlp.pointmlp_plan(48, N, 1024, 1024, 512)
+    rows = -(-N // cuda_mlp.GEMM_ROWS)
+    assert plan["row_tiles"] == rows
+    assert plan["z"]["tiles"] == 48 * rows * (1024 // 256)
+    assert plan["out"]["tiles"] == 48 * rows * (512 // 256)
+    assert plan["partials"] == (48, rows, 2, 1024)
+
+
+@pytest.mark.parametrize("B,N,width", [(48, 717, 1024), (48, 717, 512),
+                                       (1, 1, 64), (3, 90, 128), (2, 1024, 192)])
+def test_pointmlp_grid_visits_every_tile_once_in_order(B, N, width):
+    # block i takes tiles i, i + G, ... of the (cloud, row tile, column
+    # tile) order, the column tiles of a row tile adjacent
+    p = cuda_mlp.pointmlp_plan(B, N, 64, width, width)["z"]
+    rows, cols = -(-N // cuda_mlp.GEMM_ROWS), width // p["column_tile"]
+    G = p["blocks"]
+    assert G == min(cuda_mlp.GEMM_BLOCKS, p["tiles"])
+    visits = [list(range(i, p["tiles"], G)) for i in range(G)]
+    assert sorted(t for v in visits for t in v) == list(range(p["tiles"]))
+    decoded = [cuda_mlp.pointmlp_tile(i, rows, cols) for i in range(p["tiles"])]
+    assert decoded == [(b, r, c) for b in range(B) for r in range(rows)
+                       for c in range(cols)]

@@ -15,9 +15,10 @@ from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
 from ogmm_tpu_torch.ops.cuda_dgcnn import (KERNEL_KS, dgcnn_eval,
                                            dgcnn_eval_reference)
-from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (bwd_edge, bwd_edge_reference,
-                                              bwd_reduce, bwd_reduce_reference,
-                                              bwd_stage, bwd_stage_reference)
+from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (KERNEL_STAGES, bwd_edge,
+                                              bwd_edge_reference, bwd_reduce,
+                                              bwd_reduce_reference, bwd_stage,
+                                              bwd_stage_reference)
 from ogmm_tpu_torch.ops.cuda_dgcnn_train import (graph_stage1,
                                                  graph_stage1_reference)
 from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em, sinkhorn_em_reference
@@ -341,7 +342,17 @@ def test_em_kernel_takes_any_k_up_to_128(card, B, N, K):
     (dict(gnn_k=12), 300, {"knn": 1, "posenc_angles": 1, "sinkhorn_em": 1,
                            "nn1": 1}),
     (dict(gnn_k=16), 300, {"dgcnn_eval": 1, "sinkhorn_em": 1, "nn1": 1}),
-    (dict(n_clusters=16), 2048, {"knn": 1, "sinkhorn_em": 1, "nn1": 1})])
+    (dict(n_clusters=16), 2048, {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
+    # C.2: an emb the eval kernel does not take runs the unfused chain
+    (dict(emb_dims=96), 300, {"knn": 1, "posenc_angles": 1, "sinkhorn_em": 1,
+                              "nn1": 1}),
+    # C.3: dgcnn_fused_edges where the edges kernel does not take k or emb
+    (dict(gnn_k=12, dgcnn_fused_edges=True), 1100,
+     {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
+    (dict(emb_dims=96, dgcnn_fused_edges=True), 1100,
+     {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
+    (dict(dgcnn_fused_edges=True), 1100,
+     {"knn": 1, "dgcnn_edges": 1, "sinkhorn_em": 1, "nn1": 1})])
 def test_registrar_routes_by_shape_on_the_card(card, over, N, launched):
     cfg = configs.mnet(model=configs.ModelConfig(
         **{**dict(emb_dims=64, n_clusters=32, km_clusters=32), **over}))
@@ -485,6 +496,50 @@ def test_bwd_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="C_in"):
         bwd_stage(z20, tap, v, v, v, v, torch.zeros(2, 256, device=card), w,
                   zp, u, u, u, u, tp)
+
+
+def _stage_args(dev, B, N, stage, seed):
+    """Arguments of one bf16 stage call at any (B, N), N < k included:
+    pre-BN z of stages i and i-1 with their batch moments, tap cotangents,
+    sums, weights and the cotangent of the stage above."""
+    C, cin, cn = stage
+    rs = np.random.RandomState(seed)
+    bf = torch.bfloat16
+
+    def z(c):
+        v = torch.tensor(rs.randn(B, 20, N, c).astype(np.float32), device=dev).to(bf)
+        var, mean = torch.var_mean(v.float(), dim=(0, 1, 2), unbiased=False)
+        return v, mean, var + 0.1
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rs.randn(*shape).astype(np.float32) * scale, device=dev)
+
+    zi, mean, var = z(C)
+    zp, meanp, varp = z(cin)
+    kw = {}
+    if cn:
+        kw = {"dznext": t(B, 20, N, cn, scale=0.1).to(bf), "wnext": t(C, cn, scale=0.1)}
+    return ((zi, t(B, N, C).to(bf), mean, var, 1 + 0.2 * t(C), 0.1 * t(C),
+             t(2, C, scale=float(B * N)), t(cin, C, scale=0.1), zp, meanp, varp,
+             1 + 0.2 * t(cin), 0.1 * t(cin), t(B, N, cin).to(bf)), kw)
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (1, 3), (2, 717), (1, 1024), (3, 90)])
+@pytest.mark.parametrize("stage", KERNEL_STAGES)
+def test_bwd_stage_one_pass_kernel_matches_plain(card, B, N, stage):
+    # the persistent one-pass bf16 kernel at one point, N not a multiple of
+    # its 4-point tile, the request's N and the largest; twice bit for bit
+    a, kw = _stage_args(card, B, N, stage, seed=N + stage[0])
+    got = bwd_stage(*a, **kw)
+    again = bwd_stage(*a, **kw)
+    ref = bwd_stage_reference(*a, **kw)
+    torch.cuda.synchronize()
+    for i, (g, g2, r) in enumerate(zip(got, again, ref)):
+        assert torch.equal(g, g2), i
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert torch.isfinite(g.float()).all()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= _bwd_limit("bwd_stage", i, torch.bfloat16, r), (i, err)
 
 
 def test_bwd_wrappers_count_their_launches(card):
@@ -687,6 +742,27 @@ def test_pointmlp_kernel_matches_plain(card, B, N, cin, h, cout, dtype, lim):
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (B, N, cout)
     assert (out.float() - ref.float()).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("B,N,cin,h,cout", [(1, 1, 64, 64, 64),
+                                            (2, 129, 192, 320, 448),
+                                            (1, 1024, 1024, 512, 1024),
+                                            (4, 717, 256, 384, 128),
+                                            (48, 717, 1024, 1024, 512)])
+def test_pointmlp_wgmma_route_any_width(card, B, N, cin, h, cout):
+    # the bf16 route's column tiles of 64, 128 and 256, one point, N not a
+    # multiple of its 128-row tile; twice bit for bit
+    rs = np.random.RandomState(cin + h)
+    w = lambda *s: torch.tensor(rs.randn(*s).astype(np.float32) / np.sqrt(s[-1]),
+                                device=card)
+    x = torch.tensor(rs.randn(B, N, cin).astype(np.float32), device=card).to(torch.bfloat16)
+    args = (x, w(h, cin), w(h) * 0.3, w(cout, h), w(cout) * 0.3, torch.bfloat16)
+    out, again = cuda_mlp.pointmlp_eval(*args), cuda_mlp.pointmlp_eval(*args)
+    ref = cuda_mlp.pointmlp_eval_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert out.shape == (B, N, cout) and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 0.0625
 
 
 @pytest.mark.parametrize("R,N,npoint", [(96, 717, 128), (4, 1433, 128),

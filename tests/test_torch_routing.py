@@ -33,12 +33,15 @@ from ogmm_tpu.ops.dispatch import pallas_override
 from ogmm_tpu.ops.icp import icp_point_to_point as jicp
 from ogmm_tpu_torch.nn import gmmreg as tgmmreg
 from ogmm_tpu_torch.nn.attention import angle_route
+from ogmm_tpu_torch.nn import dgcnn as tdgcnn
 from ogmm_tpu_torch.nn.dgcnn import edges_route, fused_route
 from ogmm_tpu_torch.ops import common as tcommon
 from ogmm_tpu_torch.ops import cuda_em, cuda_icp, cuda_mlp
 from ogmm_tpu_torch.ops import icp as ticp
-from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_N
+from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_N, kernel_takes
 from ogmm_tpu_torch.ops.gmm import em_route
+
+from torch_port_util import clouds, n, randomise_stats, t, to_plain
 
 NS = [1024, 1025, 4096, 4097]
 KS = [20, 16, 33]
@@ -192,6 +195,90 @@ def test_dgcnn_route_follows_the_jax_rule(monkeypatch, dgcnn_variables, N, k,
 
 def test_the_kernels_take_the_modelnet_and_the_c1_graphs():
     assert {8, 16, 20} <= set(KERNEL_KS) and max(KERNEL_KS) <= 32
+    # one envelope for both eval kernels and both routes: k of KERNEL_KS,
+    # emb a multiple of 64
+    assert all(kernel_takes(k, emb) for k in KERNEL_KS for emb in (64, 512))
+    assert not any(kernel_takes(k, emb) for k, emb in
+                   ((12, 64), (20, 96), (20, 32), (33, 512), (20, 0)))
+
+
+# the faults C.2 and C.3: where the JAX package runs its eval or edges
+# kernel at a k or emb the port's kernels do not take, the port takes the
+# unfused chain, which computes the same function; held against the JAX
+# forward on its plain route at the float32 bar of tests/test_torch_dgcnn.py
+# (rtol 1e-4, atol 2e-5)
+
+def _dgcnn_pair(monkeypatch, emb, k, N, seed):
+    """A JAX DGCNN and the port's with the same weights and statistics, the
+    port's kernel wrappers stubbed so that a call shows as a route."""
+    x = clouds(seed, B=1, N=N, scale=0.4)
+    jm = jdgcnn.DGCNN(emb_dims=emb, k=k, fused=False)
+    with pallas_override(False):
+        v = randomise_stats(jm.init(jax.random.PRNGKey(seed),
+                                    jnp.asarray(x[:, :64]), train=False), seed)
+    tm = tdgcnn.DGCNN(emb, k, fused_edges=True)
+    plain = to_plain(v)
+    tm.load_state_dict({**{a: t(b) for a, b in plain["params"].items()},
+                        **{a: t(b) for a, b in plain["batch_stats"].items()}},
+                       strict=True)
+    _stub(monkeypatch, tdgcnn, "dgcnn_eval", "fused")
+    _stub(monkeypatch, tdgcnn, "dgcnn_edges", "edges")
+    return x, v, tm.eval()
+
+
+@pytest.mark.parametrize("emb", [96, 32])
+def test_c2_eval_at_an_emb_the_kernel_does_not_take(monkeypatch,
+                                                    dgcnn_variables, emb):
+    _stub(monkeypatch, jpallas_dgcnn, "dgcnn_eval_pallas", "fused")
+    with pallas_override(True):
+        jax_route = _taken(lambda: jdgcnn.DGCNN(emb_dims=64, k=20).apply(
+            dgcnn_variables, jnp.zeros((1, 717, 3)), train=False))
+    # the JAX rule fuses every eval at N <= 1024 without a graph, at any
+    # emb (its own variables at emb 64 show the rule; emb enters no branch)
+    assert jax_route == "fused"
+    assert fused_route(717, 20, False, False, emb=64)
+    assert not fused_route(717, 20, False, False, emb=emb)
+    # training's fused route (graph_stage1 and the products) takes any emb
+    assert fused_route(717, 20, True, False, emb=emb)
+    x, v, tm = _dgcnn_pair(monkeypatch, emb, 20, 717, 4)
+    with torch.no_grad():
+        got = tm(t(x))                   # neither stub raised: unfused
+    with pallas_override(False):
+        want = jdgcnn.DGCNN(emb_dims=emb, k=20, fused=False).apply(
+            v, jnp.asarray(x), train=False)
+    assert got.shape == (1, 717, emb)
+    np.testing.assert_allclose(n(got), n(want), rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("k,emb", [(12, 64), (20, 96)])
+def test_c3_fused_edges_where_the_kernel_does_not_take_k_or_emb(
+        monkeypatch, dgcnn_variables, k, emb):
+    _stub(monkeypatch, jpallas_dgcnn, "dgcnn_eval_pallas", "fused")
+    _stub(monkeypatch, jpallas_dgcnn, "dgcnn_edges_pallas", "edges")
+    graph = jnp.zeros((1, 1100, 20), jnp.int32)
+    with pallas_override(True):
+        jax_route = _taken(lambda: jdgcnn.DGCNN(
+            emb_dims=64, k=20, fused_edges=True).apply(
+                dgcnn_variables, jnp.zeros((1, 1100, 3)), train=False,
+                nbr_idx=graph))
+    # the JAX package runs its edges kernel at any k and emb
+    assert jax_route == "edges"
+    assert edges_route(1100, False, True, True, k=20, emb=64)
+    assert not edges_route(1100, False, True, True, k=k, emb=emb)
+    # the refusals stay where the JAX package refuses, whatever k and emb
+    for train, have_graph in ((True, True), (False, False)):
+        with pytest.raises(ValueError, match="fused_edges=True needs"):
+            edges_route(1100, train, have_graph, True, k=k, emb=emb)
+    x, v, tm = _dgcnn_pair(monkeypatch, emb, k, 1100, 5)
+    idx = np.asarray(jcommon.knn(jnp.asarray(x), jnp.asarray(x), k,
+                                 use_pallas=False)).astype(np.int64)
+    with torch.no_grad():
+        got = tm(t(x), nbr_idx=torch.from_numpy(idx))   # unfused
+    with pallas_override(False):
+        want = jdgcnn.DGCNN(emb_dims=emb, k=k, fused=False).apply(
+            v, jnp.asarray(x), train=False, nbr_idx=jnp.asarray(idx))
+    assert got.shape == (1, 1100, emb)
+    np.testing.assert_allclose(n(got), n(want), rtol=1e-4, atol=2e-5)
 
 
 # ------------------------------------------------- the position encoding
