@@ -59,7 +59,9 @@ fatal on failure:
              (1, 35000, 35000) with the cull and the gate; the clustering's
              (2, 16, 35000); the overlap head at (1, 35000, 35000, D=512)
              bf16) and at small awkward ones (N not a multiple of the tile,
-             M just above 4096, k=1, coincident points, float32)
+             M just above 4096, k=1, coincident points, float32); the kNN
+             kernel's visits (tile pairs searched against those needed, the
+             heaviest block's tiles, the share of distances formed)
  13. indoor  `Registrar(configs.indoor(...))` at B=1, N=35,000, K=16, bf16
              body, on bench.py's synthetic surface with a rigid copy as
              target: with and without ICP, and with dgcnn_fused_edges=True;
@@ -72,8 +74,9 @@ fatal on failure:
              96 rows of 717, 128 steps; 24 pairs of 717, 30 trips) and at
              awkward ones (float32, N not a multiple of the tile; N = 1433
              and 35,000 with tied distances; N != M, a cloud without
-             inliers, M = 4096): FPS ids and ICP's first-trip
-             correspondences identical, poses and outputs within limits
+             inliers, M = 4096, 48 clouds): FPS ids and ICP's first-trip
+             correspondences identical, poses and outputs within limits, a
+             relaunch of ICP bit-equal, each ICP call's cluster shape
  15. serve_loops   the refined N=717 request of phase 3 through a
              Registrar with `loop_kernels=True` (FPS, ICP and the three
              attention MLPs through their kernels) beside one without, on
@@ -1170,9 +1173,13 @@ def check_knn_stream(rs):
     """The streamed kNN kernel against its plain version (identical
     indices): the indoor graph (2 clouds of 35,000, k=20) Morton-sorted
     with the cull and the diagonal order as `knn_self_vspace` gives it, and
-    without them; unsorted clouds just above M = 4096 with N not a multiple
-    of the tile, with and without a cull; a cross query at k=1; 301
-    coincident points; N below one tile at k=32."""
+    without them, and with the cull at k = 1 and 32; unsorted clouds just
+    above M = 4096 with N not a multiple of the tile, with and without a
+    cull; a cross query at k=1; 301 coincident points; N below one tile at
+    k=32; a relaunch gives the same bits. At the indoor call: the tile pairs
+    the kernel searched beside those the search needs, the most tiles one
+    block searched, the share of the distance pairs its warps computed
+    (the `visits` counters), and the time beside the bound."""
     x = _sorted(torch.tensor(surface(rs, 2), device=DEV))
     lb = stream.tile_pair_bounds(x)
     g = _cloud(rs, 2, 4100)
@@ -1193,7 +1200,11 @@ def check_knn_stream(rs):
              ("301 coincident, sorted, cull", cs, cs, KNN,
               dict(diag_order=True, cull_lb=stream.tile_pair_bounds(cs))),
              ("N=37 below a tile, k=32", g[:, :37], g, 32,
-              dict(cull_lb=stream.pair_tile_bounds(g[:, :37], g)))]
+              dict(cull_lb=stream.pair_tile_bounds(g[:, :37], g))),
+             ("indoor, sorted, cull, diagonal, k=1", x, x, 1,
+              dict(diag_order=True, cull_lb=lb)),
+             ("indoor, sorted, cull, diagonal, k=32", x, x, 32,
+              dict(diag_order=True, cull_lb=lb))]
     worst = 0
     for name, src, tgt, k, kw in cases:
         got = cuda_stream.knn_stream(src, tgt, k, **kw)
@@ -1204,28 +1215,43 @@ def check_knn_stream(rs):
         print(f"knn_stream {name} {tuple(src.shape[:2])} x {tgt.shape[1]}, "
               f"k={k}: indices identical {same}")
         assert same and got.dtype == torch.int64
-    run = lambda: cuda_stream.knn_stream(x, x, KNN, diag_order=True, cull_lb=lb)
+    run = lambda **kw: cuda_stream.knn_stream(x, x, KNN, diag_order=True,
+                                              cull_lb=lb, **kw)
+    visits = torch.zeros(3, dtype=torch.int32, device=DEV)
+    idx = run(visits=visits)
+    assert torch.equal(idx, run()), "a relaunch moved bits"
+    tiles, most, scans = visits.tolist()
+    searched = tiles / lb.numel()
+    computed = scans * (stream.TILE_N // 8) * 64 / (2 * N_INDOOR * N_INDOOR)
     ms = cuda_ms(run, 10)
+    dev = launch_ms(run, 10, {"knn_stream": ("knn_stream_kernel",)})["knn_stream"]
     ms_nocull = cuda_ms(lambda: cuda_stream.knn_stream(x, x, KNN), 2)
     ms_graph = cuda_ms(lambda: ops_common.knn_self_vspace(x, KNN), 5)
     plain = cuda_ms(lambda: stream.knn_stream_plain(x, x, KNN), 1)
-    idx = run()
     dk = _pair_d(x, index_points(x, idx[..., -1]))
     pairs, share = _needed_pairs(lb, dk, N_INDOOR, N_INDOOR)
     bound, by = _bound(9.0 * pairs, 2 * x.numel() * 4 + idx.numel() * 8)
     full, _ = _bound(9.0 * 2 * N_INDOOR * N_INDOOR, 0)
     print(f"knn_stream (2, {N_INDOOR}, {N_INDOOR}, k={KNN}): {ms:.4f} ms with "
-          f"the cull ({ms_nocull:.3f} without; the whole v-space graph with "
-          f"the sort and the table {ms_graph:.3f} ms), plain {plain:.2f} ms, "
-          f"bound {bound:.5f} ms ({by}; the {share:.4f} of the tile pairs "
-          f"the search needs; {full:.4f} ms for every pair)")
+          f"the cull ({dev:.4f} on the device; {ms_nocull:.3f} without; the "
+          f"whole v-space graph with the sort and the table {ms_graph:.3f} ms), "
+          f"plain {plain:.2f} ms, bound {bound:.5f} ms ({by}; the {share:.4f} "
+          f"of the tile pairs the search needs; {full:.4f} ms for every pair)")
+    print(f"knn_stream visits: searched {searched:.4f} of the tile pairs "
+          f"({tiles} of {lb.numel()}; needed {share:.4f}), the most one block "
+          f"searched {most} of {lb.shape[2]} tiles, the warps computed "
+          f"{computed:.4f} of the distance pairs ({scans} (warp, 64-point "
+          f"sub-tile) pairs; grid ({lb.shape[1]}, 2) blocks of "
+          f"{4 * stream.TILE_N} threads)")
     return {"name": "knn_stream", "route": "cuda",
             "source": "ogmm_tpu_torch/csrc/knn_stream.cu",
             "replaces": "ogmm_tpu/ops/pallas_stream.py:529",
-            "max_abs_err": float(worst), "ms": ms, "ms_no_cull": ms_nocull,
-            "ms_vspace_graph": ms_graph, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "bound_ms_every_pair": full,
-            "tile_pairs_needed": share, "library_ms": None}
+            "max_abs_err": float(worst), "ms": ms, "device_ms": dev,
+            "ms_no_cull": ms_nocull, "ms_vspace_graph": ms_graph,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "bound_ms_every_pair": full, "tile_pairs_needed": share,
+            "tile_pairs_searched": searched, "most_tiles_a_block": most,
+            "distance_pairs_computed": computed, "library_ms": None}
 
 
 def check_nn1_stream(rs):
@@ -1708,42 +1734,55 @@ def _icp_inputs(rs, b, n, m, far=()):
 def check_icp_kernel(rs):
     """The whole-loop ICP against its plain version, 30 trips at the
     refined request's gate (0.07): the first trip's correspondences
-    identical, the final poses within LIM_ICP_POSE; at the path's call (24,
-    717, 717), at N=1433, at N != M, with a cloud without inliers (its pose
-    kept exactly) and at the envelope M = 4096; timed at the path's call and
-    at N=1433."""
+    identical, the final poses within LIM_ICP_POSE, a relaunch bit-equal; at
+    the path's call (24, 717, 717), at N=1433, at B=48, at N != M, with a
+    cloud without inliers (its pose kept exactly) and at the envelope
+    M = 4096; each call's cluster shape (`cuda_icp.icp_plan`); timed at the
+    path's call and at N=1433."""
     thr2 = (2.0 * configs.ModelConfig().overlap_radius) ** 2
-    cases = [(B, N, N, ()), (B, N_LARGE, N_LARGE, ()), (8, N, 600, (3,)),
-             (8, 500, 900, ()), (4, 4096, 4096, (0,))]
+    cases = [(B, N, N, ()), (B, N_LARGE, N_LARGE, ()), (2 * B, N, N, ()),
+             (8, N, 600, (3,)), (8, 500, 900, ()), (4, 4096, 4096, (0,))]
     worst, timed = 0.0, {}
+    sms = cuda_stream._sm_count(0)
     for b, n, m, far in cases:
         src, tgt, init = _icp_inputs(rs, b, n, m, far)
         r, t, first = cuda_icp.icp_fused(src, tgt, init, thr2, return_first=True)
+        r2, t2, first2 = cuda_icp.icp_fused(src, tgt, init, thr2, return_first=True)
         torch.cuda.synchronize()
         rr, rt, rfirst = cuda_icp.icp_fused_reference(src, tgt, init, thr2,
                                                       return_first=True)
         same = torch.equal(first, rfirst)
+        again = torch.equal(r, r2) and torch.equal(t, t2) and torch.equal(first, first2)
         err = max((r - rr).abs().max().item(), (t - rt).abs().max().item())
         kept = all(torch.equal(r[i], init[i, :3, :3]) and torch.equal(t[i], init[i, :3, 3])
                    for i in far)
+        plan = cuda_icp.icp_plan(b, n, m, sms)
         print(f"icp ({b}, {n}, {m}), 30 trips: first trip's 1-NN identical {same}, "
               f"max|pose kernel - plain| = {err:.3g} (limit {LIM_ICP_POSE}); "
-              f"clouds without inliers {list(far)} keep their pose {kept}")
-        assert same and kept and err <= LIM_ICP_POSE
+              f"clouds without inliers {list(far)} keep their pose {kept}; a "
+              f"relaunch bit-equal {again}; clusters of {plan.cluster} blocks "
+              f"({b * plan.cluster} blocks on {sms} SMs; the card holds "
+              f"{cuda_icp.max_active_clusters(plan)} such clusters at once), "
+              f"{plan.rows} rows a block, {plan.lanes} lanes a row, "
+              f"{plan.threads} threads, {plan.smem} B of shared memory")
+        assert same and kept and again and err <= LIM_ICP_POSE
         assert torch.isfinite(r).all() and torch.isfinite(t).all()
         worst = max(worst, err)
-        timed[(n, m)] = (src, tgt, init)
-    ms = cuda_ms(lambda: cuda_icp.icp_fused(*timed[(N, N)], thr2), 10)
-    ms_large = cuda_ms(lambda: cuda_icp.icp_fused(*timed[(N_LARGE, N_LARGE)], thr2), 5)
-    plain = cuda_ms(lambda: cuda_icp.icp_fused_reference(*timed[(N, N)], thr2), 2)
+        timed[(b, n, m)] = (src, tgt, init)
+    ms = cuda_ms(lambda: cuda_icp.icp_fused(*timed[(B, N, N)], thr2), 10)
+    ms_large = cuda_ms(lambda: cuda_icp.icp_fused(*timed[(B, N_LARGE, N_LARGE)], thr2), 5)
+    ms_48 = cuda_ms(lambda: cuda_icp.icp_fused(*timed[(2 * B, N, N)], thr2), 5)
+    plain = cuda_ms(lambda: cuda_icp.icp_fused_reference(*timed[(B, N, N)], thr2), 2)
     # a trip: 8 operations a distance and a compare a pair; moving a point,
     # its moments and covariance about 60
     bound, by = _bound(30 * B * (N * N * 9.0 + N * 60.0), B * (2 * N * 12 + 2 * 48))
     print(f"icp ({B}, {N}, {N}), 30 trips: {ms:.4f} ms, plain {plain:.3f} ms, "
-          f"bound {bound:.5f} ms ({by}); ({B}, {N_LARGE}, {N_LARGE}) {ms_large:.4f} ms")
+          f"bound {bound:.5f} ms ({by}); ({B}, {N_LARGE}, {N_LARGE}) {ms_large:.4f} ms; "
+          f"({2 * B}, {N}, {N}) {ms_48:.4f} ms")
     return {"name": "icp", "route": "cuda", "source": "ogmm_tpu_torch/csrc/icp.cu",
             "replaces": "ogmm_tpu/ops/pallas_icp.py:152",
             "max_abs_err": worst, "ms": ms, "ms_n1433": ms_large,
+            "ms_b48": ms_48, "cluster": cuda_icp.icp_plan(B, N, N, sms).cluster,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
 

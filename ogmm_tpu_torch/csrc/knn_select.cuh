@@ -43,6 +43,16 @@ __device__ __forceinline__ float sq_dist3(float qx, float qy, float qz, float qq
   return fmaxf(__fsub_rn(__fadd_rn(qq, tt), __fmul_rn(2.0f, inner)), 1e-12f);
 }
 
+// sq_dist3 of a point p = (x, y, z, |t|^2) with its last two steps as one
+// fma: 2 inner is exact, so fma(-2, inner, qq + tt) rounds once as
+// (qq + tt) - 2 inner does, and the bits are the same
+__device__ __forceinline__ float dist_fma(float qx, float qy, float qz, float qq,
+                                          float4 p) {
+  const float inner = __fadd_rn(__fadd_rn(__fmul_rn(qx, p.x), __fmul_rn(qy, p.y)),
+                                __fmul_rn(qz, p.z));
+  return fmaxf(fmaf(-2.0f, inner, __fadd_rn(qq, p.w)), 1e-12f);
+}
+
 // One warp per query point. The cloud (N <= 1024) sits in shared memory, the
 // query's float32 distance row sits in the warp's registers (32 values a
 // lane), and KNN (<= 32, one index a lane) rounds of warp argmin-and-mask

@@ -22,8 +22,9 @@
 //  - lb (B, T_n, T_m): a lower bound of every squared distance between query
 //    tile i and target tile j (ops/stream.py:pair_tile_bounds). A tile is
 //    skipped only where its bound is above worst (1 + 1e-6) + 1e-6, worst
-//    being the largest running k-th distance of the tile's valid rows; a
-//    skipped tile holds no candidate that could enter any list.
+//    being the largest running k-th distance (or an upper bound of it) of
+//    the tile's valid rows; a skipped tile holds no candidate that could
+//    enter any list.
 //  - gate (1-NN): worst is clamped to max_dist_sq, so tiles beyond the ICP
 //    inlier gate are skipped at once; a row whose true nearest point lies at
 //    or beyond the gate may then return any index and d >= gate (inf and 0
@@ -34,57 +35,83 @@
 // point and 8 bytes written for each index. The cull and the diagonal order
 // cut the pairs visited to the tiles near each query tile.
 //
-// kNN (stream_kernel<K>): one block owns a query tile of STN = 64 points,
-// one thread a query; the target streams through shared memory in tiles of
-// STM = 512 points (coordinates and |t|^2 as one float4 a point); each
-// thread keeps its running top-k as a list sorted by (distance, index) in
-// registers and inserts a candidate with an unrolled compare-and-swap chain.
-// It keeps the 1-NN output (d_out) and gate of its earlier form, which
-// knn_stream_launch passes as null and +inf, so that its code, and its time,
-// stay as they were measured.
+// Both kernels share one frame. A block is one row of the cull table (64
+// queries; the table's grid is the contract), NL = 4 lanes a query, each
+// taking every fourth point of a tile (a warp: 8 Morton-adjacent queries).
+// The raw coordinates of the next candidate tile are in flight (cp.async into
+// the other half of a double buffer) while the current one is searched; one
+// pass turns a tile into (x, y, z, |t|^2) and the box of each 64-point
+// sub-tile (a warp each). The block reads its row of the table into shared
+// memory once, and fetches the next tile that the block's current worst
+// leaves. A warp skips a sub-tile where every lane's lower bound of the
+// distances it would compute there (the squared gap to the box less
+// pair_tile_bounds' rounding margin) is above the lane's threshold.
 //
-// 1-NN (nn1_kernel): a design of its own that fills the card. The block is
-// still one row of the cull table (64 queries; the table's grid is the
-// contract), but NL = 4 lanes share a query, each taking every fourth point
-// of a tile (a warp: 8 queries), so the ICP trip's 547 blocks of 256
-// threads (48 registers, 32 bytes spilled: five an SM) fill 132 SMs in one
-// wave (four an SM, without the spill, measured the same). Each lane
-// keeps its best (d, i) over its points (strict < inside a tile, whose
-// points it visits in ascending order, the pair order across tiles); the
-// four lanes merge by shuffles at the end. The raw coordinates of the next
-// candidate tile are in flight (cp.async into the other half of a double
-// buffer) while the current one is searched; one pass turns a tile into
-// (x, y, z, |t|^2) and the box of each 64-point sub-tile (a warp each). A
-// warp skips a sub-tile where every lane's lower bound of the distances it
-// would compute there (the squared gap to the box less pair_tile_bounds'
-// rounding margin) is above the lane's best so far, clamped to the gate:
-// the block-level table decides which 512-point tiles are fetched, the
-// boxes which 64 points each warp of 8 Morton-adjacent queries searches.
-// The block reads its row of the table into shared memory once: the scan
-// for the next tile the gate leaves was a chain of dependent global loads.
-// Where the query tiles alone cannot fill the card (the clustering's 2 x 16
-// queries against 35,000 points), the grid also splits the target tiles
-// into chunks (ops/cuda_stream.py:nn1_stream_plan); each chunk writes its
-// rows' partial (d, i), and a second launch takes the pair minimum over the
-// chunks, a warp a row (exact: the pair order makes it independent of the
-// order of the reduction and of the blocks). An optional counter adds up
-// the target tiles the blocks searched (null on the main path).
+// kNN (knn_stream_kernel<K>): each lane keeps a sorted top-k of its own
+// points, (distance, index) pairs in registers. A candidate enters only at
+// or below the threshold the query's four lanes share: after each sub-tile
+// the lanes exchange, by shuffles, the smaller of the least of their k-th
+// distances and the largest of their ceil(k/4)-th (four lists that each
+// hold ceil(k/4) pairs at or below a value hold k pairs there), an upper
+// bound of the query's running k-th distance. A candidate above it has k
+// pairs before it and can never be among the k; so the four lists together
+// always hold the query's k smallest pairs, and the threshold, not each
+// lane's own k-th, bounds the sub-tile and tile culls. A lane first marks
+// its 16 points of a sub-tile that pass, then the warp runs one
+// compare-and-swap chain for each marked point of its busiest lane (the
+// distance formed again), not one for each position where any of its 32
+// lanes inserts. At the end the four lists of a query (4k pairs, in the
+// shared memory the tiles used) merge by rank: the rank of a lane's s-th
+// pair is s plus the pairs before it in the other three lists (binary
+// searches), exact because the lanes hold disjoint indices; the pairs of
+// rank below k are written in place, and a lane stops at its first pair of
+// rank k or more. Placeholders are (inf, INT_MAX) and never rank below k.
+// An optional counter takes the tiles each block searched, their largest
+// count and the (warp, sub-tile) pairs searched (null on the main path).
 //
-// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): the ICP trip at
-// (1, 35000, 35000) with cull and gate 0.195 ms a call (0.192 on the
-// device), searching 19.8% of the tile pairs where the search needs 15.6%;
-// the clustering's (2, 16, 35000) 0.0075 ms on the device, 0.044-0.053 ms
-// between back-to-back calls (the wrapper's host work).
+// 1-NN (nn1_kernel): each lane keeps its best (d, i) over its points (strict
+// < inside a tile, whose points it visits in ascending order, the pair order
+// across tiles); the four lanes merge by shuffles at the end; its threshold
+// is the lane's best so far, clamped to the gate. The ICP trip's 547 blocks
+// of 256 threads (48 registers, 32 bytes spilled: five an SM) fill 132 SMs
+// in one wave (four an SM, without the spill, measured the same). Where the
+// query tiles alone cannot fill the card (the clustering's 2 x 16 queries
+// against 35,000 points), the grid also splits the target tiles into chunks
+// (ops/cuda_stream.py:nn1_stream_plan); each chunk writes its rows' partial
+// (d, i), and a second launch takes the pair minimum over the chunks, a warp
+// a row (exact: the pair order makes it independent of the order of the
+// reduction and of the blocks). An optional counter adds up the target
+// tiles the blocks searched (null on the main path).
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): the kNN graph
+// at (2, 35000, 35000, k=20) with cull and diagonal order 0.600 ms a call
+// (0.585-0.595 on the device), searching 16.9% of the tile pairs where the
+// search needs 16.2% and forming 3.4% of all distances; what bounds it is
+// the insertion chains and the merge, about 0.35 ms of it (a build without
+// them: scripts/torch_port_profile.py --probe knn_stream). The 1-NN ICP
+// trip at (1, 35000, 35000) with cull and gate 0.195 ms a call (0.192 on
+// the device), searching 19.8% of the tile pairs where the search needs
+// 15.6%; the clustering's (2, 16, 35000) 0.0075 ms on the device,
+// 0.044-0.053 ms between back-to-back calls (the wrapper's host work).
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "knn_select.cuh"  // sq_norm3, sq_dist3
+#include "knn_select.cuh"  // sq_norm3, dist_fma
 
-#define STN 64     // queries (= threads) of a block
-#define STM 512    // target points of a shared-memory tile
+#define STN 64            // queries of a block: one row of the cull table
+#define STM 512           // target points of a shared-memory tile
 #define MAXK 32
+#define NL 4              // lanes a query
+#define NT (STN * NL)     // threads of a block
+#define SUBT 64           // points of a sub-tile: one warp makes its box
+#define FULL 0xffffffffu
+// the kNN block's tile buffers: raw coordinates twice, (x, y, z, |t|^2) and
+// the boxes; the same bytes hold the lists for the merge
+#define KNN_TILE_BYTES ((2 * STM * 3 + 4 * STM + (STM / SUBT) * 8) * 4)
+#define KNN_MAX_SMEM (200 * 1024)
 
 __device__ __forceinline__ bool before(float d, int i, float e, int j) {
   return d < e || (d == e && i < j);
@@ -101,121 +128,6 @@ __device__ __forceinline__ float cull_at(float worst) {
   return worst * (1.0f + 1e-6f) + 1e-6f;
 }
 
-template <int K>
-__global__ void __launch_bounds__(STN)
-stream_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-              const float* __restrict__ lb, long long* __restrict__ idx_out,
-              float* __restrict__ d_out, int N, int M, int diag, int stretch,
-              float gate) {
-  __shared__ float4 tp[STM];
-  __shared__ float red[STN / 32];
-  const int b = blockIdx.y, tile = blockIdx.x, tid = threadIdx.x;
-  const int n = tile * STN + tid;
-  const int n_t = gridDim.x, n_m = (M + STM - 1) / STM;
-  const bool valid = n < N;
-  const float* tb = tgt + (size_t)b * M * 3;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (valid) {
-    const float* q = src + ((size_t)b * N + n) * 3;
-    qx = q[0]; qy = q[1]; qz = q[2];
-  }
-  const float qq = sq_norm3(qx, qy, qz);
-  float kd[K];
-  int ki[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) { kd[s] = CUDART_INF_F; ki[s] = 0; }
-  const int start = diag ? (int)(((long long)tile * STN * stretch / STM) % n_m) : 0;
-  float worst = gate;  // every running k-th distance is inf at first
-  for (int t = 0; t < n_m; ++t) {
-    int phys = t;
-    if (diag) {
-      const int off = ((t + 1) / 2) * (1 - 2 * (t % 2));
-      phys = ((start + off) % n_m + n_m) % n_m;
-    }
-    if (lb != nullptr &&
-        lb[((size_t)b * n_t + tile) * n_m + phys] > worst * (1.0f + 1e-6f) + 1e-6f)
-      continue;  // the same decision in every thread of the block
-    const int m0 = phys * STM, len = min(STM, M - m0);
-    __syncthreads();
-    for (int m = tid; m < len; m += STN) {
-      const float* p = tb + 3 * (size_t)(m0 + m);
-      tp[m] = make_float4(p[0], p[1], p[2], sq_norm3(p[0], p[1], p[2]));
-    }
-    __syncthreads();
-    if (valid) {
-      for (int m = 0; m < len; ++m) {
-        const float4 p = tp[m];
-        float cd = sq_dist3(qx, qy, qz, qq, p.x, p.y, p.z, p.w);
-        int ci = m0 + m;
-        if (before(cd, ci, kd[K - 1], ki[K - 1])) {
-#pragma unroll
-          for (int s = 0; s < K; ++s) {
-            if (before(cd, ci, kd[s], ki[s])) {
-              const float td = kd[s]; const int ti = ki[s];
-              kd[s] = cd; ki[s] = ci; cd = td; ci = ti;
-            }
-          }
-        }
-      }
-    }
-    if (lb != nullptr) {  // worst over the tile's valid rows, for the cull
-      float w = valid ? kd[K - 1] : -CUDART_INF_F;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) w = fmaxf(w, __shfl_xor_sync(0xffffffffu, w, o));
-      if ((tid & 31) == 0) red[tid >> 5] = w;
-      __syncthreads();
-      w = red[0];
-#pragma unroll
-      for (int i = 1; i < STN / 32; ++i) w = fmaxf(w, red[i]);
-      worst = fminf(w, gate);
-    }
-  }
-  if (!valid) return;
-  const size_t row = (size_t)b * N + n;
-  if (d_out != nullptr) {
-    d_out[row] = kd[0];
-    idx_out[row] = ki[0];
-  } else {
-#pragma unroll
-    for (int s = 0; s < K; ++s) idx_out[row * K + s] = ki[s];
-  }
-}
-
-static cudaError_t check_args(int B, int N, int M, int k) {
-  if (B < 1 || N < 1 || M < k || k < 1 || k > MAXK) return cudaErrorInvalidValue;
-  return cudaSuccess;
-}
-
-extern "C" int knn_stream_launch(const float* src, const float* tgt,
-                                 const float* lb, long long* idx, int B, int N,
-                                 int M, int k, int diag, int stretch,
-                                 void* stream_ptr) {
-  if (check_args(B, N, M, k) != cudaSuccess) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + STN - 1) / STN, B);
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  switch (k) {
-#define CASE(K)                                                                \
-  case K:                                                                      \
-    stream_kernel<K><<<grid, STN, 0, stream>>>(src, tgt, lb, idx, nullptr, N, \
-                                               M, diag, stretch, INFINITY);     \
-    break;
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
-    CASE(17) CASE(18) CASE(19) CASE(20) CASE(21) CASE(22) CASE(23) CASE(24)
-    CASE(25) CASE(26) CASE(27) CASE(28) CASE(29) CASE(30) CASE(31) CASE(32)
-#undef CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ 1-NN
-
-#define NL 4              // lanes a query
-#define NT (STN * NL)     // threads of a 1-NN block
-#define SUBT 64           // points of a sub-tile: one warp makes its box
-
 // 16 (or 4) bytes global -> shared without registers, the first `bytes`
 // copied and the rest zeros
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
@@ -227,7 +139,9 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
                :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src));
 }
 
-// the raw coordinates of target points [m0, m0 + len) into buf, in flight
+// the raw coordinates of target points [m0, m0 + len) into buf, in flight;
+// a word is always copied by the same thread, so a thread's wait covers
+// every copy to the words it ever copies
 __device__ __forceinline__ void fetch_tile(float* buf, const float* __restrict__ tb,
                                            int m0, int len) {
   const float* g = tb + (size_t)m0 * 3;
@@ -241,14 +155,287 @@ __device__ __forceinline__ void fetch_tile(float* buf, const float* __restrict__
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// sq_dist3 with its last two steps as one fma: 2 inner is exact, so
-// fma(-2, inner, qq + tt) rounds once as (qq + tt) - 2 inner does
-__device__ __forceinline__ float dist_fma(float qx, float qy, float qz, float qq,
-                                          float4 p) {
-  const float inner = __fadd_rn(__fadd_rn(__fmul_rn(qx, p.x), __fmul_rn(qy, p.y)),
-                                __fmul_rn(qz, p.z));
-  return fmaxf(fmaf(-2.0f, inner, __fadd_rn(qq, p.w)), 1e-12f);
+// warp w: the raw points 64 w .. 64 w + 63 of a tile of len to
+// (x, y, z, |t|^2), and their box (lo xyz, hi xyz, max |t|^2)
+__device__ __forceinline__ void tile_boxes(const float* raw, float4* tp,
+                                           float (*box)[8], int len) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float lo[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
+  float hi[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F}, tt = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = w * SUBT + h * 32 + lane;
+    if (m < len) {
+      const float x = raw[3 * m], y = raw[3 * m + 1], z = raw[3 * m + 2];
+      const float nn = sq_norm3(x, y, z);
+      tp[m] = make_float4(x, y, z, nn);
+      lo[0] = fminf(lo[0], x); lo[1] = fminf(lo[1], y); lo[2] = fminf(lo[2], z);
+      hi[0] = fmaxf(hi[0], x); hi[1] = fmaxf(hi[1], y); hi[2] = fmaxf(hi[2], z);
+      tt = fmaxf(tt, nn);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      lo[c] = fminf(lo[c], __shfl_xor_sync(FULL, lo[c], o));
+      hi[c] = fmaxf(hi[c], __shfl_xor_sync(FULL, hi[c], o));
+    }
+    tt = fmaxf(tt, __shfl_xor_sync(FULL, tt, o));
+  }
+  if (lane == 0) {
+    box[w][0] = lo[0]; box[w][1] = lo[1]; box[w][2] = lo[2];
+    box[w][3] = hi[0]; box[w][4] = hi[1]; box[w][5] = hi[2]; box[w][6] = tt;
+  }
 }
+
+// a lower bound of the distances from q to the points of a box, less the
+// rounding margin of pair_tile_bounds
+__device__ __forceinline__ float box_low(const float* bx, float qx, float qy,
+                                         float qz, float qq) {
+  const float gx = fmaxf(fmaxf(bx[0] - qx, qx - bx[3]), 0.f);
+  const float gy = fmaxf(fmaxf(bx[1] - qy, qy - bx[4]), 0.f);
+  const float gz = fmaxf(fmaxf(bx[2] - qz, qz - bx[5]), 0.f);
+  return (gx * gx + gy * gy + gz * gz) * (1.0f - 1e-6f) - 1e-5f * (1.0f + qq + bx[6]);
+}
+
+// the largest value of the block's valid rows (every lane of a row holds
+// it): all threads get it
+__device__ __forceinline__ float block_worst(float v, bool valid, float* red) {
+  float w = valid ? v : -CUDART_INF_F;
+#pragma unroll
+  for (int o = 16; o >= NL; o >>= 1) w = fmaxf(w, __shfl_xor_sync(FULL, w, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = w;
+  __syncthreads();
+  w = red[0];
+#pragma unroll
+  for (int i = 1; i < NT / 32; ++i) w = fmaxf(w, red[i]);
+  return w;
+}
+
+// ------------------------------------------------------------------- kNN
+
+// (cd, ci) into a lane's sorted list, if it comes before the list's last
+template <int K>
+__device__ __forceinline__ void insert(float (&kd)[K], int (&ki)[K], float cd, int ci) {
+  if (!before(cd, ci, kd[K - 1], ki[K - 1])) return;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (before(cd, ci, kd[s], ki[s])) {
+      const float td = kd[s]; const int ti = ki[s];
+      kd[s] = cd; ki[s] = ci; cd = td; ci = ti;
+    }
+  }
+}
+
+__host__ __device__ constexpr int knn_lists_bytes(int k) { return NT * k * 8; }
+__host__ __device__ constexpr int knn_union_bytes(int k) {
+  return knn_lists_bytes(k) > KNN_TILE_BYTES ? knn_lists_bytes(k) : KNN_TILE_BYTES;
+}
+
+// grid (query tiles, B), NT threads; dynamic shared memory: the tile
+// buffers (or the lists) and, where table_in_smem, the block's table row
+template <int K>
+__global__ void __launch_bounds__(NT)
+knn_stream_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
+           const float* __restrict__ lb, long long* __restrict__ idx_out,
+           int* __restrict__ visits, int N, int M, int diag, int stretch,
+           int table_in_smem) {
+  constexpr int Q = (K + NL - 1) / NL;   // the lane entry that bounds the k-th
+  extern __shared__ __align__(16) unsigned char dsm[];
+  float* raw = reinterpret_cast<float*>(dsm);                   // [2][STM * 3]
+  float4* tp = reinterpret_cast<float4*>(raw + 2 * STM * 3);    // [STM]
+  float (*box)[8] = reinterpret_cast<float (*)[8]>(tp + STM);   // [STM / SUBT][8]
+  __shared__ float red[NT / 32];
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int n_t = gridDim.x, n_m = (M + STM - 1) / STM;
+  const int tid = threadIdx.x, sub = tid % NL, n = tile * STN + tid / NL;
+  const bool valid = n < N;
+  const float* tb = tgt + (size_t)b * M * 3;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (valid) {
+    const float* q = src + ((size_t)b * N + n) * 3;
+    qx = q[0]; qy = q[1]; qz = q[2];
+  }
+  const float qq = sq_norm3(qx, qy, qz);
+  const bool culled = lb != nullptr;
+  const float* lbs = culled ? lb + ((size_t)b * n_t + tile) * n_m : nullptr;
+  if (culled && table_in_smem) {   // the block's row of the table, read once
+    float* row = reinterpret_cast<float*>(dsm + knn_union_bytes(K));
+    for (int t = tid; t < n_m; t += NT) row[t] = lbs[t];
+    __syncthreads();
+    lbs = row;
+  }
+  const int start = diag ? (int)(((long long)tile * STN * stretch / STM) % n_m) : 0;
+  auto phys = [&](int t) { return diag ? diag_tile(t, start, n_m) : t; };
+  float worst = CUDART_INF_F;   // the largest threshold of the block's rows
+  auto next = [&](int t) {      // the first position >= t worst leaves
+    while (t < n_m && culled && lbs[phys(t)] > cull_at(worst)) ++t;
+    return t;
+  };
+  float kd[K];
+  int ki[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) { kd[s] = CUDART_INF_F; ki[s] = INT_MAX; }
+  float thr = CUDART_INF_F;     // the row's shared threshold
+  int searched = 0, scans = 0, buf = 0;
+  int pend = next(0);           // the position whose tile is in flight
+  if (pend < n_m) {
+    const int m0 = phys(pend) * STM;
+    fetch_tile(raw + buf * STM * 3, tb, m0, min(STM, M - m0));
+  }
+  while (pend < n_m) {
+    const int cur = pend, cb = buf, m0 = phys(cur) * STM, len = min(STM, M - m0);
+    if (culled && lbs[phys(cur)] > cull_at(worst)) {
+      // culled by a worst that fell since it was fetched: drop it
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      pend = next(cur + 1);
+      if (pend < n_m) {
+        const int n0 = phys(pend) * STM;
+        fetch_tile(raw + buf * STM * 3, tb, n0, min(STM, M - n0));
+      }
+      continue;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();   // the tile is in; every thread is done with tp
+    pend = next(cur + 1);
+    buf ^= 1;
+    if (pend < n_m) {
+      const int n0 = phys(pend) * STM;
+      fetch_tile(raw + buf * STM * 3, tb, n0, min(STM, M - n0));
+    }
+    tile_boxes(raw + cb * STM * 3, tp, box, len);
+    __syncthreads();
+    for (int s = 0; s * SUBT < len; ++s) {
+      if (__all_sync(FULL, !valid || box_low(box[s], qx, qy, qz, qq) > cull_at(thr)))
+        continue;
+      ++scans;
+      // the lane's 16 points: those at or below the threshold and its own
+      // k-th, then one insertion round for each pending point of the
+      // busiest lane (a point's distance formed again), not one for each
+      // position where any lane of the warp inserts
+      const float4* ts = tp + s * SUBT + sub;
+      const float lim = fminf(thr, kd[K - 1]);
+      const int hi = valid ? min(SUBT, len - s * SUBT) : 0;
+      unsigned pending = 0;
+#pragma unroll
+      for (int jj = 0; jj < SUBT / NL; ++jj) {
+        if (sub + NL * jj < hi && dist_fma(qx, qy, qz, qq, ts[NL * jj]) <= lim)
+          pending |= 1u << jj;
+      }
+      while (__any_sync(FULL, pending != 0)) {
+        if (pending != 0) {
+          const int jj = __ffs(pending) - 1;
+          pending &= pending - 1;
+          insert<K>(kd, ki, dist_fma(qx, qy, qz, qq, ts[NL * jj]),
+                    m0 + s * SUBT + sub + NL * jj);
+        }
+      }
+      // the row's four lanes: the least k-th, the largest ceil(k/4)-th
+      float lo = kd[K - 1], up = kd[Q - 1];
+#pragma unroll
+      for (int o = 1; o < NL; o <<= 1) {
+        lo = fminf(lo, __shfl_xor_sync(FULL, lo, o));
+        up = fmaxf(up, __shfl_xor_sync(FULL, up, o));
+      }
+      thr = fminf(lo, up);
+    }
+    ++searched;
+    if (culled) worst = block_worst(thr, valid, red);
+  }
+  if (visits != nullptr) {
+    if ((tid & 31) == 0) atomicAdd(visits + 2, scans);
+    if (tid == 0) {
+      atomicAdd(visits, searched);
+      atomicMax(visits + 1, searched);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();   // every thread is done with the tiles: the lists go there
+  float* ld = reinterpret_cast<float*>(dsm);    // [K][NT]
+  int* li = reinterpret_cast<int*>(ld + K * NT);  // [K][NT]
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    ld[s * NT + tid] = kd[s];
+    li[s * NT + tid] = ki[s];
+  }
+  __syncthreads();
+  if (!valid) return;
+  long long* out = idx_out + ((size_t)b * N + n) * K;
+  const int first_lane = tid - sub;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (ki[s] == INT_MAX) break;      // placeholders: never among the k
+    int rank = s;
+#pragma unroll
+    for (int o = 0; o < NL; ++o) {
+      if (o == sub) continue;
+      const int col = first_lane + o;
+      int lo = 0, hi = K;             // the pairs of lane o before (kd[s], ki[s])
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (before(ld[mid * NT + col], li[mid * NT + col], kd[s], ki[s])) lo = mid + 1;
+        else hi = mid;
+      }
+      rank += lo;
+    }
+    if (rank >= K) break;             // the lane's later pairs rank after
+    out[rank] = ki[s];
+  }
+}
+
+static cudaError_t check_args(int B, int N, int M, int k) {
+  if (B < 1 || N < 1 || M < k || k < 1 || k > MAXK || B > 65535)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <int K>
+static cudaError_t knn_launch(const float* src, const float* tgt, const float* lb,
+                              long long* idx, int* visits, int B, int N, int M,
+                              int diag, int stretch, cudaStream_t stream) {
+  const int n_m = (M + STM - 1) / STM;
+  size_t smem = knn_union_bytes(K);
+  int table_in_smem = 0;   // the table row beside the tiles where it fits
+  if (lb != nullptr && smem + (size_t)n_m * 4 <= KNN_MAX_SMEM) {
+    smem += (size_t)n_m * 4;
+    table_in_smem = 1;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_stream_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  knn_stream_kernel<K><<<dim3((N + STN - 1) / STN, B), NT, smem, stream>>>(
+      src, tgt, lb, idx, visits, N, M, diag, stretch, table_in_smem);
+  return cudaGetLastError();
+}
+
+// visits: null, or three counters: the (query tile, target tile) pairs the
+// blocks searched, the most one block searched, and the (warp, 64-point
+// sub-tile) pairs the warps searched
+extern "C" int knn_stream_launch(const float* src, const float* tgt,
+                                 const float* lb, long long* idx, int* visits,
+                                 int B, int N, int M, int k, int diag,
+                                 int stretch, void* stream_ptr) {
+  if (check_args(B, N, M, k) != cudaSuccess) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  switch (k) {
+#define CASE(K)                                                                \
+  case K:                                                                      \
+    return (int)knn_launch<K>(src, tgt, lb, idx, visits, B, N, M, diag,        \
+                              stretch, stream);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
+    CASE(17) CASE(18) CASE(19) CASE(20) CASE(21) CASE(22) CASE(23) CASE(24)
+    CASE(25) CASE(26) CASE(27) CASE(28) CASE(29) CASE(30) CASE(31) CASE(32)
+#undef CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------------------------ 1-NN
 
 // grid (query tiles, chunks, B). chunk c searches target tiles
 // [c * per_chunk, min((c + 1) * per_chunk, n_m)); with one chunk the tiles
@@ -319,36 +506,7 @@ nn1_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       const int n0 = phys(pend) * STM;
       fetch_tile(raw[buf], tb, n0, min(STM, M - n0));
     }
-    {  // warp w: points 64 w .. 64 w + 63 to (x, y, z, |t|^2), and their box
-      const int w = tid / 32, lane = tid % 32;
-      float lo[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
-      float hi[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F}, tt = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = w * SUBT + h * 32 + lane;
-        if (m < len) {
-          const float x = raw[cb][3 * m], y = raw[cb][3 * m + 1], z = raw[cb][3 * m + 2];
-          const float nn = sq_norm3(x, y, z);
-          tp[m] = make_float4(x, y, z, nn);
-          lo[0] = fminf(lo[0], x); lo[1] = fminf(lo[1], y); lo[2] = fminf(lo[2], z);
-          hi[0] = fmaxf(hi[0], x); hi[1] = fmaxf(hi[1], y); hi[2] = fmaxf(hi[2], z);
-          tt = fmaxf(tt, nn);
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          lo[c] = fminf(lo[c], __shfl_xor_sync(0xffffffffu, lo[c], o));
-          hi[c] = fmaxf(hi[c], __shfl_xor_sync(0xffffffffu, hi[c], o));
-        }
-        tt = fmaxf(tt, __shfl_xor_sync(0xffffffffu, tt, o));
-      }
-      if (lane == 0) {
-        box[w][0] = lo[0]; box[w][1] = lo[1]; box[w][2] = lo[2];
-        box[w][3] = hi[0]; box[w][4] = hi[1]; box[w][5] = hi[2]; box[w][6] = tt;
-      }
-    }
+    tile_boxes(raw[cb], tp, box, len);
     __syncthreads();
     // this lane's points sub, sub + 4, ... in ascending order: the first
     // of equal distances stays. A warp skips a sub-tile where, for each of
@@ -358,13 +516,8 @@ nn1_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
     float td = CUDART_INF_F;
     int tj = 0;
     for (int s = 0; s * SUBT < len; ++s) {
-      const float* bx = box[s];
-      const float gx = fmaxf(fmaxf(bx[0] - qx, qx - bx[3]), 0.f);
-      const float gy = fmaxf(fmaxf(bx[1] - qy, qy - bx[4]), 0.f);
-      const float gz = fmaxf(fmaxf(bx[2] - qz, qz - bx[5]), 0.f);
-      const float low = (gx * gx + gy * gy + gz * gz) * (1.0f - 1e-6f)
-                        - 1e-5f * (1.0f + qq + bx[6]);
-      if (__all_sync(0xffffffffu, !valid || low > cull_at(fminf(fminf(bd, td), gate))))
+      const float low = box_low(box[s], qx, qy, qz, qq);
+      if (__all_sync(FULL, !valid || low > cull_at(fminf(fminf(bd, td), gate))))
         continue;
       if ((s + 1) * SUBT <= len) {
 #pragma unroll
@@ -383,24 +536,16 @@ nn1_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
     if (before(td, m0 + tj, bd, bi)) { bd = td; bi = m0 + tj; }
     ++searched;
     if (culled) {  // worst over the block's valid rows, for the cull
-      float w = fminf(bd, __shfl_xor_sync(0xffffffffu, bd, 1));
-      w = fminf(w, __shfl_xor_sync(0xffffffffu, w, 2));   // the row's best
-      if (!valid) w = -CUDART_INF_F;
-#pragma unroll
-      for (int o = 16; o >= NL; o >>= 1) w = fmaxf(w, __shfl_xor_sync(0xffffffffu, w, o));
-      if ((tid & 31) == 0) red[tid >> 5] = w;
-      __syncthreads();
-      w = red[0];
-#pragma unroll
-      for (int i = 1; i < NT / 32; ++i) w = fmaxf(w, red[i]);
-      worst = fminf(w, gate);
+      float w = fminf(bd, __shfl_xor_sync(FULL, bd, 1));
+      w = fminf(w, __shfl_xor_sync(FULL, w, 2));   // the row's best
+      worst = fminf(block_worst(w, valid, red), gate);
     }
   }
   // the four lanes of a row: the pair minimum
 #pragma unroll
   for (int o = 1; o < NL; o <<= 1) {
-    const float od = __shfl_xor_sync(0xffffffffu, bd, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    const float od = __shfl_xor_sync(FULL, bd, o);
+    const int oi = __shfl_xor_sync(FULL, bi, o);
     if (before(od, oi, bd, bi)) { bd = od; bi = oi; }
   }
   if (visits != nullptr && tid == 0) atomicAdd(visits, searched);
@@ -432,8 +577,8 @@ nn1_merge_kernel(const float* __restrict__ pd, const int* __restrict__ pi,
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const float od = __shfl_xor_sync(0xffffffffu, bd, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    const float od = __shfl_xor_sync(FULL, bd, o);
+    const int oi = __shfl_xor_sync(FULL, bi, o);
     if (before(od, oi, bd, bi)) { bd = od; bi = oi; }
   }
   if (lane == 0) {

@@ -137,18 +137,27 @@ def _cull(cull_lb, B, N, M, device):
     return cull_lb.float().contiguous()
 
 
-def _knn_stream_cuda(src, tgt, k, diag_order, stretch, cull_lb):
+def _visits(visits, n, device):
+    if visits is not None and (visits.dtype != torch.int32 or visits.numel() != n
+                               or visits.device != device):
+        raise ValueError(f"visits is {n} int32 counter{'s' if n > 1 else ''} "
+                         f"on the points' device")
+    return visits
+
+
+def _knn_stream_cuda(src, tgt, k, diag_order, stretch, cull_lb, visits):
     B, N, M, src, tgt = _points(src, tgt, "knn_stream")
     if not knn_stream_takes(3, M, k):
         raise ValueError(f"knn_stream kernel takes 1 <= k <= "
                          f"min({STREAM_MAX_K}, M); got k={k}, M={M}")
     lb = _cull(cull_lb, B, N, M, src.device)
+    visits = _visits(visits, 3, src.device)
     idx = torch.empty(B, N, k, dtype=torch.int64, device=src.device)
     fn = dispatch.load_kernel("knn_stream").knn_stream_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    code = fn(_ptr(src), _ptr(tgt), _ptr(lb), _ptr(idx), B, N, M, k,
-              int(diag_order), int(stretch),
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    code = fn(_ptr(src), _ptr(tgt), _ptr(lb), _ptr(idx), _ptr(visits), B, N, M,
+              k, int(diag_order), int(stretch),
               ctypes.c_void_p(dispatch.current_stream(src)))
     dispatch.check_launch(code, "knn_stream")
     dispatch.launch_counts["knn_stream"] += 1
@@ -157,15 +166,24 @@ def _knn_stream_cuda(src, tgt, k, diag_order, stretch, cull_lb):
 
 def knn_stream(src: torch.Tensor, tgt: torch.Tensor, k: int,
                diag_order: bool = False, stretch: int = 1,
-               cull_lb: torch.Tensor | None = None) -> torch.Tensor:
+               cull_lb: torch.Tensor | None = None,
+               visits: torch.Tensor | None = None) -> torch.Tensor:
     """kNN with the target streamed: (B, N, 3) x (B, M, 3) -> int64 (B, N,
     k), ascending distance, ties to the lowest index. `cull_lb` is a table
     of `ops.stream.pair_tile_bounds` for the kernel's tiles; it and the
     visiting order (`diag_order`, `stretch`) only decide what the kernel may
     skip, never the result. Launches the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor. Carries no gradient."""
+    plain version for a CPU tensor. Carries no gradient. `visits`, three
+    int32 on the card, gets added the (query tile, target tile) pairs the
+    kernel searched, the most one block searched (as a maximum) and the
+    (warp of 8 queries, 64-point sub-tile) pairs its warps searched; the
+    plain version takes none."""
     if src.is_cuda:
-        return _knn_stream_cuda(src, tgt, k, diag_order, stretch, cull_lb)
+        return _knn_stream_cuda(src, tgt, k, diag_order, stretch, cull_lb,
+                                visits)
+    if visits is not None:
+        raise ValueError("visits counts the CUDA kernel's tiles; the plain "
+                         "version on the CPU has none")
     return knn_stream_plain(src, tgt, k, cull_lb=cull_lb)
 
 
@@ -173,9 +191,7 @@ def _nn1_stream_cuda(src, tgt, cull_lb, max_dist_sq, diag_order, stretch,
                      visits):
     B, N, M, src, tgt = _points(src, tgt, "nn1_stream")
     lb = _cull(cull_lb, B, N, M, src.device)
-    if visits is not None and (visits.dtype != torch.int32 or visits.numel() != 1
-                               or visits.device != src.device):
-        raise ValueError("visits is one int32 counter on the points' device")
+    visits = _visits(visits, 1, src.device)
     chunks, per = nn1_stream_plan(B, N, M, _sm_count(src.device.index or 0))
     d = torch.empty(B, N, dtype=torch.float32, device=src.device)
     idx = torch.empty(B, N, dtype=torch.int64, device=src.device)

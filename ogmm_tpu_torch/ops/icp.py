@@ -10,7 +10,8 @@ source and the inlier gate, so that tiles farther than the gate are skipped
 loop, so nothing is mapped back.
 
 With `use_kernel=True` the whole loop runs as one `icp` kernel launch
-where `ops.cuda_icp.kernel_takes` says so (method 'horn_pi', M <= 4096),
+where `ops.cuda_icp.kernel_takes` says so (method 'horn_pi', M <= 4096,
+the src rows within the kernel's shared memory),
 the counterpart of the JAX package's `icp_pallas`; it forms its distances
 in the fixed order of `square_distance3`. `nn.gmmreg.GMMReg` passes its
 `loop_kernels` flag. Both loops end a trip in
@@ -38,7 +39,7 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
     Returns (rot (B, 3, 3), trans (B, 3))."""
     thresh_sq = threshold * threshold
     B, N, C = src.shape
-    if use_kernel and cuda_icp.kernel_takes(tgt.shape[1], C, method):
+    if use_kernel and cuda_icp.kernel_takes(tgt.shape[1], C, method, N):
         return cuda_icp.icp_fused(src, tgt, init_pose, thresh_sq, iters=max_iter)
     rot = init_pose[..., :3, :3]
     t = init_pose[..., :3, 3]

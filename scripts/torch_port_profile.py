@@ -8,6 +8,8 @@ PyTorch/CUDA port goes.
                                           (default N=717, profile_out/)
     python3 scripts/torch_port_profile.py --preset indoor [--fused_edges]
                                           [--n_points N]
+    python3 scripts/torch_port_profile.py --probe knn_stream [--parent DIR]
+    python3 scripts/torch_port_profile.py --probe icp
 
 Needs one CUDA device. Runs GMMReg at B=24, N=717 (or --n_points: 1433 is
 ModelNet40's 2048-point clouds cropped to 0.70, the shared-graph route),
@@ -28,6 +30,20 @@ run as one kernel launch each. `--fused_edges` sets dgcnn_fused_edges=True
 (with --preset indoor: the stage chain through the edges kernel). One JSON
 line at the end
 carries the same numbers with the card's name and power limit.
+
+`--probe` times variants of one kernel beside it, built from its source with
+a line changed (not shipped, never on a path), to say where its time goes:
+`knn_stream` at the indoor graph (2, 35,000, k=20, sorted, cull, diagonal
+order): the kernel with its `visits` counters, a build whose insertion only
+replaces the last entry (its lists never fill, so it writes no index: the
+insertion's cost and the merge's writes), and with
+`--parent DIR` (a `git archive` of a commit whose `knn_stream.cu` still has
+the one-thread-a-query `stream_kernel`) that kernel built with the same
+counters; `icp` at (24, 717), (24, 1433) and (48, 717), 30 trips: the
+launch of `cuda_icp.icp_plan` and the same rows at other cluster sizes with
+the occupancy calculator's count of clusters at once, the plan's launch
+with a target of 8 points (what a trip costs without the search) and a
+build with one power-iteration step (the 4x4 solve's share).
 """
 import argparse
 import dataclasses
@@ -188,6 +204,187 @@ def report(key, r):
         print(f"    {t['ms']:8.3f} ms  x{t['count']:<5d} {t['name']}")
 
 
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _variant(source, edits, name, out):
+    """`source` with each (old, new) of `edits` replaced once, built with
+    the package's nvcc flags (and the headers beside `source`) into out/,
+    loaded with ctypes."""
+    import ctypes
+    from ogmm_tpu_torch.ops import dispatch
+    with open(source) as f:
+        text = f.read()
+    for old, new in edits:
+        if old not in text:
+            raise SystemExit(f"{name}: {source} has no line {old[:60]!r}")
+        text = text.replace(old, new, 1)
+    os.makedirs(out, exist_ok=True)
+    cu, so = os.path.join(out, name + ".cu"), os.path.join(out, name + ".so")
+    with open(cu, "w") as f:
+        f.write(text)
+    subprocess.run([dispatch._nvcc(), *dispatch.NVCC_FLAGS, "-I",
+                    os.path.dirname(os.path.abspath(source)), "-o", so, cu],
+                   check=True)
+    return ctypes.CDLL(so)
+
+
+ONLY_K20 = ("    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)\n"
+            "    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)\n"
+            "    CASE(17) CASE(18) CASE(19) CASE(20) CASE(21) CASE(22) CASE(23) CASE(24)\n"
+            "    CASE(25) CASE(26) CASE(27) CASE(28) CASE(29) CASE(30) CASE(31) CASE(32)")
+# the one-thread-a-query kernel (the design before this one) with the counters of the
+# kernel that replaced it: tiles searched, their most over blocks, and
+# (8 queries, 64 points) units of distances formed
+PARENT_COUNTERS = [
+    ("              float* __restrict__ d_out, int N, int M, int diag, int stretch,\n"
+     "              float gate) {",
+     "              float* __restrict__ d_out, int* __restrict__ visits, int N, int M,\n"
+     "              int diag, int stretch, float gate) {\n  int searched = 0, units = 0;"),
+    ("    const int m0 = phys * STM, len = min(STM, M - m0);\n    __syncthreads();",
+     "    const int m0 = phys * STM, len = min(STM, M - m0);\n"
+     "    ++searched; units += 8 * ((len + 63) / 64);\n    __syncthreads();"),
+    ("  if (!valid) return;\n  const size_t row = (size_t)b * N + n;",
+     "  if (visits != nullptr && tid == 0) {\n    atomicAdd(visits, searched);\n"
+     "    atomicMax(visits + 1, searched);\n    atomicAdd(visits + 2, units);\n  }\n"
+     "  if (!valid) return;\n  const size_t row = (size_t)b * N + n;"),
+    ("                                 const float* lb, long long* idx, int B, int N,\n"
+     "                                 int M, int k, int diag, int stretch,",
+     "                                 const float* lb, long long* idx, int* visits,\n"
+     "                                 int B, int N, int M, int k, int diag, int stretch,"),
+    ("(src, tgt, lb, idx, nullptr, N, \\\n"
+     "                                               M, diag, stretch, INFINITY);",
+     "(src, tgt, lb, idx, nullptr, visits, \\\n"
+     "                                               N, M, diag, stretch, INFINITY);"),
+    (ONLY_K20, "    CASE(20)")]
+
+
+def probe_knn_stream(args):
+    import ctypes
+    from ogmm_tpu_torch.ops import cuda_stream, stream
+    from ogmm_tpu_torch.ops.common import index_points
+    rs = np.random.RandomState(7)
+    u = rs.rand(2, 35000, 2).astype(np.float32)
+    z = np.sin(3 * u[..., :1]) * np.cos(2 * u[..., 1:])
+    pts = np.concatenate([u, 0.3 * z], -1) + 0.01 * rs.randn(2, 35000, 3)
+    x = torch.tensor(pts.astype(np.float32), device="cuda")
+    x = index_points(x, stream.morton_order(x))
+    lb = stream.tile_pair_bounds(x)
+    want = stream.knn_stream_plain(x, x, 20)
+    builds = {"no insertion": _variant(
+        os.path.join(CSRC, "knn_stream.cu"),
+        [(ONLY_K20, "    CASE(20)"),
+         ("          insert<K>(kd, ki, dist_fma(qx, qy, qz, qq, ts[NL * jj]),\n"
+          "                    m0 + s * SUBT + sub + NL * jj);",
+          "          { const float cd = dist_fma(qx, qy, qz, qq, ts[NL * jj]);\n"
+          "            const int ci = m0 + s * SUBT + sub + NL * jj;\n"
+          "            if (before(cd, ci, kd[K - 1], ki[K - 1])) { kd[K - 1] = cd; ki[K - 1] = ci; } }")],
+        "knn_stream_no_insertion", args.out)}
+    if args.parent:
+        builds["parent"] = _variant(
+            os.path.join(args.parent, "ogmm_tpu_torch", "csrc", "knn_stream.cu"),
+            PARENT_COUNTERS, "knn_stream_parent_counted", args.out)
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    result = {}
+    for name in ("kernel", *builds):
+        for cull in (True, False):
+            visits = torch.zeros(3, dtype=torch.int32, device="cuda")
+            kw = dict(diag_order=True, cull_lb=lb) if cull else {}
+            if name == "kernel":
+                run = lambda v=None: cuda_stream.knn_stream(x, x, 20, visits=v, **kw)
+            else:
+                fn = builds[name].knn_stream_launch
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                idx = torch.empty(2, 35000, 20, dtype=torch.int64, device="cuda")
+
+                def run(v=None, fn=fn, idx=idx, cull=cull):
+                    code = fn(ptr(x), ptr(x), ptr(lb if cull else None), ptr(idx),
+                              ptr(v), 2, 35000, 35000, 20, int(cull), 1, None)
+                    if code:
+                        raise RuntimeError(f"launch failed: {code}")
+                    return idx
+            if name != "kernel":
+                idx.fill_(-1)     # a variant that writes no index is not identical
+            same = torch.equal(run(visits), want)
+            ms = _cuda_ms(run, 10 if cull else 3)
+            tiles, most, units = visits.tolist()
+            key = f"{name}{'' if cull else ', no cull'}"
+            result[key] = {"ms": ms, "indices_identical": same,
+                           "tile_pairs_searched": tiles / lb.numel(),
+                           "most_tiles_a_block": most,
+                           "distance_pairs_formed": units * 512 / (2 * 35000 ** 2)}
+            print(f"knn_stream {key}: {ms:.4f} ms, indices identical {same}, "
+                  f"searched {tiles / lb.numel():.4f} of the tile pairs, the most "
+                  f"one block searched {most} of {lb.shape[2]}, distances formed "
+                  f"for {units * 512 / (2 * 35000 ** 2):.4f} of the pairs")
+    return result
+
+
+def probe_icp(args):
+    import ctypes
+    from ogmm_tpu_torch.ops import cuda_icp, dispatch
+    from ogmm_tpu_torch.ops.cuda_stream import _sm_count
+    lib = dispatch.load_kernel("icp")
+    one_step = _variant(os.path.join(CSRC, "icp.cu"),
+                        [("#define PI_ITERS 30", "#define PI_ITERS 1")],
+                        "icp_one_power_step", args.out)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    rs = np.random.RandomState(3)
+    thr2 = 0.07 ** 2
+    sms = _sm_count(0)
+    result = {}
+    for b, n in ((24, 717), (24, 1433), (48, 717)):
+        src = torch.tensor((rs.randn(b, n, 3) * 0.3).astype(np.float32), device="cuda")
+        tgt = (src + 0.003 * torch.randn_like(src))[:, torch.randperm(n, device="cuda")]
+        a = 0.05
+        pose = torch.zeros(b, 3, 4, device="cuda")
+        pose[:, 0, 0] = pose[:, 1, 1] = float(np.cos(a))
+        pose[:, 0, 1], pose[:, 1, 0] = -float(np.sin(a)), float(np.sin(a))
+        pose[:, 2, 2], pose[:, 0, 3] = 1.0, 0.02
+        plan = cuda_icp.icp_plan(b, n, n, sms)
+        runs = [(f"C={c}", lib, cuda_icp.icp_cluster_plan(c, n, n), n)
+                for c in sorted({2, 4, 5, 8, plan.cluster})]
+        runs += [("plan, a target of 8 points", lib, plan, 8),
+                 ("plan, one power step", one_step, plan, n)]
+        for label, l, p, m in runs:
+            out = torch.empty(b, 3, 4, device="cuda")
+            first = torch.empty(b, n, dtype=torch.int32, device="cuda")
+            fn = l.icp_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+            def run(fn=fn, p=p, m=m, out=out, first=first):
+                code = fn(ptr(src), ptr(tgt), ptr(pose), ptr(out), ptr(first), b, n,
+                          m, thr2, 30, *p, None)
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+            ms = _cuda_ms(run, 10)
+            key = f"({b}, {n}, {n}) {label}"
+            result[key] = {"ms": ms, "plan": p._asdict(),
+                           "clusters_at_once": cuda_icp.max_active_clusters(p)}
+            print(f"icp {key}: {ms:.4f} ms; {p.cluster} blocks a cloud, "
+                  f"{p.threads} threads, the card holds "
+                  f"{result[key]['clusters_at_once']} such clusters at once")
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
@@ -204,7 +401,19 @@ def main():
     ap.add_argument("--fused_edges", action="store_true",
                     help="dgcnn_fused_edges=True: the DGCNN stage chain of the "
                          "indoor request through the edges kernel")
+    ap.add_argument("--probe", choices=("knn_stream", "icp"), default=None,
+                    help="time the kernel beside variants of it (see above)")
+    ap.add_argument("--parent", default=None,
+                    help="with --probe knn_stream: a tree of the commit with "
+                         "the one-thread-a-query kNN kernel")
     args = ap.parse_args()
+    if args.probe:
+        if not torch.cuda.is_available():
+            sys.exit("needs a CUDA device")
+        probe = probe_knn_stream if args.probe == "knn_stream" else probe_icp
+        result = {"probe": args.probe, "result": probe(args), "card": _card()}
+        print(json.dumps(result))
+        return
     indoor = args.preset == "indoor"
     N = args.n_points or (35000 if indoor else 717)
     if not torch.cuda.is_available():
@@ -258,9 +467,7 @@ def main():
         print("stages (CUDA events, one request with ICP):")
     for k, v in sorted(result["stages_ms"].items(), key=lambda kv: -kv[1]):
         print(f"    {v:8.3f} ms  {k}")
-    result["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    result["card"] = _card()
     os.makedirs(args.out, exist_ok=True)
     name = ("torch_port_profile" if not args.train
             else "torch_port_profile_train_bwd_kernels" if args.bwd_kernels

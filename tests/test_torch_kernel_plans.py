@@ -281,3 +281,74 @@ def test_pointmlp_grid_visits_every_tile_once_in_order(B, N, width):
     decoded = [cuda_mlp.pointmlp_tile(i, rows, cols) for i in range(p["tiles"])]
     assert decoded == [(b, r, c) for b in range(B) for r in range(rows)
                        for c in range(cols)]
+
+
+# ----------------------------------------------- the whole-loop ICP kernel
+
+from ogmm_tpu_torch.ops import cuda_icp  # noqa: E402
+
+ICP_SHAPES = [(24, 717, 717), (24, 1433, 1433), (48, 717, 717),
+              (80, 717, 717), (4, 4096, 4096), (8, 717, 600), (8, 500, 900),
+              (1, 1, 1), (3, 37, 4096), (1, 20000, 4096)]
+ICP_STATIC_BYTES = 4 * (32 * 16 + 2 * 16 + 16 + 12)   # csrc/icp.cu's static arrays
+
+
+@pytest.mark.parametrize("B,N,M", ICP_SHAPES)
+def test_icp_rows_belong_to_exactly_one_block_of_their_cluster(B, N, M):
+    # block r of a cloud's cluster owns rows [r rows, min(N, (r + 1) rows)),
+    # and each of them gets `lanes` threads in one of the block's passes
+    p = cuda_icp.icp_plan(B, N, M, H100_SMS)
+    assert 2 <= p.cluster <= cuda_icp.ICP_MAX_CLUSTER
+    seen = np.zeros(N, np.int64)
+    for r in range(p.cluster):
+        seen[r * p.rows:min(N, (r + 1) * p.rows)] += 1
+    assert (seen == 1).all() and p.rows * p.cluster >= N
+    assert p.threads % 32 == 0 and 32 <= p.threads <= cuda_icp.ICP_MAX_THREADS
+    assert p.lanes in (1, 2, 4, 8) and p.threads % p.lanes == 0
+    per_pass = p.threads // p.lanes
+    rows_served = [pass_ * per_pass + j for pass_ in range(-(-p.rows // per_pass))
+                   for j in range(per_pass)]
+    assert set(range(p.rows)) <= set(rows_served)
+    # every thread is needed: no pass of idle warps
+    assert p.threads <= 32 * -(-p.rows * p.lanes // 32)
+
+
+@pytest.mark.parametrize("M", [1, 130, 717, 1433, 4096])
+@pytest.mark.parametrize("N", [1, 717, 4096, 20000])
+@pytest.mark.parametrize("B", [1, 24, 48])
+def test_icp_blocks_fit_shared_memory_up_to_m_4096(B, N, M):
+    # the target and the rows as float4 (16 bytes a point), the rows'
+    # codes; dynamic and static together within the 227 KB of a block
+    p = cuda_icp.icp_plan(B, N, M, H100_SMS)
+    assert p.smem == 16 * M + 16 * p.rows + 4 * p.rows
+    assert p.smem <= cuda_icp.ICP_SMEM_MAX
+    assert p.smem + ICP_STATIC_BYTES <= 227 * 1024
+    assert cuda_icp.kernel_takes(M, 3, "horn_pi", N)
+
+
+def test_icp_refined_request_fills_the_card_in_one_wave():
+    # B = 24: four blocks a cloud, 96 blocks; the occupancy calculator
+    # holds 30 clusters of 4 at once on 132 SMs, 22 of 5 and 15 of 8
+    p = cuda_icp.icp_plan(24, 717, 717, H100_SMS)
+    assert p.cluster == 4 and 24 * p.cluster <= 30 * 4
+    assert (p.rows, p.lanes, p.threads) == (180, 4, 736)
+    # N = 1433 keeps the clusters and halves the lanes: one pass of rows
+    p = cuda_icp.icp_plan(24, 1433, 1433, H100_SMS)
+    assert (p.cluster, p.rows, p.lanes, p.threads) == (4, 359, 2, 736)
+    # 48 clouds take two blocks each (96 blocks), more clouds than one wave
+    # holds two as well; a few clouds take eight
+    assert cuda_icp.icp_plan(48, 717, 717, H100_SMS).cluster == 2
+    assert cuda_icp.icp_plan(80, 717, 717, H100_SMS).cluster == 2
+    assert cuda_icp.icp_plan(8, 717, 717, H100_SMS).cluster == 8
+
+
+def test_icp_kernel_takes_the_rows_its_clusters_hold():
+    # the rows of eight blocks must fit beside the target, else the eager
+    # loop runs
+    most = (cuda_icp.ICP_SMEM_MAX - 16 * 4096) // 20 * cuda_icp.ICP_MAX_CLUSTER
+    assert cuda_icp.kernel_takes(4096, 3, "horn_pi", 4096)
+    assert cuda_icp.kernel_takes(4096, 3, "horn_pi", most)
+    assert not cuda_icp.kernel_takes(4096, 3, "horn_pi", most + 9)
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_icp.icp_plan(1, most + 9, 4096, H100_SMS)
+    assert not cuda_icp.kernel_takes(4097, 3, "horn_pi", 10)

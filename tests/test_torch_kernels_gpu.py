@@ -581,6 +581,28 @@ def test_knn_stream_kernel_matches_plain(card, B, N, M, k, cull):
     assert torch.equal(got, stream.knn_stream_plain(src, tgt, k))
 
 
+@pytest.mark.parametrize("k", [1, 7, 20, 32])
+def test_knn_stream_kernel_at_each_k_with_cull(card, k):
+    # the self graph of a sorted surface with the cull and the diagonal
+    # order, 151 coincident points: the plain version's indices, the same
+    # bits on a relaunch, and counters that add up
+    rs = np.random.RandomState(40 + k)
+    x = _morton(_surface(rs, card, 2, 6000))
+    x[:, 1000:1151] = x[:, 300:301]
+    lb = stream.tile_pair_bounds(x)
+    visits = torch.zeros(3, dtype=torch.int32, device=card)
+    got = cuda_stream.knn_stream(x, x, k, diag_order=True, cull_lb=lb,
+                                 visits=visits)
+    again = cuda_stream.knn_stream(x, x, k, diag_order=True, cull_lb=lb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, stream.knn_stream_plain(x, x, k))
+    assert torch.equal(got, again)
+    tiles, most, scans = visits.tolist()
+    assert lb.shape[1] * 2 <= tiles <= lb.numel()
+    assert 1 <= most <= lb.shape[2]
+    assert 0 < scans <= tiles * (stream.TILE_M // 64) * (stream.TILE_N // 8)
+
+
 def test_nn1_stream_kernel_matches_plain(card):
     rs = np.random.RandomState(3)
     tgt = _morton(_surface(rs, card, 2, 6000))
@@ -781,7 +803,8 @@ def test_fps_kernel_matches_plain(card, R, N, npoint):
 
 
 @pytest.mark.parametrize("B,N,M", [(24, 717, 717), (3, 300, 4096), (2, 500, 130),
-                                   (4, 1433, 1433)])
+                                   (4, 1433, 1433), (48, 717, 717),
+                                   (80, 717, 717), (2, 4096, 4096)])
 def test_icp_kernel_matches_plain(card, B, N, M):
     rs = np.random.RandomState(M)
     src = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
@@ -798,6 +821,8 @@ def test_icp_kernel_matches_plain(card, B, N, M):
     assert (r - rr).abs().max().item() <= 1e-4
     assert (t - rt).abs().max().item() <= 1e-4
     assert torch.equal(r[-1], init[-1, :3, :3]) and torch.equal(t[-1], init[-1, :3, 3])
+    r2, t2, first2 = cuda_icp.icp_fused(src, tgt, init, 0.05 ** 2, return_first=True)
+    assert torch.equal(r, r2) and torch.equal(t, t2) and torch.equal(first, first2)
 
 
 def test_loop_kernels_refuse_what_they_do_not_take(card):

@@ -371,8 +371,8 @@ def test_icp_kernel_takes_m_up_to_4096(monkeypatch, M, method, switch, want):
                                                  max_iter=1, method=method,
                                                  use_kernel=switch))
     assert got == want
-    assert cuda_icp.kernel_takes(M, 3, method) == (M <= 4096 and method == "horn_pi")
-    assert not cuda_icp.kernel_takes(M, 6, method)
+    assert cuda_icp.kernel_takes(M, 3, method, 8) == (M <= 4096 and method == "horn_pi")
+    assert not cuda_icp.kernel_takes(M, 6, method, 8)
 
 
 @pytest.mark.parametrize("N", [717, 1024, 1025])

@@ -299,3 +299,75 @@ def test_plain_versions_by_chunks_equal_one_block():
     torch.testing.assert_close(out, torch.softmax(s, -1) @ v, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(lse, torch.logsumexp(s, -1, keepdim=True),
                                rtol=1e-5, atol=1e-6)
+
+
+# ------------------------- the kNN kernel's lanes, mirrored on the CPU
+
+LANES, SUBT = 4, 64      # csrc/knn_stream.cu: NL lanes a query, sub-tiles
+
+
+def _tile_order(n_row, n_m, diag, stretch=1):
+    """The target tiles a query row's block visits (knn_stream_kernel: ascending,
+    or diagonal-first from the tile holding column tile * 64 * stretch)."""
+    if not diag:
+        return list(range(n_m))
+    start = (n_row // stream.TILE_N) * stream.TILE_N * stretch // stream.TILE_M % n_m
+    return [(start + ((t + 1) // 2) * (1 - 2 * (t % 2))) % n_m for t in range(n_m)]
+
+
+def _knn_lanes_mirror(d, k, diag):
+    """knn_stream_kernel's selection for one cloud's (N, M) float32 distances, in
+    Python: lane l of a query keeps a sorted list of at most k (distance,
+    index) pairs of the points m = l (mod 4) of each tile, inserting a
+    candidate at or below the threshold its lanes share; after each 64-point
+    sub-tile the threshold becomes min(least k-th, largest ceil(k/4)-th);
+    at the end the four lists merge by rank."""
+    import bisect
+    N, M = d.shape
+    q = -(-k // LANES)
+    n_m = -(-M // stream.TILE_M)
+    out = np.full((N, k), -1, np.int64)
+    for row in range(N):
+        lists, thr = [[] for _ in range(LANES)], float("inf")
+        for tile in _tile_order(row, n_m, diag):
+            m0 = tile * stream.TILE_M
+            size = min(stream.TILE_M, M - m0)
+            for s in range(0, size, SUBT):
+                for lane, lst in enumerate(lists):
+                    for j in range(m0 + s + lane, m0 + min(s + SUBT, size), LANES):
+                        c = (float(d[row, j]), j)
+                        if c[0] <= thr and (len(lst) < k or c < lst[-1]):
+                            bisect.insort(lst, c)
+                            del lst[k:]
+                kth = [lst[k - 1][0] if len(lst) >= k else np.inf for lst in lists]
+                qth = [lst[q - 1][0] if len(lst) >= q else np.inf for lst in lists]
+                thr = min(min(kth), max(qth))
+        for lane, lst in enumerate(lists):
+            for s, c in enumerate(lst):
+                rank = s + sum(bisect.bisect_left(o, c)
+                               for i, o in enumerate(lists) if i != lane)
+                if rank < k:
+                    out[row, rank] = c[1]
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 7, 20, 32])
+@pytest.mark.parametrize("case", ["sorted self, diagonal", "cross, ascending",
+                                  "coincident, diagonal"])
+def test_knn_lanes_merged_by_rank_equal_plain(k, case):
+    # the lanes' partial lists filtered by the shared threshold and merged
+    # by rank give the plain version's indices bit for bit, on exact ties
+    # across tiles, an exact hit, and 150 coincident points
+    if case == "cross, ascending":
+        src, tgt = _clouds(11, 1, 70, 1100)
+    else:
+        src = tgt = _sorted(_surface(12, 1, 600))
+        if case.startswith("coincident"):
+            tgt = src = src.copy()
+            src[:, 200:350] = src[:, 90:91]
+            tgt[:, 599] = src[:, 5]
+    d = tcommon.square_distance3(t(src), t(tgt))[0]
+    got = _knn_lanes_mirror(n(d), k, diag=case.endswith("diagonal"))
+    want = stream.knn_stream_plain(t(src), t(tgt), k)[0]
+    assert (got >= 0).all()
+    assert np.array_equal(got, n(want))
