@@ -17,8 +17,10 @@ fatal on failure:
              bound; dgcnn_eval's selection launch and its stage chain
              with the head timed apart (torch.profiler), sinkhorn_em's time
              a pass and the clouds the card runs at once, nn1's own device
-             time, and the device time of each __global__ of the bf16
-             bwd_stage calls (stages 4, 3, 2 and the partial sums)
+             time, the device time of each __global__ of the bf16
+             bwd_stage calls (stages 4, 3, 2 and the partial sums) and of
+             the bwd_edge call (bf16: the one pass, its sums, the scatter;
+             float32: the row, weight-gradient and scatter kernels)
   3. serve   `Registrar` at B=24, N=717, emb 512, K=128, bf16 body, seeded
              random weights: a few requests with and without ICP; the launch
              counts of the kernels over one request; the same requests with
@@ -71,7 +73,8 @@ fatal on failure:
              its two products and its moments launch), the FPS chain and the
              whole-loop ICP against their plain versions at the refined
              request's calls (48 clouds of 717, 1024 -> 1024 -> 512 bf16;
-             96 rows of 717, 128 steps; 24 pairs of 717, 30 trips) and at
+             96 rows of 717, 128 steps; 24 pairs of 717, 30 trips; FPS also
+             at the indoor request's 4 rows of 35,000 and 16 steps) and at
              awkward ones (float32, N not a multiple of the tile; N = 1433
              and 35,000 with tied distances; N != M, a cloud without
              inliers, M = 4096, 48 clouds): FPS ids and ICP's first-trip
@@ -568,7 +571,20 @@ def check_dgcnn_bwd(rs):
                 **{f"stage{4 - i}_ms": (f"stage_wgmma_kernel<{c}, {ci}, {cn}>",)
                    for i, (c, ci, cn) in enumerate(cuda_dgcnn_bwd.KERNEL_STAGES)},
                 "sum_parts_ms": ("sum_parts_kernel",)})
-            print("bwd_stage bf16 device ms of one backward (torch.profiler):",
+        if name == "bwd_edge":
+            # each __global__ of the call: the bf16 one pass, its partial sums
+            # and the scatter; the float32 row and weight-gradient kernels
+            device = launch_ms(lambda: run(kern, bf), 10, {
+                "edge_wgmma_ms": ("edge_wgmma_kernel",),
+                "sum_parts_ms": ("sum_parts_kernel",),
+                "scatter_ms": ("scatter_kernel",)})
+            device.update({f"f32_{k}": v for k, v in launch_ms(
+                lambda: run(kern, torch.float32), 5, {
+                    "rows_ms": ("rows_kernel",), "dw_ms": ("dw_kernel",),
+                    "sum_parts_ms": ("sum_parts_kernel",),
+                    "scatter_ms": ("scatter_kernel",)}).items()})
+        if device:
+            print(f"{name} device ms of one backward (torch.profiler):",
                   {k: round(v, 4) for k, v in device.items()})
         entries.append({
             "name": name, "route": "cuda",
@@ -879,15 +895,15 @@ def check_knn(rs):
     """The kNN kernel against its plain version (identical indices) at every
     shape the driven paths give it: the large-cloud request (2B=48 clouds of
     1433 points) and step (B=24 of 1433), the unfused N=717 step's graph
-    (k=20) and angles (k=5); and at the kernel's envelope (M=4096), a cross
-    kNN, clouds with a duplicated point and with 301 coincident points (more
-    candidates at the threshold than the kernel's list holds). Its error is
-    the largest |kernel - plain| index over them, 0 when all agree. Timed at
-    the first shape (the plain version once: a (48, 1433, 1433) float32
-    matrix and 20 passes)."""
+    (k=20) and angles (k=5); and at the kernel's envelope (M=4096), cross
+    kNNs (k = 32 and 1, and 7 and 2, which take the next compiled list
+    length), clouds with a duplicated point and with 301 coincident points.
+    Its error is the largest |kernel - plain| index over them, 0 when all
+    agree. Timed at the first shape (the plain version once: a (48, 1433,
+    1433) float32 matrix and 20 passes) and at the unfused step's graph."""
     shapes = [(2 * B, N_LARGE, N_LARGE, KNN), (B, N_LARGE, N_LARGE, KNN),
               (B, N, N, KNN), (B, 4096, 4096, KNN), (B, N, N, POS_K),
-              (4, 1000, 257, 32), (2, 90, 2000, 1)]
+              (4, 1000, 257, 32), (2, 90, 2000, 1), (3, 70, 40, 7), (2, 50, 3, 2)]
     worst = 0
     for b, n, m, k in shapes + [(2, 600, 600, KNN)]:
         tgt = _cloud(rs, b, m)
@@ -906,16 +922,21 @@ def check_knn(rs):
     plain = cuda_ms(lambda: knn_reference(x, x, KNN), 1)
     x4096 = _cloud(rs, B, 4096)
     ms_4096 = cuda_ms(lambda: knn(x4096, x4096, KNN), 5)
+    x717 = _cloud(rs, B, N)
+    ms_717 = cuda_ms(lambda: knn(x717, x717, KNN), 20)
     rows = 2 * B * N_LARGE
     bound, by = _bound(rows * N_LARGE * (8.0 + 1.0),
                        2 * x.numel() * 4 + rows * KNN * 8)
+    bound_717, _ = _bound(B * N * N * (8.0 + 1.0), 2 * x717.numel() * 4 + B * N * KNN * 8)
     print(f"knn ({2 * B}, {N_LARGE}, {N_LARGE}, k={KNN}): {ms:.4f} ms, plain "
           f"{plain:.3f} ms, bound {bound:.5f} ms ({by}); ({B}, 4096, 4096, "
-          f"k={KNN}) {ms_4096:.4f} ms")
+          f"k={KNN}) {ms_4096:.4f} ms; ({B}, {N}, {N}, k={KNN}) {ms_717:.4f} ms, "
+          f"bound {bound_717:.5f} ms")
     return {"name": "knn", "route": "cuda",
             "source": "ogmm_tpu_torch/csrc/knn.cu",
             "replaces": "ogmm_tpu/ops/pallas_knn.py:74",
             "max_abs_err": float(worst), "ms": ms, "ms_m4096": ms_4096,
+            "ms_n717": ms_717, "bound_ms_n717": bound_717,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
 
@@ -1678,7 +1699,8 @@ def check_fps(rs):
     """The FPS kernel against its plain loop, identical ids: fps_combined's
     96 rows of 717 points (the path's call), 2B clouds of 1433, the indoor
     request's 4 rows of 35,000 (distances in L2), each with a duplicated
-    point; timed at the path's call and at 35,000."""
+    point; timed at the path's call and at 35,000, there at K steps and at
+    the indoor request's own km_clusters steps."""
     shapes = [(2 * B, N), (2 * B, N_LARGE), (2, N_INDOOR)]
     worst, timed = 0, {}
     for b, n in shapes:
@@ -1696,20 +1718,32 @@ def check_fps(rs):
     plain = cuda_ms(lambda: cuda_fps.fps_reference(xs, K, dist, start), 3)
     xi, di, si = timed[N_INDOOR]
     ms_indoor = cuda_ms(lambda: cuda_fps.fps(xi, K, di, si), 3)
+    # the indoor request's own call: fps_combined(both, km_clusters) steps
+    k_in = configs.indoor().model.km_clusters
+    want_in = cuda_fps.fps_reference(xi, k_in, di, si)
+    assert torch.equal(cuda_fps.fps(xi, k_in, di, si), want_in)
+    ms_indoor_path = cuda_ms(lambda: cuda_fps.fps(xi, k_in, di, si), 10)
     rows = 4 * B
     # a step: three differences, three squares, two sums, a minimum and a
     # compare a point
     bound, by = _bound(rows * N * K * 10.0, rows * N * 16 + rows * 8 + rows * K * 8)
-    # the same bound at the indoor request's 4 rows of 35,000
+    # the same bound at the indoor request's 4 rows of 35,000, at K and at
+    # the path's own step count
     bound_in, by_in = _bound(4 * N_INDOOR * K * 10.0,
                              4 * N_INDOOR * 16 + 4 * 8 + 4 * K * 8)
+    bound_in_path, by_in_path = _bound(4 * N_INDOOR * k_in * 10.0,
+                                       4 * N_INDOOR * 16 + 4 * 8 + 4 * k_in * 8)
     print(f"fps ({rows} rows of {N}, {K} steps): {ms:.4f} ms, plain {plain:.3f} ms, "
-          f"bound {bound:.5f} ms ({by}); (4 rows of {N_INDOOR}) {ms_indoor:.4f} ms, "
-          f"bound {bound_in:.5f} ms ({by_in})")
+          f"bound {bound:.5f} ms ({by}); (4 rows of {N_INDOOR}, {K} steps) "
+          f"{ms_indoor:.4f} ms, bound {bound_in:.5f} ms ({by_in}); (4 rows of "
+          f"{N_INDOOR}, {k_in} steps, the indoor request's call) {ms_indoor_path:.4f} "
+          f"ms, bound {bound_in_path:.5f} ms ({by_in_path})")
     return {"name": "fps", "route": "cuda", "source": "ogmm_tpu_torch/csrc/fps.cu",
             "replaces": "ogmm_tpu/ops/pallas_fps.py:74",
             "max_abs_err": float(worst), "ms": ms, "ms_indoor_rows": ms_indoor,
-            "bound_ms_indoor_rows": bound_in, "plain_ms": plain,
+            "bound_ms_indoor_rows": bound_in, "ms_indoor_path": ms_indoor_path,
+            "steps_indoor_path": k_in, "bound_ms_indoor_path": bound_in_path,
+            "plain_ms": plain,
             "bound_ms": bound, "bound_by": by,
             "library_ms": None}
 

@@ -5,9 +5,9 @@
 //   bwd_reduce_launch  bwd_reduce_pallas (_bwd_reduce_kernel): the BatchNorm
 //                      sums S = (sum dy, sum dy zhat) of the last stage
 //   bwd_stage_launch   bwd_stage_pallas (_bwd_stage_kernel): dz_i, dW_i and
-//                      the sums of stage i-1, for stages 4, 3 and 2
+//   bwd_stage_bf16_launch  the sums of stage i-1, for stages 4, 3 and 2
 //   bwd_edge_launch    bwd_edge_pallas (_bwd_edge_kernel): stage 1, dW_1,
-//                      dq and the neighbour scatter dscat
+//   bwd_edge_bf16_launch   dq and the neighbour scatter dscat
 //
 // Layout: stage tensors are (B, KNN, N, C) in the compute type T (float32 or
 // bf16), taps (B, N, C). A "tile" is the KNN x TN rows (b, j, n0 + t) of TN
@@ -15,51 +15,55 @@
 // is why the TPU kernel takes every k of a tile too. Its row tail is a bounds
 // check on n; rows past N enter no output and no sum.
 //
-// bwd_stage for bf16 is stage_wgmma_kernel, one pass (described where it is
-// defined) and the partial sums. Every other launch runs a few kernels on the
-// wrapper's stream:
+// bf16 stages 4..2 and stage 1 are one pass each on wgmma (stage_wgmma_kernel
+// and edge_wgmma_kernel, described where they are defined): TMA-fed tiles,
+// resident weights, a persistent grid, the weight gradient held in registers
+// across a block's tiles; dz_1 never leaves shared memory. The reduce (both
+// types) and the float32 stages run a few kernels on the wrapper's stream:
 //  1. rows_kernel: a fixed grid of ROW_BLOCKS blocks walks the tiles in a
 //     fixed order. Per tile, in shared memory:
 //       - extra = dz_{i+1} . W_{i+1}^T (dz_{i+1} staged in 16-byte loads, W
-//         read through L1), rounded to T: the cotangent from the stage above;
+//         read through L1): the cotangent from the stage above;
 //       - per (t, c) column, one thread: h recomputed from z exactly as the
 //         forward formed it (bn_y: a rounding to T after the subtract, the
 //         multiply and the add, no contraction, as eager PyTorch), the first
 //         argmax of h over k, dh = extra (+ dtap at the argmax, rounded),
 //         dy = ReLU-VJP (half at 0), then either the sums (reduce) or
 //         dz = inv gamma (dy - S1/m - zhat S2/m) (stage, edge);
-//       - stage: dh_{i-1} = dz . W_i^T rounded to T, the max-VJP of the tap
-//         below with h_{i-1} recomputed from z_{i-1}, dy_{i-1} and its sums;
+//       - stage: dh_{i-1} = dz . W_i^T, the max-VJP of the tap below with
+//         h_{i-1} recomputed from z_{i-1}, dy_{i-1} and its sums;
 //       - edge: de = dz . W_1^T in float32, dq = sum_k (de[3:] - de[:3]) and
 //         de[:3] per row to a scratch array.
 //     The sums go to one partial per block, reduced in the block in thread
 //     order; sum_parts_kernel adds the partials in block order.
-//  2. dw_kernel: dW = h_{i-1}^T dz (h_{i-1} recomputed from
-//     z_{i-1}; e for stage 1) as a split-K product over the m = B KNN N rows,
-//     one float32 partial per split, added in split order by sum_parts_kernel.
-//  3. edge only, scatter_kernel: dscat[b, p] = sum of de[:3] over the rows
-//     (b, j, n) with idx[b, n, j] == p, taken in (j, n) order: a block a
-//     cloud inverts idx in shared memory (counting sort, each point's list
-//     sorted) and a thread a point adds its rows. No float atomics anywhere,
-//     so two launches on the same input give the same bits.
+//  2. float32 stage and edge: dw_kernel: dW = h_{i-1}^T dz (h_{i-1}
+//     recomputed from z_{i-1}; e for stage 1) as a split-K product over the
+//     m = B KNN N rows, one float32 partial per split, added in split order.
+// Both edge routes end with scatter_kernel: dscat[b, p] = sum of de[:3] over
+// the rows (b, j, n) with idx[b, n, j] == p, taken in (j, n) order, a block
+// for each range of SCAT_P points of a cloud, its lists filled in that order.
+// No float atomics anywhere, so two launches on the same input give the same
+// bits.
 //
-// Every product of the TPU kernel's body is computed here. For bf16 the
-// stage kernel's products run on wgmma, the edge kernel's extra cotangent on
-// mma.sync m16n8k16 (bf16 operands, float32 accumulation); de, dW_1 and every
-// float32 product run on the CUDA cores with float32 accumulation.
+// Every product of the TPU kernel's body is computed here: for bf16 on wgmma
+// (bf16 operands, float32 accumulation), for float32 on the CUDA cores.
 //
-// Bound: at B=24, N=717 one backward (five launches) moves about 1.3 GB and
+// Bound: at B=24, N=717 one backward (five calls) moves about 1.3 GB and
 // does about 93 GFLOP, mostly bf16 products: the bytes bound it (about 0.4
-// ms at 3.35 TB/s).
+// ms at 3.35 TB/s). The bf16 edge call alone needs about 104 MB: z_1, dz_2
+// (44 MB each), e, idx and dtap read once, dneigh (4 MB) written and read
+// once; 0.031 ms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "hopper.cuh"      // mbarriers, TMA, wgmma, tensor maps
 #include "knn_select.cuh"  // MAXN, to_f, from_f
 
 #define KNN 20           // the graph the backward kernels are compiled for
+#define FULL_MASK 0xffffffffu
 
 #define NT 256           // threads of a block
 #define TN 4             // points of a tile
@@ -177,76 +181,6 @@ __device__ __forceinline__ void tile_gemm(const T* A, int lda,
   }
 }
 
-// c += a b for one 16x16 (a, row-major) by 16x8 (b, column-major) bf16 tile
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The same product for bf16 on the tensor cores: out[r][o] = bf16(sum_q
-// A[r][q] W[o][q]), W (O, Q) bf16 in global memory (L1). Warp w owns the
-// 8-column tiles w, w + 8, ... and every 16-row tile. lda / 2 = 4 (mod 32)
-// words keeps the fragment loads free of bank conflicts.
-template <int Q, int O>
-__device__ __forceinline__ void tile_mma(const __nv_bfloat16* A, int lda,
-                                         const __nv_bfloat16* __restrict__ W,
-                                         __nv_bfloat16* out) {
-  constexpr int NW = NT / 32, MT = ROWS / 16, NPW = O / (8 * NW);
-  static_assert(ROWS % 16 == 0 && Q % 16 == 0 && O % (8 * NW) == 0, "tiles");
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const uint32_t* A32 = reinterpret_cast<const uint32_t*>(A);
-  const uint32_t* W32 = reinterpret_cast<const uint32_t*>(W);
-  const int la = lda / 2;
-  float acc[MT][NPW][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nb = 0; nb < NPW; ++nb)
-      acc[mt][nb][0] = acc[mt][nb][1] = acc[mt][nb][2] = acc[mt][nb][3] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < Q; k0 += 16) {
-    uint32_t b[NPW][2];
-#pragma unroll
-    for (int nb = 0; nb < NPW; ++nb) {
-      const int n = (warp + nb * NW) * 8 + g;
-      b[nb][0] = __ldg(W32 + (n * Q + k0) / 2 + t);
-      b[nb][1] = __ldg(W32 + (n * Q + k0 + 8) / 2 + t);
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int r = mt * 16 + g;
-      const uint32_t a[4] = {A32[r * la + k0 / 2 + t], A32[(r + 8) * la + k0 / 2 + t],
-                             A32[r * la + k0 / 2 + 4 + t],
-                             A32[(r + 8) * la + k0 / 2 + 4 + t]};
-#pragma unroll
-      for (int nb = 0; nb < NPW; ++nb) mma_bf16(acc[mt][nb], a, b[nb]);
-    }
-  }
-  __nv_bfloat162* out2 = reinterpret_cast<__nv_bfloat162*>(out);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nb = 0; nb < NPW; ++nb) {
-      const int r = mt * 16 + g, col = (warp + nb * NW) * 8 + 2 * t;
-      out2[(r * O + col) / 2] = __floats2bfloat162_rn(acc[mt][nb][0], acc[mt][nb][1]);
-      out2[((r + 8) * O + col) / 2] = __floats2bfloat162_rn(acc[mt][nb][2], acc[mt][nb][3]);
-    }
-}
-
-// The tile product of the compute type: W is float32 (Q, O) for float32 (CUDA
-// cores), bf16 (O, Q) for bf16 (tensor cores), as the wrapper lays it out.
-template <typename T, int Q, int O>
-__device__ __forceinline__ void tile_product(const T* A, int lda, const void* W, T* out) {
-  if constexpr (sizeof(T) == 2)
-    tile_mma<Q, O>(A, lda, static_cast<const __nv_bfloat16*>(W), out);
-  else
-    tile_gemm<T, Q, O>(A, lda, static_cast<const float*>(W), out);
-}
-
 template <int CN, int C>
 __host__ __device__ constexpr int lda_of() { return (CN > C ? CN : C) + 8; }
 
@@ -320,7 +254,7 @@ rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
               *reinterpret_cast<const uint4*>(dzn + ((b * KNN + j) * N + n) * CN + q);
       }
       __syncthreads();
-      tile_product<T, CN, C>(A, LDA, wn, E);
+      tile_gemm<T, CN, C>(A, LDA, static_cast<const float*>(wn), E);
       __syncthreads();
     }
 
@@ -353,7 +287,7 @@ rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
 
     if constexpr (MODE == STAGE) {  // the stage below: dh_{i-1} = dz . W_i^T
       __syncthreads();
-      tile_product<T, C, CIN>(A, LDA, w, E);
+      tile_gemm<T, C, CIN>(A, LDA, static_cast<const float*>(w), E);
       __syncthreads();
       for (int col = tid; col < TN * CIN; col += NT) {
         const int t = col / CIN, n = n0 + t;
@@ -427,13 +361,14 @@ sum_parts_kernel(const float* __restrict__ part, int G, int L, float* __restrict
 }
 
 // part[split][i][j] = sum over the split's rows r of h[r][i] dz[r][j], with
-// h = ReLU(BN(zp)) recomputed (RECOMP) or taken as it is (the edge rows e).
-// A block owns a TI x TJ tile of dW and one split; a thread MI x MJ values,
-// in groups of up to 4 adjacent columns (rows) spaced by the tile / groups.
-template <typename T, int TI, int TJ, int MI, int MJ, bool RECOMP>
+// h = ReLU(BN(zp)) recomputed (RECOMP) or taken as it is (the edge rows e),
+// float32 (the bf16 routes take their weight gradients on wgmma). A block
+// owns a TI x TJ tile of dW and one split; a thread MI x MJ values, in groups
+// of up to 4 adjacent columns (rows) spaced by the tile / groups.
+template <int TI, int TJ, int MI, int MJ, bool RECOMP>
 __global__ void __launch_bounds__(NT)
-dw_kernel(const T* __restrict__ h, const float* __restrict__ bnp,
-          const T* __restrict__ dz, int m, int cin, int C, int rows_per_split,
+dw_kernel(const float* __restrict__ h, const float* __restrict__ bnp,
+          const float* __restrict__ dz, int m, int cin, int C, int rows_per_split,
           float* __restrict__ part) {
   constexpr int VI = MI < 4 ? MI : 4, VJ = MJ < 4 ? MJ : 4;
   constexpr int NJ = TJ / MJ, NI = TI / MI;
@@ -460,7 +395,7 @@ dw_kernel(const T* __restrict__ h, const float* __restrict__ bnp,
       float v = 0.f;
       if (r < r_end && ch < cin) {
         v = to_f(h[(size_t)r * cin + ch]);
-        if (RECOMP) v = fmaxf(bn_y<T>(v, kh), 0.f);
+        if (RECOMP) v = fmaxf(bn_y<float>(v, kh), 0.f);
       }
       sH[rr][e % TI] = v;
     }
@@ -498,72 +433,143 @@ dw_kernel(const T* __restrict__ h, const float* __restrict__ bnp,
 }
 
 // dscat[b][p] = sum of dneigh[b][s] over the rows s = j N + n with
-// idx[b][n][j] == p, in ascending s order. One block a cloud builds the
-// inverse of idx in shared memory: in-degree counts, their prefix sums, each
-// point's list of rows (filled through integer atomics, so in any order),
-// then one thread a point sorts its list and adds its rows in s order. The
-// sums are those of a scan of the rows in order: the same bits on every
+// idx[b][n][j] == p, in ascending s order, from idx^T (B, KNN, N): s runs
+// along memory. Block (r, b) owns the points [r SCAT_P, (r + 1) SCAT_P) of
+// cloud b and builds the inverse of idx for them alone in shared memory,
+// already in s order, with no sort: warp w takes the rows of its contiguous
+// share of s, 32 at a time;
+//  1. counts, for each point, its rows in each warp's share (cw[w][p]);
+//  2. the lists' offsets: the prefix over the points of their counts, and
+//     within a point over the warps in order;
+//  3. fills each point's list: within 32 rows in s order by lane (the rank
+//     among the lanes of the same point, __match_any_sync), then the next
+//     32, then the next warp's share;
+//  4. one thread a point adds its rows in s order, SCAT_U loads in flight.
+// The sums are those of a scan of the rows in order: the same bits on every
 // launch, and the order of the CPU's index_add_.
-#define SCAT_NT 1024
+#define SCAT_P 256       // points of a block
+#define SCAT_NT 512      // threads of a block
+#define SCAT_W (SCAT_NT / 32)
+#define SCAT_U 8         // loads a thread keeps in flight
 __global__ void __launch_bounds__(SCAT_NT)
-scatter_kernel(const int* __restrict__ idx, const float* __restrict__ dneigh,
+scatter_kernel(const int* __restrict__ idxT, const float* __restrict__ dneigh,
                float* __restrict__ dscat, int N) {
   extern __shared__ int sm[];
-  int* cnt = sm;             // (N) in-degree, then the fill cursor
-  int* off = cnt + N;        // (N) start of each point's list
-  int* rows = off + N;       // (KNN N) the lists
-  const size_t b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int* ib = idx + b * N * KNN;
-  for (int p = tid; p < N; p += SCAT_NT) cnt[p] = 0;
+  int* cw = sm;                      // [SCAT_W][SCAT_P] counts, then cursors
+  int* off = cw + SCAT_W * SCAT_P;   // [SCAT_P] start of each point's list
+  int* tot = off + SCAT_P;           // [SCAT_P] length of each point's list
+  int* wsum = tot + SCAT_P;          // [SCAT_W] the scan's warp totals
+  int* rows = wsum + SCAT_W;         // (at most KNN N) the lists
+  const size_t b = blockIdx.y;
+  const int p0 = blockIdx.x * SCAT_P, np = min(SCAT_P, N - p0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int* ib = idxT + b * KNN * N;
+  const int S = KNN * N, share = (S + SCAT_W * 32 - 1) / (SCAT_W * 32) * 32;
+  const int s_lo = min(S, warp * share), s_hi = min(S, s_lo + share);
+  for (int i = tid; i < SCAT_W * SCAT_P; i += SCAT_NT) cw[i] = 0;
   __syncthreads();
-  for (int e = tid; e < N * KNN; e += SCAT_NT) {
-    const int p = ib[e];
-    if ((unsigned)p < (unsigned)N) atomicAdd(&cnt[p], 1);
+  // 1. counts; SCAT_U rows of the warp's share a lane in flight
+  for (int s0 = s_lo; s0 < s_hi; s0 += 32 * SCAT_U) {
+    int p[SCAT_U];
+#pragma unroll
+    for (int u = 0; u < SCAT_U; ++u) {
+      const int s = s0 + 32 * u + lane;
+      p[u] = s < s_hi ? __ldg(ib + s) - p0 : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < SCAT_U; ++u)
+      if ((unsigned)p[u] < (unsigned)np) atomicAdd(&cw[warp * SCAT_P + p[u]], 1);
   }
   __syncthreads();
-  if (tid < 32) {  // exclusive prefix sum of cnt: a chunk a lane, then a warp scan
-    const int per = (N + 31) / 32, lo = min(N, tid * per), hi = min(N, lo + per);
-    int own = 0;
-    for (int p = lo; p < hi; ++p) own += cnt[p];
-    int incl = own;
+  // 2. offsets: the totals' exclusive prefix over the points (a warp scan,
+  //    then the warps' totals), then the warps' cursors within a point
+  if (tid < SCAT_P) {
+    int t = 0;
+    for (int w = 0; w < SCAT_W; ++w) t += cw[w * SCAT_P + tid];
+    tot[tid] = t;
+    int incl = t;
     for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (tid >= d) incl += v;
+      const int v = __shfl_up_sync(FULL_MASK, incl, d);
+      if (lane >= d) incl += v;
     }
-    int run = incl - own;
-    for (int p = lo; p < hi; ++p) {
-      off[p] = run;
-      run += cnt[p];
-      cnt[p] = 0;
+    off[tid] = incl - t;
+    if (lane == 31) wsum[warp] = incl;
+  }
+  __syncthreads();
+  if (tid < SCAT_P) {
+    int base = off[tid];
+    for (int w = 0; w < warp; ++w) base += wsum[w];
+    off[tid] = base;
+    for (int w = 0; w < SCAT_W; ++w) {
+      const int c = cw[w * SCAT_P + tid];
+      cw[w * SCAT_P + tid] = base;
+      base += c;
     }
   }
   __syncthreads();
-  for (int e = tid; e < N * KNN; e += SCAT_NT) {
-    const int p = ib[e], n = e / KNN, j = e % KNN;
-    if ((unsigned)p < (unsigned)N) rows[off[p] + atomicAdd(&cnt[p], 1)] = j * N + n;
+  // 3. the lists, in s order
+  for (int s0 = s_lo; s0 < s_hi; s0 += 32 * SCAT_U) {
+    int p[SCAT_U];
+#pragma unroll
+    for (int u = 0; u < SCAT_U; ++u) {
+      const int s = s0 + 32 * u + lane;
+      p[u] = s < s_hi ? __ldg(ib + s) - p0 : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < SCAT_U; ++u) {
+      const bool in = (unsigned)p[u] < (unsigned)np;
+      const unsigned same = __match_any_sync(FULL_MASK, in ? p[u] : -1);
+      if (in) {
+        const int at = cw[warp * SCAT_P + p[u]] + __popc(same & ((1u << lane) - 1u));
+        rows[at] = s0 + 32 * u + lane;
+      }
+      __syncwarp();
+      if (in && lane == __ffs(same) - 1) cw[warp * SCAT_P + p[u]] += __popc(same);
+      __syncwarp();
+    }
   }
   __syncthreads();
-  const float* dn = dneigh + b * KNN * N * 3;
-  for (int p = tid; p < N; p += SCAT_NT) {
-    int* l = rows + off[p];
-    const int c = cnt[p];
-    for (int a = 1; a < c; ++a) {  // insertion sort: a list holds about KNN rows
-      const int v = l[a];
-      int q = a - 1;
-      while (q >= 0 && l[q] > v) { l[q + 1] = l[q]; --q; }
-      l[q + 1] = v;
-    }
+  // 4. the sums
+  if (tid < np) {
+    const float* dn = dneigh + b * KNN * N * 3;
+    const int* l = rows + off[tid];
+    const int c = tot[tid];
     float x = 0.f, y = 0.f, zz = 0.f;
-    for (int a = 0; a < c; ++a) {
+    int a = 0;
+    for (; a + SCAT_U <= c; a += SCAT_U) {
+      float v[SCAT_U][3];
+#pragma unroll
+      for (int u = 0; u < SCAT_U; ++u)
+#pragma unroll
+        for (int d = 0; d < 3; ++d) v[u][d] = dn[(size_t)l[a + u] * 3 + d];
+#pragma unroll
+      for (int u = 0; u < SCAT_U; ++u) {
+        x = __fadd_rn(x, v[u][0]);
+        y = __fadd_rn(y, v[u][1]);
+        zz = __fadd_rn(zz, v[u][2]);
+      }
+    }
+    for (; a < c; ++a) {
       const float* d = dn + (size_t)l[a] * 3;
       x = __fadd_rn(x, d[0]);
       y = __fadd_rn(y, d[1]);
       zz = __fadd_rn(zz, d[2]);
     }
-    float* o = dscat + (b * N + p) * 3;
+    float* o = dscat + (b * N + p0 + tid) * 3;
     o[0] = x; o[1] = y; o[2] = zz;
   }
+}
+
+static cudaError_t launch_scatter(const int* idxT, const float* dneigh, float* dscat,
+                                  int B, int N, cudaStream_t st) {
+  const size_t bytes =
+      sizeof(int) * ((SCAT_W + 2) * SCAT_P + SCAT_W + (size_t)KNN * N);
+  cudaError_t err = cudaFuncSetAttribute(
+      scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  scatter_kernel<<<dim3((N + SCAT_P - 1) / SCAT_P, B), SCAT_NT, bytes, st>>>(
+      idxT, dneigh, dscat, N);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------- bf16 stage kernel, one pass (wgmma)
@@ -669,6 +675,43 @@ __device__ __forceinline__ int pair_argmax(float best, int am) {
   const float ob = __shfl_xor_sync(0xffffffffu, best, 1);
   const int oa = __shfl_xor_sync(0xffffffffu, am, 1);
   return (ob > best || (ob == best && oa < am)) ? oa : am;
+}
+
+// The element work of a stage: dz over the tile's z panels at Zp, in place,
+// a lane pair a (point t, channel c) column (c and the parity h fixed for
+// the thread): h recomputed with the forward's rounding, the first argmax
+// over k, dh = extra (E, rows of ELD; none where ELD is 0) plus the tap's
+// cotangent at the argmax, dy, dz; rows past N get 0. A column's tap
+// cotangent is loaded before its first pass, so that the load's latency runs
+// under it.
+template <int C, int ELD>
+__device__ __forceinline__ void dz_columns(unsigned char* Zp, const bf16* E,
+                                           const bf16* __restrict__ dtap, int b, int n0,
+                                           int N, int c, int h, const BnC& kc, float a1,
+                                           float a2) {
+  for (int e = threadIdx.x >> 1; e < WTN * C; e += WTHREADS / 2) {
+    const int t = e / C, n = n0 + t;
+    const float tap = n < N ? __bfloat162float(dtap[((size_t)b * N + n) * C + c]) : 0.f;
+    unsigned char* colp = Zp + column_offset(t, c, h);
+    float y[KNN / 2], best = -1.f;
+    int am = 0;
+#pragma unroll
+    for (int i = 0; i < KNN / 2; ++i) {
+      y[i] = bn_y<bf16>(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kc);
+      const float hv = fmaxf(y[i], 0.f);
+      if (hv > best) { best = hv; am = 2 * i + h; }
+    }
+    am = pair_argmax(best, am);
+#pragma unroll
+    for (int i = 0; i < KNN / 2; ++i) {
+      const int j = 2 * i + h;
+      float dh = ELD > 0 ? __bfloat162float(E[(j * WTN + t) * ELD + c]) : 0.f;
+      if (j == am) dh = rnd<bf16>(__fadd_rn(tap, dh));
+      const float dy = relu_vjp<bf16>(dh, y[i]);
+      const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kc), a2)));
+      *reinterpret_cast<bf16*>(colp + i * 1024) = __float2bfloat16(n < N ? d : 0.f);
+    }
+  }
 }
 
 // d (the tile's rows as N) of A (64 x K, K-major panels of `arows` rows,
@@ -796,30 +839,7 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
     }
 
     // 2. stage i: dz_i over z_i
-    for (int e = tid >> 1; e < WTN * C; e += WTHREADS / 2) {
-      const int t = e / C, n = n0 + t;
-      // the tap's load first: its latency runs under the first pass
-      const float tap = n < N ? __bfloat162float(dtap[((size_t)b * N + n) * C + c]) : 0.f;
-      unsigned char* colp = Zp + column_offset(t, c, h);
-      float y[KNN / 2], best = -1.f;
-      int am = 0;
-#pragma unroll
-      for (int i = 0; i < KNN / 2; ++i) {
-        y[i] = bn_y<bf16>(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kc);
-        const float hv = fmaxf(y[i], 0.f);
-        if (hv > best) { best = hv; am = 2 * i + h; }
-      }
-      am = pair_argmax(best, am);
-#pragma unroll
-      for (int i = 0; i < KNN / 2; ++i) {
-        const int j = 2 * i + h;
-        float dh = CN > 0 ? __bfloat162float(E[(j * WTN + t) * P::E_LD1 + c]) : 0.f;
-        if (j == am) dh = rnd<bf16>(__fadd_rn(tap, dh));
-        const float dy = relu_vjp<bf16>(dh, y[i]);
-        const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kc), a2)));
-        *reinterpret_cast<bf16*>(colp + i * 1024) = __float2bfloat16(n < N ? d : 0.f);
-      }
-    }
+    dz_columns<C, (CN > 0 ? P::E_LD1 : 0)>(Zp, E, dtap, b, n0, N, c, h, kc, a1, a2);
     fence_proxy_async();   // dz_i is read by TMA and wgmma next
     __syncthreads();
     if (tid == 0) {
@@ -909,6 +929,195 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
   if (tid == 0) tma_store_wait();
 }
 
+// ------------------------------------------- bf16 edge kernel, one pass (wgmma)
+//
+// edge_wgmma_kernel: bwd_edge for bf16 in one pass on stage_wgmma_kernel's
+// frame (its tiles of WTN = 4 points, 80 rows; its persistent grid of at most
+// WBLOCKS blocks, each walking an equal contiguous share of the tiles; its
+// BN constants from the batch statistics, bn_stats). Per block:
+//  - W_2 (64 x 64) and W_1 (6 x 64), float32, are rounded to bf16 and loaded
+//    once as K-major panels (W_1's rows 6..63 zero);
+//  - a tile's z_1 and dz_2 panels arrive by TMA on the two-buffer ring; its
+//    e rows (12 bytes each, below TMA's 16-byte box) by plain loads one tile
+//    ahead, thread r < 80 holding row r in registers, written into the
+//    chunk 0 of row r of an MN-major e panel (the other chunks zero);
+//  - extra^T = W_2 dz_2^T: wgmma m64n40k16, rounded to bf16 into E;
+//  - the element work of the stage kernel (dz_columns): dz_1 over z_1 in
+//    shared memory; dz_1 never goes to global memory;
+//  - dW_1^T += ... as dW_1 (padded to 64 rows) += e_pad^T dz_1: m64n64k16,
+//    both operands MN-major from the e and dz_1 panels (K = the tile's 80
+//    rows), held in registers across the block's tiles; de^T = W_1 dz_1^T:
+//    m64n40k16 (W_1 padded to 64 rows as A), float32 accumulation of the
+//    exact bf16 products, the rows 0..5 into DE;
+//  - dq = sum_k (de[3:] - de[:3]) in k order, de[:3] per row to dneigh.
+// At the end each block writes its float32 dW_1 partial; sum_parts_kernel
+// adds them in block order, and scatter_kernel adds dneigh onto the points.
+// Bound: bytes (z_1, dz_2, dtap, e and idx read once, dneigh written and read
+// once, about 104 MB at B=24, N=717: 0.031 ms at 3.35 TB/s); the products
+// take 0.002 ms at the tensor cores' rate. What holds it from the bound: the
+// element work on the CUDA cores and each tile's phases in turn behind
+// block-wide barriers, as in the stage kernel.
+
+struct EdgePlan {
+  static constexpr int BUF = 2 * PANEL;            // z_1 and dz_2 of a tile
+  static constexpr int W = 64 * 64 * 2;            // W_2, W_1: a 64-row panel each
+  static constexpr int EP = PANEL;                 // the e panel, MN-major
+  static constexpr int E_LD = 64 + 8;              // extra, bf16 rows of E_LD
+  static constexpr int E = WROWS * E_LD * 2;
+  static constexpr int DE = WROWS * 8 * 4;         // de[:6] of a tile, float32
+  static constexpr int SMEM = 2 * BUF + 2 * W + EP + E + DE + 1024;
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+__global__ void __launch_bounds__(WTHREADS, 1)
+edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
+                  const __grid_constant__ CUtensorMap dznmap,
+                  const bf16* __restrict__ dtap, const BatchStats st,
+                  const float* __restrict__ s12, const float* __restrict__ w2,
+                  const bf16* __restrict__ e, const float* __restrict__ w1,
+                  float* __restrict__ part_w, float* __restrict__ dq,
+                  float* __restrict__ dneigh, int B, int N) {
+  typedef EdgePlan P;
+  constexpr int C = 64;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[2];
+  unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sbase = smem_u32(base);
+  unsigned char* W2p = base + 2 * P::BUF;
+  unsigned char* W1p = W2p + P::W;
+  unsigned char* EPp = W1p + P::W;
+  bf16* E = reinterpret_cast<bf16*>(EPp + P::EP);
+  float* DE = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(E) + P::E);
+  const uint32_t W2s = sbase + 2 * P::BUF, W1s = W2s + P::W, EPs = W1s + P::W;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int ntn = (N + WTN - 1) / WTN, T = B * ntn;
+  const int tile0 = (int)((long long)blockIdx.x * T / gridDim.x);
+  const int tile1 = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
+  const float m = (float)B * KNN * N;
+
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init_fence();
+  }
+  load_panels(W2p, w2, C, C);
+  load_panels(W1p, w1, 6, C);
+  for (int i = tid; i < (64 - 6) * 8; i += WTHREADS)   // W_1's rows 6..63
+    reinterpret_cast<uint4*>(W1p + 6 * 128)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < P::EP / 16; i += WTHREADS)
+    reinterpret_cast<uint4*>(EPp)[i] = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();   // the weights and the e panel are wgmma operands
+  __syncthreads();
+
+  auto issue = [&](int tile, int s) {
+    const int b = tile / ntn, n0 = (tile % ntn) * WTN;
+    const uint32_t dst = sbase + s * P::BUF;
+    mbar_expect_tx(&full[s], P::BUF);
+    tma_load_3d(dst, &zmap, &full[s], 0, n0, b * KNN);
+    tma_load_3d(dst + PANEL, &dznmap, &full[s], 0, n0, b * KNN);
+  };
+  if (tid == 0 && tile0 < tile1) issue(tile0, 0);
+  // thread r < WROWS: row r (j = r / WTN, point t = r % WTN) of a tile's e,
+  // six bf16 in three words, zeros past N
+  uint32_t ev[3] = {0u, 0u, 0u};
+  auto load_e = [&](int tile) {
+    const int b = tile / ntn, n = (tile % ntn) * WTN + tid % WTN, j = tid / WTN;
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(e + (((size_t)b * KNN + j) * N + n) * 6);
+#pragma unroll
+    for (int w = 0; w < 3; ++w) ev[w] = n < N ? __ldg(p + w) : 0u;
+  };
+  if (tid < WROWS && tile0 < tile1) load_e(tile0);
+
+  const int h = tid & 1, c = (tid >> 1) % C;
+  const BnC kc = bn_stats(st.p[0], st.p[1], st.p[2], st.p[3], c);
+  const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
+  float dw[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dw[i] = 0.f;
+
+  int s = 0;
+  uint32_t ph = 0;
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int b = tile / ntn, n0 = (tile % ntn) * WTN;
+    unsigned char* Zp = base + s * P::BUF;
+    const uint32_t Zs = sbase + s * P::BUF, DZNs = Zs + PANEL;
+    mbar_wait(&full[s], ph);
+    if (tid == 0 && tile + 1 < tile1) issue(tile + 1, s ^ 1);
+
+    // 1. extra^T = W_2 dz_2^T, rounded to bf16: E[r][c]; the tile's e rows
+    float d[RN / 2];
+    if (wg < WROWS / RN) rows_product<C>(d, W2s, C, 0, DZNs, wg);
+    if (tid < WROWS) {
+      *reinterpret_cast<uint4*>(EPp + sw128_offset(tid, 0)) = make_uint4(ev[0], ev[1], ev[2], 0u);
+      if (tile + 1 < tile1) load_e(tile + 1);
+    }
+    if (wg < WROWS / RN) rows_store(d, E, P::E_LD, 0, wg);
+    __syncthreads();
+
+    // 2. dz_1 over z_1
+    dz_columns<C, P::E_LD>(Zp, E, dtap, b, n0, N, c, h, kc, a1, a2);
+    fence_proxy_async();   // dz_1 and the e panel are read by wgmma next
+    __syncthreads();
+
+    // 3. warpgroup 0: dW_1 += e^T dz_1; 1 and 2: de^T = W_1 dz_1^T, rows
+    //    [RN (wg - 1), RN wg) of the tile
+    if (wg == 0) {
+      wgmma_fence();
+      fence_acc(dw);
+#pragma unroll
+      for (int kq = 0; kq < WROWS / 16; ++kq)
+        dw_product<64>(dw, desc_mn(EPs + kq * 2048, PANEL), desc_mn(Zs + kq * 2048, PANEL));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dw);
+    } else if (wg <= WROWS / RN) {
+      rows_product<C>(d, W1s, 64, 0, Zs, wg - 1);
+      // d[4 j + e]: de column 16 warp + g + 8 (e / 2), row RN (wg - 1) + 8 j
+      // + 2 t + e % 2; columns 0..5 are warp 0's lanes g < 6, e < 2
+      const int warp = (tid / 32) % 4, g = (tid % 32) / 4, t = tid % 4;
+      if (warp == 0 && g < 6) {
+#pragma unroll
+        for (int j = 0; j < RN / 8; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) DE[(RN * (wg - 1) + 8 * j + 2 * t + x) * 8 + g] = d[4 * j + x];
+      }
+    }
+    __syncthreads();
+
+    // 4. warpgroups 2 and 3, while 0 and 1 start the next tile's extra
+    //    cotangent: dq in k order, de[:3] to dneigh (DE is written again
+    //    after the next tile's first barrier)
+    if (tid >= 3 * 128 && tid < 3 * 128 + WTN * 3) {
+      const int t = (tid - 3 * 128) / 3, dd = (tid - 3 * 128) % 3, n = n0 + t;
+      if (n < N) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < KNN; ++j) {
+          const float* de = DE + (j * WTN + t) * 8;
+          acc = __fadd_rn(acc, __fsub_rn(de[3 + dd], de[dd]));
+        }
+        dq[((size_t)b * N + n) * 3 + dd] = acc;
+      }
+    }
+    for (int i = tid - 2 * 128; i >= 0 && i < WROWS * 3; i += WTHREADS / 2) {
+      const int r = i / 3, dd = i % 3, j = r / WTN, n = n0 + r % WTN;
+      if (n < N) dneigh[(((size_t)b * KNN + j) * N + n) * 3 + dd] = DE[r * 8 + dd];
+    }
+    s ^= 1;
+    if (s == 0) ph ^= 1u;
+  }
+
+  // the block's dW_1 partial: accumulator rows 0..5 (warp 0 of warpgroup 0,
+  // lanes g < 6)
+  if (tid < 32 && tid / 4 < 6) {
+    const int g = tid / 4, t = tid % 4;
+    float* pw = part_w + ((size_t)blockIdx.x * 6 + g) * C;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(pw + 8 * j + 2 * t) = make_float2(dw[4 * j], dw[4 * j + 1]);
+  }
+}
+
 // ------------------------------------------------------------------ launchers
 
 static int row_blocks(int B, int N) {
@@ -951,8 +1160,7 @@ static cudaError_t sum_parts(const float* part, int G, int L, float* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t launch_dw(const T* h, const float* bnp, const T* dz, int m,
+static cudaError_t launch_dw(const float* h, const float* bnp, const float* dz, int m,
                              int cin, int C, float* part, float* dw,
                              cudaStream_t st) {
   int per = 0;
@@ -962,9 +1170,9 @@ static cudaError_t launch_dw(const T* h, const float* bnp, const T* dz, int m,
   if (cin == ci && C == c) {                                                    \
     const dim3 grid((ci + ti - 1) / ti, (c + tj - 1) / tj, s);                  \
     if (bnp)                                                                    \
-      dw_kernel<T, ti, tj, mi, mj, true><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
+      dw_kernel<ti, tj, mi, mj, true><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
     else                                                                        \
-      dw_kernel<T, ti, tj, mi, mj, false><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
+      dw_kernel<ti, tj, mi, mj, false><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
   }
   DW_CASES(RUN)
 #undef RUN
@@ -1019,6 +1227,15 @@ extern "C" int bwd_reduce_launch(const void* z, const void* dtap,
   return (int)sum_parts(part, row_blocks(B, N), 2 * C, s, st);
 }
 
+// a (C, N, B KNN) view of a (B, KNN, N, C) bf16 stage tensor, boxes of (64
+// channels, WTN points, KNN neighbours)
+static cudaError_t stage_map(CUtensorMap* m, const void* p, int c, int B, int N) {
+  const cuuint32_t box[3] = {64, WTN, KNN};
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)N, (cuuint64_t)B * KNN};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)N * c * 2};
+  return make_map(m, p, 3, dims, strides, box);
+}
+
 template <int C, int CIN, int CN>
 static cudaError_t launch_stage_wgmma(const void* z, const void* dtap, const BatchStats& st,
                                       const float* s12, const void* dzn, const float* wn,
@@ -1028,19 +1245,12 @@ static cudaError_t launch_stage_wgmma(const void* z, const void* dtap, const Bat
   typedef StagePlan<C, CIN, CN> P;
   const int tiles = B * ((N + WTN - 1) / WTN);
   if (blocks < 1 || blocks > tiles || blocks > WBLOCKS) return cudaErrorInvalidValue;
-  // (C, N, B KNN) views of the (B, KNN, N, C) stage tensors, boxes of (64
-  // channels, WTN points, KNN neighbours)
   CUtensorMap zmap, zpmap, dznmap, dzmap;
-  const cuuint32_t box[3] = {64, WTN, KNN};
-  auto map = [&](CUtensorMap* m, const void* p, int c) {
-    const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)N, (cuuint64_t)B * KNN};
-    const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)N * c * 2};
-    return make_map(m, p, 3, dims, strides, box);
-  };
-  cudaError_t err = map(&zmap, z, C);
-  if (err == cudaSuccess) err = map(&zpmap, zp, CIN);
-  if (err == cudaSuccess) err = CN > 0 ? map(&dznmap, dzn, CN) : map(&dznmap, z, C);
-  if (err == cudaSuccess) err = map(&dzmap, dz, C);
+  cudaError_t err = stage_map(&zmap, z, C, B, N);
+  if (err == cudaSuccess) err = stage_map(&zpmap, zp, CIN, B, N);
+  if (err == cudaSuccess) err = CN > 0 ? stage_map(&dznmap, dzn, CN, B, N)
+                                       : stage_map(&dznmap, z, C, B, N);
+  if (err == cudaSuccess) err = stage_map(&dzmap, dz, C, B, N);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(stage_wgmma_kernel<C, CIN, CN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
@@ -1106,38 +1316,63 @@ extern "C" int bwd_stage_launch(const void* z, const void* dtap,
   if (err != cudaSuccess) return (int)err;
   err = sum_parts(part_s, row_blocks(B, N), 2 * cin, sp, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_dw<float>((const float*)zp, bnp, (const float*)dz, B * KNN * N,
+  return (int)launch_dw((const float*)zp, bnp, (const float*)dz, B * KNN * N,
                                cin, C, part_w, dw, st);
 }
 
+// bwd_edge for bf16: the one-pass edge_wgmma_kernel over `blocks` blocks
+// (ops/cuda_dgcnn_bwd.py:bwd_edge_plan), its dW_1 partials (blocks, 6, 64)
+// added in block order, then the scatter. The batch statistics of stage 1
+// come as they are, float32; w2 (64, 64) and w1 (6, 64) float32; idxT the
+// neighbour indices as (B, KNN, N) int32; dneigh (B, KNN, N, 3) float32
+// scratch.
+extern "C" int bwd_edge_bf16_launch(const void* z1, const void* dtap1, const float* mean,
+                                    const float* var, const float* gamma,
+                                    const float* beta, const float* s12,
+                                    const void* dz2, const float* w2, const void* e,
+                                    const float* w1, const int* idxT, float* dneigh,
+                                    float* part_w, float* dw, float* dq, float* dscat,
+                                    int B, int N, int blocks, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = B * ((N + WTN - 1) / WTN);
+  if (N < 1 || N > MAXN || B < 1 || B > 65535 || blocks < 1 || blocks > tiles ||
+      blocks > WBLOCKS)
+    return (int)cudaErrorInvalidValue;
+  const BatchStats bs = {{mean, var, gamma, beta, mean, var, gamma, beta}};
+  CUtensorMap zmap, dznmap;
+  cudaError_t err = stage_map(&zmap, z1, 64, B, N);
+  if (err == cudaSuccess) err = stage_map(&dznmap, dz2, 64, B, N);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(edge_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             EdgePlan::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  edge_wgmma_kernel<<<blocks, WTHREADS, EdgePlan::SMEM, st>>>(
+      zmap, dznmap, (const bf16*)dtap1, bs, s12, w2, (const bf16*)e, w1, part_w, dq,
+      dneigh, B, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = sum_parts(part_w, blocks, 6 * 64, dw, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_scatter(idxT, dneigh, dscat, B, N, st);
+}
+
+// bwd_edge for float32: rows_kernel (dz, de, dq, dneigh), dw_kernel with its
+// partials (dw_splits), then the scatter (idxT as for bf16)
 extern "C" int bwd_edge_launch(const void* z1, const void* dtap1,
                                const float* bn, const float* s12,
                                const void* dz2, const void* w2,
-                               const void* e, const float* w1T, const int* idx,
+                               const void* e, const float* w1T, const int* idxT,
                                void* dz, float* dneigh, float* part_w,
                                float* dw, float* dq, float* dscat, int B,
-                               int N, int is_bf16, void* stream) {
+                               int N, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      is_bf16 ? launch_rows<__nv_bfloat16, 64, 6, 64, EDGE>(
-                    z1, dtap1, bn, s12, dz2, w2, w1T, nullptr, nullptr, nullptr,
-                    dz, nullptr, dq, dneigh, B, N, st)
-              : launch_rows<float, 64, 6, 64, EDGE>(
-                    z1, dtap1, bn, s12, dz2, w2, w1T, nullptr, nullptr, nullptr,
-                    dz, nullptr, dq, dneigh, B, N, st);
+  if (N < 1 || N > MAXN || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_rows<float, 64, 6, 64, EDGE>(
+      z1, dtap1, bn, s12, dz2, w2, w1T, nullptr, nullptr, nullptr, dz, nullptr, dq,
+      dneigh, B, N, st);
   if (err != cudaSuccess) return (int)err;
-  const int m = B * KNN * N;
-  err = is_bf16 ? launch_dw<__nv_bfloat16>((const __nv_bfloat16*)e, nullptr,
-                                           (const __nv_bfloat16*)dz, m, 6, 64,
-                                           part_w, dw, st)
-                : launch_dw<float>((const float*)e, nullptr, (const float*)dz, m, 6,
-                                   64, part_w, dw, st);
+  err = launch_dw((const float*)e, nullptr, (const float*)dz, B * KNN * N, 6,
+                         64, part_w, dw, st);
   if (err != cudaSuccess) return (int)err;
-  const size_t bytes = sizeof(int) * (KNN + 2) * N;
-  err = cudaFuncSetAttribute(scatter_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  scatter_kernel<<<B, SCAT_NT, bytes, st>>>(idx, dneigh, dscat, N);
-  return (int)cudaGetLastError();
+  return (int)launch_scatter(idxT, dneigh, dscat, B, N, st);
 }

@@ -47,27 +47,13 @@
 // distances it would compute there (the squared gap to the box less
 // pair_tile_bounds' rounding margin) is above the lane's threshold.
 //
-// kNN (knn_stream_kernel<K>): each lane keeps a sorted top-k of its own
-// points, (distance, index) pairs in registers. A candidate enters only at
-// or below the threshold the query's four lanes share: after each sub-tile
-// the lanes exchange, by shuffles, the smaller of the least of their k-th
-// distances and the largest of their ceil(k/4)-th (four lists that each
-// hold ceil(k/4) pairs at or below a value hold k pairs there), an upper
-// bound of the query's running k-th distance. A candidate above it has k
-// pairs before it and can never be among the k; so the four lists together
-// always hold the query's k smallest pairs, and the threshold, not each
-// lane's own k-th, bounds the sub-tile and tile culls. A lane first marks
-// its 16 points of a sub-tile that pass, then the warp runs one
-// compare-and-swap chain for each marked point of its busiest lane (the
-// distance formed again), not one for each position where any of its 32
-// lanes inserts. At the end the four lists of a query (4k pairs, in the
-// shared memory the tiles used) merge by rank: the rank of a lane's s-th
-// pair is s plus the pairs before it in the other three lists (binary
-// searches), exact because the lanes hold disjoint indices; the pairs of
-// rank below k are written in place, and a lane stops at its first pair of
-// rank k or more. Placeholders are (inf, INT_MAX) and never rank below k.
-// An optional counter takes the tiles each block searched, their largest
-// count and the (warp, sub-tile) pairs searched (null on the main path).
+// kNN (knn_stream_kernel<K>): the four lanes' sorted top-k lists, their
+// shared threshold (set after each sub-tile), the batched insertion and the
+// merge by rank of knn_lanes.cuh (shared with the dense kNN, knn.cu); the
+// threshold, not each lane's own k-th, also bounds the sub-tile and tile
+// culls, and the lists merge in the shared memory the tiles used. An
+// optional counter takes the tiles each block searched, their largest count
+// and the (warp, sub-tile) pairs searched (null on the main path).
 //
 // 1-NN (nn1_kernel): each lane keeps its best (d, i) over its points (strict
 // < inside a tile, whose points it visits in ascending order, the pair order
@@ -99,23 +85,17 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "knn_lanes.cuh"   // NL, SUBT, before, the lists, threshold and merge
 #include "knn_select.cuh"  // sq_norm3, dist_fma
 
 #define STN 64            // queries of a block: one row of the cull table
 #define STM 512           // target points of a shared-memory tile
 #define MAXK 32
-#define NL 4              // lanes a query
-#define NT (STN * NL)     // threads of a block
-#define SUBT 64           // points of a sub-tile: one warp makes its box
-#define FULL 0xffffffffu
+#define NT (STN * NL)     // threads of a block (a warp makes a sub-tile's box)
 // the kNN block's tile buffers: raw coordinates twice, (x, y, z, |t|^2) and
 // the boxes; the same bytes hold the lists for the merge
 #define KNN_TILE_BYTES ((2 * STM * 3 + 4 * STM + (STM / SUBT) * 8) * 4)
 #define KNN_MAX_SMEM (200 * 1024)
-
-__device__ __forceinline__ bool before(float d, int i, float e, int j) {
-  return d < e || (d == e && i < j);
-}
 
 // the t-th target tile of the diagonal-first order from `start`
 __device__ __forceinline__ int diag_tile(int t, int start, int n_m) {
@@ -215,19 +195,6 @@ __device__ __forceinline__ float block_worst(float v, bool valid, float* red) {
 
 // ------------------------------------------------------------------- kNN
 
-// (cd, ci) into a lane's sorted list, if it comes before the list's last
-template <int K>
-__device__ __forceinline__ void insert(float (&kd)[K], int (&ki)[K], float cd, int ci) {
-  if (!before(cd, ci, kd[K - 1], ki[K - 1])) return;
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (before(cd, ci, kd[s], ki[s])) {
-      const float td = kd[s]; const int ti = ki[s];
-      kd[s] = cd; ki[s] = ci; cd = td; ci = ti;
-    }
-  }
-}
-
 __host__ __device__ constexpr int knn_lists_bytes(int k) { return NT * k * 8; }
 __host__ __device__ constexpr int knn_union_bytes(int k) {
   return knn_lists_bytes(k) > KNN_TILE_BYTES ? knn_lists_bytes(k) : KNN_TILE_BYTES;
@@ -241,7 +208,6 @@ knn_stream_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
            const float* __restrict__ lb, long long* __restrict__ idx_out,
            int* __restrict__ visits, int N, int M, int diag, int stretch,
            int table_in_smem) {
-  constexpr int Q = (K + NL - 1) / NL;   // the lane entry that bounds the k-th
   extern __shared__ __align__(16) unsigned char dsm[];
   float* raw = reinterpret_cast<float*>(dsm);                   // [2][STM * 3]
   float4* tp = reinterpret_cast<float4*>(raw + 2 * STM * 3);    // [STM]
@@ -275,8 +241,7 @@ knn_stream_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   };
   float kd[K];
   int ki[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) { kd[s] = CUDART_INF_F; ki[s] = INT_MAX; }
+  lanes_init<K>(kd, ki);
   float thr = CUDART_INF_F;     // the row's shared threshold
   int searched = 0, scans = 0, buf = 0;
   int pend = next(0);           // the position whose tile is in flight
@@ -310,35 +275,9 @@ knn_stream_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       if (__all_sync(FULL, !valid || box_low(box[s], qx, qy, qz, qq) > cull_at(thr)))
         continue;
       ++scans;
-      // the lane's 16 points: those at or below the threshold and its own
-      // k-th, then one insertion round for each pending point of the
-      // busiest lane (a point's distance formed again), not one for each
-      // position where any lane of the warp inserts
-      const float4* ts = tp + s * SUBT + sub;
-      const float lim = fminf(thr, kd[K - 1]);
-      const int hi = valid ? min(SUBT, len - s * SUBT) : 0;
-      unsigned pending = 0;
-#pragma unroll
-      for (int jj = 0; jj < SUBT / NL; ++jj) {
-        if (sub + NL * jj < hi && dist_fma(qx, qy, qz, qq, ts[NL * jj]) <= lim)
-          pending |= 1u << jj;
-      }
-      while (__any_sync(FULL, pending != 0)) {
-        if (pending != 0) {
-          const int jj = __ffs(pending) - 1;
-          pending &= pending - 1;
-          insert<K>(kd, ki, dist_fma(qx, qy, qz, qq, ts[NL * jj]),
-                    m0 + s * SUBT + sub + NL * jj);
-        }
-      }
-      // the row's four lanes: the least k-th, the largest ceil(k/4)-th
-      float lo = kd[K - 1], up = kd[Q - 1];
-#pragma unroll
-      for (int o = 1; o < NL; o <<= 1) {
-        lo = fminf(lo, __shfl_xor_sync(FULL, lo, o));
-        up = fmaxf(up, __shfl_xor_sync(FULL, up, o));
-      }
-      thr = fminf(lo, up);
+      lanes_subtile<K>(kd, ki, thr, qx, qy, qz, qq, tp + s * SUBT + sub, sub,
+                       valid ? min(SUBT, len - s * SUBT) : 0, m0 + s * SUBT + sub);
+      thr = lanes_threshold<K>(kd);
     }
     ++searched;
     if (culled) worst = block_worst(thr, valid, red);
@@ -354,34 +293,10 @@ knn_stream_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   __syncthreads();   // every thread is done with the tiles: the lists go there
   float* ld = reinterpret_cast<float*>(dsm);    // [K][NT]
   int* li = reinterpret_cast<int*>(ld + K * NT);  // [K][NT]
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    ld[s * NT + tid] = kd[s];
-    li[s * NT + tid] = ki[s];
-  }
+  lanes_store<K>(kd, ki, ld, li, NT, tid);
   __syncthreads();
   if (!valid) return;
-  long long* out = idx_out + ((size_t)b * N + n) * K;
-  const int first_lane = tid - sub;
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (ki[s] == INT_MAX) break;      // placeholders: never among the k
-    int rank = s;
-#pragma unroll
-    for (int o = 0; o < NL; ++o) {
-      if (o == sub) continue;
-      const int col = first_lane + o;
-      int lo = 0, hi = K;             // the pairs of lane o before (kd[s], ki[s])
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (before(ld[mid * NT + col], li[mid * NT + col], kd[s], ki[s])) lo = mid + 1;
-        else hi = mid;
-      }
-      rank += lo;
-    }
-    if (rank >= K) break;             // the lane's later pairs rank after
-    out[rank] = ki[s];
-  }
+  lanes_merge<K>(kd, ki, ld, li, NT, tid, sub, idx_out + ((size_t)b * N + n) * K, K);
 }
 
 static cudaError_t check_args(int B, int N, int M, int k) {

@@ -31,9 +31,11 @@ result is (dz W^T) and kept in float32 where it is not (dW, de).
 
 On a CUDA tensor each wrapper launches its kernel in `csrc/dgcnn_bwd.cu`
 (k = 20, N <= 1024, the stage widths of the DGCNN); on a CPU tensor it runs
-the plain version. The bf16 stage kernel is one pass on wgmma over a
-persistent grid (`bwd_stage_plan`); the float32 one a row pass and a
-weight-gradient pass on the CUDA cores.
+the plain version. The bf16 stage and edge kernels are one pass each on
+wgmma over a persistent grid (`bwd_stage_plan`, `bwd_edge_plan`); the
+float32 ones a row pass and a weight-gradient pass on the CUDA cores. Both
+edge routes end with the neighbour scatter, a block for each range of
+`SCATTER_POINTS` points of a cloud (`scatter_plan`).
 """
 from __future__ import annotations
 
@@ -52,10 +54,12 @@ KERNEL_STAGES = ((256, 128, 0), (128, 64, 256), (64, 64, 128))
 KERNEL_EDGE = (64, 6, 64)
 SMEM_LIMIT = 232_448  # shared memory a block may use on an H100
 
-# the bf16 stage kernel's plan (csrc/dgcnn_bwd.cu:stage_wgmma_kernel): tiles
-# of STAGE_TN points (STAGE_TN * KERNEL_K rows), a persistent grid of at most
-# STAGE_BLOCKS blocks
+# the bf16 stage and edge kernels' plan (csrc/dgcnn_bwd.cu:stage_wgmma_kernel,
+# edge_wgmma_kernel): tiles of STAGE_TN points (STAGE_TN * KERNEL_K rows), a
+# persistent grid of at most STAGE_BLOCKS blocks
 STAGE_TN, STAGE_BLOCKS = 4, 132
+# the scatter (csrc/dgcnn_bwd.cu:scatter_kernel): points and warps of a block
+SCATTER_POINTS, SCATTER_WARPS = 256, 16
 
 
 # ----------------------------------------------------------- shared algebra
@@ -190,15 +194,9 @@ def _bn_pack(mean, var, gamma, beta, dt):
 
 def _w_t(w, dt):
     """A weight (C_in, C) as the float32 values of its compute-dtype
-    rounding, transposed to (C, C_in)."""
+    rounding, transposed to (C, C_in): as the float32 row kernels' tile
+    products read it for x . W^T."""
     return w.detach().to(dt).float().t().contiguous()
-
-
-def _w_product(w, dt):
-    """A weight (C_in, C) as the row kernels' tile products read it for
-    x . W^T: bf16 as it is (the tensor cores take W (C_in, C) with C
-    contiguous), float32 transposed to (C, C_in) (the CUDA cores)."""
-    return w.detach().to(dt).contiguous() if dt == torch.bfloat16 else _w_t(w, dt)
 
 
 def _check(name, z, dtap, *others):
@@ -261,10 +259,41 @@ def bwd_stage_plan(B: int, N: int, C: int, cin: int, cn: int) -> dict:
 
 
 def stage_shares(tiles: int, blocks: int) -> list:
-    """The tiles block i of the stage kernel walks, in order: [i T / G,
-    (i + 1) T / G)."""
+    """The tiles block i of the stage or edge kernel walks, in order:
+    [i T / G, (i + 1) T / G)."""
     return [(i * tiles // blocks, (i + 1) * tiles // blocks)
             for i in range(blocks)]
+
+
+def bwd_edge_plan(B: int, N: int) -> dict:
+    """The bf16 edge kernel's launch, mirroring `csrc/dgcnn_bwd.cu:EdgePlan`:
+    its tiles and persistent grid (as the stage kernel's, `stage_shares`),
+    its dynamic shared memory (two buffers of a tile's z_1 and dz_2 panels,
+    the resident W_2 and W_1 as 64-row panels, the e panel, the extra
+    cotangent's scratch tile of 80 rows of 72 bf16, de of the tile in
+    float32, 1024 bytes of alignment) and its float32 dW_1 partials, one per
+    block."""
+    tiles = B * -(-N // STAGE_TN)
+    blocks = min(STAGE_BLOCKS, tiles)
+    rows = STAGE_TN * KERNEL_K
+    panel = rows * 128
+    smem = 2 * 2 * panel + 2 * 64 * 64 * 2 + panel + rows * 72 * 2 + rows * 8 * 4 + 1024
+    return {"tiles": tiles, "blocks": blocks, "smem": smem,
+            "part_w": (blocks, 6, KERNEL_EDGE[0])}
+
+
+def scatter_plan(B: int, N: int) -> dict:
+    """The neighbour scatter's launch, mirroring `csrc/dgcnn_bwd.cu:
+    launch_scatter`: block (r, b) owns the points [r P, min((r + 1) P, N))
+    of cloud b (P = SCATTER_POINTS); its dynamic shared memory holds each
+    warp's count of each point's rows, the points' offsets and totals, the
+    warps' totals and the lists (at most k N rows)."""
+    per = SCATTER_POINTS
+    grid = (-(-N // per), B)
+    ranges = [(b, r * per, min((r + 1) * per, N))
+              for b in range(B) for r in range(grid[0])]
+    return {"grid": grid, "ranges": ranges,
+            "smem": 4 * ((SCATTER_WARPS + 2) * per + SCATTER_WARPS + KERNEL_K * N)}
 
 
 def _bwd_reduce_cuda(z, dtap, mean, var, gamma, beta):
@@ -330,7 +359,7 @@ def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
         ins = (z.contiguous(), dtap.contiguous(),
                _bn_pack(mean, var, gamma, beta, dt), s12,
                None if not cn else dznext.contiguous(),
-               _w_product(wnext, dt) if cn else None, _w_product(w_i, dt),
+               _w_t(wnext, dt) if cn else None, _w_t(w_i, dt),
                zp.contiguous(), dtapp.contiguous(),
                _bn_pack(meanp, varp, gammap, betap, dt))
         code = _fn("bwd_stage", 15, 5)(
@@ -352,20 +381,36 @@ def _bwd_edge_cuda(z1, dtap1, mean1, var1, gamma1, beta1, s12, dz2, w2, e,
         raise ValueError(f"bwd_edge kernel takes (C1, 6, C2) = {KERNEL_EDGE} "
                          "and inputs of consistent shapes and dtypes")
     dt, dev = z1.dtype, z1.device
-    bn = _bn_pack(mean1, var1, gamma1, beta1, dt)
-    dz = torch.empty_like(z1, memory_format=torch.contiguous_format)
     dneigh = torch.empty(B, KERNEL_K, N, 3, dtype=torch.float32, device=dev)
-    part_w = torch.empty(_dw_splits(B, N, 6, C), 6, C, dtype=torch.float32,
-                         device=dev)
     dw = torch.empty(6, C, dtype=torch.float32, device=dev)
     dq = torch.empty(B, N, 3, dtype=torch.float32, device=dev)
     dscat = torch.empty(B, N, 3, dtype=torch.float32, device=dev)
-    ins = (z1.contiguous(), dtap1.contiguous(), bn,
-           s12.detach().float().contiguous(), dz2.contiguous(), _w_product(w2, dt),
-           e.contiguous(), _w_t(w1, dt), idx.to(torch.int32).contiguous())
-    code = _fn("bwd_edge", 15, 3)(
-        *map(_ptr, ins + (dz, dneigh, part_w, dw, dq, dscat)), B, N,
-        int(dt == torch.bfloat16), ctypes.c_void_p(dispatch.current_stream(z1)))
+    s12 = s12.detach().float().contiguous()
+    # the scatter reads the indices as (B, k, N): its rows s = j N + n in
+    # memory order
+    idx = idx.transpose(1, 2).to(torch.int32).contiguous()
+    stream = ctypes.c_void_p(dispatch.current_stream(z1))
+    if dt == torch.bfloat16:
+        # one pass, dz_1 kept in shared memory: one dW_1 partial a block; the
+        # kernel forms the BN constants from the statistics and rounds the
+        # float32 weights itself
+        blocks = bwd_edge_plan(B, N)["blocks"]
+        part_w = torch.empty(blocks, 6, C, dtype=torch.float32, device=dev)
+        f32 = lambda a: a.detach().float().contiguous()
+        ins = (z1.contiguous(), dtap1.contiguous(),
+               *[f32(a) for a in (mean1, var1, gamma1, beta1)], s12,
+               dz2.contiguous(), f32(w2), e.contiguous(), f32(w1), idx)
+        code = _fn("bwd_edge_bf16", 17, 3)(
+            *map(_ptr, ins + (dneigh, part_w, dw, dq, dscat)), B, N, blocks, stream)
+    else:
+        dz = torch.empty_like(z1, memory_format=torch.contiguous_format)
+        part_w = torch.empty(_dw_splits(B, N, 6, C), 6, C, dtype=torch.float32,
+                             device=dev)
+        ins = (z1.contiguous(), dtap1.contiguous(),
+               _bn_pack(mean1, var1, gamma1, beta1, dt), s12, dz2.contiguous(),
+               _w_t(w2, dt), e.contiguous(), _w_t(w1, dt), idx)
+        code = _fn("bwd_edge", 15, 2)(
+            *map(_ptr, ins + (dz, dneigh, part_w, dw, dq, dscat)), B, N, stream)
     dispatch.check_launch(code, "bwd_edge")
     dispatch.launch_counts["bwd_edge"] += 1
     return dw, dq, dscat

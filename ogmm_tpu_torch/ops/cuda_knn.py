@@ -11,8 +11,10 @@ pick the same indices bit for bit.
 
 On a CUDA tensor a wrapper launches its kernel (`csrc/nn1.cu`, `csrc/knn.cu`;
 M <= 4096, the TPU kernels' envelope, and k <= 32); on a CPU tensor it runs
-`nn1_reference` or `knn_reference`. Callers reach them through
-`ops.common.nn1` and `ops.common.knn`, which choose the route from shapes.
+`nn1_reference` or `knn_reference`. The kNN kernel is compiled for the list
+lengths `KNN_KS`; `knn_plan` gives its launch for a shape. Callers reach
+them through `ops.common.nn1` and `ops.common.knn`, which choose the route
+from shapes.
 """
 from __future__ import annotations
 
@@ -66,6 +68,32 @@ def nn1(src: torch.Tensor, tgt: torch.Tensor):
     return nn1_reference(src, tgt)
 
 
+# csrc/knn.cu: the list lengths K it is compiled for, the queries of a block
+# (four lanes each), the entries of a lane's candidate buffer, the shared
+# memory a block may use on an H100
+KNN_KS = (1, 5, 20, 32)
+KNN_QUERIES, KNN_LANES, KNN_BUFFER = 64, 4, 32
+SMEM_LIMIT = 232_448
+
+
+def knn_compiled_k(k: int) -> int:
+    """The smallest compiled K at or above k: the kernel writes the first k
+    of its K pairs, which are the k smallest in order."""
+    return next(K for K in KNN_KS if K >= k)
+
+
+def knn_plan(B: int, N: int, M: int, k: int) -> dict:
+    """The kNN kernel's launch as a pure function of the shapes, mirroring
+    `csrc/knn.cu:knn_launch`: the compiled K, a block of KNN_QUERIES queries
+    (a grid of query blocks x B), and its dynamic shared memory, the target
+    as (x, y, z, |t|^2) and each lane's candidate buffer or, in the same
+    bytes, the four lanes' lists of every query for the merge."""
+    K = knn_compiled_k(k)
+    threads = KNN_QUERIES * KNN_LANES
+    return {"K": K, "grid": (-(-N // KNN_QUERIES), B), "threads": threads,
+            "smem": max(16 * M + 4 * KNN_BUFFER * threads, threads * K * 8)}
+
+
 @torch.no_grad()
 def knn_reference(src: torch.Tensor, tgt: torch.Tensor, k: int) -> torch.Tensor:
     """Plain PyTorch version: (B, N, 3) x (B, M, 3) -> int64 (B, N, k), k
@@ -88,9 +116,10 @@ def _knn_cuda(src, tgt, k):
     idx = torch.empty(B, N, k, dtype=torch.int64, device=src.device)
     fn = dispatch.load_kernel("knn").knn_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     code = fn(*[ctypes.c_void_p(a.data_ptr()) for a in (src, tgt, idx)],
-              B, N, M, k, ctypes.c_void_p(dispatch.current_stream(src)))
+              B, N, M, k, knn_plan(B, N, M, k)["K"],
+              ctypes.c_void_p(dispatch.current_stream(src)))
     dispatch.check_launch(code, "knn")
     dispatch.launch_counts["knn"] += 1
     return idx

@@ -10,6 +10,8 @@ PyTorch/CUDA port goes.
                                           [--n_points N]
     python3 scripts/torch_port_profile.py --probe knn_stream [--parent DIR]
     python3 scripts/torch_port_profile.py --probe icp
+    python3 scripts/torch_port_profile.py --probe bwd_edge
+    python3 scripts/torch_port_profile.py --probe knn [--parent DIR]
 
 Needs one CUDA device. Runs GMMReg at B=24, N=717 (or --n_points: 1433 is
 ModelNet40's 2048-point clouds cropped to 0.70, the shared-graph route),
@@ -43,7 +45,14 @@ counters; `icp` at (24, 717), (24, 1433) and (48, 717), 30 trips: the
 launch of `cuda_icp.icp_plan` and the same rows at other cluster sizes with
 the occupancy calculator's count of clusters at once, the plan's launch
 with a target of 8 points (what a trip costs without the search) and a
-build with one power-iteration step (the 4x4 solve's share).
+build with one power-iteration step (the 4x4 solve's share); `bwd_edge` at
+one backward's stage-1 call (24, 20, 717, 64), bf16 and float32, on a kNN
+graph of random clouds: the device time of each `__global__` it launches;
+`knn` at the N=1433 request's (48, 1433, 1433, 20) and the unfused step's
+(24, 717, 717, 20): the kernel, and with `--parent DIR` (a `git archive` of
+a commit whose `knn.cu` still has the warp-a-query `knn_kernel`) that
+kernel and a build of it without its k selection rounds (it writes each
+query's candidate count instead of the indices).
 """
 import argparse
 import dataclasses
@@ -274,6 +283,16 @@ PARENT_COUNTERS = [
     (ONLY_K20, "    CASE(20)")]
 
 
+# knn_lanes.cuh (inlined into the source) with an insertion that only
+# replaces a list's last entry: its lists never fill, so it writes no index
+NO_INSERTION = [
+    ('#include "knn_lanes.cuh"', open(os.path.join(CSRC, "knn_lanes.cuh")).read()),
+    ("      insert<K>(kd, ki, dist_fma(qx, qy, qz, qq, ts[NL * jj]), idx0 + NL * jj);",
+     "      { const float cd = dist_fma(qx, qy, qz, qq, ts[NL * jj]);\n"
+     "        const int ci = idx0 + NL * jj;\n"
+     "        if (before(cd, ci, kd[K - 1], ki[K - 1])) { kd[K - 1] = cd; ki[K - 1] = ci; } }")]
+
+
 def probe_knn_stream(args):
     import ctypes
     from ogmm_tpu_torch.ops import cuda_stream, stream
@@ -288,13 +307,7 @@ def probe_knn_stream(args):
     want = stream.knn_stream_plain(x, x, 20)
     builds = {"no insertion": _variant(
         os.path.join(CSRC, "knn_stream.cu"),
-        [(ONLY_K20, "    CASE(20)"),
-         ("          insert<K>(kd, ki, dist_fma(qx, qy, qz, qq, ts[NL * jj]),\n"
-          "                    m0 + s * SUBT + sub + NL * jj);",
-          "          { const float cd = dist_fma(qx, qy, qz, qq, ts[NL * jj]);\n"
-          "            const int ci = m0 + s * SUBT + sub + NL * jj;\n"
-          "            if (before(cd, ci, kd[K - 1], ki[K - 1])) { kd[K - 1] = cd; ki[K - 1] = ci; } }")],
-        "knn_stream_no_insertion", args.out)}
+        [(ONLY_K20, "    CASE(20)"), *NO_INSERTION], "knn_stream_no_insertion", args.out)}
     if args.parent:
         builds["parent"] = _variant(
             os.path.join(args.parent, "ogmm_tpu_torch", "csrc", "knn_stream.cu"),
@@ -385,6 +398,97 @@ def probe_icp(args):
     return result
 
 
+def _profile_groups(fn, reps):
+    """Device ms a call of each kernel fn launches, by name (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: device_time_us(e) / 1e3 / reps for e in prof.key_averages()
+            if device_time_us(e) > 0}
+
+
+def probe_bwd_edge(args):
+    from ogmm_tpu_torch.ops import cuda_dgcnn_bwd, cuda_knn
+    rs = np.random.RandomState(5)
+    b, n, c, k = 24, 717, 64, 20
+    dev = "cuda"
+    x = torch.tensor((rs.randn(b, n, 3) * 0.3).astype(np.float32), device=dev)
+    idx = cuda_knn.knn_reference(x, x, k)
+    result = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g = lambda *s, scale=1.0: torch.tensor(
+            (rs.randn(*s) * scale).astype(np.float32), device=dev)
+        z1 = g(b, k, n, c).to(dt)
+        mean, var = z1.float().mean((0, 1, 2)), z1.float().var((0, 1, 2))
+        args_ = (z1, g(b, n, c, scale=0.1).to(dt), mean, var,
+                 torch.tensor(rs.uniform(0.5, 1.5, c).astype(np.float32), device=dev),
+                 g(c, scale=0.1), g(2, c, scale=10.0), g(b, k, n, c, scale=0.01).to(dt),
+                 g(c, c, scale=0.125), g(b, k, n, 6, scale=0.3).to(dt),
+                 g(6, c, scale=0.4), idx)
+        run = lambda: cuda_dgcnn_bwd.bwd_edge(*args_)
+        key = "bf16" if dt == torch.bfloat16 else "float32"
+        result[key] = {"ms": _cuda_ms(run, 20), "device_ms": _profile_groups(run, 20)}
+        print(f"bwd_edge {key}: {result[key]['ms']:.4f} ms a call; device ms of "
+              f"each kernel: {result[key]['device_ms']}")
+    return result
+
+
+# the warp-a-query knn_kernel without its k rounds of warp argmin: the
+# threshold pass and the candidate pass run, and lane 0 writes the count
+NO_SELECTION = [
+    ("    long long* out = idx_out + ((size_t)b * N + n) * k;\n    if (cnt <= CAP) {",
+     "    long long* out = idx_out + ((size_t)b * N + n) * k;\n"
+     "    if (lane == 0) out[0] = cnt;\n    if (false) {"),
+    ("    } else {\n      float pd = -CUDART_INF_F;",
+     "    } else if (false) {\n      float pd = -CUDART_INF_F;")]
+
+
+def probe_knn(args):
+    import ctypes
+    from ogmm_tpu_torch.ops import cuda_knn
+    rs = np.random.RandomState(6)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    builds = {}
+    if args.parent:
+        src = os.path.join(args.parent, "ogmm_tpu_torch", "csrc", "knn.cu")
+        builds["parent"] = _variant(src, [], "knn_parent", args.out)
+        builds["parent, no selection"] = _variant(src, NO_SELECTION,
+                                                  "knn_parent_no_selection", args.out)
+    result = {}
+    for b, n, k in ((48, 1433, 20), (24, 717, 20)):
+        x = torch.tensor((rs.randn(b, n, 3) * 0.3).astype(np.float32), device="cuda")
+        x[:, n // 2] = x[:, 1]
+        want = cuda_knn.knn_reference(x, x, k)
+        runs = {"kernel": lambda: cuda_knn.knn(x, x, k)}
+        for name, lib in builds.items():
+            fn = lib.knn_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            idx = torch.full((b, n, k), -1, dtype=torch.int64, device="cuda")
+
+            def run(fn=fn, idx=idx):
+                code = fn(ptr(x), ptr(x), ptr(idx), b, n, n, k, None)
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+                return idx
+            runs[name] = run
+        for name, run in runs.items():
+            same = torch.equal(run(), want)
+            ms = _cuda_ms(run, 20)
+            device = _profile_groups(run, 10)
+            key = f"({b}, {n}, {n}, k={k}) {name}"
+            result[key] = {"ms": ms, "device_ms": device, "indices_identical": same}
+            print(f"knn {key}: {ms:.4f} ms, indices identical {same}, device {device}")
+    return result
+
+
+PROBES = {"knn_stream": probe_knn_stream, "icp": probe_icp,
+          "bwd_edge": probe_bwd_edge, "knn": probe_knn}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
@@ -401,17 +505,17 @@ def main():
     ap.add_argument("--fused_edges", action="store_true",
                     help="dgcnn_fused_edges=True: the DGCNN stage chain of the "
                          "indoor request through the edges kernel")
-    ap.add_argument("--probe", choices=("knn_stream", "icp"), default=None,
+    ap.add_argument("--probe", choices=tuple(PROBES), default=None,
                     help="time the kernel beside variants of it (see above)")
     ap.add_argument("--parent", default=None,
-                    help="with --probe knn_stream: a tree of the commit with "
-                         "the one-thread-a-query kNN kernel")
+                    help="with --probe knn_stream or knn: a tree of the "
+                         "commit with the kernel's earlier design")
     args = ap.parse_args()
     if args.probe:
         if not torch.cuda.is_available():
             sys.exit("needs a CUDA device")
-        probe = probe_knn_stream if args.probe == "knn_stream" else probe_icp
-        result = {"probe": args.probe, "result": probe(args), "card": _card()}
+        result = {"probe": args.probe, "result": PROBES[args.probe](args),
+                  "card": _card()}
         print(json.dumps(result))
         return
     indoor = args.preset == "indoor"

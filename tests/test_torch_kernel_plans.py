@@ -352,3 +352,100 @@ def test_icp_kernel_takes_the_rows_its_clusters_hold():
     with pytest.raises(ValueError, match="do not fit"):
         cuda_icp.icp_plan(1, most + 9, 4096, H100_SMS)
     assert not cuda_icp.kernel_takes(4097, 3, "horn_pi", 10)
+
+
+# ------------------------------------------ the bf16 edge pass, its scatter
+
+EDGE_SHAPES = [(1, 1), (1, 3), (2, 5), (1, 1024), (24, 717), (3, 1000),
+               (48, 717), (7, 129)]
+
+
+@pytest.mark.parametrize("B,N", EDGE_SHAPES)
+def test_bwd_edge_grid_visits_every_tile_once_in_order(B, N):
+    plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N)
+    tiles = B * -(-N // cuda_dgcnn_bwd.STAGE_TN)
+    assert plan["tiles"] == tiles
+    assert plan["blocks"] == min(cuda_dgcnn_bwd.STAGE_BLOCKS, tiles)
+    shares = cuda_dgcnn_bwd.stage_shares(plan["tiles"], plan["blocks"])
+    assert [t for a, b in shares for t in range(a, b)] == list(range(tiles))
+    assert all(a < b for a, b in shares)
+
+
+@pytest.mark.parametrize("B,N", [(24, 717), (1, 1), (2, 5), (48, 1024)])
+def test_bwd_edge_partials_are_fixed_by_the_shape(B, N):
+    # one dW_1 partial a block, summed in block order
+    plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N)
+    assert plan["part_w"] == (plan["blocks"], 6, cuda_dgcnn_bwd.KERNEL_EDGE[0])
+    assert cuda_dgcnn_bwd.bwd_edge_plan(B, N) == plan
+
+
+def test_bwd_edge_block_fits_shared_memory():
+    # two buffers of z_1 and dz_2 panels, W_2 and W_1 panels, the e panel,
+    # the extra cotangent's tile, de and the alignment, within 227 KB; the
+    # same for every shape
+    plan = cuda_dgcnn_bwd.bwd_edge_plan(24, 717)
+    panel = cuda_dgcnn_bwd.STAGE_TN * cuda_dgcnn_bwd.KERNEL_K * 128
+    assert 5 * panel + 2 * 64 * 64 * 2 <= plan["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
+    assert {cuda_dgcnn_bwd.bwd_edge_plan(*s)["smem"] for s in EDGE_SHAPES} == {plan["smem"]}
+
+
+@pytest.mark.parametrize("B,N", EDGE_SHAPES)
+def test_scatter_ranges_cover_each_point_once(B, N):
+    plan = cuda_dgcnn_bwd.scatter_plan(B, N)
+    gx, gy = plan["grid"]
+    assert gy == B and len(plan["ranges"]) == gx * B
+    seen = [(b, p) for b, p0, p1 in plan["ranges"] for p in range(p0, p1)]
+    assert sorted(seen) == [(b, p) for b in range(B) for p in range(N)]
+    assert all(0 < p1 - p0 <= cuda_dgcnn_bwd.SCATTER_POINTS
+               for _, p0, p1 in plan["ranges"])
+    # the lists of the worst case (every row of the cloud in one range) fit
+    assert plan["smem"] >= 4 * cuda_dgcnn_bwd.KERNEL_K * N
+    assert cuda_dgcnn_bwd.scatter_plan(B, 1024)["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B,N", [(24, 717), (48, 1024), (2, 300)])
+def test_scatter_uses_more_blocks_than_clouds(B, N):
+    # one block a cloud would leave most of the card's 132 SMs idle at B = 24
+    assert np.prod(cuda_dgcnn_bwd.scatter_plan(B, N)["grid"]) > B
+
+
+# ------------------------------------------------------------ the dense kNN
+
+from ogmm_tpu_torch.ops import cuda_knn  # noqa: E402
+
+
+@pytest.mark.parametrize("B,N", [(48, 1433), (24, 717), (1, 1), (2, 90),
+                                 (4, 1000), (3, 64), (3, 65)])
+def test_knn_block_plan_covers_every_query_once(B, N):
+    plan = cuda_knn.knn_plan(B, N, 257, 20)
+    gx, gy = plan["grid"]
+    assert gy == B and plan["threads"] == cuda_knn.KNN_QUERIES * cuda_knn.KNN_LANES
+    # block x holds the queries [64 x, 64 x + 64): each query of each cloud
+    # once, no block without a query
+    queries = [x * cuda_knn.KNN_QUERIES + q for x in range(gx)
+               for q in range(cuda_knn.KNN_QUERIES)]
+    assert [q for q in queries if q < N] == list(range(N))
+    assert (gx - 1) * cuda_knn.KNN_QUERIES < N
+
+
+@pytest.mark.parametrize("M,k", [(M, k) for M in (1, 40, 717, 1433, 2048, 4096)
+                                 for k in (1, 5, 20, 32) if k <= M])
+def test_knn_block_fits_shared_memory_up_to_4096(M, k):
+    # the target as (x, y, z, |t|^2) and the lanes' candidate buffers, or
+    # the four lanes' lists of the block's queries in the same bytes
+    plan = cuda_knn.knn_plan(2, 100, M, k)
+    assert plan["smem"] >= 16 * M + 4 * cuda_knn.KNN_BUFFER * plan["threads"]
+    assert plan["smem"] >= plan["threads"] * plan["K"] * 8
+    assert plan["smem"] <= cuda_knn.SMEM_LIMIT
+
+
+def test_knn_compiled_k_is_the_smallest_at_or_above_k():
+    ks = cuda_knn.KNN_KS
+    assert list(ks) == sorted(ks) and ks[-1] == 32
+    for k in range(1, 33):
+        K = cuda_knn.knn_compiled_k(k)
+        assert K in ks and K >= k
+        assert all(c < k for c in ks if c < K)
+        assert cuda_knn.knn_plan(1, 10, 40, k)["K"] == K
+    # the paths' and the checks' k are compiled as they are
+    assert [cuda_knn.knn_compiled_k(k) for k in (1, 5, 20, 32)] == [1, 5, 20, 32]

@@ -268,7 +268,10 @@ def test_dgcnn_kernels_take_every_compiled_k(card, k, dtype, lim):
 
 @pytest.mark.parametrize("B,N,M,k", [(48, 1433, 1433, 20), (2, 4096, 4096, 20),
                                      (24, 717, 717, 5), (3, 1000, 257, 32),
-                                     (2, 90, 2000, 1), (1, 40, 40, 32)])
+                                     (2, 90, 2000, 1), (1, 40, 40, 32),
+                                     (24, 1433, 1433, 20), (24, 717, 717, 20),
+                                     (24, 4096, 4096, 20), (4, 1000, 257, 32),
+                                     (3, 70, 40, 7), (2, 50, 3, 2)])
 def test_knn_kernel_matches_plain(card, B, N, M, k):
     rs = np.random.RandomState(N + M + k)
     tgt = torch.tensor(rs.randn(B, M, 3).astype(np.float32) * 0.3, device=card)
@@ -279,10 +282,11 @@ def test_knn_kernel_matches_plain(card, B, N, M, k):
     want = knn_reference(src, tgt, k)
     torch.cuda.synchronize()
     assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert torch.equal(knn(src, tgt, k), got)      # a relaunch: the same bits
 
 
 def test_knn_kernel_many_coincident_points(card):
-    # more candidates at the threshold than the kernel's list of 256 holds
+    # 301 coincident points: many candidates tie at every lane's threshold
     rs = np.random.RandomState(11)
     x = torch.tensor(rs.randn(2, 600, 3).astype(np.float32), device=card)
     x[:, 100:400] = x[:, :1]
@@ -450,6 +454,23 @@ def _bwd_limit(name, i, dtype, ref):
         return 1e-4 * scale
     is_dz = name == "bwd_stage" and i == 0
     return (2.0 ** -6 if is_dz else 2e-2) * scale
+
+
+@pytest.mark.parametrize("B,N", [(24, 717), (1, 1024), (2, 25)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_edge_one_pass_matches_plain(card, B, N, dtype):
+    # the edge call of a real backward: the one-pass bf16 kernel (a full
+    # grid of 132 blocks, a ragged one) and the float32 route, against the
+    # plain version within LIM_BWD_SUM_BF16 / LIM_BWD_F32, twice bit for bit
+    name, a, kw = _bwd_calls(card, B, N, dtype, seed=B + N)[-1]
+    assert name == "bwd_edge"
+    got, again, ref = bwd_edge(*a, **kw), bwd_edge(*a, **kw), bwd_edge_reference(*a, **kw)
+    torch.cuda.synchronize()
+    for i, (g, g2, r) in enumerate(zip(got, again, ref)):
+        assert torch.equal(g, g2), i
+        assert g.shape == r.shape and g.dtype == r.dtype == torch.float32
+        err = (g - r).abs().max().item()
+        assert err <= _bwd_limit(name, i, dtype, r), (i, err)
 
 
 @pytest.mark.parametrize("B,N", [(3, 90), (4, 717), (1, 20)])

@@ -1,8 +1,11 @@
 """The port's kNN and position-encoding angle kernels' plain versions
 (`ops/cuda_knn.py:knn_reference`, `ops/cuda_posenc.py:
 posenc_angles_reference`) against the JAX package's Pallas kernels in
-interpret mode and its dense `knn`, and the plain routes of `ops.common.knn`
-and `ops.common.nn1` (dense, query chunks) against each other.
+interpret mode and its dense `knn`, the plain routes of `ops.common.knn`
+and `ops.common.nn1` (dense, query chunks) against each other, and the
+dense kNN kernel's selection (four lanes a query, a shared threshold, the
+lists merged by rank, at the compiled list length) mirrored in Python
+against the plain version.
 
 The port forms distances in one fixed float32 order (`square_distance3`),
 the JAX package as an einsum: the two may order neighbours differently only
@@ -15,11 +18,12 @@ import torch
 from ogmm_tpu.ops import common as jcommon
 from ogmm_tpu.ops.pallas_knn import knn_pallas, posenc_angles_pallas
 from ogmm_tpu_torch.ops import common as tcommon
+from ogmm_tpu_torch.ops import cuda_knn
 from ogmm_tpu_torch.ops.cuda_knn import knn, knn_reference
 from ogmm_tpu_torch.ops.cuda_posenc import (posenc_angles,
                                             posenc_angles_reference)
 
-from torch_port_util import n, t
+from torch_port_util import knn_lanes_mirror, n, t
 
 
 def _clouds(seed, B, N, M):
@@ -116,3 +120,45 @@ def test_plain_routes_by_chunks_match_the_dense_route(monkeypatch):
     np.testing.assert_allclose(n(d), n(dense_nn1[0]), rtol=1e-6, atol=1e-7)
     _assert_same_up_to_ties(n(i)[..., None], n(dense_nn1[1])[..., None],
                             src, tgt)
+
+
+def _dense_lanes(d, k):
+    """csrc/knn.cu's selection for one cloud: pass 1 takes, for each lane,
+    the ceil(K/4)-th smallest of the minima of its points of each 64-point
+    sub-tile, and T, the largest over the four lanes; pass 2 buffers each
+    lane's points at or below T and inserts them into the lanes' lists of
+    the compiled length K, the first k written. (The kernel also inserts,
+    and tightens the threshold, where a lane's buffer of 32 could overflow:
+    with T from the start, only where many points tie; here once at the
+    end.)"""
+    K = cuda_knn.knn_compiled_k(k)
+    N, M = d.shape
+    q = -(-K // 4)
+    thr0 = np.full(N, -np.inf)
+    for lane in range(4):
+        minima = np.sort([d[:, s + lane:min(s + 64, M):4].min(axis=1)
+                          for s in range(0, M, 64) if s + lane < M], axis=0)
+        kth = minima[q - 1] if len(minima) >= q else np.full(N, np.inf)
+        thr0 = np.maximum(thr0, kth)
+    return knn_lanes_mirror(d, K, lambda row: [(0, M)], kout=k, window=M,
+                            thr0=thr0)
+
+
+@pytest.mark.parametrize("k", [1, 5, 20, 32, 7])
+@pytest.mark.parametrize("case", ["duplicated point", "301 coincident points",
+                                  "cross"])
+def test_dense_knn_lanes_merged_by_rank_equal_plain(k, case):
+    # four lanes a query with a shared threshold, merged by rank, give the
+    # plain version's indices bit for bit; k = 7 takes the lists of 20
+    rs = np.random.RandomState(k)
+    tgt = (rs.randn(1, 420, 3) * 0.3).astype(np.float32)
+    tgt[:, 210] = tgt[:, 1]                   # a duplicated point: exact ties
+    if case == "301 coincident points":
+        tgt[:, 100:401] = tgt[:, :1]
+    src = ((rs.randn(1, 90, 3) * 0.3).astype(np.float32) if case == "cross"
+           else tgt[:, :150].copy())
+    d = tcommon.square_distance3(t(src), t(tgt))[0]
+    got = _dense_lanes(n(d), k)
+    want = knn_reference(t(src), t(tgt), k)[0]
+    assert (got >= 0).all()
+    assert np.array_equal(got, n(want))

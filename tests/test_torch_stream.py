@@ -23,7 +23,7 @@ from ogmm_tpu_torch.ops import common as tcommon
 from ogmm_tpu_torch.ops import cuda_stream, stream
 from ogmm_tpu_torch.ops.cuda_dgcnn import dgcnn_edges, dgcnn_edges_reference
 
-from torch_port_util import assert_same_up_to_ties, n, t
+from torch_port_util import assert_same_up_to_ties, knn_lanes_mirror, n, t
 
 TN, TM = 32, 64          # the JAX kernels' tiles here: several of each
 
@@ -303,9 +303,6 @@ def test_plain_versions_by_chunks_equal_one_block():
 
 # ------------------------- the kNN kernel's lanes, mirrored on the CPU
 
-LANES, SUBT = 4, 64      # csrc/knn_stream.cu: NL lanes a query, sub-tiles
-
-
 def _tile_order(n_row, n_m, diag, stretch=1):
     """The target tiles a query row's block visits (knn_stream_kernel: ascending,
     or diagonal-first from the tile holding column tile * 64 * stretch)."""
@@ -316,39 +313,14 @@ def _tile_order(n_row, n_m, diag, stretch=1):
 
 
 def _knn_lanes_mirror(d, k, diag):
-    """knn_stream_kernel's selection for one cloud's (N, M) float32 distances, in
-    Python: lane l of a query keeps a sorted list of at most k (distance,
-    index) pairs of the points m = l (mod 4) of each tile, inserting a
-    candidate at or below the threshold its lanes share; after each 64-point
-    sub-tile the threshold becomes min(least k-th, largest ceil(k/4)-th);
-    at the end the four lists merge by rank."""
-    import bisect
-    N, M = d.shape
-    q = -(-k // LANES)
+    """knn_stream_kernel's selection for one cloud's (N, M) float32
+    distances: the four lanes of `knn_lanes_mirror` over the target tiles of
+    512 points in the block's visiting order."""
+    M = d.shape[1]
     n_m = -(-M // stream.TILE_M)
-    out = np.full((N, k), -1, np.int64)
-    for row in range(N):
-        lists, thr = [[] for _ in range(LANES)], float("inf")
-        for tile in _tile_order(row, n_m, diag):
-            m0 = tile * stream.TILE_M
-            size = min(stream.TILE_M, M - m0)
-            for s in range(0, size, SUBT):
-                for lane, lst in enumerate(lists):
-                    for j in range(m0 + s + lane, m0 + min(s + SUBT, size), LANES):
-                        c = (float(d[row, j]), j)
-                        if c[0] <= thr and (len(lst) < k or c < lst[-1]):
-                            bisect.insort(lst, c)
-                            del lst[k:]
-                kth = [lst[k - 1][0] if len(lst) >= k else np.inf for lst in lists]
-                qth = [lst[q - 1][0] if len(lst) >= q else np.inf for lst in lists]
-                thr = min(min(kth), max(qth))
-        for lane, lst in enumerate(lists):
-            for s, c in enumerate(lst):
-                rank = s + sum(bisect.bisect_left(o, c)
-                               for i, o in enumerate(lists) if i != lane)
-                if rank < k:
-                    out[row, rank] = c[1]
-    return out
+    return knn_lanes_mirror(d, k, lambda row: [
+        (t * stream.TILE_M, min(stream.TILE_M, M - t * stream.TILE_M))
+        for t in _tile_order(row, n_m, diag)])
 
 
 @pytest.mark.parametrize("k", [1, 7, 20, 32])

@@ -76,3 +76,46 @@ def assert_same_up_to_ties(got, want, src, tgt, max_share=0.01):
     assert np.allclose(dg[differ], dw[differ], rtol=1e-6, atol=1e-12), \
         np.abs(dg - dw).max()
     assert differ.mean() <= max_share, differ.mean()
+
+
+KNN_LANES, KNN_SUBT = 4, 64   # csrc/knn_lanes.cuh: NL lanes a query, SUBT points
+
+
+def knn_lanes_mirror(d, K, tiles, kout=None, window=KNN_SUBT, thr0=None):
+    """The four-lane selection of `csrc/knn_lanes.cuh` (the dense kNN kernel
+    and `knn_stream_kernel`) for one cloud's (N, M) float32 distances, in
+    Python: `tiles(row)` gives the (first point, size) of the target tiles
+    a row's query visits, in order, each taken in windows of `window`
+    points; lane l keeps a sorted list of at most K (distance, index) pairs
+    of the points l, l + 4, ... of each window, inserting a candidate at or
+    below the threshold its lanes share (from thr0[row], or inf); after
+    each window the threshold becomes the smaller of itself and min(least
+    K-th, largest ceil(K/4)-th); at the end the four lists merge by rank and
+    the pairs of rank below kout (default K) are written."""
+    import bisect
+    kout = K if kout is None else kout
+    N, M = d.shape
+    q = -(-K // KNN_LANES)
+    out = np.full((N, kout), -1, np.int64)
+    for row in range(N):
+        lists = [[] for _ in range(KNN_LANES)]
+        thr = float("inf") if thr0 is None else float(thr0[row])
+        for m0, size in tiles(row):
+            for s in range(0, size, window):
+                for lane, lst in enumerate(lists):
+                    for j in range(m0 + s + lane, m0 + min(s + window, size),
+                                   KNN_LANES):
+                        c = (float(d[row, j]), j)
+                        if c[0] <= thr and (len(lst) < K or c < lst[-1]):
+                            bisect.insort(lst, c)
+                            del lst[K:]
+                kth = [lst[K - 1][0] if len(lst) >= K else np.inf for lst in lists]
+                qth = [lst[q - 1][0] if len(lst) >= q else np.inf for lst in lists]
+                thr = min(thr, min(kth), max(qth))
+        for lane, lst in enumerate(lists):
+            for s, c in enumerate(lst):
+                rank = s + sum(bisect.bisect_left(o, c)
+                               for i, o in enumerate(lists) if i != lane)
+                if rank < kout:
+                    out[row, rank] = c[1]
+    return out
