@@ -6,14 +6,15 @@
 // (B*N*k ints) and, for bf16, the 512-wide concat pass through device memory
 // between the launches:
 //
-//  1. knn_alpha_kernel (knn_select.cuh, shared with graph_stage1.cu): one
-//     warp per query point. The cloud (N <= 1024) sits
-//     in shared memory, the query's float32 distance row sits in the warp's
-//     registers (32 values a lane), and k rounds of warp argmin-and-mask
-//     pick the neighbours in ascending order, ties to the lowest index. The
-//     first posenc_k rounds also give the position-encoding angle
-//     cos(angle(p -> nbr, p -> centroid)) from float32 coordinates.
-//     Distances are formed without fused multiply-adds in a fixed order,
+//  1. knn_kernel<k, GraphOut> (knn_lanes.cuh, the dense selection shared
+//     with graph_stage1.cu, knn.cu and posenc_angles.cu): the cloud
+//     (N <= 1024) in shared memory, 64 queries a block, four lanes a query
+//     with sorted register lists, a threshold from a first pass over
+//     sub-tile minima, buffered insertion and a merge by rank; the
+//     neighbours in ascending order, ties to the lowest index, and the
+//     position-encoding angle cos(angle(p -> nbr, p -> centroid)) of the
+//     first posenc_k from float32 coordinates. Distances are formed without
+//     fused multiply-adds in a fixed order,
 //     (|q|^2 + |t|^2) - 2 (q0 t0 + q1 t1 + q2 t2), so that the plain PyTorch
 //     version selects the same neighbours bit for bit.
 //  2. The stage chain. Each stage is Dense (BN scale folded into the weight)
@@ -66,7 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "knn_select.cuh"  // knn_alpha_kernel, DGCNN_KS, MAXN, QPB
+#include "knn_lanes.cuh"   // knn_launch_k, GraphOut
+#include "knn_select.cuh"  // DGCNN_KS, MAXN
 #include "mma_bf16.cuh"  // mma_bf16, ldsm_x4, cp_async16
 
 typedef __nv_bfloat16 bf16;
@@ -601,9 +603,8 @@ static cudaError_t launch_k(const float* x, const Operands& o, int* idx,
                             float* alpha, void* cat, void* out, int B, int N,
                             int emb, int pk, int is_bf16, cudaStream_t stream) {
   if (N < KNN || pk > KNN) return cudaErrorInvalidValue;
-  const dim3 grid((N + QPB - 1) / QPB, B);
-  knn_alpha_kernel<KNN><<<grid, 256, 0, stream>>>(x, nullptr, idx, alpha, N, pk);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = knn_launch_k<KNN>(x, x, GraphOut{idx, alpha, nullptr, pk}, B,
+                                            N, N, KNN, stream);
   if (err != cudaSuccess) return err;
   return launch_stages<KNN>(x, idx, nullptr, o, cat, out, B, N, emb, is_bf16,
                             stream);

@@ -5,104 +5,155 @@
 // graph_stage1_pallas (_stage1_kernel). Compiled for the neighbour counts k
 // of DGCNN_KS (knn_select.cuh); k = 20 below. Two launches:
 //
-//  1. knn_alpha_kernel (knn_select.cuh, the selection of dgcnn_eval.cu): one
-//     warp per query, the distance row in registers, k rounds of warp
-//     argmin-and-mask (ascending, ties to the lowest index), the first pk
-//     neighbours' position-encoding angles against the centroid sum / N.
-//     Writes idx (B, N, k) int32 and alpha (B, N, pk) float32.
-//  2. edge_stage1_kernel: one warp per edge row (b, j, n). The offset
+//  1. knn_kernel<k, GraphOut> (knn_lanes.cuh, the dense selection shared
+//     with dgcnn_eval.cu, knn.cu and posenc_angles.cu): the cloud in shared
+//     memory, 64 queries a block, four lanes a query with sorted register
+//     lists, a threshold from a first pass over sub-tile minima, buffered
+//     insertion and a merge by rank (ascending, ties to the lowest index);
+//     the first pk neighbours' position-encoding angles against the
+//     centroid sum / N. Writes idx (B, N, k) int32 and alpha (B, N, pk)
+//     float32.
+//  2. edge_stage1_kernel: eight threads an edge row (b, j, n), eight
+//     columns each, over the B k N rows by a grid-stride loop of a grid
+//     sized to the card (ops/cuda_dgcnn_train.py:edge_plan), two rows a
+//     thread a step with the loads of both issued first. The offset
 //     nbr - q is formed in float32 and then cast to the compute type (the
 //     training contract: the TPU kernel gathers in float32 too), the row
-//     [nbr - q, q] (6 values) is written to e, and z = e . w1 (6 x 64, float32
-//     accumulation, rounded once to the compute type) to z1, two columns a
-//     lane. Both outputs are (B, k, N, C): the layout the custom VJP of
-//     ops/dgcnn_train.py reads, neighbour axis outermost, so a warp writes
-//     one contiguous 64-wide row.
+//     [nbr - q, q] (6 values) goes to e, and z = e . w1 (6 x 64, float32
+//     fmaf over i = 0..5, rounded once to the compute type) to z1. A thread
+//     holds its 6 x 8 weights in registers, loaded once, and writes its
+//     eight values with one 16-byte store in bf16 (two in float32), so a
+//     warp writes four rows, 512 contiguous bytes in bf16; three of the
+//     eight threads write the row of e as three pairs. Both outputs are
+//     (B, k, N, C): the layout the custom VJP of ops/dgcnn_train.py reads,
+//     neighbour axis outermost.
 //
 // Bound: bytes. Per point it reads 12 bytes and writes 20 * (64 + 6) values
 // in the compute type plus 20 indices and pk angles (about 3 KB in bf16),
-// against about 20 * 2 * 6 * 64 flops of the product and the 8 * N + 20 * N
-// flops of the distance row and the selection.
+// against about 20 * 2 * 6 * 64 flops of the product and the 8 * N + 20
+// flops a query of the distances and the selection. The edge pass is the
+// writes (44 MB of z1 and 4 MB of e at (24, 717, k = 20) in bf16).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 
-#include "knn_select.cuh"  // knn_alpha_kernel, DGCNN_KS, MAXN, QPB, to_f, from_f
+#include "knn_lanes.cuh"   // knn_launch_k, GraphOut
+#include "knn_select.cuh"  // DGCNN_KS, MAXN, to_f, from_f
 
 #define C1 64     // stage-1 width
 #define EW 6      // edge row: [nbr - q, q]
-#define RPB 8     // edge rows (= warps) per block
+#define CT 8      // columns a thread (threads a row: C1 / CT)
+#define ET 256    // threads of an edge block
+#define ERB (ET / (C1 / CT))   // edge rows a block takes at a time
+#define EU 2      // rows a thread takes a step of the grid-stride loop
 
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// a thread's CT values of a z1 row (16-byte aligned)
+__device__ __forceinline__ void store_cols(__nv_bfloat16* p, const float (&v)[CT]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                            pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+__device__ __forceinline__ void store_cols(float* p, const float (&v)[CT]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// two values of an e row
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<unsigned*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// grid: edge_plan's blocks, ET threads; rows = B * KNN * N < 2^31. A
+// thread takes EU rows a step, stride apart (the loads of all of them in
+// flight before the first product)
 template <typename T, int KNN>
-__global__ void __launch_bounds__(RPB * 32)
+__global__ void __launch_bounds__(ET, 3)
 edge_stage1_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                    const T* __restrict__ w1, T* __restrict__ z1,
-                   T* __restrict__ e_out, int N) {
-  __shared__ float sw[EW * C1];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < EW * C1; i += RPB * 32) sw[i] = to_f(w1[i]);
-  __syncthreads();
-
-  const int n = blockIdx.x * RPB + warp, j = blockIdx.y, b = blockIdx.z;
-  if (n >= N) return;
-  const size_t row = (size_t)b * N + n;
-  const int nb = idx[row * KNN + j];
-  const float* pq = x + row * 3;
-  const float* pn = x + ((size_t)b * N + nb) * 3;
-  float e[EW];
+                   T* __restrict__ e_out, int N, int rows) {
+  const int part = threadIdx.x % (C1 / CT), c0 = part * CT;
+  float w[EW][CT];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    e[i] = to_f(from_f<T>(__fsub_rn(pn[i], pq[i])));
-    e[3 + i] = to_f(from_f<T>(pq[i]));
-  }
-  const size_t out_row = ((size_t)b * KNN + j) * N + n;
+  for (int i = 0; i < EW; ++i)
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int col = lane + 32 * c;
-    float acc = 0.f;
+    for (int c = 0; c < CT; ++c) w[i][c] = to_f(w1[i * C1 + c0 + c]);
+  const int stride = gridDim.x * ERB;
+  const int first = blockIdx.x * ERB + threadIdx.x / (C1 / CT);
+  for (int r0 = first; r0 < rows; r0 += EU * stride) {
+    float pq[EU][3], pn[EU][3];
 #pragma unroll
-    for (int i = 0; i < EW; ++i) acc = fmaf(e[i], sw[i * C1 + col], acc);
-    z1[out_row * C1 + col] = from_f<T>(acc);
-  }
-  if (lane < EW) {
-    float v = e[0];
+    for (int u = 0; u < EU; ++u) {
+      const int r = min(r0 + u * stride, rows - 1);
+      const int n = r % N, bj = r / N, j = bj % KNN, b = bj / KNN;
+      const size_t q = (size_t)b * N + n;
+      const float* pp = x + q * 3;
+      const float* np = x + ((size_t)b * N + idx[q * KNN + j]) * 3;
 #pragma unroll
-    for (int i = 1; i < EW; ++i)
-      if (lane == i) v = e[i];
-    e_out[out_row * EW + lane] = from_f<T>(v);
+      for (int i = 0; i < 3; ++i) { pq[u][i] = pp[i]; pn[u][i] = np[i]; }
+    }
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      const int r = r0 + u * stride;
+      if (r >= rows) break;
+      float e[EW];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        e[i] = to_f(from_f<T>(__fsub_rn(pn[u][i], pq[u][i])));
+        e[3 + i] = to_f(from_f<T>(pq[u][i]));
+      }
+      float acc[CT];
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        acc[c] = 0.f;
+#pragma unroll
+        for (int i = 0; i < EW; ++i) acc[c] = fmaf(e[i], w[i][c], acc[c]);
+      }
+      store_cols(z1 + (size_t)r * C1 + c0, acc);
+#pragma unroll
+      for (int p = 0; p < EW / 2; ++p)
+        if (part == p) store_pair(e_out + (size_t)r * EW + 2 * p, e[2 * p], e[2 * p + 1]);
+    }
   }
 }
 
 template <int KNN>
 static cudaError_t launch_k(const float* x, const void* w1, int* idx,
-                           float* alpha, void* z1, void* e, int B, int N,
-                           int pk, int is_bf16, cudaStream_t stream) {
-  if (N < KNN || pk > KNN) return cudaErrorInvalidValue;
-  knn_alpha_kernel<KNN><<<dim3((N + QPB - 1) / QPB, B), 256, 0, stream>>>(
-      x, nullptr, idx, alpha, N, pk);
-  cudaError_t err = cudaGetLastError();
+                            float* alpha, void* z1, void* e, int B, int N,
+                            int pk, int is_bf16, int blocks, cudaStream_t stream) {
+  if (N < KNN || pk > KNN || (long long)B * KNN * N > INT_MAX)
+    return cudaErrorInvalidValue;
+  cudaError_t err = knn_launch_k<KNN>(x, x, GraphOut{idx, alpha, nullptr, pk}, B, N, N,
+                                      KNN, stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + RPB - 1) / RPB, KNN, B);
+  const int rows = B * KNN * N;
   if (is_bf16)
-    edge_stage1_kernel<__nv_bfloat16, KNN><<<grid, RPB * 32, 0, stream>>>(
-        x, idx, (const __nv_bfloat16*)w1, (__nv_bfloat16*)z1,
-        (__nv_bfloat16*)e, N);
+    edge_stage1_kernel<__nv_bfloat16, KNN><<<blocks, ET, 0, stream>>>(
+        x, idx, (const __nv_bfloat16*)w1, (__nv_bfloat16*)z1, (__nv_bfloat16*)e, N, rows);
   else
-    edge_stage1_kernel<float, KNN><<<grid, RPB * 32, 0, stream>>>(
-        x, idx, (const float*)w1, (float*)z1, (float*)e, N);
+    edge_stage1_kernel<float, KNN><<<blocks, ET, 0, stream>>>(
+        x, idx, (const float*)w1, (float*)z1, (float*)e, N, rows);
   return cudaGetLastError();
 }
 
+// blocks: the edge pass's grid (ops/cuda_dgcnn_train.py:edge_plan)
 extern "C" int graph_stage1_launch(const float* x, const void* w1, int* idx,
                                    float* alpha, void* z1, void* e, int B,
-                                   int N, int k, int pk, int is_bf16,
+                                   int N, int k, int pk, int is_bf16, int blocks,
                                    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N > MAXN) return (int)cudaErrorInvalidValue;
+  if (N > MAXN || B < 1 || B > 65535 || blocks < 1) return (int)cudaErrorInvalidValue;
   switch (k) {
 #define CASE(K)                                                              \
   case K:                                                                    \
     return (int)launch_k<K>(x, w1, idx, alpha, z1, e, B, N, pk, is_bf16,     \
-                            stream);
+                            blocks, stream);
     DGCNN_KS(CASE)
 #undef CASE
     default:

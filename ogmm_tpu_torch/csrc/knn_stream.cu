@@ -296,7 +296,8 @@ knn_stream_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   lanes_store<K>(kd, ki, ld, li, NT, tid);
   __syncthreads();
   if (!valid) return;
-  lanes_merge<K>(kd, ki, ld, li, NT, tid, sub, idx_out + ((size_t)b * N + n) * K, K);
+  long long* out = idx_out + ((size_t)b * N + n) * K;
+  lanes_merge<K>(kd, ki, ld, li, NT, tid, sub, K, [&](int rank, int m) { out[rank] = m; });
 }
 
 static cudaError_t check_args(int B, int N, int M, int k) {

@@ -6,42 +6,38 @@
 // index), cos(angle(p -> neighbour, p -> centroid)) from float32
 // coordinates, a coincident neighbour giving 0.
 //
-// It is the alpha-only instantiation of the selection the DGCNN kernels
-// share (knn_select.cuh:knn_alpha_kernel with KNN = pk = k and no index
-// output): one warp per query, the cloud in shared memory, the query's
-// distance row in the warp's registers, k rounds of warp argmin-and-mask.
-// The centroid is passed in, as the TPU kernel's is (the wrapper takes the
-// cloud's mean as the plain version does, so that both use the same one).
-// Distances are the fixed-order float32 form of knn_select.cuh, so the plain
-// version (ops/cuda_posenc.py:posenc_angles_reference) picks the same
-// neighbours.
+// It is the angles instantiation of the dense selection the kNN and DGCNN
+// kernels share (knn_lanes.cuh:knn_kernel<K, GraphOut> with pk = k; no
+// index output on the main path): the cloud in shared memory, 64 queries a
+// block, four lanes a query with register lists, merged by rank; the lane
+// that holds a neighbour of rank below k writes its angle. K is the compiled list length
+// the wrapper chose (ops/cuda_knn.py:knn_compiled_k, the kNN kernel's
+// KNN_KS); the first k of its K pairs are the k nearest. The centroid is
+// passed in, as the TPU kernel's is (the wrapper takes the cloud's mean as
+// the plain version does, so that both use the same one). Distances are the
+// fixed-order float32 form of knn_select.cuh, so the plain version
+// (ops/cuda_posenc.py:posenc_angles_reference) picks the same neighbours.
 //
-// Bound: operations. Per query N distances (8 flops each) and k passes of
-// N compares, against 12 bytes read and 4 k bytes written per point.
+// Bound: operations. Per query N distances (8 flops each) and about one
+// compare a candidate, against 12 bytes read and 4 k bytes written per point.
 #include <cuda_runtime.h>
 
-#include "knn_select.cuh"  // knn_alpha_kernel, MAXN, QPB
+#include "knn_lanes.cuh"   // knn_launch_k, GraphOut
+#include "knn_select.cuh"  // MAXN
 
-#define POSENC_KS(X)                                                        \
-  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)      \
-  X(14) X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25) \
-  X(26) X(27) X(28) X(29) X(30) X(31) X(32)
+#define POSENC_KS(X) X(1) X(5) X(20) X(32)
 
+// idx: null (the main path), or (B, N, k) int32 the neighbours are written to
 extern "C" int posenc_angles_launch(const float* x, const float* centroid,
-                                    float* alpha, int B, int N, int k,
-                                    void* stream_ptr) {
+                                    float* alpha, int* idx, int B, int N, int k,
+                                    int K, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N > MAXN || k < 1 || k > N) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + QPB - 1) / QPB, B);
-  switch (k) {
-#define CASE(K)                                                              \
-  case K:                                                                    \
-    knn_alpha_kernel<K><<<grid, 256, 0, stream>>>(x, centroid, nullptr,      \
-                                                  alpha, N, K);              \
-    return (int)cudaGetLastError();
-    POSENC_KS(CASE)
+  if (N > MAXN || k < 1 || k > N || K < k || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const GraphOut out{idx, alpha, centroid, k};
+#define CASE(KK) \
+  if (K == KK) return (int)knn_launch_k<KK>(x, x, out, B, N, N, k, stream);
+  POSENC_KS(CASE)
 #undef CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)cudaErrorInvalidValue;
 }

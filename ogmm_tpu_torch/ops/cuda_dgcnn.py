@@ -135,7 +135,10 @@ def _concat_scratch(x, dtype):
     return torch.empty(rows, sum(STAGES), dtype=dtype, device=x.device)
 
 
-def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k):
+def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k, idx=None):
+    """The launch; `idx`, an int32 (B, N, k) tensor on the card, takes the
+    kNN graph the kernel selects (the checks compare it with the plain
+    version's)."""
     B, N, _ = x.shape
     emb = weights[4].shape[1]
     if not k <= N <= KERNEL_MAX_N or posenc_k > k:
@@ -144,7 +147,10 @@ def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k):
                          f"posenc_k={posenc_k}")
     x = x.float().contiguous()
     ws, ss, bs = _kernel_operands("dgcnn_eval", weights, affines, k, dtype)
-    idx = torch.empty(B, N, k, dtype=torch.int32, device=x.device)
+    if idx is None:
+        idx = torch.empty(B, N, k, dtype=torch.int32, device=x.device)
+    elif idx.shape != (B, N, k) or idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError(f"idx takes the (B, N, k) = {(B, N, k)} int32 graph")
     alpha = torch.empty(B, N, max(posenc_k, 1), dtype=torch.float32,
                         device=x.device)
     cat = _concat_scratch(x, dtype)

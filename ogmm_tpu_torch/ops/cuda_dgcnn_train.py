@@ -28,8 +28,21 @@ from ogmm_tpu_torch.ops.common import (gather_neighbors, graph_feature,
                                        posenc_alpha, select_smallest,
                                        square_distance3)
 from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_N
+from ogmm_tpu_torch.ops.cuda_stream import _sm_count
 
 KERNEL_C1 = 64           # stage-1 width the kernel is compiled for
+# the edge pass (edge_stage1_kernel): threads of a block, the edge rows it
+# takes at a time (eight threads a row), and the blocks an SM its grid gives
+# (its registers hold three)
+EDGE_THREADS, EDGE_ROWS = 256, 32
+EDGE_BLOCKS_AN_SM = 3
+_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+
+
+def edge_plan(B: int, k: int, N: int, n_sm: int) -> int:
+    """Blocks of the edge pass's grid-stride loop over the B k N rows:
+    EDGE_BLOCKS_AN_SM an SM, or fewer where the rows do not need them."""
+    return min(EDGE_BLOCKS_AN_SM * n_sm, -(-B * k * N // EDGE_ROWS))
 
 
 def graph_stage1_reference(x: torch.Tensor, w1: torch.Tensor, k: int = 20,
@@ -65,12 +78,11 @@ def _graph_stage1_cuda(x, w1, k, dtype, posenc_k):
     e = torch.empty(B, k, N, 6, dtype=dtype, device=dev)
     idx = torch.empty(B, N, k, dtype=torch.int32, device=dev)
     alpha = torch.empty(B, N, max(posenc_k, 1), dtype=torch.float32, device=dev)
-    fn = dispatch.load_kernel("graph_stage1").graph_stage1_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    code = fn(*[ctypes.c_void_p(a.data_ptr()) for a in (x, w, idx, alpha, z1, e)],
-              B, N, k, posenc_k, int(dtype == torch.bfloat16),
-              ctypes.c_void_p(dispatch.current_stream(x)))
+    blocks = edge_plan(B, k, N, _sm_count(dev.index or 0))
+    code = dispatch.kernel_fn("graph_stage1", "graph_stage1_launch", _ARGS)(
+        *[ctypes.c_void_p(a.data_ptr()) for a in (x, w, idx, alpha, z1, e)],
+        B, N, k, posenc_k, int(dtype == torch.bfloat16), blocks,
+        ctypes.c_void_p(dispatch.current_stream(x)))
     dispatch.check_launch(code, "graph_stage1")
     dispatch.launch_counts["graph_stage1"] += 1
     return z1, e, idx, (alpha if posenc_k else None)

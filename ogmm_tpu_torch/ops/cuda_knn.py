@@ -11,20 +11,24 @@ pick the same indices bit for bit.
 
 On a CUDA tensor a wrapper launches its kernel (`csrc/nn1.cu`, `csrc/knn.cu`;
 M <= 4096, the TPU kernels' envelope, and k <= 32); on a CPU tensor it runs
-`nn1_reference` or `knn_reference`. The kNN kernel is compiled for the list
-lengths `KNN_KS`; `knn_plan` gives its launch for a shape. Callers reach
-them through `ops.common.nn1` and `ops.common.knn`, which choose the route
-from shapes.
+`nn1_reference` or `knn_reference`. The launches are pure functions of the
+shapes: `nn1_plan` gives the 1-NN kernel's lanes a query and queries a thread,
+`knn_plan` the kNN kernel's compiled list length
+(`KNN_KS`) and grid. Callers reach them through `ops.common.nn1` and
+`ops.common.knn`, which choose the route from shapes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops.common import (KERNEL_MAX_M, KNN_KERNEL_MAX_K,
                                        select_smallest, square_distance3)
+from ogmm_tpu_torch.ops.cuda_stream import _ptr, _sm_count
 
 
 @torch.no_grad()
@@ -36,7 +40,55 @@ def nn1_reference(src: torch.Tensor, tgt: torch.Tensor):
     return d.gather(-1, idx.unsqueeze(-1)).squeeze(-1), idx
 
 
-def _nn1_cuda(src, tgt):
+# csrc/nn1.cu: threads of a block, the lanes a query it is compiled for,
+# the queries a thread nn1_plan prefers, and the blocks an SM it aims at
+NN1_THREADS = 256
+NN1_LANES = (4, 8, 16)
+NN1_PLAN_ROWS = 2
+NN1_BLOCKS_AN_SM = 4
+
+
+class Nn1Plan(NamedTuple):
+    lanes: int     # adjacent threads of a warp a query
+    rows: int      # queries a thread
+    queries: int   # queries a block
+    blocks: int    # the grid: query blocks x B
+
+
+def nn1_plan_with(B: int, N: int, lanes: int, rows: int) -> Nn1Plan:
+    """The 1-NN kernel's launch at `lanes` lanes a query and `rows` queries a
+    thread: a block of NN1_THREADS / lanes * rows queries, each block the
+    whole target of its cloud."""
+    queries = NN1_THREADS // lanes * rows
+    return Nn1Plan(lanes, rows, queries, -(-N // queries) * B)
+
+
+@functools.lru_cache(maxsize=256)
+def nn1_plan(B: int, N: int, n_sm: int) -> Nn1Plan:
+    """The 1-NN kernel's launch as a pure function of the shape:
+    NN1_PLAN_ROWS queries a thread and the fewest lanes a query (NN1_LANES)
+    whose query blocks give the n_sm SMs NN1_BLOCKS_AN_SM blocks each; else
+    the most lanes, with one query a thread where two would leave SMs
+    without a block. (Measured on an H100, PERF.md §6: at the four shapes
+    the paths launch each plan was within 3% of the fastest of every lanes
+    and queries a thread; where the queries leave SMs idle, (4, 16, 2048),
+    (1, 128, 717) and (1, 717, 717), a split of the target with a merge
+    launch was slower between calls at all three and on the device at two.
+    The compiled pairs are those this returns.)"""
+    for lanes in NN1_LANES:
+        plan = nn1_plan_with(B, N, lanes, NN1_PLAN_ROWS)
+        if plan.blocks >= NN1_BLOCKS_AN_SM * n_sm:
+            return plan
+    plan = nn1_plan_with(B, N, NN1_LANES[-1], NN1_PLAN_ROWS)
+    if plan.blocks >= n_sm:
+        return plan
+    return nn1_plan_with(B, N, NN1_LANES[-1], 1)
+
+
+_NN1_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
+def _nn1_cuda(src, tgt, plan=None):
     B, N, C = src.shape
     M = tgt.shape[1]
     if C != 3 or tgt.shape != (B, M, 3):
@@ -45,15 +97,15 @@ def _nn1_cuda(src, tgt):
     if not 1 <= M <= KERNEL_MAX_M or N < 1:
         raise ValueError(f"nn1 kernel takes 1 <= M <= {KERNEL_MAX_M} target "
                          f"points; got N={N}, M={M}")
+    if plan is None:
+        plan = nn1_plan(B, N, _sm_count(src.device.index or 0))
     src = src.float().contiguous()
     tgt = tgt.float().contiguous()
     d = torch.empty(B, N, dtype=torch.float32, device=src.device)
     idx = torch.empty(B, N, dtype=torch.int64, device=src.device)
-    fn = dispatch.load_kernel("nn1").nn1_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    code = fn(*[ctypes.c_void_p(a.data_ptr()) for a in (src, tgt, d, idx)],
-              B, N, M, ctypes.c_void_p(dispatch.current_stream(src)))
+    code = dispatch.kernel_fn("nn1", "nn1_launch", _NN1_ARGS)(
+        _ptr(src), _ptr(tgt), _ptr(d), _ptr(idx), B, N, M, plan.lanes, plan.rows,
+        ctypes.c_void_p(dispatch.current_stream(src)))
     dispatch.check_launch(code, "nn1")
     dispatch.launch_counts["nn1"] += 1
     return d, idx
@@ -61,8 +113,9 @@ def _nn1_cuda(src, tgt):
 
 def nn1(src: torch.Tensor, tgt: torch.Tensor):
     """1-NN: (B, N, 3) x (B, M, 3) -> (min squared distance (B, N), index
-    (B, N) int64). Launches the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. Carries no gradient."""
+    (B, N) int64). Launches the CUDA kernel for a CUDA tensor (the plan
+    `nn1_plan` gives the shape), the plain version for a CPU tensor. Carries
+    no gradient."""
     if src.is_cuda:
         return _nn1_cuda(src, tgt)
     return nn1_reference(src, tgt)
@@ -74,6 +127,9 @@ def nn1(src: torch.Tensor, tgt: torch.Tensor):
 KNN_KS = (1, 5, 20, 32)
 KNN_QUERIES, KNN_LANES, KNN_BUFFER = 64, 4, 32
 SMEM_LIMIT = 232_448
+
+
+_KNN_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
 
 def knn_compiled_k(k: int) -> int:
@@ -114,12 +170,9 @@ def _knn_cuda(src, tgt, k):
     src = src.float().contiguous()
     tgt = tgt.float().contiguous()
     idx = torch.empty(B, N, k, dtype=torch.int64, device=src.device)
-    fn = dispatch.load_kernel("knn").knn_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    code = fn(*[ctypes.c_void_p(a.data_ptr()) for a in (src, tgt, idx)],
-              B, N, M, k, knn_plan(B, N, M, k)["K"],
-              ctypes.c_void_p(dispatch.current_stream(src)))
+    code = dispatch.kernel_fn("knn", "knn_launch", _KNN_ARGS)(
+        _ptr(src), _ptr(tgt), _ptr(idx), B, N, M, k, knn_plan(B, N, M, k)["K"],
+        ctypes.c_void_p(dispatch.current_stream(src)))
     dispatch.check_launch(code, "knn")
     dispatch.launch_counts["knn"] += 1
     return idx

@@ -24,8 +24,11 @@ from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops.common import (KNN_KERNEL_MAX_K, gather_neighbors,
                                        posenc_alpha, select_smallest,
                                        square_distance3)
-# the selection of the DGCNN kernels: one distance row in a warp's registers
 from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_MAX_N
+# the kernel is the dense kNN's selection, compiled for the same list lengths
+from ogmm_tpu_torch.ops.cuda_knn import knn_compiled_k
+
+_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 
 
 @torch.no_grad()
@@ -36,7 +39,10 @@ def posenc_angles_reference(points: torch.Tensor, k: int = 5) -> torch.Tensor:
     return posenc_alpha(x, gather_neighbors(x, idx))
 
 
-def _posenc_angles_cuda(points, k):
+def _posenc_angles_cuda(points, k, idx=None):
+    """The launch; `idx`, an int32 (B, N, k) tensor on the card, takes the
+    neighbours the kernel selects (the checks compare them with the plain
+    version's; the main path passes none)."""
     B, N, C = points.shape
     if C != 3:
         raise ValueError(f"posenc_angles kernel takes (B, N, 3) points; got "
@@ -47,11 +53,13 @@ def _posenc_angles_cuda(points, k):
     x = points.float().contiguous()
     centroid = x.mean(dim=1, keepdim=True).contiguous()
     alpha = torch.empty(B, N, k, dtype=torch.float32, device=x.device)
-    fn = dispatch.load_kernel("posenc_angles").posenc_angles_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    code = fn(*[ctypes.c_void_p(a.data_ptr()) for a in (x, centroid, alpha)],
-              B, N, k, ctypes.c_void_p(dispatch.current_stream(x)))
+    if idx is not None and (idx.shape != (B, N, k) or idx.dtype != torch.int32
+                            or not idx.is_contiguous()):
+        raise ValueError(f"idx takes the (B, N, k) = {(B, N, k)} int32 neighbours")
+    code = dispatch.kernel_fn("posenc_angles", "posenc_angles_launch", _ARGS)(
+        *[ctypes.c_void_p(None if a is None else a.data_ptr())
+          for a in (x, centroid, alpha, idx)],
+        B, N, k, knn_compiled_k(k), ctypes.c_void_p(dispatch.current_stream(x)))
     dispatch.check_launch(code, "posenc_angles")
     dispatch.launch_counts["posenc_angles"] += 1
     return alpha

@@ -14,6 +14,7 @@ bound with `ctypes`. Nothing is built when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -121,6 +122,16 @@ def load_kernel(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_fn(name: str, symbol: str, argtypes: tuple):
+    """The launcher `symbol` of kernel library `name`, its ctypes prototype
+    (returns int, takes `argtypes`) bound once, at its first call."""
+    fn = getattr(load_kernel(name), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return fn
+
+
 def check_launch(code: int, what: str) -> None:
     """Raise on the cudaError_t a launcher returned."""
     if code != 0:
@@ -128,4 +139,6 @@ def check_launch(code: int, what: str) -> None:
 
 
 def current_stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of t's device (without the
+    `torch.cuda.Stream` object `torch.cuda.current_stream` builds)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -12,6 +12,8 @@ PyTorch/CUDA port goes.
     python3 scripts/torch_port_profile.py --probe icp
     python3 scripts/torch_port_profile.py --probe bwd_edge
     python3 scripts/torch_port_profile.py --probe knn [--parent DIR]
+    python3 scripts/torch_port_profile.py --probe graph_stage1 [--parent DIR]
+    python3 scripts/torch_port_profile.py --probe nn1 [--parent DIR]
 
 Needs one CUDA device. Runs GMMReg at B=24, N=717 (or --n_points: 1433 is
 ModelNet40's 2048-point clouds cropped to 0.70, the shared-graph route),
@@ -52,7 +54,20 @@ graph of random clouds: the device time of each `__global__` it launches;
 (24, 717, 717, 20): the kernel, and with `--parent DIR` (a `git archive` of
 a commit whose `knn.cu` still has the warp-a-query `knn_kernel`) that
 kernel and a build of it without its k selection rounds (it writes each
-query's candidate count instead of the indices).
+query's candidate count instead of the indices); `graph_stage1` at one train
+step's call (24, 717, k=20, pk=5), bf16 and float32: the ms between CUDA
+events and the device ms of each `__global__` (the selection and the edge
+pass apart), the outputs against the plain version, and with `--parent DIR`
+the same for that tree's `graph_stage1.cu` with its outputs compared bit for
+bit; then the same selection in `dgcnn_eval` (48, 717, k=20, emb 512) and
+`posenc_angles` (24, 717, k=5); `nn1` at the four shapes its paths launch
+((24, 512, 717) the Welsch loss, (24, 128, 717) the clustering, (24, 717,
+717) the metrics, (24, 1433, 1433) the N=1433 ICP trips): the wrapper's
+call and its plan, every (lanes, queries a thread) pair `csrc/nn1.cu`
+compiles with its device ms, and with `--parent DIR` that tree's `nn1.cu`,
+each bit-equal to the plain version; then the same at three shapes whose
+queries leave SMs without a block ((4, 16, 2048) the C.1 check's
+clustering, (1, 128, 717) and (1, 717, 717) requests of one cloud).
 """
 import argparse
 import dataclasses
@@ -485,8 +500,180 @@ def probe_knn(args):
     return result
 
 
+def _parent_lib(args, name):
+    """The parent tree's build of csrc/<name>.cu (its own headers), or None."""
+    if not args.parent:
+        return None
+    return _variant(os.path.join(args.parent, "ogmm_tpu_torch", "csrc", f"{name}.cu"),
+                    [], f"{name}_parent", args.out)
+
+
+def _timed(label, run, reps=20):
+    """ms between CUDA events and device ms of each __global__ of run()."""
+    ms = _cuda_ms(run, reps)
+    device = _profile_groups(run, reps)
+    print(f"{label}: {ms:.4f} ms between calls; device ms of each kernel: {device}")
+    return {"ms": ms, "device_ms": device}
+
+
+def probe_graph_stage1(args):
+    import ctypes
+    from ogmm_tpu_torch.ops import cuda_dgcnn_train, cuda_posenc
+    from ogmm_tpu_torch.ops.cuda_dgcnn import dgcnn_eval
+    rs = np.random.RandomState(8)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    from ogmm_tpu_torch.ops import dispatch
+    parent = _parent_lib(args, "graph_stage1")
+    edge_eu = {u: _variant(os.path.join(CSRC, "graph_stage1.cu"),
+                           [("#define EU 2 ", f"#define EU {u} ")],
+                           f"graph_stage1_eu{u}", args.out) for u in (1, 4)}
+    b, n, k, pk = 24, 717, 20, 5
+    x = torch.tensor((rs.randn(b, n, 3) * 0.3).astype(np.float32), device="cuda")
+    x[:, n // 2] = x[:, 1]                    # a duplicated point: exact ties
+    w1 = torch.tensor((rs.randn(6, 64) / np.sqrt(6)).astype(np.float32), device="cuda")
+    result = {}
+    for dt in (torch.bfloat16, torch.float32):
+        key = "bf16" if dt == torch.bfloat16 else "float32"
+        got = cuda_dgcnn_train.graph_stage1(x, w1, k, dt, pk)
+        want = cuda_dgcnn_train.graph_stage1_reference(x, w1, k, dt, pk)
+        r = _timed(f"graph_stage1 ({b}, {n}, k={k}, pk={pk}) {key}",
+                   lambda: cuda_dgcnn_train.graph_stage1(x, w1, k, dt, pk))
+        r.update(idx_identical=torch.equal(got[2], want[2]),
+                 e_identical=torch.equal(got[1], want[1]),
+                 z1_max_abs_err=(got[0].float() - want[0].float()).abs().max().item(),
+                 alpha_max_abs_err=(got[3] - want[3]).abs().max().item())
+        print(f"  against the plain version: {r}")
+        if parent is not None:
+            fn = parent.graph_stage1_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            w = w1.to(dt).contiguous()
+            outs = (torch.empty(b, k, n, 64, dtype=dt, device="cuda"),
+                    torch.empty(b, k, n, 6, dtype=dt, device="cuda"),
+                    torch.empty(b, n, k, dtype=torch.int32, device="cuda"),
+                    torch.empty(b, n, pk, dtype=torch.float32, device="cuda"))
+
+            def run_parent(fn=fn, w=w, outs=outs, dt=dt):
+                z1, e, idx, alpha = outs
+                code = fn(ptr(x), ptr(w), ptr(idx), ptr(alpha), ptr(z1), ptr(e),
+                          b, n, k, pk, int(dt == torch.bfloat16), None)
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+                return outs
+            p = run_parent()
+            r["parent"] = _timed(f"  the parent's kernel {key}", run_parent)
+            r["bit_equal_to_parent"] = {
+                name: torch.equal(a, c) for name, a, c in
+                zip(("z1", "e", "idx", "alpha"), got, p)}
+            print(f"  bit-equal to the parent's outputs: {r['bit_equal_to_parent']}")
+        # the edge pass with one and four rows a thread a step (EU), and at
+        # 2 and 4 blocks an SM: its device time
+        r["edge_variants"] = {}
+        w = w1.to(dt).contiguous()
+        outs = (torch.empty(b, k, n, 64, dtype=dt, device="cuda"),
+                torch.empty(b, k, n, 6, dtype=dt, device="cuda"),
+                torch.empty(b, n, k, dtype=torch.int32, device="cuda"),
+                torch.empty(b, n, pk, dtype=torch.float32, device="cuda"))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for label, lib, blocks in (
+                ("EU 1", edge_eu[1], 3 * sms), ("EU 4", edge_eu[4], 3 * sms),
+                ("2 blocks an SM", dispatch.load_kernel("graph_stage1"), 2 * sms),
+                ("4 blocks an SM", dispatch.load_kernel("graph_stage1"), 4 * sms)):
+            fn = lib.graph_stage1_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+            def run_variant(fn=fn, blocks=blocks, dt=dt):
+                z1, e, idx, alpha = outs
+                code = fn(ptr(x), ptr(w), ptr(idx), ptr(alpha), ptr(z1), ptr(e),
+                          b, n, k, pk, int(dt == torch.bfloat16), blocks, None)
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+                return outs
+            same = all(torch.equal(a, c) for a, c in zip(run_variant(), got))
+            edge = sum(v for name, v in _profile_groups(run_variant, 20).items()
+                       if "edge_stage1" in name)
+            r["edge_variants"][label] = {"edge_ms": edge, "bit_equal": same}
+            print(f"  edge pass {label}: {edge:.4f} ms on the device, bit-equal {same}")
+        result[key] = r
+    # the selection the DGCNN eval kernel and the angle kernel share with it
+    x48 = torch.tensor((rs.randn(2 * b, n, 3) * 0.3).astype(np.float32), device="cuda")
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, 512)]
+    ws = [torch.tensor((rs.randn(*d) / np.sqrt(d[0])).astype(np.float32), device="cuda")
+          for d in dims]
+    aff = [(torch.ones(d[1], device="cuda"), torch.zeros(d[1], device="cuda"))
+           for d in dims]
+    result["dgcnn_eval (48, 717, k=20) bf16"] = _timed(
+        "dgcnn_eval (48, 717, k=20, emb 512) bf16",
+        lambda: dgcnn_eval(x48, ws, aff, k, torch.bfloat16, pk), 10)
+    result["posenc_angles (24, 717, k=5)"] = _timed(
+        "posenc_angles (24, 717, k=5)", lambda: cuda_posenc.posenc_angles(x, pk), 50)
+    return result
+
+
+NN1_SHAPES = ((24, 512, 717), (24, 128, 717), (24, 717, 717), (24, 1433, 1433))
+# shapes whose queries leave SMs without a block: the C.1 check's clustering
+# at B = 4, a request of one cloud
+NN1_FEW_QUERIES = ((4, 16, 2048), (1, 128, 717), (1, 717, 717))
+# the (lanes, queries a thread) pairs csrc/nn1.cu compiles (NN1_PLANS)
+NN1_COMPILED = ((4, 2), (8, 2), (16, 2), (16, 1))
+
+
+def probe_nn1(args):
+    import ctypes
+    from ogmm_tpu_torch.ops import cuda_knn
+    rs = np.random.RandomState(9)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    parent = _parent_lib(args, "nn1")
+    result = {}
+    for b, nq, m in NN1_SHAPES + NN1_FEW_QUERIES:
+        tgt = torch.tensor((rs.randn(b, m, 3) * 0.3).astype(np.float32), device="cuda")
+        src = torch.tensor((rs.randn(b, nq, 3) * 0.3).astype(np.float32), device="cuda")
+        src[:, 0] = tgt[:, 3]                 # an exact hit: the clamp
+        got = cuda_knn.nn1(src, tgt)
+        want = cuda_knn.nn1_reference(src, tgt)
+        key = f"({b}, {nq}, {m})"
+        r = _timed(f"nn1 {key}", lambda: cuda_knn.nn1(src, tgt), 50)
+        r["bit_equal_to_plain"] = all(torch.equal(a, c) for a, c in zip(got, want))
+        if hasattr(cuda_knn, "nn1_plan"):
+            r["plan"] = cuda_knn.nn1_plan(b, nq, torch.cuda.get_device_properties(
+                0).multi_processor_count)._asdict()
+            r["plans"] = {}
+            print(f"  the wrapper's plan: {r['plan']}; every compiled plan:")
+            for lanes, rows in NN1_COMPILED:
+                plan = cuda_knn.nn1_plan_with(b, nq, lanes, rows)
+                run = lambda plan=plan: cuda_knn._nn1_cuda(src, tgt, plan)
+                same = all(torch.equal(a, c) for a, c in zip(run(), want))
+                label = f"lanes {lanes}, rows {rows}"
+                r["plans"][label] = p = {
+                    "ms": _cuda_ms(run, 50), "identical": same,
+                    "device_ms": sum(_profile_groups(run, 50).values())}
+                print(f"    {label}: {p['device_ms']:.4f} ms on the device, "
+                      f"{p['ms']:.4f} between calls, bit-equal to plain {same}")
+        if parent is not None:
+            fn = parent.nn1_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            d = torch.empty(b, nq, device="cuda")
+            i = torch.empty(b, nq, dtype=torch.int64, device="cuda")
+
+            def run_parent(fn=fn, d=d, i=i, src=src, tgt=tgt, b=b, nq=nq, m=m):
+                code = fn(ptr(src), ptr(tgt), ptr(d), ptr(i), b, nq, m, None)
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+                return d, i
+            p = run_parent()
+            r["parent"] = _timed(f"  the parent's kernel {key}", run_parent, 50)
+            r["bit_equal_to_parent"] = all(torch.equal(a, c) for a, c in zip(got, p))
+        print(f"  {key}: bit-equal to the plain version {r['bit_equal_to_plain']}"
+              + (f", to the parent {r['bit_equal_to_parent']}" if parent else ""))
+        result[key] = r
+    return result
+
+
 PROBES = {"knn_stream": probe_knn_stream, "icp": probe_icp,
-          "bwd_edge": probe_bwd_edge, "knn": probe_knn}
+          "bwd_edge": probe_bwd_edge, "knn": probe_knn,
+          "graph_stage1": probe_graph_stage1, "nn1": probe_nn1}
 
 
 def main():
@@ -508,8 +695,8 @@ def main():
     ap.add_argument("--probe", choices=tuple(PROBES), default=None,
                     help="time the kernel beside variants of it (see above)")
     ap.add_argument("--parent", default=None,
-                    help="with --probe knn_stream or knn: a tree of the "
-                         "commit with the kernel's earlier design")
+                    help="with --probe knn_stream, knn, graph_stage1 or nn1: a "
+                         "tree of the commit with the kernel's earlier design")
     args = ap.parse_args()
     if args.probe:
         if not torch.cuda.is_available():

@@ -9,6 +9,9 @@ fused MLP's launches (`cuda_dgcnn_bwd.bwd_stage_plan`,
 `cuda_mlp.pointmlp_plan`): shared memory, the persistent grid's shares and
 the partials' counts. The kernels themselves run only on the card
 (`tests/test_torch_kernels_gpu.py`)."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -413,6 +416,8 @@ def test_scatter_uses_more_blocks_than_clouds(B, N):
 
 from ogmm_tpu_torch.ops import cuda_knn  # noqa: E402
 
+CSRC = os.path.join(os.path.dirname(__file__), os.pardir, "ogmm_tpu_torch", "csrc")
+
 
 @pytest.mark.parametrize("B,N", [(48, 1433), (24, 717), (1, 1), (2, 90),
                                  (4, 1000), (3, 64), (3, 65)])
@@ -449,3 +454,145 @@ def test_knn_compiled_k_is_the_smallest_at_or_above_k():
         assert cuda_knn.knn_plan(1, 10, 40, k)["K"] == K
     # the paths' and the checks' k are compiled as they are
     assert [cuda_knn.knn_compiled_k(k) for k in (1, 5, 20, 32)] == [1, 5, 20, 32]
+
+
+# ------------------------------------------------------------ the dense 1-NN
+
+NN1_EDGE_SHAPES = [(1, 1, 1), (2, 5, 3), (1, 1, 4096), (24, 717, 4096)]
+NN1_PATH_SHAPES = [(24, 512, 717), (24, 128, 717), (24, 717, 717),
+                   (24, 1433, 1433)]
+# the queries leave SMs without a block: the C.1 check's clustering (16
+# nodes of N = 2048 at B = 4), requests of one cloud, a few queries
+NN1_FEW_QUERY_SHAPES = [(4, 16, 2048), (1, 128, 717), (1, 717, 717),
+                        (1, 1, 4096), (24, 16, 2048), (2, 16, 4096), (1, 100, 1000)]
+
+
+@pytest.mark.parametrize("B,N,M", NN1_EDGE_SHAPES + NN1_PATH_SHAPES)
+def test_nn1_plan_covers_every_pair_once(B, N, M):
+    # each query of each cloud belongs to one block's row of queries, and
+    # each target point to one lane of its query: the pair (query, point)
+    # is formed once
+    plan = cuda_knn.nn1_plan(B, N, H100_SMS)
+    assert plan.lanes in cuda_knn.NN1_LANES
+    assert plan.queries * plan.lanes == cuda_knn.NN1_THREADS * plan.rows
+    q_blocks = -(-N // plan.queries)
+    assert plan.blocks == q_blocks * B
+    queries = np.arange(q_blocks * plan.queries)
+    assert (queries[queries < N] == np.arange(N)).all()
+    seen = np.zeros(M, np.int64)
+    for sub in range(plan.lanes):
+        seen[sub::plan.lanes] += 1
+    assert (seen == 1).all()
+    # the whole target of a cloud sits in a block's shared memory
+    assert M * 16 <= cuda_knn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B,N,M", NN1_EDGE_SHAPES + NN1_PATH_SHAPES)
+def test_nn1_merge_order_is_fixed_by_the_shape(B, N, M):
+    # the plan is a function of the shape alone, and the lanes of a query
+    # merge by xor shuffles 1, 2, ..., lanes / 2: each lane ends with the
+    # least pair of all lanes, whatever the order of its partners
+    plan = cuda_knn.nn1_plan(B, N, H100_SMS)
+    cuda_knn.nn1_plan.cache_clear()
+    assert cuda_knn.nn1_plan(B, N, H100_SMS) == plan
+    lanes = [{sub} for sub in range(plan.lanes)]
+    o = 1
+    while o < plan.lanes:
+        lanes = [lanes[sub] | lanes[sub ^ o] for sub in range(plan.lanes)]
+        o <<= 1
+    assert all(held == set(range(plan.lanes)) for held in lanes)
+
+
+@pytest.mark.parametrize("B,N,M,lanes,rows", [
+    (24, 128, 717, 16, 1), (24, 1433, 1433, 8, 2), (24, 717, 717, 16, 2),
+    (24, 512, 717, 16, 2)])
+def test_nn1_plan_fills_the_card(B, N, M, lanes, rows):
+    # every SM has a block at the four path shapes; four each with the
+    # fewest lanes that give them (the ICP trips, the metrics); else the
+    # most lanes (the Welsch loss), one query a thread where two would leave
+    # SMs idle (the clustering's 128 queries a cloud: 192 blocks)
+    plan = cuda_knn.nn1_plan(B, N, H100_SMS)
+    assert (plan.lanes, plan.rows) == (lanes, rows)
+    assert plan.blocks >= H100_SMS
+    want = cuda_knn.NN1_BLOCKS_AN_SM * H100_SMS
+    assert plan.blocks >= want or lanes == cuda_knn.NN1_LANES[-1]
+    fewer = [n for n in cuda_knn.NN1_LANES if n < plan.lanes]
+    assert all(cuda_knn.nn1_plan_with(B, N, n, cuda_knn.NN1_PLAN_ROWS).blocks
+               < want for n in fewer)
+
+
+@pytest.mark.parametrize("B,N,M", [(24, 512, 717), (24, 717, 717), (24, 128, 717),
+                                   (24, 1433, 1433), (48, 1433, 1433),
+                                   (24, 717, 4096)])
+def test_nn1_plan_splits_nothing_where_the_queries_fill_the_card(B, N, M):
+    # one block row of queries takes the whole target of its cloud: the
+    # grid is the query blocks of the B clouds, and they fill the card
+    plan = cuda_knn.nn1_plan(B, N, H100_SMS)
+    assert plan.blocks == -(-N // plan.queries) * B >= H100_SMS
+
+
+@pytest.mark.parametrize("B,N,M", NN1_FEW_QUERY_SHAPES)
+def test_nn1_plan_takes_the_most_blocks_where_the_queries_leave_sms_idle(B, N, M):
+    # the target is not split (measured slower, PERF.md §6): the most lanes
+    # and one query a thread, the most blocks any compiled plan gives
+    plan = cuda_knn.nn1_plan(B, N, H100_SMS)
+    assert (plan.lanes, plan.rows) == (cuda_knn.NN1_LANES[-1], 1)
+    assert plan.blocks < H100_SMS
+    assert plan.blocks == max(cuda_knn.nn1_plan_with(B, N, lanes, rows).blocks
+                              for lanes in cuda_knn.NN1_LANES for rows in (1, 2))
+
+
+@pytest.mark.parametrize("B,N,M", NN1_EDGE_SHAPES)
+def test_nn1_plan_at_the_edge_shapes(B, N, M):
+    # a plan has a block, and a block has a query
+    plan = cuda_knn.nn1_plan(B, N, H100_SMS)
+    assert plan.blocks >= 1 and plan.queries >= 1
+    if plan.blocks < H100_SMS:
+        assert (plan.lanes, plan.rows) == (cuda_knn.NN1_LANES[-1], 1)
+
+
+def test_nn1_kernel_compiles_the_plans_nn1_plan_returns():
+    # csrc/nn1.cu instantiates NN1_PLANS: each (lanes, queries a thread)
+    # pair the plan can return, and no other
+    text = open(os.path.join(CSRC, "nn1.cu")).read()
+    line = re.search(r"#define NN1_PLANS\(X\)(.*)", text).group(1)
+    compiled = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", line)}
+    returned = {(p.lanes, p.rows) for B in (1, 4, 24, 48)
+                for N in (1, 16, 128, 512, 717, 1433, 4096)
+                for p in [cuda_knn.nn1_plan(B, N, H100_SMS)]}
+    assert compiled == returned
+
+
+# ------------------------------------------------- graph_stage1's edge pass
+
+from ogmm_tpu_torch.ops import cuda_dgcnn_train  # noqa: E402
+
+
+def edge_rows(rows: int, blocks: int, block: int):
+    """The rows block `block` of the edge pass writes, in its order: the
+    kernel's grid-stride loop (csrc/graph_stage1.cu), mirrored. Its
+    EDGE_ROWS rows of a step (one for each eight threads) start at block *
+    EDGE_ROWS + s * stride, s = 0, 1, ..., stride = blocks * EDGE_ROWS (a
+    thread takes two steps at once, which changes no row's block)."""
+    R = cuda_dgcnn_train.EDGE_ROWS
+    return [r for r0 in range(block * R, rows, blocks * R)
+            for r in range(r0, min(r0 + R, rows))]
+
+
+@pytest.mark.parametrize("B,k,N", [(24, 20, 717), (1, 20, 1024), (2, 8, 20),
+                                   (1, 8, 8), (3, 16, 90)])
+def test_edge_pass_writes_every_row_once(B, k, N):
+    # the grid-stride loop: block i takes rows i R, i R + 1, ... (R at a
+    # time, eight threads a row), then i R + blocks R, ...: every edge row
+    # (b, j, n) once, and each block's rows ascend
+    rows = B * k * N
+    blocks = cuda_dgcnn_train.edge_plan(B, k, N, H100_SMS)
+    assert 1 <= blocks <= cuda_dgcnn_train.EDGE_BLOCKS_AN_SM * H100_SMS
+    assert (blocks - 1) * cuda_dgcnn_train.EDGE_ROWS < rows
+    assert cuda_dgcnn_train.EDGE_ROWS * 8 == cuda_dgcnn_train.EDGE_THREADS
+    seen = np.zeros(rows, np.int64)
+    for i in range(blocks):
+        mine = edge_rows(rows, blocks, i)
+        assert mine == sorted(mine)
+        seen[mine] += 1
+    assert (seen == 1).all()

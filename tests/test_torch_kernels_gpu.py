@@ -26,6 +26,7 @@ from ogmm_tpu_torch.ops.cuda_knn import knn, knn_reference, nn1, nn1_reference
 from ogmm_tpu_torch.ops.cuda_posenc import (posenc_angles,
                                             posenc_angles_reference)
 from ogmm_tpu_torch.ops import cuda_fps, cuda_icp, cuda_mlp, cuda_stream, stream
+from ogmm_tpu_torch.ops import cuda_dgcnn, cuda_knn, cuda_posenc
 from ogmm_tpu_torch.ops.common import index_points
 from ogmm_tpu_torch.ops.cuda_dgcnn import dgcnn_edges, dgcnn_edges_reference
 from ogmm_tpu_torch.train import (create_train_state, make_train_step,
@@ -208,6 +209,98 @@ def test_nn1_kernel_refuses_what_it_does_not_take(card):
         nn1(torch.zeros(1, 8, 3, device=card), torch.zeros(1, 4097, 3, device=card))
     with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
         nn1(torch.zeros(1, 8, 2, device=card), torch.zeros(1, 9, 2, device=card))
+
+
+NN1_PATH_SHAPES = [(24, 512, 717), (24, 128, 717), (24, 717, 717),
+                   (24, 1433, 1433), (4, 16, 2048), (1, 128, 717), (1, 717, 717)]
+
+
+@pytest.mark.parametrize("B,Nq,M", NN1_PATH_SHAPES)
+def test_nn1_kernel_at_the_path_shapes_is_bit_equal_and_fixed(card, B, Nq, M):
+    # the Welsch loss, the clustering, the metrics, the N = 1433 ICP trips,
+    # the C.1 check's clustering (4 blocks) and requests of one cloud: the
+    # plain version's distances and indices, and a relaunch gives the same
+    # bits
+    rs = np.random.RandomState(Nq)
+    tgt = torch.tensor(rs.randn(B, M, 3).astype(np.float32) * 0.3, device=card)
+    src = torch.tensor(rs.randn(B, Nq, 3).astype(np.float32) * 0.3, device=card)
+    src[:, 0] = tgt[:, 3]                    # an exact hit: the clamp
+    d, i = nn1(src, tgt)
+    rd, ri = nn1_reference(src, tgt)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ri) and torch.equal(d, rd)
+    again = nn1(src, tgt)
+    assert torch.equal(again[0], d) and torch.equal(again[1], i)
+
+
+@pytest.mark.parametrize("lanes,rows", [(4, 2), (8, 2), (16, 2), (16, 1)])
+@pytest.mark.parametrize("M", [717, 9])
+def test_nn1_takes_the_first_of_equal_minima_across_lanes(card, lanes, rows, M):
+    # every compiled plan: a point duplicated at a low and a high index (in
+    # two lanes' runs), a cluster of targets within the 1e-12 clamp of a
+    # query spread over lanes; 9 points leave lanes without a point
+    rs = np.random.RandomState(lanes + rows + M)
+    tgt = rs.randn(3, M, 3).astype(np.float32) * 0.3
+    lo, hi, near = 5 % M, M - 1, [j % M for j in (200, 300, 400, 450)]
+    tgt[:, hi] = tgt[:, lo]
+    tgt[:, near] = tgt[:, [near[0]]] + rs.randn(3, 4, 3) * 1e-8
+    src = rs.randn(3, 40, 3).astype(np.float32) * 0.3
+    src[:, 0], src[:, 1], src[:, 2] = tgt[:, lo], tgt[:, hi], tgt[:, near[0]]
+    src, tgt = (torch.tensor(a, device=card) for a in (src, tgt))
+    plan = cuda_knn.nn1_plan_with(3, 40, lanes, rows)
+    d, i = cuda_knn._nn1_cuda(src, tgt, plan)
+    rd, ri = nn1_reference(src, tgt)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ri) and torch.equal(d, rd)
+    assert (i[:, :2] == lo).all() and (d[:, 2] == 1e-12).all()
+    again = cuda_knn._nn1_cuda(src, tgt, plan)
+    assert torch.equal(again[0], d) and torch.equal(again[1], i)
+
+
+@pytest.mark.parametrize("B,N", [(24, 717), (1, 1024), (2, 20)])
+@pytest.mark.parametrize("k", KERNEL_KS)
+@pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 0.0313)])
+def test_graph_stage1_kernel_every_k_matches_plain_and_is_fixed(card, B, N, k,
+                                                                dtype, lim):
+    rs = np.random.RandomState(N + k)
+    x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    x[:, N // 2] = x[:, 1]                   # a duplicated point: exact ties
+    w1 = torch.tensor(rs.randn(6, 64).astype(np.float32) / 2.5, device=card)
+    pk = min(5, k)
+    got = graph_stage1(x, w1, k, dtype, pk)
+    z1, e, idx, alpha = got
+    rz1, re, ridx, ralpha = graph_stage1_reference(x, w1, k, dtype, pk)
+    torch.cuda.synchronize()
+    assert z1.shape == (B, k, N, 64) and e.shape == (B, k, N, 6)
+    assert torch.equal(idx, ridx) and torch.equal(e, re)
+    assert (z1.float() - rz1.float()).abs().max().item() <= lim
+    assert (alpha - ralpha).abs().max().item() <= 1e-5
+    again = graph_stage1(x, w1, k, dtype, pk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,N,k", [(48, 717, 20), (2, 1024, 16), (3, 20, 8)])
+def test_dgcnn_eval_selection_equals_the_plain_graph(card, B, N, k):
+    x, ws, aff = _dgcnn_inputs(np.random.RandomState(N), card, B, N, 64)
+    x[:, N // 2] = x[:, 1]
+    idx = torch.empty(B, N, k, dtype=torch.int32, device=card)
+    cuda_dgcnn._dgcnn_eval_cuda(x, ws, aff, k, torch.bfloat16, min(5, k), idx=idx)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.long(), knn_reference(x, x, k))
+
+
+@pytest.mark.parametrize("B,N,k", [(24, 717, 5), (4, 1024, 5), (2, 50, 32),
+                                   (1, 20, 20), (2, 300, 7)])
+def test_posenc_angles_selection_equals_the_plain_one(card, B, N, k):
+    rs = np.random.RandomState(N + k)
+    x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    x[:, 10] = x[:, 3]
+    idx = torch.empty(B, N, k, dtype=torch.int32, device=card)
+    alpha = cuda_posenc._posenc_angles_cuda(x, k, idx=idx)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.long(), knn_reference(x, x, k))
+    assert (alpha - posenc_angles_reference(x, k)).abs().max().item() <= 1e-5
 
 
 def test_wrappers_count_their_launches(card):

@@ -122,16 +122,16 @@ def test_plain_routes_by_chunks_match_the_dense_route(monkeypatch):
                             src, tgt)
 
 
-def _dense_lanes(d, k):
-    """csrc/knn.cu's selection for one cloud: pass 1 takes, for each lane,
-    the ceil(K/4)-th smallest of the minima of its points of each 64-point
-    sub-tile, and T, the largest over the four lanes; pass 2 buffers each
-    lane's points at or below T and inserts them into the lanes' lists of
-    the compiled length K, the first k written. (The kernel also inserts,
-    and tightens the threshold, where a lane's buffer of 32 could overflow:
-    with T from the start, only where many points tie; here once at the
-    end.)"""
-    K = cuda_knn.knn_compiled_k(k)
+def _dense_lanes(d, k, K=None):
+    """The dense selection of csrc/knn_lanes.cuh for one cloud: pass 1
+    takes, for each lane, the ceil(K/4)-th smallest of the minima of its
+    points of each 64-point sub-tile, and T, the largest over the four
+    lanes; pass 2 buffers each lane's points at or below T and inserts them
+    into the lanes' lists of the compiled length K (default: the kNN
+    kernel's), the first k written. (The kernel also inserts, and tightens
+    the threshold, where a lane's buffer of 32 could overflow: with T from
+    the start, only where many points tie; here once at the end.)"""
+    K = cuda_knn.knn_compiled_k(k) if K is None else K
     N, M = d.shape
     q = -(-K // 4)
     thr0 = np.full(N, -np.inf)
@@ -162,3 +162,136 @@ def test_dense_knn_lanes_merged_by_rank_equal_plain(k, case):
     want = knn_reference(t(src), t(tgt), k)[0]
     assert (got >= 0).all()
     assert np.array_equal(got, n(want))
+
+
+def _kernel_centroid(x):
+    """csrc/knn_lanes.cuh's centroid of one cloud (N, 3) in float32: thread t
+    of 256 sums the points t, t + 256, ... in order, each warp of 32 sums
+    its threads by an xor shuffle tree, the eight warp sums add in order,
+    and the sum is divided by N."""
+    x = np.asarray(x, np.float32)
+    part = np.zeros((256, 3), np.float32)
+    for m in range(len(x)):
+        part[m % 256] += x[m]
+    warps = part.reshape(8, 32, 3)
+    for o in (16, 8, 4, 2, 1):
+        warps = warps + warps[:, np.arange(32) ^ o]
+    total = np.zeros(3, np.float32)
+    for w in range(8):
+        total += warps[w, 0]
+    return total / np.float32(len(x))
+
+
+def _kernel_angles(x, idx, pk, centroid):
+    """GraphOut's epilogue for one cloud in float32: cos(angle(q -> nbr,
+    q -> centroid)) of the first pk neighbours, each direction scaled by
+    1 / max(|v|, 1e-12)."""
+    x = np.asarray(x, np.float32)
+    g = x - centroid
+    g = g / np.maximum(np.sqrt((g * g).sum(-1, keepdims=True)), np.float32(1e-12))
+    v = x[idx[:, :pk]] - x[:, None]
+    v = v / np.maximum(np.sqrt((v * v).sum(-1, keepdims=True)), np.float32(1e-12))
+    return (v * g[:, None]).sum(-1)
+
+
+@pytest.mark.parametrize("N", [20, 64, 717, 1024])
+@pytest.mark.parametrize("k", [5, 8, 16, 20])
+def test_shared_selection_with_angles_equals_graph_and_angle_plain(N, k):
+    # the selection of csrc/knn_lanes.cuh with its angle epilogue, as the
+    # DGCNN graphs take it (K = k where the DGCNN kernels are compiled for
+    # k, pk = min(5, k), the centroid summed in the kernel) and as the angle
+    # kernel does (the kNN kernel's K, pk = k, the centroid given): the
+    # plain versions' indices bit for bit, their angles within 1e-5
+    from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS
+    from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_stage1_reference
+    rs = np.random.RandomState(N + k)
+    x = (rs.randn(1, N, 3) * 0.3).astype(np.float32)
+    x[:, N // 2] = x[:, 1]                   # a duplicated point: exact ties
+    d = n(tcommon.square_distance3(t(x), t(x)))[0]
+    w1 = t(rs.randn(6, 64) / 2.5)
+    pk = min(5, k)
+    _, _, ridx, ralpha = graph_stage1_reference(t(x), w1, k, torch.float32, pk)
+    got = _dense_lanes(d, k, K=k if k in KERNEL_KS else None)
+    assert np.array_equal(got, n(ridx)[0])
+    alpha = _kernel_angles(x[0], got, pk, _kernel_centroid(x[0]))
+    np.testing.assert_allclose(alpha, n(ralpha)[0], atol=1e-5)
+    # the angle kernel: the kNN kernel's list length, every neighbour's angle
+    got = _dense_lanes(d, k)
+    assert np.array_equal(got, n(knn_reference(t(x), t(x), k))[0])
+    alpha = _kernel_angles(x[0], got, k, x[0].mean(0))
+    np.testing.assert_allclose(alpha, n(posenc_angles_reference(t(x), k))[0],
+                               atol=1e-5)
+
+
+NN1_RUN = 8   # csrc/nn1.cu: BT, points of a lane's run
+
+
+def _nn1_lanes_mirror(d, lanes):
+    """csrc/nn1.cu for one cloud's (N, M) float32 distances (clamped at
+    1e-12) at `lanes` lanes a query: lane l of a query takes the points l,
+    l + lanes, ... in runs of NN1_RUN; the first run whose least distance is
+    below the lane's best becomes its best, and the lane's pair is the first
+    point of that run at that distance (an index past the target where it
+    has no point); the lanes merge by an xor shuffle tree on (distance,
+    index) pairs."""
+    N, M = d.shape
+
+    def least(a, b):
+        take = (b[0] < a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+        return np.where(take, b[0], a[0]), np.where(take, b[1], a[1])
+
+    pairs = []
+    for sub in range(lanes):
+        js = np.arange(sub, M, lanes)
+        bd = np.full(N, np.inf, np.float32)
+        bj = np.full(N, sub)
+        for s in range(0, len(js), NN1_RUN):
+            run = d[:, js[s:s + NN1_RUN]]
+            low = run.min(axis=1)
+            better = low < bd
+            first = js[s + np.argmax(run == low[:, None], axis=1)]
+            bd, bj = np.where(better, low, bd), np.where(better, first, bj)
+        pairs.append((bd, bj))
+    o = 1
+    while o < lanes:
+        pairs = [least(pairs[sub], pairs[sub ^ o]) for sub in range(lanes)]
+        o <<= 1
+    return pairs[0]
+
+
+@pytest.mark.parametrize("lanes", cuda_knn.NN1_LANES)
+@pytest.mark.parametrize("M", [717, 1000, 651, 9])
+def test_nn1_lanes_and_chunks_equal_plain(lanes, M):
+    # a point duplicated at a low and a high index in two lanes' runs, and
+    # several targets within the 1e-12 clamp of a query across lanes and
+    # runs; M not a multiple of the lanes or of a run (9 points: lanes
+    # without a point at 16 lanes)
+    rs = np.random.RandomState(lanes + M)
+    tgt = (rs.randn(2, M, 3) * 0.3).astype(np.float32)
+    lo, hi, near = 5 % M, M - 1, [j % M for j in (200, 300, 400, 450)]
+    tgt[:, hi] = tgt[:, lo]
+    tgt[:, near] = tgt[:, [near[0]]] + rs.randn(2, 4, 3) * 1e-8
+    src = (rs.randn(2, 40, 3) * 0.3).astype(np.float32)
+    src[:, 0], src[:, 1], src[:, 2] = tgt[:, lo], tgt[:, hi], tgt[:, near[0]]
+    rd, ri = cuda_knn.nn1_reference(t(src), t(tgt))
+    assert (n(ri)[:, :2] == lo).all() and (n(rd)[:, 2] == np.float32(1e-12)).all()
+    for b in range(2):
+        d = n(tcommon.square_distance3(t(src[b:b + 1]), t(tgt[b:b + 1])))[0]
+        got_d, got_i = _nn1_lanes_mirror(d, lanes)
+        assert np.array_equal(got_i, n(ri)[b]) and np.array_equal(got_d, n(rd)[b])
+
+
+@pytest.mark.parametrize("B,N,M", [(24, 128, 717), (2, 5, 3), (1, 1, 4096)])
+def test_nn1_plan_of_the_shape_equals_plain(B, N, M):
+    # the wrapper's own plan (16 lanes at the clustering's shape; more lanes
+    # than points at (2, 5, 3)), on the first two clouds of the shape
+    rs = np.random.RandomState(N + M)
+    tgt = (rs.randn(2, M, 3) * 0.3).astype(np.float32)
+    src = (rs.randn(2, N, 3) * 0.3).astype(np.float32)
+    src[:, 0] = tgt[:, M - 1]
+    plan = cuda_knn.nn1_plan(B, N, 132)
+    rd, ri = cuda_knn.nn1_reference(t(src), t(tgt))
+    for b in range(2):
+        d = n(tcommon.square_distance3(t(src[b:b + 1]), t(tgt[b:b + 1])))[0]
+        got_d, got_i = _nn1_lanes_mirror(d, plan.lanes)
+        assert np.array_equal(got_i, n(ri)[b]) and np.array_equal(got_d, n(rd)[b])

@@ -103,10 +103,11 @@ def knn_lanes_mirror(d, K, tiles, kout=None, window=KNN_SUBT, thr0=None):
         for m0, size in tiles(row):
             for s in range(0, size, window):
                 for lane, lst in enumerate(lists):
-                    for j in range(m0 + s + lane, m0 + min(s + window, size),
-                                   KNN_LANES):
-                        c = (float(d[row, j]), j)
-                        if c[0] <= thr and (len(lst) < K or c < lst[-1]):
+                    js = np.arange(m0 + s + lane, m0 + min(s + window, size),
+                                   KNN_LANES)
+                    for j in js[d[row, js] <= thr]:   # in order
+                        c = (float(d[row, j]), int(j))
+                        if len(lst) < K or c < lst[-1]:
                             bisect.insort(lst, c)
                             del lst[K:]
                 kth = [lst[K - 1][0] if len(lst) >= K else np.inf for lst in lists]
