@@ -81,10 +81,13 @@ fatal on failure:
              96 rows of 717, 128 steps; 24 pairs of 717, 30 trips; FPS also
              at the indoor request's 4 rows of 35,000 and 16 steps) and at
              awkward ones (float32, N not a multiple of the tile; N = 1433
-             and 35,000 with tied distances; N != M, a cloud without
-             inliers, M = 4096, 48 clouds): FPS ids and ICP's first-trip
-             correspondences identical, poses and outputs within limits, a
-             relaunch of ICP bit-equal, each ICP call's cluster shape
+             and 35,000 with tied distances, 35,000 at every compiled
+             cluster shape near the plan's, 140,000 on the L2 route, an
+             all-equal cloud; N != M, a cloud without inliers, M = 4096, 48
+             clouds): FPS ids and ICP's first-trip correspondences
+             identical, poses and outputs within limits, a relaunch of ICP
+             bit-equal, each FPS call's plan and each ICP call's cluster
+             shape
  15. serve_loops   the refined N=717 request of phase 3 through a
              Registrar with `loop_kernels=True` (FPS, ICP and the three
              attention MLPs through their kernels) beside one without, on
@@ -158,6 +161,7 @@ DEV = torch.device("cuda")
 B, N, EMB, K, KNN, POS_K = 24, 717, 512, 128, 20, 5
 N_LARGE = 1433           # ModelNet40's 2048-point clouds cropped to 0.70
 N_INDOOR = 35000         # an indoor fragment (7-Scenes, ICL-NUIM) cropped
+N_FPS_L2 = 140000        # FPS rows past what a cluster holds in registers
 
 # published peaks of one H100 SXM
 PEAK_BYTES = 3.35e12
@@ -556,8 +560,8 @@ def bwd_work(name, a, kw):
     s = z.element_size()
     m, C = z[..., 0].numel(), z.shape[-1]
     rows = z.shape[0] * z.shape[2]
-    if name == "bwd_reduce":
-        return (m * C * s + rows * C * s + 6 * C * 4 + 2 * C * 4, 0.0,
+    if name == "bwd_reduce":   # z, dtap and four statistics in; S out
+        return (m * C * s + rows * C * s + 4 * C * 4 + 2 * C * 4, 0.0,
                 14.0 * m * C)
     if name == "bwd_stage":
         cin = a[8].shape[-1]
@@ -615,6 +619,12 @@ def check_dgcnn_bwd(rs):
                  + sum(w[2] for w in work) / PEAK_FLOPS["f32"])
         t_bytes = nbytes / PEAK_BYTES
         device = {}
+        if name == "bwd_reduce":
+            # the one pass (its last block adds the partials), bf16 and float32
+            device = launch_ms(lambda: run(kern, bf), 10, {"reduce_ms": ("reduce_kernel",)})
+            device.update({f"f32_{k}": v for k, v in launch_ms(
+                lambda: run(kern, torch.float32), 5,
+                {"reduce_ms": ("reduce_kernel",)}).items()})
         if name == "bwd_stage":
             # each __global__ of the bf16 calls (stages 4, 3, 2: the one-pass
             # kernel; the partial sums), device time of one backward
@@ -1753,12 +1763,16 @@ def _fps_state(rs, x):
 
 def check_fps(rs):
     """The FPS kernel against its plain loop, identical ids: fps_combined's
-    96 rows of 717 points (the path's call), 2B clouds of 1433, the indoor
-    request's 4 rows of 35,000 (distances in L2), each with a duplicated
-    point; timed at the path's call and at 35,000, there at K steps and at
-    the indoor request's own km_clusters steps."""
-    shapes = [(2 * B, N), (2 * B, N_LARGE), (2, N_INDOOR)]
-    worst, timed = 0, {}
+    96 rows of 717 points (the path's call, a block a row), 2B clouds of
+    1433, the indoor request's 4 rows of 35,000 (a cluster a row, also at
+    every compiled cluster shape near the plan's), 4 rows past what a
+    cluster holds in registers (the L2 route), each with a duplicated point,
+    and an all-equal cloud; each call's plan; timed at the path's call and
+    at 35,000, there at K steps and at the indoor request's own km_clusters
+    steps."""
+    shapes = [(2 * B, N), (2 * B, N_LARGE), (2, N_INDOOR), (2, N_FPS_L2)]
+    worst, timed, plans = 0, {}, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, n in shapes:
         xs, dist, start = _fps_state(rs, _cloud(rs, b, n))
         got = cuda_fps.fps(xs, K, dist, start)
@@ -1766,9 +1780,26 @@ def check_fps(rs):
         want = cuda_fps.fps_reference(xs, K, dist, start)
         same = torch.equal(got, want)
         worst = max(worst, (got - want).abs().max().item())
-        print(f"fps ({2 * b} rows of {n}, {K} steps): ids identical {same}")
+        plans[n] = cuda_fps.fps_plan(2 * b, n, sms)
+        print(f"fps ({2 * b} rows of {n}, {K} steps): ids identical {same}; plan "
+              f"{plans[n]._asdict()}")
         assert same and got.dtype == torch.int64
         timed[n] = (xs, dist, start)
+    assert plans[N_FPS_L2].route == "l2" and plans[N_INDOOR].cluster > 1
+    xs, dist, start = timed[N_INDOOR]
+    want = cuda_fps.fps_reference(xs, K, dist, start)
+    for plan in cuda_fps.compiled_plans(4, N_INDOOR, sms):
+        same = torch.equal(cuda_fps._fps_cuda(xs, K, dist, start, plan), want)
+        print(f"fps (4 rows of {N_INDOOR}) at plan {plan._asdict()}: ids identical {same}")
+        assert same
+    flat = torch.full((4, N_INDOOR, 3), 0.25, device=DEV)   # every distance ties
+    for n in (N, N_INDOOR):
+        d0 = torch.full((4, n), 1e10, device=DEV)
+        s0 = torch.tensor([0, 1, n // 2, n - 1], device=DEV)
+        same = torch.equal(cuda_fps.fps(flat[:, :n], K, d0, s0),
+                           cuda_fps.fps_reference(flat[:, :n], K, d0, s0))
+        print(f"fps (4 equal rows of {n}): ids identical {same}")
+        assert same
     xs, dist, start = timed[N]
     ms = cuda_ms(lambda: cuda_fps.fps(xs, K, dist, start), 20)
     plain = cuda_ms(lambda: cuda_fps.fps_reference(xs, K, dist, start), 3)
@@ -1796,6 +1827,7 @@ def check_fps(rs):
           f"ms, bound {bound_in_path:.5f} ms ({by_in_path})")
     return {"name": "fps", "route": "cuda", "source": "ogmm_tpu_torch/csrc/fps.cu",
             "replaces": "ogmm_tpu/ops/pallas_fps.py:74",
+            "plan": plans[N]._asdict(), "plan_indoor_rows": plans[N_INDOOR]._asdict(),
             "max_abs_err": float(worst), "ms": ms, "ms_indoor_rows": ms_indoor,
             "bound_ms_indoor_rows": bound_in, "ms_indoor_path": ms_indoor_path,
             "steps_indoor_path": k_in, "bound_ms_indoor_path": bound_in_path,

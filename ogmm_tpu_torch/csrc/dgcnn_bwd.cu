@@ -19,7 +19,11 @@
 // and edge_wgmma_kernel, described where they are defined): TMA-fed tiles,
 // resident weights, a persistent grid, the weight gradient held in registers
 // across a block's tiles; dz_1 never leaves shared memory. The reduce (both
-// types) and the float32 stages run a few kernels on the wrapper's stream:
+// types) is one pass of its own (reduce_kernel, described where it is
+// defined): only each column's max-over-k argmax row contributes to its
+// sums, so a thread streams a point's rows as 16-byte loads and keeps one
+// running argmax a channel. The float32 stages run a few kernels on the
+// wrapper's stream:
 //  1. rows_kernel: a fixed grid of ROW_BLOCKS blocks walks the tiles in a
 //     fixed order. Per tile, in shared memory:
 //       - extra = dz_{i+1} . W_{i+1}^T (dz_{i+1} staged in 16-byte loads, W
@@ -28,22 +32,22 @@
 //         forward formed it (bn_y: a rounding to T after the subtract, the
 //         multiply and the add, no contraction, as eager PyTorch), the first
 //         argmax of h over k, dh = extra (+ dtap at the argmax, rounded),
-//         dy = ReLU-VJP (half at 0), then either the sums (reduce) or
-//         dz = inv gamma (dy - S1/m - zhat S2/m) (stage, edge);
+//         dy = ReLU-VJP (half at 0), then dz = inv gamma (dy - S1/m -
+//         zhat S2/m);
 //       - stage: dh_{i-1} = dz . W_i^T, the max-VJP of the tap below with
 //         h_{i-1} recomputed from z_{i-1}, dy_{i-1} and its sums;
 //       - edge: de = dz . W_1^T in float32, dq = sum_k (de[3:] - de[:3]) and
 //         de[:3] per row to a scratch array.
 //     The sums go to one partial per block, reduced in the block in thread
 //     order; sum_parts_kernel adds the partials in block order.
-//  2. float32 stage and edge: dw_kernel: dW = h_{i-1}^T dz (h_{i-1}
-//     recomputed from z_{i-1}; e for stage 1) as a split-K product over the
-//     m = B KNN N rows, one float32 partial per split, added in split order.
+//  2. dw_kernel: dW = h_{i-1}^T dz (h_{i-1} recomputed from z_{i-1}; e for
+//     stage 1) as a split-K product over the m = B KNN N rows, one float32
+//     partial per split, added in split order.
 // Both edge routes end with scatter_kernel: dscat[b, p] = sum of de[:3] over
 // the rows (b, j, n) with idx[b, n, j] == p, taken in (j, n) order, a block
 // for each range of SCAT_P points of a cloud, its lists filled in that order.
-// No float atomics anywhere, so two launches on the same input give the same
-// bits.
+// No float atomics anywhere (the reduce's last block takes an integer
+// ticket), so two launches on the same input give the same bits.
 //
 // Every product of the TPU kernel's body is computed here: for bf16 on wgmma
 // (bf16 operands, float32 accumulation), for float32 on the CUDA cores.
@@ -52,7 +56,7 @@
 // does about 93 GFLOP, mostly bf16 products: the bytes bound it (about 0.4
 // ms at 3.35 TB/s). The bf16 edge call alone needs about 104 MB: z_1, dz_2
 // (44 MB each), e, idx and dtap read once, dneigh (4 MB) written and read
-// once; 0.031 ms.
+// once; 0.031 ms. The bf16 reduce reads z_4 (176 MB) and dtap once: 0.055 ms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -72,7 +76,7 @@
 #define RC 32            // rows a step of the weight-gradient kernel
 #define DW_BLOCKS 264    // blocks of the weight-gradient kernel, about
 
-enum { REDUCE = 0, STAGE = 1, EDGE = 2 };
+enum { STAGE = 1, EDGE = 2 };
 
 template <typename T>
 __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
@@ -88,11 +92,14 @@ struct BnC {
       mean = bn[3 * C + c]; inv = bn[4 * C + c]; ig = bn[5 * C + c];
     }
   }
+  // the three constants bn_y reads
+  __device__ BnC(float m, float s, float b) : mean_t(m), scale_t(s), beta_t(b) {}
 };
 
 // The same constants formed from the float32 batch statistics by the
 // operations of ops/cuda_dgcnn_bwd.py:_bn_pack (rsqrt, then the products and
-// the bf16 roundings), for the kernels that take the statistics as they are.
+// the roundings to T), for the kernels that take the statistics as they are.
+template <typename T>
 __device__ __forceinline__ BnC bn_stats(const float* __restrict__ mean,
                                         const float* __restrict__ var,
                                         const float* __restrict__ gamma,
@@ -101,9 +108,9 @@ __device__ __forceinline__ BnC bn_stats(const float* __restrict__ mean,
   k.mean = mean[c];
   k.inv = rsqrtf(__fadd_rn(var[c], 1e-5f));
   k.ig = __fmul_rn(k.inv, gamma[c]);
-  k.mean_t = rnd<__nv_bfloat16>(k.mean);
-  k.scale_t = rnd<__nv_bfloat16>(k.ig);
-  k.beta_t = rnd<__nv_bfloat16>(beta[c]);
+  k.mean_t = rnd<T>(k.mean);
+  k.scale_t = rnd<T>(k.ig);
+  k.beta_t = rnd<T>(beta[c]);
   return k;
 }
 
@@ -197,7 +204,7 @@ __host__ __device__ constexpr int e_cols() {
 // de), RED (the block's sums)
 template <typename T, int C, int CIN, int CN, int MODE>
 __host__ __device__ constexpr size_t rows_smem() {
-  return (CN > 0 || MODE != REDUCE ? align16(sizeof(T) * ROWS * lda_of<CN, C>()) : 0)
+  return align16(sizeof(T) * ROWS * lda_of<CN, C>())
        + align16(sizeof(T) * ROWS * e_cols<C, CIN, CN, MODE>())
        + (MODE == EDGE ? align16(sizeof(float) * ROWS * 6) : 0)
        + sizeof(float) * 2 * NT;
@@ -217,8 +224,7 @@ rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
   constexpr int CS = MODE == STAGE ? CIN : C;          // channels of the sums
   extern __shared__ __align__(16) unsigned char smem[];
   T* A = reinterpret_cast<T*>(smem);
-  T* E = reinterpret_cast<T*>(
-      smem + (CN > 0 || MODE != REDUCE ? align16(sizeof(T) * ROWS * LDA) : 0));
+  T* E = reinterpret_cast<T*>(smem + align16(sizeof(T) * ROWS * LDA));
   float* DE = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(E)
       + align16(sizeof(T) * ROWS * e_cols<C, CIN, CN, MODE>()));
@@ -232,11 +238,7 @@ rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
   // the channels this thread owns are fixed: c = tid % C, cin = tid % CIN
   const int c = tid % C;
   const BnC kc(bn, C, c);
-  float a1 = 0.f, a2 = 0.f;
-  if constexpr (MODE != REDUCE) {
-    a1 = __fdiv_rn(s12[c], m);
-    a2 = __fdiv_rn(s12[C + c], m);
-  }
+  const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
   const int cp = MODE == STAGE ? tid % CIN : 0;
   const BnC kp(MODE == STAGE ? bnp : bn, MODE == STAGE ? CIN : C, MODE == STAGE ? cp : c);
   float s1 = 0.f, s2 = 0.f;
@@ -272,16 +274,11 @@ rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
         if (j == am) dh = rnd<T>(__fadd_rn(tap, dh));
         const float dy = relu_vjp<T>(dh, y[j]);
         const float zh = zhat(zf[j], kc);
-        if constexpr (MODE == REDUCE) {
-          s1 = __fadd_rn(s1, dy);
-          s2 = __fadd_rn(s2, __fmul_rn(dy, zh));
-        } else {
-          const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1),
-                                                     __fmul_rn(zh, a2)));
-          const T dzt = from_f<T>(d);
-          dz_out[((b * KNN + j) * N + n) * C + c] = dzt;
-          A[r * LDA + c] = dzt;
-        }
+        const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1),
+                                                   __fmul_rn(zh, a2)));
+        const T dzt = from_f<T>(d);
+        dz_out[((b * KNN + j) * N + n) * C + c] = dzt;
+        A[r * LDA + c] = dzt;
       }
     }
 
@@ -337,7 +334,7 @@ rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
     __syncthreads();      // the next tile overwrites A and E
   }
 
-  if constexpr (MODE != EDGE) {   // the block's sums, in thread order
+  if constexpr (MODE == STAGE) {   // the block's sums, in thread order
     RED[tid] = s1;
     RED[NT + tid] = s2;
     __syncthreads();
@@ -358,6 +355,211 @@ sum_parts_kernel(const float* __restrict__ part, int G, int L, float* __restrict
   float s = 0.f;
   for (int g = 0; g < G; ++g) s = __fadd_rn(s, part[(size_t)g * L + i]);
   out[i] = s;
+}
+
+// ------------------------------------------------------------- the reduce
+//
+// bwd_reduce has no cotangent from above, so dh is 0 on every row but the
+// max-over-k argmax of its column, where it is rnd(dtap), and ReLU-VJP(0, y)
+// is 0: of a column's KNN rows only the argmax row adds to S1 and S2
+// (pallas_dgcnn_train.py:_bwd_reduce_kernel states it densely). A thread owns
+// RED_CH adjacent channels of one point (b, n), a warp 256 contiguous
+// channels (256 / C points), and streams the point's KNN rows as 16-byte
+// loads (one a row for bf16, two for float32), U rows in flight at once,
+// keeping for each channel only the running first argmax of max(y, 0): its
+// bits as an integer key (negative y and -0 below every key of y >= 0), z
+// there, and whether y of row 0 is 0 (the argmax where every y <= 0). Then
+// one contribution a column: dy = ReLU-VJP(rnd(dtap), y_am), S1 += dy,
+// S2 += dy zhat(z_am). bf16 forms y two channels at a time
+// (sub/mul/add.rn.bf16x2: each a single rounding of the exact result, the
+// float32 operation then the rounding to bf16 of the plain version, bit for
+// bit); float32 with __fsub_rn/__fmul_rn/__fadd_rn. The BN constants come
+// from the statistics in the kernel (bn_stats). A persistent grid of one
+// block an SM (ops/cuda_dgcnn_bwd.py:reduce_plan) walks the points in (b, n)
+// order, block i the range [i P / G, (i + 1) P / G); the block adds its
+// threads' sums in thread order into one partial, and the last block to
+// finish (an integer ticket, reset by that block) adds the partials in block
+// order. No float atomics: two launches give the same bits.
+#define RED_NT 512                 // threads of a reduce block
+#define RED_W (RED_NT / 32)
+#define RED_CH 8                   // adjacent channels a thread
+
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// y = BN(z) of two bf16 channels, a rounding to bf16 after each operation
+__device__ __forceinline__ uint32_t bn_y2(uint32_t z, uint32_t m, uint32_t s, uint32_t b) {
+  uint32_t y;
+  asm("{\n\t.reg .b32 t;\n\t"
+      "sub.rn.bf16x2 t, %1, %2;\n\t"
+      "mul.rn.bf16x2 t, t, %3;\n\t"
+      "add.rn.bf16x2 %0, t, %4;\n\t}"
+      : "=r"(y) : "r"(z), "r"(m), "r"(s), "r"(b));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(RED_NT, 1)
+reduce_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
+              const float* __restrict__ mean, const float* __restrict__ var,
+              const float* __restrict__ gamma, const float* __restrict__ beta,
+              float* __restrict__ part, unsigned* __restrict__ ticket,
+              float* __restrict__ s, int B, int N, int tstride) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int TPP = C / RED_CH;            // threads a point
+  constexpr int PPW = 32 / TPP;              // points a warp takes at once
+  constexpr int V = BF ? 1 : 2;              // 16-byte loads a row
+  constexpr int U = BF ? 10 : 4;             // rows in flight
+  constexpr int L = 2 * C, SL = RED_NT / L;  // outputs; slices of the last sum
+  static_assert(KNN % U == 0 && RED_NT % L == 0 && 32 % TPP == 0, "shapes");
+  __shared__ float red[RED_NT][2 * RED_CH + 1];
+  __shared__ float2 szh[C];                  // (mean, inv) of each channel
+  __shared__ bool last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = RED_CH * (lane % TPP);
+
+  for (int c = tid; c < C; c += RED_NT) {
+    const BnC k = bn_stats<T>(mean, var, gamma, beta, c);
+    szh[c] = make_float2(k.mean, k.inv);
+  }
+  float mt[RED_CH], st[RED_CH], bt[RED_CH];
+  uint32_t m2[RED_CH / 2], s2[RED_CH / 2], b2[RED_CH / 2];
+#pragma unroll
+  for (int e = 0; e < RED_CH; ++e) {
+    const BnC k = bn_stats<T>(mean, var, gamma, beta, c0 + e);
+    mt[e] = k.mean_t; st[e] = k.scale_t; bt[e] = k.beta_t;
+  }
+#pragma unroll
+  for (int q = 0; q < RED_CH / 2; ++q) {
+    m2[q] = pack2(mt[2 * q], mt[2 * q + 1]);
+    s2[q] = pack2(st[2 * q], st[2 * q + 1]);
+    b2[q] = pack2(bt[2 * q], bt[2 * q + 1]);
+  }
+  __syncthreads();
+
+  float a1[RED_CH], a2[RED_CH];
+#pragma unroll
+  for (int e = 0; e < RED_CH; ++e) a1[e] = a2[e] = 0.f;
+  const int P = B * N;
+  const int p0 = (int)((long long)P * blockIdx.x / gridDim.x);
+  const int p1 = (int)((long long)P * (blockIdx.x + 1) / gridDim.x);
+  const size_t rstride = (size_t)N * C;      // elements from row j to j + 1
+  for (int p = p0 + warp * PPW + lane / TPP; p < p1; p += RED_W * PPW) {
+    const int b = p / N, n = p - b * N;
+    const T* zp = z + ((size_t)b * KNN * N + n) * C + c0;
+    uint4 tap[V];
+#pragma unroll
+    for (int h = 0; h < V; ++h)
+      tap[h] = ld_stream(reinterpret_cast<const uint4*>(dtap + (size_t)p * tstride + c0) + h);
+    int best[RED_CH];
+    uint32_t zam[RED_CH];      // the word holding z at the argmax
+    unsigned zero0 = 0;        // bit e: y of row 0 is 0
+#pragma unroll
+    for (int j0 = 0; j0 < KNN; j0 += U) {
+      uint4 v[U][V];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int h = 0; h < V; ++h)
+          v[u][h] = ld_stream(reinterpret_cast<const uint4*>(zp + (j0 + u) * rstride) + h);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+#pragma unroll
+        for (int e = 0; e < RED_CH; ++e) {
+          uint32_t w;
+          int key;
+          if constexpr (BF) {
+            w = word(v[u][0], e / 2);
+            const uint32_t y = bn_y2(w, m2[e / 2], s2[e / 2], b2[e / 2]);
+            key = (int)(e % 2 ? y & 0xffff0000u : y << 16);
+          } else {
+            w = word(v[u][e / 4], e % 4);
+            key = __float_as_int(bn_y<float>(__uint_as_float(w), BnC(mt[e], st[e], bt[e])));
+          }
+          if (j == 0) {
+            best[e] = max(key, 0);
+            zam[e] = w;
+            zero0 |= (key & 0x7fffffff) == 0 ? 1u << e : 0u;
+          } else if (key > best[e]) {
+            best[e] = key;
+            zam[e] = w;
+          }
+        }
+      }
+    }
+    // one contribution a column
+#pragma unroll
+    for (int e = 0; e < RED_CH; ++e) {
+      float zf, g;
+      if constexpr (BF) {
+        zf = __uint_as_float(e % 2 ? zam[e] & 0xffff0000u : zam[e] << 16);
+        const uint32_t tw = word(tap[0], e / 2);
+        g = __uint_as_float(e % 2 ? tw & 0xffff0000u : tw << 16);
+      } else {
+        zf = __uint_as_float(zam[e]);
+        g = __uint_as_float(word(tap[e / 4], e % 4));
+      }
+      const float dh = rnd<T>(__fadd_rn(g, 0.f));
+      const float dy = best[e] > 0 ? dh : (zero0 >> e & 1u) ? rnd<T>(__fmul_rn(0.5f, dh)) : 0.f;
+      const float2 k = szh[c0 + e];
+      a1[e] = __fadd_rn(a1[e], dy);
+      a2[e] = __fadd_rn(a2[e], __fmul_rn(dy, __fmul_rn(__fsub_rn(zf, k.x), k.y)));
+    }
+  }
+
+  // the block's partial: each channel's threads in thread order
+#pragma unroll
+  for (int e = 0; e < RED_CH; ++e) {
+    red[tid][e] = a1[e];
+    red[tid][RED_CH + e] = a2[e];
+  }
+  __syncthreads();
+  if (tid < L) {
+    const int which = tid / C, ch = tid % C, g = ch / RED_CH, e = ch % RED_CH;
+    float v = 0.f;
+    for (int w = 0; w < RED_W; ++w)
+#pragma unroll
+      for (int q = 0; q < PPW; ++q)
+        v = __fadd_rn(v, red[w * 32 + q * TPP + g][which * RED_CH + e]);
+    part[(size_t)blockIdx.x * L + tid] = v;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block: the partials in block order, SL slices of them at once
+  __threadfence();
+  {
+    const int o = tid % L, k = tid / L, G = gridDim.x;
+    float v = 0.f;
+#pragma unroll 8
+    for (int gg = G * k / SL; gg < G * (k + 1) / SL; ++gg)
+      v = __fadd_rn(v, __ldcg(part + (size_t)gg * L + o));
+    red[tid][0] = v;
+  }
+  __syncthreads();
+  if (tid < L) {
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < SL; ++k) v = __fadd_rn(v, red[k * L + tid][0]);
+    s[tid] = v;
+  }
+  if (tid == 0) *ticket = 0u;
 }
 
 // part[split][i][j] = sum over the split's rows r of h[r][i] dz[r][j], with
@@ -804,8 +1006,8 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
 
   // the channels of this lane's columns are fixed; h is its parity
   const int h = tid & 1, c = (tid >> 1) % C, cp = (tid >> 1) % CIN;
-  const BnC kc = bn_stats(st.p[0], st.p[1], st.p[2], st.p[3], c);
-  const BnC kp = bn_stats(st.p[4], st.p[5], st.p[6], st.p[7], cp);
+  const BnC kc = bn_stats<bf16>(st.p[0], st.p[1], st.p[2], st.p[3], c);
+  const BnC kp = bn_stats<bf16>(st.p[4], st.p[5], st.p[6], st.p[7], cp);
   const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
   float s1 = 0.f, s2 = 0.f;
   float dw[DWN / 2];
@@ -1029,7 +1231,7 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
   if (tid < WROWS && tile0 < tile1) load_e(tile0);
 
   const int h = tid & 1, c = (tid >> 1) % C;
-  const BnC kc = bn_stats(st.p[0], st.p[1], st.p[2], st.p[3], c);
+  const BnC kc = bn_stats<bf16>(st.p[0], st.p[1], st.p[2], st.p[3], c);
   const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
   float dw[32];
 #pragma unroll
@@ -1206,25 +1408,36 @@ extern "C" int dgcnn_bwd_dw_splits(int m, int cin, int C) {
   return dw_splits(m, cin, C, nullptr);
 }
 
-extern "C" int bwd_reduce_launch(const void* z, const void* dtap,
-                                 const float* bn, float* part, float* s,
-                                 int B, int N, int C, int is_bf16,
-                                 void* stream) {
+// bwd_reduce, both types: reduce_kernel over `blocks` blocks
+// (ops/cuda_dgcnn_bwd.py:reduce_plan), part (blocks, 2, C) float32 scratch,
+// ticket one zeroed unsigned the kernel leaves zeroed, s (2, C). The batch
+// statistics come as they are, float32; dtap's points lie tstride elements
+// apart (C, or the width of the concatenated taps it is a slice of), its
+// rows 16-byte aligned.
+extern "C" int bwd_reduce_launch(const void* z, const void* dtap, const float* mean,
+                                 const float* var, const float* gamma,
+                                 const float* beta, float* part, unsigned* ticket,
+                                 float* s, int B, int N, int C, int tstride,
+                                 int is_bf16, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaErrorInvalidValue;
-#define R(c)                                                                         \
-  if (C == c)                                                                        \
-    err = is_bf16 ? launch_rows<__nv_bfloat16, c, c, 0, REDUCE>(                     \
-                        z, dtap, bn, nullptr, nullptr, nullptr, nullptr, nullptr,    \
-                        nullptr, nullptr, nullptr, part, nullptr, nullptr, B, N, st) \
-                  : launch_rows<float, c, c, 0, REDUCE>(                             \
-                        z, dtap, bn, nullptr, nullptr, nullptr, nullptr, nullptr,    \
-                        nullptr, nullptr, nullptr, part, nullptr, nullptr, B, N, st);
+  if (B < 1 || N < 1 || (long long)B * N > INT_MAX || blocks < 1 || blocks > B * N ||
+      tstride < C || tstride * (is_bf16 ? 2 : 4) % 16 != 0 || (uintptr_t)dtap % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+#define R(c)                                                                           \
+  if (C == c) {                                                                        \
+    if (is_bf16)                                                                       \
+      reduce_kernel<__nv_bfloat16, c><<<blocks, RED_NT, 0, st>>>(                      \
+          (const __nv_bfloat16*)z, (const __nv_bfloat16*)dtap, mean, var, gamma, beta, \
+          part, ticket, s, B, N, tstride);                                             \
+    else                                                                               \
+      reduce_kernel<float, c><<<blocks, RED_NT, 0, st>>>(                              \
+          (const float*)z, (const float*)dtap, mean, var, gamma, beta, part, ticket, s, \
+          B, N, tstride);                                                              \
+    return (int)cudaGetLastError();                                                    \
+  }
   R(64) R(128) R(256)
 #undef R
-  if (err != cudaSuccess) return (int)err;
-  return (int)sum_parts(part, row_blocks(B, N), 2 * C, s, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // a (C, N, B KNN) view of a (B, KNN, N, C) bf16 stage tensor, boxes of (64

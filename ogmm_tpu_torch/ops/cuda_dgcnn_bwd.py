@@ -30,16 +30,20 @@ operands with float32 accumulation, rounded to the compute dtype where the
 result is (dz W^T) and kept in float32 where it is not (dW, de).
 
 On a CUDA tensor each wrapper launches its kernel in `csrc/dgcnn_bwd.cu`
-(k = 20, N <= 1024, the stage widths of the DGCNN); on a CPU tensor it runs
-the plain version. The bf16 stage and edge kernels are one pass each on
-wgmma over a persistent grid (`bwd_stage_plan`, `bwd_edge_plan`); the
-float32 ones a row pass and a weight-gradient pass on the CUDA cores. Both
-edge routes end with the neighbour scatter, a block for each range of
-`SCATTER_POINTS` points of a cloud (`scatter_plan`).
+(k = 20, the stage widths of the DGCNN, N <= 1024 for the stage and edge
+kernels, any N for the reduce); on a CPU tensor it runs
+the plain version. The reduce is one pass over a persistent grid for both
+dtypes (`reduce_plan`): only each column's max-over-k argmax row adds to
+its sums. The bf16 stage and edge kernels are one pass each on wgmma over a
+persistent grid (`bwd_stage_plan`, `bwd_edge_plan`); the float32 ones a row
+pass and a weight-gradient pass on the CUDA cores. Both edge routes end
+with the neighbour scatter, a block for each range of `SCATTER_POINTS`
+points of a cloud (`scatter_plan`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -60,6 +64,9 @@ SMEM_LIMIT = 232_448  # shared memory a block may use on an H100
 STAGE_TN, STAGE_BLOCKS = 4, 132
 # the scatter (csrc/dgcnn_bwd.cu:scatter_kernel): points and warps of a block
 SCATTER_POINTS, SCATTER_WARPS = 256, 16
+# the reduce (csrc/dgcnn_bwd.cu:reduce_kernel): threads of a block, adjacent
+# channels a thread
+REDUCE_THREADS, REDUCE_CHANNELS = 512, 8
 
 
 # ----------------------------------------------------------- shared algebra
@@ -182,9 +189,9 @@ def _bn_pack(mean, var, gamma, beta, dt):
     """(6, C) float32 per-channel constants, formed by the same PyTorch
     operations as `bn_apply` and `bn_dz` so that the kernel's recomputed h
     is the plain version's bit for bit: mean, inv gamma and beta in the
-    compute dtype, then mean, inv and inv gamma in float32. (The bf16 stage
-    kernel forms the same values itself from the statistics,
-    `csrc/dgcnn_bwd.cu:bn_stats`.)"""
+    compute dtype, then mean, inv and inv gamma in float32. (The reduce
+    and the bf16 stage and edge kernels form the same values themselves
+    from the statistics, `csrc/dgcnn_bwd.cu:bn_stats`.)"""
     mean, var, gamma, beta = (a.detach().float() for a in (mean, var, gamma, beta))
     inv = torch.rsqrt(var + EPS)
     ig = inv * gamma
@@ -199,10 +206,12 @@ def _w_t(w, dt):
     return w.detach().to(dt).float().t().contiguous()
 
 
-def _check(name, z, dtap, *others):
-    if z.dim() != 4 or z.shape[1] != KERNEL_K or not 1 <= z.shape[2] <= KERNEL_MAX_N:
-        raise ValueError(f"{name} kernel takes z of shape (B, {KERNEL_K}, N, C) "
-                         f"with N <= {KERNEL_MAX_N}; got {tuple(z.shape)}")
+def _check(name, z, dtap, *others, max_n=KERNEL_MAX_N):
+    if (z.dim() != 4 or z.shape[1] != KERNEL_K or z.shape[2] < 1
+            or (max_n is not None and z.shape[2] > max_n)):
+        raise ValueError(f"{name} kernel takes z of shape (B, {KERNEL_K}, N, C)"
+                         + (f" with N <= {max_n}" if max_n else "")
+                         + f"; got {tuple(z.shape)}")
     if z.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name} kernel: dtype {z.dtype} not supported")
     B, _, N, C = z.shape
@@ -296,18 +305,86 @@ def scatter_plan(B: int, N: int) -> dict:
             "smem": 4 * ((SCATTER_WARPS + 2) * per + SCATTER_WARPS + KERNEL_K * N)}
 
 
+@functools.lru_cache(maxsize=None)
+def reduce_plan(B: int, N: int, C: int, n_sm: int) -> dict:
+    """The reduce kernel's launch, mirroring `csrc/dgcnn_bwd.cu:
+    reduce_kernel`: a thread owns REDUCE_CHANNELS adjacent channels of one
+    point, a warp 256 channels (`points_a_warp` points at once); a
+    persistent grid of at most one block an SM, no more blocks than the
+    B N points give each warp one round; one float32 partial of (2, C) a
+    block."""
+    warps = REDUCE_THREADS // 32
+    ppw = 32 * REDUCE_CHANNELS // C
+    blocks = max(1, min(n_sm, -(-(B * N) // (warps * ppw))))
+    return {"blocks": blocks, "threads": REDUCE_THREADS, "points_a_warp": ppw,
+            "part": (blocks, 2, C)}
+
+
+def reduce_order(B: int, N: int, C: int, blocks: int) -> list:
+    """The points p = b N + n each block of the reduce kernel takes, in the
+    order its warps' rounds take them: block i owns [i P / G, (i + 1) P / G)
+    of the P = B N points, and round r of warp w takes the points_a_warp
+    points from p0 + (r W + w) points_a_warp."""
+    P, warps = B * N, REDUCE_THREADS // 32
+    ppw = 32 * REDUCE_CHANNELS // C
+    order = []
+    for i in range(blocks):
+        p0, p1 = P * i // blocks, P * (i + 1) // blocks
+        order.append([p for r in range(p0, p1, warps * ppw)
+                      for w in range(warps) for q in range(ppw)
+                      if (p := r + w * ppw + q) < p1])
+    return order
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# one zeroed unsigned a (device, stream): the reduce's last block takes its
+# ticket from it and leaves it zeroed for the next launch on that stream
+_tickets: dict = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    t = _tickets.get((device.index, stream))
+    if t is None:
+        t = _tickets[(device.index, stream)] = torch.zeros(
+            1, dtype=torch.int32, device=device)
+    return t
+
+
+def _rows_in_place(t):
+    """Whether a (B, N, C) tensor's points lie one row stride apart with
+    dense, 16-byte aligned rows: a slice along C of a contiguous tensor."""
+    return (t.stride(2) == 1 and t.stride(0) == t.shape[1] * t.stride(1)
+            and t.stride(1) * t.element_size() % 16 == 0
+            and t.data_ptr() % 16 == 0)
+
+
 def _bwd_reduce_cuda(z, dtap, mean, var, gamma, beta):
-    B, N, C = _check("bwd_reduce", z, dtap, mean)
+    B, N, C = _check("bwd_reduce", z, dtap, mean, max_n=None)
     if C not in {s[0] for s in KERNEL_STAGES}:
         raise ValueError(f"bwd_reduce kernel takes C in 64/128/256; got {C}")
+    if dtap.dtype != z.dtype:
+        raise ValueError(f"bwd_reduce kernel: dtap must be {z.dtype}, got {dtap.dtype}")
     dt, dev = z.dtype, z.device
-    z, dtap = z.contiguous(), dtap.contiguous()
-    bn = _bn_pack(mean, var, gamma, beta, dt)
-    part = torch.empty(_row_blocks(B, N), 2, C, dtype=torch.float32, device=dev)
+    plan = reduce_plan(B, N, C, _n_sm(z.get_device()))
+    part = torch.empty(plan["part"], dtype=torch.float32, device=dev)
     s = torch.empty(2, C, dtype=torch.float32, device=dev)
-    code = _fn("bwd_reduce", 5, 4)(
-        *map(_ptr, (z, dtap, bn, part, s)), B, N, C,
-        int(dt == torch.bfloat16), ctypes.c_void_p(dispatch.current_stream(z)))
+    stream = dispatch.current_stream(z)
+    # the kernel forms the BN constants from the statistics itself, and reads
+    # dtap in place where it is a slice of the concatenated taps' cotangent
+    stats = [a.detach().float().contiguous() for a in (mean, var, gamma, beta)]
+    tstride = dtap.stride(1) if _rows_in_place(dtap) else C
+    if tstride == C:
+        dtap = dtap.contiguous()
+    fn = dispatch.kernel_fn("dgcnn_bwd", "bwd_reduce_launch",
+                            (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
+                            + (ctypes.c_void_p,))
+    code = fn(*map(_ptr, (z.contiguous(), dtap, *stats, part, _ticket(dev, stream), s)),
+              B, N, C, tstride, int(dt == torch.bfloat16), plan["blocks"],
+              ctypes.c_void_p(stream))
     dispatch.check_launch(code, "bwd_reduce")
     dispatch.launch_counts["bwd_reduce"] += 1
     return s

@@ -14,6 +14,8 @@ PyTorch/CUDA port goes.
     python3 scripts/torch_port_profile.py --probe knn [--parent DIR]
     python3 scripts/torch_port_profile.py --probe graph_stage1 [--parent DIR]
     python3 scripts/torch_port_profile.py --probe nn1 [--parent DIR]
+    python3 scripts/torch_port_profile.py --probe bwd_reduce [--parent DIR]
+    python3 scripts/torch_port_profile.py --probe fps [--parent DIR]
 
 Needs one CUDA device. Runs GMMReg at B=24, N=717 (or --n_points: 1433 is
 ModelNet40's 2048-point clouds cropped to 0.70, the shared-graph route),
@@ -671,9 +673,131 @@ def probe_nn1(args):
     return result
 
 
+def _stats(z):
+    """Batch statistics of z over every axis but the last, float32."""
+    zf = z.float()
+    return zf.mean((0, 1, 2)), zf.var((0, 1, 2), unbiased=False)
+
+
+def probe_bwd_reduce(args):
+    import ctypes
+    from ogmm_tpu_torch.ops import cuda_dgcnn_bwd as bwd
+    rs = np.random.RandomState(10)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    parent = _parent_lib(args, "dgcnn_bwd")
+    b, k, n = 24, 20, 717
+    result = {}
+    for dt, c in ((torch.bfloat16, 256), (torch.float32, 256),
+                  (torch.bfloat16, 128), (torch.bfloat16, 64)):
+        g = lambda *s, scale=1.0: torch.tensor(
+            (rs.randn(*s) * scale).astype(np.float32), device="cuda")
+        z = g(b, k, n, c).to(dt)
+        z[:, 3] = z[:, 1]                     # tied maxima over k
+        mean, var = _stats(z)
+        gamma = torch.tensor(rs.uniform(0.5, 1.5, c).astype(np.float32), device="cuda")
+        beta = g(c, scale=0.1)
+        dtap = g(b, n, c, scale=0.1).to(dt)
+        ins = (z, dtap, mean, var, gamma, beta)
+        key = f"({b}, {k}, {n}, {c}) {'bf16' if dt == torch.bfloat16 else 'float32'}"
+        got, again = bwd.bwd_reduce(*ins), bwd.bwd_reduce(*ins)
+        want = bwd.bwd_reduce_reference(*ins)
+        r = _timed(f"bwd_reduce {key}", lambda: bwd.bwd_reduce(*ins), 50)
+        r.update(max_abs_err=(got - want).abs().max().item(),
+                 max_abs_plain=want.abs().max().item(),
+                 relaunch_bit_equal=torch.equal(got, again))
+        print(f"  against the plain version: max abs err {r['max_abs_err']:.3g} "
+              f"(max |plain| {r['max_abs_plain']:.3g}), relaunch bit-equal "
+              f"{r['relaunch_bit_equal']}")
+        if parent is not None:
+            fn = parent.bwd_reduce_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            part = torch.empty(parent.dgcnn_bwd_row_blocks(b, n), 2, c, device="cuda")
+            s = torch.empty(2, c, device="cuda")
+
+            def run_parent(fn=fn, part=part, s=s, dt=dt, c=c):
+                bn = bwd._bn_pack(mean, var, gamma, beta, dt)
+                code = fn(ptr(z), ptr(dtap), ptr(bn), ptr(part), ptr(s), b, n, c,
+                          int(dt == torch.bfloat16), None)
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+                return s
+            p = run_parent().clone()
+            r["parent"] = _timed(f"  the parent's kernel {key}", run_parent, 50)
+            r["parent_max_abs_err"] = (p - want).abs().max().item()
+            r["max_abs_diff_to_parent"] = (got - p).abs().max().item()
+            print(f"  the parent against the plain version {r['parent_max_abs_err']:.3g}, "
+                  f"against this tree {r['max_abs_diff_to_parent']:.3g}")
+        result[key] = r
+    return result
+
+
+# fps_combined's 2B rows of 717 (the N=717 request), the indoor request's
+# 4 rows of 35,000 at its km_clusters steps and at 128
+FPS_SHAPES = ((48, 717, 128), (2, 35000, 16), (2, 35000, 128))
+
+
+def probe_fps(args):
+    import ctypes
+    from ogmm_tpu_torch.ops import cuda_fps
+    from ogmm_tpu_torch.ops.fps import _center_state
+    rs = np.random.RandomState(11)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    parent = _parent_lib(args, "fps")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    result = {}
+    for b, n, steps in FPS_SHAPES:
+        x = torch.tensor((rs.randn(b, n, 3) * 0.3).astype(np.float32), device="cuda")
+        x[:, n // 2] = x[:, 1]                # a duplicated point: exact ties
+        d_c, s_c = _center_state(x)
+        start = torch.tensor(rs.randint(0, n, b), device="cuda")
+        xs = torch.cat([x, x])
+        dist = torch.cat([torch.full_like(d_c, 1e10), d_c])
+        st = torch.cat([start, s_c])
+        rows = 2 * b
+        want = cuda_fps.fps_reference(xs, steps, dist, st)
+        key = f"({rows}, {n}, {steps})"
+        run = lambda: cuda_fps.fps(xs, steps, dist, st)
+        r = _timed(f"fps {key}", run, 50)
+        r["ids_identical"] = torch.equal(run(), want)
+        if hasattr(cuda_fps, "fps_plan"):
+            r["plan"] = cuda_fps.fps_plan(rows, n, sms)._asdict()
+            r["plans"] = {}
+            print(f"  the wrapper's plan: {r['plan']}; every compiled plan:")
+            for plan in cuda_fps.compiled_plans(rows, n, sms):
+                forced = lambda plan=plan: cuda_fps._fps_cuda(xs, steps, dist, st, plan)
+                same = torch.equal(forced(), want)
+                label = (f"{plan.route}, cluster {plan.cluster}, threads "
+                         f"{plan.threads}, P {plan.points}")
+                r["plans"][label] = p = {
+                    "ms": _cuda_ms(forced, 50), "identical": same,
+                    "device_ms": sum(_profile_groups(forced, 50).values())}
+                print(f"    {label}: {p['device_ms']:.4f} ms on the device, "
+                      f"{p['ms']:.4f} between calls, ids identical {same}")
+        if parent is not None:
+            fn = parent.fps_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ids = torch.empty(rows, steps, dtype=torch.int64, device="cuda")
+
+            def run_parent(fn=fn, ids=ids, rows=rows, n=n, steps=steps):
+                d = dist.clone()
+                code = fn(ptr(xs), ptr(d), ptr(st), ptr(ids), rows, n, steps, None)
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+                return ids
+            r["parent"] = _timed(f"  the parent's kernel {key}", run_parent, 50)
+            r["parent_ids_identical"] = torch.equal(run_parent(), want)
+        print(f"  {key}: ids identical to the plain loop {r['ids_identical']}"
+              + (f", the parent's {r['parent_ids_identical']}" if parent else ""))
+        result[key] = r
+    return result
+
+
 PROBES = {"knn_stream": probe_knn_stream, "icp": probe_icp,
           "bwd_edge": probe_bwd_edge, "knn": probe_knn,
-          "graph_stage1": probe_graph_stage1, "nn1": probe_nn1}
+          "graph_stage1": probe_graph_stage1, "nn1": probe_nn1,
+          "bwd_reduce": probe_bwd_reduce, "fps": probe_fps}
 
 
 def main():
@@ -695,7 +819,8 @@ def main():
     ap.add_argument("--probe", choices=tuple(PROBES), default=None,
                     help="time the kernel beside variants of it (see above)")
     ap.add_argument("--parent", default=None,
-                    help="with --probe knn_stream, knn, graph_stage1 or nn1: a "
+                    help="with --probe knn_stream, knn, graph_stage1, nn1, "
+                         "bwd_reduce or fps: a "
                          "tree of the commit with the kernel's earlier design")
     args = ap.parse_args()
     if args.probe:

@@ -16,6 +16,7 @@ import torch
 import ogmm_tpu.ops.dgcnn_train as jdt
 import ogmm_tpu.ops.pallas_dgcnn_train as pt
 from ogmm_tpu.ops.dispatch import pallas_override
+from ogmm_tpu_torch.ops import cuda_dgcnn_bwd as bwd_mod
 from ogmm_tpu_torch.ops import dgcnn_train as tdt
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (bwd_edge, bwd_edge_reference,
                                               bwd_reduce, bwd_reduce_reference,
@@ -81,6 +82,52 @@ def test_bwd_reduce_reference_matches_pallas_interpret(dtype):
                                 interpret=True)
     _close(got, want, dtype, "S of stage 4")
     assert torch.equal(bwd_reduce(*ti), got)      # a CPU tensor: the plain version
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_reduce_is_the_sum_over_each_columns_argmax_row(dtype):
+    # the premise of the reduce kernel (csrc/dgcnn_bwd.cu:reduce_kernel):
+    # without a cotangent from above only the first max-over-k row of each
+    # column adds to S1 and S2, gathered here with torch ops; columns with
+    # tied maxima, with every y < 0, with every y == 0 and with y == 0 on a
+    # later row only
+    rs = np.random.RandomState(7)
+    b, k, npts, c = 2, 20, 40, 64
+    z = torch.from_numpy(rs.randn(b, k, npts, c).astype(np.float32)).to(dtype)
+    z[:, 5] = z[:, 2]                                    # tied rows
+    zf = z.float()
+    mean, var = zf.mean((0, 1, 2)), zf.var((0, 1, 2), unbiased=False)
+    gamma = torch.from_numpy(rs.uniform(0.5, 1.5, c).astype(np.float32))
+    beta = torch.from_numpy((rs.randn(c) * 0.1).astype(np.float32))
+    beta[0] = -100.0                                     # every y < 0
+    beta[1] = 0.0
+    m1 = mean[1].to(dtype)
+    z[0, :, 3, 1] = m1                                   # every y == 0
+    z[0, :, 4, 1] = m1 - 1.0                             # y < 0, then y == 0
+    z[0, 7, 4, 1] = m1
+    z[1, 0, 6, 1] = m1                                   # row 0 y == 0, rest < 0
+    z[1, 1:, 6, 1] = m1 - 1.0
+    dtap = torch.from_numpy((rs.randn(b, npts, c) * 0.1).astype(np.float32)).to(dtype)
+    got = bwd_reduce_reference(z, dtap, mean, var, gamma, beta)
+
+    y = bwd_mod.bn_apply(z, mean, var, gamma, beta)
+    h = torch.relu(y)
+    am = h.argmax(dim=1, keepdim=True)                   # the first maximum
+    y_am, z_am = y.gather(1, am)[:, 0], z.gather(1, am)[:, 0]
+    dy = bwd_mod.relu_vjp(dtap, y_am).float()
+    zhat = (z_am.float() - mean) * torch.rsqrt(var + bwd_mod.EPS)
+    want = torch.stack([dy.sum((0, 1)), (dy * zhat).sum((0, 1))])
+    # float32 sums of the same terms in another order
+    np.testing.assert_allclose(n(got), n(want), rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    # the columns the test meant to build are there
+    top = h.amax(dim=1, keepdim=True)
+    assert ((h == top).sum(1) > 1).any() and (y[..., 0] < 0).all()
+    assert (y[0, :, 3, 1] == 0).all() and am[0, 0, 3, 1] == 0
+    assert (y[0, :, 4, 1] <= 0).all() and y[0, 7, 4, 1] == 0 and y[0, 0, 4, 1] < 0
+    assert y[1, 0, 6, 1] == 0 and (y[1, 1:, 6, 1] < 0).all()
+    assert dy[0, 3, 1] == 0.5 * dtap[0, 3, 1].float() and dy[0, 4, 1] == 0
+    assert dy[1, 6, 1] == 0.5 * dtap[1, 6, 1].float() and (dy[..., 0] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from ogmm_tpu_torch.ops import cuda_dgcnn, cuda_em, cuda_stream, stream
+from ogmm_tpu_torch.ops import (cuda_dgcnn, cuda_dgcnn_bwd, cuda_em, cuda_fps,
+                                cuda_stream, stream)
 
 # (N, K) that the EM kernel took before its blocks shrank to 4 warps (its
 # envelope then: N <= 3,072 at K > 64, 6,200 at K in 33..64, 11,600 at
@@ -596,3 +597,126 @@ def test_edge_pass_writes_every_row_once(B, k, N):
         assert mine == sorted(mine)
         seen[mine] += 1
     assert (seen == 1).all()
+
+
+# ------------------------------------------- the backward reduce's launch
+
+def _cu_define(source, name):
+    text = open(os.path.join(CSRC, source)).read()
+    return int(re.search(rf"#define {name} (\d+)", text).group(1))
+
+
+def test_reduce_plan_mirrors_the_kernel():
+    assert cuda_dgcnn_bwd.REDUCE_THREADS == _cu_define("dgcnn_bwd.cu", "RED_NT")
+    assert cuda_dgcnn_bwd.REDUCE_CHANNELS == _cu_define("dgcnn_bwd.cu", "RED_CH")
+
+
+@pytest.mark.parametrize("B,N", [(24, 717), (24, 1433), (1, 5), (1, 1), (3, 90)])
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_reduce_plan_visits_every_point_once_in_a_fixed_order(B, N, C):
+    plan = cuda_dgcnn_bwd.reduce_plan(B, N, C, 132)
+    G = plan["blocks"]
+    order = cuda_dgcnn_bwd.reduce_order(B, N, C, G)
+    assert len(order) == G
+    assert sorted(p for block in order for p in block) == list(range(B * N))
+    ppw, warps = plan["points_a_warp"], plan["threads"] // 32
+    for i, block in enumerate(order):
+        p0, p1 = B * N * i // G, B * N * (i + 1) // G
+        assert sorted(block) == list(range(p0, p1))    # a contiguous range
+        # rounds of the block's warps, each warp ppw adjacent points
+        assert block == [p for r in range(p0, p1, warps * ppw)
+                         for p in range(r, min(r + warps * ppw, p1))]
+    assert order == cuda_dgcnn_bwd.reduce_order(B, N, C, G)
+
+
+@pytest.mark.parametrize("B,N", [(24, 717), (24, 1433), (1, 5), (1, 1), (3, 90),
+                                 (48, 1433)])
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_reduce_partials_are_fixed_by_the_shape(B, N, C):
+    plan = cuda_dgcnn_bwd.reduce_plan(B, N, C, 132)
+    ppw = 32 * cuda_dgcnn_bwd.REDUCE_CHANNELS // C
+    assert plan["points_a_warp"] == ppw
+    assert plan["blocks"] == max(1, min(132, -(-(B * N) // (16 * ppw))))
+    assert plan["part"] == (plan["blocks"], 2, C)
+    assert cuda_dgcnn_bwd.reduce_plan(B, N, C, 132) == plan
+
+
+@pytest.mark.parametrize("B,N", [(24, 717), (24, 1433)])
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_reduce_plan_fills_the_card(B, N, C):
+    plan = cuda_dgcnn_bwd.reduce_plan(B, N, C, 132)
+    assert plan["blocks"] == 132
+    # every warp of every block takes at least one round of points
+    shortest = min(len(b) for b in cuda_dgcnn_bwd.reduce_order(B, N, C, 132))
+    assert shortest >= plan["threads"] // 32 * plan["points_a_warp"]
+
+
+# ------------------------------------------------------------ the FPS launch
+
+FPS_SHAPES = [(96, 717), (48, 1433), (4, 35000), (1, 1), (2, 10240), (2, 10241),
+              (1, 131072), (1, 131073), (2, 200000)]
+
+
+def _fps_compiled():
+    """(points a thread -> the most threads, the largest cluster, the most
+    warps) as csrc/fps.cu compiles them."""
+    text = open(os.path.join(CSRC, "fps.cu")).read()
+    cases = [int(p) for p in re.findall(r"case (\d+): return \(int\)launch_reg", text)]
+    m = re.search(r"value = P <= (\d+) \? (\d+) : P <= (\d+) \? (\d+) : (\d+);", text)
+    p1, t1, p2, t2, t3 = map(int, m.groups())
+    most = {p: t1 if p <= p1 else t2 if p <= p2 else t3 for p in cases}
+    return most, _cu_define("fps.cu", "MAX_CLUSTER"), _cu_define("fps.cu", "MAX_WARPS")
+
+
+def test_fps_plan_mirrors_the_kernel():
+    most, max_cluster, max_warps = _fps_compiled()
+    assert cuda_fps.FPS_POINTS == most
+    assert max(cuda_fps.FPS_CLUSTERS) == max_cluster
+    assert max(most.values()) == 32 * max_warps
+
+
+@pytest.mark.parametrize("R,N", FPS_SHAPES)
+def test_fps_plan_owns_every_point_once(R, N):
+    plan = cuda_fps.fps_plan(R, N, 132)
+    if plan.route == "l2":
+        return                     # every thread strides over the whole row
+    ranges = cuda_fps.fps_ranges(plan, N)
+    assert len(ranges) == plan.cluster * plan.threads
+    # contiguous and ascending: thread after thread, block after block
+    assert ranges[0][0] == 0 and ranges[-1][1] == N
+    for (a0, a1), (b0, b1) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a0 <= a1
+    assert all(b - a <= plan.points for a, b in ranges)
+    # each block's share fits its threads, and no block is padding only
+    share = -(-N // plan.cluster)
+    assert share <= plan.threads * plan.points
+    assert (plan.cluster - 1) * share < N
+
+
+@pytest.mark.parametrize("R,N", FPS_SHAPES)
+def test_fps_plan_stays_within_the_compiled_limits(R, N):
+    most, max_cluster, max_warps = _fps_compiled()
+    plan = cuda_fps.fps_plan(R, N, 132)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 32 * max_warps
+    if plan.route == "registers":
+        assert plan.points in most and plan.threads <= most[plan.points]
+        assert plan.cluster in cuda_fps.FPS_CLUSTERS and plan.cluster <= max_cluster
+        assert plan.points >= cuda_fps.FPS_MIN_POINTS
+    else:
+        assert (plan.cluster, plan.points) == (1, 0)
+    for p in cuda_fps.compiled_plans(R, N, 132):
+        assert p.route == "l2" or (p.threads <= most[p.points]
+                                   and p.cluster * p.threads * p.points >= N)
+
+
+def test_fps_route_switches_where_the_register_routes_stop():
+    most, max_cluster, _ = _fps_compiled()
+    capacity = max_cluster * max(p * t for p, t in most.items())
+    assert capacity == 131072
+    assert cuda_fps.fps_plan(1, capacity, 132).route == "registers"
+    assert cuda_fps.fps_plan(1, capacity + 1, 132).route == "l2"
+    assert cuda_fps.fps_plan(2, 200000, 132).route == "l2"
+    # one block a row while a block holds the row at FPS_MIN_POINTS a thread
+    assert cuda_fps.fps_plan(96, 717, 132).cluster == 1
+    assert cuda_fps.fps_plan(48, 1433, 132).cluster == 1
+    assert cuda_fps.fps_plan(4, 35000, 132).cluster > 1

@@ -596,9 +596,6 @@ def test_bwd_kernels_refuse_what_they_do_not_take(card):
     v = torch.ones(256, device=card)
     with pytest.raises(ValueError, match="20"):
         bwd_reduce(z, tap, v, v, v, v)
-    with pytest.raises(ValueError, match="N <= 1024"):
-        bwd_reduce(torch.zeros(1, 20, 1100, 256, device=card),
-                   torch.zeros(1, 1100, 256, device=card), v, v, v, v)
     with pytest.raises(ValueError, match="dtype"):
         bwd_reduce(torch.zeros(1, 20, 64, 256, device=card, dtype=torch.float16),
                    tap.half(), v, v, v, v)
@@ -610,6 +607,55 @@ def test_bwd_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="C_in"):
         bwd_stage(z20, tap, v, v, v, v, torch.zeros(2, 256, device=card), w,
                   zp, u, u, u, u, tp)
+    # the stage kernel stops at N = 1024; the reduce takes any N
+    with pytest.raises(ValueError, match="N <= 1024"):
+        bwd_stage(torch.zeros(1, 20, 1100, 256, device=card),
+                  torch.zeros(1, 1100, 256, device=card), v, v, v, v,
+                  torch.zeros(2, 256, device=card), w, zp, u, u, u, u, tp)
+
+
+def _reduce_args(dev, B, N, C, dtype, seed):
+    """The reduce's inputs at any (B, N): pre-BN z with tied rows, its
+    batch moments, a channel whose y are all < 0 and one whose first column
+    has y == 0 exactly on every row, the tap cotangent."""
+    rs = np.random.RandomState(seed)
+    t = lambda *shape: torch.tensor(rs.randn(*shape).astype(np.float32), device=dev)
+    z = t(B, 20, N, C).to(dtype)
+    z[:, 5] = z[:, 2]                                # tied maxima over k
+    zf = z.float()
+    mean, var = zf.mean((0, 1, 2)), zf.var((0, 1, 2), unbiased=False)
+    gamma = 1 + 0.2 * t(C)
+    beta = 0.1 * t(C)
+    beta[0] = -100.0                                 # every y < 0
+    beta[1] = 0.0
+    z[0, :, 0, 1] = mean[1].to(dtype)                # every y == 0
+    return z, t(B, N, C).to(dtype), mean, var, gamma, beta
+
+
+@pytest.mark.parametrize("N", [717, 1433, 5, 1])
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_reduce_one_pass_kernel_matches_plain(card, N, C, dtype):
+    # the one-pass reduce at the step's N, at N = 1433 (beyond the stage
+    # kernels' 1024), N not a multiple of a warp's points and one point;
+    # a relaunch bit for bit. y and each column's argmax are the plain
+    # version's bit for bit, so the limit is that of float32 sums taken in
+    # another order: 1e-4 of the largest sum
+    B = 24 if N > 5 else 2
+    args = _reduce_args(card, B, N, C, dtype, seed=N + C)
+    got, again = bwd_reduce(*args), bwd_reduce(*args)
+    ref = bwd_reduce_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.shape == (2, C) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    # dtap as the backward hands it: a slice of the concatenated taps'
+    # cotangent, read in place
+    wide = torch.zeros(B, N, C + 256, dtype=dtype, device=card)
+    wide[..., 256:] = args[1]
+    sliced = bwd_reduce(args[0], wide[..., 256:], *args[2:])
+    assert torch.equal(sliced, got)
 
 
 def _stage_args(dev, B, N, stage, seed):
@@ -914,6 +960,59 @@ def test_fps_kernel_matches_plain(card, R, N, npoint):
     got = cuda_fps.fps(x, npoint, dist, start)
     want = cuda_fps.fps_reference(x, npoint, dist, start)
     assert torch.equal(got, want)
+
+
+# (rows, points): a block a row (717, 1433, one point, a small row), a
+# cluster a row (10,241, 35,000), the L2 route (140,000)
+FPS_PLAN_SHAPES = [(96, 717), (48, 1433), (1, 1), (3, 50), (2, 10241),
+                   (4, 35000), (2, 140000)]
+
+
+def _fps_rows(dev, R, N, seed):
+    """fps_combined-like rows: random starts at 1e10 and centre starts with
+    the distances to the centroid, a duplicated point."""
+    rs = np.random.RandomState(seed)
+    x = torch.tensor(rs.randn(R, N, 3).astype(np.float32), device=dev)
+    if N > 2:
+        x[:, N // 2] = x[:, 1]
+    dist = torch.full((R, N), 1e10, device=dev)
+    h = R // 2
+    dist[h:] = ((x[h:] - x[h:].mean(1, keepdim=True)) ** 2).sum(-1)
+    start = torch.tensor(rs.randint(0, N, R), device=dev)
+    start[h:] = dist[h:].argmax(-1)
+    return x, dist, start
+
+
+@pytest.mark.parametrize("R,N", FPS_PLAN_SHAPES)
+def test_fps_every_plan_matches_plain(card, R, N):
+    # the plan's launch and every compiled one near it (block and cluster
+    # routes, 1 to 16 blocks a row, 2 to 16 points a thread, the L2 route):
+    # ids identical to the plain loop; the register routes leave the
+    # distance row as it was
+    x, dist, start = _fps_rows(card, R, N, seed=N)
+    kept = dist.clone()
+    want = cuda_fps.fps_reference(x, 48, dist, start)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = cuda_fps.compiled_plans(R, N, sms)
+    assert cuda_fps.fps_plan(R, N, sms) in plans
+    for plan in plans:
+        got = cuda_fps._fps_cuda(x, 48, dist, start, plan)
+        assert torch.equal(got, want), plan
+    assert torch.equal(dist, kept)
+    assert torch.equal(cuda_fps.fps(x, 48, dist, start), want)
+
+
+@pytest.mark.parametrize("R,N", [(96, 717), (4, 35000)])
+def test_fps_all_equal_cloud(card, R, N):
+    # every distance ties at 0 after the first step: index 0 each step
+    x = torch.full((R, N, 3), -0.5, device=card)
+    dist = torch.full((R, N), 1e10, device=card)
+    start = torch.arange(R, device=card) % N
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = cuda_fps.fps_reference(x, 16, dist, start)
+    assert (want[:, 1:] == 0).all()
+    for plan in cuda_fps.compiled_plans(R, N, sms):
+        assert torch.equal(cuda_fps._fps_cuda(x, 16, dist, start, plan), want), plan
 
 
 @pytest.mark.parametrize("B,N,M", [(24, 717, 717), (3, 300, 4096), (2, 500, 130),
