@@ -18,8 +18,10 @@ fatal on failure:
              bound; the kNN graphs of dgcnn_eval, graph_stage1 and
              posenc_angles (the shared selection) identical to the plain
              ones; dgcnn_eval's selection launch and its stage chain with
-             the head, and graph_stage1's selection and edge pass, timed
-             apart (torch.profiler), graph_stage1 and nn1 launched twice and
+             the head (bf16; float32: the selection, the 3xTF32 stage chain
+             and the head), the angle kernel's launch, and graph_stage1's
+             selection and edge pass, timed apart (torch.profiler),
+             graph_stage1 and nn1 launched twice and
              compared bit for bit, sinkhorn_em's time a pass and the clouds
              the card runs at once, nn1's device time and time between
              calls at each shape, the device time of each __global__ of the bf16
@@ -94,6 +96,11 @@ fatal on failure:
              the same weights: launches (fps 1, pointmlp 3, icp 1), request
              times of both, peak memory, rotation and overlap scores against
              the one without and against the plain versions
+ 16. serve_f32     the request `Registrar(configs.mnet())` gives by default:
+             the float32 body at B=24, N=717, emb 512, K=128 (its DGCNN
+             through the 3xTF32 stage chain of dgcnn_eval), without and with
+             ICP: launches (dgcnn_eval 1, sinkhorn_em 1), request times, peak
+             memory, rotation and overlap scores against the plain versions
 
 `python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
 (build always runs; the names are those of PHASES below) and prints their
@@ -165,10 +172,13 @@ N_FPS_L2 = 140000        # FPS rows past what a cluster holds in registers
 
 # published peaks of one H100 SXM
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 # limits, kernel against plain version on the card
-LIM_DGCNN_F32 = 1e-4     # same float32 arithmetic, other summation order
+LIM_DGCNN_F32 = 1e-4     # each float32 product as three TF32 products on
+#                          the tensor cores (operands split into TF32 high
+#                          and low parts: about 2^-22 of each product from
+#                          float32), float32 sums in another order
 LIM_DGCNN_BF16 = 0.0625  # outputs up to ~8: a few bf16 ulps (2^-7 relative)
 LIM_ALPHA = 1e-5         # cosines from float32 coordinates
 LIM_EM_1 = 1e-4          # one EM trip: exp of arguments scaled by 1/eps = 100
@@ -239,6 +249,18 @@ def launch_ms(fn, reps, groups):
     return out
 
 
+def f32_bound(products, other, nbytes):
+    """A float32 form's bounds: its operations on the CUDA cores (67
+    TFLOP/s), or its products as three TF32 products each on the tensor
+    cores (495 TFLOP/s) and the rest on the CUDA cores, each against its
+    bytes at 3.35 TB/s."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_cc = (products + other) / PEAK_FLOPS["f32"]
+    t_tc = 3 * products / PEAK_FLOPS["tf32"] + other / PEAK_FLOPS["f32"]
+    return {"ms": max(t_cc, t_bytes) * 1e3, "ms_tf32x3": max(t_tc, t_bytes) * 1e3,
+            "by": "operations" if t_cc >= t_bytes else "bytes"}
+
+
 def angle_deg(a, b):
     c = (torch.einsum("bij,bij->b", a, b) - 1) / 2
     return torch.rad2deg(torch.acos(c.clamp(-1, 1)))
@@ -301,14 +323,19 @@ def check_dgcnn(rs):
         again, _ = dgcnn_eval(x, ws, aff, KNN, dt, POS_K)
         assert torch.equal(out, again), "dgcnn_eval: two launches differ"
         errs[dt] = max(err, aerr)
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     ms = cuda_ms(lambda: dgcnn_eval(x, ws, aff, KNN, bf, POS_K), 10)
-    ms32 = cuda_ms(lambda: dgcnn_eval(x, ws, aff, KNN, torch.float32, POS_K), 5)
+    ms32 = cuda_ms(lambda: dgcnn_eval(x, ws, aff, KNN, f32, POS_K), 10)
     plain = cuda_ms(lambda: dgcnn_eval_reference(x, ws, aff, KNN, bf, POS_K), 2)
+    plain32 = cuda_ms(lambda: dgcnn_eval_reference(x, ws, aff, KNN, f32, POS_K), 2)
     # the selection launch and the stage chain with its head, apart
     split = launch_ms(lambda: dgcnn_eval(x, ws, aff, KNN, bf, POS_K), 10, {
         "selection_ms": ("knn_kernel",),
         "stage_chain_ms": ("dgcnn_stage_mma_kernel", "dgcnn_head_kernel")})
+    # float32: the selection, the 3xTF32 stage chain, the head
+    split32 = launch_ms(lambda: dgcnn_eval(x, ws, aff, KNN, f32, POS_K), 10, {
+        "selection": ("knn_kernel",), "stage_chain": ("dgcnn_stage_tf32_kernel",),
+        "head": ("dgcnn_head_tf32_kernel",)})
     print(f"dgcnn_eval bf16 (2B={2 * B}, N={N}, k={KNN}, emb {EMB}): {ms:.4f} ms; "
           f"the selection (knn_kernel) {split['selection_ms']:.4f} ms, stage chain "
           f"and head {split['stage_chain_ms']:.4f} ms (device, torch.profiler)")
@@ -322,15 +349,25 @@ def check_dgcnn(rs):
               + rows * EMB * 2 + rows * POS_K * 4)
     t_ops = flops_bf16 / PEAK_FLOPS["bf16"] + flops_f32 / PEAK_FLOPS["f32"]
     t_bytes = nbytes / PEAK_BYTES
+    # float32: the products on the CUDA cores, or as three TF32 products each
+    # on the tensor cores; the selection as above; float32 outputs
+    bound32 = f32_bound(flops_bf16, flops_f32, nbytes + rows * EMB * 2
+                        + sum(w.numel() for w in ws) * 2)
+    print(f"dgcnn_eval float32: {ms32:.4f} ms, plain {plain32:.3f} ms; the selection "
+          f"{split32['selection']:.4f} ms, the 3xTF32 stage chain "
+          f"{split32['stage_chain']:.4f} ms, the head {split32['head']:.4f} ms "
+          f"(device, torch.profiler); bound {bound32['ms_tf32x3']:.4f} ms on the "
+          f"tensor cores, {bound32['ms']:.4f} ms on the CUDA cores")
     return {
         "name": "dgcnn_eval", "route": "cuda",
         "source": "ogmm_tpu_torch/csrc/dgcnn_eval.cu",
         "replaces": "ogmm_tpu/ops/pallas_dgcnn.py:229",
-        "max_abs_err": errs[bf], "max_abs_err_f32": errs[torch.float32],
-        "ms": ms, "ms_f32": ms32, "plain_ms": plain, **split,
+        "max_abs_err": errs[bf], "max_abs_err_f32": errs[f32],
+        "ms": ms, "ms_f32": ms32, "plain_ms": plain, "plain_ms_f32": plain32,
+        **split, "launch_ms_f32": split32,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "bound_ms_f32": bound32, "library_ms": None,
     }
 
 
@@ -441,6 +478,8 @@ def check_graph_stage1(rs):
         "ms": ms, "ms_f32": ms32, "plain_ms": plain, **split,
         "selection_ms_f32": split32["selection_ms"],
         "edge_pass_ms_f32": split32["edge_pass_ms"],
+        "bound_ms_f32": f32_bound(flops_bf16, flops_f32,
+                                  nbytes + rows * KNN * (64 + 6) * 2),
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
@@ -614,6 +653,8 @@ def check_dgcnn_bwd(rs):
         ms32 = cuda_ms(lambda: run(kern, torch.float32), 5)
         plain_ms = cuda_ms(lambda: run(plain, bf), 3)
         work = [bwd_work(name, a, kw) for n_, a, kw in timed[bf] if n_ == name]
+        work32 = [bwd_work(name, a, kw) for n_, a, kw in timed[torch.float32]
+                  if n_ == name]
         nbytes = sum(w[0] for w in work)
         t_ops = (sum(w[1] for w in work) / PEAK_FLOPS["bf16"]
                  + sum(w[2] for w in work) / PEAK_FLOPS["f32"])
@@ -655,6 +696,9 @@ def check_dgcnn_bwd(rs):
             "max_abs_err": errs[name][bf],
             "max_abs_err_f32": errs[name][torch.float32],
             "ms": ms, "ms_f32": ms32, "plain_ms": plain_ms,
+            "bound_ms_f32": f32_bound(sum(w[1] for w in work32),
+                                      sum(w[2] for w in work32),
+                                      sum(w[0] for w in work32)),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
@@ -1005,35 +1049,53 @@ def check_knn(rs):
 def check_posenc_angles(rs):
     """The angle kernel against its plain version at the unfused training
     path's shape (B=24 clouds of 717, k=5) and at N=1024, with a duplicated
-    point; max |kernel - plain| <= 1e-5."""
+    point, and at each k the plan routes (1, 8: the lanes kernel; 20, 32:
+    the shared selection) with 301 coincident points; max |kernel - plain|
+    <= 1e-5, the selected neighbours identical, a relaunch bit-equal. Timed
+    at (24, 717, 5) between CUDA events and on the device (each kernel the
+    call launches, from torch.profiler)."""
     worst = 0.0
-    for b, n in ((B, N), (4, 1024)):
-        x = _cloud(rs, b, n)
-        got = posenc_angles(x, POS_K)
+    # the shapes added with the lanes kernel draw from a generator of their
+    # own: the later phases see the data they saw before
+    rs_k = np.random.RandomState(16)
+    for b, n, k in ((B, N, POS_K), (4, 1024, POS_K), (3, 600, 1), (3, 600, 8),
+                    (3, 600, 20), (3, 600, 32)):
+        x = _cloud(rs if n != 600 else rs_k, b, n)
+        if n == 600:
+            x[:, 100:400] = x[:, :1]         # 301 coincident points
+        got = posenc_angles(x, k)
         torch.cuda.synchronize()
-        err = (got - posenc_angles_reference(x, POS_K)).abs().max().item()
+        err = (got - posenc_angles_reference(x, k)).abs().max().item()
+        again = torch.equal(got, posenc_angles(x, k))
         # the neighbours the kernel selects, written where a check asks
-        idx = torch.empty(b, n, POS_K, dtype=torch.int32, device=DEV)
-        cuda_posenc._posenc_angles_cuda(x, POS_K, idx=idx)
+        idx = torch.empty(b, n, k, dtype=torch.int32, device=DEV)
+        cuda_posenc._posenc_angles_cuda(x, k, idx=idx)
         torch.cuda.synchronize()
-        same = torch.equal(idx.long(), knn_reference(x, x, POS_K))
-        print(f"posenc_angles ({b}, {n}, k={POS_K}): indices identical {same}, "
-              f"max|kernel - plain| = {err:.3g} (limit {LIM_POSENC})")
-        assert same and err <= LIM_POSENC and torch.isfinite(got).all()
+        same = torch.equal(idx.long(), knn_reference(x, x, k))
+        plan = cuda_posenc.posenc_plan(b, n, k)
+        print(f"posenc_angles ({b}, {n}, k={k}), {plan.kernel} (K {plan.K}, "
+              f"{plan.lanes} lanes, {plan.blocks} blocks): indices identical "
+              f"{same}, max|kernel - plain| = {err:.3g} (limit {LIM_POSENC}), "
+              f"a relaunch bit-equal {again}")
+        assert same and again and err <= LIM_POSENC and torch.isfinite(got).all()
         worst = max(worst, err)
     x = _cloud(rs, B, N)
     ms = cuda_ms(lambda: posenc_angles(x, POS_K), 50)
     plain = cuda_ms(lambda: posenc_angles_reference(x, POS_K), 5)
+    device = launch_ms(lambda: posenc_angles(x, POS_K), 50, {
+        "lanes_kernel": ("posenc_lanes_kernel",), "shared_selection": ("knn_kernel",),
+        "other": ("reduce_kernel", "elementwise", "mean")})
     rows = B * N
     # each distance once and about one compare a candidate, as for knn
     bound, by = _bound(rows * N * (8.0 + 1.0), x.numel() * 4 + rows * POS_K * 4)
     print(f"posenc_angles ({B}, {N}, k={POS_K}): {ms:.4f} ms, plain "
-          f"{plain:.3f} ms, bound {bound:.5f} ms ({by})")
+          f"{plain:.3f} ms, bound {bound:.5f} ms ({by}); device ms {device}")
     return {"name": "posenc_angles", "route": "cuda",
             "source": "ogmm_tpu_torch/csrc/posenc_angles.cu",
             "replaces": "ogmm_tpu/ops/pallas_knn.py:144",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+            "launch_ms": device, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
 
 
 # ------------------------------------------------- the large-cloud paths
@@ -1579,21 +1641,28 @@ def check_dgcnn_edges(rs):
             errs[dt] = max(errs.get(dt, 0.0), err)
     bf = torch.bfloat16
     ms = cuda_ms(lambda: dgcnn_edges(x, nbr, ws, aff, KNN, bf), 5)
-    ms32 = cuda_ms(lambda: dgcnn_edges(x, nbr, ws, aff, KNN, torch.float32), 3)
+    ms32 = cuda_ms(lambda: dgcnn_edges(x, nbr, ws, aff, KNN, torch.float32), 5)
     plain = cuda_ms(lambda: dgcnn_edges_reference(x, nbr, ws, aff, KNN, bf), 2)
+    split32 = launch_ms(lambda: dgcnn_edges(x, nbr, ws, aff, KNN, torch.float32), 5, {
+        "stage_chain": ("dgcnn_stage_tf32_kernel",), "head": ("dgcnn_head_tf32_kernel",)})
     rows = 2 * N_INDOOR
     stage_macs = 6 * 64 + 64 * 64 + 64 * 128 + 128 * 256
     flops = 2.0 * rows * (KNN * stage_macs + sum(STAGES) * EMB)
     nbytes = x.numel() * 4 + nbr.numel() * 4 + rows * EMB * 2
     t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
     bound = max(t_ops, t_bytes) * 1e3
+    bound32 = f32_bound(flops, 0.0, nbytes + rows * EMB * 2 + sum(w.numel() for w in ws) * 4)
     print(f"dgcnn_edges (2, {N_INDOOR}, k={KNN}): {ms:.3f} ms bf16, {ms32:.3f} "
-          f"ms float32, plain {plain:.3f} ms, bound {bound:.4f} ms")
+          f"ms float32 (the 3xTF32 stage chain {split32['stage_chain']:.4f}, the "
+          f"head {split32['head']:.4f} on the device), plain {plain:.3f} ms, bound "
+          f"{bound:.4f} ms (float32: {bound32['ms_tf32x3']:.4f} on the tensor "
+          f"cores, {bound32['ms']:.4f} on the CUDA cores)")
     return {"name": "dgcnn_edges", "route": "cuda",
             "source": "ogmm_tpu_torch/csrc/dgcnn_eval.cu",
             "replaces": "ogmm_tpu/ops/pallas_dgcnn.py:315",
             "max_abs_err": errs[bf], "max_abs_err_f32": errs[torch.float32],
-            "ms": ms, "ms_f32": ms32, "plain_ms": plain, "bound_ms": bound,
+            "ms": ms, "ms_f32": ms32, "plain_ms": plain, "launch_ms_f32": split32,
+            "bound_ms": bound, "bound_ms_f32": bound32,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
 
@@ -1746,6 +1815,7 @@ def check_pointmlp(rs):
             "replaces": "ogmm_tpu/ops/pallas_mlp.py:84",
             "max_abs_err": errs[bf], "max_abs_err_f32": errs[torch.float32],
             "ms": ms, "ms_f32": ms32, "plain_ms": plain, "device_ms": device,
+            "bound_ms_f32": f32_bound(flops_bf16, flops_f32, 2 * nbytes),
             "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
@@ -1969,9 +2039,76 @@ def serve_loops(rs):
                       "against": res}
 
 
+def serve_f32(rs):
+    """The request `Registrar(configs.mnet())` gives its users: the float32
+    body (the default dtype), B=24, N=717, emb 512, K=128, seeded random
+    weights; a few requests without and with ICP, the launches of one
+    request (dgcnn_eval 1, sinkhorn_em 1: its DGCNN through the 3xTF32
+    stage chain), request times, peak device memory, and rotation and
+    overlap scores against the same requests with every kernel swapped for
+    its plain version (phase 3's limits)."""
+    cfg = configs.mnet()
+    assert cfg.model.dtype == "float32"
+    assert (cfg.model.emb_dims, cfg.model.n_clusters, cfg.model.gnn_k,
+            cfg.model.num_heads) == (EMB, K, KNN, 4)
+    reg = Registrar(cfg, seed=0, device=DEV)
+    requests = [make_pairs(rs, B, N) for _ in range(3)]
+    reg(requests[0][0], requests[0][1], refine=True)      # warm up
+    torch.cuda.synchronize()
+    launches, times, outs, peak = {}, {}, {}, {}
+    for refine in (False, True):
+        src, tgt, _, _ = requests[0]
+        dispatch.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        reg(src, tgt, refine=refine)
+        torch.cuda.synchronize()
+        launches[refine] = dict(dispatch.launch_counts)
+        peak[refine] = torch.cuda.max_memory_allocated() / 2 ** 20
+        assert launches[refine]["dgcnn_eval"] == 1, launches[refine]
+        assert launches[refine]["sinkhorn_em"] == 1, launches[refine]
+        t0 = time.perf_counter()
+        for src, tgt, _, _ in requests:
+            outs[refine] = reg(src, tgt, refine=refine)
+        torch.cuda.synchronize()
+        times[refine] = (time.perf_counter() - t0) / len(requests) * 1e3
+        for o in outs[refine]:
+            assert torch.isfinite(o).all()
+        r = outs[refine][0]
+        eye = torch.eye(3, device=DEV).expand(B, 3, 3)
+        assert (r @ r.transpose(1, 2) - eye).abs().max() < 1e-4
+        assert ((outs[refine][2] >= 0) & (outs[refine][2] <= 1)).all()
+    print(f"float32 request of {B} pairs: {times[False]:.2f} ms without ICP, "
+          f"{times[True]:.2f} ms with ICP (host clock, synchronised); peak "
+          f"device memory {peak[False]:.0f} / {peak[True]:.0f} MiB; launches "
+          f"{launches[False]} / {launches[True]}")
+    src, tgt, _, _ = requests[-1]
+    res = {}
+    with plain_versions():
+        before = dict(dispatch.launch_counts)
+        plain = {refine: reg(src, tgt, refine=refine) for refine in (False, True)}
+        assert dict(dispatch.launch_counts) == before
+    for refine in (False, True):
+        k_rot, _, k_so, k_to = outs[refine]
+        p_rot, _, p_so, p_to = plain[refine]
+        d_o = max((k_so - p_so).abs().max().item(), (k_to - p_to).abs().max().item())
+        ang = angle_deg(k_rot, p_rot)
+        key = "forward_icp" if refine else "forward"
+        res[key] = {"overlap": d_o, "rot_median_deg": ang.median().item(),
+                    "rot_max_deg": ang.max().item()}
+        print(f"float32 {key}, kernel path against plain path: overlap scores "
+              f"{d_o:.3g} (limit {LIM_OVERLAP}), rotation median "
+              f"{ang.median().item():.3g} deg (limit {LIM_ROT_DEG}), max "
+              f"{ang.max().item():.3g} deg")
+        assert d_o <= LIM_OVERLAP and ang.median().item() <= LIM_ROT_DEG
+    return launches[False], {"forward": times[False], "forward_icp": times[True],
+                             "launches_icp": launches[True],
+                             "peak_mib": peak[False], "peak_mib_icp": peak[True],
+                             "against_plain": res}
+
+
 PHASES = ("kernels", "serve", "train", "cli", "icp", "serve_large",
           "train_large", "train_unfused", "c1", "indoor_kernels", "indoor",
-          "loop_kernels", "serve_loops")
+          "loop_kernels", "serve_loops", "serve_f32")
 
 
 def main():
@@ -2010,7 +2147,8 @@ def main():
                       ("train_large", train_large),
                       ("train_unfused", train_unfused), ("c1", check_c1),
                       ("indoor", lambda _: serve_indoor(np.random.RandomState(8))),
-                      ("serve_loops", lambda _: serve_loops(np.random.RandomState(10)))):
+                      ("serve_loops", lambda _: serve_loops(np.random.RandomState(10))),
+                      ("serve_f32", lambda _: serve_f32(np.random.RandomState(16)))):
         if not run(phase):
             continue
         res = fn(rs)

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel ogmm_tpu/ops/pallas_dgcnn.py:dgcnn_eval_pallas
 // (_dgcnn_kernel + _run_stages). Compiled for the neighbour counts k of
 // DGCNN_KS (knn_select.cuh); k = 20 below. Nothing but the neighbour indices
-// (B*N*k ints) and, for bf16, the 512-wide concat pass through device memory
-// between the launches:
+// (B*N*k ints) and the 512-wide concat pass through device memory between
+// the launches:
 //
 //  1. knn_kernel<k, GraphOut> (knn_lanes.cuh, the dense selection shared
 //     with graph_stage1.cu, knn.cu and posenc_angles.cu): the cloud
@@ -40,9 +40,32 @@
 //     multiplies it by w5 in 128 x 64 tiles, both operands staged with
 //     cp.async in double-buffered chunks of 64 and read with ldmatrix (w5's
 //     with ldmatrix.trans), so a w5 tile serves 128 rows.
-//     float32: dgcnn_stage_kernel on the CUDA cores in true float32 (TF32
-//     would not hold the float32 route's 1e-4): one block per 8 query
-//     points, one warp per query, the head fused.
+//     float32: the same two launches on the tensor cores in 3xTF32
+//     (mma.sync m16n8k8 .tf32, float32 sums): each float32 operand a is
+//     split into a_hi = tf32(a) and a_lo = tf32(a - a_hi), TF32 being
+//     cvt.rna's rounding (to nearest, ties away; done with integer
+//     operations, the same bits for every finite a and cheaper), and a
+//     product a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi, which holds
+//     about 2^-22 of a b (one TF32 product would not hold the float32
+//     route's 1e-4: tests/test_torch_tf32x3.py). dgcnn_stage_tf32_kernel: a
+//     block of 8 warps owns QF = 8 points (160 edge rows at k = 20), float32
+//     activations in shared memory (228,864 B at k = 20: one block an SM, so
+//     a thread may take up to 255 registers); a stage is computed transposed
+//     as in bf16, a warp holding the split W^T fragments of one 16-channel
+//     tile (stage 4's 128-deep tile: 128 registers; its warps take their two
+//     tiles one after the other), loading the next depth's B fragments before
+//     this depth's products and issuing one product at a time over its row
+//     tiles. Stages 1-3 split their B fragments as they read them (a stride
+//     of 4 or 12 mod 32 keeps those reads free of bank conflicts); stage 3
+//     writes its output split, in two planes, so that stage 4, 72% of the
+//     products, whose 16 channel tiles each read every row, converts
+//     nothing. The max over k comes from the accumulators as in bf16.
+//     dgcnn_head_tf32_kernel: the float32 concat (B*N, 512) times w5 in 128
+//     x 64 tiles, chunks of 32 deep staged with cp.async and
+//     double-buffered, a warp owning 32 x 32, both operands split as read.
+//     mma.sync and not wgmma: wgmma takes TF32 operands only K-major from
+//     shared memory, so every operand's split halves would be staged there,
+//     where mma.sync splits them in registers as they are read.
 //     Both routes take the same operands (Operands below): stages 1-4's
 //     float32 weights and BN scales, folded in the kernel as the plain
 //     version folds them, and the head's w5, which the wrapper folds.
@@ -55,14 +78,20 @@
 //
 // Bound: operations. The stage products are 2*45,440 flops for each of the
 // B*N*k edge rows plus 2*512*emb for each point, against 12 bytes in and
-// 2*emb bytes out for each point: at (48, 717, k = 20, emb 512) bf16 8.1e10
-// flops, 0.08 ms at the tensor cores' 989 TFLOP/s. The bf16 design reads
-// each stage weight once a block of 8 points (94 KB, from L2) and w5 once a
-// tile of 128 rows. What bounds it now: ldmatrix's shared-memory reads of
-// the activations (each warp re-reads its row group's tiles for its own
-// channels; stage 4 is half the kernel) and mma.sync's issue rate, the
-// stage barriers, and the selection kernel, which it shares with
-// graph_stage1.cu. The float32 route is bound by the CUDA cores' 67 TFLOP/s.
+// 2*emb bytes out for each point: at (48, 717, k = 20, emb 512) 8.1e10 flops,
+// 0.08 ms at the tensor cores' 989 TFLOP/s in bf16; in float32 1.20 ms at the
+// CUDA cores' 67 TFLOP/s, or 0.49 ms for three TF32 products a product at
+// 495 TFLOP/s. The bf16 design reads each stage weight once a block of 8
+// points (94 KB, from L2) and w5 once a tile of 128 rows. What bounds it
+// now: ldmatrix's shared-memory reads of the activations (each warp re-reads
+// its row group's tiles for its own channels; stage 4 is half the kernel)
+// and mma.sync's issue rate, the stage barriers, and the selection kernel,
+// which it shares with graph_stage1.cu. The float32 design: mma.sync
+// m16n8k8 TF32 alone reaches 313 TFLOP/s at 8 warps an SM on an H100
+// (scripts/torch_port_profile.py --probe dgcnn_eval), a floor of 0.59 ms
+// for the stage chain and 0.17 for the head; the rest is the conversions
+// and fragment loads around each product at 8 warps an SM, the weights'
+// fragments read from L2 and split once a block, and the stage barriers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,11 +105,6 @@ typedef __nv_bfloat162 bf162;
 
 #define CATW 512   // 64 + 64 + 128 + 256
 
-// float32: the sum plus the bias, ReLU
-__device__ __forceinline__ float bias_relu(float acc, float bias) {
-  return fmaxf(acc + bias, 0.f);
-}
-
 // the float32 coordinates of edge row j of point n: the neighbour from nbr
 // (B, N, KNN, 3) where it is given, else from x through idx
 template <int KNN>
@@ -91,139 +115,396 @@ __device__ __forceinline__ const float* neighbour(const float* x, const int* idx
                         : x + ((size_t)b * N + idx[row * KNN + j]) * 3;
 }
 
-// ------------------------------------------------ float32, CUDA cores
+// ------------------------------------- float32, tensor cores in 3xTF32
 
-#define TQ 8       // queries (= warps) per block of the float32 stage kernel
+#define QF 8       // points a block of the float32 stage kernel
+#define NWF 8      // warps a block of the float32 stage kernel
+#define TPI4 4     // 8-row tiles a warp takes at a time in stage 4 (128 deep)
+// row strides (in floats) of the staged float32 tiles: a B fragment's lanes
+// (g, t) read row g, column t, so a stride of 4 or 12 mod 32 puts the 32
+// lanes on 32 banks
+#define LDF_E 12   // edge rows, 8 channels (6 used)
+#define LDF_X 68   // 64 channels
+#define LDF_Y 132  // 128 channels
+#define FHR 128    // rows of a float32 head tile (4 warps x 32)
+#define FHC 64     // columns of a float32 head tile (2 warps x 32)
+#define FHK 32     // depth of a staged head chunk
+#define LDF_HA 36  // the concat chunk's row stride (A reads: 4 mod 32)
+#define LDF_HW 72  // the w5 chunk's row stride (B reads of row t, column g: 8 mod 32)
 
-// acc[r][c] = sum_kk in[r][kk] * W[kk][col0 + lane + 32 c] for RT rows held
-// in shared memory (all lanes read the same address: a broadcast) and CT
-// columns a lane (neighbouring lanes read neighbouring weights). W is w
-// (cin, cout) with, where FOLD, the BN scale folded in here, float32(w
-// scale) as the plain version folds it, and depths from CIN_W up zero (the
-// head's w5 comes folded).
-template <int RT, int CT, bool FOLD, int CIN_W>
-__device__ __forceinline__ void dense_tile(const float* __restrict__ in, int cin,
-                                           const float* __restrict__ w,
+// v rounded to TF32 (10 mantissa bits, to nearest, ties away), as a .b32:
+// half of the 13 dropped bits added to the magnitude's bits and the 13
+// cleared, the bits of cvt.rna.tf32.f32 for every finite v (which compiles
+// to a compare, an add and a logic operation, and took the stage chain
+// 1.468 ms against 1.280 on an H100, scripts/torch_port_profile.py --probe
+// dgcnn_eval)
+__device__ __forceinline__ uint32_t tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// v = hi + lo to about 2^-22 relative: hi = tf32(v), lo = tf32(v - hi)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// c += a b for one 16x8 (a, row-major) by 8x8 (b, column-major) TF32 tile
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the max of this lane's channels (c, c + 8) over the 4 lanes of the pair,
+// written to the concat row of a point by the first of them
+__device__ __forceinline__ void flush_max_f32(float m0, float m1, float* cat_row, int ch) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  if ((threadIdx.x & 3) == 0) {
+    cat_row[ch] = m0;
+    cat_row[ch + 8] = m1;
+  }
+}
+
+// One stage over the block's R = QF * KNN edge rows in 3xTF32, computed
+// transposed (out^T = W^T h^T, rows along the mma's n): in (R, CIN) float32
+// with row stride ld_in -> out (R, COUT) with row stride ld_out (null: not
+// kept) and the max over each point's rows -> cat[q * CATW + cat_off + c].
+// SPLIT_IN: in holds the TF32 high parts and, R ld_in floats further, the
+// low parts; SPLIT_OUT: out is written so (stage 3 for stage 4, whose 16
+// channel tiles each read every row: split once by the producer, not once
+// by each reader).
+// w (CIN_W, COUT), scale and bias (COUT) are the float32 weight and folded
+// BN: the weight is folded here, float32(w scale) as the plain version folds
+// it, split into TF32 high and low parts and held as A fragments (depths
+// from CIN_W up zero). A warp takes CTW channel tiles of 16 one after the
+// other (stage 4: 2) over the rows of one row group (whole points), TPI
+// 8-row tiles at a time. The activations' B fragments are split as they are
+// read, the next depth's loaded before this depth's products; the three
+// products go to one accumulator, issued one product at a time over the TPI
+// tiles, so that an mma waits on none of the TPI before it (an accumulator
+// for each product measured slower).
+template <int KNN, int CIN_W, int CIN, int COUT, bool SPLIT_IN, bool SPLIT_OUT>
+__device__ __forceinline__ void stage_tf32(const float* in, int ld_in, float* out,
+                                           int ld_out, const float* __restrict__ w,
                                            const float* __restrict__ scale,
-                                           int cout, int col0, float (&acc)[RT][CT]) {
-  const int lane = threadIdx.x & 31;
+                                           const float* __restrict__ bias, float* cat,
+                                           int cat_off) {
+  constexpr int KS = CIN / 8, MT = COUT / 16;
+  constexpr int CTW = MT > NWF ? MT / NWF : 1;     // channel tiles a warp
+  constexpr int RG = MT >= NWF ? 1 : NWF / MT;     // row groups
+  constexpr int NTG = QF * KNN / 8 / RG;           // 8-row tiles a row group
+  constexpr int TPI = CIN >= 128 && NTG % TPI4 == 0 ? TPI4
+                      : NTG % 4 == 0 ? 4 : NTG % 5 == 0 ? 5 : NTG % 2 == 0 ? 2 : 1;
+  static_assert(KNN >= 8 && (MT % NWF == 0 || NWF % MT == 0) && QF % RG == 0 &&
+                (QF * KNN) % (8 * RG) == 0 && NTG % TPI == 0, "stage tiling");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile0 = MT >= NWF ? warp * CTW : warp % MT;
+  const int nt0 = MT >= NWF ? 0 : (warp / MT) * NTG;
+#pragma unroll 1
+  for (int ct = 0; ct < CTW; ++ct) {
+    const int c = (tile0 + ct) * 16 + g;         // this lane's channels c, c + 8
+    uint32_t ah[KS][4], al[KS][4];
+    {
+      const float slo = __ldg(scale + c), shi = __ldg(scale + c + 8);
+      auto wt = [&](int k, int ch, float sc) {
+        return k < CIN_W ? __fmul_rn(__ldg(w + k * COUT + ch), sc) : 0.f;
+      };
 #pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int c = 0; c < CT; ++c) acc[r][c] = 0.f;
-  float sc[CT];
-#pragma unroll
-  for (int c = 0; c < CT; ++c) sc[c] = FOLD ? scale[col0 + lane + 32 * c] : 1.f;
-  for (int kk = 0; kk < cin; kk += 4) {
-    float wv[4][CT];
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const float wt = kk + v < CIN_W ? w[(size_t)(kk + v) * cout + col0 + lane + 32 * c]
-                                        : 0.f;
-        wv[v][c] = FOLD ? __fmul_rn(wt, sc[c]) : wt;
+      for (int ks = 0; ks < KS; ++ks) {
+        const int k = ks * 8 + t;
+        split_tf32(wt(k, c, slo), ah[ks][0], al[ks][0]);
+        split_tf32(wt(k, c + 8, shi), ah[ks][1], al[ks][1]);
+        split_tf32(wt(k + 4, c, slo), ah[ks][2], al[ks][2]);
+        split_tf32(wt(k + 4, c + 8, shi), ah[ks][3], al[ks][3]);
       }
+    }
+    const float blo = __ldg(bias + c), bhi = __ldg(bias + c + 8);
+    float run0 = 0.f, run1 = 0.f;   // this lane's max of channels c, c + 8 for the open point
+#pragma unroll 1
+    for (int j = 0; j < NTG; j += TPI) {
+      float acc[TPI][4];
 #pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(in + r * cin + kk);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+      for (int u = 0; u < TPI; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+      // B fragments: depth 8 ks + (t, t + 4) of row g of each 8-row tile
+      const float* rows = in + (size_t)(8 * (nt0 + j) + g) * ld_in + t;
+      constexpr int NR = SPLIT_IN ? 4 : 2;
+      constexpr int LO = QF * KNN;               // rows to the low parts, in rows
+      float raw[TPI][NR];
+      auto fetch = [&](int ks) {
 #pragma unroll
-      for (int v = 0; v < 4; ++v)
+        for (int u = 0; u < TPI; ++u) {
+          const float* p = rows + 8 * u * ld_in + 8 * ks;
+          raw[u][0] = p[0];
+          raw[u][1] = p[4];
+          if constexpr (SPLIT_IN) {
+            raw[u][2] = p[LO * ld_in];
+            raw[u][3] = p[LO * ld_in + 4];
+          }
+        }
+      };
+      fetch(0);
 #pragma unroll
-        for (int c = 0; c < CT; ++c) acc[r][c] = fmaf(av[v], wv[v][c], acc[r][c]);
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t bh[TPI][2], bl[TPI][2];
+#pragma unroll
+        for (int u = 0; u < TPI; ++u) {
+          if constexpr (SPLIT_IN) {
+            bh[u][0] = __float_as_uint(raw[u][0]); bh[u][1] = __float_as_uint(raw[u][1]);
+            bl[u][0] = __float_as_uint(raw[u][2]); bl[u][1] = __float_as_uint(raw[u][3]);
+          } else {
+            split_tf32(raw[u][0], bh[u][0], bl[u][0]);
+            split_tf32(raw[u][1], bh[u][1], bl[u][1]);
+          }
+        }
+        if (ks + 1 < KS) fetch(ks + 1);
+        // the small products first: a_lo b_hi, a_hi b_lo, then a_hi b_hi
+        // (a_lo b_lo, about 2^-22 of a b, dropped)
+#pragma unroll
+        for (int u = 0; u < TPI; ++u) mma_tf32(acc[u], al[ks], bh[u][0], bh[u][1]);
+#pragma unroll
+        for (int u = 0; u < TPI; ++u) mma_tf32(acc[u], ah[ks], bl[u][0], bl[u][1]);
+#pragma unroll
+        for (int u = 0; u < TPI; ++u) mma_tf32(acc[u], ah[ks], bh[u][0], bh[u][1]);
+      }
+      // accumulator: (channel c, row 2t), (c, 2t + 1), (c + 8, 2t), (c + 8,
+      // 2t + 1) of the tile, in tile order; bias and ReLU in float32
+#pragma unroll
+      for (int u = 0; u < TPI; ++u) {
+        const int rb = 8 * (nt0 + j + u), r0 = rb + 2 * t;
+        // the tile's rows belong to point qa and maybe qa + 1 (k >= 8)
+        const int qa = rb / KNN, qb = (rb + 7) / KNN;
+        const bool in0 = r0 / KNN == qa, in1 = (r0 + 1) / KNN == qa;
+        const bool ends = (rb + 8) % KNN == 0;   // the tile ends a point
+        const float v00 = fmaxf(acc[u][0] + blo, 0.f), v01 = fmaxf(acc[u][1] + blo, 0.f);
+        const float v10 = fmaxf(acc[u][2] + bhi, 0.f), v11 = fmaxf(acc[u][3] + bhi, 0.f);
+        if (out != nullptr) {
+          const float vs[4] = {v00, v01, v10, v11};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float* o = out + (size_t)(r0 + (e & 1)) * ld_out + c + 8 * (e >> 1);
+            if constexpr (SPLIT_OUT) {
+              uint32_t h, l;
+              split_tf32(vs[e], h, l);
+              o[0] = __uint_as_float(h);
+              o[QF * KNN * ld_out] = __uint_as_float(l);
+            } else {
+              o[0] = vs[e];
+            }
+          }
+        }
+        // ReLU outputs are >= 0, so 0 stands for a row of the other point
+        run0 = fmaxf(run0, fmaxf(in0 ? v00 : 0.f, in1 ? v01 : 0.f));
+        run1 = fmaxf(run1, fmaxf(in0 ? v10 : 0.f, in1 ? v11 : 0.f));
+        const float nxt0 = fmaxf(in0 ? 0.f : v00, in1 ? 0.f : v01);
+        const float nxt1 = fmaxf(in0 ? 0.f : v10, in1 ? 0.f : v11);
+        if (qb != qa || ends) {                  // point qa is complete
+          flush_max_f32(run0, run1, cat + qa * CATW, cat_off + c);
+          run0 = nxt0; run1 = nxt1;
+          if (qb != qa && ends) {
+            flush_max_f32(run0, run1, cat + qb * CATW, cat_off + c);
+            run0 = run1 = 0.f;
+          }
+        }
+      }
     }
   }
 }
 
-// one edge-conv stage for this warp's query: rows [warp*KNN, +KNN) of `in`
-// (row length cin) -> the same rows of `outbuf` (row length cout, may be
-// null) and the max over the rows -> cat[warp][cat_off + col]; w (CIN_W,
-// cout) and scale the float32 weight and BN scale
-template <int KNN, int CIN_W>
-__device__ __forceinline__ void edge_stage(const float* in, int cin,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ scale,
-                                           const float* __restrict__ bias, int cout,
-                                           float* outbuf, float* cat, int cat_off) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int col0 = 0; col0 < cout; col0 += 64) {
-    float acc[KNN][2];
-    dense_tile<KNN, 2, true, CIN_W>(in + (size_t)warp * KNN * cin, cin, w, scale,
-                                    cout, col0, acc);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = col0 + lane + 32 * c;
-      const float bv = bias[col];
-      float mx = 0.f;                        // ReLU outputs are >= 0
-#pragma unroll
-      for (int r = 0; r < KNN; ++r) {
-        const float v = bias_relu(acc[r][c], bv);
-        if (outbuf) outbuf[(size_t)(warp * KNN + r) * cout + col] = v;
-        mx = fmaxf(mx, v);
-      }
-      cat[warp * CATW + cat_off + col] = mx;
-    }
-  }
+// the edge rows, then stage 2's output, in a buffer of R x LDF_X; stage 1's
+// output, then stage 3's split in two planes, in 2 R x LDF_Y; the block's
+// concat rows (228,864 B at k = 20)
+__host__ __device__ constexpr size_t f32_smem(int knn) {
+  return sizeof(float) * ((size_t)QF * knn * (LDF_X + 2 * LDF_Y) + QF * CATW);
 }
 
+// the four stages of QF points of cloud blockIdx.y in 3xTF32 -> their
+// concat rows cat_out (B*N, 512) float32; stage i's float32 weight wi
+// (C_in, C_out) and folded BN scale si and bias bi
 template <int KNN>
-__global__ void __launch_bounds__(TQ * 32)
-dgcnn_stage_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                   const float* __restrict__ nbr,
-                   const float* w1, const float* w2, const float* w3,
-                   const float* w4, const float* w5,
-                   const float* s1, const float* s2, const float* s3,
-                   const float* s4, const float* b1, const float* b2,
-                   const float* b3, const float* b4, const float* b5,
-                   float* __restrict__ out, int N, int emb) {
+__global__ void __launch_bounds__(NWF * 32, 1)
+dgcnn_stage_tf32_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                        const float* __restrict__ nbr, const float* w1,
+                        const float* w2, const float* w3, const float* w4,
+                        const float* s1, const float* s2, const float* s3,
+                        const float* s4, const float* b1, const float* b2,
+                        const float* b3, const float* b4,
+                        float* __restrict__ cat_out, int N) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int R = TQ * KNN;
-  float* bufA = reinterpret_cast<float*>(smem_raw);  // R x 64
-  float* bufB = bufA + R * 64;                       // R x 128
-  float* cat = bufB + R * 128;                       // TQ x 512
-  const int b = blockIdx.y, n0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int R = QF * KNN;
+  float* bufX = reinterpret_cast<float*>(smem_raw);  // R x LDF_X (first the edges)
+  float* bufY = bufX + R * LDF_X;                    // 2 R x LDF_Y (two planes)
+  float* cat = bufY + 2 * R * LDF_Y;                 // QF x CATW
+  const int b = blockIdx.y, n0 = blockIdx.x * QF, tid = threadIdx.x;
 
-  // edge rows, 8 wide: [nbr - q, q, 0, 0]
-  for (int r = tid; r < R; r += TQ * 32) {
+  // edge rows, 8 wide: [nbr - q, q, 0, 0] in float32
+  for (int r = tid; r < R; r += NWF * 32) {
     const size_t row = (size_t)b * N + min(n0 + r / KNN, N - 1);
     const float* pq = x + row * 3;
     const float* pn = neighbour<KNN>(x, idx, nbr, row, b, N, r % KNN);
-    float* e = bufA + r * 8;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      e[i] = pn[i] - pq[i];
-      e[3 + i] = pq[i];
-    }
-    e[6] = 0.f;
-    e[7] = 0.f;
+    float4* dst = reinterpret_cast<float4*>(bufX + r * LDF_E);
+    dst[0] = make_float4(pn[0] - pq[0], pn[1] - pq[1], pn[2] - pq[2], pq[0]);
+    dst[1] = make_float4(pq[1], pq[2], 0.f, 0.f);
   }
   __syncthreads();
-  edge_stage<KNN, 6>(bufA, 8, w1, s1, b1, 64, bufB, cat, 0);
+  stage_tf32<KNN, 6, 8, 64, false, false>(bufX, LDF_E, bufY, LDF_Y, w1, s1, b1, cat, 0);
   __syncthreads();
-  edge_stage<KNN, 64>(bufB, 64, w2, s2, b2, 64, bufA, cat, 64);
+  stage_tf32<KNN, 64, 64, 64, false, false>(bufY, LDF_Y, bufX, LDF_X, w2, s2, b2, cat, 64);
   __syncthreads();
-  edge_stage<KNN, 64>(bufA, 64, w3, s3, b3, 128, bufB, cat, 128);
+  stage_tf32<KNN, 64, 64, 128, false, true>(bufX, LDF_X, bufY, LDF_Y, w3, s3, b3, cat, 128);
   __syncthreads();
-  edge_stage<KNN, 128>(bufB, 128, w4, s4, b4, 256, nullptr, cat, 256);
+  stage_tf32<KNN, 128, 128, 256, true, false>(bufY, LDF_Y, nullptr, 0, w4, s4, b4, cat, 256);
   __syncthreads();
 
-  // head: (TQ, 512) x (512, emb), 64 columns a warp at a time
-  for (int col0 = warp * 64; col0 < emb; col0 += TQ * 64) {
-    float acc[TQ][2];
-    dense_tile<TQ, 2, false, CATW>(cat, CATW, w5, nullptr, emb, col0, acc);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = col0 + lane + 32 * c;
-      const float bv = b5[col];
-#pragma unroll
-      for (int r = 0; r < TQ; ++r)
-        if (n0 + r < N)
-          out[((size_t)b * N + n0 + r) * emb + col] = bias_relu(acc[r][c], bv);
-    }
+  // the concat rows of the block's points, 16 bytes a thread
+  constexpr int PER_ROW = CATW / 4;
+  for (int e = tid; e < QF * PER_ROW; e += NWF * 32) {
+    const int q = e / PER_ROW, c = (e % PER_ROW) * 4;
+    if (n0 + q < N)
+      *reinterpret_cast<float4*>(cat_out + ((size_t)b * N + n0 + q) * CATW + c) =
+          *reinterpret_cast<const float4*>(cat + q * CATW + c);
   }
 }
+
+// depth [k0, k0 + FHK) of rows [r0, r0 + FHR) of the float32 concat into
+// sa, and rows [k0, k0 + FHK), columns [c0, c0 + FHC) of w5 (512, emb) into
+// sw; concat rows past `rows` read as 0
+__device__ __forceinline__ void stage_head_f32(float* sa, float* sw,
+                                               const float* __restrict__ cat, int rows,
+                                               const float* __restrict__ w5, int emb,
+                                               int r0, int c0, int k0) {
+  constexpr int PER_ROW = FHK / 4;
+  for (int e = threadIdx.x; e < FHR * PER_ROW; e += NWF * 32) {
+    const int r = e / PER_ROW, c = (e % PER_ROW) * 4;
+    const bool valid = r0 + r < rows;
+    cp_async16(sa + r * LDF_HA + c,
+               cat + (valid ? (size_t)(r0 + r) * CATW + k0 + c : 0), valid);
+  }
+  for (int e = threadIdx.x; e < FHK * (FHC / 4); e += NWF * 32) {
+    const int r = e / (FHC / 4), c = (e % (FHC / 4)) * 4;
+    cp_async16(sw + r * LDF_HW + c, w5 + (size_t)(k0 + r) * emb + c0 + c, true);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// out (rows, emb) = relu(cat w5 + b5) in 3xTF32 for the (FHR, FHC) tile at
+// (blockIdx.y FHR, blockIdx.x FHC): warp w owns rows 32 (w / 2) .. + 31 and
+// columns 32 (w % 2) .. + 31 (2 x 4 accumulator tiles of 16 x 8), both
+// operands split as they are read; two blocks an SM
+__global__ void __launch_bounds__(NWF * 32, 2)
+dgcnn_head_tf32_kernel(const float* __restrict__ cat, const float* __restrict__ w5,
+                       const float* __restrict__ b5, float* __restrict__ out, int rows,
+                       int emb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* base = reinterpret_cast<float*>(smem_raw);
+  float* sa[2] = {base, base + FHR * LDF_HA};
+  float* sw[2] = {base + 2 * FHR * LDF_HA, base + 2 * FHR * LDF_HA + FHK * LDF_HW};
+  const int r0 = blockIdx.y * FHR, c0 = blockIdx.x * FHC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+  constexpr int NK = CATW / FHK;
+  stage_head_f32(sa[0], sw[0], cat, rows, w5, emb, r0, c0, 0);
+  for (int j = 0; j < NK; ++j) {
+    if (j + 1 < NK) {
+      stage_head_f32(sa[(j + 1) & 1], sw[(j + 1) & 1], cat, rows, w5, emb, r0, c0,
+                     (j + 1) * FHK);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const float* a = sa[j & 1] + wr * LDF_HA + g * LDF_HA + t;
+    const float* w = sw[j & 1] + wc + t * LDF_HW + g;
+    // A: rows g, g + 8 and depths t, t + 4 of each 16-row tile; B: depths
+    // t, t + 4 of column g of each 8-column tile; the next depth's loaded
+    // before this depth's products, issued one product at a time
+    float ra[2][4], rb[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      ra[mi][0] = a[16 * mi * LDF_HA];
+      ra[mi][1] = a[(16 * mi + 8) * LDF_HA];
+      ra[mi][2] = a[16 * mi * LDF_HA + 4];
+      ra[mi][3] = a[(16 * mi + 8) * LDF_HA + 4];
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      rb[ni][0] = w[8 * ni];
+      rb[ni][1] = w[4 * LDF_HW + 8 * ni];
+    }
+#pragma unroll
+    for (int ks = 0; ks < FHK / 8; ++ks) {
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(ra[mi][e], ah[mi][e], al[mi][e]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) split_tf32(rb[ni][e], bh[ni][e], bl[ni][e]);
+      if (ks + 1 < FHK / 8) {
+        const int k1 = 8 * (ks + 1);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          ra[mi][0] = a[16 * mi * LDF_HA + k1];
+          ra[mi][1] = a[(16 * mi + 8) * LDF_HA + k1];
+          ra[mi][2] = a[16 * mi * LDF_HA + k1 + 4];
+          ra[mi][3] = a[(16 * mi + 8) * LDF_HA + k1 + 4];
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          rb[ni][0] = w[k1 * LDF_HW + 8 * ni];
+          rb[ni][1] = w[(k1 + 4) * LDF_HW + 8 * ni];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], al[mi], bh[ni][0], bh[ni][1]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bh[ni][0], bh[ni][1]);
+    }
+    __syncthreads();   // the buffer of this chunk is refilled next trip
+  }
+  // accumulator entry e of tile (mi, ni): row 16 mi + g + 8 (e / 2), column
+  // 8 ni + 2 t + e % 2
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int col = c0 + wc + 8 * ni + 2 * t;
+    const float bx = __ldg(b5 + col), by = __ldg(b5 + col + 1);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + wr + 16 * mi + g + 8 * h;
+        if (r < rows)
+          *reinterpret_cast<float2*>(out + (size_t)r * emb + col) =
+              make_float2(fmaxf(acc[mi][ni][2 * h] + bx, 0.f),
+                          fmaxf(acc[mi][ni][2 * h + 1] + by, 0.f));
+      }
+  }
+}
+
+static constexpr int HEAD_F32_SMEM = 2 * (FHR * LDF_HA + FHK * LDF_HW) * (int)sizeof(float);
 
 // ------------------------------------------------ bf16, tensor cores
 
@@ -570,21 +851,30 @@ static cudaError_t launch_stages_bf16(const float* x, const int* idx,
   return cudaGetLastError();
 }
 
-// float32: one launch, the head fused
+// float32: the 3xTF32 stage launch, then the head over the concat in device
+// memory
 template <int KNN>
 static cudaError_t launch_stages_f32(const float* x, const int* idx,
-                                     const float* nbr, const Operands& o, void* out,
-                                     int B, int N, int emb, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(TQ * KNN * (64 + 128) + TQ * CATW);
+                                     const float* nbr, const Operands& o, void* cat,
+                                     void* out, int B, int N, int emb,
+                                     cudaStream_t stream) {
+  const size_t smem = f32_smem(KNN);
   cudaError_t err = cudaFuncSetAttribute(
-      dgcnn_stage_kernel<KNN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dgcnn_stage_tf32_kernel<KNN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + TQ - 1) / TQ, B);
-  dgcnn_stage_kernel<KNN><<<grid, TQ * 32, smem, stream>>>(
-      x, idx, nbr, o.w[0], o.w[1], o.w[2], o.w[3], (const float*)o.w5, o.ss[0],
-      o.ss[1], o.ss[2], o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], o.bs[4],
-      (float*)out, N, emb);
+  err = cudaFuncSetAttribute(dgcnn_head_tf32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_F32_SMEM);
+  if (err != cudaSuccess) return err;
+  dgcnn_stage_tf32_kernel<KNN><<<dim3((N + QF - 1) / QF, B), NWF * 32, smem, stream>>>(
+      x, idx, nbr, o.w[0], o.w[1], o.w[2], o.w[3], o.ss[0], o.ss[1], o.ss[2],
+      o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], (float*)cat, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rows = B * N;
+  dgcnn_head_tf32_kernel<<<dim3(emb / FHC, (rows + FHR - 1) / FHR), NWF * 32,
+                           HEAD_F32_SMEM, stream>>>(
+      (const float*)cat, (const float*)o.w5, o.bs[4], (float*)out, rows, emb);
   return cudaGetLastError();
 }
 
@@ -595,7 +885,7 @@ static cudaError_t launch_stages(const float* x, const int* idx,
                                  cudaStream_t stream) {
   if (is_bf16)
     return launch_stages_bf16<KNN>(x, idx, nbr, o, cat, out, B, N, emb, stream);
-  return launch_stages_f32<KNN>(x, idx, nbr, o, out, B, N, emb, stream);
+  return launch_stages_f32<KNN>(x, idx, nbr, o, cat, out, B, N, emb, stream);
 }
 
 template <int KNN>
@@ -611,8 +901,8 @@ static cudaError_t launch_k(const float* x, const Operands& o, int* idx,
 }
 
 // w1 .. w4 (C_in, C_out), s1 .. s4 and b1 .. b5 float32 as Operands; w5
-// (512, emb) folded, in the compute type (is_bf16: bf16, else float32). cat: (B*N, 512) bf16 scratch for bf16, unused (may be null) for
-// float32.
+// (512, emb) folded, in the compute type (is_bf16: bf16, else float32);
+// cat: (B*N, 512) scratch in the compute type.
 extern "C" int dgcnn_eval_launch(
     const float* x, const float* w1, const float* w2, const float* w3,
     const float* w4, const void* w5, const float* s1, const float* s2,

@@ -11,8 +11,12 @@ position-encoding angles cos(angle(p -> nbr_j, p -> centroid)) of the first
 `posenc_k` neighbours from float32 coordinates.
 
 On a CUDA tensor the wrapper launches `csrc/dgcnn_eval.cu` (`kernel_takes`:
-k in KERNEL_KS and emb a multiple of 64; k <= N <= 1024); on a CPU tensor it runs `dgcnn_eval_reference`, the plain
-PyTorch version of the same arithmetic.
+k in KERNEL_KS and emb a multiple of 64; k <= N <= 1024); on a CPU tensor it
+runs `dgcnn_eval_reference`, the plain PyTorch version of the same
+arithmetic. In float32 the kernel's products run on the tensor cores as three
+TF32 products each (the operands split into a TF32 high and low part), about
+2^-22 of each product from true float32; the plain version stays true
+float32.
 
 `dgcnn_edges(x, nbr, weights, affines)` is the stage chain alone over given
 float32 neighbour coordinates nbr (B, N, k, 3), at any N: the port of
@@ -22,6 +26,7 @@ KERNEL_KS), with `dgcnn_edges_reference` beside it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -129,10 +134,45 @@ def _kernel_operands(what, weights, affines, k, dtype):
 
 
 def _concat_scratch(x, dtype):
-    """The (B*N, 512) concat the bf16 stage launch writes and its head
-    launch reads; the float32 route keeps it on chip."""
-    rows = x.shape[0] * x.shape[1] if dtype == torch.bfloat16 else 0
-    return torch.empty(rows, sum(STAGES), dtype=dtype, device=x.device)
+    """The (B*N, 512) concat the stage launch writes and the head launch
+    reads, in the compute type (both routes)."""
+    return torch.empty(x.shape[0] * x.shape[1], sum(STAGES), dtype=dtype,
+                       device=x.device)
+
+
+# csrc/dgcnn_eval.cu: the float32 stage kernel's points (QF) and warps (NWF)
+# a block, the row strides of its float32 activations (LDF_X, LDF_Y), and
+# the shared memory an SM offers a block on an H100
+F32_POINTS, F32_WARPS = 8, 8
+F32_LD = (68, 132)
+SMEM_PER_BLOCK = 232448       # 227 KB
+SMEM_PER_SM = 233472          # 228 KB, 1 KB of it reserved for each block
+REGS_PER_SM, MAX_REGS = 65536, 255
+
+
+class F32StagePlan(NamedTuple):
+    points: int     # points (QF) a block
+    warps: int      # warps a block
+    smem: int       # dynamic shared memory of a block, bytes
+    blocks_sm: int  # blocks an SM holds: shared memory, and the registers of
+    #                 __launch_bounds__(NWF * 32, 1), which lets a thread
+    #                 take all 255
+    grid: tuple     # (point blocks, B)
+
+
+def f32_stage_plan(B: int, N: int, k: int) -> F32StagePlan:
+    """The float32 (3xTF32) stage launch as a pure function of the shapes,
+    mirroring `csrc/dgcnn_eval.cu:launch_stages_f32`: QF points a block; in
+    shared memory (`f32_smem`) the activations of its QF k edge rows in a
+    buffer of LDF_X floats a row and one of two planes of LDF_Y (stage 3's
+    output split into TF32 high and low parts), and its QF concat rows; one
+    block a point group of a cloud."""
+    ld_x, ld_y = F32_LD
+    smem = 4 * (F32_POINTS * k * (ld_x + 2 * ld_y) + F32_POINTS * sum(STAGES))
+    threads = 32 * F32_WARPS
+    blocks = min(SMEM_PER_SM // (smem + 1024), REGS_PER_SM // (threads * MAX_REGS))
+    return F32StagePlan(F32_POINTS, F32_WARPS, smem, blocks,
+                        (-(-N // F32_POINTS), B))
 
 
 def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k, idx=None):

@@ -16,10 +16,14 @@ PyTorch/CUDA port goes.
     python3 scripts/torch_port_profile.py --probe nn1 [--parent DIR]
     python3 scripts/torch_port_profile.py --probe bwd_reduce [--parent DIR]
     python3 scripts/torch_port_profile.py --probe fps [--parent DIR]
+    python3 scripts/torch_port_profile.py --probe posenc_angles [--parent DIR]
+    python3 scripts/torch_port_profile.py --probe dgcnn_eval [--dtype float32]
+                                          [--parent DIR]
 
 Needs one CUDA device. Runs GMMReg at B=24, N=717 (or --n_points: 1433 is
 ModelNet40's 2048-point clouds cropped to 0.70, the shared-graph route),
-emb 512, K=128 with a bf16 body and seeded random weights (with --preset
+emb 512, K=128 with a bf16 body (`--dtype float32`: the float32 body that
+`configs.mnet()` gives by default) and seeded random weights (with --preset
 indoor: the indoor request, B=1, N=35,000, K=16, on bench.py's synthetic
 fragment against a rigid copy of it), and prints, for a request without and
 with ICP (or, with --train, for a train step with the metric suite and the
@@ -69,7 +73,21 @@ call and its plan, every (lanes, queries a thread) pair `csrc/nn1.cu`
 compiles with its device ms, and with `--parent DIR` that tree's `nn1.cu`,
 each bit-equal to the plain version; then the same at three shapes whose
 queries leave SMs without a block ((4, 16, 2048) the C.1 check's
-clustering, (1, 128, 717) and (1, 717, 717) requests of one cloud).
+clustering, (1, 128, 717) and (1, 717, 717) requests of one cloud);
+`posenc_angles` at the unfused step's (24, 717, k=5): the ms between CUDA
+events and the device ms of each kernel the call launches, the wrapper's
+plan, the outputs against the plain version (indices identical, angles), the
+variants of `POSENC_VARIANTS` (the cloud staged and nothing else, the first
+pass alone, no buffer, the points below the threshold inserted at once) and
+with `--parent DIR` that tree's kernel with the centroid's `mean` launch its
+wrapper makes, all timed in turns;
+`dgcnn_eval` at the request's (48, 717, k=20, emb 512) in `--dtype`: the ms
+between CUDA events, the device ms of each `__global__` (the selection, the
+stage chain, the head), the error against the plain version, the variants of
+`DGCNN_VARIANTS` (the float32 stage kernel at two row tiles at a time in
+stage 4), the rate of `mma.sync` m16n8k8 TF32 alone on the card
+(`MMA_RATE`: independent products only, at 8, 16 and 32 warps an SM), and
+with `--parent DIR` that tree's kernel on the same operands.
 """
 import argparse
 import dataclasses
@@ -518,6 +536,25 @@ def _timed(label, run, reps=20):
     return {"ms": ms, "device_ms": device}
 
 
+def _interleaved(runs, rounds=3, reps=10):
+    """ms between CUDA events of each of several builds' calls, taken in
+    turns (round r times every build before round r + 1: a card that warms
+    up or slows down over a probe moves all of them alike), the least of the
+    rounds, and the device ms of each __global__ of each."""
+    times = {label: [] for label in runs}
+    for _ in range(rounds):
+        for label, run in runs.items():
+            times[label].append(_cuda_ms(run, reps))
+    res = {}
+    for label, run in runs.items():
+        res[label] = {"ms": min(times[label]), "ms_rounds": times[label],
+                      "device_ms": _profile_groups(run, reps)}
+        print(f"  {label}: {res[label]['ms']:.4f} ms between calls (rounds "
+              f"{[round(t, 4) for t in times[label]]}); device ms of each kernel: "
+              f"{res[label]['device_ms']}")
+    return res
+
+
 def probe_graph_stage1(args):
     import ctypes
     from ogmm_tpu_torch.ops import cuda_dgcnn_train, cuda_posenc
@@ -794,10 +831,217 @@ def probe_fps(args):
     return result
 
 
+def probe_posenc_angles(args):
+    import ctypes
+    from ogmm_tpu_torch.ops import cuda_knn, cuda_posenc
+    rs = np.random.RandomState(12)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    parent = _parent_lib(args, "posenc_angles")
+    b, n, k = 24, 717, 5
+    x = torch.tensor((rs.randn(b, n, 3) * 0.3).astype(np.float32), device="cuda")
+    x[:, n // 2] = x[:, 1]                    # a duplicated point: exact ties
+    want = cuda_posenc.posenc_angles_reference(x, k)
+    want_idx = cuda_knn.knn_reference(x, x, k)
+    key = f"({b}, {n}, k={k})"
+    r = {}
+    idx = torch.empty(b, n, k, dtype=torch.int32, device="cuda")
+    got = cuda_posenc._posenc_angles_cuda(x, k, idx=idx)
+    r.update(indices_identical=torch.equal(idx.long(), want_idx),
+             max_abs_err=(got - want).abs().max().item())
+    print(f"posenc_angles {key} against the plain version: indices identical "
+          f"{r['indices_identical']}, max abs err {r['max_abs_err']:.3g}")
+    # the wrapper's call, the variants and the parent, timed in turns
+    runs = {"this tree": lambda: cuda_posenc.posenc_angles(x, k)}
+    r["plan"] = cuda_posenc.posenc_plan(b, n, k)._asdict()
+    print(f"  the wrapper's plan: {r['plan']}")
+    source = os.path.join(CSRC, "posenc_angles.cu")
+    text = open(source).read()
+    ks = cuda_posenc.posenc_plan(b, n, k)
+    for label, edits in POSENC_VARIANTS:
+        if not all(old in text for old, _ in edits):
+            continue
+        lib = _variant(source, edits, "posenc_" + re.sub(r"\W+", "_", label), args.out)
+        fn = lib.posenc_angles_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        alpha = torch.empty(b, n, k, device="cuda")
+
+        def run_variant(fn=fn, alpha=alpha):
+            code = fn(ptr(x), ptr(alpha), None, b, n, k, ks.K, ks.lanes, None)
+            if code:
+                raise RuntimeError(f"launch failed: {code}")
+            return alpha
+        runs[label] = run_variant
+    if parent is not None:
+        fn = parent.posenc_angles_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        alpha = torch.empty(b, n, k, device="cuda")
+
+        def run_parent(fn=fn, alpha=alpha):
+            centroid = x.mean(dim=1, keepdim=True)
+            code = fn(ptr(x), ptr(centroid), ptr(alpha), None, b, n, k,
+                      cuda_knn.knn_compiled_k(k), None)
+            if code:
+                raise RuntimeError(f"launch failed: {code}")
+            return alpha
+        r["parent_max_abs_err"] = (run_parent() - want).abs().max().item()
+        runs["parent"] = run_parent
+    for label, res in _interleaved(runs, reps=50).items():
+        r.setdefault(label, {}).update(res)
+    return {key: r}
+
+
+# builds of csrc/posenc_angles.cu with a line changed, to say where the lanes
+# kernel's time goes (their outputs are not all the function's): the cloud
+# staged and the centroid summed, nothing else; the first pass alone; the
+# second pass without its buffer; the points at or below the threshold
+# inserted as they come (a source without the line is skipped)
+POSENC_VARIANTS = (
+    ("the cloud staged, nothing else",
+     [("  __syncthreads();\n  const float4 qp", "  __syncthreads();\n  if (kout > 0) return;\n  const float4 qp")]),
+    ("the first pass alone",
+     [("  const float thr = valid ? fmaxf(t, 1e-12f) : -CUDART_INF_F;   // past N: none",
+       "  const float thr = valid ? fmaxf(t, 1e-12f) : -CUDART_INF_F;\n"
+       "  if (thr < -1.f) alpha[0] = t;\n  if (kout > 0) return;")]),
+    ("no buffer", [("      if (cnt < PCAP) buf[cnt * PT] = m;\n      ++cnt;",
+                    "      cnt += m >> 30;")]),
+    ("the points at or below T inserted at once",
+     [("      if (cnt < PCAP) buf[cnt * PT] = m;\n      ++cnt;",
+       "      insert<K>(kd, ki, dist_fma(qx, qy, qz, qq, tp[m]), m);")]))
+
+
+# builds of csrc/dgcnn_eval.cu with a line changed: the float32 stage kernel
+# at two 8-row tiles at a time in stage 4 (a source without the line is
+# skipped)
+DGCNN_VARIANTS = (("float32, stage 4 two row tiles at a time",
+                   [("#define TPI4 4 ", "#define TPI4 2 ")]),)
+
+
+# the card's rate of mma.sync m16n8k8 TF32 alone: each warp issues 8
+# independent chains of products, nothing else (what the float32 stage
+# chain and head could reach at most with this instruction)
+MMA_RATE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void mma_rate_kernel(float* out, int iters) {
+  const uint32_t a0 = 0x3f800000u + (threadIdx.x << 13), b0 = 0x3f000000u + (threadIdx.x << 14);
+  uint32_t a[4] = {a0, a0 ^ 0x2000u, a0 ^ 0x4000u, a0 ^ 0x6000u};
+  float acc[8][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                   "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                   : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b0 ^ 0x2000u));
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_rate_launch(float* out, int blocks, int threads, int iters) {
+  mma_rate_kernel<<<blocks, threads>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def probe_mma_rate(out_dir):
+    """TFLOP/s of mma.sync m16n8k8 TF32 alone at 8, 16 and 32 warps an SM."""
+    import ctypes
+    from ogmm_tpu_torch.ops import dispatch
+    os.makedirs(out_dir, exist_ok=True)
+    cu, so = os.path.join(out_dir, "mma_rate.cu"), os.path.join(out_dir, "mma_rate.so")
+    with open(cu, "w") as f:
+        f.write(MMA_RATE)
+    subprocess.run([dispatch._nvcc(), *dispatch.NVCC_FLAGS, "-o", so, cu], check=True)
+    fn = ctypes.CDLL(so).mma_rate_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, iters, res = torch.empty(sms * 4 * 256, device="cuda"), 4096, {}
+    for per_sm in (1, 2, 4):
+        blocks = sms * per_sm
+        ms = _cuda_ms(lambda: fn(out.data_ptr(), blocks, 256, iters), 5)
+        flops = blocks * 8 * iters * 8 * 2.0 * 16 * 8 * 8
+        res[f"{8 * per_sm} warps an SM"] = {"ms": ms, "tflops": flops / ms / 1e9}
+    print(f"mma.sync m16n8k8 tf32 alone: {res}")
+    return res
+
+
+def probe_dgcnn_eval(args):
+    import ctypes
+    from ogmm_tpu_torch.ops import cuda_dgcnn
+    rs = np.random.RandomState(13)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    dt = torch.float32 if args.dtype == "float32" else torch.bfloat16
+    b, n, k, emb, pk = 48, 717, 20, 512, 5
+    x = torch.tensor((rs.randn(b, n, 3) * 0.3).astype(np.float32), device="cuda")
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb)]
+    ws = [torch.tensor((rs.randn(*d) / np.sqrt(d[0])).astype(np.float32), device="cuda")
+          for d in dims]
+    aff = [(torch.tensor(rs.uniform(0.5, 1.5, d[1]).astype(np.float32), device="cuda"),
+            torch.tensor((rs.randn(d[1]) * 0.1).astype(np.float32), device="cuda"))
+           for d in dims]
+    want, want_alpha = cuda_dgcnn.dgcnn_eval_reference(x, ws, aff, k, dt, pk)
+    key = f"({b}, {n}, k={k}, emb {emb}) {args.dtype}"
+    run = lambda: cuda_dgcnn.dgcnn_eval(x, ws, aff, k, dt, pk)
+    r = _timed(f"dgcnn_eval {key}", run, 10)
+    out, alpha = run()
+    r.update(max_abs_err=(out.float() - want.float()).abs().max().item(),
+             alpha_max_abs_err=(alpha - want_alpha).abs().max().item(),
+             max_abs_plain=want.float().abs().max().item())
+    print(f"  against the plain version: {r['max_abs_err']:.3g} (max |plain| "
+          f"{r['max_abs_plain']:.3g}), alpha {r['alpha_max_abs_err']:.3g}")
+    ops = cuda_dgcnn._kernel_operands("dgcnn_eval", ws, aff, k, dt)
+
+    def launcher(lib, label):
+        fn = lib.dgcnn_eval_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        idx = torch.empty(b, n, k, dtype=torch.int32, device="cuda")
+        al = torch.empty(b, n, pk, device="cuda")
+        cat = torch.empty(b * n, 512, dtype=dt, device="cuda")
+        o = torch.empty(b, n, emb, dtype=dt, device="cuda")
+
+        def go():
+            code = fn(ptr(x), *[ptr(t) for group in ops for t in group], ptr(idx),
+                      ptr(al), ptr(cat), ptr(o), b, n, emb, k, pk,
+                      int(dt == torch.bfloat16), None)
+            if code:
+                raise RuntimeError(f"{label}: launch failed: {code}")
+            return o
+        got = go()
+        r[label] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                    "bit_equal_to_this_tree": torch.equal(got, out)}
+        print(f"  {label}: against the plain version {r[label]['max_abs_err']:.3g}, "
+              f"bit-equal to this tree's kernel {r[label]['bit_equal_to_this_tree']}")
+        return go
+    # this tree's call, the variants and the parent, timed in turns
+    runs = {"this tree": run}
+    source = os.path.join(CSRC, "dgcnn_eval.cu")
+    text = open(source).read()
+    for label, edits in DGCNN_VARIANTS:
+        if dt == torch.float32 and all(old in text for old, _ in edits):
+            name = "dgcnn_eval_" + re.sub(r"\W+", "_", label)
+            runs[label] = launcher(_variant(source, edits, name, args.out), label)
+    parent = _parent_lib(args, "dgcnn_eval")
+    if parent is not None:
+        runs["parent"] = launcher(parent, "parent")
+    for label, res in _interleaved(runs).items():
+        r.setdefault(label, {}).update(res)
+    if dt == torch.float32:
+        r["mma_rate"] = probe_mma_rate(args.out)
+    return {key: r}
+
+
 PROBES = {"knn_stream": probe_knn_stream, "icp": probe_icp,
           "bwd_edge": probe_bwd_edge, "knn": probe_knn,
           "graph_stage1": probe_graph_stage1, "nn1": probe_nn1,
-          "bwd_reduce": probe_bwd_reduce, "fps": probe_fps}
+          "bwd_reduce": probe_bwd_reduce, "fps": probe_fps,
+          "posenc_angles": probe_posenc_angles, "dgcnn_eval": probe_dgcnn_eval}
 
 
 def main():
@@ -811,6 +1055,9 @@ def main():
                     help="points a cloud (above 1024: the shared kNN graph; "
                          "default 717, 35000 with --preset indoor)")
     ap.add_argument("--preset", choices=["mnet", "indoor"], default="mnet")
+    ap.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16",
+                    help="the network body's type (float32 is configs.mnet()'s "
+                         "default; bfloat16 keeps earlier profiles comparable)")
     ap.add_argument("--loop_kernels", action="store_true",
                     help="FPS, ICP and the attention MLPs through their kernels")
     ap.add_argument("--fused_edges", action="store_true",
@@ -820,7 +1067,7 @@ def main():
                     help="time the kernel beside variants of it (see above)")
     ap.add_argument("--parent", default=None,
                     help="with --probe knn_stream, knn, graph_stage1, nn1, "
-                         "bwd_reduce or fps: a "
+                         "bwd_reduce, fps, posenc_angles or dgcnn_eval: a "
                          "tree of the commit with the kernel's earlier design")
     args = ap.parse_args()
     if args.probe:
@@ -843,16 +1090,17 @@ def main():
     rs = np.random.RandomState(0)
     if indoor:
         cfg = configs.indoor()
-        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype="bfloat16"))
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=args.dtype))
         src, tgt = indoor_pair(rs, N)
     else:
-        cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
+        cfg = configs.mnet(model=configs.ModelConfig(dtype=args.dtype))
         src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
         tgt = src[:, rs.permutation(N)] + 0.05
     if args.fused_edges:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     dgcnn_fused_edges=True))
     result = {"shape": {"B": src.shape[0], "N": N}, "preset": args.preset,
+              "dtype": args.dtype,
               "bwd_kernels": args.bwd_kernels, "loop_kernels": args.loop_kernels,
               "fused_edges": args.fused_edges}
     if args.train:
@@ -892,6 +1140,7 @@ def main():
     name += "_loop_kernels" if args.loop_kernels else ""
     name += "_fused_edges" if args.fused_edges else ""
     name += "" if N == (35000 if indoor else 717) else f"_n{N}"
+    name += "_f32" if args.dtype == "float32" else ""
     name += ".json"
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)

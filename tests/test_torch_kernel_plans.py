@@ -1,7 +1,9 @@
 """The launch plans of the DGCNN, EM and streamed kernels, on the CPU: the
 shapes the EM kernel takes (`cuda_em.kernel_takes`, `cuda_em.smem_bytes`),
 the operands the DGCNN wrappers hand their kernels
-(`cuda_dgcnn._kernel_operands`, `cuda_dgcnn._concat_scratch`), the bf16
+(`cuda_dgcnn._kernel_operands`, `cuda_dgcnn._concat_scratch`), the float32
+stage block (`cuda_dgcnn.f32_stage_plan`), the angle kernel's launch
+(`cuda_posenc.posenc_plan`), the bf16
 projection's shared memory and persistent grid (`cuda_stream.wproject_plan`,
 `wproject_units`, `wproject_smem_bytes`), the 1-NN kernel's split of the
 target (`cuda_stream.nn1_stream_plan`), and the bf16 backward stage's and
@@ -90,10 +92,50 @@ def test_dgcnn_operands_leave_the_fold_of_stages_1_to_4_to_the_kernel(dtype, emb
 
 
 @pytest.mark.parametrize("dtype,rows", [(torch.bfloat16, 2 * 37),
-                                        (torch.float32, 0)])
-def test_dgcnn_concat_scratch_only_for_bf16(dtype, rows):
+                                        (torch.float32, 2 * 37)])
+def test_dgcnn_concat_scratch_in_the_compute_type(dtype, rows):
+    # both routes write the concat to device memory for their head launch
     cat = cuda_dgcnn._concat_scratch(torch.zeros(2, 37, 3), dtype)
     assert tuple(cat.shape) == (rows, 512) and cat.dtype == dtype
+
+
+def test_f32_stage_plan_mirrors_the_kernel():
+    assert (cuda_dgcnn.F32_POINTS, cuda_dgcnn.F32_WARPS) == (_cu_define("dgcnn_eval.cu", "QF"),
+                                                            _cu_define("dgcnn_eval.cu", "NWF"))
+    assert cuda_dgcnn.F32_LD == (_cu_define("dgcnn_eval.cu", "LDF_X"), _cu_define("dgcnn_eval.cu", "LDF_Y"))
+    # strides of 4 mod 32 keep a B fragment's 32 reads (row g, column t) on
+    # 32 banks; the edge rows' 12 does too
+    for ld in (*cuda_dgcnn.F32_LD, _cu_define("dgcnn_eval.cu", "LDF_E")):
+        assert len({(g * ld + t) % 32 for g in range(8) for t in range(4)}) == 32
+
+
+@pytest.mark.parametrize("k", cuda_dgcnn.KERNEL_KS)
+def test_f32_stage_block_fits_shared_memory_at_every_k(k):
+    plan = cuda_dgcnn.f32_stage_plan(48, 717, k)
+    # the edge rows (12 floats) live in the 64-channel buffer; the 128-wide
+    # buffer holds stage 3's output in two planes (high and low parts)
+    ld_x, ld_y = cuda_dgcnn.F32_LD
+    assert plan.smem == 4 * plan.points * (k * (ld_x + 2 * ld_y) + 512)
+    assert _cu_define("dgcnn_eval.cu", "LDF_E") <= ld_x
+    assert plan.smem <= cuda_dgcnn.SMEM_PER_BLOCK
+    # one block an SM: its threads may take all 255 registers
+    assert plan.blocks_sm == 1 and plan.warps * 32 * 255 <= cuda_dgcnn.REGS_PER_SM
+    # whole 8-row tiles and row groups of whole points (csrc stage_tf32)
+    assert plan.points * k % 8 == 0
+
+
+@pytest.mark.parametrize("N", [1, 5, 717, 1023, 1024, 35000])
+@pytest.mark.parametrize("k", cuda_dgcnn.KERNEL_KS)
+def test_f32_stage_grid_covers_every_point_once(N, k):
+    B = 3
+    plan = cuda_dgcnn.f32_stage_plan(B, N, k)
+    gx, gy = plan.grid
+    assert gy == B
+    # block x owns points [QF x, QF x + QF) of its cloud; those past N are
+    # computed on a repeated point and not written
+    owned = [x * plan.points + q for x in range(gx) for q in range(plan.points)]
+    assert [p for p in owned if p < N] == list(range(N))
+    assert (gx - 1) * plan.points < N
 
 
 # ------------------------------------------- the streamed kernels' plans
@@ -562,6 +604,65 @@ def test_nn1_kernel_compiles_the_plans_nn1_plan_returns():
                 for N in (1, 16, 128, 512, 717, 1433, 4096)
                 for p in [cuda_knn.nn1_plan(B, N, H100_SMS)]}
     assert compiled == returned
+
+
+# ------------------------------------------------------- the angle kernel
+
+from ogmm_tpu_torch.ops import cuda_posenc  # noqa: E402
+
+
+def test_posenc_plan_mirrors_the_kernel():
+    text = open(os.path.join(CSRC, "posenc_angles.cu")).read()
+    ks = re.search(r"#define POSENC_LANES_KS\(X\)(.*)", text).group(1)
+    shared = re.search(r"#define POSENC_SHARED_KS\(X\)(.*)", text).group(1)
+    assert tuple(int(k) for k in re.findall(r"X\((\d+)\)", ks)) == cuda_posenc.LANES_KS
+    assert _cu_define("posenc_angles.cu", "POSENC_LANES") == cuda_posenc.LANES
+    assert _cu_define("posenc_angles.cu", "PT") == cuda_posenc.THREADS
+    # the shared selection is compiled at exactly the K the plan gives it
+    compiled = {int(k) for k in re.findall(r"X\((\d+)\)", shared)}
+    assert {cuda_knn.knn_compiled_k(k) for k in range(9, 33)} == compiled
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+def test_posenc_plan_splits_k_between_the_two_kernels(k):
+    plan = cuda_posenc.posenc_plan(24, 717, k)
+    if k <= 8:
+        # the lanes kernel at the smallest compiled K >= k; round r's winner
+        # stays with lane r, so K <= lanes
+        assert plan.kernel == "lanes" and plan.lanes == cuda_posenc.LANES
+        assert plan.K == min(K for K in cuda_posenc.LANES_KS if K >= k)
+        assert plan.K <= plan.lanes and plan.lanes * plan.queries == cuda_posenc.THREADS
+    else:
+        assert plan.kernel == "shared" and plan.lanes == cuda_knn.KNN_LANES
+        assert plan.K == cuda_knn.knn_compiled_k(k)
+        assert plan.queries == cuda_knn.KNN_QUERIES
+
+
+@pytest.mark.parametrize("B,N,k", [(24, 717, 5), (1, 717, 5), (4, 1024, 5),
+                                   (2, 5, 5), (3, 6, 1), (1, 64, 8), (2, 1023, 2),
+                                   (24, 717, 20), (1, 33, 32), (5, 1000, 9)])
+def test_posenc_plan_covers_every_query_once(B, N, k):
+    plan = cuda_posenc.posenc_plan(B, N, k)
+    gx = plan.blocks // B
+    assert gx * B == plan.blocks
+    owned = [x * plan.queries + q for x in range(gx) for q in range(plan.queries)]
+    assert [q for q in owned if q < N] == list(range(N))
+    assert (gx - 1) * plan.queries < N
+
+
+def test_posenc_plan_fills_the_card_at_the_unfused_step():
+    # (24, 717, k=5): 1080 blocks of 256 threads (16 lanes a query), where
+    # the shared selection gave 288; one cloud still gives 45
+    plan = cuda_posenc.posenc_plan(24, 717, 5)
+    assert (plan.kernel, plan.lanes, plan.queries, plan.blocks) == ("lanes", 16, 16, 1080)
+    assert plan.blocks >= 2 * H100_SMS
+    assert cuda_posenc.posenc_plan(1, 717, 5).blocks == 45
+
+
+@pytest.mark.parametrize("N,k", [(1025, 5), (64, 33), (4, 5), (64, 0)])
+def test_posenc_plan_refuses_what_the_kernel_does_not_take(N, k):
+    with pytest.raises(ValueError):
+        cuda_posenc.posenc_plan(2, N, k)
 
 
 # ------------------------------------------------- graph_stage1's edge pass

@@ -1129,3 +1129,49 @@ def test_em_kernel_runs_the_request_in_one_wave(card):
     # of 8 blocks the card holds at once
     from ogmm_tpu_torch.ops import cuda_em
     assert cuda_em.max_clusters(717, 128) >= 48
+
+
+# ------------------------------------- the angle kernel sized for a small k
+
+POSENC_SHAPES = [(N, k) for N in (5, 6, 64, 717, 1023, 1024)
+                 for k in (1, 5, 8, 20, 32) if k <= N]
+
+
+def _posenc_check(x, k):
+    """Kernel against plain: identical neighbours, angles within 1e-5, a
+    relaunch bit-equal."""
+    B, N, _ = x.shape
+    idx = torch.empty(B, N, k, dtype=torch.int32, device=x.device)
+    got = cuda_posenc._posenc_angles_cuda(x, k, idx=idx)
+    again = cuda_posenc._posenc_angles_cuda(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.long(), knn_reference(x, x, k))
+    assert (got - posenc_angles_reference(x, k)).abs().max().item() <= 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("N,k", POSENC_SHAPES)
+def test_posenc_angles_every_routed_k_matches_plain(card, N, k):
+    rs = np.random.RandomState(N + 100 * k)
+    x = torch.tensor(rs.randn(2, N, 3).astype(np.float32) * 0.3, device=card)
+    x[:, N // 2] = x[:, 1]                   # a duplicated point: exact ties
+    _posenc_check(x, k)
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 20, 32])
+def test_posenc_angles_coincident_points_take_the_lowest_index(card, k):
+    # most of a lane's points sit at T: its buffer overflows and its warp
+    # scans again, draining as it goes
+    rs = np.random.RandomState(k)
+    x = torch.tensor(rs.randn(3, 600, 3).astype(np.float32) * 0.3, device=card)
+    x[:, 100:400] = x[:, :1]                 # 301 coincident points
+    _posenc_check(x, k)
+
+
+@pytest.mark.parametrize("B,N,k", [(24, 717, 5), (1, 717, 5), (3, 64, 8),
+                                   (2, 1024, 2), (2, 7, 1)])
+def test_posenc_angles_at_batch_sizes_matches_plain(card, B, N, k):
+    rs = np.random.RandomState(B + N + k)
+    x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    x[:, N // 2] = x[:, 1]
+    _posenc_check(x, k)
