@@ -101,6 +101,15 @@ fatal on failure:
              through the 3xTF32 stage chain of dgcnn_eval), without and with
              ICP: launches (dgcnn_eval 1, sinkhorn_em 1), request times, peak
              memory, rotation and overlap scores against the plain versions
+ 17. train_indoor  `make_train_step(configs.indoor())`, float32 body, B=2
+             pairs of N=35,000: the streamed overlap head trains through
+             the chunked recompute of `ops.stream.wproject`; launches, step
+             time, peak memory, no (N, N) allocation, every parameter moved;
+             one step against the plain versions; the bf16 step once; the
+             CLI (`--preset indoor --dataset 7scene`) on stand-in fragments
+             of scripts/gen_indoor_fragments.py, the loader's time a batch.
+             Phase 12's wproject entry also times the float32 form at the
+             indoor call and the head's backward
 
 `python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
 (build always runs; the names are those of PHASES below) and prints their
@@ -216,6 +225,15 @@ LIM_STEP_GRAD = 0.2      # |g_kernel - g_plain| / |g_plain| over all params
 # one train step with the backward kernels on against off, from one state:
 # the forward is the same, the backward rounds in other places
 LIM_BWD_STEP_GRAD = 0.05
+# one float32 indoor train step with kernels against the same with plain
+# versions: the kNN and 1-NN indices are identical, the head's out and lse
+# 1e-6 apart; the ten EM trips amplify that into the loss (as for the
+# unfused step), and the step's gradient is piecewise smooth (max over k,
+# LeakyReLU, ReLU): at N = 4,300 moving every weight by 1e-7 of its value
+# moves the gradients by 4.4e-4 (tests/test_torch_indoor_train.py); the
+# gradient limit is about twice that
+LIM_INDOOR_LOSS = 1e-3   # relative difference of the loss
+LIM_INDOOR_GRAD = 1e-3   # |g_kernel - g_plain| / |g_plain| over all params
 
 
 def cuda_ms(fn, reps):
@@ -1599,6 +1617,35 @@ def check_wproject(rs):
           f"plain {plain:.2f} ms, bound {bound:.4f} ms (operations); "
           f"scaled_dot_product_attention {lib} ms (backends that take a "
           f"one-column v: {backends}; max|out - plain| {lib_err})")
+    # the float32 form, which the default float32 body's indoor training
+    # runs, at the same call; and the head's backward (plain PyTorch, the
+    # chunked recompute: four products of N x M x D a call with the
+    # forward's, in float32 with TF32 off) in both types
+    q32, k32 = qi.float(), ki.float()
+    out32, lse32 = cuda_stream.wproject_stream_lse(q32, k32, vi)
+    rout32, rlse32 = stream.wproject_stream_lse_plain(q32, k32, vi)
+    err32 = max((out32 - rout32).abs().max().item(),
+                (lse32 - rlse32).abs().max().item())
+    assert err32 <= LIM_WPROJECT, err32
+    ms32 = cuda_ms(lambda: cuda_stream.wproject_stream_lse(q32, k32, vi), 3)
+    plain32 = cuda_ms(lambda: stream.wproject_stream_lse_plain(q32, k32, vi), 2)
+    lib32, backends32, _ = _sdpa(q32, k32, vi)
+    bound32 = f32_bound(nn_ * EMB, 4.0 * nn_,
+                        2 * N_INDOOR * EMB * 4 + N_INDOOR * 4 + 2 * N_INDOOR * 4)
+    g = torch.tensor(rs.randn(1, N_INDOOR, 1).astype(np.float32), device=DEV)
+    bwd = {}
+    for label, (q, k, o, l) in (("f32", (q32, k32, out32, lse32)),
+                                ("bf16", (qi, ki, *cuda_stream.wproject_stream_lse(qi, ki, vi)))):
+        bwd[label] = cuda_ms(lambda q=q, k=k, o=o, l=l: stream.wproject_bwd(
+            q, k, vi, o, l, g), 2)
+    print(f"wproject (1, {N_INDOOR}, {N_INDOOR}, D={EMB}) float32: {ms32:.3f} ms, "
+          f"max|kernel - plain| {err32:.3g} (limit {LIM_WPROJECT}), plain "
+          f"{plain32:.2f} ms, bound {bound32['ms']:.4f} ms on the CUDA cores "
+          f"({bound32['by']}; {bound32['ms_tf32x3']:.4f} in 3xTF32), "
+          f"scaled_dot_product_attention {lib32} ms ({backends32}); the head's "
+          f"backward (plain PyTorch, chunks of "
+          f"{stream.wproject_bwd_chunk(N_INDOOR, N_INDOOR)} rows): "
+          f"{bwd['f32']:.2f} ms float32, {bwd['bf16']:.2f} ms bf16 inputs")
     return {"name": "wproject", "route": "cuda",
             "source": "ogmm_tpu_torch/csrc/wproject.cu",
             "replaces": "ogmm_tpu/ops/pallas_stream.py:823",
@@ -1606,7 +1653,11 @@ def check_wproject(rs):
             "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib, "library_backends": backends,
-            "library_max_abs_err": lib_err}
+            "library_max_abs_err": lib_err,
+            "max_abs_err_f32": err32, "ms_f32": ms32, "plain_ms_f32": plain32,
+            "bound_ms_f32": bound32, "library_ms_f32": lib32,
+            "library_backends_f32": backends32,
+            "head_backward_ms": bwd}
 
 
 def check_dgcnn_edges(rs):
@@ -2106,9 +2157,199 @@ def serve_f32(rs):
                              "against_plain": res}
 
 
+# -------------------------------------------------------- indoor training
+
+B_INDOOR_TRAIN = 2       # pairs a step (the preset trains 8)
+
+
+def indoor_batch(rs, batch=B_INDOOR_TRAIN):
+    """B pairs of surface() fragments against rigid copies; the labels are
+    made in the step (device_overlap)."""
+    src, tgt, rot, trans = rigid_copies(rs, surface(rs, batch))
+    ones = np.ones(src.shape[:2], np.float32)
+    return {"src_xyz": src, "tgt_xyz": tgt, "src_overlap": ones,
+            "tgt_overlap": ones,
+            "transform_gt": np.concatenate([rot, trans[:, :, None]], axis=-1)}
+
+
+def _indoor_train_cfg(dtype="float32"):
+    cfg = configs.indoor()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, dtype=dtype),
+        train=dataclasses.replace(cfg.train, batch_size=B_INDOOR_TRAIN,
+                                  device_overlap=True, overlap_thresh=0.05))
+
+
+def _largest_segment():
+    return max((s["total_size"] for s in torch.cuda.memory_snapshot()), default=0)
+
+
+def train_indoor(rs):
+    """Indoor training: `make_train_step(configs.indoor())` with its default
+    float32 body at B=2 pairs of N=35,000 points (emb 512, K=16, k=20),
+    overlap labels made in the step. The overlap head streams (B N N above
+    64 Mi elements) and trains through the chunked recompute of
+    `ops.stream.wproject`. (a) a warm-up step, one step with the launch
+    counts (knn_stream 2: the self graph of each cloud side; wproject 2:
+    both directions of the head; nn1_stream 8: the labels' two directions,
+    the Welsch loss's two, the clustering loss and the metrics' three;
+    dgcnn_eval, sinkhorn_em, knn and nn1 0), three timed steps, peak device
+    memory, and no allocation as large as one (N, N) float32 matrix (the
+    caching allocator's largest segment after the steps); finite loss and
+    gradients, every parameter and running statistic moved; (b) one step
+    from the same state through the kernels and through their plain
+    versions: loss within LIM_INDOOR_LOSS, gradients within LIM_INDOOR_GRAD;
+    (c) the bf16 body once: step time and peak memory; (d) the CLI on
+    stand-in fragments of scripts/gen_indoor_fragments.py: two steps, an
+    eval batch with ICP, a checkpoint, and the loader's seconds a batch."""
+    t_phase = time.perf_counter()
+    cfg = _indoor_train_cfg()
+    m = cfg.model
+    assert (m.n_clusters, m.emb_dims, m.gnn_k, m.dtype) == (16, EMB, KNN, "float32")
+    assert nn_gmmreg.overlap_route(B_INDOOR_TRAIN, N_INDOOR, N_INDOOR, EMB,
+                                   torch.float32, m.overlap_stream) == "stream"
+    state = create_train_state(cfg, steps_per_epoch=100, seed=0, device=DEV)
+    step = make_train_step(cfg)
+    batches = [indoor_batch(rs) for _ in range(3)]
+    before = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+
+    torch.cuda.empty_cache()
+    step(state, batches[0])                               # warm up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = step(state, batches[1])
+    torch.cuda.synchronize()
+    launches = dict(dispatch.launch_counts)
+    t0 = time.perf_counter()
+    losses = [step(state, batches[i % 3])["loss"][0] for i in range(3)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    largest = _largest_segment()
+    nn_bytes = N_INDOOR * N_INDOOR * 4
+    losses = [v.item() for v in losses]
+    print(f"indoor train step, {B_INDOOR_TRAIN} pairs of {N_INDOOR} points, "
+          f"float32: {step_ms:.1f} ms (host clock, three steps), peak device "
+          f"memory {peak:.0f} MiB, largest allocator segment "
+          f"{largest / 2 ** 20:.0f} MiB (one (N, N) float32 matrix: "
+          f"{nn_bytes / 2 ** 20:.0f} MiB), losses {[round(v, 4) for v in losses]}, "
+          f"launches {launches}")
+    assert (launches["knn_stream"], launches["wproject"],
+            launches["nn1_stream"]) == (2, 2, 8), launches
+    assert all(launches[k] == 0 for k in ("dgcnn_eval", "sinkhorn_em", "knn",
+                                          "nn1")), launches
+    assert largest < nn_bytes, largest
+    assert all(np.isfinite(losses))
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    for n, p in state.model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), n
+    after = state.model.state_dict()
+    unchanged = [n for n in before if torch.equal(before[n], after[n])]
+    assert not unchanged, f"not moved by training: {unchanged}"
+
+    # (b) one step from the same state through the plain versions
+    batch = batches[2]
+    k_loss, k_grads = _step_grads(state, cfg, batch)
+    with plain_versions():
+        counts = dict(dispatch.launch_counts)
+        p_loss, p_grads = _step_grads(state, cfg, batch)
+        assert dict(dispatch.launch_counts) == counts
+    d_loss = abs(k_loss - p_loss) / abs(p_loss)
+    d_grad = _rel(k_grads, p_grads)
+    print(f"indoor train step, kernels against plain versions: loss "
+          f"{k_loss:.6f} / {p_loss:.6f}, relative {d_loss:.3g} (limit "
+          f"{LIM_INDOOR_LOSS}); gradients relative {d_grad:.3g} (limit "
+          f"{LIM_INDOOR_GRAD})")
+    assert d_loss <= LIM_INDOOR_LOSS and d_grad <= LIM_INDOOR_GRAD
+    del state, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+    # (c) the bf16 body once
+    cfg16 = _indoor_train_cfg("bfloat16")
+    state16 = create_train_state(cfg16, steps_per_epoch=100, seed=0, device=DEV)
+    step16 = make_train_step(cfg16)
+    step16(state16, batches[0])                           # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m16 = step16(state16, batches[1])
+    torch.cuda.synchronize()
+    bf16_ms = (time.perf_counter() - t0) * 1e3
+    bf16_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    assert torch.isfinite(m16["loss"]).all(), m16
+    print(f"indoor train step, bf16 body: {bf16_ms:.1f} ms (one step), peak "
+          f"device memory {bf16_peak:.0f} MiB, loss {m16['loss'][0].item():.4f}")
+    del state16
+    torch.cuda.empty_cache()
+
+    cli_res = run_indoor_cli()
+    secs = time.perf_counter() - t_phase
+    print(f"train_indoor phase: {secs:.1f} s")
+    return launches, {"step_ms": step_ms, "peak_mib": peak,
+                      "largest_segment_mib": largest / 2 ** 20,
+                      "losses": losses, "loss_rel_plain": d_loss,
+                      "grad_rel_plain": d_grad, "bf16_step_ms": bf16_ms,
+                      "bf16_peak_mib": bf16_peak, "cli": cli_res,
+                      "phase_s": secs}
+
+
+def run_indoor_cli():
+    """`python -m ogmm_tpu_torch.train --preset indoor --dataset 7scene` on
+    stand-in fragments written by scripts/gen_indoor_fragments.py (one a
+    training scene, one for the test split): batch 2, two steps, one eval
+    batch with ICP, a checkpoint; host overlap labels from the host library.
+    Then the loader alone: seconds a training batch."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        subprocess.run([sys.executable,
+                        os.path.join(here, "scripts", "gen_indoor_fragments.py"),
+                        root, "1", "1"], check=True, capture_output=True)
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["--preset", "indoor", "--dataset", "7scene",
+                            "--root", root, "--batch_size", "2",
+                            "--test_batch_size", "1", "--epochs", "1",
+                            "--steps_per_epoch", "2", "--model_path",
+                            os.path.join(tmp, "run")])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(dispatch.launch_counts)
+        saved = os.path.exists(os.path.join(tmp, "run", "checkpoints", "GMMReg",
+                                            "models", "optim_model.pt"))
+        from ogmm_tpu_torch.data import data_loader
+        train_loader, _ = data_loader(trainer.cfg)
+        t0 = time.perf_counter()
+        n_batches = 0
+        for b in train_loader:
+            n_batches += 1
+            assert b["src_xyz"].shape == (2, N_INDOOR, 3), b["src_xyz"].shape
+            if n_batches == 2:
+                break
+        per_batch = (time.perf_counter() - t0) / n_batches
+    rec = trainer.history[-1]
+    print(f"indoor CLI: {trainer.state.step} steps and an eval batch with ICP "
+          f"in {secs:.1f} s (data included), train loss "
+          f"{rec['train']['loss']:.4f}, eval loss {rec['val']['loss']:.4f}, "
+          f"checkpoint written {saved}; the loader {per_batch:.2f} s a batch of "
+          f"2 ({trainer.cfg.data.num_workers} threads); launches {launches}")
+    assert trainer.state.step == 2 and saved
+    assert np.isfinite(rec["train"]["loss"]) and np.isfinite(rec["val"]["loss"])
+    assert trainer.state.device.type == "cuda"
+    # two steps (2 + 2 + 6 each: no labels made in the step) and an eval
+    # batch (the stacked pair's graph and head, the clustering loss, 30 ICP
+    # trips, the Welsch loss and the metrics)
+    assert (launches["knn_stream"], launches["wproject"],
+            launches["nn1_stream"]) == (2 * 2 + 1, 2 * 2 + 2, 2 * 6 + 36), launches
+    return {"seconds": secs, "loader_s_per_batch": per_batch,
+            "train_loss": rec["train"]["loss"], "eval_loss": rec["val"]["loss"],
+            "launches": launches}
+
+
 PHASES = ("kernels", "serve", "train", "cli", "icp", "serve_large",
           "train_large", "train_unfused", "c1", "indoor_kernels", "indoor",
-          "loop_kernels", "serve_loops", "serve_f32")
+          "loop_kernels", "serve_loops", "serve_f32", "train_indoor")
 
 
 def main():
@@ -2148,7 +2389,8 @@ def main():
                       ("train_unfused", train_unfused), ("c1", check_c1),
                       ("indoor", lambda _: serve_indoor(np.random.RandomState(8))),
                       ("serve_loops", lambda _: serve_loops(np.random.RandomState(10))),
-                      ("serve_f32", lambda _: serve_f32(np.random.RandomState(16)))):
+                      ("serve_f32", lambda _: serve_f32(np.random.RandomState(16))),
+                      ("train_indoor", lambda _: train_indoor(np.random.RandomState(17)))):
         if not run(phase):
             continue
         res = fn(rs)

@@ -42,15 +42,15 @@ class ModelConfig:
     dgcnn_vspace: bool | None = None
     # overlap head: stream the (N, M) similarity softmax through the wproject
     # kernel. None streams above B N M = 64 Mi elements, True always, False
-    # never (nn/gmmreg.py:overlap_route); eval only for now
+    # never (nn/gmmreg.py:overlap_route), in eval and in training
     overlap_stream: bool | None = None
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The dataset and augmentation options of the ModelNet pipeline."""
-    root: str = "/data"         # ModelNet40 h5 files, or 'synthetic[:S]'
-    dataset: str = "modelnet"   # modelnet | synthetic
+    """The dataset and augmentation options of the data pipeline."""
+    root: str = "/data"         # the dataset's files, or 'synthetic[:S]'
+    dataset: str = "modelnet"   # modelnet | synthetic | 7scene | icl_nuim
     n_points: int = 717
     trans_mag: float = 0.5
     rot_mag: float = 45.0       # degrees
@@ -58,8 +58,8 @@ class DataConfig:
     partial: Tuple[float, float] = (0.70, 0.70)   # crop keep proportions
     noise_type: str = "crop"    # clean | jitter | crop
     num_workers: int = 6        # loader threads
-    # device_overlap only: the true target overlap labels instead of the
-    # original's tgt_overlap = src_overlap
+    # the true target overlap labels instead of the original's
+    # tgt_overlap = src_overlap (device_overlap and the indoor datasets)
     fix_tgt_overlap: bool = False
 
 
@@ -156,9 +156,10 @@ def mnet(**overrides) -> Config:
 
 def indoor(**overrides) -> Config:
     """7-Scenes / ICL-NUIM preset, the JAX package's `indoor`: K = 16
-    clusters and anchors, a 0.0375 ICP voxel; clouds of 50,000 points
-    cropped to about 35,000 a fragment, one pair a request. Its datasets and
-    its training come with a later slice (ROADMAP.md, queue A item 5)."""
+    clusters and anchors, a 0.0375 ICP voxel; fragments of 50,000 points
+    cropped to 35,000 (`data/realdata.py`), one pair a request, 8 pairs a
+    training batch. Above B N N = 64 Mi elements its overlap head streams,
+    in training too (the chunked recompute of `ops/stream.py:wproject`)."""
     cfg = Config(
         model=ModelConfig(n_clusters=16, km_clusters=16, overlap_radius=0.0375),
         data=DataConfig(dataset="7scene", n_points=50000, unseen=False),

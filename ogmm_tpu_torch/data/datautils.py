@@ -1,17 +1,23 @@
-"""Host-side numpy helpers of the ModelNet pipeline: SE(3) on arrays, a
-random direction, the pose quaternion of a sample, and the ModelNet40 HDF5
-reader.
+"""Host-side numpy helpers of the data pipeline: SE(3) on arrays, random
+directions and poses, the pose quaternion of a sample, the ModelNet40 HDF5
+reader, and for the indoor datasets the half-space crop of a pair, FPS of
+one cloud, ground-truth overlap labels and 1-NN (the last three through the
+host library, `ogmm_tpu_torch/native`).
 
 A copy of the parts of the JAX package's `ogmm_tpu/data/datautils.py` that
-the `modelnet`/`synthetic` route uses, with the same global-`np.random`
-draws, so that both packages give the same samples from the same seed.
+the `modelnet`/`synthetic`, `7scene` and `icl_nuim` routes use, with the
+same global-`np.random` (or `rng`) draws, so that both packages give the
+same samples from the same seed.
 """
 from __future__ import annotations
 
 import glob
 import os
+from typing import List, Tuple
 
 import numpy as np
+
+from ogmm_tpu_torch import native
 
 
 def so3_transform(rot: np.ndarray, xyz: np.ndarray) -> np.ndarray:
@@ -43,13 +49,109 @@ def np_mat2quat(pose: np.ndarray) -> np.ndarray:
     return np.concatenate([q, pose[:3, 3]], axis=0).astype(np.float32)
 
 
-def uniform2sphere():
-    """A uniform direction on the unit sphere, from the global np.random."""
-    phi = np.random.uniform(0.0, 2 * np.pi)
-    theta = np.arccos(np.random.uniform(-1.0, 1.0))
+def transform(g: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    """Apply a ([B,] 3/4, 4) pose to ([B,] N, 3) points."""
+    rot = g[..., :3, :3]
+    trans = g[..., :3, 3]
+    return pts[..., :3] @ np.swapaxes(rot, -1, -2) + trans[..., None, :]
+
+
+def uniform2sphere(rng: np.random.RandomState | None = None):
+    """A uniform direction on the unit sphere, from `rng` or the global
+    np.random."""
+    r = rng if rng is not None else np.random
+    phi = r.uniform(0.0, 2 * np.pi)
+    theta = np.arccos(r.uniform(-1.0, 1.0))
     return np.stack([np.sin(theta) * np.cos(phi),
                      np.sin(theta) * np.sin(phi),
                      np.cos(theta)], axis=-1)
+
+
+def random_rotation(max_angle: float, rng=None) -> np.ndarray:
+    """A rotation by a uniform angle below max_angle about a random axis
+    (Rodrigues)."""
+    r = rng if rng is not None else np.random
+    axis = r.randn(3)
+    axis /= np.linalg.norm(axis)
+    angle = r.rand() * max_angle
+    A = np.array([[0, -axis[2], axis[1]],
+                  [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * A + (1 - np.cos(angle)) * A @ A
+
+
+def random_translation(max_dist: float, rng=None) -> np.ndarray:
+    """(3, 1): a random direction times a uniform length below max_dist."""
+    r = rng if rng is not None else np.random
+    t = r.randn(3)
+    t /= np.linalg.norm(t)
+    t *= r.rand() * max_dist
+    return t[:, None]
+
+
+def random_pose(max_angle: float, max_trans: float, rng=None) -> np.ndarray:
+    """(4, 4) random rigid pose."""
+    R = random_rotation(max_angle, rng)
+    t = random_translation(max_trans, rng)
+    return np.concatenate([np.concatenate([R, t], 1), [[0, 0, 0, 1]]], 0)
+
+
+def farthest_point_sample(point: np.ndarray, npoint: int, is_idx=False,
+                          rng=None):
+    """Sequential FPS of one (N, C) cloud from a random start (one draw of
+    `rng` or the global np.random); the points, and their int32 ids with
+    `is_idx`."""
+    r = rng if rng is not None else np.random
+    farthest = int(r.randint(0, point.shape[0]))
+    centroids = native.fps_indices(point, npoint, farthest)
+    sampled = point[centroids]
+    return (sampled, centroids.astype(np.int32)) if is_idx else sampled
+
+
+class RandomCropPair:
+    """Half-space crop of a src/tgt pair, each keeping p_keep of its points
+    on one side of a plane through its centroid with a random normal; no
+    correspondence bookkeeping (the real-data sets use it)."""
+
+    def __init__(self, p_keep: List[float] | None = None):
+        self.p_keep = np.array([0.7, 0.7] if p_keep is None else p_keep,
+                               dtype=np.float32)
+
+    @staticmethod
+    def crop(points: np.ndarray, p_keep: float, rng=None) -> np.ndarray:
+        rand_xyz = uniform2sphere(rng)
+        centered = points[:, :3] - points[:, :3].mean(axis=0)
+        dist = centered @ rand_xyz
+        if p_keep == 0.5:
+            mask = dist > 0
+        else:
+            mask = dist > np.percentile(dist, (1.0 - p_keep) * 100)
+        return points[mask]
+
+    def __call__(self, src, tgt, seed=None):
+        if np.all(self.p_keep == 1.0):
+            return src, tgt
+        if seed is not None:
+            np.random.seed(seed)
+        src = self.crop(src, float(self.p_keep[0]))
+        if len(self.p_keep) > 1:
+            tgt = self.crop(tgt, float(self.p_keep[1]))
+        return src, tgt
+
+
+def overlap_labels(src: np.ndarray, tgt: np.ndarray, transf: np.ndarray,
+                   thresh: float = 0.05) -> Tuple[np.ndarray, np.ndarray]:
+    """Ground-truth overlap masks (float64): a point overlaps if a point of
+    the other cloud, src moved by `transf`, lies within `thresh` (the radius
+    search of the host library)."""
+    src_t = transform(transf, src[:, :3])
+    src_label, tgt_label = native.radius_overlap(src_t, tgt, thresh)
+    return src_label.astype(np.float64), tgt_label.astype(np.float64)
+
+
+def nearest_neighbor(src: np.ndarray, dst: np.ndarray):
+    """1-NN (distances, indices) of src in dst, by the host library."""
+    return native.nearest_neighbor(src, dst)
 
 
 def load_modelnet_h5(partition: str, root: str):

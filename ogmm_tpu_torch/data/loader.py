@@ -6,7 +6,7 @@ step moves them to the card. The test split seeds the global `np.random`
 per item (SetDeterministic), so its items are fetched one at a time under a
 lock and thread interleaving cannot change the draws; the training split
 runs in parallel. A copy of the JAX package's `ogmm_tpu/data/loader.py` for
-the `modelnet` and `synthetic` datasets.
+the `modelnet`, `synthetic`, `7scene` and `icl_nuim` datasets.
 """
 from __future__ import annotations
 
@@ -18,9 +18,7 @@ import numpy as np
 
 # datasets of the JAX package that later slices of the port bring over
 LATER = {"modelnetcp": "ROADMAP.md, queue A item 6 (ModelNet variants)",
-         "modelnetdv": "ROADMAP.md, queue A item 6 (DeepGMR and its data)",
-         "7scene": "ROADMAP.md, queue A item 5 (the indoor slice)",
-         "icl_nuim": "ROADMAP.md, queue A item 5 (the indoor slice)"}
+         "modelnetdv": "ROADMAP.md, queue A item 6 (DeepGMR and its data)"}
 
 
 # collated batches a loader keeps ready
@@ -116,30 +114,58 @@ class PrefetchLoader:
                     break
 
 
-def data_loader(cfg):
-    """(train_loader, test_loader) of cfg.data.dataset, `modelnet` (h5 files
-    under cfg.data.root) or `synthetic` (cfg.data.root 'synthetic[:S]')."""
-    from ogmm_tpu_torch.data.modelnet import ModelNetHdf, get_transforms
+def _check_overlap_thresh(dataset_cls, t):
+    """With `device_overlap` the step remakes the labels at
+    TrainConfig.overlap_thresh: refuse a radius other than the dataset's
+    own."""
+    if t.device_overlap and t.overlap_thresh != dataset_cls.overlap_thresh:
+        raise ValueError(
+            f"TrainConfig.overlap_thresh={t.overlap_thresh} but "
+            f"{dataset_cls.__name__} computes host labels at "
+            f"{dataset_cls.overlap_thresh}; set overlap_thresh="
+            f"{dataset_cls.overlap_thresh} when device_overlap is on")
 
+
+def data_loader(cfg):
+    """(train_loader, test_loader) of cfg.data.dataset: `modelnet` (h5 files
+    under cfg.data.root), `synthetic` (cfg.data.root 'synthetic[:S]'),
+    `7scene` (.ply fragments under <root>/7scene) or `icl_nuim` (h5 files
+    under <root>/icl_nuim). With `device_overlap` the indoor datasets emit
+    no host labels: the step makes them."""
     d, t = cfg.data, cfg.train
     name = d.dataset
     if name in LATER:
         raise NotImplementedError(
             f"dataset {name!r} is not ported yet; it comes with {LATER[name]}")
-    if name not in ("modelnet", "synthetic"):
+    if name in ("modelnet", "synthetic"):
+        from ogmm_tpu_torch.data.modelnet import ModelNetHdf, get_transforms
+        root = d.root if d.root.startswith("synthetic") else (
+            "synthetic" if name == "synthetic" else d.root)
+        train_tf, test_tf = get_transforms(d.noise_type, d.rot_mag,
+                                           d.trans_mag, d.n_points,
+                                           list(d.partial))
+        train_data = ModelNetHdf(root, unseen=d.unseen, transform=train_tf,
+                                 partition='train')
+        test_data = ModelNetHdf(root, unseen=d.unseen, transform=test_tf,
+                                partition='test')
+        serialize_test = True          # the test chain seeds np.random
+    elif name in ("7scene", "icl_nuim"):
+        from ogmm_tpu_torch.data.realdata import IclNuim, Scene7
+        cls = Scene7 if name == "7scene" else IclNuim
+        _check_overlap_thresh(cls, t)
+        train_data, test_data = (
+            cls(d.root, d.n_points, list(d.partial), part,
+                fix_tgt_overlap=d.fix_tgt_overlap,
+                compute_overlap=not t.device_overlap)
+            for part in ("train", "test"))
+        # IclNuim seeds np.random per item; Scene7's test items do not
+        serialize_test = name == "icl_nuim"
+    else:
         raise ValueError(f"unknown dataset {name!r}")
-    root = d.root if d.root.startswith("synthetic") else (
-        "synthetic" if name == "synthetic" else d.root)
-    train_tf, test_tf = get_transforms(d.noise_type, d.rot_mag, d.trans_mag,
-                                       d.n_points, list(d.partial))
-    train_data = ModelNetHdf(root, unseen=d.unseen, transform=train_tf,
-                             partition='train')
-    test_data = ModelNetHdf(root, unseen=d.unseen, transform=test_tf,
-                            partition='test')
     train_loader = PrefetchLoader(train_data, t.batch_size, shuffle=True,
                                   drop_last=True, num_workers=d.num_workers,
                                   seed=t.seed)
     test_loader = PrefetchLoader(test_data, t.test_batch_size, shuffle=False,
                                  drop_last=False, num_workers=d.num_workers,
-                                 serialize_items=True)
+                                 serialize_items=serialize_test)
     return train_loader, test_loader

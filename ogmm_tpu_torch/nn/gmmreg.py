@@ -24,7 +24,9 @@ control).
 The overlap head builds the dense (B, N, N) similarity, or streams its
 softmax through the `wproject` kernel above B N N = 64 Mi elements or with
 `overlap_stream=True` (`overlap_route`): the indoor request's dense matrix
-would take 4.9 GB a pair. The training forward keeps the dense head.
+would take 4.9 GB a pair. Training takes the same route; the streamed head's
+gradient recomputes the softmax by query chunks (`ops.stream.wproject`, the
+JAX package's recompute VJP), so no (N, N) matrix is stored.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from ogmm_tpu_torch.ops.fps import farthest_point_sample, fps_combined
 from ogmm_tpu_torch.ops.gmm import wkeans_plus
 from ogmm_tpu_torch.ops.icp import icp_point_to_point
 from ogmm_tpu_torch.ops.sinkhorn import sinkhorn
-from ogmm_tpu_torch.ops.stream import wproject_stream_lse_plain
+from ogmm_tpu_torch.ops.stream import wproject, wproject_stream_lse_plain
 
 
 def gmm_svd(src_nodes, tgt_nodes, src_desc, tgt_desc, src_pi, tgt_pi,
@@ -136,11 +138,6 @@ class GMMReg(nn.Module):
         if tgt.shape[1] != N:
             raise ValueError("the overlap head mixes src/tgt point axes and "
                              "requires equal point counts")
-        if self.training and cfg.overlap_stream:
-            raise NotImplementedError(
-                "overlap_stream=True in training is not ported yet: the "
-                "streamed head's backward comes with the indoor training "
-                "slice (ROADMAP.md, queue A item 5)")
         both = torch.cat([src, tgt], dim=0).float()          # (2B, N, 3)
         anchor_ids, center_ids = self._fps(both, generator)
         if self.training:
@@ -194,16 +191,17 @@ class GMMReg(nn.Module):
         directions; direction 2 weights the SOURCE-axis-indexed scores by
         the column softmax, a quirk of the original kept on purpose. The
         streamed route computes the same as two `wproject` calls, the
-        second with the roles of the clouds swapped."""
+        second with the roles of the clouds swapped; its gradient comes
+        from the chunked recompute of `ops.stream.wproject`."""
         B, N, D = src_f.shape
-        route = "dense" if self.training else overlap_route(
-            B, N, tgt_f.shape[1], D, src_f.dtype, self.cfg.overlap_stream)
+        route = overlap_route(B, N, tgt_f.shape[1], D, src_f.dtype,
+                              self.cfg.overlap_stream)
         if route != "dense":
             proj = (wproject_stream_lse if route == "stream"
                     else wproject_stream_lse_plain)
             src_n, tgt_n = _norm32(src_f), _norm32(tgt_f)
-            src_wo = proj(src_n, tgt_n, src_o)[0]
-            tgt_wo = proj(tgt_n, src_n, tgt_o)[0]
+            src_wo = wproject(src_n, tgt_n, src_o, proj)
+            tgt_wo = wproject(tgt_n, src_n, tgt_o, proj)
             return src_wo.to(src_f.dtype), tgt_wo.to(tgt_f.dtype)
         sim = matmul32(_norm32(src_f).float(),
                        _norm32(tgt_f).float().transpose(1, 2))   # (B, N, N)

@@ -20,6 +20,12 @@ Here also live the plain PyTorch versions of the three kernels
 query-chunked so that peak memory stays at (B, CHUNK, M), and the cull
 tables of the port's tiles (`pair_tile_bounds`). Culling and visiting order
 never change a result: the plain versions ignore both.
+
+`wproject` is the overlap head's projection with a gradient: its forward is
+the kernel (or the plain version), its backward (`wproject_bwd`) recomputes
+the softmax by query chunks from the saved row logsumexp, as the JAX
+package's recompute VJP does, so that the head trains at N = 35,000 without
+an (N, M) matrix.
 """
 from __future__ import annotations
 
@@ -84,6 +90,94 @@ def wproject_stream_lse_plain(q: torch.Tensor, k: torch.Tensor,
                 torch.logsumexp(s, dim=-1, keepdim=True))
 
     return by_chunks(one, q)
+
+
+# ------------------------------------- the projection with its gradient
+
+def wproject_bwd_chunk(N: int, M: int) -> int:
+    """Query rows a chunk of the projection's backward: the JAX package's
+    rule (`ogmm_tpu/ops/pallas_stream.py:_wproject_bwd`), which holds a
+    chunk's (B, chunk, M) float32 blocks near 2^24 elements a cloud."""
+    return min(N, max(256, 2 ** 24 // max(M, 1)))
+
+
+def _tail(x: torch.Tensor, s: int, chunk: int, fill: float | None = None):
+    """Rows [s, s + chunk) of x (B, N, C); past N the last row repeated, or
+    `fill`."""
+    part = x[:, s:s + chunk]
+    pad = chunk - part.shape[1]
+    if not pad:
+        return part
+    rest = (part[:, -1:].expand(-1, pad, -1) if fill is None
+            else part.new_full((part.shape[0], pad, part.shape[2]), fill))
+    return torch.cat([part, rest], dim=1)
+
+
+def wproject_bwd(q, k, v, out, lse, g, chunk: int | None = None):
+    """The gradients (dq, dk, dv) of out = softmax(q k^T) v from the saved
+    out and row logsumexp lse (B, N, 1) and the upstream gradient g
+    (B, N, 1), without an (N, M) matrix: the JAX package's `_wproject_bwd`.
+    For each chunk of query rows, p = exp(s - lse) is recomputed and, with
+    o = out,
+        s_bar = p g (v_m - o),  dq = s_bar k,  dk += s_bar^T q,  dv += p^T g.
+    dk and dv accumulate in place over the chunks; the last chunk repeats
+    its last row and takes a zero g there, so the extra rows add nothing.
+    Products in float32 (float64 for float64 inputs) with TF32 off; the
+    gradients in the inputs' types."""
+    B, N, D = q.shape
+    M = k.shape[1]
+    chunk = wproject_bwd_chunk(N, M) if chunk is None else chunk
+    ct = torch.promote_types(q.dtype, torch.float32)      # float64 stays
+    k32 = k.to(ct)
+    kt = k32.transpose(1, 2)
+    vrow = v.to(ct).reshape(B, 1, M)
+    g, out, lse = g.to(ct), out.to(ct), lse.to(ct)
+    dq = torch.empty(B, N, D, dtype=ct, device=q.device)
+    dk = torch.zeros(B, M, D, dtype=ct, device=q.device)
+    dv = torch.zeros(B, M, 1, dtype=ct, device=q.device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for s in range(0, N, chunk):
+            qc = _tail(q, s, chunk).to(ct)
+            gc = _tail(g, s, chunk, 0.0)
+            p = torch.bmm(qc, kt).sub_(_tail(lse, s, chunk)).exp_()
+            sbar = (vrow - _tail(out, s, chunk)).mul_(p).mul_(gc)
+            e = min(s + chunk, N)
+            dq[:, s:e] = torch.bmm(sbar, k32)[:, :e - s]
+            dk.baddbmm_(sbar.transpose(1, 2), qc)
+            dv.baddbmm_(p.transpose(1, 2), gc)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _WProject(torch.autograd.Function):
+    """softmax(q k^T) v whose forward is `fwd` (the kernel's wrapper or its
+    plain version) and whose backward recomputes the softmax by chunks from
+    the saved row logsumexp: q, k, v, out and lse are saved, never an (N, M)
+    block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, fwd):
+        out, lse = fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*wproject_bwd(q, k, v, out, lse, g), None)
+
+
+def wproject(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             fwd) -> torch.Tensor:
+    """softmax(q k^T) v, q (B, N, D), k (B, M, D), v (B, M, 1) -> (B, N, 1)
+    float32, differentiable in q, k and v by `wproject_bwd`. The forward is
+    `fwd(q, k, v) -> (out, lse)`, the function the overlap head's route
+    chose: `cuda_stream.wproject_stream_lse` (the kernel on a CUDA tensor,
+    its plain version on the CPU) or `wproject_stream_lse_plain`."""
+    return _WProject.apply(q, k, v, fwd)
 
 
 # ------------------------------------------------- sorting and cull tables

@@ -2,11 +2,12 @@
 
     python -m ogmm_tpu_torch.train --dataset synthetic --epochs 2 --batch_size 8
     python -m ogmm_tpu_torch.train --root /data --dataset modelnet
+    python -m ogmm_tpu_torch.train --preset indoor --dataset 7scene --root /data
 
 The flags are those of the JAX package's `train.py` for what this package
 implements, plus `--device` (the card by default; `--device cpu` runs the
-plain PyTorch path on the CPU). It builds the Config from the ModelNet preset
-and the flags, the ModelNet/synthetic loaders, the train state (restored
+plain PyTorch path on the CPU). It builds the Config from the ModelNet or
+indoor preset and the flags, the loaders, the train state (restored
 from the run's best checkpoint when there is one), then runs `Trainer.fit`
 or, with `--eval_only`, one eval epoch, and with `--export_weights` writes
 the best weights as the JAX package's `.npz`.
@@ -24,7 +25,6 @@ from ogmm_tpu_torch import configs
 
 # options of the JAX package's CLI that later slices of the port bring over
 NOT_PORTED = {
-    "preset indoor": "ROADMAP.md, queue A item 5 (the indoor slice)",
     "model DeepGMR": "ROADMAP.md, queue A item 6 (nn/deepgmr.py)",
     "multihost": "ROADMAP.md, queue A item 7 (torch.distributed)",
     "profile_dir": "ROADMAP.md, 'Next' (a torch.profiler window in the "
@@ -38,7 +38,7 @@ def parse_args(argv=None):
                    choices=["mnet", "indoor"])
     p.add_argument("--root", type=str, default="synthetic")
     p.add_argument("--dataset", type=str, default=None,
-                   help="modelnet|synthetic")
+                   help="modelnet|synthetic|7scene|icl_nuim")
     p.add_argument("--model", type=str, default=None,
                    choices=["GMMReg", "DeepGMR"])
     p.add_argument("--n_points", type=int, default=None)
@@ -71,7 +71,8 @@ def parse_args(argv=None):
                         "(params, batch statistics, config)")
     p.add_argument("--device_overlap", action="store_true",
                    help="ground-truth overlap labels made on the device in "
-                        "the step")
+                        "the step (7scene/icl_nuim: no host labels, at the "
+                        "dataset's radius)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; the CUDA card by default")
     p.add_argument("--profile_dir", type=str, default=None)
@@ -80,8 +81,7 @@ def parse_args(argv=None):
 
 
 def _refuse_not_ported(args) -> None:
-    asked = {"preset indoor": args.preset == "indoor",
-             "model DeepGMR": args.model == "DeepGMR",
+    asked = {"model DeepGMR": args.model == "DeepGMR",
              "multihost": args.multihost,
              "profile_dir": args.profile_dir is not None}
     for flag, on in asked.items():
@@ -91,8 +91,8 @@ def _refuse_not_ported(args) -> None:
 
 
 def build_config(args) -> configs.Config:
-    """The ModelNet preset with the flags' overrides."""
-    cfg = configs.mnet()
+    """The ModelNet or indoor preset with the flags' overrides."""
+    cfg = configs.indoor() if args.preset == "indoor" else configs.mnet()
     model_kw, data_kw, train_kw = {}, {}, {}
     for k in ("emb_dims", "n_clusters", "km_clusters", "num_heads", "gnn_k",
               "dtype"):
@@ -110,6 +110,9 @@ def build_config(args) -> configs.Config:
             train_kw[k] = getattr(args, k)
     if args.device_overlap:
         train_kw["device_overlap"] = True
+        dataset = data_kw.get("dataset", cfg.data.dataset)
+        # each dataset's host-label radius (data/realdata.py)
+        train_kw["overlap_thresh"] = 0.075 if dataset == "icl_nuim" else 0.05
     return cfg.replace(model=dataclasses.replace(cfg.model, **model_kw),
                        data=dataclasses.replace(cfg.data, **data_kw),
                        train=dataclasses.replace(cfg.train, **train_kw))

@@ -8,6 +8,8 @@ PyTorch/CUDA port goes.
                                           (default N=717, profile_out/)
     python3 scripts/torch_port_profile.py --preset indoor [--fused_edges]
                                           [--n_points N]
+    python3 scripts/torch_port_profile.py --preset indoor --train
+                                          [--dtype float32] [--batch B] [--fit]
     python3 scripts/torch_port_profile.py --probe knn_stream [--parent DIR]
     python3 scripts/torch_port_profile.py --probe icp
     python3 scripts/torch_port_profile.py --probe bwd_edge
@@ -37,8 +39,12 @@ optimizer, the metrics) with CUDA events. `--bwd_kernels` turns on
 three CUDA kernels instead of plain PyTorch. `--loop_kernels` builds the
 Registrar with `loop_kernels=True`, so that FPS, ICP and the attention MLPs
 run as one kernel launch each. `--fused_edges` sets dgcnn_fused_edges=True
-(with --preset indoor: the stage chain through the edges kernel). One JSON
-line at the end
+(with --preset indoor: the stage chain through the edges kernel). With
+--preset indoor --train: one indoor train step of `configs.indoor()` at B
+pairs (`--batch`, default 2) of N=35,000, the streamed overlap head trained
+through its chunked recompute, with its peak device memory and the device
+time of the head's backward; `--fit` instead takes one step at B = 1..8
+until one does not fit the card. One JSON line at the end
 carries the same numbers with the card's name and power limit.
 
 `--probe` times variants of one kernel beside it, built from its source with
@@ -235,6 +241,102 @@ def train_phase_times(state, cfg, batch, reps=3):
         for i, k in enumerate(names):
             spans[k] += ev[i].elapsed_time(ev[i + 1]) / reps
     return spans
+
+
+def indoor_train_batch(rs, batch, n):
+    """`batch` pairs of bench.py's synthetic fragment against a copy turned
+    20 degrees about z, shifted and permuted, with the true poses."""
+    pairs = [indoor_pair(rs, n) for _ in range(batch)]
+    a = np.radians(20.0)
+    gt = np.array([[np.cos(a), -np.sin(a), 0, 0.1], [np.sin(a), np.cos(a), 0, -0.05],
+                   [0, 0, 1, 0.02]], np.float32)
+    ones = np.ones((batch, n), np.float32)
+    return {"src_xyz": np.concatenate([p[0] for p in pairs]),
+            "tgt_xyz": np.concatenate([p[1] for p in pairs]),
+            "src_overlap": ones, "tgt_overlap": ones,
+            "transform_gt": np.tile(gt, (batch, 1, 1))}
+
+
+def indoor_train(args, n, rs):
+    """One indoor train step (`configs.indoor()`, labels made in the step):
+    host ms, device busy and idle share, kernels, peak device memory, the
+    phases, and the device time of the overlap head's backward (the chunked
+    recompute `ops.stream.wproject_bwd`, CUDA events around each call). With
+    --fit: one step at B = 1..8 until one does not fit the card."""
+    from ogmm_tpu_torch.ops import stream
+    from ogmm_tpu_torch.train import create_train_state, make_train_step
+    cfg = configs.indoor()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=args.dtype),
+                      train=dataclasses.replace(cfg.train, device_overlap=True))
+
+    def one(batch_size):
+        state = create_train_state(cfg, steps_per_epoch=100, seed=0)
+        step = make_train_step(cfg)
+        batch = indoor_train_batch(rs, batch_size, n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        return state, step, batch, (time.perf_counter() - t0) * 1e3
+
+    result = {"shape": {"B": args.batch, "N": n}, "preset": "indoor",
+              "dtype": args.dtype, "train": True}
+    if args.fit:
+        fits = []
+        for b in range(1, 9):
+            try:
+                _, _, _, ms = one(b)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                fits.append({"B": b, "fits": True, "first_step_ms": ms,
+                             "peak_gib": peak})
+                print(f"B={b}: fits, peak {peak:.2f} GiB, first step {ms:.0f} ms")
+            except torch.cuda.OutOfMemoryError as e:
+                fits.append({"B": b, "fits": False,
+                             "error": str(e).splitlines()[0][:200]})
+                print(f"B={b}: does not fit ({str(e).splitlines()[0][:120]})")
+                break
+            finally:
+                torch.cuda.empty_cache()
+        result["fit"] = fits
+        result["largest_B"] = max((f["B"] for f in fits if f["fits"]), default=0)
+    else:
+        state, step, batch, _ = one(args.batch)
+        torch.cuda.reset_peak_memory_stats()
+        result["train_step"] = r = profile_call(lambda: step(state, batch))
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        report("train_step", r)
+        spans = []
+        bwd = stream.wproject_bwd
+
+        def timed(*a, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = bwd(*a, **kw)
+            end.record()
+            spans.append((start, end))
+            return out
+        stream.wproject_bwd = timed
+        try:
+            result["stages_ms"] = train_phase_times(state, cfg, batch)
+        finally:
+            stream.wproject_bwd = bwd
+        result["head_backward_ms"] = sum(s.elapsed_time(e) for s, e in spans) / 3
+        result["head_backward_calls"] = len(spans) // 3
+        print(f"peak device memory {r['peak_gib']:.2f} GiB; the head's backward "
+              f"{result['head_backward_ms']:.2f} ms a step on the device "
+              f"({result['head_backward_calls']} calls)")
+        print("phases (CUDA events, mean of 3 train steps):")
+        for k, v in sorted(result["stages_ms"].items(), key=lambda kv: -kv[1]):
+            print(f"    {v:8.3f} ms  {k}")
+    result["card"] = _card()
+    os.makedirs(args.out, exist_ok=True)
+    name = (f"torch_port_profile_train_indoor_b{args.batch}" if not args.fit
+            else "torch_port_profile_train_indoor_fit")
+    name += "_f32.json" if args.dtype == "float32" else ".json"
+    with open(os.path.join(args.out, name), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result))
 
 
 def report(key, r):
@@ -1063,6 +1165,11 @@ def main():
     ap.add_argument("--fused_edges", action="store_true",
                     help="dgcnn_fused_edges=True: the DGCNN stage chain of the "
                          "indoor request through the edges kernel")
+    ap.add_argument("--batch", type=int, default=2,
+                    help="with --preset indoor --train: pairs a step")
+    ap.add_argument("--fit", action="store_true",
+                    help="with --preset indoor --train: one step at B = 1..8, "
+                         "its peak memory, up to the first that does not fit")
     ap.add_argument("--probe", choices=tuple(PROBES), default=None,
                     help="time the kernel beside variants of it (see above)")
     ap.add_argument("--parent", default=None,
@@ -1084,10 +1191,11 @@ def main():
     if args.loop_kernels and args.train:
         sys.exit("--loop_kernels switches the serving path; profile it without "
                  "--train")
-    if indoor and args.train:
-        sys.exit("--preset indoor profiles the request only: indoor training "
-                 "is not ported yet (ROADMAP.md, queue A item 5)")
+    if args.fit and not (indoor and args.train):
+        sys.exit("--fit needs --preset indoor --train")
     rs = np.random.RandomState(0)
+    if indoor and args.train:
+        return indoor_train(args, N, rs)
     if indoor:
         cfg = configs.indoor()
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=args.dtype))

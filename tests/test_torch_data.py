@@ -128,7 +128,7 @@ def test_data_loader_synthetic_matches():
 
 def test_data_loader_refuses_datasets_of_later_slices():
     cfg = tconfigs.mnet()
-    for name in ("modelnetcp", "modelnetdv", "7scene", "icl_nuim"):
+    for name in ("modelnetcp", "modelnetdv"):
         c = cfg.replace(data=dataclasses.replace(cfg.data, dataset=name))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tloader.data_loader(c)

@@ -23,7 +23,8 @@ original-order control (`dgcnn_vspace=False`, 2e-5, as the JAX package's
 own test), `dgcnn_fused_edges=True` against the unfused stage chain (1e-4:
 BN folded into the weights or applied after the product, float32; at
 emb 64, gnn_k = 8, widths the edges kernel takes), the
-routes each path takes, and the refusals of the training forward."""
+routes each path takes, and the training forward's refusal of the edges
+kernel (its streamed head trains: tests/test_torch_indoor_train.py)."""
 import dataclasses
 
 import jax
@@ -197,11 +198,16 @@ def test_the_request_takes_the_streamed_routes(jax_request, edges_state, calls,
         assert calls == {"knn_stream": 1, "nn1_stream": 1, "dgcnn_edges": 1}
 
 
-def test_training_refuses_the_streamed_head_and_the_edges_kernel():
+def test_training_refuses_the_streamed_head_and_the_edges_kernel(calls):
+    # the streamed head trains (its gradient is the chunked recompute of
+    # `ops.stream.wproject`, held in tests/test_torch_indoor_train.py); the
+    # edges kernel stays refused in training, as in the JAX package
     src, tgt = (a[:, :64] for a in _pair(1))
     tm = TGMMReg(_port_cfg(overlap_stream=True).model).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 5"):
-        tm(t(src), t(tgt))
+    out = tm(t(src), t(tgt))
+    assert calls == {"wproject": 2}
+    out[2].sum().backward()
+    assert all(torch.isfinite(p.grad).all() for p in tm.overlap.parameters())
     tm = TGMMReg(_port_cfg(dgcnn_fused_edges=True).model).train()
     with pytest.raises(ValueError, match="fused_edges=True needs eval mode"):
         tm(t(src), t(tgt))

@@ -858,6 +858,40 @@ def test_wproject_wgmma_any_shape_matches_plain(card, B, N, M, D):
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
+@pytest.mark.parametrize("dtype,lim_qk", [(torch.float32, 1e-4),
+                                          (torch.bfloat16, 2 ** -7)])
+def test_wproject_gradient_with_the_kernel_matches_plain_autograd(card, dtype,
+                                                                  lim_qk):
+    # `stream.wproject`: the kernel's forward, the chunked recompute backward
+    # from the kernel's lse, against autograd through the plain version;
+    # each gradient as a share of its largest |value| (bf16 dq and dk are
+    # rounded once: one bf16 ulp, 2^-7 of a value)
+    rs = np.random.RandomState(5)
+    B, N, M, D = 1, 5000, 5000, 512
+    l2 = lambda a: (a / a.norm(dim=-1, keepdim=True)).to(dtype)
+    base = torch.tensor(rs.randn(B, N, D).astype(np.float32), device=card)
+    q0 = l2(base + 0.3 * torch.randn_like(base))
+    k0 = l2(base[:, torch.randperm(N, device=card)] + 0.3 * torch.randn_like(base))
+    v0 = torch.tensor(rs.randn(B, M, 1).astype(np.float32), device=card)
+    g = torch.tensor(rs.randn(B, N, 1).astype(np.float32), device=card)
+    grads = []
+    for fwd in (cuda_stream.wproject_stream_lse, None):
+        q, k, v = (a.clone().requires_grad_() for a in (q0, k0, v0))
+        if fwd is None:
+            out = stream.wproject_stream_lse_plain(q, k, v)[0]
+        else:
+            dispatch.reset_launch_counts()
+            out = stream.wproject(q, k, v, fwd)
+            assert dispatch.launch_counts["wproject"] == 1
+        out.backward(g)
+        grads.append((out.detach(), q.grad, k.grad, v.grad))
+    for name, a, b, lim in zip(("out", "dq", "dk", "dv"), *grads,
+                               (1e-4, lim_qk, lim_qk, 1e-4)):
+        assert a.dtype == b.dtype, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= lim * b.float().abs().max().item(), (name, err)
+
+
 def test_wproject_grid_fills_the_card_at_the_indoor_shape(card):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     blocks, slots = cuda_stream.wproject_plan(1, 35000, 35000, sms)

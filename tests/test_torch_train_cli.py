@@ -61,8 +61,7 @@ def test_cli_eval_only_restores_the_checkpoint(tmp_path):
     assert again.history == []
 
 
-@pytest.mark.parametrize("flags", [["--preset", "indoor"],
-                                   ["--model", "DeepGMR"], ["--multihost"],
+@pytest.mark.parametrize("flags", [["--model", "DeepGMR"], ["--multihost"],
                                    ["--profile_dir", "p"],
                                    ["--dataset", "modelnetcp"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags):
@@ -73,7 +72,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, flags):
 def test_module_entry_point_runs_the_cli():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-m", "ogmm_tpu_torch.train",
-                          "--preset", "indoor"], capture_output=True,
+                          "--model", "DeepGMR"], capture_output=True,
                          text=True, cwd=ROOT, env=env)
     assert res.returncode != 0
-    assert "indoor slice" in res.stderr
+    assert "nn/deepgmr.py" in res.stderr
