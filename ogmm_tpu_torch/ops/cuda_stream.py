@@ -13,11 +13,13 @@ once, in a `*_takes` function of shapes, which the routes of
                it, the gate max_dist_sq
   wproject     q (B, N, D), k (B, M, D) of one type: bf16 with D in
                {64, 128, 256, 512} (q rows held in registers) or float32
-               with D a multiple of 32; v (B, M, 1)
+               with D a multiple of 32 (three TF32 products each); v
+               (B, M, 1)
 
-The launch plans of the 1-NN and bf16 projection kernels are pure functions
-of shapes here (`nn1_stream_plan`, `wproject_plan`, `wproject_units`,
-`wproject_smem_bytes`), so that the CPU tests can hold them.
+The launch plans of the 1-NN and projection kernels are pure functions of
+shapes here (`nn1_stream_plan`, `wproject_plan`, `wproject_units`,
+`wproject_key_tiles`, `wproject_smem_bytes`, `wproject_f32_smem_bytes`), so
+that the CPU tests can hold them.
 """
 from __future__ import annotations
 
@@ -34,9 +36,12 @@ from ogmm_tpu_torch.ops.stream import (TILE_M, TILE_N, knn_stream_plain,
                                        wproject_stream_lse_plain)
 
 WPROJECT_BF16_D = (64, 128, 256, 512)   # csrc/wproject.cu: instantiated widths
-WPROJECT_F32_DC = 32                     # and the float32 kernel's chunk
-WPROJECT_ROWS = 128      # the bf16 kernel's query rows a unit (WQ)
-WPROJECT_KEYS = 64       # and keys a tile (WK)
+WPROJECT_F32_DC = 32                     # and the float32 kernel's chunk (FC)
+WPROJECT_ROWS = 128      # query rows a unit, both forms (WQ)
+WPROJECT_KEYS = 64       # keys a tile of the bf16 kernel (WK)
+WPROJECT_F32_KEYS = 256  # and of the float32 kernel (FK)
+WPROJECT_F32_STAGES = 2  # the float32 block's split chunks (FSTAGES)
+WPROJECT_F32_RAW = 3     # and raw chunks in flight (FRAW)
 NN1_SPLIT_BLOCKS = 2     # blocks an SM the 1-NN split aims at
 
 
@@ -63,19 +68,35 @@ def wproject_smem_bytes(D: int) -> int:
     return stages * WPROJECT_KEYS * D * 2 + 1024
 
 
-def _wproject_pairs(B, N, M):
-    n_qt, n_kt = -(-N // WPROJECT_ROWS), -(-M // WPROJECT_KEYS)
+def wproject_f32_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of a float32 block (csrc/wproject.cu: FSMEM),
+    the same at every D: chunks of WPROJECT_F32_KEYS keys x 32 features in
+    float32, a TF32 high and low plane for each split stage and one plane
+    for each raw chunk in flight, and 1024 bytes to align them to the
+    swizzle."""
+    plane = WPROJECT_F32_KEYS * WPROJECT_F32_DC * 4
+    return (2 * WPROJECT_F32_STAGES + WPROJECT_F32_RAW) * plane + 1024
+
+
+def wproject_keys(dtype: torch.dtype) -> int:
+    """Keys a tile of the kernel that takes q and k of this type."""
+    return WPROJECT_KEYS if dtype == torch.bfloat16 else WPROJECT_F32_KEYS
+
+
+def _wproject_pairs(B, N, M, keys=WPROJECT_KEYS):
+    n_qt, n_kt = -(-N // WPROJECT_ROWS), -(-M // keys)
     return n_qt, n_kt, B * n_qt * n_kt
 
 
-def wproject_units(B: int, N: int, M: int, blocks: int):
-    """The work units of the bf16 kernel's persistent grid, in launch order:
-    block i takes the flattened (query tile, key tile) pairs [i T / blocks,
-    (i + 1) T / blocks), split at query-tile boundaries. Each unit is
-    (block, slot, tile, k0, k1): query tile `tile` (over B * n_qt, batch
-    major) against key tiles [k0, k1) of WPROJECT_KEYS, its partials in
-    slot `slot` of the block. The kernel's integer arithmetic, mirrored."""
-    n_qt, n_kt, T = _wproject_pairs(B, N, M)
+def wproject_units(B: int, N: int, M: int, blocks: int, keys: int = WPROJECT_KEYS):
+    """The work units of a projection kernel's persistent grid, in launch
+    order: block i takes the flattened (query tile, key tile) pairs
+    [i T / blocks, (i + 1) T / blocks), split at query-tile boundaries. Each
+    unit is (block, slot, tile, k0, k1): query tile `tile` (over B * n_qt,
+    batch major) against logical key tiles [k0, k1) of `keys` (64 bf16, 256
+    float32), its partials in slot `slot` of the block. The kernel's
+    integer arithmetic, mirrored."""
+    n_qt, n_kt, T = _wproject_pairs(B, N, M, keys)
     units = []
     for i in range(blocks):
         p, p1 = i * T // blocks, (i + 1) * T // blocks
@@ -88,12 +109,33 @@ def wproject_units(B: int, N: int, M: int, blocks: int):
     return units
 
 
+def wproject_key_tiles(B: int, N: int, M: int, blocks: int,
+                       keys: int = WPROJECT_F32_KEYS):
+    """For each unit of `wproject_units`, the key tiles the float32 kernel
+    reads, in order: logical tile k of query tile `tile` is (k + rot) mod
+    n_kt, where rot = -(first pair of block i) mod n_kt and block i holds
+    the tile's last pair. So every block reads key tile s mod n_kt at the
+    s-th pair of its share (a unit finishing a tile that the block before
+    began lags by that block's share mod n_kt), and the blocks sweep k
+    together: the L2 holds the few tiles in use, not all of k. The merge
+    takes a row's units in block order, as for bf16. The kernel's integer
+    arithmetic (csrc/wproject.cu: rotation), mirrored."""
+    n_qt, n_kt, T = _wproject_pairs(B, N, M, keys)
+    order = []
+    for _, _, tile, k0, k1 in wproject_units(B, N, M, blocks, keys):
+        last = ((tile * n_kt + n_kt) * blocks - 1) // T   # block_of(last pair)
+        rot = -(last * T // blocks) % n_kt
+        order.append([(k + rot) % n_kt for k in range(k0, k1)])
+    return order
+
+
 @functools.lru_cache(maxsize=64)
-def wproject_plan(B: int, N: int, M: int, n_sm: int):
-    """(blocks, slots) of the bf16 kernel: one block an SM (or one a pair
-    where there are fewer pairs), and the most units a block holds."""
-    blocks = min(n_sm, _wproject_pairs(B, N, M)[2])
-    slots = max(u[1] for u in wproject_units(B, N, M, blocks)) + 1
+def wproject_plan(B: int, N: int, M: int, n_sm: int, keys: int = WPROJECT_KEYS):
+    """(blocks, slots) of a projection kernel with tiles of `keys`: one
+    block an SM (or one a pair where there are fewer pairs), and the most
+    units a block holds."""
+    blocks = min(n_sm, _wproject_pairs(B, N, M, keys)[2])
+    slots = max(u[1] for u in wproject_units(B, N, M, blocks, keys)) + 1
     return blocks, slots
 
 
@@ -254,12 +296,11 @@ def _wproject_cuda(q, k, v):
     out = torch.empty(B, N, 1, dtype=torch.float32, device=q.device)
     lse = torch.empty(B, N, 1, dtype=torch.float32, device=q.device)
     bf16 = q.dtype == torch.bfloat16
-    blocks = slots = 0
-    part = None
-    if bf16:   # the persistent grid's units write partials, merged after
-        blocks, slots = wproject_plan(B, N, M, _sm_count(q.device.index or 0))
-        part = torch.empty(blocks * slots * 3 * WPROJECT_ROWS,
-                           dtype=torch.float32, device=q.device)
+    # the persistent grid's units write partials, merged after
+    blocks, slots = wproject_plan(B, N, M, _sm_count(q.device.index or 0),
+                                  wproject_keys(q.dtype))
+    part = torch.empty(blocks * slots * 3 * WPROJECT_ROWS,
+                       dtype=torch.float32, device=q.device)
     fn = dispatch.load_kernel("wproject").wproject_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -274,8 +315,8 @@ def _wproject_cuda(q, k, v):
 def wproject_stream_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """softmax(q k^T) v without the (N, M) matrix, and the row logsumexp:
     q (B, N, D), k (B, M, D), v (B, M, 1) -> out (B, N, 1), lse (B, N, 1),
-    float32. Launches the CUDA kernel for a CUDA tensor (no gradient; bf16
-    adds a merge launch, one launch is counted), the plain version for a
+    float32. Launches the CUDA kernel for a CUDA tensor (no gradient; a
+    merge launch follows, one launch is counted), the plain version for a
     CPU tensor."""
     if q.is_cuda:
         with torch.no_grad():

@@ -21,6 +21,7 @@ PyTorch/CUDA port goes.
     python3 scripts/torch_port_profile.py --probe posenc_angles [--parent DIR]
     python3 scripts/torch_port_profile.py --probe dgcnn_eval [--dtype float32]
                                           [--parent DIR]
+    python3 scripts/torch_port_profile.py --probe wproject [--parent DIR]
 
 Needs one CUDA device. Runs GMMReg at B=24, N=717 (or --n_points: 1433 is
 ModelNet40's 2048-point clouds cropped to 0.70, the shared-graph route),
@@ -93,7 +94,15 @@ stage chain, the head), the error against the plain version, the variants of
 `DGCNN_VARIANTS` (the float32 stage kernel at two row tiles at a time in
 stage 4), the rate of `mma.sync` m16n8k8 TF32 alone on the card
 (`MMA_RATE`: independent products only, at 8, 16 and 32 warps an SM), and
-with `--parent DIR` that tree's kernel on the same operands.
+with `--parent DIR` that tree's kernel on the same operands;
+`wproject` at the indoor head's call (1, 35000, 35000, D=512), float32 and
+bf16: the ms between CUDA events and the device ms of each `__global__`
+(the projection, the merge), out and lse against the plain version, a
+relaunch bit-equal, the plain version's and `scaled_dot_product_attention`'s
+(MATH) times, the TFLOP/s of tensor-core products; for float32 the variants
+of `WPROJECT_VARIANTS` (the key tiles in plain order, scale-d from the chunk
+index) with ptxas's report of each build, and with `--parent DIR` that
+tree's kernel, all timed in turns.
 """
 import argparse
 import dataclasses
@@ -368,10 +377,11 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _variant(source, edits, name, out):
+def _variant(source, edits, name, out, ptxas_report=False):
     """`source` with each (old, new) of `edits` replaced once, built with
     the package's nvcc flags (and the headers beside `source`) into out/,
-    loaded with ctypes."""
+    loaded with ctypes; with `ptxas_report`, ptxas's report (registers,
+    spills, warnings) printed."""
     import ctypes
     from ogmm_tpu_torch.ops import dispatch
     with open(source) as f:
@@ -384,7 +394,8 @@ def _variant(source, edits, name, out):
     cu, so = os.path.join(out, name + ".cu"), os.path.join(out, name + ".so")
     with open(cu, "w") as f:
         f.write(text)
-    subprocess.run([dispatch._nvcc(), *dispatch.NVCC_FLAGS, "-I",
+    subprocess.run([dispatch._nvcc(), *dispatch.NVCC_FLAGS,
+                    *(("-Xptxas", "-v") if ptxas_report else ()), "-I",
                     os.path.dirname(os.path.abspath(source)), "-o", so, cu],
                    check=True)
     return ctypes.CDLL(so)
@@ -1139,11 +1150,143 @@ def probe_dgcnn_eval(args):
     return {key: r}
 
 
+# variants of csrc/wproject.cu's float32 kernel (not shipped, never on a
+# path): the key tiles in plain order (every rotation 0: the blocks spread
+# over all of k at once); the A fragments split before the waits; and, for
+# timing only (their results are wrong), the producer's split skipped (the
+# planes hold what they held), q not loaded (ones), both, and one TF32
+# product a k8 step instead of three
+_WP_LOOP = "      for (int w = pt; w < 2 * FK; w += 128) {"
+_WP_LOAD = """      const float4 x = r != nullptr
+          ? __ldg(reinterpret_cast<const float4*>(r + f0 + 8 * t) + u)
+          : make_float4(0.f, 0.f, 0.f, 0.f);"""
+_WP_ONES = """      const float4 x = r != nullptr ? make_float4(1.f, 1.f, 1.f, 1.f)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);"""
+_WP_NOTE = """        // the A fragments, split right before the fence: no divergent path
+        // (the waits' spin loops) between their writes and the products;
+        // a[i] of step st is row g + 8 (i & 1), feature 8 t + 2 st + (i >> 1)
+"""
+_WP_SPLIT = """#pragma unroll
+        for (int st = 0; st < 4; ++st)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x = qr[8 * (i & 1) + 2 * st + (i >> 1)];
+            qh[st][i] = tf32(x);
+            ql[st][i] = tf32(__fsub_rn(x, __uint_as_float(qh[st][i])));
+          }
+"""
+_WP_WAITS = """        mbar_wait(&kfull[s], sph);
+        turn_wait(cw);
+"""
+WPROJECT_VARIANTS = [
+    ("key tiles in plain order",
+     [("  const long long i = block_of((long long)tile * n_kt + n_kt - 1, T, G);\n"
+       "  return (int)((n_kt - share_start(i, T, G) % n_kt) % n_kt);",
+       "  return 0;")]),
+    ("A fragments split before the waits",
+     [(_WP_WAITS + _WP_NOTE + _WP_SPLIT, _WP_SPLIT + _WP_WAITS)]),
+    ("no split (timing only)", [(_WP_LOOP, _WP_LOOP.replace("2 * FK", "0"))]),
+    ("no q loads (timing only)", [(_WP_LOAD, _WP_ONES)]),
+    ("k by TMA alone (timing only)",
+     [(_WP_LOAD, _WP_ONES), (_WP_LOOP, _WP_LOOP.replace("2 * FK", "0"))]),
+    ("one product a step (timing only)",
+     [("          wgmma_rs_n256_tf32(acc, qh[st], desc_k(lo + st * 32), 1);\n", ""),
+      ("          wgmma_rs_n256_tf32(acc, qh[st], desc_k(hi + st * 32), 1);\n", "")])]
+
+
+def probe_wproject(args):
+    """The projection at the indoor head's call (1, 35000, 35000, D=512),
+    float32 and bf16, on l2-normalised noisy copies (chip_smoke.py's
+    features): ms between CUDA events and device ms of each __global__,
+    out and lse against the plain version, a relaunch bit-equal, the
+    plain version's and scaled_dot_product_attention's (MATH) times; for
+    float32 the variants of WPROJECT_VARIANTS and, with --parent, that
+    tree's kernel, all timed in turns; ptxas's report of each build."""
+    import ctypes
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from ogmm_tpu_torch.ops import cuda_stream, dispatch, stream
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    rs = np.random.RandomState(17)
+    n, d = 35000, 512
+    dispatch.build_kernels(("wproject",), verbose=True)
+    base = torch.tensor(rs.randn(1, n, d).astype(np.float32), device="cuda")
+    q32 = base + 0.3 * torch.randn_like(base)
+    k32 = base[:, torch.randperm(n, device="cuda")] + 0.3 * torch.randn_like(base)
+    q32, k32 = (a / a.norm(dim=-1, keepdim=True) for a in (q32, k32))
+    v = torch.tensor(rs.randn(1, n, 1).astype(np.float32), device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k = q32.to(dt), k32.to(dt)
+        key = f"(1, {n}, {n}, D={d}) {dt}"
+        run = lambda q=q, k=k: cuda_stream.wproject_stream_lse(q, k, v)
+        out, lse = run()
+        ro, rl = stream.wproject_stream_lse_plain(q, k, v)
+        again = run()
+        r = {"max_abs_err_out": (out - ro).abs().max().item(),
+             "max_abs_err_lse": (lse - rl).abs().max().item(),
+             "relaunch_bit_equal": torch.equal(out, again[0]) and torch.equal(lse, again[1])}
+        print(f"wproject {key}: against the plain version out "
+              f"{r['max_abs_err_out']:.3g}, lse {r['max_abs_err_lse']:.3g}; a "
+              f"relaunch bit-equal {r['relaunch_bit_equal']}")
+        bf16 = dt == torch.bfloat16
+        blocks, slots = cuda_stream.wproject_plan(1, n, n, sms, cuda_stream.wproject_keys(dt))
+        part = torch.empty(blocks * slots * 3 * cuda_stream.WPROJECT_ROWS, device="cuda")
+
+        def launcher(lib, label, q=q, k=k, bf16=bf16, blocks=blocks, slots=slots,
+                     part=part, out=out, ro=ro):
+            fn = lib.wproject_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            o, l = torch.empty_like(out), torch.empty_like(out)
+
+            def go():
+                code = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(l), ptr(part), 1, n, n,
+                          d, int(bf16), blocks, slots, None)
+                if code:
+                    raise RuntimeError(f"{label}: launch failed: {code}")
+                return o
+            go()
+            torch.cuda.synchronize()
+            r[label] = {"max_abs_err_out": (o - ro).abs().max().item(),
+                        "bit_equal_to_this_tree": torch.equal(o, out)}
+            print(f"  {label}: against the plain version {r[label]['max_abs_err_out']:.3g}, "
+                  f"bit-equal to this tree's kernel {r[label]['bit_equal_to_this_tree']}")
+            return go
+        runs = {"this tree": run}
+        source = os.path.join(CSRC, "wproject.cu")
+        if not bf16:
+            for label, edits in WPROJECT_VARIANTS:
+                name = "wproject_" + re.sub(r"\W+", "_", label)
+                runs[label] = launcher(_variant(source, edits, name, args.out, True), label)
+        parent = _parent_lib(args, "wproject")
+        if parent is not None:
+            runs["parent"] = launcher(parent, "parent")
+        for label, res_ in _interleaved(runs).items():
+            r.setdefault(label, {}).update(res_)
+        r["plain_ms"] = _cuda_ms(lambda q=q, k=k: stream.wproject_stream_lse_plain(q, k, v), 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sargs = (q.unsqueeze(1), k.unsqueeze(1), v.to(dt).unsqueeze(1))
+        with sdpa_kernel([SDPBackend.MATH]), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            r["sdpa_math_ms"] = _cuda_ms(lambda: sdpa(*sargs, scale=1.0), 2)
+        torch.cuda.empty_cache()
+        flops = 2.0 * n * n * d * (1 if bf16 else 3)
+        r["tensor_tflops"] = flops / r["this tree"]["ms"] / 1e9
+        print(f"  plain {r['plain_ms']:.3f} ms, scaled_dot_product_attention (MATH) "
+              f"{r['sdpa_math_ms']:.3f} ms; this tree {r['tensor_tflops']:.1f} TFLOP/s "
+              f"of {'bf16' if bf16 else 'TF32 (three products)'} products")
+        res[key] = r
+    return res
+
+
 PROBES = {"knn_stream": probe_knn_stream, "icp": probe_icp,
           "bwd_edge": probe_bwd_edge, "knn": probe_knn,
           "graph_stage1": probe_graph_stage1, "nn1": probe_nn1,
           "bwd_reduce": probe_bwd_reduce, "fps": probe_fps,
-          "posenc_angles": probe_posenc_angles, "dgcnn_eval": probe_dgcnn_eval}
+          "posenc_angles": probe_posenc_angles, "dgcnn_eval": probe_dgcnn_eval,
+          "wproject": probe_wproject}
 
 
 def main():
@@ -1174,8 +1317,9 @@ def main():
                     help="time the kernel beside variants of it (see above)")
     ap.add_argument("--parent", default=None,
                     help="with --probe knn_stream, knn, graph_stage1, nn1, "
-                         "bwd_reduce, fps, posenc_angles or dgcnn_eval: a "
-                         "tree of the commit with the kernel's earlier design")
+                         "bwd_reduce, fps, posenc_angles, dgcnn_eval or "
+                         "wproject: a tree of the commit with the kernel's "
+                         "earlier design")
     args = ap.parse_args()
     if args.probe:
         if not torch.cuda.is_available():

@@ -3,9 +3,11 @@ shapes the EM kernel takes (`cuda_em.kernel_takes`, `cuda_em.smem_bytes`),
 the operands the DGCNN wrappers hand their kernels
 (`cuda_dgcnn._kernel_operands`, `cuda_dgcnn._concat_scratch`), the float32
 stage block (`cuda_dgcnn.f32_stage_plan`), the angle kernel's launch
-(`cuda_posenc.posenc_plan`), the bf16
-projection's shared memory and persistent grid (`cuda_stream.wproject_plan`,
-`wproject_units`, `wproject_smem_bytes`), the 1-NN kernel's split of the
+(`cuda_posenc.posenc_plan`), the bf16 and float32
+projections' shared memory and persistent grids (`cuda_stream.wproject_plan`,
+`wproject_units`, `wproject_smem_bytes`, `wproject_f32_smem_bytes`; the
+float32 kernel's rotated key order, `wproject_key_tiles`, and its blocks
+reading k in step), the 1-NN kernel's split of the
 target (`cuda_stream.nn1_stream_plan`), and the bf16 backward stage's and
 fused MLP's launches (`cuda_dgcnn_bwd.bwd_stage_plan`,
 `cuda_mlp.pointmlp_plan`): shared memory, the persistent grid's shares and
@@ -193,6 +195,96 @@ def test_wproject_units_fill_the_card_at_the_indoor_shape():
     # the partials of one call: blocks x slots x (m, l, acc) x 128 rows
     assert blocks * slots * 3 * cuda_stream.WPROJECT_ROWS * 4 < 2 ** 20
 
+
+@pytest.mark.parametrize("D", range(32, 513, 32))
+def test_wproject_f32_block_fits_shared_memory(D):
+    # the float32 block's split stages (a TF32 high and low plane of 256
+    # keys x 32 features each) and raw chunks, aligned to the swizzle, within
+    # a block's 227 KB at every width the envelope takes up to 512
+    assert cuda_stream.wproject_takes(D, torch.float32)
+    smem = cuda_stream.wproject_f32_smem_bytes(D)
+    assert smem <= cuda_em.SMEM_BYTES == 232448
+    plane = cuda_stream.WPROJECT_F32_KEYS * cuda_stream.WPROJECT_F32_DC * 4
+    assert smem == 7 * plane + 1024 and plane == 32768
+
+
+@pytest.mark.parametrize("B,N,M,blocks", [(1, 35000, 35000, H100_SMS),
+                                          (2, 35000, 35000, H100_SMS),
+                                          (2, 130, 4100, 68),
+                                          (1, 70, 50, 1), (2, 300, 1, 6),
+                                          (1, 129, 65, 2),
+                                          (3, 1000, 2000, H100_SMS),
+                                          (3, 700, 33000, H100_SMS),
+                                          (2, 150, 1000, 7)])
+def test_wproject_f32_key_tiles_cover_every_key_once(B, N, M, blocks):
+    # the float32 kernel's units over tiles of 256 keys: every block has
+    # work, slots count up from 0; each query tile's units, merged in block
+    # order, take its logical key tiles [0, n_kt) in ascending order, and
+    # read the physical tiles (k + rot) mod n_kt: each key of each row in
+    # exactly one unit
+    rows, keys = cuda_stream.WPROJECT_ROWS, cuda_stream.WPROJECT_F32_KEYS
+    n_qt, n_kt = -(-N // rows), -(-M // keys)
+    units = cuda_stream.wproject_units(B, N, M, blocks, keys)
+    order = cuda_stream.wproject_key_tiles(B, N, M, blocks, keys)
+    assert len(order) == len(units)
+    assert sorted({u[0] for u in units}) == list(range(blocks))
+    for i in range(blocks):
+        assert [u[1] for u in units if u[0] == i] == list(range(sum(u[0] == i for u in units)))
+    for tile in range(B * n_qt):
+        mine = [(u, o) for u, o in zip(units, order) if u[2] == tile]
+        assert [u[0] for u, _ in mine] == sorted(u[0] for u, _ in mine)
+        edges = [u[3] for u, _ in mine] + [mine[-1][0][4]]
+        assert edges[0] == 0 and edges[-1] == n_kt
+        assert all(lo < hi for lo, hi in zip(edges, edges[1:]))
+        seen = np.zeros(M, np.int64)
+        rot = (mine[0][1][0] - mine[0][0][3]) % n_kt
+        for u, o in mine:
+            assert o == [(k + rot) % n_kt for k in range(u[3], u[4])]
+            for kt in o:
+                seen[kt * keys:(kt + 1) * keys] += 1
+        assert (seen == 1).all()
+
+
+def test_wproject_f32_grid_fills_the_card_at_the_indoor_shape():
+    # (1, 35000, 35000): 274 query tiles x 137 key tiles of 256 on 132 SMs,
+    # shares within one pair of each other; the partials stay small
+    keys = cuda_stream.WPROJECT_F32_KEYS
+    blocks, slots = cuda_stream.wproject_plan(1, 35000, 35000, H100_SMS, keys)
+    assert blocks == H100_SMS
+    units = cuda_stream.wproject_units(1, 35000, 35000, blocks, keys)
+    load = [0] * blocks
+    for i, _, _, k0, k1 in units:
+        load[i] += k1 - k0
+    assert sum(load) == 274 * 137 and max(load) - min(load) <= 1
+    assert slots == max(u[1] for u in units) + 1 == 4
+    assert blocks * slots * 3 * cuda_stream.WPROJECT_ROWS * 4 < 2 ** 20
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_wproject_f32_blocks_read_k_in_step(B):
+    # at the indoor call (B = 1 a request, 2 a train step) the 132 blocks
+    # read at most three key tiles of each cloud at any step of their
+    # shares (tile s mod n_kt, or that lagged by a share mod n_kt where a
+    # unit finishes a tile the block before began): with each block's q
+    # tile (256 KB) the working set is 35-36 MB of the L2's 50; in plain order
+    # the blocks read some 66 tiles at once, 33 MB of k beside the 34 of q
+    keys, n_kt, n_qt = cuda_stream.WPROJECT_F32_KEYS, 137, 274
+    units = cuda_stream.wproject_units(B, 35000, 35000, H100_SMS, keys)
+    order = cuda_stream.wproject_key_tiles(B, 35000, 35000, H100_SMS, keys)
+    seq = [[] for _ in range(H100_SMS)]
+    for u, o in zip(units, order):
+        seq[u[0]] += [(u[2] // n_qt, kt) for kt in o]
+    plain = [[] for _ in range(H100_SMS)]
+    for i, _, tile, k0, k1 in units:
+        plain[i] += [(tile // n_qt, kt) for kt in range(k0, k1)]
+    worst = worst_plain = 0
+    for s in range(max(map(len, seq))):
+        at = {x[s] for x in seq if s < len(x)}
+        worst = max(worst, max(sum(b == c for b, _ in at) for c in range(B)))
+        worst_plain = max(worst_plain, len({x[s] for x in plain if s < len(x)}))
+    tile_bytes, q_tiles = keys * 512 * 4, H100_SMS * 128 * 512 * 4
+    assert worst <= 3 and B * worst * tile_bytes + q_tiles < 40 * 2 ** 20
+    assert worst_plain * tile_bytes + q_tiles > 50 * 2 ** 20
 
 @pytest.mark.parametrize("B,N,M", [(1, 35000, 35000), (2, 16, 35000),
                                    (2, 4100, 4097), (1, 1, 4097),

@@ -858,6 +858,31 @@ def test_wproject_wgmma_any_shape_matches_plain(card, B, N, M, D):
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
+@pytest.mark.parametrize("B,N,M,D", [(2, 130, 4100, 512), (1, 70, 50, 32),
+                                     (2, 300, 1, 96), (1, 129, 65, 32),
+                                     (3, 1000, 2000, 512), (3, 700, 33000, 96),
+                                     (1, 257, 513, 96)])
+def test_wproject_tf32_any_shape_matches_plain(card, B, N, M, D):
+    # the float32 kernel (three TF32 products a logit, tiles of 128 rows x
+    # 256 keys): N and M not multiples of the tiles, M = 1, D = 32, 96 and
+    # 512, B = 3, more units than blocks (a query tile over several blocks,
+    # its key tiles rotated) and fewer
+    rs = np.random.RandomState(N + M + D + 1)
+    l2 = lambda a: a / a.norm(dim=-1, keepdim=True)
+    base = torch.tensor(rs.randn(B, max(N, M), D).astype(np.float32), device=card)
+    q = l2(base[:, :N] + 0.3 * torch.randn_like(base[:, :N]))
+    k = l2(base[:, :M] + 0.3 * torch.randn_like(base[:, :M]))
+    v = torch.tensor(rs.randn(B, M, 1).astype(np.float32), device=card)
+    dispatch.reset_launch_counts()
+    out, lse = cuda_stream.wproject_stream_lse(q, k, v)
+    assert dispatch.launch_counts["wproject"] == 1
+    rout, rlse = stream.wproject_stream_lse_plain(q, k, v)
+    assert (out - rout).abs().max().item() <= 1e-4
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    out2, lse2 = cuda_stream.wproject_stream_lse(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
 @pytest.mark.parametrize("dtype,lim_qk", [(torch.float32, 1e-4),
                                           (torch.bfloat16, 2 ** -7)])
 def test_wproject_gradient_with_the_kernel_matches_plain_autograd(card, dtype,
@@ -895,6 +920,9 @@ def test_wproject_gradient_with_the_kernel_matches_plain_autograd(card, dtype,
 def test_wproject_grid_fills_the_card_at_the_indoor_shape(card):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     blocks, slots = cuda_stream.wproject_plan(1, 35000, 35000, sms)
+    assert blocks == sms and slots >= 1
+    blocks, slots = cuda_stream.wproject_plan(1, 35000, 35000, sms,
+                                              cuda_stream.WPROJECT_F32_KEYS)
     assert blocks == sms and slots >= 1
 
 
