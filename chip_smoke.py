@@ -110,6 +110,21 @@ fatal on failure:
              of scripts/gen_indoor_fragments.py, the loader's time a batch.
              Phase 12's wproject entry also times the float32 form at the
              indoor call and the head's backward
+ 18. deepgmr       the JAX package's second model at its full width,
+             `Registrar(configs.mnet(model_name="DeepGMR"))` (emb 512,
+             K=128, k=20, float32 body), seeded weights, on modelnetdv test
+             batches (B=24 pairs of 768 against 1536 points, the synthetic
+             source): requests without and with ICP, loop_kernels off and
+             on: launches (dgcnn_eval 1 for src, knn 1 for tgt's graph, nn1
+             30 or icp 1), each kernel's __global__ counted by torch.profiler
+             beside its wrapper's count, host and CUDA-event times, peak
+             memory; the moments and poses against the plain versions; the
+             train step (graph_stage1 1, knn 1, nn1 3): step time, peak
+             memory, loss and gradients against the plain versions and with
+             src's backward through the backward kernels; the CLI
+             (`--model DeepGMR --dataset modelnetdv`): three steps, an eval
+             batch with ICP, the export served back through
+             `Registrar.from_weights`
 
 `python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
 (build always runs; the names are those of PHASES below) and prints their
@@ -2417,9 +2432,418 @@ def run_indoor_cli():
             "launches": launches}
 
 
+# ------------------------------------------------------------------ DeepGMR
+
+B_DV, N_DV, M_DV = 24, 768, 1536   # modelnetdv: src FPS'd to 768, tgt 1536
+DV_ROOT = "synthetic:200"          # 100 test shapes (labels >= 20), 100 train
+# the __global__ each kernel's wrapper launches on this path (dgcnn_eval and
+# graph_stage1 also launch knn_kernel, their selection)
+DEEPGMR_GLOBALS = {"dgcnn_eval": "dgcnn_stage_tf32_kernel",
+                   "graph_stage1": "edge_stage1_kernel",
+                   "nn1": "nn1_lanes_kernel", "icp": "icp_kernel",
+                   "knn_kernel": "knn_kernel"}
+# limits, DeepGMR with the kernels against the same with the plain versions
+# on the card: only src's DGCNN differs (the 3xTF32 stage chain, ~2^-22 of
+# each product); tgt's graph (knn) and the 1-NN are identical
+LIM_DGMR_MOMENTS = 1e-5   # pi, mu, sigma of both clouds (|mu| < 1)
+LIM_DGMR_ROT_DEG = 0.1    # median angle, the rotation without ICP
+LIM_DGMR_ICP_DEG = 1.0    # median angle after 30 ICP trips (phase 3's bar)
+# one train step: graph_stage1's z1 in another summation order (1e-5),
+# through a softmax over 128 clusters and the eigh of Horn's matrix, whose
+# gradient goes as one over its eigen gap
+LIM_DGMR_LOSS = 1e-3      # relative difference of the loss
+LIM_DGMR_GRAD = 1e-3      # |g_kernel - g_plain| / |g_plain| over all params
+# the step with src's DGCNN backward through the float32 backward kernels
+# against the plain backward: the same forward, sums in another order
+LIM_DGMR_BWD_GRAD = 1e-3
+
+
+def profiled_launches(fn):
+    """Launches of each __global__ of DEEPGMR_GLOBALS in one call of fn,
+    from torch.profiler's device events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: 0 for name in DEEPGMR_GLOBALS}
+    for evt in prof.key_averages():
+        for name, glob in DEEPGMR_GLOBALS.items():
+            if glob in evt.key:
+                out[name] += evt.count
+    return out
+
+
+def _check_profiled(launches, prof):
+    """The profiler's count of each wrapper's __global__ equals the
+    wrapper's count; knn_kernel runs once for dgcnn_eval, graph_stage1 and
+    knn each."""
+    for name in ("dgcnn_eval", "graph_stage1", "nn1", "icp"):
+        assert prof[name] == launches.get(name, 0), (name, launches, prof)
+    want = sum(launches.get(k, 0) for k in ("dgcnn_eval", "graph_stage1", "knn"))
+    assert prof["knn_kernel"] == want, (launches, prof)
+
+
+def _dv_cfg():
+    cfg = configs.mnet(model_name="DeepGMR")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, dataset="modelnetdv", root=DV_ROOT),
+        train=dataclasses.replace(cfg.train, batch_size=B_DV,
+                                  test_batch_size=B_DV))
+
+
+def rot_diff_deg(a, b):
+    """Angle between two rotations from |a - b|_F = 2 sqrt(2) sin(angle / 2),
+    in float64: no floor from the float32 trace (angle_deg reads ~0.03
+    degrees between a rotation and itself)."""
+    f = (a.double() - b.double()).flatten(1).norm(dim=1) / (2 * 2 ** 0.5)
+    return torch.rad2deg(2 * torch.asin(f.clamp(max=1.0)))
+
+
+def _gap(ms):
+    """Relative eigen gap of Horn's matrix of each (3, 3) ms."""
+    from ogmm_tpu_torch.core.procrustes import _horn_matrix
+    ev = torch.linalg.eigvalsh(_horn_matrix(ms.double()))
+    return (ev[:, -1] - ev[:, -2]) / ev.abs().amax(-1)
+
+
+def check_deepgmr_kernels(rs):
+    """Each kernel of the DeepGMR path against its plain version at the
+    shapes the path gives it: dgcnn_eval float32 at (24, 768) (src, no
+    angles), graph_stage1 float32 at (24, 768), knn at (24, 1536, 1536,
+    k=20) (tgt's graph), nn1 at (24, 768, 1536) (ICP, the metrics),
+    (24, 1536, 768) (the metrics' other way) and (24, 768, 768) (pcab), and
+    the whole-loop icp at (24, 768, 1536); each timed beside its plain
+    version. Returns {kernel: {...}} for the kernels line."""
+    f32 = torch.float32
+    out = {}
+    x = _cloud(rs, B_DV, N_DV)
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, EMB)]
+    ws = [torch.tensor(rs.randn(*d).astype(np.float32) / np.sqrt(d[0]),
+                       device=DEV) for d in dims]
+    aff = [(torch.tensor(rs.uniform(0.5, 1.5, d[1]).astype(np.float32), device=DEV),
+            torch.tensor(rs.randn(d[1]).astype(np.float32) * 0.1, device=DEV))
+           for d in dims]
+    got = dgcnn_eval(x, ws, aff, KNN, f32, 0)
+    torch.cuda.synchronize()
+    err = (got - dgcnn_eval_reference(x, ws, aff, KNN, f32, 0)).abs().max().item()
+    out["dgcnn_eval"] = {
+        "shape": [B_DV, N_DV, KNN, EMB], "max_abs_err": err,
+        "ms": cuda_ms(lambda: dgcnn_eval(x, ws, aff, KNN, f32, 0), 10),
+        "plain_ms": cuda_ms(lambda: dgcnn_eval_reference(x, ws, aff, KNN, f32, 0), 2)}
+    assert err <= LIM_DGCNN_F32, err
+    z1, e, idx, _ = graph_stage1(x, ws[0], KNN, f32, 0)
+    torch.cuda.synchronize()
+    rz1, re, ridx, _ = graph_stage1_reference(x, ws[0], KNN, f32, 0)
+    err = (z1 - rz1).abs().max().item()
+    assert torch.equal(idx, ridx) and torch.equal(e, re) and err <= LIM_Z1_F32
+    out["graph_stage1"] = {
+        "shape": [B_DV, N_DV, KNN], "max_abs_err": err,
+        "ms": cuda_ms(lambda: graph_stage1(x, ws[0], KNN, f32, 0), 20),
+        "plain_ms": cuda_ms(lambda: graph_stage1_reference(x, ws[0], KNN, f32, 0), 2)}
+    y = _cloud(rs, B_DV, M_DV)
+    same = torch.equal(knn(y, y, KNN), knn_reference(y, y, KNN))
+    assert same
+    out["knn"] = {"shape": [B_DV, M_DV, M_DV, KNN], "max_abs_err": 0,
+                  "ms": cuda_ms(lambda: knn(y, y, KNN), 20),
+                  "plain_ms": cuda_ms(lambda: knn_reference(y, y, KNN), 1)}
+    nn1_res = {}
+    for q, t in ((x, y), (y, x), (x, x.flip(1).contiguous())):
+        d, i = nn1(q, t)
+        torch.cuda.synchronize()
+        rd, ri = nn1_reference(q, t)
+        assert torch.equal(i, ri) and torch.equal(d, rd)
+        key = f"{q.shape[1]}x{t.shape[1]}"
+        nn1_res[key] = {"ms": cuda_ms(lambda: nn1(q, t), 50),
+                        "plain_ms": cuda_ms(lambda: nn1_reference(q, t), 5)}
+    out["nn1"] = {"max_abs_err": 0.0, **nn1_res}
+    thr2 = (2.0 * configs.ModelConfig().overlap_radius) ** 2
+    src, tgt, init = _icp_inputs(rs, B_DV, N_DV, M_DV)
+    r, t_, first = cuda_icp.icp_fused(src, tgt, init, thr2, return_first=True)
+    torch.cuda.synchronize()
+    rr, rt, rfirst = cuda_icp.icp_fused_reference(src, tgt, init, thr2,
+                                                  return_first=True)
+    err = max((r - rr).abs().max().item(), (t_ - rt).abs().max().item())
+    assert torch.equal(first, rfirst) and err <= LIM_ICP_POSE, err
+    out["icp"] = {"shape": [B_DV, N_DV, M_DV], "max_abs_err": err,
+                  "ms": cuda_ms(lambda: cuda_icp.icp_fused(src, tgt, init, thr2), 10),
+                  "plain_ms": cuda_ms(lambda: cuda_icp.icp_fused_reference(
+                      src, tgt, init, thr2), 2)}
+    for name, res in out.items():
+        print(f"{name} at the DeepGMR path's shapes, kernel against plain: "
+              f"{json.dumps(res)}")
+    return out
+
+
+def serve_deepgmr(cfg, requests):
+    """Registrar(configs.mnet(model_name="DeepGMR")), seeded weights, on
+    modelnetdv test batches: launches (dispatch counts and profiler counts),
+    times (host clock and CUDA events) and peak memory of each variant, and
+    the kernel path against the plain versions."""
+    from ogmm_tpu_torch.nn.deepgmr import cross_covariance
+    regs = {on: Registrar(cfg, seed=0, device=DEV, loop_kernels=on)
+            for on in (False, True)}
+    for reg in regs.values():
+        reg(*requests[0], refine=True)                   # warm up
+    torch.cuda.synchronize()
+    res, outs = {}, {}
+    for on in (False, True):
+        for refine in (False, True):
+            key = ("icp" if refine else "forward") + ("_loops" if on else "")
+            reg = regs[on]
+            src, tgt = requests[0]
+            dispatch.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            reg(src, tgt, refine=refine)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in dispatch.launch_counts.items() if v}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            prof = profiled_launches(lambda: reg(src, tgt, refine=refine))
+            _check_profiled(launches, prof)
+            want = {"dgcnn_eval": 1, "knn": 1}
+            if refine:
+                want.update({"icp": 1} if on else {"nn1": 30})
+            assert launches == want, (key, launches)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            host = []
+            start.record()
+            for src, tgt in requests:
+                t0 = time.perf_counter()
+                outs[key] = reg(src, tgt, refine=refine)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            torch.cuda.synchronize()
+            rot, trans, so, to = outs[key]
+            assert rot.shape == (B_DV, 3, 3) and trans.shape == (B_DV, 3)
+            assert so.shape == (B_DV, N_DV) and to.shape == (B_DV, M_DV)
+            assert torch.isfinite(rot).all() and torch.isfinite(trans).all()
+            eye = torch.eye(3, device=DEV).expand(B_DV, 3, 3)
+            assert (rot @ rot.transpose(1, 2) - eye).abs().max() < 1e-4
+            res[key] = {"host_ms": host,
+                        "events_ms": start.elapsed_time(end) / len(requests),
+                        "peak_mib": peak, "launches": launches,
+                        "profiled": prof}
+            print(f"DeepGMR request ({B_DV} pairs, {N_DV} against {M_DV}), "
+                  f"{key}: host {[round(v, 2) for v in host]} ms, CUDA events "
+                  f"{res[key]['events_ms']:.2f} ms a request, peak "
+                  f"{peak:.0f} MiB, launches {launches}, profiled {prof}")
+    # the same last request through the plain versions
+    src, tgt = requests[-1]
+    model = regs[False].model
+    x_s = torch.as_tensor(src, device=DEV)
+    x_t = torch.as_tensor(tgt, device=DEV)
+    with torch.no_grad():
+        mom_k = [model.moments(x) for x in (x_s, x_t)]
+        with plain_versions():
+            before = dict(dispatch.launch_counts)
+            mom_p = [model.moments(x) for x in (x_s, x_t)]
+            plain = {on: {refine: regs[on](src, tgt, refine=refine)
+                          for refine in (False, True)} for on in (False, True)}
+            assert dict(dispatch.launch_counts) == before
+    d_mom = max((a - b).abs().max().item() for mk, mp in zip(mom_k, mom_p)
+                for a, b in zip(mk[1:], mp[1:]))
+    ms = cross_covariance(mom_k[0][1], mom_k[0][2], mom_k[1][2], mom_k[1][3])[0]
+    gap = _gap(ms)
+    print(f"DeepGMR moments (pi, mu, sigma of both clouds), kernels against "
+          f"plain: {d_mom:.3g} (limit {LIM_DGMR_MOMENTS}); relative eigen gap "
+          f"of Horn's matrix: min {gap.min().item():.3g}, median "
+          f"{gap.median().item():.3g}")
+    assert d_mom <= LIM_DGMR_MOMENTS
+    against = {}
+    for on in (False, True):
+        for refine in (False, True):
+            key = ("icp" if refine else "forward") + ("_loops" if on else "")
+            k_rot, k_tr = outs[key][:2]
+            p_rot, p_tr = plain[on][refine][:2]
+            ang = rot_diff_deg(k_rot, p_rot)
+            d_tr = (k_tr - p_tr).abs().max(dim=-1).values
+            lim = LIM_DGMR_ICP_DEG if refine else LIM_DGMR_ROT_DEG
+            against[key] = {"rot_median_deg": ang.median().item(),
+                            "rot_max_deg": ang.max().item(),
+                            "trans_median": d_tr.median().item(),
+                            "trans_max": d_tr.max().item()}
+            print(f"DeepGMR {key}, kernels against plain versions: rotation "
+                  f"median {ang.median().item():.3g} deg (limit {lim}), max "
+                  f"{ang.max().item():.3g} deg; translation median "
+                  f"{d_tr.median().item():.3g}, max {d_tr.max().item():.3g}")
+            assert ang.median().item() <= lim
+    res["against_plain"] = against
+    res["moments_plain"] = d_mom
+    res["gap_min"], res["gap_median"] = gap.min().item(), gap.median().item()
+    return res
+
+
+def train_deepgmr(cfg, batches):
+    """make_train_step of DeepGMR at B=24, 768 against 1536: a warm-up step,
+    one step with the launch counts (graph_stage1 1: src's graph and first
+    stage; knn 1: tgt's graph, the unfused chain above N = 1024; nn1 3: the
+    metrics' 1-NN both ways and pcab), five timed steps, peak memory, every
+    parameter moved; one step from the same state through the kernels and
+    through their plain versions; one with src's DGCNN backward through
+    the backward kernels (`BWD_KERNELS`, off by default and in the rest of
+    this phase) against the plain backward."""
+    state = create_train_state(cfg, steps_per_epoch=100, seed=0, device=DEV)
+    step = make_train_step(cfg)
+    before = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+    step(state, batches[0])                               # warm up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    metrics = step(state, batches[1])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in dispatch.launch_counts.items() if v}
+    prof = profiled_launches(lambda: step(state, batches[0]))
+    _check_profiled(launches, prof)
+    assert launches == {"graph_stage1": 1, "knn": 1, "nn1": 3}, launches
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(state, batches[i % len(batches)])["loss"][0] for i in range(5)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [v.item() for v in losses]
+    assert all(np.isfinite(losses))
+    after = state.model.state_dict()
+    unchanged = [n for n in before if torch.equal(before[n], after[n])]
+    assert not unchanged, f"not moved by training: {unchanged}"
+    print(f"DeepGMR train step ({B_DV} pairs, {N_DV} against {M_DV}): "
+          f"{step_ms:.2f} ms (host clock, five steps), peak {peak:.0f} MiB, "
+          f"losses {[round(v, 5) for v in losses]}, launches {launches}, "
+          f"profiled {prof}")
+    batch = batches[2]
+    dispatch.reset_launch_counts()
+    k_loss, k_grads = _step_grads(state, cfg, batch)
+    k_launches = {k: v for k, v in dispatch.launch_counts.items() if v}
+    assert k_launches == {"graph_stage1": 1, "knn": 1}, k_launches
+    with plain_versions():
+        counts = dict(dispatch.launch_counts)
+        p_loss, p_grads = _step_grads(state, cfg, batch)
+        assert dict(dispatch.launch_counts) == counts
+    d_loss = abs(k_loss - p_loss) / abs(p_loss)
+    d_grad = _rel(k_grads, p_grads)
+    print(f"DeepGMR train step (the kernel run launched {k_launches}), "
+          f"kernels against plain versions: loss "
+          f"{k_loss:.6f} / {p_loss:.6f}, relative {d_loss:.3g} (limit "
+          f"{LIM_DGMR_LOSS}); gradients relative {d_grad:.3g} (limit "
+          f"{LIM_DGMR_GRAD})")
+    assert d_loss <= LIM_DGMR_LOSS and d_grad <= LIM_DGMR_GRAD
+    ops_dgcnn_train.BWD_KERNELS = True
+    try:
+        dispatch.reset_launch_counts()
+        b_loss, b_grads = _step_grads(state, cfg, batch)
+        b_launches = {k: v for k, v in dispatch.launch_counts.items() if v}
+    finally:
+        ops_dgcnn_train.BWD_KERNELS = False
+    d_bwd = _rel(b_grads, k_grads)
+    print(f"DeepGMR train step with BWD_KERNELS (launched {b_launches}) "
+          f"against the plain backward: loss {b_loss!r} / {k_loss!r}; "
+          f"gradients relative {d_bwd:.3g} (limit {LIM_DGMR_BWD_GRAD})")
+    assert b_launches == {"graph_stage1": 1, "knn": 1, "bwd_reduce": 1,
+                          "bwd_stage": 3, "bwd_edge": 1}, b_launches
+    assert b_loss == k_loss and d_bwd <= LIM_DGMR_BWD_GRAD
+    return {"step_ms": step_ms, "peak_mib": peak, "losses": losses,
+            "launches": launches, "profiled": prof, "loss_rel_plain": d_loss,
+            "grad_rel_plain": d_grad, "bwd_kernels_launches": b_launches,
+            "grad_rel_bwd_kernels": d_bwd}
+
+
+def run_deepgmr_cli(requests):
+    """`python -m ogmm_tpu_torch.train --model DeepGMR --dataset modelnetdv`
+    on the card: three steps at B=24, an eval batch with ICP, a checkpoint
+    under checkpoints/DeepGMR/, `--export_weights`; the export served back
+    through Registrar.from_weights, against the trained model's weights."""
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "deepgmr.npz")
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["--model", "DeepGMR", "--dataset", "modelnetdv",
+                            "--root", DV_ROOT, "--batch_size", str(B_DV),
+                            "--test_batch_size", str(B_DV), "--epochs", "1",
+                            "--steps_per_epoch", "3", "--model_path", tmp,
+                            "--export_weights", npz])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in dispatch.launch_counts.items() if v}
+        saved = os.path.exists(os.path.join(tmp, "checkpoints", "DeepGMR",
+                                            "models", "optim_model.pt"))
+        served = Registrar.from_weights(npz, device=DEV)
+    rec = trainer.history[-1]
+    print(f"DeepGMR CLI: {trainer.state.step} steps and an eval batch with ICP "
+          f"in {secs:.1f} s (data pipeline included), train loss "
+          f"{rec['train']['loss']:.5f}, eval loss {rec['val']['loss']:.5f}, "
+          f"checkpoint written {saved}; launches {launches}")
+    assert trainer.state.step == 3 and saved
+    assert trainer.state.device.type == DEV.type
+    assert np.isfinite(rec["train"]["loss"]) and np.isfinite(rec["val"]["loss"])
+    # three steps (graph_stage1, knn, nn1 x3 each) and an eval batch
+    # (dgcnn_eval, knn, 30 ICP trips, the metrics' three 1-NN)
+    assert launches == {"graph_stage1": 3, "knn": 4, "dgcnn_eval": 1,
+                        "nn1": 3 * 3 + 30 + 3}, launches
+    assert served.cfg.model_name == "DeepGMR"
+    trained = Registrar(trainer.cfg, state_dict=trainer.state.model.state_dict(),
+                        device=DEV)
+    src, tgt = requests[0]
+    got, want = served(src, tgt, refine=True), trained(src, tgt, refine=True)
+    diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+    print(f"DeepGMR export served back through Registrar.from_weights: refined "
+          f"poses against the trained model's, max difference {diff:.3g}")
+    assert all(torch.isfinite(a).all() for a in got) and diff <= 1e-6
+    return {"seconds": secs, "train_loss": rec["train"]["loss"],
+            "eval_loss": rec["val"]["loss"], "launches": launches}
+
+
+def deepgmr(_):
+    """The JAX package's second model on the card at its full width,
+    `configs.mnet(model_name="DeepGMR")` (emb 512, K=128, k=20, float32
+    body: its DGCNN takes no compute type), on the modelnetdv geometry (B=24
+    pairs of 768 against 1536 points, the synthetic source): serving,
+    training and the CLI."""
+    t_phase = time.perf_counter()
+    from ogmm_tpu_torch.data import data_loader
+    # the default backward (earlier phases turn the switch on)
+    bwd_kernels = ops_dgcnn_train.BWD_KERNELS
+    ops_dgcnn_train.BWD_KERNELS = False
+    cfg = _dv_cfg()
+    m = cfg.model
+    assert (m.emb_dims, m.n_clusters, m.gnn_k, m.overlap_radius,
+            m.icp_iters) == (EMB, K, KNN, 0.035, 30)
+    train_loader, test_loader = data_loader(cfg)
+    requests = []
+    for b in test_loader:
+        requests.append((b["src_xyz"], b["tgt_xyz"]))
+        if len(requests) == 3:
+            break
+    batches = []
+    for b in train_loader:
+        batches.append(b)
+        if len(batches) == 3:
+            break
+    assert requests[0][0].shape == (B_DV, N_DV, 3)
+    assert requests[0][1].shape == (B_DV, M_DV, 3)
+    kernels = check_deepgmr_kernels(np.random.RandomState(19))
+    serving = serve_deepgmr(cfg, requests)
+    training = train_deepgmr(cfg, batches)
+    # the path's launches: one request of each serving variant and one
+    # train step, each counted from 0 right before it ran
+    launches = {name: 0 for name in dispatch.KERNELS}
+    for counts in [serving[key]["launches"] for key in
+                   ("forward", "icp", "forward_loops", "icp_loops")] + [
+                       training["launches"]]:
+        for name, v in counts.items():
+            launches[name] += v
+    cli_res = run_deepgmr_cli(requests)
+    ops_dgcnn_train.BWD_KERNELS = bwd_kernels
+    secs = time.perf_counter() - t_phase
+    print(f"deepgmr phase: {secs:.1f} s")
+    return launches, {"kernels": kernels, "serve": serving, "train": training,
+                      "cli": cli_res, "phase_s": secs}
+
+
 PHASES = ("kernels", "serve", "train", "cli", "icp", "serve_large",
           "train_large", "train_unfused", "c1", "indoor_kernels", "indoor",
-          "loop_kernels", "serve_loops", "serve_f32", "train_indoor")
+          "loop_kernels", "serve_loops", "serve_f32", "train_indoor",
+          "deepgmr")
 
 
 def main():
@@ -2460,7 +2884,8 @@ def main():
                       ("indoor", lambda _: serve_indoor(np.random.RandomState(8))),
                       ("serve_loops", lambda _: serve_loops(np.random.RandomState(10))),
                       ("serve_f32", lambda _: serve_f32(np.random.RandomState(16))),
-                      ("train_indoor", lambda _: train_indoor(np.random.RandomState(17)))):
+                      ("train_indoor", lambda _: train_indoor(np.random.RandomState(17))),
+                      ("deepgmr", deepgmr)):
         if not run(phase):
             continue
         res = fn(rs)
@@ -2487,6 +2912,8 @@ def main():
             k["launches"] = paths[main_path.get(name, "train")][name]
             for phase, launches in paths.items():
                 k[f"launches_{phase}"] = launches[name]
+            if name in out.get("deepgmr", {}).get("kernels", {}):
+                k["at_deepgmr"] = out["deepgmr"]["kernels"][name]
         print(json.dumps({"kernels": kernels}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

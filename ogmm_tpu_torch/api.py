@@ -2,13 +2,15 @@
 
     reg = Registrar(cfg)                         # seeded random weights
     reg = Registrar.from_weights("weights.npz")  # weights exported by the
-                                                 # JAX package
+                                                 # JAX package or the CLI
     R, t, src_overlap, tgt_overlap = reg(src, tgt)
 
-Runs on the CUDA device unless `device="cpu"` is passed; without a CUDA
-device and without that request it raises. `loop_kernels=True` runs FPS,
-the ICP and the attention MLPs through their whole-loop and fused kernels
-(`nn.gmmreg.GMMReg`).
+`cfg.model_name` picks the model: GMMReg (`nn.gmmreg`) or DeepGMR
+(`nn.deepgmr`, whose overlap outputs are ones). Runs on the CUDA device
+unless `device="cpu"` is passed; without a CUDA device and without that
+request it raises. `loop_kernels=True` runs FPS, the ICP and the attention
+MLPs (GMMReg), or the ICP (DeepGMR), through their whole-loop and fused
+kernels.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from ogmm_tpu_torch.configs import Config, mnet
 from ogmm_tpu_torch.core import se3
+from ogmm_tpu_torch.nn.deepgmr import DeepGMR
 from ogmm_tpu_torch.nn.dgcnn import DGCNN
 from ogmm_tpu_torch.nn.gmmreg import GMMReg
 from ogmm_tpu_torch.ops.dispatch import resolve_device
@@ -42,8 +45,17 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
                     normal_(w, w.shape[0])
 
 
+def build_model(cfg: Config, loop_kernels: bool = False) -> torch.nn.Module:
+    """The model `cfg.model_name` names, with fresh weights, in eval mode."""
+    if cfg.model_name == "GMMReg":
+        return GMMReg(cfg.model, loop_kernels)
+    if cfg.model_name == "DeepGMR":
+        return DeepGMR(cfg.model, loop_kernels)
+    raise ValueError(f"unknown model {cfg.model_name!r}")
+
+
 class Registrar:
-    """Registration frontend around one GMMReg in eval mode."""
+    """Registration frontend around one GMMReg or DeepGMR in eval mode."""
 
     def __init__(self, cfg: Optional[Config] = None,
                  state_dict: Optional[dict] = None, seed: int = 0,
@@ -51,9 +63,7 @@ class Registrar:
                  loop_kernels: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else mnet()
-        if self.cfg.model_name != "GMMReg":
-            raise NotImplementedError("only GMMReg is ported")
-        self.model = GMMReg(self.cfg.model, loop_kernels)
+        self.model = build_model(self.cfg, loop_kernels)
         if state_dict is None:
             init_weights(self.model, torch.Generator().manual_seed(seed))
         else:
@@ -64,10 +74,12 @@ class Registrar:
     def from_weights(cls, path: str, cfg: Optional[Config] = None,
                      device: str | torch.device | None = None,
                      loop_kernels: bool = False) -> "Registrar":
-        """Restore from a weights-only .npz exported by the JAX package
-        (params + batch_stats + embedded config)."""
+        """Restore from a weights-only .npz exported by the JAX package or
+        by `train.export_weights` (params + batch_stats + embedded config;
+        `cfg` replaces the embedded one)."""
         from ogmm_tpu_torch.weights import load_weights
-        state, saved = load_weights(path)
+        state, saved = load_weights(
+            path, None if cfg is None else cfg.model_name)
         if cfg is None:
             if saved is None:
                 raise ValueError(
@@ -83,11 +95,16 @@ class Registrar:
 
     @torch.no_grad()
     def __call__(self, src, tgt, refine: bool = True):
-        """Register src onto tgt: (B, N, 3) arrays or tensors ->
-        (rot (B,3,3), trans (B,3), src_overlap (B,N), tgt_overlap (B,N))
-        on this Registrar's device. `refine=True` appends the batched ICP."""
-        rot, trans, src_o, tgt_o, _ = self.model(
-            self._as_input(src), self._as_input(tgt), refine=refine)
+        """Register src onto tgt: (B, N, 3) and (B, M, 3) arrays or tensors
+        -> (rot (B,3,3), trans (B,3), src_overlap (B,N), tgt_overlap (B,M))
+        on this Registrar's device. `refine=True` appends the batched ICP.
+        DeepGMR predicts no overlap: its overlaps are ones."""
+        src, tgt = self._as_input(src), self._as_input(tgt)
+        out = self.model(src, tgt, refine=refine)
+        if isinstance(self.model, DeepGMR):
+            ones = torch.ones(src.shape[:2], device=self.device)
+            return (*out, ones, torch.ones(tgt.shape[:2], device=self.device))
+        rot, trans, src_o, tgt_o, _ = out
         return rot, trans, src_o, tgt_o
 
     def transform(self, rot, trans, points):

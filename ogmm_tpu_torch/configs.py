@@ -93,11 +93,14 @@ class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
-    model_name: str = "GMMReg"
+    model_name: str = "GMMReg"  # GMMReg | DeepGMR
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
+
+# the models a config may name (`model_name`): the JAX package's two
+MODELS = ("GMMReg", "DeepGMR")
 
 # options of the JAX package's ModelConfig that this package does not
 # implement, with the only value it accepts for each
@@ -122,9 +125,9 @@ def config_from_dict(d: dict) -> Config:
     weights. A model option that is not implemented here raises; options of
     the training and dataset sections that this package does not read (the
     TPU mesh, the indoor datasets' options) are left out."""
-    if d.get("model_name", "GMMReg") != "GMMReg":
-        raise NotImplementedError(
-            f"model {d['model_name']!r} is not ported; only GMMReg is")
+    model_name = d.get("model_name", "GMMReg")
+    if model_name not in MODELS:
+        raise ValueError(f"unknown model {model_name!r}")
     known = {f.name for f in dataclasses.fields(ModelConfig)}
     model = {}
     for key, value in d.get("model", {}).items():
@@ -138,7 +141,8 @@ def config_from_dict(d: dict) -> Config:
             raise ValueError(f"unknown model option {key!r}")
     return Config(model=ModelConfig(**model),
                   data=DataConfig(**_known(DataConfig, d.get("data", {}))),
-                  train=TrainConfig(**_known(TrainConfig, d.get("train", {}))))
+                  train=TrainConfig(**_known(TrainConfig, d.get("train", {}))),
+                  model_name=model_name)
 
 
 def config_to_dict(cfg: Config) -> dict:

@@ -50,6 +50,13 @@ def _horn_quaternion(cov: torch.Tensor) -> torch.Tensor:
     return _quat_rotation(vecs[..., :, -1])
 
 
+def horn_rotation(cov: torch.Tensor) -> torch.Tensor:
+    """The optimal R in SO(3) maximising tr(R cov^T) for a batched
+    (..., 3, 3) cross-covariance: Horn's quaternion eigen-solve, always a
+    proper rotation (the JAX package's public alias)."""
+    return _horn_quaternion(cov)
+
+
 def _horn_quaternion_pi(cov: torch.Tensor, iters: int = 30) -> torch.Tensor:
     """The same by power iteration on K shifted by a Gershgorin bound."""
     K = _horn_matrix(cov)

@@ -1,13 +1,15 @@
 """Host-side numpy helpers of the data pipeline: SE(3) on arrays, random
-directions and poses, the pose quaternion of a sample, the ModelNet40 HDF5
-reader, and for the indoor datasets the half-space crop of a pair, FPS of
-one cloud, ground-truth overlap labels and 1-NN (the last three through the
-host library, `ogmm_tpu_torch/native`).
+directions and poses, jitter, the pose quaternion of a sample, the
+ModelNet40 HDF5 reader, and for the ModelNet variants and the indoor
+datasets the half-space crop of a pair, FPS of one cloud, ground-truth
+overlap labels and 1-NN (the last three through the host library,
+`ogmm_tpu_torch/native`), and the rotation-invariant RRI features.
 
 A copy of the parts of the JAX package's `ogmm_tpu/data/datautils.py` that
-the `modelnet`/`synthetic`, `7scene` and `icl_nuim` routes use, with the
-same global-`np.random` (or `rng`) draws, so that both packages give the
-same samples from the same seed.
+the `modelnet`/`synthetic`, `modelnetcp`/`modelnetdv` (and `ModelNetGMR`),
+`7scene` and `icl_nuim` routes use, with the same global-`np.random` (or
+`rng`) draws, so that both packages give the same samples from the same
+seed.
 """
 from __future__ import annotations
 
@@ -96,6 +98,13 @@ def random_pose(max_angle: float, max_trans: float, rng=None) -> np.ndarray:
     return np.concatenate([np.concatenate([R, t], 1), [[0, 0, 0, 1]]], 0)
 
 
+def jitter_pcd(pcd: np.ndarray, sigma=0.01, clip=0.05, rng=None) -> np.ndarray:
+    """Gaussian jitter of std sigma, clipped at +-clip, from `rng` or the
+    global np.random."""
+    r = rng if rng is not None else np.random
+    return pcd + np.clip(sigma * r.randn(*pcd.shape), -clip, clip)
+
+
 def farthest_point_sample(point: np.ndarray, npoint: int, is_idx=False,
                           rng=None):
     """Sequential FPS of one (N, C) cloud from a random start (one draw of
@@ -172,3 +181,39 @@ def load_modelnet_h5(partition: str, root: str):
     if not all_data:
         raise FileNotFoundError(f"no ModelNet40 h5 files under {pattern}")
     return np.concatenate(all_data, 0), np.concatenate(all_label, 0)
+
+
+def knn_idx(pts: np.ndarray, k: int) -> np.ndarray:
+    """Each point's k nearest neighbours, itself left out, by scipy's
+    cKDTree: (N, 3) -> (N, k)."""
+    from scipy.spatial import cKDTree
+    _, nbr = cKDTree(pts).query(pts, k=k + 1)
+    return nbr[:, 1:]                 # column 0 is the query point itself
+
+
+def get_rri(pts: np.ndarray, k: int) -> np.ndarray:
+    """Rotation-invariant relative-position features, (N, 3) -> (N, 4k):
+    for each point p and each of its neighbours q_j, [|p|, |q_j|, theta_j,
+    phi_j] with theta_j the angle between p and q_j and phi_j the azimuthal
+    gap around the p axis from q_j to its nearest other neighbour (the
+    transverse components t_j = q_j - cos(theta_j) p, with the full p, as
+    in the original)."""
+    nbrs = pts[knn_idx(pts, k)]                          # (N, k, 3)
+    r_p = np.linalg.norm(pts, axis=-1)                   # (N,)
+    r_q = np.linalg.norm(nbrs, axis=-1)                  # (N, k)
+    p_hat = pts / r_p[:, None]
+    q_hat = nbrs / r_q[..., None]
+    cos_theta = np.clip(np.einsum('nkc,nc->nk', q_hat, p_hat), -1.0, 1.0)
+    theta = np.arccos(cos_theta)
+    # psi_ab = atan2(p_hat . (t_b x t_a), t_b . t_a), wrapped to [0, 2 pi)
+    t = nbrs - cos_theta[..., None] * pts[:, None, :]    # (N, k, 3)
+    sin_psi = np.einsum('nabc,nc->nab',
+                        np.cross(t[:, None, :, :], t[:, :, None, :]), p_hat)
+    cos_psi = np.einsum('nac,nbc->nab', t, t)
+    psi = np.arctan2(sin_psi, cos_psi) % (2.0 * np.pi)
+    # psi[a, a] == 0, so the gap to the nearest other neighbour is each
+    # row's second-smallest entry
+    phi = np.partition(psi, 1, axis=-1)[:, :, 1]
+    feats = np.stack([np.broadcast_to(r_p[:, None], r_q.shape),
+                      r_q, theta, phi], axis=-1)         # (N, k, 4)
+    return feats.reshape(len(pts), 4 * k)

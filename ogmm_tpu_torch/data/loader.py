@@ -5,8 +5,7 @@ keeps `PREFETCH` collated batches (dict of numpy arrays) ready; the train
 step moves them to the card. The test split seeds the global `np.random`
 per item (SetDeterministic), so its items are fetched one at a time under a
 lock and thread interleaving cannot change the draws; the training split
-runs in parallel. A copy of the JAX package's `ogmm_tpu/data/loader.py` for
-the `modelnet`, `synthetic`, `7scene` and `icl_nuim` datasets.
+runs in parallel. A copy of the JAX package's `ogmm_tpu/data/loader.py`.
 """
 from __future__ import annotations
 
@@ -15,11 +14,6 @@ import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
-
-# datasets of the JAX package that later slices of the port bring over
-LATER = {"modelnetcp": "ROADMAP.md, queue A item 6 (ModelNet variants)",
-         "modelnetdv": "ROADMAP.md, queue A item 6 (DeepGMR and its data)"}
-
 
 # collated batches a loader keeps ready
 PREFETCH = 2
@@ -114,6 +108,27 @@ class PrefetchLoader:
                     break
 
 
+class ListAsDict:
+    """A dataset of [src, tgt, tsfm] items (`ModelNetDV`) in the dict
+    layout the trainer reads: overlaps of ones, the (3, 4) transform."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        src, tgt, tsfm = self.dataset[i][:3]
+        return {
+            'src_xyz': src.astype(np.float32),
+            'tgt_xyz': tgt.astype(np.float32),
+            'src_overlap': np.ones(len(src), np.float32),
+            'tgt_overlap': np.ones(len(tgt), np.float32),
+            'transform_gt': np.asarray(tsfm, np.float32)[:3, :4],
+        }
+
+
 def _check_overlap_thresh(dataset_cls, t):
     """With `device_overlap` the step remakes the labels at
     TrainConfig.overlap_thresh: refuse a radius other than the dataset's
@@ -128,15 +143,13 @@ def _check_overlap_thresh(dataset_cls, t):
 
 def data_loader(cfg):
     """(train_loader, test_loader) of cfg.data.dataset: `modelnet` (h5 files
-    under cfg.data.root), `synthetic` (cfg.data.root 'synthetic[:S]'),
-    `7scene` (.ply fragments under <root>/7scene) or `icl_nuim` (h5 files
-    under <root>/icl_nuim). With `device_overlap` the indoor datasets emit
-    no host labels: the step makes them."""
+    under cfg.data.root), `synthetic` (cfg.data.root 'synthetic[:S]'), the
+    variants `modelnetcp` and `modelnetdv` (either source), `7scene` (.ply
+    fragments under <root>/7scene) or `icl_nuim` (h5 files under
+    <root>/icl_nuim). With `device_overlap` the indoor datasets emit no
+    host labels: the step makes them."""
     d, t = cfg.data, cfg.train
     name = d.dataset
-    if name in LATER:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet; it comes with {LATER[name]}")
     if name in ("modelnet", "synthetic"):
         from ogmm_tpu_torch.data.modelnet import ModelNetHdf, get_transforms
         root = d.root if d.root.startswith("synthetic") else (
@@ -149,6 +162,19 @@ def data_loader(cfg):
         test_data = ModelNetHdf(root, unseen=d.unseen, transform=test_tf,
                                 partition='test')
         serialize_test = True          # the test chain seeds np.random
+    elif name == "modelnetcp":
+        from ogmm_tpu_torch.data.modelnet import ModelNetCP
+        train_data, test_data = (
+            ModelNetCP(d.root, d.n_points, d.rot_mag, d.trans_mag, d.unseen,
+                       list(d.partial)[:1], d.noise_type, partition=part)
+            for part in ("train", "test"))
+        serialize_test = True          # the test items seed np.random
+    elif name == "modelnetdv":
+        from ogmm_tpu_torch.data.modelnet import ModelNetDV
+        train_data, test_data = (
+            ListAsDict(ModelNetDV(d.root, partition=part, unseen=d.unseen))
+            for part in ("train", "test"))
+        serialize_test = True
     elif name in ("7scene", "icl_nuim"):
         from ogmm_tpu_torch.data.realdata import IclNuim, Scene7
         cls = Scene7 if name == "7scene" else IclNuim

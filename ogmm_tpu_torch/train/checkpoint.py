@@ -54,8 +54,8 @@ def restore_checkpoint(path: str, state: TrainState) -> Optional[Config]:
 def export_weights(model: torch.nn.Module, path: str,
                    cfg: Optional[Config] = None) -> None:
     """Write the model's weights as the JAX package's `.npz` (the inverse
-    of `weights.convert_variables`)."""
-    arrays = flat_variables(model.state_dict())
+    of `weights.convert_variables`); the model's class names its map."""
+    arrays = flat_variables(model.state_dict(), type(model).__name__)
     if cfg is not None:
         arrays["__config__"] = np.frombuffer(
             json.dumps(config_to_dict(cfg)).encode(), np.uint8)

@@ -3,6 +3,8 @@
     python -m ogmm_tpu_torch.train --dataset synthetic --epochs 2 --batch_size 8
     python -m ogmm_tpu_torch.train --root /data --dataset modelnet
     python -m ogmm_tpu_torch.train --preset indoor --dataset 7scene --root /data
+    python -m ogmm_tpu_torch.train --model DeepGMR --dataset modelnetdv \
+        --root synthetic:64
 
 The flags are those of the JAX package's `train.py` for what this package
 implements, plus `--device` (the card by default; `--device cpu` runs the
@@ -25,7 +27,6 @@ from ogmm_tpu_torch import configs
 
 # options of the JAX package's CLI that later slices of the port bring over
 NOT_PORTED = {
-    "model DeepGMR": "ROADMAP.md, queue A item 6 (nn/deepgmr.py)",
     "multihost": "ROADMAP.md, queue A item 7 (torch.distributed)",
     "profile_dir": "ROADMAP.md, 'Next' (a torch.profiler window in the "
                    "trainer; scripts/torch_port_profile.py profiles a step)",
@@ -38,7 +39,8 @@ def parse_args(argv=None):
                    choices=["mnet", "indoor"])
     p.add_argument("--root", type=str, default="synthetic")
     p.add_argument("--dataset", type=str, default=None,
-                   help="modelnet|synthetic|7scene|icl_nuim")
+                   help="modelnet|modelnetcp|modelnetdv|synthetic|7scene|"
+                        "icl_nuim")
     p.add_argument("--model", type=str, default=None,
                    choices=["GMMReg", "DeepGMR"])
     p.add_argument("--n_points", type=int, default=None)
@@ -81,8 +83,7 @@ def parse_args(argv=None):
 
 
 def _refuse_not_ported(args) -> None:
-    asked = {"model DeepGMR": args.model == "DeepGMR",
-             "multihost": args.multihost,
+    asked = {"multihost": args.multihost,
              "profile_dir": args.profile_dir is not None}
     for flag, on in asked.items():
         if on:
@@ -93,6 +94,8 @@ def _refuse_not_ported(args) -> None:
 def build_config(args) -> configs.Config:
     """The ModelNet or indoor preset with the flags' overrides."""
     cfg = configs.indoor() if args.preset == "indoor" else configs.mnet()
+    if args.model is not None:
+        cfg = cfg.replace(model_name=args.model)
     model_kw, data_kw, train_kw = {}, {}, {}
     for k in ("emb_dims", "n_clusters", "km_clusters", "num_heads", "gnn_k",
               "dtype"):

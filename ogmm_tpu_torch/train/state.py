@@ -15,9 +15,8 @@ from typing import Optional
 
 import torch
 
-from ogmm_tpu_torch.api import init_weights
+from ogmm_tpu_torch.api import build_model, init_weights
 from ogmm_tpu_torch.configs import Config
-from ogmm_tpu_torch.nn.gmmreg import GMMReg
 from ogmm_tpu_torch.ops.dispatch import resolve_device
 
 
@@ -25,7 +24,7 @@ from ogmm_tpu_torch.ops.dispatch import resolve_device
 class TrainState:
     """Everything a training run carries from step to step; the steps
     update it in place."""
-    model: GMMReg
+    model: torch.nn.Module             # GMMReg or DeepGMR
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     # random starts of the anchor FPS; None starts every cloud at index 0
@@ -51,14 +50,13 @@ def create_train_state(cfg: Config, steps_per_epoch: int,
                        seed: Optional[int] = None,
                        device: str | torch.device | None = None,
                        state_dict: Optional[dict] = None) -> TrainState:
-    """A model with seeded weights (or `state_dict`) in training mode on
-    the card (or on `device`), its optimizer and schedule, and a generator
-    for the anchor starts, all from `seed` (cfg.train.seed by default)."""
-    if cfg.model_name != "GMMReg":
-        raise NotImplementedError("only GMMReg is ported")
+    """The model `cfg.model_name` names with seeded weights (or
+    `state_dict`) in training mode on the card (or on `device`), its
+    optimizer and schedule, and a generator for the anchor starts (GMMReg),
+    all from `seed` (cfg.train.seed by default)."""
     device = resolve_device(device)
     seed = cfg.train.seed if seed is None else seed
-    model = GMMReg(cfg.model)
+    model = build_model(cfg)
     if state_dict is None:
         init_weights(model, torch.Generator().manual_seed(seed))
     else:

@@ -1,12 +1,14 @@
 """Train and eval steps and the epoch loop.
 
-A train step is the per-cloud training forward, the composite loss
-(`losses.composite_loss`), its gradients, one Adam update and, unless it is
-the light step, the metric suite of the batch (`core.metrics.dcp_metrics`).
-The eval step is the stacked eval forward with ICP, the same loss and the
-metrics. Batches are dictionaries in the JAX package's loader format
-(`BATCH_KEYS`, numpy arrays or tensors); the steps move them to the model's
-device. Metrics stay on the device until an epoch ends.
+A train step is the per-cloud training forward, the loss, its gradients,
+one Adam update and, unless it is the light step, the metric suite of the
+batch (`core.metrics.dcp_metrics`). GMMReg trains on the composite loss
+(`losses.composite_loss`); DeepGMR, whose forward gives only a pose, on the
+pose loss alone (`losses.dcp_loss`, clu 0), as in the JAX package. The eval
+step is the eval forward with ICP, the same loss and the metrics. Batches
+are dictionaries in the JAX package's loader format (`BATCH_KEYS`, numpy
+arrays or tensors); the steps move them to the model's device. Metrics stay
+on the device until an epoch ends.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 
 from ogmm_tpu_torch.configs import Config
 from ogmm_tpu_torch.core.metrics import dcp_metrics, summarize_metrics
-from ogmm_tpu_torch.losses import composite_loss, overlap_labels_device
+from ogmm_tpu_torch.losses import (composite_loss, dcp_loss,
+                                   overlap_labels_device)
 from ogmm_tpu_torch.train.state import TrainState
 
 logger = logging.getLogger("ogmm_tpu_torch")
@@ -52,6 +55,9 @@ def _labels(cfg: Config, b: Dict[str, torch.Tensor]):
 
 
 def _loss(cfg: Config, out, src, tgt, rot_gt, trans_gt, so, to):
+    if cfg.model_name == "DeepGMR":
+        rot, trans = out
+        return dcp_loss(rot, rot_gt, trans, trans_gt)
     t = cfg.train
     rot, trans, src_o, tgt_o, clu = out
     return composite_loss(
@@ -61,16 +67,21 @@ def _loss(cfg: Config, out, src, tgt, rot_gt, trans_gt, so, to):
 
 
 def train_loss(state: TrainState, cfg: Config, batch):
-    """The training forward and the composite loss of one batch, before any
+    """The training forward and the loss of one batch, before any
     gradient: (loss, (rot, trans, clu, inputs)) with inputs the device
-    tensors (src, tgt, rot_gt, trans_gt, src_overlap, tgt_overlap)."""
+    tensors (src, tgt, rot_gt, trans_gt, src_overlap, tgt_overlap); clu is
+    0 for DeepGMR."""
     model = state.model.train()
     inputs = _labels(cfg, _device_batch(batch, state.device))
     src, tgt = inputs[:2]
-    out = model(src, tgt, generator=state.generator)
+    if cfg.model_name == "DeepGMR":
+        out = model(src, tgt)
+        clu = torch.zeros((), device=src.device)
+    else:
+        out = model(src, tgt, generator=state.generator)
+        clu = out[4]
     loss = _loss(cfg, out, *inputs)
-    rot, trans, _, _, clu = out
-    return loss, (rot, trans, clu, inputs)
+    return loss, (out[0], out[1], clu, inputs)
 
 
 def make_train_step(cfg: Config, with_metrics: bool = True):
@@ -98,7 +109,7 @@ def make_train_step(cfg: Config, with_metrics: bool = True):
 
 def make_eval_step(cfg: Config, is_test: bool = True):
     """Returns step(state, batch) -> metrics: the eval forward (with ICP when
-    `is_test`), the composite loss and the metric suite."""
+    `is_test`), the model's loss and the metric suite."""
 
     @torch.no_grad()
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:

@@ -10,6 +10,8 @@ PyTorch/CUDA port goes.
                                           [--n_points N]
     python3 scripts/torch_port_profile.py --preset indoor --train
                                           [--dtype float32] [--batch B] [--fit]
+    python3 scripts/torch_port_profile.py --model DeepGMR [--train]
+                                          [--loop_kernels] [--n_points N]
     python3 scripts/torch_port_profile.py --probe knn_stream [--parent DIR]
     python3 scripts/torch_port_profile.py --probe icp
     python3 scripts/torch_port_profile.py --probe bwd_edge
@@ -45,8 +47,14 @@ run as one kernel launch each. `--fused_edges` sets dgcnn_fused_edges=True
 pairs (`--batch`, default 2) of N=35,000, the streamed overlap head trained
 through its chunked recompute, with its peak device memory and the device
 time of the head's backward; `--fit` instead takes one step at B = 1..8
-until one does not fit the card. One JSON line at the end
-carries the same numbers with the card's name and power limit.
+until one does not fit the card. With --model DeepGMR:
+`Registrar(configs.mnet(model_name="DeepGMR"))` (its float32 body; --dtype
+does not apply) at the modelnetdv geometry, B=24 pairs of N=768 (or
+--n_points) source points against 2N target points (a rotated copy and as
+many other points), the stages being the backbone and the clustering head
+on each cloud, the moments, the alignment and ICP; with --train its train
+step. One JSON line at the end carries the same numbers with the card's
+name and power limit.
 
 `--probe` times variants of one kernel beside it, built from its source with
 a line changed (not shipped, never on a path), to say where its time goes:
@@ -189,7 +197,8 @@ def indoor_pair(rs, n):
 
 
 def stage_times(reg, src, tgt):
-    """CUDA-event time of the model's stages, by wrapping its submodules."""
+    """CUDA-event time of the model's stages, by wrapping its submodules
+    and the functions its module looks up at call time."""
     model = reg.model
     spans = {}
 
@@ -203,16 +212,21 @@ def stage_times(reg, src, tgt):
             return out
         return wrapper
 
-    import ogmm_tpu_torch.nn.gmmreg as g
-    saved = {k: getattr(g, k) for k in ("fps_combined", "wkeans_plus", "gmm_svd",
-                                        "icp_point_to_point", "knn",
-                                        "knn_self_vspace",
-                                        "wproject_stream_lse")}
+    if type(model).__name__ == "DeepGMR":
+        import ogmm_tpu_torch.nn.deepgmr as g
+        fns = ("gmm_params", "gmm_register", "icp_point_to_point")
+        subs = ("backbone", "cluster")
+    else:
+        import ogmm_tpu_torch.nn.gmmreg as g
+        fns = ("fps_combined", "wkeans_plus", "gmm_svd", "icp_point_to_point",
+               "knn", "knn_self_vspace", "wproject_stream_lse")
+        subs = ("dgcnn", "pos_enc", "sattn1", "cattn", "sattn2", "conv1",
+                "conv2", "proj", "overlap")
+    saved = {k: getattr(g, k) for k in fns}
     for k, fn in saved.items():
         setattr(g, k, timed(k, fn))
     fwd = {}
-    for name in ("dgcnn", "pos_enc", "sattn1", "cattn", "sattn2", "conv1",
-                 "conv2", "proj", "overlap"):
+    for name in subs:
         mod = getattr(model, name)
         fwd[name] = mod.forward
         mod.forward = timed(name, mod.forward)
@@ -1300,6 +1314,9 @@ def main():
                     help="points a cloud (above 1024: the shared kNN graph; "
                          "default 717, 35000 with --preset indoor)")
     ap.add_argument("--preset", choices=["mnet", "indoor"], default="mnet")
+    ap.add_argument("--model", choices=["GMMReg", "DeepGMR"], default="GMMReg",
+                    help="DeepGMR: the modelnetdv geometry, N against 2N "
+                         "points (default N=768), float32 body")
     ap.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16",
                     help="the network body's type (float32 is configs.mnet()'s "
                          "default; bfloat16 keeps earlier profiles comparable)")
@@ -1329,9 +1346,13 @@ def main():
         print(json.dumps(result))
         return
     indoor = args.preset == "indoor"
-    N = args.n_points or (35000 if indoor else 717)
+    dgmr = args.model == "DeepGMR"
+    N = args.n_points or (35000 if indoor else 768 if dgmr else 717)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
+    if dgmr and (indoor or args.bwd_kernels or args.fused_edges):
+        sys.exit("--model DeepGMR profiles the ModelNet geometry; "
+                 "--preset indoor, --bwd_kernels and --fused_edges do not apply")
     if args.loop_kernels and args.train:
         sys.exit("--loop_kernels switches the serving path; profile it without "
                  "--train")
@@ -1344,6 +1365,11 @@ def main():
         cfg = configs.indoor()
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=args.dtype))
         src, tgt = indoor_pair(rs, N)
+    elif dgmr:
+        cfg = configs.mnet(model_name="DeepGMR")
+        src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
+        tgt = np.concatenate([src + 0.05, rs.randn(B, N, 3) * 0.3], axis=1)
+        tgt = tgt[:, rs.permutation(2 * N)].astype(np.float32)
     else:
         cfg = configs.mnet(model=configs.ModelConfig(dtype=args.dtype))
         src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
@@ -1351,22 +1377,25 @@ def main():
     if args.fused_edges:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     dgcnn_fused_edges=True))
-    result = {"shape": {"B": src.shape[0], "N": N}, "preset": args.preset,
-              "dtype": args.dtype,
+    result = {"shape": {"B": src.shape[0], "N": N, "M": tgt.shape[1]},
+              "preset": args.preset, "model": args.model,
+              "dtype": "float32" if dgmr else args.dtype,
               "bwd_kernels": args.bwd_kernels, "loop_kernels": args.loop_kernels,
               "fused_edges": args.fused_edges}
     if args.train:
         from ogmm_tpu_torch.ops import dgcnn_train
         from ogmm_tpu_torch.train import create_train_state, make_train_step
         dgcnn_train.BWD_KERNELS = args.bwd_kernels
+        # DeepGMR's loss reads no overlap labels
         cfg = cfg.replace(train=dataclasses.replace(cfg.train,
-                                                    device_overlap=True))
+                                                    device_overlap=not dgmr))
         state = create_train_state(cfg, steps_per_epoch=100, seed=0)
         gt = np.tile(np.eye(3, 4, dtype=np.float32), (B, 1, 1))
         gt[:, :, 3] = 0.05
         ones = np.ones((B, N), np.float32)
-        batch = {"src_xyz": src, "tgt_xyz": src + 0.05, "src_overlap": ones,
-                 "tgt_overlap": ones, "transform_gt": gt}
+        batch = {"src_xyz": src, "tgt_xyz": tgt if dgmr else src + 0.05,
+                 "src_overlap": ones, "tgt_overlap": np.ones(tgt.shape[:2], np.float32),
+                 "transform_gt": gt}
         step = make_train_step(cfg)
         result["train_step"] = r = profile_call(lambda: step(state, batch))
         report("train_step", r)
@@ -1389,10 +1418,11 @@ def main():
             else "torch_port_profile_train_bwd_kernels" if args.bwd_kernels
             else "torch_port_profile_train")
     name += "_indoor" if indoor else ""
+    name += "_deepgmr" if dgmr else ""
     name += "_loop_kernels" if args.loop_kernels else ""
     name += "_fused_edges" if args.fused_edges else ""
-    name += "" if N == (35000 if indoor else 717) else f"_n{N}"
-    name += "_f32" if args.dtype == "float32" else ""
+    name += "" if N == (35000 if indoor else 768 if dgmr else 717) else f"_n{N}"
+    name += "_f32" if args.dtype == "float32" and not dgmr else ""
     name += ".json"
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)

@@ -126,12 +126,29 @@ def test_data_loader_synthetic_matches():
         _assert_same(a, b)
 
 
+@pytest.mark.parametrize("name,cls", [("modelnetcp", "ModelNetCP"),
+                                      ("modelnetdv", "ModelNetDV")])
+def test_data_loader_builds_the_variants(name, cls):
+    """The variants the loader used to refuse: their datasets (the list
+    items of ModelNetDV through ListAsDict), the test split serialised as
+    it seeds np.random per item (tests/test_torch_modelnet_variants.py holds
+    their items and batches against the JAX package's)."""
+    cfg = tconfigs.mnet()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset=name,
+                                               root="synthetic:24"))
+    train, test = tloader.data_loader(cfg)
+    for loader in (train, test):
+        ds = loader.dataset
+        if name == "modelnetdv":
+            assert isinstance(ds, tloader.ListAsDict)
+            ds = ds.dataset
+        assert type(ds).__name__ == cls
+    assert test.serialize_items and not train.serialize_items
+    assert (len(train.dataset), len(test.dataset)) == (20, 4)
+
+
 def test_data_loader_refuses_datasets_of_later_slices():
     cfg = tconfigs.mnet()
-    for name in ("modelnetcp", "modelnetdv"):
-        c = cfg.replace(data=dataclasses.replace(cfg.data, dataset=name))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tloader.data_loader(c)
     with pytest.raises(ValueError, match="unknown dataset"):
         tloader.data_loader(cfg.replace(
             data=dataclasses.replace(cfg.data, dataset="shapenet")))

@@ -1237,3 +1237,78 @@ def test_posenc_angles_at_batch_sizes_matches_plain(card, B, N, k):
     x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
     x[:, N // 2] = x[:, 1]
     _posenc_check(x, k)
+
+
+# ------------------------------------------------- DeepGMR (768 vs 1536)
+
+def _deepgmr_pair(rs, n_src, n_tgt):
+    """src, and tgt: a rotated, shifted copy of src and n_tgt - n_src other
+    points, permuted."""
+    from scipy.spatial.transform import Rotation
+    src = (rs.randn(2, n_src, 3) * 0.3).astype(np.float32)
+    rot = Rotation.from_rotvec(rs.uniform(-0.4, 0.4, (2, 3))).as_matrix()
+    tgt = np.concatenate([np.einsum("bij,bnj->bni", rot, src) + 0.1,
+                          rs.randn(2, n_tgt - n_src, 3) * 0.3], axis=1)
+    return src, tgt[:, rs.permutation(n_tgt)].astype(np.float32)
+
+
+@pytest.mark.parametrize("loop_kernels", [False, True])
+def test_deepgmr_forward_kernels_match_plain(card, loop_kernels):
+    """A small DeepGMR request with src inside the fused DGCNN's envelope
+    (N = 384: dgcnn_eval) and tgt above it (M = 1152: the knn kernel, the
+    unfused chain), refined through the 1-NN kernel's ICP trips or the
+    whole-loop ICP kernel, against the same weights through the plain
+    versions on the CPU: the moments to round-off of the 3xTF32 stage
+    chain, the poses to 1e-3."""
+    cfg = configs.mnet(model=configs.ModelConfig(emb_dims=64, n_clusters=16),
+                       model_name="DeepGMR")
+    src, tgt = _deepgmr_pair(np.random.RandomState(31), 384, 1152)
+    reg = Registrar(cfg, seed=1, loop_kernels=loop_kernels)
+    cpu = Registrar(cfg, seed=1, device="cpu", loop_kernels=loop_kernels)
+    for refine in (False, True):
+        dispatch.reset_launch_counts()
+        got = reg(src, tgt, refine=refine)
+        torch.cuda.synchronize()
+        want = {**NONE, "dgcnn_eval": 1, "knn": 1}
+        if refine:
+            want.update({"icp": 1} if loop_kernels else {"nn1": 30})
+        assert dispatch.launch_counts == want
+        ref = cpu(src, tgt, refine=refine)
+        assert got[2].shape == (2, 384) and got[3].shape == (2, 1152)
+        for a, b in zip(got[:2], ref[:2]):
+            assert (a.cpu() - b).abs().max().item() <= 1e-3
+    with torch.no_grad():
+        for x in (src, tgt):
+            g = reg.model.moments(torch.tensor(x, device=card))
+            r = cpu.model.moments(torch.tensor(x))
+            for a, b in zip(g, r):
+                assert (a.cpu() - b).abs().max().item() <= 1e-5
+
+
+def test_deepgmr_train_step_kernels_match_plain(card):
+    """One DeepGMR train step: src through graph_stage1 (N = 384), tgt
+    through the knn kernel and the unfused chain (M = 1152), the metrics'
+    1-NN both ways (N != M); the loss and gradients against the CPU's."""
+    cfg = configs.mnet(model=configs.ModelConfig(emb_dims=64, n_clusters=16),
+                       model_name="DeepGMR")
+    src, tgt = _deepgmr_pair(np.random.RandomState(32), 384, 1152)
+    gt = np.tile(np.eye(4, dtype=np.float32)[:3], (2, 1, 1))
+    batch = {"src_xyz": src, "tgt_xyz": tgt, "transform_gt": gt,
+             "src_overlap": np.ones((2, 384), np.float32),
+             "tgt_overlap": np.ones((2, 1152), np.float32)}
+    losses, grads = {}, {}
+    for dev in (card, torch.device("cpu")):
+        state = create_train_state(cfg, 10, seed=0, device=dev)
+        dispatch.reset_launch_counts()
+        loss, _ = train_loss(state, cfg, batch)
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert dispatch.launch_counts == {**NONE, "graph_stage1": 1,
+                                              "knn": 1}
+        losses[dev.type] = loss.item()
+        grads[dev.type] = torch.cat([p.grad.flatten().cpu() for p in
+                                     state.model.parameters()])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    rel = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
+    assert rel <= 1e-3

@@ -315,8 +315,15 @@ def test_presets_and_model_names():
     for f in dataclasses.fields(tconfigs.ModelConfig):
         assert getattr(tm, f.name) == getattr(jm, f.name), f.name
     assert (tm.n_clusters, tm.km_clusters, tm.overlap_radius) == (16, 16, 0.0375)
-    with pytest.raises(NotImplementedError):
-        tconfigs.config_from_dict({"model_name": "DeepGMR"})
+    # a DeepGMR config round-trips, both ways, with its model name
+    jd = jconfigs.config_to_dict(jconfigs.mnet().replace(model_name="DeepGMR"))
+    got = tconfigs.config_from_dict(jd)
+    assert got.model_name == "DeepGMR" and got.model == tconfigs.ModelConfig()
+    assert tconfigs.config_from_dict(tconfigs.config_to_dict(got)) == got
+    back = jconfigs.config_from_dict(tconfigs.config_to_dict(got))
+    assert back.model_name == "DeepGMR" and back.model == jconfigs.ModelConfig()
+    with pytest.raises(ValueError, match="unknown model"):
+        tconfigs.config_from_dict({"model_name": "PointNetLK"})
     with pytest.raises(ValueError, match="unknown model option"):
         tconfigs.config_from_dict({"model": {"no_such": 1}})
 

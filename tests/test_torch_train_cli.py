@@ -61,18 +61,37 @@ def test_cli_eval_only_restores_the_checkpoint(tmp_path):
     assert again.history == []
 
 
-@pytest.mark.parametrize("flags", [["--model", "DeepGMR"], ["--multihost"],
-                                   ["--profile_dir", "p"],
-                                   ["--dataset", "modelnetcp"]])
+@pytest.mark.parametrize("flags", [["--multihost"], ["--profile_dir", "p"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(tmp_path, *flags)
 
 
+@pytest.mark.parametrize("flags", [["--model", "DeepGMR"],
+                                   ["--model", "DeepGMR",
+                                    "--dataset", "modelnetcp"]])
+def test_cli_trains_deepgmr(tmp_path, flags):
+    """DeepGMR on the synthetic ModelNet crops (N = M) and on the crop pairs
+    of modelnetcp (src cropped: N != M), two steps and an eval batch; its
+    checkpoint goes under checkpoints/DeepGMR/."""
+    trainer = _run(tmp_path, *flags)
+    assert trainer.cfg.model_name == "DeepGMR" and trainer.state.step == 2
+    rec = trainer.history[-1]
+    assert np.isfinite(rec["train"]["loss"]) and np.isfinite(rec["val"]["loss"])
+    assert (tmp_path / "ckpt" / "checkpoints" / "DeepGMR" / "models"
+            / "optim_model.pt").exists()
+
+
+def test_cli_refuses_gmmreg_on_unequal_clouds(tmp_path):
+    """GMMReg's overlap head needs N = M; modelnetcp crops src only."""
+    with pytest.raises(ValueError, match="equal point counts"):
+        _run(tmp_path, "--dataset", "modelnetcp")
+
+
 def test_module_entry_point_runs_the_cli():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-m", "ogmm_tpu_torch.train",
-                          "--model", "DeepGMR"], capture_output=True,
+                          "--multihost"], capture_output=True,
                          text=True, cwd=ROOT, env=env)
     assert res.returncode != 0
-    assert "nn/deepgmr.py" in res.stderr
+    assert "queue A item 7" in res.stderr
