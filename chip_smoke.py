@@ -125,6 +125,28 @@ fatal on failure:
              (`--model DeepGMR --dataset modelnetdv`): three steps, an eval
              batch with ICP, the export served back through
              `Registrar.from_weights`
+ 19. surface       the rest of the model surface, full width, seeded
+             weights: (a) `Registrar(configs.serve())` (6 EM trips, bf16)
+             at B=24, N=717 beside the bf16 `mnet` request in turns:
+             launches, host and CUDA-event times, device busy time and the
+             EM kernel's, peak memory, against the plain versions; (b) the
+             CLI of phase 5 into a temporary --model_path, then
+             `Registrar.from_checkpoint`, `export_weights` and
+             `from_weights`, and `registrar_from_torch_checkpoint` on the
+             weights in the original code's key layout, each serving a
+             request bit-equal to the trainer's model, and another emb_dims
+             refused; (c) `refine_registration(pl=True)` from (a)'s estimate
+             and from ~3 degrees off a known pose at (24, 717), (24, 1433)
+             and (1, 35000) (normals through knn or knn_stream at k=16,
+             trips dense, through nn1 or nn1_stream): launches, times, peak
+             memory, against the plain versions, the pose recovered; (d)
+             `use_grid=True` at (1, 35000) for both ICPs against the spatial
+             route, the densest cell against the cap; (e) recompute_anchors
+             with and without loop_kernels, stack_eval=False, a stack_train
+             step against the plain versions, a remat step against the step
+             without it (loss and statistics bit-equal, peak memory); (f)
+             knn at (24, 717, 717, k=16) and knn_stream at (1, 35000, 35000,
+             k=16) against their plain versions (`at_surface`)
 
 `python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
 (build always runs; the names are those of PHASES below) and prints their
@@ -135,6 +157,7 @@ line of its own, the `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -887,18 +910,30 @@ def _grads(model):
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-def _step_grads(state, cfg, batch):
-    """Loss and gradients of one step from `state` (anchors from index 0),
-    on a copy of the model: the running statistics of `state` stay."""
+def _train_probe(state, cfg, batch):
+    """Loss, gradients and buffers (the running statistics after it) of one
+    step from `state` (anchors from index 0) on a copy of the model, and the
+    step's peak device memory in MiB: the running statistics of `state`
+    stay."""
     import copy
     probe = copy.copy(state)
     probe.model = copy.deepcopy(state.model)
     probe.generator = None
     for p in probe.model.parameters():
         p.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     loss, _ = train_loss(probe, cfg, batch)
     loss.backward()
-    return loss.item(), _grads(probe.model)
+    torch.cuda.synchronize()
+    return (loss.item(), _grads(probe.model),
+            {k: b.clone() for k, b in probe.model.named_buffers()},
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def _step_grads(state, cfg, batch):
+    """Loss and gradients of one step from `state` (`_train_probe`)."""
+    return _train_probe(state, cfg, batch)[:2]
 
 
 def _rel(a, b):
@@ -1351,13 +1386,13 @@ def check_c1(rs):
 INDOOR_KERNELS = ("dgcnn_edges", "knn_stream", "nn1_stream", "wproject")
 
 
-def surface(rs, batch):
-    """bench.py's synthetic indoor fragment of N_INDOOR points: a height
-    field over the unit square, 0.01 noise."""
-    u = rs.rand(batch, N_INDOOR, 2).astype(np.float32)
+def surface(rs, batch, n=N_INDOOR):
+    """bench.py's synthetic indoor fragment of N_INDOOR (or n) points: a
+    height field over the unit square, 0.01 noise."""
+    u = rs.rand(batch, n, 2).astype(np.float32)
     z = np.sin(3 * u[..., :1]) * np.cos(2 * u[..., 1:])
     pts = np.concatenate([u, 0.3 * z], -1)
-    return (pts + 0.01 * rs.randn(batch, N_INDOOR, 3)).astype(np.float32)
+    return (pts + 0.01 * rs.randn(batch, n, 3)).astype(np.float32)
 
 
 def _sorted(x):
@@ -2840,10 +2875,537 @@ def deepgmr(_):
                       "cli": cli_res, "phase_s": secs}
 
 
+# ------------------------------------------- the rest of the model surface
+
+LIM_PL_POSE = 1e-4        # point-to-plane, kernels against plain versions:
+#                           the same kNN and 1-NN indices, 30 Gauss-Newton
+#                           solves of the same sums (as LIM_ICP_POSE)
+LIM_RECOVER_DEG = 0.1     # a rigid copy's pose recovered from ~3 degrees
+LIM_RECOVER_T = 1e-3      # and 0.01 off (as check_icp)
+LIM_GRID_POSE = 1e-4      # the grid route against the spatial route: exact
+#                           under the gate, sums in another order
+LIM_REMAT_GRAD = 1e-6     # remat against none, from one state: the same
+#                           forward, activations recomputed in the backward
+GRID_CAP = 32             # candidates a grid cell (the JAX package's default)
+N_PL = (N, N_LARGE, N_INDOOR)   # the three point-to-plane shapes
+
+
+def _timed(fn, reps=3):
+    """fn's last output and its host ms a call (each synchronised), its
+    CUDA-event ms a call over the same calls, and the peak device memory,
+    after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    host = []
+    start.record()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    end.record()
+    torch.cuda.synchronize()
+    return out, {"host_ms": host, "events_ms": start.elapsed_time(end) / reps,
+                 "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+
+
+def _busy_ms(fn, groups=None):
+    """Device ms of one call of fn from torch.profiler: every kernel's, and
+    the kernels named by each group {label: name part}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"busy": 0.0, **{label: 0.0 for label in groups or {}}}
+    for evt in prof.key_averages():
+        ms = evt.self_device_time_total / 1e3
+        out["busy"] += ms
+        for label, part in (groups or {}).items():
+            if part in evt.key:
+                out[label] += ms
+    return out
+
+
+def _add_counts(total, counts):
+    """Add one run's launch counts into `total`."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _counted(fn):
+    """fn's output and the launches it made, counted from 0 right before."""
+    dispatch.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in dispatch.launch_counts.items() if v}
+
+
+def _start_off(rs, rot, trans):
+    """A start pose about 3 degrees (a uniform +-0.03 rad rotation vector)
+    and 0.01 off (rot, trans)."""
+    b = rot.shape[0]
+    d = torch.tensor(rs.uniform(-0.03, 0.03, (b, 3)).astype(np.float32), device=DEV)
+    skew = torch.zeros(b, 3, 3, device=DEV)
+    skew[:, 0, 1], skew[:, 0, 2], skew[:, 1, 2] = -d[:, 2], d[:, 1], -d[:, 0]
+    skew = skew - skew.transpose(1, 2)
+    dt = torch.tensor(rs.uniform(-0.01, 0.01, (b, 3)).astype(np.float32), device=DEV)
+    return torch.linalg.matrix_exp(skew) @ rot, trans + dt
+
+
+def surface_serve(rs):
+    """(a) `Registrar(configs.serve())` (6 EM trips, bf16 body) at B=24,
+    N=717 beside `configs.mnet(dtype="bfloat16")` (10 trips), same weights:
+    launches, host and CUDA-event times in turns (serve, mnet, mnet, serve),
+    device busy time and the EM kernel's, peak memory; the serve request
+    against its plain versions."""
+    regs = {"serve": Registrar(configs.serve(), seed=0, device=DEV),
+            "mnet_bf16": Registrar(configs.mnet(model=configs.ModelConfig(
+                dtype="bfloat16")), seed=0, device=DEV)}
+    m = regs["serve"].cfg.model
+    assert (m.em_iters, m.dtype, m.emb_dims, m.n_clusters, m.icp_iters) == \
+        (6, "bfloat16", EMB, K, 30)
+    requests = [make_pairs(rs, B, N) for _ in range(3)]
+    res = {name: {} for name in regs}
+    for name, reg in regs.items():
+        for refine in (False, True):
+            src, tgt, _, _ = requests[0]
+            reg(src, tgt, refine=refine)                  # warm up
+            out, launches = _counted(lambda: reg(src, tgt, refine=refine))
+            assert launches == {"dgcnn_eval": 1, "sinkhorn_em": 1, "nn1": 1}, launches
+            key = "icp" if refine else "forward"
+            res[name][key] = {"launches": launches, "host_ms": [], "events_ms": []}
+            res[name][key].update(_busy_ms(lambda: reg(src, tgt, refine=refine),
+                                           {"em_ms": "em_kernel"}))
+    for name in ("serve", "mnet_bf16", "mnet_bf16", "serve"):
+        for refine in (False, True):
+            key = "icp" if refine else "forward"
+            it = itertools.cycle(requests)
+            _, t = _timed(lambda: regs[name](*next(it)[:2], refine=refine))
+            res[name][key]["host_ms"] += t["host_ms"]
+            res[name][key]["events_ms"].append(t["events_ms"])
+            res[name][key]["peak_mib"] = t["peak_mib"]
+    src, tgt, _, _ = requests[-1]
+    outs = {("serve", refine): regs["serve"](src, tgt, refine=refine)
+            for refine in (False, True)}
+    for name, r in res.items():
+        for key, v in r.items():
+            print(f"surface (a) {name} {key} ({B} pairs of {N}): host "
+                  f"{[round(x, 2) for x in v['host_ms']]} ms, CUDA events "
+                  f"{[round(x, 2) for x in v['events_ms']]} ms, busy "
+                  f"{v['busy']:.3f} ms (EM {v['em_ms']:.3f}), peak "
+                  f"{v['peak_mib']:.0f} MiB, launches {v['launches']}")
+    for refine in (False, True):
+        rot, trans, so, to = outs["serve", refine]
+        assert torch.isfinite(rot).all() and torch.isfinite(trans).all()
+        assert ((so >= 0) & (so <= 1)).all()
+    with plain_versions():
+        before = dict(dispatch.launch_counts)
+        p_rot, _, p_so, p_to = regs["serve"](src, tgt, refine=True)
+        assert dict(dispatch.launch_counts) == before
+    k_rot, _, k_so, k_to = outs["serve", True]
+    d_o = max((k_so - p_so).abs().max().item(), (k_to - p_to).abs().max().item())
+    ang = angle_deg(k_rot, p_rot)
+    print(f"surface (a) serve, kernels against plain versions: overlap "
+          f"{d_o:.3g} (limit {LIM_OVERLAP}), refined rotation median "
+          f"{ang.median().item():.3g} deg (limit {LIM_ROT_DEG}), max "
+          f"{ang.max().item():.3g}")
+    assert d_o <= LIM_OVERLAP and ang.median().item() <= LIM_ROT_DEG
+    res["serve"]["against_plain"] = {"overlap": d_o,
+                                     "rot_median_deg": ang.median().item()}
+    est = outs["serve", False]
+    return res, (requests[-1], est)
+
+
+def _original_state_dict(model):
+    """The port GMMReg's weights in the original PyTorch code's key layout:
+    the inverse of `ogmm_tpu_torch.compat.convert_gmmreg_state_dict`
+    (channel-strided heads, 1x1 conv weights), the check's own."""
+    from ogmm_tpu_torch.compat import _head_perm
+    from ogmm_tpu_torch.weights import flat_variables
+    flat = flat_variables(model.state_dict(), "GMMReg")
+    tree = {}
+    for key, a in flat.items():
+        node = tree
+        *parts, leaf = key.split("/")
+        for p in parts:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    P, S = tree["params"], tree["batch_stats"]
+    sd = {}
+
+    def conv(kernel, ndim=3):
+        w = np.ascontiguousarray(kernel.T)
+        return w.reshape(*w.shape, *([1] * (ndim - 2)))
+
+    def dense(name, e):
+        sd[f"{name}.weight"] = conv(e["kernel"])
+        if "bias" in e:
+            sd[f"{name}.bias"] = e["bias"]
+
+    def bn(name, p, s):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["scale"], p["bias"]
+        sd[f"{name}.running_mean"], sd[f"{name}.running_var"] = s["mean"], s["var"]
+
+    dg_p, dg_s = P["DGCNN_0"], S["DGCNN_0"]
+    for i in range(1, 6):
+        sd[f"emd.conv{i}.weight"] = conv(dg_p[f"w{i}"], 4 if i < 5 else 3)
+        bn(f"emd.bn{i}", {"scale": dg_p[f"bn{i}_scale"], "bias": dg_p[f"bn{i}_bias"]},
+           {"mean": dg_s[f"bn{i}_mean"], "var": dg_s[f"bn{i}_var"]})
+    pe_p, pe_s = P["PositionEncoding_0"], S["PositionEncoding_0"]
+    for i, name in enumerate(("pos.conv_dis.0", "pos.conv_dis.3",
+                              "pos.conv_ang1.0", "pos.conv_ang2.0")):
+        dense(name, pe_p[f"Dense_{i}"])
+        head, last = name.rsplit(".", 1)
+        bn(f"{head}.{int(last) + 1}", pe_p[f"BN_{i}"]["BatchNorm_0"],
+           pe_s[f"BN_{i}"]["BatchNorm_0"])
+    inv = np.argsort(_head_perm(EMB, 4))
+    for i, name in enumerate(("sattn1", "cattn", "sattn2")):
+        tb = P[f"TransformerBlock_{i}"]
+        mha = tb["MultiHeadAttention_0"]
+        for j in range(3):
+            e = mha[f"Dense_{j}"]
+            dense(f"{name}.attn.proj.{j}", {"kernel": e["kernel"][:, inv],
+                                            "bias": e["bias"][inv]})
+        e = mha["Dense_3"]
+        dense(f"{name}.attn.merge", {"kernel": e["kernel"][inv, :], "bias": e["bias"]})
+        dense(f"{name}.mlp.0", tb["PointMLP_0"]["Dense_0"])
+        dense(f"{name}.mlp.3", tb["PointMLP_0"]["Dense_1"])
+    for i, (name, deep) in enumerate((("conv1", True), ("conv2", True),
+                                      ("proj", False), ("overlap", True))):
+        p, s = P[f"ConvHead_{i}"], S.get(f"ConvHead_{i}", {})
+        layers = [(0, "Dense_0", "BN_0"), (3, "Dense_1", "BN_1" if deep else None)]
+        if deep:
+            layers.append((6, "Dense_2", None))
+        for idx, dname, bname in layers:
+            dense(f"{name}.net.{idx}", p[dname])
+            if bname is not None:
+                bn(f"{name}.net.{idx + 1}", p[bname]["BatchNorm_0"],
+                   s[bname]["BatchNorm_0"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def surface_checkpoint(rs):
+    """(b) The CLI recipe of phase 5 (synthetic, bf16, B=24, three steps)
+    into a temporary --model_path; `Registrar.from_checkpoint` serves a
+    request bit-equal to a Registrar of the trainer's own model;
+    `export_weights` then `from_weights` bit-equal; a cfg with another
+    emb_dims raises; `registrar_from_torch_checkpoint` on the weights
+    written in the original code's key layout serves the same request."""
+    from ogmm_tpu_torch.api import registrar_from_torch_checkpoint
+    ops_dgcnn_train.BWD_KERNELS = True
+    src, tgt, _, _ = make_pairs(rs, B, N)
+    with tempfile.TemporaryDirectory() as tmp:
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["--dataset", "synthetic", "--root", "synthetic:200",
+                            "--dtype", "bfloat16", "--batch_size", str(B),
+                            "--test_batch_size", str(B), "--epochs", "1",
+                            "--steps_per_epoch", "3", "--model_path", tmp])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in dispatch.launch_counts.items() if v}
+        own = Registrar(trainer.cfg, state_dict=trainer.state.model.state_dict(),
+                        device=DEV)
+        want = own(src, tgt, refine=True)
+        t0 = time.perf_counter()
+        reg = Registrar.from_checkpoint(tmp, device=DEV)
+        load_s = time.perf_counter() - t0
+        assert configs.config_to_dict(reg.cfg) == configs.config_to_dict(trainer.cfg)
+        same = {"from_checkpoint": all(torch.equal(a, b) for a, b in
+                                       zip(reg(src, tgt, refine=True), want))}
+        npz = os.path.join(tmp, "w.npz")
+        reg.export_weights(npz)
+        back = Registrar.from_weights(npz, device=DEV)
+        same["export_weights"] = all(torch.equal(a, b) for a, b in
+                                     zip(back(src, tgt, refine=True), want))
+        wider = trainer.cfg.replace(model=dataclasses.replace(
+            trainer.cfg.model, emb_dims=2 * EMB))
+        try:
+            Registrar.from_checkpoint(tmp, cfg=wider, device=DEV)
+            refused = False
+        except ValueError as e:
+            refused = "model" in str(e)
+        pt = os.path.join(tmp, "original.pt")
+        torch.save(_original_state_dict(own.model), pt)
+        orig = registrar_from_torch_checkpoint(pt, trainer.cfg, device=DEV)
+        same["torch_checkpoint"] = all(torch.equal(a, b) for a, b in
+                                       zip(orig(src, tgt, refine=True), want))
+    print(f"surface (b) checkpoint round trip: the CLI in {secs:.1f} s "
+          f"(launches {launches}), from_checkpoint in {load_s:.2f} s; outputs "
+          f"bit-equal to the trainer's model: {same}; another emb_dims "
+          f"refused: {refused}")
+    assert all(same.values()) and refused
+    return {"cli_s": secs, "from_checkpoint_s": load_s, "bit_equal": same,
+            "refused": refused, "launches_cli": launches}
+
+
+def _refine_case(rs, name, src, tgt, rot, trans, start, want_launches):
+    """refine_registration(pl=True) from `start`: launches, times, peak
+    memory, against the plain versions; the recovery of (rot, trans)."""
+    from ogmm_tpu_torch.core.metrics import rotation_error, translation_error
+    from ogmm_tpu_torch.ops.icp import refine_registration
+    voxel = configs.ModelConfig().overlap_radius
+    run = lambda: refine_registration(src, tgt, start[0], start[1], voxel, pl=True)
+    run()
+    (r, t), launches = _counted(run)
+    assert launches == want_launches, (name, launches)
+    _, times = _timed(run)
+    busy = _busy_ms(run)["busy"]
+    with plain_versions():
+        before = dict(dispatch.launch_counts)
+        pr, pt = run()
+        assert dict(dispatch.launch_counts) == before
+    err = max((r - pr).abs().max().item(), (t - pt).abs().max().item())
+    res = {"launches": launches, **times, "busy_ms": busy, "max_abs_err": err}
+    if rot is not None:
+        res["rot_err_deg"] = rotation_error(r, rot).max().item()
+        res["trans_err"] = translation_error(t, trans).max().item()
+        res["start_rot_err_deg"] = rotation_error(start[0], rot).max().item()
+    print(f"surface (c) point-to-plane {name}: launches {launches}, host "
+          f"{[round(x, 2) for x in times['host_ms']]} ms, CUDA events "
+          f"{times['events_ms']:.2f} ms, busy {busy:.3f} ms, peak "
+          f"{times['peak_mib']:.0f} MiB; against plain versions {err:.3g} "
+          f"(limit {LIM_PL_POSE})" + (
+              f"; recovered: rotation {res['rot_err_deg']:.3g} deg (from "
+              f"{res['start_rot_err_deg']:.3g}; limit {LIM_RECOVER_DEG}), "
+              f"translation {res['trans_err']:.3g} (limit {LIM_RECOVER_T})"
+              if rot is not None else ""))
+    assert err <= LIM_PL_POSE
+    if rot is not None:
+        assert res["rot_err_deg"] <= LIM_RECOVER_DEG
+        assert res["trans_err"] <= LIM_RECOVER_T
+    return (r, t), res
+
+
+def surface_refine(rs, estimate):
+    """(c) refine_registration(pl=True): from request (a)'s estimate at B=24,
+    N=M=717 (normals through the knn kernel at k=16, 30 dense trips), and
+    from ~3 degrees off a known pose on height fields: B=24 at N=M=717 and
+    at 1433 (the nn1 kernel each trip) and the indoor B=1, N=M=35,000 (the
+    normals through knn_stream, 30 nn1_stream trips with the cull and the
+    gate). (d) use_grid=True at the indoor shape for both ICPs against the
+    spatial route: poses, the densest cell against GRID_CAP, times."""
+    from ogmm_tpu_torch.ops.grid_nn import build_grid
+    from ogmm_tpu_torch.ops.icp import (icp_point_to_plane,
+                                        icp_point_to_point)
+    (src, tgt, _, _), (e_rot, e_trans, _, _) = estimate
+    s, t = (torch.as_tensor(a, device=DEV) for a in (src, tgt))
+    res = {}
+    _, res["estimate_717"] = _refine_case(rs, f"({B}, {N}) from (a)'s estimate",
+                                          s, t, None, None, (e_rot, e_trans),
+                                          {"knn": 1})
+    launches = dict(res["estimate_717"]["launches"])
+    indoor = None
+    for n in N_PL:
+        b = 1 if n == N_INDOOR else B
+        src, tgt, rot, trans = rigid_copies(rs, surface(rs, b, n))
+        src, tgt, rot, trans = (torch.tensor(a, device=DEV) for a in (src, tgt, rot, trans))
+        start = _start_off(rs, rot, trans)
+        want = ({"knn_stream": 1, "nn1_stream": 30} if n == N_INDOOR else
+                {"knn": 1, "nn1": 30} if n == N_LARGE else {"knn": 1})
+        _, res[f"pose_{n}"] = _refine_case(rs, f"({b}, {n}) from 3 degrees off",
+                                           src, tgt, rot, trans, start, want)
+        _add_counts(launches, res[f"pose_{n}"]["launches"])
+        if n == N_INDOOR:
+            indoor = src, tgt, rot, trans, start
+    src, tgt, rot, trans, start = indoor
+    init = se3.integrate(*start)
+    thr = 2.0 * configs.ModelConfig().overlap_radius
+    occ = build_grid(tgt, thr).max_occupancy.max().item()
+    # the grid is exact only while grid_cap holds the densest cell: a cap
+    # from the occupancy (a multiple of 32), and the default cap timed too
+    cap = -(-occ // GRID_CAP) * GRID_CAP
+    grid = {"max_occupancy": occ, "grid_cap": cap, "default_cap": GRID_CAP}
+    for pname, icp in (("point", icp_point_to_point), ("plane", icp_point_to_plane)):
+        on_grid = lambda c=cap: icp(src, tgt, init, thr, use_grid=True, grid_cap=c)
+        (gr, gt_), launches_g = _counted(on_grid)
+        (sr, st), launches_s = _counted(lambda: icp(src, tgt, init, thr))
+        (cr, ct), _ = _counted(lambda: on_grid(GRID_CAP))
+        _, tg = _timed(on_grid)
+        _, tc = _timed(lambda: on_grid(GRID_CAP))
+        _, ts = _timed(lambda: icp(src, tgt, init, thr))
+        err = max((gr - sr).abs().max().item(), (gt_ - st).abs().max().item())
+        err_c = max((cr - sr).abs().max().item(), (ct - st).abs().max().item())
+        grid[pname] = {"grid": tg, "grid_default_cap": tc, "spatial": ts,
+                       "max_abs_err": err, "max_abs_err_default_cap": err_c,
+                       "launches_grid": launches_g, "launches_spatial": launches_s,
+                       "busy_ms_grid": _busy_ms(on_grid)["busy"],
+                       "busy_ms_spatial": _busy_ms(lambda: icp(src, tgt, init, thr))["busy"]}
+        print(f"surface (d) grid route, point-to-{pname} at (1, {N_INDOOR}): grid "
+              f"cap {cap} {[round(x, 2) for x in tg['host_ms']]} ms (events "
+              f"{tg['events_ms']:.2f}, busy {grid[pname]['busy_ms_grid']:.3f}, peak "
+              f"{tg['peak_mib']:.0f} MiB, launches {launches_g}); grid cap "
+              f"{GRID_CAP} {[round(x, 2) for x in tc['host_ms']]} ms (poses "
+              f"{err_c:.3g} from the spatial route's); spatial "
+              f"{[round(x, 2) for x in ts['host_ms']]} ms (events "
+              f"{ts['events_ms']:.2f}, busy {grid[pname]['busy_ms_spatial']:.3f}, "
+              f"peak {ts['peak_mib']:.0f} MiB, launches {launches_s}); poses "
+              f"{err:.3g} apart (limit {LIM_GRID_POSE}); densest cell {occ} points")
+        assert err <= LIM_GRID_POSE, err
+        assert launches_g == ({} if pname == "point" else {"knn_stream": 1}), launches_g
+        _add_counts(launches, launches_g)
+        _add_counts(launches, launches_s)
+    res["grid"] = grid
+    return launches, res
+
+
+def surface_options(rs, requests):
+    """(e) The four model options at full width, bf16 body, seeded weights:
+    recompute_anchors with and without loop_kernels (fps launches; outputs
+    against the default request: the same anchors from index 0), stack_eval
+    False against the stacked request, one train step with stack_train
+    (against the plain versions) and one with remat (against the step
+    without it from the same state: loss and running statistics bit-equal,
+    gradients within LIM_REMAT_GRAD; the peak memory of both)."""
+    base = configs.ModelConfig(dtype="bfloat16")
+    cfg_of = lambda **o: configs.mnet(model=dataclasses.replace(base, **o))
+    src, tgt = requests[0][:2]
+    res, launches = {}, {}
+    add = lambda counts: _add_counts(launches, counts)
+    for lk in (False, True):
+        ref = Registrar(cfg_of(), seed=0, device=DEV, loop_kernels=lk)
+        reg = Registrar(cfg_of(recompute_anchors=True), seed=0, device=DEV,
+                        loop_kernels=lk)
+        ref(src, tgt, refine=True)
+        reg(src, tgt, refine=True)
+        want, _ = _counted(lambda: ref(src, tgt, refine=True))
+        got, counts = _counted(lambda: reg(src, tgt, refine=True))
+        add(counts)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        _, t = _timed(lambda: reg(src, tgt, refine=True))
+        key = "recompute_anchors" + ("_loops" if lk else "")
+        res[key] = {"launches": counts, "equal_to_default": same, **t}
+        print(f"surface (e) {key}: launches {counts}, outputs equal to the "
+              f"default request {same}, host {[round(x, 2) for x in t['host_ms']]} ms")
+        assert same and counts.get("fps", 0) == (4 if lk else 0), counts
+    ref = Registrar(cfg_of(), seed=0, device=DEV)
+    reg = Registrar(cfg_of(stack_eval=False), seed=0, device=DEV)
+    want = ref(src, tgt, refine=True)
+    reg(src, tgt, refine=True)
+    got, counts = _counted(lambda: reg(src, tgt, refine=True))
+    add(counts)
+    d_o = max((got[2] - want[2]).abs().max().item(), (got[3] - want[3]).abs().max().item())
+    ang = angle_deg(got[0], want[0])
+    _, t = _timed(lambda: reg(src, tgt, refine=True))
+    res["stack_eval_false"] = {"launches": counts, "overlap": d_o,
+                               "rot_median_deg": ang.median().item(), **t}
+    print(f"surface (e) stack_eval=False: launches {counts}; against the stacked "
+          f"request: overlap {d_o:.3g} (limit {LIM_OVERLAP}), rotation median "
+          f"{ang.median().item():.3g} deg (limit {LIM_ROT_DEG}); host "
+          f"{[round(x, 2) for x in t['host_ms']]} ms")
+    assert d_o <= LIM_OVERLAP and ang.median().item() <= LIM_ROT_DEG
+    assert counts["dgcnn_eval"] == 2, counts
+
+    bwd = ops_dgcnn_train.BWD_KERNELS
+    ops_dgcnn_train.BWD_KERNELS = True
+    batch = make_batch(rs)
+    tcfg = lambda **o: cfg_of(**o).replace(
+        train=dataclasses.replace(configs.TrainConfig(), device_overlap=True),
+        data=dataclasses.replace(configs.DataConfig(), fix_tgt_overlap=True))
+    st_cfg = tcfg(stack_train=True)
+    state = create_train_state(st_cfg, steps_per_epoch=100, seed=0, device=DEV)
+    _train_probe(state, st_cfg, batch)                          # warm up
+    (k_loss, k_grads, _, k_peak), counts = _counted(
+        lambda: _train_probe(state, st_cfg, batch))
+    add(counts)
+    with plain_versions():
+        before = dict(dispatch.launch_counts)
+        p_loss, p_grads, _, _ = _train_probe(state, st_cfg, batch)
+        assert dict(dispatch.launch_counts) == before
+    d_loss = abs(k_loss - p_loss) / abs(p_loss)
+    d_grad = _rel(k_grads, p_grads)
+    res["stack_train"] = {"launches": counts, "loss_rel_plain": d_loss,
+                          "grad_rel_plain": d_grad, "peak_mib": k_peak}
+    print(f"surface (e) stack_train step: launches {counts}; against the plain "
+          f"versions: loss {k_loss:.5f} / {p_loss:.5f}, relative {d_loss:.3g} "
+          f"(limit {LIM_STEP_LOSS}), gradients {d_grad:.3g} (limit "
+          f"{LIM_STEP_GRAD}); peak {k_peak:.0f} MiB")
+    assert counts["graph_stage1"] == 1 and counts["bwd_reduce"] == 1, counts
+    assert d_loss <= LIM_STEP_LOSS and d_grad <= LIM_STEP_GRAD
+    plain_cfg, remat_cfg = tcfg(), tcfg(remat=True)
+    s0 = create_train_state(plain_cfg, steps_per_epoch=100, seed=0, device=DEV)
+    s1 = create_train_state(remat_cfg, steps_per_epoch=100, seed=0, device=DEV)
+    _train_probe(s0, plain_cfg, batch)                          # warm up
+    _train_probe(s1, remat_cfg, batch)
+    l0, g0, b0, peak0 = _train_probe(s0, plain_cfg, batch)
+    (l1, g1, b1, peak1), counts = _counted(lambda: _train_probe(s1, remat_cfg, batch))
+    add(counts)
+    worst = _rel(g1, g0)
+    stats_equal = all(torch.equal(b0[k], b1[k]) for k in b0)
+    res["remat"] = {"launches": counts, "loss": [l0, l1], "loss_equal": l0 == l1,
+                    "grad_rel": worst, "stats_equal": stats_equal,
+                    "peak_mib": peak1, "peak_mib_without": peak0}
+    print(f"surface (e) remat step: launches {counts}; loss {l1!r} / {l0!r} "
+          f"without, running statistics equal {stats_equal}, gradients "
+          f"{worst:.3g} relative (limit {LIM_REMAT_GRAD}); peak {peak1:.0f} MiB "
+          f"against {peak0:.0f} without")
+    ops_dgcnn_train.BWD_KERNELS = bwd
+    assert l0 == l1 and stats_equal and worst <= LIM_REMAT_GRAD
+    return launches, res
+
+
+def check_surface_kernels(rs):
+    """(f) The kNN kernels at the shapes of the point-to-plane normals
+    (k=16): knn at (24, 717, 717) and knn_stream at the indoor (1, 35000,
+    35000) Morton-sorted with the cull and the diagonal order, each against
+    its plain version (identical indices) and timed beside it."""
+    out = {}
+    x = torch.tensor(surface(rs, B, N), device=DEV)
+    got = knn(x, x, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, knn_reference(x, x, 16))
+    out["knn"] = {"shape": [B, N, N, 16], "max_abs_err": 0,
+                  "ms": cuda_ms(lambda: knn(x, x, 16), 20),
+                  "plain_ms": cuda_ms(lambda: knn_reference(x, x, 16), 2)}
+    y = _sorted(torch.tensor(surface(rs, 1), device=DEV))
+    lb = stream.tile_pair_bounds(y)
+    run = lambda: cuda_stream.knn_stream(y, y, 16, diag_order=True, cull_lb=lb)
+    got = run()
+    torch.cuda.synchronize()
+    assert torch.equal(got, stream.knn_stream_plain(y, y, 16))
+    out["knn_stream"] = {"shape": [1, N_INDOOR, N_INDOOR, 16], "max_abs_err": 0,
+                         "ms": cuda_ms(run, 10),
+                         "plain_ms": cuda_ms(lambda: stream.knn_stream_plain(y, y, 16), 1)}
+    for name, r in out.items():
+        print(f"surface (f) {name} at k=16, kernel against plain (indices "
+              f"identical): {json.dumps(r)}")
+    return out
+
+
+def surface_phase(_):
+    """The rest of the model surface, at full width on seeded weights:
+    (a) the serve preset, (b) the checkpoint round trip, (c) point-to-plane
+    refinement, (d) the grid route, (e) the four model options, (f) the kNN
+    kernels at k=16. The phase's launches add the counts of each driven
+    run, each counted from 0 right before it."""
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(20)
+    kernels = check_surface_kernels(rs)
+    serving, estimate = surface_serve(rs)
+    launches = {name: 0 for name in dispatch.KERNELS}
+    for name in ("serve", "mnet_bf16"):
+        for key in ("forward", "icp"):
+            _add_counts(launches, serving[name][key]["launches"])
+    ckpt = surface_checkpoint(rs)
+    _add_counts(launches, ckpt["launches_cli"])
+    r_launches, refined = surface_refine(rs, estimate)
+    o_launches, options = surface_options(rs, [estimate[0]])
+    _add_counts(launches, r_launches)
+    _add_counts(launches, o_launches)
+    secs = time.perf_counter() - t_phase
+    print(f"surface phase: {secs:.1f} s; launches {launches}")
+    return launches, {"kernels": kernels, "serve": serving, "checkpoint": ckpt,
+                      "refine": refined, "options": options, "phase_s": secs}
+
+
 PHASES = ("kernels", "serve", "train", "cli", "icp", "serve_large",
           "train_large", "train_unfused", "c1", "indoor_kernels", "indoor",
           "loop_kernels", "serve_loops", "serve_f32", "train_indoor",
-          "deepgmr")
+          "deepgmr", "surface")
 
 
 def main():
@@ -2885,7 +3447,7 @@ def main():
                       ("serve_loops", lambda _: serve_loops(np.random.RandomState(10))),
                       ("serve_f32", lambda _: serve_f32(np.random.RandomState(16))),
                       ("train_indoor", lambda _: train_indoor(np.random.RandomState(17))),
-                      ("deepgmr", deepgmr)):
+                      ("deepgmr", deepgmr), ("surface", surface_phase)):
         if not run(phase):
             continue
         res = fn(rs)
@@ -2914,6 +3476,8 @@ def main():
                 k[f"launches_{phase}"] = launches[name]
             if name in out.get("deepgmr", {}).get("kernels", {}):
                 k["at_deepgmr"] = out["deepgmr"]["kernels"][name]
+            if name in out.get("surface", {}).get("kernels", {}):
+                k["at_surface"] = out["surface"]["kernels"][name]
         print(json.dumps({"kernels": kernels}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

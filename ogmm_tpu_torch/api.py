@@ -1,25 +1,36 @@
 """High-level inference API: register point-cloud pairs with one call.
 
     reg = Registrar(cfg)                         # seeded random weights
+    reg = Registrar(configs.serve())             # the serving preset
     reg = Registrar.from_weights("weights.npz")  # weights exported by the
                                                  # JAX package or the CLI
+    reg = Registrar.from_checkpoint("runs")      # the CLI's best checkpoint
+    reg = registrar_from_torch_checkpoint("model.pt")  # the original code's
     R, t, src_overlap, tgt_overlap = reg(src, tgt)
+    reg.export_weights("weights.npz")            # read by both packages
 
 `cfg.model_name` picks the model: GMMReg (`nn.gmmreg`) or DeepGMR
 (`nn.deepgmr`, whose overlap outputs are ones). Runs on the CUDA device
 unless `device="cpu"` is passed; without a CUDA device and without that
 request it raises. `loop_kernels=True` runs FPS, the ICP and the attention
 MLPs (GMMReg), or the ICP (DeepGMR), through their whole-loop and fused
-kernels.
+kernels. The request's refinement is point-to-point ICP; `ops.icp` also
+has point-to-plane (`refine_registration(..., pl=True)`) and the grid
+1-NN (`use_grid=True`) for a caller that refines the returned pose itself.
+
+Weights cross between the two packages as the `.npz` of `export_weights`:
+the JAX package's orbax checkpoints are not read here (the card's machine
+has no JAX).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ogmm_tpu_torch.configs import Config, mnet
+from ogmm_tpu_torch.configs import Config, config_to_dict, mnet
 from ogmm_tpu_torch.core import se3
 from ogmm_tpu_torch.nn.deepgmr import DeepGMR
 from ogmm_tpu_torch.nn.dgcnn import DGCNN
@@ -55,7 +66,14 @@ def build_model(cfg: Config, loop_kernels: bool = False) -> torch.nn.Module:
 
 
 class Registrar:
-    """Registration frontend around one GMMReg or DeepGMR in eval mode."""
+    """Registration frontend around one GMMReg or DeepGMR in eval mode.
+
+    `refine=True` (the default of a call) appends point-to-point ICP with
+    the gate 2 cfg.model.overlap_radius and cfg.model.icp_iters trips. What
+    else refinement can do lives in `ops.icp` and takes the returned pose:
+    point-to-plane (`refine_registration(..., pl=True)`, normals from the
+    target's k-NN) and the grid 1-NN (`use_grid=True`) for sparse large
+    targets."""
 
     def __init__(self, cfg: Optional[Config] = None,
                  state_dict: Optional[dict] = None, seed: int = 0,
@@ -88,6 +106,50 @@ class Registrar:
         return cls(cfg, state_dict=state, device=device,
                    loop_kernels=loop_kernels)
 
+    @classmethod
+    def from_checkpoint(cls, model_path: str, cfg: Optional[Config] = None,
+                        name: str = "optim_model", model_name: str = "GMMReg",
+                        override_config: bool = False,
+                        device: str | torch.device | None = None,
+                        loop_kernels: bool = False) -> "Registrar":
+        """Serve a checkpoint the port's trainer wrote:
+        `<model_path>/checkpoints/<model>/models/<name>.pt` with the
+        `config.json` beside it. `cfg=None` takes the saved config; a cfg
+        that differs from it raises ValueError naming the sections, unless
+        `override_config` (to change options that do not touch the
+        weights). A missing config (with cfg=None) or checkpoint raises
+        FileNotFoundError; nothing is created on disk."""
+        from ogmm_tpu_torch.train.checkpoint import CheckpointManager
+        models = CheckpointManager._models_dir(
+            model_path, cfg.model_name if cfg is not None else model_name)
+        saved = CheckpointManager.read_config_at(models)
+        if cfg is None:
+            if saved is None:
+                raise FileNotFoundError(
+                    f"no config.json under {models!r}; pass cfg= explicitly")
+            cfg = saved
+        elif saved is not None and not override_config:
+            saved_d, cfg_d = config_to_dict(saved), config_to_dict(cfg)
+            if saved_d != cfg_d:
+                diff = [k for k in ("model", "data", "train", "model_name")
+                        if saved_d.get(k) != cfg_d.get(k)]
+                raise ValueError(
+                    f"cfg differs from the checkpoint's saved config in the "
+                    f"sections {diff}; pass cfg=None to use the saved one, or "
+                    f"override_config=True to use yours")
+        path = os.path.join(models, f"{name}.pt")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no checkpoint {name!r} under {models!r}")
+        ck = torch.load(path, map_location="cpu", weights_only=True)
+        return cls(cfg, state_dict=ck["model"], device=device,
+                   loop_kernels=loop_kernels)
+
+    def export_weights(self, path: str) -> None:
+        """Write the weights and the config as the `.npz` that both
+        packages' `load_weights` (and `from_weights`) read."""
+        from ogmm_tpu_torch.train.checkpoint import export_weights
+        export_weights(self.model, path, self.cfg)
+
     def _as_input(self, a) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):
             a = torch.from_numpy(np.asarray(a, dtype=np.float32))
@@ -111,3 +173,17 @@ class Registrar:
         """Apply the predicted rigid transform to (B, N, 3) points."""
         pose = torch.cat([rot, trans.unsqueeze(-1)], dim=-1)
         return se3.transform(pose, self._as_input(points))
+
+
+def registrar_from_torch_checkpoint(path: str, cfg: Optional[Config] = None,
+                                    device: str | torch.device | None = None
+                                    ) -> Registrar:
+    """Serve a `.pt` state_dict saved by the original PyTorch code, of the
+    model `cfg.model_name` names (`mnet()` by default), through
+    `compat.load_torch_checkpoint`."""
+    from ogmm_tpu_torch.compat import load_torch_checkpoint
+    cfg = cfg if cfg is not None else mnet()
+    state = load_torch_checkpoint(path, num_heads=cfg.model.num_heads,
+                                  emb_dims=cfg.model.emb_dims,
+                                  model_name=cfg.model_name)
+    return Registrar(cfg, state_dict=state, device=device)

@@ -1,10 +1,10 @@
-"""Typed configuration of the port: the ModelNet and indoor presets.
+"""Typed configuration of the port: the ModelNet, serving and indoor presets.
 
-The field names and defaults are those of the JAX package's config for the
-options this package implements, so a config saved beside exported weights
-translates one to one, both ways (`config_from_dict`, `config_to_dict`). A
-model option that is not implemented here is rejected when a config is built
-from a saved dictionary, not silently dropped.
+The field names and defaults of the model section are those of the JAX
+package's config, so a config saved beside exported weights translates one
+to one, both ways (`config_from_dict`, `config_to_dict`). An unknown model
+option is rejected when a config is built from a saved dictionary, not
+silently dropped.
 """
 from __future__ import annotations
 
@@ -28,7 +28,17 @@ class ModelConfig:
     is_sk: bool = False         # Sinkhorn instead of softmax matching
     overlap_radius: float = 0.035  # ICP gate is twice this
     icp_iters: int = 30         # fixed-trip ICP refinement
+    # FPS anchors recomputed for each of the three attention stages (the
+    # original's behaviour) instead of one FPS reused by all three; the
+    # clustering then starts from its own centre FPS (nn/gmmreg.py:_fps)
+    recompute_anchors: bool = False
     dtype: str = "float32"      # compute type of the network body
+    # src and tgt through the per-cloud stages as one (2B, N, .) batch: in
+    # eval (default on) and in training (default off: stacked, every
+    # BatchNorm takes the statistics of both clouds at once, a divergence
+    # from the original's one update per cloud)
+    stack_eval: bool = True
+    stack_train: bool = False
     # DGCNN training route: None (or True) the fused kernels where their
     # shape rule allows, False the unfused route (nn/dgcnn.py:fused_route)
     dgcnn_fused_train: bool | None = None
@@ -44,6 +54,10 @@ class ModelConfig:
     # kernel. None streams above B N M = 64 Mi elements, True always, False
     # never (nn/gmmreg.py:overlap_route), in eval and in training
     overlap_stream: bool | None = None
+    # recompute the attention blocks' and conv heads' activations in the
+    # backward instead of storing them (torch.utils.checkpoint; each
+    # running statistic still moves once a forward: nn/gmmreg.py:_remat)
+    remat: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,16 +116,6 @@ class Config:
 # the models a config may name (`model_name`): the JAX package's two
 MODELS = ("GMMReg", "DeepGMR")
 
-# options of the JAX package's ModelConfig that this package does not
-# implement, with the only value it accepts for each
-_FIXED_MODEL_OPTIONS = {
-    "recompute_anchors": (False,),
-    "stack_eval": (True,),
-    "stack_train": (False,),
-    "remat": (False,),
-}
-
-
 def _known(cls, section: dict) -> dict:
     """The entries of a saved section that are fields of `cls`, lists back
     to tuples (JSON keeps no tuples)."""
@@ -122,22 +126,16 @@ def _known(cls, section: dict) -> dict:
 
 def config_from_dict(d: dict) -> Config:
     """Build a Config from the dictionary the JAX package saves beside its
-    weights. A model option that is not implemented here raises; options of
-    the training and dataset sections that this package does not read (the
-    TPU mesh, the indoor datasets' options) are left out."""
+    weights. An unknown model option raises; options of the training and
+    dataset sections that this package does not read (the TPU mesh, the
+    indoor datasets' options) are left out."""
     model_name = d.get("model_name", "GMMReg")
     if model_name not in MODELS:
         raise ValueError(f"unknown model {model_name!r}")
     known = {f.name for f in dataclasses.fields(ModelConfig)}
-    model = {}
-    for key, value in d.get("model", {}).items():
-        if key in known:
-            model[key] = value
-        elif key in _FIXED_MODEL_OPTIONS:
-            if value not in _FIXED_MODEL_OPTIONS[key]:
-                raise NotImplementedError(
-                    f"model option {key}={value!r} is not ported")
-        else:
+    model = d.get("model", {})
+    for key in model:
+        if key not in known:
             raise ValueError(f"unknown model option {key!r}")
     return Config(model=ModelConfig(**model),
                   data=DataConfig(**_known(DataConfig, d.get("data", {}))),
@@ -155,6 +153,14 @@ def config_to_dict(cfg: Config) -> dict:
 def mnet(**overrides) -> Config:
     """ModelNet-family preset."""
     cfg = Config()
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def serve(**overrides) -> Config:
+    """Serving preset, the JAX package's `serve`: `mnet` with 6 EM trips
+    instead of 10 and a bf16 body; the ICP keeps its 30 trips. For serving
+    only: training and evaluation keep `mnet`'s 10 trips."""
+    cfg = Config(model=ModelConfig(em_iters=6, dtype="bfloat16"))
     return cfg.replace(**overrides) if overrides else cfg
 
 

@@ -16,6 +16,19 @@ from ogmm_tpu_torch.core import se3
 from ogmm_tpu_torch.ops.common import nn1, nn1_both
 
 
+def rotation_error(rot1: torch.Tensor, rot2: torch.Tensor) -> torch.Tensor:
+    """Isotropic rotation error in degrees of (B, 3, 3) pairs:
+    arccos((sum(rot1 * rot2) - 1) / 2), the cosine clipped to [-1, 1]."""
+    cos_theta = (rot1 * rot2).sum(dim=(-2, -1))
+    return torch.arccos(((cos_theta - 1.0) / 2.0).clamp(-1.0, 1.0)) \
+        * (180.0 / math.pi)
+
+
+def translation_error(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
+    """L2 translation error of (B, 3) pairs."""
+    return torch.linalg.norm(t1 - t2, dim=1)
+
+
 @torch.no_grad()
 def dcp_metrics(src, tgt, rot_gt, trans_gt, rot_pred, trans_pred,
                 r_th: float = 1.0, t_th: float = 0.1) -> Dict[str, torch.Tensor]:

@@ -14,6 +14,7 @@ from ogmm_tpu_torch.core import se3
 from ogmm_tpu_torch.ops.common import (index_points, l2_normalize, matmul32,
                                        nn1, nn1_both)
 from ogmm_tpu_torch.ops.gmm import get_local_corrs, gmm_params
+from ogmm_tpu_torch.ops.sinkhorn import contrastsk
 
 
 def dcp_loss(rot_pred, rot_gt, trans_pred, trans_gt):
@@ -72,6 +73,23 @@ def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     the lowest index (`jax.lax.top_k`; `torch.topk` promises no order among
     ties, and overlap labels are 0/1, so nearly everything ties)."""
     return torch.sort(scores, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+def km_loss(pts: torch.Tensor, log_gamma: torch.Tensor,
+            prob: torch.Tensor | None = None, top_k: int = 256):
+    """Sinkhorn-target cross-entropy clustering loss (the original's KMLoss,
+    off its main path): pts (B, N, D), log_gamma (B, N, K); with `prob`
+    (B, N) only its top_k points (ties to the lowest index). The target is
+    the row-normalised plan of `contrastsk` between the points and the
+    softmax moments, without a gradient."""
+    if prob is not None:
+        ids = top_k_indices(prob, top_k)
+        log_gamma = index_points(log_gamma, ids)
+        pts = index_points(pts, ids)
+    pi, mu = gmm_params(torch.softmax(log_gamma, dim=-1), pts)
+    assign = contrastsk(pts, mu, p=pi, max_iter=25, dst="eu")[0]
+    assign = (assign / assign.sum(dim=-1, keepdim=True).clamp_min(1e-4)).detach()
+    return (-assign * torch.log_softmax(log_gamma, dim=-1)).sum(dim=1).mean()
 
 
 def welsch_loss(src, tgt, tsfm, src_o=None, tgt_o=None, alpha: float = 1.0,

@@ -6,11 +6,23 @@ self-attention -> cross-attention -> overlap head -> second self-attention
 Procrustes [-> batched ICP], plus the clustering contrastive loss `clu`.
 
 In eval mode every per-cloud stage is a per-sample map, so src and tgt run
-stacked as one (2B, N, .) batch. In training they run per cloud, src then
-tgt, so that every BatchNorm takes the statistics of one cloud and updates
-its running statistics twice a step, as the JAX package (and the original)
-does. The network body computes in cfg.dtype; geometry (kNN, FPS,
-clustering, Procrustes, ICP) is always float32.
+stacked as one (2B, N, .) batch (`stack_eval`, on by default). In training
+they run per cloud, src then tgt, so that every BatchNorm takes the
+statistics of one cloud and updates its running statistics twice a step, as
+the JAX package (and the original) does; `stack_train=True` stacks them in
+training too, and each BatchNorm then takes the statistics of both clouds
+at once and updates once. The rule is the JAX package's
+(`ogmm_tpu/nn/gmmreg.py:273`): stacked when (stack_eval and not training)
+or (stack_train and training). The network body computes in cfg.dtype;
+geometry (kNN, FPS, clustering, Procrustes, ICP) is always float32.
+
+FPS anchors: one FPS a cloud serves the three attention stages, sharing
+one loop with the clustering's centre-start FPS where km_clusters equals
+n_clusters (`fps_combined`). `recompute_anchors=True` runs a new FPS for
+each stage, as the original does, and the clustering its own centre FPS
+(`_fps`). `remat=True` recomputes the activations of the three attention
+blocks and the four conv heads in the backward instead of storing them
+(`_remat`).
 
 Above N = 1024 (`share_graph`) one kNN graph of k = gnn_k serves DGCNN and
 the position encoding, as in the JAX package (`ogmm_tpu/nn/gmmreg.py:154`,
@@ -32,13 +44,14 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ogmm_tpu_torch.configs import ModelConfig, torch_dtype
 from ogmm_tpu_torch.core.procrustes import rigid_transform
 from ogmm_tpu_torch.losses import clu_loss
 from ogmm_tpu_torch.nn.attention import PositionEncoding, TransformerBlock
 from ogmm_tpu_torch.nn.dgcnn import DGCNN
-from ogmm_tpu_torch.nn.layers import ConvHead
+from ogmm_tpu_torch.nn.layers import BN, ConvHead
 from ogmm_tpu_torch.ops.common import (DENSE_ELEMS, cos_similarity,
                                        gather_neighbors, index_points, knn,
                                        knn_self_vspace, l2_normalize, matmul32)
@@ -91,6 +104,34 @@ def overlap_route(B: int, N: int, M: int, D: int, dtype: torch.dtype,
     return "stream" if wproject_takes(D, dtype) else "chunked"
 
 
+def _remat(module: nn.Module, *args):
+    """module(*args) through `torch.utils.checkpoint` (non-reentrant): its
+    activations are recomputed in the backward instead of stored, the
+    counterpart of the JAX package's `nn.remat`
+    (`ogmm_tpu/nn/gmmreg.py:229-242`). The recompute runs the module in
+    training mode again, which would move each BatchNorm's running
+    statistics a second time; it runs with the BatchNorms' `update_stats`
+    off, so each moves once a forward, as under `nn.remat`. The batch
+    statistics the recompute normalises with are those of the first run (the
+    same inputs), so its outputs are the same bits."""
+    calls = []
+
+    def run(*a):
+        if not calls:
+            calls.append(True)
+            return module(*a)
+        bns = [m for m in module.modules() if isinstance(m, BN)]
+        for m in bns:
+            m.update_stats = False
+        try:
+            return module(*a)
+        finally:
+            for m in bns:
+                m.update_stats = True
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 def _norm32(x: torch.Tensor) -> torch.Tensor:
     """l2-normalise with float32 accumulation, back in x's type."""
     return l2_normalize(x.float()).to(x.dtype)
@@ -99,8 +140,10 @@ def _norm32(x: torch.Tensor) -> torch.Tensor:
 class GMMReg(nn.Module):
     """Call: (src, tgt) -> (rot, trans, src_overlap, tgt_overlap, clu), with
     src/tgt (B, N, 3) float32 clouds of equal point count. `refine=True`
-    appends the batched point-to-point ICP. FPS anchors start at a random
-    point drawn from `generator`, at index 0 without one.
+    appends the batched ICP (point-to-point; `ops.icp.refine_registration`
+    also has point-to-plane). FPS anchors start at a random point drawn
+    from `generator`, at index 0 without one (the order of the draws:
+    `_fps`).
 
     `loop_kernels` (off by default; ROADMAP.md A.9 decides) runs FPS and
     the ICP each as one kernel launch and the attention blocks' MLPs in eval
@@ -140,11 +183,9 @@ class GMMReg(nn.Module):
                              "requires equal point counts")
         both = torch.cat([src, tgt], dim=0).float()          # (2B, N, 3)
         anchor_ids, center_ids = self._fps(both, generator)
-        if self.training:
-            out = self._forward_per_cloud(both, anchor_ids, center_ids)
-        else:
-            out = self._forward_stacked(both, anchor_ids, center_ids)
-        rot, trans, o_all, clu = out
+        stacked = cfg.stack_train if self.training else cfg.stack_eval
+        forward = self._forward_stacked if stacked else self._forward_per_cloud
+        rot, trans, o_all, clu = forward(both, anchor_ids, center_ids)
         if refine:
             init = torch.cat([rot, trans.unsqueeze(-1)], dim=-1)
             rot, trans = icp_point_to_point(
@@ -153,15 +194,33 @@ class GMMReg(nn.Module):
         return rot, trans, o_all[:B], o_all[B:], clu
 
     def _fps(self, both, generator):
-        """Anchor ids (random start) and clustering-init ids (centre start,
-        None where the clustering runs its own FPS) of the 2B clouds; every
-        row is independent, so one loop serves src and tgt."""
-        km = self.cfg.km_clusters
-        if km == self.cfg.n_clusters:
+        """The anchor ids of the three attention stages (random start) and
+        the clustering-init ids (centre start, None where the clustering
+        runs its own FPS) of the 2B clouds; every row is independent, so one
+        loop serves src and tgt. The starts are drawn from `generator` as
+        one (2B,) draw a loop, src rows first: with `recompute_anchors` one
+        draw for each stage in stage order, else one draw."""
+        cfg = self.cfg
+        km, lk = cfg.km_clusters, self.loop_kernels
+        if cfg.recompute_anchors:
+            return tuple(farthest_point_sample(both, km, generator=generator,
+                                               use_kernel=lk)
+                         for _ in range(3)), None
+        if km == cfg.n_clusters:
             # anchors and clustering init share one FPS loop
-            return fps_combined(both, km, generator, self.loop_kernels)
-        return farthest_point_sample(both, km, generator=generator,
-                                     use_kernel=self.loop_kernels), None
+            ids, center_ids = fps_combined(both, km, generator, lk)
+        else:
+            ids = farthest_point_sample(both, km, generator=generator,
+                                        use_kernel=lk)
+            center_ids = None
+        return (ids,) * 3, center_ids
+
+    def _block(self, module, *args):
+        """A transformer block or conv head: through `_remat` in training
+        with cfg.remat, else called directly."""
+        if self.cfg.remat and self.training:
+            return _remat(module, *args)
+        return module(*args)
 
     def _encode(self, clouds):
         """DGCNN features (B, N, D) and the angle features (B, N, pos_k) of
@@ -217,7 +276,7 @@ class GMMReg(nn.Module):
         B = both.shape[0] // 2
         g_all, pi_all, n_all, nf_all = wkeans_plus(
             both, f_all, o_all, cfg.n_clusters, iters=cfg.em_iters,
-            tau=cfg.tau, init_ids=center_ids)
+            tau=cfg.tau, init_ids=center_ids, use_kernel=self.loop_kernels)
         rot, trans, _, _ = gmm_svd(n_all[:B], n_all[B:], nf_all[:B], nf_all[B:],
                                    pi_all[:B], pi_all[B:], is_sk=cfg.is_sk,
                                    softmax_temp=cfg.softmax_temp)
@@ -226,50 +285,54 @@ class GMMReg(nn.Module):
         return rot, trans, o_all, clu
 
     def _forward_stacked(self, both, anchor_ids, center_ids):
+        """src and tgt as one (2B, N, .) batch; anchor_ids holds the ids of
+        the three stages."""
         cfg = self.cfg
+        blk = self._block
         B, N, _ = both.shape
         B //= 2
 
         feats, alpha = self._encode(both)
-        anchor0 = index_points(feats, anchor_ids)
+        anchor0 = index_points(feats, anchor_ids[0])
         t_all = feats + self.pos_enc(both, cfg.pos_k, alpha=alpha)
-        t_all = self.conv1(self.sattn1(t_all, anchor0) + t_all)
+        t_all = blk(self.conv1, blk(self.sattn1, t_all, anchor0) + t_all)
 
-        anchor1 = index_points(t_all, anchor_ids)
+        anchor1 = index_points(t_all, anchor_ids[1])
         swapped = torch.cat([anchor1[B:], anchor1[:B]], dim=0)
-        f_all = self.cattn(t_all, swapped) + t_all
+        f_all = blk(self.cattn, t_all, swapped) + t_all
 
-        o_all = self.proj(f_all)                             # (2B, N, 1)
+        o_all = blk(self.proj, f_all)                        # (2B, N, 1)
         wo_all = torch.cat(self._overlap_scores(f_all[:B], f_all[B:],
                                                 o_all[:B], o_all[B:]), dim=0)
-        fo_all = self.conv2(torch.cat([f_all, wo_all, o_all], dim=-1))
-        o_all = torch.sigmoid(self.overlap(fo_all).float()).reshape(2 * B, N)
+        fo_all = blk(self.conv2, torch.cat([f_all, wo_all, o_all], dim=-1))
+        o_all = torch.sigmoid(blk(self.overlap, fo_all).float()).reshape(2 * B, N)
 
-        anchor2 = index_points(f_all, anchor_ids)
-        f_all = (self.sattn2(f_all, anchor2) + f_all).float()
+        anchor2 = index_points(f_all, anchor_ids[2])
+        f_all = (blk(self.sattn2, f_all, anchor2) + f_all).float()
         return self._solve(both, f_all, o_all, center_ids)
 
     def _forward_per_cloud(self, both, anchor_ids, center_ids):
-        """The training forward: every module runs on src, then on tgt."""
+        """Every module on src, then on tgt (the training default)."""
         cfg = self.cfg
+        blk = self._block
         B, N, _ = both.shape
         B //= 2
         pk = cfg.pos_k
         clouds = (both[:B], both[B:])
-        ids = (anchor_ids[:B], anchor_ids[B:])
+        ids = [(a[:B], a[B:]) for a in anchor_ids]           # [stage][cloud]
         enc = [self._encode(c) for c in clouds]
         t = [f + self.pos_enc(c, pk, alpha=a) for c, (f, a) in zip(clouds, enc)]
-        t = [self.conv1(self.sattn1(ti, index_points(f, i)) + ti)
-             for ti, (f, _), i in zip(t, enc, ids)]
-        anchor1 = [index_points(ti, i) for ti, i in zip(t, ids)]
-        f = [self.cattn(t[0], anchor1[1]) + t[0],
-             self.cattn(t[1], anchor1[0]) + t[1]]
-        o = [self.proj(fi) for fi in f]
+        t = [blk(self.conv1, blk(self.sattn1, ti, index_points(f, i)) + ti)
+             for ti, (f, _), i in zip(t, enc, ids[0])]
+        anchor1 = [index_points(ti, i) for ti, i in zip(t, ids[1])]
+        f = [blk(self.cattn, t[0], anchor1[1]) + t[0],
+             blk(self.cattn, t[1], anchor1[0]) + t[1]]
+        o = [blk(self.proj, fi) for fi in f]
         wo = self._overlap_scores(f[0], f[1], o[0], o[1])
-        fo = [self.conv2(torch.cat([fi, woi, oi], dim=-1))
+        fo = [blk(self.conv2, torch.cat([fi, woi, oi], dim=-1))
               for fi, woi, oi in zip(f, wo, o)]
-        o_all = torch.cat([torch.sigmoid(self.overlap(x).float()).reshape(B, N)
+        o_all = torch.cat([torch.sigmoid(blk(self.overlap, x).float()).reshape(B, N)
                            for x in fo], dim=0)
-        f_all = torch.cat([(self.sattn2(fi, index_points(fi, i)) + fi).float()
-                           for fi, i in zip(f, ids)], dim=0)
+        f_all = torch.cat([(blk(self.sattn2, fi, index_points(fi, i)) + fi).float()
+                           for fi, i in zip(f, ids[2])], dim=0)
         return self._solve(both, f_all, o_all, center_ids)

@@ -36,7 +36,8 @@ class BN(nn.Module):
     0) and updates running = 0.9 running + 0.1 batch with that same biased
     variance (`F.batch_norm` would store the unbiased one); in eval it uses
     the running statistics. The affine is applied in float32 and the result
-    cast to the compute type."""
+    cast to the compute type. `update_stats=False` keeps the running
+    statistics in training (the recompute of `nn.gmmreg._remat`)."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -45,6 +46,7 @@ class BN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
@@ -52,9 +54,10 @@ class BN(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = x32.mean(axes)
             var = ((x32 * x32).mean(axes) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
-                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                    self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + 1e-5) * self.weight

@@ -7,7 +7,9 @@ loop of tensor operations (`ops.cuda_fps.fps_reference`); with
 (`ops.cuda_fps.fps`), the counterpart of the JAX package's
 `use_pallas=True` (`ogmm_tpu/ops/fps.py:44-52`). `nn.gmmreg.GMMReg` passes
 its `loop_kernels` flag. The random start of the non-centre variant comes
-from an explicit `torch.Generator`.
+from an explicit `torch.Generator`. The kernel and its plain version take
+3-D points; rows of another width (`ops.gmm.wkeans` over features) take a
+loop of tensor operations over any width, whatever `use_kernel` says.
 """
 from __future__ import annotations
 
@@ -30,9 +32,26 @@ def _center_state(xyz: torch.Tensor):
     return dist, dist.argmax(dim=-1)
 
 
+@torch.no_grad()
+def _fps_any_width(x: torch.Tensor, npoint: int, distance: torch.Tensor,
+                   farthest: torch.Tensor) -> torch.Tensor:
+    """The FPS recurrence over (R, N, C) rows of any width C, the squared
+    distance summed by `sum(-1)`."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    distance = distance.clone()
+    ids = [farthest]
+    for _ in range(npoint - 1):
+        d = ((x - x[rows, ids[-1]].unsqueeze(1)) ** 2).sum(-1)
+        distance = torch.minimum(distance, d)
+        ids.append(distance.argmax(dim=-1))
+    return torch.stack(ids, dim=1)[:, :npoint].long()
+
+
 def _fps_loop(xyz: torch.Tensor, npoint: int, distance: torch.Tensor,
               farthest: torch.Tensor, use_kernel: bool) -> torch.Tensor:
     """The FPS recurrence from an explicit (distance, start) state."""
+    if xyz.shape[-1] != 3:
+        return _fps_any_width(xyz, npoint, distance, farthest)
     if use_kernel:
         return cuda_fps.fps(xyz, npoint, distance, farthest)
     return cuda_fps.fps_reference(xyz, npoint, distance, farthest)
@@ -42,7 +61,7 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           is_center: bool = False,
                           generator: torch.Generator | None = None,
                           use_kernel: bool = False) -> torch.Tensor:
-    """Sample `npoint` indices per cloud: xyz (B, N, 3) -> int64 (B, npoint).
+    """Sample `npoint` indices per cloud: xyz (B, N, C) -> int64 (B, npoint).
     `is_center` starts from the point farthest from the centroid; otherwise
     from a random index drawn from `generator` (index 0 without one).
     `use_kernel` runs the chain as one kernel launch."""

@@ -1,11 +1,13 @@
-"""GMM moment estimation and the overlap-weighted Sinkhorn-EM clustering."""
+"""GMM moment estimation, the overlap-weighted Sinkhorn-EM clustering, the
+Sinkhorn k-means and the anchor helpers of the JAX package's
+`ops/gmm.py`."""
 from __future__ import annotations
 
 import torch
 
 from ogmm_tpu_torch.ops import cuda_em
-from ogmm_tpu_torch.ops.common import (index_points, matmul32, nn1,
-                                       square_distance)
+from ogmm_tpu_torch.ops.common import (index_points, l2_normalize,
+                                       matmul32, nn1, square_distance)
 from ogmm_tpu_torch.ops.cuda_em import sinkhorn_em
 from ogmm_tpu_torch.ops.fps import farthest_point_sample
 from ogmm_tpu_torch.ops.sinkhorn import sinkhorn
@@ -29,6 +31,46 @@ def gmm_params(gamma: torch.Tensor, pts: torch.Tensor,
     var = ((diff * diff).sum(-1) * gamma).sum(dim=1) / npi   # (B, J)
     eye = torch.eye(D, dtype=pts.dtype, device=pts.device)
     return pi, mu, var[..., None, None] * eye
+
+
+def og_params(pts: torch.Tensor, gamma: torch.Tensor,
+              o_score: torch.Tensor | None = None,
+              feature: torch.Tensor | None = None):
+    """Overlap-guided GMM parameters with a non-overlap component: gamma
+    (B, N, J) weighted by the overlap score (B, N) and a (1 - score) column
+    appended. Returns pi (B, J[+1]), mu (B, J[+1], 3)[, the feature means]."""
+    if o_score is not None:
+        score = torch.cat([gamma * o_score.unsqueeze(-1),
+                           (1.0 - o_score).unsqueeze(-1)], dim=-1)
+    else:
+        score = gamma
+    pi, mu = gmm_params(score, pts)
+    if feature is not None:
+        return pi, mu, gmm_params(score, feature)[1]
+    return pi, mu
+
+
+def wkeans(x: torch.Tensor, num_clusters: int, dst: str = "feats",
+           iters: int = 10):
+    """Sinkhorn k-means over (B, N, C) coordinates (`dst='eu'`, squared
+    distance) or features (else: rows l2-normalised, cost 2 - 2 cos),
+    seeded by a centre-start FPS over x (the plain FPS loop for C != 3).
+    Returns (gamma (B, N, J), pi (B, J), centroids (B, J, C))."""
+    B, N, _ = x.shape
+    centroids = index_points(x, farthest_point_sample(x, num_clusters,
+                                                      is_center=True))
+    gamma = x.new_zeros(B, N, num_clusters)
+    pi = x.new_full((B, num_clusters), 1.0 / num_clusters)
+    for _ in range(iters):
+        if dst == "eu":
+            cost = square_distance(x, centroids)
+        else:
+            x = l2_normalize(x)
+            centroids = l2_normalize(centroids)
+            cost = 2.0 - 2.0 * matmul32(x, centroids.transpose(-1, -2))
+        gamma = N * sinkhorn(cost, max_iter=10)[0]
+        pi, centroids = gmm_params(gamma, x)
+    return gamma, pi, centroids
 
 
 def em_route(N: int, K: int) -> str:
@@ -70,19 +112,22 @@ def _em(xyz, o, node_xyz0, iters, tau):
 
 def wkeans_plus(xyz: torch.Tensor, feats: torch.Tensor,
                 o_scores: torch.Tensor, n_clusters: int, iters: int = 10,
-                tau: float = 1.0, init_ids: torch.Tensor | None = None):
+                tau: float = 1.0, init_ids: torch.Tensor | None = None,
+                use_kernel: bool = False):
     """Overlap-weighted Sinkhorn-EM clustering.
 
     E-step: Sinkhorn on cdist(xyz, nodes)/tau with the normalised overlap
     scores as row marginal; M-step: weighted means. The EM carries no
     gradient (gamma, pi and the nodes come back detached); only the final
     node_feats moments do, through `feats`. `init_ids` overrides the
-    centre-seeded FPS initialisation (see `fps_combined`).
+    centre-seeded FPS initialisation (see `fps_combined`); `use_kernel`
+    runs that FPS as one kernel launch.
 
     Returns (gamma (B,N,K), pi (B,K), node_xyz (B,K,3), node_feats (B,K,C)).
     """
     ids = (init_ids if init_ids is not None
-           else farthest_point_sample(xyz, n_clusters, is_center=True))
+           else farthest_point_sample(xyz, n_clusters, is_center=True,
+                                      use_kernel=use_kernel))
     node_xyz0 = index_points(xyz, ids)
     o = o_scores.detach()
     o = o / o.sum(dim=-1, keepdim=True).clamp_min(1e-4)
@@ -98,3 +143,27 @@ def get_local_corrs(xyz: torch.Tensor, xyz_mu: torch.Tensor,
     gradient; the gather does."""
     idx = nn1(xyz_mu.detach(), xyz.detach())[1]
     return index_points(feats, idx)
+
+
+def get_anchor_corrs(xyz: torch.Tensor, feats: torch.Tensor,
+                     num_clusters: int, dst: str = "eu", iters: int = 10,
+                     is_fast: bool = True,
+                     generator: torch.Generator | None = None,
+                     anchor_ids: torch.Tensor | None = None):
+    """Anchors and their features. `is_fast`: FPS anchors (random start from
+    `generator`, index 0 without one), or the `anchor_ids` given, and the
+    features at them; else `wkeans` over xyz, the features' moments under
+    its gamma, and each mean's nearest point as its id. Returns
+    (feats_anchor (B, J, C): the features of the point nearest each anchor
+    position, feats_pos (B, J, C), xyz_mu (B, J, 3), anchor_ids (B, J))."""
+    if is_fast:
+        if anchor_ids is None:
+            anchor_ids = farthest_point_sample(xyz, num_clusters,
+                                               generator=generator)
+        xyz_mu = index_points(xyz, anchor_ids)
+        feats_pos = index_points(feats, anchor_ids)
+    else:
+        gamma, _, xyz_mu = wkeans(xyz, num_clusters, dst, iters)
+        feats_pos = gmm_params(gamma, feats)[1]
+        anchor_ids = square_distance(xyz_mu, xyz).argmin(dim=-1)
+    return get_local_corrs(xyz, xyz_mu, feats), feats_pos, xyz_mu, anchor_ids

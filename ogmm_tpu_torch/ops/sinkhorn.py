@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from ogmm_tpu_torch.ops.common import l2_normalize, matmul32, square_distance
+
 
 def log_boltzmann_kernel(cost, u, v, epsilon):
     """(-C + u 1^T + 1 v^T) / eps."""
@@ -31,3 +33,16 @@ def sinkhorn(cost: torch.Tensor, p: torch.Tensor | None = None,
     gamma = log_boltzmann_kernel(cost, u, v, epsilon).exp()
     loss = (gamma * cost).sum(dim=(-2, -1))
     return gamma, loss.mean()
+
+
+def contrastsk(x: torch.Tensor, y: torch.Tensor, p: torch.Tensor | None = None,
+               epsilon: float = 1e-3, max_iter: int = 30, dst: str = "eu"):
+    """Sinkhorn correspondence between two point or feature sets (B, N, D)
+    and (B, M, D): cost the squared distance (`dst='eu'`) or 2 - 2 cos.
+    `p` weights the y axis (sinkhorn's column marginal), as in the original,
+    whose `p` lands in that slot; rows stay uniform. Returns (gamma, loss)."""
+    if dst == "eu":
+        cost = square_distance(x, y)
+    else:
+        cost = 2.0 - 2.0 * matmul32(l2_normalize(x), l2_normalize(y).transpose(-1, -2))
+    return sinkhorn(cost, p=None, q=p, epsilon=epsilon, max_iter=max_iter)

@@ -69,12 +69,53 @@ class CheckpointManager:
     (`config.json`)."""
 
     def __init__(self, root: str, cfg: Config, model_name: str = "GMMReg"):
-        self.dir = os.path.abspath(
-            os.path.join(root, "checkpoints", model_name, "models"))
+        self.dir = self._models_dir(root, model_name)
         os.makedirs(self.dir, exist_ok=True)
         self.cfg = cfg
-        with open(os.path.join(self.dir, "config.json"), "w") as f:
+        self.save_config(cfg)
+
+    @staticmethod
+    def _models_dir(root: str, model_name: str) -> str:
+        return os.path.abspath(
+            os.path.join(root, "checkpoints", model_name, "models"))
+
+    @property
+    def config_path(self) -> str:
+        return os.path.join(self.dir, "config.json")
+
+    def save_config(self, cfg: Config) -> None:
+        """Write the Config beside the checkpoints, refusing to overwrite a
+        record whose `model` section or `model_name` differs: a run resumed
+        at the same path would read the stored weights as another model.
+        Changed `data` and `train` sections (a new learning rate, more
+        epochs) update the record."""
+        prev = self.load_config()
+        if prev is not None:
+            prev_d, cfg_d = config_to_dict(prev), config_to_dict(cfg)
+            if (prev_d["model"] != cfg_d["model"]
+                    or prev_d["model_name"] != cfg_d["model_name"]):
+                raise ValueError(
+                    f"refusing to overwrite {self.config_path}: the existing "
+                    "checkpoint was trained with another model config, whose "
+                    "weights would be read as this one's. Use a fresh "
+                    "model_path, or delete the old checkpoint directory.")
+            if prev_d == cfg_d:
+                return
+        with open(self.config_path, "w") as f:
             json.dump(config_to_dict(cfg), f, indent=1)
+
+    def load_config(self) -> Optional[Config]:
+        return self.read_config_at(self.dir)
+
+    @staticmethod
+    def read_config_at(models_dir: str) -> Optional[Config]:
+        """The Config saved in `models_dir`, or None; reads only (creates no
+        directory, for mistyped or read-only paths)."""
+        path = os.path.join(models_dir, "config.json")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return config_from_dict(json.load(f))
 
     def path(self, name: str) -> str:
         return os.path.join(self.dir, f"{name}.pt")

@@ -12,6 +12,9 @@ PyTorch/CUDA port goes.
                                           [--dtype float32] [--batch B] [--fit]
     python3 scripts/torch_port_profile.py --model DeepGMR [--train]
                                           [--loop_kernels] [--n_points N]
+    python3 scripts/torch_port_profile.py --preset serve [--n_points N]
+    python3 scripts/torch_port_profile.py [--preset indoor] [--n_points N]
+                                          --refine plane|grid
     python3 scripts/torch_port_profile.py --probe knn_stream [--parent DIR]
     python3 scripts/torch_port_profile.py --probe icp
     python3 scripts/torch_port_profile.py --probe bwd_edge
@@ -53,8 +56,14 @@ does not apply) at the modelnetdv geometry, B=24 pairs of N=768 (or
 --n_points) source points against 2N target points (a rotated copy and as
 many other points), the stages being the backbone and the clustering head
 on each cloud, the moments, the alignment and ICP; with --train its train
-step. One JSON line at the end carries the same numbers with the card's
-name and power limit.
+step. `--preset serve`: `configs.serve()` (6 EM trips, bf16 body) in place
+of the bf16 `mnet` request. `--refine plane|grid`: after the forward, the
+returned pose refined as a caller would, point-to-plane
+(`ops.icp.refine_registration(..., pl=True)`, normals from the target's
+k=16 kNN) or point-to-point through the grid 1-NN (`use_grid=True`, the cap
+the densest cell needs, a multiple of 32), profiled as forward + refinement
+and as the refinement alone from a fixed pose. One JSON line at the end
+carries the same numbers with the card's name and power limit.
 
 `--probe` times variants of one kernel beside it, built from its source with
 a line changed (not shipped, never on a path), to say where its time goes:
@@ -194,6 +203,29 @@ def indoor_pair(rs, n):
                     [0, 0, 1]], np.float32)
     tgt = src @ rot.T + np.array([0.1, -0.05, 0.02], np.float32)
     return src, tgt[:, rs.permutation(n)].astype(np.float32)
+
+
+def refiner(how, reg, src, tgt):
+    """fn(rot, trans) refining a returned pose of reg's request on (src,
+    tgt): point-to-plane ('plane') or point-to-point through the grid 1-NN
+    ('grid', its cap the densest cell's count rounded up to 32)."""
+    from ogmm_tpu_torch.core import se3
+    from ogmm_tpu_torch.ops.grid_nn import build_grid
+    from ogmm_tpu_torch.ops.icp import icp_point_to_point, refine_registration
+    m = reg.cfg.model
+    s, t = reg._as_input(src), reg._as_input(tgt)
+    if how == "plane":
+        return lambda rot, trans: refine_registration(
+            s, t, rot, trans, m.overlap_radius, m.icp_iters, pl=True)
+    thr = 2.0 * m.overlap_radius
+    occ = build_grid(t, thr).max_occupancy.max().item()
+    cap = -(-occ // 32) * 32
+
+    def fn(rot, trans):
+        return icp_point_to_point(s, t, se3.integrate(rot, trans), thr,
+                                  m.icp_iters, use_grid=True, grid_cap=cap)
+    fn.cap = cap
+    return fn
 
 
 def stage_times(reg, src, tgt):
@@ -1313,7 +1345,10 @@ def main():
     ap.add_argument("--n_points", type=int, default=None,
                     help="points a cloud (above 1024: the shared kNN graph; "
                          "default 717, 35000 with --preset indoor)")
-    ap.add_argument("--preset", choices=["mnet", "indoor"], default="mnet")
+    ap.add_argument("--preset", choices=["mnet", "serve", "indoor"], default="mnet")
+    ap.add_argument("--refine", choices=["plane", "grid"], default=None,
+                    help="refine the returned pose point-to-plane or through "
+                         "the grid 1-NN (see above)")
     ap.add_argument("--model", choices=["GMMReg", "DeepGMR"], default="GMMReg",
                     help="DeepGMR: the modelnetdv geometry, N against 2N "
                          "points (default N=768), float32 body")
@@ -1358,6 +1393,9 @@ def main():
                  "--train")
     if args.fit and not (indoor and args.train):
         sys.exit("--fit needs --preset indoor --train")
+    if args.refine and (args.train or dgmr):
+        sys.exit("--refine refines a GMMReg request; profile it without "
+                 "--train and --model DeepGMR")
     rs = np.random.RandomState(0)
     if indoor and args.train:
         return indoor_train(args, N, rs)
@@ -1371,7 +1409,8 @@ def main():
         tgt = np.concatenate([src + 0.05, rs.randn(B, N, 3) * 0.3], axis=1)
         tgt = tgt[:, rs.permutation(2 * N)].astype(np.float32)
     else:
-        cfg = configs.mnet(model=configs.ModelConfig(dtype=args.dtype))
+        cfg = (configs.serve() if args.preset == "serve" else configs.mnet())
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype=args.dtype))
         src = (rs.randn(B, N, 3) * 0.3).astype(np.float32)
         tgt = src[:, rs.permutation(N)] + 0.05
     if args.fused_edges:
@@ -1408,6 +1447,17 @@ def main():
             result[key] = r = profile_call(
                 lambda: reg(src, tgt, refine=refine))
             report(key, r)
+        if args.refine:
+            refine_with = refiner(args.refine, reg, src, tgt)
+            key = f"forward_{args.refine}"
+            result[key] = r = profile_call(
+                lambda: refine_with(*reg(src, tgt, refine=False)[:2]))
+            report(key, r)
+            pose = reg(src, tgt, refine=False)[:2]
+            key = f"{args.refine}_alone"
+            result[key] = r = profile_call(lambda: refine_with(*pose))
+            report(key, r)
+            result["grid_cap"] = getattr(refine_with, "cap", None)
         result["stages_ms"] = stage_times(reg, src, tgt)
         print("stages (CUDA events, one request with ICP):")
     for k, v in sorted(result["stages_ms"].items(), key=lambda kv: -kv[1]):
@@ -1421,6 +1471,8 @@ def main():
     name += "_deepgmr" if dgmr else ""
     name += "_loop_kernels" if args.loop_kernels else ""
     name += "_fused_edges" if args.fused_edges else ""
+    name += "_serve" if args.preset == "serve" else ""
+    name += f"_refine_{args.refine}" if args.refine else ""
     name += "" if N == (35000 if indoor else 768 if dgmr else 717) else f"_n{N}"
     name += "_f32" if args.dtype == "float32" and not dgmr else ""
     name += ".json"

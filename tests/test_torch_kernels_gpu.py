@@ -364,7 +364,8 @@ def test_dgcnn_kernels_take_every_compiled_k(card, k, dtype, lim):
                                      (2, 90, 2000, 1), (1, 40, 40, 32),
                                      (24, 1433, 1433, 20), (24, 717, 717, 20),
                                      (24, 4096, 4096, 20), (4, 1000, 257, 32),
-                                     (3, 70, 40, 7), (2, 50, 3, 2)])
+                                     (3, 70, 40, 7), (2, 50, 3, 2),
+                                     (24, 717, 717, 16)])
 def test_knn_kernel_matches_plain(card, B, N, M, k):
     rs = np.random.RandomState(N + M + k)
     tgt = torch.tensor(rs.randn(B, M, 3).astype(np.float32) * 0.3, device=card)
@@ -726,7 +727,8 @@ def _morton(x):
 
 
 @pytest.mark.parametrize("B,N,M,k", [(2, 5000, 5000, 20), (1, 4100, 4097, 1),
-                                     (2, 37, 6000, 32), (1, 700, 4500, 16)])
+                                     (2, 37, 6000, 32), (1, 700, 4500, 16),
+                                     (1, 35000, 35000, 16)])
 @pytest.mark.parametrize("cull", [False, True])
 def test_knn_stream_kernel_matches_plain(card, B, N, M, k, cull):
     rs = np.random.RandomState(N + k)
@@ -1312,3 +1314,38 @@ def test_deepgmr_train_step_kernels_match_plain(card):
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
     rel = ((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()).item()
     assert rel <= 1e-3
+
+
+@pytest.mark.parametrize("B,N,launched", [
+    (4, 717, {"knn": 1}),                                  # dense trips
+    (2, 1433, {"knn": 1, "nn1": 30}),
+    (1, 5000, {"knn_stream": 1, "nn1_stream": 30})])       # spatial route
+def test_point_to_plane_on_the_card_matches_the_cpu(card, B, N, launched):
+    """refine_registration(pl=True): the normals through the kNN kernels
+    (k = 16) and the trips through the route's 1-NN, against the same call
+    on the CPU's plain versions."""
+    from ogmm_tpu_torch.ops.icp import refine_registration
+    rs = np.random.RandomState(N)
+    src = _surface(rs, card, B, N)
+    def about_z(a):
+        c, s = np.cos(a), np.sin(a)
+        z, o = np.zeros_like(a), np.ones_like(a)
+        m = np.stack([np.stack([c, -s, z], -1), np.stack([s, c, z], -1),
+                      np.stack([z, z, o], -1)], -2)
+        return torch.tensor(m.astype(np.float32), device=card)
+
+    a = rs.uniform(-0.3, 0.3, B)
+    rot = about_z(a)
+    tr = torch.tensor(rs.uniform(-0.1, 0.1, (B, 3)).astype(np.float32), device=card)
+    tgt = src @ rot.transpose(1, 2) + tr[:, None]
+    rot0 = about_z(a + 0.03)
+    dispatch.reset_launch_counts()
+    got = refine_registration(src, tgt, rot0, tr + 0.005, 0.035, pl=True)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts == {**NONE, **launched}
+    want = refine_registration(src.cpu(), tgt.cpu(), rot0.cpu(),
+                               (tr + 0.005).cpu(), 0.035, pl=True)
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4
+    assert (got[0] - rot).abs().max().item() <= 1e-3
+

@@ -292,10 +292,20 @@ def test_configs_translate_or_raise(preset):
                                           ("stack_train", True),
                                           ("remat", True),
                                           ("stack_eval", False)])
-def test_options_that_are_not_ported_raise(option, value):
+def test_model_options_round_trip(option, value):
+    """A JAX config with the option's non-default value builds a port
+    config and a GMMReg that carry it, and the port's dictionary gives it
+    back to the JAX package unchanged; an unknown option raises."""
     d = jconfigs.config_to_dict(jconfigs.mnet())
     d["model"][option] = value
-    with pytest.raises(NotImplementedError, match=option):
+    cfg = tconfigs.config_from_dict(d)
+    assert getattr(cfg.model, option) == value
+    assert getattr(TGMMReg(cfg.model).cfg, option) == value
+    back = jconfigs.config_from_dict(tconfigs.config_to_dict(cfg))
+    assert getattr(back.model, option) == value
+    assert back.model == jconfigs.config_from_dict(d).model
+    d["model"]["no_such_option"] = value
+    with pytest.raises(ValueError, match="no_such_option"):
         tconfigs.config_from_dict(d)
 
 

@@ -45,6 +45,12 @@ def test_the_data_pipeline_and_the_cli_are_covered():
             "data/loader.py", "train/cli.py", "train/__main__.py"} <= names
 
 
+def test_the_model_surface_is_covered():
+    names = {str(p.relative_to(PKG)) for p in MODULES}
+    assert {"compat.py", "data/geometry.py", "ops/grid_nn.py", "ops/icp.py",
+            "api.py", "train/checkpoint.py"} <= names
+
+
 def test_the_kernels_of_every_slice_are_covered():
     from ogmm_tpu_torch.ops import dispatch
     names = {str(p.relative_to(PKG)) for p in MODULES}
