@@ -147,6 +147,21 @@ fatal on failure:
              without it (loss and statistics bit-equal, peak memory); (f)
              knn at (24, 717, 717, k=16) and knn_stream at (1, 35000, 35000,
              k=16) against their plain versions (`at_surface`)
+ 20. distributed   distribution over torch.distributed: (a)
+             `Registrar.sharded` at world 1 over NCCL (the indoor request,
+             B=1, N=35,000, float32 body) against the unsharded request on
+             the same pair, with and without ICP and at one EM trip
+             (launches, host and busy ms, peak memory); (b) the same at
+             world 2, two spawned processes on the one card over gloo, once
+             gloo's all_reduce, all_gather and broadcast are seen to take
+             CUDA tensors; (c) the data-parallel step at B=24, N=717,
+             float32 and bf16, at world 1 and 2 against the single-process
+             step on the same 24 pairs, the ranks' parameters and
+             statistics bit-equal; (d) `python -m ogmm_tpu_torch.train
+             --multihost` under torchrun's environment at world 1; rows
+             11-13 at world 2's sharded shapes against their plain versions
+             (`at_sp`). Two processes on one card check the arithmetic and
+             the shard-shaped kernels, not scaling
 
 `python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
 (build always runs; the names are those of PHASES below) and prints their
@@ -3402,10 +3417,453 @@ def surface_phase(_):
                       "refine": refined, "options": options, "phase_s": secs}
 
 
+# ------------------------------------------------ distribution (A.7)
+
+# limits, the sharded request against the unsharded one on the same pair
+# (float32 body): the two build their kNN graph by other routes (the cross
+# graph of each process's rows against the whole cloud, sorted against the
+# joint box, against the v-space self graph), sum the InstanceNorm, EM,
+# Sinkhorn and Procrustes moments in other orders and all-reduce them; the
+# overlap head is the same streamed kernel. So the overlaps agree to
+# float32 round-off through ~25 layers, and the EM's ten trips amplify the
+# round-off chaotically (ROADMAP.md C, "EM divergence"): the pose is held
+# loosely after ten trips, tightly after one, and ICP pulls both to one
+# minimum.
+LIM_SP_OVERLAP = 1e-3
+LIM_SP_ROT_DEG = 1.0      # ten EM trips (phase 3's bar)
+LIM_SP_TRANS = 0.05       # ten EM trips, cloud extent ~1
+LIM_SP_ROT1_DEG = 0.01    # one EM trip
+LIM_SP_ICP_DEG = 0.05     # ten EM trips and 30 ICP trips
+# the data-parallel step against the single-process step on the same
+# global batch: only the BatchNorm moments' summation order differs (two
+# passes over the group against one); the ten EM trips amplify that into
+# the loss and the gradients as they do a kernel's round-off (the train
+# phase's limits); the running statistics are computed before the EM
+LIM_DP_STATS = 1e-3       # relative, each buffer
+W_SP = 2                  # processes on the card for part (b)
+
+
+def _flat(tensors):
+    return torch.cat([t.detach().float().reshape(-1).cpu() for t in tensors])
+
+
+def _dp_step(cfg, batch, group=None):
+    """One step from the seeded state (random FPS starts from its generator)
+    on the global batch: loss, the gradients, buffers and parameters after
+    it (flat, CPU), its launches, host ms of five more steps, busy ms of
+    one."""
+    st = create_train_state(cfg, 10, seed=0, device=DEV, group=group)
+    step = make_train_step(cfg)
+    m, launches = _counted(lambda: step(st, batch))
+    grads = _flat(torch.zeros_like(p) if p.grad is None else p.grad
+                  for p in st.model.parameters())
+    bufs = {k: b.detach().float().cpu() for k, b in st.model.named_buffers()}
+    params = _flat(st.model.parameters())
+    loss = m["loss"][0].item()
+    _, t = _timed(lambda: step(st, batch), reps=5)
+    busy = _busy_ms(lambda: step(st, batch))["busy"]
+    return {"loss": loss, "grads": grads, "bufs": bufs, "params": params,
+            "host_ms": t["host_ms"], "busy_ms": busy, "peak_mib": t["peak_mib"],
+            "metrics_rows": int(m["loss"].shape[0]), "launches": launches}
+
+
+def _gloo_cuda_ok(group):
+    """all_reduce (sum, max), all_gather and broadcast on CUDA tensors over
+    the gloo group, each checked; (ok, message)."""
+    import torch.distributed as dist
+    r, w = dist.get_rank(group), dist.get_world_size(group)
+    try:
+        x = torch.full((4,), float(r + 1), device=DEV)
+        dist.all_reduce(x, group=group)
+        y = torch.full((4,), float(r + 1), device=DEV)
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+        parts = [torch.empty(2, device=DEV) for _ in range(w)]
+        dist.all_gather(parts, torch.full((2,), float(r), device=DEV), group=group)
+        z = torch.full((3,), float(r + 7), device=DEV)
+        dist.broadcast(z, 0, group=group)
+        ok = (x.eq(w * (w + 1) / 2).all() and y.eq(w).all()
+              and all(p.eq(i).all() for i, p in enumerate(parts))
+              and z.eq(7).all() and x.is_cuda and parts[0].is_cuda)
+        return bool(ok), "all_reduce (sum, max), all_gather, broadcast on cuda"
+    except Exception as e:                       # reported, part (b) left out
+        return False, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def _dist_rank(rank, world, device, pair, batch):
+    """A process of part (b)/(c) at world W over gloo on the one card: the
+    gloo check, the sharded request (forward, with ICP), the step at both
+    bodies on this rank's half of the global batch."""
+    import torch.distributed as dist
+    group = dist.group.WORLD
+    ok, msg = _gloo_cuda_ok(group)
+    out = {"gloo_ok": ok, "gloo": msg}
+    if not ok:
+        return out
+    ops_dgcnn_train.BWD_KERNELS = False
+    reg = Registrar(configs.indoor(), seed=0, device=DEV)
+    src, tgt = (torch.tensor(a, device=DEV) for a in pair)
+    for refine in (False, True):
+        fn = reg.sharded(group, refine=refine)
+        fn(src, tgt)                                     # warm up
+        res, launches = _counted(lambda: fn(src, tgt))
+        _, t = _timed(lambda: fn(src, tgt), reps=2)
+        out[f"sp_{refine}"] = {"out": [o.float().cpu() for o in res],
+                               "launches": launches, **t}
+    out["sp_busy_ms"] = _busy_ms(lambda: fn(src, tgt))["busy"]
+    for dt in ("float32", "bfloat16"):
+        cfg = configs.mnet(model=configs.ModelConfig(dtype=dt))
+        out[f"dp_{dt}"] = _dp_step(cfg, batch, group)
+    return out
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_multihost_cli():
+    """(d) `python -m ogmm_tpu_torch.train --multihost` under torchrun's
+    environment at world 1 (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT set as torchrun sets them), two steps and an eval batch."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "ogmm_tpu_torch.train", "--multihost",
+             "--dataset", "synthetic", "--root", "synthetic:200",
+             "--batch_size", str(B), "--test_batch_size", str(B),
+             "--epochs", "1", "--steps_per_epoch", "2", "--model_path", tmp],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+        secs = time.perf_counter() - t0
+        saved = os.path.exists(os.path.join(tmp, "checkpoints", "GMMReg",
+                                            "models", "optim_model.pt"))
+    tail = (res.stdout + res.stderr).strip().splitlines()[-3:]
+    print(f"(d) CLI --multihost under torchrun's environment, world 1: exit "
+          f"{res.returncode} in {secs:.1f} s, checkpoint written {saved}; "
+          f"{' | '.join(tail)[-400:]}")
+    assert res.returncode == 0 and saved, res.stderr[-3000:]
+    return {"seconds": secs, "exit": res.returncode}
+
+
+def _sp_kernel_checks(rs, world=W_SP):
+    """Rows 11-13 at the sharded request's shapes at W processes, each
+    against its plain version, timed beside it with its bound: the cross
+    graph of one process's rows against the whole cloud (1, 35000 / W,
+    35000, 20), an ICP trip (1, 35000 / W, 35000) and the clustering's
+    (2, 16, 35000 / W), the head's (1, 35000 / W, 35000, 512)."""
+    n = N_INDOOR // world
+    full = torch.tensor(surface(rs, 1), device=DEV)
+    rows = full[:, :n]
+    box = (full.amin(dim=1, keepdim=True), full.amax(dim=1, keepdim=True))
+    qs = index_points(rows, stream.morton_order(rows, box))
+    ts = index_points(full, stream.morton_order(full, box))
+    lb = stream.pair_tile_bounds(qs, ts)
+    run = lambda: cuda_stream.knn_stream(qs, ts, KNN, diag_order=True,
+                                         stretch=world, cull_lb=lb)
+    idx = run()
+    torch.cuda.synchronize()
+    same = torch.equal(idx, stream.knn_stream_plain(qs, ts, KNN))
+    assert same, "knn_stream at the sharded shape differs from plain"
+    ms = cuda_ms(run, 10)
+    plain = cuda_ms(lambda: stream.knn_stream_plain(qs, ts, KNN), 1)
+    dk = _pair_d(qs, index_points(ts, idx[..., -1]))
+    pairs, share = _needed_pairs(lb, dk, n, N_INDOOR)
+    bound, by = _bound(9.0 * pairs, (qs.numel() + ts.numel()) * 4 + idx.numel() * 8)
+    knn_at = {"shape": [1, n, N_INDOOR, KNN], "max_abs_err": 0.0, "ms": ms,
+              "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+              "tile_pairs_needed": share}
+    print(f"knn_stream at the sharded shape (1, {n}, {N_INDOOR}, k={KNN}), "
+          f"stretch {world}: identical indices {same}; {ms:.4f} ms, plain "
+          f"{plain:.2f} ms, bound {bound:.5f} ms ({by}; {share:.4f} of the "
+          f"tile pairs needed)")
+
+    # an ICP trip: the process's rows of a cloud moved 0.6 degrees and 0.01
+    # off a rigid copy of the whole cloud, both sorted, the cull and the gate
+    src, tgt, rot, trans = rigid_copies(rs, surface(rs, 1))
+    src = _sorted(torch.tensor(src, device=DEV)[:, :n])
+    tgt = _sorted(torch.tensor(tgt, device=DEV))
+    a = 0.01
+    off = torch.tensor([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                        [0, 0, 1]], dtype=torch.float32, device=DEV)
+    r = torch.tensor(rot, device=DEV) @ off
+    moved = src @ r.transpose(1, 2) + torch.tensor(trans, device=DEV)[:, None] + 0.01
+    gate = (2.0 * configs.indoor().model.overlap_radius) ** 2
+    lb1 = stream.pair_tile_bounds(moved, tgt)
+    trip = lambda: cuda_stream.nn1_stream(moved, tgt, cull_lb=lb1,
+                                          max_dist_sq=gate, diag_order=True,
+                                          stretch=world)
+    d, i = trip()
+    torch.cuda.synchronize()
+    rd, ri = stream.nn1_stream_plain(moved, tgt)
+    inside = rd < gate
+    same1 = (torch.equal(d[inside], rd[inside]) and torch.equal(i[inside], ri[inside])
+             and bool((d[~inside] >= gate).all()))
+    local = torch.tensor(surface(rs, 2, n), device=DEV)
+    means = index_points(local, torch.randint(0, n, (2, 16), device=DEV)) + 0.003
+    dc, ic = cuda_stream.nn1_stream(means, local)
+    rdc, ric = stream.nn1_stream_plain(means, local)
+    same2 = torch.equal(dc, rdc) and torch.equal(ic, ric)
+    assert same1 and same2, "nn1_stream at the sharded shapes differs from plain"
+    ms1 = cuda_ms(trip, 20)
+    ms2 = cuda_ms(lambda: cuda_stream.nn1_stream(means, local), 20)
+    plain1 = cuda_ms(lambda: stream.nn1_stream_plain(moved, tgt), 2)
+    plain2 = cuda_ms(lambda: stream.nn1_stream_plain(means, local), 2)
+    pairs1, share1 = _needed_pairs(lb1, rd.clamp_max(gate), n, N_INDOOR)
+    bound1, by1 = _bound(9.0 * pairs1, moved.numel() * 4 + tgt.numel() * 4 + n * 12)
+    bound2, by2 = _bound(9.0 * 2 * 16 * n, (means.numel() + local.numel()) * 4 + 2 * 16 * 12)
+    nn1_at = {"shape": [1, n, N_INDOOR], "max_abs_err": 0.0, "ms": ms1,
+              "plain_ms": plain1, "bound_ms": bound1, "bound_by": by1,
+              "tile_pairs_needed": share1,
+              "clustering": {"shape": [2, 16, n], "ms": ms2, "plain_ms": plain2,
+                             "bound_ms": bound2, "bound_by": by2}}
+    print(f"nn1_stream at the sharded shapes: ICP trip (1, {n}, {N_INDOOR}) "
+          f"identical within the gate {same1}, {ms1:.4f} ms, plain {plain1:.2f}, "
+          f"bound {bound1:.6f} ({by1}); clustering (2, 16, {n}) identical "
+          f"{same2}, {ms2:.4f} ms, plain {plain2:.3f}, bound {bound2:.6f} ({by2})")
+
+    # the head: this process's queries against the whole other cloud
+    wp = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, _ = _features(rs, 1, n, EMB, dt)
+        _, k = _features(rs, 1, N_INDOOR, EMB, dt)
+        v = torch.tensor(rs.randn(1, N_INDOOR, 1).astype(np.float32), device=DEV)
+        out, lse = cuda_stream.wproject_stream_lse(q, k, v)
+        torch.cuda.synchronize()
+        rout, rlse = stream.wproject_stream_lse_plain(q, k, v)
+        err = max((out - rout).abs().max().item(), (lse - rlse).abs().max().item())
+        assert err <= LIM_WPROJECT, err
+        ms_w = cuda_ms(lambda: cuda_stream.wproject_stream_lse(q, k, v), 5)
+        plain_w = cuda_ms(lambda: stream.wproject_stream_lse_plain(q, k, v), 2)
+        nm = float(n) * N_INDOOR
+        if dt == torch.bfloat16:
+            t_ops = 2.0 * nm * EMB / PEAK_FLOPS["bf16"] + 4.0 * nm / PEAK_FLOPS["f32"]
+            t_bytes = ((n + N_INDOOR) * EMB * 2 + N_INDOOR * 4 + 2 * n * 4) / PEAK_BYTES
+            b_ms, b_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+        else:
+            # the kernel's products are three TF32 products on the tensor
+            # cores: its least time is the 3xTF32 bound (the CUDA cores' in
+            # `bound_ms_cuda_cores`)
+            b = f32_bound(2.0 * nm * EMB, 4.0 * nm,
+                          (n + N_INDOOR) * EMB * 4 + N_INDOOR * 4 + 2 * n * 4)
+            b_ms, b_by = b["ms_tf32x3"], "operations"
+        label = "bf16" if dt == torch.bfloat16 else "f32"
+        wp[label] = {"shape": [1, n, N_INDOOR, EMB], "max_abs_err": err,
+                     "ms": ms_w, "plain_ms": plain_w, "bound_ms": b_ms,
+                     "bound_by": b_by}
+        if dt == torch.float32:
+            wp[label]["bound_ms_cuda_cores"] = b["ms"]
+        print(f"wproject at the sharded shape (1, {n}, {N_INDOOR}, {EMB}) "
+              f"{label}: out/lse {err:.3g} from plain (limit {LIM_WPROJECT}); "
+              f"{ms_w:.3f} ms, plain {plain_w:.2f}, bound {b_ms:.4f} ({b_by})")
+    return {"knn_stream": knn_at, "nn1_stream": nn1_at,
+            "wproject": {**wp["bf16"], "f32": wp["f32"]}}
+
+
+def _rot_diff_deg(a, b):
+    """The angle of a^T b in degrees as atan2(|skew part|, (trace - 1) / 2)
+    in float64: acos of the trace alone resolves nothing below ~0.03
+    degrees, where float32 rotations are orthonormal only to ~1e-7."""
+    m = a.double().transpose(1, 2) @ b.double()
+    s = torch.stack([m[:, 2, 1] - m[:, 1, 2], m[:, 0, 2] - m[:, 2, 0],
+                     m[:, 1, 0] - m[:, 0, 1]], -1).norm(dim=-1) / 2
+    c = (m.diagonal(dim1=1, dim2=2).sum(-1) - 1) / 2
+    return torch.rad2deg(torch.atan2(s, c))
+
+
+def _sp_compare(tag, got, want):
+    """rotation degrees, translation, overlaps of a sharded request against
+    the unsharded one."""
+    rot = _rot_diff_deg(got[0].to(DEV), want[0]).max().item()
+    tr = (got[1].to(DEV) - want[1]).abs().max().item()
+    ov = max((got[2].to(DEV) - want[2]).abs().max().item(),
+             (got[3].to(DEV) - want[3]).abs().max().item())
+    print(f"{tag} against the unsharded request: rotation {rot:.4g} deg, "
+          f"translation {tr:.3g}, overlaps {ov:.3g}")
+    return {"rot_deg": rot, "trans": tr, "overlap": ov}
+
+
+def distributed(rs):
+    """Phase `distributed`: (a) the sharded indoor request at world 1 over
+    NCCL against the unsharded request on the same pair; (b) the same at
+    world 2, two processes on the one card over gloo (after checking that
+    gloo's all_reduce, all_gather and broadcast take CUDA tensors); (c) the
+    data-parallel train step at B=24, N=717, float32 and bf16, at world 1
+    (NCCL) and 2 (gloo, 12 pairs a rank) against the single-process step on
+    the same 24 pairs, the ranks' parameters bit-equal; (d) the CLI with
+    --multihost under torchrun's environment at world 1; rows 11-13 at the
+    sharded shapes against their plain versions. `BWD_KERNELS` is pinned
+    off (it raises under a group of more than one process)."""
+    import torch.distributed as dist
+    from ogmm_tpu_torch.parallel.launch import run_ranks
+    t_phase = time.perf_counter()
+    saved_bwd = ops_dgcnn_train.BWD_KERNELS
+    ops_dgcnn_train.BWD_KERNELS = False
+    kernels = _sp_kernel_checks(rs)
+    cfg = configs.indoor()
+    reg = Registrar(cfg, seed=0, device=DEV)
+    pair = rigid_copies(rs, surface(rs, 1))[:2]
+    src, tgt = (torch.tensor(a, device=DEV) for a in pair)
+    batch = make_batch(rs)
+    res = {"kernels": kernels}
+    tmp = tempfile.mkdtemp(prefix="ogmm_sp_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        # (a) world 1
+        ref, sp, launches, t_ref, t_sp, fns = {}, {}, {}, {}, {}, {}
+        for refine in (False, True):
+            ref[refine], t_ref[refine] = _timed(lambda: reg(src, tgt, refine=refine))
+            fn = fns[refine] = reg.sharded(group, refine=refine)
+            (sp[refine], launches[refine]) = _counted(lambda: fn(src, tgt))
+            _, t_sp[refine] = _timed(lambda: fn(src, tgt))
+        busy = {"sharded": _busy_ms(lambda: fns[True](src, tgt))["busy"],
+                "unsharded": _busy_ms(lambda: reg(src, tgt, refine=True))["busy"]}
+        busy_fwd = _busy_ms(lambda: fns[False](src, tgt))["busy"]
+        busy["unsharded_fwd"] = _busy_ms(lambda: reg(src, tgt, refine=False))["busy"]
+        expect = {"knn_stream": 1, "wproject": 2}
+        for refine, n_nn1 in ((False, 1), (True, 1 + cfg.model.icp_iters)):
+            got = dict(launches[refine])
+            assert {k: got.get(k, 0) for k in expect} == expect, got
+            assert got.get("nn1_stream", 0) == n_nn1, got
+            assert set(got) <= {"knn_stream", "wproject", "nn1_stream"}, got
+        cmp = {refine: _sp_compare(f"(a) world 1, {'with' if refine else 'without'} ICP",
+                                   sp[refine], ref[refine]) for refine in (False, True)}
+        cfg1 = cfg.replace(model=dataclasses.replace(cfg.model, em_iters=1))
+        reg1 = Registrar(cfg1, seed=0, device=DEV)
+        one = _sp_compare("(a) world 1, one EM trip",
+                          reg1.sharded(group, refine=False)(src, tgt),
+                          reg1(src, tgt, refine=False))
+        per_trip = None
+        if cmp[False]["rot_deg"] > LIM_SP_ROT1_DEG:
+            # the EM trip by trip: where the two start to part
+            per_trip = []
+            for trips in (2, 3, 4, 6, 8):
+                c = cfg.replace(model=dataclasses.replace(cfg.model, em_iters=trips))
+                r = Registrar(c, seed=0, device=DEV)
+                per_trip.append((trips, _sp_compare(
+                    f"(a) world 1, {trips} EM trips",
+                    r.sharded(group, refine=False)(src, tgt),
+                    r(src, tgt, refine=False))["rot_deg"]))
+        print(f"(a) sharded indoor request (B=1, N={N_INDOOR}, float32), world 1 "
+              f"over NCCL: launches {launches[False]} / {launches[True]} with ICP; "
+              f"host ms {t_sp[False]['host_ms']} / {t_sp[True]['host_ms']} "
+              f"(unsharded {t_ref[False]['host_ms']} / {t_ref[True]['host_ms']}); "
+              f"busy with ICP {busy['sharded']:.2f} ms (unsharded "
+              f"{busy['unsharded']:.2f}), forward {busy_fwd:.2f}; peak "
+              f"{t_sp[True]['peak_mib']:.0f} MiB (unsharded {t_ref[True]['peak_mib']:.0f})")
+        assert cmp[False]["overlap"] <= LIM_SP_OVERLAP and cmp[True]["overlap"] <= LIM_SP_OVERLAP
+        assert cmp[False]["rot_deg"] <= LIM_SP_ROT_DEG and cmp[False]["trans"] <= LIM_SP_TRANS
+        assert one["rot_deg"] <= LIM_SP_ROT1_DEG and one["overlap"] <= LIM_SP_OVERLAP
+        assert cmp[True]["rot_deg"] <= LIM_SP_ICP_DEG
+        res["a"] = {"launches": launches[False], "launches_icp": launches[True],
+                    "host_ms": t_sp[False]["host_ms"], "host_ms_icp": t_sp[True]["host_ms"],
+                    "events_ms": t_sp[False]["events_ms"],
+                    "unsharded_host_ms": t_ref[False]["host_ms"],
+                    "unsharded_host_ms_icp": t_ref[True]["host_ms"],
+                    "busy_ms_fwd": busy_fwd, "busy_ms_icp": busy["sharded"],
+                    "unsharded_busy_ms_icp": busy["unsharded"],
+                    "unsharded_busy_ms_fwd": busy["unsharded_fwd"],
+                    "peak_mib": t_sp[False]["peak_mib"],
+                    "peak_mib_icp": t_sp[True]["peak_mib"],
+                    "unsharded_peak_mib_icp": t_ref[True]["peak_mib"],
+                    "against_unsharded": cmp[False], "against_unsharded_icp": cmp[True],
+                    "one_em_trip": one, "per_trip_rot_deg": per_trip}
+        path_launches = {k: launches[True].get(k, 0) for k in dispatch.KERNELS}
+
+        # (c) world 1 and the single-process step
+        dp = {}
+        for dt in ("float32", "bfloat16"):
+            c = configs.mnet(model=configs.ModelConfig(dtype=dt))
+            dp[dt] = {"single": _dp_step(c, batch),
+                      "w1": _dp_step(c, batch, group)}
+        res["c"] = {}
+    finally:
+        dist.destroy_process_group()
+
+    # (b), (c) world 2: two processes on the one card over gloo
+    sp_pair = tuple(np.asarray(a) for a in pair)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_dist_rank, W_SP, backend="gloo", device="cuda",
+                      args=(sp_pair, batch), timeout=600)
+    w2_secs = time.perf_counter() - t0
+    ok = all(r["gloo_ok"] for r in ranks)
+    print(f"(b) gloo on CUDA tensors: {ranks[0]['gloo']}: "
+          f"{'works' if ok else 'FAILS'}; world {W_SP} in {w2_secs:.1f} s")
+    if ok:
+        for refine in (False, True):
+            outs = [r[f"sp_{refine}"]["out"] for r in ranks]
+            for o in outs[1:]:
+                assert all(torch.equal(a, b) for a, b in zip(o, outs[0])), \
+                    "the ranks' answers differ"
+            c2 = _sp_compare(f"(b) world {W_SP}, {'with' if refine else 'without'} ICP",
+                             outs[0], ref[refine])
+            lim_rot = LIM_SP_ICP_DEG if refine else LIM_SP_ROT_DEG
+            assert c2["overlap"] <= LIM_SP_OVERLAP and c2["rot_deg"] <= lim_rot
+            r0 = ranks[0][f"sp_{refine}"]
+            res.setdefault("b", {})[f"icp_{refine}"] = {
+                "against_unsharded": c2, "launches_rank0": r0["launches"],
+                "host_ms": r0["host_ms"], "peak_mib": r0["peak_mib"]}
+            print(f"(b) rank 0 launches {r0['launches']}, host ms "
+                  f"{r0['host_ms']}, peak {r0['peak_mib']:.0f} MiB")
+        res["b"]["busy_ms_icp_rank0"] = ranks[0]["sp_busy_ms"]
+        for n_nn1, refine in ((1, False), (1 + cfg.model.icp_iters, True)):
+            got = ranks[0][f"sp_{refine}"]["launches"]
+            assert got.get("knn_stream") == 1 and got.get("wproject") == 2 \
+                and got.get("nn1_stream") == n_nn1, got
+    else:
+        res["b"] = {"left_out": ranks[0]["gloo"]}
+        print("(b) and (c) at world 2 left out: gloo does not take CUDA tensors here")
+
+    for dt, d in dp.items():
+        single = d["single"]
+        rows = {"world 1": d["w1"]}
+        if ok:
+            rows[f"world {W_SP}"] = ranks[0][f"dp_{dt}"]
+            for r in ranks[1:]:
+                assert torch.equal(r[f"dp_{dt}"]["params"], ranks[0][f"dp_{dt}"]["params"])
+                assert all(torch.equal(r[f"dp_{dt}"]["bufs"][k], v)
+                           for k, v in ranks[0][f"dp_{dt}"]["bufs"].items())
+        out_dt = {"single_host_ms": single["host_ms"], "single_busy_ms": single["busy_ms"],
+                  "single_peak_mib": single["peak_mib"]}
+        for name, w in rows.items():
+            loss = abs(w["loss"] - single["loss"]) / abs(single["loss"])
+            grad = ((w["grads"] - single["grads"]).norm() / single["grads"].norm()).item()
+            stats = max(((w["bufs"][k] - v).norm() / v.norm().clamp_min(1e-12)).item()
+                        for k, v in single["bufs"].items())
+            print(f"(c) step {dt}, {name}: loss {w['loss']:.6f} against "
+                  f"{single['loss']:.6f} ({loss:.3g} relative, limit "
+                  f"{LIM_STEP_LOSS}), gradients {grad:.3g} (limit {LIM_STEP_GRAD}), "
+                  f"running statistics {stats:.3g} (limit {LIM_DP_STATS}); host ms "
+                  f"{[round(x, 2) for x in w['host_ms']]} (single "
+                  f"{[round(x, 2) for x in single['host_ms']]}), busy "
+                  f"{w['busy_ms']:.2f} (single {single['busy_ms']:.2f}), peak "
+                  f"{w['peak_mib']:.0f} MiB, metrics of {w['metrics_rows']} pairs")
+            assert w["metrics_rows"] == B
+            assert loss <= LIM_STEP_LOSS and grad <= LIM_STEP_GRAD and stats <= LIM_DP_STATS
+            out_dt[name.replace(" ", "")] = {
+                "loss_rel": loss, "grad_rel": grad, "stats_rel": stats,
+                "host_ms": w["host_ms"], "busy_ms": w["busy_ms"],
+                "peak_mib": w["peak_mib"]}
+        res["c"][dt] = out_dt
+    res["c"]["launches_w1_float32"] = dp["float32"]["w1"]["launches"]
+    res["c"]["launches_single_float32"] = dp["float32"]["single"]["launches"]
+    res["d"] = _run_multihost_cli()
+    ops_dgcnn_train.BWD_KERNELS = saved_bwd
+    secs = time.perf_counter() - t_phase
+    res["phase_s"] = secs
+    print(f"distributed phase: {secs:.1f} s")
+    return path_launches, res
+
+
 PHASES = ("kernels", "serve", "train", "cli", "icp", "serve_large",
           "train_large", "train_unfused", "c1", "indoor_kernels", "indoor",
           "loop_kernels", "serve_loops", "serve_f32", "train_indoor",
-          "deepgmr", "surface")
+          "deepgmr", "surface", "distributed")
 
 
 def main():
@@ -3447,7 +3905,8 @@ def main():
                       ("serve_loops", lambda _: serve_loops(np.random.RandomState(10))),
                       ("serve_f32", lambda _: serve_f32(np.random.RandomState(16))),
                       ("train_indoor", lambda _: train_indoor(np.random.RandomState(17))),
-                      ("deepgmr", deepgmr), ("surface", surface_phase)):
+                      ("deepgmr", deepgmr), ("surface", surface_phase),
+                      ("distributed", lambda _: distributed(np.random.RandomState(21)))):
         if not run(phase):
             continue
         res = fn(rs)
@@ -3478,6 +3937,8 @@ def main():
                 k["at_deepgmr"] = out["deepgmr"]["kernels"][name]
             if name in out.get("surface", {}).get("kernels", {}):
                 k["at_surface"] = out["surface"]["kernels"][name]
+            if name in out.get("distributed", {}).get("kernels", {}):
+                k["at_sp"] = out["distributed"]["kernels"][name]
         print(json.dumps({"kernels": kernels}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -8,6 +8,8 @@
     reg = registrar_from_torch_checkpoint("model.pt")  # the original code's
     R, t, src_overlap, tgt_overlap = reg(src, tgt)
     reg.export_weights("weights.npz")            # read by both packages
+    fn = reg.sharded(group)                      # one request over the
+    R, t, src_overlap, tgt_overlap = fn(src, tgt)  # processes of a group
 
 `cfg.model_name` picks the model: GMMReg (`nn.gmmreg`) or DeepGMR
 (`nn.deepgmr`, whose overlap outputs are ones). Runs on the CUDA device
@@ -168,6 +170,30 @@ class Registrar:
             return (*out, ones, torch.ones(tgt.shape[:2], device=self.device))
         rot, trans, src_o, tgt_o, _ = out
         return rot, trans, src_o, tgt_o
+
+    def sharded(self, group=None, refine: bool = True):
+        """Point-sharded (sequence-parallel) forward over the processes of a
+        `torch.distributed` group (default: all of them,
+        `parallel.sp_mesh()`): `fn(src, tgt) -> (rot, trans, src_overlap,
+        tgt_overlap)` computes ONE request together, each process owning a
+        block of the points, the whole clouds given to every process. It
+        cuts the latency of a single large pair (the indoor request: B = 1,
+        about 35,000 points), which batch parallelism cannot. GMMReg only,
+        as in the JAX package. See `parallel/sp.py`."""
+        if self.cfg.model_name != "GMMReg":
+            raise NotImplementedError(
+                "sharded serving implements the GMMReg forward")
+        from ogmm_tpu_torch.parallel import make_sp_eval, sp_mesh
+        if group is None:
+            group = sp_mesh()
+        inner = make_sp_eval(self.model, self.cfg, group, is_test=refine)
+
+        def fn(src, tgt):
+            rot, trans, src_o, tgt_o, _ = inner(self._as_input(src),
+                                                self._as_input(tgt))
+            return rot, trans, src_o, tgt_o
+
+        return fn
 
     def transform(self, rot, trans, points):
         """Apply the predicted rigid transform to (B, N, 3) points."""

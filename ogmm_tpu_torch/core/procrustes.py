@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ogmm_tpu_torch.ops.common import matmul32 as _mm
+from ogmm_tpu_torch.parallel import comm
 
 
 def _horn_matrix(cov: torch.Tensor) -> torch.Tensor:
@@ -83,19 +84,31 @@ def _svd_rotation(cov: torch.Tensor) -> torch.Tensor:
 
 
 def rigid_transform(src: torch.Tensor, src_corr: torch.Tensor,
-                    weight: torch.Tensor, method: str = "horn"):
+                    weight: torch.Tensor, method: str = "horn", group=None):
     """Find (R, t) minimising sum_i w_i |R s_i + t - c_i|^2.
 
     src, src_corr (B, N, 3); weight (B, N) non-negative.
     Returns rot (B, 3, 3), trans (B, 3, 1) with R src + t ~= src_corr.
+    With a point-sharding `group` the rows are this process's: the weighted
+    sums and the covariance are summed over the group and the small solve
+    runs on every process alike.
     """
     w = weight.unsqueeze(-1)
-    wsum = w.sum(dim=1, keepdim=True).clamp_min(1e-12)
-    src_mean = (src * w).sum(dim=1, keepdim=True) / wsum
-    corr_mean = (src_corr * w).sum(dim=1, keepdim=True) / wsum
+    if group is None:
+        wsum = w.sum(dim=1, keepdim=True)
+        src_sum = (src * w).sum(dim=1, keepdim=True)
+        corr_sum = (src_corr * w).sum(dim=1, keepdim=True)
+    else:
+        wsum, src_sum, corr_sum = comm.psum(torch.cat(
+            [w.sum(dim=1, keepdim=True), (src * w).sum(dim=1, keepdim=True),
+             (src_corr * w).sum(dim=1, keepdim=True)], dim=-1),
+            group).split([1, 3, 3], dim=-1)
+    wsum = wsum.clamp_min(1e-12)
+    src_mean = src_sum / wsum
+    corr_mean = corr_sum / wsum
     src_c = src - src_mean
     corr_c = src_corr - corr_mean
-    cov = _mm((src_c * w).transpose(1, 2), corr_c)       # (B, 3, 3)
+    cov = comm.psum(_mm((src_c * w).transpose(1, 2), corr_c), group)  # (B, 3, 3)
     eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
     finite = torch.isfinite(cov).all(dim=-1, keepdim=True).all(
         dim=-2, keepdim=True)
@@ -115,14 +128,16 @@ def rigid_transform(src: torch.Tensor, src_corr: torch.Tensor,
 
 def gated_update(src: torch.Tensor, corr: torch.Tensor, nn_d: torch.Tensor,
                  thresh_sq: float, rot: torch.Tensor, trans: torch.Tensor,
-                 method: str = "horn_pi"):
+                 method: str = "horn_pi", group=None):
     """One ICP trip's solve: the correspondences with squared distance
     nn_d (B, N) < thresh_sq weigh the Procrustes problem of src onto corr
     (all points, where a cloud has none); a cloud without inliers keeps
-    (rot (B, 3, 3), trans (B, 3)). Returns the new (rot, trans)."""
+    (rot (B, 3, 3), trans (B, 3)). Returns the new (rot, trans). With a
+    point-sharding `group` the inlier count and the moments are summed
+    over the group's rows."""
     w = (nn_d < thresh_sq).to(src.dtype)
-    any_in = w.sum(dim=-1) > 0
+    any_in = comm.psum(w.sum(dim=-1), group) > 0
     w = torch.where(any_in[:, None], w, torch.ones_like(w))
-    rot_new, t_new = rigid_transform(src, corr, w, method=method)
+    rot_new, t_new = rigid_transform(src, corr, w, method=method, group=group)
     rot = torch.where(any_in[:, None, None], rot_new, rot)
     return rot, torch.where(any_in[:, None], t_new[..., 0], trans)

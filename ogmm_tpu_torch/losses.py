@@ -59,12 +59,14 @@ def con_loss(x: torch.Tensor, y: torch.Tensor, tau: float = 0.01,
     return (torch.logsumexp(logits, dim=-1) - logits[..., 0]).mean()
 
 
-def clu_loss(xyz, node_xyz, feats, gamma, tau: float = 0.1):
+def clu_loss(xyz, node_xyz, feats, gamma, tau: float = 0.1, group=None):
     """Clustering contrastive loss: gamma-weighted mean features of each
     cluster against the features of the point nearest its mean.
-    xyz (B,N,3), node_xyz (B,K,3), feats (B,N,C), gamma (B,N,K)."""
-    feats_pos = gmm_params(gamma, feats)[1]
-    feats_anchor = get_local_corrs(xyz, node_xyz, feats)
+    xyz (B,N,3), node_xyz (B,K,3), feats (B,N,C), gamma (B,N,K); with a
+    point-sharding `group` xyz, feats and gamma hold this process's rows
+    and the moments and the nearest points come from the whole clouds."""
+    feats_pos = gmm_params(gamma, feats, group=group)[1]
+    feats_anchor = get_local_corrs(xyz, node_xyz, feats, group)
     return con_loss(feats_anchor, feats_pos, tau=tau)
 
 

@@ -9,8 +9,9 @@ flags, so both packages give the same labels, indices and distances.
 
 It is compiled with `g++` at its first use into `ogmm_tpu_torch/_build/`,
 named by the hash of the source and the flags (a changed source never loads
-a stale library), and nothing is built next to the source or when the module
-is imported. A failed build raises with the compiler's message: nothing
+a stale library), under a lock across processes (`buildlock.build_lock`: one
+build however many processes find it missing), and nothing is built next to
+the source or when the module is imported. A failed build raises with the compiler's message: nothing
 falls back. The plain versions (`*_plain`) are the reference the tests hold
 the library against.
 
@@ -30,6 +31,8 @@ from typing import Tuple
 
 import numpy as np
 
+from ogmm_tpu_torch.buildlock import build_lock
+
 SOURCE = Path(__file__).resolve().parent / "host_ops.cc"
 BUILD_DIR = SOURCE.parent.parent / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -46,11 +49,18 @@ def lib_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless it is there; raises with g++'s message."""
+    """Compile the library unless it is there (another process's build is
+    waited for); raises with g++'s message."""
     out = lib_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(exist_ok=True)
+    with build_lock(BUILD_DIR):
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
         res = subprocess.run(["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
@@ -60,7 +70,6 @@ def build() -> Path:
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed for {SOURCE.name}:\n{res.stderr}")
     os.replace(tmp, out)
-    return out
 
 
 def _load() -> ctypes.CDLL:

@@ -50,12 +50,16 @@ class PositionEncoding(nn.Module):
 
     def forward(self, points: torch.Tensor, k: int = 5,
                 alpha: torch.Tensor | None = None,
-                nbr_idx: torch.Tensor | None = None) -> torch.Tensor:
+                nbr_idx: torch.Tensor | None = None,
+                centroid: torch.Tensor | None = None) -> torch.Tensor:
         """points (B, N, 3) -> (B, N, dim). `alpha` (B, N, k) supplies the
         angle features (the DGCNN encoder emits them from its own neighbour
         selection); `nbr_idx` (B, N, >= k) a graph whose k-prefix gives the
-        neighbours; without either they come as `angle_route` says."""
-        centroid = points.mean(dim=1, keepdim=True)
+        neighbours; without either they come as `angle_route` says.
+        `centroid` (B, 1, 3) replaces the points' own centroid (the sharded
+        forward gives a process's rows and the whole cloud's centroid)."""
+        if centroid is None:
+            centroid = points.mean(dim=1, keepdim=True)
         g_dis = ((points - centroid) ** 2).sum(dim=-1, keepdim=True)
         h = F.leaky_relu(self.bn0(self.dense0(g_dis)), 0.2)
         dis_feature = F.leaky_relu(self.bn1(self.dense1(h)), 0.2)
@@ -108,14 +112,17 @@ class MultiHeadAttention(nn.Module):
 class TransformerBlock(nn.Module):
     """message = MHA(src, tgt, tgt); out = MLP([2d -> 2d -> d]) of
     concat[src, message]. The caller adds the residual. `fuse_eval` goes
-    to the MLP."""
+    to the MLP, and so does `sp_group`: under point sharding the attention
+    is already local (a process's queries against anchors every process
+    holds) and only the MLP's InstanceNorm moments cross processes."""
 
     def __init__(self, feature_dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32, fuse_eval: bool = False):
+                 dtype: torch.dtype = torch.float32, fuse_eval: bool = False,
+                 sp_group=None):
         super().__init__()
         self.mha = MultiHeadAttention(num_heads, feature_dim, dtype)
         self.mlp = PointMLP(2 * feature_dim, (2 * feature_dim, feature_dim),
-                            dtype, fuse_eval)
+                            dtype, fuse_eval, sp_group)
 
     def forward(self, src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
         message = self.mha(src, tgt, tgt)

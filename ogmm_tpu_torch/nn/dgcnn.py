@@ -28,6 +28,12 @@ Two routes over one parameter set, chosen from shapes by `fused_route`:
            compute dtype from float32 statistics (the running ones in eval,
            unfolded; the batch moments with the biased variance in
            training, through autograd), ReLU and a max over k.
+
+`bn_group` (set by `nn.layers.set_bn_group`) is the data-parallel group of
+training: the batch moments of every stage are then those of the group's
+global batch (`comm.batch_moments` on the unfused route, the same two
+passes inside `ops.dgcnn_train` on the fused one), and the running
+statistics move alike on every process.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from ogmm_tpu_torch.ops.cuda_dgcnn import (KERNEL_KS, KERNEL_MAX_N, STAGES,
                                            dgcnn_edges, dgcnn_eval,
                                            kernel_takes)
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import bn_apply
+from ogmm_tpu_torch.parallel import comm
 
 
 def fused_route(n: int, k: int, train: bool, have_graph: bool,
@@ -86,6 +93,7 @@ class DGCNN(nn.Module):
         super().__init__()
         self.emb_dims, self.k, self.compute_dtype = emb_dims, k, dtype
         self.fused_train, self.fused_edges = fused_train, fused_edges
+        self.bn_group = None
         dims = [6, *STAGES]
         outs = [*STAGES, emb_dims]
         ins = dims[:4] + [sum(STAGES)]
@@ -167,7 +175,7 @@ class DGCNN(nn.Module):
         out, moments, alpha = _train.dgcnn_train(
             x, weights, [getattr(self, f"bn{i}_scale") for i in range(1, 6)],
             [getattr(self, f"bn{i}_bias") for i in range(1, 6)], k=self.k,
-            dtype=self.compute_dtype, posenc_k=posenc_k)
+            dtype=self.compute_dtype, posenc_k=posenc_k, group=self.bn_group)
         for i, (mean, var) in enumerate(moments, start=1):
             self._update_stats(i, mean, var)
         return (out, alpha) if posenc_k else out
@@ -177,8 +185,11 @@ class DGCNN(nn.Module):
         moments (biased variance) in training, updating the running ones;
         the running statistics in eval; normalised in z's dtype."""
         if self.training:
-            var, mean = torch.var_mean(z.float(), dim=tuple(range(z.dim() - 1)),
-                                       unbiased=False)
+            axes = tuple(range(z.dim() - 1))
+            if self.bn_group is not None:
+                mean, var = comm.batch_moments(z.float(), axes, self.bn_group)
+            else:
+                var, mean = torch.var_mean(z.float(), dim=axes, unbiased=False)
             self._update_stats(i, mean.detach(), var.detach())
         else:
             mean, var = getattr(self, f"bn{i}_mean"), getattr(self, f"bn{i}_var")

@@ -39,6 +39,25 @@ softmax through the `wproject` kernel above B N N = 64 Mi elements or with
 would take 4.9 GB a pair. Training takes the same route; the streamed head's
 gradient recomputes the softmax by query chunks (`ops.stream.wproject`, the
 JAX package's recompute VJP), so no (N, N) matrix is stored.
+
+Point-sharded eval (`sp_group`, the JAX package's `sp_axis`,
+`ogmm_tpu/nn/gmmreg.py:95-131`): the processes of the group each hold a
+block of the points of src and tgt (`forward(..., full_src=, full_tgt=)`
+gives the whole clouds beside them; `parallel/sp.py` drives it). Per-point
+work stays local; FPS, the clustering's initial centres, the kNN targets
+and the ICP target read the whole clouds, which every process holds; what
+crosses processes is small: the anchor gathers (`index_points_sp`), the
+InstanceNorm, EM, Procrustes and ICP moments, and one all-gather of the
+l2-normalised features and raw overlap scores for the overlap head, which
+then streams local queries against the whole other cloud. Eval and the
+stacked path only; the kNN graph is always the cross graph of the local
+rows against the whole cloud, in global ids.
+
+Data-parallel training: `bn_group` (set with `nn.layers.set_bn_group`) is
+the data-parallel group, each process holding a block of the batch; the
+FPS random starts are then drawn for the global batch and each process
+keeps its rows', so that the step is that of one process on the global
+batch.
 """
 from __future__ import annotations
 
@@ -53,8 +72,9 @@ from ogmm_tpu_torch.nn.attention import PositionEncoding, TransformerBlock
 from ogmm_tpu_torch.nn.dgcnn import DGCNN
 from ogmm_tpu_torch.nn.layers import BN, ConvHead
 from ogmm_tpu_torch.ops.common import (DENSE_ELEMS, cos_similarity,
-                                       gather_neighbors, index_points, knn,
-                                       knn_self_vspace, l2_normalize, matmul32)
+                                       gather_neighbors, index_points,
+                                       index_points_sp, knn, knn_self_vspace,
+                                       l2_normalize, matmul32)
 from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_MAX_N
 from ogmm_tpu_torch.ops.cuda_stream import wproject_stream_lse, wproject_takes
 from ogmm_tpu_torch.ops.fps import farthest_point_sample, fps_combined
@@ -62,6 +82,7 @@ from ogmm_tpu_torch.ops.gmm import wkeans_plus
 from ogmm_tpu_torch.ops.icp import icp_point_to_point
 from ogmm_tpu_torch.ops.sinkhorn import sinkhorn
 from ogmm_tpu_torch.ops.stream import wproject, wproject_stream_lse_plain
+from ogmm_tpu_torch.parallel import comm
 
 
 def gmm_svd(src_nodes, tgt_nodes, src_desc, tgt_desc, src_pi, tgt_pi,
@@ -148,15 +169,21 @@ class GMMReg(nn.Module):
     `loop_kernels` (off by default; ROADMAP.md A.9 decides) runs FPS and
     the ICP each as one kernel launch and the attention blocks' MLPs in eval
     through the fused kernel (`PointMLP.fuse_eval`), on a CUDA device and
-    within each kernel's envelope; the weights are the same either way."""
+    within each kernel's envelope; the weights are the same either way.
+
+    `sp_group` makes the forward point-sharded over that process group (see
+    the module's docstring); `bn_group` is the data-parallel group of
+    training."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(),
-                 loop_kernels: bool = False):
+                 loop_kernels: bool = False, sp_group=None):
         super().__init__()
         if cfg.pos_k <= 0 or cfg.pos_k > cfg.gnn_k:
             raise ValueError(f"cfg.pos_k must be in 1..gnn_k, got {cfg.pos_k}")
         self.cfg = cfg
         self.loop_kernels = loop_kernels
+        self.sp_group = sp_group
+        self.bn_group = None
         D = cfg.emb_dims
         dt = torch_dtype(cfg.dtype)
         self.compute_dtype = dt
@@ -164,9 +191,9 @@ class GMMReg(nn.Module):
         self.dgcnn = DGCNN(D, cfg.gnn_k, dt, cfg.dgcnn_fused_train is not False,
                            cfg.dgcnn_fused_edges is True)
         self.pos_enc = PositionEncoding(D, dt)
-        self.sattn1 = TransformerBlock(D, cfg.num_heads, dt, loop_kernels)
-        self.cattn = TransformerBlock(D, cfg.num_heads, dt, loop_kernels)
-        self.sattn2 = TransformerBlock(D, cfg.num_heads, dt, loop_kernels)
+        self.sattn1 = TransformerBlock(D, cfg.num_heads, dt, loop_kernels, sp_group)
+        self.cattn = TransformerBlock(D, cfg.num_heads, dt, loop_kernels, sp_group)
+        self.sattn2 = TransformerBlock(D, cfg.num_heads, dt, loop_kernels, sp_group)
         self.conv1 = ConvHead(D, D, 2 * D, deep=True, dtype=dt)
         self.conv2 = ConvHead(D + 2, D, 2 * D, deep=True, dtype=dt)
         self.proj = ConvHead(D, 1, D // 2, deep=False, dtype=dt)
@@ -175,23 +202,75 @@ class GMMReg(nn.Module):
 
     def forward(self, src: torch.Tensor, tgt: torch.Tensor,
                 refine: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                full_src: torch.Tensor | None = None,
+                full_tgt: torch.Tensor | None = None):
+        """`full_src`, `full_tgt` (B, N_full, 3): the whole clouds of which
+        src and tgt hold this process's rows, given with `sp_group` only."""
         cfg = self.cfg
         B, N, _ = src.shape
         if tgt.shape[1] != N:
             raise ValueError("the overlap head mixes src/tgt point axes and "
                              "requires equal point counts")
         both = torch.cat([src, tgt], dim=0).float()          # (2B, N, 3)
-        anchor_ids, center_ids = self._fps(both, generator)
+        full = None
+        if self.sp_group is not None:
+            full = self._check_sharded(full_src, full_tgt)
+        elif full_src is not None or full_tgt is not None:
+            raise ValueError("full_src/full_tgt come with sp_group only")
+        anchor_ids, center_ids = self._fps(both if full is None else full,
+                                           generator)
         stacked = cfg.stack_train if self.training else cfg.stack_eval
-        forward = self._forward_stacked if stacked else self._forward_per_cloud
-        rot, trans, o_all, clu = forward(both, anchor_ids, center_ids)
+        if stacked:
+            rot, trans, o_all, clu = self._forward_stacked(
+                both, anchor_ids, center_ids, full)
+        else:
+            rot, trans, o_all, clu = self._forward_per_cloud(
+                both, anchor_ids, center_ids)
         if refine:
             init = torch.cat([rot, trans.unsqueeze(-1)], dim=-1)
             rot, trans = icp_point_to_point(
-                both[:B], both[B:], init, threshold=2.0 * cfg.overlap_radius,
-                max_iter=cfg.icp_iters, use_kernel=self.loop_kernels)
+                both[:B], (both if full is None else full)[B:], init,
+                threshold=2.0 * cfg.overlap_radius, max_iter=cfg.icp_iters,
+                use_kernel=self.loop_kernels, group=self.sp_group)
         return rot, trans, o_all[:B], o_all[B:], clu
+
+    def _check_sharded(self, full_src, full_tgt) -> torch.Tensor:
+        """The refusals of the point-sharded forward, the JAX package's
+        (`ogmm_tpu/nn/gmmreg.py:95-131`, `:273-276`, `nn/dgcnn.py:170-177`);
+        returns the whole clouds stacked, (2B, N_full, 3)."""
+        cfg = self.cfg
+        if self.training:
+            raise ValueError("sp_group is an eval/serving contract: batch "
+                             "statistics over a point shard are not the "
+                             "training semantics")
+        if full_src is None or full_tgt is None:
+            raise ValueError("sp_group needs the whole clouds (full_src, "
+                             "full_tgt) beside this process's rows")
+        if full_src.shape[1] != full_tgt.shape[1]:
+            raise ValueError("full_src and full_tgt need the same point count")
+        if not cfg.stack_eval:
+            raise ValueError("sp_group requires the stacked eval path "
+                             "(stack_eval=True, the serving default)")
+        if cfg.dgcnn_fused_edges is True:
+            raise ValueError("dgcnn_fused_edges=True needs the whole cloud: "
+                             "the edges kernel is not run on a point shard")
+        return torch.cat([full_src, full_tgt], dim=0).float()
+
+    def _starts(self, both, generator):
+        """The FPS random starts of the 2B clouds (src rows first) in data-
+        parallel training: the draw of one process over the global batch of
+        the `bn_group`, this process's rows of it; None elsewhere (the FPS
+        then draws from `generator` itself)."""
+        group = self.bn_group
+        if group is None or generator is None:
+            return None
+        b, n = both.shape[0] // 2, both.shape[1]
+        w, r = comm.axis_size(group), comm.axis_index(group)
+        draw = torch.randint(0, n, (2 * b * w,), generator=generator,
+                             device=generator.device).to(both.device)
+        return torch.cat([draw[r * b:(r + 1) * b],
+                          draw[(w + r) * b:(w + r + 1) * b]])
 
     def _fps(self, both, generator):
         """The anchor ids of the three attention stages (random start) and
@@ -203,15 +282,16 @@ class GMMReg(nn.Module):
         cfg = self.cfg
         km, lk = cfg.km_clusters, self.loop_kernels
         if cfg.recompute_anchors:
-            return tuple(farthest_point_sample(both, km, generator=generator,
-                                               use_kernel=lk)
-                         for _ in range(3)), None
+            return tuple(farthest_point_sample(
+                both, km, generator=generator, use_kernel=lk,
+                start=self._starts(both, generator)) for _ in range(3)), None
+        start = self._starts(both, generator)
         if km == cfg.n_clusters:
             # anchors and clustering init share one FPS loop
-            ids, center_ids = fps_combined(both, km, generator, lk)
+            ids, center_ids = fps_combined(both, km, generator, lk, start)
         else:
             ids = farthest_point_sample(both, km, generator=generator,
-                                        use_kernel=lk)
+                                        use_kernel=lk, start=start)
             center_ids = None
         return (ids,) * 3, center_ids
 
@@ -222,12 +302,19 @@ class GMMReg(nn.Module):
             return _remat(module, *args)
         return module(*args)
 
-    def _encode(self, clouds):
+    def _encode(self, clouds, full=None):
         """DGCNN features (B, N, D) and the angle features (B, N, pos_k) of
         (B, N, 3) clouds, or None for the angles where the route makes none
-        (the position encoding then makes them itself)."""
+        (the position encoding then makes them itself). With the whole
+        clouds `full` (point-sharded forward) the graph is the cross graph of
+        the local rows against them, in global ids, and the angles take the
+        whole clouds' centroid."""
         cfg = self.cfg
         pk = cfg.pos_k
+        if full is not None:
+            nbr = gather_neighbors(full, knn(clouds, full, cfg.gnn_k))
+            return self.dgcnn(clouds, with_posenc_alpha=pk, nbr_xyz=nbr,
+                              posenc_centroid=full.mean(dim=1, keepdim=True))
         if not share_graph(clouds.shape[1]):
             return self.dgcnn(clouds, with_posenc_alpha=pk)
         # the angles' centroid sums the rows in original order in either
@@ -269,47 +356,88 @@ class GMMReg(nn.Module):
                               tgt_o.float())
         return src_wo.to(src_f.dtype), tgt_wo.to(tgt_f.dtype)
 
-    def _solve(self, both, f_all, o_all, center_ids):
+    def _overlap_scores_sharded(self, f_all, o_all):
+        """The overlap head of the point-sharded forward: one all-gather of
+        the l2-normalised features and the raw scores of the 2B clouds along
+        the points, then each direction streams this process's queries
+        against the whole other cloud (the wproject kernel where it takes
+        D and the type, else its plain version), the values the scores of
+        the query's own cloud on the key axis, as in `_overlap_scores`."""
+        B2, _, D = f_all.shape
+        B = B2 // 2
+        group = self.sp_group
+        fn_loc = _norm32(f_all)
+        fn_full = comm.all_gather(fn_loc, group, dim=1)
+        o_full = comm.all_gather(o_all, group, dim=1)
+        proj = (wproject_stream_lse if wproject_takes(D, f_all.dtype)
+                else wproject_stream_lse_plain)
+        src_wo = proj(fn_loc[:B], fn_full[B:], o_full[:B])[0]
+        tgt_wo = proj(fn_loc[B:], fn_full[:B], o_full[B:])[0]
+        return src_wo.to(f_all.dtype), tgt_wo.to(f_all.dtype)
+
+    def _solve(self, both, f_all, o_all, center_ids, full=None):
         """Clustering, GMM matching and the clustering loss of the 2B clouds
-        (src rows first); each cloud is clustered on its own."""
+        (src rows first); each cloud is clustered on its own. In the
+        point-sharded forward the initial centres come from the whole
+        clouds `full`."""
         cfg = self.cfg
         B = both.shape[0] // 2
+        group = None if full is None else self.sp_group
+        init_nodes = None
+        if full is not None:
+            if center_ids is None:
+                center_ids = farthest_point_sample(
+                    full, cfg.n_clusters, is_center=True,
+                    use_kernel=self.loop_kernels)
+            init_nodes, center_ids = index_points(full, center_ids), None
         g_all, pi_all, n_all, nf_all = wkeans_plus(
             both, f_all, o_all, cfg.n_clusters, iters=cfg.em_iters,
-            tau=cfg.tau, init_ids=center_ids, use_kernel=self.loop_kernels)
+            tau=cfg.tau, init_ids=center_ids, use_kernel=self.loop_kernels,
+            init_nodes=init_nodes, group=group)
         rot, trans, _, _ = gmm_svd(n_all[:B], n_all[B:], nf_all[:B], nf_all[B:],
                                    pi_all[:B], pi_all[B:], is_sk=cfg.is_sk,
                                    softmax_temp=cfg.softmax_temp)
         # the mean over 2B clouds is the mean of the src and tgt losses
-        clu = clu_loss(both, n_all, f_all, g_all, tau=0.1)
+        clu = clu_loss(both, n_all, f_all, g_all, tau=0.1, group=group)
         return rot, trans, o_all, clu
 
-    def _forward_stacked(self, both, anchor_ids, center_ids):
+    def _forward_stacked(self, both, anchor_ids, center_ids, full=None):
         """src and tgt as one (2B, N, .) batch; anchor_ids holds the ids of
-        the three stages."""
+        the three stages. With the whole clouds `full` the point-sharded
+        forward: `both` holds this process's rows."""
         cfg = self.cfg
         blk = self._block
         B, N, _ = both.shape
         B //= 2
+        if full is None:
+            gather, centroid = index_points, None
+        else:
+            group = self.sp_group
+            gather = lambda a, i: index_points_sp(a, i, group)
+            centroid = full.mean(dim=1, keepdim=True)
 
-        feats, alpha = self._encode(both)
-        anchor0 = index_points(feats, anchor_ids[0])
-        t_all = feats + self.pos_enc(both, cfg.pos_k, alpha=alpha)
+        feats, alpha = self._encode(both, full)
+        anchor0 = gather(feats, anchor_ids[0])
+        t_all = feats + self.pos_enc(both, cfg.pos_k, alpha=alpha,
+                                     centroid=centroid)
         t_all = blk(self.conv1, blk(self.sattn1, t_all, anchor0) + t_all)
 
-        anchor1 = index_points(t_all, anchor_ids[1])
+        anchor1 = gather(t_all, anchor_ids[1])
         swapped = torch.cat([anchor1[B:], anchor1[:B]], dim=0)
         f_all = blk(self.cattn, t_all, swapped) + t_all
 
         o_all = blk(self.proj, f_all)                        # (2B, N, 1)
-        wo_all = torch.cat(self._overlap_scores(f_all[:B], f_all[B:],
-                                                o_all[:B], o_all[B:]), dim=0)
-        fo_all = blk(self.conv2, torch.cat([f_all, wo_all, o_all], dim=-1))
+        if full is None:
+            wo = self._overlap_scores(f_all[:B], f_all[B:], o_all[:B],
+                                      o_all[B:])
+        else:
+            wo = self._overlap_scores_sharded(f_all, o_all)
+        fo_all = blk(self.conv2, torch.cat([f_all, torch.cat(wo), o_all], dim=-1))
         o_all = torch.sigmoid(blk(self.overlap, fo_all).float()).reshape(2 * B, N)
 
-        anchor2 = index_points(f_all, anchor_ids[2])
+        anchor2 = gather(f_all, anchor_ids[2])
         f_all = (blk(self.sattn2, f_all, anchor2) + f_all).float()
-        return self._solve(both, f_all, o_all, center_ids)
+        return self._solve(both, f_all, o_all, center_ids, full)
 
     def _forward_per_cloud(self, both, anchor_ids, center_ids):
         """Every module on src, then on tgt (the training default)."""

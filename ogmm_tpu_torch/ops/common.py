@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ogmm_tpu_torch.parallel import comm
+
 # the JAX package's envelopes (ogmm_tpu/ops/common.py:_PALLAS_FULL_M,
 # _DENSE_ELEMS): whole-target kernels up to M = 4096, the dense matrix up to
 # 64 Mi elements, query chunks of 1024 rows above
@@ -248,3 +250,48 @@ def posenc_alpha(x: torch.Tensor, nbr: torch.Tensor,
 def cos_similarity(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Cosine similarity matrix (B, N, D) x (B, M, D) -> (B, N, M)."""
     return matmul32(l2_normalize(x), l2_normalize(y).transpose(-1, -2))
+
+
+# ---------------------------------------------------------------------------
+# Point-sharded (sequence-parallel) helpers. In the sharded forward
+# (`parallel/sp.py`) per-point tensors are (B, n_local, C) blocks of a global
+# (B, N, C) array: process r of the group owns rows [r n_local, (r + 1)
+# n_local), and global row indices keep their meaning. The two cross-shard
+# primitives of the forward: a gather of rows by global index and a global
+# 1-NN combine, both over tiny payloads (S <= 128 rows).
+# ---------------------------------------------------------------------------
+
+def sp_local_info(local_n: int, group):
+    """(row offset of this process's block, global point count)."""
+    return comm.axis_index(group) * local_n, local_n * comm.axis_size(group)
+
+
+def index_points_sp(points: torch.Tensor, idx: torch.Tensor,
+                    group) -> torch.Tensor:
+    """`index_points` over a point-sharded array with global indices:
+    points (B, n_local, C) this process's rows, idx (B, S) global row
+    indices, the same on every process. Each process gathers the rows it
+    owns (a clipped local gather and an ownership mask) and one all-reduce
+    assembles the (B, S, C) rows on every process."""
+    n_local = points.shape[1]
+    start, _ = sp_local_info(n_local, group)
+    local = idx.long() - start
+    own = (local >= 0) & (local < n_local)
+    got = index_points(points, local.clamp(0, n_local - 1))
+    got = torch.where(own.unsqueeze(-1), got, torch.zeros_like(got))
+    return comm.psum(got, group)
+
+
+def nn1_sp(queries: torch.Tensor, tgt_local: torch.Tensor, group):
+    """1-NN of queries (B, S, C), the same on every process, among a
+    point-sharded target (this process's rows tgt_local (B, n_local, C)):
+    the local `nn1`, then an all-gather of the (distance, global index)
+    pairs and the minimum over the processes, ties to the lowest process
+    and so to the lowest global index. Returns (min squared distance
+    (B, S), global index (B, S) int64), the same on every process."""
+    start, _ = sp_local_info(tgt_local.shape[1], group)
+    d, i = nn1(queries, tgt_local)
+    d_all = comm.all_gather(d.unsqueeze(0), group)          # (W, B, S)
+    i_all = comm.all_gather((i + start).unsqueeze(0), group)
+    sel = d_all.argmin(dim=0, keepdim=True)
+    return (d_all.gather(0, sel).squeeze(0), i_all.gather(0, sel).squeeze(0))

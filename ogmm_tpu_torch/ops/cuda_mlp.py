@@ -82,13 +82,15 @@ def kernel_takes(cin: int, h: int, cout: int, dtype: torch.dtype) -> bool:
 
 
 def mlp_route(fuse_eval: bool, training: bool, shape, channels,
-              dtype: torch.dtype) -> bool:
+              dtype: torch.dtype, group=None) -> bool:
     """Whether a PointMLP of `channels` on input of `shape` runs the fused
     kernel: asked for with `fuse_eval`, in eval, two layers, (B, N, C) input
-    with N <= 1024, the JAX package's rule (`ogmm_tpu/nn/layers.py:124-129`)
-    without its point-sharding axis, which the port does not have; and
-    widths the port's kernel takes (the JAX kernel takes any)."""
+    with N <= 1024 and no point-sharding `group` (the kernel's InstanceNorm
+    sees one process's rows), the JAX package's rule
+    (`ogmm_tpu/nn/layers.py:124-129`); and widths the port's kernel takes
+    (the JAX kernel takes any)."""
     return (fuse_eval and not training and len(channels) == 2
+            and group is None
             and len(shape) == 3 and shape[1] <= KERNEL_MAX_N
             and kernel_takes(shape[-1], *channels, dtype))
 

@@ -9,7 +9,9 @@ The kernels live in `ogmm_tpu_torch/csrc/*.cu` (shared device code in
 `csrc/*.cuh`). Each source has a plain C interface and is compiled on first
 use with `nvcc` for `sm_90a` into a shared library under
 `ogmm_tpu_torch/_build/` (one `nvcc` per source, all started together) and
-bound with `ctypes`. Nothing is built when a module is imported.
+bound with `ctypes`. Nothing is built when a module is imported. Builds
+hold a lock across processes (`buildlock.build_lock`), so that the ranks of
+a fresh checkout run each `nvcc` once between them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from ogmm_tpu_torch.buildlock import build_lock
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -84,10 +88,19 @@ def _lib_path(name: str) -> Path:
 
 
 def build_kernels(names=SOURCES, verbose: bool = False) -> dict[str, Path]:
-    """Compile every missing kernel library, all `nvcc` runs in parallel.
+    """Compile every missing kernel library, all `nvcc` runs in parallel,
+    under the build directory's lock (another process's build of the same
+    libraries is waited for, not repeated).
     Returns {name: path of the shared library}."""
-    BUILD_DIR.mkdir(exist_ok=True)
     paths = {name: _lib_path(name) for name in names}
+    if all(p.exists() for p in paths.values()):
+        return paths
+    with build_lock(BUILD_DIR):
+        _build_missing(paths, verbose)
+    return paths
+
+
+def _build_missing(paths: dict[str, Path], verbose: bool) -> None:
     procs = {}
     for name, out in paths.items():
         if out.exists():
@@ -110,7 +123,6 @@ def build_kernels(names=SOURCES, verbose: bool = False) -> dict[str, Path]:
         os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return paths
 
 
 def load_kernel(name: str) -> ctypes.CDLL:

@@ -60,32 +60,38 @@ def _fps_loop(xyz: torch.Tensor, npoint: int, distance: torch.Tensor,
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           is_center: bool = False,
                           generator: torch.Generator | None = None,
-                          use_kernel: bool = False) -> torch.Tensor:
+                          use_kernel: bool = False,
+                          start: torch.Tensor | None = None) -> torch.Tensor:
     """Sample `npoint` indices per cloud: xyz (B, N, C) -> int64 (B, npoint).
     `is_center` starts from the point farthest from the centroid; otherwise
-    from a random index drawn from `generator` (index 0 without one).
-    `use_kernel` runs the chain as one kernel launch."""
+    from `start` (B,) where given, else a random index drawn from
+    `generator` (index 0 without one). `use_kernel` runs the chain as one
+    kernel launch."""
     B, N, _ = xyz.shape
     if is_center:
         distance, farthest = _center_state(xyz)
     else:
         distance = xyz.new_full((B, N), 1e10)
-        farthest = _random_start(B, N, generator, xyz.device)
+        farthest = (_random_start(B, N, generator, xyz.device)
+                    if start is None else start)
     return _fps_loop(xyz, npoint, distance, farthest, use_kernel)
 
 
 def fps_combined(xyz: torch.Tensor, npoint: int,
                  generator: torch.Generator | None = None,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False,
+                 start: torch.Tensor | None = None):
     """Anchor FPS and centre-seeded FPS over the same clouds in one 2B-row
     loop (one kernel launch with `use_kernel`): the chain's cost is per
-    step, not per row.
+    step, not per row. The anchors start at `start` (B,) where given, as in
+    `farthest_point_sample`.
     Returns (anchor_ids (B, npoint), center_ids (B, npoint))."""
     B, N, _ = xyz.shape
     dist_center, start_center = _center_state(xyz)
+    if start is None:
+        start = _random_start(B, N, generator, xyz.device)
     ids = _fps_loop(
         torch.cat([xyz, xyz], dim=0), npoint,
         torch.cat([xyz.new_full((B, N), 1e10), dist_center], dim=0),
-        torch.cat([_random_start(B, N, generator, xyz.device), start_center]),
-        use_kernel)
+        torch.cat([start, start_center]), use_kernel)
     return ids[:B], ids[B:]

@@ -22,6 +22,12 @@ the JAX package's `icp_pallas`; it forms its distances in the fixed order
 of `square_distance3`. `nn.gmmreg.GMMReg` passes its `loop_kernels` flag.
 Both point-to-point loops end a trip in `core.procrustes.gated_update`.
 
+With a point-sharding `group` (`parallel/sp.py`) src holds this process's
+rows and tgt the whole target: each trip's 1-NN is local, and the inlier
+counts and the moments (point-to-point) or the normal equations
+(point-to-plane) are summed over the group. The whole-loop kernel holds one
+whole cloud, so `use_kernel` with a group raises.
+
 Point-to-plane (`icp_point_to_plane`) solves each trip's Gauss-Newton 6x6
 system of the plane residuals over the gated inliers and applies the
 Rodrigues update; the target's normals come from `estimate_normals_knn`
@@ -37,6 +43,14 @@ from ogmm_tpu_torch.ops import cuda_icp, cuda_stream, stream
 from ogmm_tpu_torch.ops.common import (gather_neighbors, index_points, knn,
                                        matmul32, nn1, nn1_route)
 from ogmm_tpu_torch.ops.grid_nn import build_grid, nn1_radius
+from ogmm_tpu_torch.parallel import comm
+
+
+def _refuse_kernel_sharded(use_kernel: bool, group) -> None:
+    if use_kernel and group is not None:
+        raise ValueError("use_kernel=True is incompatible with a point-"
+                         "sharding group: the whole-loop ICP kernel holds one "
+                         "whole cloud and cannot sum across processes")
 
 
 def _maybe_grid(tgt: torch.Tensor, threshold: float, use_grid: bool,
@@ -72,7 +86,7 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
                        init_pose: torch.Tensor, threshold: float,
                        max_iter: int = 30, method: str = "horn_pi",
                        use_kernel: bool = False, use_grid: bool = False,
-                       grid_cap: int = 32):
+                       grid_cap: int = 32, group=None):
     """Refine an initial rigid transform by point-to-point ICP.
 
     src (B, N, 3), tgt (B, M, 3), init_pose (B, 3/4, 4) mapping src -> tgt;
@@ -80,7 +94,9 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
     in a trip keeps its previous transform. `use_kernel` runs the loop as
     one kernel launch within the kernel's envelope; `use_grid` takes the
     1-NN from the grid of `ops.grid_nn` with `grid_cap` candidates a cell.
+    `group` shards src's rows (see the module's docstring).
     Returns (rot (B, 3, 3), trans (B, 3))."""
+    _refuse_kernel_sharded(use_kernel, group)
     thresh_sq = threshold * threshold
     B, N, C = src.shape
     grid = _maybe_grid(tgt, threshold, use_grid, use_kernel)
@@ -101,7 +117,7 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor,
         else:
             nn_d, nn_i = nn1(moved, tgt, prefer_dense=True)
         rot, t = gated_update(src, index_points(tgt, nn_i), nn_d, thresh_sq,
-                              rot, t, method)
+                              rot, t, method, group)
     return rot, t
 
 
@@ -150,7 +166,8 @@ def icp_point_to_plane(src: torch.Tensor, tgt: torch.Tensor,
                        max_iter: int = 30,
                        tgt_normals: torch.Tensor | None = None,
                        normal_k: int = 16, use_kernel: bool = False,
-                       use_grid: bool = False, grid_cap: int = 32):
+                       use_grid: bool = False, grid_cap: int = 32,
+                       group=None):
     """Point-to-plane ICP: each trip linearises the residual n.(R s + t - q)
     in a twist [omega; dt], forms the 6x6 normal equations over the gated
     inliers, solves (H + 1e-6 I) x = g and applies the Rodrigues update; a
@@ -163,8 +180,10 @@ def icp_point_to_plane(src: torch.Tensor, tgt: torch.Tensor,
     synchronisation every trip on the card. `use_kernel=True` takes each
     trip's 1-NN through the kernels at every M, as the JAX package's
     explicit `use_pallas=True` does: the `nn1` kernel also at M <= 1024, the
-    streamed kernel on the unsorted clouds above 4096.
+    streamed kernel on the unsorted clouds above 4096. `group` shards src's
+    rows (see the module's docstring).
     Returns (rot (B, 3, 3), trans (B, 3))."""
+    _refuse_kernel_sharded(use_kernel, group)
     thresh_sq = threshold * threshold
     B, N, C = src.shape
     rot = init_pose[..., :3, :3]
@@ -188,13 +207,13 @@ def icp_point_to_plane(src: torch.Tensor, tgt: torch.Tensor,
         q = index_points(tgt, nn_i)
         n = index_points(tgt_normals, nn_i)
         w = (nn_d < thresh_sq).to(src.dtype)
-        any_in = w.sum(dim=-1) > 0
+        any_in = comm.psum(w.sum(dim=-1), group) > 0
         w = torch.where(any_in[:, None], w, torch.ones_like(w))
         a = torch.cat([torch.linalg.cross(moved, n, dim=-1), n], dim=-1)
         b = -(n * (moved - q)).sum(-1)                          # (B, N)
         aw = a * w.unsqueeze(-1)
-        H = matmul32(aw.transpose(1, 2), a) + eye6              # (B, 6, 6)
-        g = matmul32(aw.transpose(1, 2), b.unsqueeze(-1))       # (B, 6, 1)
+        H = comm.psum(matmul32(aw.transpose(1, 2), a), group) + eye6  # (B, 6, 6)
+        g = comm.psum(matmul32(aw.transpose(1, 2), b.unsqueeze(-1)), group)
         x = torch.linalg.solve_ex(H, g)[0][..., 0]
         dR = _rodrigues(x[:, :3])
         rot_new = matmul32(dR, rot)

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from ogmm_tpu_torch.ops.common import l2_normalize, matmul32, square_distance
+from ogmm_tpu_torch.parallel import comm
 
 
 def log_boltzmann_kernel(cost, u, v, epsilon):
@@ -11,13 +12,32 @@ def log_boltzmann_kernel(cost, u, v, epsilon):
     return (-cost + u.unsqueeze(-1) + v.unsqueeze(-2)) / epsilon
 
 
+def _lse_rows_sharded(K: torch.Tensor, group) -> torch.Tensor:
+    """logsumexp over the row axis (-2) of a row-sharded (B, n_local, M)
+    matrix: the maximum over the group first, then the sum of the shifted
+    exponentials over the group (the JAX package's pmax/psum pair)."""
+    m = comm.pmax(K.amax(dim=-2), group)                  # (B, M)
+    s = comm.psum(torch.exp(K - m.unsqueeze(-2)).sum(dim=-2), group)
+    return s.log() + m
+
+
 def sinkhorn(cost: torch.Tensor, p: torch.Tensor | None = None,
              q: torch.Tensor | None = None, epsilon: float = 1e-2,
-             max_iter: int = 10):
+             max_iter: int = 10, group=None):
     """Entropic OT plan between marginals p (B, N) and q (B, M) for a cost
-    (B, N, M). Returns (gamma (B, N, M), mean OT loss scalar)."""
+    (B, N, M). Returns (gamma (B, N, M), mean OT loss scalar).
+
+    With a `group` the row axis is sharded over it: cost and p hold this
+    process's rows (p is needed: a uniform default cannot know the global
+    N), q is the same on every process, the column update's logsumexp runs
+    over the group (`_lse_rows_sharded`), gamma keeps the local rows and the
+    loss is the global one."""
     B, N, M = cost.shape
     if p is None:
+        if group is not None:
+            raise ValueError("sinkhorn(group=...) needs an explicit row "
+                             "marginal p: the uniform default cannot know "
+                             "the global row count")
         p = cost.new_full((B, N), 1.0 / N)
     if q is None:
         q = cost.new_full((B, M), 1.0 / M)
@@ -29,9 +49,11 @@ def sinkhorn(cost: torch.Tensor, p: torch.Tensor | None = None,
         K = log_boltzmann_kernel(cost, u, v, epsilon)
         u = epsilon * (log_p - torch.logsumexp(K, dim=-1)) + u
         Kt = log_boltzmann_kernel(cost, u, v, epsilon)
-        v = epsilon * (log_q - torch.logsumexp(Kt, dim=-2)) + v
+        lse_rows = (torch.logsumexp(Kt, dim=-2) if group is None
+                    else _lse_rows_sharded(Kt, group))
+        v = epsilon * (log_q - lse_rows) + v
     gamma = log_boltzmann_kernel(cost, u, v, epsilon).exp()
-    loss = (gamma * cost).sum(dim=(-2, -1))
+    loss = comm.psum((gamma * cost).sum(dim=(-2, -1)), group)
     return gamma, loss.mean()
 
 

@@ -5,6 +5,7 @@
     python -m ogmm_tpu_torch.train --preset indoor --dataset 7scene --root /data
     python -m ogmm_tpu_torch.train --model DeepGMR --dataset modelnetdv \
         --root synthetic:64
+    torchrun --nproc_per_node=G -m ogmm_tpu_torch.train --multihost ...
 
 The flags are those of the JAX package's `train.py` for what this package
 implements, plus `--device` (the card by default; `--device cpu` runs the
@@ -13,6 +14,14 @@ indoor preset and the flags, the loaders, the train state (restored
 from the run's best checkpoint when there is one), then runs `Trainer.fit`
 or, with `--eval_only`, one eval epoch, and with `--export_weights` writes
 the best weights as the JAX package's `.npz`.
+
+`--multihost` joins the process group torchrun describes
+(`train.distributed.init_distributed`; on a single-process run it does
+nothing) and trains data-parallel: each process loads the same global batch
+(the same seed) and keeps its block of rows, the loader runs one thread
+(the training split's worker threads would make the samples depend on
+thread order, and the processes must partition one global batch exactly
+once), and only process 0 writes logs, checkpoints and exported weights.
 """
 from __future__ import annotations
 
@@ -27,9 +36,9 @@ from ogmm_tpu_torch import configs
 
 # options of the JAX package's CLI that later slices of the port bring over
 NOT_PORTED = {
-    "multihost": "ROADMAP.md, queue A item 7 (torch.distributed)",
-    "profile_dir": "ROADMAP.md, 'Next' (a torch.profiler window in the "
-                   "trainer; scripts/torch_port_profile.py profiles a step)",
+    "profile_dir": "ROADMAP.md, queue A item 9 (a torch.profiler window in "
+                   "the trainer; scripts/torch_port_profile.py profiles a "
+                   "step)",
 }
 
 
@@ -83,8 +92,7 @@ def parse_args(argv=None):
 
 
 def _refuse_not_ported(args) -> None:
-    asked = {"multihost": args.multihost,
-             "profile_dir": args.profile_dir is not None}
+    asked = {"profile_dir": args.profile_dir is not None}
     for flag, on in asked.items():
         if on:
             raise NotImplementedError(
@@ -141,24 +149,51 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_not_ported(args)
     cfg = build_config(args)
+    group, owned = None, False
+    if args.multihost:
+        import torch.distributed as dist
+        from ogmm_tpu_torch.train.distributed import init_distributed
+        from ogmm_tpu_torch.train.trainer import make_mesh
+        was = dist.is_initialized()
+        if init_distributed(device=args.device):
+            group, owned = make_mesh(cfg), not was
+    try:
+        return _main(args, cfg, group)
+    finally:
+        if owned:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
+
+def _main(args, cfg, group):
+    import torch
     from ogmm_tpu_torch.core.metrics import print_metrics
     from ogmm_tpu_torch.data import data_loader
     from ogmm_tpu_torch.ops.dispatch import resolve_device
+    from ogmm_tpu_torch.parallel import comm
     from ogmm_tpu_torch.train import (CheckpointManager, Trainer,
-                                      create_train_state, export_weights)
+                                      create_train_state, export_weights,
+                                      restore_checkpoint)
 
+    rank, world = comm.axis_index(group), comm.axis_size(group)
+    if world > 1:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, num_workers=1))
     device = resolve_device(args.device)
+    if device.type == "cuda" and group is not None and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     log_dir = os.path.join(cfg.train.model_path, cfg.model_name)
-    os.makedirs(log_dir, exist_ok=True)
+    if rank == 0:
+        os.makedirs(log_dir, exist_ok=True)
+        handlers = [logging.FileHandler(os.path.join(log_dir, "train.log")),
+                    logging.StreamHandler(sys.stdout)]
+    else:
+        handlers = [logging.StreamHandler(sys.stderr)]
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if rank == 0 else logging.WARNING,
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
-        handlers=[logging.FileHandler(os.path.join(log_dir, "train.log")),
-                  logging.StreamHandler(sys.stdout)],
-        force=True)
+        handlers=handlers, force=True)
     logger = logging.getLogger("ogmm_tpu_torch")
-    logger.info("device: %s", device)
+    logger.info("device: %s; process %d of %d", device, rank, world)
     logger.info("config: %s", json.dumps(configs.config_to_dict(cfg)))
 
     train_loader, test_loader = data_loader(cfg)
@@ -167,11 +202,17 @@ def main(argv=None):
         test_loader = CappedLoader(test_loader, max(1, args.steps_per_epoch // 4))
     steps_per_epoch = max(1, len(train_loader))
 
-    state = create_train_state(cfg, steps_per_epoch, device=device)
-    ckpt = CheckpointManager(cfg.train.model_path, cfg, cfg.model_name)
-    if ckpt.has_best():
-        ckpt.restore(state)
-        logger.info("restored the train state from %s", ckpt.path("optim_model"))
+    state = create_train_state(cfg, steps_per_epoch, device=device,
+                               group=group)
+    # process 0 writes; every process reads the best checkpoint and takes
+    # the same decisions
+    ckpt = (CheckpointManager(cfg.train.model_path, cfg, cfg.model_name)
+            if rank == 0 else None)
+    best_path = os.path.join(CheckpointManager._models_dir(
+        cfg.train.model_path, cfg.model_name), "optim_model.pt")
+    if os.path.exists(best_path):
+        restore_checkpoint(best_path, state)
+        logger.info("restored the train state from %s", best_path)
 
     trainer = Trainer(cfg, state, checkpointer=ckpt)
     if args.eval_only:
@@ -179,7 +220,7 @@ def main(argv=None):
                       title=f"{cfg.model_name} eval", log=logger.info)
     else:
         trainer.fit(train_loader, test_loader, epochs=cfg.train.epochs)
-        if args.export_weights:
+        if args.export_weights and rank == 0:
             best = state
             if ckpt.has_best():
                 best = create_train_state(cfg, steps_per_epoch, device=device)

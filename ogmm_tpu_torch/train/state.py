@@ -11,12 +11,13 @@ milestones <= i), as `optax.piecewise_constant_schedule` gives.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from ogmm_tpu_torch.api import build_model, init_weights
 from ogmm_tpu_torch.configs import Config
+from ogmm_tpu_torch.nn.layers import set_bn_group
 from ogmm_tpu_torch.ops.dispatch import resolve_device
 
 
@@ -30,6 +31,9 @@ class TrainState:
     # random starts of the anchor FPS; None starts every cloud at index 0
     generator: Optional[torch.Generator]
     step: int = 0
+    # the data-parallel process group (None: one process); see
+    # train/distributed.py
+    group: Optional[Any] = None
 
     @property
     def device(self) -> torch.device:
@@ -49,11 +53,14 @@ def make_optimizer(params, cfg: Config, steps_per_epoch: int):
 def create_train_state(cfg: Config, steps_per_epoch: int,
                        seed: Optional[int] = None,
                        device: str | torch.device | None = None,
-                       state_dict: Optional[dict] = None) -> TrainState:
+                       state_dict: Optional[dict] = None,
+                       group=None) -> TrainState:
     """The model `cfg.model_name` names with seeded weights (or
     `state_dict`) in training mode on the card (or on `device`), its
     optimizer and schedule, and a generator for the anchor starts (GMMReg),
-    all from `seed` (cfg.train.seed by default)."""
+    all from `seed` (cfg.train.seed by default). With a data-parallel
+    `group` every process builds the same state, and the model's
+    BatchNorms take the group's global batch statistics."""
     device = resolve_device(device)
     seed = cfg.train.seed if seed is None else seed
     model = build_model(cfg)
@@ -64,4 +71,5 @@ def create_train_state(cfg: Config, steps_per_epoch: int,
     model.to(device).train()
     opt, sched = make_optimizer(model.parameters(), cfg, steps_per_epoch)
     gen = torch.Generator().manual_seed(seed + 1)
-    return TrainState(model, opt, sched, gen)
+    set_bn_group(model, group)
+    return TrainState(model, opt, sched, gen, group=group)

@@ -9,6 +9,14 @@ step is the eval forward with ICP, the same loss and the metrics. Batches
 are dictionaries in the JAX package's loader format (`BATCH_KEYS`, numpy
 arrays or tensors); the steps move them to the model's device. Metrics stay
 on the device until an epoch ends.
+
+Data parallelism (`TrainState.group`, `train/distributed.py`): every
+process is given the same global batch and keeps its block of rows; the
+BatchNorm statistics are the global batch's, the averaged gradients are
+all-reduced after the backward (one flat all-reduce, so every process
+applies the same update), and the loss and the per-sample metrics are
+gathered: a step returns the global batch's. The eval step splits the rows
+too (blocks may differ by one) and gathers its metrics.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ from ogmm_tpu_torch.configs import Config
 from ogmm_tpu_torch.core.metrics import dcp_metrics, summarize_metrics
 from ogmm_tpu_torch.losses import (composite_loss, dcp_loss,
                                    overlap_labels_device)
+from ogmm_tpu_torch.parallel import comm
+from ogmm_tpu_torch.train.distributed import assemble_global_batch
 from ogmm_tpu_torch.train.state import TrainState
 
 logger = logging.getLogger("ogmm_tpu_torch")
@@ -32,9 +42,31 @@ BATCH_KEYS = ("src_xyz", "tgt_xyz", "src_overlap", "tgt_overlap",
               "transform_gt")
 
 
-def _device_batch(batch, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(batch[k]).to(device=device, dtype=torch.float32)
-            for k in BATCH_KEYS}
+def make_mesh(cfg: Optional[Config] = None):
+    """The data-parallel group: the default process group once
+    `torch.distributed` is initialised (`init_distributed`), else None (one
+    process). The JAX package's 1-D 'dp' mesh."""
+    import torch.distributed as dist
+    return dist.group.WORLD if dist.is_initialized() else None
+
+
+def _device_batch(batch, device, group=None) -> Dict[str, torch.Tensor]:
+    """The batch's tensors on `device`; with a group this process's block
+    of the global batch's rows."""
+    return assemble_global_batch({k: batch[k] for k in BATCH_KEYS}, device,
+                                 comm.axis_size(group), comm.axis_index(group))
+
+
+def _average_gradients(model: torch.nn.Module, group) -> None:
+    """Replace every gradient by its mean over the group: one all-reduce of
+    all gradients flattened, the same sum on every process."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = comm.psum(torch.cat([g.reshape(-1) for g in grads]), group)
+    flat /= comm.axis_size(group)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
 
 
 def _labels(cfg: Config, b: Dict[str, torch.Tensor]):
@@ -70,9 +102,10 @@ def train_loss(state: TrainState, cfg: Config, batch):
     """The training forward and the loss of one batch, before any
     gradient: (loss, (rot, trans, clu, inputs)) with inputs the device
     tensors (src, tgt, rot_gt, trans_gt, src_overlap, tgt_overlap); clu is
-    0 for DeepGMR."""
+    0 for DeepGMR. With a data-parallel group all of it is this process's
+    block of the batch (the BatchNorms still see the global batch)."""
     model = state.model.train()
-    inputs = _labels(cfg, _device_batch(batch, state.device))
+    inputs = _labels(cfg, _device_batch(batch, state.device, state.group))
     src, tgt = inputs[:2]
     if cfg.model_name == "DeepGMR":
         out = model(src, tgt)
@@ -87,21 +120,27 @@ def train_loss(state: TrainState, cfg: Config, batch):
 def make_train_step(cfg: Config, with_metrics: bool = True):
     """Returns step(state, batch) -> metrics, one optimizer update of
     `state` in place. `with_metrics=False` is the light step: loss and clu
-    only, no metric suite."""
+    only, no metric suite. Under `state.group` the metrics are the global
+    batch's, on every process."""
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        group = state.group
         loss, (rot, trans, clu, inputs) = train_loss(state, cfg, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            _average_gradients(state.model, group)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
         src, tgt, rot_gt, trans_gt = inputs[:4]
         metrics = (dcp_metrics(src, tgt, rot_gt, trans_gt, rot.detach(),
                                trans.detach()) if with_metrics else {})
-        B = rot.shape[0]
-        metrics["loss"] = loss.detach().expand(B)
-        metrics["clu_loss"] = clu.detach().expand(B)
+        metrics = {k: comm.all_gather(v, group) for k, v in metrics.items()}
+        w = comm.axis_size(group)
+        B = rot.shape[0] * w
+        metrics["loss"] = (comm.psum(loss.detach(), group) / w).expand(B)
+        metrics["clu_loss"] = (comm.psum(clu.detach(), group) / w).expand(B)
         return metrics
 
     return step
@@ -109,13 +148,22 @@ def make_train_step(cfg: Config, with_metrics: bool = True):
 
 def make_eval_step(cfg: Config, is_test: bool = True):
     """Returns step(state, batch) -> metrics: the eval forward (with ICP when
-    `is_test`), the model's loss and the metric suite."""
+    `is_test`), the model's loss and the metric suite; under `state.group`
+    each process takes a block of the rows and the metrics are gathered."""
 
     @torch.no_grad()
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model = state.model
         was_training = model.training
         model.eval()
+        group = state.group
+        n = len(batch["src_xyz"])
+        if group is not None:
+            if n < comm.axis_size(group):
+                raise ValueError(f"an eval batch of {n} rows gives a process "
+                                 f"of {comm.axis_size(group)} no row")
+            lo, hi = comm.row_range(n, group)
+            batch = {k: batch[k][lo:hi] for k in BATCH_KEYS}
         try:
             inputs = _labels(cfg, _device_batch(batch, state.device))
             src, tgt, rot_gt, trans_gt = inputs[:4]
@@ -126,7 +174,7 @@ def make_eval_step(cfg: Config, is_test: bool = True):
         rot, trans = out[:2]
         metrics = dcp_metrics(src, tgt, rot_gt, trans_gt, rot, trans)
         metrics["loss"] = loss.expand(rot.shape[0])
-        return metrics
+        return {k: comm.gather_rows(v, n, group) for k, v in metrics.items()}
 
     return step
 
@@ -138,7 +186,10 @@ def _summarize(acc) -> Dict[str, float]:
 
 class Trainer:
     """Epoch loop: train and eval interleaved, the best checkpoint by
-    `pcab_dist`, pairs per second."""
+    `pcab_dist`, pairs per second (and a card: the global batch's pairs over
+    the processes of `state.group`). Give the `checkpointer` to one process
+    only (the CLI: rank 0); every process takes the same decisions from the
+    gathered metrics."""
 
     def __init__(self, cfg: Config, state: TrainState, checkpointer=None):
         self.cfg = cfg
@@ -170,14 +221,19 @@ class Trainer:
             n_pairs += len(batch["src_xyz"])
         self._sync()
         summary = _summarize(acc)
-        summary["pairs_per_sec"] = n_pairs / (time.perf_counter() - t0)
+        self._rates(summary, n_pairs, t0)
         logger.info("Epoch %-4d Mean-Loss: %.4f r_mae:%.4f t_mae:%.4f "
-                    "recall:%.4f | %.1f pairs/s", epoch, summary["loss"],
+                    "recall:%.4f | %.1f pairs/s/chip", epoch, summary["loss"],
                     summary.get("r_mae", math.nan),
                     summary.get("t_mae", math.nan),
                     summary.get("n_correct", math.nan),
-                    summary["pairs_per_sec"])
+                    summary["pairs_per_sec_per_chip"])
         return summary
+
+    def _rates(self, summary, n_pairs: int, t0: float) -> None:
+        summary["pairs_per_sec"] = n_pairs / (time.perf_counter() - t0)
+        summary["pairs_per_sec_per_chip"] = (
+            summary["pairs_per_sec"] / comm.axis_size(self.state.group))
 
     def eval_epoch(self, epoch: int, loader) -> Dict[str, float]:
         acc = defaultdict(list)
@@ -189,11 +245,11 @@ class Trainer:
             n_pairs += len(batch["src_xyz"])
         self._sync()
         summary = _summarize(acc)
-        summary["pairs_per_sec"] = n_pairs / (time.perf_counter() - t0)
+        self._rates(summary, n_pairs, t0)
         logger.info("Eval  %-4d Mean-Loss: %.4f r_mae:%.4f t_mae:%.4f "
-                    "recall:%.4f | %.1f pairs/s", epoch, summary["loss"],
+                    "recall:%.4f | %.1f pairs/s/chip", epoch, summary["loss"],
                     summary["r_mae"], summary["t_mae"], summary["n_correct"],
-                    summary["pairs_per_sec"])
+                    summary["pairs_per_sec_per_chip"])
         return summary
 
     def fit(self, train_loader, test_loader, epochs: Optional[int] = None):

@@ -1349,3 +1349,63 @@ def test_point_to_plane_on_the_card_matches_the_cpu(card, B, N, launched):
         assert (g.cpu() - w).abs().max().item() <= 1e-4
     assert (got[0] - rot).abs().max().item() <= 1e-3
 
+
+
+# ------------------------------------ the point-sharded request's shapes
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_knn_stream_at_the_sharded_shape(card, world):
+    """The cross graph of one process's rows of the indoor cloud against
+    the whole cloud, (1, 35000 / W, 35000, k = 20), as `knn_cross_spatial`
+    gives it: the plain version's indices (in the kernel's sorted spaces,
+    with the cull and the diagonal stretched by W)."""
+    rs = np.random.RandomState(60 + world)
+    full = _surface(rs, card, 1, 35000)
+    rows = full[:, :35000 // world]
+    box = (full.amin(dim=1, keepdim=True), full.amax(dim=1, keepdim=True))
+    qs = index_points(rows, stream.morton_order(rows, box))
+    ts = index_points(full, stream.morton_order(full, box))
+    got = cuda_stream.knn_stream(qs, ts, 20, diag_order=True, stretch=world,
+                                 cull_lb=stream.pair_tile_bounds(qs, ts))
+    torch.cuda.synchronize()
+    assert torch.equal(got, stream.knn_stream_plain(qs, ts, 20))
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_nn1_stream_at_the_sharded_shapes(card, world):
+    """An ICP trip of the sharded request, (1, 35000 / W, 35000), sorted
+    clouds, the cull and the gate (exact within the gate), and the
+    clustering's (2, 16, 35000 / W) without them (exact)."""
+    rs = np.random.RandomState(70 + world)
+    tgt = _morton(_surface(rs, card, 1, 35000))
+    src = _morton(tgt[:, torch.randperm(35000, device=card)[:35000 // world]]
+                  + 0.002)
+    gate = 0.07 ** 2
+    d, i = cuda_stream.nn1_stream(src, tgt, cull_lb=stream.pair_tile_bounds(
+        src, tgt), max_dist_sq=gate, diag_order=True, stretch=world)
+    rd, ri = stream.nn1_stream_plain(src, tgt)
+    inside = rd < gate
+    assert torch.equal(d[inside], rd[inside]) and torch.equal(i[inside], ri[inside])
+    local = _surface(rs, card, 2, 35000 // world)
+    means = _surface(rs, card, 2, 16)
+    d, i = cuda_stream.nn1_stream(means, local)
+    rd, ri = stream.nn1_stream_plain(means, local)
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wproject_at_the_sharded_shape(card, world, dtype):
+    """The overlap head of the sharded request: one process's queries
+    against the whole other cloud, (1, 35000 / W, 35000, 512), out and lse
+    within 1e-4 of the plain version."""
+    rs = np.random.RandomState(80 + world)
+    l2 = lambda a: (a / a.norm(dim=-1, keepdim=True)).to(dtype)
+    q = l2(torch.tensor(rs.randn(1, 35000 // world, 512).astype(np.float32),
+                        device=card))
+    k = l2(torch.tensor(rs.randn(1, 35000, 512).astype(np.float32), device=card))
+    v = torch.tensor(rs.randn(1, 35000, 1).astype(np.float32), device=card)
+    out, lse = cuda_stream.wproject_stream_lse(q, k, v)
+    rout, rlse = stream.wproject_stream_lse_plain(q, k, v)
+    assert (out - rout).abs().max().item() <= 1e-4
+    assert (lse - rlse).abs().max().item() <= 1e-4

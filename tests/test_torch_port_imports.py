@@ -12,7 +12,8 @@ MODULES = sorted(p for p in PKG.rglob("*.py"))
 
 
 # the scripts that drive the port on the card stand alone too
-SCRIPTS = [PKG.parent / "chip_smoke.py", PKG.parent / "scripts/torch_port_profile.py"]
+SCRIPTS = [PKG.parent / "chip_smoke.py", PKG.parent / "scripts/torch_port_profile.py",
+           PKG.parent / "scripts/dist_scaling.py"]
 
 
 def _assert_names_no_jax(path):
@@ -95,3 +96,27 @@ def test_entry_points_refuse_a_missing_card():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         Registrar()
+
+
+def _public_functions(path):
+    tree = ast.parse(path.read_text())
+    return {n.name for n in tree.body
+            if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")}
+
+
+@pytest.mark.parametrize("jax_module,port_module", [
+    ("parallel/sp.py", "ogmm_tpu_torch.parallel"),
+    ("train/distributed.py", "ogmm_tpu_torch.train.distributed")])
+def test_the_distribution_names_have_counterparts(jax_module, port_module):
+    """Every public function of the JAX package's `parallel/` and
+    `train/distributed.py` has its namesake in the port (read from the
+    source: nothing of the JAX package is imported), and `parallel/` is a
+    package of the port, held by the no-JAX checks above."""
+    import importlib
+    names = _public_functions(PKG.parent / "ogmm_tpu" / jax_module)
+    assert names
+    mod = importlib.import_module(port_module)
+    assert all(hasattr(mod, n) for n in names), names
+    port = {str(p.relative_to(PKG)) for p in MODULES}
+    assert {"parallel/__init__.py", "parallel/sp.py", "parallel/comm.py",
+            "parallel/launch.py", "train/distributed.py"} <= port

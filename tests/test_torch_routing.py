@@ -31,6 +31,7 @@ from ogmm_tpu.configs import ModelConfig as JModelConfig
 from ogmm_tpu.nn.layers import PointMLP as JPointMLP
 from ogmm_tpu.ops.dispatch import pallas_override
 from ogmm_tpu.ops.icp import icp_point_to_point as jicp
+from ogmm_tpu.parallel import sp_mesh as jsp_mesh
 from ogmm_tpu_torch.nn import gmmreg as tgmmreg
 from ogmm_tpu_torch.nn.attention import angle_route
 from ogmm_tpu_torch.nn import dgcnn as tdgcnn
@@ -498,3 +499,79 @@ def test_edges_route_follows_the_jax_rule(monkeypatch, dgcnn_variables, N,
         assert port == "unfused"
     else:
         assert port == jax_route
+
+
+# -------------------------------------------- under a process group
+
+SENTINEL = object()          # a group the pure route rules only compare to None
+
+
+def _in_shard_map(fn, *args):
+    """fn(*args) inside a shard_map over the one-device mesh 'sp' (the JAX
+    package's point-sharded context), args sharded on axis 1."""
+    from jax.sharding import PartitionSpec as P
+    specs = tuple(P(None, "sp") for _ in args)
+    return jax.shard_map(fn, mesh=jsp_mesh(1), in_specs=specs,
+                         out_specs=P(), check_vma=False)(*args)
+
+
+@pytest.mark.parametrize("N,K", [(717, 128), (1024, 16), (4097, 16)])
+def test_em_route_under_a_group_follows_the_jax_rule(monkeypatch, N, K):
+    # ogmm_tpu/ops/gmm.py:163-170, :186-190: with axis_name the jnp EM, and
+    # a forced kernel raises
+    _stub(monkeypatch, jpallas_em, "sinkhorn_em", "kernel")
+    _stub(monkeypatch, jgmm, "_em_jnp", "plain")
+    nodes = jnp.zeros((1, K, 3))
+    run = lambda use: lambda x, f, o: jgmm.wkeans_plus(
+        x, f, o, K, init_nodes=nodes, axis_name="sp", use_pallas=use)
+    args = (jnp.zeros((1, N, 3)), jnp.zeros((1, N, 4)), jnp.ones((1, N)))
+    with pallas_override(True):
+        assert _taken(lambda: _in_shard_map(run(None), *args)) == "plain"
+        with pytest.raises(ValueError, match="use_pallas"):
+            _in_shard_map(run(True), *args)
+    assert em_route(N, K, SENTINEL) == "plain"
+    from ogmm_tpu_torch.ops.gmm import wkeans_plus
+    with pytest.raises(ValueError, match="em_kernel"):
+        wkeans_plus(torch.zeros(1, N, 3), torch.zeros(1, N, 4),
+                    torch.ones(1, N), K, init_nodes=torch.zeros(1, K, 3),
+                    em_kernel=True, group=SENTINEL)
+
+
+@pytest.mark.parametrize("N", [717, 1024])
+def test_pointmlp_route_under_a_group_follows_the_jax_rule(monkeypatch, N):
+    # ogmm_tpu/nn/layers.py:124-126: sp_axis keeps the layer chain
+    _stub(monkeypatch, jpallas_mlp, "pointmlp_eval_pallas", "kernel")
+    channels = (128, 64)
+    jm = JPointMLP(channels, fuse_eval=True, sp_axis="sp")
+    v = JPointMLP(channels).init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 64)))
+    x = jnp.zeros((1, N, 64))
+    with pallas_override(True):
+        jax_route = _taken(lambda: _in_shard_map(
+            lambda a: jm.apply(v, a, train=False).sum(), x)) or "layers"
+    assert jax_route == "layers"
+    shape = (1, N, 64)
+    assert cuda_mlp.mlp_route(True, False, shape, channels, torch.bfloat16)
+    assert not cuda_mlp.mlp_route(True, False, shape, channels,
+                                  torch.bfloat16, SENTINEL)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_backward_kernels_under_a_group_follow_the_jax_rule(monkeypatch,
+                                                            world):
+    # ogmm_tpu/nn/dgcnn.py:209-217: the fused training path cannot reduce
+    # its BN moments over replicas, and forcing it with bn_axis_name raises
+    from ogmm_tpu.nn.dgcnn import DGCNN as JDGCNN
+    from ogmm_tpu_torch.ops import dgcnn_train as tdgcnn_train
+    from ogmm_tpu_torch.parallel import comm
+    jm = JDGCNN(k=20, bn_axis_name="dp", fused_train=True)
+    with pytest.raises(ValueError, match="bn_axis_name"):
+        jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 3)), train=True)
+    monkeypatch.setattr(comm, "axis_size",
+                        lambda g: 1 if g is None else world)
+    assert tdgcnn_train.bwd_kernels_take(20, 717)
+    assert tdgcnn_train.bwd_kernels_take(20, 717, SENTINEL) == (world == 1)
+    monkeypatch.setattr(tdgcnn_train, "BWD_KERNELS", True)
+    x = torch.zeros(1, 32, 3)
+    if world > 1:
+        with pytest.raises(ValueError, match="BWD_KERNELS"):
+            tdgcnn_train.dgcnn_train(x, [], [], [], group=SENTINEL)

@@ -61,8 +61,11 @@ def test_cli_eval_only_restores_the_checkpoint(tmp_path):
     assert again.history == []
 
 
-@pytest.mark.parametrize("flags", [["--multihost"], ["--profile_dir", "p"]])
+@pytest.mark.parametrize("flags", [["--profile_dir", "p", "--multihost"],
+                                   ["--profile_dir", "p"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags):
+    # --multihost is ported (tests/test_torch_distributed.py); the refusal
+    # of what is not comes before it would join a process group
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(tmp_path, *flags)
 
@@ -91,7 +94,7 @@ def test_cli_refuses_gmmreg_on_unequal_clouds(tmp_path):
 def test_module_entry_point_runs_the_cli():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-m", "ogmm_tpu_torch.train",
-                          "--multihost"], capture_output=True,
+                          "--profile_dir", "p"], capture_output=True,
                          text=True, cwd=ROOT, env=env)
     assert res.returncode != 0
-    assert "queue A item 7" in res.stderr
+    assert "queue A item 9" in res.stderr
