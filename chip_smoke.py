@@ -60,7 +60,7 @@ fatal on failure:
              `Registrar` at gnn_k=16 and at n_clusters=16 (N=2048), `nn1` at
              M=8192; and those it raised on before its routes read the eval
              kernels' envelope (faults C.2, C.3): `Registrar` at emb_dims=96
-             (N=717) and with dgcnn_fused_edges=True at gnn_k=12 (N=2048);
+             (N=717) and with dgcnn_fused_edges=True at gnn_k=33 (N=2048);
              the launch counts show each route
  12. knn_stream, nn1_stream, wproject, dgcnn_edges   the streamed kernels
              and the edges kernel against their plain versions at the indoor
@@ -162,6 +162,22 @@ fatal on failure:
              11-13 at world 2's sharded shapes against their plain versions
              (`at_sp`). Two processes on one card check the arithmetic and
              the shard-shaped kernels, not scaling
+ 21. envelopes     the kernels past their earlier envelopes, emb 512, K=128,
+             4 heads, 10 EM x 10 Sinkhorn trips, seeded weights: (a)
+             dgcnn_eval at k = 4, 12, 25, 32 (2B=48 clouds of 717, bf16 and
+             float32), dgcnn_edges at k = 12 (2 clouds of 35,000) and 5 (37
+             points), graph_stage1 at k = 12 and 32 (24 clouds of 717),
+             sinkhorn_em at (8, 5734, 128), (8, 4096, 128) and (8, 2867,
+             256) (clusters of 16 blocks; per trip and after 10 trips),
+             each against its plain version, timed beside it and its bound
+             (`at_envelopes` in the kernels line); (b)
+             `Registrar(configs.mnet(gnn_k=12))` at B=24, N=717, float32 and
+             bf16 (dgcnn_eval 1, sinkhorn_em 1); (c) one train step of it
+             (graph_stage1 2, the plain backward); (d) a request at B=8,
+             N=4,096, K=128 (sinkhorn_em 1, the JAX rule's kernel); (e) the
+             CLI with --profile_dir for 12 steps: a Chrome trace of steps
+             [5, 10) naming the port's kernels; (f) the indoor request at
+             gnn_k=12 with dgcnn_fused_edges=True (dgcnn_edges 1)
 
 `python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
 (build always runs; the names are those of PHASES below) and prints their
@@ -310,18 +326,33 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_trace(fn, reps=1):
+    """torch.profiler's key averages of the card's activity in reps calls of
+    fn. A session whose trace holds no kernel at all, though fn launches
+    some, is a lost trace, not a count: it is taken again, at most three
+    times, and then raises."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        if any(evt.self_device_time_total > 0 for evt in avgs):
+            return avgs
+        print("torch.profiler: a trace without a kernel on the card, taken again",
+              file=sys.stderr)
+    raise RuntimeError("torch.profiler recorded no kernel on the card in 3 sessions")
+
+
 def launch_ms(fn, reps, groups):
     """Device ms a call of each group of the kernels that fn launches, from
     torch.profiler: {label: ms}; a group is a tuple of kernel-name parts."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {label: 0.0 for label in groups}
-    for evt in prof.key_averages():
+    for evt in device_trace(fn, reps):
         key = evt.key.replace(" ", "")
         for label, names in groups.items():
             if any(name.replace(" ", "") in key for name in names):
@@ -372,14 +403,21 @@ def rigid_copies(rs, src):
 
 # ------------------------------------------------------------------ kernels
 
-def check_dgcnn(rs):
-    x = torch.tensor(rs.randn(2 * B, N, 3).astype(np.float32) * 0.3, device=DEV)
-    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, EMB)]
+def _dgcnn_operands(rs, emb=EMB):
+    """The DGCNN's five seeded float32 weights and folded BN (scale, bias)
+    pairs, on the card."""
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb)]
     ws = [torch.tensor(rs.randn(*d).astype(np.float32) / np.sqrt(d[0]),
                        device=DEV) for d in dims]
     aff = [(torch.tensor(rs.uniform(0.5, 1.5, d[1]).astype(np.float32), device=DEV),
             torch.tensor(rs.randn(d[1]).astype(np.float32) * 0.1, device=DEV))
            for d in dims]
+    return ws, aff
+
+
+def check_dgcnn(rs):
+    x = torch.tensor(rs.randn(2 * B, N, 3).astype(np.float32) * 0.3, device=DEV)
+    ws, aff = _dgcnn_operands(rs)
     errs = {}
     # the graph its selection picks (the shared one of csrc/knn_lanes.cuh)
     graph = torch.empty(2 * B, N, KNN, dtype=torch.int32, device=DEV)
@@ -1363,9 +1401,10 @@ def check_c1(rs):
             ("emb_dims=96", dict(emb_dims=96), B, N,
              {"dgcnn_eval": 0, "dgcnn_edges": 0, "knn": 1, "sinkhorn_em": 1}),
             # C.3: dgcnn_fused_edges at a k the edges kernel does not take
-            # (the JAX package runs its edges kernel): the unfused chain
-            ("gnn_k=12 dgcnn_fused_edges", dict(gnn_k=12, dgcnn_fused_edges=True),
-             4, 2048, {"dgcnn_eval": 0, "dgcnn_edges": 0, "knn": 1,
+            # (the JAX package runs its edges kernel): the unfused chain, over
+            # the plain kNN (the kNN kernels take k <= 32 too)
+            ("gnn_k=33 dgcnn_fused_edges", dict(gnn_k=33, dgcnn_fused_edges=True),
+             4, 2048, {"dgcnn_eval": 0, "dgcnn_edges": 0, "knn": 0,
                        "sinkhorn_em": 1})):
         reg = Registrar(configs.mnet(model=configs.ModelConfig(
             dtype="bfloat16", **over)), seed=0, device=DEV)
@@ -1787,12 +1826,7 @@ def check_dgcnn_edges(rs):
     x = _sorted(torch.tensor(surface(rs, 2), device=DEV))
     nbr = gather_neighbors(x, cuda_stream.knn_stream(
         x, x, KNN, diag_order=True, cull_lb=stream.tile_pair_bounds(x)))
-    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, EMB)]
-    ws = [torch.tensor(rs.randn(*d).astype(np.float32) / np.sqrt(d[0]),
-                       device=DEV) for d in dims]
-    aff = [(torch.tensor(rs.uniform(0.5, 1.5, d[1]).astype(np.float32), device=DEV),
-            torch.tensor(rs.randn(d[1]).astype(np.float32) * 0.1, device=DEV))
-           for d in dims]
+    ws, aff = _dgcnn_operands(rs)
     xs = x[:1, :37]
     small_nbr = gather_neighbors(xs, ops_common.select_smallest(
         ops_common.square_distance3(xs, xs), 16))
@@ -2511,13 +2545,8 @@ LIM_DGMR_BWD_GRAD = 1e-3
 def profiled_launches(fn):
     """Launches of each __global__ of DEEPGMR_GLOBALS in one call of fn,
     from torch.profiler's device events."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     out = {name: 0 for name in DEEPGMR_GLOBALS}
-    for evt in prof.key_averages():
+    for evt in device_trace(fn):
         for name, glob in DEEPGMR_GLOBALS.items():
             if glob in evt.key:
                 out[name] += evt.count
@@ -2568,12 +2597,7 @@ def check_deepgmr_kernels(rs):
     f32 = torch.float32
     out = {}
     x = _cloud(rs, B_DV, N_DV)
-    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, EMB)]
-    ws = [torch.tensor(rs.randn(*d).astype(np.float32) / np.sqrt(d[0]),
-                       device=DEV) for d in dims]
-    aff = [(torch.tensor(rs.uniform(0.5, 1.5, d[1]).astype(np.float32), device=DEV),
-            torch.tensor(rs.randn(d[1]).astype(np.float32) * 0.1, device=DEV))
-           for d in dims]
+    ws, aff = _dgcnn_operands(rs)
     got = dgcnn_eval(x, ws, aff, KNN, f32, 0)
     torch.cuda.synchronize()
     err = (got - dgcnn_eval_reference(x, ws, aff, KNN, f32, 0)).abs().max().item()
@@ -2929,14 +2953,10 @@ def _timed(fn, reps=3):
 def _busy_ms(fn, groups=None):
     """Device ms of one call of fn from torch.profiler: every kernel's, and
     the kernels named by each group {label: name part}."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     out = {"busy": 0.0, **{label: 0.0 for label in groups or {}}}
-    for evt in prof.key_averages():
+    for evt in device_trace(fn):
         ms = evt.self_device_time_total / 1e3
         out["busy"] += ms
         for label, part in (groups or {}).items():
@@ -3860,10 +3880,347 @@ def distributed(rs):
     return path_launches, res
 
 
+# ------------------------------------------------------------- envelopes
+
+ENV_DGCNN_KS = (4, 12, 25, 32)   # k the DGCNN eval kernel was not compiled for
+ENV_GS1_KS = (12, 32)            # and the training graph's
+ENV_EDGES_K = 12
+ENV_EM = ((8, 5734, 128), (8, 4096, 128), (8, 2867, 256))   # (clouds, N, K)
+ENV_GNN_K = 12                   # the model of parts (b), (c) and (e)
+ENV_N_EM = 4096                  # part (d): a request the JAX rule sends to
+#                                  its EM kernel past a cluster of 8 blocks
+ENV_CLI_ROOT = "synthetic:600"   # 300 train shapes: 12 steps of 24 pairs
+
+
+def _stage_bound(points, k, emb, nbytes, selection_ops=0.0):
+    """The stage chain's bound at k neighbours (the rows past k that the
+    kernel repeats are not work this input needs): its products in bf16 at
+    989 TFLOP/s, or in float32 on the CUDA cores / in 3xTF32 (f32_bound),
+    plus a selection's float32 operations, against the bytes."""
+    stage_macs = 6 * 64 + 64 * 64 + 64 * 128 + 128 * 256
+    products = 2.0 * points * (k * stage_macs + sum(STAGES) * emb)
+    t_ops = products / PEAK_FLOPS["bf16"] + selection_ops / PEAK_FLOPS["f32"]
+    t_bytes = nbytes / PEAK_BYTES
+    return ({"bound_ms": max(t_ops, t_bytes) * 1e3,
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes"},
+            f32_bound(products, selection_ops, nbytes + points * emb * 2))
+
+
+def env_dgcnn_eval(rs):
+    """dgcnn_eval at k outside the earlier compiled set, 2B = 48 clouds of
+    717, bf16 and float32, against the plain version; the graph identical."""
+    x = torch.tensor(rs.randn(2 * B, N, 3).astype(np.float32) * 0.3, device=DEV)
+    ws, aff = _dgcnn_operands(rs)
+    res = {}
+    for k in ENV_DGCNN_KS:
+        pk = min(POS_K, k)
+        graph = torch.empty(2 * B, N, k, dtype=torch.int32, device=DEV)
+        cuda_dgcnn._dgcnn_eval_cuda(x, ws, aff, k, torch.bfloat16, pk, idx=graph)
+        torch.cuda.synchronize()
+        assert torch.equal(graph.long(), knn_reference(x, x, k)), f"graph k={k}"
+        errs, ms, plain = {}, {}, {}
+        for dt, lim in ((torch.float32, LIM_DGCNN_F32), (torch.bfloat16, LIM_DGCNN_BF16)):
+            out, alpha = dgcnn_eval(x, ws, aff, k, dt, pk)
+            torch.cuda.synchronize()
+            ref, ralpha = dgcnn_eval_reference(x, ws, aff, k, dt, pk)
+            assert out.dtype == dt and out.shape == (2 * B, N, EMB)
+            err = (out.float() - ref.float()).abs().max().item()
+            aerr = (alpha - ralpha).abs().max().item()
+            assert torch.isfinite(out.float()).all() and err <= lim and aerr <= LIM_ALPHA, \
+                (k, dt, err, aerr)
+            again, _ = dgcnn_eval(x, ws, aff, k, dt, pk)
+            assert torch.equal(out, again), f"dgcnn_eval k={k}: two launches differ"
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            errs[name] = max(err, aerr)
+            ms[name] = cuda_ms(lambda: dgcnn_eval(x, ws, aff, k, dt, pk), 10)
+            plain[name] = cuda_ms(lambda: dgcnn_eval_reference(x, ws, aff, k, dt, pk), 2)
+        rows = 2 * B * N
+        nbytes = (x.numel() * 4 + sum(w.numel() for w in ws) * 2
+                  + rows * EMB * 2 + rows * pk * 4)
+        bound, bound32 = _stage_bound(rows, k, EMB, nbytes, rows * N * (8.0 + k))
+        res[f"k={k}"] = {"shape": [2 * B, N, k, EMB], "rows_a_point": cuda_dgcnn.stage_rows(k),
+                         "max_abs_err": errs["bf16"], "max_abs_err_f32": errs["f32"],
+                         "ms": ms["bf16"], "ms_f32": ms["f32"],
+                         "plain_ms": plain["bf16"], "plain_ms_f32": plain["f32"],
+                         **bound, "bound_ms_f32": bound32}
+        print(f"envelopes dgcnn_eval (2B={2 * B}, N={N}, k={k}, "
+              f"{cuda_dgcnn.stage_rows(k)} rows a point): graph identical; bf16 "
+              f"{ms['bf16']:.4f} ms (plain {plain['bf16']:.3f}, err {errs['bf16']:.3g}, "
+              f"limit {LIM_DGCNN_BF16}), float32 {ms['f32']:.4f} ms (plain "
+              f"{plain['f32']:.3f}, err {errs['f32']:.3g}, limit {LIM_DGCNN_F32}); "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), float32 "
+              f"{bound32['ms_tf32x3']:.4f} in 3xTF32")
+    return res
+
+
+def env_dgcnn_edges(rs):
+    """dgcnn_edges at k = 12 over the indoor graph (2 clouds of 35,000) and
+    at N = 37 with k = 5 (8 rows a point), bf16 and float32."""
+    x = _sorted(torch.tensor(surface(rs, 2), device=DEV))
+    k = ENV_EDGES_K
+    nbr = gather_neighbors(x, cuda_stream.knn_stream(
+        x, x, k, diag_order=True, cull_lb=stream.tile_pair_bounds(x)))
+    ws, aff = _dgcnn_operands(rs)
+    xs = x[:1, :37]
+    small_nbr = gather_neighbors(xs, ops_common.select_smallest(
+        ops_common.square_distance3(xs, xs), 5))
+    errs = {}
+    for dt, lim in ((torch.float32, LIM_DGCNN_F32), (torch.bfloat16, LIM_DGCNN_BF16)):
+        for xx, nb, kk in ((x, nbr, k), (xs, small_nbr, 5)):
+            out = dgcnn_edges(xx, nb, ws, aff, kk, dt)
+            torch.cuda.synchronize()
+            ref = dgcnn_edges_reference(xx, nb, ws, aff, kk, dt)
+            err = (out.float() - ref.float()).abs().max().item()
+            print(f"envelopes dgcnn_edges {tuple(nb.shape)} {dt}: max|kernel - plain| "
+                  f"= {err:.3g} (limit {lim})")
+            assert out.dtype == dt and out.shape == ref.shape
+            assert torch.isfinite(out.float()).all() and err <= lim
+            errs[dt] = max(errs.get(dt, 0.0), err)
+    bf, f32 = torch.bfloat16, torch.float32
+    ms = cuda_ms(lambda: dgcnn_edges(x, nbr, ws, aff, k, bf), 5)
+    ms32 = cuda_ms(lambda: dgcnn_edges(x, nbr, ws, aff, k, f32), 5)
+    plain = cuda_ms(lambda: dgcnn_edges_reference(x, nbr, ws, aff, k, bf), 2)
+    plain32 = cuda_ms(lambda: dgcnn_edges_reference(x, nbr, ws, aff, k, f32), 2)
+    rows = 2 * N_INDOOR
+    nbytes = x.numel() * 4 + nbr.numel() * 4 + rows * EMB * 2
+    bound, bound32 = _stage_bound(rows, k, EMB, nbytes)
+    print(f"envelopes dgcnn_edges (2, {N_INDOOR}, k={k}): {ms:.3f} ms bf16 (plain "
+          f"{plain:.3f}), {ms32:.3f} ms float32 (plain {plain32:.3f}); bound "
+          f"{bound['bound_ms']:.4f} ms, float32 {bound32['ms_tf32x3']:.4f} in 3xTF32")
+    return {"shape": [2, N_INDOOR, k, EMB], "max_abs_err": errs[bf],
+            "max_abs_err_f32": errs[f32], "ms": ms, "ms_f32": ms32,
+            "plain_ms": plain, "plain_ms_f32": plain32, **bound,
+            "bound_ms_f32": bound32}
+
+
+def env_graph_stage1(rs):
+    """graph_stage1 at k = 12 and 32, B = 24 clouds of 717, bf16 and
+    float32: exactly k edge rows a point, the graph and e identical."""
+    x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=DEV)
+    w1 = torch.tensor(rs.randn(6, 64).astype(np.float32) / np.sqrt(6), device=DEV)
+    res = {}
+    for k in ENV_GS1_KS:
+        errs, ms = {}, {}
+        for dt, lim in ((torch.float32, LIM_Z1_F32), (torch.bfloat16, LIM_Z1_BF16)):
+            z1, e, idx, alpha = graph_stage1(x, w1, k, dt, POS_K)
+            torch.cuda.synchronize()
+            rz1, re, ridx, ralpha = graph_stage1_reference(x, w1, k, dt, POS_K)
+            assert z1.shape == (B, k, N, 64) and e.shape == (B, k, N, 6)
+            err = (z1.float() - rz1.float()).abs().max().item()
+            aerr = (alpha - ralpha).abs().max().item()
+            assert torch.equal(idx, ridx) and torch.equal(e, re), (k, dt)
+            assert torch.isfinite(z1.float()).all() and err <= lim and aerr <= LIM_ALPHA
+            again = graph_stage1(x, w1, k, dt, POS_K)
+            assert all(torch.equal(a, b) for a, b in zip((z1, e, idx, alpha), again))
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            errs[name] = max(err, aerr)
+            ms[name] = cuda_ms(lambda: graph_stage1(x, w1, k, dt, POS_K), 20)
+        plain = cuda_ms(lambda: graph_stage1_reference(x, w1, k, torch.bfloat16, POS_K), 2)
+        rows = B * N
+        flops_f32 = rows * N * (8.0 + k)
+        flops_bf16 = 2.0 * rows * k * 6 * 64
+        nbytes = (x.numel() * 4 + w1.numel() * 4 + rows * k * (64 + 6) * 2
+                  + rows * k * 4 + rows * POS_K * 4)
+        t_ops = flops_bf16 / PEAK_FLOPS["bf16"] + flops_f32 / PEAK_FLOPS["f32"]
+        t_bytes = nbytes / PEAK_BYTES
+        res[f"k={k}"] = {"shape": [B, N, k], "max_abs_err": errs["bf16"],
+                         "max_abs_err_f32": errs["f32"], "ms": ms["bf16"],
+                         "ms_f32": ms["f32"], "plain_ms": plain,
+                         "bound_ms": max(t_ops, t_bytes) * 1e3,
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "bound_ms_f32": f32_bound(flops_bf16, flops_f32,
+                                                   nbytes + rows * k * (64 + 6) * 2)}
+        print(f"envelopes graph_stage1 ({B}, {N}, k={k}): idx and e identical, bf16 "
+              f"{ms['bf16']:.4f} ms, float32 {ms['f32']:.4f} ms, plain {plain:.3f}, "
+              f"err {errs['bf16']:.3g} / {errs['f32']:.3g}; bound "
+              f"{res[f'k={k}']['bound_ms']:.4f} ms ({res[f'k={k}']['bound_by']})")
+    return res
+
+
+def env_em(rs):
+    """sinkhorn_em past a cluster of 8 blocks and above K = 128, against
+    the plain version per trip and after ten trips."""
+    res = {}
+    for clouds, n, kk in ENV_EM:
+        xyz = torch.tensor(rs.randn(clouds, n, 3).astype(np.float32) * 0.3, device=DEV)
+        o = torch.tensor(rs.rand(clouds, n).astype(np.float32), device=DEV)
+        o = o / o.sum(-1, keepdim=True)
+        n0 = index_points(xyz, farthest_point_sample(xyz, kk, is_center=True))
+        cl, at_once = cuda_em.cluster_size(n, kk), cuda_em.max_clusters(n, kk)
+        assert at_once >= 1, f"the card runs no cluster of {cl} at (N={n}, K={kk})"
+        g1, p1, m1 = sinkhorn_em(xyz, o, n0, iters=1)
+        torch.cuda.synchronize()
+        g2, p2, m2 = sinkhorn_em_reference(xyz, o, n0, iters=1)
+        err1 = max((a - b).abs().max().item() for a, b in ((g1, g2), (p1, p2), (m1, m2)))
+        assert torch.isfinite(g1).all() and err1 <= LIM_EM_1, (n, kk, err1)
+        g1, p1, m1 = sinkhorn_em(xyz, o, n0, iters=10)
+        torch.cuda.synchronize()
+        g2, p2, m2 = sinkhorn_em_reference(xyz, o, n0, iters=10)
+        e_nodes = (m1 - m2).abs().max().item()
+        e_pi = (p1 - p2).abs().max().item()
+        assert torch.isfinite(g1).all() and e_nodes <= LIM_EM_10_NODES \
+            and e_pi <= LIM_EM_10_PI, (n, kk, e_nodes, e_pi)
+        again = sinkhorn_em(xyz, o, n0, iters=10)
+        assert all(torch.equal(a, b) for a, b in zip((g1, p1, m1), again)), \
+            "sinkhorn_em: two launches differ"
+        ms = cuda_ms(lambda: sinkhorn_em(xyz, o, n0, iters=10), 5)
+        plain = cuda_ms(lambda: sinkhorn_em_reference(xyz, o, n0, iters=10), 2)
+        flops = float(clouds) * n * kk * 10 * (12 + 14 + 9 * 4 + 12)
+        nbytes = clouds * 4 * (n * 3 + n + kk * 3 + n * kk + kk + kk * 3)
+        t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
+        res[f"N={n},K={kk}"] = {
+            "shape": [clouds, n, kk], "cluster": cl, "clusters_at_once": at_once,
+            "smem_bytes": cuda_em.smem_bytes(n, kk, cl),
+            "max_abs_err": err1, "max_abs_err_nodes_10_trips": e_nodes,
+            "max_abs_err_pi_10_trips": e_pi, "ms": ms,
+            "ms_per_pass": ms / (10 * 11), "plain_ms": plain,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"envelopes sinkhorn_em ({clouds}, N={n}, K={kk}): a cluster of {cl} "
+              f"blocks ({cuda_em.smem_bytes(n, kk, cl)} B each; the occupancy "
+              f"calculator's clusters at once: {at_once}); 1 trip err {err1:.3g} "
+              f"(limit {LIM_EM_1}), 10 trips nodes {e_nodes:.3g} pi {e_pi:.3g}; "
+              f"{ms:.4f} ms, plain {plain:.3f} ms, bound "
+              f"{res[f'N={n},K={kk}']['bound_ms']:.4f} ms")
+    return res
+
+
+def _env_cfg(dtype="float32", **model):
+    return configs.mnet(model=configs.ModelConfig(dtype=dtype, **model))
+
+
+def env_serve(cfg, pair, want):
+    """One Registrar request on pair (src, tgt, ...) without and with ICP:
+    launches (counted from 0 just before the request without ICP), times,
+    against the plain versions."""
+    reg = Registrar(cfg, seed=0, device=DEV)
+    src, tgt = pair[:2]
+    reg(src, tgt, refine=True)                         # warm up
+    torch.cuda.synchronize()
+    out, launches = _counted(lambda: reg(src, tgt, refine=False))
+    assert {k: launches.get(k, 0) for k in want} == want, launches
+    times = {}
+    for refine in (False, True):
+        t0 = time.perf_counter()
+        outs = reg(src, tgt, refine=refine)
+        torch.cuda.synchronize()
+        times["forward_icp_ms" if refine else "forward_ms"] = \
+            (time.perf_counter() - t0) * 1e3
+        assert all(torch.isfinite(o).all() for o in outs)
+    with plain_versions():
+        before = dict(dispatch.launch_counts)
+        p_rot, _, p_so, p_to = reg(src, tgt, refine=False)
+        assert dict(dispatch.launch_counts) == before
+    k_rot, _, k_so, k_to = out
+    d_o = max((k_so - p_so).abs().max().item(), (k_to - p_to).abs().max().item())
+    ang = angle_deg(k_rot, p_rot)
+    assert d_o <= LIM_OVERLAP and ang.median().item() <= LIM_ROT_DEG, (d_o, ang)
+    return launches, {**times, "overlap_vs_plain": d_o,
+                      "rot_median_deg_vs_plain": ang.median().item()}
+
+
+def env_train(rs, cfg):
+    """One train step of cfg at B=24, N=717 (the plain backward: the
+    backward kernels are compiled for k = 20): launches counted from 0, the
+    step against the plain versions from the same state."""
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_overlap=True),
+                      data=dataclasses.replace(cfg.data, fix_tgt_overlap=True))
+    state = create_train_state(cfg, steps_per_epoch=100, seed=0, device=DEV)
+    step = make_train_step(cfg)
+    batches = [make_batch(rs) for _ in range(2)]
+    step(state, batches[0])                            # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, launches = _counted(lambda: step(state, batches[1]))
+    secs = (time.perf_counter() - t0) * 1e3
+    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    assert launches.get("graph_stage1", 0) == 2 and not launches.get("bwd_stage"), launches
+    k_loss, k_grads = _step_grads(state, cfg, batches[0])
+    with plain_versions():
+        p_loss, p_grads = _step_grads(state, cfg, batches[0])
+    d_loss = abs(k_loss - p_loss) / abs(p_loss)
+    d_grad = _rel(k_grads, p_grads)
+    assert d_loss <= LIM_STEP_LOSS and d_grad <= LIM_STEP_GRAD, (d_loss, d_grad)
+    return launches, {"step_ms": secs, "loss": k_loss, "loss_rel_vs_plain": d_loss,
+                      "grad_rel_vs_plain": d_grad}
+
+
+def env_cli_profile():
+    """`python -m ogmm_tpu_torch.train --profile_dir D` at gnn_k = 12 for
+    12 steps of 24 pairs: a Chrome trace of steps [5, 10) in D, naming the
+    card's kernels and the steps' "train" ranges."""
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_dir = os.path.join(tmp, "profile")
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["--dataset", "synthetic", "--root", ENV_CLI_ROOT,
+                            "--gnn_k", str(ENV_GNN_K), "--batch_size", str(B),
+                            "--test_batch_size", str(B), "--epochs", "1",
+                            "--steps_per_epoch", "12", "--model_path",
+                            os.path.join(tmp, "run"), "--profile_dir", prof_dir])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in dispatch.launch_counts.items() if v}
+        files = os.listdir(prof_dir)
+        assert files == ["train_steps_5_10.pt.trace.json"], files
+        with open(os.path.join(prof_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    ranges = [e for e in events if e.get("name") == "train"
+              and e.get("cat") == "user_annotation"]
+    named = sorted({n for n in ("knn_kernel", "edge_stage1_kernel", "em_kernel")
+                    if any(n in k for k in kernels)})
+    print(f"envelopes CLI --profile_dir (gnn_k={ENV_GNN_K}, {trainer.state.step} "
+          f"steps of {B}): {secs:.1f} s; the trace holds {len(kernels)} kernel "
+          f"names, {len(ranges)} 'train' ranges, the port's {named}")
+    assert trainer.state.step == 12 and len(ranges) == 5
+    assert named == ["edge_stage1_kernel", "em_kernel", "knn_kernel"], named
+    return launches, {"seconds": secs, "trace_kernel_names": len(kernels),
+                      "train_ranges": len(ranges)}
+
+
+def envelopes(rs):
+    """The kernels' widened envelopes: (a) each widened kernel against its
+    plain version at the new shapes; (b) `Registrar(configs.mnet(gnn_k=12))`
+    at B=24, N=717, float32 and bf16 (dgcnn_eval 1, sinkhorn_em 1); (c)
+    one train step of it (graph_stage1 2); (d) a request at B=8, N=4,096,
+    K=128 (sinkhorn_em 1, a cluster of 16 blocks a cloud); (e) the CLI with
+    --profile_dir; (f) the indoor request (float32, B=1, N=35,000) at gnn_k=12
+    with dgcnn_fused_edges=True (dgcnn_edges 1). Each part's launches are
+    counted from 0 right before it."""
+    kernels = {"dgcnn_eval": env_dgcnn_eval(rs), "dgcnn_edges": env_dgcnn_edges(rs),
+               "graph_stage1": env_graph_stage1(rs), "sinkhorn_em": env_em(rs)}
+    total, res = {}, {"kernels": kernels}
+    indoor = configs.indoor()
+    indoor = indoor.replace(model=dataclasses.replace(
+        indoor.model, gnn_k=ENV_GNN_K, dgcnn_fused_edges=True))
+    parts = (("serve_k12_f32", lambda: env_serve(
+                 _env_cfg(gnn_k=ENV_GNN_K), make_pairs(rs, B, N),
+                 {"dgcnn_eval": 1, "sinkhorn_em": 1, "knn": 0})),
+             ("serve_k12_bf16", lambda: env_serve(
+                 _env_cfg("bfloat16", gnn_k=ENV_GNN_K), make_pairs(rs, B, N),
+                 {"dgcnn_eval": 1, "sinkhorn_em": 1, "knn": 0})),
+             ("train_k12", lambda: env_train(rs, _env_cfg(gnn_k=ENV_GNN_K))),
+             ("serve_n4096", lambda: env_serve(
+                 _env_cfg(), make_pairs(rs, 8, ENV_N_EM),
+                 {"sinkhorn_em": 1, "dgcnn_eval": 0})),
+             ("serve_indoor_k12_edges", lambda: env_serve(
+                 indoor, rigid_copies(rs, surface(rs, 1)),
+                 {"dgcnn_edges": 1, "knn_stream": 1, "dgcnn_eval": 0})),
+             ("cli_profile", env_cli_profile))
+    for name, fn in parts:
+        launches, out = fn()
+        print(f"envelopes {name}: launches {launches}; {out}")
+        _add_counts(total, launches)
+        res[name] = {"launches": launches, **out}
+    assert cuda_em.cluster_size(ENV_N_EM, K) == 16
+    return {name: total.get(name, 0) for name in dispatch.KERNELS}, res
+
+
 PHASES = ("kernels", "serve", "train", "cli", "icp", "serve_large",
           "train_large", "train_unfused", "c1", "indoor_kernels", "indoor",
           "loop_kernels", "serve_loops", "serve_f32", "train_indoor",
-          "deepgmr", "surface", "distributed")
+          "deepgmr", "surface", "distributed", "envelopes")
 
 
 def main():
@@ -3906,7 +4263,8 @@ def main():
                       ("serve_f32", lambda _: serve_f32(np.random.RandomState(16))),
                       ("train_indoor", lambda _: train_indoor(np.random.RandomState(17))),
                       ("deepgmr", deepgmr), ("surface", surface_phase),
-                      ("distributed", lambda _: distributed(np.random.RandomState(21)))):
+                      ("distributed", lambda _: distributed(np.random.RandomState(21))),
+                      ("envelopes", lambda _: envelopes(np.random.RandomState(22)))):
         if not run(phase):
             continue
         res = fn(rs)
@@ -3939,6 +4297,8 @@ def main():
                 k["at_surface"] = out["surface"]["kernels"][name]
             if name in out.get("distributed", {}).get("kernels", {}):
                 k["at_sp"] = out["distributed"]["kernels"][name]
+            if name in out.get("envelopes", {}).get("kernels", {}):
+                k["at_envelopes"] = out["envelopes"]["kernels"][name]
         print(json.dumps({"kernels": kernels}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -126,6 +126,13 @@ def rigid_transform(src: torch.Tensor, src_corr: torch.Tensor,
     return rot, trans
 
 
+def rigid_transform_3x4(src: torch.Tensor, src_corr: torch.Tensor,
+                        weight: torch.Tensor, method: str = "horn") -> torch.Tensor:
+    """As `rigid_transform`, but one (B, 3, 4) pose [R | t]."""
+    rot, trans = rigid_transform(src, src_corr, weight, method)
+    return torch.cat([rot, trans], dim=-1)
+
+
 def gated_update(src: torch.Tensor, corr: torch.Tensor, nn_d: torch.Tensor,
                  thresh_sq: float, rot: torch.Tensor, trans: torch.Tensor,
                  method: str = "horn_pi", group=None):

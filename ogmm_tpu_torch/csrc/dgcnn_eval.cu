@@ -1,8 +1,12 @@
 // Fused eval DGCNN encoder for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel ogmm_tpu/ops/pallas_dgcnn.py:dgcnn_eval_pallas
-// (_dgcnn_kernel + _run_stages). Compiled for the neighbour counts k of
-// DGCNN_KS (knn_select.cuh); k = 20 below. Nothing but the neighbour indices
+// (_dgcnn_kernel + _run_stages). Takes any k from 1 to 32: the stage chains
+// are compiled for the row counts of DGCNN_KS (knn_select.cuh), a point's
+// k edge rows padded to dgcnn_rows(k) by repeating its nearest neighbour
+// (exact: the max over a point's rows ignores a repeated row, and BN is
+// folded from the running statistics); k = 20 below. Nothing but the
+// neighbour indices
 // (B*N*k ints) and the 512-wide concat pass through device memory between
 // the launches:
 //
@@ -48,7 +52,8 @@
 //     product a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi, which holds
 //     about 2^-22 of a b (one TF32 product would not hold the float32
 //     route's 1e-4: tests/test_torch_tf32x3.py). dgcnn_stage_tf32_kernel: a
-//     block of 8 warps owns QF = 8 points (160 edge rows at k = 20), float32
+//     block of 8 warps owns QF = 8 points (160 edge rows at k = 20; 4 points
+//     at 24 rows a point or more, f32_points), float32
 //     activations in shared memory (228,864 B at k = 20: one block an SM, so
 //     a thread may take up to 255 registers); a stage is computed transposed
 //     as in bf16, a warp holding the split W^T fragments of one 16-channel
@@ -105,19 +110,20 @@ typedef __nv_bfloat162 bf162;
 
 #define CATW 512   // 64 + 64 + 128 + 256
 
-// the float32 coordinates of edge row j of point n: the neighbour from nbr
-// (B, N, KNN, 3) where it is given, else from x through idx
-template <int KNN>
+// the float32 coordinates of edge row j of point n: neighbour j, or the
+// nearest (j = 0) for a padded row j >= k, from nbr (B, N, k, 3) where it is
+// given, else from x through idx (B, N, k)
 __device__ __forceinline__ const float* neighbour(const float* x, const int* idx,
                                                   const float* nbr, size_t row,
-                                                  int b, int N, int j) {
-  return nbr != nullptr ? nbr + (row * KNN + j) * 3
-                        : x + ((size_t)b * N + idx[row * KNN + j]) * 3;
+                                                  int b, int N, int j, int k) {
+  const size_t e = row * k + (j < k ? j : 0);
+  return nbr != nullptr ? nbr + e * 3 : x + ((size_t)b * N + idx[e]) * 3;
 }
 
 // ------------------------------------- float32, tensor cores in 3xTF32
 
-#define QF 8       // points a block of the float32 stage kernel
+#define QF 8       // points a block of the float32 stage kernel (4 above 20
+                   // rows a point: f32_points)
 #define NWF 8      // warps a block of the float32 stage kernel
 #define TPI4 4     // 8-row tiles a warp takes at a time in stage 4 (128 deep)
 // row strides (in floats) of the staged float32 tiles: a B fragment's lanes
@@ -171,7 +177,7 @@ __device__ __forceinline__ void flush_max_f32(float m0, float m1, float* cat_row
   }
 }
 
-// One stage over the block's R = QF * KNN edge rows in 3xTF32, computed
+// One stage over the block's R = QP * KNN edge rows in 3xTF32, computed
 // transposed (out^T = W^T h^T, rows along the mma's n): in (R, CIN) float32
 // with row stride ld_in -> out (R, COUT) with row stride ld_out (null: not
 // kept) and the max over each point's rows -> cat[q * CATW + cat_off + c].
@@ -189,7 +195,7 @@ __device__ __forceinline__ void flush_max_f32(float m0, float m1, float* cat_row
 // products go to one accumulator, issued one product at a time over the TPI
 // tiles, so that an mma waits on none of the TPI before it (an accumulator
 // for each product measured slower).
-template <int KNN, int CIN_W, int CIN, int COUT, bool SPLIT_IN, bool SPLIT_OUT>
+template <int KNN, int QP, int CIN_W, int CIN, int COUT, bool SPLIT_IN, bool SPLIT_OUT>
 __device__ __forceinline__ void stage_tf32(const float* in, int ld_in, float* out,
                                            int ld_out, const float* __restrict__ w,
                                            const float* __restrict__ scale,
@@ -198,11 +204,11 @@ __device__ __forceinline__ void stage_tf32(const float* in, int ld_in, float* ou
   constexpr int KS = CIN / 8, MT = COUT / 16;
   constexpr int CTW = MT > NWF ? MT / NWF : 1;     // channel tiles a warp
   constexpr int RG = MT >= NWF ? 1 : NWF / MT;     // row groups
-  constexpr int NTG = QF * KNN / 8 / RG;           // 8-row tiles a row group
+  constexpr int NTG = QP * KNN / 8 / RG;           // 8-row tiles a row group
   constexpr int TPI = CIN >= 128 && NTG % TPI4 == 0 ? TPI4
                       : NTG % 4 == 0 ? 4 : NTG % 5 == 0 ? 5 : NTG % 2 == 0 ? 2 : 1;
-  static_assert(KNN >= 8 && (MT % NWF == 0 || NWF % MT == 0) && QF % RG == 0 &&
-                (QF * KNN) % (8 * RG) == 0 && NTG % TPI == 0, "stage tiling");
+  static_assert(KNN >= 8 && (MT % NWF == 0 || NWF % MT == 0) && QP % RG == 0 &&
+                (QP * KNN) % (8 * RG) == 0 && NTG % TPI == 0, "stage tiling");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int tile0 = MT >= NWF ? warp * CTW : warp % MT;
@@ -235,7 +241,7 @@ __device__ __forceinline__ void stage_tf32(const float* in, int ld_in, float* ou
       // B fragments: depth 8 ks + (t, t + 4) of row g of each 8-row tile
       const float* rows = in + (size_t)(8 * (nt0 + j) + g) * ld_in + t;
       constexpr int NR = SPLIT_IN ? 4 : 2;
-      constexpr int LO = QF * KNN;               // rows to the low parts, in rows
+      constexpr int LO = QP * KNN;               // rows to the low parts, in rows
       float raw[TPI][NR];
       auto fetch = [&](int ks) {
 #pragma unroll
@@ -293,7 +299,7 @@ __device__ __forceinline__ void stage_tf32(const float* in, int ld_in, float* ou
               uint32_t h, l;
               split_tf32(vs[e], h, l);
               o[0] = __uint_as_float(h);
-              o[QF * KNN * ld_out] = __uint_as_float(l);
+              o[QP * KNN * ld_out] = __uint_as_float(l);
             } else {
               o[0] = vs[e];
             }
@@ -319,15 +325,23 @@ __device__ __forceinline__ void stage_tf32(const float* in, int ld_in, float* ou
 
 // the edge rows, then stage 2's output, in a buffer of R x LDF_X; stage 1's
 // output, then stage 3's split in two planes, in 2 R x LDF_Y; the block's
-// concat rows (228,864 B at k = 20)
-__host__ __device__ constexpr size_t f32_smem(int knn) {
-  return sizeof(float) * ((size_t)QF * knn * (LDF_X + 2 * LDF_Y) + QF * CATW);
+// concat rows (228,864 B at k = 20 and qp = 8)
+__host__ __device__ constexpr size_t f32_smem(int knn, int qp) {
+  return sizeof(float) * ((size_t)qp * knn * (LDF_X + 2 * LDF_Y) + qp * CATW);
 }
 
-// the four stages of QF points of cloud blockIdx.y in 3xTF32 -> their
+// points a block of the float32 stage kernel at knn rows a point: QF, or
+// half of it where QF points' rows do not fit the 227 KB of a block (knn of
+// 24 and more)
+__host__ __device__ constexpr int f32_points(int knn) {
+  return f32_smem(knn, QF) <= 232448 ? QF : QF / 2;
+}
+
+// the four stages of QP points of cloud blockIdx.y in 3xTF32 -> their
 // concat rows cat_out (B*N, 512) float32; stage i's float32 weight wi
-// (C_in, C_out) and folded BN scale si and bias bi
-template <int KNN>
+// (C_in, C_out) and folded BN scale si and bias bi; KNN rows a point, the
+// first k of them its neighbours
+template <int KNN, int QP>
 __global__ void __launch_bounds__(NWF * 32, 1)
 dgcnn_stage_tf32_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                         const float* __restrict__ nbr, const float* w1,
@@ -335,36 +349,39 @@ dgcnn_stage_tf32_kernel(const float* __restrict__ x, const int* __restrict__ idx
                         const float* s1, const float* s2, const float* s3,
                         const float* s4, const float* b1, const float* b2,
                         const float* b3, const float* b4,
-                        float* __restrict__ cat_out, int N) {
+                        float* __restrict__ cat_out, int N, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int R = QF * KNN;
+  constexpr int R = QP * KNN;
   float* bufX = reinterpret_cast<float*>(smem_raw);  // R x LDF_X (first the edges)
   float* bufY = bufX + R * LDF_X;                    // 2 R x LDF_Y (two planes)
-  float* cat = bufY + 2 * R * LDF_Y;                 // QF x CATW
-  const int b = blockIdx.y, n0 = blockIdx.x * QF, tid = threadIdx.x;
+  float* cat = bufY + 2 * R * LDF_Y;                 // QP x CATW
+  const int b = blockIdx.y, n0 = blockIdx.x * QP, tid = threadIdx.x;
 
   // edge rows, 8 wide: [nbr - q, q, 0, 0] in float32
   for (int r = tid; r < R; r += NWF * 32) {
     const size_t row = (size_t)b * N + min(n0 + r / KNN, N - 1);
     const float* pq = x + row * 3;
-    const float* pn = neighbour<KNN>(x, idx, nbr, row, b, N, r % KNN);
+    const float* pn = neighbour(x, idx, nbr, row, b, N, r % KNN, k);
     float4* dst = reinterpret_cast<float4*>(bufX + r * LDF_E);
     dst[0] = make_float4(pn[0] - pq[0], pn[1] - pq[1], pn[2] - pq[2], pq[0]);
     dst[1] = make_float4(pq[1], pq[2], 0.f, 0.f);
   }
   __syncthreads();
-  stage_tf32<KNN, 6, 8, 64, false, false>(bufX, LDF_E, bufY, LDF_Y, w1, s1, b1, cat, 0);
+  stage_tf32<KNN, QP, 6, 8, 64, false, false>(bufX, LDF_E, bufY, LDF_Y, w1, s1, b1, cat, 0);
   __syncthreads();
-  stage_tf32<KNN, 64, 64, 64, false, false>(bufY, LDF_Y, bufX, LDF_X, w2, s2, b2, cat, 64);
+  stage_tf32<KNN, QP, 64, 64, 64, false, false>(bufY, LDF_Y, bufX, LDF_X, w2, s2, b2, cat,
+                                                64);
   __syncthreads();
-  stage_tf32<KNN, 64, 64, 128, false, true>(bufX, LDF_X, bufY, LDF_Y, w3, s3, b3, cat, 128);
+  stage_tf32<KNN, QP, 64, 64, 128, false, true>(bufX, LDF_X, bufY, LDF_Y, w3, s3, b3, cat,
+                                                128);
   __syncthreads();
-  stage_tf32<KNN, 128, 128, 256, true, false>(bufY, LDF_Y, nullptr, 0, w4, s4, b4, cat, 256);
+  stage_tf32<KNN, QP, 128, 128, 256, true, false>(bufY, LDF_Y, nullptr, 0, w4, s4, b4, cat,
+                                                  256);
   __syncthreads();
 
   // the concat rows of the block's points, 16 bytes a thread
   constexpr int PER_ROW = CATW / 4;
-  for (int e = tid; e < QF * PER_ROW; e += NWF * 32) {
+  for (int e = tid; e < QP * PER_ROW; e += NWF * 32) {
     const int q = e / PER_ROW, c = (e % PER_ROW) * 4;
     if (n0 + q < N)
       *reinterpret_cast<float4*>(cat_out + ((size_t)b * N + n0 + q) * CATW + c) =
@@ -682,7 +699,8 @@ __host__ __device__ constexpr size_t mma_smem(int knn) {
 
 // the four stages of QB points of cloud blockIdx.y -> their concat rows
 // cat_out (B*N, 512); stage i's float32 weight wi (C_in, C_out) and folded
-// BN scale si and bias bi
+// BN scale si and bias bi; KNN rows a point, the first k of them its
+// neighbours
 template <int KNN>
 __global__ void __launch_bounds__(NWS * 32, 2)
 dgcnn_stage_mma_kernel(const float* __restrict__ x, const int* __restrict__ idx,
@@ -691,7 +709,7 @@ dgcnn_stage_mma_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                        const float* s1, const float* s2, const float* s3,
                        const float* s4, const float* b1, const float* b2,
                        const float* b3, const float* b4,
-                       bf16* __restrict__ cat_out, int N) {
+                       bf16* __restrict__ cat_out, int N, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int R = QB * KNN;
   bf16* bufX = reinterpret_cast<bf16*>(smem_raw);  // R x LD_X (first the edges)
@@ -703,7 +721,7 @@ dgcnn_stage_mma_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   for (int r = tid; r < R; r += NWS * 32) {
     const size_t row = (size_t)b * N + min(n0 + r / KNN, N - 1);
     const float* pq = x + row * 3;
-    const float* pn = neighbour<KNN>(x, idx, nbr, row, b, N, r % KNN);
+    const float* pn = neighbour(x, idx, nbr, row, b, N, r % KNN, k);
     uint4* dst = reinterpret_cast<uint4*>(bufX + r * LD_E);
     dst[0] = make_uint4(pack_bf16(pn[0] - pq[0], pn[1] - pq[1]),
                         pack_bf16(pn[2] - pq[2], pq[0]), pack_bf16(pq[1], pq[2]), 0u);
@@ -831,7 +849,7 @@ template <int KNN>
 static cudaError_t launch_stages_bf16(const float* x, const int* idx,
                                       const float* nbr, const Operands& o,
                                       void* cat, void* out, int B, int N, int emb,
-                                      cudaStream_t stream) {
+                                      int k, cudaStream_t stream) {
   const size_t smem = mma_smem(KNN);
   cudaError_t err = cudaFuncSetAttribute(
       dgcnn_stage_mma_kernel<KNN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -842,7 +860,7 @@ static cudaError_t launch_stages_bf16(const float* x, const int* idx,
   if (err != cudaSuccess) return err;
   dgcnn_stage_mma_kernel<KNN><<<dim3((N + QB - 1) / QB, B), NWS * 32, smem, stream>>>(
       x, idx, nbr, o.w[0], o.w[1], o.w[2], o.w[3], o.ss[0], o.ss[1], o.ss[2],
-      o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], (bf16*)cat, N);
+      o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], (bf16*)cat, N, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rows = B * N;
@@ -856,19 +874,20 @@ static cudaError_t launch_stages_bf16(const float* x, const int* idx,
 template <int KNN>
 static cudaError_t launch_stages_f32(const float* x, const int* idx,
                                      const float* nbr, const Operands& o, void* cat,
-                                     void* out, int B, int N, int emb,
+                                     void* out, int B, int N, int emb, int k,
                                      cudaStream_t stream) {
-  const size_t smem = f32_smem(KNN);
+  constexpr int QP = f32_points(KNN);
+  const size_t smem = f32_smem(KNN, QP);
   cudaError_t err = cudaFuncSetAttribute(
-      dgcnn_stage_tf32_kernel<KNN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dgcnn_stage_tf32_kernel<KNN, QP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dgcnn_head_tf32_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_F32_SMEM);
   if (err != cudaSuccess) return err;
-  dgcnn_stage_tf32_kernel<KNN><<<dim3((N + QF - 1) / QF, B), NWF * 32, smem, stream>>>(
+  dgcnn_stage_tf32_kernel<KNN, QP><<<dim3((N + QP - 1) / QP, B), NWF * 32, smem, stream>>>(
       x, idx, nbr, o.w[0], o.w[1], o.w[2], o.w[3], o.ss[0], o.ss[1], o.ss[2],
-      o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], (float*)cat, N);
+      o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], (float*)cat, N, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rows = B * N;
@@ -878,25 +897,27 @@ static cudaError_t launch_stages_f32(const float* x, const int* idx,
   return cudaGetLastError();
 }
 
+// KNN = dgcnn_rows(k) rows a point, k neighbours
 template <int KNN>
 static cudaError_t launch_stages(const float* x, const int* idx,
                                  const float* nbr, const Operands& o, void* cat,
-                                 void* out, int B, int N, int emb, int is_bf16,
+                                 void* out, int B, int N, int emb, int k, int is_bf16,
                                  cudaStream_t stream) {
   if (is_bf16)
-    return launch_stages_bf16<KNN>(x, idx, nbr, o, cat, out, B, N, emb, stream);
-  return launch_stages_f32<KNN>(x, idx, nbr, o, cat, out, B, N, emb, stream);
+    return launch_stages_bf16<KNN>(x, idx, nbr, o, cat, out, B, N, emb, k, stream);
+  return launch_stages_f32<KNN>(x, idx, nbr, o, cat, out, B, N, emb, k, stream);
 }
 
+// the selection (a list of KNN, the k nearest written) and the stage chain
 template <int KNN>
 static cudaError_t launch_k(const float* x, const Operands& o, int* idx,
                             float* alpha, void* cat, void* out, int B, int N,
-                            int emb, int pk, int is_bf16, cudaStream_t stream) {
-  if (N < KNN || pk > KNN) return cudaErrorInvalidValue;
+                            int emb, int k, int pk, int is_bf16, cudaStream_t stream) {
+  if (N < k || pk > k) return cudaErrorInvalidValue;
   const cudaError_t err = knn_launch_k<KNN>(x, x, GraphOut{idx, alpha, nullptr, pk}, B,
-                                            N, N, KNN, stream);
+                                            N, N, k, stream);
   if (err != cudaSuccess) return err;
-  return launch_stages<KNN>(x, idx, nullptr, o, cat, out, B, N, emb, is_bf16,
+  return launch_stages<KNN>(x, idx, nullptr, o, cat, out, B, N, emb, k, is_bf16,
                             stream);
 }
 
@@ -911,12 +932,13 @@ extern "C" int dgcnn_eval_launch(
     void* cat, void* out, int B, int N, int emb, int k, int pk, int is_bf16,
     void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N > MAXN || emb % 64 != 0) return (int)cudaErrorInvalidValue;
+  if (N > MAXN || emb % 64 != 0 || k < 1 || k > DGCNN_MAX_K)
+    return (int)cudaErrorInvalidValue;
   const Operands o = {{w1, w2, w3, w4}, w5, {s1, s2, s3, s4}, {b1, b2, b3, b4, b5}};
-  switch (k) {
+  switch (dgcnn_rows(k)) {
 #define CASE(K)                                                              \
   case K:                                                                    \
-    return (int)launch_k<K>(x, o, idx, alpha, cat, out, B, N, emb, pk,       \
+    return (int)launch_k<K>(x, o, idx, alpha, cat, out, B, N, emb, k, pk,    \
                             is_bf16, stream);
     DGCNN_KS(CASE)
 #undef CASE
@@ -936,12 +958,13 @@ extern "C" int dgcnn_edges_launch(
     void* cat, void* out, int B, int N, int emb, int k, int is_bf16,
     void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N < 1 || emb % 64 != 0) return (int)cudaErrorInvalidValue;
+  if (N < 1 || emb % 64 != 0 || k < 1 || k > DGCNN_MAX_K)
+    return (int)cudaErrorInvalidValue;
   const Operands o = {{w1, w2, w3, w4}, w5, {s1, s2, s3, s4}, {b1, b2, b3, b4, b5}};
-  switch (k) {
+  switch (dgcnn_rows(k)) {
 #define CASE(K)                                                              \
   case K:                                                                    \
-    return (int)launch_stages<K>(x, nullptr, nbr, o, cat, out, B, N, emb,    \
+    return (int)launch_stages<K>(x, nullptr, nbr, o, cat, out, B, N, emb, k, \
                                  is_bf16, stream);
     DGCNN_KS(CASE)
 #undef CASE

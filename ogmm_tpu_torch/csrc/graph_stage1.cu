@@ -2,8 +2,11 @@
 // for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel ogmm_tpu/ops/pallas_dgcnn_train.py:
-// graph_stage1_pallas (_stage1_kernel). Compiled for the neighbour counts k
-// of DGCNN_KS (knn_select.cuh); k = 20 below. Two launches:
+// graph_stage1_pallas (_stage1_kernel). Takes any k from 1 to 32 and writes
+// exactly k edge rows a point (the trainer's BatchNorm moments sum over
+// them): the selection's list is dgcnn_rows(k) long (knn_select.cuh), the
+// edge pass is compiled for k = 20, the ModelNet graph, and takes any other
+// k at run time; k = 20 below. Two launches:
 //
 //  1. knn_kernel<k, GraphOut> (knn_lanes.cuh, the dense selection shared
 //     with dgcnn_eval.cu, knn.cu and posenc_angles.cu): the cloud in shared
@@ -70,14 +73,16 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// grid: edge_plan's blocks, ET threads; rows = B * KNN * N < 2^31. A
+// grid: edge_plan's blocks, ET threads; rows = B * k * N < 2^31. A
 // thread takes EU rows a step, stride apart (the loads of all of them in
-// flight before the first product)
+// flight before the first product). KNN: k where it is compiled in, 0 for
+// the k given at run time
 template <typename T, int KNN>
 __global__ void __launch_bounds__(ET, 3)
 edge_stage1_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                    const T* __restrict__ w1, T* __restrict__ z1,
-                   T* __restrict__ e_out, int N, int rows) {
+                   T* __restrict__ e_out, int N, int rows, int k_rt) {
+  const int k = KNN > 0 ? KNN : k_rt;
   const int part = threadIdx.x % (C1 / CT), c0 = part * CT;
   float w[EW][CT];
 #pragma unroll
@@ -91,10 +96,10 @@ edge_stage1_kernel(const float* __restrict__ x, const int* __restrict__ idx,
 #pragma unroll
     for (int u = 0; u < EU; ++u) {
       const int r = min(r0 + u * stride, rows - 1);
-      const int n = r % N, bj = r / N, j = bj % KNN, b = bj / KNN;
+      const int n = r % N, bj = r / N, j = bj % k, b = bj / k;
       const size_t q = (size_t)b * N + n;
       const float* pp = x + q * 3;
-      const float* np = x + ((size_t)b * N + idx[q * KNN + j]) * 3;
+      const float* np = x + ((size_t)b * N + idx[q * k + j]) * 3;
 #pragma unroll
       for (int i = 0; i < 3; ++i) { pq[u][i] = pp[i]; pn[u][i] = np[i]; }
     }
@@ -123,22 +128,35 @@ edge_stage1_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
+// the edge pass: compiled for k = 20, any other k at run time
+template <typename T>
+static void launch_edges(const float* x, const int* idx, const void* w1, void* z1,
+                         void* e, int N, int rows, int k, int blocks,
+                         cudaStream_t stream) {
+  if (k == 20)
+    edge_stage1_kernel<T, 20><<<blocks, ET, 0, stream>>>(x, idx, (const T*)w1, (T*)z1,
+                                                         (T*)e, N, rows, k);
+  else
+    edge_stage1_kernel<T, 0><<<blocks, ET, 0, stream>>>(x, idx, (const T*)w1, (T*)z1,
+                                                        (T*)e, N, rows, k);
+}
+
+// the selection (a list of KNN = dgcnn_rows(k), the k nearest written), then
+// the edge pass over exactly k rows a point
 template <int KNN>
 static cudaError_t launch_k(const float* x, const void* w1, int* idx,
-                            float* alpha, void* z1, void* e, int B, int N,
+                            float* alpha, void* z1, void* e, int B, int N, int k,
                             int pk, int is_bf16, int blocks, cudaStream_t stream) {
-  if (N < KNN || pk > KNN || (long long)B * KNN * N > INT_MAX)
+  if (N < k || pk > k || (long long)B * k * N > INT_MAX)
     return cudaErrorInvalidValue;
   cudaError_t err = knn_launch_k<KNN>(x, x, GraphOut{idx, alpha, nullptr, pk}, B, N, N,
-                                      KNN, stream);
+                                      k, stream);
   if (err != cudaSuccess) return err;
-  const int rows = B * KNN * N;
+  const int rows = B * k * N;
   if (is_bf16)
-    edge_stage1_kernel<__nv_bfloat16, KNN><<<blocks, ET, 0, stream>>>(
-        x, idx, (const __nv_bfloat16*)w1, (__nv_bfloat16*)z1, (__nv_bfloat16*)e, N, rows);
+    launch_edges<__nv_bfloat16>(x, idx, w1, z1, e, N, rows, k, blocks, stream);
   else
-    edge_stage1_kernel<float, KNN><<<blocks, ET, 0, stream>>>(
-        x, idx, (const float*)w1, (float*)z1, (float*)e, N, rows);
+    launch_edges<float>(x, idx, w1, z1, e, N, rows, k, blocks, stream);
   return cudaGetLastError();
 }
 
@@ -148,11 +166,12 @@ extern "C" int graph_stage1_launch(const float* x, const void* w1, int* idx,
                                    int N, int k, int pk, int is_bf16, int blocks,
                                    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N > MAXN || B < 1 || B > 65535 || blocks < 1) return (int)cudaErrorInvalidValue;
-  switch (k) {
+  if (N > MAXN || B < 1 || B > 65535 || blocks < 1 || k < 1 || k > DGCNN_MAX_K)
+    return (int)cudaErrorInvalidValue;
+  switch (dgcnn_rows(k)) {
 #define CASE(K)                                                              \
   case K:                                                                    \
-    return (int)launch_k<K>(x, w1, idx, alpha, z1, e, B, N, pk, is_bf16,     \
+    return (int)launch_k<K>(x, w1, idx, alpha, z1, e, B, N, k, pk, is_bf16,  \
                             blocks, stream);
     DGCNN_KS(CASE)
 #undef CASE

@@ -15,11 +15,19 @@
 
 #define MAXN 1024  // points of a cloud the DGCNN kernels take
 
-// the neighbour counts the fused DGCNN kernels are compiled for: k = 20 is
-// the ModelNet graph, 16 and 8 the narrower graphs the port's checks and
-// small configurations drive; any other k takes the unfused route. X is a
-// macro of one count
-#define DGCNN_KS(X) X(8) X(16) X(20)
+// The fused DGCNN kernels take any k from 1 to DGCNN_MAX_K (the shared
+// selection's register lists, as knn.cu's). Their stage chains are compiled
+// for the row counts of DGCNN_KS, multiples of 4 from 8 (an 8-row tensor-core
+// tile spans at most two points): a point of k neighbours takes
+// dgcnn_rows(k) rows, the rows past k repeating its nearest neighbour, which
+// changes no max over the rows (eval: BN folded from running statistics).
+// The selection's list is dgcnn_rows(k) long and writes exactly k
+// neighbours; graph_stage1.cu writes exactly k edge rows a point (its
+// BatchNorm moments sum over them). X is a macro of one row count
+#define DGCNN_MAX_K 32
+#define DGCNN_KS(X) X(8) X(12) X(16) X(20) X(24) X(28) X(32)
+
+__host__ __device__ constexpr int dgcnn_rows(int k) { return k <= 8 ? 8 : (k + 3) & ~3; }
 
 // compute type (float32 or bf16) <-> float32
 __device__ __forceinline__ float to_f(float v) { return v; }

@@ -4,13 +4,14 @@
 // Replaces the TPU kernel ogmm_tpu/ops/pallas_em.py:sinkhorn_em (_em_kernel,
 // the mxu_lse schedule). One launch runs all EM trips of all clouds; the
 // (N, K) transport plan never reaches device memory until the last trip's
-// gamma is written. K is any cluster count up to 128, padded to KP = 32 KPL
+// gamma is written. K is any cluster count up to 256, padded to KP = 32 KPL
 // columns; the padding holds no mass (cost +inf, plan 0) and is never
 // written out.
 //
 // One (717, 128) float32 plan is 367 KB, more than one SM's shared memory,
-// so a thread block cluster of 8 blocks owns one cloud: each block keeps a
-// slab of ceil(N/8) rows of the plan in its shared memory for the whole
+// so a thread block cluster of CL blocks owns one cloud (CL = 8, or 16 for
+// the larger plans below): each block keeps a slab of ceil(N/CL) rows of
+// the plan in its shared memory for the whole
 // nested loop. A warp takes 4 rows at a time, 8 lanes a row; a lane holds
 // KPL chunks of 4 columns of its row, at columns 4 (lane % 8 + 8 j), so the
 // slab is read and written 16 bytes a lane without bank conflicts, and a row
@@ -48,28 +49,39 @@
 //  - no division by a row's sum in the gamma pass, whose entries may be
 //    subnormal: the IEEE division's slow path for those cost ~70 us a trip;
 //  - a block's column sums are added before the cluster barrier, so a
-//    thread reads 8 remote values, not 32.
-// The slab must fit in shared memory (launch below): N <= 3,352 at K = 128,
-// N <= 12,128 at K <= 32.
+//    thread reads CL remote values, not 4 CL.
+// The slab must fit in shared memory. A cluster of CL = 8 blocks holds it
+// to N = 3,352 at K = 128 and N = 12,128 at K <= 32; past that the launch
+// takes CL = 16 blocks a cloud (a non-portable cluster size, allowed by
+// cudaFuncAttributeNonPortableClusterSizeAllowed), which holds every (N, K)
+// with K <= 256 that the JAX package's rule sends to its kernel,
+// N max(K, 128) 20 B <= 14 MiB (N <= 5,734 at K <= 128, N <= 2,867 at
+// K = 256; ops/cuda_em.py:cluster_size chooses, the smallest that fits).
+// In a cluster of 16 the slab's rows are 4 ceil(K / 4) floats apart, not KP:
+// a lane's last chunk past them is neither read nor written (a cost of +inf,
+// a plan entry of 0 where it would be read), so K = 129 at N = 5,690 needs
+// 356 rows of 132 floats a block, not of 160. A cluster of 8 keeps rows of
+// KP floats, a compile-time stride (the kernel of the N = 717 request). K above 128 takes KPL = 5..8 chunks a
+// lane, one row quad in flight a warp (32 entries a row a lane, their column
+// sums and factors in registers) and at most 2 blocks an SM.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace cg = cooperative_groups;
 
-#define CL 8          // blocks per cluster = per cloud
 #define NW 4          // warps per block
 #define NT (NW * 32)
-#define QF 2          // row quads in flight a warp
+#define QF 2          // row quads in flight a warp (one for K > 128)
 #define RS 6          // floats a row keeps beside the slab: x, y, z, p, log p, u
 #define FULL 0xffffffffu
 
-// the shared memory of a block, in floats: the slab, RS floats a row, the
-// nodes (x, y, z, |node|^2), the warps' column sums of a pass (NW column
-// vectors), the block's column sums (two alternating vectors), its M-step
-// sums (four vectors) and the column factors
-__host__ __device__ constexpr size_t em_smem_floats(int rows_per, int kp) {
-  return (size_t)rows_per * kp + ((RS * rows_per + 3) & ~3) +
+// the shared memory of a block, in floats: the slab (rows ks floats apart),
+// RS floats a row, the nodes (x, y, z, |node|^2), the warps' column sums of
+// a pass (NW column vectors of kp), the block's column sums (two alternating
+// vectors), its M-step sums (four vectors) and the column factors
+__host__ __device__ constexpr size_t em_smem_floats(int rows_per, int ks, int kp) {
+  return (size_t)rows_per * ks + ((RS * rows_per + 3) & ~3) +
          (4 + NW + 2 + 4 + 1) * (size_t)kp;
 }
 
@@ -84,35 +96,43 @@ __device__ __forceinline__ float row_reduce(float v) {
   return v;
 }
 
-// this lane's 4 KPL entries of slab row i, at columns 4 (lane % 8 + 8 j) + e
+// this lane's 4 KPL entries of row i of a table whose rows are ld floats
+// apart, at columns 4 (lane % 8 + 8 j) + e; a chunk at or past column ld
+// (only the last, j = KPL - 1, can be) is not read and holds `fill`
 template <int KPL>
-__device__ __forceinline__ void load_row(const float* P, int i, float (&v)[4 * KPL]) {
-  constexpr int K = KPL * 32;
+__device__ __forceinline__ void load_row(const float* P, int ld, int i, float (&v)[4 * KPL],
+                                         float fill = 0.f) {
   const int cg = threadIdx.x & 7;
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
-    const float4 f = *reinterpret_cast<const float4*>(P + i * K + 4 * (cg + 8 * j));
+    const int c = 4 * (cg + 8 * j);
+    const float4 f = j < KPL - 1 || c < ld
+                         ? *reinterpret_cast<const float4*>(P + i * ld + c)
+                         : make_float4(fill, fill, fill, fill);
     v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z; v[4 * j + 3] = f.w;
   }
 }
 
+// the same entries stored; a chunk at or past column ld is not written
 template <int KPL>
-__device__ __forceinline__ void store_row(float* P, int i, const float (&v)[4 * KPL]) {
-  constexpr int K = KPL * 32;
+__device__ __forceinline__ void store_row(float* P, int ld, int i, const float (&v)[4 * KPL]) {
   const int cg = threadIdx.x & 7;
 #pragma unroll
-  for (int j = 0; j < KPL; ++j)
-    *reinterpret_cast<float4*>(P + i * K + 4 * (cg + 8 * j)) =
-        make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  for (int j = 0; j < KPL; ++j) {
+    const int c = 4 * (cg + 8 * j);
+    if (j < KPL - 1 || c < ld)
+      *reinterpret_cast<float4*>(P + i * ld + c) =
+          make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  }
 }
 
 // The end of a pass: this lane's column sums over its rows are added over
 // the warp's 4 row groups (lanes 8 apart) into the warp's sums wsum[warp];
 // a thread a column adds the NW warps' sums in warp order into the block's
 // sum part[c]; after the cluster barrier it adds the parts of the cluster's
-// blocks in rank order (all 8 remote loads issued first) and stores
+// blocks in rank order (all CL remote loads issued first) and stores
 // colf[c] = fn(cloud-wide sum of column c). Every block gets the same bits.
-template <int KPL, class Fn>
+template <int KPL, int CL, class Fn>
 __device__ __forceinline__ void reduce_cols(cg::cluster_group& cluster,
                                             float (&colacc)[4 * KPL], float* wsum,
                                             float* part, float* colf, Fn fn) {
@@ -123,7 +143,7 @@ __device__ __forceinline__ void reduce_cols(cg::cluster_group& cluster,
     colacc[e] += __shfl_xor_sync(FULL, colacc[e], 8);
     colacc[e] += __shfl_xor_sync(FULL, colacc[e], 16);
   }
-  if ((tid & 31) < 8) store_row<KPL>(wsum, warp, colacc);
+  if ((tid & 31) < 8) store_row<KPL>(wsum, K, warp, colacc);
   __syncthreads();
   for (int c = tid; c < K; c += NT) {
     float s = 0.f;
@@ -154,15 +174,16 @@ __device__ __forceinline__ void load_factors(const float* colf, float (&cs)[4 * 
   }
 }
 
-// the plan entries of a row from the slab and the column factors: in the
-// first direct pass (and a gamma pass straight after the log-domain trip)
-// exp(((u - cost) + v) / eps) from the cost and v, else the plan times the
-// last pass's column scaling
+// the plan entries of a row from the slab (rows ks floats apart) and the
+// column factors: in the first direct pass (and a gamma pass straight after
+// the log-domain trip) exp(((u - cost) + v) / eps) from the cost and v, else
+// the plan times the last pass's column scaling; columns past the slab's
+// rows read as a cost of +inf or a plan entry of 0
 template <int KPL>
-__device__ __forceinline__ void plan_row(const float* P, const float* srow, int i,
+__device__ __forceinline__ void plan_row(const float* P, int ks, const float* srow, int i,
                                          bool first, const float (&cs)[4 * KPL],
                                          float inv_eps, float (&v)[4 * KPL]) {
-  load_row<KPL>(P, i, v);
+  load_row<KPL>(P, ks, i, v, first ? CUDART_INF_F : 0.f);
   if (first) {
     const float u = srow[i * RS + 5];
 #pragma unroll
@@ -173,8 +194,9 @@ __device__ __forceinline__ void plan_row(const float* P, const float* srow, int 
   }
 }
 
-template <int KPL>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 4)
+// grid B CL blocks in clusters of CL (launch below)
+template <int KPL, int CL>
+__global__ void __launch_bounds__(NT, KPL <= 4 ? 4 : 2)
 em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
           const float* __restrict__ nodes0, float* __restrict__ gamma_out,
           float* __restrict__ pi_out, float* __restrict__ nodes_out, int N,
@@ -182,6 +204,8 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
           float log_q) {
   constexpr int K = KPL * 32;            // padded columns; nk of them real
   constexpr int V = 4 * KPL;             // entries of a row a lane holds
+  constexpr int QFK = KPL <= 4 ? QF : 1;   // row quads in flight a warp
+  const int ks = CL > 8 ? 4 * ((nk + 3) / 4) : K;   // the slab's row stride
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / CL;
@@ -193,7 +217,7 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
 
   extern __shared__ __align__(16) float smem[];
   float* P = smem;                       // slab: cost, then the plan, then gamma
-  float* srow = P + (size_t)rows_per * K;   // rows_per x RS
+  float* srow = P + (size_t)rows_per * ks;  // rows_per x RS
   float4* snodes = reinterpret_cast<float4*>(srow + ((RS * rows_per + 3) & ~3));
   float* wsum = reinterpret_cast<float*>(snodes + K);   // NW x K
   float* part = wsum + NW * K;           // 2 x K, read by the cluster
@@ -231,12 +255,12 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
     // ---- cost, and Sinkhorn trip 1 in the log domain ----------------------
 #pragma unroll
     for (int e = 0; e < V; ++e) colacc[e] = 0.f;
-    for (int m0 = 0; m0 < nqw; m0 += QF) {
-      float cst[QF][V], mx[QF], s[QF];
-      int row[QF];
-      bool ok[QF];
+    for (int m0 = 0; m0 < nqw; m0 += QFK) {
+      float cst[QFK][V], mx[QFK], s[QFK];
+      int row[QFK];
+      bool ok[QFK];
 #pragma unroll
-      for (int f = 0; f < QF; ++f) {
+      for (int f = 0; f < QFK; ++f) {
         row[f] = 4 * (warp + NW * (m0 + f)) + lr;
         ok[f] = m0 + f < nqw && row[f] < nrows;
         const int i = ok[f] ? row[f] : 0;
@@ -257,26 +281,26 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         }
       }
 #pragma unroll
-      for (int f = 0; f < QF; ++f) mx[f] = row_reduce<true>(mx[f]);
+      for (int f = 0; f < QFK; ++f) mx[f] = row_reduce<true>(mx[f]);
 #pragma unroll
-      for (int f = 0; f < QF; ++f) {
+      for (int f = 0; f < QFK; ++f) {
         s[f] = 0.f;
 #pragma unroll
         for (int e = 0; e < V; ++e) s[f] += expf(-cst[f][e] * inv_eps - mx[f]);
       }
 #pragma unroll
-      for (int f = 0; f < QF; ++f) s[f] = row_reduce<false>(s[f]);
+      for (int f = 0; f < QFK; ++f) s[f] = row_reduce<false>(s[f]);
 #pragma unroll
-      for (int f = 0; f < QF; ++f) {
+      for (int f = 0; f < QFK; ++f) {
         if (!ok[f]) continue;
         const float u = eps * (srow[row[f] * RS + 4] - (mx[f] + logf(s[f])));
         if (cg8 == 0) srow[row[f] * RS + 5] = u;
 #pragma unroll
         for (int e = 0; e < V; ++e) colacc[e] += expf((-cst[f][e] + u) * inv_eps);
-        store_row<KPL>(P, row[f], cst[f]);
+        store_row<KPL>(P, ks, row[f], cst[f]);
       }
     }
-    reduce_cols<KPL>(cluster, colacc, wsum, part + (npass++ & 1) * K, colf,
+    reduce_cols<KPL, CL>(cluster, colacc, wsum, part + (npass++ & 1) * K, colf,
                      [&](float s) { return eps * (log_q - logf(s + 1e-38f)); });
     load_factors<KPL>(colf, cs);         // v: the first pass below reads cost
 
@@ -284,23 +308,23 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
     for (int t = 1; t < sk_iters; ++t) {
 #pragma unroll
       for (int e = 0; e < V; ++e) colacc[e] = 0.f;
-      for (int m0 = 0; m0 < nqw; m0 += QF) {
-        float val[QF][V], s[QF];
-        int row[QF];
-        bool ok[QF];
+      for (int m0 = 0; m0 < nqw; m0 += QFK) {
+        float val[QFK][V], s[QFK];
+        int row[QFK];
+        bool ok[QFK];
 #pragma unroll
-        for (int f = 0; f < QF; ++f) {
+        for (int f = 0; f < QFK; ++f) {
           row[f] = 4 * (warp + NW * (m0 + f)) + lr;
           ok[f] = m0 + f < nqw && row[f] < nrows;
-          plan_row<KPL>(P, srow, ok[f] ? row[f] : 0, t == 1, cs, inv_eps, val[f]);
+          plan_row<KPL>(P, ks, srow, ok[f] ? row[f] : 0, t == 1, cs, inv_eps, val[f]);
           s[f] = 0.f;
 #pragma unroll
           for (int e = 0; e < V; ++e) s[f] += val[f][e];
         }
 #pragma unroll
-        for (int f = 0; f < QF; ++f) s[f] = row_reduce<false>(s[f]);
+        for (int f = 0; f < QFK; ++f) s[f] = row_reduce<false>(s[f]);
 #pragma unroll
-        for (int f = 0; f < QF; ++f) {
+        for (int f = 0; f < QFK; ++f) {
           if (!ok[f]) continue;
           const float rs = srow[row[f] * RS + 3] / fmaxf(s[f], 1e-38f);
 #pragma unroll
@@ -308,24 +332,24 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
             val[f][e] *= rs;
             colacc[e] += val[f][e];
           }
-          store_row<KPL>(P, row[f], val[f]);
+          store_row<KPL>(P, ks, row[f], val[f]);
         }
       }
-      reduce_cols<KPL>(cluster, colacc, wsum, part + (npass++ & 1) * K, colf,
+      reduce_cols<KPL, CL>(cluster, colacc, wsum, part + (npass++ & 1) * K, colf,
                        [&](float s) { return q_t / fmaxf(s, 1e-38f); });
       load_factors<KPL>(colf, cs);
     }
 
     // ---- gamma and the M-step sums ----------------------------------------
-    for (int m0 = 0; m0 < nqw; m0 += QF) {
-      float val[QF][V], s[QF];
-      int row[QF];
-      bool ok[QF];
+    for (int m0 = 0; m0 < nqw; m0 += QFK) {
+      float val[QFK][V], s[QFK];
+      int row[QFK];
+      bool ok[QFK];
 #pragma unroll
-      for (int f = 0; f < QF; ++f) {
+      for (int f = 0; f < QFK; ++f) {
         row[f] = 4 * (warp + NW * (m0 + f)) + lr;
         ok[f] = m0 + f < nqw && row[f] < nrows;
-        plan_row<KPL>(P, srow, ok[f] ? row[f] : 0, sk_iters == 1, cs, inv_eps, val[f]);
+        plan_row<KPL>(P, ks, srow, ok[f] ? row[f] : 0, sk_iters == 1, cs, inv_eps, val[f]);
         s[f] = 0.f;
 #pragma unroll
         for (int e = 0; e < V; ++e) {
@@ -334,25 +358,26 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         }
       }
 #pragma unroll
-      for (int f = 0; f < QF; ++f) s[f] = row_reduce<false>(s[f]);
+      for (int f = 0; f < QFK; ++f) s[f] = row_reduce<false>(s[f]);
 #pragma unroll
-      for (int f = 0; f < QF; ++f) {
+      for (int f = 0; f < QFK; ++f) {
         if (!ok[f]) continue;
         const float rden = 1.0f / fmaxf(s[f], 1e-3f);
 #pragma unroll
         for (int e = 0; e < V; ++e) val[f][e] *= rden;
-        store_row<KPL>(P, row[f], val[f]);
+        store_row<KPL>(P, ks, row[f], val[f]);
       }
     }
     __syncthreads();
     // gamma is in the slab: a thread a column sums gamma, gamma x, gamma y,
     // gamma z over the block's rows in row order (and writes the last
-    // trip's gamma, a row of threads on a row of gamma_out)
-    for (int c = tid; c < K; c += NT) {
+    // trip's gamma, a row of threads on a row of gamma_out); the columns
+    // past ks are never read
+    for (int c = tid; c < ks; c += NT) {
       float sg = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
 #pragma unroll 4
       for (int i = 0; i < nrows; ++i) {
-        const float g = P[i * K + c];
+        const float g = P[i * ks + c];
         sg += g;
         sx += g * srow[i * RS];
         sy += g * srow[i * RS + 1];
@@ -391,76 +416,104 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
 }
 
 template <int KPL>
-static size_t em_smem(int N) {
-  return sizeof(float) * em_smem_floats((N + CL - 1) / CL, KPL * 32);
+static size_t em_smem(int N, int nk, int cl) {
+  return sizeof(float) * em_smem_floats((N + cl - 1) / cl,
+                                        cl > 8 ? 4 * ((nk + 3) / 4) : KPL * 32, KPL * 32);
 }
 
-template <int KPL>
+// the kernel for (K, CL) and its shared memory at N, the dynamic shared
+// memory and (CL = 16) the non-portable cluster size allowed
+template <int KPL, int CL>
+static cudaError_t prepare(int N, int nk, const void** fn, size_t* smem) {
+  *fn = (const void*)em_kernel<KPL, CL>;
+  *smem = em_smem<KPL>(N, nk, CL);
+  if (*smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      em_kernel<KPL, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  if (err == cudaSuccess && CL > 8)
+    err = cudaFuncSetAttribute(em_kernel<KPL, CL>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+static cudaLaunchConfig_t cluster_config(int clouds, int cl, size_t smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clouds * cl);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cl;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int KPL, int CL>
 static cudaError_t launch(const float* xyz, const float* o, const float* nodes0,
                           float* gamma, float* pi, float* nodes, int B, int N,
                           int nk, int iters, int sk_iters, float tau,
                           float eps, float q_t, float log_q,
                           cudaStream_t stream) {
-  const size_t smem = em_smem<KPL>(N);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      em_kernel<KPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const void* fn;
+  size_t smem;
+  cudaError_t err = prepare<KPL, CL>(N, nk, &fn, &smem);
   if (err != cudaSuccess) return err;
-  em_kernel<KPL><<<B * CL, NT, smem, stream>>>(xyz, o, nodes0, gamma, pi, nodes,
-                                               N, nk, iters, sk_iters, tau,
-                                               eps, q_t, log_q);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(B, CL, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, em_kernel<KPL, CL>, xyz, o, nodes0, gamma, pi, nodes,
+                           N, nk, iters, sk_iters, tau, eps, q_t, log_q);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// the instance of (KPL, CL) for K clusters and a cluster of cl blocks
+#define EM_DISPATCH(K, cl, CALL)                                              \
+  switch ((cl) * 16 + ((K) + 31) / 32) {                                      \
+    CALL(1, 8) CALL(2, 8) CALL(3, 8) CALL(4, 8)                               \
+    CALL(5, 8) CALL(6, 8) CALL(7, 8) CALL(8, 8)                               \
+    CALL(1, 16) CALL(2, 16) CALL(3, 16) CALL(4, 16)                           \
+    CALL(5, 16) CALL(6, 16) CALL(7, 16) CALL(8, 16)                           \
+    default:                                                                  \
+      return (int)cudaErrorInvalidValue;                                      \
+  }
+
+// cl: the blocks a cloud, 8 or 16 (ops/cuda_em.py:cluster_size)
 extern "C" int sinkhorn_em_launch(const float* xyz, const float* o,
                                   const float* nodes0, float* gamma, float* pi,
-                                  float* nodes, int B, int N, int K, int iters,
-                                  int sk_iters, float tau, float eps, float q_t,
-                                  float log_q, void* stream_ptr) {
+                                  float* nodes, int B, int N, int K, int cl,
+                                  int iters, int sk_iters, float tau, float eps,
+                                  float q_t, float log_q, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (iters < 1 || sk_iters < 1 || N < 1 || K < 1 || K > 128)
+  if (iters < 1 || sk_iters < 1 || N < 1 || K < 1 || K > 256 || (cl != 8 && cl != 16))
     return (int)cudaErrorInvalidValue;
-  switch ((K + 31) / 32) {
-#define CASE(KPL)                                                            \
-  case KPL:                                                                  \
-    return (int)launch<KPL>(xyz, o, nodes0, gamma, pi, nodes, B, N, K, iters, \
-                            sk_iters, tau, eps, q_t, log_q, stream);
-    CASE(1) CASE(2) CASE(3) CASE(4)
+#define CASE(KPL, CL)                                                        \
+  case CL * 16 + KPL:                                                        \
+    return (int)launch<KPL, CL>(xyz, o, nodes0, gamma, pi, nodes, B, N, K,   \
+                                iters, sk_iters, tau, eps, q_t, log_q, stream);
+  EM_DISPATCH(K, cl, CASE)
 #undef CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
-// how many clusters (clouds) of the kernel for (N, K) the card holds at once,
-// by the occupancy calculator; a launch of more clouds than that runs in
-// more than one wave
-extern "C" int sinkhorn_em_max_clusters(int N, int K, int* out) {
-  if (N < 1 || K < 1 || K > 128) return (int)cudaErrorInvalidValue;
+// how many clusters (clouds) of the kernel for (N, K, cl) the card holds at
+// once, by the occupancy calculator; a launch of more clouds than that runs
+// in more than one wave, and 0 means the card cannot run it
+extern "C" int sinkhorn_em_max_clusters(int N, int K, int cl, int* out) {
+  if (N < 1 || K < 1 || K > 256 || (cl != 8 && cl != 16)) return (int)cudaErrorInvalidValue;
   const void* fn = nullptr;
   size_t smem = 0;
-  switch ((K + 31) / 32) {
-#define CASE(KPL)                                    \
-  case KPL:                                          \
-    fn = (const void*)em_kernel<KPL>;                \
-    smem = em_smem<KPL>(N);                          \
+  cudaError_t err = cudaErrorInvalidValue;
+#define CASE(KPL, CL)                                                        \
+  case CL * 16 + KPL:                                                        \
+    err = prepare<KPL, CL>(N, K, &fn, &smem);                                \
     break;
-    CASE(1) CASE(2) CASE(3) CASE(4)
+  EM_DISPATCH(K, cl, CASE)
 #undef CASE
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = CL;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg = cluster_config(1, cl, smem, nullptr, &attr);
   return (int)cudaOccupancyMaxActiveClusters(out, fn, &cfg);
 }

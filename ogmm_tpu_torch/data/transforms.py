@@ -7,6 +7,9 @@ Resampler -> RandomJitter -> ShufflePoints. Every draw comes from the global
 `np.random` in the same order as there, and for the test split
 `SetDeterministic` makes each transform seed it from the sample's index, so
 that the port and the JAX package give the same samples bit for bit.
+`RandomTransformSE3` (the axis-angle perturbation the Euler variant
+derives from) and `FixedResampler` (tile to k points, no draws) are the JAX
+package's other public transforms.
 
 Kept on purpose, as there:
   * Resampler takes 717 points per cloud when the crop has two proportions.
@@ -46,27 +49,37 @@ class SplitSourceRef:
         return sample
 
 
-class RandomTransformSE3_euler:
-    """Random rigid perturbation of the source: angles U[0, pi mag / 180]
-    about x, y and z, R = Rx Ry Rz, translation U[-trans_mag, trans_mag].
-    `transform_gt` maps the perturbed source onto the reference."""
+class RandomTransformSE3:
+    """Random rigid perturbation of the source by axis-angle sampling: a
+    rotation drawn uniformly from SO(3) (scipy's `special_ortho_group`) with
+    its angle scaled by rot_mag / 180, a translation U[-trans_mag,
+    trans_mag]; with `random_mag` both magnitudes scaled by one U[0, 1)
+    draw first. Every draw comes from the global `np.random` RandomState
+    (seeded per sample under `SetDeterministic`). `transform_gt` maps the
+    perturbed source onto the reference."""
 
-    def __init__(self, rot_mag: float = 180.0, trans_mag: float = 1.0):
+    def __init__(self, rot_mag: float = 180.0, trans_mag: float = 1.0,
+                 random_mag: bool = False):
         self._rot_mag = rot_mag
         self._trans_mag = trans_mag
+        self._random_mag = random_mag
+
+    def _magnitudes(self):
+        if self._random_mag:
+            att = np.random.random()
+            return att * self._rot_mag, att * self._trans_mag
+        return self._rot_mag, self._trans_mag
 
     def generate_transform(self) -> np.ndarray:
-        rot_mag, trans_mag = self._rot_mag, self._trans_mag
-        ax = np.random.uniform() * np.pi * rot_mag / 180.0
-        ay = np.random.uniform() * np.pi * rot_mag / 180.0
-        az = np.random.uniform() * np.pi * rot_mag / 180.0
-        cx, cy, cz = np.cos(ax), np.cos(ay), np.cos(az)
-        sx, sy, sz = np.sin(ax), np.sin(ay), np.sin(az)
-        Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
-        Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
-        Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
-        t_ab = np.random.uniform(-trans_mag, trans_mag, 3)
-        return np.concatenate((Rx @ Ry @ Rz, t_ab[:, None]),
+        from scipy.spatial.transform import Rotation
+        from scipy.stats import special_ortho_group
+        rot_mag, trans_mag = self._magnitudes()
+        rand_rot = special_ortho_group.rvs(3)
+        axis_angle = Rotation.as_rotvec(Rotation.from_matrix(rand_rot))
+        axis_angle *= rot_mag / 180.0
+        rand_rot = Rotation.from_rotvec(axis_angle).as_matrix()
+        rand_trans = np.random.uniform(-trans_mag, trans_mag, 3)
+        return np.concatenate((rand_rot, rand_trans[:, None]),
                               axis=1).astype(np.float32)
 
     @staticmethod
@@ -81,10 +94,33 @@ class RandomTransformSE3_euler:
         if sample.get('deterministic'):
             np.random.seed(sample['idx'])
         mat = self.generate_transform()
-        src_t, gt, _ = self.apply_transform(sample['points_src'], mat)
-        sample['transform_gt'] = gt
-        sample['points_src'] = src_t
+        if 'points' in sample:
+            sample['points'], _, _ = self.apply_transform(sample['points'], mat)
+        else:
+            src_t, gt, _ = self.apply_transform(sample['points_src'], mat)
+            sample['transform_gt'] = gt
+            sample['points_src'] = src_t
         return sample
+
+
+class RandomTransformSE3_euler(RandomTransformSE3):
+    """The Euler-angle variant: angles U[0, pi mag / 180] about x, y and z,
+    R = Rx Ry Rz, translation U[-trans_mag, trans_mag] (after the
+    `random_mag` draw, where asked)."""
+
+    def generate_transform(self) -> np.ndarray:
+        rot_mag, trans_mag = self._magnitudes()
+        ax = np.random.uniform() * np.pi * rot_mag / 180.0
+        ay = np.random.uniform() * np.pi * rot_mag / 180.0
+        az = np.random.uniform() * np.pi * rot_mag / 180.0
+        cx, cy, cz = np.cos(ax), np.cos(ay), np.cos(az)
+        sx, sy, sz = np.sin(ax), np.sin(ay), np.sin(az)
+        Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+        Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+        t_ab = np.random.uniform(-trans_mag, trans_mag, 3)
+        return np.concatenate((Rx @ Ry @ Rz, t_ab[:, None]),
+                              axis=1).astype(np.float32)
 
 
 class Resampler:
@@ -135,6 +171,18 @@ class Resampler:
         sample['src_overlap'] = sample['src_overlap'][src_idx]
         sample['ref_overlap'] = sample['ref_overlap'][ref_idx]
         return sample
+
+
+class FixedResampler(Resampler):
+    """Deterministic resampling to k points: the cloud tiled k // n times,
+    then its first k % n points (no draws, no indices)."""
+
+    @staticmethod
+    def _resample(points: np.ndarray, k: int):
+        multiple, remainder = k // points.shape[0], k % points.shape[0]
+        resampled = np.concatenate(
+            (np.tile(points, (multiple, 1)), points[:remainder, :]), axis=0)
+        return resampled, None
 
 
 class RandomJitter:

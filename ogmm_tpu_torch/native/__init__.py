@@ -92,6 +92,16 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """Whether the host library builds (g++ at its first use) and loads
+    here; where it does not, the functions below raise."""
+    try:
+        _load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def _c3(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a[:, :3], dtype=np.float32)
 

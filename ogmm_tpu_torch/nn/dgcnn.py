@@ -55,10 +55,11 @@ def fused_route(n: int, k: int, train: bool, have_graph: bool,
     emb output channels takes the fused kernels. The JAX package's rule on
     its accelerator (`ogmm_tpu/nn/dgcnn.py:146-152`, `:199-208`): fused at
     N <= 1024 unless a graph is given, in training unless `fused_train` is
-    False (`dgcnn_fused_train=False`). The port's kernels are also compiled
-    for the k of KERNEL_KS only, and its eval kernel takes emb a multiple of
-    64 (`ops.cuda_dgcnn.kernel_takes`); elsewhere the unfused route, which
-    computes the same function. A given graph always takes the unfused route
+    False (`dgcnn_fused_train=False`). The port's kernels take k <= 32 (the
+    shared selection's register lists; the JAX kernels take any k), and its
+    eval kernel emb a multiple of 64 (`ops.cuda_dgcnn.kernel_takes`);
+    elsewhere the unfused route, which computes the same function. A given
+    graph always takes the unfused route
     (the JAX eval kernel would ignore it; GMMReg gives one only above
     N = 1024)."""
     if have_graph or k not in KERNEL_KS or not k <= n <= KERNEL_MAX_N:

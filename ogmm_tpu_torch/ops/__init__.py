@@ -1,4 +1,5 @@
-from ogmm_tpu_torch.ops.common import (cos_similarity, gather_neighbors,
+from ogmm_tpu_torch.ops.common import (cdist, cos_distance, cos_similarity,
+                                       gather_neighbors,
                                        graph_feature, index_points, knn,
                                        l2_normalize, nn1, nn1_both,
                                        posenc_alpha, square_distance)
@@ -13,7 +14,7 @@ from ogmm_tpu_torch.ops.sinkhorn import (contrastsk, log_boltzmann_kernel,
                                          sinkhorn)
 
 __all__ = [
-    "cos_similarity", "gather_neighbors", "graph_feature", "index_points",
+    "cdist", "cos_distance", "cos_similarity", "gather_neighbors", "graph_feature", "index_points",
     "knn", "l2_normalize", "nn1", "nn1_both", "posenc_alpha",
     "square_distance", "dgcnn_eval", "dgcnn_eval_reference", "sinkhorn_em",
     "sinkhorn_em_reference", "farthest_point_sample", "fps_combined",

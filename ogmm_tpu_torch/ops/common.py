@@ -252,6 +252,19 @@ def cos_similarity(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return matmul32(l2_normalize(x), l2_normalize(y).transpose(-1, -2))
 
 
+def cos_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """2 - 2 cos_similarity of the l2-normalised rows: (B, N, D) x (B, M, D)
+    -> (B, N, M)."""
+    return 2.0 - 2.0 * cos_similarity(x, y)
+
+
+def cdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Euclidean (not squared) distance matrix (B, N, C) x (B, M, C) ->
+    (B, N, M) float32: the square root of `square_distance` (its float32
+    product with TF32 off, clamped at 1e-12), as `torch.cdist`."""
+    return square_distance(x, y).sqrt()
+
+
 # ---------------------------------------------------------------------------
 # Point-sharded (sequence-parallel) helpers. In the sharded forward
 # (`parallel/sp.py`) per-point tensors are (B, n_local, C) blocks of a global

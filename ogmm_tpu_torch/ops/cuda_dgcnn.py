@@ -11,17 +11,19 @@ position-encoding angles cos(angle(p -> nbr_j, p -> centroid)) of the first
 `posenc_k` neighbours from float32 coordinates.
 
 On a CUDA tensor the wrapper launches `csrc/dgcnn_eval.cu` (`kernel_takes`:
-k in KERNEL_KS and emb a multiple of 64; k <= N <= 1024); on a CPU tensor it
+1 <= k <= 32 and emb a multiple of 64; k <= N <= 1024); on a CPU tensor it
 runs `dgcnn_eval_reference`, the plain PyTorch version of the same
-arithmetic. In float32 the kernel's products run on the tensor cores as three
-TF32 products each (the operands split into a TF32 high and low part), about
-2^-22 of each product from true float32; the plain version stays true
-float32.
+arithmetic. The kernel's stage chain is compiled for `stage_rows(k)` rows a
+point (STAGE_KS) and fills the rows past k with the nearest neighbour, which
+changes no max over a point's rows. In float32 the kernel's products run on
+the tensor cores as three TF32 products each (the operands split into a TF32
+high and low part), about 2^-22 of each product from true float32; the plain
+version stays true float32.
 
 `dgcnn_edges(x, nbr, weights, affines)` is the stage chain alone over given
 float32 neighbour coordinates nbr (B, N, k, 3), at any N: the port of
-`dgcnn_edges_pallas`, the second entry point of the same source (k in
-KERNEL_KS), with `dgcnn_edges_reference` beside it.
+`dgcnn_edges_pallas`, the second entry point of the same source (the same
+k), with `dgcnn_edges_reference` beside it.
 """
 from __future__ import annotations
 
@@ -35,15 +37,25 @@ from ogmm_tpu_torch.ops.common import (gather_neighbors, posenc_alpha,
                                        select_smallest, square_distance3)
 
 STAGES = (64, 64, 128, 256)
-KERNEL_KS = (8, 16, 20)           # neighbour counts the kernels are
-#                                  compiled for (csrc/knn_select.cuh:DGCNN_KS)
+KERNEL_MAX_K = 32        # the shared selection's register lists
+KERNEL_KS = tuple(range(1, KERNEL_MAX_K + 1))   # neighbour counts the
+#                          kernels take (csrc/knn_select.cuh:DGCNN_MAX_K)
+STAGE_KS = (8, 12, 16, 20, 24, 28, 32)   # rows a point the stage chains are
+#                          compiled for (csrc/knn_select.cuh:DGCNN_KS)
 KERNEL_MAX_N = 1024      # one distance row lives in a warp's registers
 KERNEL_EMB = 64          # the head's output tiles: emb a multiple of 64
 
 
+def stage_rows(k: int) -> int:
+    """The rows a point of k neighbours takes in the stage chains
+    (csrc/knn_select.cuh:dgcnn_rows): k rounded up to a multiple of 4, at
+    least 8 (an 8-row tensor-core tile spans at most two points)."""
+    return max(8, -(-k // 4) * 4)
+
+
 def kernel_takes(k: int, emb: int) -> bool:
     """The envelope both eval kernels (`dgcnn_eval`, `dgcnn_edges`) share:
-    a graph of k in KERNEL_KS neighbours and emb a multiple of KERNEL_EMB.
+    a graph of 1 <= k <= 32 neighbours and emb a multiple of KERNEL_EMB.
     The routes (`nn.dgcnn.fused_route`, `edges_route`) and the wrappers read
     it, so that a route never picks a kernel that refuses the call."""
     return k in KERNEL_KS and emb >= KERNEL_EMB and emb % KERNEL_EMB == 0
@@ -122,8 +134,8 @@ def _kernel_operands(what, weights, affines, k, dtype):
     if dims != want:
         raise ValueError(f"{what} kernel: weight shapes {dims} != {want}")
     if not kernel_takes(k, emb):
-        raise ValueError(f"{what} kernel takes k in {KERNEL_KS} and emb a "
-                         f"multiple of {KERNEL_EMB}; got k={k}, emb={emb}")
+        raise ValueError(f"{what} kernel takes 1 <= k <= {KERNEL_MAX_K} and "
+                         f"emb a multiple of {KERNEL_EMB}; got k={k}, emb={emb}")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what} kernel: dtype {dtype} not supported")
     s5 = affines[4][0]
@@ -140,9 +152,10 @@ def _concat_scratch(x, dtype):
                        device=x.device)
 
 
-# csrc/dgcnn_eval.cu: the float32 stage kernel's points (QF) and warps (NWF)
-# a block, the row strides of its float32 activations (LDF_X, LDF_Y), and
-# the shared memory an SM offers a block on an H100
+# csrc/dgcnn_eval.cu: the float32 stage kernel's points (QF; half of them
+# where QF points' rows do not fit a block, f32_points) and warps (NWF) a
+# block, the row strides of its float32 activations (LDF_X, LDF_Y), and the
+# shared memory an SM offers a block on an H100
 F32_POINTS, F32_WARPS = 8, 8
 F32_LD = (68, 132)
 SMEM_PER_BLOCK = 232448       # 227 KB
@@ -151,7 +164,8 @@ REGS_PER_SM, MAX_REGS = 65536, 255
 
 
 class F32StagePlan(NamedTuple):
-    points: int     # points (QF) a block
+    points: int     # points (QF, or QF / 2) a block
+    rows: int       # rows a point, stage_rows(k)
     warps: int      # warps a block
     smem: int       # dynamic shared memory of a block, bytes
     blocks_sm: int  # blocks an SM holds: shared memory, and the registers of
@@ -162,17 +176,24 @@ class F32StagePlan(NamedTuple):
 
 def f32_stage_plan(B: int, N: int, k: int) -> F32StagePlan:
     """The float32 (3xTF32) stage launch as a pure function of the shapes,
-    mirroring `csrc/dgcnn_eval.cu:launch_stages_f32`: QF points a block; in
-    shared memory (`f32_smem`) the activations of its QF k edge rows in a
-    buffer of LDF_X floats a row and one of two planes of LDF_Y (stage 3's
-    output split into TF32 high and low parts), and its QF concat rows; one
+    mirroring `csrc/dgcnn_eval.cu:launch_stages_f32`: QF points a block, or
+    QF / 2 where QF points' rows do not fit (`f32_points`); in shared memory
+    (`f32_smem`) the activations of its points' stage_rows(k) edge rows each
+    in a buffer of LDF_X floats a row and one of two planes of LDF_Y (stage
+    3's output split into TF32 high and low parts), and its concat rows; one
     block a point group of a cloud."""
     ld_x, ld_y = F32_LD
-    smem = 4 * (F32_POINTS * k * (ld_x + 2 * ld_y) + F32_POINTS * sum(STAGES))
+    rows = stage_rows(k)
+
+    def smem_of(points):
+        return 4 * (points * rows * (ld_x + 2 * ld_y) + points * sum(STAGES))
+
+    points = F32_POINTS if smem_of(F32_POINTS) <= SMEM_PER_BLOCK else F32_POINTS // 2
+    smem = smem_of(points)
     threads = 32 * F32_WARPS
     blocks = min(SMEM_PER_SM // (smem + 1024), REGS_PER_SM // (threads * MAX_REGS))
-    return F32StagePlan(F32_POINTS, F32_WARPS, smem, blocks,
-                        (-(-N // F32_POINTS), B))
+    return F32StagePlan(points, rows, F32_WARPS, smem, blocks,
+                        (-(-N // points), B))
 
 
 def _dgcnn_eval_cuda(x, weights, affines, k, dtype, posenc_k, idx=None):

@@ -13,9 +13,10 @@ neighbours from float32 coordinates. Outputs:
   z1    (B, k, N, C1) compute dtype     e      (B, k, N, 6) compute dtype
   idx   (B, N, k) int32                 alpha  (B, N, posenc_k) float32 or None
 
-On a CUDA tensor the wrapper launches `csrc/graph_stage1.cu` (k in
-KERNEL_KS, k <= N <= 1024); on a CPU tensor it runs `graph_stage1_reference`, the port of the JAX package's jnp
-composition (`ogmm_tpu/ops/dgcnn_train.py:_graph_stage1`).
+On a CUDA tensor the wrapper launches `csrc/graph_stage1.cu` (1 <= k <= 32,
+k <= N <= 1024, exactly k edge rows a point); on a CPU tensor it runs
+`graph_stage1_reference`, the port of the JAX package's jnp composition
+(`ogmm_tpu/ops/dgcnn_train.py:_graph_stage1`).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops.common import (gather_neighbors, graph_feature,
                                        posenc_alpha, select_smallest,
                                        square_distance3)
-from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_N
+from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_K, KERNEL_MAX_N
 from ogmm_tpu_torch.ops.cuda_stream import _sm_count
 
 KERNEL_C1 = 64           # stage-1 width the kernel is compiled for
@@ -63,8 +64,8 @@ def graph_stage1_reference(x: torch.Tensor, w1: torch.Tensor, k: int = 20,
 def _graph_stage1_cuda(x, w1, k, dtype, posenc_k):
     B, N, _ = x.shape
     if k not in KERNEL_KS or not k <= N <= KERNEL_MAX_N:
-        raise ValueError(f"graph_stage1 kernel takes k in {KERNEL_KS} and "
-                         f"k <= N <= {KERNEL_MAX_N}; got k={k}, N={N}")
+        raise ValueError(f"graph_stage1 kernel takes 1 <= k <= {KERNEL_MAX_K} "
+                         f"and k <= N <= {KERNEL_MAX_N}; got k={k}, N={N}")
     if tuple(w1.shape) != (6, KERNEL_C1) or posenc_k > k:
         raise ValueError(f"graph_stage1 kernel takes w1 of shape "
                          f"(6, {KERNEL_C1}) and posenc_k <= k; got "

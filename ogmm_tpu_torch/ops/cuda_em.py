@@ -15,8 +15,10 @@ assignments amplify the last float32 bit), so the kernel is compared with
 the plain version per trip (iters=1) and on what the model consumes.
 
 On a CUDA tensor the wrapper launches `csrc/sinkhorn_em.cu` (`kernel_takes`:
-K <= 128 and a cloud's plan in the shared memory of a cluster of 8 blocks,
-N <= 3,352 at K = 128); on a CPU tensor it runs `sinkhorn_em_reference`.
+K <= 256 and a cloud's plan in the shared memory of a cluster of 8 blocks,
+or of 16 where 8 do not hold it (`cluster_size`): every (N, K) with K <= 256
+that the JAX package's rule sends to its kernel, N <= 5,734 at K <= 128);
+on a CPU tensor it runs `sinkhorn_em_reference`.
 """
 from __future__ import annotations
 
@@ -28,26 +30,39 @@ import torch
 from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops.common import matmul32, square_distance3
 
-KERNEL_MAX_K = 128           # padded to 32 KPL columns, KPL <= 4
+KERNEL_MAX_K = 256           # padded to 32 KPL columns, KPL <= 8
 SMEM_BYTES = 227 * 1024      # shared memory a block may use
-CLUSTER = 8                  # blocks a cloud (csrc/sinkhorn_em.cu:CL)
+CLUSTERS = (8, 16)           # blocks a cloud, the smallest that holds the plan
 
 
-def smem_bytes(N: int, K: int) -> int:
-    """Shared memory of one block (csrc/sinkhorn_em.cu:em_smem_floats): the
-    slab of ceil(N / 8) plan rows padded to a multiple of 32 columns, six
-    floats a row (rounded up to a multiple of 4), and 15 column vectors:
-    the nodes (4), the 4 warps' and two alternating block column sums, the
-    M-step sums (4) and the column factors."""
+def smem_bytes(N: int, K: int, cluster: int = 8) -> int:
+    """Shared memory of one block of a cluster of `cluster` blocks
+    (csrc/sinkhorn_em.cu:em_smem_floats): the slab of ceil(N / cluster)
+    plan rows (of K padded to a multiple of 32 floats in a cluster of 8, of
+    4 ceil(K / 4) in one of 16), six floats a row (rounded up to a multiple
+    of 4), and 15 column vectors of the padded K: the nodes (4), the 4
+    warps' and two alternating block column sums, the M-step sums (4) and
+    the column factors."""
     kp = 32 * -(-K // 32)
-    rows = -(-N // CLUSTER)
-    return 4 * (rows * kp + -(-6 * rows // 4) * 4 + 15 * kp)
+    ks = kp if cluster == 8 else 4 * -(-K // 4)
+    rows = -(-N // cluster)
+    return 4 * (rows * ks + -(-6 * rows // 4) * 4 + 15 * kp)
+
+
+def cluster_size(N: int, K: int) -> int | None:
+    """The blocks a cloud of N points and K clusters takes: 8 where their
+    slabs of the plan fit shared memory, else 16 (a non-portable cluster
+    size); None where neither holds it or K > 256."""
+    if not (1 <= K <= KERNEL_MAX_K and N >= 1):
+        return None
+    return next((c for c in CLUSTERS if smem_bytes(N, K, c) <= SMEM_BYTES), None)
 
 
 def kernel_takes(N: int, K: int) -> bool:
-    """Whether the kernel takes clouds of N points and K clusters: K <= 128
-    and a block's slab of the plan beside its buffers in shared memory."""
-    return 1 <= K <= KERNEL_MAX_K and N >= 1 and smem_bytes(N, K) <= SMEM_BYTES
+    """Whether the kernel takes clouds of N points and K clusters: K <= 256
+    and a block's slab of the plan beside its buffers in the shared memory
+    of a cluster of 8 or 16 blocks."""
+    return cluster_size(N, K) is not None
 
 
 def _marginal_q(K: int):
@@ -95,7 +110,8 @@ def _sinkhorn_em_cuda(xyz, o_norm, nodes0, iters, sk_iters, tau, eps):
     K = nodes0.shape[1]
     if not kernel_takes(N, K) or iters < 1 or sk_iters < 1:
         raise ValueError(f"sinkhorn_em kernel takes K <= {KERNEL_MAX_K} with "
-                         f"the plan of a cloud in shared memory, and iters, "
+                         f"the plan of a cloud in the shared memory of a "
+                         f"cluster of {CLUSTERS[-1]} blocks, and iters, "
                          f"sk_iters >= 1; got N={N}, K={K}, iters={iters}, "
                          f"sk_iters={sk_iters}")
     if o_norm.shape != (B, N) or nodes0.shape != (B, K, 3):
@@ -111,11 +127,11 @@ def _sinkhorn_em_cuda(xyz, o_norm, nodes0, iters, sk_iters, tau, eps):
     lib = dispatch.load_kernel("sinkhorn_em")
     fn = lib.sinkhorn_em_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     code = fn(*[ctypes.c_void_p(t.data_ptr())
                 for t in (xyz, o_norm, nodes0, gamma, pi, nodes)],
-              B, N, K, iters, sk_iters, tau, eps, q_t, log_q,
+              B, N, K, cluster_size(N, K), iters, sk_iters, tau, eps, q_t, log_q,
               ctypes.c_void_p(dispatch.current_stream(xyz)))
     dispatch.check_launch(code, "sinkhorn_em")
     dispatch.launch_counts["sinkhorn_em"] += 1
@@ -123,14 +139,16 @@ def _sinkhorn_em_cuda(xyz, o_norm, nodes0, iters, sk_iters, tau, eps):
 
 
 def max_clusters(N: int, K: int) -> int:
-    """How many clouds of (N, K) the card can run at once (one cluster of 8
-    blocks each), by the occupancy calculator (cudaOccupancyMaxActiveClusters),
-    not measured; a launch of more clouds runs in more than one wave."""
+    """How many clouds of (N, K) the card can run at once (one cluster of
+    `cluster_size(N, K)` blocks each), by the occupancy calculator
+    (cudaOccupancyMaxActiveClusters), not measured; a launch of more clouds
+    runs in more than one wave, and 0 means the card cannot run it."""
     out = ctypes.c_int(0)
     fn = dispatch.load_kernel("sinkhorn_em").sinkhorn_em_max_clusters
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    dispatch.check_launch(fn(N, K, ctypes.byref(out)), "sinkhorn_em_max_clusters")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    dispatch.check_launch(fn(N, K, cluster_size(N, K), ctypes.byref(out)),
+                          "sinkhorn_em_max_clusters")
     return out.value
 
 

@@ -5,8 +5,8 @@ state: the model's parameters and running statistics, the optimizer's
 moments, the schedule, the step count, the state of the anchor generator and
 the Config as JSON. `export_weights` writes the weights-only `.npz` of the
 JAX package (keys `params/...` and `batch_stats/...`, the Config under
-`__config__`), which its `train.checkpoint.load_weights` and this package's
-`weights.load_weights` both read.
+`__config__`), which its `train.checkpoint.load_weights` and this module's
+`load_weights` (that is, `weights.load_weights`) both read.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 
 from ogmm_tpu_torch.configs import Config, config_from_dict, config_to_dict
 from ogmm_tpu_torch.train.state import TrainState
-from ogmm_tpu_torch.weights import flat_variables
+from ogmm_tpu_torch.weights import flat_variables, load_weights  # noqa: F401
 
 
 def save_checkpoint(path: str, state: TrainState,

@@ -15,6 +15,9 @@ from the run's best checkpoint when there is one), then runs `Trainer.fit`
 or, with `--eval_only`, one eval epoch, and with `--export_weights` writes
 the best weights as the JAX package's `.npz`.
 
+`--profile_dir D` traces epoch 0's train steps [5, 10) with torch.profiler
+and writes a Chrome trace into D (`Trainer`).
+
 `--multihost` joins the process group torchrun describes
 (`train.distributed.init_distributed`; on a single-process run it does
 nothing) and trains data-parallel: each process loads the same global batch
@@ -33,14 +36,6 @@ import os
 import sys
 
 from ogmm_tpu_torch import configs
-
-# options of the JAX package's CLI that later slices of the port bring over
-NOT_PORTED = {
-    "profile_dir": "ROADMAP.md, queue A item 9 (a torch.profiler window in "
-                   "the trainer; scripts/torch_port_profile.py profiles a "
-                   "step)",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="OGMM training on an NVIDIA GPU")
@@ -86,17 +81,11 @@ def parse_args(argv=None):
                         "dataset's radius)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; the CUDA card by default")
-    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of epoch 0's steps "
+                        "[5, 10) into this directory")
     p.add_argument("--multihost", action="store_true")
     return p.parse_args(argv)
-
-
-def _refuse_not_ported(args) -> None:
-    asked = {"profile_dir": args.profile_dir is not None}
-    for flag, on in asked.items():
-        if on:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet; it comes with {NOT_PORTED[flag]}")
 
 
 def build_config(args) -> configs.Config:
@@ -147,7 +136,6 @@ class CappedLoader:
 
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_not_ported(args)
     cfg = build_config(args)
     group, owned = None, False
     if args.multihost:
@@ -214,7 +202,8 @@ def _main(args, cfg, group):
         restore_checkpoint(best_path, state)
         logger.info("restored the train state from %s", best_path)
 
-    trainer = Trainer(cfg, state, checkpointer=ckpt)
+    trainer = Trainer(cfg, state, checkpointer=ckpt,
+                      profile_dir=args.profile_dir)
     if args.eval_only:
         print_metrics(trainer.eval_epoch(0, test_loader),
                       title=f"{cfg.model_name} eval", log=logger.info)

@@ -17,11 +17,20 @@ all-reduced after the backward (one flat all-reduce, so every process
 applies the same update), and the loss and the per-sample metrics are
 gathered: a step returns the global batch's. The eval step splits the rows
 too (blocks may differ by one) and gathers its metrics.
+
+`Trainer(profile_dir=D)` traces epoch 0's steps [5, 10) with
+`torch.profiler` (the host, and the card's kernels when the state lives on
+one), each step inside `record_function("train")`, the counterparts of the
+JAX trainer's `jax.profiler` window and `StepTraceAnnotation`, and writes a
+Chrome trace into D (`train_steps_5_10.pt.trace.json`, with `_rank<r>` under
+a data-parallel group of more than one process). An epoch that ends inside
+the window closes it there (a torch profiler left open loses its trace).
 """
 from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -191,10 +200,14 @@ class Trainer:
     only (the CLI: rank 0); every process takes the same decisions from the
     gathered metrics."""
 
-    def __init__(self, cfg: Config, state: TrainState, checkpointer=None):
+    PROFILE_WINDOW = (5, 10)   # epoch 0's steps traced with `profile_dir`
+
+    def __init__(self, cfg: Config, state: TrainState, checkpointer=None,
+                 profile_dir: Optional[str] = None):
         self.cfg = cfg
         self.state = state
         self.checkpointer = checkpointer
+        self.profile_dir = profile_dir
         self.train_step = make_train_step(cfg)
         # loss-only step between the strides of the metric suite
         self.metrics_every = max(1, cfg.train.metrics_every)
@@ -208,17 +221,50 @@ class Trainer:
         if self.state.device.type == "cuda":
             torch.cuda.synchronize(self.state.device)
 
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.state.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, stop: int) -> str:
+        """Close the window after step stop - 1 and write its trace."""
+        self._sync()
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        name = f"train_steps_{self.PROFILE_WINDOW[0]}_{stop}"
+        if comm.axis_size(self.state.group) > 1:
+            name += f"_rank{comm.axis_index(self.state.group)}"
+        path = os.path.join(self.profile_dir, name + ".pt.trace.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
+        return path
+
     def train_epoch(self, epoch: int, loader) -> Dict[str, float]:
         acc = defaultdict(list)
         n_pairs = 0
+        prof = None
+        first, last = self.PROFILE_WINDOW
         t0 = time.perf_counter()
         for i, batch in enumerate(loader):
-            step_fn = (self.train_step if self.train_step_light is None
-                       or i % self.metrics_every == 0
-                       else self.train_step_light)
-            for k, v in step_fn(self.state, batch).items():
-                acc[k].append(v)
+            if self.profile_dir and epoch == 0:
+                if i == first:
+                    prof = self._start_profile()
+                elif i == last and prof is not None:
+                    self._stop_profile(prof, i)
+                    prof = None
+            with torch.profiler.record_function("train"):
+                step_fn = (self.train_step if self.train_step_light is None
+                           or i % self.metrics_every == 0
+                           else self.train_step_light)
+                for k, v in step_fn(self.state, batch).items():
+                    acc[k].append(v)
             n_pairs += len(batch["src_xyz"])
+        if prof is not None:                 # the epoch ended in the window
+            self._stop_profile(prof, i + 1)
         self._sync()
         summary = _summarize(acc)
         self._rates(summary, n_pairs, t0)

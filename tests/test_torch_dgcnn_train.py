@@ -17,13 +17,13 @@ from torch_port_util import n, t
 B, N, K, EMB, PK = 2, 80, 8, 64, 4
 
 
-def _setup(seed, dtype, dead_channels=False, duplicates=False):
+def _setup(seed, dtype, dead_channels=False, duplicates=False, k=K):
     rs = np.random.RandomState(seed)
     x = (rs.randn(B, N, 3) * 0.4).astype(np.float32)
     if duplicates:
         # coincident points: identical edge rows, so the max over k ties
         x[:, 10:20] = x[:, 20:30]
-    jm = JDGCNN(emb_dims=EMB, k=K, dtype=dtype, fused=False, fused_train=True)
+    jm = JDGCNN(emb_dims=EMB, k=k, dtype=dtype, fused=False, fused_train=True)
     v = jax.jit(lambda a: jm.init(jax.random.PRNGKey(seed), a, train=False))(
         jnp.asarray(x))
     params = {k: np.array(a) for k, a in v["params"].items()}
@@ -54,8 +54,8 @@ def _jax_side(jm, params, stats, x, wvec):
     return val, out, alpha, mut["batch_stats"], gp, gx
 
 
-def _torch_side(params, stats, x, wvec, dtype):
-    tm = TDGCNN(EMB, K, torch.bfloat16 if dtype else torch.float32)
+def _torch_side(params, stats, x, wvec, dtype, k=K):
+    tm = TDGCNN(EMB, k, torch.bfloat16 if dtype else torch.float32)
     tm.load_state_dict({k: t(a) for k, a in {**params, **stats}.items()},
                        strict=True)
     tm.train()
@@ -103,6 +103,27 @@ def test_dgcnn_train_matches_jax_custom_vjp(case, variant):
         np.testing.assert_allclose(n(getattr(tm, k)), n(v), rtol=1e-4,
                                    atol=1e-5, err_msg=k)
     assert set(tgp) == set(jgp)
+    for k in jgp:
+        _close(tgp[k], jgp[k], c["rtol"], c["atol"], c["frac"], k)
+    _close(tgx, jgx, c["rtol"], c["atol"], c["frac"], "x")
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16"])
+def test_dgcnn_train_matches_jax_custom_vjp_at_k12(case):
+    # a graph of 12 neighbours: graph_stage1 writes exactly 12 edge rows a
+    # point (the batch moments sum over them), and the backward is the plain
+    # one (the backward kernels take k = 20)
+    c = CASES[case]
+    x, jm, params, stats, wvec = _setup(32, c["dtype"], k=12)
+    jval, jout, jalpha, jstats, jgp, jgx = _jax_side(jm, params, stats, x, wvec)
+    tval, tout, talpha, tm, tgp, tgx = _torch_side(params, stats, x, wvec,
+                                                   c["dtype"], k=12)
+    np.testing.assert_allclose(n(tval), n(jval), rtol=c["rtol_out"])
+    _close(tout, jout, c["rtol"], c["atol"], c["frac"], "features")
+    np.testing.assert_allclose(n(talpha), n(jalpha), atol=1e-5)
+    for k, v in jstats.items():
+        np.testing.assert_allclose(n(getattr(tm, k)), n(v), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
     for k in jgp:
         _close(tgp[k], jgp[k], c["rtol"], c["atol"], c["frac"], k)
     _close(tgx, jgx, c["rtol"], c["atol"], c["frac"], "x")

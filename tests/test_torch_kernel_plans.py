@@ -38,20 +38,69 @@ def test_em_kernel_still_takes_its_earlier_envelope(N, K):
     assert cuda_em.kernel_takes(N, K)
 
 
-@pytest.mark.parametrize("N,K", [(3353, 128), (3353, 97), (6529, 64),
-                                 (12129, 32), (100, 129), (100, 0), (0, 16)])
+# the first N past a cluster of 16 blocks at each K (a block's slab then
+# needs more than 227 KB), and K past 256
+@pytest.mark.parametrize("N,K", [(6705, 128), (8481, 97), (13057, 64),
+                                 (24257, 32), (100, 257), (100, 0), (0, 16)])
 def test_em_kernel_refuses_past_shared_memory_and_k(N, K):
     assert not cuda_em.kernel_takes(N, K)
+    if K >= 1 and N >= 1 and K <= cuda_em.KERNEL_MAX_K:
+        assert cuda_em.kernel_takes(N - 1, K)
 
 
-@pytest.mark.parametrize("K", [1, 32, 33, 64, 100, 128])
+@pytest.mark.parametrize("K", [1, 32, 33, 64, 100, 128, 129, 200, 256])
 def test_em_kernel_takes_exactly_what_fits(K):
-    # the first N refused is the first whose block needs more than 227 KB
-    takes = [N for N in range(1, 13000, 7) if cuda_em.kernel_takes(N, K)]
+    # the first N refused is the first whose block of a cluster of 16 needs
+    # more than 227 KB; 8 blocks a cloud wherever their slabs fit
+    takes = [N for N in range(1, 100000, 7) if cuda_em.kernel_takes(N, K)]
     last = max(takes)
     assert takes == list(range(1, last + 1, 7))
-    assert cuda_em.smem_bytes(last, K) <= cuda_em.SMEM_BYTES
-    assert cuda_em.smem_bytes(last + 7 * 8, K) > cuda_em.SMEM_BYTES
+    assert cuda_em.smem_bytes(last, K, 16) <= cuda_em.SMEM_BYTES
+    assert cuda_em.smem_bytes(last + 7 * 16, K, 16) > cuda_em.SMEM_BYTES
+    for N in takes:
+        fits8 = cuda_em.smem_bytes(N, K, 8) <= cuda_em.SMEM_BYTES
+        assert cuda_em.cluster_size(N, K) == (8 if fits8 else 16)
+
+
+def _jax_em_envelope(K):
+    """The largest N the JAX package sends to its EM kernel at K:
+    N max(K, 128) 4 B x 5 <= 14 MiB (ogmm_tpu/ops/gmm.py:187-206)."""
+    from ogmm_tpu_torch.ops.gmm import EM_VMEM_BYTES
+    assert EM_VMEM_BYTES == 14 * 2 ** 20
+    return EM_VMEM_BYTES // (max(K, 128) * 4 * 5)
+
+
+@pytest.mark.parametrize("K0", range(1, 257, 32))
+def test_em_plan_holds_the_jax_envelope_at_k_up_to_256(K0):
+    # every (N, K) the JAX rule admits at K <= 256 (and K <= N): the chosen
+    # cluster's block fits shared memory. A block's shared memory grows with
+    # N, so the largest admitted N of each K is the one to hold; a sample of
+    # smaller N checks the choice of 8 or 16 blocks too
+    for K in range(K0, K0 + 32):
+        top = _jax_em_envelope(K)
+        assert top >= K
+        for N in {K, top // 3, top // 2, top - 1, top}:
+            cl = cuda_em.cluster_size(N, K)
+            assert cl in cuda_em.CLUSTERS, (N, K)
+            assert cuda_em.smem_bytes(N, K, cl) <= cuda_em.SMEM_BYTES, (N, K)
+            assert cuda_em.kernel_takes(N, K)
+    # the slab's rows are 4 ceil(K / 4) floats apart: padded to 32 columns,
+    # K = 129 at its top N would not fit a cluster of 16
+    assert cuda_em.smem_bytes(_jax_em_envelope(129), 129, 16) <= cuda_em.SMEM_BYTES
+    kp = 160
+    rows = -(-_jax_em_envelope(129) // 16)
+    assert 4 * rows * kp > cuda_em.SMEM_BYTES - 4 * 15 * kp
+
+
+def test_em_cluster_size_keeps_8_at_the_request_shapes():
+    # the N = 717 and 1433 requests keep their cluster of 8 (the kernel of
+    # earlier slices); past 3,352 points at K = 128 a cluster of 16
+    assert cuda_em.cluster_size(717, 128) == cuda_em.cluster_size(1433, 128) == 8
+    assert cuda_em.cluster_size(3352, 128) == 8
+    assert cuda_em.cluster_size(3353, 128) == cuda_em.cluster_size(5734, 128) == 16
+    assert cuda_em.cluster_size(2867, 256) == 16
+    assert cuda_em.cluster_size(35000, 128) is None
+    assert cuda_em.cluster_size(100, 257) is None
 
 
 def test_em_blocks_of_the_main_shape_fit_four_to_an_sm():
@@ -114,16 +163,26 @@ def test_f32_stage_plan_mirrors_the_kernel():
 @pytest.mark.parametrize("k", cuda_dgcnn.KERNEL_KS)
 def test_f32_stage_block_fits_shared_memory_at_every_k(k):
     plan = cuda_dgcnn.f32_stage_plan(48, 717, k)
+    # a point of k neighbours takes stage_rows(k) rows, a multiple of 4 of
+    # at least 8 (the rows past k repeat its nearest neighbour)
+    rows = cuda_dgcnn.stage_rows(k)
+    assert plan.rows == rows and rows >= max(k, 8) and rows % 4 == 0
+    assert rows - k < 4 or k < 8
+    assert rows in cuda_dgcnn.STAGE_KS
     # the edge rows (12 floats) live in the 64-channel buffer; the 128-wide
     # buffer holds stage 3's output in two planes (high and low parts)
     ld_x, ld_y = cuda_dgcnn.F32_LD
-    assert plan.smem == 4 * plan.points * (k * (ld_x + 2 * ld_y) + 512)
+    assert plan.smem == 4 * plan.points * (rows * (ld_x + 2 * ld_y) + 512)
     assert _cu_define("dgcnn_eval.cu", "LDF_E") <= ld_x
     assert plan.smem <= cuda_dgcnn.SMEM_PER_BLOCK
+    # 8 points a block where they fit, else 4 (csrc f32_points)
+    full = 4 * cuda_dgcnn.F32_POINTS * (rows * (ld_x + 2 * ld_y) + 512)
+    assert plan.points == (cuda_dgcnn.F32_POINTS if full <= cuda_dgcnn.SMEM_PER_BLOCK
+                           else cuda_dgcnn.F32_POINTS // 2)
     # one block an SM: its threads may take all 255 registers
     assert plan.blocks_sm == 1 and plan.warps * 32 * 255 <= cuda_dgcnn.REGS_PER_SM
     # whole 8-row tiles and row groups of whole points (csrc stage_tf32)
-    assert plan.points * k % 8 == 0
+    assert plan.points * rows % 16 == 0
 
 
 @pytest.mark.parametrize("N", [1, 5, 717, 1023, 1024, 35000])
@@ -913,3 +972,16 @@ def test_fps_route_switches_where_the_register_routes_stop():
     assert cuda_fps.fps_plan(96, 717, 132).cluster == 1
     assert cuda_fps.fps_plan(48, 1433, 132).cluster == 1
     assert cuda_fps.fps_plan(4, 35000, 132).cluster > 1
+
+
+def test_dgcnn_rows_mirror_the_kernels():
+    # the k the DGCNN kernels take and the row counts their stage chains are
+    # compiled for (csrc/knn_select.cuh: DGCNN_MAX_K, DGCNN_KS, dgcnn_rows)
+    text = open(os.path.join(CSRC, "knn_select.cuh")).read()
+    assert cuda_dgcnn.KERNEL_MAX_K == _cu_define("knn_select.cuh", "DGCNN_MAX_K")
+    compiled = re.search(r"#define DGCNN_KS\(X\) (.*)", text).group(1)
+    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", compiled)) == cuda_dgcnn.STAGE_KS
+    assert {cuda_dgcnn.stage_rows(k) for k in cuda_dgcnn.KERNEL_KS} == set(cuda_dgcnn.STAGE_KS)
+    assert "k <= 8 ? 8 : (k + 3) & ~3" in text
+    assert all(cuda_dgcnn.stage_rows(k) == (8 if k <= 8 else (k + 3) & ~3)
+               for k in cuda_dgcnn.KERNEL_KS)

@@ -35,6 +35,11 @@ from ogmm_tpu_torch.train import (create_train_state, make_train_step,
 pytestmark = pytest.mark.gpu
 
 NONE = {name: 0 for name in dispatch.KERNELS}
+# neighbour counts the DGCNN kernels are checked at: every row count their
+# stage chains are compiled for (8, 12, ..., 32), k below 8 and k padded
+# up to the next multiple of 4 (the rows past k repeat the nearest)
+GPU_KS = (1, 4, 5, 8, 10, 12, 16, 20, 23, 25, 28, 32)
+assert set(GPU_KS) <= set(KERNEL_KS)
 
 
 @pytest.fixture
@@ -77,7 +82,7 @@ def test_dgcnn_kernel_ties_and_no_angles(card):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("kwargs,match", [(dict(k=12), "k in"),
+@pytest.mark.parametrize("kwargs,match", [(dict(k=33), "1 <= k <= 32"),
                                           (dict(dtype=torch.float16), "dtype")])
 def test_dgcnn_kernel_refuses_what_it_does_not_take(card, kwargs, match):
     x, ws, aff = _dgcnn_inputs(np.random.RandomState(2), card, 1, 64, 64)
@@ -130,11 +135,13 @@ def test_em_kernel_zero_overlap_rows_stay_finite(card):
 def test_em_kernel_refuses_what_it_does_not_take(card):
     xyz = torch.zeros(1, 64, 3, device=card)
     o = torch.full((1, 64), 1 / 64, device=card)
-    with pytest.raises(ValueError, match="K <= 128"):
-        sinkhorn_em(xyz, o, torch.zeros(1, 129, 3, device=card))
-    big = torch.zeros(1, 3353, 3, device=card)        # past shared memory
-    with pytest.raises(ValueError, match="N=3353"):
-        sinkhorn_em(big, torch.full((1, 3353), 1 / 3353, device=card),
+    with pytest.raises(ValueError, match="K <= 256"):
+        sinkhorn_em(torch.zeros(1, 300, 3, device=card),
+                    torch.full((1, 300), 1 / 300, device=card),
+                    torch.zeros(1, 257, 3, device=card))
+    big = torch.zeros(1, 6705, 3, device=card)   # past a cluster of 16 blocks
+    with pytest.raises(ValueError, match="N=6705"):
+        sinkhorn_em(big, torch.full((1, 6705), 1 / 6705, device=card),
                     torch.zeros(1, 128, 3, device=card))
     with pytest.raises(ValueError, match="o_norm"):
         sinkhorn_em(xyz, o[:, :10], torch.zeros(1, 32, 3, device=card))
@@ -170,8 +177,8 @@ def test_graph_stage1_kernel_ties_and_no_angles(card):
 def test_graph_stage1_kernel_refuses_what_it_does_not_take(card):
     x = torch.zeros(1, 64, 3, device=card)
     w1 = torch.zeros(6, 64, device=card)
-    with pytest.raises(ValueError, match="k in"):
-        graph_stage1(x, w1, k=12)
+    with pytest.raises(ValueError, match="1 <= k <= 32"):
+        graph_stage1(x, w1, k=33)
     with pytest.raises(ValueError, match="N="):
         graph_stage1(torch.zeros(1, 1100, 3, device=card), w1)
     with pytest.raises(ValueError, match="w1"):
@@ -258,11 +265,12 @@ def test_nn1_takes_the_first_of_equal_minima_across_lanes(card, lanes, rows, M):
 
 
 @pytest.mark.parametrize("B,N", [(24, 717), (1, 1024), (2, 20)])
-@pytest.mark.parametrize("k", KERNEL_KS)
+@pytest.mark.parametrize("k", GPU_KS)
 @pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 0.0313)])
 def test_graph_stage1_kernel_every_k_matches_plain_and_is_fixed(card, B, N, k,
                                                                 dtype, lim):
+    N = max(N, k)                            # k <= N: a point's k neighbours
     rs = np.random.RandomState(N + k)
     x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
     x[:, N // 2] = x[:, 1]                   # a duplicated point: exact ties
@@ -344,18 +352,19 @@ def test_registrar_runs_on_the_card_by_default(card, dtype, lim):
 
 # ------------------------------------------- routing by shape (fault C.1)
 
-@pytest.mark.parametrize("k", KERNEL_KS)
+@pytest.mark.parametrize("k", GPU_KS)
 @pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 0.0625)])
 def test_dgcnn_kernels_take_every_compiled_k(card, k, dtype, lim):
     x, ws, aff = _dgcnn_inputs(np.random.RandomState(k), card, 2, 300, 64)
     x[:, 50] = x[:, 9]                       # ties
-    out, alpha = dgcnn_eval(x, ws, aff, k, dtype, 5)
-    ref, ralpha = dgcnn_eval_reference(x, ws, aff, k, dtype, 5)
+    pk = min(5, k)
+    out, alpha = dgcnn_eval(x, ws, aff, k, dtype, pk)
+    ref, ralpha = dgcnn_eval_reference(x, ws, aff, k, dtype, pk)
     assert (out.float() - ref.float()).abs().max().item() <= lim
     assert (alpha - ralpha).abs().max().item() <= 1e-5
-    got = graph_stage1(x, ws[0], k, dtype, 5)
-    want = graph_stage1_reference(x, ws[0], k, dtype, 5)
+    got = graph_stage1(x, ws[0], k, dtype, pk)
+    want = graph_stage1_reference(x, ws[0], k, dtype, pk)
     assert torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
 
 
@@ -437,16 +446,18 @@ def test_em_kernel_takes_any_k_up_to_128(card, B, N, K):
 
 @pytest.mark.parametrize("over,N,launched", [
     (dict(), 1100, {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
-    (dict(gnn_k=12), 300, {"knn": 1, "posenc_angles": 1, "sinkhorn_em": 1,
-                           "nn1": 1}),
+    (dict(gnn_k=12), 300, {"dgcnn_eval": 1, "sinkhorn_em": 1, "nn1": 1}),
+    (dict(gnn_k=33), 300, {"posenc_angles": 1, "sinkhorn_em": 1, "nn1": 1}),
     (dict(gnn_k=16), 300, {"dgcnn_eval": 1, "sinkhorn_em": 1, "nn1": 1}),
     (dict(n_clusters=16), 2048, {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
     # C.2: an emb the eval kernel does not take runs the unfused chain
     (dict(emb_dims=96), 300, {"knn": 1, "posenc_angles": 1, "sinkhorn_em": 1,
                               "nn1": 1}),
     # C.3: dgcnn_fused_edges where the edges kernel does not take k or emb
+    # (the plain kNN at k = 33)
+    (dict(gnn_k=33, dgcnn_fused_edges=True), 1100, {"sinkhorn_em": 1, "nn1": 1}),
     (dict(gnn_k=12, dgcnn_fused_edges=True), 1100,
-     {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
+     {"knn": 1, "dgcnn_edges": 1, "sinkhorn_em": 1, "nn1": 1}),
     (dict(emb_dims=96, dgcnn_fused_edges=True), 1100,
      {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
     (dict(dgcnn_fused_edges=True), 1100,
@@ -949,8 +960,8 @@ def test_indoor_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="D in"):
         cuda_stream.wproject_stream_lse(q, q, torch.zeros(1, 10, 1, device=card))
     _, ws, aff = _dgcnn_inputs(np.random.RandomState(0), card, 1, 8, 64)
-    with pytest.raises(ValueError, match="k in"):
-        dgcnn_edges(x, torch.zeros(1, 100, 6, 3, device=card), ws, aff, 6)
+    with pytest.raises(ValueError, match="1 <= k <= 32"):
+        dgcnn_edges(x, torch.zeros(1, 100, 33, 3, device=card), ws, aff, 33)
 
 
 def test_indoor_registrar_routes_on_the_card(card):
@@ -1136,16 +1147,19 @@ def test_loop_switches_launch_each_kernel(card):
 # ------------------ the tensor-core stage chain and the one-wave EM kernel
 
 @pytest.mark.parametrize("N", [20, 717, 1023, 1024])
-@pytest.mark.parametrize("k", KERNEL_KS)
+@pytest.mark.parametrize("k", GPU_KS)
 @pytest.mark.parametrize("emb", [64, 512])
 @pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 0.0625)])
 def test_dgcnn_kernel_ragged_point_tiles(card, N, k, emb, dtype, lim):
-    # N not a multiple of the 8 points a block of the stage kernel takes
+    # N not a multiple of the 8 (or 4) points a block of the stage kernel
+    # takes
+    N = max(N, k)
     x, ws, aff = _dgcnn_inputs(np.random.RandomState(N + k), card, 2, N, emb)
-    out, alpha = dgcnn_eval(x, ws, aff, k, dtype, 5)
-    again, _ = dgcnn_eval(x, ws, aff, k, dtype, 5)
-    ref, ralpha = dgcnn_eval_reference(x, ws, aff, k, dtype, 5)
+    pk = min(5, k)
+    out, alpha = dgcnn_eval(x, ws, aff, k, dtype, pk)
+    again, _ = dgcnn_eval(x, ws, aff, k, dtype, pk)
+    ref, ralpha = dgcnn_eval_reference(x, ws, aff, k, dtype, pk)
     torch.cuda.synchronize()
     assert out.shape == (2, N, emb) and torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= lim
@@ -1409,3 +1423,83 @@ def test_wproject_at_the_sharded_shape(card, world, dtype):
     rout, rlse = stream.wproject_stream_lse_plain(q, k, v)
     assert (out - rout).abs().max().item() <= 1e-4
     assert (lse - rlse).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------ the envelopes of the JAX rules
+
+@pytest.mark.parametrize("B,N,K", [(2, 3353, 128), (2, 5734, 128), (1, 4096, 128),
+                                   (2, 2867, 256), (2, 5690, 129), (2, 1500, 200),
+                                   (3, 300, 256), (2, 13056, 64)])
+def test_em_kernel_past_a_cluster_of_8_matches_plain(card, B, N, K):
+    # clusters of 16 blocks (the slab's rows 4 ceil(K / 4) floats apart) and
+    # K above 128: one trip tightly, ten on the outputs the model consumes
+    from ogmm_tpu_torch.ops import cuda_em
+    assert cuda_em.kernel_takes(N, K)
+    assert cuda_em.max_clusters(N, K) >= 1
+    rs = np.random.RandomState(N + K)
+    xyz = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
+    o = torch.tensor(rs.rand(B, N).astype(np.float32), device=card)
+    o = o / o.sum(-1, keepdim=True)
+    n0 = xyz[:, rs.choice(N, K, replace=False)].contiguous()
+    got = sinkhorn_em(xyz, o, n0, iters=1)
+    want = sinkhorn_em_reference(xyz, o, n0, iters=1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4
+    got = sinkhorn_em(xyz, o, n0, iters=10)
+    again = sinkhorn_em(xyz, o, n0, iters=10)
+    want = sinkhorn_em_reference(xyz, o, n0, iters=10)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (got[1] - want[1]).abs().max().item() <= 1e-3
+    assert (got[2] - want[2]).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("k,N", [(12, 3001), (5, 37), (25, 500), (32, 64)])
+@pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 0.0625)])
+def test_dgcnn_edges_kernel_every_k(card, k, N, dtype, lim):
+    rs = np.random.RandomState(N + k)
+    x, ws, aff = _dgcnn_inputs(rs, card, 2, N, 512)
+    nbr = x[:, torch.tensor(rs.randint(0, N, (N, k)), device=card)]
+    out = dgcnn_edges(x, nbr, ws, aff, k, dtype)
+    ref = dgcnn_edges_reference(x, nbr, ws, aff, k, dtype)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gnn_k12_request_and_step_run_the_kernels(card, dtype):
+    # the request of configs.mnet(gnn_k=12) through the eval kernel; a train
+    # step through graph_stage1 (twice: one a cloud side) and the plain
+    # backward (the backward kernels take k = 20)
+    cfg = configs.mnet(model=configs.ModelConfig(
+        emb_dims=64, n_clusters=32, km_clusters=32, gnn_k=12, dtype=dtype))
+    reg = Registrar(cfg, seed=1)
+    src = np.random.RandomState(7).randn(2, 300, 3).astype(np.float32) * 0.3
+    dispatch.reset_launch_counts()
+    rot, _, so, _ = reg(src, src[:, ::-1].copy(), refine=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rot).all()
+    assert dispatch.launch_counts == {**NONE, "dgcnn_eval": 1, "sinkhorn_em": 1,
+                                      "nn1": 1}
+    state = create_train_state(cfg, steps_per_epoch=10, seed=0)
+    dispatch.reset_launch_counts()
+    metrics = make_train_step(cfg)(state, _train_batch(np.random.RandomState(8), 4, 300))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert dispatch.launch_counts["graph_stage1"] == 2
+    assert dispatch.launch_counts["bwd_stage"] == 0
+
+
+def test_request_at_n4096_runs_the_em_kernel(card):
+    # the JAX rule sends N = 4,096 at K = 128 to its EM kernel: a cluster of
+    # 16 blocks a cloud here
+    cfg = configs.mnet(model=configs.ModelConfig(emb_dims=64))
+    reg = Registrar(cfg, seed=1)
+    src = np.random.RandomState(9).randn(2, 4096, 3).astype(np.float32) * 0.3
+    dispatch.reset_launch_counts()
+    rot, _, so, _ = reg(src, src[:, ::-1].copy(), refine=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rot).all() and so.shape == (2, 4096)
+    assert dispatch.launch_counts["sinkhorn_em"] == 1

@@ -198,11 +198,11 @@ def _kernel_angles(x, idx, pk, centroid):
 @pytest.mark.parametrize("k", [5, 8, 16, 20])
 def test_shared_selection_with_angles_equals_graph_and_angle_plain(N, k):
     # the selection of csrc/knn_lanes.cuh with its angle epilogue, as the
-    # DGCNN graphs take it (K = k where the DGCNN kernels are compiled for
-    # k, pk = min(5, k), the centroid summed in the kernel) and as the angle
+    # DGCNN graphs take it (K = the stage chain's rows a point, stage_rows(k),
+    # pk = min(5, k), the centroid summed in the kernel) and as the angle
     # kernel does (the kNN kernel's K, pk = k, the centroid given): the
     # plain versions' indices bit for bit, their angles within 1e-5
-    from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS
+    from ogmm_tpu_torch.ops.cuda_dgcnn import stage_rows
     from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_stage1_reference
     rs = np.random.RandomState(N + k)
     x = (rs.randn(1, N, 3) * 0.3).astype(np.float32)
@@ -211,7 +211,7 @@ def test_shared_selection_with_angles_equals_graph_and_angle_plain(N, k):
     w1 = t(rs.randn(6, 64) / 2.5)
     pk = min(5, k)
     _, _, ridx, ralpha = graph_stage1_reference(t(x), w1, k, torch.float32, pk)
-    got = _dense_lanes(d, k, K=k if k in KERNEL_KS else None)
+    got = _dense_lanes(d, k, K=stage_rows(k))
     assert np.array_equal(got, n(ridx)[0])
     alpha = _kernel_angles(x[0], got, pk, _kernel_centroid(x[0]))
     np.testing.assert_allclose(alpha, n(ralpha)[0], atol=1e-5)

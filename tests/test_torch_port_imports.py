@@ -120,3 +120,57 @@ def test_the_distribution_names_have_counterparts(jax_module, port_module):
     port = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"parallel/__init__.py", "parallel/sp.py", "parallel/comm.py",
             "parallel/launch.py", "train/distributed.py"} <= port
+
+
+# The JAX package's public names that need no counterpart: its Pallas
+# kernels' modules (each has a Hopper kernel under csrc/, PERF.md's table),
+# and the switches of its dispatch that exist for JAX alone (whether Pallas
+# kernels run, and jax.debug callbacks); and the names the port gives
+# another name, each mapped to the port's.
+JAX_ONLY = {"ops/dispatch.py": {"set_pallas", "use_pallas", "pallas_override",
+                                "set_debug_callbacks", "debug_callbacks",
+                                "debug_callbacks_override"}}
+RENAMED = {"ops/dgcnn_train.py": {"dgcnn_train_fused": "dgcnn_train"}}
+JAX_PKG = PKG.parent / "ogmm_tpu"
+JAX_MODULES = sorted(p for p in JAX_PKG.rglob("*.py")
+                     if not p.name.startswith("pallas_"))
+
+
+def _public_names(path):
+    """The top-level public functions and classes of a module, from its
+    source (nothing is imported)."""
+    tree = ast.parse(path.read_text())
+    return {node.name for node in tree.body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef))
+            and not node.name.startswith("_")}
+
+
+@pytest.mark.parametrize("path", JAX_MODULES, ids=lambda p: str(p.relative_to(JAX_PKG)))
+def test_every_public_name_of_the_jax_package_has_a_counterpart(path):
+    """Each top-level public def or class of a module of `ogmm_tpu/` is a
+    name of the port's module at the same path (defined there or imported
+    into it), but for the JAX-only switches and the renamed names above: a
+    new public name of the JAX package without a counterpart fails here."""
+    import importlib
+    rel = str(path.relative_to(JAX_PKG))
+    port_path = PKG / rel
+    assert port_path.exists(), f"no counterpart of ogmm_tpu/{rel}"
+    mod = importlib.import_module(
+        ".".join(port_path.relative_to(PKG.parent).with_suffix("").parts)
+        .removesuffix(".__init__"))
+    renamed = RENAMED.get(rel, {})
+    missing = sorted(name for name in _public_names(path) - JAX_ONLY.get(rel, set())
+                     if not hasattr(mod, renamed.get(name, name)))
+    assert not missing, f"ogmm_tpu/{rel}: no counterpart in the port of {missing}"
+
+
+def test_the_exceptions_of_the_name_check_are_real():
+    # each excepted or renamed name is a public name of its JAX module, and
+    # each renamed one's counterpart exists, so that the lists cannot go stale
+    for rel, names in JAX_ONLY.items():
+        assert names <= _public_names(JAX_PKG / rel), rel
+    for rel, names in RENAMED.items():
+        assert set(names) <= _public_names(JAX_PKG / rel), rel
+        assert set(names.values()) <= _public_names(PKG / rel), rel
+    assert all(p.name.startswith("pallas_") for p in JAX_PKG.rglob("*.py")
+               if p not in JAX_MODULES)

@@ -61,13 +61,29 @@ def test_cli_eval_only_restores_the_checkpoint(tmp_path):
     assert again.history == []
 
 
-@pytest.mark.parametrize("flags", [["--profile_dir", "p", "--multihost"],
-                                   ["--profile_dir", "p"]])
-def test_cli_refuses_what_is_not_ported(tmp_path, flags):
-    # --multihost is ported (tests/test_torch_distributed.py); the refusal
-    # of what is not comes before it would join a process group
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(tmp_path, *flags)
+@pytest.mark.parametrize("steps", [6, 4])
+def test_cli_profile_dir_traces_steps_5_to_10(tmp_path, steps):
+    """--profile_dir traces epoch 0's steps [5, 10) (the JAX trainer's
+    window): a run of 6 steps writes the trace of step 5, closed where the
+    epoch ends; a run of 4 steps never opens the window."""
+    prof = tmp_path / "prof"
+    trainer = cli.main(["--device", "cpu", "--dataset", "synthetic",
+                        "--root", "synthetic:24", "--n_points", "32", *TINY,
+                        "--batch_size", "2", "--test_batch_size", "2",
+                        "--epochs", "1", "--steps_per_epoch", str(steps),
+                        "--model_path", str(tmp_path / "ckpt"),
+                        "--profile_dir", str(prof)])
+    assert trainer.state.step == steps
+    if steps < 6:
+        assert not prof.exists()
+        return
+    files = sorted(os.listdir(prof))
+    assert files == ["train_steps_5_6.pt.trace.json"]
+    events = json.loads((prof / files[0]).read_text())["traceEvents"]
+    ranges = [e for e in events if e.get("name") == "train"
+              and e.get("cat") == "user_annotation"]
+    assert len(ranges) == 1            # step 5, inside record_function("train")
+    assert any(e.get("cat") == "cpu_op" for e in events)
 
 
 @pytest.mark.parametrize("flags", [["--model", "DeepGMR"],
@@ -94,7 +110,7 @@ def test_cli_refuses_gmmreg_on_unequal_clouds(tmp_path):
 def test_module_entry_point_runs_the_cli():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-m", "ogmm_tpu_torch.train",
-                          "--profile_dir", "p"], capture_output=True,
+                          "--help"], capture_output=True,
                          text=True, cwd=ROOT, env=env)
-    assert res.returncode != 0
-    assert "queue A item 9" in res.stderr
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "--profile_dir" in res.stdout and "--multihost" in res.stdout
