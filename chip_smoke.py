@@ -24,10 +24,11 @@ fatal on failure:
              graph_stage1 and nn1 launched twice and
              compared bit for bit, sinkhorn_em's time a pass and the clouds
              the card runs at once, nn1's device time and time between
-             calls at each shape, the device time of each __global__ of the bf16
-             bwd_stage calls (stages 4, 3, 2 and the partial sums) and of
-             the bwd_edge call (bf16: the one pass, its sums, the scatter;
-             float32: the row, weight-gradient and scatter kernels)
+             calls at each shape, the device time of each __global__ of the
+             bwd_stage calls (stages 4, 3, 2 and the partial sums; bf16 on
+             wgmma, float32 on mma.sync in 3xTF32) and of the bwd_edge call
+             (bf16: the one pass, its sums, the scatter; float32: the row,
+             weight-gradient and scatter kernels)
   3. serve   `Registrar` at B=24, N=717, emb 512, K=128, bf16 body, seeded
              random weights: a few requests with and without ICP; the launch
              counts of the kernels over one request; the same requests with
@@ -40,7 +41,10 @@ fatal on failure:
              each); finite loss and gradients, every parameter and running
              statistic moved; one step from the same state with the switch
              on and off (loss bit-equal, gradients close), and through the
-             kernels and their plain versions; one `make_eval_step` with ICP
+             kernels and their plain versions; one `make_eval_step` with ICP;
+             then the float32 body's step (`configs.mnet()`): launches with
+             the switch, three steps on and off in turns, one step from the
+             same state on against off (loss and gradients within 1e-3)
   5. cli     `python -m ogmm_tpu_torch.train` (cli.main) on synthetic
              ModelNet at the same shape with the switch on: three steps, an
              eval batch, a checkpoint, every kernel of that path launched
@@ -77,7 +81,10 @@ fatal on failure:
              launches, request times, peak memory, rotation and overlap
              scores against the same request through the plain versions
  14. pointmlp, fps, icp   the fused attention MLP (with the device time of
-             its two products and its moments launch), the FPS chain and the
+             its two products and its moments launch, bf16 and float32 (in
+             3xTF32, with its weights' TF32 planes), and the eager float32
+             chain `PointMLP(fuse_eval=False)` on the same weights), the FPS
+             chain and the
              whole-loop ICP against their plain versions at the refined
              request's calls (48 clouds of 717, 1024 -> 1024 -> 512 bf16;
              96 rows of 717, 128 steps; 24 pairs of 717, 30 trips; FPS also
@@ -95,7 +102,8 @@ fatal on failure:
              attention MLPs through their kernels) beside one without, on
              the same weights: launches (fps 1, pointmlp 3, icp 1), request
              times of both, peak memory, rotation and overlap scores against
-             the one without and against the plain versions
+             the one without and against the plain versions; then the same
+             at the float32 body `configs.mnet()` gives by default
  16. serve_f32     the request `Registrar(configs.mnet())` gives by default:
              the float32 body at B=24, N=717, emb 512, K=128 (its DGCNN
              through the 3xTF32 stage chain of dgcnn_eval), without and with
@@ -212,6 +220,7 @@ try:
     from ogmm_tpu_torch.ops import cuda_dgcnn_bwd
     from ogmm_tpu_torch.ops import fps as ops_fps
     from ogmm_tpu_torch.nn import gmmreg as nn_gmmreg
+    from ogmm_tpu_torch.nn.layers import PointMLP
     from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
     from ogmm_tpu_torch.ops import gmm as ops_gmm
     from ogmm_tpu_torch.ops.common import (gather_neighbors, index_points,
@@ -328,17 +337,23 @@ def cuda_ms(fn, reps):
 
 def device_trace(fn, reps=1):
     """torch.profiler's key averages of the card's activity in reps calls of
-    fn. A session whose trace holds no kernel at all, though fn launches
-    some, is a lost trace, not a count: it is taken again, at most three
-    times, and then raises."""
+    fn. The first kernel records of a session have gone missing on the card
+    (all of them, PR 22; a step's first one or two, PR 23): each session
+    first runs four spin kernels (`torch.cuda._sleep`) and synchronises,
+    and their records are left out. A session whose trace holds no kernel
+    at all, though fn launches some, is a lost trace, not a count: it is
+    taken again, at most three times, and then raises."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(10000)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        avgs = prof.key_averages()
+        avgs = [evt for evt in prof.key_averages() if "spin_kernel" not in evt.key]
         if any(evt.self_device_time_total > 0 for evt in avgs):
             return avgs
         print("torch.profiler: a trace without a kernel on the card, taken again",
@@ -785,12 +800,18 @@ def check_dgcnn_bwd(rs):
                 lambda: run(kern, torch.float32), 5,
                 {"reduce_ms": ("reduce_kernel",)}).items()})
         if name == "bwd_stage":
-            # each __global__ of the bf16 calls (stages 4, 3, 2: the one-pass
-            # kernel; the partial sums), device time of one backward
+            # each __global__ of the calls (stages 4, 3, 2: the one-pass
+            # kernel, bf16 on wgmma, float32 on mma.sync in 3xTF32; the
+            # partial sums), device time of one backward
             device = launch_ms(lambda: run(kern, bf), 10, {
                 **{f"stage{4 - i}_ms": (f"stage_wgmma_kernel<{c}, {ci}, {cn}>",)
                    for i, (c, ci, cn) in enumerate(cuda_dgcnn_bwd.KERNEL_STAGES)},
                 "sum_parts_ms": ("sum_parts_kernel",)})
+            device.update({f"f32_{k}": v for k, v in launch_ms(
+                lambda: run(kern, torch.float32), 5, {
+                    **{f"stage{4 - i}_ms": (f"stage_tf32_kernel<{c}, {ci}, {cn}>",)
+                       for i, (c, ci, cn) in enumerate(cuda_dgcnn_bwd.KERNEL_STAGES)},
+                    "sum_parts_ms": ("sum_parts_kernel",)}).items()})
         if name == "bwd_edge":
             # each __global__ of the call: the bf16 one pass, its partial sums
             # and the scatter; the float32 row and weight-gradient kernels
@@ -1076,11 +1097,63 @@ def train(rs):
     assert all(torch.isfinite(v).all() for v in ev.values()), ev
     print("eval step with ICP: " + ", ".join(
         f"{k} {v.mean().item():.4g}" for k, v in ev.items()))
+    f32 = train_f32(batches)
+    ops_dgcnn_train.BWD_KERNELS = True
     return launches, {"step_ms_bwd_kernels": step_ms[True],
                       "step_ms_plain_bwd": step_ms[False],
                       "peak_mib_bwd_kernels": peak_mib[True],
                       "peak_mib_plain_bwd": peak_mib[False],
-                      "grad_rel_on_off": d_bwd, "losses": losses}
+                      "grad_rel_on_off": d_bwd, "losses": losses, "float32": f32}
+
+
+def train_f32(batches):
+    """The same step at the float32 body `configs.mnet()` gives by default
+    (its DGCNN backward through the 3xTF32 stage kernel with the switch):
+    launches of one step with `BWD_KERNELS` on, step times on and off in
+    turns (on, off, off, on; three steps each), and one step from the same
+    state on against off, the loss and the gradients within DeepGMR's bar."""
+    cfg = configs.mnet()
+    assert cfg.model.dtype == "float32"
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_overlap=True),
+                      data=dataclasses.replace(cfg.data, fix_tgt_overlap=True))
+    state = create_train_state(cfg, steps_per_epoch=100, seed=0, device=DEV)
+    step = make_train_step(cfg)
+    ops_dgcnn_train.BWD_KERNELS = True
+    step(state, batches[0])                               # warm up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    step(state, batches[1])
+    torch.cuda.synchronize()
+    launches = dict(dispatch.launch_counts)
+    print("kernel launches in one float32 train step with the switch:", launches)
+    assert (launches["bwd_reduce"], launches["bwd_stage"],
+            launches["bwd_edge"]) == (2, 6, 2), launches
+    step_ms = {True: [], False: []}
+    for on in (True, False, False, True):
+        ops_dgcnn_train.BWD_KERNELS = on
+        step(state, batches[2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(3):
+            metrics = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        step_ms[on].append((time.perf_counter() - t0) / 3 * 1e3)
+        assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+    ops_dgcnn_train.BWD_KERNELS = True
+    k_loss, k_grads = _step_grads(state, cfg, batches[2])
+    ops_dgcnn_train.BWD_KERNELS = False
+    o_loss, o_grads = _step_grads(state, cfg, batches[2])
+    d_loss = abs(k_loss - o_loss) / abs(o_loss)
+    d_grad = _rel(k_grads, o_grads)
+    print(f"float32 train step of {B} pairs: {step_ms[True]} ms with the backward "
+          f"kernels, {step_ms[False]} ms with the plain backward (host clock, "
+          f"synchronised, three steps a round); on against off from one state: "
+          f"loss {k_loss!r} / {o_loss!r}, relative {d_loss:.3g} (limit "
+          f"{LIM_DGMR_LOSS}); gradients relative {d_grad:.3g} (limit {LIM_DGMR_GRAD})")
+    assert d_loss <= LIM_DGMR_LOSS and d_grad <= LIM_DGMR_GRAD
+    return {"launches": launches, "step_ms_bwd_kernels": step_ms[True],
+            "step_ms_plain_bwd": step_ms[False], "loss_rel_on_off": d_loss,
+            "grad_rel_on_off": d_grad}
 
 
 # ---------------------------------------------------------------------- cli
@@ -1998,13 +2071,35 @@ def check_pointmlp(rs):
     ms = cuda_ms(lambda: cuda_mlp.pointmlp_eval(xb, *path[1:], bf), 10)
     ms32 = cuda_ms(lambda: cuda_mlp.pointmlp_eval(x32, *path[1:], torch.float32), 3)
     plain = cuda_ms(lambda: cuda_mlp.pointmlp_eval_reference(xb, *path[1:], bf), 3)
-    # each __global__ of the bf16 call: the two products and the moments
+    # each __global__ of the bf16 call: the two products and the moments;
+    # of the float32 call: the weights' TF32 planes, the two 3xTF32 products
+    # and the moments
     device = launch_ms(lambda: cuda_mlp.pointmlp_eval(xb, *path[1:], bf), 10, {
         "z_product_ms": ("mlp_gemm_kernel<256, false>",),
         "moments_ms": ("mlp_moments_kernel",),
         "out_product_ms": ("mlp_gemm_kernel<256, true>",)})
-    print("pointmlp bf16 device ms (torch.profiler):",
+    device.update({f"f32_{k}": v for k, v in launch_ms(
+        lambda: cuda_mlp.pointmlp_eval(x32, *path[1:], torch.float32), 5, {
+            "planes_ms": ("tf32_planes_kernel",),
+            "z_product_ms": ("mlp_tf32_kernel<128, false>",),
+            "moments_ms": ("mlp_moments_kernel",),
+            "out_product_ms": ("mlp_tf32_kernel<128, true>",)}).items()})
+    print("pointmlp device ms (torch.profiler):",
           {k: round(v, 4) for k, v in device.items()})
+    # the eager chain the flag replaces: PointMLP(fuse_eval=False) in eval,
+    # float32, the same weights (two cuBLAS products and the InstanceNorm)
+    chain = PointMLP(2 * EMB, (2 * EMB, EMB), dtype=torch.float32).to(DEV).eval()
+    with torch.no_grad():
+        for i, (wt, bias) in enumerate(((path[1], path[2]), (path[3], path[4]))):
+            getattr(chain, f"dense{i}").weight.copy_(wt)
+            getattr(chain, f"dense{i}").bias.copy_(bias)
+        chain_out = chain(x32)
+        fused = cuda_mlp.pointmlp_eval(x32, *path[1:], torch.float32)
+        chain_err = (chain_out - fused).abs().max().item()
+        chain_ms = cuda_ms(lambda: chain(x32), 5)
+    print(f"pointmlp float32 against the eager chain: max|kernel - chain| = "
+          f"{chain_err:.3g} (limit {LIM_MLP_F32}); the chain {chain_ms:.3f} ms")
+    assert chain_err <= LIM_MLP_F32
     rows, cin, h, cout = 2 * B * N, 2 * EMB, 2 * EMB, EMB
     flops_bf16 = 2.0 * rows * (cin * h + h * cout)
     flops_f32 = 10.0 * rows * h                      # moments, normalise, ReLU
@@ -2019,6 +2114,7 @@ def check_pointmlp(rs):
             "replaces": "ogmm_tpu/ops/pallas_mlp.py:84",
             "max_abs_err": errs[bf], "max_abs_err_f32": errs[torch.float32],
             "ms": ms, "ms_f32": ms32, "plain_ms": plain, "device_ms": device,
+            "chain_ms_f32": chain_ms, "chain_max_abs_err_f32": chain_err,
             "bound_ms_f32": f32_bound(flops_bf16, flops_f32, 2 * nbytes),
             "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -2183,17 +2279,15 @@ def check_icp_kernel(rs):
             "library_ms": None}
 
 
-def serve_loops(rs):
-    """The refined request of `serve` (B=24, N=717, bf16) through a
-    Registrar with `loop_kernels=True` and one without, on the same weights:
-    launches of one request (fps 1, pointmlp 3, icp 1), the request time of
-    each on the same requests (on, off, off, on), the peak device memory of
-    each, and the refined rotation and overlap scores against the one
-    without and against the plain versions."""
-    cfg = configs.mnet(model=configs.ModelConfig(dtype="bfloat16"))
+def _loops_ab(cfg, requests, body):
+    """The refined request through a Registrar of `cfg` with
+    `loop_kernels=True` and one without, on the same weights and
+    requests: launches of one request with the flag, request times of both
+    (on, off, off, on), peak memory, and the refined rotation and overlap
+    scores of the flag's request against the one without and against the
+    plain versions."""
     regs = {on: Registrar(cfg, seed=0, device=DEV, loop_kernels=on)
             for on in (True, False)}
-    requests = [make_pairs(rs, B, N) for _ in range(3)]
     for reg in regs.values():
         reg(requests[0][0], requests[0][1], refine=True)   # warm up
     torch.cuda.synchronize()
@@ -2201,7 +2295,7 @@ def serve_loops(rs):
     regs[True](requests[0][0], requests[0][1], refine=True)
     torch.cuda.synchronize()
     launches = dict(dispatch.launch_counts)
-    print("kernel launches in one refined request with loop_kernels:", launches)
+    print(f"kernel launches in one refined {body} request with loop_kernels:", launches)
     want = {"fps": 1, "pointmlp": 3, "icp": 1, "dgcnn_eval": 1, "sinkhorn_em": 1}
     assert {k: launches[k] for k in want} == want, launches
     times, peak, outs = {True: [], False: []}, {}, {}
@@ -2218,7 +2312,7 @@ def serve_loops(rs):
         r = outs[on][0]
         eye = torch.eye(3, device=DEV).expand(B, 3, 3)
         assert (r @ r.transpose(1, 2) - eye).abs().max() < 1e-4
-    print(f"refined request of {B} pairs: {times[True]} ms with loop_kernels, "
+    print(f"refined {body} request of {B} pairs: {times[True]} ms with loop_kernels, "
           f"{times[False]} ms without (host clock, three requests a round); "
           f"peak device memory {peak[True]:.0f} / {peak[False]:.0f} MiB")
     src, tgt, _, _ = requests[-1]
@@ -2232,15 +2326,34 @@ def serve_loops(rs):
                                 ("plain versions", (p_rot, p_so, p_to))):
         d_o = max((k_so - so).abs().max().item(), (k_to - to).abs().max().item())
         ang = angle_deg(k_rot, rot)
-        print(f"loop_kernels on against {name}: overlap scores {d_o:.3g} (limit "
-              f"{LIM_OVERLAP}), refined rotation median {ang.median().item():.3g} "
-              f"deg (limit {LIM_ROT_DEG}), max {ang.max().item():.3g} deg")
+        print(f"{body}, loop_kernels on against {name}: overlap scores {d_o:.3g} "
+              f"(limit {LIM_OVERLAP}), refined rotation median "
+              f"{ang.median().item():.3g} deg (limit {LIM_ROT_DEG}), max "
+              f"{ang.max().item():.3g} deg")
         assert d_o <= LIM_OVERLAP and ang.median().item() <= LIM_ROT_DEG
         res[name] = {"overlap": d_o, "rot_median_deg": ang.median().item(),
                      "rot_max_deg": ang.max().item()}
     return launches, {"forward_icp_on": times[True], "forward_icp_off": times[False],
                       "peak_mib_on": peak[True], "peak_mib_off": peak[False],
                       "against": res}
+
+
+def serve_loops(rs):
+    """The refined request of `serve` (B=24, N=717, bf16) through a
+    Registrar with `loop_kernels=True` and one without, on the same weights
+    (`_loops_ab`): launches of one request (fps 1, pointmlp 3, icp 1), the
+    request time of each on the same requests, the peak device memory of
+    each, and the refined rotation and overlap scores against the one
+    without and against the plain versions; then the same at the float32
+    body `configs.mnet()` gives by default (its three attention MLPs through
+    the 3xTF32 form of the MLP kernel). The bf16 request's launches are the
+    path's."""
+    requests = [make_pairs(rs, B, N) for _ in range(3)]
+    launches, res = _loops_ab(configs.mnet(model=configs.ModelConfig(dtype="bfloat16")),
+                              requests, "bf16")
+    launches32, res["float32"] = _loops_ab(configs.mnet(), requests, "float32")
+    res["float32"]["launches"] = launches32
+    return launches, res
 
 
 def serve_f32(rs):
@@ -2553,14 +2666,29 @@ def profiled_launches(fn):
     return out
 
 
-def _check_profiled(launches, prof):
-    """The profiler's count of each wrapper's __global__ equals the
-    wrapper's count; knn_kernel runs once for dgcnn_eval, graph_stage1 and
-    knn each."""
-    for name in ("dgcnn_eval", "graph_stage1", "nn1", "icp"):
-        assert prof[name] == launches.get(name, 0), (name, launches, prof)
-    want = sum(launches.get(k, 0) for k in ("dgcnn_eval", "graph_stage1", "knn"))
-    assert prof["knn_kernel"] == want, (launches, prof)
+def _profiled_disagree(launches, prof):
+    """Where the profiler's count of each wrapper's __global__ differs from
+    the wrapper's count (knn_kernel runs once for dgcnn_eval, graph_stage1
+    and knn each): {name: (profiled, counted)}."""
+    want = {name: launches.get(name, 0) for name in ("dgcnn_eval", "graph_stage1", "nn1", "icp")}
+    want["knn_kernel"] = sum(launches.get(k, 0) for k in ("dgcnn_eval", "graph_stage1", "knn"))
+    return {name: (prof[name], n) for name, n in want.items() if prof[name] != n}
+
+
+def _check_profiled(fn, launches):
+    """One call of fn under torch.profiler counts each wrapper's __global__
+    exactly as the wrapper counted its launches. CUPTI has lost records on
+    the card (a session without a kernel, PR 22; one kernel of a session,
+    PR 23): a session that disagrees is taken again, at most three, and
+    the check fails when all three disagree."""
+    for _ in range(3):
+        prof = profiled_launches(fn)
+        bad = _profiled_disagree(launches, prof)
+        if not bad:
+            return prof
+        print(f"torch.profiler: counts {bad} (profiled, launched) disagree, taken again",
+              file=sys.stderr)
+    raise AssertionError(("profiled launches disagree in 3 sessions", launches, prof))
 
 
 def _dv_cfg():
@@ -2672,8 +2800,7 @@ def serve_deepgmr(cfg, requests):
             torch.cuda.synchronize()
             launches = {k: v for k, v in dispatch.launch_counts.items() if v}
             peak = torch.cuda.max_memory_allocated() / 2 ** 20
-            prof = profiled_launches(lambda: reg(src, tgt, refine=refine))
-            _check_profiled(launches, prof)
+            prof = _check_profiled(lambda: reg(src, tgt, refine=refine), launches)
             want = {"dgcnn_eval": 1, "knn": 1}
             if refine:
                 want.update({"icp": 1} if on else {"nn1": 30})
@@ -2766,8 +2893,7 @@ def train_deepgmr(cfg, batches):
     metrics = step(state, batches[1])
     torch.cuda.synchronize()
     launches = {k: v for k, v in dispatch.launch_counts.items() if v}
-    prof = profiled_launches(lambda: step(state, batches[0]))
-    _check_profiled(launches, prof)
+    prof = _check_profiled(lambda: step(state, batches[0]), launches)
     assert launches == {"graph_stage1": 1, "knn": 1, "nn1": 3}, launches
     assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
     torch.cuda.reset_peak_memory_stats()

@@ -22,27 +22,24 @@
 // types) is one pass of its own (reduce_kernel, described where it is
 // defined): only each column's max-over-k argmax row contributes to its
 // sums, so a thread streams a point's rows as 16-byte loads and keeps one
-// running argmax a channel. The float32 stages run a few kernels on the
+// running argmax a channel. The float32 stages 4..2 are one pass each with
+// their products on the tensor cores in 3xTF32 (stage_tf32_kernel, described
+// where it is defined). The float32 stage 1 runs two kernels on the
 // wrapper's stream:
 //  1. rows_kernel: a fixed grid of ROW_BLOCKS blocks walks the tiles in a
 //     fixed order. Per tile, in shared memory:
-//       - extra = dz_{i+1} . W_{i+1}^T (dz_{i+1} staged in 16-byte loads, W
-//         read through L1): the cotangent from the stage above;
+//       - extra = dz_2 . W_2^T (dz_2 staged in 16-byte loads, W read through
+//         L1): the cotangent from the stage above;
 //       - per (t, c) column, one thread: h recomputed from z exactly as the
 //         forward formed it (bn_y: a rounding to T after the subtract, the
 //         multiply and the add, no contraction, as eager PyTorch), the first
 //         argmax of h over k, dh = extra (+ dtap at the argmax, rounded),
 //         dy = ReLU-VJP (half at 0), then dz = inv gamma (dy - S1/m -
 //         zhat S2/m);
-//       - stage: dh_{i-1} = dz . W_i^T, the max-VJP of the tap below with
-//         h_{i-1} recomputed from z_{i-1}, dy_{i-1} and its sums;
-//       - edge: de = dz . W_1^T in float32, dq = sum_k (de[3:] - de[:3]) and
+//       - de = dz . W_1^T in float32, dq = sum_k (de[3:] - de[:3]) and
 //         de[:3] per row to a scratch array.
-//     The sums go to one partial per block, reduced in the block in thread
-//     order; sum_parts_kernel adds the partials in block order.
-//  2. dw_kernel: dW = h_{i-1}^T dz (h_{i-1} recomputed from z_{i-1}; e for
-//     stage 1) as a split-K product over the m = B KNN N rows, one float32
-//     partial per split, added in split order.
+//  2. dw_kernel: dW_1 = e^T dz_1 as a split-K product over the m = B KNN N
+//     rows, one float32 partial per split, added in split order.
 // Both edge routes end with scatter_kernel: dscat[b, p] = sum of de[:3] over
 // the rows (b, j, n) with idx[b, n, j] == p, taken in (j, n) order, a block
 // for each range of SCAT_P points of a cloud, its lists filled in that order.
@@ -50,7 +47,8 @@
 // ticket), so two launches on the same input give the same bits.
 //
 // Every product of the TPU kernel's body is computed here: for bf16 on wgmma
-// (bf16 operands, float32 accumulation), for float32 on the CUDA cores.
+// (bf16 operands, float32 accumulation); for float32 stages 4..2 on mma.sync
+// in 3xTF32, stage 1 on the CUDA cores.
 //
 // Bound: at B=24, N=717 one backward (five calls) moves about 1.3 GB and
 // does about 93 GFLOP, mostly bf16 products: the bytes bound it (about 0.4
@@ -65,6 +63,7 @@
 
 #include "hopper.cuh"      // mbarriers, TMA, wgmma, tensor maps
 #include "knn_select.cuh"  // MAXN, to_f, from_f
+#include "tf32.cuh"        // split_tf32, mma_tf32x3
 
 #define KNN 20           // the graph the backward kernels are compiled for
 #define FULL_MASK 0xffffffffu
@@ -75,8 +74,6 @@
 #define ROW_BLOCKS 264   // grid of the row kernels (2 a streaming multiprocessor)
 #define RC 32            // rows a step of the weight-gradient kernel
 #define DW_BLOCKS 264    // blocks of the weight-gradient kernel, about
-
-enum { STAGE = 1, EDGE = 2 };
 
 template <typename T>
 __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
@@ -193,61 +190,44 @@ __host__ __device__ constexpr int lda_of() { return (CN > C ? CN : C) + 8; }
 
 __host__ __device__ constexpr size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 
-// columns of E: the extra cotangent (C), then the stage below's (CIN)
-template <int C, int CIN, int CN, int MODE>
-__host__ __device__ constexpr int e_cols() {
-  return (CN > 0 ? C : 0) > (MODE == STAGE ? CIN : 0) ? (CN > 0 ? C : 0)
-                                                      : (MODE == STAGE ? CIN : 0);
-}
-
-// dynamic shared memory of rows_kernel: A (dz_{i+1}, then dz), E, DE (edge:
-// de), RED (the block's sums)
-template <typename T, int C, int CIN, int CN, int MODE>
+// dynamic shared memory of rows_kernel: A (dz_2, then dz_1), E (extra), DE
+// (de)
+template <typename T, int C, int CN>
 __host__ __device__ constexpr size_t rows_smem() {
-  return align16(sizeof(T) * ROWS * lda_of<CN, C>())
-       + align16(sizeof(T) * ROWS * e_cols<C, CIN, CN, MODE>())
-       + (MODE == EDGE ? align16(sizeof(float) * ROWS * 6) : 0)
-       + sizeof(float) * 2 * NT;
+  return align16(sizeof(T) * ROWS * lda_of<CN, C>()) + align16(sizeof(T) * ROWS * C)
+       + align16(sizeof(float) * ROWS * 6);
 }
 
-template <typename T, int C, int CIN, int CN, int MODE>
+// stage 1 of the float32 backward: dz_1, de = dz_1 . W_1^T -> dq, de[:3]
+template <typename T, int C, int CN>
 __global__ void __launch_bounds__(NT)
 rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
             const float* __restrict__ bn, const float* __restrict__ s12,
-            const T* __restrict__ dzn, const void* __restrict__ wn,
-            const void* __restrict__ w, const T* __restrict__ zp,
-            const T* __restrict__ dtapp, const float* __restrict__ bnp,
-            T* __restrict__ dz_out, float* __restrict__ part,
+            const T* __restrict__ dzn, const float* __restrict__ wn,
+            const float* __restrict__ w1T, T* __restrict__ dz_out,
             float* __restrict__ dq, float* __restrict__ dneigh, int B, int N) {
-  static_assert(NT % C == 0 && (MODE != STAGE || NT % CIN == 0), "widths");
+  static_assert(NT % C == 0, "widths");
   constexpr int LDA = lda_of<CN, C>();
-  constexpr int CS = MODE == STAGE ? CIN : C;          // channels of the sums
   extern __shared__ __align__(16) unsigned char smem[];
   T* A = reinterpret_cast<T*>(smem);
   T* E = reinterpret_cast<T*>(smem + align16(sizeof(T) * ROWS * LDA));
-  float* DE = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(E)
-      + align16(sizeof(T) * ROWS * e_cols<C, CIN, CN, MODE>()));
-  float* RED = MODE == EDGE ? DE + align16(sizeof(float) * ROWS * 6) / sizeof(float)
-                            : DE;
+  float* DE = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(E)
+                                       + align16(sizeof(T) * ROWS * C));
 
   const int tid = threadIdx.x;
   const int ntiles = (N + TN - 1) / TN;
   const float m = (float)B * KNN * N;
 
-  // the channels this thread owns are fixed: c = tid % C, cin = tid % CIN
+  // the channel this thread owns is fixed: c = tid % C
   const int c = tid % C;
   const BnC kc(bn, C, c);
   const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
-  const int cp = MODE == STAGE ? tid % CIN : 0;
-  const BnC kp(MODE == STAGE ? bnp : bn, MODE == STAGE ? CIN : C, MODE == STAGE ? cp : c);
-  float s1 = 0.f, s2 = 0.f;
 
   for (int tile = blockIdx.x; tile < B * ntiles; tile += gridDim.x) {
     const size_t b = tile / ntiles;
     const int n0 = (tile % ntiles) * TN;
 
-    if constexpr (CN > 0) {  // extra = dz_{i+1} . W_{i+1}^T, rounded to T
+    {  // extra = dz_2 . W_2^T, rounded to T
       constexpr int VEC = 16 / sizeof(T), CH = CN / VEC;   // 16-byte chunks
       for (int e = tid; e < ROWS * CH; e += NT) {
         const int r = e / CH, q = (e % CH) * VEC, j = r / TN, n = n0 + r % TN;
@@ -256,7 +236,7 @@ rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
               *reinterpret_cast<const uint4*>(dzn + ((b * KNN + j) * N + n) * CN + q);
       }
       __syncthreads();
-      tile_gemm<T, CN, C>(A, LDA, static_cast<const float*>(wn), E);
+      tile_gemm<T, CN, C>(A, LDA, wn, E);
       __syncthreads();
     }
 
@@ -269,8 +249,7 @@ rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
 #pragma unroll
       for (int j = 0; j < KNN; ++j) {
         const int r = j * TN + t;
-        float dh = 0.f;
-        if constexpr (CN > 0) dh = to_f(E[r * C + c]);
+        float dh = to_f(E[r * C + c]);
         if (j == am) dh = rnd<T>(__fadd_rn(tap, dh));
         const float dy = relu_vjp<T>(dh, y[j]);
         const float zh = zhat(zf[j], kc);
@@ -282,68 +261,33 @@ rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
       }
     }
 
-    if constexpr (MODE == STAGE) {  // the stage below: dh_{i-1} = dz . W_i^T
-      __syncthreads();
-      tile_gemm<T, C, CIN>(A, LDA, static_cast<const float*>(w), E);
-      __syncthreads();
-      for (int col = tid; col < TN * CIN; col += NT) {
-        const int t = col / CIN, n = n0 + t;
-        if (n >= N) continue;
-        float zf[KNN], y[KNN];
-        const int am = column_y<T, CIN>(zp, b, N, n, cp, kp, zf, y);
-        const float tap = to_f(dtapp[(b * N + n) * CIN + cp]);
+    // de = dz . W_1^T in float32 -> dq, de[:3]; w1T (C, 6) float32
+    __syncthreads();
+    for (int e = tid; e < ROWS * 6; e += NT) {
+      const int r = e / 6, i = e % 6;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int q = 0; q < C; ++q) acc = fmaf(to_f(A[r * LDA + q]), __ldg(w1T + q * 6 + i), acc);
+      DE[e] = acc;
+    }
+    __syncthreads();
+    if (tid < TN * 3) {
+      const int t = tid / 3, d = tid % 3, n = n0 + t;
+      if (n < N) {
+        float s = 0.f;
 #pragma unroll
         for (int j = 0; j < KNN; ++j) {
-          float dh = to_f(E[(j * TN + t) * CIN + cp]);
-          if (j == am) dh = rnd<T>(__fadd_rn(tap, dh));
-          const float dy = relu_vjp<T>(dh, y[j]);
-          s1 = __fadd_rn(s1, dy);
-          s2 = __fadd_rn(s2, __fmul_rn(dy, zhat(zf[j], kp)));
+          const float* de = DE + (j * TN + t) * 6;
+          s = __fadd_rn(s, __fsub_rn(de[3 + d], de[d]));
         }
+        dq[(b * N + n) * 3 + d] = s;
       }
     }
-
-    if constexpr (MODE == EDGE) {   // de = dz . W_1^T in float32 -> dq, de[:3]
-      const float* w1T = static_cast<const float*>(w);   // (C, 6) float32
-      __syncthreads();
-      for (int e = tid; e < ROWS * 6; e += NT) {
-        const int r = e / 6, i = e % 6;
-        float acc = 0.f;
-#pragma unroll 8
-        for (int q = 0; q < C; ++q) acc = fmaf(to_f(A[r * LDA + q]), __ldg(w1T + q * 6 + i), acc);
-        DE[e] = acc;
-      }
-      __syncthreads();
-      if (tid < TN * 3) {
-        const int t = tid / 3, d = tid % 3, n = n0 + t;
-        if (n < N) {
-          float s = 0.f;
-#pragma unroll
-          for (int j = 0; j < KNN; ++j) {
-            const float* de = DE + (j * TN + t) * 6;
-            s = __fadd_rn(s, __fsub_rn(de[3 + d], de[d]));
-          }
-          dq[(b * N + n) * 3 + d] = s;
-        }
-      }
-      for (int e = tid; e < ROWS * 3; e += NT) {
-        const int r = e / 3, d = e % 3, j = r / TN, n = n0 + r % TN;
-        if (n < N) dneigh[((b * KNN + j) * N + n) * 3 + d] = DE[r * 6 + d];
-      }
+    for (int e = tid; e < ROWS * 3; e += NT) {
+      const int r = e / 3, d = e % 3, j = r / TN, n = n0 + r % TN;
+      if (n < N) dneigh[((b * KNN + j) * N + n) * 3 + d] = DE[r * 6 + d];
     }
     __syncthreads();      // the next tile overwrites A and E
-  }
-
-  if constexpr (MODE == STAGE) {   // the block's sums, in thread order
-    RED[tid] = s1;
-    RED[NT + tid] = s2;
-    __syncthreads();
-    for (int ch = tid; ch < CS; ch += NT) {
-      float u = 0.f, v = 0.f;
-      for (int k = ch; k < NT; k += CS) { u = __fadd_rn(u, RED[k]); v = __fadd_rn(v, RED[NT + k]); }
-      part[(size_t)blockIdx.x * 2 * CS + ch] = u;
-      part[(size_t)blockIdx.x * 2 * CS + CS + ch] = v;
-    }
   }
 }
 
@@ -562,15 +506,14 @@ reduce_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
   if (tid == 0) *ticket = 0u;
 }
 
-// part[split][i][j] = sum over the split's rows r of h[r][i] dz[r][j], with
-// h = ReLU(BN(zp)) recomputed (RECOMP) or taken as it is (the edge rows e),
-// float32 (the bf16 routes take their weight gradients on wgmma). A block
+// part[split][i][j] = sum over the split's rows r of h[r][i] dz[r][j] (h the
+// edge rows e), float32 (the bf16 route takes its weight gradient on wgmma,
+// the float32 stages on mma.sync). A block
 // owns a TI x TJ tile of dW and one split; a thread MI x MJ values, in groups
 // of up to 4 adjacent columns (rows) spaced by the tile / groups.
-template <int TI, int TJ, int MI, int MJ, bool RECOMP>
+template <int TI, int TJ, int MI, int MJ>
 __global__ void __launch_bounds__(NT)
-dw_kernel(const float* __restrict__ h, const float* __restrict__ bnp,
-          const float* __restrict__ dz, int m, int cin, int C, int rows_per_split,
+dw_kernel(const float* __restrict__ h, const float* __restrict__ dz, int m, int cin, int C, int rows_per_split,
           float* __restrict__ part) {
   constexpr int VI = MI < 4 ? MI : 4, VJ = MJ < 4 ? MJ : 4;
   constexpr int NJ = TJ / MJ, NI = TI / MI;
@@ -590,20 +533,16 @@ dw_kernel(const float* __restrict__ h, const float* __restrict__ bnp,
   // the column of h this thread stages is fixed (TI divides the block)
   static_assert(NT % TI == 0, "staging");
   const int ch = i0 + tid % TI;
-  const BnC kh(RECOMP && ch < cin ? bnp : nullptr, cin, ch);
   for (int r0 = r_begin; r0 < r_end; r0 += RC) {
     for (int e = tid; e < RC * TI; e += NT) {
       const int rr = e / TI, r = r0 + rr;
       float v = 0.f;
-      if (r < r_end && ch < cin) {
-        v = to_f(h[(size_t)r * cin + ch]);
-        if (RECOMP) v = fmaxf(bn_y<float>(v, kh), 0.f);
-      }
+      if (r < r_end && ch < cin) v = h[(size_t)r * cin + ch];
       sH[rr][e % TI] = v;
     }
     for (int e = tid; e < RC * TJ; e += NT) {
       const int rr = e / TJ, jj = e % TJ, r = r0 + rr, cj = j0 + jj;
-      sD[rr][jj] = (r < r_end && cj < C) ? to_f(dz[(size_t)r * C + cj]) : 0.f;
+      sD[rr][jj] = (r < r_end && cj < C) ? dz[(size_t)r * C + cj] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -1131,6 +1070,451 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
   if (tid == 0) tma_store_wait();
 }
 
+// ---------------------------- float32 stage kernel, one pass (mma.sync, 3xTF32)
+//
+// stage_tf32_kernel: bwd_stage for float32 in one pass, on the frame of
+// stage_wgmma_kernel (a persistent grid of at most WBLOCKS blocks, one an
+// SM, each walking an equal contiguous share of the tiles; the weight
+// gradient held in registers across a block's tiles; one partial of dW_i and
+// of S_{i-1} a block, added in block order by sum_parts_kernel), with each
+// product on the tensor cores as three TF32 products (tf32.cuh: a_lo b_hi +
+// a_hi b_lo + a_hi b_hi, about 2^-22 of it from float32) on mma.sync
+// m16n8k8, every operand split in registers. Why not wgmma: TF32 wgmma
+// reads B only K-major from shared memory, and the weight gradient's depth
+// is the tile's rows, so h_{i-1} or dz_i would have to be staged transposed
+// and split into high and low planes; and float32 doubles every buffer:
+// W_4 alone is 128 KB, its two planes 256 KB, beyond a block's 227 KB. mma.sync
+// reads each operand from wherever a lane finds it: the weights straight
+// from device memory (the L2 holds them; each block reads each weight
+// element once a tile), the tile's rows from shared memory in either
+// orientation. Per block:
+//  - a tile of FTN = 2 points (40 rows r = j FTN + t) of z_i, z_{i-1} and
+//    dz_{i+1}, and the points' tap cotangents, arrive by bulk copies (one a
+//    row of the stage tensors) into rows padded to C + 4 floats (the
+//    fragment loads of lanes (g, t), rows t and columns g or the reverse,
+//    fall on 32 banks): z_i, z_{i-1} and the taps into the other of two
+//    buffers while this tile is computed, dz_{i+1} into its one buffer as
+//    soon as the extra cotangent is formed (two of them would not fit
+//    beside stage 3's slices). Lanes 0-7 of every warp issue the copies,
+//    and store dz_i's rows the same way: 16-byte cp.async from every
+//    thread, or bulk copies from warp 0 alone, held every warp at the next
+//    barrier. Rows past N are not
+//    loaded: what they hold enters only rows past N, whose dz and h are
+//    written as zeros;
+//  - extra^T = W_{i+1} dz_{i+1}^T and dh_{i-1}^T = W_i dz_i^T (the weights
+//    as A, the tile's rows as B): a warp takes one m-tile of 16 output
+//    channels (two in stage 3's extra product: a tile-row fragment split
+//    once serves both, where stage 4's 64 weight-gradient registers leave
+//    no room) and one K slice of the depth for all five 8-row column tiles,
+//    so that each weight fragment is loaded and split once and used five
+//    times, the loads two k8 steps ahead of their use (the L2's latency);
+//    the slices' partial sums land in E and are added in slice order where
+//    the element work reads them;
+//  - the element work of rows_kernel's float32 route, 1, 2 or 4 lanes a
+//    (point, channel) column (every thread one column; the lanes' first
+//    maxima combined by shuffles): h recomputed from z with the forward's
+//    rounding, the first argmax over k, dh = extra plus the tap's cotangent
+//    at the argmax, dy, dz_i (over z_i in place, then stored); for the stage
+//    below dy_{i-1}, its sums and h_{i-1} (over z_{i-1} in place);
+//  - dW_i += h_{i-1}^T dz_i over the tile's 40 rows (K = 5 k8 steps): warp
+//    w takes two m-tiles of C_in and a contiguous run of the 8-column tiles
+//    of C (each B fragment split once for both), its accumulators in
+//    registers across the tiles.
+// Bound: bytes and operations about alike (the three calls at B=24, N=717
+// move about 2.2 GB, 0.65 ms at 3.35 TB/s, and take 9.0e10 float32 product
+// operations, 0.55 ms as three TF32 products at 495 TFLOP/s); mma.sync TF32
+// reached 313-325 TFLOP/s on the card (PERF.md), a floor of 0.86 ms for
+// the products. What holds it at 2.9 ms (NVIDIA H100 80GB HBM3, PERF.md,
+// PR 23): the row products split every tile-row fragment in each of the
+// warps that share it and re-read the weights from L2 every 40-row tile
+// (the largest share of a tile's time, well above its tensor work), then
+// the weight-gradient product, and five barriers a tile. Tried and
+// dropped: dz_i and h_{i-1} written split into TF32 planes (dz_i then went
+// out from every thread: slower); a split that leaves lo unrounded (4%
+// faster, but its bias doubled the error of the weight gradient's 344,160-
+// row sums).
+
+#define FTN 2                  // points of a float32 tile
+#define FROWS (KNN * FTN)      // 40 rows: five 8-row column tiles
+#define FWARPS 16
+#define FTHREADS (32 * FWARPS)
+
+// a row product of M output channels over the block's warps: m-tiles, K
+// slices, the row stride of a slice's partial in E (M + 4: the lanes' stores
+// of rows 2 t, columns g fall on 32 banks)
+template <int M, int MPW_ = 1>
+struct RowSplit {
+  // m-tiles a warp (with two, a tile-row fragment split once serves both),
+  // warps' groups of them, K slices
+  static constexpr int MPW = MPW_, MG = M / (16 * MPW), KS = FWARPS / MG;
+  static constexpr int LD = M + 4, FLOATS = KS * FROWS * LD;
+  static_assert(FWARPS % MG == 0 && MG * MPW * 16 == M, "m-tiles");
+};
+
+// the weight gradient's (C_in, C) over the warps: m-tiles of C_in, taken
+// MPW a warp (MG groups), 8-column tiles of C, the column tiles a warp holds
+template <int CIN, int C>
+struct DwSplit {
+  static constexpr int MT = CIN / 16, CT = C / 8, MPW = 2, MG = MT / MPW;
+  static constexpr int NPW = CT * MG / FWARPS;
+  static_assert(MT % MPW == 0 && FWARPS % MG == 0 && NPW * FWARPS == CT * MG,
+                "weight-gradient tiles");
+};
+
+// shared memory of stage_tf32_kernel, in floats: two buffers of a tile's
+// z_i and z_{i-1} rows and its points' rows of dtap_i and dtap_{i-1}, one of
+// its dz_{i+1} rows (the next tile's arrive once the extra cotangent is
+// formed), then E (the larger row product's slices; at the end the block's
+// sums): ops/cuda_dgcnn_bwd.py:bwd_stage_plan
+template <int C, int CIN, int CN>
+struct F32Plan {
+  static constexpr int LDZ = C + 4, LDP = CIN + 4, LDN = CN > 0 ? CN + 4 : 0;
+  static constexpr int TAP = FROWS * (LDZ + LDP);   // the taps' cotangents
+  static constexpr int BUF = TAP + FTN * (C + CIN);
+  static constexpr int DZN = FROWS * LDN;           // one buffer: loaded after stage 1
+  // the extra cotangent's product takes two m-tiles a warp at 128 channels
+  // (stage 3; stage 4's weight-gradient accumulators leave no registers)
+  static constexpr int XPW = C == 128 ? 2 : 1;
+  static constexpr int E1 = CN > 0 ? RowSplit<C, XPW>::FLOATS : 0, E3 = RowSplit<CIN>::FLOATS;
+  static constexpr int E = E1 > E3 ? E1 : E3;
+  static constexpr int SMEM = 4 * (2 * BUF + DZN + E);
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(E >= 2 * FTHREADS, "the block's sums");
+};
+
+// E[ks][r][m] = the ks-th K slice of sum_k W[m][k] T[r][k] over the tile's
+// rows: W (M, K) float32 in device memory, T the tile's rows in shared
+// memory (row stride ldt)
+template <int M, int K, int MPW_ = 1>
+__device__ __forceinline__ void rows_tf32(const float* __restrict__ W, const float* T,
+                                          int ldt, float* E) {
+  typedef RowSplit<M, MPW_> S;
+  constexpr int KJ = K / S::KS;
+  static_assert(KJ % 8 == 0, "slices of whole k8 steps");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  constexpr int MPW = S::MPW;
+  const int mg = warp % S::MG, ks = warp / S::MG, k0 = ks * KJ;
+  const float* w0 = W + (size_t)(16 * MPW * mg + g) * K + k0 + t;   // m-tile u: + 16 u K
+  const float* tr = T + g * ldt + k0 + t;
+  float acc[MPW][FROWS / 8][4];
+#pragma unroll
+  for (int u = 0; u < MPW; ++u)
+#pragma unroll
+    for (int nt = 0; nt < FROWS / 8; ++nt)
+      acc[u][nt][0] = acc[u][nt][1] = acc[u][nt][2] = acc[u][nt][3] = 0.f;
+  // the weight values of k8 step k in wv[(k / 8) & 1], loaded two steps ahead
+  float wv[2][MPW][4];
+  auto wload = [&](float (&v)[MPW][4], int k) {
+#pragma unroll
+    for (int u = 0; u < MPW; ++u) {
+      const float* wu = w0 + (size_t)16 * u * K + k;
+      v[u][0] = __ldg(wu);
+      v[u][1] = __ldg(wu + 8 * K);
+      v[u][2] = __ldg(wu + 4);
+      v[u][3] = __ldg(wu + 8 * K + 4);
+    }
+  };
+  wload(wv[0], 0);
+  if (KJ > 8) wload(wv[1], 8);
+#pragma unroll
+  for (int k = 0; k < KJ; k += 8) {
+    uint32_t ah[MPW][4], al[MPW][4];
+#pragma unroll
+    for (int u = 0; u < MPW; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(wv[(k / 8) & 1][u][i], ah[u][i], al[u][i]);
+    if (k + 16 < KJ) wload(wv[(k / 8) & 1], k + 16);
+#pragma unroll
+    for (int nt = 0; nt < FROWS / 8; ++nt) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(tr[nt * 8 * ldt + k], bh0, bl0);
+      split_tf32(tr[nt * 8 * ldt + k + 4], bh1, bl1);
+#pragma unroll
+      for (int u = 0; u < MPW; ++u) mma_tf32x3(acc[u][nt], ah[u], al[u], bh0, bh1, bl0, bl1);
+    }
+  }
+  // acc[u][nt][i]: channel 16 (MPW mg + u) + g + 8 (i >> 1), row 8 nt + 2 t + (i & 1)
+  float* e = E + ks * (FROWS * S::LD) + 16 * MPW * mg + g;
+#pragma unroll
+  for (int u = 0; u < MPW; ++u)
+#pragma unroll
+    for (int nt = 0; nt < FROWS / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        e[(8 * nt + 2 * t + (i & 1)) * S::LD + 16 * u + 8 * (i >> 1)] = acc[u][nt][i];
+}
+
+// the first maximum of a column from its G lanes' (best, j), G a power of
+// two, lanes of a column adjacent: the larger value, the lower j on a tie
+template <int G>
+__device__ __forceinline__ int group_argmax(float best, int am) {
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oa = __shfl_xor_sync(0xffffffffu, am, o);
+    if (ob > best || (ob == best && oa < am)) {
+      best = ob;
+      am = oa;
+    }
+  }
+  return am;
+}
+
+// a row product's value at (r, m): its K slices added in slice order
+template <int M, int MPW = 1>
+__device__ __forceinline__ float row_value(const float* E, int r, int m) {
+  typedef RowSplit<M, MPW> S;
+  float v = E[r * S::LD + m];
+#pragma unroll
+  for (int ks = 1; ks < S::KS; ++ks) v = __fadd_rn(v, E[(ks * FROWS + r) * S::LD + m]);
+  return v;
+}
+
+template <int C, int CIN, int CN>
+__global__ void __launch_bounds__(FTHREADS, 1)
+stage_tf32_kernel(const float* __restrict__ z, const float* __restrict__ dtap,
+                  const float* __restrict__ bn, const float* __restrict__ s12,
+                  const float* __restrict__ dzn, const float* __restrict__ wn,
+                  const float* __restrict__ w, const float* __restrict__ zp,
+                  const float* __restrict__ dtapp, const float* __restrict__ bnp,
+                  float* __restrict__ dz, float* __restrict__ part_s,
+                  float* __restrict__ part_w, int B, int N) {
+  typedef F32Plan<C, CIN, CN> P;
+  typedef DwSplit<CIN, C> D;
+  static_assert(FTHREADS % C == 0 && FTHREADS % CIN == 0, "a thread's channels are fixed");
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ __align__(8) uint64_t full[2], nfull;
+  float* E = fsm + 2 * P::BUF + P::DZN;
+  const uint32_t sbase = smem_u32(fsm);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ntn = (N + FTN - 1) / FTN, T = B * ntn;
+  const int tile0 = (int)((long long)blockIdx.x * T / gridDim.x);
+  const int tile1 = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
+  const float m = (float)B * KNN * N;
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init(&nfull, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the element work: G2 (G4) lanes a (point, channel) column of stage i
+  // (i-1), lane l of a column taking its rows j = l mod G2 (G4); every
+  // thread one column
+  constexpr int G2 = FTHREADS / (FTN * C), G4 = FTHREADS / (FTN * CIN);
+  static_assert(G2 * FTN * C == FTHREADS && G4 * FTN * CIN == FTHREADS && KNN % G4 == 0 &&
+                KNN % G2 == 0, "columns");
+  const int c = (tid / G2) % C, tp2 = tid / (G2 * C), l2 = tid % G2;
+  const int cp = (tid / G4) % CIN, tp4 = tid / (G4 * CIN), l4 = tid % G4;
+  const BnC kc(bn, C, c), kp(bnp, CIN, cp);
+  const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
+  float s1 = 0.f, s2 = 0.f;
+  float dw[D::MPW][D::NPW][4];
+#pragma unroll
+  for (int u = 0; u < D::MPW; ++u)
+#pragma unroll
+    for (int j = 0; j < D::NPW; ++j) dw[u][j][0] = dw[u][j][1] = dw[u][j][2] = dw[u][j][3] = 0.f;
+  const int dmg = warp % D::MG, dnt = (warp / D::MG) * D::NPW;
+
+  // The bulk copies of a tile, spread over the warps (lanes 0..7 of each;
+  // one warp issuing them all held every other warp at the next barrier):
+  // copy q < 2 the points' tap cotangents, then the rows (b, j, n0 + t) of
+  // z_i and z_{i-1}, t below the points left in the cloud, on full[s]; and
+  // on nfull the rows of dz_{i+1}, whose buffer is free once stage 1 is done
+  const int q = lane < 8 ? warp * 8 + lane : FTHREADS;
+  auto points = [&](int tile) { return min(FTN, N - (tile % ntn) * FTN); };
+  auto load = [&](int tile, int s) {   // after full[s]'s expect_tx
+    const int b = tile / ntn, n0 = (tile % ntn) * FTN, np = points(tile);
+    if (q >= 2 + 2 * KNN * np) return;
+    const uint32_t zs = sbase + (uint32_t)(s * P::BUF) * 4u;
+    const size_t p0 = (size_t)b * N + n0;
+    if (q < 2) {
+      bulk_load(zs + (P::TAP + q * FTN * C) * 4u, q ? dtapp + p0 * CIN : dtap + p0 * C,
+                np * (q ? CIN : C) * 4, &full[s]);
+      return;
+    }
+    const int rr = (q - 2) % (KNN * np), j = rr / np, r = j * FTN + rr % np;
+    const size_t row = ((size_t)b * KNN + j) * N + n0 + rr % np;
+    if (q - 2 < KNN * np) bulk_load(zs + (uint32_t)(r * P::LDZ) * 4u, z + row * C, C * 4, &full[s]);
+    else
+      bulk_load(zs + (uint32_t)(FROWS * P::LDZ + r * P::LDP) * 4u, zp + row * CIN, CIN * 4,
+                &full[s]);
+  };
+  auto load_next = [&](int tile) {   // after nfull's expect_tx
+    const int b = tile / ntn, n0 = (tile % ntn) * FTN, np = points(tile);
+    if (q >= KNN * np) return;
+    const int j = q / np, r = j * FTN + q % np;
+    bulk_load(sbase + (uint32_t)(2 * P::BUF + r * P::LDN) * 4u,
+              dzn + (((size_t)b * KNN + j) * N + n0 + q % np) * CN, CN * 4, &nfull);
+  };
+  if (tid == 0 && tile0 < tile1) {
+    mbar_expect_tx(&full[0], (uint32_t)(points(tile0) * (KNN * (C + CIN) + C + CIN) * 4));
+    if (CN > 0) mbar_expect_tx(&nfull, (uint32_t)(points(tile0) * KNN * CN * 4));
+  }
+  __syncthreads();
+  if (tile0 < tile1) {
+    load(tile0, 0);
+    if (CN > 0) load_next(tile0);
+  }
+
+  int s = 0;
+  uint32_t ph = 0, nph = 0;
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int b = tile / ntn, n0 = (tile % ntn) * FTN;
+    float* Z = fsm + s * P::BUF;
+    float* ZP = Z + FROWS * P::LDZ;
+    const float* DZN = fsm + 2 * P::BUF;
+    const float* TAP = Z + P::TAP;            // (FTN, C), then (FTN, C_in)
+    mbar_wait(&full[s], ph);
+    tma_store_wait_read();   // this thread's dz_i rows of the last tile are read
+    if (tid == 0 && tile + 1 < tile1)
+      mbar_expect_tx(&full[s ^ 1], (uint32_t)(points(tile + 1) * (KNN * (C + CIN) + C + CIN) * 4));
+    __syncthreads();   // every warp is done with the other buffer's tile
+    if (tile + 1 < tile1) load(tile + 1, s ^ 1);
+
+    // 1. extra^T = W_{i+1} dz_{i+1}^T: E; then the next tile's dz_{i+1}
+    if constexpr (CN > 0) {
+      mbar_wait(&nfull, nph);
+      nph ^= 1u;
+      rows_tf32<C, CN, P::XPW>(wn, DZN, P::LDN, E);
+      fence_proxy_async();   // the dz_{i+1} buffer is written by bulk copies next
+      if (tid == 0 && tile + 1 < tile1)
+        mbar_expect_tx(&nfull, (uint32_t)(points(tile + 1) * KNN * CN * 4));
+      __syncthreads();
+      if (tile + 1 < tile1) load_next(tile + 1);
+    }
+
+    // 2. stage i: dz_i over z_i
+    {
+      const int n = n0 + tp2;
+      float y[KNN / G2], best = -1.f;
+      int am = 0;
+#pragma unroll
+      for (int i = 0; i < KNN / G2; ++i) {
+        const int j = G2 * i + l2;
+        y[i] = bn_y<float>(Z[(j * FTN + tp2) * P::LDZ + c], kc);
+        const float hv = fmaxf(y[i], 0.f);
+        if (hv > best) { best = hv; am = j; }
+      }
+      am = group_argmax<G2>(best, am);
+      const float tap = n < N ? TAP[tp2 * C + c] : 0.f;
+#pragma unroll
+      for (int i = 0; i < KNN / G2; ++i) {
+        const int j = G2 * i + l2;
+        float* zr = Z + (j * FTN + tp2) * P::LDZ + c;
+        float dh = 0.f;
+        if constexpr (CN > 0) dh = row_value<C, P::XPW>(E, j * FTN + tp2, c);
+        if (j == am) dh = __fadd_rn(tap, dh);
+        const float dy = relu_vjp<float>(dh, y[i]);
+        const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(*zr, kc), a2)));
+        *zr = n < N ? d : 0.f;
+      }
+    }
+    fence_proxy_async();   // dz_i is read by the bulk stores next
+    __syncthreads();
+
+    // dz_i out (copy q < the tile's rows, row q); 3. dh_{i-1}^T = W_i dz_i^T: E
+    {
+      const int np = points(tile);
+      if (q < KNN * np) {
+        const int j = q / np, r = j * FTN + q % np;
+        bulk_store(dz + (((size_t)b * KNN + j) * N + n0 + q % np) * C,
+                   sbase + (uint32_t)(s * P::BUF + r * P::LDZ) * 4u, C * 4);
+        tma_store_commit();
+      }
+    }
+    rows_tf32<CIN, C>(w, Z, P::LDZ, E);
+    __syncthreads();
+
+    // 4. stage i-1: dy_{i-1}, its sums, h_{i-1} over z_{i-1}
+    {
+      const int n = n0 + tp4;
+      float y[KNN / G4], best = -1.f;
+      int am = 0;
+#pragma unroll
+      for (int i = 0; i < KNN / G4; ++i) {
+        const int j = G4 * i + l4;
+        y[i] = bn_y<float>(ZP[(j * FTN + tp4) * P::LDP + cp], kp);
+        const float hv = fmaxf(y[i], 0.f);
+        if (hv > best) { best = hv; am = j; }
+      }
+      am = group_argmax<G4>(best, am);
+      const float tap = n < N ? TAP[FTN * C + tp4 * CIN + cp] : 0.f;
+#pragma unroll
+      for (int i = 0; i < KNN / G4; ++i) {
+        const int j = G4 * i + l4;
+        float* zr = ZP + (j * FTN + tp4) * P::LDP + cp;
+        float dh = row_value<CIN>(E, j * FTN + tp4, cp);
+        if (j == am) dh = __fadd_rn(tap, dh);
+        const float dy = relu_vjp<float>(dh, y[i]);
+        if (n < N) {
+          s1 = __fadd_rn(s1, dy);
+          s2 = __fadd_rn(s2, __fmul_rn(dy, zhat(*zr, kp)));
+        }
+        *zr = n < N ? fmaxf(y[i], 0.f) : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // 5. dW_i += h_{i-1}^T dz_i over the tile's rows: A[m][k] = h[k][m],
+    //    B[k][n] = dz[k][n]
+#pragma unroll
+    for (int k = 0; k < FROWS; k += 8) {
+      uint32_t ah[D::MPW][4], al[D::MPW][4];
+#pragma unroll
+      for (int u = 0; u < D::MPW; ++u) {
+        const float* hp = ZP + (k + t) * P::LDP + 16 * (D::MPW * dmg + u) + g;
+        split_tf32(hp[0], ah[u][0], al[u][0]);
+        split_tf32(hp[8], ah[u][1], al[u][1]);
+        split_tf32(hp[4 * P::LDP], ah[u][2], al[u][2]);
+        split_tf32(hp[4 * P::LDP + 8], ah[u][3], al[u][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < D::NPW; ++j) {
+        const float* dp = Z + (k + t) * P::LDZ + 8 * (dnt + j) + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(dp[0], bh0, bl0);
+        split_tf32(dp[4 * P::LDZ], bh1, bl1);
+#pragma unroll
+        for (int u = 0; u < D::MPW; ++u) mma_tf32x3(dw[u][j], ah[u], al[u], bh0, bh1, bl0, bl1);
+      }
+    }
+    fence_proxy_async();   // the buffer is written by bulk copies next
+    s ^= 1;
+    if (s == 0) ph ^= 1u;
+  }
+
+  // the block's partials: dW_i from the accumulators (dw[u][j][i] is row
+  // 16 (MPW dmg + u) + g + 8 (i >> 1), column 8 (dnt + j) + 2 t + (i & 1)),
+  // the sums in thread order
+  float* pw = part_w + (size_t)blockIdx.x * CIN * C;
+#pragma unroll
+  for (int u = 0; u < D::MPW; ++u)
+#pragma unroll
+    for (int j = 0; j < D::NPW; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(pw + (size_t)(16 * (D::MPW * dmg + u) + g + 8 * h) * C +
+                                   8 * (dnt + j) + 2 * t) =
+            make_float2(dw[u][j][2 * h], dw[u][j][2 * h + 1]);
+  float* RED = E;   // E was last read before the last tile's fourth barrier
+  RED[tid] = s1;
+  RED[FTHREADS + tid] = s2;
+  __syncthreads();
+  if (tid < CIN) {   // the threads of channel tid: G4 (tid + CIN t) + l, in order
+    float u = 0.f, v = 0.f;
+    for (int k = 0; k < FTHREADS / CIN; ++k) {
+      const int x = G4 * (tid + CIN * (k / G4)) + k % G4;
+      u = __fadd_rn(u, RED[x]);
+      v = __fadd_rn(v, RED[FTHREADS + x]);
+    }
+    part_s[(size_t)blockIdx.x * 2 * CIN + tid] = u;
+    part_s[(size_t)blockIdx.x * 2 * CIN + CIN + tid] = v;
+  }
+  tma_store_wait();
+}
+
 // ------------------------------------------- bf16 edge kernel, one pass (wgmma)
 //
 // edge_wgmma_kernel: bwd_edge for bf16 in one pass on stage_wgmma_kernel's
@@ -1340,11 +1724,7 @@ static void dw_geometry(int m, int cin, int C, int* splits, int* rows_per_split)
 }
 
 // the weight-gradient tile of each (C_in, C)
-#define DW_CASES(X)                          \
-  X(128, 256, 128, 128, 8, 8)                \
-  X(64, 128, 64, 128, 4, 8)                  \
-  X(64, 64, 64, 64, 4, 4)                    \
-  X(6, 64, 8, 64, 2, 1)
+#define DW_CASES(X) X(6, 64, 8, 64, 2, 1)
 
 static int dw_splits(int m, int cin, int C, int* rows_per_split) {
   int s = 0, per = 0;
@@ -1362,19 +1742,15 @@ static cudaError_t sum_parts(const float* part, int G, int L, float* out,
   return cudaGetLastError();
 }
 
-static cudaError_t launch_dw(const float* h, const float* bnp, const float* dz, int m,
-                             int cin, int C, float* part, float* dw,
-                             cudaStream_t st) {
+static cudaError_t launch_dw(const float* h, const float* dz, int m, int cin, int C,
+                             float* part, float* dw, cudaStream_t st) {
   int per = 0;
   const int s = dw_splits(m, cin, C, &per);
   if (s == 0) return cudaErrorInvalidValue;
 #define RUN(ci, c, ti, tj, mi, mj)                                              \
   if (cin == ci && C == c) {                                                    \
     const dim3 grid((ci + ti - 1) / ti, (c + tj - 1) / tj, s);                  \
-    if (bnp)                                                                    \
-      dw_kernel<ti, tj, mi, mj, true><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
-    else                                                                        \
-      dw_kernel<ti, tj, mi, mj, false><<<grid, NT, 0, st>>>(h, bnp, dz, m, cin, C, per, part); \
+    dw_kernel<ti, tj, mi, mj><<<grid, NT, 0, st>>>(h, dz, m, cin, C, per, part); \
   }
   DW_CASES(RUN)
 #undef RUN
@@ -1383,26 +1759,20 @@ static cudaError_t launch_dw(const float* h, const float* bnp, const float* dz, 
   return sum_parts(part, s, cin * C, dw, st);
 }
 
-template <typename T, int C, int CIN, int CN, int MODE>
+template <typename T, int C, int CN>
 static cudaError_t launch_rows(const void* z, const void* dtap, const float* bn,
-                               const float* s12, const void* dzn,
-                               const void* wn, const void* w,
-                               const void* zp, const void* dtapp,
-                               const float* bnp, void* dz, float* part,
-                               float* dq, float* dneigh, int B, int N,
-                               cudaStream_t st) {
-  constexpr size_t bytes = rows_smem<T, C, CIN, CN, MODE>();
+                               const float* s12, const void* dzn, const float* wn,
+                               const float* w1T, void* dz, float* dq, float* dneigh,
+                               int B, int N, cudaStream_t st) {
+  constexpr size_t bytes = rows_smem<T, C, CN>();
   cudaError_t err = cudaFuncSetAttribute(
-      rows_kernel<T, C, CIN, CN, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      rows_kernel<T, C, CN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  rows_kernel<T, C, CIN, CN, MODE><<<row_blocks(B, N), NT, bytes, st>>>(
-      (const T*)z, (const T*)dtap, bn, s12, (const T*)dzn, wn, w,
-      (const T*)zp, (const T*)dtapp, bnp, (T*)dz, part, dq, dneigh, B, N);
+  rows_kernel<T, C, CN><<<row_blocks(B, N), NT, bytes, st>>>(
+      (const T*)z, (const T*)dtap, bn, s12, (const T*)dzn, wn, w1T, (T*)dz, dq, dneigh,
+      B, N);
   return cudaGetLastError();
 }
-
-extern "C" int dgcnn_bwd_row_blocks(int B, int N) { return row_blocks(B, N); }
 
 extern "C" int dgcnn_bwd_dw_splits(int m, int cin, int C) {
   return dw_splits(m, cin, C, nullptr);
@@ -1506,31 +1876,50 @@ extern "C" int bwd_stage_bf16_launch(const void* z, const void* dtap, const floa
   return (int)cudaErrorInvalidValue;
 }
 
-// bwd_stage for float32: rows_kernel, then dw_kernel, with their partials
-// (row_blocks, dw_splits)
-extern "C" int bwd_stage_launch(const void* z, const void* dtap,
-                                const float* bn, const float* s12,
-                                const void* dzn, const void* wn,
-                                const void* w, const void* zp,
-                                const void* dtapp, const float* bnp, void* dz,
-                                float* part_s, float* sp, float* part_w,
-                                float* dw, int B, int N, int C, int cin,
-                                int cn, void* stream) {
+template <int C, int CIN, int CN>
+static cudaError_t launch_stage_tf32(const void* z, const void* dtap, const float* bn,
+                                     const float* s12, const void* dzn, const float* wn,
+                                     const float* w, const void* zp, const void* dtapp,
+                                     const float* bnp, void* dz, float* part_s, float* sp,
+                                     float* part_w, float* dw, int B, int N, int blocks,
+                                     cudaStream_t stream) {
+  typedef F32Plan<C, CIN, CN> P;
+  const int tiles = B * ((N + FTN - 1) / FTN);
+  if (blocks < 1 || blocks > tiles || blocks > WBLOCKS) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(stage_tf32_kernel<C, CIN, CN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (err != cudaSuccess) return err;
+  stage_tf32_kernel<C, CIN, CN><<<blocks, FTHREADS, P::SMEM, stream>>>(
+      (const float*)z, (const float*)dtap, bn, s12, (const float*)dzn, wn, w,
+      (const float*)zp, (const float*)dtapp, bnp, (float*)dz, part_s, part_w, B, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = sum_parts(part_s, blocks, 2 * CIN, sp, stream);
+  if (err != cudaSuccess) return err;
+  return sum_parts(part_w, blocks, CIN * C, dw, stream);
+}
+
+// bwd_stage for float32: the one-pass stage_tf32_kernel over `blocks` blocks
+// (ops/cuda_dgcnn_bwd.py:bwd_stage_plan), part_s (blocks, 2, cin) and
+// part_w (blocks, cin, C) scratch; bn and bnp the (6, C) / (6, cin) packed
+// BN constants of stages i and i-1 (_bn_pack); the weights w (cin, C) and
+// wn (C, cn) float32 as they are; rows 16-byte aligned.
+extern "C" int bwd_stage_launch(const void* z, const void* dtap, const float* bn,
+                                const float* s12, const void* dzn, const float* wn,
+                                const float* w, const void* zp, const void* dtapp,
+                                const float* bnp, void* dz, float* part_s, float* sp,
+                                float* part_w, float* dw, int B, int N, int C, int cin,
+                                int cn, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaErrorInvalidValue;
-#define S(c, ci, n)                                                                \
-  if (C == c && cin == ci && cn == n)                                              \
-    err = launch_rows<float, c, ci, n, STAGE>(                                     \
-        z, dtap, bn, s12, dzn, wn, w, zp, dtapp, bnp, dz, part_s, nullptr, nullptr, \
-        B, N, st);
+#define S(c, ci, n)                                                                  \
+  if (C == c && cin == ci && cn == n)                                                \
+    return (int)launch_stage_tf32<c, ci, n>(z, dtap, bn, s12, dzn, wn, w, zp, dtapp, \
+                                            bnp, dz, part_s, sp, part_w, dw, B, N,   \
+                                            blocks, st);
   S(256, 128, 0) S(128, 64, 256) S(64, 64, 128)
 #undef S
-  if (err != cudaSuccess) return (int)err;
-  err = sum_parts(part_s, row_blocks(B, N), 2 * cin, sp, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_dw((const float*)zp, bnp, (const float*)dz, B * KNN * N,
-                               cin, C, part_w, dw, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // bwd_edge for bf16: the one-pass edge_wgmma_kernel over `blocks` blocks
@@ -1580,12 +1969,10 @@ extern "C" int bwd_edge_launch(const void* z1, const void* dtap1,
                                int N, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (N < 1 || N > MAXN || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_rows<float, 64, 6, 64, EDGE>(
-      z1, dtap1, bn, s12, dz2, w2, w1T, nullptr, nullptr, nullptr, dz, nullptr, dq,
-      dneigh, B, N, st);
+  cudaError_t err = launch_rows<float, 64, 64>(z1, dtap1, bn, s12, dz2, (const float*)w2,
+                                              w1T, dz, dq, dneigh, B, N, st);
   if (err != cudaSuccess) return (int)err;
-  err = launch_dw((const float*)e, nullptr, (const float*)dz, B * KNN * N, 6,
-                         64, part_w, dw, st);
+  err = launch_dw((const float*)e, (const float*)dz, B * KNN * N, 6, 64, part_w, dw, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_scatter(idxT, dneigh, dscat, B, N, st);
 }

@@ -104,6 +104,7 @@
 #include "knn_lanes.cuh"   // knn_launch_k, GraphOut
 #include "knn_select.cuh"  // DGCNN_KS, MAXN
 #include "mma_bf16.cuh"  // mma_bf16, ldsm_x4, cp_async16
+#include "tf32.cuh"      // tf32, split_tf32, mma_tf32
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
@@ -137,31 +138,6 @@ __device__ __forceinline__ const float* neighbour(const float* x, const int* idx
 #define FHK 32     // depth of a staged head chunk
 #define LDF_HA 36  // the concat chunk's row stride (A reads: 4 mod 32)
 #define LDF_HW 72  // the w5 chunk's row stride (B reads of row t, column g: 8 mod 32)
-
-// v rounded to TF32 (10 mantissa bits, to nearest, ties away), as a .b32:
-// half of the 13 dropped bits added to the magnitude's bits and the 13
-// cleared, the bits of cvt.rna.tf32.f32 for every finite v (which compiles
-// to a compare, an add and a logic operation, and took the stage chain
-// 1.468 ms against 1.280 on an H100, scripts/torch_port_profile.py --probe
-// dgcnn_eval)
-__device__ __forceinline__ uint32_t tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-}
-
-// v = hi + lo to about 2^-22 relative: hi = tf32(v), lo = tf32(v - hi)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(__fsub_rn(v, __uint_as_float(hi)));
-}
-
-// c += a b for one 16x8 (a, row-major) by 8x8 (b, column-major) TF32 tile
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // the max of this lane's channels (c, c + 8) over the 4 lanes of the pair,
 // written to the concat row of a point by the first of them

@@ -95,6 +95,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma, tensor maps
+#include "tf32.cuh"    // tf32
 
 #define WQ 128         // query rows a work unit: two consumer warpgroups of 64
 #define WTHREADS 384   // one producer and two consumer warpgroups
@@ -302,12 +303,6 @@ wproject_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
 // two planes a split stage and the raw slots, from the first 1024-byte
 // boundary (the swizzle's): ops/cuda_stream.py:wproject_f32_smem_bytes
 #define FSMEM ((2 * FSTAGES + FRAW) * FCHUNK + 1024)
-
-// v rounded to TF32 (10 mantissa bits, to nearest, ties away) as a .b32:
-// cvt.rna.tf32.f32's bits for every finite v (dgcnn_eval.cu's tf32)
-__device__ __forceinline__ uint32_t tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-}
 
 // the first logical key tile of query tile `tile` is physical key tile
 // rotation(...): the block holding the tile's last pair reads, at the s-th

@@ -35,8 +35,11 @@ kernels, any N for the reduce); on a CPU tensor it runs
 the plain version. The reduce is one pass over a persistent grid for both
 dtypes (`reduce_plan`): only each column's max-over-k argmax row adds to
 its sums. The bf16 stage and edge kernels are one pass each on wgmma over a
-persistent grid (`bwd_stage_plan`, `bwd_edge_plan`); the float32 ones a row
-pass and a weight-gradient pass on the CUDA cores. Both edge routes end
+persistent grid (`bwd_stage_plan`, `bwd_edge_plan`); the float32 stage kernel
+one pass over such a grid with its products on the tensor cores, each as
+three TF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi); the float32 edge
+kernel a row pass and a weight-gradient pass on the CUDA cores. Both edge
+routes end
 with the neighbour scatter, a block for each range of `SCATTER_POINTS`
 points of a cloud (`scatter_plan`).
 """
@@ -60,8 +63,10 @@ SMEM_LIMIT = 232_448  # shared memory a block may use on an H100
 
 # the bf16 stage and edge kernels' plan (csrc/dgcnn_bwd.cu:stage_wgmma_kernel,
 # edge_wgmma_kernel): tiles of STAGE_TN points (STAGE_TN * KERNEL_K rows), a
-# persistent grid of at most STAGE_BLOCKS blocks
+# persistent grid of at most STAGE_BLOCKS blocks; the float32 stage kernel's
+# (stage_tf32_kernel): tiles of STAGE_TN_F32 points, STAGE_WARPS warps a block
 STAGE_TN, STAGE_BLOCKS = 4, 132
+STAGE_TN_F32, STAGE_WARPS = 2, 16
 # the scatter (csrc/dgcnn_bwd.cu:scatter_kernel): points and warps of a block
 SCATTER_POINTS, SCATTER_WARPS = 256, 16
 # the reduce (csrc/dgcnn_bwd.cu:reduce_kernel): threads of a block, adjacent
@@ -189,9 +194,10 @@ def _bn_pack(mean, var, gamma, beta, dt):
     """(6, C) float32 per-channel constants, formed by the same PyTorch
     operations as `bn_apply` and `bn_dz` so that the kernel's recomputed h
     is the plain version's bit for bit: mean, inv gamma and beta in the
-    compute dtype, then mean, inv and inv gamma in float32. (The reduce
-    and the bf16 stage and edge kernels form the same values themselves
-    from the statistics, `csrc/dgcnn_bwd.cu:bn_stats`.)"""
+    compute dtype, then mean, inv and inv gamma in float32: the float32
+    stage and edge kernels read them. (The reduce and the bf16 stage and edge
+    kernels form the same values themselves from the statistics,
+    `csrc/dgcnn_bwd.cu:bn_stats`.)"""
     mean, var, gamma, beta = (a.detach().float() for a in (mean, var, gamma, beta))
     inv = torch.rsqrt(var + EPS)
     ig = inv * gamma
@@ -201,7 +207,7 @@ def _bn_pack(mean, var, gamma, beta, dt):
 
 def _w_t(w, dt):
     """A weight (C_in, C) as the float32 values of its compute-dtype
-    rounding, transposed to (C, C_in): as the float32 row kernels' tile
+    rounding, transposed to (C, C_in): as the float32 edge kernel's tile
     products read it for x . W^T."""
     return w.detach().to(dt).float().t().contiguous()
 
@@ -236,35 +242,63 @@ def _fn(name, n_ptrs, n_ints):
     return fn
 
 
-# The partial sums' counts, fixed by the shapes so that they add up in the
-# same order on every launch: blocks of the row kernels, splits of the
-# weight-gradient kernel.
-
-def _row_blocks(B, N):
-    return dispatch.load_kernel("dgcnn_bwd").dgcnn_bwd_row_blocks(B, N)
-
+# The float32 edge call's partial sums: splits of the weight-gradient kernel,
+# fixed by the shapes so that they add up in the same order on every launch.
 
 def _dw_splits(B, N, cin, c):
     return dispatch.load_kernel("dgcnn_bwd").dgcnn_bwd_dw_splits(
         B * KERNEL_K * N, cin, c)
 
 
-def bwd_stage_plan(B: int, N: int, C: int, cin: int, cn: int) -> dict:
-    """The bf16 stage kernel's launch as a pure function of the shapes,
-    mirroring `csrc/dgcnn_bwd.cu:StagePlan`: its tiles (STAGE_TN points of
-    one cloud each), the blocks of its persistent grid (`stage_shares`), its
-    dynamic shared memory (two buffers of a tile's z_i, z_{i-1} and
-    dz_{i+1} panels, the resident W_i and W_{i+1}, the last stage's scratch
-    tile, 1024 bytes of alignment) and its float32 partials, one per block:
-    dW_i (G, C_in, C) and S_{i-1} (G, 2, C_in)."""
-    tiles = B * -(-N // STAGE_TN)
+def row_split(M: int, mpw: int = 1) -> dict:
+    """How the float32 stage kernel's row products (`rows_tf32`) of M output
+    channels share the STAGE_WARPS warps (`RowSplit`): each warp takes `mpw`
+    m-tiles of 16 channels (two in stage 3's extra product, `F32Plan::XPW`)
+    and one of `k_slices` slices of the depth; the slices' partials
+    (k_slices, rows, M + 4) float32 lie in shared memory."""
+    groups = M // (16 * mpw)
+    k_slices = STAGE_WARPS // groups
+    return {"m_tiles_a_warp": mpw, "groups": groups, "k_slices": k_slices,
+            "floats": k_slices * STAGE_TN_F32 * KERNEL_K * (M + 4)}
+
+
+def bwd_stage_plan(B: int, N: int, C: int, cin: int, cn: int,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The stage kernel's launch for `dtype` as a pure function of the
+    shapes, mirroring `csrc/dgcnn_bwd.cu`: its tiles (of one cloud each),
+    the blocks of its persistent grid (`stage_shares`), its dynamic shared
+    memory and its float32 partials, one per block: dW_i (G, C_in, C) and
+    S_{i-1} (G, 2, C_in).
+    bf16 (`StagePlan`): tiles of STAGE_TN points; two buffers of a tile's
+    z_i, z_{i-1} and dz_{i+1} panels, the resident W_i and W_{i+1}, the last
+    stage's scratch tile, 1024 bytes of alignment.
+    float32 (`F32Plan`): tiles of STAGE_TN_F32 points; two buffers of a
+    tile's z_i and z_{i-1} rows (padded by 4 floats) and its points' tap
+    cotangents, one of its dz_{i+1} rows, and the larger row product's
+    K-slice partials (`row_split`); also the weight
+    gradient's split over the warps: `dw_tiles_a_warp` (m-tiles of 16 rows
+    of C_in, 8-column tiles of C) a warp."""
+    f32 = dtype == torch.float32
+    tn = STAGE_TN_F32 if f32 else STAGE_TN
+    tiles = B * -(-N // tn)
     blocks = min(STAGE_BLOCKS, tiles)
-    panel = STAGE_TN * KERNEL_K * 128
-    buf = (C + cin + cn) // 64 * panel
-    e = 0 if cn else -(-(STAGE_TN * KERNEL_K * (cin + 8) * 2) // 1024) * 1024
-    smem = 2 * buf + 2 * cin * C + 2 * C * cn + e + 1024
-    return {"tiles": tiles, "blocks": blocks, "smem": smem,
+    plan = {"tiles": tiles, "blocks": blocks, "points_a_tile": tn,
             "part_w": (blocks, cin, C), "part_s": (blocks, 2, cin)}
+    if f32:
+        rows = tn * KERNEL_K
+        buf = rows * ((C + 4) + (cin + 4)) + tn * (C + cin)
+        dzn = rows * (cn + 4) if cn else 0
+        xpw = 2 if C == 128 else 1
+        e = max(row_split(cin)["floats"], row_split(C, xpw)["floats"] if cn else 0)
+        plan.update(smem=4 * (2 * buf + dzn + e), threads=32 * STAGE_WARPS,
+                    extra_m_tiles_a_warp=xpw,
+                    dw_tiles_a_warp=(2, (C // 8) * (cin // 32) // STAGE_WARPS))
+        return plan
+    panel = tn * KERNEL_K * 128
+    buf = (C + cin + cn) // 64 * panel
+    e = 0 if cn else -(-(tn * KERNEL_K * (cin + 8) * 2) // 1024) * 1024
+    plan.update(smem=2 * buf + 2 * cin * C + 2 * C * cn + e + 1024, threads=512)
+    return plan
 
 
 def stage_shares(tiles: int, blocks: int) -> list:
@@ -412,13 +446,14 @@ def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
     sp = torch.empty(2, cin, dtype=torch.float32, device=dev)
     dw = torch.empty(cin, C, dtype=torch.float32, device=dev)
     stream = ctypes.c_void_p(dispatch.current_stream(z))
+    # one pass: one partial of each a block
+    blocks = bwd_stage_plan(B, N, C, cin, cn, dt)["blocks"]
+    part_s = torch.empty(blocks, 2, cin, dtype=torch.float32, device=dev)
+    part_w = torch.empty(blocks, cin, C, dtype=torch.float32, device=dev)
+    f32 = lambda a: None if a is None else a.detach().float().contiguous()
     if dt == torch.bfloat16:
-        # one pass: one partial of each a block; the kernel forms the BN
-        # constants from the statistics and rounds the float32 weights itself
-        blocks = bwd_stage_plan(B, N, C, cin, cn)["blocks"]
-        part_s = torch.empty(blocks, 2, cin, dtype=torch.float32, device=dev)
-        part_w = torch.empty(blocks, cin, C, dtype=torch.float32, device=dev)
-        f32 = lambda a: None if a is None else a.detach().float().contiguous()
+        # the kernel forms the BN constants from the statistics and rounds
+        # the float32 weights itself
         stats = [f32(a) for a in (mean, var, gamma, beta, meanp, varp, gammap,
                                   betap)]
         ins = (z.contiguous(), dtap.contiguous(), *stats, s12,
@@ -428,20 +463,16 @@ def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
             *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, C, cin, cn,
             blocks, stream)
     else:
-        # the row kernel's blocks, the weight-gradient kernel's splits
-        part_s = torch.empty(_row_blocks(B, N), 2, cin, dtype=torch.float32,
-                             device=dev)
-        part_w = torch.empty(_dw_splits(B, N, cin, C), cin, C,
-                             dtype=torch.float32, device=dev)
+        # the BN constants packed by the plain version's operations; the
+        # weights as they are (the products read them row by row)
         ins = (z.contiguous(), dtap.contiguous(),
                _bn_pack(mean, var, gamma, beta, dt), s12,
-               None if not cn else dznext.contiguous(),
-               _w_t(wnext, dt) if cn else None, _w_t(w_i, dt),
+               None if not cn else dznext.contiguous(), f32(wnext), f32(w_i),
                zp.contiguous(), dtapp.contiguous(),
                _bn_pack(meanp, varp, gammap, betap, dt))
-        code = _fn("bwd_stage", 15, 5)(
+        code = _fn("bwd_stage", 15, 6)(
             *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, C, cin, cn,
-            stream)
+            blocks, stream)
     dispatch.check_launch(code, "bwd_stage")
     dispatch.launch_counts["bwd_stage"] += 1
     return dz, dw, sp

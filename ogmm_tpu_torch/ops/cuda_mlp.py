@@ -19,7 +19,9 @@ The bf16 route is three launches (`pointmlp_plan` mirrors their shapes):
 z = x w1^T + b1 on wgmma over tiles of 128 rows of one cloud, writing z in
 bf16 and each tile's column moments; the moments combined per cloud in tile
 order; out = h w2^T + b2 on wgmma, h formed from z on the way to the tensor
-cores. The float32 route is two launches on the CUDA cores.
+cores. The float32 route is the same three on the tensor cores in 3xTF32
+(each product as a_lo b_hi + a_hi b_lo + a_hi b_hi of TF32 parts), after a
+fourth launch that splits each weight into TF32 high and low planes.
 """
 from __future__ import annotations
 
@@ -36,33 +38,47 @@ KERNEL_WIDTH = 64     # Cin, H and Cout are multiples of the kernel's tiles
 DTYPES = (torch.bfloat16, torch.float32)
 SMEM_LIMIT = 232_448  # shared memory a block may use on an H100
 
-# the bf16 products' tiles and grid (csrc/pointmlp.cu): rows of a tile,
-# depth of a stage, stages of the operand ring, blocks of the persistent grid
+# the products' tiles and grid (csrc/pointmlp.cu): rows of a tile, depth of
+# a stage (bf16; float32), stages of the operand ring, blocks of the
+# persistent grid
 GEMM_ROWS, GEMM_DEPTH, GEMM_STAGES, GEMM_BLOCKS = 128, 64, 3, 132
+GEMM_DEPTH_F32 = 32
 
 
-def _column_tile(width: int) -> int:
-    """The widest of 256, 128, 64 that divides the width (`column_tile`)."""
-    return 256 if width % 256 == 0 else 128 if width % 128 == 0 else 64
+def _column_tile(width: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The widest column tile that divides the width: of 256, 128, 64 for
+    bf16 (`column_tile`), of 128, 64 for float32 (`column_tile_f32`)."""
+    if width % 256 == 0 and dtype == torch.bfloat16:
+        return 256
+    return 128 if width % 128 == 0 else 64
 
 
-def pointmlp_plan(B: int, N: int, cin: int, h: int, cout: int) -> dict:
-    """The bf16 route's launches as functions of the shapes, mirroring
-    `csrc/pointmlp.cu`: for each product its column tile, its number of
-    tiles (`pointmlp_tile` orders them), the blocks of its persistent grid
-    (block i takes tiles i, i + G, ...) and its dynamic shared memory (the
-    operand ring, the epilogue's own tile, the 1024-byte alignment); and the
-    moment partials (B, row tiles, 2, H) float32, one a (cloud, row tile,
-    column)."""
+def pointmlp_plan(B: int, N: int, cin: int, h: int, cout: int,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The launches of the route of `dtype` as functions of the shapes,
+    mirroring `csrc/pointmlp.cu`: for each product its column tile, its
+    number of tiles (`pointmlp_tile` orders them), the blocks of its
+    persistent grid (block i takes tiles i, i + G, ...) and its dynamic
+    shared memory (the operand ring: a stage holds the A box and the weight
+    box, for float32 the weight's high and low planes; the epilogue's own
+    tile, bf16 or float32; the 1024-byte alignment); the moment partials
+    (B, row tiles, 2, H) float32, one a (cloud, row tile, column); for
+    float32 the weights' TF32 planes (2 H Cin + 2 Cout H floats) and the
+    launches (4: the planes, z, the moments, out; bf16 3)."""
+    f32 = dtype == torch.float32
     rows = -(-N // GEMM_ROWS)
-    plan = {"row_tiles": rows, "partials": (B, rows, 2, h)}
+    plan = {"row_tiles": rows, "partials": (B, rows, 2, h),
+            "launches": 4 if f32 else 3}
+    if f32:
+        plan["planes"] = (2 * h * cin + 2 * cout * h,)
+    esize, depth = (4, GEMM_DEPTH_F32) if f32 else (2, GEMM_DEPTH)
     for name, width in (("z", h), ("out", cout)):
-        bn = _column_tile(width)
-        stage = GEMM_ROWS * GEMM_DEPTH * 2 + bn * GEMM_DEPTH * 2
-        epilogue = -(-(GEMM_ROWS * (bn + 8) * 2) // 1024) * 1024
+        bn = _column_tile(width, dtype)
+        stage = (GEMM_ROWS + (2 if f32 else 1) * bn) * depth * esize
+        epilogue = -(-(GEMM_ROWS * (bn + 8) * esize) // 1024) * 1024
         tiles = B * rows * (width // bn)
         plan[name] = {"column_tile": bn, "tiles": tiles,
-                      "blocks": min(GEMM_BLOCKS, tiles),
+                      "blocks": min(GEMM_BLOCKS, tiles), "stage": stage,
                       "smem": GEMM_STAGES * stage + epilogue + 1024,
                       "epilogue": epilogue}
     return plan
@@ -135,18 +151,19 @@ def _pointmlp_cuda(x, w1, b1, w2, b2, dtype):
                          f"Cin={Cin}, H={H}, Cout={Cout}")
     x, w1, b1, w2, b2 = (_aligned(a.to(dtype)) for a in (x, w1, b1, w2, b2))
     dev = x.device
-    h = torch.empty(B, N, H, dtype=dtype, device=dev)
+    plan = pointmlp_plan(B, N, Cin, H, Cout, dtype)
+    z = torch.empty(B, N, H, dtype=dtype, device=dev)
     out = torch.empty(B, N, Cout, dtype=dtype, device=dev)
-    bf16 = dtype == torch.bfloat16
-    part = (torch.empty(B, -(-N // GEMM_ROWS), 2, H, dtype=torch.float32,
-                        device=dev) if bf16 else None)
-    stats = torch.empty(B, 2, H, dtype=torch.float32, device=dev) if bf16 else None
-    fn = dispatch.load_kernel("pointmlp").pointmlp_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    part = torch.empty(plan["partials"], dtype=torch.float32, device=dev)
+    stats = torch.empty(B, 2, H, dtype=torch.float32, device=dev)
+    planes = (torch.empty(plan["planes"], dtype=torch.float32, device=dev)
+              if "planes" in plan else None)
+    fn = dispatch.kernel_fn("pointmlp", "pointmlp_launch",
+                            (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+                            + (ctypes.c_void_p,))
     ptr = lambda a: ctypes.c_void_p(0 if a is None else a.data_ptr())
-    code = fn(*[ptr(a) for a in (x, w1, b1, w2, b2, h, out, part, stats)],
-              B, N, Cin, H, Cout, int(bf16),
+    code = fn(*[ptr(a) for a in (x, w1, b1, w2, b2, z, out, part, stats, planes)],
+              B, N, Cin, H, Cout, int(dtype == torch.bfloat16),
               ctypes.c_void_p(dispatch.current_stream(x)))
     dispatch.check_launch(code, "pointmlp")
     dispatch.launch_counts["pointmlp"] += 1

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""The float32 forms of `bwd_stage` and `pointmlp` in one or more trees of
+this repository, timed on one card in the order given.
+
+    python3 scripts/f32_forms_ab.py _parent . . _parent
+
+Each tree runs in a process of its own with its own package, kernels and
+`chip_smoke.py` (whose `bwd_calls`, `cuda_ms` and `device_trace` it uses):
+
+  bwd_stage  the three stage calls (stages 4, 3, 2) of one cloud side's
+             float32 DGCNN backward at B=24, N=717 (`chip_smoke.bwd_calls`):
+             ms of the three (CUDA events), the device ms of each kernel
+             they launch (torch.profiler), the largest error of each output
+             against the plain version as a share of max|plain|, a relaunch
+             bit-equal
+  pointmlp   the attention MLP's float32 call (48, 717, 1024 -> 1024 ->
+             512): ms, device ms of each kernel, max|kernel - plain|
+
+Prints one JSON line a tree, then the card's name and power limit. Needs one
+CUDA device and nvcc.
+"""
+import json
+import os
+import subprocess
+import sys
+
+
+def one(tree):
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from ogmm_tpu_torch.ops import cuda_mlp, dispatch
+
+    dispatch.build_kernels()
+    out = {"tree": tree}
+
+    def kernels_ms(fn, reps):
+        return {evt.key[:60]: round(evt.device_time_total / 1e3 / reps, 4)
+                for evt in cs.device_trace(fn, reps) if evt.device_time_total > 0}
+
+    calls = [c for c in cs.bwd_calls(np.random.RandomState(0), torch.float32)
+             if c[0] == "bwd_stage"]
+    kern, plain, _ = cs.BWD["bwd_stage"]
+
+    def run():
+        return [kern(*a, **kw) for _, a, kw in calls]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    errs, same = [], True
+    for g3, a3, (_, a, kw) in zip(got, again, calls):
+        ref = plain(*a, **kw)
+        for g, g2, r in zip(g3, a3, ref):
+            same = same and torch.equal(g, g2)
+            errs.append((g - r).abs().max().item() / r.abs().max().item())
+    out["bwd_stage"] = {"ms": cs.cuda_ms(run, 10), "device_ms": kernels_ms(run, 5),
+                        "rel_err_max": max(errs), "relaunch_bit_equal": same}
+
+    rs = np.random.RandomState(9)
+    w = lambda *sh: torch.tensor(rs.randn(*sh).astype(np.float32) / np.sqrt(sh[-1]),
+                                 device="cuda")
+    x = torch.tensor(rs.randn(48, 717, 1024).astype(np.float32), device="cuda")
+    args = (x, w(1024, 1024), w(1024) * 0.3, w(512, 1024), w(512) * 0.3, torch.float32)
+    mlp = lambda: cuda_mlp.pointmlp_eval(*args)
+    err = (mlp() - cuda_mlp.pointmlp_eval_reference(*args)).abs().max().item()
+    out["pointmlp"] = {"ms": cs.cuda_ms(mlp, 10), "device_ms": kernels_ms(mlp, 5),
+                       "max_abs_err": err}
+    print(json.dumps(out))
+
+
+def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        return one(sys.argv[2])
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    for tree in map(os.path.abspath, sys.argv[1:]):
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+                       cwd=tree, check=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

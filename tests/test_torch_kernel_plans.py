@@ -985,3 +985,88 @@ def test_dgcnn_rows_mirror_the_kernels():
     assert "k <= 8 ? 8 : (k + 3) & ~3" in text
     assert all(cuda_dgcnn.stage_rows(k) == (8 if k <= 8 else (k + 3) & ~3)
                for k in cuda_dgcnn.KERNEL_KS)
+
+
+# ------------------------- the float32 forms of the MLP and backward stage
+
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("N", [1, 90, 717, 1024])
+@pytest.mark.parametrize("width", MLP_WIDTHS)
+def test_pointmlp_f32_blocks_fit_shared_memory_at_every_width(N, width):
+    # a stage holds x's (or z's) 128 x 32 box and the weight's hi and lo
+    # BN x 32 boxes; the ring of 3, the float32 epilogue tile and the
+    # alignment within 227 KB, as H and as Cout, at the envelope's N
+    plan = cuda_mlp.pointmlp_plan(48, N, 1024, width, width, F32)
+    assert plan["launches"] == 4
+    assert plan["planes"] == (2 * width * 1024 + 2 * width * width,)
+    rows = -(-N // cuda_mlp.GEMM_ROWS)
+    assert plan["row_tiles"] == rows and plan["partials"] == (48, rows, 2, width)
+    for name in ("z", "out"):
+        p = plan[name]
+        bn = p["column_tile"]
+        assert width % bn == 0 and bn == (128 if width % 128 == 0 else 64)
+        assert p["stage"] == (cuda_mlp.GEMM_ROWS + 2 * bn) * cuda_mlp.GEMM_DEPTH_F32 * 4
+        assert p["epilogue"] >= cuda_mlp.GEMM_ROWS * (bn + 8) * 4
+        assert p["smem"] == cuda_mlp.GEMM_STAGES * p["stage"] + p["epilogue"] + 1024
+        assert p["smem"] <= cuda_mlp.SMEM_LIMIT
+        assert p["tiles"] == 48 * rows * (width // bn)
+        assert p["blocks"] == min(cuda_mlp.GEMM_BLOCKS, p["tiles"])
+
+
+def test_pointmlp_f32_plan_at_the_attention_call():
+    # the path's call: 48 clouds of 717, 1024 -> 1024 -> 512; both products
+    # in column tiles of 128, every SM busy
+    plan = cuda_mlp.pointmlp_plan(48, 717, 1024, 1024, 512, F32)
+    assert plan["z"]["column_tile"] == plan["out"]["column_tile"] == 128
+    assert plan["z"]["tiles"] == 48 * 6 * 8 and plan["out"]["tiles"] == 48 * 6 * 4
+    assert plan["z"]["blocks"] == plan["out"]["blocks"] == 132
+    assert plan["z"]["smem"] == 3 * 49152 + 69632 + 1024 == 218112
+    # the bf16 route keeps its plan
+    assert cuda_mlp.pointmlp_plan(48, 717, 1024, 1024, 512)["z"]["column_tile"] == 256
+
+
+@pytest.mark.parametrize("B,N", [(24, 717), (1, 1), (2, 90), (3, 1024), (48, 717)])
+@pytest.mark.parametrize("stage", STAGES)
+def test_bwd_stage_f32_plan(B, N, stage):
+    # tiles of 2 points, a persistent grid of at most 132 blocks, one
+    # partial of each a block; two buffers of a tile's z rows (padded by 4
+    # floats) and taps, one of its dz_{i+1} rows, and the larger row
+    # product's slices, within 227 KB
+    C, cin, cn = stage
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, C, cin, cn, F32)
+    tiles = B * -(-N // cuda_dgcnn_bwd.STAGE_TN_F32)
+    assert plan["tiles"] == tiles and plan["blocks"] == min(132, tiles)
+    assert plan["part_w"] == (plan["blocks"], cin, C)
+    assert plan["part_s"] == (plan["blocks"], 2, cin)
+    assert plan["threads"] == 512
+    rows = cuda_dgcnn_bwd.STAGE_TN_F32 * cuda_dgcnn_bwd.KERNEL_K
+    buf = rows * (C + cin + 8) + 2 * (C + cin)
+    assert plan["smem"] >= 4 * (2 * buf + (rows * (cn + 4) if cn else 0))
+    assert plan["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
+    shares = cuda_dgcnn_bwd.stage_shares(tiles, plan["blocks"])
+    assert [t for a, b in shares for t in range(a, b)] == list(range(tiles))
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_bwd_stage_f32_warps_cover_every_product_once(stage):
+    # the row products: groups of m-tiles x K slices = the 16 warps, every
+    # m-tile in one group, each slice whole k8 steps; the weight gradient:
+    # each warp 2 m-tiles of C_in by a run of 8-column tiles of C, every
+    # (m-tile, column tile) once
+    C, cin, cn = stage
+    warps = cuda_dgcnn_bwd.STAGE_WARPS
+    xpw = cuda_dgcnn_bwd.bwd_stage_plan(24, 717, C, cin, cn, F32)["extra_m_tiles_a_warp"]
+    for M, K, mpw in ((C, cn, xpw), (cin, C, 1)):
+        if not K:
+            continue
+        split = cuda_dgcnn_bwd.row_split(M, mpw)
+        assert split["groups"] * split["k_slices"] == warps
+        assert split["groups"] * split["m_tiles_a_warp"] * 16 == M
+        assert (K // split["k_slices"]) % 8 == 0
+    mpw, npw = cuda_dgcnn_bwd.bwd_stage_plan(24, 717, C, cin, cn, F32)["dw_tiles_a_warp"]
+    groups = (cin // 16) // mpw
+    owned = [(mpw * (w % groups) + u, (w // groups) * npw + j)
+             for w in range(warps) for u in range(mpw) for j in range(npw)]
+    assert sorted(owned) == [(m, n) for m in range(cin // 16) for n in range(C // 8)]

@@ -670,13 +670,13 @@ def test_bwd_reduce_one_pass_kernel_matches_plain(card, N, C, dtype):
     assert torch.equal(sliced, got)
 
 
-def _stage_args(dev, B, N, stage, seed):
-    """Arguments of one bf16 stage call at any (B, N), N < k included:
-    pre-BN z of stages i and i-1 with their batch moments, tap cotangents,
-    sums, weights and the cotangent of the stage above."""
+def _stage_args(dev, B, N, stage, seed, dtype=torch.bfloat16):
+    """Arguments of one stage call in `dtype` at any (B, N), N < k
+    included: pre-BN z of stages i and i-1 with their batch moments, tap
+    cotangents, sums, weights and the cotangent of the stage above."""
     C, cin, cn = stage
     rs = np.random.RandomState(seed)
-    bf = torch.bfloat16
+    bf = dtype
 
     def z(c):
         v = torch.tensor(rs.randn(B, 20, N, c).astype(np.float32), device=dev).to(bf)
@@ -698,10 +698,12 @@ def _stage_args(dev, B, N, stage, seed):
 
 @pytest.mark.parametrize("B,N", [(1, 1), (1, 3), (2, 717), (1, 1024), (3, 90)])
 @pytest.mark.parametrize("stage", KERNEL_STAGES)
-def test_bwd_stage_one_pass_kernel_matches_plain(card, B, N, stage):
-    # the persistent one-pass bf16 kernel at one point, N not a multiple of
-    # its 4-point tile, the request's N and the largest; twice bit for bit
-    a, kw = _stage_args(card, B, N, stage, seed=N + stage[0])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_stage_one_pass_kernel_matches_plain(card, B, N, stage, dtype):
+    # the persistent one-pass kernels (bf16 on wgmma; float32 on mma.sync
+    # in 3xTF32) at one point, N not a multiple of their tiles (4 and 2
+    # points), the request's N and the largest; twice bit for bit
+    a, kw = _stage_args(card, B, N, stage, seed=N + stage[0], dtype=dtype)
     got = bwd_stage(*a, **kw)
     again = bwd_stage(*a, **kw)
     ref = bwd_stage_reference(*a, **kw)
@@ -711,7 +713,7 @@ def test_bwd_stage_one_pass_kernel_matches_plain(card, B, N, stage):
         assert g.shape == r.shape and g.dtype == r.dtype
         assert torch.isfinite(g.float()).all()
         err = (g.float() - r.float()).abs().max().item()
-        assert err <= _bwd_limit("bwd_stage", i, torch.bfloat16, r), (i, err)
+        assert err <= _bwd_limit("bwd_stage", i, dtype, r), (i, err)
 
 
 def test_bwd_wrappers_count_their_launches(card):
@@ -1006,20 +1008,23 @@ def test_pointmlp_kernel_matches_plain(card, B, N, cin, h, cout, dtype, lim):
                                             (1, 1024, 1024, 512, 1024),
                                             (4, 717, 256, 384, 128),
                                             (48, 717, 1024, 1024, 512)])
-def test_pointmlp_wgmma_route_any_width(card, B, N, cin, h, cout):
-    # the bf16 route's column tiles of 64, 128 and 256, one point, N not a
-    # multiple of its 128-row tile; twice bit for bit
+@pytest.mark.parametrize("dtype,lim", [(torch.bfloat16, 0.0625),
+                                       (torch.float32, 1e-4)])
+def test_pointmlp_wgmma_route_any_width(card, B, N, cin, h, cout, dtype, lim):
+    # the column tiles of 64, 128 and 256 (bf16) and 64, 128 (float32, in
+    # 3xTF32), one point, N not a multiple of the 128-row tile; twice bit
+    # for bit
     rs = np.random.RandomState(cin + h)
     w = lambda *s: torch.tensor(rs.randn(*s).astype(np.float32) / np.sqrt(s[-1]),
                                 device=card)
-    x = torch.tensor(rs.randn(B, N, cin).astype(np.float32), device=card).to(torch.bfloat16)
-    args = (x, w(h, cin), w(h) * 0.3, w(cout, h), w(cout) * 0.3, torch.bfloat16)
+    x = torch.tensor(rs.randn(B, N, cin).astype(np.float32), device=card).to(dtype)
+    args = (x, w(h, cin), w(h) * 0.3, w(cout, h), w(cout) * 0.3, dtype)
     out, again = cuda_mlp.pointmlp_eval(*args), cuda_mlp.pointmlp_eval(*args)
     ref = cuda_mlp.pointmlp_eval_reference(*args)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
     assert out.shape == (B, N, cout) and torch.isfinite(out.float()).all()
-    assert (out.float() - ref.float()).abs().max().item() <= 0.0625
+    assert (out.float() - ref.float()).abs().max().item() <= lim
 
 
 @pytest.mark.parametrize("R,N,npoint", [(96, 717, 128), (4, 1433, 128),

@@ -13,7 +13,7 @@ MODULES = sorted(p for p in PKG.rglob("*.py"))
 
 # the scripts that drive the port on the card stand alone too
 SCRIPTS = [PKG.parent / "chip_smoke.py", PKG.parent / "scripts/torch_port_profile.py",
-           PKG.parent / "scripts/dist_scaling.py"]
+           PKG.parent / "scripts/dist_scaling.py", PKG.parent / "scripts/f32_forms_ab.py"]
 
 
 def _assert_names_no_jax(path):
