@@ -813,17 +813,18 @@ def check_dgcnn_bwd(rs):
                        for i, (c, ci, cn) in enumerate(cuda_dgcnn_bwd.KERNEL_STAGES)},
                     "sum_parts_ms": ("sum_parts_kernel",)}).items()})
         if name == "bwd_edge":
-            # each __global__ of the call: the bf16 one pass, its partial sums
-            # and the scatter; the float32 row and weight-gradient kernels
+            # each __global__ of the call: the one pass (bf16 on wgmma, float32
+            # on mma.sync in 3xTF32), its partial sums and the scatter
             device = launch_ms(lambda: run(kern, bf), 10, {
                 "edge_wgmma_ms": ("edge_wgmma_kernel",),
                 "sum_parts_ms": ("sum_parts_kernel",),
                 "scatter_ms": ("scatter_kernel",)})
             device.update({f"f32_{k}": v for k, v in launch_ms(
                 lambda: run(kern, torch.float32), 5, {
-                    "rows_ms": ("rows_kernel",), "dw_ms": ("dw_kernel",),
+                    "edge_tf32_ms": ("edge_tf32_kernel",),
                     "sum_parts_ms": ("sum_parts_kernel",),
                     "scatter_ms": ("scatter_kernel",)}).items()})
+            assert device["f32_edge_tf32_ms"] > 0, "the float32 call ran no edge_tf32_kernel"
         if device:
             print(f"{name} device ms of one backward (torch.profiler):",
                   {k: round(v, 4) for k, v in device.items()})

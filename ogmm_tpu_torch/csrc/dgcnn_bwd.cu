@@ -10,45 +10,34 @@
 //   bwd_edge_bf16_launch   dq and the neighbour scatter dscat
 //
 // Layout: stage tensors are (B, KNN, N, C) in the compute type T (float32 or
-// bf16), taps (B, N, C). A "tile" is the KNN x TN rows (b, j, n0 + t) of TN
-// points: the max over k of a column needs all KNN rows of its point, which
-// is why the TPU kernel takes every k of a tile too. Its row tail is a bounds
-// check on n; rows past N enter no output and no sum.
+// bf16), taps (B, N, C). A "tile" is the KNN rows (b, j, n0 + t) of each of a
+// few points n0 + t: the max over k of a column needs all KNN rows of its
+// point, which is why the TPU kernel takes every k of a tile too. Its row
+// tail is a bounds check on n; rows past N enter no output and no sum.
 //
-// bf16 stages 4..2 and stage 1 are one pass each on wgmma (stage_wgmma_kernel
-// and edge_wgmma_kernel, described where they are defined): TMA-fed tiles,
-// resident weights, a persistent grid, the weight gradient held in registers
-// across a block's tiles; dz_1 never leaves shared memory. The reduce (both
-// types) is one pass of its own (reduce_kernel, described where it is
-// defined): only each column's max-over-k argmax row contributes to its
-// sums, so a thread streams a point's rows as 16-byte loads and keeps one
-// running argmax a channel. The float32 stages 4..2 are one pass each with
-// their products on the tensor cores in 3xTF32 (stage_tf32_kernel, described
-// where it is defined). The float32 stage 1 runs two kernels on the
-// wrapper's stream:
-//  1. rows_kernel: a fixed grid of ROW_BLOCKS blocks walks the tiles in a
-//     fixed order. Per tile, in shared memory:
-//       - extra = dz_2 . W_2^T (dz_2 staged in 16-byte loads, W read through
-//         L1): the cotangent from the stage above;
-//       - per (t, c) column, one thread: h recomputed from z exactly as the
-//         forward formed it (bn_y: a rounding to T after the subtract, the
-//         multiply and the add, no contraction, as eager PyTorch), the first
-//         argmax of h over k, dh = extra (+ dtap at the argmax, rounded),
-//         dy = ReLU-VJP (half at 0), then dz = inv gamma (dy - S1/m -
-//         zhat S2/m);
-//       - de = dz . W_1^T in float32, dq = sum_k (de[3:] - de[:3]) and
-//         de[:3] per row to a scratch array.
-//  2. dw_kernel: dW_1 = e^T dz_1 as a split-K product over the m = B KNN N
-//     rows, one float32 partial per split, added in split order.
-// Both edge routes end with scatter_kernel: dscat[b, p] = sum of de[:3] over
-// the rows (b, j, n) with idx[b, n, j] == p, taken in (j, n) order, a block
-// for each range of SCAT_P points of a cloud, its lists filled in that order.
-// No float atomics anywhere (the reduce's last block takes an integer
-// ticket), so two launches on the same input give the same bits.
+// Every call is one pass over a persistent grid (the reduce's last block adds
+// the partials; the stage and edge passes leave one partial a block, added in
+// block order by sum_parts_kernel), each described where it is defined:
+//  - bf16 stages 4..2 and stage 1 on wgmma (stage_wgmma_kernel,
+//    edge_wgmma_kernel): TMA-fed tiles, resident weights, the weight gradient
+//    held in registers across a block's tiles;
+//  - float32 stages 4..2 and stage 1 on mma.sync in 3xTF32 (stage_tf32_kernel,
+//    edge_tf32_kernel): tiles by bulk copies or TMA, the products' operands
+//    split in registers;
+//  - the reduce (reduce_kernel, both types): only each column's max-over-k
+//    argmax row contributes to its sums, so a thread streams a point's rows
+//    as 16-byte loads and keeps one running argmax a channel.
+// dz_1 never leaves shared memory. Both edge routes end with scatter_kernel:
+// dscat[b, p] = sum of de[:3] over the rows (b, j, n) with idx[b, n, j] == p,
+// taken in (j, n) order, a block for each range of SCAT_P points of a cloud,
+// its lists filled in that order. No float atomics anywhere (the reduce's
+// last block takes an integer ticket), so two launches on the same input give
+// the same bits.
 //
 // Every product of the TPU kernel's body is computed here: for bf16 on wgmma
-// (bf16 operands, float32 accumulation); for float32 stages 4..2 on mma.sync
-// in 3xTF32, stage 1 on the CUDA cores.
+// (bf16 operands, float32 accumulation); for float32 on mma.sync in 3xTF32,
+// but for stage 1's two small products (de = dz_1 W_1^T, dW_1 = e^T dz_1),
+// which take float32 FMAs on the CUDA cores.
 //
 // Bound: at B=24, N=717 one backward (five calls) moves about 1.3 GB and
 // does about 93 GFLOP, mostly bf16 products: the bytes bound it (about 0.4
@@ -68,12 +57,7 @@
 #define KNN 20           // the graph the backward kernels are compiled for
 #define FULL_MASK 0xffffffffu
 
-#define NT 256           // threads of a block
-#define TN 4             // points of a tile
-#define ROWS (KNN * TN)  // rows of a tile: row r = j * TN + t
-#define ROW_BLOCKS 264   // grid of the row kernels (2 a streaming multiprocessor)
-#define RC 32            // rows a step of the weight-gradient kernel
-#define DW_BLOCKS 264    // blocks of the weight-gradient kernel, about
+#define NT 256           // threads of a sum_parts_kernel block
 
 template <typename T>
 __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
@@ -127,168 +111,6 @@ __device__ __forceinline__ float zhat(float z, const BnC& k) {
 template <typename T>
 __device__ __forceinline__ float relu_vjp(float g, float y) {
   return y > 0.f ? g : (y == 0.f ? rnd<T>(__fmul_rn(0.5f, g)) : 0.f);
-}
-
-// Recompute one column's KNN values y from z and the first argmax of
-// h = max(y, 0) over them.
-template <typename T, int C>
-__device__ __forceinline__ int column_y(const T* __restrict__ z, size_t b,
-                                        int N, int n, int c, const BnC& k,
-                                        float zf[KNN], float y[KNN]) {
-  int am = 0;
-  float best = -1.f;
-#pragma unroll
-  for (int j = 0; j < KNN; ++j) {
-    zf[j] = to_f(z[((b * KNN + j) * N + n) * C + c]);
-    y[j] = bn_y<T>(zf[j], k);
-    const float h = fmaxf(y[j], 0.f);
-    if (h > best) { best = h; am = j; }
-  }
-  return am;
-}
-
-// out[r][o] = T(sum_q A[r][q] Bm[q][o]) for the ROWS rows of a tile: A in
-// shared memory (row stride lda), Bm (Q, O) float32 in global memory (L1).
-// A thread owns 4 adjacent columns of every (NT / (O / 4))-th row.
-template <typename T, int Q, int O>
-__device__ __forceinline__ void tile_gemm(const T* A, int lda,
-                                          const float* __restrict__ Bm,
-                                          T* out) {
-  constexpr int OG = O / 4, RG = NT / OG, RPT = (ROWS + RG - 1) / RG;
-  static_assert(NT % OG == 0, "O / 4 must divide the block");
-  const int og = threadIdx.x % OG, rg = threadIdx.x / OG;
-  float acc[RPT][4];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const float4* B4 = reinterpret_cast<const float4*>(Bm);
-#pragma unroll 4
-  for (int q = 0; q < Q; ++q) {
-    const float4 w = __ldg(B4 + q * OG + og);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg + RG * i;
-      const float a = r < ROWS ? to_f(A[r * lda + q]) : 0.f;
-      acc[i][0] = fmaf(a, w.x, acc[i][0]);
-      acc[i][1] = fmaf(a, w.y, acc[i][1]);
-      acc[i][2] = fmaf(a, w.z, acc[i][2]);
-      acc[i][3] = fmaf(a, w.w, acc[i][3]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg + RG * i;
-    if (r < ROWS) {
-#pragma unroll
-      for (int x = 0; x < 4; ++x) out[r * O + 4 * og + x] = from_f<T>(acc[i][x]);
-    }
-  }
-}
-
-template <int CN, int C>
-__host__ __device__ constexpr int lda_of() { return (CN > C ? CN : C) + 8; }
-
-__host__ __device__ constexpr size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
-
-// dynamic shared memory of rows_kernel: A (dz_2, then dz_1), E (extra), DE
-// (de)
-template <typename T, int C, int CN>
-__host__ __device__ constexpr size_t rows_smem() {
-  return align16(sizeof(T) * ROWS * lda_of<CN, C>()) + align16(sizeof(T) * ROWS * C)
-       + align16(sizeof(float) * ROWS * 6);
-}
-
-// stage 1 of the float32 backward: dz_1, de = dz_1 . W_1^T -> dq, de[:3]
-template <typename T, int C, int CN>
-__global__ void __launch_bounds__(NT)
-rows_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
-            const float* __restrict__ bn, const float* __restrict__ s12,
-            const T* __restrict__ dzn, const float* __restrict__ wn,
-            const float* __restrict__ w1T, T* __restrict__ dz_out,
-            float* __restrict__ dq, float* __restrict__ dneigh, int B, int N) {
-  static_assert(NT % C == 0, "widths");
-  constexpr int LDA = lda_of<CN, C>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* A = reinterpret_cast<T*>(smem);
-  T* E = reinterpret_cast<T*>(smem + align16(sizeof(T) * ROWS * LDA));
-  float* DE = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(E)
-                                       + align16(sizeof(T) * ROWS * C));
-
-  const int tid = threadIdx.x;
-  const int ntiles = (N + TN - 1) / TN;
-  const float m = (float)B * KNN * N;
-
-  // the channel this thread owns is fixed: c = tid % C
-  const int c = tid % C;
-  const BnC kc(bn, C, c);
-  const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
-
-  for (int tile = blockIdx.x; tile < B * ntiles; tile += gridDim.x) {
-    const size_t b = tile / ntiles;
-    const int n0 = (tile % ntiles) * TN;
-
-    {  // extra = dz_2 . W_2^T, rounded to T
-      constexpr int VEC = 16 / sizeof(T), CH = CN / VEC;   // 16-byte chunks
-      for (int e = tid; e < ROWS * CH; e += NT) {
-        const int r = e / CH, q = (e % CH) * VEC, j = r / TN, n = n0 + r % TN;
-        if (n < N)
-          *reinterpret_cast<uint4*>(A + r * LDA + q) =
-              *reinterpret_cast<const uint4*>(dzn + ((b * KNN + j) * N + n) * CN + q);
-      }
-      __syncthreads();
-      tile_gemm<T, CN, C>(A, LDA, wn, E);
-      __syncthreads();
-    }
-
-    for (int col = tid; col < TN * C; col += NT) {
-      const int t = col / C, n = n0 + t;
-      if (n >= N) continue;
-      float zf[KNN], y[KNN];
-      const int am = column_y<T, C>(z, b, N, n, c, kc, zf, y);
-      const float tap = to_f(dtap[(b * N + n) * C + c]);
-#pragma unroll
-      for (int j = 0; j < KNN; ++j) {
-        const int r = j * TN + t;
-        float dh = to_f(E[r * C + c]);
-        if (j == am) dh = rnd<T>(__fadd_rn(tap, dh));
-        const float dy = relu_vjp<T>(dh, y[j]);
-        const float zh = zhat(zf[j], kc);
-        const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1),
-                                                   __fmul_rn(zh, a2)));
-        const T dzt = from_f<T>(d);
-        dz_out[((b * KNN + j) * N + n) * C + c] = dzt;
-        A[r * LDA + c] = dzt;
-      }
-    }
-
-    // de = dz . W_1^T in float32 -> dq, de[:3]; w1T (C, 6) float32
-    __syncthreads();
-    for (int e = tid; e < ROWS * 6; e += NT) {
-      const int r = e / 6, i = e % 6;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int q = 0; q < C; ++q) acc = fmaf(to_f(A[r * LDA + q]), __ldg(w1T + q * 6 + i), acc);
-      DE[e] = acc;
-    }
-    __syncthreads();
-    if (tid < TN * 3) {
-      const int t = tid / 3, d = tid % 3, n = n0 + t;
-      if (n < N) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < KNN; ++j) {
-          const float* de = DE + (j * TN + t) * 6;
-          s = __fadd_rn(s, __fsub_rn(de[3 + d], de[d]));
-        }
-        dq[(b * N + n) * 3 + d] = s;
-      }
-    }
-    for (int e = tid; e < ROWS * 3; e += NT) {
-      const int r = e / 3, d = e % 3, j = r / TN, n = n0 + r % TN;
-      if (n < N) dneigh[((b * KNN + j) * N + n) * 3 + d] = DE[r * 6 + d];
-    }
-    __syncthreads();      // the next tile overwrites A and E
-  }
 }
 
 // out[i] = sum over g of part[g][i], in g order
@@ -504,73 +326,6 @@ reduce_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
     s[tid] = v;
   }
   if (tid == 0) *ticket = 0u;
-}
-
-// part[split][i][j] = sum over the split's rows r of h[r][i] dz[r][j] (h the
-// edge rows e), float32 (the bf16 route takes its weight gradient on wgmma,
-// the float32 stages on mma.sync). A block
-// owns a TI x TJ tile of dW and one split; a thread MI x MJ values, in groups
-// of up to 4 adjacent columns (rows) spaced by the tile / groups.
-template <int TI, int TJ, int MI, int MJ>
-__global__ void __launch_bounds__(NT)
-dw_kernel(const float* __restrict__ h, const float* __restrict__ dz, int m, int cin, int C, int rows_per_split,
-          float* __restrict__ part) {
-  constexpr int VI = MI < 4 ? MI : 4, VJ = MJ < 4 ? MJ : 4;
-  constexpr int NJ = TJ / MJ, NI = TI / MI;
-  static_assert(NI * NJ == NT, "threads");
-  __shared__ __align__(16) float sH[RC][TI];
-  __shared__ __align__(16) float sD[RC][TJ];
-  const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
-  const int tid = threadIdx.x, tj = tid % NJ, ti = tid / NJ;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(m, r_begin + rows_per_split);
-  float acc[MI][MJ];
-#pragma unroll
-  for (int x = 0; x < MI; ++x)
-#pragma unroll
-    for (int y = 0; y < MJ; ++y) acc[x][y] = 0.f;
-
-  // the column of h this thread stages is fixed (TI divides the block)
-  static_assert(NT % TI == 0, "staging");
-  const int ch = i0 + tid % TI;
-  for (int r0 = r_begin; r0 < r_end; r0 += RC) {
-    for (int e = tid; e < RC * TI; e += NT) {
-      const int rr = e / TI, r = r0 + rr;
-      float v = 0.f;
-      if (r < r_end && ch < cin) v = h[(size_t)r * cin + ch];
-      sH[rr][e % TI] = v;
-    }
-    for (int e = tid; e < RC * TJ; e += NT) {
-      const int rr = e / TJ, jj = e % TJ, r = r0 + rr, cj = j0 + jj;
-      sD[rr][jj] = (r < r_end && cj < C) ? dz[(size_t)r * C + cj] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < RC; ++rr) {
-      float a[MI], d[MJ];
-#pragma unroll
-      for (int x = 0; x < MI; ++x)
-        a[x] = sH[rr][(x / VI) * (TI / (MI / VI)) + ti * VI + x % VI];
-#pragma unroll
-      for (int y = 0; y < MJ; ++y)
-        d[y] = sD[rr][(y / VJ) * (TJ / (MJ / VJ)) + tj * VJ + y % VJ];
-#pragma unroll
-      for (int x = 0; x < MI; ++x)
-#pragma unroll
-        for (int y = 0; y < MJ; ++y) acc[x][y] = fmaf(a[x], d[y], acc[x][y]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int x = 0; x < MI; ++x) {
-    const int ci = i0 + (x / VI) * (TI / (MI / VI)) + ti * VI + x % VI;
-    if (ci >= cin) continue;
-#pragma unroll
-    for (int y = 0; y < MJ; ++y) {
-      const int cj = j0 + (y / VJ) * (TJ / (MJ / VJ)) + tj * VJ + y % VJ;
-      if (cj < C) part[((size_t)blockIdx.z * cin + ci) * C + cj] = acc[x][y];
-    }
-  }
 }
 
 // dscat[b][p] = sum of dneigh[b][s] over the rows s = j N + n with
@@ -1110,11 +865,13 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
 //    times, the loads two k8 steps ahead of their use (the L2's latency);
 //    the slices' partial sums land in E and are added in slice order where
 //    the element work reads them;
-//  - the element work of rows_kernel's float32 route, 1, 2 or 4 lanes a
-//    (point, channel) column (every thread one column; the lanes' first
-//    maxima combined by shuffles): h recomputed from z with the forward's
-//    rounding, the first argmax over k, dh = extra plus the tap's cotangent
-//    at the argmax, dy, dz_i (over z_i in place, then stored); for the stage
+//  - the element work, 1, 2 or 4 lanes a (point, channel) column (every
+//    thread one column; the lanes' first maxima combined by shuffles): h
+//    recomputed from z with the forward's rounding (bn_y: a rounding after
+//    the subtract, the multiply and the add, no contraction, as eager
+//    PyTorch), the first argmax over k, dh = extra plus the tap's cotangent
+//    at the argmax, dy (half the cotangent at ReLU(0)), dz_i = inv gamma
+//    (dy - S1/m - zhat S2/m) (over z_i in place, then stored); for the stage
 //    below dy_{i-1}, its sums and h_{i-1} (over z_{i-1} in place);
 //  - dW_i += h_{i-1}^T dz_i over the tile's 40 rows (K = 5 k8 steps): warp
 //    w takes two m-tiles of C_in and a contiguous run of the 8-column tiles
@@ -1704,78 +1461,310 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
   }
 }
 
+// ------------------------- float32 edge kernel, one pass (mma.sync, 3xTF32)
+//
+// edge_tf32_kernel: bwd_edge for float32 in one pass, on edge_wgmma_kernel's
+// plan (tiles of WTN = 4 points, 80 rows r = j WTN + t; a persistent grid of
+// at most WBLOCKS blocks, each walking an equal contiguous share of the
+// tiles; the BN constants from the batch statistics, bn_stats) with
+// stage_tf32_kernel's arithmetic (the extra cotangent as three TF32 products
+// on mma.sync m16n8k8, tf32.cuh). Per block of 16 warps:
+//  - W_2's A fragments for extra^T = W_2 dz_2^T (the 64 output channels as
+//    M, the depth as K) are loaded and split once into registers: warp w
+//    holds the m-tile w % 4 over the K half (w / 4) % 2, 32 registers a
+//    lane, for the block's lifetime, so W_2 is read once a block and never
+//    split again; W_1 (6 x 64) lies in shared memory;
+//  - a tile's z_1 and dz_2 arrive by TMA, each as two boxes of (32
+//    channels, WTN points, KNN neighbours) with the 128-byte swizzle (zoff:
+//    the fragment loads of lanes (g, t) and the element work's lane pairs
+//    fall on 32 banks; rows past N come as zeros), its points' tap
+//    cotangents by one bulk copy, on a ring of two buffers: the tile after
+//    next is issued as soon as a tile's buffers are read. The e rows (24
+//    bytes, below TMA's 16-byte strides) come by plain loads one tile ahead,
+//    thread r < 80 holding row r;
+//  - extra^T: warp w takes its m-tile and K half for the five 8-row column
+//    tiles of half the tile's rows (w / 8), splitting each dz_2 fragment
+//    once for its m-tile; each SM sub-partition gets the same 240 products.
+//    The two K halves' partial sums land in E and are added in order where
+//    the element work reads them;
+//  - the element work of stage_tf32_kernel, two lanes a (point, channel)
+//    column: h recomputed with the forward's rounding, the first argmax over
+//    k, dh = extra plus the tap's cotangent at the argmax, dy, and dz_1 over
+//    z_1 in shared memory. dz_1 never goes to device memory;
+//  - de = dz_1 W_1^T (80 x 6) and dW_1 += e^T dz_1 (6 x 64) as float32 FMAs
+//    on the CUDA cores in a fixed order (0.53 GFLOP at B=24, N=717, a fifth
+//    of the extra product's; no padding of W_1's 6 rows to an m-tile): de
+//    one thread a (row, output) over the channels in order; dW_1 on every
+//    thread, a (channel, eighth of the tile's rows) each, the six inputs'
+//    sums over its rows in order held in registers across the block's
+//    tiles, and the eighths added in order at the end;
+//  - dq = sum_k (de[3:] - de[:3]) in k order and de[:3] per row to dneigh,
+//    while the other warps start the next tile.
+// At the end each block writes its dW_1 partial; sum_parts_kernel adds them
+// in block order, and scatter_kernel adds dneigh onto the points.
+// Bound: bytes (z_1 and dz_2, 88 MB each at B=24, N=717, dtap, e and idx read
+// once, dneigh written and read once: about 190 MB, 0.057 ms at 3.35 TB/s);
+// the extra product's 2.8 GFLOP take about 0.009 ms as three TF32 products
+// at 495 TFLOP/s, 0.027 ms at the 313 TFLOP/s mma.sync reached on the card.
+// What holds it at 0.16 ms (NVIDIA H100 80GB HBM3, PERF.md §6; each phase
+// removed in turn from a copy of the kernel): the extra product's
+// phase (each dz_2 fragment split in the four warps of its K half and rows,
+// the three products of a k8 step in one chain), then the element work,
+// de and dW_1; the loads and barriers alone take 0.07 ms. In the design
+// before this one, 161 bulk copies a tile (a row each) and dW_1 on three
+// warps cost most; a third buffer gained nothing there.
+
+#define ETHREADS 512             // 16 warps
+#define EPANEL (WROWS * 32)      // floats of a tile's 32-channel panel
+#define ELD (64 + 4)             // floats of a row of E
+#define EDW_PARTS (ETHREADS / 64)  // the weight gradient's parts of a tile's rows
+
+// float offset of (row r, channel c) in a tile's two 32-channel panels, as
+// TMA's 128-byte swizzle writes them: 16-byte chunk (c / 4) XOR r of row r
+__device__ __forceinline__ int zoff(int r, int c) {
+  return (c >> 5) * EPANEL + r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+
+// shared memory of edge_tf32_kernel, offsets in floats from a 1024-byte
+// boundary (ops/cuda_dgcnn_bwd.py:bwd_edge_plan): two buffers of a tile's
+// z_1 and dz_2 panels and its points' tap cotangents, the extra cotangent's
+// two K halves (at the end the weight gradient's parts), the e rows, de, W_1
+struct EdgeF32Plan {
+  static constexpr int DZN = 2 * EPANEL;            // a buffer: z_1, dz_2, taps
+  static constexpr int TAP = 4 * EPANEL;
+  static constexpr int BUF = TAP + WTN * 64;
+  static constexpr int E = 2 * BUF;                 // [2][WROWS][ELD]
+  static constexpr int EP = E + 2 * WROWS * ELD;    // [WROWS][8]
+  static constexpr int DE = EP + WROWS * 8;         // [WROWS][8]
+  static constexpr int W1 = DE + WROWS * 8;         // [6][ELD]
+  static constexpr int SMEM = 4 * (W1 + 6 * ELD) + 1024;
+  static_assert(EPANEL % 256 == 0 && BUF % 256 == 0, "panels on 1024-byte boundaries");
+  static_assert(EDW_PARTS * 6 * 64 <= 2 * WROWS * ELD, "the weight gradient's parts in E");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+__global__ void __launch_bounds__(ETHREADS, 1)
+edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
+                 const __grid_constant__ CUtensorMap dznmap,
+                 const float* __restrict__ dtap, const float* __restrict__ mean,
+                 const float* __restrict__ var, const float* __restrict__ gamma,
+                 const float* __restrict__ beta, const float* __restrict__ s12,
+                 const float* __restrict__ w2, const float* __restrict__ e,
+                 const float* __restrict__ w1, float* __restrict__ part_w,
+                 float* __restrict__ dq, float* __restrict__ dneigh, int B, int N) {
+  typedef EdgeF32Plan P;
+  constexpr int C = 64;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[2];
+  float* fsm = reinterpret_cast<float*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  float* E = fsm + P::E;
+  float* EP = fsm + P::EP;
+  float* DE = fsm + P::DE;
+  float* W1 = fsm + P::W1;
+  const uint32_t sbase = smem_u32(fsm);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ntn = (N + WTN - 1) / WTN, T = B * ntn;
+  const int tile0 = (int)((long long)blockIdx.x * T / gridDim.x);
+  const int tile1 = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
+  const float m = (float)B * KNN * N;
+
+  // thread 0: a tile's four boxes and its taps (the points left in the
+  // cloud) into buffer s
+  auto issue = [&](int tile, int s) {
+    const int b = tile / ntn, n0 = (tile % ntn) * WTN, np = min(WTN, N - n0);
+    const uint32_t dst = sbase + (uint32_t)(s * P::BUF) * 4u;
+    mbar_expect_tx(&full[s], (uint32_t)(4 * EPANEL + np * C) * 4u);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      tma_load_3d(dst + p * EPANEL * 4, &zmap, &full[s], 32 * p, n0, b * KNN);
+      tma_load_3d(dst + (P::DZN + p * EPANEL) * 4, &dznmap, &full[s], 32 * p, n0, b * KNN);
+    }
+    bulk_load(dst + P::TAP * 4, dtap + ((size_t)b * N + n0) * C, np * C * 4, &full[s]);
+  };
+  // thread r < WROWS: row r (j = r / WTN, point r % WTN) of a tile's e,
+  // zeros past N
+  float ev[6];
+  auto load_e = [&](int tile) {
+    const int b = tile / ntn, n = (tile % ntn) * WTN + tid % WTN, j = tid / WTN;
+    const float* p = e + (((size_t)b * KNN + j) * N + n) * 6;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) ev[i] = n < N ? __ldg(p + i) : 0.f;
+  };
+
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init_fence();
+    for (int i = 0; i < 2 && tile0 + i < tile1; ++i) issue(tile0 + i, i);
+  }
+  for (int i = tid; i < 6 * C; i += ETHREADS) W1[(i / C) * ELD + i % C] = w1[i];
+  if (tid < WROWS && tile0 < tile1) load_e(tile0);
+
+  // W_2's fragments of warp w: rows (channels) 16 mt + g (+ 8), k8 steps
+  // 4 kh + kk; a[i] is row g + 8 (i & 1), column t + 4 (i >> 1)
+  const int mt = warp % 4, kh = (warp / 4) % 2, nh = warp / 8;
+  uint32_t ah[4][4], al[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* wp = w2 + (size_t)(16 * mt + g) * C + 8 * (4 * kh + kk) + t;
+    split_tf32(__ldg(wp), ah[kk][0], al[kk][0]);
+    split_tf32(__ldg(wp + 8 * C), ah[kk][1], al[kk][1]);
+    split_tf32(__ldg(wp + 4), ah[kk][2], al[kk][2]);
+    split_tf32(__ldg(wp + 8 * C + 4), ah[kk][3], al[kk][3]);
+  }
+  // the element work's column: point tp, channel c, rows j = 2 i + l
+  const int c = (tid / 2) % C, tp = tid / (2 * C), l = tid % 2;
+  const BnC kc = bn_stats<float>(mean, var, gamma, beta, c);
+  const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
+  // dW_1: thread tid owns channel tid % 64 over the rows of part tid / 64
+  const int dc = tid % C, dr0 = (tid / C) * (WROWS / EDW_PARTS);
+  float dw[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  __syncthreads();   // the barriers, W_1
+
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int it = tile - tile0, s = it & 1;
+    const int b = tile / ntn, n0 = (tile % ntn) * WTN;
+    float* Z = fsm + s * P::BUF;
+    const float* DZN = Z + P::DZN;
+    const float* TAP = Z + P::TAP;
+    mbar_wait(&full[s], (uint32_t)(it >> 1) & 1u);
+
+    // 1. extra^T = W_2 dz_2^T over K half kh: E[kh][r][c]; the tile's e rows
+    {
+      float acc[5][4];
+#pragma unroll
+      for (int u = 0; u < 5; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+      // b0 = dz_2[8 nt + g][8 ks + t], b1 four columns on; row 40 nh + 8 u
+      // + g of panel kh, whose chunks are XORed by g
+      const float* dp = DZN + kh * EPANEL + (40 * nh + g) * 32 + t;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int c0 = ((2 * kk) ^ g) << 2, c1 = ((2 * kk + 1) ^ g) << 2;
+#pragma unroll
+        for (int u = 0; u < 5; ++u) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(dp[u * 8 * 32 + c0], bh0, bl0);
+          split_tf32(dp[u * 8 * 32 + c1], bh1, bl1);
+          mma_tf32x3(acc[u], ah[kk], al[kk], bh0, bh1, bl0, bl1);
+        }
+      }
+      // acc[u][i]: channel 16 mt + g + 8 (i >> 1), row 40 nh + 8 u + 2 t + (i & 1)
+      float* ep = E + kh * (WROWS * ELD) + (40 * nh + 2 * t) * ELD + 16 * mt + g;
+#pragma unroll
+      for (int u = 0; u < 5; ++u)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ep[(8 * u + (i & 1)) * ELD + 8 * (i >> 1)] = acc[u][i];
+    }
+    if (tid < WROWS) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) EP[tid * 8 + i] = ev[i];
+      if (tile + 1 < tile1) load_e(tile + 1);
+    }
+    __syncthreads();
+
+    // 2. dz_1 over z_1
+    {
+      const int n = n0 + tp;
+      float y[KNN / 2], best = -1.f;
+      int am = 0;
+#pragma unroll
+      for (int i = 0; i < KNN / 2; ++i) {
+        const int j = 2 * i + l;
+        y[i] = bn_y<float>(Z[zoff(j * WTN + tp, c)], kc);
+        const float hv = fmaxf(y[i], 0.f);
+        if (hv > best) { best = hv; am = j; }
+      }
+      am = group_argmax<2>(best, am);
+      const float tap = n < N ? TAP[tp * C + c] : 0.f;
+#pragma unroll
+      for (int i = 0; i < KNN / 2; ++i) {
+        const int j = 2 * i + l, r = j * WTN + tp;
+        float* zr = Z + zoff(r, c);
+        float dh = __fadd_rn(E[r * ELD + c], E[(WROWS + r) * ELD + c]);
+        if (j == am) dh = __fadd_rn(tap, dh);
+        const float dy = relu_vjp<float>(dh, y[i]);
+        const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(*zr, kc), a2)));
+        *zr = n < N ? d : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // 3. de = dz_1 W_1^T: thread 6 r + o (row r, output o), over the
+    //    channels in order; dW_1 += e^T dz_1 over the thread's part of the
+    //    rows, in order
+    if (tid < 6 * WROWS) {
+      const int r = tid / 6, o = tid % 6;
+      const float4* wr = reinterpret_cast<const float4*>(W1 + o * ELD);
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < C / 4; ++q) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            Z + (q >> 3) * EPANEL + r * 32 + (((q ^ r) & 7) << 2));
+        const float4 w = wr[q];
+        acc = fmaf(a.x, w.x, acc);
+        acc = fmaf(a.y, w.y, acc);
+        acc = fmaf(a.z, w.z, acc);
+        acc = fmaf(a.w, w.w, acc);
+      }
+      DE[r * 8 + o] = acc;
+    }
+#pragma unroll
+    for (int r = dr0; r < dr0 + WROWS / EDW_PARTS; ++r) {
+      const float d = Z[zoff(r, dc)];
+      const float4 a = *reinterpret_cast<const float4*>(EP + r * 8);
+      const float2 a45 = *reinterpret_cast<const float2*>(EP + r * 8 + 4);
+      dw[0] = fmaf(a.x, d, dw[0]);
+      dw[1] = fmaf(a.y, d, dw[1]);
+      dw[2] = fmaf(a.z, d, dw[2]);
+      dw[3] = fmaf(a.w, d, dw[3]);
+      dw[4] = fmaf(a45.x, d, dw[4]);
+      dw[5] = fmaf(a45.y, d, dw[5]);
+    }
+    fence_proxy_async();   // the buffer is written by TMA next
+    __syncthreads();
+    if (tid == 0 && tile + 2 < tile1) issue(tile + 2, s);
+
+    // 4. warps 8-15, while the others start the next tile: dq in k order,
+    //    de[:3] to dneigh (DE is written again after the next tile's second
+    //    barrier)
+    if (tid >= 384 && tid < 384 + WTN * 3) {
+      const int tq = (tid - 384) / 3, dd = (tid - 384) % 3, n = n0 + tq;
+      if (n < N) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < KNN; ++j) {
+          const float* de = DE + (j * WTN + tq) * 8;
+          acc = __fadd_rn(acc, __fsub_rn(de[3 + dd], de[dd]));
+        }
+        dq[((size_t)b * N + n) * 3 + dd] = acc;
+      }
+    }
+    for (int i = tid - ETHREADS / 2; i >= 0 && i < WROWS * 3; i += ETHREADS / 2) {
+      const int r = i / 3, dd = i % 3, j = r / WTN, n = n0 + r % WTN;
+      if (n < N) dneigh[(((size_t)b * KNN + j) * N + n) * 3 + dd] = DE[r * 8 + dd];
+    }
+  }
+
+  // the block's dW_1 partial, (6, 64): each (input, channel)'s parts in
+  // order (E was last read before the last tile's second barrier)
+  float* RED = E;   // [EDW_PARTS][6][64]
+#pragma unroll
+  for (int i = 0; i < 6; ++i) RED[((tid / C) * 6 + i) * C + dc] = dw[i];
+  __syncthreads();
+  if (tid < 6 * C) {
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < EDW_PARTS; ++q) v = __fadd_rn(v, RED[q * 6 * C + tid]);
+    part_w[(size_t)blockIdx.x * 6 * C + tid] = v;
+  }
+}
+
 // ------------------------------------------------------------------ launchers
-
-static int row_blocks(int B, int N) {
-  const int tiles = B * ((N + TN - 1) / TN);
-  return tiles < ROW_BLOCKS ? tiles : ROW_BLOCKS;
-}
-
-template <int TI, int TJ>
-static void dw_geometry(int m, int cin, int C, int* splits, int* rows_per_split) {
-  const int tiles = ((cin + TI - 1) / TI) * ((C + TJ - 1) / TJ);
-  int s = DW_BLOCKS / tiles;
-  if (s < 1) s = 1;
-  const int chunks = (m + RC - 1) / RC;
-  if (s > chunks) s = chunks;
-  const int per = (chunks + s - 1) / s * RC;
-  *rows_per_split = per;
-  *splits = (m + per - 1) / per;
-}
-
-// the weight-gradient tile of each (C_in, C)
-#define DW_CASES(X) X(6, 64, 8, 64, 2, 1)
-
-static int dw_splits(int m, int cin, int C, int* rows_per_split) {
-  int s = 0, per = 0;
-#define GEO(ci, c, ti, tj, mi, mj) \
-  if (cin == ci && C == c) dw_geometry<ti, tj>(m, cin, C, &s, &per);
-  DW_CASES(GEO)
-#undef GEO
-  if (rows_per_split) *rows_per_split = per;
-  return s;
-}
 
 static cudaError_t sum_parts(const float* part, int G, int L, float* out,
                              cudaStream_t st) {
   sum_parts_kernel<<<(L + NT - 1) / NT, NT, 0, st>>>(part, G, L, out);
   return cudaGetLastError();
-}
-
-static cudaError_t launch_dw(const float* h, const float* dz, int m, int cin, int C,
-                             float* part, float* dw, cudaStream_t st) {
-  int per = 0;
-  const int s = dw_splits(m, cin, C, &per);
-  if (s == 0) return cudaErrorInvalidValue;
-#define RUN(ci, c, ti, tj, mi, mj)                                              \
-  if (cin == ci && C == c) {                                                    \
-    const dim3 grid((ci + ti - 1) / ti, (c + tj - 1) / tj, s);                  \
-    dw_kernel<ti, tj, mi, mj><<<grid, NT, 0, st>>>(h, dz, m, cin, C, per, part); \
-  }
-  DW_CASES(RUN)
-#undef RUN
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return sum_parts(part, s, cin * C, dw, st);
-}
-
-template <typename T, int C, int CN>
-static cudaError_t launch_rows(const void* z, const void* dtap, const float* bn,
-                               const float* s12, const void* dzn, const float* wn,
-                               const float* w1T, void* dz, float* dq, float* dneigh,
-                               int B, int N, cudaStream_t st) {
-  constexpr size_t bytes = rows_smem<T, C, CN>();
-  cudaError_t err = cudaFuncSetAttribute(
-      rows_kernel<T, C, CN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  rows_kernel<T, C, CN><<<row_blocks(B, N), NT, bytes, st>>>(
-      (const T*)z, (const T*)dtap, bn, s12, (const T*)dzn, wn, w1T, (T*)dz, dq, dneigh,
-      B, N);
-  return cudaGetLastError();
-}
-
-extern "C" int dgcnn_bwd_dw_splits(int m, int cin, int C) {
-  return dw_splits(m, cin, C, nullptr);
 }
 
 // bwd_reduce, both types: reduce_kernel over `blocks` blocks
@@ -1958,21 +1947,43 @@ extern "C" int bwd_edge_bf16_launch(const void* z1, const void* dtap1, const flo
   return (int)launch_scatter(idxT, dneigh, dscat, B, N, st);
 }
 
-// bwd_edge for float32: rows_kernel (dz, de, dq, dneigh), dw_kernel with its
-// partials (dw_splits), then the scatter (idxT as for bf16)
-extern "C" int bwd_edge_launch(const void* z1, const void* dtap1,
-                               const float* bn, const float* s12,
-                               const void* dz2, const void* w2,
-                               const void* e, const float* w1T, const int* idxT,
-                               void* dz, float* dneigh, float* part_w,
-                               float* dw, float* dq, float* dscat, int B,
-                               int N, void* stream) {
+// a (64, N, B KNN) view of a (B, KNN, N, 64) float32 stage tensor, boxes of
+// (32 channels, WTN points, KNN neighbours): edge_tf32_kernel's panels
+static cudaError_t edge_map_f32(CUtensorMap* m, const void* p, int B, int N) {
+  const cuuint32_t box[3] = {32, WTN, KNN};
+  const cuuint64_t dims[3] = {64, (cuuint64_t)N, (cuuint64_t)B * KNN};
+  const cuuint64_t strides[2] = {64 * 4, (cuuint64_t)N * 64 * 4};
+  return make_map(m, p, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+// bwd_edge for float32: the one-pass edge_tf32_kernel over `blocks` blocks
+// (ops/cuda_dgcnn_bwd.py:bwd_edge_plan), its dW_1 partials (blocks, 6, 64)
+// added in block order, then the scatter. The arguments are those of
+// bwd_edge_bf16_launch; z1, dtap1 and dz2 start 16-byte aligned.
+extern "C" int bwd_edge_launch(const void* z1, const void* dtap1, const float* mean,
+                               const float* var, const float* gamma, const float* beta,
+                               const float* s12, const void* dz2, const float* w2,
+                               const void* e, const float* w1, const int* idxT,
+                               float* dneigh, float* part_w, float* dw, float* dq,
+                               float* dscat, int B, int N, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (N < 1 || N > MAXN || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_rows<float, 64, 64>(z1, dtap1, bn, s12, dz2, (const float*)w2,
-                                              w1T, dz, dq, dneigh, B, N, st);
+  const int tiles = B * ((N + WTN - 1) / WTN);
+  if (N < 1 || N > MAXN || B < 1 || B > 65535 || blocks < 1 || blocks > tiles ||
+      blocks > WBLOCKS || (uintptr_t)dtap1 % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap zmap, dznmap;
+  cudaError_t err = edge_map_f32(&zmap, z1, B, N);
+  if (err == cudaSuccess) err = edge_map_f32(&dznmap, dz2, B, N);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(edge_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               EdgeF32Plan::SMEM);
   if (err != cudaSuccess) return (int)err;
-  err = launch_dw((const float*)e, (const float*)dz, B * KNN * N, 6, 64, part_w, dw, st);
+  edge_tf32_kernel<<<blocks, ETHREADS, EdgeF32Plan::SMEM, st>>>(
+      zmap, dznmap, (const float*)dtap1, mean, var, gamma, beta, s12, w2, (const float*)e,
+      w1, part_w, dq, dneigh, B, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = sum_parts(part_w, blocks, 6 * 64, dw, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_scatter(idxT, dneigh, dscat, B, N, st);
 }

@@ -35,11 +35,11 @@ kernels, any N for the reduce); on a CPU tensor it runs
 the plain version. The reduce is one pass over a persistent grid for both
 dtypes (`reduce_plan`): only each column's max-over-k argmax row adds to
 its sums. The bf16 stage and edge kernels are one pass each on wgmma over a
-persistent grid (`bwd_stage_plan`, `bwd_edge_plan`); the float32 stage kernel
-one pass over such a grid with its products on the tensor cores, each as
-three TF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi); the float32 edge
-kernel a row pass and a weight-gradient pass on the CUDA cores. Both edge
-routes end
+persistent grid (`bwd_stage_plan`, `bwd_edge_plan`); the float32 stage and
+edge kernels one pass each over such a grid with their products on the
+tensor cores, each as three TF32 products (a_lo b_hi + a_hi b_lo + a_hi
+b_hi), but for the edge kernel's two small products (de, dW_1), float32 FMAs
+on the CUDA cores. dz_1 never goes to device memory. Both edge routes end
 with the neighbour scatter, a block for each range of `SCATTER_POINTS`
 points of a cloud (`scatter_plan`).
 """
@@ -61,10 +61,12 @@ KERNEL_STAGES = ((256, 128, 0), (128, 64, 256), (64, 64, 128))
 KERNEL_EDGE = (64, 6, 64)
 SMEM_LIMIT = 232_448  # shared memory a block may use on an H100
 
-# the bf16 stage and edge kernels' plan (csrc/dgcnn_bwd.cu:stage_wgmma_kernel,
-# edge_wgmma_kernel): tiles of STAGE_TN points (STAGE_TN * KERNEL_K rows), a
-# persistent grid of at most STAGE_BLOCKS blocks; the float32 stage kernel's
-# (stage_tf32_kernel): tiles of STAGE_TN_F32 points, STAGE_WARPS warps a block
+# the bf16 stage and both edge kernels' plan (csrc/dgcnn_bwd.cu:
+# stage_wgmma_kernel, edge_wgmma_kernel, edge_tf32_kernel): tiles of STAGE_TN
+# points (STAGE_TN * KERNEL_K rows), a persistent grid of at most STAGE_BLOCKS
+# blocks; the float32 stage kernel's (stage_tf32_kernel): tiles of
+# STAGE_TN_F32 points, STAGE_WARPS warps a block (the float32 edge kernel's
+# too)
 STAGE_TN, STAGE_BLOCKS = 4, 132
 STAGE_TN_F32, STAGE_WARPS = 2, 16
 # the scatter (csrc/dgcnn_bwd.cu:scatter_kernel): points and warps of a block
@@ -195,21 +197,14 @@ def _bn_pack(mean, var, gamma, beta, dt):
     operations as `bn_apply` and `bn_dz` so that the kernel's recomputed h
     is the plain version's bit for bit: mean, inv gamma and beta in the
     compute dtype, then mean, inv and inv gamma in float32: the float32
-    stage and edge kernels read them. (The reduce and the bf16 stage and edge
-    kernels form the same values themselves from the statistics,
+    stage kernel reads them. (The reduce, the bf16 stage kernel and both
+    edge kernels form the same values themselves from the statistics,
     `csrc/dgcnn_bwd.cu:bn_stats`.)"""
     mean, var, gamma, beta = (a.detach().float() for a in (mean, var, gamma, beta))
     inv = torch.rsqrt(var + EPS)
     ig = inv * gamma
     return torch.stack([mean.to(dt).float(), ig.to(dt).float(),
                         beta.to(dt).float(), mean, inv, ig]).contiguous()
-
-
-def _w_t(w, dt):
-    """A weight (C_in, C) as the float32 values of its compute-dtype
-    rounding, transposed to (C, C_in): as the float32 edge kernel's tile
-    products read it for x . W^T."""
-    return w.detach().to(dt).float().t().contiguous()
 
 
 def _check(name, z, dtap, *others, max_n=KERNEL_MAX_N):
@@ -240,14 +235,6 @@ def _fn(name, n_ptrs, n_ints):
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p])
     return fn
-
-
-# The float32 edge call's partial sums: splits of the weight-gradient kernel,
-# fixed by the shapes so that they add up in the same order on every launch.
-
-def _dw_splits(B, N, cin, c):
-    return dispatch.load_kernel("dgcnn_bwd").dgcnn_bwd_dw_splits(
-        B * KERNEL_K * N, cin, c)
 
 
 def row_split(M: int, mpw: int = 1) -> dict:
@@ -308,21 +295,39 @@ def stage_shares(tiles: int, blocks: int) -> list:
             for i in range(blocks)]
 
 
-def bwd_edge_plan(B: int, N: int) -> dict:
-    """The bf16 edge kernel's launch, mirroring `csrc/dgcnn_bwd.cu:EdgePlan`:
-    its tiles and persistent grid (as the stage kernel's, `stage_shares`),
-    its dynamic shared memory (two buffers of a tile's z_1 and dz_2 panels,
-    the resident W_2 and W_1 as 64-row panels, the e panel, the extra
+def bwd_edge_plan(B: int, N: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The edge kernel's launch for `dtype` as a pure function of the
+    shapes, mirroring `csrc/dgcnn_bwd.cu`: its tiles of STAGE_TN points and
+    persistent grid (as the stage kernel's, `stage_shares`), its dynamic
+    shared memory and its float32 dW_1 partials, one per block.
+    bf16 (`EdgePlan`): two buffers of a tile's z_1 and dz_2 panels, the
+    resident W_2 and W_1 as 64-row panels, the e panel, the extra
     cotangent's scratch tile of 80 rows of 72 bf16, de of the tile in
-    float32, 1024 bytes of alignment) and its float32 dW_1 partials, one per
-    block."""
+    float32, 1024 bytes of alignment.
+    float32 (`EdgeF32Plan`, STAGE_WARPS warps): two buffers of a tile's z_1
+    and dz_2 as 32-channel panels (TMA's 128-byte swizzle) and its points'
+    tap cotangents, the extra cotangent's two K halves (`extra_k_slices`:
+    warp w holds W_2's m-tile w % 4 over the K half (w / 4) % 2 in
+    registers; rows of C + 4 floats), the e rows and de (8 floats a row),
+    W_1 (6 rows of C + 4), 1024 bytes of alignment; the weight gradient in
+    `dw_parts` parts of a tile's rows (thread i: channel i % C, the rows
+    [10 p, 10 p + 10) of part p = i // C), added in order at the end."""
     tiles = B * -(-N // STAGE_TN)
     blocks = min(STAGE_BLOCKS, tiles)
     rows = STAGE_TN * KERNEL_K
+    C = KERNEL_EDGE[0]
+    plan = {"tiles": tiles, "blocks": blocks, "part_w": (blocks, 6, C)}
+    if dtype == torch.float32:
+        ld = C + 4
+        buf = 4 * rows * 32 + STAGE_TN * C
+        plan.update(smem=4 * (2 * buf + 2 * rows * ld + 2 * rows * 8 + 6 * ld) + 1024,
+                    threads=32 * STAGE_WARPS, extra_k_slices=2,
+                    dw_parts=32 * STAGE_WARPS // C)
+        return plan
     panel = rows * 128
-    smem = 2 * 2 * panel + 2 * 64 * 64 * 2 + panel + rows * 72 * 2 + rows * 8 * 4 + 1024
-    return {"tiles": tiles, "blocks": blocks, "smem": smem,
-            "part_w": (blocks, 6, KERNEL_EDGE[0])}
+    plan.update(smem=2 * 2 * panel + 2 * 64 * 64 * 2 + panel + rows * 72 * 2
+                + rows * 8 * 4 + 1024, threads=512)
+    return plan
 
 
 def scatter_plan(B: int, N: int) -> dict:
@@ -498,27 +503,17 @@ def _bwd_edge_cuda(z1, dtap1, mean1, var1, gamma1, beta1, s12, dz2, w2, e,
     # memory order
     idx = idx.transpose(1, 2).to(torch.int32).contiguous()
     stream = ctypes.c_void_p(dispatch.current_stream(z1))
-    if dt == torch.bfloat16:
-        # one pass, dz_1 kept in shared memory: one dW_1 partial a block; the
-        # kernel forms the BN constants from the statistics and rounds the
-        # float32 weights itself
-        blocks = bwd_edge_plan(B, N)["blocks"]
-        part_w = torch.empty(blocks, 6, C, dtype=torch.float32, device=dev)
-        f32 = lambda a: a.detach().float().contiguous()
-        ins = (z1.contiguous(), dtap1.contiguous(),
-               *[f32(a) for a in (mean1, var1, gamma1, beta1)], s12,
-               dz2.contiguous(), f32(w2), e.contiguous(), f32(w1), idx)
-        code = _fn("bwd_edge_bf16", 17, 3)(
-            *map(_ptr, ins + (dneigh, part_w, dw, dq, dscat)), B, N, blocks, stream)
-    else:
-        dz = torch.empty_like(z1, memory_format=torch.contiguous_format)
-        part_w = torch.empty(_dw_splits(B, N, 6, C), 6, C, dtype=torch.float32,
-                             device=dev)
-        ins = (z1.contiguous(), dtap1.contiguous(),
-               _bn_pack(mean1, var1, gamma1, beta1, dt), s12, dz2.contiguous(),
-               _w_t(w2, dt), e.contiguous(), _w_t(w1, dt), idx)
-        code = _fn("bwd_edge", 15, 2)(
-            *map(_ptr, ins + (dz, dneigh, part_w, dw, dq, dscat)), B, N, stream)
+    # one pass for either dtype, dz_1 kept in shared memory: one dW_1 partial
+    # a block; the kernel forms the BN constants from the statistics (and
+    # for bf16 rounds the float32 weights) itself
+    blocks = bwd_edge_plan(B, N, dt)["blocks"]
+    part_w = torch.empty(blocks, 6, C, dtype=torch.float32, device=dev)
+    f32 = lambda a: a.detach().float().contiguous()
+    ins = (z1.contiguous(), dtap1.contiguous(),
+           *[f32(a) for a in (mean1, var1, gamma1, beta1)], s12,
+           dz2.contiguous(), f32(w2), e.contiguous(), f32(w1), idx)
+    code = _fn("bwd_edge_bf16" if dt == torch.bfloat16 else "bwd_edge", 17, 3)(
+        *map(_ptr, ins + (dneigh, part_w, dw, dq, dscat)), B, N, blocks, stream)
     dispatch.check_launch(code, "bwd_edge")
     dispatch.launch_counts["bwd_edge"] += 1
     return dw, dq, dscat

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The float32 forms of `bwd_stage` and `pointmlp` in one or more trees of
-this repository, timed on one card in the order given.
+"""The float32 forms of `bwd_stage`, `bwd_edge` and `pointmlp` in one or
+more trees of this repository, timed on one card in the order given.
 
     python3 scripts/f32_forms_ab.py _parent . . _parent
 
@@ -13,6 +13,8 @@ Each tree runs in a process of its own with its own package, kernels and
              they launch (torch.profiler), the largest error of each output
              against the plain version as a share of max|plain|, a relaunch
              bit-equal
+  bwd_edge   the edge call of that backward (stage 1, dW_1, dq, dscat):
+             the same figures
   pointmlp   the attention MLP's float32 call (48, 717, 1024 -> 1024 ->
              512): ms, device ms of each kernel, max|kernel - plain|
 
@@ -41,22 +43,23 @@ def one(tree):
         return {evt.key[:60]: round(evt.device_time_total / 1e3 / reps, 4)
                 for evt in cs.device_trace(fn, reps) if evt.device_time_total > 0}
 
-    calls = [c for c in cs.bwd_calls(np.random.RandomState(0), torch.float32)
-             if c[0] == "bwd_stage"]
-    kern, plain, _ = cs.BWD["bwd_stage"]
+    every = cs.bwd_calls(np.random.RandomState(0), torch.float32)
+    for name in ("bwd_stage", "bwd_edge"):
+        calls = [c for c in every if c[0] == name]
+        kern, plain, _ = cs.BWD[name]
 
-    def run():
-        return [kern(*a, **kw) for _, a, kw in calls]
-    got, again = run(), run()
-    torch.cuda.synchronize()
-    errs, same = [], True
-    for g3, a3, (_, a, kw) in zip(got, again, calls):
-        ref = plain(*a, **kw)
-        for g, g2, r in zip(g3, a3, ref):
-            same = same and torch.equal(g, g2)
-            errs.append((g - r).abs().max().item() / r.abs().max().item())
-    out["bwd_stage"] = {"ms": cs.cuda_ms(run, 10), "device_ms": kernels_ms(run, 5),
-                        "rel_err_max": max(errs), "relaunch_bit_equal": same}
+        def run():
+            return [kern(*a, **kw) for _, a, kw in calls]
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        errs, same = [], True
+        for g3, a3, (_, a, kw) in zip(got, again, calls):
+            ref = plain(*a, **kw)
+            for g, g2, r in zip(g3, a3, ref):
+                same = same and torch.equal(g, g2)
+                errs.append((g - r).abs().max().item() / r.abs().max().item())
+        out[name] = {"ms": cs.cuda_ms(run, 10), "device_ms": kernels_ms(run, 5),
+                     "rel_err_max": max(errs), "relaunch_bit_equal": same}
 
     rs = np.random.RandomState(9)
     w = lambda *sh: torch.tensor(rs.randn(*sh).astype(np.float32) / np.sqrt(sh[-1]),

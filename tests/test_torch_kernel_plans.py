@@ -559,31 +559,52 @@ EDGE_SHAPES = [(1, 1), (1, 3), (2, 5), (1, 1024), (24, 717), (3, 1000),
 
 @pytest.mark.parametrize("B,N", EDGE_SHAPES)
 def test_bwd_edge_grid_visits_every_tile_once_in_order(B, N):
-    plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N)
-    tiles = B * -(-N // cuda_dgcnn_bwd.STAGE_TN)
-    assert plan["tiles"] == tiles
-    assert plan["blocks"] == min(cuda_dgcnn_bwd.STAGE_BLOCKS, tiles)
-    shares = cuda_dgcnn_bwd.stage_shares(plan["tiles"], plan["blocks"])
-    assert [t for a, b in shares for t in range(a, b)] == list(range(tiles))
-    assert all(a < b for a, b in shares)
+    # both forms: bf16 (edge_wgmma_kernel) and float32 (edge_tf32_kernel)
+    for dt in (torch.bfloat16, torch.float32):
+        plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N, dt)
+        tiles = B * -(-N // cuda_dgcnn_bwd.STAGE_TN)
+        assert plan["tiles"] == tiles
+        assert plan["blocks"] == min(cuda_dgcnn_bwd.STAGE_BLOCKS, tiles)
+        shares = cuda_dgcnn_bwd.stage_shares(plan["tiles"], plan["blocks"])
+        assert [t for a, b in shares for t in range(a, b)] == list(range(tiles))
+        assert all(a < b for a, b in shares)
 
 
 @pytest.mark.parametrize("B,N", [(24, 717), (1, 1), (2, 5), (48, 1024)])
 def test_bwd_edge_partials_are_fixed_by_the_shape(B, N):
-    # one dW_1 partial a block, summed in block order
-    plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N)
-    assert plan["part_w"] == (plan["blocks"], 6, cuda_dgcnn_bwd.KERNEL_EDGE[0])
-    assert cuda_dgcnn_bwd.bwd_edge_plan(B, N) == plan
+    # one dW_1 partial a block, summed in block order, in both forms
+    for dt in (torch.bfloat16, torch.float32):
+        plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N, dt)
+        assert plan["part_w"] == (plan["blocks"], 6, cuda_dgcnn_bwd.KERNEL_EDGE[0])
+        assert cuda_dgcnn_bwd.bwd_edge_plan(B, N, dt) == plan
 
 
 def test_bwd_edge_block_fits_shared_memory():
-    # two buffers of z_1 and dz_2 panels, W_2 and W_1 panels, the e panel,
-    # the extra cotangent's tile, de and the alignment, within 227 KB; the
-    # same for every shape
+    # bf16: two buffers of z_1 and dz_2 panels, W_2 and W_1 panels, the e
+    # panel, the extra cotangent's tile, de and the alignment, within 227
+    # KB; the same for every shape
     plan = cuda_dgcnn_bwd.bwd_edge_plan(24, 717)
     panel = cuda_dgcnn_bwd.STAGE_TN * cuda_dgcnn_bwd.KERNEL_K * 128
     assert 5 * panel + 2 * 64 * 64 * 2 <= plan["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
     assert {cuda_dgcnn_bwd.bwd_edge_plan(*s)["smem"] for s in EDGE_SHAPES} == {plan["smem"]}
+    # float32: two buffers of z_1 and dz_2 as 32-channel panels and the
+    # taps, the extra cotangent's two K halves in rows of 68 floats, the e
+    # rows, de, W_1 and the alignment; 16 warps; the same at every N the
+    # kernel takes
+    rows = cuda_dgcnn_bwd.STAGE_TN * cuda_dgcnn_bwd.KERNEL_K
+    plans = [cuda_dgcnn_bwd.bwd_edge_plan(24, n, torch.float32)
+             for n in (1, 20, 25, 717, 768, 1024)]
+    assert len({p["smem"] for p in plans}) == 1
+    assert (2 * 4 * rows * 32 * 4 + 2 * rows * 68 * 4 + 1024 <= plans[0]["smem"]
+            <= cuda_dgcnn_bwd.SMEM_LIMIT)
+    for p in plans:
+        assert p["threads"] == 32 * cuda_dgcnn_bwd.STAGE_WARPS
+        # the two K halves of W_2's depth, whole k8 steps each
+        assert cuda_dgcnn_bwd.KERNEL_EDGE[2] % (8 * p["extra_k_slices"]) == 0
+        # the weight gradient: a thread a (channel, part of the rows), every
+        # row of a tile in one part
+        assert p["dw_parts"] * cuda_dgcnn_bwd.KERNEL_EDGE[0] == p["threads"]
+        assert rows % p["dw_parts"] == 0
 
 
 @pytest.mark.parametrize("B,N", EDGE_SHAPES)

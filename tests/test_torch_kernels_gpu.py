@@ -561,12 +561,13 @@ def _bwd_limit(name, i, dtype, ref):
     return (2.0 ** -6 if is_dz else 2e-2) * scale
 
 
-@pytest.mark.parametrize("B,N", [(24, 717), (1, 1024), (2, 25)])
+@pytest.mark.parametrize("B,N", [(24, 717), (1, 1024), (2, 25), (24, 768)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_edge_one_pass_matches_plain(card, B, N, dtype):
-    # the edge call of a real backward: the one-pass bf16 kernel (a full
-    # grid of 132 blocks, a ragged one) and the float32 route, against the
-    # plain version within LIM_BWD_SUM_BF16 / LIM_BWD_F32, twice bit for bit
+    # the edge call of a real backward: the one-pass kernels (bf16 on wgmma,
+    # float32 on mma.sync in 3xTF32; a full grid of 132 blocks, a ragged
+    # one, DeepGMR's src) against the plain version within
+    # LIM_BWD_SUM_BF16 / LIM_BWD_F32, twice bit for bit
     name, a, kw = _bwd_calls(card, B, N, dtype, seed=B + N)[-1]
     assert name == "bwd_edge"
     got, again, ref = bwd_edge(*a, **kw), bwd_edge(*a, **kw), bwd_edge_reference(*a, **kw)
