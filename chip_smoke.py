@@ -177,11 +177,17 @@ fatal on failure:
              points), graph_stage1 at k = 12 and 32 (24 clouds of 717),
              sinkhorn_em at (8, 5734, 128), (8, 4096, 128) and (8, 2867,
              256) (clusters of 16 blocks; per trip and after 10 trips),
-             each against its plain version, timed beside it and its bound
-             (`at_envelopes` in the kernels line); (b)
-             `Registrar(configs.mnet(gnn_k=12))` at B=24, N=717, float32 and
-             bf16 (dgcnn_eval 1, sinkhorn_em 1); (c) one train step of it
-             (graph_stage1 2, the plain backward); (d) a request at B=8,
+             the five DGCNN backward calls (bwd_reduce, bwd_stage x 3,
+             bwd_edge) of a real backward at k = 1, 12, 32 (24 clouds of
+             717, bf16 and float32) and at k = 32 over 24 clouds of 1024,
+             each launched twice (bit-equal), against its plain version,
+             timed beside it and its bound (`at_envelopes` in the kernels
+             line); (b) `Registrar(configs.mnet(gnn_k=12))` at B=24, N=717,
+             float32 and bf16 (dgcnn_eval 1, sinkhorn_em 1); (c) one train
+             step of it with the backward kernels on (graph_stage1 2,
+             bwd_reduce 2, bwd_stage 6, bwd_edge 2), its loss bit-equal with
+             the switch off and its gradients close, and against the plain
+             versions; (d) a request at B=8,
              N=4,096, K=128 (sinkhorn_em 1, the JAX rule's kernel); (e) the
              CLI with --profile_dir for 12 steps: a Chrome trace of steps
              [5, 10) naming the port's kernels; (f) the indoor request at
@@ -683,10 +689,11 @@ BWD = {"bwd_reduce": (bwd_reduce, bwd_reduce_reference, 327),
        "bwd_edge": (bwd_edge, bwd_edge_reference, 413)}
 
 
-def bwd_calls(rs, dtype):
+def bwd_calls(rs, dtype, k=KNN, n=N):
     """The five backward calls (reduce, stage 4, 3, 2, edge) of one DGCNN
-    training forward and backward of B clouds at full width, recorded with
-    their arguments while the plain versions run them."""
+    training forward and backward of B clouds of n points at full width
+    over a graph of k neighbours, recorded with their arguments while the
+    plain versions run them."""
     calls = []
 
     def record(name):
@@ -695,7 +702,7 @@ def bwd_calls(rs, dtype):
             return BWD[name][1](*a, **kw)
         return fn
 
-    x = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=DEV)
+    x = torch.tensor(rs.randn(B, n, 3).astype(np.float32) * 0.3, device=DEV)
     dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, EMB)]
     ws = [torch.tensor(rs.randn(*d).astype(np.float32) / np.sqrt(d[0]),
                        device=DEV, requires_grad=True) for d in dims]
@@ -709,8 +716,8 @@ def bwd_calls(rs, dtype):
         for name in BWD:
             setattr(ops_dgcnn_train, name, record(name))
         ops_dgcnn_train.BWD_KERNELS = True
-        out, _, _ = ops_dgcnn_train.dgcnn_train(x, ws, gs, bs, KNN, dtype)
-        wvec = torch.tensor(rs.randn(B, N, EMB).astype(np.float32), device=DEV)
+        out, _, _ = ops_dgcnn_train.dgcnn_train(x, ws, gs, bs, k, dtype)
+        wvec = torch.tensor(rs.randn(B, n, EMB).astype(np.float32), device=DEV)
         (out.float() * wvec).sum().backward()
     finally:
         for name, fn in saved.items():
@@ -747,6 +754,42 @@ def bwd_work(name, a, kw):
     return nbytes, 2.0 * m * (C * C + 2 * 6 * C), m * (16.0 * C + 12.0)
 
 
+def bwd_compare(calls, dt, errs, tag=""):
+    """Each recorded backward call through its kernel, twice (bit for bit),
+    against its plain version under the LIM_BWD_* limits; the largest error
+    of each kernel into errs[name][dt]."""
+    for name, a, kw in calls:
+        kern, plain, _ = BWD[name]
+        got, again = _outs(name, kern(*a, **kw)), _outs(name, kern(*a, **kw))
+        torch.cuda.synchronize()
+        ref = _outs(name, plain(*a, **kw))
+        for i, (g, g2, r) in enumerate(zip(got, again, ref)):
+            assert torch.equal(g, g2), f"{name}{tag}: two launches differ"
+            assert g.shape == r.shape and g.dtype == r.dtype, name
+            assert torch.isfinite(g.float()).all(), name
+            scale = r.float().abs().max().item()
+            err = (g.float() - r.float()).abs().max().item()
+            lim = (LIM_BWD_F32 if dt == torch.float32 else
+                   LIM_BWD_DZ_BF16 if (name == "bwd_stage" and i == 0)
+                   else LIM_BWD_SUM_BF16) * scale
+            print(f"{name}{tag} {dt} output {i}: max|kernel - plain| = {err:.3g} "
+                  f"(limit {lim:.3g}), max|plain| = {scale:.3g}")
+            assert err <= lim, (name, tag, dt, i)
+            errs[name][dt] = max(errs[name].get(dt, 0.0), err)
+
+
+def bwd_bound(work, dt):
+    """(ms, by) of one backward's calls of a kernel: their bytes at 3.35
+    TB/s against their products (bf16 at 989 TFLOP/s; float32 in 3xTF32,
+    `f32_bound`) and element work on the CUDA cores."""
+    products = sum(w[1] for w in work)
+    t_ops = ((3 * products / PEAK_FLOPS["tf32"] if dt == torch.float32
+              else products / PEAK_FLOPS["bf16"])
+             + sum(w[2] for w in work) / PEAK_FLOPS["f32"])
+    t_bytes = sum(w[0] for w in work) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def check_dgcnn_bwd(rs):
     """The three backward kernels against their plain versions on the
     arguments of a real backward at B=24, N=717, float32 and bf16; two
@@ -756,24 +799,7 @@ def check_dgcnn_bwd(rs):
     timed = {}
     for dt in (torch.float32, torch.bfloat16):
         calls = bwd_calls(rs, dt)
-        for name, a, kw in calls:
-            kern, plain, _ = BWD[name]
-            got, again = _outs(name, kern(*a, **kw)), _outs(name, kern(*a, **kw))
-            torch.cuda.synchronize()
-            ref = _outs(name, plain(*a, **kw))
-            for i, (g, g2, r) in enumerate(zip(got, again, ref)):
-                assert torch.equal(g, g2), f"{name}: two launches differ"
-                assert g.shape == r.shape and g.dtype == r.dtype, name
-                assert torch.isfinite(g.float()).all(), name
-                scale = r.float().abs().max().item()
-                err = (g.float() - r.float()).abs().max().item()
-                lim = (LIM_BWD_F32 if dt == torch.float32 else
-                       LIM_BWD_DZ_BF16 if (name == "bwd_stage" and i == 0)
-                       else LIM_BWD_SUM_BF16) * scale
-                print(f"{name} {dt} output {i}: max|kernel - plain| = {err:.3g} "
-                      f"(limit {lim:.3g}), max|plain| = {scale:.3g}")
-                assert err <= lim, (name, dt, i)
-                errs[name][dt] = max(errs[name].get(dt, 0.0), err)
+        bwd_compare(calls, dt, errs)
         timed[dt] = calls
     entries = []
     for name, (kern, plain, line) in BWD.items():
@@ -788,10 +814,7 @@ def check_dgcnn_bwd(rs):
         work = [bwd_work(name, a, kw) for n_, a, kw in timed[bf] if n_ == name]
         work32 = [bwd_work(name, a, kw) for n_, a, kw in timed[torch.float32]
                   if n_ == name]
-        nbytes = sum(w[0] for w in work)
-        t_ops = (sum(w[1] for w in work) / PEAK_FLOPS["bf16"]
-                 + sum(w[2] for w in work) / PEAK_FLOPS["f32"])
-        t_bytes = nbytes / PEAK_BYTES
+        bound, bound_by = bwd_bound(work, bf)
         device = {}
         if name == "bwd_reduce":
             # the one pass (its last block adds the partials), bf16 and float32
@@ -804,12 +827,12 @@ def check_dgcnn_bwd(rs):
             # kernel, bf16 on wgmma, float32 on mma.sync in 3xTF32; the
             # partial sums), device time of one backward
             device = launch_ms(lambda: run(kern, bf), 10, {
-                **{f"stage{4 - i}_ms": (f"stage_wgmma_kernel<{c}, {ci}, {cn}>",)
+                **{f"stage{4 - i}_ms": (f"stage_wgmma_kernel<{c}, {ci}, {cn},",)
                    for i, (c, ci, cn) in enumerate(cuda_dgcnn_bwd.KERNEL_STAGES)},
                 "sum_parts_ms": ("sum_parts_kernel",)})
             device.update({f"f32_{k}": v for k, v in launch_ms(
                 lambda: run(kern, torch.float32), 5, {
-                    **{f"stage{4 - i}_ms": (f"stage_tf32_kernel<{c}, {ci}, {cn}>",)
+                    **{f"stage{4 - i}_ms": (f"stage_tf32_kernel<{c}, {ci}, {cn},",)
                        for i, (c, ci, cn) in enumerate(cuda_dgcnn_bwd.KERNEL_STAGES)},
                     "sum_parts_ms": ("sum_parts_kernel",)}).items()})
         if name == "bwd_edge":
@@ -839,9 +862,7 @@ def check_dgcnn_bwd(rs):
             "bound_ms_f32": f32_bound(sum(w[1] for w in work32),
                                       sum(w[2] for w in work32),
                                       sum(w[0] for w in work32)),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         })
         print(f"{name}: {ms:.3f} ms bf16, {ms32:.3f} ms fp32, plain {plain_ms:.3f} ms, "
               f"bound {entries[-1]['bound_ms']:.4f} ms ({entries[-1]['bound_by']}), "
@@ -4013,6 +4034,8 @@ ENV_DGCNN_KS = (4, 12, 25, 32)   # k the DGCNN eval kernel was not compiled for
 ENV_GS1_KS = (12, 32)            # and the training graph's
 ENV_EDGES_K = 12
 ENV_EM = ((8, 5734, 128), (8, 4096, 128), (8, 2867, 256))   # (clouds, N, K)
+ENV_BWD = ((1, N), (12, N), (32, N), (32, 1024))   # (k, N) of the backward
+#                                  kernels, which were compiled for k = 20
 ENV_GNN_K = 12                   # the model of parts (b), (c) and (e)
 ENV_N_EM = 4096                  # part (d): a request the JAX rule sends to
 #                                  its EM kernel past a cluster of 8 blocks
@@ -4164,6 +4187,46 @@ def env_graph_stage1(rs):
     return res
 
 
+def env_dgcnn_bwd(rs):
+    """The five backward calls of a real backward at each (k, N) of ENV_BWD,
+    B = 24 clouds, bf16 and float32: each kernel launched twice (bit for
+    bit) against its plain version under the LIM_BWD_* limits, and the
+    calls of one backward timed beside their plain versions and their bound
+    (bytes and operations at this k: the rows past k of a tile are not work
+    this input needs). {kernel: {"k=..": entry}}."""
+    res = {name: {} for name in BWD}
+    for k, n in ENV_BWD:
+        tag = f"k={k}" + ("" if n == N else f",N={n}")
+        errs = {name: {} for name in BWD}
+        calls = {}
+        for dt in (torch.float32, torch.bfloat16):
+            calls[dt] = bwd_calls(rs, dt, k, n)
+            bwd_compare(calls[dt], dt, errs, f" ({tag})")
+        for name, (kern, plain, _) in BWD.items():
+            entry = {"shape": [B, k, n], "row_class": cuda_dgcnn_bwd.row_class(k),
+                     "calls_per_backward": sum(c[0] == name for c in calls[torch.bfloat16])}
+            for dt, key in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+                mine = [(a, kw) for nm, a, kw in calls[dt] if nm == name]
+
+                def run(fn, mine=mine):
+                    for a, kw in mine:
+                        fn(*a, **kw)
+                entry["ms" + key] = cuda_ms(lambda: run(kern), 10)
+                entry["plain_ms" + key] = cuda_ms(lambda: run(plain), 3)
+                bound, by = bwd_bound([bwd_work(name, a, kw) for a, kw in mine], dt)
+                entry["bound_ms" + key], entry["bound_by" + key] = bound, by
+                entry["max_abs_err" + key] = errs[name][dt]
+            res[name][tag] = entry
+            print(f"envelopes {name} ({B}, {n}, {tag}, class {entry['row_class']}): "
+                  f"bf16 {entry['ms']:.4f} ms (plain {entry['plain_ms']:.3f}, bound "
+                  f"{entry['bound_ms']:.4f}, {entry['bound_by']}), float32 "
+                  f"{entry['ms_f32']:.4f} ms (plain {entry['plain_ms_f32']:.3f}, bound "
+                  f"{entry['bound_ms_f32']:.4f}, {entry['bound_by_f32']}); errors "
+                  f"{entry['max_abs_err']:.3g} / {entry['max_abs_err_f32']:.3g}")
+        del calls
+    return res
+
+
 def env_em(rs):
     """sinkhorn_em past a cluster of 8 blocks and above K = 128, against
     the plain version per trip and after ten trips."""
@@ -4247,28 +4310,45 @@ def env_serve(cfg, pair, want):
 
 
 def env_train(rs, cfg):
-    """One train step of cfg at B=24, N=717 (the plain backward: the
-    backward kernels are compiled for k = 20): launches counted from 0, the
-    step against the plain versions from the same state."""
+    """One train step of cfg at B=24, N=717 with the backward kernels on
+    (`BWD_KERNELS`): launches counted from 0 (graph_stage1 2, bwd_reduce 2,
+    bwd_stage 6, bwd_edge 2: src and tgt each one backward); from one state
+    the loss bit-equal with the switch off and the gradients within
+    LIM_BWD_STEP_GRAD, and the step against the plain versions."""
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_overlap=True),
                       data=dataclasses.replace(cfg.data, fix_tgt_overlap=True))
     state = create_train_state(cfg, steps_per_epoch=100, seed=0, device=DEV)
     step = make_train_step(cfg)
     batches = [make_batch(rs) for _ in range(2)]
-    step(state, batches[0])                            # warm up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    metrics, launches = _counted(lambda: step(state, batches[1]))
-    secs = (time.perf_counter() - t0) * 1e3
-    assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
-    assert launches.get("graph_stage1", 0) == 2 and not launches.get("bwd_stage"), launches
-    k_loss, k_grads = _step_grads(state, cfg, batches[0])
-    with plain_versions():
-        p_loss, p_grads = _step_grads(state, cfg, batches[0])
+    saved = ops_dgcnn_train.BWD_KERNELS
+    ops_dgcnn_train.BWD_KERNELS = True
+    try:
+        step(state, batches[0])                        # warm up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, launches = _counted(lambda: step(state, batches[1]))
+        secs = (time.perf_counter() - t0) * 1e3
+        assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
+        want = {"graph_stage1": 2, "bwd_reduce": 2, "bwd_stage": 6, "bwd_edge": 2}
+        assert {k: launches.get(k, 0) for k in want} == want, launches
+        k_loss, k_grads = _step_grads(state, cfg, batches[0])
+        ops_dgcnn_train.BWD_KERNELS = False
+        o_loss, o_grads = _step_grads(state, cfg, batches[0])
+        ops_dgcnn_train.BWD_KERNELS = True
+        d_bwd = _rel(k_grads, o_grads)
+        print(f"envelopes train step, backward kernels on against off: loss "
+              f"{k_loss!r} / {o_loss!r}; gradients relative {d_bwd:.3g} (limit "
+              f"{LIM_BWD_STEP_GRAD})")
+        assert k_loss == o_loss and d_bwd <= LIM_BWD_STEP_GRAD, (k_loss, o_loss, d_bwd)
+        with plain_versions():
+            p_loss, p_grads = _step_grads(state, cfg, batches[0])
+    finally:
+        ops_dgcnn_train.BWD_KERNELS = saved
     d_loss = abs(k_loss - p_loss) / abs(p_loss)
     d_grad = _rel(k_grads, p_grads)
     assert d_loss <= LIM_STEP_LOSS and d_grad <= LIM_STEP_GRAD, (d_loss, d_grad)
-    return launches, {"step_ms": secs, "loss": k_loss, "loss_rel_vs_plain": d_loss,
+    return launches, {"step_ms": secs, "loss": k_loss, "loss_off": o_loss,
+                      "grad_rel_on_off": d_bwd, "loss_rel_vs_plain": d_loss,
                       "grad_rel_vs_plain": d_grad}
 
 
@@ -4310,13 +4390,15 @@ def envelopes(rs):
     """The kernels' widened envelopes: (a) each widened kernel against its
     plain version at the new shapes; (b) `Registrar(configs.mnet(gnn_k=12))`
     at B=24, N=717, float32 and bf16 (dgcnn_eval 1, sinkhorn_em 1); (c)
-    one train step of it (graph_stage1 2); (d) a request at B=8, N=4,096,
+    one train step of it, float32 and bf16, with the backward kernels on
+    (graph_stage1 2, bwd_reduce 2, bwd_stage 6, bwd_edge 2); (d) a request at B=8, N=4,096,
     K=128 (sinkhorn_em 1, a cluster of 16 blocks a cloud); (e) the CLI with
     --profile_dir; (f) the indoor request (float32, B=1, N=35,000) at gnn_k=12
     with dgcnn_fused_edges=True (dgcnn_edges 1). Each part's launches are
     counted from 0 right before it."""
     kernels = {"dgcnn_eval": env_dgcnn_eval(rs), "dgcnn_edges": env_dgcnn_edges(rs),
-               "graph_stage1": env_graph_stage1(rs), "sinkhorn_em": env_em(rs)}
+               "graph_stage1": env_graph_stage1(rs), "sinkhorn_em": env_em(rs),
+               **env_dgcnn_bwd(rs)}
     total, res = {}, {"kernels": kernels}
     indoor = configs.indoor()
     indoor = indoor.replace(model=dataclasses.replace(
@@ -4328,6 +4410,7 @@ def envelopes(rs):
                  _env_cfg("bfloat16", gnn_k=ENV_GNN_K), make_pairs(rs, B, N),
                  {"dgcnn_eval": 1, "sinkhorn_em": 1, "knn": 0})),
              ("train_k12", lambda: env_train(rs, _env_cfg(gnn_k=ENV_GNN_K))),
+             ("train_k12_bf16", lambda: env_train(rs, _env_cfg("bfloat16", gnn_k=ENV_GNN_K))),
              ("serve_n4096", lambda: env_serve(
                  _env_cfg(), make_pairs(rs, 8, ENV_N_EM),
                  {"sinkhorn_em": 1, "dgcnn_eval": 0})),

@@ -9,11 +9,28 @@
 //   bwd_edge_launch    bwd_edge_pallas (_bwd_edge_kernel): stage 1, dW_1,
 //   bwd_edge_bf16_launch   dq and the neighbour scatter dscat
 //
-// Layout: stage tensors are (B, KNN, N, C) in the compute type T (float32 or
-// bf16), taps (B, N, C). A "tile" is the KNN rows (b, j, n0 + t) of each of a
-// few points n0 + t: the max over k of a column needs all KNN rows of its
-// point, which is why the TPU kernel takes every k of a tile too. Its row
-// tail is a bounds check on n; rows past N enter no output and no sum.
+// Layout: stage tensors are (B, k, N, C) in the compute type T (float32 or
+// bf16), taps (B, N, C). A "tile" is the rows (b, j, n0 + t) of each of a few
+// points n0 + t: the max over k of a column needs all k rows of its point,
+// which is why the TPU kernel takes every k of a tile too. Its row tail is a
+// bounds check on n; rows past N enter no output and no sum.
+//
+// Row classes. The file is compiled once a class (ops/dispatch.py: nvcc with
+// -DBWD_KP=KP, KP in 4, 8, 12, 16, 20, 24, 32; ops/cuda_dgcnn_bwd.py:
+// row_class), and a launch of class KP takes any graph of 1 <= k <= KP
+// neighbours: a tile holds KP rows a point (WTN or FTN points), and its rows
+// j >= k are padding. Unlike the forward's, they cannot repeat a real row: a
+// padded row must add nothing to dW_i, S, de, dW_1 or the scatter, and must
+// never win a column's argmax (h = ReLU(BN(0)) can exceed every real row).
+// So every kernel runs the argmax over j < k only, writes dz_i = 0 and
+// h_{i-1} = 0 on padded rows before any product reads them, adds no padded
+// row to a sum and stores none: the tensor maps are 4-D, (C, N, k, B) with
+// boxes of KP rows a point in one cloud, so that TMA zero-fills the padded
+// rows on load and drops them on store, and the bulk copies of the float32
+// stage kernel copy rows j < k only. Every kernel is also compiled with PAD =
+// false for k = KP, where k is the constant KP, every guard folds away and
+// the boxes are the 3-D ones of a (C, N, B KP) view: the class of k = 20
+// runs the code of k = 20 alone.
 //
 // Every call is one pass over a persistent grid (the reduce's last block adds
 // the partials; the stage and edge passes leave one partial a block, added in
@@ -54,7 +71,12 @@
 #include "knn_select.cuh"  // MAXN, to_f, from_f
 #include "tf32.cuh"        // split_tf32, mma_tf32x3
 
-#define KNN 20           // the graph the backward kernels are compiled for
+#ifndef BWD_KP
+#error "compile with -DBWD_KP=<rows a point of the row class>"
+#endif
+// the row class: a point's rows in a tile; a launch takes any 1 <= k <= KP
+constexpr int KP = BWD_KP;
+static_assert(KP % 4 == 0 && KP >= 4 && KP <= 32, "row classes");
 #define FULL_MASK 0xffffffffu
 
 #define NT 256           // threads of a sum_parts_kernel block
@@ -127,11 +149,12 @@ sum_parts_kernel(const float* __restrict__ part, int G, int L, float* __restrict
 //
 // bwd_reduce has no cotangent from above, so dh is 0 on every row but the
 // max-over-k argmax of its column, where it is rnd(dtap), and ReLU-VJP(0, y)
-// is 0: of a column's KNN rows only the argmax row adds to S1 and S2
+// is 0: of a column's k rows only the argmax row adds to S1 and S2
 // (pallas_dgcnn_train.py:_bwd_reduce_kernel states it densely). A thread owns
 // RED_CH adjacent channels of one point (b, n), a warp 256 contiguous
-// channels (256 / C points), and streams the point's KNN rows as 16-byte
-// loads (one a row for bf16, two for float32), U rows in flight at once,
+// channels (256 / C points), and streams the point's k rows as 16-byte
+// loads (one a row for bf16, two for float32), U rows in flight at once (the
+// row class's KP rows unrolled, the rows j >= k neither loaded nor compared),
 // keeping for each channel only the running first argmax of max(y, 0): its
 // bits as an integer key (negative y and -0 below every key of y >= 0), z
 // there, and whether y of row 0 is 0 (the argmax where every y <= 0). Then
@@ -177,20 +200,21 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <typename T, int C>
+template <typename T, int C, bool PAD>
 __global__ void __launch_bounds__(RED_NT, 1)
 reduce_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
               const float* __restrict__ mean, const float* __restrict__ var,
               const float* __restrict__ gamma, const float* __restrict__ beta,
               float* __restrict__ part, unsigned* __restrict__ ticket,
-              float* __restrict__ s, int B, int N, int tstride) {
+              float* __restrict__ s, int B, int N, int k, int tstride) {
+  if constexpr (!PAD) k = KP;   // no padded row: the guards fold
   constexpr bool BF = sizeof(T) == 2;
   constexpr int TPP = C / RED_CH;            // threads a point
   constexpr int PPW = 32 / TPP;              // points a warp takes at once
   constexpr int V = BF ? 1 : 2;              // 16-byte loads a row
-  constexpr int U = BF ? 10 : 4;             // rows in flight
+  constexpr int U = KP < (BF ? 10 : 4) ? KP : (BF ? 10 : 4);   // rows in flight
   constexpr int L = 2 * C, SL = RED_NT / L;  // outputs; slices of the last sum
-  static_assert(KNN % U == 0 && RED_NT % L == 0 && 32 % TPP == 0, "shapes");
+  static_assert(RED_NT % L == 0 && 32 % TPP == 0, "shapes");
   __shared__ float red[RED_NT][2 * RED_CH + 1];
   __shared__ float2 szh[C];                  // (mean, inv) of each channel
   __shared__ bool last;
@@ -225,7 +249,7 @@ reduce_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
   const size_t rstride = (size_t)N * C;      // elements from row j to j + 1
   for (int p = p0 + warp * PPW + lane / TPP; p < p1; p += RED_W * PPW) {
     const int b = p / N, n = p - b * N;
-    const T* zp = z + ((size_t)b * KNN * N + n) * C + c0;
+    const T* zp = z + ((size_t)b * k * N + n) * C + c0;
     uint4 tap[V];
 #pragma unroll
     for (int h = 0; h < V; ++h)
@@ -234,16 +258,20 @@ reduce_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
     uint32_t zam[RED_CH];      // the word holding z at the argmax
     unsigned zero0 = 0;        // bit e: y of row 0 is 0
 #pragma unroll
-    for (int j0 = 0; j0 < KNN; j0 += U) {
+    for (int j0 = 0; j0 < KP; j0 += U) {
+      if (j0 >= k) break;
       uint4 v[U][V];
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
         for (int h = 0; h < V; ++h)
-          v[u][h] = ld_stream(reinterpret_cast<const uint4*>(zp + (j0 + u) * rstride) + h);
+          v[u][h] = j0 + u < k
+                        ? ld_stream(reinterpret_cast<const uint4*>(zp + (j0 + u) * rstride) + h)
+                        : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int j = j0 + u;
+        if (j >= k) break;
 #pragma unroll
         for (int e = 0; e < RED_CH; ++e) {
           uint32_t w;
@@ -329,7 +357,7 @@ reduce_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
 }
 
 // dscat[b][p] = sum of dneigh[b][s] over the rows s = j N + n with
-// idx[b][n][j] == p, in ascending s order, from idx^T (B, KNN, N): s runs
+// idx[b][n][j] == p, in ascending s order, from idx^T (B, k, N): s runs
 // along memory. Block (r, b) owns the points [r SCAT_P, (r + 1) SCAT_P) of
 // cloud b and builds the inverse of idx for them alone in shared memory,
 // already in s order, with no sort: warp w takes the rows of its contiguous
@@ -349,18 +377,18 @@ reduce_kernel(const T* __restrict__ z, const T* __restrict__ dtap,
 #define SCAT_U 8         // loads a thread keeps in flight
 __global__ void __launch_bounds__(SCAT_NT)
 scatter_kernel(const int* __restrict__ idxT, const float* __restrict__ dneigh,
-               float* __restrict__ dscat, int N) {
+               float* __restrict__ dscat, int N, int k) {
   extern __shared__ int sm[];
   int* cw = sm;                      // [SCAT_W][SCAT_P] counts, then cursors
   int* off = cw + SCAT_W * SCAT_P;   // [SCAT_P] start of each point's list
   int* tot = off + SCAT_P;           // [SCAT_P] length of each point's list
   int* wsum = tot + SCAT_P;          // [SCAT_W] the scan's warp totals
-  int* rows = wsum + SCAT_W;         // (at most KNN N) the lists
+  int* rows = wsum + SCAT_W;         // (at most k N) the lists
   const size_t b = blockIdx.y;
   const int p0 = blockIdx.x * SCAT_P, np = min(SCAT_P, N - p0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int* ib = idxT + b * KNN * N;
-  const int S = KNN * N, share = (S + SCAT_W * 32 - 1) / (SCAT_W * 32) * 32;
+  const int* ib = idxT + b * k * N;
+  const int S = k * N, share = (S + SCAT_W * 32 - 1) / (SCAT_W * 32) * 32;
   const int s_lo = min(S, warp * share), s_hi = min(S, s_lo + share);
   for (int i = tid; i < SCAT_W * SCAT_P; i += SCAT_NT) cw[i] = 0;
   __syncthreads();
@@ -427,7 +455,7 @@ scatter_kernel(const int* __restrict__ idxT, const float* __restrict__ dneigh,
   __syncthreads();
   // 4. the sums
   if (tid < np) {
-    const float* dn = dneigh + b * KNN * N * 3;
+    const float* dn = dneigh + b * k * N * 3;
     const int* l = rows + off[tid];
     const int c = tot[tid];
     float x = 0.f, y = 0.f, zz = 0.f;
@@ -457,14 +485,14 @@ scatter_kernel(const int* __restrict__ idxT, const float* __restrict__ dneigh,
 }
 
 static cudaError_t launch_scatter(const int* idxT, const float* dneigh, float* dscat,
-                                  int B, int N, cudaStream_t st) {
+                                  int B, int N, int k, cudaStream_t st) {
   const size_t bytes =
-      sizeof(int) * ((SCAT_W + 2) * SCAT_P + SCAT_W + (size_t)KNN * N);
+      sizeof(int) * ((SCAT_W + 2) * SCAT_P + SCAT_W + (size_t)k * N);
   cudaError_t err = cudaFuncSetAttribute(
       scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   scatter_kernel<<<dim3((N + SCAT_P - 1) / SCAT_P, B), SCAT_NT, bytes, st>>>(
-      idxT, dneigh, dscat, N);
+      idxT, dneigh, dscat, N, k);
   return cudaGetLastError();
 }
 
@@ -473,28 +501,32 @@ static cudaError_t launch_scatter(const int* idxT, const float* dneigh, float* d
 // stage_wgmma_kernel: bwd_stage for bf16 in one pass, as the TPU kernel does
 // (dW_i accumulated from the tiles the row pass already holds). A persistent
 // grid of at most WBLOCKS blocks, one an SM, each walking an equal contiguous
-// share of the tiles (WTN = 4 points, 80 rows r = j WTN + t). Per block:
+// share of the tiles (WTN points of KP rows, WROWS rows r = j WTN + t: 80 in
+// the class of k = 20; WTN from the class, so that a tile keeps at most 80
+// rows, a multiple of wgmma's k16, as stage 4's buffers need). Per block:
 //  - W_i (C_in, C) and W_{i+1} (C, C_next), float32, are rounded to bf16 and
 //    loaded once into shared memory as K-major panels (128-byte swizzle) for
 //    the block's lifetime; the BN constants are formed from the float32 batch
 //    statistics with the operations of the plain version (bn_stats), so that
 //    the wrapper launches no PyTorch operation;
 //  - a tile's z_i, z_{i-1} and dz_{i+1} arrive by TMA, each 64-channel panel
-//    one 3-D box (64 channels, WTN points, KNN neighbours) of one cloud, rows
-//    past N as zeros; the next tile's boxes are in flight (a ring of two
-//    buffers on mbarriers) while this one is computed;
-//  - extra^T = W_{i+1} dz_{i+1}^T and dh_{i-1}^T = W_i dz_i^T are m64n40k16
-//    wgmma (the weights as A, the tile's rows as N), rounded to bf16 into a
-//    row-major scratch tile;
-//  - the element work is one lane pair a (point, channel) column, ten of its
-//    rows each, reading the swizzled panels: h recomputed with the forward's
-//    rounding, the first argmax over k (the pair's two halves combined by a
-//    shuffle), dz_i (written over z_i in place, then stored by TMA, which
-//    drops the rows past N), and for the stage below dy_{i-1}, its sums and
-//    h_{i-1} (written over z_{i-1} in place); a column's tap cotangent is
-//    loaded before its first pass, so that the load's latency runs under it;
+//    one box (64 channels, WTN points, KP neighbours of one cloud: tile_load),
+//    rows past N and past k as zeros; the next tile's boxes are in flight (a
+//    ring of two buffers on mbarriers) while this one is computed;
+//  - extra^T = W_{i+1} dz_{i+1}^T and dh_{i-1}^T = W_i dz_i^T are m64nRNk16
+//    wgmma (the weights as A, half the tile's rows as N: RN = 40 at k = 20),
+//    rounded to bf16 into a row-major scratch tile;
+//  - the element work is WL lanes a (point, channel) column (a pair at
+//    k = 20), WROWS / 8 of its rows each (rows_a_lane), reading the swizzled
+//    panels: h recomputed with the forward's rounding, the first argmax over
+//    the rows j < k (the lanes' maxima combined by shuffles), dz_i (written
+//    over z_i in place, 0 on the rows past N or k, then stored by TMA, which
+//    drops those rows), and for the stage below dy_{i-1}, its sums and
+//    h_{i-1} (written over z_{i-1} in place, 0 on the same rows); a column's
+//    tap cotangent is loaded before its first pass, so that the load's
+//    latency runs under it;
 //  - dW_i += h_{i-1}^T dz_i: wgmma with both operands MN-major straight from
-//    those panels (K = the tile's 80 rows), the accumulators held in
+//    those panels (K = the tile's rows), the accumulators held in
 //    registers across the block's tiles: (C_in / 64) (C / min(C, 128)) jobs of
 //    m64 x min(C, 128), one a warpgroup.
 // At the end each block writes its float32 dW_i and S_{i-1} partials;
@@ -510,12 +542,42 @@ static cudaError_t launch_scatter(const int* idxT, const float* dneigh, float* d
 // weight-gradient products left running into the next tile, the taps of a
 // whole tile loaded at its start (more spills): none faster.
 
-#define WTN 4                  // points of a tile
-#define WROWS (KNN * WTN)      // 80 rows a tile
+// points of a bf16 (and float32 edge) tile: 80 rows or fewer, a multiple of
+// 16 (ops/cuda_dgcnn_bwd.py:tile_points)
+constexpr int WTN = KP <= 8 ? 8 : KP <= 20 ? 4 : 2;
+constexpr int WROWS = KP * WTN;     // rows a tile: 80 at k = 20
 #define WTHREADS 512           // four warpgroups
 #define WBLOCKS 132            // the persistent grid: one block an SM of an H100
-#define PANEL (WROWS * 128)    // bytes of a tile's 64-channel panel
-#define RN 40                  // tile rows a row product's job takes
+constexpr int PANEL = WROWS * 128;  // bytes of a tile's 64-channel panel
+constexpr int RN = WROWS / 2;       // tile rows a row product's job takes
+static_assert(WROWS % 16 == 0 && WROWS <= 80 && 8 % WTN == 0, "bf16 tiles");
+
+// A tile's box of a stage tensor, channels [c0, c0 + box), points [n0, n0 +
+// WTN) of cloud b: with padded rows (PAD) a 4-D box (channels, WTN points, KP
+// rows, one cloud) whose rows past k TMA zero-fills on load and drops on
+// store; for k = KP the 3-D box (channels, WTN points, KP rows) over the
+// (C, N, B KP) view (stage_map builds the map of either)
+template <bool PAD>
+__device__ __forceinline__ void tile_load(uint32_t dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int n0, int b) {
+  if constexpr (PAD) tma_load_4d(dst, map, bar, c0, n0, 0, b);
+  else tma_load_3d(dst, map, bar, c0, n0, b * KP);
+}
+
+template <bool PAD>
+__device__ __forceinline__ void tile_store(const CUtensorMap* map, uint32_t src, int c0,
+                                           int n0, int b) {
+  if constexpr (PAD) tma_store_4d(map, src, c0, n0, 0, b);
+  else tma_store_3d(map, src, c0, n0, b * KP);
+}
+
+// lanes a (point, channel) column of C channels in the element work: at
+// most 8 / WTN (a lane's rows then lie 8 rows apart), and few enough that
+// each thread keeps one channel over its passes
+template <int C>
+__host__ __device__ constexpr int column_lanes() {
+  return 8 / WTN < WTHREADS / C ? 8 / WTN : WTHREADS / C;
+}
 
 typedef __nv_bfloat16 bf16;
 
@@ -532,7 +594,7 @@ struct StagePlan {
   static constexpr int BUF = Z + ZP + DZN;         // one tile's inputs
   static constexpr int W = CIN * C * 2;            // W_i: C / 64 panels of CIN rows
   static constexpr int WN = C * CN * 2;            // W_{i+1}: CN / 64 panels of C rows
-  // the scratch tile E: extra (80 x C) then dh_{i-1} (80 x CIN), bf16, rows
+  // the scratch tile E: extra (WROWS x C) then dh_{i-1} (WROWS x CIN), bf16, rows
   // padded; it lives in the dz_{i+1} panels (dead once extra is formed), or
   // beside the buffers for the last stage
   static constexpr int E_LD1 = C + 8, E_LD2 = CIN + 8;
@@ -557,57 +619,97 @@ __device__ __forceinline__ void load_panels(unsigned char* dst, const float* __r
   }
 }
 
-// The element work: a lane pair a (point t, channel ch) column, the lane of
-// parity h holding rows j = 2 i + h (i < KNN / 2). Row r = WTN j + t of a
-// tile is then 8 i + 4 h + t, so the lane's rows lie at one byte offset plus
-// 1024 i: constant offsets once the loop over i unrolls.
-__device__ __forceinline__ uint32_t column_offset(int t, int ch, int h) {
-  return (ch / 64) * PANEL + sw128_offset(4 * h + t, ch % 64);
+// The element work: WL lanes a (point t, channel ch) column, lane h holding
+// rows j = WL i + h (i < KP / WL). Row r = WTN j + t of a tile is then
+// RS i + WTN h + t with RS = WTN WL rows: at RS = 8 (a pair of lanes at
+// k = 20: 8 i + 4 h + t) the lane's rows lie at one pointer plus 1024 i, at
+// RS = 4 at two (even and odd i) plus 1024 (i / 2): constant offsets once
+// the loop over i unrolls (pointers, so that they fold into the loads).
+template <int WL>
+struct LaneRows {
+  static constexpr int RS = WTN * WL;
+  static_assert(RS == 8 || RS == 4, "a lane's rows");
+  unsigned char* even;
+  unsigned char* odd;
+  __device__ __forceinline__ LaneRows(unsigned char* Zp, int t, int ch, int h)
+      : even(Zp + (ch / 64) * PANEL + sw128_offset(WTN * h + t, ch % 64)),
+        odd(RS == 8 ? even : Zp + (ch / 64) * PANEL + sw128_offset(WTN * h + t + 4, ch % 64)) {}
+  __device__ __forceinline__ unsigned char* operator()(int i) const {
+    if constexpr (RS == 8) return even + i * 1024;
+    return (i & 1 ? odd : even) + (i >> 1) * 1024;
+  }
+};
+
+// the first maximum of a column from its G lanes' (best, j), G a power of
+// two, lanes of a column adjacent: the larger value, the lower j on a tie
+template <int G>
+__device__ __forceinline__ int group_argmax(float best, int am) {
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oa = __shfl_xor_sync(0xffffffffu, am, o);
+    if (ob > best || (ob == best && oa < am)) {
+      best = ob;
+      am = oa;
+    }
+  }
+  return am;
 }
 
-// the first maximum of a column from its lane pair's (best, j): the larger
-// value, the lower j on a tie
-__device__ __forceinline__ int pair_argmax(float best, int am) {
-  const float ob = __shfl_xor_sync(0xffffffffu, best, 1);
-  const int oa = __shfl_xor_sync(0xffffffffu, am, 1);
-  return (ob > best || (ob == best && oa < am)) ? oa : am;
-}
+// whether row j of a point is real: j < k, or every row where none pads (a
+// constant, so that the kernels built for k = KP carry no guard)
+template <bool PAD>
+__device__ __forceinline__ bool real_row(int j, int k) { return !PAD || j < k; }
 
 // The element work of a stage: dz over the tile's z panels at Zp, in place,
-// a lane pair a (point t, channel c) column (c and the parity h fixed for
-// the thread): h recomputed with the forward's rounding, the first argmax
-// over k, dh = extra (E, rows of ELD; none where ELD is 0) plus the tap's
-// cotangent at the argmax, dy, dz; rows past N get 0. A column's tap
-// cotangent is loaded before its first pass, so that the load's latency runs
-// under it.
-template <int C, int ELD>
+// WL = column_lanes<C>() lanes a (point t, channel c) column (c and the lane
+// h = tid % WL fixed for the thread): h recomputed with the forward's
+// rounding, the first argmax over the rows j < k, dh = extra (E, rows of
+// ELD; none where ELD is 0) plus the tap's cotangent at the argmax, dy, dz;
+// rows past N or k get 0. A column's tap cotangent is loaded before its
+// first pass, so that the load's latency runs under it.
+template <int C, int ELD, bool PAD>
 __device__ __forceinline__ void dz_columns(unsigned char* Zp, const bf16* E,
                                            const bf16* __restrict__ dtap, int b, int n0,
-                                           int N, int c, int h, const BnC& kc, float a1,
-                                           float a2) {
-  for (int e = threadIdx.x >> 1; e < WTN * C; e += WTHREADS / 2) {
+                                           int N, int k, int c, int h, const BnC& kc,
+                                           float a1, float a2) {
+  constexpr int WL = column_lanes<C>();
+  for (int e = threadIdx.x / WL; e < WTN * C; e += WTHREADS / WL) {
     const int t = e / C, n = n0 + t;
     const float tap = n < N ? __bfloat162float(dtap[((size_t)b * N + n) * C + c]) : 0.f;
-    unsigned char* colp = Zp + column_offset(t, c, h);
-    float y[KNN / 2], best = -1.f;
+    const LaneRows<WL> rows(Zp, t, c, h);
+    float y[KP / WL], best = -1.f;
     int am = 0;
 #pragma unroll
-    for (int i = 0; i < KNN / 2; ++i) {
-      y[i] = bn_y<bf16>(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kc);
+    for (int i = 0; i < KP / WL; ++i) {
+      const int j = WL * i + h;
+      y[i] = bn_y<bf16>(__bfloat162float(*reinterpret_cast<const bf16*>(rows(i))), kc);
       const float hv = fmaxf(y[i], 0.f);
-      if (hv > best) { best = hv; am = 2 * i + h; }
+      if (real_row<PAD>(j, k) && hv > best) { best = hv; am = j; }
     }
-    am = pair_argmax(best, am);
+    am = group_argmax<WL>(best, am);
 #pragma unroll
-    for (int i = 0; i < KNN / 2; ++i) {
-      const int j = 2 * i + h;
+    for (int i = 0; i < KP / WL; ++i) {
+      const int j = WL * i + h;
+      unsigned char* zr = rows(i);
       float dh = ELD > 0 ? __bfloat162float(E[(j * WTN + t) * ELD + c]) : 0.f;
       if (j == am) dh = rnd<bf16>(__fadd_rn(tap, dh));
       const float dy = relu_vjp<bf16>(dh, y[i]);
-      const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kc), a2)));
-      *reinterpret_cast<bf16*>(colp + i * 1024) = __float2bfloat16(n < N ? d : 0.f);
+      const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(__bfloat162float(*reinterpret_cast<const bf16*>(zr)), kc), a2)));
+      *reinterpret_cast<bf16*>(zr) = __float2bfloat16(n < N && real_row<PAD>(j, k) ? d : 0.f);
     }
   }
+}
+
+// m64nNRk16 with both operands K-major, NR = RN the tile rows of a job
+template <int NR>
+__device__ __forceinline__ void wgmma_rows(float (&d)[NR / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  static_assert(NR == 16 || NR == 24 || NR == 32 || NR == 40, "a job's rows");
+  if constexpr (NR == 40) wgmma_ss_n40<0, 0>(d, da, db, scale_d);
+  else if constexpr (NR == 32) wgmma_ss_n32<0, 0>(d, da, db, scale_d);
+  else if constexpr (NR == 24) wgmma_ss_n24<0, 0>(d, da, db, scale_d);
+  else wgmma_ss_n16<0, 0>(d, da, db, scale_d);
 }
 
 // d (the tile's rows as N) of A (64 x K, K-major panels of `arows` rows,
@@ -621,7 +723,7 @@ __device__ __forceinline__ void rows_product(float (&d)[RN / 2], uint32_t a, int
   for (int kq = 0; kq < K / 16; ++kq) {
     const uint64_t da = desc_k(a + (kq / 4) * (arows * 128) + mt * 64 * 128 + (kq % 4) * 32);
     const uint64_t db = desc_k(b + (kq / 4) * PANEL + nh * RN * 128 + (kq % 4) * 32);
-    wgmma_ss_n40<0, 0>(d, da, db, kq > 0);
+    wgmma_rows<RN>(d, da, db, kq > 0);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -646,7 +748,7 @@ __device__ __forceinline__ void dw_product(float (&d)[DWN / 2], uint64_t da, uin
   else wgmma_ss_n64<1, 1>(d, da, db, 1);
 }
 
-template <int C, int CIN, int CN>
+template <int C, int CIN, int CN, bool PAD>
 __global__ void __launch_bounds__(WTHREADS, 1)
 stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
                    const __grid_constant__ CUtensorMap zpmap,
@@ -655,10 +757,13 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
                    const bf16* __restrict__ dtap, const BatchStats st,
                    const float* __restrict__ s12, const float* __restrict__ wn,
                    const float* __restrict__ w, const bf16* __restrict__ dtapp,
-                   float* __restrict__ part_s, float* __restrict__ part_w, int B, int N) {
+                   float* __restrict__ part_s, float* __restrict__ part_w, int B, int N,
+                   int k) {
+  if constexpr (!PAD) k = KP;   // no padded row: the guards fold
   typedef StagePlan<C, CIN, CN> P;
   constexpr int DWN = C < 128 ? C : 128, DW_JOBS = (CIN / 64) * (C / DWN);
-  static_assert((WTHREADS / 2) % C == 0 && (WTHREADS / 2) % CIN == 0 && DW_JOBS <= 4, "widths");
+  constexpr int WLP = column_lanes<CIN>();
+  static_assert(DW_JOBS <= 4, "widths");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[2];
   unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -670,7 +775,7 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
   const int ntn = (N + WTN - 1) / WTN, T = B * ntn;
   const int tile0 = (int)((long long)blockIdx.x * T / gridDim.x);
   const int tile1 = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
-  const float m = (float)B * KNN * N;
+  const float m = (float)B * k * N;
 
   if (tid == 0) {
     mbar_init(&full[0], 1);
@@ -688,18 +793,20 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
     mbar_expect_tx(&full[s], P::BUF);
 #pragma unroll
     for (int p = 0; p < C / 64; ++p)
-      tma_load_3d(dst + p * PANEL, &zmap, &full[s], 64 * p, n0, b * KNN);
+      tile_load<PAD>(dst + p * PANEL, &zmap, &full[s], 64 * p, n0, b);
 #pragma unroll
     for (int p = 0; p < CIN / 64; ++p)
-      tma_load_3d(dst + P::Z + p * PANEL, &zpmap, &full[s], 64 * p, n0, b * KNN);
+      tile_load<PAD>(dst + P::Z + p * PANEL, &zpmap, &full[s], 64 * p, n0, b);
 #pragma unroll
     for (int p = 0; p < CN / 64; ++p)
-      tma_load_3d(dst + P::Z + P::ZP + p * PANEL, &dznmap, &full[s], 64 * p, n0, b * KNN);
+      tile_load<PAD>(dst + P::Z + P::ZP + p * PANEL, &dznmap, &full[s], 64 * p, n0, b);
   };
   if (tid == 0 && tile0 < tile1) issue(tile0, 0);
 
-  // the channels of this lane's columns are fixed; h is its parity
-  const int h = tid & 1, c = (tid >> 1) % C, cp = (tid >> 1) % CIN;
+  // the channels of this lane's columns are fixed (column_lanes), and its
+  // lane of them (hp for stage i-1)
+  const int c = (tid / column_lanes<C>()) % C, h = tid % column_lanes<C>();
+  const int cp = (tid / WLP) % CIN, hp = tid % WLP;
   const BnC kc = bn_stats<bf16>(st.p[0], st.p[1], st.p[2], st.p[3], c);
   const BnC kp = bn_stats<bf16>(st.p[4], st.p[5], st.p[6], st.p[7], cp);
   const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
@@ -735,12 +842,12 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
     }
 
     // 2. stage i: dz_i over z_i
-    dz_columns<C, (CN > 0 ? P::E_LD1 : 0)>(Zp, E, dtap, b, n0, N, c, h, kc, a1, a2);
+    dz_columns<C, (CN > 0 ? P::E_LD1 : 0), PAD>(Zp, E, dtap, b, n0, N, k, c, h, kc, a1, a2);
     fence_proxy_async();   // dz_i is read by TMA and wgmma next
     __syncthreads();
     if (tid == 0) {
 #pragma unroll
-      for (int p = 0; p < C / 64; ++p) tma_store_3d(&dzmap, Zs + p * PANEL, 64 * p, n0, b * KNN);
+      for (int p = 0; p < C / 64; ++p) tile_store<PAD>(&dzmap, Zs + p * PANEL, 64 * p, n0, b);
       tma_store_commit();
     }
 
@@ -753,30 +860,33 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
     __syncthreads();
 
     // 4. stage i-1: dy_{i-1}, its sums, h_{i-1} over z_{i-1}
-    for (int e = tid >> 1; e < WTN * CIN; e += WTHREADS / 2) {
+    for (int e = tid / WLP; e < WTN * CIN; e += WTHREADS / WLP) {
       const int t = e / CIN, n = n0 + t;
       const float tap = n < N ? __bfloat162float(dtapp[((size_t)b * N + n) * CIN + cp]) : 0.f;
-      unsigned char* colp = ZPp + column_offset(t, cp, h);
-      float y[KNN / 2], best = -1.f;
+      const LaneRows<WLP> rows(ZPp, t, cp, hp);
+      float y[KP / WLP], best = -1.f;
       int am = 0;
 #pragma unroll
-      for (int i = 0; i < KNN / 2; ++i) {
-        y[i] = bn_y<bf16>(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kp);
+      for (int i = 0; i < KP / WLP; ++i) {
+        const int j = WLP * i + hp;
+        y[i] = bn_y<bf16>(__bfloat162float(*reinterpret_cast<const bf16*>(rows(i))), kp);
         const float hv = fmaxf(y[i], 0.f);
-        if (hv > best) { best = hv; am = 2 * i + h; }
+        if (real_row<PAD>(j, k) && hv > best) { best = hv; am = j; }
       }
-      am = pair_argmax(best, am);
+      am = group_argmax<WLP>(best, am);
 #pragma unroll
-      for (int i = 0; i < KNN / 2; ++i) {
-        const int j = 2 * i + h;
+      for (int i = 0; i < KP / WLP; ++i) {
+        const int j = WLP * i + hp;
+        unsigned char* zr = rows(i);
         float dh = __bfloat162float(E[(j * WTN + t) * P::E_LD2 + cp]);
         if (j == am) dh = rnd<bf16>(__fadd_rn(tap, dh));
         const float dy = relu_vjp<bf16>(dh, y[i]);
-        if (n < N) {
+        const bool real = n < N && real_row<PAD>(j, k);
+        if (real) {
           s1 = __fadd_rn(s1, dy);
-          s2 = __fadd_rn(s2, __fmul_rn(dy, zhat(__bfloat162float(*reinterpret_cast<const bf16*>(colp + i * 1024)), kp)));
+          s2 = __fadd_rn(s2, __fmul_rn(dy, zhat(__bfloat162float(*reinterpret_cast<const bf16*>(zr)), kp)));
         }
-        *reinterpret_cast<bf16*>(colp + i * 1024) = __float2bfloat16(n < N ? fmaxf(y[i], 0.f) : 0.f);
+        *reinterpret_cast<bf16*>(zr) = __float2bfloat16(real ? fmaxf(y[i], 0.f) : 0.f);
       }
     }
     fence_proxy_async();   // h_{i-1} is read by wgmma next
@@ -815,10 +925,10 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
   RED[tid] = s1;
   RED[WTHREADS + tid] = s2;
   __syncthreads();
-  if (tid < CIN) {   // the lanes of channel tid: 2 (tid + CIN q) + h, in order
+  if (tid < CIN) {   // the lanes of channel tid: WLP (tid + CIN q) + h, in order
     float u = 0.f, v = 0.f;
-    for (int k = 2 * tid; k < WTHREADS; k += 2 * CIN)
-      for (int x = k; x < k + 2; ++x) { u = __fadd_rn(u, RED[x]); v = __fadd_rn(v, RED[WTHREADS + x]); }
+    for (int q = WLP * tid; q < WTHREADS; q += WLP * CIN)
+      for (int x = q; x < q + WLP; ++x) { u = __fadd_rn(u, RED[x]); v = __fadd_rn(v, RED[WTHREADS + x]); }
     part_s[(size_t)blockIdx.x * 2 * CIN + tid] = u;
     part_s[(size_t)blockIdx.x * 2 * CIN + CIN + tid] = v;
   }
@@ -843,9 +953,10 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
 // from device memory (the L2 holds them; each block reads each weight
 // element once a tile), the tile's rows from shared memory in either
 // orientation. Per block:
-//  - a tile of FTN = 2 points (40 rows r = j FTN + t) of z_i, z_{i-1} and
-//    dz_{i+1}, and the points' tap cotangents, arrive by bulk copies (one a
-//    row of the stage tensors) into rows padded to C + 4 floats (the
+//  - a tile of FTN points (2 up to k = 20, 1 above: FROWS = KP FTN rows
+//    r = j FTN + t, 40 at k = 20) of z_i, z_{i-1} and dz_{i+1}, and the
+//    points' tap cotangents, arrive by bulk copies (one a row j < k of the
+//    stage tensors) into rows padded to C + 4 floats (the
 //    fragment loads of lanes (g, t), rows t and columns g or the reverse,
 //    fall on 32 banks): z_i, z_{i-1} and the taps into the other of two
 //    buffers while this tile is computed, dz_{i+1} into its one buffer as
@@ -853,14 +964,14 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
 //    beside stage 3's slices). Lanes 0-7 of every warp issue the copies,
 //    and store dz_i's rows the same way: 16-byte cp.async from every
 //    thread, or bulk copies from warp 0 alone, held every warp at the next
-//    barrier. Rows past N are not
-//    loaded: what they hold enters only rows past N, whose dz and h are
+//    barrier. Rows past N or k are not
+//    loaded: what they hold enters only those rows, whose dz and h are
 //    written as zeros;
 //  - extra^T = W_{i+1} dz_{i+1}^T and dh_{i-1}^T = W_i dz_i^T (the weights
 //    as A, the tile's rows as B): a warp takes one m-tile of 16 output
 //    channels (two in stage 3's extra product: a tile-row fragment split
 //    once serves both, where stage 4's 64 weight-gradient registers leave
-//    no room) and one K slice of the depth for all five 8-row column tiles,
+//    no room) and one K slice of the depth for all the 8-row column tiles,
 //    so that each weight fragment is loaded and split once and used five
 //    times, the loads two k8 steps ahead of their use (the L2's latency);
 //    the slices' partial sums land in E and are added in slice order where
@@ -870,13 +981,16 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
 //    recomputed from z with the forward's rounding (bn_y: a rounding after
 //    the subtract, the multiply and the add, no contraction, as eager
 //    PyTorch), the first argmax over k, dh = extra plus the tap's cotangent
-//    at the argmax, dy (half the cotangent at ReLU(0)), dz_i = inv gamma
+//    at the argmax (over the rows j < k), dy (half the cotangent at
+//    ReLU(0)), dz_i = inv gamma
 //    (dy - S1/m - zhat S2/m) (over z_i in place, then stored); for the stage
 //    below dy_{i-1}, its sums and h_{i-1} (over z_{i-1} in place);
-//  - dW_i += h_{i-1}^T dz_i over the tile's 40 rows (K = 5 k8 steps): warp
+//  - dW_i += h_{i-1}^T dz_i over the tile's rows (K = FROWS / 8 k8 steps): warp
 //    w takes two m-tiles of C_in and a contiguous run of the 8-column tiles
 //    of C (each B fragment split once for both), its accumulators in
-//    registers across the tiles.
+//    registers across the tiles, added into the block's partial every
+//    DW_FLUSH tiles (a float32 chain of 186 tiles a block at k = 32,
+//    N = 1024 held the weight gradient at 94% of its error limit).
 // Bound: bytes and operations about alike (the three calls at B=24, N=717
 // move about 2.2 GB, 0.65 ms at 3.35 TB/s, and take 9.0e10 float32 product
 // operations, 0.55 ms as three TF32 products at 495 TFLOP/s); mma.sync TF32
@@ -891,10 +1005,19 @@ stage_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
 // faster, but its bias doubled the error of the weight gradient's 344,160-
 // row sums).
 
-#define FTN 2                  // points of a float32 tile
-#define FROWS (KNN * FTN)      // 40 rows: five 8-row column tiles
+// points of a float32 stage tile (ops/cuda_dgcnn_bwd.py:f32_tile_points):
+// two, one above k = 20, where two points' rows outgrow stage 3's buffers
+// and a column's rows a lane's registers
+constexpr int FTN = KP <= 20 ? 2 : 1;
+constexpr int FROWS = KP * FTN;     // rows a tile: five 8-row column tiles at k = 20
+static_assert(FROWS % 8 == 0, "float32 tiles");
 #define FWARPS 16
 #define FTHREADS (32 * FWARPS)
+// the tiles a block's weight-gradient accumulators take before they are
+// added to its partial: a float32 sum over one chain of at most 96 tiles
+// (3,840 rows at k = 20; 3,072 at 32), where a block's share at k = 32,
+// N = 1024 is 186 tiles (ops/cuda_dgcnn_bwd.py:bwd_stage_plan, dw_flush)
+#define DW_FLUSH 96
 
 // a row product of M output channels over the block's warps: m-tiles, K
 // slices, the row stride of a slice's partial in E (M + 4: the lanes' stores
@@ -1001,22 +1124,6 @@ __device__ __forceinline__ void rows_tf32(const float* __restrict__ W, const flo
         e[(8 * nt + 2 * t + (i & 1)) * S::LD + 16 * u + 8 * (i >> 1)] = acc[u][nt][i];
 }
 
-// the first maximum of a column from its G lanes' (best, j), G a power of
-// two, lanes of a column adjacent: the larger value, the lower j on a tie
-template <int G>
-__device__ __forceinline__ int group_argmax(float best, int am) {
-#pragma unroll
-  for (int o = 1; o < G; o <<= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oa = __shfl_xor_sync(0xffffffffu, am, o);
-    if (ob > best || (ob == best && oa < am)) {
-      best = ob;
-      am = oa;
-    }
-  }
-  return am;
-}
-
 // a row product's value at (r, m): its K slices added in slice order
 template <int M, int MPW = 1>
 __device__ __forceinline__ float row_value(const float* E, int r, int m) {
@@ -1027,7 +1134,7 @@ __device__ __forceinline__ float row_value(const float* E, int r, int m) {
   return v;
 }
 
-template <int C, int CIN, int CN>
+template <int C, int CIN, int CN, bool PAD>
 __global__ void __launch_bounds__(FTHREADS, 1)
 stage_tf32_kernel(const float* __restrict__ z, const float* __restrict__ dtap,
                   const float* __restrict__ bn, const float* __restrict__ s12,
@@ -1035,7 +1142,8 @@ stage_tf32_kernel(const float* __restrict__ z, const float* __restrict__ dtap,
                   const float* __restrict__ w, const float* __restrict__ zp,
                   const float* __restrict__ dtapp, const float* __restrict__ bnp,
                   float* __restrict__ dz, float* __restrict__ part_s,
-                  float* __restrict__ part_w, int B, int N) {
+                  float* __restrict__ part_w, int B, int N, int k) {
+  if constexpr (!PAD) k = KP;   // no padded row: the guards fold
   typedef F32Plan<C, CIN, CN> P;
   typedef DwSplit<CIN, C> D;
   static_assert(FTHREADS % C == 0 && FTHREADS % CIN == 0, "a thread's channels are fixed");
@@ -1047,7 +1155,7 @@ stage_tf32_kernel(const float* __restrict__ z, const float* __restrict__ dtap,
   const int ntn = (N + FTN - 1) / FTN, T = B * ntn;
   const int tile0 = (int)((long long)blockIdx.x * T / gridDim.x);
   const int tile1 = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
-  const float m = (float)B * KNN * N;
+  const float m = (float)B * k * N;
   if (tid == 0) {
     mbar_init(&full[0], 1);
     mbar_init(&full[1], 1);
@@ -1060,8 +1168,8 @@ stage_tf32_kernel(const float* __restrict__ z, const float* __restrict__ dtap,
   // (i-1), lane l of a column taking its rows j = l mod G2 (G4); every
   // thread one column
   constexpr int G2 = FTHREADS / (FTN * C), G4 = FTHREADS / (FTN * CIN);
-  static_assert(G2 * FTN * C == FTHREADS && G4 * FTN * CIN == FTHREADS && KNN % G4 == 0 &&
-                KNN % G2 == 0, "columns");
+  static_assert(G2 * FTN * C == FTHREADS && G4 * FTN * CIN == FTHREADS && KP % G4 == 0 &&
+                KP % G2 == 0, "columns");
   const int c = (tid / G2) % C, tp2 = tid / (G2 * C), l2 = tid % G2;
   const int cp = (tid / G4) % CIN, tp4 = tid / (G4 * CIN), l4 = tid % G4;
   const BnC kc(bn, C, c), kp(bnp, CIN, cp);
@@ -1073,17 +1181,39 @@ stage_tf32_kernel(const float* __restrict__ z, const float* __restrict__ dtap,
 #pragma unroll
     for (int j = 0; j < D::NPW; ++j) dw[u][j][0] = dw[u][j][1] = dw[u][j][2] = dw[u][j][3] = 0.f;
   const int dmg = warp % D::MG, dnt = (warp / D::MG) * D::NPW;
+  // the accumulators added to the block's partial and zeroed, every DW_FLUSH
+  // tiles and at the end (dw[u][j][i] is row 16 (MPW dmg + u) + g + 8 (i >>
+  // 1), column 8 (dnt + j) + 2 t + (i & 1)): a thread adds to its own
+  // entries, in tile order
+  float* pw = part_w + (size_t)blockIdx.x * CIN * C;
+  bool flushed = false;   // the partial holds a run's sums
+  auto flush_dw = [&]() {
+#pragma unroll
+    for (int u = 0; u < D::MPW; ++u)
+#pragma unroll
+      for (int j = 0; j < D::NPW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* p = reinterpret_cast<float2*>(
+              pw + (size_t)(16 * (D::MPW * dmg + u) + g + 8 * h) * C + 8 * (dnt + j) + 2 * t);
+          float2 v = make_float2(dw[u][j][2 * h], dw[u][j][2 * h + 1]);
+          if (flushed) v = make_float2(__fadd_rn(p->x, v.x), __fadd_rn(p->y, v.y));
+          *p = v;
+          dw[u][j][2 * h] = dw[u][j][2 * h + 1] = 0.f;
+        }
+    flushed = true;
+  };
 
   // The bulk copies of a tile, spread over the warps (lanes 0..7 of each;
   // one warp issuing them all held every other warp at the next barrier):
   // copy q < 2 the points' tap cotangents, then the rows (b, j, n0 + t) of
-  // z_i and z_{i-1}, t below the points left in the cloud, on full[s]; and
+  // z_i and z_{i-1}, j < k, t below the points left in the cloud, on full[s]; and
   // on nfull the rows of dz_{i+1}, whose buffer is free once stage 1 is done
   const int q = lane < 8 ? warp * 8 + lane : FTHREADS;
   auto points = [&](int tile) { return min(FTN, N - (tile % ntn) * FTN); };
   auto load = [&](int tile, int s) {   // after full[s]'s expect_tx
     const int b = tile / ntn, n0 = (tile % ntn) * FTN, np = points(tile);
-    if (q >= 2 + 2 * KNN * np) return;
+    if (q >= 2 + 2 * k * np) return;
     const uint32_t zs = sbase + (uint32_t)(s * P::BUF) * 4u;
     const size_t p0 = (size_t)b * N + n0;
     if (q < 2) {
@@ -1091,23 +1221,23 @@ stage_tf32_kernel(const float* __restrict__ z, const float* __restrict__ dtap,
                 np * (q ? CIN : C) * 4, &full[s]);
       return;
     }
-    const int rr = (q - 2) % (KNN * np), j = rr / np, r = j * FTN + rr % np;
-    const size_t row = ((size_t)b * KNN + j) * N + n0 + rr % np;
-    if (q - 2 < KNN * np) bulk_load(zs + (uint32_t)(r * P::LDZ) * 4u, z + row * C, C * 4, &full[s]);
+    const int rr = (q - 2) % (k * np), j = rr / np, r = j * FTN + rr % np;
+    const size_t row = ((size_t)b * k + j) * N + n0 + rr % np;
+    if (q - 2 < k * np) bulk_load(zs + (uint32_t)(r * P::LDZ) * 4u, z + row * C, C * 4, &full[s]);
     else
       bulk_load(zs + (uint32_t)(FROWS * P::LDZ + r * P::LDP) * 4u, zp + row * CIN, CIN * 4,
                 &full[s]);
   };
   auto load_next = [&](int tile) {   // after nfull's expect_tx
     const int b = tile / ntn, n0 = (tile % ntn) * FTN, np = points(tile);
-    if (q >= KNN * np) return;
+    if (q >= k * np) return;
     const int j = q / np, r = j * FTN + q % np;
     bulk_load(sbase + (uint32_t)(2 * P::BUF + r * P::LDN) * 4u,
-              dzn + (((size_t)b * KNN + j) * N + n0 + q % np) * CN, CN * 4, &nfull);
+              dzn + (((size_t)b * k + j) * N + n0 + q % np) * CN, CN * 4, &nfull);
   };
   if (tid == 0 && tile0 < tile1) {
-    mbar_expect_tx(&full[0], (uint32_t)(points(tile0) * (KNN * (C + CIN) + C + CIN) * 4));
-    if (CN > 0) mbar_expect_tx(&nfull, (uint32_t)(points(tile0) * KNN * CN * 4));
+    mbar_expect_tx(&full[0], (uint32_t)(points(tile0) * (k * (C + CIN) + C + CIN) * 4));
+    if (CN > 0) mbar_expect_tx(&nfull, (uint32_t)(points(tile0) * k * CN * 4));
   }
   __syncthreads();
   if (tile0 < tile1) {
@@ -1117,144 +1247,138 @@ stage_tf32_kernel(const float* __restrict__ z, const float* __restrict__ dtap,
 
   int s = 0;
   uint32_t ph = 0, nph = 0;
-  for (int tile = tile0; tile < tile1; ++tile) {
-    const int b = tile / ntn, n0 = (tile % ntn) * FTN;
-    float* Z = fsm + s * P::BUF;
-    float* ZP = Z + FROWS * P::LDZ;
-    const float* DZN = fsm + 2 * P::BUF;
-    const float* TAP = Z + P::TAP;            // (FTN, C), then (FTN, C_in)
-    mbar_wait(&full[s], ph);
-    tma_store_wait_read();   // this thread's dz_i rows of the last tile are read
-    if (tid == 0 && tile + 1 < tile1)
-      mbar_expect_tx(&full[s ^ 1], (uint32_t)(points(tile + 1) * (KNN * (C + CIN) + C + CIN) * 4));
-    __syncthreads();   // every warp is done with the other buffer's tile
-    if (tile + 1 < tile1) load(tile + 1, s ^ 1);
-
-    // 1. extra^T = W_{i+1} dz_{i+1}^T: E; then the next tile's dz_{i+1}
-    if constexpr (CN > 0) {
-      mbar_wait(&nfull, nph);
-      nph ^= 1u;
-      rows_tf32<C, CN, P::XPW>(wn, DZN, P::LDN, E);
-      fence_proxy_async();   // the dz_{i+1} buffer is written by bulk copies next
+  // the block's tiles in runs of DW_FLUSH, the accumulators flushed after each
+  for (int run = tile0; run < tile1; run += DW_FLUSH) {
+    for (int tile = run; tile < min(run + DW_FLUSH, tile1); ++tile) {
+      const int b = tile / ntn, n0 = (tile % ntn) * FTN;
+      float* Z = fsm + s * P::BUF;
+      float* ZP = Z + FROWS * P::LDZ;
+      const float* DZN = fsm + 2 * P::BUF;
+      const float* TAP = Z + P::TAP;            // (FTN, C), then (FTN, C_in)
+      mbar_wait(&full[s], ph);
+      tma_store_wait_read();   // this thread's dz_i rows of the last tile are read
       if (tid == 0 && tile + 1 < tile1)
-        mbar_expect_tx(&nfull, (uint32_t)(points(tile + 1) * KNN * CN * 4));
-      __syncthreads();
-      if (tile + 1 < tile1) load_next(tile + 1);
-    }
+        mbar_expect_tx(&full[s ^ 1], (uint32_t)(points(tile + 1) * (k * (C + CIN) + C + CIN) * 4));
+      __syncthreads();   // every warp is done with the other buffer's tile
+      if (tile + 1 < tile1) load(tile + 1, s ^ 1);
 
-    // 2. stage i: dz_i over z_i
-    {
-      const int n = n0 + tp2;
-      float y[KNN / G2], best = -1.f;
-      int am = 0;
-#pragma unroll
-      for (int i = 0; i < KNN / G2; ++i) {
-        const int j = G2 * i + l2;
-        y[i] = bn_y<float>(Z[(j * FTN + tp2) * P::LDZ + c], kc);
-        const float hv = fmaxf(y[i], 0.f);
-        if (hv > best) { best = hv; am = j; }
+      // 1. extra^T = W_{i+1} dz_{i+1}^T: E; then the next tile's dz_{i+1}
+      if constexpr (CN > 0) {
+        mbar_wait(&nfull, nph);
+        nph ^= 1u;
+        rows_tf32<C, CN, P::XPW>(wn, DZN, P::LDN, E);
+        fence_proxy_async();   // the dz_{i+1} buffer is written by bulk copies next
+        if (tid == 0 && tile + 1 < tile1)
+          mbar_expect_tx(&nfull, (uint32_t)(points(tile + 1) * k * CN * 4));
+        __syncthreads();
+        if (tile + 1 < tile1) load_next(tile + 1);
       }
-      am = group_argmax<G2>(best, am);
-      const float tap = n < N ? TAP[tp2 * C + c] : 0.f;
-#pragma unroll
-      for (int i = 0; i < KNN / G2; ++i) {
-        const int j = G2 * i + l2;
-        float* zr = Z + (j * FTN + tp2) * P::LDZ + c;
-        float dh = 0.f;
-        if constexpr (CN > 0) dh = row_value<C, P::XPW>(E, j * FTN + tp2, c);
-        if (j == am) dh = __fadd_rn(tap, dh);
-        const float dy = relu_vjp<float>(dh, y[i]);
-        const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(*zr, kc), a2)));
-        *zr = n < N ? d : 0.f;
-      }
-    }
-    fence_proxy_async();   // dz_i is read by the bulk stores next
-    __syncthreads();
 
-    // dz_i out (copy q < the tile's rows, row q); 3. dh_{i-1}^T = W_i dz_i^T: E
-    {
-      const int np = points(tile);
-      if (q < KNN * np) {
-        const int j = q / np, r = j * FTN + q % np;
-        bulk_store(dz + (((size_t)b * KNN + j) * N + n0 + q % np) * C,
-                   sbase + (uint32_t)(s * P::BUF + r * P::LDZ) * 4u, C * 4);
-        tma_store_commit();
-      }
-    }
-    rows_tf32<CIN, C>(w, Z, P::LDZ, E);
-    __syncthreads();
-
-    // 4. stage i-1: dy_{i-1}, its sums, h_{i-1} over z_{i-1}
-    {
-      const int n = n0 + tp4;
-      float y[KNN / G4], best = -1.f;
-      int am = 0;
+      // 2. stage i: dz_i over z_i
+      {
+        const int n = n0 + tp2;
+        float y[KP / G2], best = -1.f;
+        int am = 0;
 #pragma unroll
-      for (int i = 0; i < KNN / G4; ++i) {
-        const int j = G4 * i + l4;
-        y[i] = bn_y<float>(ZP[(j * FTN + tp4) * P::LDP + cp], kp);
-        const float hv = fmaxf(y[i], 0.f);
-        if (hv > best) { best = hv; am = j; }
-      }
-      am = group_argmax<G4>(best, am);
-      const float tap = n < N ? TAP[FTN * C + tp4 * CIN + cp] : 0.f;
-#pragma unroll
-      for (int i = 0; i < KNN / G4; ++i) {
-        const int j = G4 * i + l4;
-        float* zr = ZP + (j * FTN + tp4) * P::LDP + cp;
-        float dh = row_value<CIN>(E, j * FTN + tp4, cp);
-        if (j == am) dh = __fadd_rn(tap, dh);
-        const float dy = relu_vjp<float>(dh, y[i]);
-        if (n < N) {
-          s1 = __fadd_rn(s1, dy);
-          s2 = __fadd_rn(s2, __fmul_rn(dy, zhat(*zr, kp)));
+        for (int i = 0; i < KP / G2; ++i) {
+          const int j = G2 * i + l2;
+          y[i] = bn_y<float>(Z[(j * FTN + tp2) * P::LDZ + c], kc);
+          const float hv = fmaxf(y[i], 0.f);
+          if (real_row<PAD>(j, k) && hv > best) { best = hv; am = j; }
         }
-        *zr = n < N ? fmaxf(y[i], 0.f) : 0.f;
+        am = group_argmax<G2>(best, am);
+        const float tap = n < N ? TAP[tp2 * C + c] : 0.f;
+#pragma unroll
+        for (int i = 0; i < KP / G2; ++i) {
+          const int j = G2 * i + l2;
+          float* zr = Z + (j * FTN + tp2) * P::LDZ + c;
+          float dh = 0.f;
+          if constexpr (CN > 0) dh = row_value<C, P::XPW>(E, j * FTN + tp2, c);
+          if (j == am) dh = __fadd_rn(tap, dh);
+          const float dy = relu_vjp<float>(dh, y[i]);
+          const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(*zr, kc), a2)));
+          *zr = n < N && real_row<PAD>(j, k) ? d : 0.f;
+        }
       }
-    }
-    __syncthreads();
+      fence_proxy_async();   // dz_i is read by the bulk stores next
+      __syncthreads();
 
-    // 5. dW_i += h_{i-1}^T dz_i over the tile's rows: A[m][k] = h[k][m],
-    //    B[k][n] = dz[k][n]
-#pragma unroll
-    for (int k = 0; k < FROWS; k += 8) {
-      uint32_t ah[D::MPW][4], al[D::MPW][4];
-#pragma unroll
-      for (int u = 0; u < D::MPW; ++u) {
-        const float* hp = ZP + (k + t) * P::LDP + 16 * (D::MPW * dmg + u) + g;
-        split_tf32(hp[0], ah[u][0], al[u][0]);
-        split_tf32(hp[8], ah[u][1], al[u][1]);
-        split_tf32(hp[4 * P::LDP], ah[u][2], al[u][2]);
-        split_tf32(hp[4 * P::LDP + 8], ah[u][3], al[u][3]);
+      // dz_i out (copy q < the tile's rows, row q); 3. dh_{i-1}^T = W_i dz_i^T: E
+      {
+        const int np = points(tile);
+        if (q < k * np) {
+          const int j = q / np, r = j * FTN + q % np;
+          bulk_store(dz + (((size_t)b * k + j) * N + n0 + q % np) * C,
+                     sbase + (uint32_t)(s * P::BUF + r * P::LDZ) * 4u, C * 4);
+          tma_store_commit();
+        }
       }
+      rows_tf32<CIN, C>(w, Z, P::LDZ, E);
+      __syncthreads();
+
+      // 4. stage i-1: dy_{i-1}, its sums, h_{i-1} over z_{i-1}
+      {
+        const int n = n0 + tp4;
+        float y[KP / G4], best = -1.f;
+        int am = 0;
 #pragma unroll
-      for (int j = 0; j < D::NPW; ++j) {
-        const float* dp = Z + (k + t) * P::LDZ + 8 * (dnt + j) + g;
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(dp[0], bh0, bl0);
-        split_tf32(dp[4 * P::LDZ], bh1, bl1);
+        for (int i = 0; i < KP / G4; ++i) {
+          const int j = G4 * i + l4;
+          y[i] = bn_y<float>(ZP[(j * FTN + tp4) * P::LDP + cp], kp);
+          const float hv = fmaxf(y[i], 0.f);
+          if (real_row<PAD>(j, k) && hv > best) { best = hv; am = j; }
+        }
+        am = group_argmax<G4>(best, am);
+        const float tap = n < N ? TAP[FTN * C + tp4 * CIN + cp] : 0.f;
 #pragma unroll
-        for (int u = 0; u < D::MPW; ++u) mma_tf32x3(dw[u][j], ah[u], al[u], bh0, bh1, bl0, bl1);
+        for (int i = 0; i < KP / G4; ++i) {
+          const int j = G4 * i + l4;
+          float* zr = ZP + (j * FTN + tp4) * P::LDP + cp;
+          float dh = row_value<CIN>(E, j * FTN + tp4, cp);
+          if (j == am) dh = __fadd_rn(tap, dh);
+          const float dy = relu_vjp<float>(dh, y[i]);
+          const bool real = n < N && real_row<PAD>(j, k);
+          if (real) {
+            s1 = __fadd_rn(s1, dy);
+            s2 = __fadd_rn(s2, __fmul_rn(dy, zhat(*zr, kp)));
+          }
+          *zr = real ? fmaxf(y[i], 0.f) : 0.f;
+        }
       }
+      __syncthreads();
+
+      // 5. dW_i += h_{i-1}^T dz_i over the tile's rows: A[m][r] = h[r][m],
+      //    B[r][n] = dz[r][n]
+#pragma unroll
+      for (int r0 = 0; r0 < FROWS; r0 += 8) {
+        uint32_t ah[D::MPW][4], al[D::MPW][4];
+#pragma unroll
+        for (int u = 0; u < D::MPW; ++u) {
+          const float* hp = ZP + (r0 + t) * P::LDP + 16 * (D::MPW * dmg + u) + g;
+          split_tf32(hp[0], ah[u][0], al[u][0]);
+          split_tf32(hp[8], ah[u][1], al[u][1]);
+          split_tf32(hp[4 * P::LDP], ah[u][2], al[u][2]);
+          split_tf32(hp[4 * P::LDP + 8], ah[u][3], al[u][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < D::NPW; ++j) {
+          const float* dp = Z + (r0 + t) * P::LDZ + 8 * (dnt + j) + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(dp[0], bh0, bl0);
+          split_tf32(dp[4 * P::LDZ], bh1, bl1);
+#pragma unroll
+          for (int u = 0; u < D::MPW; ++u) mma_tf32x3(dw[u][j], ah[u], al[u], bh0, bh1, bl0, bl1);
+        }
+      }
+      fence_proxy_async();   // the buffer is written by bulk copies next
+      s ^= 1;
+      if (s == 0) ph ^= 1u;
     }
-    fence_proxy_async();   // the buffer is written by bulk copies next
-    s ^= 1;
-    if (s == 0) ph ^= 1u;
+    flush_dw();
   }
 
-  // the block's partials: dW_i from the accumulators (dw[u][j][i] is row
-  // 16 (MPW dmg + u) + g + 8 (i >> 1), column 8 (dnt + j) + 2 t + (i & 1)),
-  // the sums in thread order
-  float* pw = part_w + (size_t)blockIdx.x * CIN * C;
-#pragma unroll
-  for (int u = 0; u < D::MPW; ++u)
-#pragma unroll
-    for (int j = 0; j < D::NPW; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(pw + (size_t)(16 * (D::MPW * dmg + u) + g + 8 * h) * C +
-                                   8 * (dnt + j) + 2 * t) =
-            make_float2(dw[u][j][2 * h], dw[u][j][2 * h + 1]);
+  // the block's partials: dW_i from the accumulators (flushed above), the
+  // sums in thread order
   float* RED = E;   // E was last read before the last tile's fourth barrier
   RED[tid] = s1;
   RED[FTHREADS + tid] = s2;
@@ -1275,24 +1399,25 @@ stage_tf32_kernel(const float* __restrict__ z, const float* __restrict__ dtap,
 // ------------------------------------------- bf16 edge kernel, one pass (wgmma)
 //
 // edge_wgmma_kernel: bwd_edge for bf16 in one pass on stage_wgmma_kernel's
-// frame (its tiles of WTN = 4 points, 80 rows; its persistent grid of at most
+// frame (its tiles of WTN points, WROWS rows; its persistent grid of at most
 // WBLOCKS blocks, each walking an equal contiguous share of the tiles; its
 // BN constants from the batch statistics, bn_stats). Per block:
 //  - W_2 (64 x 64) and W_1 (6 x 64), float32, are rounded to bf16 and loaded
 //    once as K-major panels (W_1's rows 6..63 zero);
 //  - a tile's z_1 and dz_2 panels arrive by TMA on the two-buffer ring; its
 //    e rows (12 bytes each, below TMA's 16-byte box) by plain loads one tile
-//    ahead, thread r < 80 holding row r in registers, written into the
-//    chunk 0 of row r of an MN-major e panel (the other chunks zero);
-//  - extra^T = W_2 dz_2^T: wgmma m64n40k16, rounded to bf16 into E;
+//    ahead, thread r < WROWS holding row r in registers (zeros past N or k),
+//    written into the chunk 0 of row r of an MN-major e panel (the other
+//    chunks zero);
+//  - extra^T = W_2 dz_2^T: wgmma m64nRNk16, rounded to bf16 into E;
 //  - the element work of the stage kernel (dz_columns): dz_1 over z_1 in
 //    shared memory; dz_1 never goes to global memory;
 //  - dW_1^T += ... as dW_1 (padded to 64 rows) += e_pad^T dz_1: m64n64k16,
-//    both operands MN-major from the e and dz_1 panels (K = the tile's 80
+//    both operands MN-major from the e and dz_1 panels (K = the tile's
 //    rows), held in registers across the block's tiles; de^T = W_1 dz_1^T:
-//    m64n40k16 (W_1 padded to 64 rows as A), float32 accumulation of the
+//    m64nRNk16 (W_1 padded to 64 rows as A), float32 accumulation of the
 //    exact bf16 products, the rows 0..5 into DE;
-//  - dq = sum_k (de[3:] - de[:3]) in k order, de[:3] per row to dneigh.
+//  - dq = sum_k (de[3:] - de[:3]) in k order, de[:3] per row j < k to dneigh.
 // At the end each block writes its float32 dW_1 partial; sum_parts_kernel
 // adds them in block order, and scatter_kernel adds dneigh onto the points.
 // Bound: bytes (z_1, dz_2, dtap, e and idx read once, dneigh written and read
@@ -1312,6 +1437,7 @@ struct EdgePlan {
   static_assert(SMEM <= 232448, "shared memory");
 };
 
+template <bool PAD>
 __global__ void __launch_bounds__(WTHREADS, 1)
 edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
                   const __grid_constant__ CUtensorMap dznmap,
@@ -1319,7 +1445,8 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
                   const float* __restrict__ s12, const float* __restrict__ w2,
                   const bf16* __restrict__ e, const float* __restrict__ w1,
                   float* __restrict__ part_w, float* __restrict__ dq,
-                  float* __restrict__ dneigh, int B, int N) {
+                  float* __restrict__ dneigh, int B, int N, int k) {
+  if constexpr (!PAD) k = KP;   // no padded row: the guards fold
   typedef EdgePlan P;
   constexpr int C = 64;
   extern __shared__ unsigned char smem_raw[];
@@ -1336,7 +1463,7 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
   const int ntn = (N + WTN - 1) / WTN, T = B * ntn;
   const int tile0 = (int)((long long)blockIdx.x * T / gridDim.x);
   const int tile1 = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
-  const float m = (float)B * KNN * N;
+  const float m = (float)B * k * N;
 
   if (tid == 0) {
     mbar_init(&full[0], 1);
@@ -1356,22 +1483,22 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
     const int b = tile / ntn, n0 = (tile % ntn) * WTN;
     const uint32_t dst = sbase + s * P::BUF;
     mbar_expect_tx(&full[s], P::BUF);
-    tma_load_3d(dst, &zmap, &full[s], 0, n0, b * KNN);
-    tma_load_3d(dst + PANEL, &dznmap, &full[s], 0, n0, b * KNN);
+    tile_load<PAD>(dst, &zmap, &full[s], 0, n0, b);
+    tile_load<PAD>(dst + PANEL, &dznmap, &full[s], 0, n0, b);
   };
   if (tid == 0 && tile0 < tile1) issue(tile0, 0);
   // thread r < WROWS: row r (j = r / WTN, point t = r % WTN) of a tile's e,
-  // six bf16 in three words, zeros past N
+  // six bf16 in three words, zeros past N or k
   uint32_t ev[3] = {0u, 0u, 0u};
   auto load_e = [&](int tile) {
     const int b = tile / ntn, n = (tile % ntn) * WTN + tid % WTN, j = tid / WTN;
-    const uint32_t* p = reinterpret_cast<const uint32_t*>(e + (((size_t)b * KNN + j) * N + n) * 6);
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(e + (((size_t)b * k + j) * N + n) * 6);
 #pragma unroll
-    for (int w = 0; w < 3; ++w) ev[w] = n < N ? __ldg(p + w) : 0u;
+    for (int w = 0; w < 3; ++w) ev[w] = n < N && real_row<PAD>(j, k) ? __ldg(p + w) : 0u;
   };
   if (tid < WROWS && tile0 < tile1) load_e(tile0);
 
-  const int h = tid & 1, c = (tid >> 1) % C;
+  const int c = (tid / column_lanes<C>()) % C, h = tid % column_lanes<C>();
   const BnC kc = bn_stats<bf16>(st.p[0], st.p[1], st.p[2], st.p[3], c);
   const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
   float dw[32];
@@ -1398,7 +1525,7 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
     __syncthreads();
 
     // 2. dz_1 over z_1
-    dz_columns<C, P::E_LD>(Zp, E, dtap, b, n0, N, c, h, kc, a1, a2);
+    dz_columns<C, P::E_LD, PAD>(Zp, E, dtap, b, n0, N, k, c, h, kc, a1, a2);
     fence_proxy_async();   // dz_1 and the e panel are read by wgmma next
     __syncthreads();
 
@@ -1435,7 +1562,8 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
       if (n < N) {
         float acc = 0.f;
 #pragma unroll
-        for (int j = 0; j < KNN; ++j) {
+        for (int j = 0; j < KP; ++j) {
+          if (j >= k) break;
           const float* de = DE + (j * WTN + t) * 8;
           acc = __fadd_rn(acc, __fsub_rn(de[3 + dd], de[dd]));
         }
@@ -1444,7 +1572,8 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
     }
     for (int i = tid - 2 * 128; i >= 0 && i < WROWS * 3; i += WTHREADS / 2) {
       const int r = i / 3, dd = i % 3, j = r / WTN, n = n0 + r % WTN;
-      if (n < N) dneigh[(((size_t)b * KNN + j) * N + n) * 3 + dd] = DE[r * 8 + dd];
+      if (n < N && real_row<PAD>(j, k))
+        dneigh[(((size_t)b * k + j) * N + n) * 3 + dd] = DE[r * 8 + dd];
     }
     s ^= 1;
     if (s == 0) ph ^= 1u;
@@ -1464,7 +1593,7 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
 // ------------------------- float32 edge kernel, one pass (mma.sync, 3xTF32)
 //
 // edge_tf32_kernel: bwd_edge for float32 in one pass, on edge_wgmma_kernel's
-// plan (tiles of WTN = 4 points, 80 rows r = j WTN + t; a persistent grid of
+// plan (tiles of WTN points, WROWS rows r = j WTN + t; a persistent grid of
 // at most WBLOCKS blocks, each walking an equal contiguous share of the
 // tiles; the BN constants from the batch statistics, bn_stats) with
 // stage_tf32_kernel's arithmetic (the extra cotangent as three TF32 products
@@ -1475,31 +1604,34 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
 //    lane, for the block's lifetime, so W_2 is read once a block and never
 //    split again; W_1 (6 x 64) lies in shared memory;
 //  - a tile's z_1 and dz_2 arrive by TMA, each as two boxes of (32
-//    channels, WTN points, KNN neighbours) with the 128-byte swizzle (zoff:
-//    the fragment loads of lanes (g, t) and the element work's lane pairs
-//    fall on 32 banks; rows past N come as zeros), its points' tap
+//    channels, WTN points, KP neighbours of one cloud) with the 128-byte
+//    swizzle (zoff: the fragment loads of lanes (g, t) and the element
+//    work's lanes fall on 32 banks; rows past N or k come as zeros), its
+//    points' tap
 //    cotangents by one bulk copy, on a ring of two buffers: the tile after
 //    next is issued as soon as a tile's buffers are read. The e rows (24
 //    bytes, below TMA's 16-byte strides) come by plain loads one tile ahead,
-//    thread r < 80 holding row r;
-//  - extra^T: warp w takes its m-tile and K half for the five 8-row column
-//    tiles of half the tile's rows (w / 8), splitting each dz_2 fragment
-//    once for its m-tile; each SM sub-partition gets the same 240 products.
+//    thread r < WROWS holding row r (zeros past N or k);
+//  - extra^T: warp w takes its m-tile and K half for the 8-row column tiles
+//    (five at k = 20) of half the tile's rows (w / 8), splitting each dz_2
+//    fragment once for its m-tile; each SM sub-partition gets the same
+//    products (240 at k = 20).
 //    The two K halves' partial sums land in E and are added in order where
 //    the element work reads them;
-//  - the element work of stage_tf32_kernel, two lanes a (point, channel)
-//    column: h recomputed with the forward's rounding, the first argmax over
-//    k, dh = extra plus the tap's cotangent at the argmax, dy, and dz_1 over
-//    z_1 in shared memory. dz_1 never goes to device memory;
-//  - de = dz_1 W_1^T (80 x 6) and dW_1 += e^T dz_1 (6 x 64) as float32 FMAs
+//  - the element work of stage_tf32_kernel, 8 / WTN lanes a (point,
+//    channel) column (two at k = 20): h recomputed with the forward's
+//    rounding, the first argmax over the rows j < k, dh = extra plus the
+//    tap's cotangent at the argmax, dy, and dz_1 over z_1 in shared memory
+//    (0 on the rows past N or k). dz_1 never goes to device memory;
+//  - de = dz_1 W_1^T (WROWS x 6) and dW_1 += e^T dz_1 (6 x 64) as float32 FMAs
 //    on the CUDA cores in a fixed order (0.53 GFLOP at B=24, N=717, a fifth
 //    of the extra product's; no padding of W_1's 6 rows to an m-tile): de
 //    one thread a (row, output) over the channels in order; dW_1 on every
 //    thread, a (channel, eighth of the tile's rows) each, the six inputs'
 //    sums over its rows in order held in registers across the block's
 //    tiles, and the eighths added in order at the end;
-//  - dq = sum_k (de[3:] - de[:3]) in k order and de[:3] per row to dneigh,
-//    while the other warps start the next tile.
+//  - dq = sum_k (de[3:] - de[:3]) in k order and de[:3] per row j < k to
+//    dneigh, while the other warps start the next tile.
 // At the end each block writes its dW_1 partial; sum_parts_kernel adds them
 // in block order, and scatter_kernel adds dneigh onto the points.
 // Bound: bytes (z_1 and dz_2, 88 MB each at B=24, N=717, dtap, e and idx read
@@ -1515,7 +1647,8 @@ edge_wgmma_kernel(const __grid_constant__ CUtensorMap zmap,
 // warps cost most; a third buffer gained nothing there.
 
 #define ETHREADS 512             // 16 warps
-#define EPANEL (WROWS * 32)      // floats of a tile's 32-channel panel
+constexpr int EPANEL = WROWS * 32;  // floats of a tile's 32-channel panel
+constexpr int EL = 8 / WTN;         // lanes a column of the element work
 #define ELD (64 + 4)             // floats of a row of E
 #define EDW_PARTS (ETHREADS / 64)  // the weight gradient's parts of a tile's rows
 
@@ -1532,7 +1665,7 @@ __device__ __forceinline__ int zoff(int r, int c) {
 struct EdgeF32Plan {
   static constexpr int DZN = 2 * EPANEL;            // a buffer: z_1, dz_2, taps
   static constexpr int TAP = 4 * EPANEL;
-  static constexpr int BUF = TAP + WTN * 64;
+  static constexpr int BUF = (TAP + WTN * 64 + 255) / 256 * 256;
   static constexpr int E = 2 * BUF;                 // [2][WROWS][ELD]
   static constexpr int EP = E + 2 * WROWS * ELD;    // [WROWS][8]
   static constexpr int DE = EP + WROWS * 8;         // [WROWS][8]
@@ -1543,6 +1676,7 @@ struct EdgeF32Plan {
   static_assert(SMEM <= 232448, "shared memory");
 };
 
+template <bool PAD>
 __global__ void __launch_bounds__(ETHREADS, 1)
 edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
                  const __grid_constant__ CUtensorMap dznmap,
@@ -1551,7 +1685,9 @@ edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
                  const float* __restrict__ beta, const float* __restrict__ s12,
                  const float* __restrict__ w2, const float* __restrict__ e,
                  const float* __restrict__ w1, float* __restrict__ part_w,
-                 float* __restrict__ dq, float* __restrict__ dneigh, int B, int N) {
+                 float* __restrict__ dq, float* __restrict__ dneigh, int B, int N,
+                 int k) {
+  if constexpr (!PAD) k = KP;   // no padded row: the guards fold
   typedef EdgeF32Plan P;
   constexpr int C = 64;
   extern __shared__ unsigned char smem_raw[];
@@ -1566,7 +1702,7 @@ edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
   const int ntn = (N + WTN - 1) / WTN, T = B * ntn;
   const int tile0 = (int)((long long)blockIdx.x * T / gridDim.x);
   const int tile1 = (int)((long long)(blockIdx.x + 1) * T / gridDim.x);
-  const float m = (float)B * KNN * N;
+  const float m = (float)B * k * N;
 
   // thread 0: a tile's four boxes and its taps (the points left in the
   // cloud) into buffer s
@@ -1576,19 +1712,19 @@ edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
     mbar_expect_tx(&full[s], (uint32_t)(4 * EPANEL + np * C) * 4u);
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
-      tma_load_3d(dst + p * EPANEL * 4, &zmap, &full[s], 32 * p, n0, b * KNN);
-      tma_load_3d(dst + (P::DZN + p * EPANEL) * 4, &dznmap, &full[s], 32 * p, n0, b * KNN);
+      tile_load<PAD>(dst + p * EPANEL * 4, &zmap, &full[s], 32 * p, n0, b);
+      tile_load<PAD>(dst + (P::DZN + p * EPANEL) * 4, &dznmap, &full[s], 32 * p, n0, b);
     }
     bulk_load(dst + P::TAP * 4, dtap + ((size_t)b * N + n0) * C, np * C * 4, &full[s]);
   };
   // thread r < WROWS: row r (j = r / WTN, point r % WTN) of a tile's e,
-  // zeros past N
+  // zeros past N or k
   float ev[6];
   auto load_e = [&](int tile) {
     const int b = tile / ntn, n = (tile % ntn) * WTN + tid % WTN, j = tid / WTN;
-    const float* p = e + (((size_t)b * KNN + j) * N + n) * 6;
+    const float* p = e + (((size_t)b * k + j) * N + n) * 6;
 #pragma unroll
-    for (int i = 0; i < 6; ++i) ev[i] = n < N ? __ldg(p + i) : 0.f;
+    for (int i = 0; i < 6; ++i) ev[i] = n < N && real_row<PAD>(j, k) ? __ldg(p + i) : 0.f;
   };
 
   if (tid == 0) {
@@ -1612,8 +1748,8 @@ edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
     split_tf32(__ldg(wp + 4), ah[kk][2], al[kk][2]);
     split_tf32(__ldg(wp + 8 * C + 4), ah[kk][3], al[kk][3]);
   }
-  // the element work's column: point tp, channel c, rows j = 2 i + l
-  const int c = (tid / 2) % C, tp = tid / (2 * C), l = tid % 2;
+  // the element work's column: point tp, channel c, rows j = EL i + l
+  const int c = (tid / EL) % C, tp = tid / (EL * C), l = tid % EL;
   const BnC kc = bn_stats<float>(mean, var, gamma, beta, c);
   const float a1 = __fdiv_rn(s12[c], m), a2 = __fdiv_rn(s12[C + c], m);
   // dW_1: thread tid owns channel tid % 64 over the rows of part tid / 64
@@ -1631,27 +1767,29 @@ edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
 
     // 1. extra^T = W_2 dz_2^T over K half kh: E[kh][r][c]; the tile's e rows
     {
-      float acc[5][4];
+      constexpr int NU = WROWS / 16;   // column tiles of half the tile's rows
+      float acc[NU][4];
 #pragma unroll
-      for (int u = 0; u < 5; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
-      // b0 = dz_2[8 nt + g][8 ks + t], b1 four columns on; row 40 nh + 8 u
-      // + g of panel kh, whose chunks are XORed by g
-      const float* dp = DZN + kh * EPANEL + (40 * nh + g) * 32 + t;
+      for (int u = 0; u < NU; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+      // b0 = dz_2[8 nt + g][8 ks + t], b1 four columns on; row WROWS / 2 nh
+      // + 8 u + g of panel kh, whose chunks are XORed by g
+      const float* dp = DZN + kh * EPANEL + (WROWS / 2 * nh + g) * 32 + t;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const int c0 = ((2 * kk) ^ g) << 2, c1 = ((2 * kk + 1) ^ g) << 2;
 #pragma unroll
-        for (int u = 0; u < 5; ++u) {
+        for (int u = 0; u < NU; ++u) {
           uint32_t bh0, bl0, bh1, bl1;
           split_tf32(dp[u * 8 * 32 + c0], bh0, bl0);
           split_tf32(dp[u * 8 * 32 + c1], bh1, bl1);
           mma_tf32x3(acc[u], ah[kk], al[kk], bh0, bh1, bl0, bl1);
         }
       }
-      // acc[u][i]: channel 16 mt + g + 8 (i >> 1), row 40 nh + 8 u + 2 t + (i & 1)
-      float* ep = E + kh * (WROWS * ELD) + (40 * nh + 2 * t) * ELD + 16 * mt + g;
+      // acc[u][i]: channel 16 mt + g + 8 (i >> 1), row WROWS / 2 nh + 8 u + 2 t
+      // + (i & 1)
+      float* ep = E + kh * (WROWS * ELD) + (WROWS / 2 * nh + 2 * t) * ELD + 16 * mt + g;
 #pragma unroll
-      for (int u = 0; u < 5; ++u)
+      for (int u = 0; u < NU; ++u)
 #pragma unroll
         for (int i = 0; i < 4; ++i) ep[(8 * u + (i & 1)) * ELD + 8 * (i >> 1)] = acc[u][i];
     }
@@ -1665,26 +1803,26 @@ edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
     // 2. dz_1 over z_1
     {
       const int n = n0 + tp;
-      float y[KNN / 2], best = -1.f;
+      float y[KP / EL], best = -1.f;
       int am = 0;
 #pragma unroll
-      for (int i = 0; i < KNN / 2; ++i) {
-        const int j = 2 * i + l;
+      for (int i = 0; i < KP / EL; ++i) {
+        const int j = EL * i + l;
         y[i] = bn_y<float>(Z[zoff(j * WTN + tp, c)], kc);
         const float hv = fmaxf(y[i], 0.f);
-        if (hv > best) { best = hv; am = j; }
+        if (real_row<PAD>(j, k) && hv > best) { best = hv; am = j; }
       }
-      am = group_argmax<2>(best, am);
+      am = group_argmax<EL>(best, am);
       const float tap = n < N ? TAP[tp * C + c] : 0.f;
 #pragma unroll
-      for (int i = 0; i < KNN / 2; ++i) {
-        const int j = 2 * i + l, r = j * WTN + tp;
+      for (int i = 0; i < KP / EL; ++i) {
+        const int j = EL * i + l, r = j * WTN + tp;
         float* zr = Z + zoff(r, c);
         float dh = __fadd_rn(E[r * ELD + c], E[(WROWS + r) * ELD + c]);
         if (j == am) dh = __fadd_rn(tap, dh);
         const float dy = relu_vjp<float>(dh, y[i]);
         const float d = __fmul_rn(kc.ig, __fsub_rn(__fsub_rn(dy, a1), __fmul_rn(zhat(*zr, kc), a2)));
-        *zr = n < N ? d : 0.f;
+        *zr = n < N && real_row<PAD>(j, k) ? d : 0.f;
       }
     }
     __syncthreads();
@@ -1732,7 +1870,8 @@ edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
       if (n < N) {
         float acc = 0.f;
 #pragma unroll
-        for (int j = 0; j < KNN; ++j) {
+        for (int j = 0; j < KP; ++j) {
+          if (j >= k) break;
           const float* de = DE + (j * WTN + tq) * 8;
           acc = __fadd_rn(acc, __fsub_rn(de[3 + dd], de[dd]));
         }
@@ -1741,7 +1880,8 @@ edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
     }
     for (int i = tid - ETHREADS / 2; i >= 0 && i < WROWS * 3; i += ETHREADS / 2) {
       const int r = i / 3, dd = i % 3, j = r / WTN, n = n0 + r % WTN;
-      if (n < N) dneigh[(((size_t)b * KNN + j) * N + n) * 3 + dd] = DE[r * 8 + dd];
+      if (n < N && real_row<PAD>(j, k))
+        dneigh[(((size_t)b * k + j) * N + n) * 3 + dd] = DE[r * 8 + dd];
     }
   }
 
@@ -1761,6 +1901,9 @@ edge_tf32_kernel(const __grid_constant__ CUtensorMap zmap,
 
 // ------------------------------------------------------------------ launchers
 
+// the row class this library was compiled for: its launchers take 1 <= k <= KP
+extern "C" int dgcnn_bwd_row_class() { return KP; }
+
 static cudaError_t sum_parts(const float* part, int G, int L, float* out,
                              cudaStream_t st) {
   sum_parts_kernel<<<(L + NT - 1) / NT, NT, 0, st>>>(part, G, L, out);
@@ -1772,64 +1915,71 @@ static cudaError_t sum_parts(const float* part, int G, int L, float* out,
 // ticket one zeroed unsigned the kernel leaves zeroed, s (2, C). The batch
 // statistics come as they are, float32; dtap's points lie tstride elements
 // apart (C, or the width of the concatenated taps it is a slice of), its
-// rows 16-byte aligned.
+// rows 16-byte aligned; z holds k <= KP rows a point.
 extern "C" int bwd_reduce_launch(const void* z, const void* dtap, const float* mean,
                                  const float* var, const float* gamma,
                                  const float* beta, float* part, unsigned* ticket,
-                                 float* s, int B, int N, int C, int tstride,
+                                 float* s, int B, int N, int k, int C, int tstride,
                                  int is_bf16, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (B < 1 || N < 1 || (long long)B * N > INT_MAX || blocks < 1 || blocks > B * N ||
+  if (B < 1 || N < 1 || k < 1 || k > KP || (long long)B * N > INT_MAX || blocks < 1 ||
+      blocks > B * N ||
       tstride < C || tstride * (is_bf16 ? 2 : 4) % 16 != 0 || (uintptr_t)dtap % 16 != 0)
     return (int)cudaErrorInvalidValue;
-#define R(c)                                                                           \
-  if (C == c) {                                                                        \
-    if (is_bf16)                                                                       \
-      reduce_kernel<__nv_bfloat16, c><<<blocks, RED_NT, 0, st>>>(                      \
-          (const __nv_bfloat16*)z, (const __nv_bfloat16*)dtap, mean, var, gamma, beta, \
-          part, ticket, s, B, N, tstride);                                             \
-    else                                                                               \
-      reduce_kernel<float, c><<<blocks, RED_NT, 0, st>>>(                              \
-          (const float*)z, (const float*)dtap, mean, var, gamma, beta, part, ticket, s, \
-          B, N, tstride);                                                              \
+#define R(c, T, pad)                                                                   \
+  if (C == c && (is_bf16 != 0) == (sizeof(T) == 2) && (k < KP) == pad) {               \
+    reduce_kernel<T, c, pad><<<blocks, RED_NT, 0, st>>>(                               \
+        (const T*)z, (const T*)dtap, mean, var, gamma, beta, part, ticket, s, B, N, k, \
+        tstride);                                                                      \
     return (int)cudaGetLastError();                                                    \
   }
-  R(64) R(128) R(256)
+#define RT(c) R(c, __nv_bfloat16, false) R(c, __nv_bfloat16, true) R(c, float, false) \
+  R(c, float, true)
+  RT(64) RT(128) RT(256)
+#undef RT
 #undef R
   return (int)cudaErrorInvalidValue;
 }
 
-// a (C, N, B KNN) view of a (B, KNN, N, C) bf16 stage tensor, boxes of (64
-// channels, WTN points, KNN neighbours)
-static cudaError_t stage_map(CUtensorMap* m, const void* p, int c, int B, int N) {
-  const cuuint32_t box[3] = {64, WTN, KNN};
-  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)N, (cuuint64_t)B * KNN};
-  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)N * c * 2};
-  return make_map(m, p, 3, dims, strides, box);
+// the tensor map of tile_load / tile_store over a (B, k, N, c) stage tensor:
+// for k < KP a (c, N, k, B) view, boxes of (bc channels, WTN points, KP rows,
+// one cloud): TMA fills the rows past N or k with zeros on load and drops
+// them on store, so that a box never reads or writes the next cloud's rows;
+// for k = KP a (c, N, B KP) view, boxes of (bc, WTN, KP)
+static cudaError_t stage_map(CUtensorMap* m, const void* p, int c, int k, int B, int N,
+                             int bc = 64,
+                             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const cuuint64_t es = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 4;
+  const cuuint32_t box[4] = {(cuuint32_t)bc, WTN, KP, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)N,
+                              (cuuint64_t)k * (k < KP ? 1 : B), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {c * es, (cuuint64_t)N * c * es, (cuuint64_t)k * N * c * es};
+  return make_map(m, p, k < KP ? 4 : 3, dims, strides, box, type);
 }
 
-template <int C, int CIN, int CN>
+template <int C, int CIN, int CN, bool PAD>
 static cudaError_t launch_stage_wgmma(const void* z, const void* dtap, const BatchStats& st,
                                       const float* s12, const void* dzn, const float* wn,
                                       const float* w, const void* zp, const void* dtapp,
                                       void* dz, float* part_s, float* sp, float* part_w,
-                                      float* dw, int B, int N, int blocks, cudaStream_t stream) {
+                                      float* dw, int B, int N, int k, int blocks,
+                                      cudaStream_t stream) {
   typedef StagePlan<C, CIN, CN> P;
   const int tiles = B * ((N + WTN - 1) / WTN);
   if (blocks < 1 || blocks > tiles || blocks > WBLOCKS) return cudaErrorInvalidValue;
   CUtensorMap zmap, zpmap, dznmap, dzmap;
-  cudaError_t err = stage_map(&zmap, z, C, B, N);
-  if (err == cudaSuccess) err = stage_map(&zpmap, zp, CIN, B, N);
-  if (err == cudaSuccess) err = CN > 0 ? stage_map(&dznmap, dzn, CN, B, N)
-                                       : stage_map(&dznmap, z, C, B, N);
-  if (err == cudaSuccess) err = stage_map(&dzmap, dz, C, B, N);
+  cudaError_t err = stage_map(&zmap, z, C, k, B, N);
+  if (err == cudaSuccess) err = stage_map(&zpmap, zp, CIN, k, B, N);
+  if (err == cudaSuccess) err = CN > 0 ? stage_map(&dznmap, dzn, CN, k, B, N)
+                                       : stage_map(&dznmap, z, C, k, B, N);
+  if (err == cudaSuccess) err = stage_map(&dzmap, dz, C, k, B, N);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(stage_wgmma_kernel<C, CIN, CN>,
+  err = cudaFuncSetAttribute(stage_wgmma_kernel<C, CIN, CN, PAD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (err != cudaSuccess) return err;
-  stage_wgmma_kernel<C, CIN, CN><<<blocks, WTHREADS, P::SMEM, stream>>>(
+  stage_wgmma_kernel<C, CIN, CN, PAD><<<blocks, WTHREADS, P::SMEM, stream>>>(
       zmap, zpmap, dznmap, dzmap, (const bf16*)dtap, st, s12, wn, w,
-      (const bf16*)dtapp, part_s, part_w, B, N);
+      (const bf16*)dtapp, part_s, part_w, B, N, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = sum_parts(part_s, blocks, 2 * CIN, sp, stream);
@@ -1841,7 +1991,8 @@ static cudaError_t launch_stage_wgmma(const void* z, const void* dtap, const Bat
 // (ops/cuda_dgcnn_bwd.py:bwd_stage_plan), part_s (blocks, 2, cin) and
 // part_w (blocks, cin, C) scratch. The batch statistics come as they are,
 // float32 (mean, var, gamma, beta of stage i, then of stage i-1); the
-// weights w (cin, C) and wn (C, cn) float32.
+// weights w (cin, C) and wn (C, cn) float32; the stage tensors hold
+// k <= KP rows a point.
 extern "C" int bwd_stage_bf16_launch(const void* z, const void* dtap, const float* mean,
                                      const float* var, const float* gamma,
                                      const float* beta, const float* meanp,
@@ -1851,36 +2002,40 @@ extern "C" int bwd_stage_bf16_launch(const void* z, const void* dtap, const floa
                                      const float* w, const void* zp,
                                      const void* dtapp, void* dz, float* part_s,
                                      float* sp, float* part_w, float* dw, int B,
-                                     int N, int C, int cin, int cn, int blocks,
+                                     int N, int k, int C, int cin, int cn, int blocks,
                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > MAXN || k < 1 || k > KP) return (int)cudaErrorInvalidValue;
   const BatchStats st = {{mean, var, gamma, beta, meanp, varp, gammap, betap}};
-#define S(c, ci, n)                                                                   \
-  if (C == c && cin == ci && cn == n)                                               \
-    return (int)launch_stage_wgmma<c, ci, n>(z, dtap, st, s12, dzn, wn, w, zp, dtapp, \
-                                             dz, part_s, sp, part_w, dw, B, N, blocks, s);
+#define S(c, ci, n)                                                                     \
+  if (C == c && cin == ci && cn == n)                                                 \
+    return (int)(k < KP ? launch_stage_wgmma<c, ci, n, true>(                           \
+                              z, dtap, st, s12, dzn, wn, w, zp, dtapp, dz, part_s, sp,  \
+                              part_w, dw, B, N, k, blocks, s)                            \
+                        : launch_stage_wgmma<c, ci, n, false>(                          \
+                              z, dtap, st, s12, dzn, wn, w, zp, dtapp, dz, part_s, sp,  \
+                              part_w, dw, B, N, k, blocks, s));
   S(256, 128, 0) S(128, 64, 256) S(64, 64, 128)
 #undef S
   return (int)cudaErrorInvalidValue;
 }
 
-template <int C, int CIN, int CN>
+template <int C, int CIN, int CN, bool PAD>
 static cudaError_t launch_stage_tf32(const void* z, const void* dtap, const float* bn,
                                      const float* s12, const void* dzn, const float* wn,
                                      const float* w, const void* zp, const void* dtapp,
                                      const float* bnp, void* dz, float* part_s, float* sp,
-                                     float* part_w, float* dw, int B, int N, int blocks,
-                                     cudaStream_t stream) {
+                                     float* part_w, float* dw, int B, int N, int k,
+                                     int blocks, cudaStream_t stream) {
   typedef F32Plan<C, CIN, CN> P;
   const int tiles = B * ((N + FTN - 1) / FTN);
   if (blocks < 1 || blocks > tiles || blocks > WBLOCKS) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(stage_tf32_kernel<C, CIN, CN>,
+  cudaError_t err = cudaFuncSetAttribute(stage_tf32_kernel<C, CIN, CN, PAD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (err != cudaSuccess) return err;
-  stage_tf32_kernel<C, CIN, CN><<<blocks, FTHREADS, P::SMEM, stream>>>(
+  stage_tf32_kernel<C, CIN, CN, PAD><<<blocks, FTHREADS, P::SMEM, stream>>>(
       (const float*)z, (const float*)dtap, bn, s12, (const float*)dzn, wn, w,
-      (const float*)zp, (const float*)dtapp, bnp, (float*)dz, part_s, part_w, B, N);
+      (const float*)zp, (const float*)dtapp, bnp, (float*)dz, part_s, part_w, B, N, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = sum_parts(part_s, blocks, 2 * CIN, sp, stream);
@@ -1892,20 +2047,23 @@ static cudaError_t launch_stage_tf32(const void* z, const void* dtap, const floa
 // (ops/cuda_dgcnn_bwd.py:bwd_stage_plan), part_s (blocks, 2, cin) and
 // part_w (blocks, cin, C) scratch; bn and bnp the (6, C) / (6, cin) packed
 // BN constants of stages i and i-1 (_bn_pack); the weights w (cin, C) and
-// wn (C, cn) float32 as they are; rows 16-byte aligned.
+// wn (C, cn) float32 as they are; rows 16-byte aligned; k <= KP rows a point.
 extern "C" int bwd_stage_launch(const void* z, const void* dtap, const float* bn,
                                 const float* s12, const void* dzn, const float* wn,
                                 const float* w, const void* zp, const void* dtapp,
                                 const float* bnp, void* dz, float* part_s, float* sp,
-                                float* part_w, float* dw, int B, int N, int C, int cin,
-                                int cn, int blocks, void* stream) {
+                                float* part_w, float* dw, int B, int N, int k, int C,
+                                int cin, int cn, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (N < 1 || N > MAXN) return (int)cudaErrorInvalidValue;
-#define S(c, ci, n)                                                                  \
-  if (C == c && cin == ci && cn == n)                                                \
-    return (int)launch_stage_tf32<c, ci, n>(z, dtap, bn, s12, dzn, wn, w, zp, dtapp, \
-                                            bnp, dz, part_s, sp, part_w, dw, B, N,   \
-                                            blocks, st);
+  if (N < 1 || N > MAXN || k < 1 || k > KP) return (int)cudaErrorInvalidValue;
+#define S(c, ci, n)                                                                    \
+  if (C == c && cin == ci && cn == n)                                                  \
+    return (int)(k < KP ? launch_stage_tf32<c, ci, n, true>(z, dtap, bn, s12, dzn, wn, w, \
+                                                            zp, dtapp, bnp, dz, part_s, sp, \
+                                                            part_w, dw, B, N, k, blocks, st) \
+                        : launch_stage_tf32<c, ci, n, false>(z, dtap, bn, s12, dzn, wn, w, \
+                                                             zp, dtapp, bnp, dz, part_s, sp, \
+                                                             part_w, dw, B, N, k, blocks, st));
   S(256, 128, 0) S(128, 64, 256) S(64, 64, 128)
 #undef S
   return (int)cudaErrorInvalidValue;
@@ -1915,45 +2073,37 @@ extern "C" int bwd_stage_launch(const void* z, const void* dtap, const float* bn
 // (ops/cuda_dgcnn_bwd.py:bwd_edge_plan), its dW_1 partials (blocks, 6, 64)
 // added in block order, then the scatter. The batch statistics of stage 1
 // come as they are, float32; w2 (64, 64) and w1 (6, 64) float32; idxT the
-// neighbour indices as (B, KNN, N) int32; dneigh (B, KNN, N, 3) float32
-// scratch.
+// neighbour indices as (B, k, N) int32; dneigh (B, k, N, 3) float32
+// scratch; k <= KP.
 extern "C" int bwd_edge_bf16_launch(const void* z1, const void* dtap1, const float* mean,
                                     const float* var, const float* gamma,
                                     const float* beta, const float* s12,
                                     const void* dz2, const float* w2, const void* e,
                                     const float* w1, const int* idxT, float* dneigh,
                                     float* part_w, float* dw, float* dq, float* dscat,
-                                    int B, int N, int blocks, void* stream) {
+                                    int B, int N, int k, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int tiles = B * ((N + WTN - 1) / WTN);
-  if (N < 1 || N > MAXN || B < 1 || B > 65535 || blocks < 1 || blocks > tiles ||
-      blocks > WBLOCKS)
+  if (N < 1 || N > MAXN || B < 1 || B > 65535 || k < 1 || k > KP || blocks < 1 ||
+      blocks > tiles || blocks > WBLOCKS)
     return (int)cudaErrorInvalidValue;
   const BatchStats bs = {{mean, var, gamma, beta, mean, var, gamma, beta}};
   CUtensorMap zmap, dznmap;
-  cudaError_t err = stage_map(&zmap, z1, 64, B, N);
-  if (err == cudaSuccess) err = stage_map(&dznmap, dz2, 64, B, N);
+  cudaError_t err = stage_map(&zmap, z1, 64, k, B, N);
+  if (err == cudaSuccess) err = stage_map(&dznmap, dz2, 64, k, B, N);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(edge_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = k < KP ? edge_wgmma_kernel<true> : edge_wgmma_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              EdgePlan::SMEM);
   if (err != cudaSuccess) return (int)err;
-  edge_wgmma_kernel<<<blocks, WTHREADS, EdgePlan::SMEM, st>>>(
+  kernel<<<blocks, WTHREADS, EdgePlan::SMEM, st>>>(
       zmap, dznmap, (const bf16*)dtap1, bs, s12, w2, (const bf16*)e, w1, part_w, dq,
-      dneigh, B, N);
+      dneigh, B, N, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = sum_parts(part_w, blocks, 6 * 64, dw, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_scatter(idxT, dneigh, dscat, B, N, st);
-}
-
-// a (64, N, B KNN) view of a (B, KNN, N, 64) float32 stage tensor, boxes of
-// (32 channels, WTN points, KNN neighbours): edge_tf32_kernel's panels
-static cudaError_t edge_map_f32(CUtensorMap* m, const void* p, int B, int N) {
-  const cuuint32_t box[3] = {32, WTN, KNN};
-  const cuuint64_t dims[3] = {64, (cuuint64_t)N, (cuuint64_t)B * KNN};
-  const cuuint64_t strides[2] = {64 * 4, (cuuint64_t)N * 64 * 4};
-  return make_map(m, p, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  return (int)launch_scatter(idxT, dneigh, dscat, B, N, k, st);
 }
 
 // bwd_edge for float32: the one-pass edge_tf32_kernel over `blocks` blocks
@@ -1965,25 +2115,28 @@ extern "C" int bwd_edge_launch(const void* z1, const void* dtap1, const float* m
                                const float* s12, const void* dz2, const float* w2,
                                const void* e, const float* w1, const int* idxT,
                                float* dneigh, float* part_w, float* dw, float* dq,
-                               float* dscat, int B, int N, int blocks, void* stream) {
+                               float* dscat, int B, int N, int k, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int tiles = B * ((N + WTN - 1) / WTN);
-  if (N < 1 || N > MAXN || B < 1 || B > 65535 || blocks < 1 || blocks > tiles ||
-      blocks > WBLOCKS || (uintptr_t)dtap1 % 16 != 0)
+  if (N < 1 || N > MAXN || B < 1 || B > 65535 || k < 1 || k > KP || blocks < 1 ||
+      blocks > tiles || blocks > WBLOCKS || (uintptr_t)dtap1 % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  // edge_tf32_kernel's panels: boxes of 32 float32 channels
   CUtensorMap zmap, dznmap;
-  cudaError_t err = edge_map_f32(&zmap, z1, B, N);
-  if (err == cudaSuccess) err = edge_map_f32(&dznmap, dz2, B, N);
+  cudaError_t err = stage_map(&zmap, z1, 64, k, B, N, 32, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(edge_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = stage_map(&dznmap, dz2, 64, k, B, N, 32, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  auto kernel = k < KP ? edge_tf32_kernel<true> : edge_tf32_kernel<false>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                EdgeF32Plan::SMEM);
   if (err != cudaSuccess) return (int)err;
-  edge_tf32_kernel<<<blocks, ETHREADS, EdgeF32Plan::SMEM, st>>>(
+  kernel<<<blocks, ETHREADS, EdgeF32Plan::SMEM, st>>>(
       zmap, dznmap, (const float*)dtap1, mean, var, gamma, beta, s12, w2, (const float*)e,
-      w1, part_w, dq, dneigh, B, N);
+      w1, part_w, dq, dneigh, B, N, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = sum_parts(part_w, blocks, 6 * 64, dw, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_scatter(idxT, dneigh, dscat, B, N, st);
+  return (int)launch_scatter(idxT, dneigh, dscat, B, N, k, st);
 }

@@ -67,7 +67,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 // ------------------------------------------------------------------- TMA
 
-// one box of a 2-D / 3-D tensor map -> shared memory, completion on bar
+// one box of a 2-D / 3-D / 4-D tensor map -> shared memory, completion on bar
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -88,6 +88,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
 // device -> shared memory, completion on bar
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -104,13 +114,21 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t byt
                :: "l"(dst), "r"(src), "r"(bytes) : "memory");
 }
 
-// one box of shared memory -> a 3-D tensor map; elements outside the tensor
-// are not written
+// one box of shared memory -> a 3-D (4-D) tensor map; elements outside the
+// tensor are not written
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src,
                                              int c0, int c1, int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -181,6 +199,36 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 // accumulator entry d[4 j + e] is row g (e < 2) or g + 8, column 8 j + 2 t
 // + e % 2, of the warp's 16 rows (lane 4 g + t). The operand lists are
 // written out.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n24(float (&d)[12], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, %15, %16;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n40(float (&d)[20], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -321,7 +369,7 @@ static inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   if (encode(map, type, rank, const_cast<void*>(base),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

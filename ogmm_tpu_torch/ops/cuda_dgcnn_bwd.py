@@ -30,9 +30,14 @@ operands with float32 accumulation, rounded to the compute dtype where the
 result is (dz W^T) and kept in float32 where it is not (dW, de).
 
 On a CUDA tensor each wrapper launches its kernel in `csrc/dgcnn_bwd.cu`
-(k = 20, the stage widths of the DGCNN, N <= 1024 for the stage and edge
-kernels, any N for the reduce); on a CPU tensor it runs
-the plain version. The reduce is one pass over a persistent grid for both
+(1 <= k <= 32, the stage widths of the DGCNN, k <= N <= 1024 for the stage
+and edge kernels, any N for the reduce: the envelope of the graph kernel,
+`cuda_dgcnn_train.graph_takes`); on a CPU tensor it runs the plain version.
+Outside the envelope a wrapper raises; it never runs the plain version on
+the card. The source is compiled once a row class (`ROW_CLASSES`: a library
+of class KP takes any k <= KP, `row_class`), whose tiles hold KP rows a
+point and treat the rows past k as padding (zero-filled, excluded from every
+argmax, sum and store). The reduce is one pass over a persistent grid for both
 dtypes (`reduce_plan`): only each column's max-over-k argmax row adds to
 its sums. The bf16 stage and edge kernels are one pass each on wgmma over a
 persistent grid (`bwd_stage_plan`, `bwd_edge_plan`); the float32 stage and
@@ -51,10 +56,13 @@ import functools
 import torch
 
 from ogmm_tpu_torch.ops import dispatch
+from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_MAX_K
+from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_takes
 
 EPS = 1e-5
-KERNEL_K = 20
-KERNEL_MAX_N = 1024
+# the compiled row classes (rows a point of a tile): a launch of class KP
+# takes any graph of k <= KP neighbours
+ROW_CLASSES = dispatch.BWD_ROW_CLASSES
 # (C, C_in, C_next) of the stages the stage kernel is compiled for; the
 # reduce kernel takes any C of them, the edge kernel (64, 6, 64)
 KERNEL_STAGES = ((256, 128, 0), (128, 64, 256), (64, 64, 128))
@@ -62,15 +70,19 @@ KERNEL_EDGE = (64, 6, 64)
 SMEM_LIMIT = 232_448  # shared memory a block may use on an H100
 
 # the bf16 stage and both edge kernels' plan (csrc/dgcnn_bwd.cu:
-# stage_wgmma_kernel, edge_wgmma_kernel, edge_tf32_kernel): tiles of STAGE_TN
-# points (STAGE_TN * KERNEL_K rows), a persistent grid of at most STAGE_BLOCKS
-# blocks; the float32 stage kernel's (stage_tf32_kernel): tiles of
-# STAGE_TN_F32 points, STAGE_WARPS warps a block (the float32 edge kernel's
-# too)
-STAGE_TN, STAGE_BLOCKS = 4, 132
-STAGE_TN_F32, STAGE_WARPS = 2, 16
+# stage_wgmma_kernel, edge_wgmma_kernel, edge_tf32_kernel): tiles of
+# `tile_points(k)` points, a persistent grid of at most STAGE_BLOCKS blocks
+# of STAGE_THREADS threads; the float32 stage kernel's (stage_tf32_kernel):
+# tiles of `f32_tile_points(k)` points, STAGE_WARPS warps a block (the
+# float32 edge kernel's too)
+STAGE_BLOCKS, STAGE_THREADS = 132, 512
+STAGE_WARPS = 16
+MAX_TILE_ROWS = 80      # stage 4's bf16 buffers: a tile's rows, at most
 # the scatter (csrc/dgcnn_bwd.cu:scatter_kernel): points and warps of a block
 SCATTER_POINTS, SCATTER_WARPS = 256, 16
+# the float32 stage kernel's weight-gradient chains: tiles a block's
+# accumulators take before they are added to its partial (DW_FLUSH)
+DW_FLUSH_TILES = 96
 # the reduce (csrc/dgcnn_bwd.cu:reduce_kernel): threads of a block, adjacent
 # channels a thread
 REDUCE_THREADS, REDUCE_CHANNELS = 512, 8
@@ -207,37 +219,92 @@ def _bn_pack(mean, var, gamma, beta, dt):
                         beta.to(dt).float(), mean, inv, ig]).contiguous()
 
 
-def _check(name, z, dtap, *others, max_n=KERNEL_MAX_N):
-    if (z.dim() != 4 or z.shape[1] != KERNEL_K or z.shape[2] < 1
-            or (max_n is not None and z.shape[2] > max_n)):
-        raise ValueError(f"{name} kernel takes z of shape (B, {KERNEL_K}, N, C)"
-                         + (f" with N <= {max_n}" if max_n else "")
+def _check(name, z, dtap, *others, any_n=False):
+    """(B, N, k, C) of a call, refused unless the kernels take it: the
+    graph kernel's envelope (`graph_takes`), or for the reduce any N >= 1."""
+    if z.dim() != 4:
+        raise ValueError(f"{name} kernel takes z of shape (B, k, N, C); got "
+                         f"{tuple(z.shape)}")
+    B, k, N, C = z.shape
+    if not (1 <= k <= KERNEL_MAX_K and N >= 1 if any_n else graph_takes(k, N)):
+        raise ValueError(f"{name} kernel takes z of shape (B, k, N, C) with "
+                         f"1 <= k <= {KERNEL_MAX_K}"
+                         + (" and N >= 1" if any_n else " and k <= N <= 1024")
                          + f"; got {tuple(z.shape)}")
     if z.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name} kernel: dtype {z.dtype} not supported")
-    B, _, N, C = z.shape
     if tuple(dtap.shape) != (B, N, C):
         raise ValueError(f"{name} kernel: dtap must be {(B, N, C)}, got "
                          f"{tuple(dtap.shape)}")
     for t in (dtap, *others):
         if t.device != z.device:
             raise ValueError(f"{name} kernel: every input must be on {z.device}")
-    return B, N, C
+    return B, N, k, C
 
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def _fn(name, n_ptrs, n_ints):
-    fn = getattr(dispatch.load_kernel("dgcnn_bwd"), f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
-    return fn
+def _fn(name, k, n_ptrs, n_ints):
+    """The launcher `name` of the library of k's row class."""
+    return dispatch.kernel_fn(library(k), f"{name}_launch",
+                              (ctypes.c_void_p,) * n_ptrs + (ctypes.c_int,) * n_ints
+                              + (ctypes.c_void_p,))
 
 
-def row_split(M: int, mpw: int = 1) -> dict:
+# ------------------------------------------------------------------- plans
+
+def row_class(k: int) -> int:
+    """The rows a point of the smallest compiled class that takes a graph of
+    k neighbours (`ROW_CLASSES`; csrc/dgcnn_bwd.cu: KP)."""
+    fits = [kp for kp in ROW_CLASSES if kp >= k]
+    if k < 1 or not fits:
+        raise ValueError(f"the backward kernels take 1 <= k <= {max(ROW_CLASSES)}; "
+                         f"got k={k}")
+    return fits[0]
+
+
+def library(k: int) -> str:
+    """The kernel library (`dispatch.VARIANTS`) of k's row class."""
+    return f"dgcnn_bwd_k{row_class(k)}"
+
+
+def tile_points(k: int) -> int:
+    """Points of a tile of the bf16 stage and both edge kernels (WTN): 8, 4
+    or 2 as the class's rows a point grow, so that a tile keeps at most
+    MAX_TILE_ROWS rows, a multiple of 16 (wgmma's k when the rows are the
+    weight gradient's depth)."""
+    kp = row_class(k)
+    return 8 if kp <= 8 else 4 if kp <= 20 else 2
+
+
+def f32_tile_points(k: int) -> int:
+    """Points of a tile of the float32 stage kernel (FTN): two, one above
+    k = 20 (two points of 24 or 32 rows outgrow stage 3's buffers and a
+    column's rows a lane's registers)."""
+    return 2 if row_class(k) <= 20 else 1
+
+
+def column_lanes(k: int, C: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Lanes a (point, channel) column of C channels in the element work
+    (each lane takes every lanes-th row of the class): bf16 stage and edge
+    kernels at most 8 / tile_points (a lane's rows then lie 8 or 4 tile rows
+    apart) and few enough that a thread keeps one channel over its passes;
+    the float32 stage kernel one column a thread; the float32 edge kernel
+    8 / tile_points."""
+    if dtype == torch.float32:
+        return STAGE_THREADS // (f32_tile_points(k) * C)
+    return min(8 // tile_points(k), STAGE_THREADS // C)
+
+
+def tile_rows(k: int, dtype: torch.dtype = torch.bfloat16, edge: bool = False) -> int:
+    """Rows of a tile: the class's rows a point times its points."""
+    f32_stage = dtype == torch.float32 and not edge
+    return row_class(k) * (f32_tile_points(k) if f32_stage else tile_points(k))
+
+
+def row_split(M: int, k: int, mpw: int = 1) -> dict:
     """How the float32 stage kernel's row products (`rows_tf32`) of M output
     channels share the STAGE_WARPS warps (`RowSplit`): each warp takes `mpw`
     m-tiles of 16 channels (two in stage 3's extra product, `F32Plan::XPW`)
@@ -246,45 +313,48 @@ def row_split(M: int, mpw: int = 1) -> dict:
     groups = M // (16 * mpw)
     k_slices = STAGE_WARPS // groups
     return {"m_tiles_a_warp": mpw, "groups": groups, "k_slices": k_slices,
-            "floats": k_slices * STAGE_TN_F32 * KERNEL_K * (M + 4)}
+            "floats": k_slices * tile_rows(k, torch.float32) * (M + 4)}
 
 
-def bwd_stage_plan(B: int, N: int, C: int, cin: int, cn: int,
+def bwd_stage_plan(B: int, N: int, k: int, C: int, cin: int, cn: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
     """The stage kernel's launch for `dtype` as a pure function of the
-    shapes, mirroring `csrc/dgcnn_bwd.cu`: its tiles (of one cloud each),
-    the blocks of its persistent grid (`stage_shares`), its dynamic shared
-    memory and its float32 partials, one per block: dW_i (G, C_in, C) and
-    S_{i-1} (G, 2, C_in).
-    bf16 (`StagePlan`): tiles of STAGE_TN points; two buffers of a tile's
-    z_i, z_{i-1} and dz_{i+1} panels, the resident W_i and W_{i+1}, the last
-    stage's scratch tile, 1024 bytes of alignment.
-    float32 (`F32Plan`): tiles of STAGE_TN_F32 points; two buffers of a
-    tile's z_i and z_{i-1} rows (padded by 4 floats) and its points' tap
-    cotangents, one of its dz_{i+1} rows, and the larger row product's
+    shapes, mirroring `csrc/dgcnn_bwd.cu`: its tiles (of one cloud each, the
+    class's rows a point), the blocks of its persistent grid
+    (`stage_shares`), its dynamic shared memory and its float32 partials,
+    one per block: dW_i (G, C_in, C) and S_{i-1} (G, 2, C_in).
+    bf16 (`StagePlan`): tiles of `tile_points(k)` points; two buffers of a
+    tile's z_i, z_{i-1} and dz_{i+1} panels, the resident W_i and W_{i+1},
+    the last stage's scratch tile, 1024 bytes of alignment.
+    float32 (`F32Plan`): tiles of `f32_tile_points(k)` points; two buffers
+    of a tile's z_i and z_{i-1} rows (padded by 4 floats) and its points'
+    tap cotangents, one of its dz_{i+1} rows, and the larger row product's
     K-slice partials (`row_split`); also the weight
     gradient's split over the warps: `dw_tiles_a_warp` (m-tiles of 16 rows
-    of C_in, 8-column tiles of C) a warp."""
+    of C_in, 8-column tiles of C) a warp, and `dw_flush` the tiles a block's
+    accumulators take before they are added to its partial."""
     f32 = dtype == torch.float32
-    tn = STAGE_TN_F32 if f32 else STAGE_TN
+    tn = f32_tile_points(k) if f32 else tile_points(k)
+    rows = tile_rows(k, dtype)
     tiles = B * -(-N // tn)
     blocks = min(STAGE_BLOCKS, tiles)
     plan = {"tiles": tiles, "blocks": blocks, "points_a_tile": tn,
+            "row_class": row_class(k), "rows_a_tile": rows,
             "part_w": (blocks, cin, C), "part_s": (blocks, 2, cin)}
     if f32:
-        rows = tn * KERNEL_K
         buf = rows * ((C + 4) + (cin + 4)) + tn * (C + cin)
         dzn = rows * (cn + 4) if cn else 0
         xpw = 2 if C == 128 else 1
-        e = max(row_split(cin)["floats"], row_split(C, xpw)["floats"] if cn else 0)
+        e = max(row_split(cin, k)["floats"], row_split(C, k, xpw)["floats"] if cn else 0)
         plan.update(smem=4 * (2 * buf + dzn + e), threads=32 * STAGE_WARPS,
-                    extra_m_tiles_a_warp=xpw,
+                    extra_m_tiles_a_warp=xpw, dw_flush=DW_FLUSH_TILES,
                     dw_tiles_a_warp=(2, (C // 8) * (cin // 32) // STAGE_WARPS))
         return plan
-    panel = tn * KERNEL_K * 128
+    panel = rows * 128
     buf = (C + cin + cn) // 64 * panel
-    e = 0 if cn else -(-(tn * KERNEL_K * (cin + 8) * 2) // 1024) * 1024
-    plan.update(smem=2 * buf + 2 * cin * C + 2 * C * cn + e + 1024, threads=512)
+    e = 0 if cn else -(-(rows * (cin + 8) * 2) // 1024) * 1024
+    plan.update(smem=2 * buf + 2 * cin * C + 2 * C * cn + e + 1024,
+                threads=STAGE_THREADS, row_product_n=rows // 2)
     return plan
 
 
@@ -295,53 +365,59 @@ def stage_shares(tiles: int, blocks: int) -> list:
             for i in range(blocks)]
 
 
-def bwd_edge_plan(B: int, N: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+def bwd_edge_plan(B: int, N: int, k: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The edge kernel's launch for `dtype` as a pure function of the
-    shapes, mirroring `csrc/dgcnn_bwd.cu`: its tiles of STAGE_TN points and
-    persistent grid (as the stage kernel's, `stage_shares`), its dynamic
-    shared memory and its float32 dW_1 partials, one per block.
+    shapes, mirroring `csrc/dgcnn_bwd.cu`: its tiles of `tile_points(k)`
+    points and persistent grid (as the bf16 stage kernel's, `stage_shares`),
+    its dynamic shared memory and its float32 dW_1 partials, one per block.
     bf16 (`EdgePlan`): two buffers of a tile's z_1 and dz_2 panels, the
     resident W_2 and W_1 as 64-row panels, the e panel, the extra
-    cotangent's scratch tile of 80 rows of 72 bf16, de of the tile in
-    float32, 1024 bytes of alignment.
+    cotangent's scratch tile of rows of 72 bf16, de of the tile in float32,
+    1024 bytes of alignment.
     float32 (`EdgeF32Plan`, STAGE_WARPS warps): two buffers of a tile's z_1
     and dz_2 as 32-channel panels (TMA's 128-byte swizzle) and its points'
-    tap cotangents, the extra cotangent's two K halves (`extra_k_slices`:
-    warp w holds W_2's m-tile w % 4 over the K half (w / 4) % 2 in
-    registers; rows of C + 4 floats), the e rows and de (8 floats a row),
-    W_1 (6 rows of C + 4), 1024 bytes of alignment; the weight gradient in
-    `dw_parts` parts of a tile's rows (thread i: channel i % C, the rows
-    [10 p, 10 p + 10) of part p = i // C), added in order at the end."""
-    tiles = B * -(-N // STAGE_TN)
+    tap cotangents (a buffer rounded up to 1024 bytes), the extra
+    cotangent's two K halves (`extra_k_slices`: warp w holds W_2's m-tile
+    w % 4 over the K half (w / 4) % 2 in registers; rows of C + 4 floats),
+    the e rows and de (8 floats a row), W_1 (6 rows of C + 4), 1024 bytes of
+    alignment; the weight gradient in `dw_parts` parts of a tile's rows
+    (thread i: channel i % C, the rows [R p, R p + R) of part p = i // C,
+    R = rows / dw_parts), added in order at the end."""
+    tn = tile_points(k)
+    tiles = B * -(-N // tn)
     blocks = min(STAGE_BLOCKS, tiles)
-    rows = STAGE_TN * KERNEL_K
+    rows = tile_rows(k, dtype, edge=True)
     C = KERNEL_EDGE[0]
-    plan = {"tiles": tiles, "blocks": blocks, "part_w": (blocks, 6, C)}
+    plan = {"tiles": tiles, "blocks": blocks, "points_a_tile": tn,
+            "row_class": row_class(k), "rows_a_tile": rows,
+            "part_w": (blocks, 6, C)}
     if dtype == torch.float32:
         ld = C + 4
-        buf = 4 * rows * 32 + STAGE_TN * C
+        buf = -(-(4 * rows * 32 + tn * C) // 256) * 256
         plan.update(smem=4 * (2 * buf + 2 * rows * ld + 2 * rows * 8 + 6 * ld) + 1024,
                     threads=32 * STAGE_WARPS, extra_k_slices=2,
                     dw_parts=32 * STAGE_WARPS // C)
         return plan
     panel = rows * 128
     plan.update(smem=2 * 2 * panel + 2 * 64 * 64 * 2 + panel + rows * 72 * 2
-                + rows * 8 * 4 + 1024, threads=512)
+                + rows * 8 * 4 + 1024, threads=STAGE_THREADS, row_product_n=rows // 2)
     return plan
 
 
-def scatter_plan(B: int, N: int) -> dict:
+def scatter_plan(B: int, N: int, k: int) -> dict:
     """The neighbour scatter's launch, mirroring `csrc/dgcnn_bwd.cu:
     launch_scatter`: block (r, b) owns the points [r P, min((r + 1) P, N))
     of cloud b (P = SCATTER_POINTS); its dynamic shared memory holds each
     warp's count of each point's rows, the points' offsets and totals, the
-    warps' totals and the lists (at most k N rows)."""
+    warps' totals and the lists (at most k N rows): 149.6 KB at k = 32,
+    N = 1024, within a block's SMEM_LIMIT."""
     per = SCATTER_POINTS
     grid = (-(-N // per), B)
     ranges = [(b, r * per, min((r + 1) * per, N))
               for b in range(B) for r in range(grid[0])]
-    return {"grid": grid, "ranges": ranges,
-            "smem": 4 * ((SCATTER_WARPS + 2) * per + SCATTER_WARPS + KERNEL_K * N)}
+    smem = 4 * ((SCATTER_WARPS + 2) * per + SCATTER_WARPS + k * N)
+    assert smem <= SMEM_LIMIT, f"the scatter's lists at k={k}, N={N} outgrow shared memory"
+    return {"grid": grid, "ranges": ranges, "smem": smem}
 
 
 @functools.lru_cache(maxsize=None)
@@ -402,7 +478,7 @@ def _rows_in_place(t):
 
 
 def _bwd_reduce_cuda(z, dtap, mean, var, gamma, beta):
-    B, N, C = _check("bwd_reduce", z, dtap, mean, max_n=None)
+    B, N, k, C = _check("bwd_reduce", z, dtap, mean, any_n=True)
     if C not in {s[0] for s in KERNEL_STAGES}:
         raise ValueError(f"bwd_reduce kernel takes C in 64/128/256; got {C}")
     if dtap.dtype != z.dtype:
@@ -418,12 +494,10 @@ def _bwd_reduce_cuda(z, dtap, mean, var, gamma, beta):
     tstride = dtap.stride(1) if _rows_in_place(dtap) else C
     if tstride == C:
         dtap = dtap.contiguous()
-    fn = dispatch.kernel_fn("dgcnn_bwd", "bwd_reduce_launch",
-                            (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
-                            + (ctypes.c_void_p,))
-    code = fn(*map(_ptr, (z.contiguous(), dtap, *stats, part, _ticket(dev, stream), s)),
-              B, N, C, tstride, int(dt == torch.bfloat16), plan["blocks"],
-              ctypes.c_void_p(stream))
+    code = _fn("bwd_reduce", k, 9, 7)(
+        *map(_ptr, (z.contiguous(), dtap, *stats, part, _ticket(dev, stream), s)),
+        B, N, k, C, tstride, int(dt == torch.bfloat16), plan["blocks"],
+        ctypes.c_void_p(stream))
     dispatch.check_launch(code, "bwd_reduce")
     dispatch.launch_counts["bwd_reduce"] += 1
     return s
@@ -431,16 +505,16 @@ def _bwd_reduce_cuda(z, dtap, mean, var, gamma, beta):
 
 def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
                     varp, gammap, betap, dtapp, dznext, wnext):
-    B, N, C = _check("bwd_stage", z, dtap, zp, dtapp, s12, w_i)
+    B, N, k, C = _check("bwd_stage", z, dtap, zp, dtapp, s12, w_i)
     cin = zp.shape[-1]
     cn = 0 if dznext is None else dznext.shape[-1]
     if (C, cin, cn) not in KERNEL_STAGES:
         raise ValueError(f"bwd_stage kernel takes (C, C_in, C_next) in "
                          f"{KERNEL_STAGES}; got {(C, cin, cn)}")
-    if (tuple(zp.shape) != (B, KERNEL_K, N, cin) or zp.dtype != z.dtype
+    if (tuple(zp.shape) != (B, k, N, cin) or zp.dtype != z.dtype
             or tuple(dtapp.shape) != (B, N, cin)
             or tuple(w_i.shape) != (cin, C)
-            or (cn and (tuple(dznext.shape) != (B, KERNEL_K, N, cn)
+            or (cn and (tuple(dznext.shape) != (B, k, N, cn)
                         or dznext.dtype != z.dtype
                         or tuple(wnext.shape) != (C, cn)))):
         raise ValueError("bwd_stage kernel: inputs of inconsistent shapes "
@@ -452,7 +526,7 @@ def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
     dw = torch.empty(cin, C, dtype=torch.float32, device=dev)
     stream = ctypes.c_void_p(dispatch.current_stream(z))
     # one pass: one partial of each a block
-    blocks = bwd_stage_plan(B, N, C, cin, cn, dt)["blocks"]
+    blocks = bwd_stage_plan(B, N, k, C, cin, cn, dt)["blocks"]
     part_s = torch.empty(blocks, 2, cin, dtype=torch.float32, device=dev)
     part_w = torch.empty(blocks, cin, C, dtype=torch.float32, device=dev)
     f32 = lambda a: None if a is None else a.detach().float().contiguous()
@@ -464,8 +538,8 @@ def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
         ins = (z.contiguous(), dtap.contiguous(), *stats, s12,
                None if not cn else dznext.contiguous(), f32(wnext), f32(w_i),
                zp.contiguous(), dtapp.contiguous())
-        code = _fn("bwd_stage_bf16", 21, 6)(
-            *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, C, cin, cn,
+        code = _fn("bwd_stage_bf16", k, 21, 7)(
+            *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, k, C, cin, cn,
             blocks, stream)
     else:
         # the BN constants packed by the plain version's operations; the
@@ -475,8 +549,8 @@ def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
                None if not cn else dznext.contiguous(), f32(wnext), f32(w_i),
                zp.contiguous(), dtapp.contiguous(),
                _bn_pack(meanp, varp, gammap, betap, dt))
-        code = _fn("bwd_stage", 15, 6)(
-            *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, C, cin, cn,
+        code = _fn("bwd_stage", k, 15, 7)(
+            *map(_ptr, ins + (dz, part_s, sp, part_w, dw)), B, N, k, C, cin, cn,
             blocks, stream)
     dispatch.check_launch(code, "bwd_stage")
     dispatch.launch_counts["bwd_stage"] += 1
@@ -485,16 +559,16 @@ def _bwd_stage_cuda(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp,
 
 def _bwd_edge_cuda(z1, dtap1, mean1, var1, gamma1, beta1, s12, dz2, w2, e,
                    w1, idx):
-    B, N, C = _check("bwd_edge", z1, dtap1, dz2, e, idx, s12)
+    B, N, k, C = _check("bwd_edge", z1, dtap1, dz2, e, idx, s12)
     if ((C, w1.shape[0], dz2.shape[-1]) != KERNEL_EDGE
-            or tuple(dz2.shape) != (B, KERNEL_K, N, C) or dz2.dtype != z1.dtype
-            or tuple(e.shape) != (B, KERNEL_K, N, 6) or e.dtype != z1.dtype
-            or tuple(idx.shape) != (B, N, KERNEL_K)
+            or tuple(dz2.shape) != (B, k, N, C) or dz2.dtype != z1.dtype
+            or tuple(e.shape) != (B, k, N, 6) or e.dtype != z1.dtype
+            or tuple(idx.shape) != (B, N, k)
             or tuple(w1.shape) != (6, C) or tuple(w2.shape) != (C, C)):
         raise ValueError(f"bwd_edge kernel takes (C1, 6, C2) = {KERNEL_EDGE} "
                          "and inputs of consistent shapes and dtypes")
     dt, dev = z1.dtype, z1.device
-    dneigh = torch.empty(B, KERNEL_K, N, 3, dtype=torch.float32, device=dev)
+    dneigh = torch.empty(B, k, N, 3, dtype=torch.float32, device=dev)
     dw = torch.empty(6, C, dtype=torch.float32, device=dev)
     dq = torch.empty(B, N, 3, dtype=torch.float32, device=dev)
     dscat = torch.empty(B, N, 3, dtype=torch.float32, device=dev)
@@ -506,14 +580,14 @@ def _bwd_edge_cuda(z1, dtap1, mean1, var1, gamma1, beta1, s12, dz2, w2, e,
     # one pass for either dtype, dz_1 kept in shared memory: one dW_1 partial
     # a block; the kernel forms the BN constants from the statistics (and
     # for bf16 rounds the float32 weights) itself
-    blocks = bwd_edge_plan(B, N, dt)["blocks"]
+    blocks = bwd_edge_plan(B, N, k, dt)["blocks"]
     part_w = torch.empty(blocks, 6, C, dtype=torch.float32, device=dev)
     f32 = lambda a: a.detach().float().contiguous()
     ins = (z1.contiguous(), dtap1.contiguous(),
            *[f32(a) for a in (mean1, var1, gamma1, beta1)], s12,
            dz2.contiguous(), f32(w2), e.contiguous(), f32(w1), idx)
-    code = _fn("bwd_edge_bf16" if dt == torch.bfloat16 else "bwd_edge", 17, 3)(
-        *map(_ptr, ins + (dneigh, part_w, dw, dq, dscat)), B, N, blocks, stream)
+    code = _fn("bwd_edge_bf16" if dt == torch.bfloat16 else "bwd_edge", k, 17, 4)(
+        *map(_ptr, ins + (dneigh, part_w, dw, dq, dscat)), B, N, k, blocks, stream)
     dispatch.check_launch(code, "bwd_edge")
     dispatch.launch_counts["bwd_edge"] += 1
     return dw, dq, dscat

@@ -40,6 +40,14 @@ EDGE_BLOCKS_AN_SM = 3
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
+def graph_takes(k: int, n: int) -> bool:
+    """The envelope of the training graph's kernel, which the backward
+    kernels it feeds share (`ops/cuda_dgcnn_bwd.py`, `ops/dgcnn_train.py:
+    bwd_kernels_take`): 1 <= k <= KERNEL_MAX_K neighbours over clouds of
+    k <= n <= KERNEL_MAX_N points."""
+    return k in KERNEL_KS and k <= n <= KERNEL_MAX_N
+
+
 def edge_plan(B: int, k: int, N: int, n_sm: int) -> int:
     """Blocks of the edge pass's grid-stride loop over the B k N rows:
     EDGE_BLOCKS_AN_SM an SM, or fewer where the rows do not need them."""
@@ -63,7 +71,7 @@ def graph_stage1_reference(x: torch.Tensor, w1: torch.Tensor, k: int = 20,
 
 def _graph_stage1_cuda(x, w1, k, dtype, posenc_k):
     B, N, _ = x.shape
-    if k not in KERNEL_KS or not k <= N <= KERNEL_MAX_N:
+    if not graph_takes(k, N):
         raise ValueError(f"graph_stage1 kernel takes 1 <= k <= {KERNEL_MAX_K} "
                          f"and k <= N <= {KERNEL_MAX_N}; got k={k}, N={N}")
     if tuple(w1.shape) != (6, KERNEL_C1) or posenc_k > k:

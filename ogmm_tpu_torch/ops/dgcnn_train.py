@@ -16,10 +16,10 @@ runs by default on the accelerator) as a `torch.autograd.Function`:
             with float32 reductions, weight gradients from the saved pre-BN
             activations (h recomputed), and the edge scatter into dx
             (`index_add_`); or, with `BWD_KERNELS` on and a shape they
-            take (`bwd_kernels_take`: k = 20), through the three backward
-            kernels of `ops/cuda_dgcnn_bwd.py` (five launches: the sums of
-            stage 4, stages 4, 3 and 2, then stage 1 and dx), as the JAX
-            package's `_bwd_pallas`.
+            take (`bwd_kernels_take`: 1 <= k <= 32, k <= N <= 1024),
+            through the three backward kernels of `ops/cuda_dgcnn_bwd.py`
+            (five launches: the sums of stage 4, stages 4, 3 and 2, then
+            stage 1 and dx), as the JAX package's `_bwd_pallas`.
 
 Kept from the JAX function: the ReLU cotangent at exactly 0 is half the
 incoming one (`jnp.maximum` semantics); the max over k sends a tie's
@@ -45,11 +45,10 @@ from typing import Sequence
 
 import torch
 
-from ogmm_tpu_torch.ops import cuda_dgcnn_bwd
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (EPS, bn_apply, bwd_edge,
                                               bwd_reduce, bwd_stage, edge_vjp,
                                               max_vjp, mm32, relu_vjp)
-from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_stage1
+from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_stage1, graph_takes
 from ogmm_tpu_torch.parallel import comm
 
 # stages 4..1 of the backward through the kernels of ops/cuda_dgcnn_bwd.py
@@ -59,13 +58,14 @@ BWD_KERNELS = False
 
 
 def bwd_kernels_take(k: int, n: int, group=None) -> bool:
-    """Whether the backward kernels are compiled for a graph of k neighbours
-    over clouds of n points, and the batch is this process's alone (the
-    kernels sum the BatchNorm columns inside a stage: no data-parallel
-    group of more than one process); other shapes take the plain backward
-    even with `BWD_KERNELS` on."""
-    return (k == cuda_dgcnn_bwd.KERNEL_K and n <= cuda_dgcnn_bwd.KERNEL_MAX_N
-            and comm.axis_size(group) == 1)
+    """Whether the backward kernels take a graph of k neighbours over clouds
+    of n points (the graph kernel's envelope, `cuda_dgcnn_train.graph_takes`:
+    1 <= k <= 32, k <= n <= 1024; the JAX rule takes any k at n <= 1024,
+    and k > 32 is this port's departure), and the batch is this process's
+    alone (the kernels sum the BatchNorm columns inside a stage: no
+    data-parallel group of more than one process); other shapes take the
+    plain backward even with `BWD_KERNELS` on."""
+    return graph_takes(k, n) and comm.axis_size(group) == 1
 
 
 def _refuse_bwd_kernels(group) -> None:

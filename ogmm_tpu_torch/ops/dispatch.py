@@ -8,10 +8,12 @@ build or launch failure raises.
 The kernels live in `ogmm_tpu_torch/csrc/*.cu` (shared device code in
 `csrc/*.cuh`). Each source has a plain C interface and is compiled on first
 use with `nvcc` for `sm_90a` into a shared library under
-`ogmm_tpu_torch/_build/` (one `nvcc` per source, all started together) and
-bound with `ctypes`. Nothing is built when a module is imported. Builds
-hold a lock across processes (`buildlock.build_lock`), so that the ranks of
-a fresh checkout run each `nvcc` once between them.
+`ogmm_tpu_torch/_build/` (one `nvcc` per library, all started together) and
+bound with `ctypes`. `csrc/dgcnn_bwd.cu` gives one library a row class
+(`dgcnn_bwd_k<KP>`, compiled with `-DBWD_KP=<KP>`). Nothing is built when a
+module is imported. Builds hold a lock across processes
+(`buildlock.build_lock`), so that the ranks of a fresh checkout run each
+`nvcc` once between them.
 """
 from __future__ import annotations
 
@@ -30,7 +32,13 @@ from ogmm_tpu_torch.buildlock import build_lock
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dgcnn_eval", "sinkhorn_em", "graph_stage1", "nn1", "dgcnn_bwd",
+# the row classes of the DGCNN backward kernels: a library of class KP takes
+# graphs of k <= KP neighbours (ops/cuda_dgcnn_bwd.py:row_class)
+BWD_ROW_CLASSES = (4, 8, 12, 16, 20, 24, 32)
+# the libraries, each a source and the defines it is compiled with
+VARIANTS = {f"dgcnn_bwd_k{kp}": ("dgcnn_bwd", (f"-DBWD_KP={kp}",))
+            for kp in BWD_ROW_CLASSES}
+SOURCES = ("dgcnn_eval", "sinkhorn_em", "graph_stage1", "nn1", *VARIANTS,
            "knn", "posenc_angles", "knn_stream", "wproject", "fps", "icp",
            "pointmlp")
 # the kernels' wrappers; dgcnn_bwd.cu holds bwd_reduce, bwd_stage, bwd_edge,
@@ -76,14 +84,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """The source of one library and the defines it is compiled with."""
+    stem, defines = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{stem}.cu", defines
+
+
 def _lib_path(name: str) -> Path:
     """The library of one source, named by the hash of the source, every
-    header under csrc/ (a changed header must not load a stale library) and
-    the flags."""
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    header under csrc/ (a changed header must not load a stale library), the
+    flags and the defines."""
+    source, defines = _source(name)
+    h = hashlib.sha1(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
@@ -106,17 +121,18 @@ def _build_missing(paths: dict[str, Path], verbose: bool) -> None:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS]
+        source, defines = _source(name)
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines]
         if verbose:
             cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd += ["-o", str(tmp), str(source)]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{log}")
+            failed.append(f"{name}:\n{log}")
             continue
         if verbose and log:
             print(log)

@@ -3,7 +3,7 @@
 PyTorch/CUDA port goes.
 
     python3 scripts/torch_port_profile.py [--train [--bwd_kernels]]
-                                          [--loop_kernels]
+                                          [--loop_kernels] [--gnn_k K]
                                           [--n_points N] [--out DIR]
                                           (default N=717, profile_out/)
     python3 scripts/torch_port_profile.py --preset indoor [--fused_edges]
@@ -1360,6 +1360,8 @@ def main():
     ap.add_argument("--fused_edges", action="store_true",
                     help="dgcnn_fused_edges=True: the DGCNN stage chain of the "
                          "indoor request through the edges kernel")
+    ap.add_argument("--gnn_k", type=int, default=None,
+                    help="the DGCNN's neighbours (default: the preset's)")
     ap.add_argument("--batch", type=int, default=2,
                     help="with --preset indoor --train: pairs a step")
     ap.add_argument("--fit", action="store_true",
@@ -1416,11 +1418,13 @@ def main():
     if args.fused_edges:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     dgcnn_fused_edges=True))
+    if args.gnn_k:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, gnn_k=args.gnn_k))
     result = {"shape": {"B": src.shape[0], "N": N, "M": tgt.shape[1]},
               "preset": args.preset, "model": args.model,
               "dtype": "float32" if dgmr else args.dtype,
               "bwd_kernels": args.bwd_kernels, "loop_kernels": args.loop_kernels,
-              "fused_edges": args.fused_edges}
+              "fused_edges": args.fused_edges, "gnn_k": cfg.model.gnn_k}
     if args.train:
         from ogmm_tpu_torch.ops import dgcnn_train
         from ogmm_tpu_torch.train import create_train_state, make_train_step
@@ -1473,6 +1477,7 @@ def main():
     name += "_fused_edges" if args.fused_edges else ""
     name += "_serve" if args.preset == "serve" else ""
     name += f"_refine_{args.refine}" if args.refine else ""
+    name += f"_k{args.gnn_k}" if args.gnn_k else ""
     name += "" if N == (35000 if indoor else 768 if dgmr else 717) else f"_n{N}"
     name += "_f32" if args.dtype == "float32" and not dgmr else ""
     name += ".json"

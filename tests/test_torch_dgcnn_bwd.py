@@ -200,13 +200,13 @@ def _params(seed, dead_channels=False):
     return x, ws, gs, bs, wvec
 
 
-def _port_grads(x, ws, gs, bs, wvec, dtype, kernels):
+def _port_grads(x, ws, gs, bs, wvec, dtype, kernels, k=K):
     ps = [torch.tensor(a, requires_grad=True) for a in ws + gs + bs]
     xt = torch.tensor(x, requires_grad=True)
     saved = tdt.BWD_KERNELS
     tdt.BWD_KERNELS = kernels
     try:
-        out, _, _ = tdt.dgcnn_train(xt, ps[:5], ps[5:10], ps[10:], k=K,
+        out, _, _ = tdt.dgcnn_train(xt, ps[:5], ps[5:10], ps[10:], k=k,
                                     dtype=getattr(torch, dtype))
         loss = (out.float() * torch.from_numpy(wvec)).sum()
         loss.backward()
@@ -215,7 +215,7 @@ def _port_grads(x, ws, gs, bs, wvec, dtype, kernels):
     return loss, [p.grad for p in ps] + [xt.grad]
 
 
-def _jax_grads(monkeypatch, x, ws, gs, bs, wvec, dtype):
+def _jax_grads(monkeypatch, x, ws, gs, bs, wvec, dtype, k=K):
     for name in ("graph_stage1_pallas", "bwd_reduce_pallas",
                  "bwd_stage_pallas", "bwd_edge_pallas"):
         monkeypatch.setattr(pt, name, functools.partial(
@@ -224,7 +224,7 @@ def _jax_grads(monkeypatch, x, ws, gs, bs, wvec, dtype):
 
     def loss(params, xx):
         out, _, _ = jdt.dgcnn_train_fused(xx, params[:5], params[5:10],
-                                          params[10:], k=K, dtype=dtype)
+                                          params[10:], k=k, dtype=dtype)
         return (out.astype(jnp.float32) * wvec).sum()
 
     with pallas_override(True):
@@ -237,11 +237,15 @@ NAMES = ([f"w{i}" for i in range(1, 6)] + [f"bn{i}_scale" for i in range(1, 6)]
          + [f"bn{i}_bias" for i in range(1, 6)] + ["x"])
 
 
+@pytest.mark.parametrize("k", [K, 5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_backward_with_kernels_matches_jax_bwd_pallas(monkeypatch, dtype):
+def test_backward_with_kernels_matches_jax_bwd_pallas(monkeypatch, dtype, k):
+    # the kernels' route (on the CPU their plain versions) at k = 8 and at
+    # k = 5, which the kernels take in the row class of 8
+    assert tdt.bwd_kernels_take(k, N)
     x, ws, gs, bs, wvec = _params(11)
-    tval, tg = _port_grads(x, ws, gs, bs, wvec, dtype, kernels=True)
-    jval, jg = _jax_grads(monkeypatch, x, ws, gs, bs, wvec, dtype)
+    tval, tg = _port_grads(x, ws, gs, bs, wvec, dtype, kernels=True, k=k)
+    jval, jg = _jax_grads(monkeypatch, x, ws, gs, bs, wvec, dtype, k=k)
     np.testing.assert_allclose(n(tval), n(jval), rtol=TOL[dtype]["rtol"])
     for name, a, b in zip(NAMES, tg, jg):
         _close(a, b, dtype, name)

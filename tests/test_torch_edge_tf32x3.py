@@ -3,7 +3,7 @@
 CPU.
 
   extra   dz_2 W_2^T as the kernel's warps take it: each of the two K halves
-          (`bwd_edge_plan(..., torch.float32)["extra_k_slices"]`) k8 step by
+          (`bwd_edge_plan(..., k, torch.float32)["extra_k_slices"]`) k8 step by
           k8 step, each step three TF32 products (`stepped`), the halves
           added in order where the element work reads them
   dz_1    the element work of the plain version (h recomputed as the
@@ -80,9 +80,9 @@ def weight_gradient(e, dz):
     one a thread) summed over the block's tiles in order, a tile's rows of
     the part in order, as float32 FMAs; the parts added in order, then the
     blocks' partials in block order."""
-    B, _, N, C = dz.shape
-    plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N, torch.float32)
-    te, td = (tile_rows(t.float(), cuda_dgcnn_bwd.STAGE_TN) for t in (e, dz))
+    B, k, N, C = dz.shape
+    plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N, k, torch.float32)
+    te, td = (tile_rows(t.float(), plan["points_a_tile"]) for t in (e, dz))
     parts = plan["dw_parts"]
     per = te.shape[1] // parts
     dw = torch.zeros(e.shape[-1], C, dtype=torch.float32)
@@ -117,7 +117,7 @@ def edge_emulated(z1, dtap1, mean1, var1, gamma1, beta1, s12, dz2, w2, e, w1,
     if exact:
         extra = a.double() @ b.double()
     else:
-        halves = cuda_dgcnn_bwd.bwd_edge_plan(B, N, torch.float32)["extra_k_slices"]
+        halves = cuda_dgcnn_bwd.bwd_edge_plan(B, N, k, torch.float32)["extra_k_slices"]
         kj = C // halves
         extra = stepped(a[:, :kj], b[:kj], terms)
         for h in range(1, halves):

@@ -378,27 +378,38 @@ def test_nn1_stream_splits_only_where_queries_cannot_fill_the_card(B, N, M,
 from ogmm_tpu_torch.ops import cuda_dgcnn_bwd, cuda_mlp  # noqa: E402
 
 STAGES = cuda_dgcnn_bwd.KERNEL_STAGES
+# one k of each row class, and the k of the path and of the envelopes phase
+CLASS_KS = (1, 4, 5, 8, 12, 16, 20, 24, 25, 32)
+GRID_KS = (1, 12, 20, 32)
 
 
+@pytest.mark.parametrize("k", CLASS_KS)
 @pytest.mark.parametrize("stage", STAGES)
-def test_bwd_stage_block_fits_shared_memory(stage):
+def test_bwd_stage_block_fits_shared_memory(stage, k):
     # two buffers of a tile's panels, W_i and W_{i+1} resident, the scratch
-    # tile and the 1024-byte alignment, within a block's 227 KB
+    # tile and the 1024-byte alignment, within a block's 227 KB, at every
+    # row class; a tile's rows at most 80 and whole k16 steps of the weight
+    # gradient's wgmma, half of them a row product's n (a multiple of 8)
     C, cin, cn = stage
-    plan = cuda_dgcnn_bwd.bwd_stage_plan(24, 717, C, cin, cn)
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(24, 1024, k, C, cin, cn)
     assert plan["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
-    panel = cuda_dgcnn_bwd.STAGE_TN * cuda_dgcnn_bwd.KERNEL_K * 128
+    rows = plan["rows_a_tile"]
+    assert rows == plan["row_class"] * plan["points_a_tile"] <= cuda_dgcnn_bwd.MAX_TILE_ROWS
+    assert rows % 16 == 0 and plan["row_product_n"] * 2 == rows
+    assert plan["row_product_n"] in (16, 24, 32, 40)
+    panel = rows * 128
     assert plan["smem"] >= 2 * (C + cin + cn) // 64 * panel + 2 * (cin * C + C * cn)
-    # the plan does not depend on the batch
-    assert cuda_dgcnn_bwd.bwd_stage_plan(1, 1, *stage)["smem"] == plan["smem"]
+    # the plan does not depend on the batch or the points
+    assert cuda_dgcnn_bwd.bwd_stage_plan(1, 1, k, *stage)["smem"] == plan["smem"]
 
 
 @pytest.mark.parametrize("B,N", [(1, 1), (1, 3), (2, 5), (1, 1024), (24, 717),
                                  (3, 1000), (48, 717), (7, 129)])
+@pytest.mark.parametrize("k", GRID_KS)
 @pytest.mark.parametrize("stage", STAGES)
-def test_bwd_stage_grid_visits_every_tile_once_in_order(B, N, stage):
-    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, *stage)
-    tiles = B * -(-N // cuda_dgcnn_bwd.STAGE_TN)
+def test_bwd_stage_grid_visits_every_tile_once_in_order(B, N, stage, k):
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, k, *stage)
+    tiles = B * -(-N // cuda_dgcnn_bwd.tile_points(k))
     assert plan["tiles"] == tiles
     assert plan["blocks"] == min(cuda_dgcnn_bwd.STAGE_BLOCKS, tiles)
     shares = cuda_dgcnn_bwd.stage_shares(plan["tiles"], plan["blocks"])
@@ -420,10 +431,10 @@ def test_bwd_stage_partials_are_fixed_by_the_shape(B, N, stage):
     # one dW_i and one S_{i-1} partial a block, summed in block order: the
     # count depends on the shapes only, never on the card
     C, cin, cn = stage
-    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, C, cin, cn)
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, 20, C, cin, cn)
     G = plan["blocks"]
     assert plan["part_w"] == (G, cin, C) and plan["part_s"] == (G, 2, cin)
-    assert cuda_dgcnn_bwd.bwd_stage_plan(B, N, C, cin, cn) == plan
+    assert cuda_dgcnn_bwd.bwd_stage_plan(B, N, 20, C, cin, cn) == plan
 
 
 MLP_WIDTHS = list(range(64, 1025, 64))
@@ -558,11 +569,12 @@ EDGE_SHAPES = [(1, 1), (1, 3), (2, 5), (1, 1024), (24, 717), (3, 1000),
 
 
 @pytest.mark.parametrize("B,N", EDGE_SHAPES)
-def test_bwd_edge_grid_visits_every_tile_once_in_order(B, N):
+@pytest.mark.parametrize("k", GRID_KS)
+def test_bwd_edge_grid_visits_every_tile_once_in_order(B, N, k):
     # both forms: bf16 (edge_wgmma_kernel) and float32 (edge_tf32_kernel)
     for dt in (torch.bfloat16, torch.float32):
-        plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N, dt)
-        tiles = B * -(-N // cuda_dgcnn_bwd.STAGE_TN)
+        plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N, k, dt)
+        tiles = B * -(-N // cuda_dgcnn_bwd.tile_points(k))
         assert plan["tiles"] == tiles
         assert plan["blocks"] == min(cuda_dgcnn_bwd.STAGE_BLOCKS, tiles)
         shares = cuda_dgcnn_bwd.stage_shares(plan["tiles"], plan["blocks"])
@@ -574,30 +586,36 @@ def test_bwd_edge_grid_visits_every_tile_once_in_order(B, N):
 def test_bwd_edge_partials_are_fixed_by_the_shape(B, N):
     # one dW_1 partial a block, summed in block order, in both forms
     for dt in (torch.bfloat16, torch.float32):
-        plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N, dt)
+        plan = cuda_dgcnn_bwd.bwd_edge_plan(B, N, 20, dt)
         assert plan["part_w"] == (plan["blocks"], 6, cuda_dgcnn_bwd.KERNEL_EDGE[0])
-        assert cuda_dgcnn_bwd.bwd_edge_plan(B, N, dt) == plan
+        assert cuda_dgcnn_bwd.bwd_edge_plan(B, N, 20, dt) == plan
 
 
-def test_bwd_edge_block_fits_shared_memory():
+@pytest.mark.parametrize("k", CLASS_KS)
+def test_bwd_edge_block_fits_shared_memory(k):
     # bf16: two buffers of z_1 and dz_2 panels, W_2 and W_1 panels, the e
     # panel, the extra cotangent's tile, de and the alignment, within 227
-    # KB; the same for every shape
-    plan = cuda_dgcnn_bwd.bwd_edge_plan(24, 717)
-    panel = cuda_dgcnn_bwd.STAGE_TN * cuda_dgcnn_bwd.KERNEL_K * 128
+    # KB; the same for every shape; a tile's rows whole k16 steps of the
+    # weight gradient's wgmma, half of them a row product's n
+    plan = cuda_dgcnn_bwd.bwd_edge_plan(24, 1024, k)
+    rows = plan["rows_a_tile"]
+    assert rows == plan["row_class"] * cuda_dgcnn_bwd.tile_points(k) <= 80
+    assert rows % 16 == 0 and plan["row_product_n"] * 2 == rows
+    panel = rows * 128
     assert 5 * panel + 2 * 64 * 64 * 2 <= plan["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
-    assert {cuda_dgcnn_bwd.bwd_edge_plan(*s)["smem"] for s in EDGE_SHAPES} == {plan["smem"]}
+    assert {cuda_dgcnn_bwd.bwd_edge_plan(*s, k)["smem"] for s in EDGE_SHAPES} == {plan["smem"]}
     # float32: two buffers of z_1 and dz_2 as 32-channel panels and the
     # taps, the extra cotangent's two K halves in rows of 68 floats, the e
     # rows, de, W_1 and the alignment; 16 warps; the same at every N the
-    # kernel takes
-    rows = cuda_dgcnn_bwd.STAGE_TN * cuda_dgcnn_bwd.KERNEL_K
-    plans = [cuda_dgcnn_bwd.bwd_edge_plan(24, n, torch.float32)
-             for n in (1, 20, 25, 717, 768, 1024)]
+    # kernel takes; the bf16 kernel's tiles, each half of them whole 8-row
+    # column tiles
+    plans = [cuda_dgcnn_bwd.bwd_edge_plan(24, n, k, torch.float32)
+             for n in (32, 33, 717, 768, 1024)]
     assert len({p["smem"] for p in plans}) == 1
     assert (2 * 4 * rows * 32 * 4 + 2 * rows * 68 * 4 + 1024 <= plans[0]["smem"]
             <= cuda_dgcnn_bwd.SMEM_LIMIT)
     for p in plans:
+        assert p["rows_a_tile"] == rows and (rows // 2) % 8 == 0
         assert p["threads"] == 32 * cuda_dgcnn_bwd.STAGE_WARPS
         # the two K halves of W_2's depth, whole k8 steps each
         assert cuda_dgcnn_bwd.KERNEL_EDGE[2] % (8 * p["extra_k_slices"]) == 0
@@ -605,26 +623,31 @@ def test_bwd_edge_block_fits_shared_memory():
         # row of a tile in one part
         assert p["dw_parts"] * cuda_dgcnn_bwd.KERNEL_EDGE[0] == p["threads"]
         assert rows % p["dw_parts"] == 0
+        # de: a thread a (row, output)
+        assert 6 * rows <= p["threads"]
 
 
 @pytest.mark.parametrize("B,N", EDGE_SHAPES)
 def test_scatter_ranges_cover_each_point_once(B, N):
-    plan = cuda_dgcnn_bwd.scatter_plan(B, N)
+    plan = cuda_dgcnn_bwd.scatter_plan(B, N, 20)
     gx, gy = plan["grid"]
     assert gy == B and len(plan["ranges"]) == gx * B
     seen = [(b, p) for b, p0, p1 in plan["ranges"] for p in range(p0, p1)]
     assert sorted(seen) == [(b, p) for b in range(B) for p in range(N)]
     assert all(0 < p1 - p0 <= cuda_dgcnn_bwd.SCATTER_POINTS
                for _, p0, p1 in plan["ranges"])
-    # the lists of the worst case (every row of the cloud in one range) fit
-    assert plan["smem"] >= 4 * cuda_dgcnn_bwd.KERNEL_K * N
-    assert cuda_dgcnn_bwd.scatter_plan(B, 1024)["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
+    # the lists of the worst case (every row of the cloud in one range) fit,
+    # at every k up to 32 (149.6 KB at k = 32, N = 1024)
+    assert plan["smem"] >= 4 * 20 * N
+    for k in (1, 20, 32):
+        assert cuda_dgcnn_bwd.scatter_plan(B, 1024, k)["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
+    assert cuda_dgcnn_bwd.scatter_plan(1, 1024, 32)["smem"] == 4 * (18 * 256 + 16 + 32 * 1024)
 
 
 @pytest.mark.parametrize("B,N", [(24, 717), (48, 1024), (2, 300)])
 def test_scatter_uses_more_blocks_than_clouds(B, N):
     # one block a cloud would leave most of the card's 132 SMs idle at B = 24
-    assert np.prod(cuda_dgcnn_bwd.scatter_plan(B, N)["grid"]) > B
+    assert np.prod(cuda_dgcnn_bwd.scatter_plan(B, N, 20)["grid"]) > B
 
 
 # ------------------------------------------------------------ the dense kNN
@@ -1049,21 +1072,25 @@ def test_pointmlp_f32_plan_at_the_attention_call():
 
 
 @pytest.mark.parametrize("B,N", [(24, 717), (1, 1), (2, 90), (3, 1024), (48, 717)])
+@pytest.mark.parametrize("k", GRID_KS)
 @pytest.mark.parametrize("stage", STAGES)
-def test_bwd_stage_f32_plan(B, N, stage):
-    # tiles of 2 points, a persistent grid of at most 132 blocks, one
-    # partial of each a block; two buffers of a tile's z rows (padded by 4
-    # floats) and taps, one of its dz_{i+1} rows, and the larger row
-    # product's slices, within 227 KB
+def test_bwd_stage_f32_plan(B, N, stage, k):
+    # tiles of 2 points (1 above k = 20), a persistent grid of at most 132
+    # blocks, one partial of each a block; two buffers of a tile's z rows
+    # (padded by 4 floats) and taps, one of its dz_{i+1} rows, and the
+    # larger row product's slices, within 227 KB; whole 8-row column tiles
     C, cin, cn = stage
-    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, C, cin, cn, F32)
-    tiles = B * -(-N // cuda_dgcnn_bwd.STAGE_TN_F32)
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, k, C, cin, cn, F32)
+    tn = cuda_dgcnn_bwd.f32_tile_points(k)
+    tiles = B * -(-N // tn)
+    assert tn == (2 if k <= 20 else 1) and plan["points_a_tile"] == tn
     assert plan["tiles"] == tiles and plan["blocks"] == min(132, tiles)
     assert plan["part_w"] == (plan["blocks"], cin, C)
     assert plan["part_s"] == (plan["blocks"], 2, cin)
     assert plan["threads"] == 512
-    rows = cuda_dgcnn_bwd.STAGE_TN_F32 * cuda_dgcnn_bwd.KERNEL_K
-    buf = rows * (C + cin + 8) + 2 * (C + cin)
+    rows = plan["rows_a_tile"]
+    assert rows == tn * cuda_dgcnn_bwd.row_class(k) and rows % 8 == 0
+    buf = rows * (C + cin + 8) + tn * (C + cin)
     assert plan["smem"] >= 4 * (2 * buf + (rows * (cn + 4) if cn else 0))
     assert plan["smem"] <= cuda_dgcnn_bwd.SMEM_LIMIT
     shares = cuda_dgcnn_bwd.stage_shares(tiles, plan["blocks"])
@@ -1078,16 +1105,101 @@ def test_bwd_stage_f32_warps_cover_every_product_once(stage):
     # (m-tile, column tile) once
     C, cin, cn = stage
     warps = cuda_dgcnn_bwd.STAGE_WARPS
-    xpw = cuda_dgcnn_bwd.bwd_stage_plan(24, 717, C, cin, cn, F32)["extra_m_tiles_a_warp"]
+    xpw = cuda_dgcnn_bwd.bwd_stage_plan(24, 717, 20, C, cin, cn, F32)["extra_m_tiles_a_warp"]
     for M, K, mpw in ((C, cn, xpw), (cin, C, 1)):
         if not K:
             continue
-        split = cuda_dgcnn_bwd.row_split(M, mpw)
+        split = cuda_dgcnn_bwd.row_split(M, 20, mpw)
         assert split["groups"] * split["k_slices"] == warps
         assert split["groups"] * split["m_tiles_a_warp"] * 16 == M
         assert (K // split["k_slices"]) % 8 == 0
-    mpw, npw = cuda_dgcnn_bwd.bwd_stage_plan(24, 717, C, cin, cn, F32)["dw_tiles_a_warp"]
+    mpw, npw = cuda_dgcnn_bwd.bwd_stage_plan(24, 717, 20, C, cin, cn, F32)["dw_tiles_a_warp"]
     groups = (cin // 16) // mpw
     owned = [(mpw * (w % groups) + u, (w // groups) * npw + j)
              for w in range(warps) for u in range(mpw) for j in range(npw)]
     assert sorted(owned) == [(m, n) for m in range(cin // 16) for n in range(C // 8)]
+
+
+# ---------------------------------- the backward kernels' row classes
+
+from ogmm_tpu_torch.ops import dispatch  # noqa: E402
+
+
+def test_row_classes_cover_every_k_the_graph_kernel_takes():
+    # a library a class (-DBWD_KP), each k of the graph kernel's envelope
+    # in the smallest class that holds it, nothing past it
+    classes = cuda_dgcnn_bwd.ROW_CLASSES
+    assert max(classes) == cuda_dgcnn.KERNEL_MAX_K and list(classes) == sorted(classes)
+    for k in cuda_dgcnn.KERNEL_KS:
+        kp = cuda_dgcnn_bwd.row_class(k)
+        assert kp >= k and not any(k <= c < kp for c in classes)
+        assert cuda_dgcnn_bwd.library(k) in dispatch.SOURCES
+    assert {dispatch.VARIANTS[f"dgcnn_bwd_k{kp}"] for kp in classes} == {
+        ("dgcnn_bwd", (f"-DBWD_KP={kp}",)) for kp in classes}
+    for k in (0, cuda_dgcnn.KERNEL_MAX_K + 1):
+        with pytest.raises(ValueError):
+            cuda_dgcnn_bwd.row_class(k)
+
+
+def _cu_tiles():
+    """The tile formulas of csrc/dgcnn_bwd.cu as functions of KP."""
+    text = open(os.path.join(CSRC, "dgcnn_bwd.cu")).read()
+    w = re.search(r"constexpr int WTN = KP <= (\d+) \? (\d+) : KP <= (\d+) \? (\d+) : (\d+);",
+                  text).groups()
+    f = re.search(r"constexpr int FTN = KP <= (\d+) \? (\d+) : (\d+);", text).groups()
+    w, f = [int(v) for v in w], [int(v) for v in f]
+    wtn = lambda kp: w[1] if kp <= w[0] else w[3] if kp <= w[2] else w[4]
+    ftn = lambda kp: f[1] if kp <= f[0] else f[2]
+    return wtn, ftn
+
+
+@pytest.mark.parametrize("kp", cuda_dgcnn_bwd.ROW_CLASSES)
+def test_row_class_tiles_mirror_the_kernel(kp):
+    wtn, ftn = _cu_tiles()
+    assert cuda_dgcnn_bwd.tile_points(kp) == wtn(kp)
+    assert cuda_dgcnn_bwd.f32_tile_points(kp) == ftn(kp)
+    # csrc static_asserts: bf16 tiles of whole k16 steps, at most 80 rows,
+    # points a power of two dividing 8 (a column's lanes then take rows 8 or
+    # 4 apart); float32 stage tiles of whole 8-row column tiles
+    rows = kp * wtn(kp)
+    assert rows % 16 == 0 and rows <= 80 and 8 % wtn(kp) == 0
+    assert kp * ftn(kp) % 8 == 0
+    for C in (64, 128, 256):
+        lanes = cuda_dgcnn_bwd.column_lanes(kp, C)
+        # a thread keeps one channel over its passes; rows 8 or 4 tile rows
+        # apart; every lane the same rows of its column
+        assert (cuda_dgcnn_bwd.STAGE_THREADS // lanes) % C == 0
+        assert wtn(kp) * lanes in (4, 8) and kp % lanes == 0
+        # every pass of the element work whole: no warp half idle
+        assert (wtn(kp) * C) % (cuda_dgcnn_bwd.STAGE_THREADS // lanes) == 0
+        # the float32 stage kernel: one column a thread, the lanes of a
+        # column a power of two dividing the class's rows
+        g = cuda_dgcnn_bwd.column_lanes(kp, C, torch.float32)
+        assert g * ftn(kp) * C == cuda_dgcnn_bwd.STAGE_THREADS and kp % g == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kp", cuda_dgcnn_bwd.ROW_CLASSES)
+def test_bwd_row_classes_fit_shared_memory_at_n_1024(kp, dtype):
+    # every row class's stage (three stages), edge, scatter and reduce
+    # launches at N = 1024, within a block's 227 KB
+    lim = cuda_dgcnn_bwd.SMEM_LIMIT
+    for stage in STAGES:
+        assert cuda_dgcnn_bwd.bwd_stage_plan(24, 1024, kp, *stage, dtype)["smem"] <= lim
+    assert cuda_dgcnn_bwd.bwd_edge_plan(24, 1024, kp, dtype)["smem"] <= lim
+    assert cuda_dgcnn_bwd.scatter_plan(24, 1024, kp)["smem"] <= lim
+    # the reduce's static shared memory (red, szh, last): any k, any N
+    red = 4 * cuda_dgcnn_bwd.REDUCE_THREADS * (2 * cuda_dgcnn_bwd.REDUCE_CHANNELS + 1)
+    assert red + 8 * 256 + 4 <= 48 * 1024
+
+
+def test_bwd_stage_f32_flush_mirrors_the_kernel():
+    # the float32 weight gradient's chains: DW_FLUSH tiles a block, which
+    # the k = 20 step (at most 94 tiles a block at N <= 1024, B = 24) never
+    # reaches, and which cut k = 32, N = 1024's 186 into two
+    assert cuda_dgcnn_bwd.DW_FLUSH_TILES == _cu_define("dgcnn_bwd.cu", "DW_FLUSH")
+    for N in (717, 1024):
+        plan = cuda_dgcnn_bwd.bwd_stage_plan(24, N, 20, 256, 128, 0, torch.float32)
+        assert -(-plan["tiles"] // plan["blocks"]) < plan["dw_flush"]
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(24, 1024, 32, 256, 128, 0, torch.float32)
+    assert -(-plan["tiles"] // plan["blocks"]) == 187 and plan["dw_flush"] == 96

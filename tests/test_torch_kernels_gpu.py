@@ -518,9 +518,10 @@ BWD = {"bwd_reduce": (bwd_reduce, bwd_reduce_reference),
        "bwd_edge": (bwd_edge, bwd_edge_reference)}
 
 
-def _bwd_calls(dev, B, N, dtype, seed):
+def _bwd_calls(dev, B, N, dtype, seed, k=20):
     """The arguments of the five backward calls of one DGCNN training
-    forward and backward at (B, N), recorded through the plain versions."""
+    forward and backward at (B, N) over a graph of k neighbours, recorded
+    through the plain versions."""
     calls = []
 
     def record(name):
@@ -538,7 +539,7 @@ def _bwd_calls(dev, B, N, dtype, seed):
             setattr(ops_dgcnn_train, name, record(name))
         ops_dgcnn_train.BWD_KERNELS = True
         out, _, _ = ops_dgcnn_train.dgcnn_train(
-            x, ws, [a[0] for a in aff], [a[1] for a in aff], 20, dtype)
+            x, ws, [a[0] for a in aff], [a[1] for a in aff], k, dtype)
         wvec = torch.tensor(np.random.RandomState(seed + 1).randn(
             B, N, 512).astype(np.float32), device=dev)
         (out.float() * wvec).sum().backward()
@@ -579,10 +580,14 @@ def test_bwd_edge_one_pass_matches_plain(card, B, N, dtype):
         assert err <= _bwd_limit(name, i, dtype, r), (i, err)
 
 
-@pytest.mark.parametrize("B,N", [(3, 90), (4, 717), (1, 20)])
+@pytest.mark.parametrize("B,N,k", [(3, 90, 20), (4, 717, 20), (1, 20, 20),
+                                   (3, 90, 1), (3, 90, 5), (2, 717, 12),
+                                   (3, 90, 25), (2, 1024, 32), (1, 32, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bwd_kernels_match_plain(card, B, N, dtype):
-    for name, a, kw in _bwd_calls(card, B, N, dtype, seed=N):
+def test_bwd_kernels_match_plain(card, B, N, k, dtype):
+    # the five calls of a real backward at k = 20 and in the other row
+    # classes (k = 1, 5, 25 with padded rows), N = k included
+    for name, a, kw in _bwd_calls(card, B, N, dtype, seed=N, k=k):
         kern, plain = BWD[name]
         got, ref = kern(*a, **kw), plain(*a, **kw)
         torch.cuda.synchronize()
@@ -604,10 +609,12 @@ def test_bwd_kernels_are_deterministic(card):
 
 
 def test_bwd_kernels_refuse_what_they_do_not_take(card):
-    z = torch.zeros(1, 8, 64, 256, device=card)
+    # outside the graph kernel's envelope (1 <= k <= 32, k <= N <= 1024)
+    # each wrapper raises: the plain version never runs on the card
+    z = torch.zeros(1, 33, 64, 256, device=card)
     tap = torch.zeros(1, 64, 256, device=card)
     v = torch.ones(256, device=card)
-    with pytest.raises(ValueError, match="20"):
+    with pytest.raises(ValueError, match="k <= 32"):
         bwd_reduce(z, tap, v, v, v, v)
     with pytest.raises(ValueError, match="dtype"):
         bwd_reduce(torch.zeros(1, 20, 64, 256, device=card, dtype=torch.float16),
@@ -620,10 +627,14 @@ def test_bwd_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="C_in"):
         bwd_stage(z20, tap, v, v, v, v, torch.zeros(2, 256, device=card), w,
                   zp, u, u, u, u, tp)
-    # the stage kernel stops at N = 1024; the reduce takes any N
+    # the stage kernel stops at N = 1024 and at N < k; the reduce takes any N
     with pytest.raises(ValueError, match="N <= 1024"):
         bwd_stage(torch.zeros(1, 20, 1100, 256, device=card),
                   torch.zeros(1, 1100, 256, device=card), v, v, v, v,
+                  torch.zeros(2, 256, device=card), w, zp, u, u, u, u, tp)
+    with pytest.raises(ValueError, match="k <= N"):
+        bwd_stage(torch.zeros(1, 20, 19, 256, device=card),
+                  torch.zeros(1, 19, 256, device=card), v, v, v, v,
                   torch.zeros(2, 256, device=card), w, zp, u, u, u, u, tp)
 
 
@@ -671,16 +682,16 @@ def test_bwd_reduce_one_pass_kernel_matches_plain(card, N, C, dtype):
     assert torch.equal(sliced, got)
 
 
-def _stage_args(dev, B, N, stage, seed, dtype=torch.bfloat16):
-    """Arguments of one stage call in `dtype` at any (B, N), N < k
-    included: pre-BN z of stages i and i-1 with their batch moments, tap
+def _stage_args(dev, B, N, stage, seed, dtype=torch.bfloat16, k=20):
+    """Arguments of one stage call in `dtype` at any (B, N) over a graph of
+    k neighbours: pre-BN z of stages i and i-1 with their batch moments, tap
     cotangents, sums, weights and the cotangent of the stage above."""
     C, cin, cn = stage
     rs = np.random.RandomState(seed)
     bf = dtype
 
     def z(c):
-        v = torch.tensor(rs.randn(B, 20, N, c).astype(np.float32), device=dev).to(bf)
+        v = torch.tensor(rs.randn(B, k, N, c).astype(np.float32), device=dev).to(bf)
         var, mean = torch.var_mean(v.float(), dim=(0, 1, 2), unbiased=False)
         return v, mean, var + 0.1
 
@@ -691,7 +702,7 @@ def _stage_args(dev, B, N, stage, seed, dtype=torch.bfloat16):
     zp, meanp, varp = z(cin)
     kw = {}
     if cn:
-        kw = {"dznext": t(B, 20, N, cn, scale=0.1).to(bf), "wnext": t(C, cn, scale=0.1)}
+        kw = {"dznext": t(B, k, N, cn, scale=0.1).to(bf), "wnext": t(C, cn, scale=0.1)}
     return ((zi, t(B, N, C).to(bf), mean, var, 1 + 0.2 * t(C), 0.1 * t(C),
              t(2, C, scale=float(B * N)), t(cin, C, scale=0.1), zp, meanp, varp,
              1 + 0.2 * t(cin), 0.1 * t(cin), t(B, N, cin).to(bf)), kw)
@@ -703,8 +714,10 @@ def _stage_args(dev, B, N, stage, seed, dtype=torch.bfloat16):
 def test_bwd_stage_one_pass_kernel_matches_plain(card, B, N, stage, dtype):
     # the persistent one-pass kernels (bf16 on wgmma; float32 on mma.sync
     # in 3xTF32) at one point, N not a multiple of their tiles (4 and 2
-    # points), the request's N and the largest; twice bit for bit
-    a, kw = _stage_args(card, B, N, stage, seed=N + stage[0], dtype=dtype)
+    # points), the request's N and the largest; twice bit for bit; k = 20,
+    # or N where N < 20 (the graph has at most N neighbours)
+    a, kw = _stage_args(card, B, N, stage, seed=N + stage[0], dtype=dtype,
+                        k=min(20, N))
     got = bwd_stage(*a, **kw)
     again = bwd_stage(*a, **kw)
     ref = bwd_stage_reference(*a, **kw)

@@ -121,10 +121,11 @@ def stage_calls():
 
 def sliced(a, b, M, terms, mpw=1):
     """a (R, K) @ b (K, M) as the warps of the stage kernel's row products
-    take it: K in `row_split(M, mpw)` slices, each stepped, added in order."""
+    take it: K in `row_split(M, k, mpw)` slices (as many at every k), each
+    stepped, added in order."""
     if terms == "exact":
         return a.double() @ b.double()
-    ks = cuda_dgcnn_bwd.row_split(M, mpw)["k_slices"]
+    ks = cuda_dgcnn_bwd.row_split(M, 20, mpw)["k_slices"]
     kj = a.shape[1] // ks
     out = stepped(a[:, :kj], b[:kj], terms)
     for i in range(1, ks):
@@ -156,18 +157,22 @@ def tile_rows(t, tn):
 
 def weight_gradient(hp, dz, terms):
     """dW = hp^T dz over the m rows: per tile, its rows' k8 steps; per block,
-    its share of the tiles in order; the blocks' partials in block order."""
+    its share of the tiles in order, added into its partial every
+    `dw_flush` tiles; the blocks' partials in block order."""
     if terms == "exact":
         return hp.flatten(0, 2).double().t() @ dz.flatten(0, 2).double()
-    B, _, N, C = dz.shape
-    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, C, hp.shape[-1], 0, torch.float32)
+    B, k, N, C = dz.shape
+    plan = cuda_dgcnn_bwd.bwd_stage_plan(B, N, k, C, hp.shape[-1], 0, torch.float32)
     th, td = (tile_rows(t.float(), plan["points_a_tile"]) for t in (hp, dz))
     dw = None
     for a, b in cuda_dgcnn_bwd.stage_shares(plan["tiles"], plan["blocks"]):
-        acc = None
+        acc = part = None
         for i in range(a, b):
             acc = stepped(th[i].t(), td[i], terms, acc)
-        dw = acc if dw is None else dw + acc
+            if (i - a) % plan["dw_flush"] == plan["dw_flush"] - 1 or i == b - 1:
+                # the accumulators added into the block's partial
+                part, acc = (acc if part is None else part + acc), None
+        dw = part if dw is None else dw + part
     return dw
 
 
@@ -186,7 +191,7 @@ def stage_emulated(z, dtap, mean, var, gamma, beta, s12, w_i, zp, meanp, varp,
     y = bn_apply(z, mean, var, gamma, beta)            # as the forward rounds it
     dh = max_vjp(dtap, torch.relu(y)).to(dt)
     if dznext is not None:
-        xpw = cuda_dgcnn_bwd.bwd_stage_plan(B, N, C, cin, dznext.shape[-1],
+        xpw = cuda_dgcnn_bwd.bwd_stage_plan(B, N, k, C, cin, dznext.shape[-1],
                                             torch.float32)["extra_m_tiles_a_warp"]
         dh = dh + sliced(dznext.reshape(-1, dznext.shape[-1]), wnext.t(), C,
                          terms, xpw).view(B, k, N, C).to(dt)

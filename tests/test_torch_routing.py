@@ -579,3 +579,46 @@ def test_backward_kernels_under_a_group_follow_the_jax_rule(monkeypatch,
     if world > 1:
         with pytest.raises(ValueError, match="BWD_KERNELS"):
             tdgcnn_train.dgcnn_train(x, [], [], [], group=SENTINEL)
+
+
+def _jax_bwd_route(monkeypatch, k, N):
+    """The route the JAX custom VJP (`ogmm_tpu/ops/dgcnn_train.py:_bwd_vjp`)
+    takes for stages 4..1 with `_BWD_PALLAS` on, on the accelerator's rule:
+    "kernels" (`_bwd_pallas`) or "plain" (the jnp mirror, whose first call
+    of its own is `_max_vjp`), observed on zero residuals of one cloud of N
+    points over a graph of k neighbours (traced with `jax.eval_shape`: the
+    rule reads shapes only)."""
+    _stub(monkeypatch, jdgcnn_train, "_bwd_pallas", "kernels")
+    _stub(monkeypatch, jdgcnn_train, "_max_vjp", "plain")
+    monkeypatch.setattr(jdgcnn_train, "_BWD_PALLAS", True)
+    emb, dims = 8, (64, 64, 128, 256)
+    z = lambda *s: jax.ShapeDtypeStruct(s, jnp.float32)
+    ws = [z(6, 64), z(64, 64), z(64, 128), z(128, 256), z(512, emb)]
+    res = (z(1, N, 3), jax.ShapeDtypeStruct((1, N, k), jnp.int32), z(1, k, N, 6),
+           tuple(z(1, k, N, c) for c in dims), z(1, N, emb),
+           tuple(z(1, N, c) for c in dims), tuple(ws),
+           tuple(z(c) for c in (*dims, emb)), tuple(z(c) for c in (*dims, emb)),
+           tuple((z(c), z(c)) for c in (*dims, emb)))
+    with pallas_override(True), pytest.raises(Taken) as taken:
+        jax.eval_shape(lambda r, d: jdgcnn_train._bwd_vjp(k, jnp.float32, 0, r,
+                                                          (d, None, None)),
+                       res, z(1, N, emb))
+    return str(taken.value)
+
+
+@pytest.mark.parametrize("N", ["k", 717, 1024, 1025])
+@pytest.mark.parametrize("k", list(range(1, 34)))
+def test_backward_kernels_follow_the_jax_rule(monkeypatch, k, N):
+    # the JAX package sends stages 4..1 through its three backward kernels
+    # at any k whenever N <= 1024; the port's kernels take the graph
+    # kernel's envelope, 1 <= k <= 32 (k <= N): k = 33 is the port's named
+    # departure and takes the plain backward, as graph_stage1 does
+    from ogmm_tpu_torch.ops import dgcnn_train as tdgcnn_train
+    from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_takes
+    N = k if N == "k" else N
+    jax_route = _jax_bwd_route(monkeypatch, k, N)
+    assert jax_route == ("kernels" if N <= 1024 else "plain")
+    port = tdgcnn_train.bwd_kernels_take(k, N)
+    assert port == (jax_route == "kernels" and k <= 32)
+    # the envelope is the graph kernel's, one definition for both
+    assert port == graph_takes(k, N)
