@@ -176,7 +176,11 @@ fatal on failure:
              float32), dgcnn_edges at k = 12 (2 clouds of 35,000) and 5 (37
              points), graph_stage1 at k = 12 and 32 (24 clouds of 717),
              sinkhorn_em at (8, 5734, 128), (8, 4096, 128) and (8, 2867,
-             256) (clusters of 16 blocks; per trip and after 10 trips),
+             256) (clusters of 16 blocks) and, above K = 256 (16 or 32
+             lanes a row), at (48, 717, 512), (24, 1433, 512), (8, 2000,
+             257), (8, 857, 856) and (8, 717, 1023) (per trip and after 10
+             trips, relaunched bit-equal, with the cluster size and the
+             clusters the card runs at once),
              the five DGCNN backward calls (bwd_reduce, bwd_stage x 3,
              bwd_edge) of a real backward at k = 1, 12, 32 (24 clouds of
              717, bf16 and float32) and at k = 32 over 24 clouds of 1024,
@@ -191,7 +195,11 @@ fatal on failure:
              N=4,096, K=128 (sinkhorn_em 1, the JAX rule's kernel); (e) the
              CLI with --profile_dir for 12 steps: a Chrome trace of steps
              [5, 10) naming the port's kernels; (f) the indoor request at
-             gnn_k=12 with dgcnn_fused_edges=True (dgcnn_edges 1)
+             gnn_k=12 with dgcnn_fused_edges=True (dgcnn_edges 1); (g)
+             `Registrar(configs.mnet(model=ModelConfig(n_clusters=512)))`
+             at B=24, N=717, float32 (sinkhorn_em 1, a cluster of 8; host
+             and busy ms beside the same request with the plain EM route,
+             in turns) and one train step of it (sinkhorn_em 1)
 
 `python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
 (build always runs; the names are those of PHASES below) and prints their
@@ -201,6 +209,7 @@ Prints the request and step times, one JSON object {"kernels": [...]} on a
 line of its own, the `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -4034,12 +4043,19 @@ ENV_DGCNN_KS = (4, 12, 25, 32)   # k the DGCNN eval kernel was not compiled for
 ENV_GS1_KS = (12, 32)            # and the training graph's
 ENV_EDGES_K = 12
 ENV_EM = ((8, 5734, 128), (8, 4096, 128), (8, 2867, 256))   # (clouds, N, K)
+# the wide forms (16 lanes a row to K = 512, 32 to 1024): the n_clusters =
+# 512 request's 2B = 48 clouds (a cluster of 8), N = 1433 at K = 512, K = 257
+# at N = 2000, and the tops of the JAX bound at K = 856 and 1023 (clusters of
+# 16)
+ENV_EM_WIDE = ((2 * B, N, 512), (B, N_LARGE, 512), (8, 2000, 257), (8, 857, 856),
+               (8, N, 1023))
 ENV_BWD = ((1, N), (12, N), (32, N), (32, 1024))   # (k, N) of the backward
 #                                  kernels, which were compiled for k = 20
 ENV_GNN_K = 12                   # the model of parts (b), (c) and (e)
 ENV_N_EM = 4096                  # part (d): a request the JAX rule sends to
 #                                  its EM kernel past a cluster of 8 blocks
 ENV_CLI_ROOT = "synthetic:600"   # 300 train shapes: 12 steps of 24 pairs
+ENV_K_WIDE = 512                 # part (g): n_clusters of the wide EM request
 
 
 def _stage_bound(points, k, emb, nbytes, selection_ops=0.0):
@@ -4227,11 +4243,33 @@ def env_dgcnn_bwd(rs):
     return res
 
 
+def _em_trips_chained(xyz, o, n0, trips=10):
+    """The kernel's trip t from the plain version's nodes after t - 1 trips,
+    against the plain version's trip t from the same nodes: the largest
+    difference over gamma, pi and the nodes of each of the trips."""
+    nodes, errs = n0, []
+    for _ in range(trips):
+        got = sinkhorn_em(xyz, o, nodes, iters=1)
+        want = sinkhorn_em_reference(xyz, o, nodes, iters=1)
+        errs.append(max((a - b).abs().max().item() for a, b in zip(got, want)))
+        nodes = want[2]
+    return errs
+
+
 def env_em(rs):
-    """sinkhorn_em past a cluster of 8 blocks and above K = 128, against
-    the plain version per trip and after ten trips."""
+    """sinkhorn_em past a cluster of 8 blocks and above K = 128 (ENV_EM),
+    and above K = 256, the wide forms (ENV_EM_WIDE), against the plain
+    version: one trip, each of ten trips from the plain version's state
+    (LIM_EM_1), ten trips (LIM_EM_10_*), relaunched bit-equal, timed beside
+    the plain version and the bound, with the cluster size and the clusters
+    the card runs at once. Ten trips of the plain version alone drift apart
+    from nodes one float32 ulp away; where that drift passes half a
+    LIM_EM_10_* limit (K near N, clusters of one or two points), the
+    ten-trip state is no test of the kernel and the per-trip chain holds it
+    (the ENV_EM shapes keep the ten-trip limits regardless)."""
     res = {}
-    for clouds, n, kk in ENV_EM:
+    for clouds, n, kk in ENV_EM + ENV_EM_WIDE:
+        wide = (clouds, n, kk) in ENV_EM_WIDE
         xyz = torch.tensor(rs.randn(clouds, n, 3).astype(np.float32) * 0.3, device=DEV)
         o = torch.tensor(rs.rand(clouds, n).astype(np.float32), device=DEV)
         o = o / o.sum(-1, keepdim=True)
@@ -4243,13 +4281,22 @@ def env_em(rs):
         g2, p2, m2 = sinkhorn_em_reference(xyz, o, n0, iters=1)
         err1 = max((a - b).abs().max().item() for a, b in ((g1, g2), (p1, p2), (m1, m2)))
         assert torch.isfinite(g1).all() and err1 <= LIM_EM_1, (n, kk, err1)
+        chain = _em_trips_chained(xyz, o, n0)
+        assert max(chain) <= LIM_EM_1, (n, kk, chain)
         g1, p1, m1 = sinkhorn_em(xyz, o, n0, iters=10)
         torch.cuda.synchronize()
         g2, p2, m2 = sinkhorn_em_reference(xyz, o, n0, iters=10)
         e_nodes = (m1 - m2).abs().max().item()
         e_pi = (p1 - p2).abs().max().item()
-        assert torch.isfinite(g1).all() and e_nodes <= LIM_EM_10_NODES \
-            and e_pi <= LIM_EM_10_PI, (n, kk, e_nodes, e_pi)
+        _, p3, m3 = sinkhorn_em_reference(
+            xyz, o, torch.nextafter(n0, torch.full_like(n0, 10.0)), iters=10)
+        d_nodes = (m3 - m2).abs().max().item()
+        d_pi = (p3 - p2).abs().max().item()
+        posed = d_nodes <= LIM_EM_10_NODES / 2 and d_pi <= LIM_EM_10_PI / 2
+        assert torch.isfinite(g1).all()
+        if posed or not wide:
+            assert e_nodes <= LIM_EM_10_NODES and e_pi <= LIM_EM_10_PI, \
+                (n, kk, e_nodes, e_pi)
         again = sinkhorn_em(xyz, o, n0, iters=10)
         assert all(torch.equal(a, b) for a, b in zip((g1, p1, m1), again)), \
             "sinkhorn_em: two launches differ"
@@ -4260,17 +4307,25 @@ def env_em(rs):
         t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
         res[f"N={n},K={kk}"] = {
             "shape": [clouds, n, kk], "cluster": cl, "clusters_at_once": at_once,
+            "lanes_per_row": cuda_em.lanes_per_row(kk),
             "smem_bytes": cuda_em.smem_bytes(n, kk, cl),
-            "max_abs_err": err1, "max_abs_err_nodes_10_trips": e_nodes,
-            "max_abs_err_pi_10_trips": e_pi, "ms": ms,
+            "max_abs_err": err1, "max_abs_err_each_trip": chain,
+            "max_abs_err_nodes_10_trips": e_nodes, "max_abs_err_pi_10_trips": e_pi,
+            "plain_one_ulp_drift_nodes_10_trips": d_nodes,
+            "plain_one_ulp_drift_pi_10_trips": d_pi,
+            "ten_trip_limits_held": posed or not wide, "ms": ms,
             "ms_per_pass": ms / (10 * 11), "plain_ms": plain,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        print(f"envelopes sinkhorn_em ({clouds}, N={n}, K={kk}): a cluster of {cl} "
+        print(f"envelopes sinkhorn_em ({clouds}, N={n}, K={kk}, "
+              f"{cuda_em.lanes_per_row(kk)} lanes a row): a cluster of {cl} "
               f"blocks ({cuda_em.smem_bytes(n, kk, cl)} B each; the occupancy "
-              f"calculator's clusters at once: {at_once}); 1 trip err {err1:.3g} "
-              f"(limit {LIM_EM_1}), 10 trips nodes {e_nodes:.3g} pi {e_pi:.3g}; "
-              f"{ms:.4f} ms, plain {plain:.3f} ms, bound "
+              f"calculator's clusters at once: {at_once}); 1 trip err {err1:.3g}, "
+              f"each of 10 trips from the plain state <= {max(chain):.3g} (limit "
+              f"{LIM_EM_1}); 10 trips nodes {e_nodes:.3g} pi {e_pi:.3g} (limits "
+              f"{LIM_EM_10_NODES}, {LIM_EM_10_PI}{'' if posed or not wide else ', not held'}"
+              f"; the plain version from nodes one ulp away: {d_nodes:.3g}, "
+              f"{d_pi:.3g}); {ms:.4f} ms, plain {plain:.3f} ms, bound "
               f"{res[f'N={n},K={kk}']['bound_ms']:.4f} ms")
     return res
 
@@ -4309,10 +4364,11 @@ def env_serve(cfg, pair, want):
                       "rot_median_deg_vs_plain": ang.median().item()}
 
 
-def env_train(rs, cfg):
+def env_train(rs, cfg, also=None):
     """One train step of cfg at B=24, N=717 with the backward kernels on
     (`BWD_KERNELS`): launches counted from 0 (graph_stage1 2, bwd_reduce 2,
-    bwd_stage 6, bwd_edge 2: src and tgt each one backward); from one state
+    bwd_stage 6, bwd_edge 2: src and tgt each one backward, and the counts
+    `also` asks for); from one state
     the loss bit-equal with the switch off and the gradients within
     LIM_BWD_STEP_GRAD, and the step against the plain versions."""
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_overlap=True),
@@ -4329,7 +4385,8 @@ def env_train(rs, cfg):
         metrics, launches = _counted(lambda: step(state, batches[1]))
         secs = (time.perf_counter() - t0) * 1e3
         assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
-        want = {"graph_stage1": 2, "bwd_reduce": 2, "bwd_stage": 6, "bwd_edge": 2}
+        want = {"graph_stage1": 2, "bwd_reduce": 2, "bwd_stage": 6, "bwd_edge": 2,
+                **(also or {})}
         assert {k: launches.get(k, 0) for k in want} == want, launches
         k_loss, k_grads = _step_grads(state, cfg, batches[0])
         ops_dgcnn_train.BWD_KERNELS = False
@@ -4350,6 +4407,57 @@ def env_train(rs, cfg):
     return launches, {"step_ms": secs, "loss": k_loss, "loss_off": o_loss,
                       "grad_rel_on_off": d_bwd, "loss_rel_vs_plain": d_loss,
                       "grad_rel_vs_plain": d_grad}
+
+
+class plain_em_route:
+    """Send every EM to the plain route (`ops.gmm.em_plain`), as above the
+    kernel's envelope, for the comparison run only."""
+
+    def __enter__(self):
+        self.saved = ops_gmm.em_route
+        ops_gmm.em_route = lambda *args, **kwargs: "plain"
+
+    def __exit__(self, *exc):
+        ops_gmm.em_route = self.saved
+
+
+def env_serve_wide_em(rs):
+    """`Registrar(configs.mnet(model=ModelConfig(n_clusters=512)))` at
+    B=24, N=717, float32, full width: the request of env_serve (sinkhorn_em
+    1, against the plain versions), then host and busy ms of the forward
+    with the EM through the kernel and through the plain route
+    (`em_plain`), in turns (kernel, plain, plain, kernel) on the same
+    weights, and the plain route's rotation beside the kernel's."""
+    cfg = _env_cfg(n_clusters=ENV_K_WIDE)
+    pair = make_pairs(rs, B, N)
+    launches, out = env_serve(cfg, pair, {"sinkhorn_em": 1, "dgcnn_eval": 1})
+    reg = Registrar(cfg, seed=0, device=DEV)
+    src, tgt = pair[:2]
+    with plain_em_route():
+        (p_rot, _, _, _), plain_launches = _counted(lambda: reg(src, tgt, refine=False))
+    assert plain_launches.get("sinkhorn_em", 0) == 0, plain_launches
+    k_rot = reg(src, tgt, refine=False)[0]
+    times = {"kernel": {"host_ms": [], "busy_ms": []},
+             "plain_em": {"host_ms": [], "busy_ms": []}}
+    for route in ("kernel", "plain_em", "plain_em", "kernel"):
+        ctx = plain_em_route() if route == "plain_em" else contextlib.nullcontext()
+        with ctx:
+            _, t = _timed(lambda: reg(src, tgt, refine=False))
+            busy = _busy_ms(lambda: reg(src, tgt, refine=False), {"em_ms": "em_kernel"})
+        times[route]["host_ms"] += t["host_ms"]
+        times[route]["busy_ms"].append(busy["busy"])
+        times[route]["em_kernel_ms"] = busy["em_ms"]
+    ang = angle_deg(k_rot, p_rot).median().item()
+    for route, v in times.items():
+        print(f"envelopes serve n_clusters={ENV_K_WIDE} ({B} pairs of {N}, float32), "
+              f"EM {route}: host {[round(x, 2) for x in v['host_ms']]} ms, busy "
+              f"{[round(x, 3) for x in v['busy_ms']]} ms (em_kernel "
+              f"{v['em_kernel_ms']:.3f})")
+    print(f"envelopes serve n_clusters={ENV_K_WIDE}: the plain EM route's rotation "
+          f"{ang:.3g} deg from the kernel's (median; not a limit: ten EM trips "
+          f"drift apart)")
+    return launches, {**out, "cluster": cuda_em.cluster_size(N, ENV_K_WIDE),
+                      "by_route": times, "rot_median_deg_plain_route": ang}
 
 
 def env_cli_profile():
@@ -4395,7 +4503,9 @@ def envelopes(rs):
     K=128 (sinkhorn_em 1, a cluster of 16 blocks a cloud); (e) the CLI with
     --profile_dir; (f) the indoor request (float32, B=1, N=35,000) at gnn_k=12
     with dgcnn_fused_edges=True (dgcnn_edges 1). Each part's launches are
-    counted from 0 right before it."""
+    counted from 0 right before it. (g) the n_clusters=512 request (float32,
+    B=24, N=717; sinkhorn_em 1, beside the plain EM route) and its train
+    step (sinkhorn_em 1)."""
     kernels = {"dgcnn_eval": env_dgcnn_eval(rs), "dgcnn_edges": env_dgcnn_edges(rs),
                "graph_stage1": env_graph_stage1(rs), "sinkhorn_em": env_em(rs),
                **env_dgcnn_bwd(rs)}
@@ -4417,13 +4527,17 @@ def envelopes(rs):
              ("serve_indoor_k12_edges", lambda: env_serve(
                  indoor, rigid_copies(rs, surface(rs, 1)),
                  {"dgcnn_edges": 1, "knn_stream": 1, "dgcnn_eval": 0})),
-             ("cli_profile", env_cli_profile))
+             ("cli_profile", env_cli_profile),
+             (f"serve_k{ENV_K_WIDE}", lambda: env_serve_wide_em(rs)),
+             (f"train_k{ENV_K_WIDE}", lambda: env_train(
+                 rs, _env_cfg(n_clusters=ENV_K_WIDE), {"sinkhorn_em": 1})))
     for name, fn in parts:
         launches, out = fn()
         print(f"envelopes {name}: launches {launches}; {out}")
         _add_counts(total, launches)
         res[name] = {"launches": launches, **out}
     assert cuda_em.cluster_size(ENV_N_EM, K) == 16
+    assert cuda_em.cluster_size(N, ENV_K_WIDE) == 8
     return {name: total.get(name, 0) for name in dispatch.KERNELS}, res
 
 

@@ -4,25 +4,31 @@
 // Replaces the TPU kernel ogmm_tpu/ops/pallas_em.py:sinkhorn_em (_em_kernel,
 // the mxu_lse schedule). One launch runs all EM trips of all clouds; the
 // (N, K) transport plan never reaches device memory until the last trip's
-// gamma is written. K is any cluster count up to 256, padded to KP = 32 KPL
-// columns; the padding holds no mass (cost +inf, plan 0) and is never
-// written out.
+// gamma is written. K is any cluster count up to 1024, padded to KP = 4 LPR
+// KPL columns (below); the padding holds no mass (cost +inf, plan 0) and is
+// never written out.
 //
 // One (717, 128) float32 plan is 367 KB, more than one SM's shared memory,
 // so a thread block cluster of CL blocks owns one cloud (CL = 8, or 16 for
 // the larger plans below): each block keeps a slab of ceil(N/CL) rows of
-// the plan in its shared memory for the whole
-// nested loop. A warp takes 4 rows at a time, 8 lanes a row; a lane holds
-// KPL chunks of 4 columns of its row, at columns 4 (lane % 8 + 8 j), so the
-// slab is read and written 16 bytes a lane without bank conflicts, and a row
-// sum or maximum is the lane's own 4 KPL values and three shuffle steps.
-// Column sums are taken per lane in registers, added over the warp's row
-// groups by two shuffle steps, over the block's warps in warp order, and
-// over the cluster through distributed shared memory in rank order, so
-// every block of a cluster holds the same column sums and the same nodes,
-// and the result does not change from run to run. The M-step's sums are
-// taken by one thread a column over the gamma rows the pass leaves in the
-// slab, in row order.
+// the plan in its shared memory for the whole nested loop. A row is spread
+// over LPR lanes of a warp, which takes 32 / LPR rows at a time; a lane
+// holds KPL chunks of 4 columns of its row, at columns 4 (lane % LPR +
+// LPR j), j < KPL <= 8, so the slab is read and written 16 bytes a lane
+// without bank conflicts, and a row sum or maximum is the lane's own 4 KPL
+// values and log2(LPR) shuffle steps. The lane layout by K:
+//   K <= 256        LPR = 8,  KPL = ceil(K / 32),  KP = 32 KPL  (4 rows a warp)
+//   256 < K <= 512  LPR = 16, KPL = ceil(K / 64),  KP = 64 KPL  (2 rows)
+//   512 < K <= 1024 LPR = 32, KPL = ceil(K / 128), KP = 128 KPL (1 row)
+// so a lane never holds more than 32 entries of a row (and their column
+// factors and sums) in registers. Column sums are taken per lane in
+// registers, added over the warp's row groups by 3 - log2(LPR) shuffle
+// steps (none at LPR = 32, where a lane owns its columns outright), over the
+// block's warps in warp order, and over the cluster through distributed
+// shared memory in rank order, so every block of a cluster holds the same
+// column sums and the same nodes, and the result does not change from run
+// to run. The M-step's sums are taken by one thread a column over the gamma
+// rows the pass leaves in the slab, in row order.
 //
 // Per EM trip (as the TPU kernel): cost = sqrt(max(d2, 1e-12)) / tau;
 // Sinkhorn trip 1 in the log domain (stabilised row update u, column update
@@ -50,20 +56,31 @@
 //    subnormal: the IEEE division's slow path for those cost ~70 us a trip;
 //  - a block's column sums are added before the cluster barrier, so a
 //    thread reads CL remote values, not 4 CL.
-// The slab must fit in shared memory. A cluster of CL = 8 blocks holds it
-// to N = 3,352 at K = 128 and N = 12,128 at K <= 32; past that the launch
-// takes CL = 16 blocks a cloud (a non-portable cluster size, allowed by
-// cudaFuncAttributeNonPortableClusterSizeAllowed), which holds every (N, K)
-// with K <= 256 that the JAX package's rule sends to its kernel,
-// N max(K, 128) 20 B <= 14 MiB (N <= 5,734 at K <= 128, N <= 2,867 at
-// K = 256; ops/cuda_em.py:cluster_size chooses, the smallest that fits).
-// In a cluster of 16 the slab's rows are 4 ceil(K / 4) floats apart, not KP:
-// a lane's last chunk past them is neither read nor written (a cost of +inf,
-// a plan entry of 0 where it would be read), so K = 129 at N = 5,690 needs
-// 356 rows of 132 floats a block, not of 160. A cluster of 8 keeps rows of
-// KP floats, a compile-time stride (the kernel of the N = 717 request). K above 128 takes KPL = 5..8 chunks a
-// lane, one row quad in flight a warp (32 entries a row a lane, their column
-// sums and factors in registers) and at most 2 blocks an SM.
+//
+// Shared memory: the slab (rows ks floats apart), 6 floats a row, and
+// column vectors of KP floats: the nodes (x, y, z, |node|^2: 4), the 4
+// warps' sums of a pass (4), the block's sums (2, alternating by pass), the
+// M-step sums (4) and the column factors (1), 15 in all to K = 256. Above
+// K = 256 (LPR > 8) the M-step sums share the warps' sums' space, 11
+// vectors; a cluster barrier ends each M-step there, so that no block
+// writes its next pass's warp sums while another still reads its M-step
+// sums. A cluster of CL = 8 blocks holds the slab to N = 3,352 at K = 128
+// and N = 12,128 at K <= 32; past that the launch takes CL = 16 blocks a
+// cloud (a non-portable cluster size, allowed by
+// cudaFuncAttributeNonPortableClusterSizeAllowed). Between them they hold
+// every (N, K) with K <= min(N, 1024) that the JAX package's rule sends to
+// its kernel, N max(K, 128) 20 B <= 14 MiB (N <= 5,734 at K <= 128, 2,867 at
+// K = 256, 1,433 at K = 512, 717 at K = 1023; ops/cuda_em.py:cluster_size
+// chooses, the smallest that fits, 227 KB a block at most). The slab's rows
+// are KP floats apart in a cluster of 8 blocks to K = 256 (a compile-time
+// stride: the kernel of the N = 717 request), else 4 ceil(K / 4): a lane's
+// last chunk past them is neither read nor written (a cost of +inf, a plan
+// entry of 0 where it would be read), so K = 129 at N = 5,690 needs 356 rows
+// of 132 floats a block, not of 160, and K = 257 rows of 260 floats, not of
+// 320. KPL above 4 takes one row group in flight a warp (32 entries a row a
+// lane, their column sums and factors in registers) and at most 2 blocks an
+// SM; above K = 256 a block of the (48, 717, 512) request takes 209,008 B,
+// one an SM.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -72,24 +89,30 @@ namespace cg = cooperative_groups;
 
 #define NW 4          // warps per block
 #define NT (NW * 32)
-#define QF 2          // row quads in flight a warp (one for K > 128)
+#define QF 2          // row groups in flight a warp (one for KPL > 4)
 #define RS 6          // floats a row keeps beside the slab: x, y, z, p, log p, u
 #define FULL 0xffffffffu
+#define EM_MAX_K 1024
 
-// the shared memory of a block, in floats: the slab (rows ks floats apart),
-// RS floats a row, the nodes (x, y, z, |node|^2), the warps' column sums of
-// a pass (NW column vectors of kp), the block's column sums (two alternating
-// vectors), its M-step sums (four vectors) and the column factors
-__host__ __device__ constexpr size_t em_smem_floats(int rows_per, int ks, int kp) {
-  return (size_t)rows_per * ks + ((RS * rows_per + 3) & ~3) +
-         (4 + NW + 2 + 4 + 1) * (size_t)kp;
+// column vectors of KP floats a block keeps: the nodes (4), the warps' sums
+// (NW), the block's sums (2), the M-step sums (4, in the warps' sums' space
+// above K = 256) and the column factors (1)
+__host__ __device__ constexpr int em_vectors(bool wide) {
+  return 4 + NW + 2 + (wide ? 0 : 4) + 1;
 }
 
-// the sum (or max) over the 8 lanes of a row
-template <bool MAX>
+// the shared memory of a block, in floats: the slab (rows ks floats apart),
+// RS floats a row and `vectors` column vectors of kp
+__host__ __device__ constexpr size_t em_smem_floats(int rows_per, int ks, int kp,
+                                                    int vectors) {
+  return (size_t)rows_per * ks + ((RS * rows_per + 3) & ~3) + (size_t)vectors * kp;
+}
+
+// the sum (or max) over the LPR lanes of a row
+template <bool MAX, int LPR>
 __device__ __forceinline__ float row_reduce(float v) {
 #pragma unroll
-  for (int o = 1; o < 8; o <<= 1) {
+  for (int o = 1; o < LPR; o <<= 1) {
     const float w = __shfl_xor_sync(FULL, v, o);
     v = MAX ? fmaxf(v, w) : v + w;
   }
@@ -97,15 +120,15 @@ __device__ __forceinline__ float row_reduce(float v) {
 }
 
 // this lane's 4 KPL entries of row i of a table whose rows are ld floats
-// apart, at columns 4 (lane % 8 + 8 j) + e; a chunk at or past column ld
+// apart, at columns 4 (lane % LPR + LPR j) + e; a chunk at or past column ld
 // (only the last, j = KPL - 1, can be) is not read and holds `fill`
-template <int KPL>
+template <int KPL, int LPR>
 __device__ __forceinline__ void load_row(const float* P, int ld, int i, float (&v)[4 * KPL],
                                          float fill = 0.f) {
-  const int cg = threadIdx.x & 7;
+  const int cg = threadIdx.x & (LPR - 1);
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
-    const int c = 4 * (cg + 8 * j);
+    const int c = 4 * (cg + LPR * j);
     const float4 f = j < KPL - 1 || c < ld
                          ? *reinterpret_cast<const float4*>(P + i * ld + c)
                          : make_float4(fill, fill, fill, fill);
@@ -114,12 +137,12 @@ __device__ __forceinline__ void load_row(const float* P, int ld, int i, float (&
 }
 
 // the same entries stored; a chunk at or past column ld is not written
-template <int KPL>
+template <int KPL, int LPR>
 __device__ __forceinline__ void store_row(float* P, int ld, int i, const float (&v)[4 * KPL]) {
-  const int cg = threadIdx.x & 7;
+  const int cg = threadIdx.x & (LPR - 1);
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
-    const int c = 4 * (cg + 8 * j);
+    const int c = 4 * (cg + LPR * j);
     if (j < KPL - 1 || c < ld)
       *reinterpret_cast<float4*>(P + i * ld + c) =
           make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
@@ -127,23 +150,23 @@ __device__ __forceinline__ void store_row(float* P, int ld, int i, const float (
 }
 
 // The end of a pass: this lane's column sums over its rows are added over
-// the warp's 4 row groups (lanes 8 apart) into the warp's sums wsum[warp];
-// a thread a column adds the NW warps' sums in warp order into the block's
-// sum part[c]; after the cluster barrier it adds the parts of the cluster's
-// blocks in rank order (all CL remote loads issued first) and stores
-// colf[c] = fn(cloud-wide sum of column c). Every block gets the same bits.
-template <int KPL, int CL, class Fn>
+// the warp's 32 / LPR row groups (lanes LPR apart) into the warp's sums
+// wsum[warp]; a thread a column adds the NW warps' sums in warp order into
+// the block's sum part[c]; after the cluster barrier it adds the parts of
+// the cluster's blocks in rank order (all CL remote loads issued first) and
+// stores colf[c] = fn(cloud-wide sum of column c). Every block gets the
+// same bits.
+template <int KPL, int LPR, int CL, class Fn>
 __device__ __forceinline__ void reduce_cols(cg::cluster_group& cluster,
                                             float (&colacc)[4 * KPL], float* wsum,
                                             float* part, float* colf, Fn fn) {
-  constexpr int K = KPL * 32;
+  constexpr int K = KPL * 4 * LPR;
   const int tid = threadIdx.x, warp = tid >> 5;
 #pragma unroll
-  for (int e = 0; e < 4 * KPL; ++e) {
-    colacc[e] += __shfl_xor_sync(FULL, colacc[e], 8);
-    colacc[e] += __shfl_xor_sync(FULL, colacc[e], 16);
-  }
-  if ((tid & 31) < 8) store_row<KPL>(wsum, K, warp, colacc);
+  for (int e = 0; e < 4 * KPL; ++e)
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1) colacc[e] += __shfl_xor_sync(FULL, colacc[e], o);
+  if ((tid & 31) < LPR) store_row<KPL, LPR>(wsum, K, warp, colacc);
   __syncthreads();
   for (int c = tid; c < K; c += NT) {
     float s = 0.f;
@@ -164,12 +187,12 @@ __device__ __forceinline__ void reduce_cols(cg::cluster_group& cluster,
   __syncthreads();
 }
 
-template <int KPL>
+template <int KPL, int LPR>
 __device__ __forceinline__ void load_factors(const float* colf, float (&cs)[4 * KPL]) {
-  const int cg = threadIdx.x & 7;
+  const int cg = threadIdx.x & (LPR - 1);
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
-    const float4 f = *reinterpret_cast<const float4*>(colf + 4 * (cg + 8 * j));
+    const float4 f = *reinterpret_cast<const float4*>(colf + 4 * (cg + LPR * j));
     cs[4 * j] = f.x; cs[4 * j + 1] = f.y; cs[4 * j + 2] = f.z; cs[4 * j + 3] = f.w;
   }
 }
@@ -179,11 +202,11 @@ __device__ __forceinline__ void load_factors(const float* colf, float (&cs)[4 * 
 // the log-domain trip) exp(((u - cost) + v) / eps) from the cost and v, else
 // the plan times the last pass's column scaling; columns past the slab's
 // rows read as a cost of +inf or a plan entry of 0
-template <int KPL>
+template <int KPL, int LPR>
 __device__ __forceinline__ void plan_row(const float* P, int ks, const float* srow, int i,
                                          bool first, const float (&cs)[4 * KPL],
                                          float inv_eps, float (&v)[4 * KPL]) {
-  load_row<KPL>(P, ks, i, v, first ? CUDART_INF_F : 0.f);
+  load_row<KPL, LPR>(P, ks, i, v, first ? CUDART_INF_F : 0.f);
   if (first) {
     const float u = srow[i * RS + 5];
 #pragma unroll
@@ -195,21 +218,24 @@ __device__ __forceinline__ void plan_row(const float* P, int ks, const float* sr
 }
 
 // grid B CL blocks in clusters of CL (launch below)
-template <int KPL, int CL>
+template <int KPL, int LPR, int CL>
 __global__ void __launch_bounds__(NT, KPL <= 4 ? 4 : 2)
 em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
           const float* __restrict__ nodes0, float* __restrict__ gamma_out,
           float* __restrict__ pi_out, float* __restrict__ nodes_out, int N,
           int nk, int iters, int sk_iters, float tau, float eps, float q_t,
           float log_q) {
-  constexpr int K = KPL * 32;            // padded columns; nk of them real
+  constexpr int K = KPL * 4 * LPR;       // padded columns; nk of them real
   constexpr int V = 4 * KPL;             // entries of a row a lane holds
-  constexpr int QFK = KPL <= 4 ? QF : 1;   // row quads in flight a warp
-  const int ks = CL > 8 ? 4 * ((nk + 3) / 4) : K;   // the slab's row stride
+  constexpr int RG = 32 / LPR;           // rows a warp takes at a time
+  constexpr bool WIDE = LPR > 8;         // K > 256: the M-step sums in wsum
+  constexpr int QFK = KPL <= 4 ? QF : 1;   // row groups in flight a warp
+  static_assert(NW >= 4, "the M-step's 4 sums share the warps' sums' space");
+  const int ks = CL > 8 || WIDE ? 4 * ((nk + 3) / 4) : K;   // the slab's row stride
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / CL;
-  const int tid = threadIdx.x, warp = tid >> 5, lr = (tid & 31) >> 3, cg8 = tid & 7;
+  const int tid = threadIdx.x, warp = tid >> 5, lr = (tid & 31) / LPR, cgl = tid & (LPR - 1);
   const int rows_per = (N + CL - 1) / CL;
   const int r0 = rank * rows_per;
   const int nrows = max(0, min(N, r0 + rows_per) - r0);
@@ -221,8 +247,8 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
   float4* snodes = reinterpret_cast<float4*>(srow + ((RS * rows_per + 3) & ~3));
   float* wsum = reinterpret_cast<float*>(snodes + K);   // NW x K
   float* part = wsum + NW * K;           // 2 x K, read by the cluster
-  float* G = part + 2 * K;               // 4 x K, read by the cluster
-  float* colf = G + 4 * K;               // the column factors of the last pass
+  float* G = WIDE ? wsum : part + 2 * K;   // 4 x K, read by the cluster
+  float* colf = WIDE ? part + 2 * K : G + 4 * K;   // the last pass's column factors
 
   for (int i = tid; i < nrows; i += NT) {
     const size_t row = (size_t)b * N + r0 + i;
@@ -243,9 +269,9 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
   }
   __syncthreads();
 
-  // this warp's row quads are warp + NW m; row i = 4 quad + lr. Rows past
+  // this warp's row groups are warp + NW m; row i = RG group + lr. Rows past
   // the slab compute on row 0 and store nothing
-  const int nq = (nrows + 3) / 4;
+  const int nq = (nrows + RG - 1) / RG;
   const int nqw = nq > warp ? (nq - warp + NW - 1) / NW : 0;
   int npass = 0;
   float cs[V], colacc[V];
@@ -261,7 +287,7 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
       bool ok[QFK];
 #pragma unroll
       for (int f = 0; f < QFK; ++f) {
-        row[f] = 4 * (warp + NW * (m0 + f)) + lr;
+        row[f] = RG * (warp + NW * (m0 + f)) + lr;
         ok[f] = m0 + f < nqw && row[f] < nrows;
         const int i = ok[f] ? row[f] : 0;
         const float x = srow[i * RS], y = srow[i * RS + 1], z = srow[i * RS + 2];
@@ -270,7 +296,7 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         mx[f] = -CUDART_INF_F;
 #pragma unroll
         for (int e = 0; e < V; ++e) {
-          const int k = 4 * (cg8 + 8 * (e / 4)) + e % 4;
+          const int k = 4 * (cgl + LPR * (e / 4)) + e % 4;
           const float4 nd = snodes[k];
           const float inner = __fadd_rn(__fadd_rn(__fmul_rn(x, nd.x), __fmul_rn(y, nd.y)),
                                         __fmul_rn(z, nd.z));
@@ -281,7 +307,7 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         }
       }
 #pragma unroll
-      for (int f = 0; f < QFK; ++f) mx[f] = row_reduce<true>(mx[f]);
+      for (int f = 0; f < QFK; ++f) mx[f] = row_reduce<true, LPR>(mx[f]);
 #pragma unroll
       for (int f = 0; f < QFK; ++f) {
         s[f] = 0.f;
@@ -289,20 +315,20 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         for (int e = 0; e < V; ++e) s[f] += expf(-cst[f][e] * inv_eps - mx[f]);
       }
 #pragma unroll
-      for (int f = 0; f < QFK; ++f) s[f] = row_reduce<false>(s[f]);
+      for (int f = 0; f < QFK; ++f) s[f] = row_reduce<false, LPR>(s[f]);
 #pragma unroll
       for (int f = 0; f < QFK; ++f) {
         if (!ok[f]) continue;
         const float u = eps * (srow[row[f] * RS + 4] - (mx[f] + logf(s[f])));
-        if (cg8 == 0) srow[row[f] * RS + 5] = u;
+        if (cgl == 0) srow[row[f] * RS + 5] = u;
 #pragma unroll
         for (int e = 0; e < V; ++e) colacc[e] += expf((-cst[f][e] + u) * inv_eps);
-        store_row<KPL>(P, ks, row[f], cst[f]);
+        store_row<KPL, LPR>(P, ks, row[f], cst[f]);
       }
     }
-    reduce_cols<KPL, CL>(cluster, colacc, wsum, part + (npass++ & 1) * K, colf,
-                     [&](float s) { return eps * (log_q - logf(s + 1e-38f)); });
-    load_factors<KPL>(colf, cs);         // v: the first pass below reads cost
+    reduce_cols<KPL, LPR, CL>(cluster, colacc, wsum, part + (npass++ & 1) * K, colf,
+                              [&](float s) { return eps * (log_q - logf(s + 1e-38f)); });
+    load_factors<KPL, LPR>(colf, cs);    // v: the first pass below reads cost
 
     // ---- Sinkhorn trips 2.. in the direct domain --------------------------
     for (int t = 1; t < sk_iters; ++t) {
@@ -314,15 +340,15 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         bool ok[QFK];
 #pragma unroll
         for (int f = 0; f < QFK; ++f) {
-          row[f] = 4 * (warp + NW * (m0 + f)) + lr;
+          row[f] = RG * (warp + NW * (m0 + f)) + lr;
           ok[f] = m0 + f < nqw && row[f] < nrows;
-          plan_row<KPL>(P, ks, srow, ok[f] ? row[f] : 0, t == 1, cs, inv_eps, val[f]);
+          plan_row<KPL, LPR>(P, ks, srow, ok[f] ? row[f] : 0, t == 1, cs, inv_eps, val[f]);
           s[f] = 0.f;
 #pragma unroll
           for (int e = 0; e < V; ++e) s[f] += val[f][e];
         }
 #pragma unroll
-        for (int f = 0; f < QFK; ++f) s[f] = row_reduce<false>(s[f]);
+        for (int f = 0; f < QFK; ++f) s[f] = row_reduce<false, LPR>(s[f]);
 #pragma unroll
         for (int f = 0; f < QFK; ++f) {
           if (!ok[f]) continue;
@@ -332,12 +358,12 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
             val[f][e] *= rs;
             colacc[e] += val[f][e];
           }
-          store_row<KPL>(P, ks, row[f], val[f]);
+          store_row<KPL, LPR>(P, ks, row[f], val[f]);
         }
       }
-      reduce_cols<KPL, CL>(cluster, colacc, wsum, part + (npass++ & 1) * K, colf,
-                       [&](float s) { return q_t / fmaxf(s, 1e-38f); });
-      load_factors<KPL>(colf, cs);
+      reduce_cols<KPL, LPR, CL>(cluster, colacc, wsum, part + (npass++ & 1) * K, colf,
+                                [&](float s) { return q_t / fmaxf(s, 1e-38f); });
+      load_factors<KPL, LPR>(colf, cs);
     }
 
     // ---- gamma and the M-step sums ----------------------------------------
@@ -347,9 +373,10 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
       bool ok[QFK];
 #pragma unroll
       for (int f = 0; f < QFK; ++f) {
-        row[f] = 4 * (warp + NW * (m0 + f)) + lr;
+        row[f] = RG * (warp + NW * (m0 + f)) + lr;
         ok[f] = m0 + f < nqw && row[f] < nrows;
-        plan_row<KPL>(P, ks, srow, ok[f] ? row[f] : 0, sk_iters == 1, cs, inv_eps, val[f]);
+        plan_row<KPL, LPR>(P, ks, srow, ok[f] ? row[f] : 0, sk_iters == 1, cs, inv_eps,
+                           val[f]);
         s[f] = 0.f;
 #pragma unroll
         for (int e = 0; e < V; ++e) {
@@ -358,14 +385,14 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         }
       }
 #pragma unroll
-      for (int f = 0; f < QFK; ++f) s[f] = row_reduce<false>(s[f]);
+      for (int f = 0; f < QFK; ++f) s[f] = row_reduce<false, LPR>(s[f]);
 #pragma unroll
       for (int f = 0; f < QFK; ++f) {
         if (!ok[f]) continue;
         const float rden = 1.0f / fmaxf(s[f], 1e-3f);
 #pragma unroll
         for (int e = 0; e < V; ++e) val[f][e] *= rden;
-        store_row<KPL>(P, ks, row[f], val[f]);
+        store_row<KPL, LPR>(P, ks, row[f], val[f]);
       }
     }
     __syncthreads();
@@ -410,28 +437,36 @@ em_kernel(const float* __restrict__ xyz, const float* __restrict__ o,
         p[0] = x; p[1] = y; p[2] = z;
       }
     }
-    __syncthreads();
+    // the M-step sums in the warps' sums' space (K > 256): no block writes
+    // its next pass's warp sums before every block has read them
+    if constexpr (WIDE)
+      cluster.sync();
+    else
+      __syncthreads();
   }
   cluster.sync();   // no block leaves while another may read its sums
 }
 
-template <int KPL>
+template <int KPL, int LPR>
 static size_t em_smem(int N, int nk, int cl) {
+  constexpr int K = KPL * 4 * LPR;
+  constexpr bool WIDE = LPR > 8;
   return sizeof(float) * em_smem_floats((N + cl - 1) / cl,
-                                        cl > 8 ? 4 * ((nk + 3) / 4) : KPL * 32, KPL * 32);
+                                        cl > 8 || WIDE ? 4 * ((nk + 3) / 4) : K, K,
+                                        em_vectors(WIDE));
 }
 
 // the kernel for (K, CL) and its shared memory at N, the dynamic shared
 // memory and (CL = 16) the non-portable cluster size allowed
-template <int KPL, int CL>
+template <int KPL, int LPR, int CL>
 static cudaError_t prepare(int N, int nk, const void** fn, size_t* smem) {
-  *fn = (const void*)em_kernel<KPL, CL>;
-  *smem = em_smem<KPL>(N, nk, CL);
+  *fn = (const void*)em_kernel<KPL, LPR, CL>;
+  *smem = em_smem<KPL, LPR>(N, nk, CL);
   if (*smem > 227 * 1024) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      em_kernel<KPL, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+      em_kernel<KPL, LPR, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   if (err == cudaSuccess && CL > 8)
-    err = cudaFuncSetAttribute(em_kernel<KPL, CL>,
+    err = cudaFuncSetAttribute(em_kernel<KPL, LPR, CL>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return err;
 }
@@ -452,7 +487,7 @@ static cudaLaunchConfig_t cluster_config(int clouds, int cl, size_t smem,
   return cfg;
 }
 
-template <int KPL, int CL>
+template <int KPL, int LPR, int CL>
 static cudaError_t launch(const float* xyz, const float* o, const float* nodes0,
                           float* gamma, float* pi, float* nodes, int B, int N,
                           int nk, int iters, int sk_iters, float tau,
@@ -460,23 +495,39 @@ static cudaError_t launch(const float* xyz, const float* o, const float* nodes0,
                           cudaStream_t stream) {
   const void* fn;
   size_t smem;
-  cudaError_t err = prepare<KPL, CL>(N, nk, &fn, &smem);
+  cudaError_t err = prepare<KPL, LPR, CL>(N, nk, &fn, &smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(B, CL, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, em_kernel<KPL, CL>, xyz, o, nodes0, gamma, pi, nodes,
-                           N, nk, iters, sk_iters, tau, eps, q_t, log_q);
+  err = cudaLaunchKernelEx(&cfg, em_kernel<KPL, LPR, CL>, xyz, o, nodes0, gamma, pi,
+                           nodes, N, nk, iters, sk_iters, tau, eps, q_t, log_q);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// the instance of (KPL, CL) for K clusters and a cluster of cl blocks
+// the form of a (KPL, LPR) instance, 1..16: KPL to K = 256, 4 + KPL to 512,
+// 8 + KPL to 1024
+__host__ constexpr int em_form(int kpl, int lpr) {
+  return lpr == 8 ? kpl : lpr == 16 ? 4 + kpl : 8 + kpl;
+}
+
+// the form that takes K clusters (ops/cuda_em.py:lanes_per_row)
+static int em_form_of(int K) {
+  return K <= 256 ? (K + 31) / 32 : K <= 512 ? em_form((K + 63) / 64, 16)
+                                             : em_form((K + 127) / 128, 32);
+}
+
+// the instance of (KPL, LPR, CL) for K clusters and a cluster of cl blocks
 #define EM_DISPATCH(K, cl, CALL)                                              \
-  switch ((cl) * 16 + ((K) + 31) / 32) {                                      \
-    CALL(1, 8) CALL(2, 8) CALL(3, 8) CALL(4, 8)                               \
-    CALL(5, 8) CALL(6, 8) CALL(7, 8) CALL(8, 8)                               \
-    CALL(1, 16) CALL(2, 16) CALL(3, 16) CALL(4, 16)                           \
-    CALL(5, 16) CALL(6, 16) CALL(7, 16) CALL(8, 16)                           \
+  switch ((cl) * 32 + em_form_of(K)) {                                        \
+    CALL(1, 8, 8) CALL(2, 8, 8) CALL(3, 8, 8) CALL(4, 8, 8)                   \
+    CALL(5, 8, 8) CALL(6, 8, 8) CALL(7, 8, 8) CALL(8, 8, 8)                   \
+    CALL(1, 8, 16) CALL(2, 8, 16) CALL(3, 8, 16) CALL(4, 8, 16)               \
+    CALL(5, 8, 16) CALL(6, 8, 16) CALL(7, 8, 16) CALL(8, 8, 16)               \
+    CALL(5, 16, 8) CALL(6, 16, 8) CALL(7, 16, 8) CALL(8, 16, 8)               \
+    CALL(5, 32, 8) CALL(6, 32, 8) CALL(7, 32, 8) CALL(8, 32, 8)               \
+    CALL(5, 16, 16) CALL(6, 16, 16) CALL(7, 16, 16) CALL(8, 16, 16)           \
+    CALL(5, 32, 16) CALL(6, 32, 16) CALL(7, 32, 16) CALL(8, 32, 16)           \
     default:                                                                  \
       return (int)cudaErrorInvalidValue;                                      \
   }
@@ -488,12 +539,13 @@ extern "C" int sinkhorn_em_launch(const float* xyz, const float* o,
                                   int iters, int sk_iters, float tau, float eps,
                                   float q_t, float log_q, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (iters < 1 || sk_iters < 1 || N < 1 || K < 1 || K > 256 || (cl != 8 && cl != 16))
+  if (iters < 1 || sk_iters < 1 || N < 1 || K < 1 || K > EM_MAX_K || (cl != 8 && cl != 16))
     return (int)cudaErrorInvalidValue;
-#define CASE(KPL, CL)                                                        \
-  case CL * 16 + KPL:                                                        \
-    return (int)launch<KPL, CL>(xyz, o, nodes0, gamma, pi, nodes, B, N, K,   \
-                                iters, sk_iters, tau, eps, q_t, log_q, stream);
+#define CASE(KPL, LPR, CL)                                                   \
+  case CL * 32 + em_form(KPL, LPR):                                          \
+    return (int)launch<KPL, LPR, CL>(xyz, o, nodes0, gamma, pi, nodes, B, N, \
+                                     K, iters, sk_iters, tau, eps, q_t,      \
+                                     log_q, stream);
   EM_DISPATCH(K, cl, CASE)
 #undef CASE
 }
@@ -502,13 +554,14 @@ extern "C" int sinkhorn_em_launch(const float* xyz, const float* o,
 // once, by the occupancy calculator; a launch of more clouds than that runs
 // in more than one wave, and 0 means the card cannot run it
 extern "C" int sinkhorn_em_max_clusters(int N, int K, int cl, int* out) {
-  if (N < 1 || K < 1 || K > 256 || (cl != 8 && cl != 16)) return (int)cudaErrorInvalidValue;
+  if (N < 1 || K < 1 || K > EM_MAX_K || (cl != 8 && cl != 16))
+    return (int)cudaErrorInvalidValue;
   const void* fn = nullptr;
   size_t smem = 0;
   cudaError_t err = cudaErrorInvalidValue;
-#define CASE(KPL, CL)                                                        \
-  case CL * 16 + KPL:                                                        \
-    err = prepare<KPL, CL>(N, K, &fn, &smem);                                \
+#define CASE(KPL, LPR, CL)                                                   \
+  case CL * 32 + em_form(KPL, LPR):                                          \
+    err = prepare<KPL, LPR, CL>(N, K, &fn, &smem);                           \
     break;
   EM_DISPATCH(K, cl, CASE)
 #undef CASE

@@ -15,10 +15,19 @@ assignments amplify the last float32 bit), so the kernel is compared with
 the plain version per trip (iters=1) and on what the model consumes.
 
 On a CUDA tensor the wrapper launches `csrc/sinkhorn_em.cu` (`kernel_takes`:
-K <= 256 and a cloud's plan in the shared memory of a cluster of 8 blocks,
-or of 16 where 8 do not hold it (`cluster_size`): every (N, K) with K <= 256
-that the JAX package's rule sends to its kernel, N <= 5,734 at K <= 128);
-on a CPU tensor it runs `sinkhorn_em_reference`.
+K <= 1024 and a cloud's plan in the shared memory of a cluster of 8 blocks,
+or of 16 where 8 do not hold it (`cluster_size`): every (N, K) with
+K <= min(N, 1024) that the JAX package's rule sends to its kernel, N <= 5,734
+at K <= 128, 2,867 at K = 256, 1,433 at K = 512, 717 at K = 1023, and every
+such pair with K > N to K = 896); on a CPU tensor it runs
+`sinkhorn_em_reference`.
+
+The kernel spreads a plan row over `lanes_per_row(K)` lanes of a warp (8 to
+K = 256, 16 to 512, 32 to 1024), each lane holding at most 32 entries of
+the row, and pads K to `padded_k(K)` columns (whole chunks of 4 columns on
+every lane of a row). A block's shared memory (`smem_bytes`) is its slab of
+the plan beside 15 column vectors of the padded K to K = 256 and 11 above
+it, where the M-step's sums share the warps' sums' space.
 """
 from __future__ import annotations
 
@@ -30,36 +39,50 @@ import torch
 from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops.common import matmul32, square_distance3
 
-KERNEL_MAX_K = 256           # padded to 32 KPL columns, KPL <= 8
+KERNEL_MAX_K = 1024          # 32 lanes a row, 8 chunks of 4 columns a lane
 SMEM_BYTES = 227 * 1024      # shared memory a block may use
 CLUSTERS = (8, 16)           # blocks a cloud, the smallest that holds the plan
+
+
+def lanes_per_row(K: int) -> int:
+    """The lanes of a warp that hold one plan row
+    (csrc/sinkhorn_em.cu:em_form_of): 8 to K = 256, 16 to 512, 32 above."""
+    return 8 if K <= 256 else 16 if K <= 512 else 32
+
+
+def padded_k(K: int) -> int:
+    """K padded to whole chunks of 4 columns on each of a row's lanes."""
+    step = 4 * lanes_per_row(K)
+    return step * -(-K // step)
 
 
 def smem_bytes(N: int, K: int, cluster: int = 8) -> int:
     """Shared memory of one block of a cluster of `cluster` blocks
     (csrc/sinkhorn_em.cu:em_smem_floats): the slab of ceil(N / cluster)
-    plan rows (of K padded to a multiple of 32 floats in a cluster of 8, of
-    4 ceil(K / 4) in one of 16), six floats a row (rounded up to a multiple
-    of 4), and 15 column vectors of the padded K: the nodes (4), the 4
-    warps' and two alternating block column sums, the M-step sums (4) and
-    the column factors."""
-    kp = 32 * -(-K // 32)
-    ks = kp if cluster == 8 else 4 * -(-K // 4)
+    plan rows (of the padded K in a cluster of 8 to K = 256, else of
+    4 ceil(K / 4) floats), six floats a row (rounded up to a multiple of 4),
+    and column vectors of the padded K: the nodes (4), the 4 warps' and two
+    alternating block column sums, the M-step sums (4; to K = 256 only,
+    above it they share the warps' sums' space) and the column factors."""
+    kp = padded_k(K)
+    wide = lanes_per_row(K) > 8
+    ks = kp if cluster == 8 and not wide else 4 * -(-K // 4)
     rows = -(-N // cluster)
-    return 4 * (rows * ks + -(-6 * rows // 4) * 4 + 15 * kp)
+    vectors = 11 if wide else 15
+    return 4 * (rows * ks + -(-6 * rows // 4) * 4 + vectors * kp)
 
 
 def cluster_size(N: int, K: int) -> int | None:
     """The blocks a cloud of N points and K clusters takes: 8 where their
     slabs of the plan fit shared memory, else 16 (a non-portable cluster
-    size); None where neither holds it or K > 256."""
+    size); None where neither holds it or K > 1024."""
     if not (1 <= K <= KERNEL_MAX_K and N >= 1):
         return None
     return next((c for c in CLUSTERS if smem_bytes(N, K, c) <= SMEM_BYTES), None)
 
 
 def kernel_takes(N: int, K: int) -> bool:
-    """Whether the kernel takes clouds of N points and K clusters: K <= 256
+    """Whether the kernel takes clouds of N points and K clusters: K <= 1024
     and a block's slab of the plan beside its buffers in the shared memory
     of a cluster of 8 or 16 blocks."""
     return cluster_size(N, K) is not None

@@ -81,17 +81,26 @@ def test_rows_and_marginals():
     assert nodes.shape == (2, 16, 3)
 
 
-@pytest.mark.parametrize("iters", [1])
-def test_wkeans_plus_matches_jax(iters):
-    rs = np.random.RandomState(5)
-    xyz = clouds(5)
-    feats = rs.randn(2, 96, 32).astype(np.float32)
-    scores = rs.rand(2, 96).astype(np.float32)
+def _wkeans_plus_against_jax(seed, B, N, K, C, iters=1, nodes=False):
+    """wkeans_plus of both packages on the same inputs (the JAX package's
+    jnp composition), optionally from nodes drawn like the points."""
+    rs = np.random.RandomState(seed)
+    xyz = clouds(seed, B=B, N=N)
+    feats = rs.randn(B, N, C).astype(np.float32)
+    scores = rs.rand(B, N).astype(np.float32)
+    init = (rs.randn(B, K, 3) * 0.3).astype(np.float32) if nodes else None
     want = jwkeans_plus(jnp.asarray(xyz), jnp.asarray(feats), jnp.asarray(scores),
-                        16, iters=iters, use_pallas=False)
-    got = wkeans_plus(t(xyz), t(feats), t(scores), 16, iters=iters)
+                        K, iters=iters, use_pallas=False,
+                        init_nodes=None if init is None else jnp.asarray(init))
+    got = wkeans_plus(t(xyz), t(feats), t(scores), K, iters=iters,
+                      init_nodes=None if init is None else t(init))
     for g, w, tol in zip(got, want, (2e-4, 1e-5, 1e-4, 1e-3)):
         np.testing.assert_allclose(n(g), n(w), atol=tol)
+
+
+@pytest.mark.parametrize("iters", [1])
+def test_wkeans_plus_matches_jax(iters):
+    _wkeans_plus_against_jax(5, 2, 96, 16, 32, iters)
 
 
 def test_wkeans_plus_gradient_flows_through_feats_only():
@@ -116,17 +125,36 @@ def test_plain_route_matches_jnp_composition():
         np.testing.assert_allclose(n(g), n(w), atol=tol)
 
 
-def test_wkeans_plus_above_the_kernel_envelope_matches_jax():
-    # K = 257 is past the kernel's clusters (K <= 256): both packages take
-    # their plain route here (the JAX kernel would still run, A.11)
-    N, K = 2000, 257
-    assert em_route(N, K) == "plain"
-    rs = np.random.RandomState(8)
-    xyz = clouds(8, B=1, N=N)
-    feats = rs.randn(1, N, 16).astype(np.float32)
-    scores = rs.rand(1, N).astype(np.float32)
-    want = jwkeans_plus(jnp.asarray(xyz), jnp.asarray(feats), jnp.asarray(scores),
-                        K, iters=1, use_pallas=False)
-    got = wkeans_plus(t(xyz), t(feats), t(scores), K, iters=1)
-    for g, w, tol in zip(got, want, (2e-4, 1e-5, 1e-4, 1e-3)):
+@pytest.mark.parametrize("K", [257, 512, 700])
+def test_one_trip_above_k_256_matches_pallas_kernel_interpreted(K):
+    # the kernel's wide forms (16 lanes a row to K = 512, 32 above) at the
+    # request's N = 717. pi and the nodes keep the K = 16 check's
+    # tolerances; gamma's is the card's one-trip limit (LIM_EM_1): a plan
+    # entry is exp of an argument scaled by 1/eps = 100, and over 717 K
+    # entries the largest gap reaches 6.2e-5 (K = 257; 1.4e-5 at K = 128)
+    assert em_route(717, K) == "kernel"
+    xyz, o, n0 = _inputs(9, B=1, N=717, K=K)
+    want = jsinkhorn_em(jnp.asarray(xyz), jnp.asarray(o), jnp.asarray(n0),
+                        iters=1, interpret=True)
+    got = sinkhorn_em(t(xyz), t(o), t(n0), iters=1)
+    for g, w, tol in zip(got, want, (1e-4, 1e-6, 1e-5)):
         np.testing.assert_allclose(n(g), n(w), atol=tol)
+
+
+def test_wkeans_plus_above_k_256_matches_jax():
+    # K = 300 takes the kernel's route (16 lanes a row), held against the
+    # JAX package's jnp composition as at K = 16
+    assert em_route(717, 300) == "kernel"
+    _wkeans_plus_against_jax(10, 1, 717, 300, 16)
+
+
+def test_wkeans_plus_above_the_kernel_envelope_matches_jax():
+    # K = 1025 is past the kernel's clusters (K <= 1024): both packages take
+    # their plain route here (the JAX kernel would still run, N K 20 B <=
+    # 14 MiB). K > N, so the centre-seeded FPS would repeat points, and a
+    # node on a point has a cost of sqrt(rounding residual) ~ 1e-4, which
+    # 1/eps turns into 1% of how a row splits between repeated nodes: one
+    # float32 ulp on the nodes moves either package's gamma by 5e-3 there.
+    # The nodes are drawn like the points instead, off them
+    assert em_route(700, 1025) == "plain"
+    _wkeans_plus_against_jax(8, 1, 700, 1025, 16, nodes=True)

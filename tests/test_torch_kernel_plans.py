@@ -39,16 +39,18 @@ def test_em_kernel_still_takes_its_earlier_envelope(N, K):
 
 
 # the first N past a cluster of 16 blocks at each K (a block's slab then
-# needs more than 227 KB), and K past 256
+# needs more than 227 KB), and K past 1024
 @pytest.mark.parametrize("N,K", [(6705, 128), (8481, 97), (13057, 64),
-                                 (24257, 32), (100, 257), (100, 0), (0, 16)])
+                                 (24257, 32), (3281, 257), (1617, 512),
+                                 (721, 1024), (100, 1025), (100, 0), (0, 16)])
 def test_em_kernel_refuses_past_shared_memory_and_k(N, K):
     assert not cuda_em.kernel_takes(N, K)
     if K >= 1 and N >= 1 and K <= cuda_em.KERNEL_MAX_K:
         assert cuda_em.kernel_takes(N - 1, K)
 
 
-@pytest.mark.parametrize("K", [1, 32, 33, 64, 100, 128, 129, 200, 256])
+@pytest.mark.parametrize("K", [1, 32, 33, 64, 100, 128, 129, 200, 256, 257,
+                               320, 321, 512, 513, 640, 641, 1000, 1024])
 def test_em_kernel_takes_exactly_what_fits(K):
     # the first N refused is the first whose block of a cluster of 16 needs
     # more than 227 KB; 8 blocks a cloud wherever their slabs fit
@@ -92,6 +94,78 @@ def test_em_plan_holds_the_jax_envelope_at_k_up_to_256(K0):
     assert 4 * rows * kp > cuda_em.SMEM_BYTES - 4 * 15 * kp
 
 
+@pytest.mark.parametrize("K0", range(257, 857, 40))
+def test_em_plan_holds_the_jax_envelope_above_k_256(K0):
+    # every (N, K) with 256 < K <= min(N, 1024) that the JAX rule admits
+    # (none past K = 856, whose top N is 857): the chosen cluster's block
+    # fits shared memory, at the largest admitted N of each K and a sample
+    # of smaller ones
+    for K in range(K0, min(K0 + 40, 857)):
+        top = _jax_em_envelope(K)
+        assert top >= K
+        for N in {K, K + 1, (K + top) // 2, top - 1, top}:
+            cl = cuda_em.cluster_size(N, K)
+            assert cl in cuda_em.CLUSTERS, (N, K)
+            assert cuda_em.smem_bytes(N, K, cl) <= cuda_em.SMEM_BYTES, (N, K)
+            assert cuda_em.kernel_takes(N, K)
+    assert _jax_em_envelope(857) < 857
+
+
+def _first_refused(K):
+    """The least N the EM kernel refuses at K (what it takes shrinks only
+    as N grows, test_em_kernel_takes_exactly_what_fits)."""
+    lo, hi = 1, 1 << 17
+    assert cuda_em.kernel_takes(lo, K) and not cuda_em.kernel_takes(hi, K)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if cuda_em.kernel_takes(mid, K) else (lo, mid)
+    return hi
+
+
+def test_em_plan_refuses_only_wide_pairs_with_more_clusters_than_points():
+    # what stays plain inside the JAX bound below K = 1025: 108 (N, K) with
+    # K > N, all at K >= 897, where K pads to 1024 columns (11 vectors of
+    # them, 45 KB) and the slab of ceil(N / 16) rows fills the rest
+    refused = [(N, K) for K in range(257, 1025)
+               for N in range(_first_refused(K), _jax_em_envelope(K) + 1)]
+    assert len(refused) == 108
+    assert all(K > N and K >= 897 for N, K in refused)
+    assert (817, 897) in refused and (721, 1018) in refused
+    assert not cuda_em.kernel_takes(817, 897) and cuda_em.kernel_takes(816, 897)
+
+
+@pytest.mark.parametrize("K", [257, 300, 320, 384, 512, 513, 700, 1000, 1023, 1024])
+def test_em_wide_lanes_cover_each_column_once(K):
+    # csrc/sinkhorn_em.cu's lane layout above K = 256, emulated: a warp
+    # takes 32 / LPR rows; lane l of a row holds chunk j at columns
+    # 4 (l % LPR + LPR j) .. + 3. Every (row, padded column) pair is held
+    # exactly once, only a lane's last chunk can pass the slab's stride
+    # 4 ceil(K / 4), and the column sums' shuffles (lanes LPR .. 16 apart)
+    # join exactly the lanes that hold the same columns
+    lpr, kp = cuda_em.lanes_per_row(K), cuda_em.padded_k(K)
+    assert lpr == (16 if K <= 512 else 32)
+    kpl = kp // (4 * lpr)
+    assert kp % (4 * lpr) == 0 and 5 <= kpl <= 8 and kp - K < 4 * lpr
+    ks = 4 * -(-K // 4)
+    held = np.zeros((32 // lpr, kp), dtype=int)
+    for lane in range(32):
+        for j in range(kpl):
+            c = 4 * (lane % lpr + lpr * j)
+            held[lane // lpr, c:c + 4] += 1
+            if j < kpl - 1:
+                assert c + 4 <= ks
+    assert (held == 1).all()
+    cols = lambda lane: {4 * (lane % lpr + lpr * j) for j in range(kpl)}
+    for lane in range(32):
+        group = {lane}
+        o = lpr
+        while o < 32:
+            group |= {x ^ o for x in group}
+            o *= 2
+        assert group == {x for x in range(32) if cols(x) == cols(lane)}
+        assert len(group) == 32 // lpr
+
+
 def test_em_cluster_size_keeps_8_at_the_request_shapes():
     # the N = 717 and 1433 requests keep their cluster of 8 (the kernel of
     # earlier slices); past 3,352 points at K = 128 a cluster of 16
@@ -100,7 +174,11 @@ def test_em_cluster_size_keeps_8_at_the_request_shapes():
     assert cuda_em.cluster_size(3353, 128) == cuda_em.cluster_size(5734, 128) == 16
     assert cuda_em.cluster_size(2867, 256) == 16
     assert cuda_em.cluster_size(35000, 128) is None
-    assert cuda_em.cluster_size(100, 257) is None
+    assert cuda_em.cluster_size(100, 1025) is None
+    # n_clusters = 512 at N = 717: a cluster of 8, one 209,008 B block an SM
+    assert cuda_em.cluster_size(717, 512) == 8
+    assert cuda_em.smem_bytes(717, 512, 8) == 209008
+    assert cuda_em.cluster_size(1433, 512) == cuda_em.cluster_size(717, 1023) == 16
 
 
 def test_em_blocks_of_the_main_shape_fit_four_to_an_sm():

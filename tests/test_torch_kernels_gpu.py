@@ -94,7 +94,12 @@ def test_dgcnn_kernel_refuses_what_it_does_not_take(card, kwargs, match):
 
 
 @pytest.mark.parametrize("B,N,K", [(3, 96, 32), (2, 200, 64), (2, 717, 128),
-                                   (1, 5, 32), (1, 1500, 128)])
+                                   (1, 5, 32), (1, 1500, 128),
+                                   # above K = 256: 16 lanes a row to 512,
+                                   # 32 to 1024, clusters of 8 and 16, K > N
+                                   (2, 717, 512), (1, 300, 257), (2, 1433, 512),
+                                   (1, 717, 1023), (1, 857, 856), (1, 100, 700),
+                                   (2, 640, 640), (1, 716, 1024)])
 def test_em_kernel_one_trip_matches_plain(card, B, N, K):
     rs = np.random.RandomState(N)
     xyz = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=card)
@@ -135,10 +140,10 @@ def test_em_kernel_zero_overlap_rows_stay_finite(card):
 def test_em_kernel_refuses_what_it_does_not_take(card):
     xyz = torch.zeros(1, 64, 3, device=card)
     o = torch.full((1, 64), 1 / 64, device=card)
-    with pytest.raises(ValueError, match="K <= 256"):
+    with pytest.raises(ValueError, match="K <= 1024"):
         sinkhorn_em(torch.zeros(1, 300, 3, device=card),
                     torch.full((1, 300), 1 / 300, device=card),
-                    torch.zeros(1, 257, 3, device=card))
+                    torch.zeros(1, 1025, 3, device=card))
     big = torch.zeros(1, 6705, 3, device=card)   # past a cluster of 16 blocks
     with pytest.raises(ValueError, match="N=6705"):
         sinkhorn_em(big, torch.full((1, 6705), 1 / 6705, device=card),

@@ -141,24 +141,52 @@ def test_nn1_route_follows_the_jax_rule(knn_stubs, M, prefer_dense):
 
 # ----------------------------------------------------------------- the EM
 
-@pytest.mark.parametrize("K", [16, 128, 100, 129, 256])
-@pytest.mark.parametrize("N", NS + [2867, 2868, 3072, 3073, 5734, 5735, 11600,
-                                    11601])
-def test_em_route_follows_the_jax_rule(monkeypatch, N, K):
+EM_KS = [16, 128, 100, 129, 256]
+EM_NS = NS + [2867, 2868, 3072, 3073, 5734, 5735, 11600, 11601]
+# the wide forms (K > 256): K at each form's edges and the top of the JAX
+# bound (N K 20 B <= 14 MiB); N at the bound's edge of each of them (717 at
+# K = 1023, 716 at 1024 and 1025, 857 at 856, 1430 at 513, 1433 at 512,
+# 1911 at 384, 2856 at 257) and one past it, and a small cloud
+EM_WIDE_KS = [257, 384, 512, 513, 856, 1023, 1024, 1025]
+EM_WIDE_NS = [100, 716, 717, 718, 857, 858, 1430, 1431, 1433, 1434, 1911,
+              1912, 2856, 2857]
+
+
+def _jax_em_route(monkeypatch, N, K):
     _stub(monkeypatch, jpallas_em, "sinkhorn_em", "kernel")
     _stub(monkeypatch, jgmm, "_em_jnp", "plain")
     xyz = jnp.zeros((1, N, 3))
     with pallas_override(True):
-        jax_route = _taken(lambda: jgmm.wkeans_plus(
+        return _taken(lambda: jgmm.wkeans_plus(
             xyz, jnp.zeros((1, N, 4)), jnp.ones((1, N)), K,
             init_nodes=jnp.zeros((1, K, 3))))
+
+
+@pytest.mark.parametrize("N,K", [(N, K) for K in EM_KS for N in EM_NS]
+                         + [(N, K) for K in EM_WIDE_KS for N in EM_WIDE_NS])
+def test_em_route_follows_the_jax_rule(monkeypatch, N, K):
+    jax_route = _jax_em_route(monkeypatch, N, K)
     want = "kernel" if jax_route == "kernel" and cuda_em.kernel_takes(N, K) \
         else "plain"
     assert em_route(N, K) == want
     # the port's kernel covers the JAX kernel's envelope at K <= 256 (a
-    # cluster of 16 blocks a cloud where 8 do not hold the plan)
-    if jax_route == "kernel" and K <= 256:
+    # cluster of 16 blocks a cloud where 8 do not hold the plan) and at
+    # K <= min(N, 1024); what stays plain is K > 1024, and K > N at
+    # K >= 897 where the plan does not fit (test_em_route_stays_plain_...)
+    if jax_route == "kernel" and (K <= 256 or K <= min(N, 1024)):
         assert want == "kernel"
+    if jax_route == "kernel" and want == "plain":
+        assert K > 1024 or (N < K and K >= 897)
+
+
+@pytest.mark.parametrize("N,K", [(716, 1025), (100, 1025), (817, 897),
+                                 (721, 1018)])
+def test_em_route_stays_plain_past_the_kernel(monkeypatch, N, K):
+    # the departures from the JAX rule: K past 1024 (the JAX kernel takes
+    # any K in its bound), and K > N pairs whose slab of the plan does not
+    # fit a cluster of 16 blocks beside 11 vectors of 1024 columns
+    assert _jax_em_route(monkeypatch, N, K) == "kernel"
+    assert em_route(N, K) == "plain" and not cuda_em.kernel_takes(N, K)
 
 
 # -------------------------------------------------------------- the DGCNN
