@@ -199,7 +199,21 @@ fatal on failure:
              `Registrar(configs.mnet(model=ModelConfig(n_clusters=512)))`
              at B=24, N=717, float32 (sinkhorn_em 1, a cluster of 8; host
              and busy ms beside the same request with the plain EM route,
-             in turns) and one train step of it (sinkhorn_em 1)
+             in turns) and one train step of it (sinkhorn_em 1). Above
+             k = 32 (the wide selection of csrc/knn_wide.cuh, the stage
+             chain in chunks of 32): part (a) also holds dgcnn_eval and
+             graph_stage1 at k = 33, 40, 64 and 717 over 24 clouds of 717
+             and at k = 1024 over 8 of 1024, knn at k = 40, 64, 1433 over
+             48 clouds of 1433 and at k = 1024 over 8 of 4,096, and
+             dgcnn_edges at k = 40 over the indoor cloud against their plain
+             versions (indices and e identical, a relaunch bit-equal); (h)
+             at gnn_k = 40, the DGCNN authors' ModelNet40 graph: the float32
+             and bf16 requests at (24, 717) (dgcnn_eval 1), the request at
+             (24, 1433) (knn 1), one train step with the backward kernels
+             on (graph_stage1 2, the backward plain), the CLI for three
+             steps (graph_stage1 6) and the indoor request with
+             dgcnn_fused_edges=True (dgcnn_edges 1, its graph from the plain
+             chunked kNN)
 
 `python3 chip_smoke.py --only PHASE[,PHASE...]` runs the named phases
 (build always runs; the names are those of PHASES below) and prints their
@@ -275,6 +289,10 @@ N_FPS_L2 = 140000        # FPS rows past what a cluster holds in registers
 # published peaks of one H100 SXM
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+# float32 operations a (query, point) pair of a k-nearest selection costs at
+# the least, at any k: 8 of the distance and a compare (a selection of the k
+# smallest need not touch a pair more than once)
+PAIR_FLOPS = 9.0
 
 # limits, kernel against plain version on the card
 LIM_DGCNN_F32 = 1e-4     # each float32 product as three TF32 products on
@@ -490,9 +508,7 @@ def check_dgcnn(rs):
     rows = 2 * B * N
     stage_macs = 6 * 64 + 64 * 64 + 64 * 128 + 128 * 256
     flops_bf16 = 2.0 * rows * (KNN * stage_macs + sum(STAGES) * EMB)
-    # a distance is 8 operations; each of the k selection passes compares
-    # every entry of the row once
-    flops_f32 = rows * N * (8.0 + KNN)
+    flops_f32 = rows * N * PAIR_FLOPS
     nbytes = (x.numel() * 4 + sum(w.numel() for w in ws) * 2
               + rows * EMB * 2 + rows * POS_K * 4)
     t_ops = flops_bf16 / PEAK_FLOPS["bf16"] + flops_f32 / PEAK_FLOPS["f32"]
@@ -612,7 +628,7 @@ def check_graph_stage1(rs):
           f"{split['edge_pass_ms']:.4f} / {split32['edge_pass_ms']:.4f} ms; a "
           f"relaunch bit-equal")
     rows = B * N
-    flops_f32 = rows * N * (8.0 + KNN)       # distances, selection passes
+    flops_f32 = rows * N * PAIR_FLOPS        # the selection's pairs
     flops_bf16 = 2.0 * rows * KNN * 6 * 64   # stage-1 products
     nbytes = (x.numel() * 4 + w1.numel() * 4
               + rows * KNN * (64 + 6) * 2 + rows * KNN * 4 + rows * POS_K * 4)
@@ -675,7 +691,7 @@ def check_nn1(rs):
         worst = max(worst, err)
     src = tgt = torch.tensor(rs.randn(B, N, 3).astype(np.float32) * 0.3, device=DEV)
     plain = cuda_ms(lambda: nn1_reference(src, tgt), 10)
-    flops = B * N * N * (8.0 + 1)            # distance and compare a pair
+    flops = B * N * N * PAIR_FLOPS
     nbytes = B * (N * 12 + N * 12 + N * (4 + 8))
     t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
     bound_1433, _ = _bound(B * N_LARGE * N_LARGE * 9.0, B * N_LARGE * 48)
@@ -1291,9 +1307,9 @@ def check_knn(rs):
     x717 = _cloud(rs, B, N)
     ms_717 = cuda_ms(lambda: knn(x717, x717, KNN), 20)
     rows = 2 * B * N_LARGE
-    bound, by = _bound(rows * N_LARGE * (8.0 + 1.0),
+    bound, by = _bound(rows * N_LARGE * PAIR_FLOPS,
                        2 * x.numel() * 4 + rows * KNN * 8)
-    bound_717, _ = _bound(B * N * N * (8.0 + 1.0), 2 * x717.numel() * 4 + B * N * KNN * 8)
+    bound_717, _ = _bound(B * N * N * PAIR_FLOPS, 2 * x717.numel() * 4 + B * N * KNN * 8)
     print(f"knn ({2 * B}, {N_LARGE}, {N_LARGE}, k={KNN}): {ms:.4f} ms, plain "
           f"{plain:.3f} ms, bound {bound:.5f} ms ({by}); ({B}, 4096, 4096, "
           f"k={KNN}) {ms_4096:.4f} ms; ({B}, {N}, {N}, k={KNN}) {ms_717:.4f} ms, "
@@ -1348,7 +1364,7 @@ def check_posenc_angles(rs):
         "other": ("reduce_kernel", "elementwise", "mean")})
     rows = B * N
     # each distance once and about one compare a candidate, as for knn
-    bound, by = _bound(rows * N * (8.0 + 1.0), x.numel() * 4 + rows * POS_K * 4)
+    bound, by = _bound(rows * N * PAIR_FLOPS, x.numel() * 4 + rows * POS_K * 4)
     print(f"posenc_angles ({B}, {N}, k={POS_K}): {ms:.4f} ms, plain "
           f"{plain:.3f} ms, bound {bound:.5f} ms ({by}); device ms {device}")
     return {"name": "posenc_angles", "route": "cuda",
@@ -1504,11 +1520,11 @@ def check_c1(rs):
             # fuses it): the unfused chain, over the kNN kernel's graph
             ("emb_dims=96", dict(emb_dims=96), B, N,
              {"dgcnn_eval": 0, "dgcnn_edges": 0, "knn": 1, "sinkhorn_em": 1}),
-            # C.3: dgcnn_fused_edges at a k the edges kernel does not take
-            # (the JAX package runs its edges kernel): the unfused chain, over
-            # the plain kNN (the kNN kernels take k <= 32 too)
+            # C.3: dgcnn_fused_edges at k = 33 (the JAX package runs its
+            # edges kernel): the edges kernel, in chunks of 32, over the kNN
+            # kernel's graph (the wide selection)
             ("gnn_k=33 dgcnn_fused_edges", dict(gnn_k=33, dgcnn_fused_edges=True),
-             4, 2048, {"dgcnn_eval": 0, "dgcnn_edges": 0, "knn": 0,
+             4, 2048, {"dgcnn_eval": 0, "dgcnn_edges": 1, "knn": 1,
                        "sinkhorn_em": 1})):
         reg = Registrar(configs.mnet(model=configs.ModelConfig(
             dtype="bfloat16", **over)), seed=0, device=DEV)
@@ -4056,6 +4072,17 @@ ENV_N_EM = 4096                  # part (d): a request the JAX rule sends to
 #                                  its EM kernel past a cluster of 8 blocks
 ENV_CLI_ROOT = "synthetic:600"   # 300 train shapes: 12 steps of 24 pairs
 ENV_K_WIDE = 512                 # part (g): n_clusters of the wide EM request
+# above k = 32 (the wide selection, the stage chain in chunks of 32): rows 1
+# and 3 at these k over B clouds of N (k = N the top) and at k = N = 1024
+# over 8 clouds; row 8 at (clouds, N, M, k); row 10 at ENV_EDGES_WIDE_KS
+# over the indoor cloud and at k = N = 1024 over 8 clouds
+ENV_WIDE_KS = (33, 40, 64, N)
+ENV_WIDE_TOP = (8, 1024)
+ENV_KNN_WIDE = tuple((2 * B, N_LARGE, N_LARGE, k) for k in (33, 40, 64, N_LARGE)) \
+    + ((8, 4096, 4096, 1024),)
+ENV_EDGES_WIDE_KS = (33, 40, 64)
+ENV_GNN_K_WIDE = 40              # part (h): the DGCNN authors' 2048-point
+#                                  ModelNet40 graph (WangYueFt/dgcnn, --k=40)
 
 
 def _stage_bound(points, k, emb, nbytes, selection_ops=0.0):
@@ -4103,7 +4130,7 @@ def env_dgcnn_eval(rs):
         rows = 2 * B * N
         nbytes = (x.numel() * 4 + sum(w.numel() for w in ws) * 2
                   + rows * EMB * 2 + rows * pk * 4)
-        bound, bound32 = _stage_bound(rows, k, EMB, nbytes, rows * N * (8.0 + k))
+        bound, bound32 = _stage_bound(rows, k, EMB, nbytes, rows * N * PAIR_FLOPS)
         res[f"k={k}"] = {"shape": [2 * B, N, k, EMB], "rows_a_point": cuda_dgcnn.stage_rows(k),
                          "max_abs_err": errs["bf16"], "max_abs_err_f32": errs["f32"],
                          "ms": ms["bf16"], "ms_f32": ms["f32"],
@@ -4183,7 +4210,7 @@ def env_graph_stage1(rs):
             ms[name] = cuda_ms(lambda: graph_stage1(x, w1, k, dt, POS_K), 20)
         plain = cuda_ms(lambda: graph_stage1_reference(x, w1, k, torch.bfloat16, POS_K), 2)
         rows = B * N
-        flops_f32 = rows * N * (8.0 + k)
+        flops_f32 = rows * N * PAIR_FLOPS
         flops_bf16 = 2.0 * rows * k * 6 * 64
         nbytes = (x.numel() * 4 + w1.numel() * 4 + rows * k * (64 + 6) * 2
                   + rows * k * 4 + rows * POS_K * 4)
@@ -4201,6 +4228,202 @@ def env_graph_stage1(rs):
               f"err {errs['bf16']:.3g} / {errs['f32']:.3g}; bound "
               f"{res[f'k={k}']['bound_ms']:.4f} ms ({res[f'k={k}']['bound_by']})")
     return res
+
+
+def env_dgcnn_wide(rs):
+    """Rows 1 and 3 above k = 32 (the wide selection, the stage chain in
+    chunks of 32): dgcnn_eval and graph_stage1 at each k of ENV_WIDE_KS over
+    B = 24 clouds of 717 and at k = N = 1024 over 8 clouds, float32 and
+    bf16, against their plain versions: the graph identical, e identical,
+    outputs within LIM_DGCNN_* and LIM_Z1_*, the angles within LIM_ALPHA, a
+    relaunch bit-equal; timed beside the plain versions and the bounds.
+    Returns ({"k=..": entry} of dgcnn_eval, the same of graph_stage1)."""
+    res1, res3 = {}, {}
+    shapes = [(B, N, k) for k in ENV_WIDE_KS] + [(*ENV_WIDE_TOP, ENV_WIDE_TOP[1])]
+    for clouds, n, k in shapes:
+        x = _cloud(rs, clouds, n)
+        ws, aff = _dgcnn_operands(rs)
+        want_idx = knn_reference(x, x, k)
+        tag = f"k={k}" + ("" if (clouds, n) == (B, N) else f",N={n}")
+        reps = 10 if k <= 64 else 2
+        e1 = {"shape": [clouds, n, k, EMB],
+              "chunks": [list(c) for c in cuda_dgcnn.stage_chunks(k)]}
+        for dt, lim, key in ((torch.float32, LIM_DGCNN_F32, "_f32"),
+                             (torch.bfloat16, LIM_DGCNN_BF16, "")):
+            graph = torch.empty(clouds, n, k, dtype=torch.int32, device=DEV)
+            out, alpha = cuda_dgcnn._dgcnn_eval_cuda(x, ws, aff, k, dt, POS_K, idx=graph)
+            torch.cuda.synchronize()
+            assert torch.equal(graph.long(), want_idx), f"dgcnn_eval graph {tag}"
+            ref, ralpha = dgcnn_eval_reference(x, ws, aff, k, dt, POS_K)
+            err = (out.float() - ref.float()).abs().max().item()
+            aerr = (alpha - ralpha).abs().max().item()
+            del ref
+            assert out.dtype == dt and out.shape == (clouds, n, EMB)
+            assert torch.isfinite(out.float()).all() and err <= lim and aerr <= LIM_ALPHA, \
+                (tag, dt, err, aerr)
+            again = dgcnn_eval(x, ws, aff, k, dt, POS_K)
+            assert torch.equal(out, again[0]) and torch.equal(alpha, again[1]), \
+                f"dgcnn_eval {tag}: two launches differ"
+            e1["max_abs_err" + key] = max(err, aerr)
+            e1["ms" + key] = cuda_ms(lambda: dgcnn_eval(x, ws, aff, k, dt, POS_K), reps)
+            e1["plain_ms" + key] = cuda_ms(
+                lambda: dgcnn_eval_reference(x, ws, aff, k, dt, POS_K), 1)
+        # bytes: the clouds in, the weights, the bf16 output and the angles out
+        rows = clouds * n
+        bound, bound32 = _stage_bound(rows, k, EMB, x.numel() * 4 + sum(w.numel() for w in ws) * 2
+                                      + rows * EMB * 2 + rows * POS_K * 4, rows * n * PAIR_FLOPS)
+        e1.update(bound)
+        e1["bound_ms_f32"] = bound32
+        res1[tag] = e1
+        print(f"envelopes dgcnn_eval ({clouds}, {n}, k={k}, chunks {e1['chunks']}): graph "
+              f"identical; bf16 {e1['ms']:.4f} ms (plain {e1['plain_ms']:.3f}, err "
+              f"{e1['max_abs_err']:.3g}), float32 {e1['ms_f32']:.4f} ms (plain "
+              f"{e1['plain_ms_f32']:.3f}, err {e1['max_abs_err_f32']:.3g}); bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), float32 "
+              f"{bound32['ms_tf32x3']:.4f} in 3xTF32")
+        w1 = ws[0]
+        e3 = {"shape": [clouds, n, k]}
+        for dt, lim, key in ((torch.float32, LIM_Z1_F32, "_f32"),
+                             (torch.bfloat16, LIM_Z1_BF16, "")):
+            got = graph_stage1(x, w1, k, dt, POS_K)
+            torch.cuda.synchronize()
+            z1, e, idx, alpha = got
+            rz1, re, ridx, ralpha = graph_stage1_reference(x, w1, k, dt, POS_K)
+            assert z1.shape == (clouds, k, n, 64) and e.shape == (clouds, k, n, 6)
+            assert torch.equal(idx, ridx) and torch.equal(e, re), (tag, dt)
+            err = (z1.float() - rz1.float()).abs().max().item()
+            aerr = (alpha - ralpha).abs().max().item()
+            del rz1, re
+            assert torch.isfinite(z1.float()).all() and err <= lim and aerr <= LIM_ALPHA, \
+                (tag, dt, err, aerr)
+            again = graph_stage1(x, w1, k, dt, POS_K)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                f"graph_stage1 {tag}: two launches differ"
+            del got, again, z1, e
+            e3["max_abs_err" + key] = max(err, aerr)
+            e3["ms" + key] = cuda_ms(lambda: graph_stage1(x, w1, k, dt, POS_K), reps)
+        e3["plain_ms"] = cuda_ms(
+            lambda: graph_stage1_reference(x, w1, k, torch.bfloat16, POS_K), 1)
+        # bytes: the clouds in, bf16 z1 and e, the indices and angles out
+        graph_bytes = (x.numel() * 4 + rows * k * (64 + 6) * 2 + rows * k * 4
+                       + rows * POS_K * 4)
+        flops_f32 = rows * n * PAIR_FLOPS
+        flops_bf16 = 2.0 * rows * k * 6 * 64
+        t_ops = flops_bf16 / PEAK_FLOPS["bf16"] + flops_f32 / PEAK_FLOPS["f32"]
+        t_bytes = graph_bytes / PEAK_BYTES
+        e3.update({"bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "bound_ms_f32": f32_bound(flops_bf16, flops_f32,
+                                             graph_bytes + rows * k * (64 + 6) * 2)})
+        res3[tag] = e3
+        print(f"envelopes graph_stage1 ({clouds}, {n}, k={k}): idx and e identical, bf16 "
+              f"{e3['ms']:.4f} ms, float32 {e3['ms_f32']:.4f} ms, plain "
+              f"{e3['plain_ms']:.3f}, err {e3['max_abs_err']:.3g} / "
+              f"{e3['max_abs_err_f32']:.3g}; bound {e3['bound_ms']:.4f} ms ({e3['bound_by']})")
+    return res1, res3
+
+
+def env_knn_wide(rs):
+    """Row 8 above k = 32 (the wide selection) at each (clouds, N, M, k) of
+    ENV_KNN_WIDE, to k = M and to M = 4096: indices identical to the plain
+    version's, a relaunch bit-equal; timed beside the plain version and the
+    bound (9 flops a pair; the output's bytes at k = M)."""
+    res = {}
+    for clouds, n, m, k in ENV_KNN_WIDE:
+        x = _cloud(rs, clouds, m)
+        got = knn(x, x, k)
+        torch.cuda.synchronize()
+        want = knn_reference(x, x, k)
+        assert got.dtype == torch.int64 and torch.equal(got, want), (clouds, n, m, k)
+        assert torch.equal(knn(x, x, k), got), f"knn k={k}: two launches differ"
+        del got, want
+        plan = cuda_knn.knn_plan(clouds, n, m, k)
+        ms = cuda_ms(lambda: knn(x, x, k), 10 if k <= 64 else 3)
+        plain = cuda_ms(lambda: knn_reference(x, x, k), 1)
+        bound, by = _bound(clouds * n * m * PAIR_FLOPS, 2 * x.numel() * 4 + clouds * n * k * 8)
+        tag = f"k={k}" + ("" if (clouds, n) == (2 * B, N_LARGE) else f",N={n}")
+        res[tag] = {"shape": [clouds, n, m, k], "warps": plan["threads"] // 32,
+                    "smem_bytes": plan["smem"], "max_abs_err": 0.0, "ms": ms,
+                    "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+        print(f"envelopes knn ({clouds}, {n}, {m}, k={k}; {plan['threads'] // 32} warps, "
+              f"{plan['smem']} B): indices identical; {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"bound {bound:.5f} ms ({by})")
+    return res
+
+
+def env_edges_wide(rs):
+    """Row 10 above k = 32 (the stage chain in chunks of 32) at each k of
+    ENV_EDGES_WIDE_KS over the indoor cloud (2 clouds of 35,000; the graph
+    from the plain chunked kNN, which the streamed kernel does not take at
+    k > 32) and at k = N = 1024 over 8 clouds, float32 and bf16, against
+    its plain version, a relaunch bit-equal; timed beside it and the bound."""
+    x = _sorted(torch.tensor(surface(rs, 2), device=DEV))
+    graph = ops_common.knn(x, x, max(ENV_EDGES_WIDE_KS))   # ascending: its first k
+    clouds, n = ENV_WIDE_TOP
+    top = _cloud(rs, clouds, n)
+    cases = [(f"k={k},indoor", x, graph[..., :k].contiguous(), k) for k in ENV_EDGES_WIDE_KS]
+    cases.append((f"k={n},N={n}", top, knn_reference(top, top, n), n))
+    del graph
+    ws, aff = _dgcnn_operands(rs)
+    res = {}
+    for tag, xx, idx, k in cases:
+        nbr = gather_neighbors(xx, idx)
+        entry = {"shape": [xx.shape[0], xx.shape[1], k, EMB],
+                 "chunks": [list(c) for c in cuda_dgcnn.stage_chunks(k)]}
+        for dt, lim, key in ((torch.float32, LIM_DGCNN_F32, "_f32"),
+                             (torch.bfloat16, LIM_DGCNN_BF16, "")):
+            out = dgcnn_edges(xx, nbr, ws, aff, k, dt)
+            torch.cuda.synchronize()
+            ref = dgcnn_edges_reference(xx, nbr, ws, aff, k, dt)
+            err = (out.float() - ref.float()).abs().max().item()
+            del ref
+            assert out.dtype == dt and torch.isfinite(out.float()).all() and err <= lim, \
+                (tag, dt, err)
+            assert torch.equal(out, dgcnn_edges(xx, nbr, ws, aff, k, dt)), tag
+            entry["max_abs_err" + key] = err
+            entry["ms" + key] = cuda_ms(lambda: dgcnn_edges(xx, nbr, ws, aff, k, dt), 3)
+            entry["plain_ms" + key] = cuda_ms(
+                lambda: dgcnn_edges_reference(xx, nbr, ws, aff, k, dt), 1)
+        rows = xx.shape[0] * xx.shape[1]
+        bound, bound32 = _stage_bound(rows, k, EMB, xx.numel() * 4 + nbr.numel() * 4
+                                      + rows * EMB * 2)
+        del nbr
+        entry.update(bound)
+        entry["bound_ms_f32"] = bound32
+        res[tag] = entry
+        print(f"envelopes dgcnn_edges ({xx.shape[0]}, {xx.shape[1]}, k={k}, chunks "
+              f"{entry['chunks']}): bf16 {entry['ms']:.3f} ms (plain {entry['plain_ms']:.3f}, "
+              f"err {entry['max_abs_err']:.3g}), float32 {entry['ms_f32']:.3f} ms (plain "
+              f"{entry['plain_ms_f32']:.3f}, err {entry['max_abs_err_f32']:.3g}); bound "
+              f"{bound['bound_ms']:.4f} ms, float32 {bound32['ms_tf32x3']:.4f} in 3xTF32")
+    return res
+
+
+def env_cli_wide_k():
+    """`python -m ogmm_tpu_torch.train --gnn_k 40` with the backward kernels
+    on, three steps of 24 pairs and an eval batch: graph_stage1 2 a step,
+    the backward plain (no bwd_* launch), dgcnn_eval on the eval batch."""
+    saved = ops_dgcnn_train.BWD_KERNELS
+    ops_dgcnn_train.BWD_KERNELS = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer = cli.main(["--dataset", "synthetic", "--root", "synthetic:200",
+                                "--gnn_k", str(ENV_GNN_K_WIDE), "--batch_size", str(B),
+                                "--test_batch_size", str(B), "--epochs", "1",
+                                "--steps_per_epoch", "3", "--model_path", tmp])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {k: v for k, v in dispatch.launch_counts.items() if v}
+    finally:
+        ops_dgcnn_train.BWD_KERNELS = saved
+    rec = trainer.history[-1]
+    assert trainer.state.step == 3 and np.isfinite(rec["train"]["loss"])
+    assert launches.get("graph_stage1", 0) == 6 and launches.get("dgcnn_eval", 0) >= 1, launches
+    assert not any(launches.get(n, 0) for n in ("bwd_reduce", "bwd_stage", "bwd_edge")), launches
+    return launches, {"seconds": secs, "train_loss": rec["train"]["loss"],
+                      "eval_loss": rec["val"]["loss"]}
 
 
 def env_dgcnn_bwd(rs):
@@ -4364,11 +4587,12 @@ def env_serve(cfg, pair, want):
                       "rot_median_deg_vs_plain": ang.median().item()}
 
 
-def env_train(rs, cfg, also=None):
+def env_train(rs, cfg, also=None, bwd=True):
     """One train step of cfg at B=24, N=717 with the backward kernels on
     (`BWD_KERNELS`): launches counted from 0 (graph_stage1 2, bwd_reduce 2,
     bwd_stage 6, bwd_edge 2: src and tgt each one backward, and the counts
-    `also` asks for); from one state
+    `also` asks for; with bwd=False, a graph the backward kernels do not
+    take, none of theirs: the backward is plain); from one state
     the loss bit-equal with the switch off and the gradients within
     LIM_BWD_STEP_GRAD, and the step against the plain versions."""
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, device_overlap=True),
@@ -4385,8 +4609,8 @@ def env_train(rs, cfg, also=None):
         metrics, launches = _counted(lambda: step(state, batches[1]))
         secs = (time.perf_counter() - t0) * 1e3
         assert all(torch.isfinite(v).all() for v in metrics.values()), metrics
-        want = {"graph_stage1": 2, "bwd_reduce": 2, "bwd_stage": 6, "bwd_edge": 2,
-                **(also or {})}
+        want = {"graph_stage1": 2, "bwd_reduce": 2 * bwd, "bwd_stage": 6 * bwd,
+                "bwd_edge": 2 * bwd, **(also or {})}
         assert {k: launches.get(k, 0) for k in want} == want, launches
         k_loss, k_grads = _step_grads(state, cfg, batches[0])
         ops_dgcnn_train.BWD_KERNELS = False
@@ -4496,7 +4720,8 @@ def env_cli_profile():
 
 def envelopes(rs):
     """The kernels' widened envelopes: (a) each widened kernel against its
-    plain version at the new shapes; (b) `Registrar(configs.mnet(gnn_k=12))`
+    plain version at the new shapes (rows 1, 3, 8 and 10 above k = 32 too);
+    (b) `Registrar(configs.mnet(gnn_k=12))`
     at B=24, N=717, float32 and bf16 (dgcnn_eval 1, sinkhorn_em 1); (c)
     one train step of it, float32 and bf16, with the backward kernels on
     (graph_stage1 2, bwd_reduce 2, bwd_stage 6, bwd_edge 2); (d) a request at B=8, N=4,096,
@@ -4505,12 +4730,21 @@ def envelopes(rs):
     with dgcnn_fused_edges=True (dgcnn_edges 1). Each part's launches are
     counted from 0 right before it. (g) the n_clusters=512 request (float32,
     B=24, N=717; sinkhorn_em 1, beside the plain EM route) and its train
-    step (sinkhorn_em 1)."""
-    kernels = {"dgcnn_eval": env_dgcnn_eval(rs), "dgcnn_edges": env_dgcnn_edges(rs),
-               "graph_stage1": env_graph_stage1(rs), "sinkhorn_em": env_em(rs),
+    step (sinkhorn_em 1). (h) at gnn_k = 40: the float32 and bf16 requests
+    at (24, 717) (dgcnn_eval 1), the float32 request at (24, 1433) (knn 1),
+    the step with the backward kernels on (graph_stage1 2, the backward
+    plain), the CLI (graph_stage1 6 in three steps) and the indoor request
+    (float32, B=1, N=35,000) with dgcnn_fused_edges=True (dgcnn_edges 1)."""
+    wide1, wide3 = env_dgcnn_wide(rs)
+    kernels = {"dgcnn_eval": {**env_dgcnn_eval(rs), **wide1},
+               "dgcnn_edges": {"k=12": env_dgcnn_edges(rs), **env_edges_wide(rs)},
+               "graph_stage1": {**env_graph_stage1(rs), **wide3},
+               "knn": env_knn_wide(rs), "sinkhorn_em": env_em(rs),
                **env_dgcnn_bwd(rs)}
     total, res = {}, {"kernels": kernels}
     indoor = configs.indoor()
+    indoor_wide = indoor.replace(model=dataclasses.replace(
+        indoor.model, gnn_k=ENV_GNN_K_WIDE, dgcnn_fused_edges=True))
     indoor = indoor.replace(model=dataclasses.replace(
         indoor.model, gnn_k=ENV_GNN_K, dgcnn_fused_edges=True))
     parts = (("serve_k12_f32", lambda: env_serve(
@@ -4530,7 +4764,24 @@ def envelopes(rs):
              ("cli_profile", env_cli_profile),
              (f"serve_k{ENV_K_WIDE}", lambda: env_serve_wide_em(rs)),
              (f"train_k{ENV_K_WIDE}", lambda: env_train(
-                 rs, _env_cfg(n_clusters=ENV_K_WIDE), {"sinkhorn_em": 1})))
+                 rs, _env_cfg(n_clusters=ENV_K_WIDE), {"sinkhorn_em": 1})),
+             (f"serve_gnn_k{ENV_GNN_K_WIDE}_f32", lambda: env_serve(
+                 _env_cfg(gnn_k=ENV_GNN_K_WIDE), make_pairs(rs, B, N),
+                 {"dgcnn_eval": 1, "sinkhorn_em": 1, "knn": 0, "posenc_angles": 0})),
+             (f"serve_gnn_k{ENV_GNN_K_WIDE}_bf16", lambda: env_serve(
+                 _env_cfg("bfloat16", gnn_k=ENV_GNN_K_WIDE), make_pairs(rs, B, N),
+                 {"dgcnn_eval": 1, "sinkhorn_em": 1, "knn": 0, "posenc_angles": 0})),
+             (f"serve_gnn_k{ENV_GNN_K_WIDE}_n{N_LARGE}", lambda: env_serve(
+                 _env_cfg(gnn_k=ENV_GNN_K_WIDE), make_pairs(rs, B, N_LARGE),
+                 {"knn": 1, "dgcnn_eval": 0, "sinkhorn_em": 1})),
+             (f"train_gnn_k{ENV_GNN_K_WIDE}", lambda: env_train(
+                 rs, _env_cfg(gnn_k=ENV_GNN_K_WIDE), bwd=False)),
+             (f"cli_gnn_k{ENV_GNN_K_WIDE}", env_cli_wide_k),
+             # the graph from the plain chunked kNN (the streamed kernel
+             # stops at k = 32), the stage chain through the edges kernel
+             (f"serve_indoor_gnn_k{ENV_GNN_K_WIDE}_edges", lambda: env_serve(
+                 indoor_wide, rigid_copies(rs, surface(rs, 1)),
+                 {"dgcnn_edges": 1, "knn_stream": 0, "dgcnn_eval": 0})))
     for name, fn in parts:
         launches, out = fn()
         print(f"envelopes {name}: launches {launches}; {out}")

@@ -1,14 +1,16 @@
 // Fused eval DGCNN encoder for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel ogmm_tpu/ops/pallas_dgcnn.py:dgcnn_eval_pallas
-// (_dgcnn_kernel + _run_stages). Takes any k from 1 to 32: the stage chains
-// are compiled for the row counts of DGCNN_KS (knn_select.cuh), a point's
-// k edge rows padded to dgcnn_rows(k) by repeating its nearest neighbour
-// (exact: the max over a point's rows ignores a repeated row, and BN is
-// folded from the running statistics); k = 20 below. Nothing but the
-// neighbour indices
-// (B*N*k ints) and the 512-wide concat pass through device memory between
-// the launches:
+// (_dgcnn_kernel + _run_stages). Takes any k from 1 to N <= 1024, the TPU
+// kernel's envelope: the stage chains are compiled for the row counts of
+// DGCNN_KS (knn_select.cuh), a point's k edge rows padded to dgcnn_rows(k)
+// by repeating its nearest neighbour (exact: the max over a point's rows
+// ignores a repeated row, and BN is folded from the running statistics);
+// above DGCNN_MAX_K = 32 the neighbours run through the same chains in
+// chunks of at most 32 (launch_stages), the chunks' maxes merged in the
+// concat, and the selection is knn_wide_kernel (knn_wide.cuh); k = 20
+// below. Nothing but the neighbour indices (B*N*k ints) and the 512-wide
+// concat pass through device memory between the launches:
 //
 //  1. knn_kernel<k, GraphOut> (knn_lanes.cuh, the dense selection shared
 //     with graph_stage1.cu, knn.cu and posenc_angles.cu): the cloud
@@ -79,7 +81,8 @@
 // ogmm_tpu/ops/pallas_dgcnn.py:dgcnn_edges_pallas (_dgcnn_edges_kernel): the
 // same stage chain over pre-gathered float32 neighbour coordinates
 // (B, N, k, 3) instead of indices, at any N (the indoor clouds, N = 35,000,
-// whose graph comes from knn_stream.cu). Eval only, BN folded, as kernel 1.
+// whose graph comes from knn_stream.cu) and any k (in chunks above 32, as
+// kernel 1). Eval only, BN folded, as kernel 1.
 //
 // Bound: operations. The stage products are 2*45,440 flops for each of the
 // B*N*k edge rows plus 2*512*emb for each point, against 12 bytes in and
@@ -101,8 +104,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "knn_lanes.cuh"   // knn_launch_k, GraphOut
-#include "knn_select.cuh"  // DGCNN_KS, MAXN
+#include "knn_lanes.cuh"   // GraphOut
+#include "knn_select.cuh"  // DGCNN_KS, DGCNN_MAX_K, MAXN
+#include "knn_wide.cuh"    // graph_select_launch
 #include "mma_bf16.cuh"  // mma_bf16, ldsm_x4, cp_async16
 #include "tf32.cuh"      // tf32, split_tf32, mma_tf32
 
@@ -112,12 +116,13 @@ typedef __nv_bfloat162 bf162;
 #define CATW 512   // 64 + 64 + 128 + 256
 
 // the float32 coordinates of edge row j of point n: neighbour j, or the
-// nearest (j = 0) for a padded row j >= k, from nbr (B, N, k, 3) where it is
-// given, else from x through idx (B, N, k)
+// first (j = 0) for a padded row j >= k, from nbr (B, N, ld, 3) where it is
+// given, else from x through idx (B, N, ld); a launch of a chunk of a
+// point's neighbours gets idx and nbr at its first
 __device__ __forceinline__ const float* neighbour(const float* x, const int* idx,
                                                   const float* nbr, size_t row,
-                                                  int b, int N, int j, int k) {
-  const size_t e = row * k + (j < k ? j : 0);
+                                                  int b, int N, int j, int k, int ld) {
+  const size_t e = row * ld + (j < k ? j : 0);
   return nbr != nullptr ? nbr + e * 3 : x + ((size_t)b * N + idx[e]) * 3;
 }
 
@@ -314,9 +319,10 @@ __host__ __device__ constexpr int f32_points(int knn) {
 }
 
 // the four stages of QP points of cloud blockIdx.y in 3xTF32 -> their
-// concat rows cat_out (B*N, 512) float32; stage i's float32 weight wi
-// (C_in, C_out) and folded BN scale si and bias bi; KNN rows a point, the
-// first k of them its neighbours
+// concat rows cat_out (B*N, 512) float32 (with merge, the max of those and
+// the rows there); stage i's float32 weight wi (C_in, C_out) and folded BN
+// scale si and bias bi; KNN rows a point, the first k of them its
+// neighbours, idx or nbr rows ld neighbours long
 template <int KNN, int QP>
 __global__ void __launch_bounds__(NWF * 32, 1)
 dgcnn_stage_tf32_kernel(const float* __restrict__ x, const int* __restrict__ idx,
@@ -325,7 +331,8 @@ dgcnn_stage_tf32_kernel(const float* __restrict__ x, const int* __restrict__ idx
                         const float* s1, const float* s2, const float* s3,
                         const float* s4, const float* b1, const float* b2,
                         const float* b3, const float* b4,
-                        float* __restrict__ cat_out, int N, int k) {
+                        float* __restrict__ cat_out, int N, int k, int ld,
+                        int merge) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int R = QP * KNN;
   float* bufX = reinterpret_cast<float*>(smem_raw);  // R x LDF_X (first the edges)
@@ -337,7 +344,7 @@ dgcnn_stage_tf32_kernel(const float* __restrict__ x, const int* __restrict__ idx
   for (int r = tid; r < R; r += NWF * 32) {
     const size_t row = (size_t)b * N + min(n0 + r / KNN, N - 1);
     const float* pq = x + row * 3;
-    const float* pn = neighbour(x, idx, nbr, row, b, N, r % KNN, k);
+    const float* pn = neighbour(x, idx, nbr, row, b, N, r % KNN, k, ld);
     float4* dst = reinterpret_cast<float4*>(bufX + r * LDF_E);
     dst[0] = make_float4(pn[0] - pq[0], pn[1] - pq[1], pn[2] - pq[2], pq[0]);
     dst[1] = make_float4(pq[1], pq[2], 0.f, 0.f);
@@ -355,13 +362,20 @@ dgcnn_stage_tf32_kernel(const float* __restrict__ x, const int* __restrict__ idx
                                                   256);
   __syncthreads();
 
-  // the concat rows of the block's points, 16 bytes a thread
+  // the concat rows of the block's points, 16 bytes a thread; merged with
+  // an earlier chunk's maxes by a max (exact: ReLU outputs)
   constexpr int PER_ROW = CATW / 4;
   for (int e = tid; e < QP * PER_ROW; e += NWF * 32) {
     const int q = e / PER_ROW, c = (e % PER_ROW) * 4;
-    if (n0 + q < N)
-      *reinterpret_cast<float4*>(cat_out + ((size_t)b * N + n0 + q) * CATW + c) =
-          *reinterpret_cast<const float4*>(cat + q * CATW + c);
+    if (n0 + q < N) {
+      float4* dst = reinterpret_cast<float4*>(cat_out + ((size_t)b * N + n0 + q) * CATW + c);
+      float4 v = *reinterpret_cast<const float4*>(cat + q * CATW + c);
+      if (merge) {
+        const float4 o = *dst;
+        v = make_float4(fmaxf(v.x, o.x), fmaxf(v.y, o.y), fmaxf(v.z, o.z), fmaxf(v.w, o.w));
+      }
+      *dst = v;
+    }
   }
 }
 
@@ -674,9 +688,10 @@ __host__ __device__ constexpr size_t mma_smem(int knn) {
 }
 
 // the four stages of QB points of cloud blockIdx.y -> their concat rows
-// cat_out (B*N, 512); stage i's float32 weight wi (C_in, C_out) and folded
-// BN scale si and bias bi; KNN rows a point, the first k of them its
-// neighbours
+// cat_out (B*N, 512) (with merge, the max of those and the rows there);
+// stage i's float32 weight wi (C_in, C_out) and folded BN scale si and bias
+// bi; KNN rows a point, the first k of them its neighbours, idx or nbr rows
+// ld neighbours long
 template <int KNN>
 __global__ void __launch_bounds__(NWS * 32, 2)
 dgcnn_stage_mma_kernel(const float* __restrict__ x, const int* __restrict__ idx,
@@ -685,7 +700,8 @@ dgcnn_stage_mma_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                        const float* s1, const float* s2, const float* s3,
                        const float* s4, const float* b1, const float* b2,
                        const float* b3, const float* b4,
-                       bf16* __restrict__ cat_out, int N, int k) {
+                       bf16* __restrict__ cat_out, int N, int k, int ld,
+                       int merge) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int R = QB * KNN;
   bf16* bufX = reinterpret_cast<bf16*>(smem_raw);  // R x LD_X (first the edges)
@@ -697,7 +713,7 @@ dgcnn_stage_mma_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   for (int r = tid; r < R; r += NWS * 32) {
     const size_t row = (size_t)b * N + min(n0 + r / KNN, N - 1);
     const float* pq = x + row * 3;
-    const float* pn = neighbour(x, idx, nbr, row, b, N, r % KNN, k);
+    const float* pn = neighbour(x, idx, nbr, row, b, N, r % KNN, k, ld);
     uint4* dst = reinterpret_cast<uint4*>(bufX + r * LD_E);
     dst[0] = make_uint4(pack_bf16(pn[0] - pq[0], pn[1] - pq[1]),
                         pack_bf16(pn[2] - pq[2], pq[0]), pack_bf16(pq[1], pq[2]), 0u);
@@ -713,13 +729,23 @@ dgcnn_stage_mma_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   stage_mma<KNN, 128, 128, 256>(bufY, LD_Y, nullptr, 0, w4, s4, b4, cat, 256);
   __syncthreads();
 
-  // the concat rows of the block's points, 16 bytes a thread
+  // the concat rows of the block's points, 16 bytes a thread; merged with
+  // an earlier chunk's maxes by a max (exact: ReLU outputs)
   constexpr int PER_ROW = CATW / 8;
   for (int e = tid; e < QB * PER_ROW; e += NWS * 32) {
     const int q = e / PER_ROW, c = (e % PER_ROW) * 8;
-    if (n0 + q < N)
-      *reinterpret_cast<uint4*>(cat_out + ((size_t)b * N + n0 + q) * CATW + c) =
-          *reinterpret_cast<const uint4*>(cat + q * LD_CAT + c);
+    if (n0 + q < N) {
+      uint4* dst = reinterpret_cast<uint4*>(cat_out + ((size_t)b * N + n0 + q) * CATW + c);
+      uint4 v = *reinterpret_cast<const uint4*>(cat + q * LD_CAT + c);
+      if (merge) {
+        const uint4 o = *dst;
+        v = make_uint4(as_u32(__hmax2(as_bf162(v.x), as_bf162(o.x))),
+                       as_u32(__hmax2(as_bf162(v.y), as_bf162(o.y))),
+                       as_u32(__hmax2(as_bf162(v.z), as_bf162(o.z))),
+                       as_u32(__hmax2(as_bf162(v.w), as_bf162(o.w))));
+      }
+      *dst = v;
+    }
   }
 }
 
@@ -820,86 +846,101 @@ struct Operands {
   const float* bs[5];
 };
 
-// bf16: the stage launch, then the head over the concat in device memory
+// bf16: the stage launch over k neighbours a point (rows of ld), into the
+// concat in device memory (merge: a max with what is there)
 template <int KNN>
-static cudaError_t launch_stages_bf16(const float* x, const int* idx,
-                                      const float* nbr, const Operands& o,
-                                      void* cat, void* out, int B, int N, int emb,
-                                      int k, cudaStream_t stream) {
+static cudaError_t stage_launch_bf16(const float* x, const int* idx, const float* nbr,
+                                     const Operands& o, void* cat, int B, int N, int k,
+                                     int ld, int merge, cudaStream_t stream) {
   const size_t smem = mma_smem(KNN);
-  cudaError_t err = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       dgcnn_stage_mma_kernel<KNN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dgcnn_head_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_SMEM);
-  if (err != cudaSuccess) return err;
   dgcnn_stage_mma_kernel<KNN><<<dim3((N + QB - 1) / QB, B), NWS * 32, smem, stream>>>(
       x, idx, nbr, o.w[0], o.w[1], o.w[2], o.w[3], o.ss[0], o.ss[1], o.ss[2],
-      o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], (bf16*)cat, N, k);
-  err = cudaGetLastError();
+      o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], (bf16*)cat, N, k, ld, merge);
+  return cudaGetLastError();
+}
+
+// bf16: the head over the concat in device memory
+static cudaError_t head_launch_bf16(const Operands& o, const void* cat, void* out,
+                                    int rows, int emb, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      dgcnn_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_SMEM);
   if (err != cudaSuccess) return err;
-  const int rows = B * N;
   dgcnn_head_kernel<<<dim3(emb / HC, (rows + HR - 1) / HR), 256, HEAD_SMEM, stream>>>(
       (const bf16*)cat, (const bf16*)o.w5, o.bs[4], (bf16*)out, rows, emb);
   return cudaGetLastError();
 }
 
-// float32: the 3xTF32 stage launch, then the head over the concat in device
-// memory
+// float32: the 3xTF32 stage launch, as stage_launch_bf16
 template <int KNN>
-static cudaError_t launch_stages_f32(const float* x, const int* idx,
-                                     const float* nbr, const Operands& o, void* cat,
-                                     void* out, int B, int N, int emb, int k,
-                                     cudaStream_t stream) {
+static cudaError_t stage_launch_f32(const float* x, const int* idx, const float* nbr,
+                                    const Operands& o, void* cat, int B, int N, int k,
+                                    int ld, int merge, cudaStream_t stream) {
   constexpr int QP = f32_points(KNN);
   const size_t smem = f32_smem(KNN, QP);
-  cudaError_t err = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       dgcnn_stage_tf32_kernel<KNN, QP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dgcnn_head_tf32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_F32_SMEM);
-  if (err != cudaSuccess) return err;
   dgcnn_stage_tf32_kernel<KNN, QP><<<dim3((N + QP - 1) / QP, B), NWF * 32, smem, stream>>>(
       x, idx, nbr, o.w[0], o.w[1], o.w[2], o.w[3], o.ss[0], o.ss[1], o.ss[2],
-      o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], (float*)cat, N, k);
-  err = cudaGetLastError();
+      o.ss[3], o.bs[0], o.bs[1], o.bs[2], o.bs[3], (float*)cat, N, k, ld, merge);
+  return cudaGetLastError();
+}
+
+// float32: the 3xTF32 head over the concat in device memory
+static cudaError_t head_launch_f32(const Operands& o, const void* cat, void* out,
+                                   int rows, int emb, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      dgcnn_head_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_F32_SMEM);
   if (err != cudaSuccess) return err;
-  const int rows = B * N;
   dgcnn_head_tf32_kernel<<<dim3(emb / FHC, (rows + FHR - 1) / FHR), NWF * 32,
                            HEAD_F32_SMEM, stream>>>(
       (const float*)cat, (const float*)o.w5, o.bs[4], (float*)out, rows, emb);
   return cudaGetLastError();
 }
 
-// KNN = dgcnn_rows(k) rows a point, k neighbours
-template <int KNN>
-static cudaError_t launch_stages(const float* x, const int* idx,
-                                 const float* nbr, const Operands& o, void* cat,
-                                 void* out, int B, int N, int emb, int k, int is_bf16,
-                                 cudaStream_t stream) {
-  if (is_bf16)
-    return launch_stages_bf16<KNN>(x, idx, nbr, o, cat, out, B, N, emb, k, stream);
-  return launch_stages_f32<KNN>(x, idx, nbr, o, cat, out, B, N, emb, k, stream);
-}
-
-// the selection (a list of KNN, the k nearest written) and the stage chain
-template <int KNN>
-static cudaError_t launch_k(const float* x, const Operands& o, int* idx,
-                            float* alpha, void* cat, void* out, int B, int N,
-                            int emb, int k, int pk, int is_bf16, cudaStream_t stream) {
-  if (N < k || pk > k) return cudaErrorInvalidValue;
-  const cudaError_t err = knn_launch_k<KNN>(x, x, GraphOut{idx, alpha, nullptr, pk}, B,
-                                            N, N, k, stream);
-  if (err != cudaSuccess) return err;
-  return launch_stages<KNN>(x, idx, nullptr, o, cat, out, B, N, emb, k, is_bf16,
-                            stream);
+// The stage chain over k neighbours a point, then the head. A point's edge
+// rows run through the stages each on its own and meet only in the max over
+// them, so the neighbours go in chunks of at most DGCNN_MAX_K, in order
+// (ops/cuda_dgcnn.py:stage_chunks mirrors them): one stage launch a chunk at
+// its compiled row count dgcnn_rows(kc), the rows past kc repeating the
+// chunk's first neighbour, the second and later chunks' maxes merged into
+// the concat by a max. One chunk where k <= DGCNN_MAX_K.
+static cudaError_t launch_stages(const float* x, const int* idx, const float* nbr,
+                                 const Operands& o, void* cat, void* out, int B, int N,
+                                 int emb, int k, int is_bf16, cudaStream_t stream) {
+  for (int j0 = 0; j0 < k; j0 += DGCNN_MAX_K) {
+    const int kc = k - j0 < DGCNN_MAX_K ? k - j0 : DGCNN_MAX_K;
+    const int* ci = idx != nullptr ? idx + j0 : nullptr;
+    const float* cn = nbr != nullptr ? nbr + 3 * (size_t)j0 : nullptr;
+    cudaError_t err;
+    switch (dgcnn_rows(kc)) {
+#define CASE(K)                                                                    \
+  case K:                                                                          \
+    err = is_bf16 ? stage_launch_bf16<K>(x, ci, cn, o, cat, B, N, kc, k, j0 > 0,   \
+                                         stream)                                   \
+                  : stage_launch_f32<K>(x, ci, cn, o, cat, B, N, kc, k, j0 > 0,    \
+                                        stream);                                   \
+    break;
+      DGCNN_KS(CASE)
+#undef CASE
+      default:
+        return cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return err;
+  }
+  return is_bf16 ? head_launch_bf16(o, cat, out, B * N, emb, stream)
+                 : head_launch_f32(o, cat, out, B * N, emb, stream);
 }
 
 // w1 .. w4 (C_in, C_out), s1 .. s4 and b1 .. b5 float32 as Operands; w5
 // (512, emb) folded, in the compute type (is_bf16: bf16, else float32);
-// cat: (B*N, 512) scratch in the compute type.
+// cat: (B*N, 512) scratch in the compute type. The selection is
+// graph_select_launch's (knn_wide.cuh).
 extern "C" int dgcnn_eval_launch(
     const float* x, const float* w1, const float* w2, const float* w3,
     const float* w4, const void* w5, const float* s1, const float* s2,
@@ -908,24 +949,18 @@ extern "C" int dgcnn_eval_launch(
     void* cat, void* out, int B, int N, int emb, int k, int pk, int is_bf16,
     void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N > MAXN || emb % 64 != 0 || k < 1 || k > DGCNN_MAX_K)
+  if (N > MAXN || N < k || emb % 64 != 0 || k < 1 || pk > k)
     return (int)cudaErrorInvalidValue;
   const Operands o = {{w1, w2, w3, w4}, w5, {s1, s2, s3, s4}, {b1, b2, b3, b4, b5}};
-  switch (dgcnn_rows(k)) {
-#define CASE(K)                                                              \
-  case K:                                                                    \
-    return (int)launch_k<K>(x, o, idx, alpha, cat, out, B, N, emb, k, pk,    \
-                            is_bf16, stream);
-    DGCNN_KS(CASE)
-#undef CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const GraphOut graph{idx, alpha, nullptr, pk};
+  const cudaError_t err = graph_select_launch(x, graph, B, N, k, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_stages(x, idx, nullptr, o, cat, out, B, N, emb, k, is_bf16, stream);
 }
 
 // x (B, N, 3) and nbr (B, N, k, 3) float32 -> out (B, N, emb): the stage
-// chain alone, over the given neighbours, at any N >= 1; the other operands
-// as dgcnn_eval_launch
+// chain alone, over the given neighbours, at any N >= 1 and k >= 1; the
+// other operands as dgcnn_eval_launch
 extern "C" int dgcnn_edges_launch(
     const float* x, const float* nbr, const float* w1, const float* w2,
     const float* w3, const float* w4, const void* w5, const float* s1,
@@ -934,17 +969,7 @@ extern "C" int dgcnn_edges_launch(
     void* cat, void* out, int B, int N, int emb, int k, int is_bf16,
     void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N < 1 || emb % 64 != 0 || k < 1 || k > DGCNN_MAX_K)
-    return (int)cudaErrorInvalidValue;
+  if (N < 1 || emb % 64 != 0 || k < 1) return (int)cudaErrorInvalidValue;
   const Operands o = {{w1, w2, w3, w4}, w5, {s1, s2, s3, s4}, {b1, b2, b3, b4, b5}};
-  switch (dgcnn_rows(k)) {
-#define CASE(K)                                                              \
-  case K:                                                                    \
-    return (int)launch_stages<K>(x, nullptr, nbr, o, cat, out, B, N, emb, k, \
-                                 is_bf16, stream);
-    DGCNN_KS(CASE)
-#undef CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch_stages(x, nullptr, nbr, o, cat, out, B, N, emb, k, is_bf16, stream);
 }

@@ -2,11 +2,14 @@
 // for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel ogmm_tpu/ops/pallas_dgcnn_train.py:
-// graph_stage1_pallas (_stage1_kernel). Takes any k from 1 to 32 and writes
-// exactly k edge rows a point (the trainer's BatchNorm moments sum over
-// them): the selection's list is dgcnn_rows(k) long (knn_select.cuh), the
-// edge pass is compiled for k = 20, the ModelNet graph, and takes any other
-// k at run time; k = 20 below. Two launches:
+// graph_stage1_pallas (_stage1_kernel). Takes any k from 1 to N <= 1024,
+// the TPU kernel's envelope, and writes exactly k edge rows a point (the
+// trainer's BatchNorm moments sum over them): up to k = 32 the selection's
+// list is dgcnn_rows(k) long (knn_select.cuh), above it the selection is
+// knn_wide_kernel (knn_wide.cuh: a bisection of the distance bits, the k
+// pairs sorted in shared memory); the edge pass is compiled for k = 20, the
+// ModelNet graph, and takes any other k at run time; k = 20 below. Two
+// launches:
 //
 //  1. knn_kernel<k, GraphOut> (knn_lanes.cuh, the dense selection shared
 //     with dgcnn_eval.cu, knn.cu and posenc_angles.cu): the cloud in shared
@@ -40,8 +43,9 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
-#include "knn_lanes.cuh"   // knn_launch_k, GraphOut
-#include "knn_select.cuh"  // DGCNN_KS, MAXN, to_f, from_f
+#include "knn_lanes.cuh"   // GraphOut
+#include "knn_select.cuh"  // MAXN, to_f, from_f
+#include "knn_wide.cuh"    // graph_select_launch
 
 #define C1 64     // stage-1 width
 #define EW 6      // edge row: [nbr - q, q]
@@ -141,18 +145,10 @@ static void launch_edges(const float* x, const int* idx, const void* w1, void* z
                                                         (T*)e, N, rows, k);
 }
 
-// the selection (a list of KNN = dgcnn_rows(k), the k nearest written), then
-// the edge pass over exactly k rows a point
-template <int KNN>
-static cudaError_t launch_k(const float* x, const void* w1, int* idx,
-                            float* alpha, void* z1, void* e, int B, int N, int k,
-                            int pk, int is_bf16, int blocks, cudaStream_t stream) {
-  if (N < k || pk > k || (long long)B * k * N > INT_MAX)
-    return cudaErrorInvalidValue;
-  cudaError_t err = knn_launch_k<KNN>(x, x, GraphOut{idx, alpha, nullptr, pk}, B, N, N,
-                                      k, stream);
-  if (err != cudaSuccess) return err;
-  const int rows = B * k * N;
+// the edge pass over exactly k rows a point, after the selection wrote idx
+static cudaError_t launch_edge_pass(const float* x, const int* idx, const void* w1,
+                                    void* z1, void* e, int N, int rows, int k,
+                                    int is_bf16, int blocks, cudaStream_t stream) {
   if (is_bf16)
     launch_edges<__nv_bfloat16>(x, idx, w1, z1, e, N, rows, k, blocks, stream);
   else
@@ -160,22 +156,19 @@ static cudaError_t launch_k(const float* x, const void* w1, int* idx,
   return cudaGetLastError();
 }
 
-// blocks: the edge pass's grid (ops/cuda_dgcnn_train.py:edge_plan)
+// blocks: the edge pass's grid (ops/cuda_dgcnn_train.py:edge_plan). The
+// selection is graph_select_launch's (knn_wide.cuh)
 extern "C" int graph_stage1_launch(const float* x, const void* w1, int* idx,
                                    float* alpha, void* z1, void* e, int B,
                                    int N, int k, int pk, int is_bf16, int blocks,
                                    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (N > MAXN || B < 1 || B > 65535 || blocks < 1 || k < 1 || k > DGCNN_MAX_K)
+  if (N > MAXN || B < 1 || B > 65535 || blocks < 1 || k < 1 || N < k || pk > k ||
+      (long long)B * k * N > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  switch (dgcnn_rows(k)) {
-#define CASE(K)                                                              \
-  case K:                                                                    \
-    return (int)launch_k<K>(x, w1, idx, alpha, z1, e, B, N, k, pk, is_bf16,  \
-                            blocks, stream);
-    DGCNN_KS(CASE)
-#undef CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const GraphOut graph{idx, alpha, nullptr, pk};
+  const cudaError_t err = graph_select_launch(x, graph, B, N, k, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_edge_pass(x, idx, w1, z1, e, N, B * k * N, k, is_bf16, blocks,
+                               stream);
 }

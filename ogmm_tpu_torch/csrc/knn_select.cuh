@@ -15,13 +15,16 @@
 
 #define MAXN 1024  // points of a cloud the DGCNN kernels take
 
-// The fused DGCNN kernels take any k from 1 to DGCNN_MAX_K (the shared
-// selection's register lists, as knn.cu's). Their stage chains are compiled
+// The fused DGCNN kernels take any k from 1 to N <= MAXN. Up to DGCNN_MAX_K
+// the shared selection keeps register lists (knn_lanes.cuh, as knn.cu's),
+// above it the selection is knn_wide.cuh's. Their stage chains are compiled
 // for the row counts of DGCNN_KS, multiples of 4 from 8 (an 8-row tensor-core
 // tile spans at most two points): a point of k neighbours takes
 // dgcnn_rows(k) rows, the rows past k repeating its nearest neighbour, which
-// changes no max over the rows (eval: BN folded from running statistics).
-// The selection's list is dgcnn_rows(k) long and writes exactly k
+// changes no max over the rows (eval: BN folded from running statistics);
+// above DGCNN_MAX_K a point's neighbours go through them in chunks of at
+// most DGCNN_MAX_K (dgcnn_eval.cu:launch_stages). The register-list
+// selection's list is dgcnn_rows(k) long, and both write exactly k
 // neighbours; graph_stage1.cu writes exactly k edge rows a point (its
 // BatchNorm moments sum over them). X is a macro of one row count
 #define DGCNN_MAX_K 32

@@ -9,8 +9,8 @@ from torch.nn import functional as F
 
 from ogmm_tpu_torch.nn.layers import BN, Dense, PointMLP
 from ogmm_tpu_torch.ops import cuda_posenc
-from ogmm_tpu_torch.ops.common import (KNN_KERNEL_MAX_K, gather_neighbors, knn,
-                                       matmul32, posenc_alpha)
+from ogmm_tpu_torch.ops.common import (gather_neighbors, knn, matmul32,
+                                       posenc_alpha)
 
 
 def angle_route(n: int, k: int, have_alpha: bool, have_graph: bool) -> str:
@@ -24,7 +24,7 @@ def angle_route(n: int, k: int, have_alpha: bool, have_graph: bool) -> str:
     if have_alpha:
         return "given"
     if (not have_graph and n <= cuda_posenc.KERNEL_MAX_N
-            and 1 <= k <= min(KNN_KERNEL_MAX_K, n)):
+            and 1 <= k <= min(cuda_posenc.KERNEL_MAX_K, n)):
         return "kernel"
     return "graph" if have_graph else "knn"
 

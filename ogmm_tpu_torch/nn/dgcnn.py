@@ -42,9 +42,8 @@ from torch import nn
 
 from ogmm_tpu_torch.ops import dgcnn_train as _train
 from ogmm_tpu_torch.ops.common import (gather_neighbors, knn, posenc_alpha)
-from ogmm_tpu_torch.ops.cuda_dgcnn import (KERNEL_KS, KERNEL_MAX_N, STAGES,
-                                           dgcnn_edges, dgcnn_eval,
-                                           kernel_takes)
+from ogmm_tpu_torch.ops.cuda_dgcnn import (KERNEL_MAX_N, STAGES, dgcnn_edges,
+                                           dgcnn_eval, kernel_takes)
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import bn_apply
 from ogmm_tpu_torch.parallel import comm
 
@@ -55,14 +54,13 @@ def fused_route(n: int, k: int, train: bool, have_graph: bool,
     emb output channels takes the fused kernels. The JAX package's rule on
     its accelerator (`ogmm_tpu/nn/dgcnn.py:146-152`, `:199-208`): fused at
     N <= 1024 unless a graph is given, in training unless `fused_train` is
-    False (`dgcnn_fused_train=False`). The port's kernels take k <= 32 (the
-    shared selection's register lists; the JAX kernels take any k), and its
-    eval kernel emb a multiple of 64 (`ops.cuda_dgcnn.kernel_takes`);
-    elsewhere the unfused route, which computes the same function. A given
-    graph always takes the unfused route
-    (the JAX eval kernel would ignore it; GMMReg gives one only above
+    False (`dgcnn_fused_train=False`), at any 1 <= k <= n, as the JAX
+    kernels take. The port's eval kernel needs emb a multiple of 64
+    (`ops.cuda_dgcnn.kernel_takes`); elsewhere the unfused route, which
+    computes the same function. A given graph always takes the unfused
+    route (the JAX eval kernel would ignore it; GMMReg gives one only above
     N = 1024)."""
-    if have_graph or k not in KERNEL_KS or not k <= n <= KERNEL_MAX_N:
+    if have_graph or not 1 <= k <= n <= KERNEL_MAX_N:
         return False
     return fused_train if train else kernel_takes(k, emb)
 
@@ -74,9 +72,9 @@ def edges_route(n: int, train: bool, have_graph: bool, fused_edges: bool,
     (`ogmm_tpu/nn/dgcnn.py:163-177`): only with `fused_edges`; never where
     the JAX package's whole-cloud eval kernel comes first (eval, N <= 1024);
     and an explicit `fused_edges` in training or without a graph raises
-    rather than run another route, as there. Where the edges kernel does not
-    take k or emb (`ops.cuda_dgcnn.kernel_takes`) the unfused chain runs the
-    same function."""
+    rather than run another route, as there. The edges kernel takes any k;
+    where it does not take emb (`ops.cuda_dgcnn.kernel_takes`) the unfused
+    chain runs the same function."""
     if not fused_edges or (not train and n <= KERNEL_MAX_N):
         return False
     if train or not have_graph:

@@ -23,7 +23,6 @@ from ogmm_tpu_torch.parallel import comm
 # _DENSE_ELEMS): whole-target kernels up to M = 4096, the dense matrix up to
 # 64 Mi elements, query chunks of 1024 rows above
 KERNEL_MAX_M = 4096
-KNN_KERNEL_MAX_K = 32      # one neighbour index a lane of a warp
 STREAM_MAX_K = 32          # knn_stream.cu keeps a sorted list of k in registers
 DENSE_ELEMS = 2 ** 26
 CHUNK = 1024
@@ -96,13 +95,13 @@ def by_chunks(fn, src: torch.Tensor):
 def knn_route(B: int, N: int, M: int, C: int, k: int,
               normalize: bool = False) -> str:
     """'kernel', 'stream', 'dense' or 'chunked' for a kNN of (B, N, C)
-    queries among (B, M, C) points: for euclidean 3-D points and k <= 32 the
-    kernel at M <= 4096 and the streamed kernel above (the JAX package's
-    `knn_pallas` and `knn_stream` take any C and k); otherwise the JAX
-    package's plain route (`knn_chunked` above 64 Mi elements, the dense
-    matrix below)."""
+    queries among (B, M, C) points: for euclidean 3-D points the kernel at
+    1 <= k <= M <= 4096 and the streamed kernel above at k <= 32 (the JAX
+    package's `knn_pallas` and `knn_stream` take any C, and the streamed one
+    any k); otherwise the JAX package's plain route (`knn_chunked` above 64
+    Mi elements, the dense matrix below)."""
     if not normalize and C == 3:
-        if M <= KERNEL_MAX_M and 1 <= k <= min(KNN_KERNEL_MAX_K, M):
+        if M <= KERNEL_MAX_M and 1 <= k <= M:
             return "kernel"
         if M > KERNEL_MAX_M and 1 <= k <= STREAM_MAX_K:
             return "stream"

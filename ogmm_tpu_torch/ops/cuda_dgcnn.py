@@ -11,17 +11,20 @@ position-encoding angles cos(angle(p -> nbr_j, p -> centroid)) of the first
 `posenc_k` neighbours from float32 coordinates.
 
 On a CUDA tensor the wrapper launches `csrc/dgcnn_eval.cu` (`kernel_takes`:
-1 <= k <= 32 and emb a multiple of 64; k <= N <= 1024); on a CPU tensor it
-runs `dgcnn_eval_reference`, the plain PyTorch version of the same
-arithmetic. The kernel's stage chain is compiled for `stage_rows(k)` rows a
-point (STAGE_KS) and fills the rows past k with the nearest neighbour, which
-changes no max over a point's rows. In float32 the kernel's products run on
+k >= 1 and emb a multiple of 64; k <= N <= 1024, the JAX kernel's
+envelope); on a CPU tensor it runs `dgcnn_eval_reference`, the plain
+PyTorch version of the same arithmetic. The kernel's stage chain is compiled
+for `stage_rows(k)` rows a point (STAGE_KS) and fills the rows past k with
+the nearest neighbour, which changes no max over a point's rows; above
+CHUNK_K neighbours a point's rows go through it in chunks (`stage_chunks`),
+their maxes merged, and the selection is `csrc/knn_wide.cuh`'s in place of
+the register lists. In float32 the kernel's products run on
 the tensor cores as three TF32 products each (the operands split into a TF32
 high and low part), about 2^-22 of each product from true float32; the plain
 version stays true float32.
 
 `dgcnn_edges(x, nbr, weights, affines)` is the stage chain alone over given
-float32 neighbour coordinates nbr (B, N, k, 3), at any N: the port of
+float32 neighbour coordinates nbr (B, N, k, 3), at any N and k: the port of
 `dgcnn_edges_pallas`, the second entry point of the same source (the same
 k), with `dgcnn_edges_reference` beside it.
 """
@@ -37,28 +40,39 @@ from ogmm_tpu_torch.ops.common import (gather_neighbors, posenc_alpha,
                                        select_smallest, square_distance3)
 
 STAGES = (64, 64, 128, 256)
-KERNEL_MAX_K = 32        # the shared selection's register lists
-KERNEL_KS = tuple(range(1, KERNEL_MAX_K + 1))   # neighbour counts the
-#                          kernels take (csrc/knn_select.cuh:DGCNN_MAX_K)
+CHUNK_K = 32             # neighbours a point of one stage-chain launch at
+#                          most, and of the register-list selection
+#                          (csrc/knn_select.cuh:DGCNN_MAX_K)
+CHUNK_KS = tuple(range(1, CHUNK_K + 1))   # neighbour counts of one launch
 STAGE_KS = (8, 12, 16, 20, 24, 28, 32)   # rows a point the stage chains are
 #                          compiled for (csrc/knn_select.cuh:DGCNN_KS)
-KERNEL_MAX_N = 1024      # one distance row lives in a warp's registers
+KERNEL_MAX_N = 1024      # the cloud of dgcnn_eval lives in shared memory
 KERNEL_EMB = 64          # the head's output tiles: emb a multiple of 64
 
 
 def stage_rows(k: int) -> int:
-    """The rows a point of k neighbours takes in the stage chains
+    """The rows a point of k <= CHUNK_K neighbours takes in the stage chains
     (csrc/knn_select.cuh:dgcnn_rows): k rounded up to a multiple of 4, at
     least 8 (an 8-row tensor-core tile spans at most two points)."""
     return max(8, -(-k // 4) * 4)
 
 
+def stage_chunks(k: int) -> tuple:
+    """The stage launches of a graph of k neighbours, mirroring
+    `csrc/dgcnn_eval.cu:launch_stages`: (first neighbour, neighbours) of
+    each chunk, CHUNK_K at a time in order, the last the rest; each takes
+    stage_rows(neighbours) rows a point, and the chunks after the first
+    merge their maxes into the concat."""
+    return tuple((j0, min(CHUNK_K, k - j0)) for j0 in range(0, k, CHUNK_K))
+
+
 def kernel_takes(k: int, emb: int) -> bool:
     """The envelope both eval kernels (`dgcnn_eval`, `dgcnn_edges`) share:
-    a graph of 1 <= k <= 32 neighbours and emb a multiple of KERNEL_EMB.
-    The routes (`nn.dgcnn.fused_route`, `edges_route`) and the wrappers read
-    it, so that a route never picks a kernel that refuses the call."""
-    return k in KERNEL_KS and emb >= KERNEL_EMB and emb % KERNEL_EMB == 0
+    a graph of k >= 1 neighbours and emb a multiple of KERNEL_EMB (the eval
+    kernel also needs k <= N <= KERNEL_MAX_N, its routes check it). The
+    routes (`nn.dgcnn.fused_route`, `edges_route`) and the wrappers read it,
+    so that a route never picks a kernel that refuses the call."""
+    return k >= 1 and emb >= KERNEL_EMB and emb % KERNEL_EMB == 0
 
 
 def fold_weights(weights, affines, dtype: torch.dtype):
@@ -134,8 +148,8 @@ def _kernel_operands(what, weights, affines, k, dtype):
     if dims != want:
         raise ValueError(f"{what} kernel: weight shapes {dims} != {want}")
     if not kernel_takes(k, emb):
-        raise ValueError(f"{what} kernel takes 1 <= k <= {KERNEL_MAX_K} and "
-                         f"emb a multiple of {KERNEL_EMB}; got k={k}, emb={emb}")
+        raise ValueError(f"{what} kernel takes k >= 1 and emb a multiple of "
+                         f"{KERNEL_EMB}; got k={k}, emb={emb}")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what} kernel: dtype {dtype} not supported")
     s5 = affines[4][0]
@@ -175,13 +189,16 @@ class F32StagePlan(NamedTuple):
 
 
 def f32_stage_plan(B: int, N: int, k: int) -> F32StagePlan:
-    """The float32 (3xTF32) stage launch as a pure function of the shapes,
-    mirroring `csrc/dgcnn_eval.cu:launch_stages_f32`: QF points a block, or
+    """The float32 (3xTF32) stage launch of k <= CHUNK_K neighbours a point
+    (one chunk of `stage_chunks`) as a pure function of the shapes,
+    mirroring `csrc/dgcnn_eval.cu:stage_launch_f32`: QF points a block, or
     QF / 2 where QF points' rows do not fit (`f32_points`); in shared memory
     (`f32_smem`) the activations of its points' stage_rows(k) edge rows each
     in a buffer of LDF_X floats a row and one of two planes of LDF_Y (stage
     3's output split into TF32 high and low parts), and its concat rows; one
     block a point group of a cloud."""
+    if k not in CHUNK_KS:
+        raise ValueError(f"one stage launch takes 1 <= k <= {CHUNK_K}; got {k}")
     ld_x, ld_y = F32_LD
     rows = stage_rows(k)
 

@@ -31,8 +31,9 @@ result is (dz W^T) and kept in float32 where it is not (dW, de).
 
 On a CUDA tensor each wrapper launches its kernel in `csrc/dgcnn_bwd.cu`
 (1 <= k <= 32, the stage widths of the DGCNN, k <= N <= 1024 for the stage
-and edge kernels, any N for the reduce: the envelope of the graph kernel,
-`cuda_dgcnn_train.graph_takes`); on a CPU tensor it runs the plain version.
+and edge kernels, any N for the reduce: `kernels_take`; the graph kernel
+takes k up to N, the JAX backward kernels too, and k > 32 is this port's
+departure); on a CPU tensor it runs the plain version.
 Outside the envelope a wrapper raises; it never runs the plain version on
 the card. The source is compiled once a row class (`ROW_CLASSES`: a library
 of class KP takes any k <= KP, `row_class`), whose tiles hold KP rows a
@@ -56,13 +57,13 @@ import functools
 import torch
 
 from ogmm_tpu_torch.ops import dispatch
-from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_MAX_K
-from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_takes
+from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_MAX_N
 
 EPS = 1e-5
 # the compiled row classes (rows a point of a tile): a launch of class KP
-# takes any graph of k <= KP neighbours
+# takes any graph of k <= KP neighbours, so the kernels k <= the largest
 ROW_CLASSES = dispatch.BWD_ROW_CLASSES
+KERNEL_MAX_K = max(ROW_CLASSES)
 # (C, C_in, C_next) of the stages the stage kernel is compiled for; the
 # reduce kernel takes any C of them, the edge kernel (64, 6, 64)
 KERNEL_STAGES = ((256, 128, 0), (128, 64, 256), (64, 64, 128))
@@ -219,14 +220,21 @@ def _bn_pack(mean, var, gamma, beta, dt):
                         beta.to(dt).float(), mean, inv, ig]).contiguous()
 
 
+def kernels_take(k: int, n: int) -> bool:
+    """Whether the stage and edge kernels take a graph of k neighbours over
+    clouds of n points: 1 <= k <= KERNEL_MAX_K (the row classes) and
+    k <= n <= KERNEL_MAX_N."""
+    return 1 <= k <= KERNEL_MAX_K and k <= n <= KERNEL_MAX_N
+
+
 def _check(name, z, dtap, *others, any_n=False):
-    """(B, N, k, C) of a call, refused unless the kernels take it: the
-    graph kernel's envelope (`graph_takes`), or for the reduce any N >= 1."""
+    """(B, N, k, C) of a call, refused unless the kernels take it
+    (`kernels_take`), or for the reduce any N >= 1 at those k."""
     if z.dim() != 4:
         raise ValueError(f"{name} kernel takes z of shape (B, k, N, C); got "
                          f"{tuple(z.shape)}")
     B, k, N, C = z.shape
-    if not (1 <= k <= KERNEL_MAX_K and N >= 1 if any_n else graph_takes(k, N)):
+    if not (1 <= k <= KERNEL_MAX_K and N >= 1 if any_n else kernels_take(k, N)):
         raise ValueError(f"{name} kernel takes z of shape (B, k, N, C) with "
                          f"1 <= k <= {KERNEL_MAX_K}"
                          + (" and N >= 1" if any_n else " and k <= N <= 1024")

@@ -13,8 +13,9 @@ neighbours from float32 coordinates. Outputs:
   z1    (B, k, N, C1) compute dtype     e      (B, k, N, 6) compute dtype
   idx   (B, N, k) int32                 alpha  (B, N, posenc_k) float32 or None
 
-On a CUDA tensor the wrapper launches `csrc/graph_stage1.cu` (1 <= k <= 32,
-k <= N <= 1024, exactly k edge rows a point); on a CPU tensor it runs
+On a CUDA tensor the wrapper launches `csrc/graph_stage1.cu` (1 <= k <= N
+<= 1024, the JAX kernel's envelope, exactly k edge rows a point; above
+k = 32 its selection is `csrc/knn_wide.cuh`'s); on a CPU tensor it runs
 `graph_stage1_reference`, the port of the JAX package's jnp composition
 (`ogmm_tpu/ops/dgcnn_train.py:_graph_stage1`).
 """
@@ -28,7 +29,7 @@ from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops.common import (gather_neighbors, graph_feature,
                                        posenc_alpha, select_smallest,
                                        square_distance3)
-from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_K, KERNEL_MAX_N
+from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_MAX_N
 from ogmm_tpu_torch.ops.cuda_stream import _sm_count
 
 KERNEL_C1 = 64           # stage-1 width the kernel is compiled for
@@ -41,11 +42,11 @@ _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def graph_takes(k: int, n: int) -> bool:
-    """The envelope of the training graph's kernel, which the backward
-    kernels it feeds share (`ops/cuda_dgcnn_bwd.py`, `ops/dgcnn_train.py:
-    bwd_kernels_take`): 1 <= k <= KERNEL_MAX_K neighbours over clouds of
-    k <= n <= KERNEL_MAX_N points."""
-    return k in KERNEL_KS and k <= n <= KERNEL_MAX_N
+    """The envelope of the training graph's kernel, the JAX kernel's: any
+    1 <= k <= n neighbours over clouds of n <= KERNEL_MAX_N points. (The
+    backward kernels it feeds stop at k = 32: `ops/cuda_dgcnn_bwd.py:
+    kernels_take`.)"""
+    return 1 <= k <= n <= KERNEL_MAX_N
 
 
 def edge_plan(B: int, k: int, N: int, n_sm: int) -> int:
@@ -72,8 +73,8 @@ def graph_stage1_reference(x: torch.Tensor, w1: torch.Tensor, k: int = 20,
 def _graph_stage1_cuda(x, w1, k, dtype, posenc_k):
     B, N, _ = x.shape
     if not graph_takes(k, N):
-        raise ValueError(f"graph_stage1 kernel takes 1 <= k <= {KERNEL_MAX_K} "
-                         f"and k <= N <= {KERNEL_MAX_N}; got k={k}, N={N}")
+        raise ValueError(f"graph_stage1 kernel takes 1 <= k <= N <= "
+                         f"{KERNEL_MAX_N}; got k={k}, N={N}")
     if tuple(w1.shape) != (6, KERNEL_C1) or posenc_k > k:
         raise ValueError(f"graph_stage1 kernel takes w1 of shape "
                          f"(6, {KERNEL_C1}) and posenc_k <= k; got "

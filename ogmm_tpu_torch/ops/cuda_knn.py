@@ -10,12 +10,13 @@ ties to the lowest index. Distances take the fixed float32 order of
 pick the same indices bit for bit.
 
 On a CUDA tensor a wrapper launches its kernel (`csrc/nn1.cu`, `csrc/knn.cu`;
-M <= 4096, the TPU kernels' envelope, and k <= 32); on a CPU tensor it runs
+M <= 4096 and k <= M, the TPU kernels' envelope); on a CPU tensor it runs
 `nn1_reference` or `knn_reference`. The launches are pure functions of the
 shapes: `nn1_plan` gives the 1-NN kernel's lanes a query and queries a thread,
-`knn_plan` the kNN kernel's compiled list length
-(`KNN_KS`) and grid. Callers reach them through `ops.common.nn1` and
-`ops.common.knn`, which choose the route from shapes.
+`knn_plan` the kNN kernel's selection (the register lists at a compiled
+length `KNN_KS` up to k = 32, `csrc/knn_wide.cuh` above), grid and shared
+memory. Callers reach them through `ops.common.nn1` and `ops.common.knn`,
+which choose the route from shapes.
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ from typing import NamedTuple
 import torch
 
 from ogmm_tpu_torch.ops import dispatch
-from ogmm_tpu_torch.ops.common import (KERNEL_MAX_M, KNN_KERNEL_MAX_K,
-                                       select_smallest, square_distance3)
+from ogmm_tpu_torch.ops.common import (KERNEL_MAX_M, select_smallest,
+                                       square_distance3)
 from ogmm_tpu_torch.ops.cuda_stream import _ptr, _sm_count
 
 
@@ -121,12 +122,43 @@ def nn1(src: torch.Tensor, tgt: torch.Tensor):
     return nn1_reference(src, tgt)
 
 
-# csrc/knn.cu: the list lengths K it is compiled for, the queries of a block
-# (four lanes each), the entries of a lane's candidate buffer, the shared
-# memory a block may use on an H100
+# csrc/knn.cu: the list lengths K it is compiled for (the longest, MAXK, the
+# most neighbours of the register lists), the queries of a block (four lanes
+# each), the entries of a lane's candidate buffer, the shared memory a block
+# may use on an H100
 KNN_KS = (1, 5, 20, 32)
+LIST_MAX_K = KNN_KS[-1]
 KNN_QUERIES, KNN_LANES, KNN_BUFFER = 64, 4, 32
 SMEM_LIMIT = 232_448
+# csrc/knn_wide.cuh, the selection above LIST_MAX_K: queries a block, warps
+# a block where their buffers fit, a warp's least list length, and the
+# dynamic shared memory a block may use beside its 96 static bytes
+WIDE_QUERIES, WIDE_WARPS, WIDE_MIN_LIST = 32, 8, 32
+WIDE_SMEM = SMEM_LIMIT - 3 * WIDE_WARPS * 4
+
+
+def wide_list(k: int) -> int:
+    """A warp's list in the wide selection: the power of two at or above k,
+    at least WIDE_MIN_LIST (`csrc/knn_wide.cuh:wide_list`)."""
+    p = WIDE_MIN_LIST
+    while p < k:
+        p *= 2
+    return p
+
+
+def wide_smem(M: int, k: int, warps: int) -> int:
+    """The wide selection's dynamic shared memory (`wide_smem`): the cloud
+    as (x, y, z, |t|^2), then each warp's keys (max(M, list)) and list."""
+    return 16 * M + 4 * warps * (max(M, wide_list(k)) + wide_list(k))
+
+
+def wide_warps(M: int, k: int) -> int:
+    """Warps a block of the wide selection (`wide_warps`): WIDE_WARPS, halved
+    until their buffers fit WIDE_SMEM."""
+    w = WIDE_WARPS
+    while w > 0 and wide_smem(M, k, w) > WIDE_SMEM:
+        w //= 2
+    return w
 
 
 _KNN_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
@@ -140,10 +172,17 @@ def knn_compiled_k(k: int) -> int:
 
 def knn_plan(B: int, N: int, M: int, k: int) -> dict:
     """The kNN kernel's launch as a pure function of the shapes, mirroring
-    `csrc/knn.cu:knn_launch`: the compiled K, a block of KNN_QUERIES queries
-    (a grid of query blocks x B), and its dynamic shared memory, the target
-    as (x, y, z, |t|^2) and each lane's candidate buffer or, in the same
-    bytes, the four lanes' lists of every query for the merge."""
+    `csrc/knn.cu:knn_launch`: up to k = LIST_MAX_K the compiled K, a block
+    of KNN_QUERIES queries (a grid of query blocks x B), and its dynamic
+    shared memory, the target as (x, y, z, |t|^2) and each lane's candidate
+    buffer or, in the same bytes, the four lanes' lists of every query for
+    the merge; above it the wide selection (`csrc/knn_wide.cuh`), whose K
+    is a warp's list (`wide_list`, not read by the launch): a block of
+    WIDE_QUERIES queries, `wide_warps` warps, `wide_smem` bytes."""
+    if k > LIST_MAX_K:
+        warps = wide_warps(M, k)
+        return {"K": wide_list(k), "grid": (-(-N // WIDE_QUERIES), B), "threads": 32 * warps,
+                "smem": wide_smem(M, k, warps)}
     K = knn_compiled_k(k)
     threads = KNN_QUERIES * KNN_LANES
     return {"K": K, "grid": (-(-N // KNN_QUERIES), B), "threads": threads,
@@ -163,10 +202,9 @@ def _knn_cuda(src, tgt, k):
     if C != 3 or tgt.shape != (B, M, 3):
         raise ValueError(f"knn kernel takes (B, N, 3) and (B, M, 3) points; "
                          f"got {tuple(src.shape)} and {tuple(tgt.shape)}")
-    if not 1 <= M <= KERNEL_MAX_M or N < 1 or not 1 <= k <= min(KNN_KERNEL_MAX_K, M):
-        raise ValueError(f"knn kernel takes 1 <= M <= {KERNEL_MAX_M} target "
-                         f"points and 1 <= k <= min({KNN_KERNEL_MAX_K}, M); "
-                         f"got N={N}, M={M}, k={k}")
+    if not 1 <= M <= KERNEL_MAX_M or N < 1 or not 1 <= k <= M:
+        raise ValueError(f"knn kernel takes 1 <= k <= M <= {KERNEL_MAX_M} "
+                         f"target points; got N={N}, M={M}, k={k}")
     src = src.float().contiguous()
     tgt = tgt.float().contiguous()
     idx = torch.empty(B, N, k, dtype=torch.int64, device=src.device)

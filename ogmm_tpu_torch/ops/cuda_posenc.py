@@ -23,11 +23,11 @@ from typing import NamedTuple
 import torch
 
 from ogmm_tpu_torch.ops import dispatch
-from ogmm_tpu_torch.ops.common import (KNN_KERNEL_MAX_K, gather_neighbors,
-                                       posenc_alpha, select_smallest,
-                                       square_distance3)
+from ogmm_tpu_torch.ops.common import (gather_neighbors, posenc_alpha,
+                                       select_smallest, square_distance3)
 from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_MAX_N
-from ogmm_tpu_torch.ops.cuda_knn import KNN_LANES, KNN_QUERIES, knn_compiled_k
+from ogmm_tpu_torch.ops.cuda_knn import (KNN_LANES, KNN_QUERIES, LIST_MAX_K,
+                                         knn_compiled_k)
 
 # csrc/posenc_angles.cu: the lanes kernel's compiled list lengths
 # (POSENC_LANES_KS), lanes a query (POSENC_LANES) and threads a block (PT);
@@ -35,6 +35,7 @@ from ogmm_tpu_torch.ops.cuda_knn import KNN_LANES, KNN_QUERIES, knn_compiled_k
 LANES_KS = (1, 2, 5, 8)
 LANES = 16
 THREADS = 256
+KERNEL_MAX_K = LIST_MAX_K     # both selections keep register lists
 
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
@@ -54,9 +55,9 @@ def posenc_plan(B: int, N: int, k: int) -> PosencPlan:
     0.0291 ms on the device at (24, 717, 5) against 0.0341 at 8 lanes,
     `scripts/torch_port_profile.py --probe posenc_angles`); a larger k takes
     the shared selection at the kNN kernel's compiled K."""
-    if not 1 <= k <= min(KNN_KERNEL_MAX_K, N) or N > KERNEL_MAX_N:
+    if not 1 <= k <= min(KERNEL_MAX_K, N) or N > KERNEL_MAX_N:
         raise ValueError(f"posenc_angles kernel takes N <= {KERNEL_MAX_N} and "
-                         f"1 <= k <= min({KNN_KERNEL_MAX_K}, N); got N={N}, k={k}")
+                         f"1 <= k <= min({KERNEL_MAX_K}, N); got N={N}, k={k}")
     if k <= LANES_KS[-1]:
         queries = THREADS // LANES
         return PosencPlan("lanes", next(K for K in LANES_KS if K >= k), LANES,

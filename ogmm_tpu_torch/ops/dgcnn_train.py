@@ -47,8 +47,9 @@ import torch
 
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (EPS, bn_apply, bwd_edge,
                                               bwd_reduce, bwd_stage, edge_vjp,
-                                              max_vjp, mm32, relu_vjp)
-from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_stage1, graph_takes
+                                              kernels_take, max_vjp, mm32,
+                                              relu_vjp)
+from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_stage1
 from ogmm_tpu_torch.parallel import comm
 
 # stages 4..1 of the backward through the kernels of ops/cuda_dgcnn_bwd.py
@@ -59,13 +60,14 @@ BWD_KERNELS = False
 
 def bwd_kernels_take(k: int, n: int, group=None) -> bool:
     """Whether the backward kernels take a graph of k neighbours over clouds
-    of n points (the graph kernel's envelope, `cuda_dgcnn_train.graph_takes`:
-    1 <= k <= 32, k <= n <= 1024; the JAX rule takes any k at n <= 1024,
-    and k > 32 is this port's departure), and the batch is this process's
-    alone (the kernels sum the BatchNorm columns inside a stage: no
-    data-parallel group of more than one process); other shapes take the
+    of n points (`cuda_dgcnn_bwd.kernels_take`: 1 <= k <= 32, k <= n <=
+    1024; the JAX rule takes any k at n <= 1024, and k > 32 is this port's
+    departure: the forward's graph kernel takes it, `cuda_dgcnn_train.
+    graph_takes`, and the backward runs plain), and the batch is this
+    process's alone (the kernels sum the BatchNorm columns inside a stage:
+    no data-parallel group of more than one process); other shapes take the
     plain backward even with `BWD_KERNELS` on."""
-    return graph_takes(k, n) and comm.axis_size(group) == 1
+    return kernels_take(k, n) and comm.axis_size(group) == 1
 
 
 def _refuse_bwd_kernels(group) -> None:

@@ -20,15 +20,13 @@ then the card's name and power limit. Needs one CUDA device and nvcc.
 """
 import json
 import os
-import re
-import subprocess
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from ab_trees import build_ptxas, card  # noqa: E402
 
 from ogmm_tpu_torch.ops import cuda_dgcnn_bwd as bwd  # noqa: E402
 from ogmm_tpu_torch.ops import dispatch  # noqa: E402
@@ -39,42 +37,8 @@ STAGES = ((256, 128, 0), (128, 64, 256), (64, 64, 128))
 
 def build():
     """Each class's library with ptxas's report, timed; {name: {...}}."""
-    names = [n for n in dispatch.VARIANTS]
-    procs, t0 = {}, time.perf_counter()
-    for name in names:
-        out = dispatch._lib_path(name)
-        source, defines = dispatch._source(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        out.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [dispatch._nvcc(), *dispatch.NVCC_FLAGS, *defines, "-Xptxas", "-v",
-               "-o", str(tmp), str(source)]
-        procs[name] = (out, tmp, time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    res, failed = {}, []
-    for name, (out, tmp, start, proc) in procs.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - start
-        if proc.returncode != 0:
-            print(f"{name}:\n{log[:3000]}")
-            failed.append(name)
-            continue
-        os.replace(tmp, out)
-        kernels, current = {}, None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                current = m.group(1)
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m and current:
-                kernels.setdefault(current, {})["spill_stores"] = int(m.group(1))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and current:
-                kernels.setdefault(current, {})["registers"] = int(m.group(1))
-        res[name] = {"seconds": round(secs, 1), "kernels": kernels}
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}")
-    total = time.perf_counter() - t0
-    print(f"built {len(names)} classes in {total:.1f} s: "
+    res, total = build_ptxas(dispatch, list(dispatch.VARIANTS))
+    print(f"built {len(res)} classes in {total:.1f} s: "
           + ", ".join(f"{n} {r['seconds']} s" for n, r in res.items()))
     for name, r in res.items():
         for kern, v in r["kernels"].items():
@@ -182,9 +146,7 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         with open(path, "w") as f:
             json.dump(out, f, indent=1)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    print(card())
 
 
 if __name__ == "__main__":

@@ -17,9 +17,10 @@ CUDA device and nvcc.
 """
 import json
 import os
-import subprocess
 import sys
 import time
+
+from ab_trees import cuda_ms, main
 
 # (clouds, N, K): the request's 2B = 48 clouds and the training step's 24 at
 # K = 128, N = 1433, clusters of 16 blocks (K <= 256); then K above 256
@@ -42,20 +43,6 @@ def one(tree, ptxas):
     t0 = time.perf_counter()
     dispatch.build_kernels(("sinkhorn_em",), verbose=ptxas)
     out = {"tree": tree, "build_s": time.perf_counter() - t0}
-
-    def cuda_ms(fn, reps=10, rounds=3):
-        fn()
-        torch.cuda.synchronize()
-        best = []
-        for _ in range(rounds):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            best.append(start.elapsed_time(end) / reps)
-        return min(best), best
 
     for clouds, n, k in SHAPES + WIDE:
         if not cuda_em.kernel_takes(n, k):
@@ -82,21 +69,5 @@ def one(tree, ptxas):
     print(json.dumps(out))
 
 
-def main():
-    if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        return one(sys.argv[2], "--ptxas" in sys.argv[3:])
-    args = sys.argv[1:]
-    ptxas = "--ptxas" in args
-    trees = [a for a in args if a != "--ptxas"]
-    if not trees:
-        sys.exit(__doc__)
-    for tree in map(os.path.abspath, trees):
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree]
-                       + (["--ptxas"] if ptxas else []), cwd=tree, check=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
-
-
 if __name__ == "__main__":
-    main()
+    main(__file__, __doc__, one, flags=("--ptxas",))

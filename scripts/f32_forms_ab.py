@@ -23,8 +23,9 @@ CUDA device and nvcc.
 """
 import json
 import os
-import subprocess
 import sys
+
+from ab_trees import main
 
 
 def one(tree):
@@ -73,18 +74,5 @@ def one(tree):
     print(json.dumps(out))
 
 
-def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        return one(sys.argv[2])
-    if len(sys.argv) < 2:
-        sys.exit(__doc__)
-    for tree in map(os.path.abspath, sys.argv[1:]):
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
-                       cwd=tree, check=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
-
-
 if __name__ == "__main__":
-    main()
+    main(__file__, __doc__, one)

@@ -74,18 +74,24 @@ def test_matches_pallas_kernel_interpreted(dtype, rtol, atol):
     np.testing.assert_allclose(n(alpha), n(walpha), atol=2e-6)
 
 
-@pytest.mark.parametrize("dtype,rtol,atol", [(None, 1e-4, 2e-5),
-                                             ("bfloat16", 0.1, 0.05)])
-def test_matches_jax_at_gnn_k12(dtype, rtol, atol):
+@pytest.mark.parametrize("dtype,rtol,atol,k", [
+    pytest.param(None, 1e-4, 2e-5, 12, id="None-0.0001-2e-05"),
+    pytest.param("bfloat16", 0.1, 0.05, 12, id="bfloat16-0.1-0.05"),
+    # above 32: the kernel's stage chain in chunks of 32, the wide selection
+    *[pytest.param(dt, rt, at, k, id=f"{dt}-k{k}")
+      for k in (33, 40, 64) for dt, rt, at in ((None, 1e-4, 2e-5),
+                                               ("bfloat16", 0.1, 0.05))]])
+def test_matches_jax_at_gnn_k12(dtype, rtol, atol, k):
     # k = 12, which the kernel's stage chain takes as 12 rows a point (k = 4
-    # and 25 as 8 and 28, the rows past k repeating the nearest neighbour):
-    # the JAX naive forward and its Pallas kernel in interpret mode
-    x, jm, v, tm = _pair(6, dtype, k=12)
+    # and 25 as 8 and 28, the rows past k repeating the nearest neighbour),
+    # and k = 33, 40, 64 (chunks of 32 and the rest): the JAX naive forward
+    # and its Pallas kernel in interpret mode
+    x, jm, v, tm = _pair(6, dtype, k=k)
     got, alpha = tm(t(x), with_posenc_alpha=5)
     np.testing.assert_allclose(n(got), n(jm.apply(v, jnp.asarray(x), train=False)),
                                rtol=rtol, atol=atol)
     ws, aff = _folded(v)
-    want, walpha = dgcnn_eval_pallas(jnp.asarray(x), ws, aff, k=12,
+    want, walpha = dgcnn_eval_pallas(jnp.asarray(x), ws, aff, k=k,
                                      dtype=jnp.bfloat16 if dtype else jnp.float32,
                                      interpret=True, posenc_k=5)
     np.testing.assert_allclose(n(got), n(want), rtol=rtol, atol=atol)

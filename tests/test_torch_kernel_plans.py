@@ -2,7 +2,10 @@
 shapes the EM kernel takes (`cuda_em.kernel_takes`, `cuda_em.smem_bytes`),
 the operands the DGCNN wrappers hand their kernels
 (`cuda_dgcnn._kernel_operands`, `cuda_dgcnn._concat_scratch`), the float32
-stage block (`cuda_dgcnn.f32_stage_plan`), the angle kernel's launch
+stage block (`cuda_dgcnn.f32_stage_plan`) and the stage chain's chunks
+above k = 32 (`cuda_dgcnn.stage_chunks`), the kNN kernel's launches
+(`cuda_knn.knn_plan`: the register lists to k = 32, the wide selection of
+`csrc/knn_wide.cuh` above), the angle kernel's launch
 (`cuda_posenc.posenc_plan`), the bf16 and float32
 projections' shared memory and persistent grids (`cuda_stream.wproject_plan`,
 `wproject_units`, `wproject_smem_bytes`, `wproject_f32_smem_bytes`; the
@@ -238,7 +241,7 @@ def test_f32_stage_plan_mirrors_the_kernel():
         assert len({(g * ld + t) % 32 for g in range(8) for t in range(4)}) == 32
 
 
-@pytest.mark.parametrize("k", cuda_dgcnn.KERNEL_KS)
+@pytest.mark.parametrize("k", cuda_dgcnn.CHUNK_KS)
 def test_f32_stage_block_fits_shared_memory_at_every_k(k):
     plan = cuda_dgcnn.f32_stage_plan(48, 717, k)
     # a point of k neighbours takes stage_rows(k) rows, a multiple of 4 of
@@ -264,7 +267,7 @@ def test_f32_stage_block_fits_shared_memory_at_every_k(k):
 
 
 @pytest.mark.parametrize("N", [1, 5, 717, 1023, 1024, 35000])
-@pytest.mark.parametrize("k", cuda_dgcnn.KERNEL_KS)
+@pytest.mark.parametrize("k", cuda_dgcnn.CHUNK_KS)
 def test_f32_stage_grid_covers_every_point_once(N, k):
     B = 3
     plan = cuda_dgcnn.f32_stage_plan(B, N, k)
@@ -1100,13 +1103,13 @@ def test_dgcnn_rows_mirror_the_kernels():
     # the k the DGCNN kernels take and the row counts their stage chains are
     # compiled for (csrc/knn_select.cuh: DGCNN_MAX_K, DGCNN_KS, dgcnn_rows)
     text = open(os.path.join(CSRC, "knn_select.cuh")).read()
-    assert cuda_dgcnn.KERNEL_MAX_K == _cu_define("knn_select.cuh", "DGCNN_MAX_K")
+    assert cuda_dgcnn.CHUNK_K == _cu_define("knn_select.cuh", "DGCNN_MAX_K")
     compiled = re.search(r"#define DGCNN_KS\(X\) (.*)", text).group(1)
     assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", compiled)) == cuda_dgcnn.STAGE_KS
-    assert {cuda_dgcnn.stage_rows(k) for k in cuda_dgcnn.KERNEL_KS} == set(cuda_dgcnn.STAGE_KS)
+    assert {cuda_dgcnn.stage_rows(k) for k in cuda_dgcnn.CHUNK_KS} == set(cuda_dgcnn.STAGE_KS)
     assert "k <= 8 ? 8 : (k + 3) & ~3" in text
     assert all(cuda_dgcnn.stage_rows(k) == (8 if k <= 8 else (k + 3) & ~3)
-               for k in cuda_dgcnn.KERNEL_KS)
+               for k in cuda_dgcnn.CHUNK_KS)
 
 
 # ------------------------- the float32 forms of the MLP and backward stage
@@ -1207,14 +1210,14 @@ def test_row_classes_cover_every_k_the_graph_kernel_takes():
     # a library a class (-DBWD_KP), each k of the graph kernel's envelope
     # in the smallest class that holds it, nothing past it
     classes = cuda_dgcnn_bwd.ROW_CLASSES
-    assert max(classes) == cuda_dgcnn.KERNEL_MAX_K and list(classes) == sorted(classes)
-    for k in cuda_dgcnn.KERNEL_KS:
+    assert max(classes) == cuda_dgcnn_bwd.KERNEL_MAX_K and list(classes) == sorted(classes)
+    for k in range(1, cuda_dgcnn_bwd.KERNEL_MAX_K + 1):
         kp = cuda_dgcnn_bwd.row_class(k)
         assert kp >= k and not any(k <= c < kp for c in classes)
         assert cuda_dgcnn_bwd.library(k) in dispatch.SOURCES
     assert {dispatch.VARIANTS[f"dgcnn_bwd_k{kp}"] for kp in classes} == {
         ("dgcnn_bwd", (f"-DBWD_KP={kp}",)) for kp in classes}
-    for k in (0, cuda_dgcnn.KERNEL_MAX_K + 1):
+    for k in (0, cuda_dgcnn_bwd.KERNEL_MAX_K + 1):
         with pytest.raises(ValueError):
             cuda_dgcnn_bwd.row_class(k)
 
@@ -1281,3 +1284,83 @@ def test_bwd_stage_f32_flush_mirrors_the_kernel():
         assert -(-plan["tiles"] // plan["blocks"]) < plan["dw_flush"]
     plan = cuda_dgcnn_bwd.bwd_stage_plan(24, 1024, 32, 256, 128, 0, torch.float32)
     assert -(-plan["tiles"] // plan["blocks"]) == 187 and plan["dw_flush"] == 96
+
+
+# ------------------------------- the dense kernels above k = 32 (A.11.2)
+
+@pytest.mark.parametrize("k", [1, 8, 20, 32, 33, 40, 64, 65, 100, 717, 1024])
+def test_stage_chunks_cover_every_neighbour_once(k):
+    # csrc/dgcnn_eval.cu:launch_stages: chunks of DGCNN_MAX_K neighbours in
+    # order, the last the rest, each at a compiled row count, the chunks
+    # after the first merged into the concat by a max
+    text = open(os.path.join(CSRC, "dgcnn_eval.cu")).read()
+    assert "for (int j0 = 0; j0 < k; j0 += DGCNN_MAX_K)" in text
+    chunks = cuda_dgcnn.stage_chunks(k)
+    assert len(chunks) == -(-k // cuda_dgcnn.CHUNK_K)
+    assert [j for j0, kc in chunks for j in range(j0, j0 + kc)] == list(range(k))
+    assert all(kc == cuda_dgcnn.CHUNK_K for _, kc in chunks[:-1])
+    for _, kc in chunks:
+        assert cuda_dgcnn.stage_rows(kc) in cuda_dgcnn.STAGE_KS
+        # each chunk's float32 block fits, at one block an SM
+        plan = cuda_dgcnn.f32_stage_plan(48, 717, kc)
+        assert plan.smem <= cuda_dgcnn.SMEM_PER_BLOCK and plan.blocks_sm == 1
+    # the stage chains stay the seven compiled row counts at every k
+    assert {cuda_dgcnn.stage_rows(kc) for _, kc in chunks} <= set(cuda_dgcnn.STAGE_KS)
+
+
+def test_f32_stage_plan_is_one_chunk():
+    # a launch takes at most CHUNK_K neighbours a point; a larger k is chunks
+    with pytest.raises(ValueError, match="one stage launch"):
+        cuda_dgcnn.f32_stage_plan(48, 717, cuda_dgcnn.CHUNK_K + 1)
+
+
+def test_wide_selection_mirrors_the_kernel():
+    # csrc/knn_wide.cuh: queries a block, warps, the list's least length,
+    # the cloud's envelope, the dynamic shared memory beside the centroid's
+    # static 3 x 8 floats
+    assert (cuda_knn.WIDE_QUERIES, cuda_knn.WIDE_WARPS, cuda_knn.WIDE_MIN_LIST) == (
+        _cu_define("knn_wide.cuh", "WIDE_QUERIES"), _cu_define("knn_wide.cuh", "WIDE_WARPS"),
+        _cu_define("knn_wide.cuh", "WIDE_MIN_LIST"))
+    assert _cu_define("knn_wide.cuh", "WIDE_MAX_M") == cuda_knn.KERNEL_MAX_M == 4096
+    text = open(os.path.join(CSRC, "knn_wide.cuh")).read()
+    assert "#define WIDE_SMEM (232448 - 3 * WIDE_WARPS * 4)" in text
+    assert cuda_knn.WIDE_SMEM == cuda_knn.SMEM_LIMIT - 3 * cuda_knn.WIDE_WARPS * 4
+    assert _cu_define("knn.cu", "MAXK") == cuda_knn.LIST_MAX_K == 32
+    for k, want in ((1, 32), (32, 32), (33, 64), (64, 64), (65, 128), (717, 1024),
+                    (1024, 1024), (4096, 4096)):
+        assert cuda_knn.wide_list(k) == want
+
+
+@pytest.mark.parametrize("M", [33, 96, 717, 1024, 1433, 2048, 3000, 4096])
+def test_wide_selection_fits_every_k_of_the_envelope(M):
+    # every 32 < k <= M <= 4096 (row 8) fits a block: the cloud and at least
+    # one warp's keys and list; the graphs' clouds (M <= 1024, rows 1 and 3)
+    # take all WIDE_WARPS warps, whose sums make the angles' centroid
+    for k in sorted({*range(33, M + 1, 97), M}):
+        warps = cuda_knn.wide_warps(M, k)
+        assert warps in (1, 2, 4, 8)
+        smem = cuda_knn.wide_smem(M, k, warps)
+        assert smem <= cuda_knn.WIDE_SMEM
+        assert warps == cuda_knn.WIDE_WARPS or cuda_knn.wide_smem(M, k, 2 * warps) > cuda_knn.WIDE_SMEM
+        # keys, then the list of each warp: the padded list sorts in the keys'
+        # buffer, so that buffer holds max(M, list) words
+        assert smem == 16 * M + 4 * warps * (max(M, cuda_knn.wide_list(k))
+                                             + cuda_knn.wide_list(k))
+        if M <= 1024:
+            assert warps == cuda_knn.WIDE_WARPS
+        plan = cuda_knn.knn_plan(2, 100, M, k)
+        assert plan["K"] == cuda_knn.wide_list(k) and plan["threads"] == 32 * warps
+        assert plan["smem"] == smem
+
+
+@pytest.mark.parametrize("B,N", [(48, 1433), (24, 717), (1, 1), (3, 32), (3, 33)])
+def test_wide_selection_grid_covers_every_query_once(B, N):
+    plan = cuda_knn.knn_plan(B, N, 1433, 40)
+    gx, gy = plan["grid"]
+    assert gy == B
+    # block x: queries [32 x, 32 x + 32), warp w of W takes w, w + W, ...
+    warps = plan["threads"] // 32
+    owned = sorted(x * cuda_knn.WIDE_QUERIES + q for x in range(gx)
+                   for w in range(warps) for q in range(w, cuda_knn.WIDE_QUERIES, warps))
+    assert [q for q in owned if q < N] == list(range(N))
+    assert (gx - 1) * cuda_knn.WIDE_QUERIES < N

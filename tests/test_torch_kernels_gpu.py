@@ -13,7 +13,7 @@ from ogmm_tpu_torch import configs
 from ogmm_tpu_torch.api import Registrar
 from ogmm_tpu_torch.ops import dispatch
 from ogmm_tpu_torch.ops import dgcnn_train as ops_dgcnn_train
-from ogmm_tpu_torch.ops.cuda_dgcnn import (KERNEL_KS, dgcnn_eval,
+from ogmm_tpu_torch.ops.cuda_dgcnn import (CHUNK_KS, dgcnn_eval,
                                            dgcnn_eval_reference)
 from ogmm_tpu_torch.ops.cuda_dgcnn_bwd import (KERNEL_STAGES, bwd_edge,
                                               bwd_edge_reference, bwd_reduce,
@@ -39,7 +39,9 @@ NONE = {name: 0 for name in dispatch.KERNELS}
 # stage chains are compiled for (8, 12, ..., 32), k below 8 and k padded
 # up to the next multiple of 4 (the rows past k repeat the nearest)
 GPU_KS = (1, 4, 5, 8, 10, 12, 16, 20, 23, 25, 28, 32)
-assert set(GPU_KS) <= set(KERNEL_KS)
+assert set(GPU_KS) <= set(CHUNK_KS)
+# above 32: the wide selection, the stage chain in chunks of 32
+WIDE_KS = (33, 40, 64, 300)
 
 
 @pytest.fixture
@@ -82,7 +84,7 @@ def test_dgcnn_kernel_ties_and_no_angles(card):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("kwargs,match", [(dict(k=33), "1 <= k <= 32"),
+@pytest.mark.parametrize("kwargs,match", [(dict(k=65), "k <= N"),
                                           (dict(dtype=torch.float16), "dtype")])
 def test_dgcnn_kernel_refuses_what_it_does_not_take(card, kwargs, match):
     x, ws, aff = _dgcnn_inputs(np.random.RandomState(2), card, 1, 64, 64)
@@ -182,8 +184,8 @@ def test_graph_stage1_kernel_ties_and_no_angles(card):
 def test_graph_stage1_kernel_refuses_what_it_does_not_take(card):
     x = torch.zeros(1, 64, 3, device=card)
     w1 = torch.zeros(6, 64, device=card)
-    with pytest.raises(ValueError, match="1 <= k <= 32"):
-        graph_stage1(x, w1, k=33)
+    with pytest.raises(ValueError, match="k <= N"):
+        graph_stage1(x, w1, k=65)
     with pytest.raises(ValueError, match="N="):
         graph_stage1(torch.zeros(1, 1100, 3, device=card), w1)
     with pytest.raises(ValueError, match="w1"):
@@ -270,7 +272,7 @@ def test_nn1_takes_the_first_of_equal_minima_across_lanes(card, lanes, rows, M):
 
 
 @pytest.mark.parametrize("B,N", [(24, 717), (1, 1024), (2, 20)])
-@pytest.mark.parametrize("k", GPU_KS)
+@pytest.mark.parametrize("k", GPU_KS + WIDE_KS[:3])
 @pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 0.0313)])
 def test_graph_stage1_kernel_every_k_matches_plain_and_is_fixed(card, B, N, k,
@@ -293,7 +295,8 @@ def test_graph_stage1_kernel_every_k_matches_plain_and_is_fixed(card, B, N, k,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("B,N,k", [(48, 717, 20), (2, 1024, 16), (3, 20, 8)])
+@pytest.mark.parametrize("B,N,k", [(48, 717, 20), (2, 1024, 16), (3, 20, 8),
+                                   (4, 717, 40), (2, 1024, 1024), (3, 33, 33)])
 def test_dgcnn_eval_selection_equals_the_plain_graph(card, B, N, k):
     x, ws, aff = _dgcnn_inputs(np.random.RandomState(N), card, B, N, 64)
     x[:, N // 2] = x[:, 1]
@@ -357,7 +360,7 @@ def test_registrar_runs_on_the_card_by_default(card, dtype, lim):
 
 # ------------------------------------------- routing by shape (fault C.1)
 
-@pytest.mark.parametrize("k", GPU_KS)
+@pytest.mark.parametrize("k", GPU_KS + WIDE_KS)
 @pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 0.0625)])
 def test_dgcnn_kernels_take_every_compiled_k(card, k, dtype, lim):
@@ -379,7 +382,9 @@ def test_dgcnn_kernels_take_every_compiled_k(card, k, dtype, lim):
                                      (24, 1433, 1433, 20), (24, 717, 717, 20),
                                      (24, 4096, 4096, 20), (4, 1000, 257, 32),
                                      (3, 70, 40, 7), (2, 50, 3, 2),
-                                     (24, 717, 717, 16)])
+                                     (24, 717, 717, 16), (24, 717, 717, 40),
+                                     (4, 1433, 1433, 64), (2, 300, 257, 257),
+                                     (2, 1024, 4096, 1024), (1, 40, 4096, 4096)])
 def test_knn_kernel_matches_plain(card, B, N, M, k):
     rs = np.random.RandomState(N + M + k)
     tgt = torch.tensor(rs.randn(B, M, 3).astype(np.float32) * 0.3, device=card)
@@ -398,7 +403,7 @@ def test_knn_kernel_many_coincident_points(card):
     rs = np.random.RandomState(11)
     x = torch.tensor(rs.randn(2, 600, 3).astype(np.float32), device=card)
     x[:, 100:400] = x[:, :1]
-    for k in (1, 20, 32):
+    for k in (1, 20, 32, 40, 350):
         assert torch.equal(knn(x, x, k), knn_reference(x, x, k))
 
 
@@ -406,10 +411,10 @@ def test_knn_kernel_refuses_what_it_does_not_take(card):
     x = torch.zeros(1, 8, 3, device=card)
     with pytest.raises(ValueError, match="M <= 4096"):
         knn(x, torch.zeros(1, 4097, 3, device=card), 5)
-    with pytest.raises(ValueError, match="k <= min"):
+    with pytest.raises(ValueError, match="k <= M"):
         knn(x, x, 9)
-    with pytest.raises(ValueError, match="k <= min"):
-        knn(torch.zeros(1, 64, 3, device=card), torch.zeros(1, 64, 3, device=card), 33)
+    with pytest.raises(ValueError, match="k <= M"):
+        knn(torch.zeros(1, 64, 3, device=card), torch.zeros(1, 64, 3, device=card), 65)
     with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
         knn(torch.zeros(1, 8, 2, device=card), torch.zeros(1, 9, 2, device=card), 2)
 
@@ -452,15 +457,16 @@ def test_em_kernel_takes_any_k_up_to_128(card, B, N, K):
 @pytest.mark.parametrize("over,N,launched", [
     (dict(), 1100, {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
     (dict(gnn_k=12), 300, {"dgcnn_eval": 1, "sinkhorn_em": 1, "nn1": 1}),
-    (dict(gnn_k=33), 300, {"posenc_angles": 1, "sinkhorn_em": 1, "nn1": 1}),
+    (dict(gnn_k=33), 300, {"dgcnn_eval": 1, "sinkhorn_em": 1, "nn1": 1}),
     (dict(gnn_k=16), 300, {"dgcnn_eval": 1, "sinkhorn_em": 1, "nn1": 1}),
     (dict(n_clusters=16), 2048, {"knn": 1, "sinkhorn_em": 1, "nn1": 1}),
     # C.2: an emb the eval kernel does not take runs the unfused chain
     (dict(emb_dims=96), 300, {"knn": 1, "posenc_angles": 1, "sinkhorn_em": 1,
                               "nn1": 1}),
-    # C.3: dgcnn_fused_edges where the edges kernel does not take k or emb
-    # (the plain kNN at k = 33)
-    (dict(gnn_k=33, dgcnn_fused_edges=True), 1100, {"sinkhorn_em": 1, "nn1": 1}),
+    # C.3: dgcnn_fused_edges; the edges kernel takes k = 33 (in chunks), the
+    # kNN kernel its graph
+    (dict(gnn_k=33, dgcnn_fused_edges=True), 1100,
+     {"knn": 1, "dgcnn_edges": 1, "sinkhorn_em": 1, "nn1": 1}),
     (dict(gnn_k=12, dgcnn_fused_edges=True), 1100,
      {"knn": 1, "dgcnn_edges": 1, "sinkhorn_em": 1, "nn1": 1}),
     (dict(emb_dims=96, dgcnn_fused_edges=True), 1100,
@@ -980,8 +986,8 @@ def test_indoor_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros(1, 10, 48, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D in"):
         cuda_stream.wproject_stream_lse(q, q, torch.zeros(1, 10, 1, device=card))
-    _, ws, aff = _dgcnn_inputs(np.random.RandomState(0), card, 1, 8, 64)
-    with pytest.raises(ValueError, match="1 <= k <= 32"):
+    _, ws, aff = _dgcnn_inputs(np.random.RandomState(0), card, 1, 8, 96)
+    with pytest.raises(ValueError, match="emb a multiple of 64"):
         dgcnn_edges(x, torch.zeros(1, 100, 33, 3, device=card), ws, aff, 33)
 
 
@@ -1192,15 +1198,16 @@ def test_dgcnn_kernel_ragged_point_tiles(card, N, k, emb, dtype, lim):
 
 
 @pytest.mark.parametrize("N", [37, 35000])
+@pytest.mark.parametrize("k", [20, 40])
 @pytest.mark.parametrize("dtype,lim", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 0.0625)])
-def test_dgcnn_edges_kernel_any_n(card, N, dtype, lim):
+def test_dgcnn_edges_kernel_any_n(card, N, k, dtype, lim):
     rs = np.random.RandomState(N)
     x, ws, aff = _dgcnn_inputs(rs, card, 2, N, 512)
-    nbr = x[:, torch.tensor(rs.randint(0, N, (N, 20)), device=card)]
-    out = dgcnn_edges(x, nbr, ws, aff, 20, dtype)
-    again = dgcnn_edges(x, nbr, ws, aff, 20, dtype)
-    ref = dgcnn_edges_reference(x, nbr, ws, aff, 20, dtype)
+    nbr = x[:, torch.tensor(rs.randint(0, N, (N, k)), device=card)]
+    out = dgcnn_edges(x, nbr, ws, aff, k, dtype)
+    again = dgcnn_edges(x, nbr, ws, aff, k, dtype)
+    ref = dgcnn_edges_reference(x, nbr, ws, aff, k, dtype)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= lim
     assert torch.equal(out, again)

@@ -3,9 +3,11 @@
 posenc_angles_reference`) against the JAX package's Pallas kernels in
 interpret mode and its dense `knn`, the plain routes of `ops.common.knn`
 and `ops.common.nn1` (dense, query chunks) against each other, and the
-dense kNN kernel's selection (four lanes a query, a shared threshold, the
-lists merged by rank, at the compiled list length) mirrored in Python
-against the plain version.
+dense kNN kernel's selections mirrored in Python against the plain version:
+four lanes a query, a shared threshold, the lists merged by rank, at the
+compiled list length (k <= 32); above k = 32 the bisection of the distance
+bits, the ties taken in index order and the bitonic sort
+(`csrc/knn_wide.cuh`).
 
 The port forms distances in one fixed float32 order (`square_distance3`),
 the JAX package as an einsum: the two may order neighbours differently only
@@ -51,14 +53,21 @@ def _assert_same_up_to_ties(got, want, src, tgt):
     assert differ.mean() < 0.01, differ.mean()
 
 
-@pytest.mark.parametrize("M", [300, 257])
-@pytest.mark.parametrize("k", [5, 20])
+@pytest.mark.parametrize("k,M", [(5, 300), (5, 257), (20, 300), (20, 257),
+                                 # above 32, to k = M: the JAX kernel's
+                                 # envelope, which the port's kernel takes
+                                 (33, 96), (40, 96), (64, 96), (96, 96),
+                                 (33, 200), (40, 200), (64, 200), (200, 200)])
 def test_knn_plain_version_matches_jax(M, k):
     src, tgt = _clouds(M + k, 2, 300, M)
     got = knn_reference(t(src), t(tgt), k)
     assert got.dtype == torch.int64 and got.shape == (2, 300, k)
     pallas = knn_pallas(jnp.asarray(src), jnp.asarray(tgt), k, interpret=True)
     dense = jcommon.knn(jnp.asarray(src), jnp.asarray(tgt), k, use_pallas=False)
+    if k > 32:
+        # the Pallas kernel's float32 distances pick the same points in the
+        # same order here, ties (the duplicated point) to the lowest index
+        np.testing.assert_array_equal(n(got), np.asarray(pallas))
     _assert_same_up_to_ties(n(got), pallas, src, tgt)
     _assert_same_up_to_ties(n(got), dense, src, tgt)
     # ascending distance along k, the nearest point of a self kNN is itself
@@ -295,3 +304,69 @@ def test_nn1_plan_of_the_shape_equals_plain(B, N, M):
         d = n(tcommon.square_distance3(t(src[b:b + 1]), t(tgt[b:b + 1])))[0]
         got_d, got_i = _nn1_lanes_mirror(d, plan.lanes)
         assert np.array_equal(got_i, n(ri)[b]) and np.array_equal(got_d, n(rd)[b])
+
+
+def _dense_wide(d, k):
+    """The selection of csrc/knn_wide.cuh for one cloud's (N, M) float32
+    distances: the keys are the distances' bits; T, the k-th smallest key,
+    is set bit by bit from bit 30 where fewer than k keys lie below it; the
+    points below T and the first k - (points below T) at T, in index order,
+    padded with (inf, INT_MAX) to the list's length and sorted by the
+    bitonic network of the kernel, lane loop and all."""
+    N, M = d.shape
+    keys = np.ascontiguousarray(d, dtype=np.float32).view(np.uint32)
+    assert (keys < 2 ** 31).all()
+    T = np.zeros(N, np.uint32)
+    for bit in range(30, -1, -1):
+        cand = T | np.uint32(1 << bit)
+        below = (keys < cand[:, None]).sum(1)
+        T = np.where(below < k, cand, T)
+    need = k - (keys < T[:, None]).sum(1)
+    assert (need >= 1).all()
+    at = keys == T[:, None]
+    take = (keys < T[:, None]) | (at & (np.cumsum(at, 1) - at < need[:, None]))
+    assert (take.sum(1) == k).all()
+    size = 32
+    while size < k:
+        size *= 2
+    lk = np.full((N, size), np.uint32(0xFFFFFFFF))
+    li = np.full((N, size), 2 ** 31 - 1, np.int64)
+    for r in range(N):
+        sel = np.nonzero(take[r])[0]
+        lk[r, :k], li[r, :k] = keys[r, sel], sel
+    rows = np.arange(N)[:, None]
+    s = 2
+    while s <= size:
+        stride = s // 2
+        while stride > 0:
+            tt = np.arange(size // 2)
+            lo = 2 * tt - (tt & (stride - 1))
+            hi = lo + stride
+            ka, kb, ia, ib = lk[:, lo], lk[:, hi], li[:, lo], li[:, hi]
+            swap = ((ka > kb) | ((ka == kb) & (ia > ib))) == ((lo & s) == 0)[None]
+            lk[rows, lo[None]], lk[rows, hi[None]] = (np.where(swap, kb, ka),
+                                                      np.where(swap, ka, kb))
+            li[rows, lo[None]], li[rows, hi[None]] = (np.where(swap, ib, ia),
+                                                      np.where(swap, ia, ib))
+            stride //= 2
+        s *= 2
+    return li[:, :k]
+
+
+@pytest.mark.parametrize("M,k", [(96, 33), (96, 40), (96, 64), (96, 96),
+                                 (200, 33), (200, 200), (257, 100)])
+@pytest.mark.parametrize("case", ["random", "coincident"])
+def test_wide_selection_mirror_equals_plain(M, k, case):
+    # the selection above k = 32 (knn.cu, dgcnn_eval.cu, graph_stage1.cu)
+    # against the plain version's k passes of argmin and mask, on clouds with
+    # a duplicated point and with sites of many coincident points (ties at
+    # T: the first ones in index order)
+    src, tgt = _clouds(M + k, 1, 60, M)
+    if case == "coincident":
+        tgt[0, :, 0] = np.arange(M) // 7 * 0.01
+        tgt[0, :, 1:] = 0.0
+        src[0] = tgt[0, :60]
+    d = n(tcommon.square_distance3(t(src), t(tgt)))[0]
+    got = _dense_wide(d, k)
+    want = n(knn_reference(t(src), t(tgt), k))[0]
+    np.testing.assert_array_equal(got, want)

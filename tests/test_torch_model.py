@@ -155,21 +155,31 @@ def test_forward_one_em_trip_matches_jax_fp32():
     np.testing.assert_allclose(n(tclu), n(jclu), rtol=1e-3)
 
 
-def test_forward_one_em_trip_matches_jax_fp32_at_gnn_k12():
-    """A graph of 12 neighbours (gnn_k=12, the fused route on the card)
-    through the whole eval forward, tightly as at one EM trip above."""
-    jm, v, tm = _models(em_iters=1, gnn_k=12)
-    src, tgt, _, _ = _pair_of_clouds(16)
+def _one_trip_at_gnn_k(gnn_k, seed):
+    jm, v, tm = _models(em_iters=1, gnn_k=gnn_k)
+    src, tgt, _, _ = _pair_of_clouds(seed)
     jr, jt, jso, jto, jclu = jm.apply(v, jnp.asarray(src), jnp.asarray(tgt),
                                       train=False)
     with torch.no_grad():
         tr, tt, tso, tto, tclu = tm(t(src), t(tgt))
-    assert tm.dgcnn.k == 12
+    assert tm.dgcnn.k == gnn_k
     np.testing.assert_allclose(n(tso), n(jso), atol=1e-4)
     np.testing.assert_allclose(n(tto), n(jto), atol=1e-4)
     np.testing.assert_allclose(n(tr), n(jr), atol=2e-3)
     np.testing.assert_allclose(n(tt), n(jt), atol=2e-3)
     np.testing.assert_allclose(n(tclu), n(jclu), rtol=1e-3)
+
+
+def test_forward_one_em_trip_matches_jax_fp32_at_gnn_k12():
+    """A graph of 12 neighbours (gnn_k=12, the fused route on the card)
+    through the whole eval forward, tightly as at one EM trip above."""
+    _one_trip_at_gnn_k(12, 16)
+
+
+def test_forward_one_em_trip_matches_jax_fp32_at_gnn_k40():
+    """The DGCNN authors' k = 40 (the fused route on the card: the wide
+    selection and the stage chain in chunks of 32 and 8), as at k = 12."""
+    _one_trip_at_gnn_k(40, 17)
 
 
 def test_forward_ten_em_trips_matches_jax_fp32():

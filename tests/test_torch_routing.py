@@ -5,9 +5,10 @@ The JAX side is observed, not restated: with its kernels switched on
 (`pallas_override(True)`, the accelerator's rule) its kernels and plain
 paths are replaced by stubs that raise `Taken(name)`, and the name that
 comes back is the route it chose. Where the JAX package runs a kernel whose
-envelope is wider than the port's (k > 32, points of C != 3, the EM above
-the port's shared memory), the port takes the route the JAX package takes
-off its accelerator (`pallas_override(False)`)."""
+envelope is wider than the port's (k > 32 for the streamed kNN, the angles
+and the backward kernels, points of C != 3, the EM above the port's shared
+memory), the port takes the route the JAX package takes off its accelerator
+(`pallas_override(False)`)."""
 import dataclasses
 
 import jax
@@ -37,9 +38,9 @@ from ogmm_tpu_torch.nn.attention import angle_route
 from ogmm_tpu_torch.nn import dgcnn as tdgcnn
 from ogmm_tpu_torch.nn.dgcnn import edges_route, fused_route
 from ogmm_tpu_torch.ops import common as tcommon
-from ogmm_tpu_torch.ops import cuda_em, cuda_icp, cuda_mlp
+from ogmm_tpu_torch.ops import cuda_dgcnn, cuda_em, cuda_icp, cuda_mlp, cuda_posenc
 from ogmm_tpu_torch.ops import icp as ticp
-from ogmm_tpu_torch.ops.cuda_dgcnn import KERNEL_KS, KERNEL_MAX_N, kernel_takes
+from ogmm_tpu_torch.ops.cuda_dgcnn import CHUNK_KS, KERNEL_MAX_N, kernel_takes
 from ogmm_tpu_torch.ops.gmm import em_route
 
 from torch_port_util import clouds, n, randomise_stats, t, to_plain
@@ -93,7 +94,8 @@ def test_knn_route_follows_the_jax_rule(knn_stubs, N, k):
     for B, M, C in [(2, N, 3), (1, 300, 3), (2, N, 6)]:
         jax_route = _jax_knn(B, N, M, k, C, True)
         port = tcommon.knn_route(B, N, M, C, k)
-        if jax_route == "kernel" and C == 3 and k <= tcommon.KNN_KERNEL_MAX_K:
+        if jax_route == "kernel" and C == 3:
+            # every k <= M <= 4096, k = 33 too: the JAX kernel's envelope
             assert port == "kernel", (B, N, M, C, k)
         elif jax_route == "stream" and C == 3 and k <= tcommon.STREAM_MAX_K:
             assert port == "stream", (B, N, M, C, k)
@@ -110,10 +112,17 @@ def test_knn_route_follows_the_jax_rule(knn_stubs, N, k):
                                         (4, 4097, 4097, "chunked")])
 def test_plain_routes_switch_at_64_mi_elements(knn_stubs, B, N, M, want):
     # at B N M = 2^26 the dense matrix, above it query chunks, where the
-    # port has no kernel (k = 33; the 1-NN of 4-D points); 3-D points
-    # above M = 4096 stream, as on the JAX package's accelerator
-    assert tcommon.knn_route(B, N, M, 3, 33) == _jax_knn(B, N, M, 33, 3, False,
-                                                         same=False) == want
+    # port has no kernel (4-D points; k = 33 above M = 4096, past the
+    # streamed kernel's lists; the 1-NN of 4-D points); 3-D points at
+    # M <= 4096 take the kernel at k = 33 and above M = 4096 stream at
+    # k <= 32, as on the JAX package's accelerator
+    assert _jax_knn(B, N, M, 33, 3, False, same=False) == want
+    assert _jax_knn(B, N, M, 33, 4, False, same=False) == want
+    assert tcommon.knn_route(B, N, M, 4, 33) == want
+    if M <= tcommon.KERNEL_MAX_M:
+        assert tcommon.knn_route(B, N, M, 3, 33) == "kernel"
+    else:
+        assert tcommon.knn_route(B, N, M, 3, 33) == want
     if M > tcommon.KERNEL_MAX_M:
         assert tcommon.knn_route(B, N, M, 3, 20) == "stream"
         with pallas_override(False):
@@ -214,25 +223,27 @@ def test_dgcnn_route_follows_the_jax_rule(monkeypatch, dgcnn_variables, N, k,
         jax_route = _taken(lambda: jm.apply(dgcnn_variables, x, train=train,
                                             mutable=["batch_stats"]))
     port = fused_route(N, k, train, False, fused_train is not False)
-    # the port's kernels take k <= 32 and k <= N <= 1024 (a forced JAX
-    # fused_train=True runs its custom VJP at any N); elsewhere the JAX
-    # package's unfused route; at k <= 32 and k <= N <= 1024 the JAX rule
-    # itself
-    assert port == (jax_route == "fused" and k in KERNEL_KS
-                    and k <= N <= KERNEL_MAX_N)
-    if k <= 32 and k <= N <= KERNEL_MAX_N:
+    # the port's kernels take every 1 <= k <= N <= 1024, k = 33 too (a
+    # forced JAX fused_train=True runs its custom VJP at any N); elsewhere
+    # the JAX package's unfused route; at k <= N <= 1024 the JAX rule itself
+    assert port == (jax_route == "fused" and k <= N <= KERNEL_MAX_N)
+    if k <= N <= KERNEL_MAX_N:
         assert port == (jax_route == "fused")
     # a given graph always takes the unfused route in the port
     assert not fused_route(N, k, train, True, fused_train is not False)
 
 
 def test_the_kernels_take_the_modelnet_and_the_c1_graphs():
-    assert set(KERNEL_KS) == set(range(1, 33))
-    # one envelope for both eval kernels and both routes: every k from 1 to
-    # 32, emb a multiple of 64
-    assert all(kernel_takes(k, emb) for k in range(1, 33) for emb in (64, 512))
+    # a stage launch takes 1 to 32 neighbours a point; above, the chain runs
+    # in chunks of them
+    assert set(CHUNK_KS) == set(range(1, 33))
+    # one envelope for both eval kernels and both routes: every k >= 1
+    # (k = 33 and the DGCNN authors' k = 40 too), emb a multiple of 64
+    assert all(kernel_takes(k, emb) for k in (*range(1, 33), 33, 40, 64, 1024)
+               for emb in (64, 512))
+    assert kernel_takes(33, 64) and kernel_takes(33, 512)
     assert not any(kernel_takes(k, emb) for k, emb in
-                   ((33, 64), (20, 96), (20, 32), (33, 512), (20, 0), (0, 64)))
+                   ((20, 96), (20, 32), (33, 96), (20, 0), (0, 64)))
 
 
 # the faults C.2 and C.3: where the JAX package runs its eval or edges
@@ -286,6 +297,9 @@ def test_c2_eval_at_an_emb_the_kernel_does_not_take(monkeypatch,
 @pytest.mark.parametrize("k,emb", [(33, 64), (20, 96)])
 def test_c3_fused_edges_where_the_kernel_does_not_take_k_or_emb(
         monkeypatch, dgcnn_variables, k, emb):
+    # the edges kernel takes any k (above 32 its stage chain runs in
+    # chunks), so k = 33 takes it, as the JAX kernel does; emb 96 it does
+    # not take, and the unfused chain runs
     _stub(monkeypatch, jpallas_dgcnn, "dgcnn_eval_pallas", "fused")
     _stub(monkeypatch, jpallas_dgcnn, "dgcnn_edges_pallas", "edges")
     graph = jnp.zeros((1, 1100, 20), jnp.int32)
@@ -297,7 +311,8 @@ def test_c3_fused_edges_where_the_kernel_does_not_take_k_or_emb(
     # the JAX package runs its edges kernel at any k and emb
     assert jax_route == "edges"
     assert edges_route(1100, False, True, True, k=20, emb=64)
-    assert not edges_route(1100, False, True, True, k=k, emb=emb)
+    takes = emb % 64 == 0
+    assert edges_route(1100, False, True, True, k=k, emb=emb) == takes
     # the refusals stay where the JAX package refuses, whatever k and emb
     for train, have_graph in ((True, True), (False, False)):
         with pytest.raises(ValueError, match="fused_edges=True needs"):
@@ -305,8 +320,12 @@ def test_c3_fused_edges_where_the_kernel_does_not_take_k_or_emb(
     x, v, tm = _dgcnn_pair(monkeypatch, emb, k, 1100, 5)
     idx = np.asarray(jcommon.knn(jnp.asarray(x), jnp.asarray(x), k,
                                  use_pallas=False)).astype(np.int64)
+    if takes:
+        assert _taken(lambda: tm(t(x), nbr_idx=torch.from_numpy(idx))) == "edges"
+        # the edges kernel's plain version on the CPU
+        monkeypatch.setattr(tdgcnn, "dgcnn_edges", cuda_dgcnn.dgcnn_edges)
     with torch.no_grad():
-        got = tm(t(x), nbr_idx=torch.from_numpy(idx))   # unfused
+        got = tm(t(x), nbr_idx=torch.from_numpy(idx))   # edges or unfused
     with pallas_override(False):
         want = jdgcnn.DGCNN(emb_dims=emb, k=k, fused=False).apply(
             v, jnp.asarray(x), train=False, nbr_idx=jnp.asarray(idx))
@@ -343,6 +362,8 @@ def test_angle_route_follows_the_jax_rule(monkeypatch, posenc_variables, N, k,
                                             nbr_idx=graph, alpha=alpha)) \
             or "given"
     port = angle_route(N, k, have_alpha, have_graph)
+    # the port's angle kernel keeps its register lists: k <= 32
+    assert cuda_posenc.KERNEL_MAX_K == 32
     if jax_route == "kernel" and not (k <= 32 and k <= N):
         assert port == "knn"
     else:
@@ -638,9 +659,10 @@ def _jax_bwd_route(monkeypatch, k, N):
 @pytest.mark.parametrize("k", list(range(1, 34)))
 def test_backward_kernels_follow_the_jax_rule(monkeypatch, k, N):
     # the JAX package sends stages 4..1 through its three backward kernels
-    # at any k whenever N <= 1024; the port's kernels take the graph
-    # kernel's envelope, 1 <= k <= 32 (k <= N): k = 33 is the port's named
-    # departure and takes the plain backward, as graph_stage1 does
+    # at any k whenever N <= 1024; the port's kernels take 1 <= k <= 32
+    # (k <= N, their row classes): k = 33 is the port's named departure and
+    # takes the plain backward, while graph_stage1, the forward's graph
+    # kernel, takes it as the JAX rule does
     from ogmm_tpu_torch.ops import dgcnn_train as tdgcnn_train
     from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_takes
     N = k if N == "k" else N
@@ -648,5 +670,35 @@ def test_backward_kernels_follow_the_jax_rule(monkeypatch, k, N):
     assert jax_route == ("kernels" if N <= 1024 else "plain")
     port = tdgcnn_train.bwd_kernels_take(k, N)
     assert port == (jax_route == "kernels" and k <= 32)
-    # the envelope is the graph kernel's, one definition for both
-    assert port == graph_takes(k, N)
+    # the graph kernel's envelope is the JAX rule's; the backward's is it
+    # cut at 32
+    assert graph_takes(k, N) == (jax_route == "kernels" and k <= N)
+    assert port == (graph_takes(k, N) and k <= 32)
+
+
+@pytest.mark.parametrize("k", [33, 40, 1024])
+def test_the_kernels_that_stay_at_32(monkeypatch, knn_stubs, k):
+    # above k = 32 the JAX package runs a kernel where the port runs plain:
+    # the backward kernels (rows 5-7, their row classes), the streamed kNN
+    # (row 11, its register lists, STREAM_MAX_K) and the angles (row 9, its
+    # lists); rows 1, 3, 8 and 10 take the same k
+    from ogmm_tpu_torch.ops import dgcnn_train as tdgcnn_train
+    from ogmm_tpu_torch.ops.cuda_dgcnn_train import graph_takes
+    assert _jax_bwd_route(monkeypatch, k, 1024) == "kernels"
+    assert graph_takes(k, 1024) and not tdgcnn_train.bwd_kernels_take(k, 1024)
+    # row 11: the streamed route above M = 4096 (3-D points), the
+    # Morton-sorted graph above N = 4096
+    assert _jax_knn(1, 4097, 4097, k, 3, True) == "stream"
+    assert tcommon.knn_route(1, 4097, 4097, 3, k) == _jax_knn(1, 4097, 4097, k, 3, False)
+    assert tcommon.knn_route(1, 4097, 4097, 3, k) not in ("kernel", "stream")
+    assert k > tcommon.STREAM_MAX_K and not tcommon.vspace_route(4097, 3, k)
+    # row 8 takes every k <= M <= 4096
+    assert _jax_knn(1, 1024, 4096, k, 3, True, same=False) == "kernel"
+    assert tcommon.knn_route(1, 1024, 4096, 3, k) == "kernel"
+    # row 9: the angle kernel's own limit
+    assert angle_route(1024, k, False, False) == "knn"
+    with pytest.raises(ValueError, match="posenc_angles kernel takes"):
+        cuda_posenc.posenc_plan(1, 1024, k)
+    # rows 1 and 10 take it
+    assert fused_route(1024, k, False, False) and fused_route(1024, k, True, False)
+    assert edges_route(4097, False, True, True, k=k, emb=512)

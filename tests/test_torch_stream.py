@@ -264,21 +264,26 @@ def _edges_inputs(seed, dtype, N=70, k=6, emb=64):
     return x, nbr, ws, aff
 
 
-@pytest.mark.parametrize("dtype,rtol,atol", [(jnp.float32, 1e-4, 2e-5),
-                                             (jnp.bfloat16, 0.1, 0.05)])
-def test_dgcnn_edges_matches_jax_kernel(dtype, rtol, atol):
+@pytest.mark.parametrize("dtype,rtol,atol,k", [
+    pytest.param(jnp.float32, 1e-4, 2e-5, 6, id="float32-0.0001-2e-05"),
+    pytest.param(jnp.bfloat16, 0.1, 0.05, 6, id="bfloat16-0.1-0.05"),
+    # above 32 (the kernel's stage chain in chunks of 32)
+    *[pytest.param(dt, rt, at, k, id=f"{dt.__name__}-k{k}")
+      for k in (33, 40, 64) for dt, rt, at in ((jnp.float32, 1e-4, 2e-5),
+                                               (jnp.bfloat16, 0.1, 0.05))]])
+def test_dgcnn_edges_matches_jax_kernel(dtype, rtol, atol, k):
     # the bars of kernel 1's plain version against its Pallas kernel
     # (tests/test_torch_dgcnn.py)
-    x, nbr, ws, aff = _edges_inputs(8, dtype)
+    x, nbr, ws, aff = _edges_inputs(8, dtype, k=k)
     want = dgcnn_edges_pallas(jnp.asarray(x), jnp.asarray(nbr),
                               [jnp.asarray(w) for w in ws],
                               [(jnp.asarray(s), jnp.asarray(b)) for s, b in aff],
-                              k=6, tile_n=32, dtype=dtype, interpret=True)
+                              k=k, tile_n=32, dtype=dtype, interpret=True)
     tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
     tws, taff = [t(w) for w in ws], [(t(s), t(b)) for s, b in aff]
-    got = dgcnn_edges(t(x), t(nbr), tws, taff, k=6, dtype=tdt)
+    got = dgcnn_edges(t(x), t(nbr), tws, taff, k=k, dtype=tdt)
     assert got.dtype == tdt and got.shape == (2, 70, 64)
-    assert torch.equal(got, dgcnn_edges_reference(t(x), t(nbr), tws, taff, 6, tdt))
+    assert torch.equal(got, dgcnn_edges_reference(t(x), t(nbr), tws, taff, k, tdt))
     np.testing.assert_allclose(n(got), n(want), rtol=rtol, atol=atol)
 
 

@@ -38,13 +38,14 @@ TINY_MODEL = dict(emb_dims=32, n_clusters=8, km_clusters=8, num_heads=2,
 B, N = 4, 48
 
 
-def _cfgs(**train):
+def _cfgs(model=None, **train):
     tr = dict(n_keypoints=16, **train)
+    tiny = {**TINY_MODEL, **(model or {})}
     jc = jconfigs.mnet()
-    jc = jc.replace(model=dataclasses.replace(jc.model, **TINY_MODEL,
+    jc = jc.replace(model=dataclasses.replace(jc.model, **tiny,
                                               dgcnn_fused_train=True),
                     train=dataclasses.replace(jc.train, **tr))
-    tc = tconfigs.mnet(model=tconfigs.ModelConfig(**TINY_MODEL))
+    tc = tconfigs.mnet(model=tconfigs.ModelConfig(**tiny))
     tc = tc.replace(train=dataclasses.replace(tc.train, **tr))
     return jc, tc
 
@@ -69,7 +70,11 @@ def _batch(seed=0):
 def jax_step():
     """One seeded JAX init (BatchNorm statistics randomised) and the JAX
     loss, gradients and new running statistics of one step."""
-    jc, tc = _cfgs()
+    return _jax_step()
+
+
+def _jax_step(**model):
+    jc, tc = _cfgs(model)
     model = JGMMReg(cfg=jc.model)
     batch = _batch()
     src, tgt = jnp.asarray(batch["src_xyz"]), jnp.asarray(batch["tgt_xyz"])
@@ -115,7 +120,16 @@ def _rel(a, b):
 
 
 def test_one_train_step_matches_jax_value_and_grad(jax_step):
-    d = jax_step
+    _check_one_step(jax_step)
+
+
+def test_one_train_step_matches_jax_at_gnn_k40():
+    # the DGCNN authors' k = 40: graph_stage1 (on the card its wide
+    # selection) writes 40 edge rows a point, the backward is the plain one
+    _check_one_step(_jax_step(gnn_k=40))
+
+
+def _check_one_step(d):
     state = _port_state(d)
     state.generator = None                   # anchors from index 0, as JAX
     loss, _ = train_loss(state, d["tc"], d["batch"])

@@ -28,7 +28,7 @@ def _w1(seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("k,posenc_k", [(8, 4), (20, 5)])
+@pytest.mark.parametrize("k,posenc_k", [(8, 4), (20, 5), (40, 5)])
 def test_graph_stage1_matches_pallas_interpret_and_jnp(dtype, k, posenc_k):
     x, w1 = clouds(21, B=2, N=72), _w1(21)
     tdt = getattr(torch, dtype)
